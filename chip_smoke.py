@@ -24,7 +24,20 @@ Phases (each one fails the run with a non-zero exit):
    masks on the card against the CPU's, and a small volume against the
    plain-attention extractor;
 6. sweep: the HDF5/parquet store through ``extract_isotropic_dataset``
-   when h5py, pandas and pyarrow import (it says which it did).
+   when h5py, pandas and pyarrow import (it says which it did);
+7. trainable kernels: K4 (window backward) and the K5 forward, dq and dkv
+   kernels at the fine-tuning path's shapes (SAM ViT-B/16 @1024, batch 2:
+   50 windows of 196 tokens, 2 x 4096 tokens; 12 heads of 64, bf16), each
+   output held against its plain PyTorch version; kernel, plain-version and
+   library (SDPA forward or backward with the dense bias as a trainable
+   ``attn_mask``) times and the card's bound;
+8. fine-tuning: ``FineTuner`` on full-width, full-depth SAM ViT-B/16 @1024
+   under ``fast``, batch 2, 5 steps on a fixed synthetic batch (the main
+   path of K4 and K5: launch counts per step, ms per step, img/s, peak
+   memory, the loss of every step, parameters moved);
+9. gradient check: one ``fast`` step's gradients at batch 1 through the
+   fused trainable kernels against the same weights through plain
+   attention under torch autograd.
 
 The line before the last is the kernels' JSON record, and the last line is
 ``{"ok": true, "device": {...}}``. Random weights from a seed; no network.
@@ -58,6 +71,21 @@ PEAKS = {
 RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 ATOL = {"fused_window_attention": {"float32": 2e-5, "bfloat16": 5e-3},
         "fused_global_attention": {"float32": 2e-5, "bfloat16": 1e-3}}
+# The trainable kernels (bf16 only), the same elementwise rule on each
+# output against the plain version in fp32 from the same bf16 inputs; the
+# lse residual is fp32 on both sides and held absolutely. Limits are about
+# 1.5 times the gap measured on an H100 SXM (PERF.md).
+# Measured: K4 1.135e-2 (dbias_w; dq 7.6e-3, dkv 6.7e-3), K5 forward
+# 5.6e-4 and lse 2.58e-3, dq 9.1e-4 (dbias_w), dkv 9.8e-4.
+TRAIN_ATOL = {"window_attention_bwd": 1.7e-2,
+              "global_attention_fwd_lse": 9e-4, "lse": 4e-3,
+              "global_attention_bwd_dq": 1.4e-3,
+              "global_attention_bwd_dkv": 1.5e-3}
+# Fine-tuning launches per step without remat (8 windowed, 4 global layers)
+STEP_LAUNCHES = {"fused_window_attention": 8, "fused_global_attention": 0,
+                 "window_attention_bwd": 8, "global_attention_fwd_lse": 4,
+                 "global_attention_bwd_dq": 4, "global_attention_bwd_dkv": 4}
+FT_STEPS = 5
 
 
 def log(*args):
@@ -160,19 +188,9 @@ def kernel_phase(torch, A, peaks):
             # library yardstick: SDPA on head-major q/k/v with the dense
             # bias as attn_mask (built outside the timed call)
             nseg = s // seg
-
-            def heads_of(x):
-                return x.reshape(b * nseg, seg, heads, d).transpose(
-                    1, 2).contiguous()
-
-            qh, kh_, vh = heads_of(q), heads_of(kv[..., :c]), \
-                heads_of(kv[..., c:])
-            seg_bias = [t.reshape(b, heads, nseg, seg, -1).transpose(1, 2)
-                        .reshape(b * nseg, heads, seg, -1)
-                        for t in (bh, bwt)]
-            mask = (seg_bias[0][..., :, None] + seg_bias[1][..., None, :]) \
-                .reshape(b * nseg, heads, seg, seg).contiguous()
-            del seg_bias
+            qh, kh_, vh = (_heads_of(t, nseg, seg, heads)
+                           for t in (q, kv[..., :c], kv[..., c:]))
+            mask = _dense_mask(bh, bwt, nseg, seg, heads)
             iters = 20 if name == "fused_window_attention" else 10
             ms = cuda_ms(torch, kern, iters)
             plain_ms = cuda_ms(torch, plain, 3)
@@ -233,7 +251,8 @@ def forward_phase(torch, A, vit, precision):
     counts = dict(A.LAUNCHES)
     log(f"forward fast B=4: {dt * 1e3:.2f} ms ({4 / dt:.2f} img/s), "
         f"launches {counts}, out {tuple(out.shape)} {out.dtype}")
-    if counts != {"fused_window_attention": 8, "fused_global_attention": 4}:
+    if counts != dict(dict.fromkeys(A.LAUNCHES, 0),
+                      fused_window_attention=8, fused_global_attention=4):
         raise AssertionError(f"launches per forward: {counts}")
     if tuple(out.shape) != (4, 64, 64, 256) or \
             not bool(torch.isfinite(out).all()):
@@ -299,8 +318,9 @@ def extraction_phase(torch, A, tex, syn, state):
     # it and copies the crops back
     log("extraction stages (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(ex.stats.items())))
-    expect = {"fused_window_attention": 8 * forwards,
-              "fused_global_attention": 4 * forwards}
+    expect = dict(dict.fromkeys(A.LAUNCHES, 0),
+                  fused_window_attention=8 * forwards,
+                  fused_global_attention=4 * forwards)
     if counts != expect:
         raise AssertionError(f"main-path launches {counts} != {expect}")
     for feats, masks, meta, n in outputs:
@@ -398,6 +418,272 @@ def sweep_phase(tex, syn, state):
             raise AssertionError("sweep store contract")
 
 
+def _sdpa_ms(torch, qh, kh, vh, mask, scale, dout=None):
+    """Library yardstick: one SDPA call on the memory-efficient backend
+    (forward, or with ``dout`` its backward through ``torch.autograd.grad``
+    on a retained graph, the dense bias a trainable ``attn_mask``).
+    Returns (ms, backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().requires_grad_(dout is not None)
+              for t in (qh, kh, vh, mask)]
+    backend = SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel([backend]):
+        def call():
+            return F.scaled_dot_product_attention(
+                *leaves[:3], attn_mask=leaves[3], scale=scale)
+        if dout is None:
+            return cuda_ms(torch, call, 5), backend.name
+        out = call()
+        return cuda_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True), 5), backend.name
+
+
+def _heads_of(x, nseg, seg, heads):
+    b = x.shape[0]
+    return x.reshape(b * nseg, seg, heads, -1).transpose(1, 2).contiguous()
+
+
+def _dense_mask(bh, bw, nseg, seg, heads):
+    b = bh.shape[0]
+    parts = [t.reshape(b, heads, nseg, seg, -1).transpose(1, 2)
+             .reshape(b * nseg, heads, seg, -1) for t in (bh, bw)]
+    return (parts[0][..., :, None] + parts[1][..., None, :]) \
+        .reshape(b * nseg, heads, seg, seg).contiguous()
+
+
+def train_kernel_phase(torch, A, G, peaks):
+    """K4 and the three K5 kernels at the fine-tuning path's shapes (B=2):
+    every output against the plain version, times, bounds."""
+    bw_peak, bf16_peak, _ = peaks
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    heads, d = 12, 64
+    c, scale, dt = heads * d, d ** -0.5, torch.bfloat16
+
+    def rand(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * s).to(dt)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def check(name, outs, refs, labels, rtol=2.0 ** -7, atol=None):
+        atol = TRAIN_ATOL[name] if atol is None else atol
+        worst = 0.0
+        for got, ref, label in zip(outs, refs, labels):
+            got, ref = got.float(), ref.float()
+            diff = (got - ref).abs()
+            err = diff.max().item()
+            gap = (diff - rtol * ref.abs()).max().item()
+            finite = bool(torch.isfinite(got).all())
+            log(f"kernel {name} {label}: max_abs_err {err:.3e} on max |ref| "
+                f"{ref.abs().max().item():.4f}; gap beyond {rtol:.4g}·|ref| "
+                f"{gap:.3e} (limit {atol:.1e})")
+            if not finite or not gap <= atol:
+                raise AssertionError(f"{name} {label} disagrees with its "
+                                     f"plain version: gap {gap} > {atol}")
+            worst = max(worst, err)
+        return worst
+
+    def record(name, src, replaces, err, ms, plain_ms, lib, nb, flops):
+        t_bytes, t_ops = nb / bw_peak * 1e3, flops / bf16_peak * 1e3
+        rec = {"name": name, "route": "cuda",
+               "source": f"vit_deep_radiomics_tpu_torch/csrc/{src}",
+               "replaces": replaces, "dtype": "bfloat16",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib[0], "library": f"sdpa {lib[1]}"}
+        log(f"kernel {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{lib[0]:.4f} (SDPA {lib[1]}) bound_ms {rec['bound_ms']:.4f} "
+            f"({rec['bound_by']}; {nb / 1e6:.1f} MB, {flops / 1e9:.1f} "
+            f"GFLOP)")
+        return rec
+
+    records = {}
+    # ---- K4: 50 windows of 14x14 tokens ----
+    nwin, seg = 50, 196
+    q, kv = rand(nwin, seg, c), rand(nwin, seg, 2 * c)
+    bh, bw = rand(nwin, heads, seg, 14, s=0.3), rand(nwin, heads, seg, 14,
+                                                     s=0.3)
+    kw = dict(num_heads=heads, window_tokens=seg, scale=scale)
+    out = A.fused_window_attention(q, kv, bh, bw, **kw)
+    dout = rand(nwin, seg, c)
+    args = (q, kv, bh, bw, out, dout)
+    got = G.window_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    err = check("window_attention_bwd", got,
+                G.window_attention_bwd_plain(*args, **kw),
+                ("dq", "dkv", "dbias_h", "dbias_w"))
+    ms = cuda_ms(torch, lambda: G.window_attention_bwd(*args, **kw), 20)
+    plain_ms = cuda_ms(torch, lambda: G.window_attention_bwd_plain(
+        *args, **kw), 3)
+    lib = _sdpa_ms(torch, _heads_of(q, 1, seg, heads),
+                   _heads_of(kv[..., :c], 1, seg, heads),
+                   _heads_of(kv[..., c:], 1, seg, heads),
+                   _dense_mask(bh, bw, 1, seg, heads), scale,
+                   _heads_of(dout, 1, seg, heads))
+    records["window_attention_bwd"] = record(
+        "window_attention_bwd", "window_attention_bwd.cu",
+        "vit_deep_radiomics_tpu/ops/attention_grad.py:671", err, ms,
+        plain_ms, lib, nbytes(*args, *got),
+        10.0 * nwin * heads * seg * seg * d)
+    del q, kv, bh, bw, out, dout, args, got
+    torch.cuda.empty_cache()
+
+    # ---- K5: 2 images x 4096 tokens ----
+    b, s = 2, 4096
+    q, kv = rand(b, s, c), rand(b, s, 2 * c)
+    bh, bw = rand(b, heads, s, 64, s=0.3), rand(b, heads, s, 64, s=0.3)
+    kw = dict(num_heads=heads, scale=scale)
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, None, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = G.global_attention_fwd_lse_plain(q, kv, bh, bw, None,
+                                                        **kw)
+    err = check("global_attention_fwd_lse", [out], [ref_out], ["out"])
+    err = max(err, check("global_attention_fwd_lse", [lse], [ref_lse],
+                         ["lse"], rtol=0.0, atol=TRAIN_ATOL["lse"]))
+    del ref_out, ref_lse
+    fwd_ms = cuda_ms(torch, lambda: G.global_attention_fwd_lse(
+        q, kv, bh, bw, None, **kw), 10)
+    fwd_plain = cuda_ms(torch, lambda: G.global_attention_fwd_lse_plain(
+        q, kv, bh, bw, None, **kw), 3)
+    qh, kh_, vh = (_heads_of(t, 1, s, heads)
+                   for t in (q, kv[..., :c], kv[..., c:]))
+    mask = _dense_mask(bh, bw, 1, s, heads)
+    fwd_lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale)
+    fl = 4.0 * b * heads * s * s * d
+    records["global_attention_fwd_lse"] = record(
+        "global_attention_fwd_lse", "global_attention_fwd_lse.cu",
+        "vit_deep_radiomics_tpu/ops/attention_grad.py:1068", err, fwd_ms,
+        fwd_plain, fwd_lib, nbytes(q, kv, bh, bw, out, lse), fl)
+
+    dout = rand(b, s, c)
+    delta = G.attention_delta(out, dout, heads)
+    args = (q, kv, bh, bw, None, dout, lse, delta)
+    got = G.global_attention_bwd_dq(*args, **kw)
+    torch.cuda.synchronize()
+    err = check("global_attention_bwd_dq", got,
+                G.global_attention_bwd_dq_plain(*args, **kw),
+                ("dq", "dbias_h", "dbias_w"))
+    dq_ms = cuda_ms(torch, lambda: G.global_attention_bwd_dq(*args, **kw), 10)
+    dq_plain = cuda_ms(torch, lambda: G.global_attention_bwd_dq_plain(
+        *args, **kw), 3)
+    bwd_lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale,
+                       _heads_of(dout, 1, s, heads))
+    del qh, kh_, vh, mask
+    torch.cuda.empty_cache()
+    records["global_attention_bwd_dq"] = record(
+        "global_attention_bwd_dq", "global_attention_bwd_dq.cu",
+        "vit_deep_radiomics_tpu/ops/attention_grad.py:1168", err, dq_ms,
+        dq_plain, bwd_lib, nbytes(*args[:4], *args[5:], *got), 1.5 * fl)
+    dkv = G.global_attention_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    err = check("global_attention_bwd_dkv", [dkv],
+                [G.global_attention_bwd_dkv_plain(*args, **kw)], ["dkv"])
+    dkv_ms = cuda_ms(torch, lambda: G.global_attention_bwd_dkv(*args, **kw),
+                     10)
+    dkv_plain = cuda_ms(torch, lambda: G.global_attention_bwd_dkv_plain(
+        *args, **kw), 3)
+    records["global_attention_bwd_dkv"] = record(
+        "global_attention_bwd_dkv", "global_attention_bwd_dkv.cu",
+        "vit_deep_radiomics_tpu/ops/attention_grad.py:1255", err, dkv_ms,
+        dkv_plain, bwd_lib, nbytes(*args[:4], *args[5:], dkv), 2.0 * fl)
+    log("library yardstick of both K5 backward kernels: the whole SDPA "
+        "backward (dq, dk, dv and the mask gradient in one call)")
+    del q, kv, bh, bw, out, lse, dout, delta, args, got, dkv
+    torch.cuda.empty_cache()
+    return records
+
+
+def _ft_batch(torch, b):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    images = torch.rand(b, 1024, 1024, 3, generator=gen, device="cuda")
+    mask = torch.zeros(b, 64, 64, dtype=torch.bool, device="cuda")
+    mask[0, 20:36, 24:40] = True                  # a nodule on the grid
+    if b > 1:
+        mask[1, 30:50, 10:26] = True
+    labels = torch.eye(2, device="cuda")[torch.arange(b, device="cuda") % 2]
+    return images, mask, labels
+
+
+def finetune_phase(torch, A, ft):
+    """The main path of K4/K5: full-width SAM ViT-B/16 @1024 fine-tuning,
+    ``fast``, batch 2, 5 steps on a fixed batch."""
+    tuner = ft.FineTuner(ft.FineTuneConfig(backbone="medsam",
+                                           precision="fast"))
+    state = tuner.init(seed=SEED)
+    batch = _ft_batch(torch, 2)
+    before = {k: p.detach().clone()
+              for k, p in state["model"].named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(FT_STEPS):
+        t0 = time.perf_counter()
+        state, loss, logits = tuner.step(state, *batch)
+        losses.append(float(loss))                 # waits for the step
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = dict(A.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    moved = max((p.detach() - before[k]).abs().max().item()
+                for k, p in state["model"].named_parameters())
+    # steps 1-2 allocate the optimizer state and warm the allocator
+    steady = sum(times[2:]) / (len(times) - 2)
+    log(f"fine-tune fast B=2, {FT_STEPS} steps: ms per step "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)}; steady (steps 3-"
+        f"{FT_STEPS}) {steady * 1e3:.2f} ms = {2 / steady:.2f} img/s; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; max parameter move "
+        f"{moved:.3e}; launches {counts}")
+    expect = {k: FT_STEPS * v for k, v in STEP_LAUNCHES.items()}
+    if counts != expect:
+        raise AssertionError(f"fine-tune launches {counts} != {expect}")
+    if not all(np.isfinite(losses)) or not moved > 0 or \
+            tuple(logits.shape) != (2, 2):
+        raise AssertionError("fine-tuning: non-finite loss or no update")
+    return counts
+
+
+def grad_check_phase(torch, ft):
+    """One ``fast`` step's gradients at B=1: fused trainable kernels vs the
+    same weights through plain attention (torch autograd). Per leaf:
+    |diff| <= max(5% of the leaf's max |grad|, 5e-4), as the JAX package's
+    tests/test_finetune.py holds its fused path to its oracle."""
+    tuner = ft.FineTuner(ft.FineTuneConfig(backbone="medsam",
+                                           precision="fast"))
+    batch = [t[:1] for t in _ft_batch(torch, 1)]
+    grads = {}
+    for use_flash in (True, False):
+        model = tuner.build_model(use_flash=use_flash).init_random(SEED)
+        model = model.cuda()
+        loss, _ = tuner.loss(model, *batch)
+        loss.backward()
+        grads[use_flash] = {k: p.grad.float()
+                            for k, p in model.named_parameters()}
+        del model, loss
+        torch.cuda.empty_cache()
+    worst, worst_name, floored, worst_rel = 0.0, "", 0, 0.0
+    for name, ref in grads[False].items():
+        scale = ref.abs().max().item()
+        tol = max(0.05 * scale, 5e-4)
+        floored += tol > 0.05 * scale
+        err = (grads[True][name] - ref).abs().max().item()
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+        if scale > 0:
+            worst_rel = max(worst_rel, err / scale)
+    log(f"gradient check B=1, fused vs plain attention: {len(grads[False])} "
+        f"leaves, worst err/limit {worst:.3f} ({worst_name}), worst err / "
+        f"leaf max |grad| {worst_rel:.3e}; {floored} leaves under the 5e-4 "
+        f"floor")
+    if not worst <= 1.0:
+        raise AssertionError(f"gradients disagree: {worst_name} at "
+                             f"{worst:.3f} of its limit")
+
+
 def main() -> int:
     import torch
 
@@ -411,7 +697,9 @@ def main() -> int:
         from vit_deep_radiomics_tpu_torch.data import synthetic as syn
         from vit_deep_radiomics_tpu_torch.engine import extract as tex
         from vit_deep_radiomics_tpu_torch.models import vit
+        from vit_deep_radiomics_tpu_torch.engine import finetune as ft
         from vit_deep_radiomics_tpu_torch.ops import attention as A
+        from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
         from vit_deep_radiomics_tpu_torch.utils import cuda_build
     except ImportError as exc:
         print(f"chip_smoke: the port package is not next to this script "
@@ -438,9 +726,18 @@ def main() -> int:
     mask_phase(torch, syn)
     extraction_reference_phase(torch, tex, syn, state)
     sweep_phase(tex, syn, state)
+    del state
+    torch.cuda.empty_cache()
+    records.update(train_kernel_phase(torch, A, G, peaks))
+    ft_counts = finetune_phase(torch, A, ft)
+    torch.cuda.empty_cache()
+    grad_check_phase(torch, ft)
 
+    # launches of the path that runs each kernel: extraction for K1/K2,
+    # fine-tuning for K4/K5
     for kname, rec in records.items():
-        rec["launches"] = counts[kname]
+        rec["launches"] = counts[kname] if counts[kname] else \
+            ft_counts[kname]
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,238 @@
+"""Port vs JAX: trainable fused attention (K4 window backward, K5 global).
+
+The same numpy inputs go through the JAX ``window_attention_trainable`` /
+``global_attention_trainable`` (Pallas in interpret mode, pair-merged bias)
+and the port's autograd Functions (plain PyTorch versions on CPU tensors,
+per-head bias). Values and the gradients of ``sum(out * cot)`` for q, kv
+and both bias factors agree to fp32 2e-4 (abs and rel), the tolerance of
+tests/test_attention_grad.py. Each plain backward is also held to torch
+autograd through its plain forward (1e-5).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vit_deep_radiomics_tpu.ops.attention_grad import (
+    _fgt_fwd_impl,
+    global_attention_trainable as jax_global,
+    window_attention_trainable as jax_window,
+)
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+TOL = 2e-4
+HEADS, D = 4, 64
+PAIR = A._head_group(HEADS, D)
+
+
+def _pack(bias):
+    """(B, H, S, K) per-head → (B, H/pair, S, pair·K) pair-merged."""
+    b, h, s, k = bias.shape
+    return bias.reshape(b, h // PAIR, PAIR, s, k).transpose(
+        0, 1, 3, 2, 4).reshape(b, h // PAIR, s, PAIR * k)
+
+
+def _unpack(bias, k):
+    """(B, H/pair, S, pair·K) pair-merged → (B, H, S, K) per-head."""
+    b, hp, s, _ = bias.shape
+    return bias.reshape(b, hp, s, PAIR, k).transpose(0, 1, 3, 2, 4).reshape(
+        b, hp * PAIR, s, k)
+
+
+def _inputs(seed, b, kh, kw, bias=True):
+    rng = np.random.default_rng(seed)
+    s, c = kh * kw, HEADS * D
+    q = (rng.normal(size=(b, s, c)) * 0.5).astype(np.float32)
+    kv = (rng.normal(size=(b, s, 2 * c)) * 0.5).astype(np.float32)
+    cot = rng.normal(size=(b, s, c)).astype(np.float32)
+    if not bias:
+        return q, kv, None, None, cot
+    bh = (rng.normal(size=(b, HEADS, s, kh)) * 0.3).astype(np.float32)
+    bw = (rng.normal(size=(b, HEADS, s, kw)) * 0.3).astype(np.float32)
+    return q, kv, bh, bw, cot
+
+
+def _port(fn, q, kv, bh, bw, cot, **kw):
+    args = [None if a is None else torch.tensor(a, requires_grad=True)
+            for a in (q, kv, bh, bw)]
+    out = fn(*args, **kw)
+    (out * torch.from_numpy(cot)).sum().backward()
+    grads = [None if a is None else a.grad.numpy() for a in args]
+    return out.detach().numpy(), grads
+
+
+def _jax(fn, q, kv, bh, bw, cot, **kw):
+    def loss(q, kv, bh, bw):
+        return (fn(q, kv, bias_h=bh, bias_w=bw, **kw) * cot).sum()
+
+    args = [jnp.asarray(q), jnp.asarray(kv)]
+    if bh is not None:
+        args += [jnp.asarray(_pack(bh)), jnp.asarray(_pack(bw))]
+        out = fn(*args[:2], bias_h=args[2], bias_w=args[3], **kw)
+        grads = jax.grad(loss, argnums=(0, 1, 2, 3))(*args)
+        grads = [np.asarray(g) for g in grads]
+        grads[2] = _unpack(grads[2], bh.shape[-1])
+        grads[3] = _unpack(grads[3], bw.shape[-1])
+    else:
+        out = fn(*args, **kw)
+        grads = jax.grad(lambda q, kv: loss(q, kv, None, None),
+                         argnums=(0, 1))(*args)
+        grads = [np.asarray(g) for g in grads] + [None, None]
+    return np.asarray(out), grads
+
+
+def _assert_all(got, want):
+    (out_p, g_p), (out_j, g_j) = got, want
+    np.testing.assert_allclose(out_p, out_j, atol=TOL, rtol=TOL)
+    for name, a, b in zip(("dq", "dkv", "dbias_h", "dbias_w"), g_p, g_j):
+        if b is None:
+            assert a is None, name
+            continue
+        np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def window_case():
+    """tests/test_attention_grad.py:154's shapes: 6 windows of 4x4."""
+    return _inputs(1, 6, 4, 4)
+
+
+@pytest.fixture(scope="module")
+def global_case():
+    """tests/test_attention_grad.py:278's shapes: one 8x16 grid."""
+    return _inputs(2, 2, 8, 16)
+
+
+class TestPortVsJax:
+    def test_window_values_and_grads(self, window_case):
+        q, kv, bh, bw, cot = window_case
+        got = _port(G.window_attention_trainable, q, kv, bh, bw, cot,
+                    num_heads=HEADS, window_tokens=16)
+        want = _jax(jax_window, q, kv, bh, bw, cot, num_heads=HEADS,
+                    window_tokens=16, window_batch=2, interpret=True)
+        _assert_all(got, want)
+
+    def test_global_values_and_grads(self, global_case):
+        q, kv, bh, bw, cot = global_case
+        got = _port(G.global_attention_trainable, q, kv, bh, bw, cot,
+                    num_heads=HEADS)
+        want = _jax(jax_global, q, kv, bh, bw, cot, num_heads=HEADS,
+                    block_q=64, block_k=32, interpret=True)
+        _assert_all(got, want)
+
+    def test_global_kv_len_values_and_grads(self):
+        q, kv, _, _, cot = _inputs(3, 2, 8, 16, bias=False)
+        kv_len = np.array([77, 128], np.int32)
+        got = _port(G.global_attention_trainable, q, kv, None, None, cot,
+                    kv_len=torch.from_numpy(kv_len), num_heads=HEADS)
+        want = _jax(jax_global, q, kv, None, None, cot,
+                    kv_len=jnp.asarray(kv_len), num_heads=HEADS,
+                    block_q=64, block_k=64, interpret=True)
+        _assert_all(got, want)
+
+    def test_lse_residual(self, global_case):
+        """The K5 forward's residual: log2 log-sum-exp per row and head,
+        against the JAX forward's (laid out (B, H/pair, S/bq, pair, bq))."""
+        q, kv, bh, bw, _ = global_case
+        out, lse = G.global_attention_fwd_lse(
+            *(torch.from_numpy(a) for a in (q, kv, bh, bw)), None,
+            num_heads=HEADS, scale=D ** -0.5)
+        _, jlse = _fgt_fwd_impl(
+            jnp.asarray(q), jnp.asarray(kv), jnp.asarray(_pack(bh)),
+            jnp.asarray(_pack(bw)), None, num_heads=HEADS,
+            scale=D ** -0.5, block_q=64, block_k=64, schedule="base",
+            interpret=True)
+        b, hp, nq, pair, bq = jlse.shape
+        jlse = np.asarray(jlse).transpose(0, 1, 3, 2, 4).reshape(
+            b, hp * pair, nq * bq)
+        np.testing.assert_allclose(lse.numpy(), jlse, atol=TOL, rtol=TOL)
+
+    def test_cpu_takes_no_kernel(self, window_case):
+        q, kv, bh, bw, cot = window_case
+        A.reset_launch_counts()
+        _port(G.window_attention_trainable, q, kv, bh, bw, cot,
+              num_heads=HEADS, window_tokens=16)
+        assert not any(A.LAUNCHES.values()), A.LAUNCHES
+
+
+def _plain_autograd(fwd, q, kv, bh, bw, extra, cot, **kw):
+    """Plain forward under torch autograd: (out, [dq, dkv, dbh, dbw])."""
+    args = [None if a is None else torch.tensor(a, requires_grad=True)
+            for a in (q, kv, bh, bw)]
+    out = fwd(*args, *extra, **kw)
+    grads = torch.autograd.grad(
+        (out * torch.from_numpy(cot)).sum(),
+        [a for a in args if a is not None])
+    return out.detach(), list(grads) + [None] * (4 - len(grads))
+
+
+class TestPlainBackwards:
+    """Each kernel's plain backward = torch autograd of its plain forward."""
+
+    def test_window(self, window_case):
+        q, kv, bh, bw, cot = window_case
+        kw = dict(num_heads=HEADS, window_tokens=16, scale=D ** -0.5)
+        out, want = _plain_autograd(A.fused_window_attention_plain, q, kv,
+                                    bh, bw, (), cot, **kw)
+        got = G.window_attention_bwd_plain(
+            *(torch.from_numpy(a) for a in (q, kv, bh, bw)), out,
+            torch.from_numpy(cot), **kw)
+        for name, a, b in zip(("dq", "dkv", "dbh", "dbw"), got, want):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5,
+                                       msg=name)
+
+    @pytest.mark.parametrize("bias", [True, False])
+    def test_global_dq_dkv(self, global_case, bias):
+        q, kv, bh, bw, cot = global_case
+        kv_len = None
+        if not bias:
+            bh = bw = None
+            kv_len = torch.tensor([100, 128])
+        kw = dict(num_heads=HEADS, scale=D ** -0.5)
+        out, want = _plain_autograd(A.fused_global_attention_plain, q, kv,
+                                    bh, bw, (kv_len,), cot, **kw)
+        t = [None if a is None else torch.from_numpy(a)
+             for a in (q, kv, bh, bw)]
+        out2, lse = G.global_attention_fwd_lse_plain(*t, kv_len, **kw)
+        torch.testing.assert_close(out2, out, atol=1e-6, rtol=1e-6)
+        dout = torch.from_numpy(cot)
+        args = (*t, kv_len, dout, lse, G.attention_delta(out, dout, HEADS))
+        dq, dbh, dbw = G.global_attention_bwd_dq_plain(*args, **kw)
+        dkv = G.global_attention_bwd_dkv_plain(*args, **kw)
+        for name, a, b in zip(("dq", "dkv", "dbh", "dbw"),
+                              (dq, dkv, dbh, dbw), want):
+            if b is None:
+                assert a is None, name
+                continue
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5,
+                                       msg=name)
+
+
+def test_cuda_tensor_never_takes_the_plain_path():
+    """A non-CPU tensor is checked for the kernels and refused (fp32: the
+    trainable kernels are bf16 only), not sent to the plain version."""
+    q = torch.zeros(1, 16, 128, device="meta")
+    kv = torch.zeros(1, 16, 256, device="meta")
+    A.reset_launch_counts()
+    with pytest.raises(TypeError, match="bfloat16"):
+        G.global_attention_fwd_lse(q, kv, None, None, None, num_heads=2,
+                                   scale=0.125)
+    with pytest.raises(TypeError, match="bfloat16"):
+        G.window_attention_bwd(q, kv, None, None, q, q, num_heads=2,
+                               window_tokens=16, scale=0.125)
+    assert not any(A.LAUNCHES.values())
+
+
+def test_k5_refuses_an_untileable_bias_grid():
+    q = torch.zeros(1, 120, 128, dtype=torch.bfloat16, device="meta")
+    kv = torch.zeros(1, 120, 256, dtype=torch.bfloat16, device="meta")
+    bh = torch.zeros(1, 2, 120, 10, dtype=torch.bfloat16, device="meta")
+    bw = torch.zeros(1, 2, 120, 12, dtype=torch.bfloat16, device="meta")
+    lse = torch.zeros(1, 2, 120, device="meta")
+    with pytest.raises(ValueError, match="key-grid width"):
+        G.global_attention_bwd_dq(q, kv, bh, bw, None, q, lse, lse,
+                                  num_heads=2, scale=0.125)

@@ -79,3 +79,115 @@ def test_global_kernel_matches_plain(gen, dtype, with_bias):
     want = A.fused_global_attention_plain(q, kv, bh, bw, kv_len,
                                           num_heads=heads, scale=d ** -0.5)
     _assert_close(got, want, dtype, "global")
+
+
+# The trainable kernels (bf16 only) against their plain versions, which
+# compute in fp32 from the same bf16 inputs; each output elementwise
+# |got - want| <= GRAD_ATOL + 2^-7·|want|. At these shapes the largest gap
+# measured on an H100 SXM is 8.97e-3 (K4, dbias_h) and 4.13e-3 (K5,
+# dbias_w); the limits are about 1.5 times that.
+GRAD_ATOL = {"window": 1.4e-2, "global": 6.5e-3}
+
+
+def _assert_grad_close(got, want, name, mode):
+    got, want = got.float(), want.float()
+    gap = ((got - want).abs() - 2.0 ** -7 * want.abs()).max().item()
+    print(f"{name}: gap {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= GRAD_ATOL[mode], (name, gap)
+
+
+def test_window_bwd_kernel_matches_plain(gen):
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, heads, d, win = 6, 2, 64, 15       # 3x5 windows, ragged edges
+    dt = torch.bfloat16
+    q = _rand(gen, b, 2 * win, heads * d, dtype=dt)
+    kv = _rand(gen, b, 2 * win, 2 * heads * d, dtype=dt)
+    bh = _rand(gen, b, heads, 2 * win, 3, dtype=dt, scale=0.3)
+    bw = _rand(gen, b, heads, 2 * win, 5, dtype=dt, scale=0.3)
+    kw = dict(num_heads=heads, window_tokens=win, scale=d ** -0.5)
+    out = A.fused_window_attention(q, kv, bh, bw, **kw)
+    dout = _rand(gen, b, 2 * win, heads * d, dtype=dt)
+    A.reset_launch_counts()
+    got = G.window_attention_bwd(q, kv, bh, bw, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["window_attention_bwd"] == 1
+    want = G.window_attention_bwd_plain(q, kv, bh, bw, out, dout, **kw)
+    for g_, w_, name in zip(got, want, ("dq", "dkv", "dbh", "dbw")):
+        _assert_grad_close(g_, w_, name, "window")
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_global_trainable_kernels_match_plain(gen, with_bias):
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, heads, d, kh, kw = 2, 4, 64, 13, 16   # S = 208: ragged 64/128 tiles
+    s = kh * kw
+    dt = torch.bfloat16
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = kv_len = None
+    if with_bias:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    else:
+        kv_len = torch.tensor([77, 208], device="cuda")
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    A.reset_launch_counts()
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kv_len, **kwargs)
+    want_out, want_lse = G.global_attention_fwd_lse_plain(
+        q, kv, bh, bw, kv_len, **kwargs)
+    _assert_close(out, want_out, dt, "global")
+    assert (lse - want_lse).abs().max().item() <= 1e-2
+    dout = _rand(gen, b, s, heads * d, dtype=dt)
+    delta = G.attention_delta(out, dout, heads)
+    args = (q, kv, bh, bw, kv_len, dout, lse, delta)
+    got = (*G.global_attention_bwd_dq(*args, **kwargs),
+           G.global_attention_bwd_dkv(*args, **kwargs))
+    torch.cuda.synchronize()
+    assert [A.LAUNCHES[k] for k in ("global_attention_fwd_lse",
+                                    "global_attention_bwd_dq",
+                                    "global_attention_bwd_dkv")] == [1, 1, 1]
+    want = (*G.global_attention_bwd_dq_plain(*args, **kwargs),
+            G.global_attention_bwd_dkv_plain(*args, **kwargs))
+    for g_, w_, name in zip(got, want, ("dq", "dbh", "dbw", "dkv")):
+        if w_ is not None:
+            _assert_grad_close(g_, w_, name, "global")
+
+
+@pytest.mark.parametrize("remat", ["block", "mlp"])
+def test_remat_on_the_card_matches_no_remat(gen, remat):
+    """Fine-tuning a small SAM-shaped model whose global layer has a 64x64
+    grid (K5) and whose windowed layer has 8x8 windows (K1/K4): remat
+    recomputes the forward kernels inside the backward and must give the
+    loss and gradients of the plain schedule."""
+    import dataclasses
+
+    from vit_deep_radiomics_tpu_torch.core.precision import FAST
+    from vit_deep_radiomics_tpu_torch.engine.finetune import FineTuneModel
+    from vit_deep_radiomics_tpu_torch.models.vit import SAM_VIT_B
+
+    cfg = dataclasses.replace(
+        SAM_VIT_B, image_size=64, patch_size=1, width=128, depth=2,
+        num_heads=2, window_size=8, global_indexes=(1,), neck_channels=16)
+    images = torch.rand(2, 64, 64, 3, generator=gen, device="cuda")
+    mask = torch.zeros(2, 64, 64, dtype=torch.bool, device="cuda")
+    mask[:, 10:30, 20:40] = True
+    runs = {}
+    for mode in (False, remat):
+        model = FineTuneModel(cfg, 2, FAST, remat=mode).init_random(0)
+        model = model.cuda()
+        A.reset_launch_counts()
+        loss = model(images, mask).square().sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[mode] = (loss.item(), dict(A.LAUNCHES),
+                      {k: p.grad for k, p in model.named_parameters()})
+    (loss0, counts0, g0), (loss1, counts1, g1) = runs[False], runs[remat]
+    assert counts0["window_attention_bwd"] == 1
+    assert counts0["global_attention_bwd_dkv"] == 1
+    assert counts1["global_attention_fwd_lse"] == (2 if remat == "block"
+                                                   else 1)
+    assert abs(loss1 - loss0) <= 1e-6 * abs(loss0)
+    for k, g in g0.items():
+        torch.testing.assert_close(g1[k], g, atol=1e-6, rtol=1e-5, msg=k)

@@ -45,6 +45,7 @@ struct AttnParams {
   int seg;             // tokens per independent attention segment
   int kh, kw;          // decomposed bias grid (kh * kw == seg when biased)
   float scale_log2;    // D^-1/2 * log2(e)
+  float* lse = nullptr;  // (B, H, S) log2 log-sum-exp residual, or nullptr
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -228,6 +229,9 @@ constexpr size_t smem_bytes_f32(int kh, int kw) {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores, one warp per 16 query rows
 // ---------------------------------------------------------------------------
+//
+// kLse (K5 forward, the trainable twin of K2) also writes each row's
+// log2 log-sum-exp m + log2(l) to p.lse for the backward.
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -255,7 +259,7 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
 // Shared memory holds the K and V tiles as bf16 rows padded by 8 elements
 // (16 bytes) so the fragment loads of the 8 rows of a group hit distinct
 // banks.
-template <int D, int BQ, int BK>
+template <int D, int BQ, int BK, bool kLse = false>
 __device__ void attend_rows_bf16(const AttnParams& p, char* smem_raw) {
   constexpr int LD = D + 8;           // padded row length (elements)
   constexpr int NT = BK / 8;          // n8 score tiles per key tile
@@ -412,6 +416,13 @@ __device__ void attend_rows_bf16(const AttnParams& p, char* smem_raw) {
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float inv_lo = 1.f / (l_lo > 0.f ? l_lo : 1.f);
   const float inv_hi = 1.f / (l_hi > 0.f ? l_hi : 1.f);
+  if constexpr (kLse) {
+    if (c == 0) {
+      float* lse = p.lse + ((size_t)t.b * p.H + t.h) * p.S + t.seg0;
+      if (r_lo < p.seg) lse[r_lo] = m_lo + log2f(l_lo > 0.f ? l_lo : 1.f);
+      if (r_hi < p.seg) lse[r_hi] = m_hi + log2f(l_hi > 0.f ? l_hi : 1.f);
+    }
+  }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
   const size_t base = ((size_t)t.b * p.S + t.seg0) * C + t.h * D;
 #pragma unroll
@@ -439,31 +450,36 @@ __global__ void __launch_bounds__(BQ) attn_f32_kernel(AttnParams p) {
   attend_rows_f32<D, BQ, BK>(p, smem_f32);
 }
 
-template <int D, int BQ, int BK>
+template <int D, int BQ, int BK, bool kLse = false>
 __global__ void __launch_bounds__(BQ * 2) attn_bf16_kernel(AttnParams p) {
   extern __shared__ __align__(16) char smem_bf16[];
-  attend_rows_bf16<D, BQ, BK>(p, smem_bf16);
+  attend_rows_bf16<D, BQ, BK, kLse>(p, smem_bf16);
+}
+
+// Launch the bf16 kernel; kLse also writes the residual to p.lse. Returns
+// the CUDA error of the launch (0 on success).
+template <int D, int BQ, int BK, bool kLse>
+int launch_bf16(const AttnParams& p, cudaStream_t stream) {
+  const size_t smem = smem_bytes_bf16<D, BQ, BK>(p.kh, p.kw);
+  auto kern = attn_bf16_kernel<D, BQ, BK, kLse>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  dim3 grid((p.seg + BQ - 1) / BQ, p.H, p.B * (p.S / p.seg));
+  kern<<<grid, (BQ / 16) * 32, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // Launch one configuration. dtype: 0 = fp32, 1 = bf16. Returns the CUDA
 // error of the launch (0 on success).
 template <int D, int BQ_F32, int BQ_BF16, int BK>
 int launch(const AttnParams& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    const size_t smem = smem_bytes_f32<D, BQ_F32, BK>(p.kh, p.kw);
-    auto kern = attn_f32_kernel<D, BQ_F32, BK>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    dim3 grid((p.seg + BQ_F32 - 1) / BQ_F32, p.H, p.B * (p.S / p.seg));
-    kern<<<grid, BQ_F32, smem, stream>>>(p);
-  } else {
-    const size_t smem = smem_bytes_bf16<D, BQ_BF16, BK>(p.kh, p.kw);
-    auto kern = attn_bf16_kernel<D, BQ_BF16, BK>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    dim3 grid((p.seg + BQ_BF16 - 1) / BQ_BF16, p.H, p.B * (p.S / p.seg));
-    kern<<<grid, (BQ_BF16 / 16) * 32, smem, stream>>>(p);
-  }
+  if (dtype != 0) return launch_bf16<D, BQ_BF16, BK, false>(p, stream);
+  const size_t smem = smem_bytes_f32<D, BQ_F32, BK>(p.kh, p.kw);
+  auto kern = attn_f32_kernel<D, BQ_F32, BK>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  dim3 grid((p.seg + BQ_F32 - 1) / BQ_F32, p.H, p.B * (p.S / p.seg));
+  kern<<<grid, BQ_F32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

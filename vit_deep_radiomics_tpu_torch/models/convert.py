@@ -21,7 +21,8 @@ import torch
 
 from .vit import ViTDenseConfig
 
-__all__ = ["params_from_jax", "load_medsam_state_dict"]
+__all__ = ["params_from_jax", "finetune_params_from_jax",
+           "load_medsam_state_dict"]
 
 
 def _t(x) -> torch.Tensor:
@@ -71,6 +72,22 @@ def params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
             3, 2, 0, 1)),
         "neck.3.weight": _t(neck["ln2"]["scale"]),
         "neck.3.bias": _t(neck["ln2"]["bias"]),
+    })
+    return sd
+
+
+def finetune_params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
+    """JAX ``FineTuneModel`` params (``{"params": {"backbone", "head_norm",
+    "head"}}`` or the inner dict) → the port's ``FineTuneModel``
+    ``state_dict``; the Dense kernel (in, out) becomes a Linear weight."""
+    p = tree["params"] if "params" in tree else tree
+    sd = {f"backbone.{k}": v
+          for k, v in params_from_jax(p["backbone"], cfg).items()}
+    sd.update({
+        "head_norm.weight": _t(p["head_norm"]["scale"]),
+        "head_norm.bias": _t(p["head_norm"]["bias"]),
+        "head.weight": _t(np.asarray(p["head"]["kernel"]).T),
+        "head.bias": _t(p["head"]["bias"]),
     })
     return sd
 

@@ -14,6 +14,13 @@ by :meth:`WindowedAttention._fused_variant` exactly as in JAX (a rel-pos
 grid of ≤1024 tokens takes window mode even in a global layer).
 ``use_flash=False`` is the plain oracle path of the tests.
 
+``trainable=True`` (fine-tuning) routes the same layers through the
+autograd Functions of ``ops/attention_grad.py``: window mode forward K1 and
+backward K4, global mode K5 (forward with the lse residual, dq and dkv
+kernels). Those kernels are bf16: ``parity`` (fp32) fine-tuning on the GPU
+needs K6 and raises until it is ported. ``remat`` recomputes whole blocks
+or only the MLP in the backward (``torch.utils.checkpoint``).
+
 Numerics follow the JAX policy rules: matmuls in the compute dtype with
 fp32 accumulation and the bias added in fp32 (:func:`_policy_dot`),
 LayerNorm statistics in fp32, tanh GELU under bf16 and erf GELU under fp32,
@@ -29,10 +36,13 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.precision import FAST, Policy
 from ..ops.attention import _head_group, attention_reference, \
     flash_attention_fused_qkv
+from ..ops.attention_grad import global_attention_trainable, \
+    window_attention_trainable
 
 __all__ = ["ViTDenseConfig", "ViTDense", "SAM_VIT_B", "DINOV2_CONFIGS",
            "window_partition", "window_unpartition"]
@@ -155,10 +165,11 @@ class WindowedAttention(nn.Module):
     decomposed relative-position bias when the config has it."""
 
     def __init__(self, cfg: ViTDenseConfig, input_size: int,
-                 use_flash: bool = True):
+                 use_flash: bool = True, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_flash = use_flash
+        self.trainable = trainable
         c, hd = cfg.width, cfg.head_dim
         self.qkv = nn.Linear(c, 3 * c)
         self.proj = nn.Linear(c, c)
@@ -205,9 +216,23 @@ class WindowedAttention(nn.Module):
             q = _policy_dot(tokens, wq, bq, dtype).to(dtype)
             kv = _policy_dot(tokens, wkv, bkv, dtype).to(dtype)
             bias_h, bias_w = self._bias_fused(q, b, h, w, dtype)
-            out = flash_attention_fused_qkv(
-                q, kv, bias_h, bias_w, num_heads=nh,
-                window_tokens=h * w if variant == "window" else None)
+            if not self.trainable:
+                out = flash_attention_fused_qkv(
+                    q, kv, bias_h, bias_w, num_heads=nh,
+                    window_tokens=h * w if variant == "window" else None)
+            elif dtype == torch.float32 and tokens.device.type != "cpu":
+                raise NotImplementedError(
+                    "parity (fp32) fine-tuning on the GPU needs K6, the "
+                    "generic trainable flash attention (JAX ops/"
+                    "attention_grad.py::flash_attention_trainable), which "
+                    "is not ported yet (ROADMAP.md Queue 2); fine-tune "
+                    "with precision='fast'")
+            elif variant == "window":
+                out = window_attention_trainable(
+                    q, kv, bias_h, bias_w, num_heads=nh, window_tokens=h * w)
+            else:
+                out = global_attention_trainable(q, kv, bias_h, bias_w,
+                                                 num_heads=nh)
         else:
             out = self._oracle(tokens, b, h, w, dtype)
         out = _policy_dot(out, self.proj.weight, self.proj.bias, dtype)
@@ -284,14 +309,16 @@ def window_unpartition(x, window: int, dims):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTDenseConfig, windowed: bool, use_flash: bool):
+    def __init__(self, cfg: ViTDenseConfig, windowed: bool, use_flash: bool,
+                 trainable: bool = False, remat_mlp: bool = False):
         super().__init__()
         self.cfg = cfg
         self.windowed = windowed
+        self.remat_mlp = remat_mlp
         self.norm1 = LayerNorm(cfg.width, eps=cfg.ln_eps)
         self.attn = WindowedAttention(
             cfg, cfg.window_size if windowed else cfg.grid,
-            use_flash=use_flash)
+            use_flash=use_flash, trainable=trainable)
         self.norm2 = LayerNorm(cfg.width, eps=cfg.ln_eps)
         self.mlp = Mlp(cfg)
 
@@ -304,7 +331,12 @@ class Block(nn.Module):
         if self.windowed:
             y = window_unpartition(y, self.cfg.window_size, dims)
         x = shortcut + y
-        return x + self.mlp(self.norm2(x), policy)
+        y = self.norm2(x)
+        if self.remat_mlp and torch.is_grad_enabled():
+            # selective remat: only the (B, S, 4C) hidden activations are
+            # recomputed in the backward (JAX vit.py:890-897)
+            return x + checkpoint(self.mlp, y, policy, use_reentrant=False)
+        return x + self.mlp(y, policy)
 
 
 class SamNeck(nn.Sequential):
@@ -337,17 +369,28 @@ class ViTDense(nn.Module):
     ``forward(images)`` takes (B, H, W, 3) in [0, 1] and returns the
     (B, grid, grid, neck_channels) feature map in the policy's output
     dtype — the port of JAX ``ViTDense`` for ``cfg.use_rel_pos`` configs.
+
+    ``trainable`` selects the differentiable attention kernels; ``remat``
+    (only with ``trainable``) is False/'none', True/'block' (recompute
+    whole blocks in the backward) or 'mlp' (recompute only the MLP).
     """
 
     def __init__(self, cfg: ViTDenseConfig, policy: Policy = FAST,
-                 use_flash: bool = True):
+                 use_flash: bool = True, trainable: bool = False,
+                 remat: bool | str = False):
         super().__init__()
         if cfg.use_cls_token or not cfg.neck_channels:
             raise NotImplementedError(
                 "only the SAM configuration is ported; DINOv2 waits for "
                 "ROADMAP.md Queue 1 item 3")
+        remat_mode = {False: "none", True: "block"}.get(remat, remat)
+        if remat_mode not in ("none", "block", "mlp"):
+            raise ValueError(
+                f"remat must be False/'none', True/'block' or 'mlp', "
+                f"got {remat!r}")
         self.cfg = cfg
         self.policy = policy
+        self.remat_block = trainable and remat_mode == "block"
         self.patch_embed = PatchEmbed(cfg)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.grid, cfg.grid, cfg.width))
@@ -355,7 +398,8 @@ class ViTDense(nn.Module):
             Block(cfg,
                   windowed=(cfg.window_size > 0
                             and i not in tuple(cfg.global_indexes)),
-                  use_flash=use_flash)
+                  use_flash=use_flash, trainable=trainable,
+                  remat_mlp=trainable and remat_mode == "mlp")
             for i in range(cfg.depth))
         self.neck = SamNeck(cfg)
 
@@ -386,6 +430,9 @@ class ViTDense(nn.Module):
             x = self.patch_embed(policy.cast_input(images), policy)
             x = x + self.pos_embed.to(x.dtype)
             for blk in self.blocks:
-                x = blk(x, policy)
+                if self.remat_block and torch.is_grad_enabled():
+                    x = checkpoint(blk, x, policy, use_reentrant=False)
+                else:
+                    x = blk(x, policy)
             x = self.neck(x, policy)
         return policy.cast_output(x)

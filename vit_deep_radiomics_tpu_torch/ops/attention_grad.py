@@ -1,0 +1,394 @@
+"""Trainable fused attention: autograd Functions over the CUDA kernels.
+
+Counterpart of the fused half of ``vit_deep_radiomics_tpu/ops/
+attention_grad.py`` (window and global mode, :647-1637), with the port's
+per-head bias layout (``bias_h (B, H, S, Kh)``, ``bias_w (B, H, S, Kw)``,
+as in ``ops/attention.py``):
+
+* :func:`window_attention_trainable` — forward K1
+  (``csrc/fused_window_attention.cu``, max softmax), backward K4
+  (``csrc/window_attention_bwd.cu``): one pass per window and head.
+* :func:`global_attention_trainable` — forward K5
+  (``csrc/global_attention_fwd_lse.cu``: K2 plus a per-row log2
+  log-sum-exp residual), backward the K5 dq kernel
+  (``csrc/global_attention_bwd_dq.cu``: dq and both bias gradients over
+  the keys) and the K5 dkv kernel (``csrc/global_attention_bwd_dkv.cu``:
+  dk and dv over the queries).
+
+The backward formulas, with ``P`` the softmax of the scores and ``O`` the
+forward's output, natural units::
+
+    D  = Σ_d dO∘O          dP = dO·Vᵀ          dS = P∘(dP − D)
+    dq = scale·dS·K        dk = scale·dSᵀ·Q     dv = Pᵀ·dO
+    dbias_h[i, r] = Σ_{key j in grid row r} dS[i, j]
+    dbias_w[i, c] = Σ_{key j in grid column c} dS[i, j]
+
+Each kernel has a plain PyTorch version beside it that writes out the same
+formulas in fp32; the wrappers take it for CPU tensors only, and for CUDA
+tensors launch their kernel or raise. The kernels build bf16 and head dim
+64 only. Launches are counted in ``ops/attention.py::LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .attention import (LAUNCHES, _I, _F, _P, _check_cuda, _check_layout,
+                        _heads, _load, _ptr, _raise_on,
+                        fused_global_attention_plain, fused_window_attention)
+
+__all__ = [
+    "window_attention_trainable",
+    "global_attention_trainable",
+    "attention_delta",
+    "window_attention_bwd",
+    "window_attention_bwd_plain",
+    "global_attention_fwd_lse",
+    "global_attention_fwd_lse_plain",
+    "global_attention_bwd_dq",
+    "global_attention_bwd_dq_plain",
+    "global_attention_bwd_dkv",
+    "global_attention_bwd_dkv_plain",
+]
+
+_NEG_INF = -1e30
+_LOG2E = math.log2(math.e)
+# key-grid widths the K5 kernels take with a bias: a 64-key tile holds whole
+# grid rows, and an 8-key mma tile lies in one of them
+_K5_BIAS_WIDTHS = (8, 16, 32, 64)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _dense(q, kv, bias_h, bias_w, kv_len, num_heads, seg, scale):
+    """fp32 per-segment operands and natural-unit scores.
+
+    Returns qh, kh, vh (B·nseg, H, seg, D) and s (B·nseg, H, seg, seg)."""
+    b, s, c = q.shape
+    nseg = s // seg
+    qh = _heads(q, nseg, seg, num_heads).float()
+    kh = _heads(kv[..., :c], nseg, seg, num_heads).float()
+    vh = _heads(kv[..., c:], nseg, seg, num_heads).float()
+    sc = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    if bias_h is not None:
+        bh, bw = (_per_seg(t, nseg, seg).float() for t in (bias_h, bias_w))
+        sc = sc + (bh[..., :, None] + bw[..., None, :]).reshape(sc.shape)
+    if kv_len is not None:
+        key = torch.arange(seg, device=q.device)
+        valid = key[None, :] < kv_len.to(q.device)[:, None]        # (B, seg)
+        sc = torch.where(valid[:, None, None, :], sc,
+                         torch.full_like(sc, _NEG_INF))
+    return qh, kh, vh, sc
+
+
+def _per_seg(t, nseg, seg):
+    """(B, H, nseg·seg, K) → (B·nseg, H, seg, K)."""
+    b, h, _, k = t.shape
+    return t.reshape(b, h, nseg, seg, k).transpose(1, 2).reshape(
+        b * nseg, h, seg, k)
+
+
+def _merge_rows(x, b, nseg):
+    """(B·nseg, H, seg, X) → (B, nseg·seg, H·X)."""
+    _, h, seg, d = x.shape
+    return x.reshape(b, nseg, h, seg, d).permute(0, 1, 3, 2, 4).reshape(
+        b, nseg * seg, h * d)
+
+
+def _merge_bias(x, b, nseg):
+    """(B·nseg, H, seg, K) → (B, H, nseg·seg, K)."""
+    _, h, seg, k = x.shape
+    return x.reshape(b, nseg, h, seg, k).transpose(1, 2).reshape(
+        b, h, nseg * seg, k)
+
+
+def _grads(q, kv, bias_h, bias_w, p, ds, qh, kh, vh, doh, seg, scale):
+    """dq, dkv, dbias_h, dbias_w from P and dS, in the callers' layouts."""
+    b, s, c = q.shape
+    nseg = s // seg
+    dq = _merge_rows(torch.matmul(ds, kh) * scale, b, nseg).to(q.dtype)
+    dk = _merge_rows(torch.matmul(ds.transpose(-1, -2), qh) * scale, b, nseg)
+    dv = _merge_rows(torch.matmul(p.transpose(-1, -2), doh), b, nseg)
+    dkv = torch.cat([dk, dv], dim=-1).to(kv.dtype)
+    dbh = dbw = None
+    if bias_h is not None:
+        kh_, kw_ = bias_h.shape[-1], bias_w.shape[-1]
+        grid = ds.reshape(*ds.shape[:-1], kh_, kw_)
+        dbh = _merge_bias(grid.sum(-1), b, nseg).to(bias_h.dtype)
+        dbw = _merge_bias(grid.sum(-2), b, nseg).to(bias_w.dtype)
+    return dq, dkv, dbh, dbw
+
+
+def attention_delta(out, dout, num_heads):
+    """D = Σ_d dO∘O per row and head: (B, S, H·D) pair → (B, H, S) fp32."""
+    b, s, c = out.shape
+    prod = dout.float() * out.float()
+    return prod.reshape(b, s, num_heads, c // num_heads).sum(-1) \
+        .transpose(1, 2).contiguous()
+
+
+def window_attention_bwd_plain(q, kv, bias_h, bias_w, out, dout, *,
+                               num_heads, window_tokens, scale):
+    """Plain version of K4: exact softmax recomputed per window, then
+    D, dP, dS and the five gradients in fp32."""
+    seg = window_tokens
+    qh, kh, vh, sc = _dense(q, kv, bias_h, bias_w, None, num_heads, seg,
+                            scale)
+    p = torch.softmax(sc, dim=-1)
+    b, s, _ = q.shape
+    nseg = s // seg
+    doh = _heads(dout, nseg, seg, num_heads).float()
+    delta = _per_seg(attention_delta(out, dout, num_heads)[..., None],
+                     nseg, seg)
+    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)
+    return _grads(q, kv, bias_h, bias_w, p, ds, qh, kh, vh, doh, seg, scale)
+
+
+def global_attention_fwd_lse_plain(q, kv, bias_h, bias_w, kv_len, *,
+                                   num_heads, scale):
+    """Plain version of the K5 forward: K2's plain output and the log2
+    log-sum-exp of each row's scores, (B, H, S) fp32."""
+    out = fused_global_attention_plain(q, kv, bias_h, bias_w, kv_len,
+                                       num_heads=num_heads, scale=scale)
+    _, _, _, sc = _dense(q, kv, bias_h, bias_w, kv_len, num_heads,
+                         q.shape[1], scale)
+    lse = torch.logsumexp(sc, dim=-1) * _LOG2E
+    return out, lse.contiguous()
+
+
+def _global_p_ds(q, kv, bias_h, bias_w, kv_len, dout, lse, delta,
+                 num_heads, scale):
+    seg = q.shape[1]
+    qh, kh, vh, sc = _dense(q, kv, bias_h, bias_w, kv_len, num_heads, seg,
+                            scale)
+    p = torch.exp2(sc * _LOG2E - lse[..., None])
+    doh = _heads(dout, 1, seg, num_heads).float()
+    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta[..., None])
+    return _grads(q, kv, bias_h, bias_w, p, ds, qh, kh, vh, doh, seg, scale)
+
+
+def global_attention_bwd_dq_plain(q, kv, bias_h, bias_w, kv_len, dout, lse,
+                                  delta, *, num_heads, scale):
+    """Plain version of the K5 dq kernel: P from the residual, then dq
+    and both bias gradients."""
+    dq, _, dbh, dbw = _global_p_ds(q, kv, bias_h, bias_w, kv_len, dout, lse,
+                                   delta, num_heads, scale)
+    return dq, dbh, dbw
+
+
+def global_attention_bwd_dkv_plain(q, kv, bias_h, bias_w, kv_len, dout, lse,
+                                   delta, *, num_heads, scale):
+    """Plain version of the K5 dkv kernel: P from the residual, then dk
+    and dv as one (B, S, 2·H·D) array."""
+    return _global_p_ds(q, kv, bias_h, bias_w, kv_len, dout, lse, delta,
+                        num_heads, scale)[1]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_bwd_cuda(q, d, *tensors, fp32=()):
+    """What a trainable kernel needs: bf16, then ``_check_cuda``'s launch
+    needs for the bf16 operands; the ``fp32`` residuals float32 and
+    contiguous on q's device."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the trainable kernels take bfloat16, got {q.dtype}")
+    _check_cuda(q, d, *tensors)
+    for t in fp32:
+        if t.device != q.device or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError("lse and delta must be contiguous float32 on "
+                             f"{q.device}")
+
+
+def _check_k5_bias(kw):
+    if kw and kw not in _K5_BIAS_WIDTHS:
+        raise ValueError(f"the K5 kernels take a key-grid width in "
+                         f"{_K5_BIAS_WIDTHS} with a bias, got {kw}")
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _kv_len_i32(kv_len, q):
+    if kv_len is None:
+        return None
+    return kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def window_attention_bwd(q, kv, bias_h, bias_w, out, dout, *, num_heads,
+                         window_tokens, scale):
+    """K4 wrapper: (dq, dkv, dbias_h, dbias_w). CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/window_attention_bwd.cu``."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, None, num_heads,
+                              window_tokens)
+    if q.device.type == "cpu":
+        return window_attention_bwd_plain(
+            q, kv, bias_h, bias_w, out, dout, num_heads=num_heads,
+            window_tokens=window_tokens, scale=scale)
+    _check_bwd_cuda(q, d, kv, bias_h, bias_w, out, dout)
+    b, s, _ = q.shape
+    lib, fn = _load("window_attention_bwd",
+                    [_P] * 10 + [_I] * 7 + [_F, _P])
+    dq, dkv = torch.empty_like(q), torch.empty_like(kv)
+    dbh = torch.empty_like(bias_h) if bias_h is not None else None
+    dbw = torch.empty_like(bias_w) if bias_w is not None else None
+    rc = fn(_ptr(q), _ptr(kv), _ptr(bias_h), _ptr(bias_w), _ptr(out),
+            _ptr(dout), _ptr(dq), _ptr(dkv), _ptr(dbh), _ptr(dbw),
+            b, s, num_heads, d, window_tokens, kh, kw, scale, _stream(q))
+    _raise_on(rc, lib, "window_attention_bwd")
+    LAUNCHES["window_attention_bwd"] += 1
+    return dq, dkv, dbh, dbw
+
+
+def global_attention_fwd_lse(q, kv, bias_h, bias_w, kv_len, *, num_heads,
+                             scale):
+    """K5 forward wrapper: (out, lse), lse (B, H, S) fp32 in log2 units.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/global_attention_fwd_lse.cu``."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, None)
+    if q.device.type == "cpu":
+        return global_attention_fwd_lse_plain(
+            q, kv, bias_h, bias_w, kv_len, num_heads=num_heads, scale=scale)
+    _check_bwd_cuda(q, d, kv, bias_h, bias_w)
+    b, s, _ = q.shape
+    lib, fn = _load("global_attention_fwd_lse",
+                    [_P] * 7 + [_I] * 6 + [_F, _P])
+    out = torch.empty_like(q)
+    lse = torch.empty(b, num_heads, s, device=q.device, dtype=torch.float32)
+    rc = fn(_ptr(q), _ptr(kv), _ptr(bias_h), _ptr(bias_w),
+            _ptr(_kv_len_i32(kv_len, q)), _ptr(out), _ptr(lse),
+            b, s, num_heads, d, kh, kw, scale, _stream(q))
+    _raise_on(rc, lib, "global_attention_fwd_lse")
+    LAUNCHES["global_attention_fwd_lse"] += 1
+    return out, lse
+
+
+def global_attention_bwd_dq(q, kv, bias_h, bias_w, kv_len, dout, lse, delta,
+                            *, num_heads, scale):
+    """K5 dq wrapper: (dq, dbias_h, dbias_w). CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/global_attention_bwd_dq.cu``."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, None)
+    if q.device.type == "cpu":
+        return global_attention_bwd_dq_plain(
+            q, kv, bias_h, bias_w, kv_len, dout, lse, delta,
+            num_heads=num_heads, scale=scale)
+    _check_bwd_cuda(q, d, kv, bias_h, bias_w, dout, fp32=(lse, delta))
+    _check_k5_bias(kw)
+    b, s, _ = q.shape
+    lib, fn = _load("global_attention_bwd_dq",
+                    [_P] * 11 + [_I] * 6 + [_F, _P])
+    dq = torch.empty_like(q)
+    dbh = torch.empty_like(bias_h) if bias_h is not None else None
+    dbw = torch.empty_like(bias_w) if bias_w is not None else None
+    rc = fn(_ptr(q), _ptr(kv), _ptr(bias_h), _ptr(bias_w),
+            _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse), _ptr(delta),
+            _ptr(dq), _ptr(dbh), _ptr(dbw), b, s, num_heads, d, kh, kw,
+            scale, _stream(q))
+    _raise_on(rc, lib, "global_attention_bwd_dq")
+    LAUNCHES["global_attention_bwd_dq"] += 1
+    return dq, dbh, dbw
+
+
+def global_attention_bwd_dkv(q, kv, bias_h, bias_w, kv_len, dout, lse,
+                             delta, *, num_heads, scale):
+    """K5 dkv wrapper: dkv (B, S, 2·H·D). CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/global_attention_bwd_dkv.cu``."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, None)
+    if q.device.type == "cpu":
+        return global_attention_bwd_dkv_plain(
+            q, kv, bias_h, bias_w, kv_len, dout, lse, delta,
+            num_heads=num_heads, scale=scale)
+    _check_bwd_cuda(q, d, kv, bias_h, bias_w, dout, fp32=(lse, delta))
+    _check_k5_bias(kw)
+    b, s, _ = q.shape
+    lib, fn = _load("global_attention_bwd_dkv",
+                    [_P] * 9 + [_I] * 6 + [_F, _P])
+    dkv = torch.empty_like(kv)
+    rc = fn(_ptr(q), _ptr(kv), _ptr(bias_h), _ptr(bias_w),
+            _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse), _ptr(delta),
+            _ptr(dkv), b, s, num_heads, d, kh, kw, scale, _stream(q))
+    _raise_on(rc, lib, "global_attention_bwd_dkv")
+    LAUNCHES["global_attention_bwd_dkv"] += 1
+    return dkv
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions
+# ---------------------------------------------------------------------------
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, bias_h, bias_w, num_heads, window_tokens, scale):
+        out = fused_window_attention(q, kv, bias_h, bias_w,
+                                     num_heads=num_heads,
+                                     window_tokens=window_tokens, scale=scale)
+        ctx.save_for_backward(q, kv, bias_h, bias_w, out)
+        ctx.cfg = (num_heads, window_tokens, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, kv, bias_h, bias_w, out = ctx.saved_tensors
+        num_heads, window_tokens, scale = ctx.cfg
+        dq, dkv, dbh, dbw = window_attention_bwd(
+            q, kv, bias_h, bias_w, out, dout.contiguous(),
+            num_heads=num_heads, window_tokens=window_tokens, scale=scale)
+        return dq, dkv, dbh, dbw, None, None, None
+
+
+class _GlobalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, bias_h, bias_w, kv_len, num_heads, scale):
+        out, lse = global_attention_fwd_lse(q, kv, bias_h, bias_w, kv_len,
+                                            num_heads=num_heads, scale=scale)
+        ctx.save_for_backward(q, kv, bias_h, bias_w, kv_len, out, lse)
+        ctx.cfg = (num_heads, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, kv, bias_h, bias_w, kv_len, out, lse = ctx.saved_tensors
+        num_heads, scale = ctx.cfg
+        dout = dout.contiguous()
+        delta = attention_delta(out, dout, num_heads)
+        args = (q, kv, bias_h, bias_w, kv_len, dout, lse, delta)
+        dq, dbh, dbw = global_attention_bwd_dq(*args, num_heads=num_heads,
+                                               scale=scale)
+        dkv = global_attention_bwd_dkv(*args, num_heads=num_heads,
+                                       scale=scale)
+        return dq, dkv, dbh, dbw, None, None, None
+
+
+def _scale(q, num_heads, scale):
+    return (q.shape[-1] // num_heads) ** -0.5 if scale is None else scale
+
+
+def window_attention_trainable(q, kv, bias_h=None, bias_w=None, *, num_heads,
+                               window_tokens, scale=None):
+    """Differentiable block-diagonal window attention (JAX
+    ``window_attention_trainable``, ops/attention_grad.py:777).
+
+    q (B, S, H·D), kv (B, S, 2·H·D), optional per-head bias (B, H, S, Kh)
+    and (B, H, S, Kw) with Kh·Kw == ``window_tokens``. Returns (B, S, H·D);
+    gradients flow to q, kv and both bias factors."""
+    return _WindowAttention.apply(q, kv, bias_h, bias_w, num_heads,
+                                  window_tokens,
+                                  _scale(q, num_heads, scale))
+
+
+def global_attention_trainable(q, kv, bias_h=None, bias_w=None, kv_len=None,
+                               *, num_heads, scale=None):
+    """Differentiable global attention (JAX ``global_attention_trainable``,
+    ops/attention_grad.py:1581): the same contract as global mode of
+    ``flash_attention_fused_qkv`` with per-head bias (Kh·Kw == S) or a
+    ``kv_len`` key-padding mask, which is not differentiable."""
+    return _GlobalAttention.apply(q, kv, bias_h, bias_w, kv_len, num_heads,
+                                  _scale(q, num_heads, scale))

@@ -1,12 +1,15 @@
 """Device-time profile of the SAM ViT-B/16 @1024 forward on the GPU.
 
 Counterpart of ``vit_deep_radiomics_tpu/utils/profiling.py`` for the
-port: :func:`device_sync` is the fence for host-clock timing, and
-:func:`profile_forward` traces steady-state forwards with
-``torch.profiler`` and reports device time by kernel, the wall time per
-forward and the device's idle share. Run on the card::
+port: :func:`device_sync` is the fence for host-clock timing;
+:func:`profile_forward` traces steady-state forwards and
+:func:`profile_finetune_step` steady-state fine-tuning steps with
+``torch.profiler``, and both report device time by kernel, the wall time
+per forward or step and the device's idle share. Run on the card::
 
     python -m vit_deep_radiomics_tpu_torch.utils.profiling --batch 4
+    python -m vit_deep_radiomics_tpu_torch.utils.profiling --finetune \
+        --batch 2
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import time
 
 import torch
 
-__all__ = ["device_sync", "profile_forward"]
+__all__ = ["device_sync", "profile_forward", "profile_finetune_step"]
 
 
 def device_sync() -> None:
@@ -33,13 +36,53 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_forward(batch: int = 4, precision: str = "fast",
-                    steps: int = 3, rows: int = 25, seed: int = 0) -> dict:
-    """Trace ``steps`` forwards of full-width SAM ViT-B/16 @1024 after a
-    warm-up; returns the per-forward wall and device times, the idle
-    share and the top ``rows`` device ops by total time."""
+def _is_kernel(evt) -> bool:
+    """A device event that is a kernel, copy or memset: the optimizer's
+    ``record_function`` ranges (``Optimizer.step#AdamW.step``) are mirrored
+    on the device timeline and would count their kernels twice."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and _device_us(evt) > 0
+            and not getattr(evt, "is_user_annotation", False)
+            and not evt.key.startswith("Optimizer."))
+
+
+def _trace(run, steps: int, rows: int, **head) -> dict:
+    """Two warm-up runs, then ``steps`` runs on the host clock without the
+    profiler (the wall time), then ``steps`` traced runs (device time by
+    kernel). The idle share compares the two, so the profiler's own host
+    cost does not count as idle device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    run()
+    device_sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run()
+    device_sync()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        device_sync()
+    events = [e for e in prof.key_averages() if _is_kernel(e)]
+    device_total = sum(_device_us(e) for e in events) / steps / 1e3
+    top = sorted(events, key=_device_us, reverse=True)[:rows]
+    return {
+        **head,
+        "wall_ms": wall * 1e3,
+        "device_ms": device_total,
+        "idle_share": max(0.0, 1.0 - device_total / (wall * 1e3)),
+        "top": [{"name": e.key[:90], "calls": e.count / steps,
+                 "ms": _device_us(e) / steps / 1e3} for e in top],
+    }
+
+
+def profile_forward(batch: int = 4, precision: str = "fast",
+                    steps: int = 3, rows: int = 25, seed: int = 0) -> dict:
+    """Full-width SAM ViT-B/16 @1024 forwards: wall and device time per
+    forward, the idle share and the top ``rows`` device ops."""
     from .. import default_device
     from ..core.precision import get_policy
     from ..models.vit import SAM_VIT_B, ViTDense
@@ -50,28 +93,30 @@ def profile_forward(batch: int = 4, precision: str = "fast",
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     images = torch.rand(batch, 1024, 1024, 3, generator=gen, device=dev)
     with torch.no_grad():
-        model(images)
-        device_sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                model(images)
-            device_sync()
-            wall = (time.perf_counter() - t0) / steps
-    events = [e for e in prof.key_averages() if _device_us(e) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    device_total = sum(_device_us(e) for e in events) / steps / 1e3
-    top = sorted(events, key=_device_us, reverse=True)[:rows]
-    return {
-        "batch": batch, "precision": precision,
-        "wall_ms_per_forward": wall * 1e3,
-        "device_ms_per_forward": device_total,
-        "idle_share": max(0.0, 1.0 - device_total / (wall * 1e3)),
-        "top": [{"name": e.key[:90], "calls_per_forward": e.count / steps,
-                 "ms_per_forward": _device_us(e) / steps / 1e3}
-                for e in top],
-    }
+        return _trace(lambda: model(images), steps, rows, what="forward",
+                      batch=batch, precision=precision)
+
+
+def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
+                          seed: int = 0) -> dict:
+    """Full-width SAM ViT-B/16 @1024 fine-tuning steps (``fast``, no
+    remat): wall and device time per step, the idle share, the top
+    ``rows`` device ops and the peak device memory."""
+    from ..engine.finetune import FineTuneConfig, FineTuner
+
+    tuner = FineTuner(FineTuneConfig(precision="fast"))
+    state = tuner.init(seed=seed)
+    dev = tuner.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    images = torch.rand(batch, 1024, 1024, 3, generator=gen, device=dev)
+    mask = torch.zeros(batch, 64, 64, dtype=torch.bool, device=dev)
+    mask[:, 24:40, 24:40] = True
+    labels = torch.eye(2, device=dev)[torch.arange(batch, device=dev) % 2]
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = _trace(lambda: tuner.step(state, images, mask, labels), steps,
+                 rows, what="finetune step", batch=batch, precision="fast")
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return res
 
 
 def main(argv=None) -> int:
@@ -80,15 +125,20 @@ def main(argv=None) -> int:
     p.add_argument("--precision", default="fast")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--rows", type=int, default=25)
+    p.add_argument("--finetune", action="store_true",
+                   help="profile fine-tuning steps (fast) instead of "
+                        "forwards")
     args = p.parse_args(argv)
-    res = profile_forward(args.batch, args.precision, args.steps, args.rows)
-    print(f"{res['precision']} B={res['batch']}: wall "
-          f"{res['wall_ms_per_forward']:.3f} ms/forward, device "
-          f"{res['device_ms_per_forward']:.3f} ms/forward, idle share "
-          f"{res['idle_share']:.3f}")
+    if args.finetune:
+        res = profile_finetune_step(args.batch, args.steps, args.rows)
+    else:
+        res = profile_forward(args.batch, args.precision, args.steps,
+                              args.rows)
+    print(f"{res['what']} {res['precision']} B={res['batch']}: wall "
+          f"{res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms, idle "
+          f"share {res['idle_share']:.3f}")
     for row in res["top"]:
-        print(f"{row['ms_per_forward']:9.3f} ms  {row['calls_per_forward']:6.1f}"
-              f"x  {row['name']}")
+        print(f"{row['ms']:9.3f} ms  {row['calls']:6.1f}x  {row['name']}")
     print(json.dumps(res))
     return 0
 
