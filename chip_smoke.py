@@ -37,10 +37,30 @@ Phases (each one fails the run with a non-zero exit):
    memory, the loss of every step, parameters moved);
 9. gradient check: one ``fast`` step's gradients at batch 1 through the
    fused trainable kernels against the same weights through plain
-   attention under torch autograd.
+   attention under torch autograd;
+10. K6 kernels: the generic trainable attention's forward, dq and dkv
+    kernels (fp32) at the ``parity`` path's shapes (SAM windowed: 50
+    windows x 12 heads x 196 tokens, Kh = Kw = 14; SAM global: 2 x 12 x
+    4096, Kh = Kw = 64; DINOv2: 2 x 12 x 1536 with kv_len 1370), each
+    output held against its plain version; kernel, plain-version, library
+    (fp32 SDPA) times and the bound;
+11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
+    ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
+    its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
+    2;
+12. parity fine-tuning: ``FineTuner`` on full-width SAM ViT-B/16 @1024
+    under ``parity``, batch 2, 5 steps (the main path of K6: 12 launches of
+    each K6 kernel per step, no other kernel);
+13. DINOv2 ViT-B/14 @518 fine-tuning, batch 2, 5 steps under ``fast`` (K5
+    in kv_len mode) and 5 under ``parity`` (K6 in kv_len mode), and one
+    ``fast`` inference forward at batch 4 (K2 in kv_len mode);
+14. parity gradient check: one ``parity`` step's gradients at batch 1
+    through K6 against plain attention, per leaf about 1e-4 of the leaf's
+    max |grad|.
 
-The line before the last is the kernels' JSON record, and the last line is
-``{"ok": true, "device": {...}}``. Random weights from a seed; no network.
+Every phase runs at full width and depth. The line before the last is the
+kernels' JSON record, and the last line is ``{"ok": true, "device":
+{...}}``. Random weights from a seed; no network.
 """
 
 from __future__ import annotations
@@ -86,6 +106,34 @@ STEP_LAUNCHES = {"fused_window_attention": 8, "fused_global_attention": 0,
                  "window_attention_bwd": 8, "global_attention_fwd_lse": 4,
                  "global_attention_bwd_dq": 4, "global_attention_bwd_dkv": 4}
 FT_STEPS = 5
+K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+K5_NAMES = ("global_attention_fwd_lse", "global_attention_bwd_dq",
+            "global_attention_bwd_dkv")
+# Per step of a 12-layer backbone: every layer runs K6 under `parity`;
+# DINOv2's layers run K5 (kv_len mode) under `fast`
+PARITY_STEP_LAUNCHES = dict.fromkeys(K6_NAMES, 12)
+DINO_FAST_STEP_LAUNCHES = dict.fromkeys(K5_NAMES, 12)
+# K6 (fp32) against its plain versions, both fp32: |out - ref| <= atol, the
+# order of the sums alone. About 1.5 times the largest gap measured on an
+# H100 SXM at the three path shapes (PERF.md).
+# Measured: forward 1.55e-6 (out), 6.68e-6 (lse); dq 5.48e-6 (dbias_w, SAM
+# windowed); dkv 1.79e-6.
+K6_ATOL = {"flash_attention_fwd": 2.5e-6, "lse": 1e-5,
+           "flash_attention_bwd_dq": 8.5e-6, "flash_attention_bwd_dkv": 3e-6}
+# K6 at the `parity` path's shapes: (batch entries, tokens, Kh, Kw, kv_len)
+K6_SHAPES = {"sam_window": (50, 196, 14, 14, None),
+             "sam_global": (2, 4096, 64, 64, None),
+             "dinov2": (2, 1536, 0, 0, 1370)}
+# K2 and K5 in kv_len mode at DINOv2 ViT-B/14 @518's padded shape (bf16,
+# the rule of phases 3 and 7); limits about 1.5 times the measured gap:
+# K2 8.91e-4, K5 forward 8.91e-4 and lse 2.69e-3, dq 1.59e-3, dkv 1.69e-3.
+KV_ATOL = {"fused_global_attention": 1.4e-3,
+           "global_attention_fwd_lse": 1.4e-3, "lse": 4e-3,
+           "global_attention_bwd_dq": 2.4e-3,
+           "global_attention_bwd_dkv": 2.5e-3}
+DINO_TOKENS, DINO_PADDED = 1370, 1536
+DINO_FWD_BATCH = 4                  # the DINOv2 inference forward's batch
 
 
 def log(*args):
@@ -418,26 +466,31 @@ def sweep_phase(tex, syn, state):
             raise AssertionError("sweep store contract")
 
 
-def _sdpa_ms(torch, qh, kh, vh, mask, scale, dout=None):
+def _sdpa_ms(torch, qh, kh, vh, mask, scale, dout=None, mask_grad=True):
     """Library yardstick: one SDPA call on the memory-efficient backend
     (forward, or with ``dout`` its backward through ``torch.autograd.grad``
-    on a retained graph, the dense bias a trainable ``attn_mask``).
-    Returns (ms, backend)."""
+    on a retained graph, the dense bias a trainable ``attn_mask`` unless
+    ``mask_grad`` is False, as for a padding mask). Returns (ms, backend);
+    a refusal of the backend fails the run."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    leaves = [t.detach().requires_grad_(dout is not None)
-              for t in (qh, kh, vh, mask)]
+    grad = dout is not None
+    leaves = [t.detach().requires_grad_(grad) for t in (qh, kh, vh)]
+    leaves.append(mask.detach().requires_grad_(grad and mask_grad))
+    wrt = [t for t in leaves if t.requires_grad]
+
+    def call():
+        return F.scaled_dot_product_attention(
+            *leaves[:3], attn_mask=leaves[3], scale=scale)
+
     backend = SDPBackend.EFFICIENT_ATTENTION
     with sdpa_kernel([backend]):
-        def call():
-            return F.scaled_dot_product_attention(
-                *leaves[:3], attn_mask=leaves[3], scale=scale)
         if dout is None:
             return cuda_ms(torch, call, 5), backend.name
         out = call()
         return cuda_ms(torch, lambda: torch.autograd.grad(
-            out, leaves, dout, retain_graph=True), 5), backend.name
+            out, wrt, dout, retain_graph=True), 5), backend.name
 
 
 def _heads_of(x, nseg, seg, heads):
@@ -453,52 +506,71 @@ def _dense_mask(bh, bw, nseg, seg, heads):
         .reshape(b * nseg, heads, seg, seg).contiguous()
 
 
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _check_outputs(torch, name, outs, refs, labels, rtol, atol):
+    """Each output against its plain version, elementwise
+    |got - ref| <= atol + rtol·|ref|; returns the largest |got - ref|."""
+    atols = atol if isinstance(atol, (list, tuple)) else [atol] * len(outs)
+    worst = 0.0
+    for got, ref, label, lim in zip(outs, refs, labels, atols):
+        got, ref = got.float(), ref.float()
+        diff = (got - ref).abs()
+        err = diff.max().item()
+        gap = (diff - rtol * ref.abs()).max().item()
+        finite = bool(torch.isfinite(got).all())
+        log(f"kernel {name} {label}: max_abs_err {err:.3e} on max |ref| "
+            f"{ref.abs().max().item():.4f}; gap beyond {rtol:.4g}·|ref| "
+            f"{gap:.3e} (limit {lim:.1e})")
+        if not finite or not gap <= lim:
+            raise AssertionError(f"{name} {label} disagrees with its "
+                                 f"plain version: gap {gap} > {lim}")
+        worst = max(worst, err)
+    return worst
+
+
+def _record(name, src, replaces, dtype, err, ms, plain_ms, lib, nb, flops,
+            peaks):
+    """A kernel's JSON row; the bound is the larger of the bytes over the
+    memory rate and the FLOPs over the peak of the dtype's units (bf16
+    tensor cores, fp32 CUDA cores)."""
+    bw_peak, bf16_peak, fp32_peak = peaks
+    t_bytes = nb / bw_peak * 1e3
+    t_ops = flops / (bf16_peak if dtype == "bfloat16" else fp32_peak) * 1e3
+    rec = {"name": name, "route": "cuda",
+           "source": f"vit_deep_radiomics_tpu_torch/csrc/{src}",
+           "replaces": replaces, "dtype": dtype,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib[0], "library": f"sdpa {lib[1]}"}
+    log(f"kernel {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{lib[0]:.4f} (SDPA {lib[1]}) bound_ms {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}; {nb / 1e6:.1f} MB, {flops / 1e9:.1f} "
+        f"GFLOP)")
+    return rec
+
+
 def train_kernel_phase(torch, A, G, peaks):
     """K4 and the three K5 kernels at the fine-tuning path's shapes (B=2):
     every output against the plain version, times, bounds."""
-    bw_peak, bf16_peak, _ = peaks
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     heads, d = 12, 64
     c, scale, dt = heads * d, d ** -0.5, torch.bfloat16
+    nbytes = _nbytes
 
     def rand(*shape, s=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * s).to(dt)
 
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
     def check(name, outs, refs, labels, rtol=2.0 ** -7, atol=None):
-        atol = TRAIN_ATOL[name] if atol is None else atol
-        worst = 0.0
-        for got, ref, label in zip(outs, refs, labels):
-            got, ref = got.float(), ref.float()
-            diff = (got - ref).abs()
-            err = diff.max().item()
-            gap = (diff - rtol * ref.abs()).max().item()
-            finite = bool(torch.isfinite(got).all())
-            log(f"kernel {name} {label}: max_abs_err {err:.3e} on max |ref| "
-                f"{ref.abs().max().item():.4f}; gap beyond {rtol:.4g}·|ref| "
-                f"{gap:.3e} (limit {atol:.1e})")
-            if not finite or not gap <= atol:
-                raise AssertionError(f"{name} {label} disagrees with its "
-                                     f"plain version: gap {gap} > {atol}")
-            worst = max(worst, err)
-        return worst
+        return _check_outputs(torch, name, outs, refs, labels, rtol,
+                              TRAIN_ATOL[name] if atol is None else atol)
 
     def record(name, src, replaces, err, ms, plain_ms, lib, nb, flops):
-        t_bytes, t_ops = nb / bw_peak * 1e3, flops / bf16_peak * 1e3
-        rec = {"name": name, "route": "cuda",
-               "source": f"vit_deep_radiomics_tpu_torch/csrc/{src}",
-               "replaces": replaces, "dtype": "bfloat16",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": lib[0], "library": f"sdpa {lib[1]}"}
-        log(f"kernel {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-            f"{lib[0]:.4f} (SDPA {lib[1]}) bound_ms {rec['bound_ms']:.4f} "
-            f"({rec['bound_by']}; {nb / 1e6:.1f} MB, {flops / 1e9:.1f} "
-            f"GFLOP)")
-        return rec
+        return _record(name, src, replaces, "bfloat16", err, ms, plain_ms,
+                       lib, nb, flops, peaks)
 
     records = {}
     # ---- K4: 50 windows of 14x14 tokens ----
@@ -596,10 +668,10 @@ def train_kernel_phase(torch, A, G, peaks):
     return records
 
 
-def _ft_batch(torch, b):
+def _ft_batch(torch, b, size=1024, grid=64):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    images = torch.rand(b, 1024, 1024, 3, generator=gen, device="cuda")
-    mask = torch.zeros(b, 64, 64, dtype=torch.bool, device="cuda")
+    images = torch.rand(b, size, size, 3, generator=gen, device="cuda")
+    mask = torch.zeros(b, grid, grid, dtype=torch.bool, device="cuda")
     mask[0, 20:36, 24:40] = True                  # a nodule on the grid
     if b > 1:
         mask[1, 30:50, 10:26] = True
@@ -607,13 +679,18 @@ def _ft_batch(torch, b):
     return images, mask, labels
 
 
-def finetune_phase(torch, A, ft):
-    """The main path of K4/K5: full-width SAM ViT-B/16 @1024 fine-tuning,
-    ``fast``, batch 2, 5 steps on a fixed batch."""
-    tuner = ft.FineTuner(ft.FineTuneConfig(backbone="medsam",
-                                           precision="fast"))
+def finetune_phase(torch, A, ft, backbone="medsam", precision="fast",
+                   per_step=STEP_LAUNCHES):
+    """A fine-tuning main path: ``FineTuner`` at full width and depth,
+    batch 2, 5 steps on a fixed batch, the launches of every step held to
+    ``per_step``. SAM ViT-B/16 @1024 ``fast`` runs K1/K4/K5, ``parity``
+    K6; DINOv2 ViT-B/14 @518 ``fast`` runs K5 in kv_len mode, ``parity``
+    K6 in kv_len mode."""
+    tuner = ft.FineTuner(ft.FineTuneConfig(backbone=backbone,
+                                           precision=precision))
     state = tuner.init(seed=SEED)
-    batch = _ft_batch(torch, 2)
+    cfg = tuner.backbone_cfg
+    batch = _ft_batch(torch, 2, cfg.image_size, cfg.grid)
     before = {k: p.detach().clone()
               for k, p in state["model"].named_parameters()}
     torch.cuda.synchronize()
@@ -632,13 +709,13 @@ def finetune_phase(torch, A, ft):
                 for k, p in state["model"].named_parameters())
     # steps 1-2 allocate the optimizer state and warm the allocator
     steady = sum(times[2:]) / (len(times) - 2)
-    log(f"fine-tune fast B=2, {FT_STEPS} steps: ms per step "
-        f"{', '.join(f'{t * 1e3:.2f}' for t in times)}; steady (steps 3-"
-        f"{FT_STEPS}) {steady * 1e3:.2f} ms = {2 / steady:.2f} img/s; peak "
-        f"memory {peak / 2 ** 30:.3f} GiB; losses "
+    log(f"fine-tune {cfg.name} {precision} B=2, {FT_STEPS} steps: ms per "
+        f"step {', '.join(f'{t * 1e3:.2f}' for t in times)}; steady (steps "
+        f"3-{FT_STEPS}) {steady * 1e3:.2f} ms = {2 / steady:.2f} img/s; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB; losses "
         f"{', '.join(f'{x:.6f}' for x in losses)}; max parameter move "
         f"{moved:.3e}; launches {counts}")
-    expect = {k: FT_STEPS * v for k, v in STEP_LAUNCHES.items()}
+    expect = {k: FT_STEPS * per_step.get(k, 0) for k in A.LAUNCHES}
     if counts != expect:
         raise AssertionError(f"fine-tune launches {counts} != {expect}")
     if not all(np.isfinite(losses)) or not moved > 0 or \
@@ -647,41 +724,277 @@ def finetune_phase(torch, A, ft):
     return counts
 
 
-def grad_check_phase(torch, ft):
-    """One ``fast`` step's gradients at B=1: fused trainable kernels vs the
-    same weights through plain attention (torch autograd). Per leaf:
-    |diff| <= max(5% of the leaf's max |grad|, 5e-4), as the JAX package's
-    tests/test_finetune.py holds its fused path to its oracle."""
+# Per-leaf gradient limits of the checks against plain attention:
+# max(rel · the leaf's max |grad|, floor). ``fast`` as the JAX package's
+# tests/test_finetune.py holds its fused path to its oracle; ``parity``
+# (fp32 on both sides, the sum order alone) from the gap measured on an
+# H100 SXM: worst leaf 1.11e-5 of its max |grad| (blocks.5.attn.rel_pos_w),
+# median 2.25e-6, no floor.
+GRAD_LIMITS = {"fast": (0.05, 5e-4), "parity": (2e-5, 0.0)}
+
+
+def grad_check_phase(torch, ft, precision="fast"):
+    """One step's gradients at B=1 on SAM ViT-B/16 @1024: the trainable
+    kernels (``fast``: K1/K4/K5; ``parity``: K6) vs the same weights
+    through plain attention under torch autograd, per leaf
+    |diff| <= max(rel · max |grad|, floor) (``GRAD_LIMITS``)."""
+    rel, floor = GRAD_LIMITS[precision]
     tuner = ft.FineTuner(ft.FineTuneConfig(backbone="medsam",
-                                           precision="fast"))
+                                           precision=precision))
     batch = [t[:1] for t in _ft_batch(torch, 1)]
     grads = {}
     for use_flash in (True, False):
         model = tuner.build_model(use_flash=use_flash).init_random(SEED)
         model = model.cuda()
-        loss, _ = tuner.loss(model, *batch)
-        loss.backward()
+        loss, _ = tuner.backward(model, *batch)     # the steps' backward
         grads[use_flash] = {k: p.grad.float()
                             for k, p in model.named_parameters()}
         del model, loss
         torch.cuda.empty_cache()
-    worst, worst_name, floored, worst_rel = 0.0, "", 0, 0.0
+    worst, worst_name, floored, rels = 0.0, "", 0, []
     for name, ref in grads[False].items():
         scale = ref.abs().max().item()
-        tol = max(0.05 * scale, 5e-4)
-        floored += tol > 0.05 * scale
+        tol = max(rel * scale, floor)
+        floored += tol > rel * scale
         err = (grads[True][name] - ref).abs().max().item()
-        if err / tol > worst:
-            worst, worst_name = err / tol, name
+        ratio = err / tol if tol > 0 else (0.0 if err == 0 else float("inf"))
+        if ratio > worst or not worst_name:
+            worst, worst_name = ratio, name
         if scale > 0:
-            worst_rel = max(worst_rel, err / scale)
-    log(f"gradient check B=1, fused vs plain attention: {len(grads[False])} "
-        f"leaves, worst err/limit {worst:.3f} ({worst_name}), worst err / "
-        f"leaf max |grad| {worst_rel:.3e}; {floored} leaves under the 5e-4 "
-        f"floor")
+            rels.append(err / scale)
+    rels.sort()
+    log(f"gradient check {precision} B=1, trainable kernels vs plain "
+        f"attention: {len(grads[False])} leaves, worst err/limit "
+        f"{worst:.3f} ({worst_name}), err / leaf max |grad|: worst "
+        f"{rels[-1]:.3e}, median {rels[len(rels) // 2]:.3e}; {floored} "
+        f"leaves under the {floor:g} floor")
     if not worst <= 1.0:
         raise AssertionError(f"gradients disagree: {worst_name} at "
                              f"{worst:.3f} of its limit")
+
+
+def k6_phase(torch, G, peaks):
+    """Phase 10: the three K6 kernels (fp32) at the ``parity`` path's
+    shapes, each output against its plain version; kernel, plain-version and
+    library (fp32 SDPA with the dense bias, or the padding mask, as
+    ``attn_mask``; forward, or the whole backward) times and the bound.
+    A row's numbers are SAM's global shape's; ``by_shape`` holds all
+    three."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    heads, d = 12, 64
+    scale = d ** -0.5
+    grad = "vit_deep_radiomics_tpu/ops/attention_grad.py"
+    where = {"flash_attention_fwd": f"{grad}:56",
+             "flash_attention_bwd_dq": f"{grad}:186",
+             "flash_attention_bwd_dkv": f"{grad}:266"}
+    rows = {n: {} for n in K6_NAMES}
+    for shape, (b, s, kh, kw, kv_len) in K6_SHAPES.items():
+        def rand(*sh, sc=1.0):
+            return torch.randn(*sh, generator=gen, device="cuda") * sc
+
+        q, k, v, dout = (rand(b, heads, s, d) for _ in range(4))
+        bh = bw = kl = None
+        if kh:
+            bh, bw = rand(b, heads, s, kh, sc=0.3), rand(b, heads, s, kw,
+                                                          sc=0.3)
+        n_keys = kv_len or s
+        if kv_len:
+            kl = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+            key = torch.arange(s, device="cuda")
+            mask = torch.zeros(b, heads, s, s, device="cuda").masked_fill(
+                key >= n_keys, float("-inf"))
+        else:
+            mask = (bh[..., :, None] + bw[..., None, :]).reshape(
+                b, heads, s, s)
+        args, pairs = (q, k, v, bh, bw, kl), b * heads * s * n_keys * d
+        iters = 20 if s < 1000 else 5
+        tag = f"[{shape}]"
+
+        def row(name, err, fn, plain, lib, nb, flops):
+            ms = cuda_ms(torch, fn, iters)
+            plain_ms = cuda_ms(torch, plain, 2)
+            rows[name][shape] = _record(
+                f"{name} {tag}", f"{name}.cu", where[name], "float32", err,
+                ms, plain_ms, lib, nb, flops, peaks)
+
+        out, lse = G.flash_attention_fwd(*args, scale=scale)
+        torch.cuda.synchronize()
+        err = _check_outputs(
+            torch, f"flash_attention_fwd {tag}", [out, lse],
+            G.flash_attention_fwd_plain(*args, scale=scale), ["out", "lse"],
+            0.0, [K6_ATOL["flash_attention_fwd"], K6_ATOL["lse"]])
+        row("flash_attention_fwd", err,
+            lambda: G.flash_attention_fwd(*args, scale=scale),
+            lambda: G.flash_attention_fwd_plain(*args, scale=scale),
+            _sdpa_ms(torch, q, k, v, mask, scale),
+            _nbytes(*args, out, lse), 4.0 * pairs)
+
+        rest = (dout, lse, G.flash_attention_delta(out, dout))
+        lib = _sdpa_ms(torch, q, k, v, mask, scale, dout, mask_grad=bool(kh))
+        for name, plain_fn, labels, flops in (
+                ("flash_attention_bwd_dq", G.flash_attention_bwd_dq_plain,
+                 ("dq", "dbias_h", "dbias_w"), 6.0 * pairs),
+                ("flash_attention_bwd_dkv", G.flash_attention_bwd_dkv_plain,
+                 ("dk", "dv"), 8.0 * pairs)):
+            fn = getattr(G, name)
+            got = fn(*args, *rest, scale=scale)
+            torch.cuda.synchronize()
+            ref = plain_fn(*args, *rest, scale=scale)
+            keep = [i for i, r in enumerate(ref) if r is not None]
+            err = _check_outputs(
+                torch, f"{name} {tag}", [got[i] for i in keep],
+                [ref[i] for i in keep], [labels[i] for i in keep], 0.0,
+                K6_ATOL[name])
+            del ref
+            row(name, err, lambda: fn(*args, *rest, scale=scale),
+                lambda: plain_fn(*args, *rest, scale=scale), lib,
+                _nbytes(*args, *rest, *got), flops)
+            del got
+        del q, k, v, dout, bh, bw, kl, mask, args, out, lse, rest
+        torch.cuda.empty_cache()
+    log("library yardstick of both K6 backward kernels: the whole fp32 SDPA "
+        "backward (dq, dk, dv and, with a bias, the mask gradient)")
+    records = {}
+    for name, by in rows.items():
+        rec = dict(by["sam_global"], name=name,
+                   max_abs_err=max(r["max_abs_err"] for r in by.values()))
+        rec["by_shape"] = {
+            shape: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+            for shape, r in by.items()}
+        records[name] = rec
+    return records
+
+
+def kv_len_phase(torch, A, G, peaks):
+    """Phase 11: K2 and the three K5 kernels in kv_len mode at DINOv2
+    ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, 12 heads of 64,
+    bf16), each at the batch of the path that runs it (K2: the inference
+    forward's 4; K5: fine-tuning's 2) and against its plain version; times,
+    library (bf16 SDPA with the padding mask), bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    s, n, heads, d = DINO_PADDED, DINO_TOKENS, 12, 64
+    c, scale, dt, rtol = heads * d, d ** -0.5, torch.bfloat16, 2.0 ** -7
+
+    def inputs(b):
+        """q, kv, dout, kv_len, the padding mask, the per-head views."""
+        q, kv, dout = (torch.randn(b, s, w, generator=gen,
+                                   device="cuda").to(dt)
+                       for w in (c, 2 * c, c))
+        kl = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        key = torch.arange(s, device="cuda")
+        mask = torch.zeros(b, heads, s, s, device="cuda",
+                           dtype=dt).masked_fill(key >= n, float("-inf"))
+        views = [_heads_of(t, 1, s, heads)
+                 for t in (q, kv[..., :c], kv[..., c:], dout)]
+        return q, kv, dout, kl, mask, views, b * heads * s * n * d
+
+    kw = dict(num_heads=heads, scale=scale)
+    k2 = "vit_deep_radiomics_tpu/ops/attention.py:654"
+    grad = "vit_deep_radiomics_tpu/ops/attention_grad.py"
+    records = {}
+
+    def row(name, src, replaces, err, fn, plain, lib, nb, flops):
+        rec = _record(f"{name}_kv_len", src, replaces, "bfloat16", err,
+                      cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 3), lib,
+                      nb, flops, peaks)
+        records[rec["name"]] = rec
+
+    q, kv, _, kl, mask, (qh, kh_, vh, _), pairs = inputs(DINO_FWD_BATCH)
+    out = A.fused_global_attention(q, kv, None, None, kl, **kw)
+    torch.cuda.synchronize()
+    err = _check_outputs(
+        torch, f"fused_global_attention [kv_len, B={DINO_FWD_BATCH}]", [out],
+        [A.fused_global_attention_plain(q, kv, None, None, kl, **kw)],
+        ["out"], rtol, KV_ATOL["fused_global_attention"])
+    row("fused_global_attention", "fused_global_attention.cu", k2, err,
+        lambda: A.fused_global_attention(q, kv, None, None, kl, **kw),
+        lambda: A.fused_global_attention_plain(q, kv, None, None, kl, **kw),
+        _sdpa_ms(torch, qh, kh_, vh, mask, scale), _nbytes(q, kv, kl, out),
+        4.0 * pairs)
+    del q, kv, kl, mask, qh, kh_, vh, out
+    torch.cuda.empty_cache()
+
+    q, kv, dout, kl, mask, (qh, kh_, vh, doh), pairs = inputs(2)
+    out, lse = G.global_attention_fwd_lse(q, kv, None, None, kl, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = G.global_attention_fwd_lse_plain(q, kv, None, None,
+                                                        kl, **kw)
+    tag = "[kv_len, B=2]"
+    err = max(_check_outputs(torch, f"global_attention_fwd_lse {tag}",
+                             [out], [ref_out], ["out"], rtol,
+                             KV_ATOL["global_attention_fwd_lse"]),
+              _check_outputs(torch, f"global_attention_fwd_lse {tag}",
+                             [lse], [ref_lse], ["lse"], 0.0, KV_ATOL["lse"]))
+    del ref_out, ref_lse
+    row("global_attention_fwd_lse", "global_attention_fwd_lse.cu",
+        f"{grad}:1068", err,
+        lambda: G.global_attention_fwd_lse(q, kv, None, None, kl, **kw),
+        lambda: G.global_attention_fwd_lse_plain(q, kv, None, None, kl, **kw),
+        _sdpa_ms(torch, qh, kh_, vh, mask, scale),
+        _nbytes(q, kv, kl, out, lse), 4.0 * pairs)
+
+    args = (q, kv, None, None, kl, dout, lse,
+            G.attention_delta(out, dout, heads))
+    lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale, doh, mask_grad=False)
+    dq = G.global_attention_bwd_dq(*args, **kw)[0]
+    dkv = G.global_attention_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    err = _check_outputs(
+        torch, f"global_attention_bwd_dq {tag}", [dq],
+        [G.global_attention_bwd_dq_plain(*args, **kw)[0]], ["dq"], rtol,
+        KV_ATOL["global_attention_bwd_dq"])
+    row("global_attention_bwd_dq", "global_attention_bwd_dq.cu",
+        f"{grad}:1168", err, lambda: G.global_attention_bwd_dq(*args, **kw),
+        lambda: G.global_attention_bwd_dq_plain(*args, **kw), lib,
+        _nbytes(*args, dq), 6.0 * pairs)
+    err = _check_outputs(
+        torch, f"global_attention_bwd_dkv {tag}", [dkv],
+        [G.global_attention_bwd_dkv_plain(*args, **kw)], ["dkv"], rtol,
+        KV_ATOL["global_attention_bwd_dkv"])
+    if dkv[:, n:].any():
+        raise AssertionError("K5 dkv: padded keys got a gradient")
+    row("global_attention_bwd_dkv", "global_attention_bwd_dkv.cu",
+        f"{grad}:1255", err, lambda: G.global_attention_bwd_dkv(*args, **kw),
+        lambda: G.global_attention_bwd_dkv_plain(*args, **kw), lib,
+        _nbytes(*args, dkv), 8.0 * pairs)
+    del q, kv, dout, mask, qh, kh_, vh, doh, out, lse, args, dq, dkv
+    torch.cuda.empty_cache()
+    return records
+
+
+def dinov2_forward_phase(torch, A, vit, precision):
+    """DINOv2 ViT-B/14 @518 inference forward at ``DINO_FWD_BATCH`` (4)
+    under ``fast``: every layer runs K2 in kv_len mode (1370 tokens padded
+    to 1536)."""
+    model = vit.ViTDense(vit.DINOV2_CONFIGS["dinov2_vitb14"],
+                         policy=precision.FAST).init_random(SEED)
+    model = model.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    images = torch.rand(DINO_FWD_BATCH, 518, 518, 3, generator=gen,
+                        device="cuda")
+    with torch.no_grad():
+        model(images)                                 # warm-up
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model(images)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = dict(A.LAUNCHES)
+    log(f"forward dinov2_vitb14 fast B={DINO_FWD_BATCH}: {dt * 1e3:.2f} ms "
+        f"({DINO_FWD_BATCH / dt:.2f} img/s), launches {counts}, out "
+        f"{tuple(out.shape)}")
+    if counts != dict(dict.fromkeys(A.LAUNCHES, 0),
+                      fused_global_attention=12):
+        raise AssertionError(f"DINOv2 launches per forward: {counts}")
+    if tuple(out.shape) != (DINO_FWD_BATCH, 37, 37, 768) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError("DINOv2 forward output is not finite or of "
+                             "the expected shape")
+    del model, out
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -732,12 +1045,39 @@ def main() -> int:
     ft_counts = finetune_phase(torch, A, ft)
     torch.cuda.empty_cache()
     grad_check_phase(torch, ft)
+    torch.cuda.empty_cache()
 
     # launches of the path that runs each kernel: extraction for K1/K2,
     # fine-tuning for K4/K5
     for kname, rec in records.items():
         rec["launches"] = counts[kname] if counts[kname] else \
             ft_counts[kname]
+
+    k6_records = k6_phase(torch, G, peaks)                     # phase 10
+    kv_records = kv_len_phase(torch, A, G, peaks)              # phase 11
+    parity_counts = finetune_phase(torch, A, ft, "medsam", "parity",
+                                   PARITY_STEP_LAUNCHES)       # phase 12
+    torch.cuda.empty_cache()
+    dino_fast = finetune_phase(torch, A, ft, "dinov2_vitb14", "fast",
+                               DINO_FAST_STEP_LAUNCHES)        # phase 13
+    torch.cuda.empty_cache()
+    dino_parity = finetune_phase(torch, A, ft, "dinov2_vitb14", "parity",
+                                 PARITY_STEP_LAUNCHES)
+    torch.cuda.empty_cache()
+    dino_fwd = dinov2_forward_phase(torch, A, vit, precision)
+    grad_check_phase(torch, ft, "parity")                      # phase 14
+
+    # K6: SAM parity fine-tuning is its main path, DINOv2 parity its
+    # kv_len path; K2/K5 in kv_len mode: the DINOv2 forward and fast steps
+    for kname, rec in k6_records.items():
+        rec["launches"] = parity_counts[kname]
+        rec["launches_dinov2_parity"] = dino_parity[kname]
+    for kname, rec in kv_records.items():
+        base = kname[:-len("_kv_len")]
+        rec["launches"] = dino_fwd[base] if base == \
+            "fused_global_attention" else dino_fast[base]
+    records.update(k6_records)
+    records.update(kv_records)
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

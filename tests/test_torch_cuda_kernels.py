@@ -191,3 +191,147 @@ def test_remat_on_the_card_matches_no_remat(gen, remat):
     assert abs(loss1 - loss0) <= 1e-6 * abs(loss0)
     for k, g in g0.items():
         torch.testing.assert_close(g1[k], g, atol=1e-6, rtol=1e-5, msg=k)
+
+
+# K6 (fp32, per-head (B, H, S, D)) against its plain versions, elementwise
+# |got - want| <= K6_ATOL: both sides are fp32, so the gap is the order of
+# the sums alone.
+K6_ATOL = 1e-4
+
+
+def _k6_inputs(gen, b, heads, s, kh, kw, kv_len=None):
+    q, k, v, dout = (_rand(gen, b, heads, s, 64, dtype=torch.float32)
+                     for _ in range(4))
+    bh = bw = None
+    if kh:
+        bh = _rand(gen, b, heads, s, kh, dtype=torch.float32, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=torch.float32, scale=0.3)
+    if kv_len is not None:
+        kv_len = torch.tensor(kv_len, device="cuda")
+    return q, k, v, bh, bw, kv_len, dout
+
+
+def _k6_run(fwd, dq, dkv, delta, args, dout, scale):
+    out, lse = fwd(*args, scale=scale)
+    rest = (dout, lse, delta(out, dout))
+    return (out, lse, *dq(*args, *rest, scale=scale),
+            *dkv(*args, *rest, scale=scale))
+
+
+@pytest.mark.parametrize("b,s,kh,kw,kv_len", [
+    (2, 196, 14, 14, None),      # SAM window: Kw = 14 cuts every key tile
+    (1, 320, 5, 64, None),       # SAM global's Kw = 64 over 5 key tiles
+    (2, 200, 0, 0, [77, 200]),   # kv_len, ragged 64-row tiles
+], ids=["kw14", "kw64", "kv_len"])
+def test_flash_trainable_kernels_match_plain(gen, b, s, kh, kw, kv_len):
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    q, k, v, bh, bw, kv_len, dout = _k6_inputs(gen, b, 3, s, kh, kw, kv_len)
+    args, scale = (q, k, v, bh, bw, kv_len), 64 ** -0.5
+    A.reset_launch_counts()
+    got = _k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,
+                  G.flash_attention_bwd_dkv, G.flash_attention_delta, args,
+                  dout, scale)
+    torch.cuda.synchronize()
+    assert [A.LAUNCHES[n] for n in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")] == [1, 1, 1]
+    want = _k6_run(G.flash_attention_fwd_plain,
+                   G.flash_attention_bwd_dq_plain,
+                   G.flash_attention_bwd_dkv_plain, G.flash_attention_delta,
+                   args, dout, scale)
+    names = ("out", "lse", "dq", "dbh", "dbw", "dk", "dv")
+    for g_, w_, name in zip(got, want, names):
+        if w_ is None:
+            assert g_ is None, name
+            continue
+        gap = (g_ - w_).abs().max().item()
+        print(f"{name}: gap {gap:.3e}")
+        assert torch.isfinite(g_).all() and gap <= K6_ATOL, (name, gap)
+    if kv_len is not None:     # keys past kv_len get no gradient
+        assert not got[5][0, :, 77:].any() and not got[6][0, :, 77:].any()
+
+
+def test_flash_trainable_kernels_are_deterministic(gen):
+    """No atomics: two runs give the same bits (the remat and gradient
+    checks rely on it)."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    q, k, v, bh, bw, _, dout = _k6_inputs(gen, 2, 3, 196, 14, 14)
+    runs = [_k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,
+                    G.flash_attention_bwd_dkv, G.flash_attention_delta,
+                    (q, k, v, bh, bw, None), dout, 0.125) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_kv_len_kernels_at_a_padded_dinov2_shape(gen):
+    """K2 and the three K5 kernels in kv_len mode, bf16, on the layout a
+    DINOv2 layer gives them: 226 tokens (15x15 patches and the CLS token)
+    padded to 256, the pads masked for both batch rows."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, heads, d, s, n = 2, 4, 64, 256, 226
+    dt = torch.bfloat16
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    kv_len = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    _assert_close(A.fused_global_attention(q, kv, None, None, kv_len,
+                                           **kwargs),
+                  A.fused_global_attention_plain(q, kv, None, None, kv_len,
+                                                 **kwargs), dt, "global")
+    out, lse = G.global_attention_fwd_lse(q, kv, None, None, kv_len,
+                                          **kwargs)
+    want_out, want_lse = G.global_attention_fwd_lse_plain(
+        q, kv, None, None, kv_len, **kwargs)
+    _assert_close(out, want_out, dt, "global")
+    assert (lse - want_lse).abs().max().item() <= 1e-2
+    dout = _rand(gen, b, s, heads * d, dtype=dt)
+    args = (q, kv, None, None, kv_len, dout, lse,
+            G.attention_delta(out, dout, heads))
+    got = (G.global_attention_bwd_dq(*args, **kwargs)[0],
+           G.global_attention_bwd_dkv(*args, **kwargs))
+    want = (G.global_attention_bwd_dq_plain(*args, **kwargs)[0],
+            G.global_attention_bwd_dkv_plain(*args, **kwargs))
+    for g_, w_, name in zip(got, want, ("dq", "dkv")):
+        _assert_grad_close(g_, w_, name, "global")
+    assert not got[1][:, n:].any()
+
+
+@pytest.mark.parametrize("remat", ["block", "mlp"])
+def test_parity_remat_on_the_card_matches_no_remat(gen, remat):
+    """``parity`` fine-tuning of a small SAM-shaped model (64x64 global
+    grid, 8x8 windows) through K6: remat recomputes the K6 forward inside
+    the backward and must give the plain schedule's loss and gradients."""
+    import dataclasses
+
+    from vit_deep_radiomics_tpu_torch.core.precision import PARITY
+    from vit_deep_radiomics_tpu_torch.engine.finetune import FineTuneModel
+    from vit_deep_radiomics_tpu_torch.models.vit import SAM_VIT_B
+
+    cfg = dataclasses.replace(
+        SAM_VIT_B, image_size=64, patch_size=1, width=128, depth=2,
+        num_heads=2, window_size=8, global_indexes=(1,), neck_channels=16)
+    images = torch.rand(2, 64, 64, 3, generator=gen, device="cuda")
+    mask = torch.zeros(2, 64, 64, dtype=torch.bool, device="cuda")
+    mask[:, 10:30, 20:40] = True
+    runs = {}
+    for mode in (False, remat):
+        model = FineTuneModel(cfg, 2, PARITY, remat=mode).init_random(0)
+        model = model.cuda()
+        A.reset_launch_counts()
+        with PARITY.backends():
+            loss = model(images, mask).square().sum()
+            loss.backward()
+        torch.cuda.synchronize()
+        runs[mode] = (loss.item(), dict(A.LAUNCHES),
+                      {k: p.grad for k, p in model.named_parameters()})
+    (loss0, counts0, g0), (loss1, counts1, g1) = runs[False], runs[remat]
+    assert counts0["flash_attention_fwd"] == 2
+    assert counts0["flash_attention_bwd_dkv"] == 2
+    assert counts1["flash_attention_fwd"] == (4 if remat == "block" else 2)
+    assert not counts0["window_attention_bwd"]
+    assert abs(loss1 - loss0) <= 1e-6 * abs(loss0)
+    for k, g in g0.items():
+        torch.testing.assert_close(g1[k], g, atol=1e-6, rtol=1e-5, msg=k)

@@ -3,12 +3,22 @@
 The JAX ``FineTuner`` on tests/test_finetune.py's ``TINY_SAM`` (its
 ``parity`` path runs the generic trainable kernels in interpret mode, its
 ``fast`` path the fused window kernels) and the port's ``FineTuner`` on the
-CPU (the plain versions of K1, K4 and K5) start from the same weights,
-bridged by ``models/convert.py::finetune_params_from_jax`` with the
-rel-pos tables filled randomly so that the bias gradients count, and see
-the same batches. ``parity``: the loss of every step to 1e-4 relative and
-every parameter after 3 steps to 1e-4; ``fast``: the loss to 5e-2
-relative (both sides round to bf16 at other places).
+CPU (under ``parity`` the plain versions of K6, under ``fast`` those of
+K1, K4 and K5) start from the same weights, bridged by
+``models/convert.py::finetune_params_from_jax`` with the rel-pos tables
+filled randomly so that the bias gradients count, and see the same
+batches. ``parity``: the loss of every step to 1e-4 relative and every
+parameter after 3 steps to 1e-4; ``fast``: the loss to 5e-2 relative (both
+sides round to bf16 at other places). A tiny DINOv2-shaped backbone (CLS
+token, LayerScale, 17 tokens padded to 128 with ``kv_len``) is held to
+JAX the same way under ``parity``.
+
+Where a gradient is at fp32 rounding level (the k third of ``qkv.bias``:
+it adds a per-row constant under the softmax, so its exact gradient is
+zero), AdamW turns each side's rounding noise into updates of about
+0.1·LR with that side's signs. The update comparison leaves out the
+elements whose first JAX gradient is at that level, and holds the port's
+gradient there at that level too.
 """
 
 import dataclasses
@@ -24,6 +34,8 @@ from vit_deep_radiomics_tpu.engine.finetune import (
     FineTuneConfig as JaxConfig,
     FineTuner as JaxTuner,
 )
+from vit_deep_radiomics_tpu.models.losses import focal_loss as jax_focal_loss
+from vit_deep_radiomics_tpu.models.vit import DINOV2_CONFIGS as JAX_DINOV2
 from vit_deep_radiomics_tpu.models.vit import SAM_VIT_B as JAX_SAM_VIT_B
 from vit_deep_radiomics_tpu_torch.engine.finetune import (
     FineTuneConfig,
@@ -33,15 +45,31 @@ from vit_deep_radiomics_tpu_torch.engine.finetune import (
 from vit_deep_radiomics_tpu_torch.models.convert import (
     finetune_params_from_jax,
 )
-from vit_deep_radiomics_tpu_torch.models.vit import SAM_VIT_B, ViTDense
+from vit_deep_radiomics_tpu_torch.models import vit as tvit
+from vit_deep_radiomics_tpu_torch.models.vit import (
+    DINOV2_CONFIGS,
+    SAM_VIT_B,
+    ViTDense,
+)
 from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
 TINY = dict(image_size=64, width=128, depth=3, num_heads=2, window_size=4,
             global_indexes=(1,), neck_channels=32)
 TINY_SAM = dataclasses.replace(SAM_VIT_B, **TINY)
 JAX_TINY_SAM = dataclasses.replace(JAX_SAM_VIT_B, **TINY)
+# DINOv2 ViT-S/14's layout at 56 px: 4x4 patches + CLS = 17 tokens
+TINY_DINO_ARGS = dict(image_size=56, width=128, depth=2, num_heads=2)
+TINY_DINO = dataclasses.replace(DINOV2_CONFIGS["dinov2_vits14"],
+                                **TINY_DINO_ARGS)
+JAX_TINY_DINO = dataclasses.replace(JAX_DINOV2["dinov2_vits14"],
+                                    **TINY_DINO_ARGS)
 STEPS = 3
 LR = 1e-5
+# fp32 rounding level of a gradient, relative to its leaf's max |grad|:
+# the k third of qkv.bias measured at most 6.7e-8 (JAX) and 1.4e-7 (port),
+# the smallest q/v element 1.9e-4
+ROUNDING = 1e-6
 
 
 def _batch(seed, b=2, size=64, grid=4):
@@ -53,39 +81,67 @@ def _batch(seed, b=2, size=64, grid=4):
     return images, mask, labels
 
 
-def _jax_run(precision, batch, **cfg):
-    """JAX FineTuner: (initial params, final params, per-step losses)."""
+def _jax_run(precision, batch, backbone=JAX_TINY_SAM, grads=False, **cfg):
+    """JAX FineTuner: (initial params, final params, per-step losses),
+    and with ``grads`` the first step's gradients."""
     config = JaxConfig(num_classes=2, learning_rate=LR, precision=precision,
-                       backbone_cfg=JAX_TINY_SAM, **cfg)
+                       backbone_cfg=backbone, **cfg)
     tuner = JaxTuner(config)
-    params = tuner.init(jax.random.PRNGKey(0), jnp.asarray(batch[0]))[
-        "params"]
+    params = tuner.init(jax.random.PRNGKey(0), jnp.asarray(batch[0]),
+                        jnp.asarray(batch[1]))["params"]
     rng = np.random.default_rng(11)
 
     def fill(path, leaf):
+        # random rel-pos tables, LayerScale gammas and CLS token, so that
+        # each of them moves the loss
         name = jax.tree_util.keystr(path)
-        if "rel_pos" in name:
+        if "rel_pos" in name or "cls_token" in name:
             return jnp.asarray(rng.normal(size=leaf.shape).astype(
                 np.float32) * 0.2)
+        if "'ls1'" in name or "'ls2'" in name:
+            return jnp.asarray((0.1 + 0.05 * rng.normal(
+                size=leaf.shape)).astype(np.float32))
         return leaf
 
     params = jax.tree_util.tree_map_with_path(fill, params)
     p0 = jax.tree_util.tree_map(np.asarray, params)
+
     state = {"params": params,
              "opt_state": tuner._optimizer(params).init(params)}
     losses = []
     for _ in range(STEPS):
         state, loss, _ = tuner.step(state, *batch)
         losses.append(float(loss))
-    return p0, jax.tree_util.tree_map(np.asarray, state["params"]), losses
+    out = p0, jax.tree_util.tree_map(np.asarray, state["params"]), losses
+    if grads:
+        def loss_fn(p):
+            logits = tuner.model.apply(p, *map(jnp.asarray, batch[:2]))
+            return jax_focal_loss(logits, jnp.asarray(batch[2]),
+                                  alpha=jnp.asarray(config.focal_alpha),
+                                  gamma=config.focal_gamma) / len(batch[2])
+
+        out += (jax.tree_util.tree_map(np.asarray,
+                                       jax.grad(loss_fn)(p0)),)
+    return out
 
 
-def _port_run(precision, batch, p0, **cfg):
+def _port_grads(batch, p0, backbone=TINY_SAM, **cfg):
+    """The port's gradients of the first step (None where frozen)."""
+    tuner = FineTuner(FineTuneConfig(num_classes=2, precision="parity",
+                                     backbone_cfg=backbone, **cfg),
+                      device="cpu")
+    model = tuner.init(state_dict=finetune_params_from_jax(p0, backbone))[
+        "model"]
+    tuner.backward(model, *(torch.as_tensor(x) for x in batch))
+    return {k: p.grad for k, p in model.named_parameters()}
+
+
+def _port_run(precision, batch, p0, backbone=TINY_SAM, **cfg):
     config = FineTuneConfig(num_classes=2, learning_rate=LR,
-                            precision=precision, backbone_cfg=TINY_SAM,
+                            precision=precision, backbone_cfg=backbone,
                             **cfg)
     tuner = FineTuner(config, device="cpu")
-    state = tuner.init(state_dict=finetune_params_from_jax(p0, TINY_SAM))
+    state = tuner.init(state_dict=finetune_params_from_jax(p0, backbone))
     losses = []
     for _ in range(STEPS):
         state, loss, logits = tuner.step(state, *batch)
@@ -100,18 +156,20 @@ def _port_run(precision, batch, p0, **cfg):
 def parity_runs(request):
     cfg = dict(request.param)
     batch = _batch(3, b=cfg.pop("b"))
-    p0, p3, jax_losses = _jax_run("parity", batch, **cfg)
+    p0, p3, jax_losses, g0 = _jax_run("parity", batch, grads=True, **cfg)
     sd, port_losses = _port_run("parity", batch, p0, **cfg)
-    return cfg, p0, p3, jax_losses, sd, port_losses
+    grads = (finetune_params_from_jax(g0, TINY_SAM),
+             _port_grads(batch, p0, **cfg))
+    return cfg, p0, p3, jax_losses, sd, port_losses, grads
 
 
 class TestAgainstJax:
     def test_parity_losses(self, parity_runs):
-        _, _, _, jax_losses, _, port_losses = parity_runs
+        _, _, _, jax_losses, _, port_losses, _ = parity_runs
         np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-4)
 
     def test_parity_parameters(self, parity_runs):
-        cfg, p0, p3, _, sd, _ = parity_runs
+        cfg, p0, p3, _, sd, _, (g_jax, g_port) = parity_runs
         want = finetune_params_from_jax(p3, TINY_SAM)
         start = finetune_params_from_jax(p0, TINY_SAM)
         assert set(want) == set(sd)
@@ -125,6 +183,19 @@ class TestAgainstJax:
             moved_j = (w - start[name]).flatten()
             frozen = name.startswith("backbone.blocks.") and \
                 int(name.split(".")[2]) < cfg.get("freeze_below", 0)
+            if not frozen:
+                # elements whose gradient is rounding noise in JAX: the
+                # port's is noise there too, and their updates are not
+                # compared
+                gj = g_jax[name].flatten().abs()
+                gp = g_port[name].flatten().abs()
+                noise = gj <= ROUNDING * gj.max()
+                assert (gp[noise] <= 2 * ROUNDING * gp.max()).all(), name
+                if name.endswith("attn.qkv.bias"):
+                    k_third = torch.arange(gj.numel()) // (gj.numel() // 3)
+                    assert torch.equal(noise, k_third == 1), name
+                    assert (gp[noise] <= ROUNDING * gp.max()).all(), name
+                moved_p, moved_j = moved_p[~noise], moved_j[~noise]
             if frozen:
                 assert not moved_p.any() and not moved_j.any(), name
             else:
@@ -138,6 +209,59 @@ class TestAgainstJax:
         _, port_losses = _port_run("fast", batch, p0)
         assert np.isfinite(port_losses).all()
         np.testing.assert_allclose(port_losses, jax_losses, rtol=5e-2)
+
+    def test_parity_step_runs_k6_in_every_layer(self, monkeypatch):
+        """Under ``parity`` each trainable layer, windowed or global, takes
+        the generic path: one K6 call per layer and forward, none of the
+        fused trainable Functions (JAX vit.py:307-318)."""
+        calls = []
+        monkeypatch.setattr(tvit, "flash_attention_trainable",
+                            lambda *a, **k: calls.append(a[3] is not None)
+                            or G.flash_attention_trainable(*a, **k))
+        for name in ("window_attention_trainable",
+                     "global_attention_trainable"):
+            monkeypatch.setattr(tvit, name, None)
+        tuner = FineTuner(FineTuneConfig(precision="parity",
+                                         backbone_cfg=TINY_SAM),
+                          device="cpu")
+        state = tuner.init(seed=0)
+        tuner.step(state, *_batch(8))
+        assert calls == [True] * TINY_SAM.depth
+
+
+@pytest.fixture(scope="module")
+def dino_runs():
+    """3 ``parity`` steps of a tiny DINOv2-shaped backbone, both sides."""
+    batch = _batch(9, size=56, grid=4)
+    p0, p3, jax_losses = _jax_run("parity", batch, backbone=JAX_TINY_DINO)
+    sd, port_losses = _port_run("parity", batch, p0, backbone=TINY_DINO)
+    return p3, jax_losses, sd, port_losses
+
+
+class TestDinov2AgainstJax:
+    def test_parity_losses(self, dino_runs):
+        _, jax_losses, _, port_losses = dino_runs
+        np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-4)
+
+    def test_parity_parameters(self, dino_runs):
+        p3, _, sd, _ = dino_runs
+        want = finetune_params_from_jax(p3, TINY_DINO)
+        assert set(want) == set(sd)
+        assert "backbone.blocks.1.ls2.gamma" in sd
+        for name, w in want.items():
+            np.testing.assert_allclose(sd[name].numpy(), w.numpy(),
+                                       atol=1e-4, err_msg=name)
+
+    def test_backbone_names_resolve_as_in_jax(self):
+        for name in ("medsam", "dinov2_vitb14"):
+            got = FineTuneConfig(backbone=name).resolve_backbone()
+            want = JaxConfig(backbone=name).resolve_backbone()
+            assert (got.name, got.width, got.depth, got.num_heads,
+                    got.image_size, got.patch_size) == \
+                (want.name, want.width, want.depth, want.num_heads,
+                 want.image_size, want.patch_size)
+        with pytest.raises(KeyError, match="unknown backbone"):
+            FineTuneConfig(backbone="dinov3").resolve_backbone()
 
 
 class TestPortOnly:
@@ -185,14 +309,21 @@ class TestPortOnly:
         with pytest.raises(NotImplementedError, match="item 10"):
             FineTuner(FineTuneConfig(), mesh=object(), device="cpu")
 
-    def test_parity_trainable_layer_on_a_gpu_tensor_raises(self):
-        """The model refuses fp32 trainable attention on a non-CPU tensor
-        (no K6 yet) instead of taking another path."""
+    def test_parity_trainable_layer_on_a_gpu_tensor_raises(self,
+                                                            monkeypatch):
+        """fp32 trainable attention on a non-CPU tensor goes to the K6
+        kernel (here stopped at the library load, as a failed build or
+        refused launch would stop it) and never to a plain version."""
+        def launch(*_, **__):
+            raise RuntimeError("K6 launch reached")
+
+        monkeypatch.setattr(G, "_load", launch)
+        monkeypatch.setattr(G, "flash_attention_fwd_plain", None)
         model = ViTDense(TINY_SAM, policy=FineTuner(FineTuneConfig(
             precision="parity"), device="cpu").policy, trainable=True)
         attn = model.blocks[0].attn
         x = torch.zeros(1, 4, 4, TINY_SAM.width, device="meta")
-        with pytest.raises(NotImplementedError, match="K6"):
+        with pytest.raises(RuntimeError, match="K6 launch reached"):
             attn.to("meta")(x, model.policy)
 
 
@@ -202,9 +333,9 @@ GRID64 = dataclasses.replace(
 
 
 def test_trainable_global_branch_matches_plain_attention():
-    """A grid of 64x64 tokens: block 1 takes the trainable global branch
-    (K5's plain versions), held to use_flash=False under torch autograd,
-    gradients of every parameter to fp32 1e-4."""
+    """A grid of 64x64 tokens: block 1 is a global layer (4096 tokens,
+    Kw = 64; under ``parity`` K6's plain versions), held to use_flash=False
+    under torch autograd, gradients of every parameter to fp32 1e-4."""
     from vit_deep_radiomics_tpu_torch.core.precision import PARITY
 
     rng = np.random.default_rng(6)
@@ -275,6 +406,36 @@ class TestCli:
         assert ckpt["epoch"] == 0
         assert "head.weight" in ckpt["state_dict"]
         assert not any(A.LAUNCHES.values())
+
+    def test_dinov2_backbone(self, cohort):
+        """``--backbone dinov2_vits14``: the same samples as the JAX CLI
+        (a 4x4 patch grid at 56 px), and a ``parity`` epoch on the CPU
+        that writes DINOv2's torch.hub names."""
+        from vit_deep_radiomics_tpu.cli import finetune as jax_cli
+        from vit_deep_radiomics_tpu_torch.cli import finetune as port_cli
+
+        argv = ["-h5", str(cohort / "iso.hdf5"), "-df",
+                str(cohort / "iso.csv"), "-s", str(cohort / "ckpt_dino"),
+                "--datasets", "stanford", "--epochs", "1", "--batch-size",
+                "2", "--precision", "parity", "--backbone", "dinov2_vits14",
+                "--image-size", "56", "--depth", "1", "--width", "128",
+                "--num-heads", "2"]
+        jcfg, jimg, jmask, jlab = jax_cli._load_samples(
+            jax_cli.build_parser().parse_args(argv))
+        pcfg, pimg, pmask, plab = port_cli._load_samples(
+            port_cli.build_parser().parse_args(argv + ["--device", "cpu"]))
+        assert (pcfg.name, pcfg.image_size, pcfg.patch_size) == \
+            (jcfg.name, jcfg.image_size, jcfg.patch_size)
+        assert pmask.shape[1:] == (4, 4)
+        np.testing.assert_allclose(pimg, jimg, atol=1e-5)
+        np.testing.assert_array_equal(pmask, jmask)
+        np.testing.assert_array_equal(plab, jlab)
+        assert port_cli.main(argv + ["--device", "cpu"]) == 0
+        sd = torch.load(cohort / "ckpt_dino" / "model_epoch_0000.pt",
+                        weights_only=True)["state_dict"]
+        assert {"backbone.cls_token", "backbone.blocks.0.ls1.gamma",
+                "backbone.blocks.0.mlp.fc1.weight",
+                "backbone.norm.weight"} <= set(sd)
 
     def test_defaults_and_zero1(self, cohort):
         from vit_deep_radiomics_tpu_torch.cli import finetune as port_cli

@@ -28,7 +28,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-df", "--df-path", required=True,
                    help="metadata CSV (patient_id, egfr, dataset)")
     p.add_argument("-s", "--save-dir", default="models/finetune")
-    p.add_argument("--backbone", default="medsam")
+    p.add_argument("--backbone", default="medsam",
+                   help="medsam or a DINOv2 config (dinov2_vits14, "
+                        "dinov2_vitb14, dinov2_vitl14, dinov2_vitg14)")
     p.add_argument("--modality", default="ct", choices=["ct", "chest"])
     p.add_argument("--datasets", nargs="*",
                    default=["santa_maria", "stanford"])
@@ -37,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--freeze-below", type=int, default=0,
                    help="freeze transformer blocks [0, N)")
-    p.add_argument("--precision", default="fast")
+    p.add_argument("--precision", default="fast",
+                   help="fast (bf16) or parity (fp32, TF32 off)")
     p.add_argument("--zero1", action="store_true",
                    help="shard optimizer state over the data axis (ZeRO-1;"
                         " multi-device, not ported yet: raises)")

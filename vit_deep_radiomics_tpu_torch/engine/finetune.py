@@ -1,11 +1,12 @@
 """End-to-end backbone fine-tuning: images → trainable ViT → classifier.
 
-Counterpart of ``vit_deep_radiomics_tpu/engine/finetune.py``. The SAM ViT
-backbone is differentiable end to end: its attention runs the trainable
-kernels of ``ops/attention_grad.py`` (window layers K1 forward and K4
-backward, global layers K5), so the (S, S) score matrices are recomputed
-in the backward instead of being stored. A masked-average-pool head trains
-on top with the reference's focal loss.
+Counterpart of ``vit_deep_radiomics_tpu/engine/finetune.py``. The ViT
+backbone (SAM/MedSAM, or a ``dinov2_*`` config) is differentiable end to
+end: its attention runs the trainable kernels of ``ops/attention_grad.py``
+(under ``fast``: SAM's window layers K1 forward and K4 backward, global
+and DINOv2 layers K5; under ``parity``: K6 in every layer), so the (S, S)
+score matrices are recomputed in the backward instead of being stored. A
+masked-average-pool head trains on top with the reference's focal loss.
 
 Typical use::
 
@@ -18,9 +19,10 @@ Typical use::
 parameters leave the optimizer (the patch and position embeddings stay
 trainable, as in JAX's ``_freeze_mask``). ``accum_steps`` splits each
 batch into equal microbatches and applies the optimizer once. ZeRO-1 and
-the mesh are multi-device work (ROADMAP.md Queue 1 item 10) and raise;
-``parity`` (fp32) on the GPU raises at the first trainable attention
-layer until K6 is ported.
+the mesh are multi-device work (ROADMAP.md Queue 1 item 10) and raise.
+Under ``parity`` the backward runs with TF32 off too (``Policy.backends``
+around ``FineTuner.backward``), so no fp32 product of the step rounds to
+TF32.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from torch import nn
 from .. import default_device
 from ..core.precision import Policy, get_policy
 from ..models.losses import focal_loss
-from ..models.vit import SAM_VIT_B, ViTDense, ViTDenseConfig
+from ..models.vit import DINOV2_CONFIGS, SAM_VIT_B, ViTDense, \
+    ViTDenseConfig
 
 __all__ = ["FineTuneConfig", "FineTuneModel", "FineTuner"]
 
@@ -45,7 +48,7 @@ _MULTI_DEVICE = "is multi-device work, not ported yet (ROADMAP.md Queue 1 " \
 
 @dataclasses.dataclass(frozen=True)
 class FineTuneConfig:
-    backbone: str = "medsam"           # the SAM backbone; DINOv2 raises
+    backbone: str = "medsam"           # "medsam" | dinov2_* name
     num_classes: int = 2
     learning_rate: float = 1e-5
     weight_decay: float = 0.01
@@ -65,15 +68,16 @@ class FineTuneConfig:
             return self.backbone_cfg
         if self.backbone == "medsam":
             return SAM_VIT_B
-        raise NotImplementedError(
-            f"backbone {self.backbone!r}: DINOv2 is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)")
+        if self.backbone not in DINOV2_CONFIGS:
+            raise KeyError(f"unknown backbone {self.backbone!r}; choose "
+                           f"medsam or one of {sorted(DINOV2_CONFIGS)}")
+        return DINOV2_CONFIGS[self.backbone]
 
 
 class FineTuneModel(nn.Module):
     """Trainable ViT + masked-average pool + LayerNorm + linear head.
 
-    ``mask`` (B, grid, grid) selects the nodule ROI on the feature grid;
+    ``mask`` (B, H/p, W/p) selects the nodule ROI on the feature grid;
     an empty mask falls back to global average pooling. The head's
     LayerNorm keeps Flax's eps of 1e-6. ``use_flash=False`` runs the
     backbone's plain attention under torch autograd (the oracle)."""
@@ -173,29 +177,38 @@ class FineTuner:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x).to(self.device, dtype)
 
+    def backward(self, model, images, mask, labels):
+        """Loss and backward of one batch in ``accum_steps`` microbatches:
+        each parameter's ``.grad`` gains the batch's mean gradient. Returns
+        (loss, logits), detached."""
+        a = self.config.accum_steps
+        b = images.shape[0]
+        if b % a:
+            raise ValueError(f"batch {b} not divisible by accum_steps {a}")
+        mb = b // a
+        losses, logits = [], []
+        with self.policy.backends():     # the backward's products too
+            for i in range(a):
+                sl = slice(i * mb, (i + 1) * mb)
+                loss, out = self.loss(model, images[sl], mask[sl],
+                                      labels[sl])
+                # mean of the microbatch gradients: the monolithic batch's
+                (loss / a).backward()
+                losses.append(loss.detach())
+                logits.append(out.detach())
+        return torch.stack(losses).mean(), torch.cat(logits)
+
     def step(self, state, images, mask, labels):
         """One optimizer step; returns (state, loss, logits), the loss and
         logits detached."""
         images = self._tensor(images, torch.float32)
         mask = self._tensor(mask, torch.bool)
         labels = self._tensor(labels, torch.float32)
-        a = self.config.accum_steps
-        b = images.shape[0]
-        if b % a:
-            raise ValueError(f"batch {b} not divisible by accum_steps {a}")
         model, opt = state["model"], state["optimizer"]
         opt.zero_grad(set_to_none=True)
-        mb = b // a
-        losses, logits = [], []
-        for i in range(a):
-            sl = slice(i * mb, (i + 1) * mb)
-            loss, out = self.loss(model, images[sl], mask[sl], labels[sl])
-            # mean of the microbatch gradients: the monolithic batch's
-            (loss / a).backward()
-            losses.append(loss.detach())
-            logits.append(out.detach())
+        loss, logits = self.backward(model, images, mask, labels)
         opt.step()
-        return state, torch.stack(losses).mean(), torch.cat(logits)
+        return state, loss, logits
 
     # -- convenience ------------------------------------------------------
     def fit(self, state, batches, log=None):

@@ -2,11 +2,14 @@
 
 Counterpart of ``vit_deep_radiomics_tpu/models/convert.py``. The port's
 modules carry the reference PyTorch names, so this is the inverse of the
-JAX package's ``sam_params_from_torch``:
+JAX package's ``sam_params_from_torch`` and, for DINOv2, of
+``dinov2_params_from_torch`` with torch.hub naming:
 
 * matmul kernels (in, out) → Linear weights (out, in),
 * patch embedding (kh·kw·in, out) → conv weight (out, in, kh, kw),
-* neck 1×1 conv (in, out) → (out, in, 1, 1); 3×3 conv HWIO → OIHW.
+* neck 1×1 conv (in, out) → (out, in, 1, 1); 3×3 conv HWIO → OIHW,
+* DINOv2 ``ls1``/``ls2`` → ``ls1.gamma``/``ls2.gamma``, the MLP as
+  ``fc1``/``fc2``, ``cls_token``, ``pos_embed`` and the final ``norm``.
 
 :func:`load_medsam_state_dict` reads a MedSAM/SAM ``.pth`` image encoder
 for ``load_state_dict``.
@@ -21,18 +24,16 @@ import torch
 
 from .vit import ViTDenseConfig
 
-__all__ = ["params_from_jax", "finetune_params_from_jax",
-           "load_medsam_state_dict"]
+__all__ = ["params_from_jax", "dinov2_params_from_jax",
+           "finetune_params_from_jax", "load_medsam_state_dict"]
 
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
 
 
-def params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
-    """JAX ViTDense params (``{"params": …}`` or the inner dict, numpy or
-    jax arrays) → the port's ``state_dict`` for a SAM config."""
-    p = tree["params"] if "params" in tree else tree
+def _backbone_from_jax(p: Mapping, cfg: ViTDenseConfig, mlp_names) -> dict:
+    """Patch embedding, position embedding and blocks, both families."""
     pe = np.asarray(p["patch_embed"]["kernel"])
     ps = cfg.patch_size
     sd = {
@@ -41,6 +42,7 @@ def params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
         "patch_embed.proj.bias": _t(p["patch_embed"]["bias"]),
         "pos_embed": _t(p["pos_embed"]),
     }
+    fc1, fc2 = (f"mlp.{n}." for n in mlp_names)
     for i in range(cfg.depth):
         blk = p[f"block_{i}"]
         pre = f"blocks.{i}."
@@ -54,14 +56,42 @@ def params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
             pre + "attn.qkv.bias": _t(attn["qkv_bias"]),
             pre + "attn.proj.weight": _t(np.asarray(attn["proj_kernel"]).T),
             pre + "attn.proj.bias": _t(attn["proj_bias"]),
-            pre + "mlp.lin1.weight": _t(np.asarray(mlp["w1"]).T),
-            pre + "mlp.lin1.bias": _t(mlp["b1"]),
-            pre + "mlp.lin2.weight": _t(np.asarray(mlp["w2"]).T),
-            pre + "mlp.lin2.bias": _t(mlp["b2"]),
+            pre + fc1 + "weight": _t(np.asarray(mlp["w1"]).T),
+            pre + fc1 + "bias": _t(mlp["b1"]),
+            pre + fc2 + "weight": _t(np.asarray(mlp["w2"]).T),
+            pre + fc2 + "bias": _t(mlp["b2"]),
         })
         if cfg.use_rel_pos:
             sd[pre + "attn.rel_pos_h"] = _t(attn["rel_pos_h"])
             sd[pre + "attn.rel_pos_w"] = _t(attn["rel_pos_w"])
+        if cfg.layerscale_init:
+            sd[pre + "ls1.gamma"] = _t(blk["ls1"])
+            sd[pre + "ls2.gamma"] = _t(blk["ls2"])
+    return sd
+
+
+def dinov2_params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
+    """JAX ViTDense params of a DINOv2 config → the port's ``state_dict``
+    under torch.hub's names (the inverse of JAX ``convert.py::
+    dinov2_params_from_torch``)."""
+    p = tree["params"] if "params" in tree else tree
+    sd = _backbone_from_jax(p, cfg, ("fc1", "fc2"))
+    sd.update({
+        "cls_token": _t(p["cls_token"]),
+        "norm.weight": _t(p["norm"]["scale"]),
+        "norm.bias": _t(p["norm"]["bias"]),
+    })
+    return sd
+
+
+def params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
+    """JAX ViTDense params (``{"params": …}`` or the inner dict, numpy or
+    jax arrays) → the port's ``state_dict``, SAM or (``cfg.use_cls_token``)
+    DINOv2."""
+    p = tree["params"] if "params" in tree else tree
+    if cfg.use_cls_token:
+        return dinov2_params_from_jax(p, cfg)
+    sd = _backbone_from_jax(p, cfg, ("lin1", "lin2"))
     neck = p["neck"]
     c1 = np.asarray(neck["conv1_kernel"])
     sd.update({

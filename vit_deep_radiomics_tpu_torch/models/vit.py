@@ -1,25 +1,31 @@
-"""Dense-descriptor ViT backbone: SAM/MedSAM ViT-B/16, in PyTorch.
+"""Dense-descriptor ViT backbone: SAM/MedSAM ViT-B/16 and DINOv2, in PyTorch.
 
-Counterpart of ``vit_deep_radiomics_tpu/models/vit.py`` (SAM branch).
-Activations stay NHWC as in JAX; parameters use the reference PyTorch
-names (``patch_embed.proj.weight``, ``blocks.{i}.attn.qkv.weight``,
+Counterpart of ``vit_deep_radiomics_tpu/models/vit.py``. Activations stay
+NHWC as in JAX; parameters use the reference PyTorch names (SAM:
+``patch_embed.proj.weight``, ``blocks.{i}.attn.qkv.weight``,
 ``blocks.{i}.attn.rel_pos_h``, ``blocks.{i}.mlp.lin1.weight``,
-``neck.0.weight`` …), so a MedSAM ``.pth`` image-encoder state dict loads
-with ``load_state_dict`` and ``models/convert.py::params_from_jax`` bridges
-the Flax param tree.
+``neck.0.weight`` …; DINOv2 as torch.hub names it: ``cls_token``,
+``pos_embed``, ``blocks.{i}.ls1.gamma``, ``blocks.{i}.mlp.fc1.weight``,
+``norm.weight`` …), so reference state dicts load with ``load_state_dict``
+and ``models/convert.py::params_from_jax`` bridges the Flax param tree.
 
-Attention runs the fused CUDA kernels of ``ops/attention.py``: the 14×14
-windowed layers through K1 and the 64×64 global layers through K2, selected
-by :meth:`WindowedAttention._fused_variant` exactly as in JAX (a rel-pos
-grid of ≤1024 tokens takes window mode even in a global layer).
-``use_flash=False`` is the plain oracle path of the tests.
+Attention runs the fused CUDA kernels of ``ops/attention.py``: SAM's 14×14
+windowed layers through K1, its 64×64 global layers through K2, and
+DINOv2's bias-free layers through K2 with the tokens padded (1370 → 1536)
+and masked by ``kv_len``, selected by :meth:`WindowedAttention.
+_fused_variant` exactly as in JAX (a rel-pos grid of ≤1024 tokens takes
+window mode even in a global layer). ``use_flash=False`` is the plain
+oracle path of the tests.
 
-``trainable=True`` (fine-tuning) routes the same layers through the
-autograd Functions of ``ops/attention_grad.py``: window mode forward K1 and
-backward K4, global mode K5 (forward with the lse residual, dq and dkv
-kernels). Those kernels are bf16: ``parity`` (fp32) fine-tuning on the GPU
-needs K6 and raises until it is ported. ``remat`` recomputes whole blocks
-or only the MLP in the backward (``torch.utils.checkpoint``).
+``trainable=True`` (fine-tuning) routes attention as JAX does (vit.py:
+307-318). Under ``fast`` (bf16) the fused autograd Functions of
+``ops/attention_grad.py``: window mode forward K1 and backward K4, global
+and nobias mode K5 (forward with the lse residual, dq and dkv kernels).
+Under ``parity`` (fp32) the generic path: the packed qkv projection,
+per-head q/k/v, fp32 bias einsums, and K6 (``flash_attention_trainable``)
+over whole key grids with a bias or over padded tokens with ``kv_len``.
+``remat`` recomputes whole blocks or only the MLP in the backward
+(``torch.utils.checkpoint``).
 
 Numerics follow the JAX policy rules: matmuls in the compute dtype with
 fp32 accumulation and the bias added in fp32 (:func:`_policy_dot`),
@@ -41,11 +47,11 @@ from torch.utils.checkpoint import checkpoint
 from ..core.precision import FAST, Policy
 from ..ops.attention import _head_group, attention_reference, \
     flash_attention_fused_qkv
-from ..ops.attention_grad import global_attention_trainable, \
-    window_attention_trainable
+from ..ops.attention_grad import flash_attention_trainable, \
+    global_attention_trainable, window_attention_trainable
 
 __all__ = ["ViTDenseConfig", "ViTDense", "SAM_VIT_B", "DINOV2_CONFIGS",
-           "window_partition", "window_unpartition"]
+           "window_partition", "window_unpartition", "resize_bicubic"]
 
 
 def _policy_dot(x, weight, bias, dtype):
@@ -112,14 +118,78 @@ def _dinov2(name, width, depth, heads, image_size=518):
     )
 
 
-# DINOv2 configs (constants only: the DINOv2 backbone is not ported yet,
-# ROADMAP.md Queue 1 item 3)
 DINOV2_CONFIGS = {
     "dinov2_vits14": _dinov2("dinov2_vits14", 384, 12, 6),
     "dinov2_vitb14": _dinov2("dinov2_vitb14", 768, 12, 12),
     "dinov2_vitl14": _dinov2("dinov2_vitl14", 1024, 24, 16),
     "dinov2_vitg14": _dinov2("dinov2_vitg14", 1536, 40, 24),
 }
+
+
+def _padded_tokens(s: int) -> int:
+    """The length JAX pads a bias-free token axis to (the padded length of
+    JAX vit.py:206 ``_q_blocking``, which trades padding against grid
+    steps): 1370 → 1536."""
+    best = None
+    for blk in (1024, 512, 256, 128):
+        padded = -(-s // blk) * blk
+        score = padded * padded * (1 + 0.05 * (padded // blk) ** 2)
+        if best is None or score < best[0]:
+            best = (score, padded)
+    return best[1]
+
+
+def _pad_tokens(tensors, s: int):
+    """Pad the token axis (second to last) of each tensor from s to
+    :func:`_padded_tokens`; returns the tensors and the (B,) ``kv_len``
+    that masks the pads, None when nothing was padded."""
+    pad = _padded_tokens(s) - s
+    if not pad:
+        return tensors, None
+    kv_len = torch.full((tensors[0].shape[0],), s, dtype=torch.int32,
+                        device=tensors[0].device)
+    return [F.pad(t, (0, 0, 0, pad)) for t in tensors], kv_len
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel, a = -0.5 (jax.image's ``bicubic``)."""
+    x = x.abs()
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _resize_weights(in_size: int, out_size: int):
+    """(out, in) fp32 weights of ``jax.image.resize(..., "bicubic")`` along
+    one axis (jax ``compute_weight_mat``): half-pixel centres, the kernel
+    widened by the scale when downsampling (antialias), weights divided by
+    their sum, output samples outside the input zeroed. torch's bicubic
+    ``interpolate`` (a = -0.75, clamped edges) computes another function."""
+    inv = 1.0 / (out_size / in_size)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]
+         ).abs() / max(inv, 1.0)
+    w = _keys_cubic(x)                                      # (in, out)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).t()
+
+
+def resize_bicubic(x, out_h: int, out_w: int):
+    """(B, H, W, C) → (B, out_h, out_w, C), ``jax.image.resize`` bicubic
+    (an axis of equal size is left as it is, as JAX skips it)."""
+    b, h, w, c = x.shape
+    x = x.float()
+    if out_h != h:
+        x = torch.einsum("oi,bijc->bojc", _resize_weights(h, out_h).to(
+            x.device), x)
+    if out_w != w:
+        x = torch.einsum("pj,bijc->bipc", _resize_weights(w, out_w).to(
+            x.device), x)
+    return x
 
 
 class PatchEmbed(nn.Module):
@@ -199,44 +269,59 @@ class WindowedAttention(nn.Module):
     def forward(self, x, policy: Policy):
         cfg = self.cfg
         b, h, w, c = x.shape
-        nh, hd = cfg.num_heads, cfg.head_dim
         dtype = policy.compute_dtype
         tokens = x.reshape(b, h * w, c).to(dtype)
-
-        if self.use_flash:
-            variant = self._fused_variant(h, w)
-            if variant not in ("window", "global"):
-                raise NotImplementedError(
-                    f"fused attention variant {variant!r} for a {h}x{w} grid "
-                    "is not ported yet (ROADMAP.md Queue 2: K3 generic flash "
-                    "attention; nobias mode belongs to DINOv2)")
-            # split projection: q and kv as separate matmuls, as in JAX
-            wq, wkv = self.qkv.weight[:c], self.qkv.weight[c:]
-            bq, bkv = self.qkv.bias[:c], self.qkv.bias[c:]
-            q = _policy_dot(tokens, wq, bq, dtype).to(dtype)
-            kv = _policy_dot(tokens, wkv, bkv, dtype).to(dtype)
-            bias_h, bias_w = self._bias_fused(q, b, h, w, dtype)
-            if not self.trainable:
-                out = flash_attention_fused_qkv(
-                    q, kv, bias_h, bias_w, num_heads=nh,
-                    window_tokens=h * w if variant == "window" else None)
-            elif dtype == torch.float32 and tokens.device.type != "cpu":
-                raise NotImplementedError(
-                    "parity (fp32) fine-tuning on the GPU needs K6, the "
-                    "generic trainable flash attention (JAX ops/"
-                    "attention_grad.py::flash_attention_trainable), which "
-                    "is not ported yet (ROADMAP.md Queue 2); fine-tune "
-                    "with precision='fast'")
-            elif variant == "window":
-                out = window_attention_trainable(
-                    q, kv, bias_h, bias_w, num_heads=nh, window_tokens=h * w)
-            else:
-                out = global_attention_trainable(q, kv, bias_h, bias_w,
-                                                 num_heads=nh)
+        variant = self._fused_variant(h, w)
+        # JAX vit.py:307-318: trainable layers take the fused layout under
+        # bf16 only; parity (fp32) training takes the generic K6 path
+        fused_trainable = (self.trainable and variant is not None
+                           and dtype == torch.bfloat16)
+        if self.use_flash and (fused_trainable if self.trainable
+                               else variant is not None):
+            out = self._fused(tokens, b, h, w, variant, dtype)
+        elif self.use_flash and self.trainable:
+            out = self._generic_trainable(tokens, b, h, w, dtype)
+        elif self.use_flash:
+            raise NotImplementedError(
+                f"attention for a {h}x{w} grid with H={cfg.num_heads}, "
+                f"D={cfg.head_dim} needs the generic flash kernel, which is "
+                "not ported yet (ROADMAP.md Queue 2: K3)")
         else:
             out = self._oracle(tokens, b, h, w, dtype)
         out = _policy_dot(out, self.proj.weight, self.proj.bias, dtype)
         return out.to(dtype).reshape(b, h, w, c)
+
+    def _fused(self, tokens, b, h, w, variant, dtype):
+        """Fused layout (JAX ``_fused_qkv``): split projection, per-head
+        decomposed bias, K1 (window), K2 (global, nobias) or, trainable,
+        K1/K4 and K5. nobias pads the tokens and masks them by kv_len."""
+        c, nh = self.cfg.width, self.cfg.num_heads
+        # split projection: q and kv as separate matmuls, as in JAX
+        wq, wkv = self.qkv.weight[:c], self.qkv.weight[c:]
+        bq, bkv = self.qkv.bias[:c], self.qkv.bias[c:]
+        q = _policy_dot(tokens, wq, bq, dtype).to(dtype)
+        kv = _policy_dot(tokens, wkv, bkv, dtype).to(dtype)
+        if variant == "nobias":
+            s = h * w
+            (q, kv), kv_len = _pad_tokens((q, kv), s)
+            if self.trainable:
+                out = global_attention_trainable(q, kv, kv_len=kv_len,
+                                                 num_heads=nh)
+            else:
+                out = flash_attention_fused_qkv(q, kv, kv_len=kv_len,
+                                                num_heads=nh)
+            return out[:, :s]
+        bias_h, bias_w = self._bias_fused(q, b, h, w, dtype)
+        window = variant == "window"
+        if not self.trainable:
+            return flash_attention_fused_qkv(
+                q, kv, bias_h, bias_w, num_heads=nh,
+                window_tokens=h * w if window else None)
+        if window:
+            return window_attention_trainable(
+                q, kv, bias_h, bias_w, num_heads=nh, window_tokens=h * w)
+        return global_attention_trainable(q, kv, bias_h, bias_w,
+                                          num_heads=nh)
 
     def _bias_fused(self, q, b, h, w, dtype):
         """Per-head decomposed bias (B, H, S, h) and (B, H, S, w) from the
@@ -250,41 +335,86 @@ class WindowedAttention(nn.Module):
         return (bias_h.reshape(b, nh, h * w, h).contiguous(),
                 bias_w.reshape(b, nh, h * w, w).contiguous())
 
-    def _oracle(self, tokens, b, h, w, dtype):
-        """Plain attention path (JAX use_flash=False): packed projection,
-        fp32 bias einsums, dense bias cast to the compute dtype."""
+    def _heads(self, tokens, b, h, w, dtype):
+        """Packed projection → per-head q, k, v (B, H, S, D) and, with
+        rel-pos, the fp32 decomposed bias (B, H, S, h), (B, H, S, w) from
+        the unscaled q (JAX vit.py:330-379)."""
         nh, hd = self.cfg.num_heads, self.cfg.head_dim
         qkv = _policy_dot(tokens, self.qkv.weight, self.qkv.bias,
                           dtype).to(dtype)
         q, k, v = qkv.reshape(b, h * w, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        if not self.cfg.use_rel_pos:
+            return q, k, v, None, None
+        rh = _rel_pos_table(self.rel_pos_h.to(dtype), h, h).float()
+        rw = _rel_pos_table(self.rel_pos_w.to(dtype), w, w).float()
+        qg = q.reshape(b, nh, h, w, hd).float()
+        bias_h = torch.einsum("bnyxd,ykd->bnyxk", qg, rh)
+        bias_w = torch.einsum("bnyxd,xkd->bnyxk", qg, rw)
+        return (q, k, v, bias_h.reshape(b, nh, h * w, h),
+                bias_w.reshape(b, nh, h * w, w))
+
+    def _generic_trainable(self, tokens, b, h, w, dtype):
+        """The generic trainable path (JAX ``_trainable_flash``, vit.py:
+        627-668): K6 over the whole key grid with a bias (windows on the
+        batch axis: Kh·Kw == S), else over the tokens padded by
+        :func:`_pad_tokens` with ``kv_len``, cut back to S."""
+        q, k, v, bias_h, bias_w = self._heads(tokens, b, h, w, dtype)
+        s = h * w
+        if bias_h is not None:
+            out = flash_attention_trainable(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                bias_h.contiguous(), bias_w.contiguous())
+        else:
+            (q, k, v), kv_len = _pad_tokens((q, k, v), s)
+            out = flash_attention_trainable(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                kv_len=kv_len)[:, :, :s]
+        return out.transpose(1, 2).reshape(b, s, -1)
+
+    def _oracle(self, tokens, b, h, w, dtype):
+        """Plain attention path (JAX use_flash=False): packed projection,
+        fp32 bias einsums, dense bias cast to the compute dtype."""
+        q, k, v, bias_h, bias_w = self._heads(tokens, b, h, w, dtype)
         dense = None
-        if self.cfg.use_rel_pos:
-            rh = _rel_pos_table(self.rel_pos_h.to(dtype), h, h).float()
-            rw = _rel_pos_table(self.rel_pos_w.to(dtype), w, w).float()
-            qg = q.reshape(b, nh, h, w, hd).float()
-            bias_h = torch.einsum("bnyxd,ykd->bnyxk", qg, rh)
-            bias_w = torch.einsum("bnyxd,xkd->bnyxk", qg, rw)
+        if bias_h is not None:
             dense = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
-                b, nh, h * w, h * w).to(dtype)
+                b, q.shape[1], h * w, h * w).to(dtype)
         out = attention_reference(q, k, v, bias=dense)
-        return out.transpose(1, 2).reshape(b, h * w, nh * hd)
+        return out.transpose(1, 2).reshape(b, h * w, -1)
 
 
 class Mlp(nn.Module):
+    """Two Linears with GELU between, under the reference names: SAM's
+    ``lin1``/``lin2``, DINOv2's ``fc1``/``fc2``."""
+
     def __init__(self, cfg: ViTDenseConfig):
         super().__init__()
         hidden = int(cfg.mlp_ratio * cfg.width)
-        self.lin1 = nn.Linear(cfg.width, hidden)
-        self.lin2 = nn.Linear(hidden, cfg.width)
+        self.names = ("fc1", "fc2") if cfg.use_cls_token else ("lin1", "lin2")
+        self.add_module(self.names[0], nn.Linear(cfg.width, hidden))
+        self.add_module(self.names[1], nn.Linear(hidden, cfg.width))
 
     def forward(self, x, policy: Policy):
         dtype = policy.compute_dtype
-        x = _policy_dot(x, self.lin1.weight, self.lin1.bias, dtype)
+        first, second = (getattr(self, n) for n in self.names)
+        x = _policy_dot(x, first.weight, first.bias, dtype)
         # erf GELU under fp32, tanh approximation on the bf16 path
         x = F.gelu(x, approximate="tanh" if dtype == torch.bfloat16
                    else "none")
-        x = _policy_dot(x, self.lin2.weight, self.lin2.bias, dtype)
+        x = _policy_dot(x, second.weight, second.bias, dtype)
         return x.to(dtype)
+
+
+class LayerScale(nn.Module):
+    """DINOv2's per-channel residual scale ``gamma`` (JAX ``ls1``/``ls2``),
+    applied in the compute dtype."""
+
+    def __init__(self, width: int, init: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((width,), float(init)))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
 
 
 def window_partition(x, window: int):
@@ -321,6 +451,9 @@ class Block(nn.Module):
             use_flash=use_flash, trainable=trainable)
         self.norm2 = LayerNorm(cfg.width, eps=cfg.ln_eps)
         self.mlp = Mlp(cfg)
+        if cfg.layerscale_init:
+            self.ls1 = LayerScale(cfg.width, cfg.layerscale_init)
+            self.ls2 = LayerScale(cfg.width, cfg.layerscale_init)
 
     def forward(self, x, policy: Policy):
         shortcut = x
@@ -330,13 +463,19 @@ class Block(nn.Module):
         y = self.attn(y, policy)
         if self.windowed:
             y = window_unpartition(y, self.cfg.window_size, dims)
+        if self.cfg.layerscale_init:
+            y = self.ls1(y)
         x = shortcut + y
         y = self.norm2(x)
         if self.remat_mlp and torch.is_grad_enabled():
             # selective remat: only the (B, S, 4C) hidden activations are
             # recomputed in the backward (JAX vit.py:890-897)
-            return x + checkpoint(self.mlp, y, policy, use_reentrant=False)
-        return x + self.mlp(y, policy)
+            y = checkpoint(self.mlp, y, policy, use_reentrant=False)
+        else:
+            y = self.mlp(y, policy)
+        if self.cfg.layerscale_init:
+            y = self.ls2(y)
+        return x + y
 
 
 class SamNeck(nn.Sequential):
@@ -364,11 +503,17 @@ class SamNeck(nn.Sequential):
 
 
 class ViTDense(nn.Module):
-    """Dense-descriptor ViT, SAM configuration.
+    """Dense-descriptor ViT.
 
-    ``forward(images)`` takes (B, H, W, 3) in [0, 1] and returns the
-    (B, grid, grid, neck_channels) feature map in the policy's output
-    dtype — the port of JAX ``ViTDense`` for ``cfg.use_rel_pos`` configs.
+    ``forward(images)`` takes (B, H, W, 3) in [0, 1] and returns, in the
+    policy's output dtype, the port of JAX ``ViTDense``'s output:
+
+    * SAM config → the (B, grid, grid, neck_channels) neck feature map;
+    * DINOv2 config → the normalised patch tokens after the full
+      transformer as a (B, H/p, W/p, width) map (JAX's full mode). The
+      position embedding is resized bicubically, as ``jax.image.resize``
+      does, when the image is not the config's size. JAX's
+      ``patch_embed_only`` mode is not ported yet.
 
     ``trainable`` selects the differentiable attention kernels; ``remat``
     (only with ``trainable``) is False/'none', True/'block' (recompute
@@ -379,10 +524,6 @@ class ViTDense(nn.Module):
                  use_flash: bool = True, trainable: bool = False,
                  remat: bool | str = False):
         super().__init__()
-        if cfg.use_cls_token or not cfg.neck_channels:
-            raise NotImplementedError(
-                "only the SAM configuration is ported; DINOv2 waits for "
-                "ROADMAP.md Queue 1 item 3")
         remat_mode = {False: "none", True: "block"}.get(remat, remat)
         if remat_mode not in ("none", "block", "mlp"):
             raise ValueError(
@@ -392,8 +533,13 @@ class ViTDense(nn.Module):
         self.policy = policy
         self.remat_block = trainable and remat_mode == "block"
         self.patch_embed = PatchEmbed(cfg)
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, cfg.grid, cfg.grid, cfg.width))
+        if cfg.use_cls_token:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width))
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, cfg.grid * cfg.grid + 1, cfg.width))
+        else:
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, cfg.grid, cfg.grid, cfg.width))
         self.blocks = nn.ModuleList(
             Block(cfg,
                   windowed=(cfg.window_size > 0
@@ -401,18 +547,24 @@ class ViTDense(nn.Module):
                   use_flash=use_flash, trainable=trainable,
                   remat_mlp=trainable and remat_mode == "mlp")
             for i in range(cfg.depth))
-        self.neck = SamNeck(cfg)
+        if cfg.use_cls_token:
+            self.norm = LayerNorm(cfg.width, eps=cfg.ln_eps)
+        if cfg.neck_channels:
+            self.neck = SamNeck(cfg)
 
     @torch.no_grad()
     def init_random(self, seed: int = 0) -> "ViTDense":
         """Seeded random weights (LeCun-normal matrices, small biases,
-        non-zero rel-pos tables so every bias path is exercised)."""
+        non-zero rel-pos tables so every bias path is exercised, LayerScale
+        gammas about 0.1 so the residual branches count)."""
         gen = torch.Generator(device="cpu").manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("rel_pos_h") or name.endswith("rel_pos_w") \
-                    or name == "pos_embed":
+                    or name in ("pos_embed", "cls_token"):
                 val = torch.randn(p.shape, generator=gen) * 0.02 * (
                     10.0 if "rel_pos" in name else 1.0)
+            elif name.endswith(".gamma"):
+                val = 0.1 + 0.02 * torch.randn(p.shape, generator=gen)
             elif p.ndim >= 2:
                 fan_in = math.prod(p.shape[1:])
                 val = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
@@ -425,14 +577,35 @@ class ViTDense(nn.Module):
         return self
 
     def forward(self, images):
-        policy = self.policy
+        cfg, policy = self.cfg, self.policy
         with policy.backends():
             x = self.patch_embed(policy.cast_input(images), policy)
-            x = x + self.pos_embed.to(x.dtype)
+            b, hp, wp, c = x.shape
+            if cfg.use_cls_token:
+                x = self._tokens(x)
+            else:
+                x = x + self.pos_embed.to(x.dtype)
             for blk in self.blocks:
                 if self.remat_block and torch.is_grad_enabled():
                     x = checkpoint(blk, x, policy, use_reentrant=False)
                 else:
                     x = blk(x, policy)
-            x = self.neck(x, policy)
+            if cfg.use_cls_token:
+                # final norm, the patch tokens back on the grid
+                x = self.norm(x[:, 0])[:, 1:].reshape(b, hp, wp, c)
+            if cfg.neck_channels:
+                x = self.neck(x, policy)
         return policy.cast_output(x)
+
+    def _tokens(self, x):
+        """CLS + patch tokens with their position embedding, as a (B, 1,
+        N, C) grid for the blocks (JAX vit.py:1012-1036)."""
+        b, hp, wp, c = x.shape
+        g = self.cfg.grid
+        pos_patch, pos_cls = self.pos_embed[:, 1:], self.pos_embed[:, :1]
+        if hp * wp != pos_patch.shape[1]:
+            pos_patch = resize_bicubic(pos_patch.reshape(1, g, g, c), hp,
+                                       wp).reshape(1, hp * wp, c)
+        tokens = x.reshape(b, hp * wp, c) + pos_patch.to(x.dtype)
+        cls_tok = (self.cls_token + pos_cls).to(x.dtype).expand(b, 1, c)
+        return torch.cat([cls_tok, tokens], dim=1)[:, None]

@@ -45,11 +45,14 @@ __all__ = [
 
 _NEG_INF = -1e30  # large-negative instead of -inf: fully-masked rows stay finite
 
-# kernel launches per wrapper since the last reset; the last four are the
-# trainable kernels of ops/attention_grad.py (K4, K5 forward, dq, dkv)
+# kernel launches per wrapper since the last reset; all but the first two
+# are the trainable kernels of ops/attention_grad.py (K4, K5 forward, dq,
+# dkv, K6 forward, dq, dkv)
 LAUNCHES = {"fused_window_attention": 0, "fused_global_attention": 0,
             "window_attention_bwd": 0, "global_attention_fwd_lse": 0,
-            "global_attention_bwd_dq": 0, "global_attention_bwd_dkv": 0}
+            "global_attention_bwd_dq": 0, "global_attention_bwd_dkv": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
 # the one head dim csrc/*.cu build: every config of the repo has D = 64
 _KERNEL_HEAD_DIM = 64

@@ -1,9 +1,8 @@
-"""Trainable fused attention: autograd Functions over the CUDA kernels.
+"""Trainable attention: autograd Functions over the CUDA kernels.
 
-Counterpart of the fused half of ``vit_deep_radiomics_tpu/ops/
-attention_grad.py`` (window and global mode, :647-1637), with the port's
-per-head bias layout (``bias_h (B, H, S, Kh)``, ``bias_w (B, H, S, Kw)``,
-as in ``ops/attention.py``):
+Counterpart of ``vit_deep_radiomics_tpu/ops/attention_grad.py``, with the
+port's per-head bias layout (``bias_h (B, H, S, Kh)``, ``bias_w (B, H, S,
+Kw)``, as in ``ops/attention.py``):
 
 * :func:`window_attention_trainable` — forward K1
   (``csrc/fused_window_attention.cu``, max softmax), backward K4
@@ -14,6 +13,11 @@ as in ``ops/attention.py``):
   (``csrc/global_attention_bwd_dq.cu``: dq and both bias gradients over
   the keys) and the K5 dkv kernel (``csrc/global_attention_bwd_dkv.cu``:
   dk and dv over the queries).
+* :func:`flash_attention_trainable` — K6, the generic per-head
+  ``(B, H, S, D)`` path of ``parity`` (fp32) fine-tuning: forward with the
+  lse residual (``csrc/flash_attention_fwd.cu``), dq with both bias
+  gradients (``csrc/flash_attention_bwd_dq.cu``) and dk/dv
+  (``csrc/flash_attention_bwd_dkv.cu``), any key-grid width.
 
 The backward formulas, with ``P`` the softmax of the scores and ``O`` the
 forward's output, natural units::
@@ -25,8 +29,9 @@ forward's output, natural units::
 
 Each kernel has a plain PyTorch version beside it that writes out the same
 formulas in fp32; the wrappers take it for CPU tensors only, and for CUDA
-tensors launch their kernel or raise. The kernels build bf16 and head dim
-64 only. Launches are counted in ``ops/attention.py::LAUNCHES``.
+tensors launch their kernel or raise. K4 and K5 build bf16 only, K6 fp32
+only, all of them head dim 64 only. Launches are counted in
+``ops/attention.py::LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,14 @@ __all__ = [
     "global_attention_bwd_dq_plain",
     "global_attention_bwd_dkv",
     "global_attention_bwd_dkv_plain",
+    "flash_attention_trainable",
+    "flash_attention_delta",
+    "flash_attention_fwd",
+    "flash_attention_fwd_plain",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dq_plain",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dkv_plain",
 ]
 
 _NEG_INF = -1e30
@@ -189,16 +202,81 @@ def global_attention_bwd_dkv_plain(q, kv, bias_h, bias_w, kv_len, dout, lse,
                         num_heads, scale)[1]
 
 
+def _flash_scores(q, k, bias_h, bias_w, kv_len, scale):
+    """K6's fp32 scores in log2 units, (B, H, S, S): q·scale·log2(e)·kᵀ +
+    log2(e)·bias_h[i, j // Kw] + log2(e)·bias_w[i, j % Kw], keys j ≥
+    kv_len at -1e30 (JAX ``_fwd_kernel`` and ``_recompute_p_ds``)."""
+    s = torch.matmul(q.float() * (scale * _LOG2E),
+                     k.float().transpose(-1, -2))
+    if bias_h is not None:
+        bh, bw = bias_h.float() * _LOG2E, bias_w.float() * _LOG2E
+        s = s + (bh[..., :, None] + bw[..., None, :]).flatten(-2)
+    if kv_len is not None:
+        key = torch.arange(k.shape[2], device=q.device)
+        valid = key[None, :] < kv_len.to(q.device)[:, None]        # (B, S)
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.full_like(s, _NEG_INF))
+    return s
+
+
+def flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len, *, scale):
+    """Plain version of the K6 forward: (out, lse) with lse (B, H, S) the
+    log2 log-sum-exp of each row's scores, fp32."""
+    s = _flash_scores(q, k, bias_h, bias_w, kv_len, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    out = torch.matmul(e, v.float()) / l
+    return out.to(q.dtype), (m + torch.log2(l)).squeeze(-1).contiguous()
+
+
+def flash_attention_delta(out, dout):
+    """D = Σ_d dO∘O per row: (B, H, S, D) pair → (B, H, S) fp32."""
+    return (dout.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale):
+    """P from the residual and the natural-unit score gradient dS."""
+    p = torch.exp2(_flash_scores(q, k, bias_h, bias_w, kv_len, scale)
+                   - lse[..., None])
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
+                                 delta, *, scale):
+    """Plain version of the K6 dq kernel: (dq, dbias_h, dbias_w), the bias
+    gradients the sums of dS over each key-grid row and column."""
+    _, ds = _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
+                        scale)
+    dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    if bias_h is None:
+        return dq, None, None
+    grid = ds.reshape(*ds.shape[:-1], bias_h.shape[-1], bias_w.shape[-1])
+    return dq, grid.sum(-1).to(bias_h.dtype), grid.sum(-2).to(bias_w.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
+                                  delta, *, scale):
+    """Plain version of the K6 dkv kernel: (dk, dv)."""
+    p, ds = _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
+                        scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_bwd_cuda(q, d, *tensors, fp32=()):
-    """What a trainable kernel needs: bf16, then ``_check_cuda``'s launch
-    needs for the bf16 operands; the ``fp32`` residuals float32 and
-    contiguous on q's device."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the trainable kernels take bfloat16, got {q.dtype}")
+def _check_bwd_cuda(q, d, *tensors, fp32=(), dtype=torch.bfloat16):
+    """What a trainable kernel needs: its build's dtype (K4 and K5 bf16, K6
+    fp32), then ``_check_cuda``'s launch needs for the operands; the
+    ``fp32`` residuals float32 and contiguous on q's device."""
+    if q.dtype != dtype:
+        raise TypeError(f"this trainable kernel takes {dtype}, got "
+                        f"{q.dtype}")
     _check_cuda(q, d, *tensors)
     for t in fp32:
         if t.device != q.device or t.dtype != torch.float32 or \
@@ -320,6 +398,98 @@ def global_attention_bwd_dkv(q, kv, bias_h, bias_w, kv_len, dout, lse,
     return dkv
 
 
+def _check_flash(q, k, v, bias_h, bias_w, kv_len):
+    """K6's layout checks (JAX ops/attention_grad.py::_validate, with Sq ==
+    Sk, the only case a caller has). Returns (Kh, Kw), 0 without a bias."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one (B, H, S, D) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if (bias_h is None) != (bias_w is None):
+        raise ValueError("bias_h and bias_w must be given together")
+    b, h, s, _ = q.shape
+    if kv_len is not None and tuple(kv_len.shape) != (b,):
+        raise ValueError(f"kv_len shape {tuple(kv_len.shape)} != ({b},)")
+    if bias_h is None:
+        return 0, 0
+    kh, kw = bias_h.shape[-1], bias_w.shape[-1]
+    if tuple(bias_h.shape) != (b, h, s, kh) or \
+            tuple(bias_w.shape) != (b, h, s, kw):
+        raise ValueError(f"bias shapes {tuple(bias_h.shape)}, "
+                         f"{tuple(bias_w.shape)} != ({b}, {h}, {s}, K)")
+    if kh * kw != s:
+        raise ValueError(f"Kh*Kw = {kh}*{kw} != Sk = {s}")
+    return kh, kw
+
+
+def flash_attention_fwd(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
+                        scale):
+    """K6 forward wrapper: (out, lse), lse (B, H, S) fp32 in log2 units.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/flash_attention_fwd.cu``."""
+    kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len,
+                                         scale=scale)
+    b, h, s, d = q.shape
+    _check_bwd_cuda(q, d, k, v, bias_h, bias_w, dtype=torch.float32)
+    lib, fn = _load("flash_attention_fwd", [_P] * 8 + [_I] * 6 + [_F, _P])
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, device=q.device, dtype=torch.float32)
+    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
+            _ptr(_kv_len_i32(kv_len, q)), _ptr(out), _ptr(lse),
+            b, h, s, d, kh, kw, scale, _stream(q))
+    _raise_on(rc, lib, "flash_attention_fwd")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
+                           *, scale):
+    """K6 dq wrapper: (dq, dbias_h, dbias_w). CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/flash_attention_bwd_dq.cu``."""
+    kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(
+            q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale=scale)
+    b, h, s, d = q.shape
+    _check_bwd_cuda(q, d, k, v, bias_h, bias_w, dout, fp32=(lse, delta),
+                    dtype=torch.float32)
+    lib, fn = _load("flash_attention_bwd_dq", [_P] * 12 + [_I] * 6 + [_F, _P])
+    dq = torch.empty_like(q)
+    dbh = torch.empty_like(bias_h) if bias_h is not None else None
+    dbw = torch.empty_like(bias_w) if bias_w is not None else None
+    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
+            _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse), _ptr(delta),
+            _ptr(dq), _ptr(dbh), _ptr(dbw), b, h, s, d, kh, kw, scale,
+            _stream(q))
+    _raise_on(rc, lib, "flash_attention_bwd_dq")
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq, dbh, dbw
+
+
+def flash_attention_bwd_dkv(q, k, v, bias_h, bias_w, kv_len, dout, lse,
+                            delta, *, scale):
+    """K6 dkv wrapper: (dk, dv). CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/flash_attention_bwd_dkv.cu``."""
+    kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(
+            q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale=scale)
+    b, h, s, d = q.shape
+    _check_bwd_cuda(q, d, k, v, bias_h, bias_w, dout, fp32=(lse, delta),
+                    dtype=torch.float32)
+    lib, fn = _load("flash_attention_bwd_dkv",
+                    [_P] * 11 + [_I] * 6 + [_F, _P])
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
+            _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse), _ptr(delta),
+            _ptr(dk), _ptr(dv), b, h, s, d, kh, kw, scale, _stream(q))
+    _raise_on(rc, lib, "flash_attention_bwd_dkv")
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
 # ---------------------------------------------------------------------------
 # autograd Functions
 # ---------------------------------------------------------------------------
@@ -367,6 +537,26 @@ class _GlobalAttention(torch.autograd.Function):
         return dq, dkv, dbh, dbw, None, None, None
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias_h, bias_w, kv_len, scale):
+        out, lse = flash_attention_fwd(q, k, v, bias_h, bias_w, kv_len,
+                                       scale=scale)
+        ctx.save_for_backward(q, k, v, bias_h, bias_w, kv_len, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias_h, bias_w, kv_len, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        args = (q, k, v, bias_h, bias_w, kv_len, dout, lse,
+                flash_attention_delta(out, dout))
+        dq, dbh, dbw = flash_attention_bwd_dq(*args, scale=ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(*args, scale=ctx.scale)
+        return dq, dk, dv, dbh, dbw, None, None
+
+
 def _scale(q, num_heads, scale):
     return (q.shape[-1] // num_heads) ** -0.5 if scale is None else scale
 
@@ -392,3 +582,17 @@ def global_attention_trainable(q, kv, bias_h=None, bias_w=None, kv_len=None,
     ``kv_len`` key-padding mask, which is not differentiable."""
     return _GlobalAttention.apply(q, kv, bias_h, bias_w, kv_len, num_heads,
                                   _scale(q, num_heads, scale))
+
+
+def flash_attention_trainable(q, k, v, bias_h=None, bias_w=None, kv_len=None,
+                              *, scale=None):
+    """Differentiable flash attention over per-head (B, H, S, D) q, k, v
+    (JAX ``flash_attention_trainable``, ops/attention_grad.py:593), K6.
+
+    Optional decomposed bias ``bias_h (B, H, S, Kh)``, ``bias_w (B, H, S,
+    Kw)`` with Kh·Kw == S (any Kw), key j taking ``bias_h[..., j // Kw] +
+    bias_w[..., j % Kw]``; optional ``kv_len (B,)`` key-padding mask, which
+    is not differentiable. Returns (B, H, S, D); gradients flow to q, k, v
+    and both bias factors."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _FlashAttention.apply(q, k, v, bias_h, bias_w, kv_len, scale)

@@ -26,7 +26,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("fused_window_attention", "fused_global_attention",
                   "window_attention_bwd", "global_attention_fwd_lse",
-                  "global_attention_bwd_dq", "global_attention_bwd_dkv")
+                  "global_attention_bwd_dq", "global_attention_bwd_dkv",
+                  "flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

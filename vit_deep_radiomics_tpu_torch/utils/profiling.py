@@ -1,15 +1,16 @@
-"""Device-time profile of the SAM ViT-B/16 @1024 forward on the GPU.
+"""Device-time profile of the backbone's forward or fine-tuning step on the GPU.
 
 Counterpart of ``vit_deep_radiomics_tpu/utils/profiling.py`` for the
 port: :func:`device_sync` is the fence for host-clock timing;
-:func:`profile_forward` traces steady-state forwards and
-:func:`profile_finetune_step` steady-state fine-tuning steps with
-``torch.profiler``, and both report device time by kernel, the wall time
-per forward or step and the device's idle share. Run on the card::
+:func:`profile_forward` traces steady-state SAM ViT-B/16 @1024 forwards and
+:func:`profile_finetune_step` steady-state fine-tuning steps (SAM or a
+DINOv2 config, ``fast`` or ``parity``) with ``torch.profiler``, and both
+report device time by kernel, the wall time per forward or step and the
+device's idle share. Run on the card::
 
     python -m vit_deep_radiomics_tpu_torch.utils.profiling --batch 4
     python -m vit_deep_radiomics_tpu_torch.utils.profiling --finetune \
-        --batch 2
+        --batch 2 [--precision parity] [--backbone dinov2_vitb14]
 """
 
 from __future__ import annotations
@@ -98,23 +99,27 @@ def profile_forward(batch: int = 4, precision: str = "fast",
 
 
 def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
-                          seed: int = 0) -> dict:
-    """Full-width SAM ViT-B/16 @1024 fine-tuning steps (``fast``, no
-    remat): wall and device time per step, the idle share, the top
-    ``rows`` device ops and the peak device memory."""
+                          seed: int = 0, precision: str = "fast",
+                          backbone: str = "medsam") -> dict:
+    """Full-width fine-tuning steps (SAM ViT-B/16 @1024 or a DINOv2
+    config at its image size, no remat): wall and device time per step,
+    the idle share, the top ``rows`` device ops and the peak device
+    memory."""
     from ..engine.finetune import FineTuneConfig, FineTuner
 
-    tuner = FineTuner(FineTuneConfig(precision="fast"))
+    tuner = FineTuner(FineTuneConfig(precision=precision, backbone=backbone))
     state = tuner.init(seed=seed)
     dev = tuner.device
+    size, grid = tuner.backbone_cfg.image_size, tuner.backbone_cfg.grid
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    images = torch.rand(batch, 1024, 1024, 3, generator=gen, device=dev)
-    mask = torch.zeros(batch, 64, 64, dtype=torch.bool, device=dev)
-    mask[:, 24:40, 24:40] = True
+    images = torch.rand(batch, size, size, 3, generator=gen, device=dev)
+    mask = torch.zeros(batch, grid, grid, dtype=torch.bool, device=dev)
+    mask[:, grid * 3 // 8:grid * 5 // 8, grid * 3 // 8:grid * 5 // 8] = True
     labels = torch.eye(2, device=dev)[torch.arange(batch, device=dev) % 2]
     torch.cuda.reset_peak_memory_stats(dev)
     res = _trace(lambda: tuner.step(state, images, mask, labels), steps,
-                 rows, what="finetune step", batch=batch, precision="fast")
+                 rows, what=f"finetune step {backbone}", batch=batch,
+                 precision=precision)
     res["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     return res
 
@@ -126,11 +131,14 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--rows", type=int, default=25)
     p.add_argument("--finetune", action="store_true",
-                   help="profile fine-tuning steps (fast) instead of "
-                        "forwards")
+                   help="profile fine-tuning steps instead of forwards")
+    p.add_argument("--backbone", default="medsam",
+                   help="with --finetune: medsam or a dinov2_* config")
     args = p.parse_args(argv)
     if args.finetune:
-        res = profile_finetune_step(args.batch, args.steps, args.rows)
+        res = profile_finetune_step(args.batch, args.steps, args.rows,
+                                    precision=args.precision,
+                                    backbone=args.backbone)
     else:
         res = profile_forward(args.batch, args.precision, args.steps,
                               args.rows)
