@@ -56,7 +56,29 @@ Phases (each one fails the run with a non-zero exit):
     ``fast`` inference forward at batch 4 (K2 in kv_len mode);
 14. parity gradient check: one ``parity`` step's gradients at batch 1
     through K6 against plain attention, per leaf about 1e-4 of the leaf's
-    max |grad|.
+    max |grad|;
+15. K3, the generic flash attention, at the shapes its paths give it: SAM
+    ViT-B/16 @768's global layers (q/k/v (4, 12, 3072, 64), the 48x48 key
+    grid padded to 48x64, ``kv_grid`` (48, 48)) in bf16 and fp32, the
+    ``kv_len`` mode at (4, 12, 1536, 64) with 1370 valid keys, and the
+    ``window_tokens`` mode (the 100 windows of batch 4 @1024 padded to
+    16x16, 4 per row: q (25, 12, 1024, 64), ``kv_grid`` (14, 14)); each
+    against its plain version, with plain, SDPA and bound times;
+16. K7, the fused LayerNorm -> MLP -> residual, at the SAM forward's rows
+    (16384 x 768, hidden 3072, bf16) and DINOv2 ViT-B/14's (4 x 1370, with
+    layerscale), against its plain version; the library time is the
+    unfused PyTorch path (LayerNorm, two cuBLAS GEMMs, GELU, residual);
+17. K8, the s8 x s8 -> s32 matmul, at the five backbone contractions at
+    batch 4 (M = 16384 and the windowed layers' 19600 rows padded to
+    19712), exactly equal to its plain version; ``torch._int_mm`` as the
+    library time, and the rate probes (K8 and ``torch._int_mm`` against
+    the bf16 matmul at each shape, and the CLI guard's ratio);
+18. paths: full-width SAM ViT-B/16 forwards at batch 4 under
+    ``inference`` @1024, ``int8`` @1024 (K8), ``fast`` with
+    ``VDR_FUSED_MLP=1`` @1024 (K7) and ``fast`` @768 (K3), launch counts
+    asserted, each held at batch 1 to an oracle on the same weights, then
+    one ``DenseExtractor.extract_volume`` per new path (``int8``, fused
+    MLP, 768 px) with its launch counts, ms and img/s.
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -66,6 +88,7 @@ kernels' JSON record, and the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -134,6 +157,34 @@ KV_ATOL = {"fused_global_attention": 1.4e-3,
            "global_attention_bwd_dkv": 2.5e-3}
 DINO_TOKENS, DINO_PADDED = 1370, 1536
 DINO_FWD_BATCH = 4                  # the DINOv2 inference forward's batch
+# Dense int8 tensor-core peaks (TOP/s) of the same H100 variants
+INT8_PEAKS = {"PCIe": 1513e12, "NVL": 1671e12, "SXM": 1979e12}
+# K3 against its plain version, the rule of phase 3. Measured on an H100
+# SXM: bf16 1.01e-3 (SAM @768), 9.24e-4 (kv_len), 3.66e-3 (window); fp32
+# 1.25e-6. bf16: 1.5 times the window mode's gap; fp32: the limit of the
+# CPU tests against JAX
+K3_ATOL = {"float32": 2e-5, "bfloat16": 5.5e-3}
+# K7 against its plain version: one bf16 step plus this, about 1.5 times
+# the gap measured on an H100 SXM at SAM's 16384 rows (1.49e-2: the branch
+# output and the residual sum round twice, a flip of the first moves the
+# second; 100 rows read 6.35e-3)
+K7_ATOL = 2.5e-2
+# Phase 18's forwards: launches per forward of each path (every other
+# counter 0), and each path's batch-1 oracle limit beyond one bf16 step.
+# Measured on an H100 SXM: `inference` equals `fast` on the bf16-rounded
+# weights bit for bit (0 allows no more than one step anywhere); 12 K7
+# layers against the unfused forward 4.07e-2, the limit about 1.5 times
+# that
+PATH_LAUNCHES = {
+    "inference": dict(fused_window_attention=8, fused_global_attention=4),
+    "int8": dict(int8_matmul=60, fused_window_attention=8,
+                 fused_global_attention=4),
+    "fused_mlp": dict(fused_ln_mlp_residual=12, fused_window_attention=8,
+                      fused_global_attention=4),
+    "fast_768": dict(flash_attention=4, fused_window_attention=8),
+}
+PATH_ATOL = {"inference": 0.0, "fused_mlp": 6e-2}
+INT8_MIN_COSINE = 0.995             # JAX tests/test_quant.py:116
 
 
 def log(*args):
@@ -532,22 +583,26 @@ def _check_outputs(torch, name, outs, refs, labels, rtol, atol):
 
 
 def _record(name, src, replaces, dtype, err, ms, plain_ms, lib, nb, flops,
-            peaks):
+            peaks, op_peak=None, library=None):
     """A kernel's JSON row; the bound is the larger of the bytes over the
-    memory rate and the FLOPs over the peak of the dtype's units (bf16
-    tensor cores, fp32 CUDA cores)."""
+    memory rate and the operations over the peak of the dtype's units (bf16
+    tensor cores, fp32 CUDA cores, or ``op_peak``). ``lib`` is (ms, SDPA
+    backend) unless ``library`` names another yardstick."""
     bw_peak, bf16_peak, fp32_peak = peaks
+    if op_peak is None:
+        op_peak = bf16_peak if dtype == "bfloat16" else fp32_peak
     t_bytes = nb / bw_peak * 1e3
-    t_ops = flops / (bf16_peak if dtype == "bfloat16" else fp32_peak) * 1e3
+    t_ops = flops / op_peak * 1e3
+    library = library or f"sdpa {lib[1]}"
     rec = {"name": name, "route": "cuda",
            "source": f"vit_deep_radiomics_tpu_torch/csrc/{src}",
            "replaces": replaces, "dtype": dtype,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib[0], "library": f"sdpa {lib[1]}"}
+           "library_ms": lib[0], "library": library}
     log(f"kernel {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{lib[0]:.4f} (SDPA {lib[1]}) bound_ms {rec['bound_ms']:.4f} "
+        f"{lib[0]:.4f} ({library}) bound_ms {rec['bound_ms']:.4f} "
         f"({rec['bound_by']}; {nb / 1e6:.1f} MB, {flops / 1e9:.1f} "
         f"GFLOP)")
     return rec
@@ -997,6 +1052,416 @@ def dinov2_forward_phase(torch, A, vit, precision):
     return counts
 
 
+def _sub(rec):
+    return {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+
+
+def _k3_dense(torch, q, k, v, bh, bw, kl, grid, win):
+    """SDPA's inputs for K3's function: head-major q/k/v (one batch entry
+    per window in window mode) and the dense additive mask, the decomposed
+    bias with -inf at every key K3 masks; also the valid keys of a row,
+    which are as many as the valid queries of a row (or of a window): the
+    tokens the path keeps before its padding."""
+    b, heads, s, _ = q.shape
+    if win:
+        n = s // win
+
+        def split(t):
+            return t.reshape(b, heads, n, win, t.shape[-1]).transpose(1, 2) \
+                .reshape(b * n, heads, win, t.shape[-1])
+
+        q, k, v, bh, bw = map(split, (q, k, v, bh, bw))
+    sk = k.shape[2]
+    key = torch.arange(sk, device=q.device)
+    valid = torch.ones(sk, dtype=torch.bool, device=q.device)
+    mask = torch.zeros(*q.shape[:3], sk, device=q.device, dtype=q.dtype)
+    if bh is not None:
+        kw = bw.shape[-1]
+        mask = (bh[..., :, None] + bw[..., None, :]).reshape(mask.shape)
+        if grid is not None:
+            valid = (key // kw < grid[0]) & (key % kw < grid[1])
+    if kl is not None:
+        valid = valid & (key < int(kl[0]))      # one kv_len for the batch
+    mask = mask.masked_fill(~valid, float("-inf"))
+    return (q.contiguous(), k.contiguous(), v.contiguous(),
+            mask.contiguous(), int(valid.sum()))
+
+
+def k3_phase(torch, A, peaks):
+    """Phase 15: K3 at its paths' shapes against its plain version; kernel,
+    plain, SDPA (the dense bias with K3's masked keys at -inf as
+    ``attn_mask``) times and the bound, which counts only the valid keys
+    and the query rows the path keeps (the padded rows it cuts off are left
+    out). The row is SAM @768's global shape in bf16, the main path's;
+    ``fp32`` and ``by_shape`` hold the others. The ``window`` shape checks
+    the ``window_tokens`` mode, which only ``WindowedAttention``'s
+    ``window_group`` > 1 reaches (JAX's default is 1, and no entry point
+    of either package sets it), so no path of the port runs it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    heads, d = 12, 64
+    scale = d ** -0.5
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # B, S, Kh, Kw, kv_grid, kv_len, window_tokens, dtypes
+    shapes = {"sam768_global": (4, 3072, 48, 64, (48, 48), None, None,
+                                (bf16, fp32)),
+              "kv_len": (4, 1536, 0, 0, None, 1370, None, (bf16,)),
+              "window": (25, 1024, 16, 16, (14, 14), None, 256, (bf16,))}
+    rows = {}
+    for shape, (b, s, kh, kw, grid, kv_len, win, dtypes) in shapes.items():
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[1]
+
+            def rand(*sh, sc=1.0):
+                return (torch.randn(*sh, generator=gen, device="cuda")
+                        * sc).to(dtype)
+
+            q, k, v = (rand(b, heads, s, d) for _ in range(3))
+            bh = bw = kl = None
+            if kh:
+                bh, bw = rand(b, heads, s, kh, sc=0.3), rand(b, heads, s, kw,
+                                                              sc=0.3)
+            if kv_len:
+                kl = torch.full((b,), kv_len, dtype=torch.int32,
+                                device="cuda")
+            opts = dict(kv_grid=grid, window_tokens=win)
+
+            def kern():
+                return A.flash_attention(q, k, v, bh, bw, kl, **opts)
+
+            def plain():
+                return A.flash_attention_plain(q, k, v, bh, bw, kl,
+                                               scale=scale, **opts)
+
+            out = kern()
+            torch.cuda.synchronize()
+            tag = f"flash_attention [{shape}, {dname}]"
+            err = _check_outputs(torch, tag, [out], [plain()], ["out"],
+                                 RTOL[dname], K3_ATOL[dname])
+            qh, kh_, vh, mask, n_valid = _k3_dense(torch, q, k, v, bh, bw,
+                                                   kl, grid, win)
+            lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale)
+            del qh, kh_, vh, mask
+            rows[shape, dname] = _record(
+                tag, "flash_attention.cu",
+                "vit_deep_radiomics_tpu/ops/attention.py:87", dname, err,
+                cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2), lib,
+                _nbytes(q, k, v, bh, bw, kl, out),
+                4.0 * b * heads * (s // (win or s)) * n_valid * n_valid * d,
+                peaks)
+            del q, k, v, bh, bw, kl, out
+            torch.cuda.empty_cache()
+    rec = dict(rows["sam768_global", "bfloat16"], name="flash_attention")
+    rec["fp32"] = _sub(rows["sam768_global", "float32"])
+    rec["by_shape"] = {f"{shape} {dname}": _sub(r)
+                       for (shape, dname), r in rows.items()}
+    return rec
+
+
+def k7_phase(torch, peaks):
+    """Phase 16: K7 at SAM ViT-B/16's rows at batch 4 (16384 x 768, hidden
+    3072) and DINOv2 ViT-B/14's (4 x 1370, with layerscale), bf16 with the
+    weights in the torch Linear layout, against its plain version; the
+    library time is the unfused PyTorch path on the same bf16 inputs. The
+    row is SAM's shape, the main path's."""
+    import torch.nn.functional as F
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    c, hidden, dt, eps = 768, 3072, torch.bfloat16, 1e-6
+
+    def rand(*sh, sc=1.0, dtype=torch.float32):
+        return (torch.randn(*sh, generator=gen, device="cuda")
+                * sc).to(dtype)
+
+    w1 = rand(hidden, c, sc=c ** -0.5, dtype=dt)          # lin1.weight
+    w2 = rand(c, hidden, sc=hidden ** -0.5, dtype=dt)     # lin2.weight
+    b1, b2 = rand(hidden, sc=0.02), rand(c, sc=0.02)
+    ln_s, ln_b = 1.0 + rand(c, sc=0.1), rand(c, sc=0.1)
+    ls = 0.1 + rand(c, sc=0.02)
+    rows = {}
+    for shape, (b, s, with_ls) in {"sam": (4, 4096, False),
+                                   "dinov2": (4, 1370, True)}.items():
+        x = rand(b, s, c, dtype=dt)
+        lsv = ls if with_ls else None
+        args = (x, ln_s, ln_b, w1.t(), b1, w2.t(), b2, lsv)
+
+        def kern():
+            return M.fused_ln_mlp_residual(*args, eps=eps)
+
+        def plain():
+            return M.fused_ln_mlp_residual_plain(*args, eps=eps)
+
+        out = kern()
+        torch.cuda.synchronize()
+        tag = f"fused_ln_mlp_residual [{shape}, {b}x{s} rows]"
+        err = _check_outputs(torch, tag, [out], [plain()], ["out"],
+                             RTOL["bfloat16"], K7_ATOL)
+        p = [None if t is None else t.to(dt) for t in (ln_s, ln_b, b1, b2,
+                                                      lsv)]
+
+        def unfused():
+            y = F.layer_norm(x, (c,), p[0], p[1], eps)
+            o = F.linear(F.gelu(F.linear(y, w1, p[2]), approximate="tanh"),
+                         w2, p[3])
+            return x + (o * p[4] if with_ls else o)
+
+        rows[shape] = _record(
+            tag, "fused_ln_mlp_residual.cu",
+            "vit_deep_radiomics_tpu/ops/mlp_fused.py:47", "bfloat16", err,
+            cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 3),
+            (cuda_ms(torch, unfused, 10), None),
+            _nbytes(x, ln_s, ln_b, w1, b1, w2, b2, lsv, out),
+            4.0 * b * s * c * hidden, peaks,
+            library="unfused PyTorch bf16: LayerNorm, 2 cuBLAS GEMMs, "
+                    "tanh GELU, residual")
+        del x, args, out
+        torch.cuda.empty_cache()
+    rec = dict(rows["sam"], name="fused_ln_mlp_residual")
+    rec["by_shape"] = {shape: _sub(r) for shape, r in rows.items()}
+    return rec
+
+
+# The backbone's five per-block contractions under `int8`: (K, N)
+K8_SHAPES = {"q": (768, 768), "kv": (768, 1536), "proj": (768, 768),
+             "lin1": (768, 3072), "lin2": (3072, 768)}
+# K8's rows at batch 4: the global layers' 4 x 4096 tokens, the windowed
+# layers' 100 windows x 196 tokens padded to 128 rows
+K8_ROWS = (16384, 19712)
+
+
+def k8_phase(torch, Q, peaks, int8_peak):
+    """Phase 17: K8 at the five backbone contractions at batch 4, exactly
+    equal to its plain version (float64 on the card: |acc| <= 127^2 * 3072
+    < 2^53); ``torch._int_mm`` as the library time, the bound against the
+    int8 peak; then the rate probes. The row is the MLP's first layer at
+    M = 16384 (the largest call)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rows = {}
+    for m in K8_ROWS:
+        for label, (k, n) in K8_SHAPES.items():
+            x = torch.randint(-127, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            w = torch.randint(-127, 128, (n, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            w_kn = w.t().contiguous()               # _int_mm's (K, N)
+            got = Q.int8_matmul_nk(x, w)
+            torch.cuda.synchronize()
+            ref = Q.int8_matmul_plain(x, w_kn)
+            err = (got.double() - ref.double()).abs().max().item()
+            tag = f"int8_matmul [M={m} {label} {k}x{n}]"
+            log(f"kernel {tag}: max_abs_err {err:g} (exact required), "
+                f"dtype {got.dtype}")
+            if got.dtype != torch.int32 or not torch.equal(got, ref):
+                raise AssertionError(f"{tag} differs from the exact product")
+            rows[m, label] = _record(
+                tag, "int8_matmul.cu",
+                "vit_deep_radiomics_tpu/ops/quant.py:193", "int8", err,
+                cuda_ms(torch, lambda: Q.int8_matmul_nk(x, w), 20),
+                cuda_ms(torch, lambda: Q.int8_matmul_plain(x, w_kn), 3),
+                (cuda_ms(torch, lambda: torch._int_mm(x, w_kn), 20), None),
+                _nbytes(x, w, got), 2.0 * m * k * n, peaks,
+                op_peak=int8_peak, library="torch._int_mm")
+            del x, w, w_kn, got, ref
+        torch.cuda.empty_cache()
+    rates = {}
+    for label, (k, n) in K8_SHAPES.items():
+        r = Q.int8_kernel_rate_ratio(K8_ROWS[0], k, n)
+        rates[label] = {key: r[key] for key in ("tops", "k8_vs_bf16",
+                                                "k8_vs_int_mm",
+                                                "int_mm_vs_bf16")}
+        log(f"int8 rate probe {label} ({K8_ROWS[0]}x{k} @ {k}x{n}, 8 "
+            f"weights per call): TOP/s " + ", ".join(
+                f"{p} {t:.1f}" for p, t in r["tops"].items())
+            + f"; K8/bf16 {r['k8_vs_bf16']:.3f}, K8/_int_mm "
+            f"{r['k8_vs_int_mm']:.3f}, _int_mm/bf16 "
+            f"{r['int_mm_vs_bf16']:.3f}")
+    guard = Q.int8_matmul_rate_ratio()
+    log(f"int8 guard probe (the extraction CLI's, 4096x768 @ 768x3072): "
+        f"int8/bf16 rate ratio {guard:.3f}")
+    rec = dict(rows[K8_ROWS[0], "lin1"], name="int8_matmul")
+    rec["by_shape"] = {f"M={m} {label}": _sub(r)
+                       for (m, label), r in rows.items()}
+    rec["rate_probe"] = rates
+    rec["guard_ratio"] = guard
+    return rec
+
+
+def _timed_forward(torch, A, model, images):
+    """A warm-up forward, then one timed with the launch counters set to 0
+    just before it: (output, seconds, counts)."""
+    with torch.no_grad():
+        model(images)
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model(images)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return out, dt, dict(A.LAUNCHES)
+
+
+def _min_cosine(a, b):
+    """The smallest per-position cosine over the channel axis."""
+    a = a.reshape(-1, a.shape[-1]).double()
+    b = b.reshape(-1, b.shape[-1]).double()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
+
+
+def paths_phase(torch, A, vit, precision, tex, syn):
+    """Phase 18: the new forward paths of full-width SAM ViT-B/16 at batch
+    4 with their launch counts asserted, each held at batch 1 to an oracle
+    on the same weights, then one ``extract_volume`` per new path on one
+    synthetic patient (CT and PET). Returns the launches per forward."""
+    import dataclasses
+
+    cfg = vit.SAM_VIT_B
+    cfg768 = dataclasses.replace(cfg, image_size=768)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    images = torch.rand(4, 1024, 1024, 3, generator=gen, device="cuda")
+    images768 = torch.rand(4, 768, 768, 3, generator=gen, device="cuda")
+    state = vit.ViTDense(cfg, policy=precision.FAST).init_random(
+        SEED).state_dict()
+    state768 = vit.ViTDense(cfg768, policy=precision.FAST).init_random(
+        SEED).state_dict()
+    counts = {}
+
+    def build(c, policy, st, use_flash=True):
+        m = vit.ViTDense(c, policy=policy, use_flash=use_flash)
+        m.load_state_dict(st)              # cast to the policy's dtype
+        return m.cuda().eval()
+
+    def one(model, imgs):
+        with torch.no_grad():
+            return model(imgs[:1]).float()
+
+    def drive(label, model, imgs):
+        out, dt, n = _timed_forward(torch, A, model, imgs)
+        b, grid = imgs.shape[0], imgs.shape[1] // 16
+        log(f"forward {label} B={b}: {dt * 1e3:.2f} ms ({b / dt:.2f} "
+            f"img/s), launches {n}")
+        expect = dict(dict.fromkeys(A.LAUNCHES, 0), **PATH_LAUNCHES[label])
+        if n != expect:
+            raise AssertionError(f"{label}: launches per forward {n} != "
+                                 f"{expect}")
+        if tuple(out.shape) != (b, grid, grid, 256) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label} forward output is not finite or "
+                                 "of the expected shape")
+        counts[label] = n
+
+    def hold(label, got, ref, atol):
+        diff = (got - ref).abs()
+        err = diff.max().item()
+        gap = (diff - 2.0 ** -7 * ref.abs()).max().item()
+        log(f"forward {label} B=1 vs its oracle: max abs err {err:.3e} on "
+            f"max |x| {ref.abs().max().item():.3f}; gap beyond one bf16 step "
+            f"{gap:.3e} (limit {atol:.1e})")
+        if not gap <= atol:
+            raise AssertionError(f"{label} forward disagrees with its "
+                                 f"oracle: gap {gap} > {atol}")
+
+    # inference (bf16 parameters) vs `fast` on the same bf16-rounded weights
+    model = build(cfg, precision.INFERENCE, state)
+    drive("inference", model, images)
+    got = one(model, images)
+    del model
+    state_bf = {k: v.to(torch.bfloat16).float() for k, v in state.items()}
+    model = build(cfg, precision.FAST, state_bf)
+    hold("inference", got, one(model, images), PATH_ATOL["inference"])
+    del model, state_bf
+
+    # int8 (K8) vs the `parity` plain-attention forward, JAX's criterion
+    model = build(cfg, precision.INT8, state)
+    drive("int8", model, images)
+    got = one(model, images)
+    del model
+    model = build(cfg, precision.PARITY, state, use_flash=False)
+    cos = _min_cosine(got, one(model, images))
+    del model
+    log(f"forward int8 B=1 vs parity plain attention: smallest per-position "
+        f"cosine {cos:.6f} (limit > {INT8_MIN_COSINE})")
+    if not cos > INT8_MIN_COSINE:
+        raise AssertionError(f"int8 forward: cosine {cos}")
+
+    # fast + VDR_FUSED_MLP=1 (K7) vs the unfused fast forward
+    model = build(cfg, precision.FAST, state)
+    os.environ["VDR_FUSED_MLP"] = "1"
+    try:
+        drive("fused_mlp", model, images)
+        got = one(model, images)
+    finally:
+        os.environ.pop("VDR_FUSED_MLP")
+    hold("fused_mlp", got, one(model, images), PATH_ATOL["fused_mlp"])
+    del model
+    torch.cuda.empty_cache()
+
+    # fast @768 (K3 in the global layers); parity fused vs plain at B=1
+    model = build(cfg768, precision.FAST, state768)
+    drive("fast_768", model, images768)
+    del model
+    outs = {}
+    for use_flash in (True, False):
+        model = build(cfg768, precision.PARITY, state768, use_flash)
+        outs[use_flash] = one(model, images768)
+        del model
+    err = (outs[True] - outs[False]).abs().max().item()
+    scale = outs[False].abs().max().item()
+    log(f"forward parity @768 B=1, kernels (K3, K1) vs plain attention: max "
+        f"abs err {err:.3e} on outputs of max |x| {scale:.3f}")
+    if not err <= 1e-4 * max(1.0, scale):
+        raise AssertionError(f"parity @768 forward disagrees: {err}")
+    del outs, images, images768
+    torch.cuda.empty_cache()
+
+    # one extract_volume run per new path: one patient, CT and PET
+    patient = next(iter(syn.synthetic_cohort(
+        n_patients=1, seed=SEED, height=256, width=256).values()))
+    runs = {"int8": (dict(precision="int8"), state, {}),
+            "fused_mlp": (dict(precision="fast"), state,
+                          {"VDR_FUSED_MLP": "1"}),
+            "fast_768": (dict(precision="fast", image_size=768), state768,
+                         {})}
+    for label, (conf, st, env) in runs.items():
+        ex = tex.DenseExtractor(tex.ExtractionConfig(**conf), state_dict=st)
+        os.environ.update(env)
+        try:
+            warm = syn.synthetic_volume(np.random.default_rng(9), 256, 256,
+                                        2, modality="pet")
+            ex.extract_volume(warm[0], warm[1], "pet")      # warm-up
+            forwards = [0]
+            ex.model.register_forward_hook(
+                lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+            torch.cuda.synchronize()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            n_images = 0
+            for modality in ("ct", "pet"):
+                vol, mask, _ = patient[modality]
+                feats, _, _ = ex.extract_volume(vol, mask, modality)
+                n_images += len(feats)
+                if not all(f.ndim == 3 and f.shape[2] == 256
+                           and np.isfinite(f).all() for f in feats):
+                    raise AssertionError(f"{label} extraction: bad crop")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        n = dict(A.LAUNCHES)
+        expect = {k: forwards[0] * PATH_LAUNCHES[label].get(k, 0)
+                  for k in A.LAUNCHES}
+        log(f"extraction {label}: 1 patient x (CT, PET) at 256x256, "
+            f"{n_images} images in {dt * 1e3:.1f} ms = {n_images / dt:.2f} "
+            f"img/s; {forwards[0]} forwards, launches {n}")
+        if n != expect or not n_images:
+            raise AssertionError(f"{label} extraction launches {n} != "
+                                 f"{expect}")
+        del ex
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1013,12 +1478,15 @@ def main() -> int:
         from vit_deep_radiomics_tpu_torch.engine import finetune as ft
         from vit_deep_radiomics_tpu_torch.ops import attention as A
         from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+        from vit_deep_radiomics_tpu_torch.ops import quant as Q
         from vit_deep_radiomics_tpu_torch.utils import cuda_build
     except ImportError as exc:
         print(f"chip_smoke: the port package is not next to this script "
               f"({exc})", file=sys.stderr)
         return 2
 
+    # phase 18 sets VDR_FUSED_MLP itself; every other phase runs without it
+    os.environ.pop("VDR_FUSED_MLP", None)
     card = card_line()
     name = torch.cuda.get_device_name(0)
     sku, peaks = peaks_for(name)
@@ -1078,6 +1546,19 @@ def main() -> int:
             "fused_global_attention" else dino_fast[base]
     records.update(k6_records)
     records.update(kv_records)
+
+    records["flash_attention"] = k3_phase(torch, A, peaks)     # phase 15
+    records["fused_ln_mlp_residual"] = k7_phase(torch, peaks)  # phase 16
+    records["int8_matmul"] = k8_phase(torch, Q, peaks,
+                                      INT8_PEAKS[sku])         # phase 17
+    torch.cuda.empty_cache()
+    path_counts = paths_phase(torch, A, vit, precision, tex,
+                              syn)                             # phase 18
+    # K3: the @768 forward; K7: the fused-MLP forward; K8: the int8 forward
+    for kname, path in (("flash_attention", "fast_768"),
+                        ("fused_ln_mlp_residual", "fused_mlp"),
+                        ("int8_matmul", "int8")):
+        records[kname]["launches"] = path_counts[path][kname]
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -335,3 +335,116 @@ def test_parity_remat_on_the_card_matches_no_remat(gen, remat):
     assert abs(loss1 - loss0) <= 1e-6 * abs(loss0)
     for k, g in g0.items():
         torch.testing.assert_close(g1[k], g, atol=1e-6, rtol=1e-5, msg=k)
+
+
+# K3 (generic head-major flash attention) against its plain version, every
+# mode, every head dim it builds; the same elementwise rule as K1/K2.
+K3_ATOL = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["grid", "window", "kv_len"])
+def test_flash_attention_kernel_matches_plain(gen, dtype, d, mode):
+    heads = 3
+    kw = {}
+    if mode == "grid":      # a 10x13 grid padded to 16x16, 200 queries
+        b, sq, sk = 2, 200, 256
+        bh = _rand(gen, b, heads, sq, 16, dtype=dtype, scale=0.3)
+        bw = _rand(gen, b, heads, sq, 16, dtype=dtype, scale=0.3)
+        kw = dict(kv_grid=(10, 13))
+    elif mode == "window":  # 6 windows of 8x8, 7x6 valid, 2 per block
+        b, sq = 2, 6 * 64
+        sk = sq
+        bh = _rand(gen, b, heads, sq, 8, dtype=dtype, scale=0.3)
+        bw = _rand(gen, b, heads, sq, 8, dtype=dtype, scale=0.3)
+        kw = dict(kv_grid=(7, 6), window_tokens=64)
+    else:                   # a row with no valid key averages V
+        b, sq, sk = 3, 150, 192
+        bh = bw = None
+        kw = dict(kv_len=torch.tensor([0, 77, 192], device="cuda"))
+    q = _rand(gen, b, heads, sq, d, dtype=dtype)
+    k = _rand(gen, b, heads, sk, d, dtype=dtype)
+    v = _rand(gen, b, heads, sk, d, dtype=dtype)
+    A.reset_launch_counts()
+    got = A.flash_attention(q, k, v, bh, bw, **kw)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_attention"] == 1
+    want = A.flash_attention_plain(q, k, v, bh, bw, scale=d ** -0.5, **kw)
+    got, want = got.float(), want.float()
+    gap = ((got - want).abs() - RTOL[dtype] * want.abs()).max().item()
+    print(f"K3 {mode} D={d} {dtype}: gap {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= K3_ATOL[dtype], gap
+
+
+# K7 (fused LayerNorm -> MLP -> residual): bf16 within one bf16 step
+# (2^-7·|want|) plus K7_ATOL, fp32 within K7_ATOL alone. Measured on an
+# H100 SXM: bf16 6.35e-3 (the branch output and the residual sum round
+# twice; a flip of the first moves the second), fp32 6.3e-6; K3 bf16
+# 3.5e-3, fp32 1.6e-6; the limits are about 1.5 times that.
+K7_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype,c,hidden,rows", [
+    (torch.bfloat16, 768, 3072, 100), (torch.bfloat16, 384, 1536, 37),
+    (torch.float32, 768, 3072, 37), (torch.float32, 384, 1536, 20)])
+@pytest.mark.parametrize("with_ls", [False, True])
+def test_fused_mlp_kernel_matches_plain(gen, dtype, c, hidden, rows,
+                                        with_ls):
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    x = _rand(gen, 2, rows, c, dtype=dtype)
+    ln_s = 1.0 + 0.1 * _rand(gen, c, dtype=torch.float32)
+    ln_b = 0.1 * _rand(gen, c, dtype=torch.float32)
+    w1 = _rand(gen, hidden, c, dtype=torch.float32, scale=c ** -0.5).t()
+    b1 = 0.02 * _rand(gen, hidden, dtype=torch.float32)
+    w2 = _rand(gen, c, hidden, dtype=torch.float32,
+               scale=hidden ** -0.5).t()
+    b2 = 0.02 * _rand(gen, c, dtype=torch.float32)
+    ls = 0.1 + 0.02 * _rand(gen, c, dtype=torch.float32) if with_ls else None
+    args = (x, ln_s, ln_b, w1, b1, w2, b2, ls)
+    A.reset_launch_counts()
+    got = M.fused_ln_mlp_residual(*args).float()
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_ln_mlp_residual"] == 1
+    want = M.fused_ln_mlp_residual_plain(*args).float()
+    gap = ((got - want).abs() - RTOL[dtype] * want.abs()).max().item()
+    print(f"K7 C={c} {dtype} ls={with_ls}: gap {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= K7_ATOL[dtype], gap
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 384, 256), (384, 768, 1536),
+                                   (128, 3072, 768)])
+def test_int8_matmul_kernel_is_exact(gen, m, k, n):
+    """K8 equals the exact product (float64 on the card) bit for bit, in
+    both layouts."""
+    from vit_deep_radiomics_tpu_torch.ops import quant as Q
+
+    x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    A.reset_launch_counts()
+    got = Q.int8_matmul(x, w)
+    got_nk = Q.int8_matmul_nk(x, w.t().contiguous())
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["int8_matmul"] == 2 and got.dtype == torch.int32
+    want = Q.int8_matmul_plain(x, w)
+    assert torch.equal(got, want) and torch.equal(got_nk, want)
+    with pytest.raises(ValueError, match="128-multiple"):
+        Q.int8_matmul(x[:100], w)
+
+
+def test_int8_dot_pads_rows_for_the_kernel(gen):
+    """int8_dot_prequant on the card (K8 over rows padded to 128) equals the
+    same computation on the CPU (exact int64 product) bit for bit."""
+    from vit_deep_radiomics_tpu_torch.ops import quant as Q
+
+    x = _rand(gen, 2, 98, 768, dtype=torch.bfloat16)
+    w = _rand(gen, 1536, 768, dtype=torch.bfloat16, scale=0.05)
+    A.reset_launch_counts()
+    got = Q.int8_dot(x, w.t())
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["int8_matmul"] == 1
+    want = Q.int8_dot(x.cpu(), w.cpu().t())
+    assert torch.equal(got.cpu(), want)

@@ -21,6 +21,26 @@ MODULES = sorted(
 FORBIDDEN = ("jax", "jaxlib", "flax", "vit_deep_radiomics_tpu")
 
 
+def test_new_modules_are_covered():
+    """The modules of the int8, fused-MLP and generic-attention paths are
+    among those the isolation checks import and parse."""
+    for mod in ("ops.quant", "ops.mlp_fused", "ops.attention",
+                "ops._kernels", "core.precision", "utils.cuda_build"):
+        assert f"vit_deep_radiomics_tpu_torch.{mod}" in MODULES
+
+
+def test_every_kernel_source_has_one_launch_counter():
+    """Each ops module registers the counters of its own kernels in the
+    shared table: once the model is imported, the table names exactly the
+    sources ``build_all()`` builds."""
+    from vit_deep_radiomics_tpu_torch.models import vit  # noqa: F401
+    from vit_deep_radiomics_tpu_torch.ops import _kernels, attention
+    from vit_deep_radiomics_tpu_torch.utils import cuda_build
+
+    assert attention.LAUNCHES is _kernels.LAUNCHES
+    assert sorted(_kernels.LAUNCHES) == sorted(cuda_build.KERNEL_SOURCES)
+
+
 def test_importing_every_module_leaves_jax_out():
     """In a fresh interpreter (tests/conftest.py imports jax into this
     one): import every port module, then check sys.modules."""
@@ -100,8 +120,14 @@ class TestPolicy:
 
     @pytest.mark.parametrize("name", ["inference", "int8"])
     def test_not_ported_policies_raise(self, name):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            precision.get_policy(name)
+        """The two policies that raised before K7/K8 were ported now
+        resolve to JAX's definitions (bf16 parameters; ``int8``
+        quantized); a name JAX does not know still raises."""
+        policy = precision.get_policy(name)
+        assert policy.param_dtype == policy.compute_dtype == torch.bfloat16
+        assert policy.quantized == (name == "int8")
+        with pytest.raises(ValueError, match="unknown"):
+            precision.get_policy(name + "4")
 
     def test_dtypes(self):
         assert precision.get_policy("fast").compute_dtype == torch.bfloat16

@@ -6,6 +6,15 @@ HDF5 source and the MedSAM backbone::
     python -m vit_deep_radiomics_tpu_torch.cli.extract \\
         -mn medsam -h5 data/iso.hdf5 -df data/iso.csv \\
         -f data/features -mod ct --precision fast --device cuda
+
+``--precision`` takes JAX's six names (``fast``/``bf16``, ``parity``/
+``fp32``, ``inference``, ``int8``). Under ``int8`` the sweep is preceded by
+JAX's guard: the int8 matmul rate is measured against bf16 on the device,
+printed, and below half the bf16 rate the CLI refuses unless
+``VDR_ALLOW_INT8=1``. ``VDR_FUSED_MLP=1`` in the environment runs the
+frozen bf16 blocks' LayerNorm → MLP → residual as one kernel (K7);
+``--image-size`` sets the backbone's input size (e.g. 768, whose global
+layers take K3).
 """
 
 from __future__ import annotations
@@ -34,9 +43,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="second modality: ct or chest (pet always runs)")
     p.add_argument("--datasets", nargs="*",
                    default=["santa_maria", "stanford"])
-    p.add_argument("--precision", default="fast", choices=["fast", "parity"])
+    p.add_argument("--precision", default="fast",
+                   choices=["fast", "parity", "bf16", "fp32", "inference",
+                            "int8"])
     p.add_argument("--slice-batch", type=int, default=4)
-    p.add_argument("--image-size", type=int, default=None)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="backbone input size (default 1024)")
     p.add_argument("--no-flash", action="store_true",
                    help="plain attention instead of the fused kernels")
     p.add_argument("--device", default="cuda",
@@ -57,6 +69,14 @@ def main(argv=None) -> int:
         ExtractionConfig,
         extract_isotropic_dataset,
     )
+
+    if args.precision == "int8":
+        # the live guard against an int8 path slower than bf16 (JAX
+        # cli/extract.py:88-95), on the device the sweep runs on
+        from ..ops.quant import warn_if_int8_emulated
+
+        ratio = warn_if_int8_emulated(device=args.device)
+        print(f"int8/bf16 measured matmul rate ratio: {ratio:.2f}")
 
     cfg = ExtractionConfig(
         model_name=args.model_name,

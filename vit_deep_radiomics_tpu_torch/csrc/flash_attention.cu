@@ -1,0 +1,499 @@
+// K3: generic (B, H, S, D) flash attention forward.
+//
+// Replaces: vit_deep_radiomics_tpu/ops/attention.py::flash_attention
+// (`_flash_kernel`, the Pallas TPU kernel that the backbone's `_flash`
+// path runs for the grids and head layouts the fused kernels refuse, e.g.
+// SAM's global layers at 768 px: a 48 x 48 grid padded to 48 x 64 keys).
+//
+// Computes, per (batch, head) and query row i,
+//     softmax_j(q_i . k_j D^-1/2 + bias_h[i, row(j)] + bias_w[i, col(j)]) v
+// over head-major q (B, H, Sq, D), k and v (B, H, Sk, D), out (B, H, Sq, D):
+//  * the decomposed bias is optional; key j sits at (row, col) = (j / Kw,
+//    j % Kw) of the key grid, or, in window mode, at the same place of its
+//    own window (j % window_tokens), bias_h being per window (Kh * Kw ==
+//    window_tokens);
+//  * keys past kv_len[b], keys outside the (kh_valid, kw_valid) sub-grid of
+//    a padded key grid, and (window mode) keys of another window get the
+//    score -1e30, as in JAX: a row with no valid key averages V over the
+//    keys it was given;
+//  * window mode: the token axis is a concatenation of windows of
+//    window_tokens tokens, each attending only to itself.
+// Online softmax in log2 units with the running max kept (JAX's K3 has no
+// nomax mode); scores, max, sums and the accumulator are fp32.
+//
+// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the
+// SAM @768 path's shape (4 x 12 heads, 3072 query rows and 3072 keys of
+// 64, Kh 48, Kw 64) the call does 116 GFLOP (0.117 ms at the bf16 peak)
+// against 47 MB of compulsory traffic (0.014 ms): operations bound it.
+//
+// What the design does about it: the (Sq, Sk) scores are never written.
+// Keys stream through shared memory in 64-key tiles, zero-filled past the
+// end; the per-head bias rows of the block's queries are staged once in
+// shared memory, transposed and times log2(e) (as K2); a per-tile table
+// gives each key its bias terms and its mask state, so a score costs two
+// shared-memory loads and a compare. Key tiles past kv_len or past the
+// valid rows of the key grid are skipped when every row keeps a valid key
+// (their weights are exact zeros). bf16 runs QK^T and PV on the tensor
+// cores (mma.sync.m16n8k16, one warp per 16 query rows, 128-row blocks);
+// fp32 runs on the CUDA cores, one thread per row (two for D = 128). The
+// head dim is a template parameter, built for D = 32, 64 and 128.
+
+#include <limits>
+
+#include "flash_attention_core.cuh"
+
+namespace {
+
+using vdr::kLog2e;
+using vdr::kNegInf;
+
+constexpr int kBlockK = 64;
+constexpr int kRowsF32 = 64;
+constexpr int kRowsBf16 = 128;
+// a key outside the block's range: weight exactly 0, even in a row whose
+// every key is masked
+constexpr float kAbsent = -std::numeric_limits<float>::infinity();
+
+struct FlashParams {
+  const void* q;       // (B, H, Sq, D)
+  const void* k;       // (B, H, Sk, D)
+  const void* v;       // (B, H, Sk, D)
+  const void* bias_h;  // (B, H, Sq, kh) or nullptr
+  const void* bias_w;  // (B, H, Sq, kw) or nullptr
+  const int* kv_len;   // (B,) or nullptr
+  void* out;           // (B, H, Sq, D)
+  int B, H, Sq, Sk;
+  int kh, kw;              // bias grid (0 without bias)
+  int kh_valid, kw_valid;  // valid key sub-grid (0: no kv_grid mask)
+  int window;              // window_tokens (0: global)
+  float scale_log2;        // scale * log2(e)
+};
+
+// A block's query rows and the keys it visits.
+struct Range {
+  int b, h, row0, k_begin, k_end, kvl;
+  size_t head;  // b * H + h
+};
+
+__device__ __forceinline__ Range range_of(const FlashParams& p, int bq) {
+  Range t;
+  t.b = blockIdx.z;
+  t.h = blockIdx.y;
+  t.head = (size_t)t.b * p.H + t.h;
+  t.row0 = blockIdx.x * bq;
+  t.kvl = p.kv_len != nullptr ? p.kv_len[t.b] : p.Sk;
+  if (p.window) {
+    const int last = min(t.row0 + bq, p.Sq) - 1;
+    t.k_begin = (t.row0 / p.window) * p.window;
+    t.k_end = min(p.Sk, (last / p.window + 1) * p.window);
+  } else {
+    t.k_begin = 0;
+    t.k_end = p.Sk;
+    // keys past kv_len or past the grid's valid rows are masked in every
+    // row; when every row keeps a valid key (kv_len >= 1; the wrapper
+    // refuses an empty kv_grid) their weights are exact zeros: skip them
+    if (p.kv_len == nullptr || t.kvl >= 1) {
+      if (p.kv_len != nullptr) t.k_end = min(t.k_end, t.kvl);
+      if (p.kh_valid) t.k_end = min(t.k_end, p.kh_valid * p.kw);
+    }
+  }
+  return t;
+}
+
+// Key table entry: .x, .y the bias terms (grid row, kh + grid column), .z
+// the mask state (0 valid, 1 masked to -1e30, 2 absent), .w the window.
+__device__ __forceinline__ int4 key_term(const FlashParams& p, const Range& t,
+                                         int key) {
+  if (key >= t.k_end) return make_int4(0, 0, 2, 0);
+  const int local = p.window ? key % p.window : key;
+  int4 e = make_int4(0, 0, 0, p.window ? key / p.window : 0);
+  if (p.bias_h != nullptr) {
+    e.x = local / p.kw;
+    e.y = p.kh + local % p.kw;
+  }
+  if (p.kv_len != nullptr && key >= t.kvl) e.z = 1;
+  if (p.kh_valid &&
+      (local / p.kw >= p.kh_valid || local % p.kw >= p.kw_valid))
+    e.z = 1;
+  return e;
+}
+
+template <int BK>
+__device__ __forceinline__ void stage_keys(const FlashParams& p,
+                                           const Range& t, int k0,
+                                           int4* ktab) {
+  for (int j = threadIdx.x; j < BK; j += blockDim.x)
+    ktab[j] = key_term(p, t, k0 + j);
+}
+
+// The block's bias rows in shared memory, [term][row] and times log2(e):
+// term t < kh the grid-row term, kh + c the grid-column term.
+template <typename T, int BQ>
+__device__ __forceinline__ void stage_bias(const FlashParams& p,
+                                           const Range& t, float* bias_s) {
+  constexpr int BS = vdr::bias_stride<BQ>();
+  const int nrows = min(BQ, p.Sq - t.row0);
+  const size_t row_base = t.head * p.Sq + t.row0;
+  const T* bh = static_cast<const T*>(p.bias_h) + row_base * p.kh;
+  const T* bw = static_cast<const T*>(p.bias_w) + row_base * p.kw;
+  for (int i = threadIdx.x; i < BQ * p.kh; i += blockDim.x) {
+    const int r = i / p.kh, c = i % p.kh;
+    bias_s[c * BS + r] = r < nrows ? vdr::to_f32(bh[i]) * kLog2e : 0.f;
+  }
+  for (int i = threadIdx.x; i < BQ * p.kw; i += blockDim.x) {
+    const int r = i / p.kw, c = i % p.kw;
+    bias_s[(p.kh + c) * BS + r] = r < nrows ? vdr::to_f32(bw[i]) * kLog2e
+                                            : 0.f;
+  }
+}
+
+// A score after bias and masks (log2 units).
+template <int BS>
+__device__ __forceinline__ float finish_score(float s, int4 kt, int qwin,
+                                              const float* bias_s, int lr,
+                                              bool has_bias) {
+  if (kt.z == 2) return kAbsent;
+  if (kt.z == 1 || kt.w != qwin) return kNegInf;
+  return has_bias ? s + (bias_s[kt.x * BS + lr] + bias_s[kt.y * BS + lr])
+                  : s;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores, one thread per query row (two for D = 128)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct F32Shape {
+  static constexpr int TPR = D > 64 ? D / 64 : 1;  // threads per row
+  static constexpr int DS = D / TPR;               // head dims per thread
+};
+
+template <int D, int BQ, int BK>
+__device__ void flash_rows_f32(const FlashParams& p, float* smem) {
+  constexpr int TPR = F32Shape<D>::TPR, DS = F32Shape<D>::DS;
+  constexpr int CH = 16;  // keys per online-softmax step
+  constexpr int BS = vdr::bias_stride<BQ>();
+  const Range t = range_of(p, BQ);
+  float* ks = smem;                                    // [BK][D]
+  float* vs = ks + BK * D;                             // [BK][D]
+  int4* ktab = reinterpret_cast<int4*>(vs + BK * D);  // [BK]
+  float* bias_s = reinterpret_cast<float*>(ktab + BK);
+  const bool has_bias = p.bias_h != nullptr;
+  if (has_bias) stage_bias<float, BQ>(p, t, bias_s);
+
+  const int lr = threadIdx.x / TPR, part = threadIdx.x % TPR;
+  const int r = t.row0 + lr;
+  const bool valid = r < p.Sq;
+  const int qwin = p.window ? r / p.window : 0;
+  const float* qrow = static_cast<const float*>(p.q) +
+                      (t.head * p.Sq + (valid ? r : 0)) * D + part * DS;
+  float q[DS], acc[DS];
+#pragma unroll
+  for (int d = 0; d < DS; ++d) {
+    q[d] = valid ? qrow[d] * p.scale_log2 : 0.f;
+    acc[d] = 0.f;
+  }
+  float m = kNegInf, l = 0.f;
+  const float* kb = static_cast<const float*>(p.k) + t.head * p.Sk * D;
+  const float* vb = static_cast<const float*>(p.v) + t.head * p.Sk * D;
+
+  for (int k0 = t.k_begin; k0 < t.k_end; k0 += BK) {
+    const int nk = min(BK, t.k_end - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BK * (D / 4); i += blockDim.x) {
+      const int j = i / (D / 4), d4 = (i % (D / 4)) * 4;
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+      if (j < nk) {
+        kk = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + j) * D + d4);
+        vv = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + j) * D + d4);
+      }
+      *reinterpret_cast<float4*>(ks + j * D + d4) = kk;
+      *reinterpret_cast<float4*>(vs + j * D + d4) = vv;
+    }
+    stage_keys<BK>(p, t, k0, ktab);
+    __syncthreads();
+    for (int c0 = 0; c0 < nk; c0 += CH) {
+      float s[CH];
+      float mx = m;
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj) {
+        const int j = c0 + jj;
+        float v = kAbsent;
+        if (j < nk) {  // the same for every thread of the block
+          const float* kr = ks + j * D + part * DS;
+          float dot = 0.f;
+#pragma unroll
+          for (int d = 0; d < DS; ++d) dot = fmaf(q[d], kr[d], dot);
+          if (TPR == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+          v = finish_score<BS>(dot, ktab[j], qwin, bias_s, lr, has_bias);
+        }
+        s[jj] = v;
+        mx = fmaxf(mx, v);
+      }
+      const float alpha = exp2f(m - mx);
+      m = mx;
+      l *= alpha;
+#pragma unroll
+      for (int d = 0; d < DS; ++d) acc[d] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj) {
+        const int j = c0 + jj;
+        if (j < nk) {
+          const float pj = exp2f(s[jj] - m);
+          l += pj;
+          const float* vr = vs + j * D + part * DS;
+#pragma unroll
+          for (int d = 0; d < DS; ++d) acc[d] = fmaf(pj, vr[d], acc[d]);
+        }
+      }
+    }
+  }
+  if (valid) {
+    float* orow = static_cast<float*>(p.out) + (t.head * p.Sq + r) * D +
+                  part * DS;
+    const float inv = 1.f / (l > 0.f ? l : 1.f);
+#pragma unroll
+    for (int d = 0; d < DS; ++d) orow[d] = acc[d] * inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, one warp per 16 query rows (fragment layouts as in
+// flash_attention_core.cuh)
+// ---------------------------------------------------------------------------
+
+template <int D, int BQ, int BK>
+__device__ void flash_rows_bf16(const FlashParams& p, char* smem_raw) {
+  constexpr int LD = D + 8;   // padded K/V row (elements)
+  constexpr int NT = BK / 8;  // n8 score tiles per key tile
+  constexpr int DT = D / 8;   // n8 output tiles
+  constexpr int BS = vdr::bias_stride<BQ>();
+  const Range t = range_of(p, BQ);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + BK * LD;
+  int4* ktab = reinterpret_cast<int4*>(vs + BK * LD);   // [BK]
+  float* bias_s = reinterpret_cast<float*>(ktab + BK);  // [kh + kw][BS]
+  const bool has_bias = p.bias_h != nullptr;
+  if (has_bias) stage_bias<__nv_bfloat16, BQ>(p, t, bias_s);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int wrow = warp * 16;
+  const int r_lo = t.row0 + wrow + g, r_hi = r_lo + 8;
+  const int lrow_lo = wrow + g, lrow_hi = lrow_lo + 8;
+  const int qwin_lo = p.window ? r_lo / p.window : 0;
+  const int qwin_hi = p.window ? r_hi / p.window : 0;
+  const bool warp_live = t.row0 + wrow < p.Sq;
+
+  // Q fragment (16 x D), scaled by scale * log2(e) in fp32, rounded once
+  uint32_t qa[D / 16][4];
+  {
+    const __nv_bfloat16* q =
+        static_cast<const __nv_bfloat16*>(p.q) + t.head * p.Sq * D;
+    auto ld2 = [&](int r, int d) -> uint32_t {
+      if (r >= p.Sq) return 0u;
+      const __nv_bfloat162 v =
+          *reinterpret_cast<const __nv_bfloat162*>(q + (size_t)r * D + d);
+      return vdr::pack_bf16(__low2float(v) * p.scale_log2,
+                            __high2float(v) * p.scale_log2);
+    };
+#pragma unroll
+    for (int kt = 0; kt < D / 16; ++kt) {
+      qa[kt][0] = ld2(r_lo, kt * 16 + 2 * c);
+      qa[kt][1] = ld2(r_hi, kt * 16 + 2 * c);
+      qa[kt][2] = ld2(r_lo, kt * 16 + 2 * c + 8);
+      qa[kt][3] = ld2(r_hi, kt * 16 + 2 * c + 8);
+    }
+  }
+
+  float o[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  const __nv_bfloat16* kb =
+      static_cast<const __nv_bfloat16*>(p.k) + t.head * p.Sk * D;
+  const __nv_bfloat16* vb =
+      static_cast<const __nv_bfloat16*>(p.v) + t.head * p.Sk * D;
+
+  for (int k0 = t.k_begin; k0 < t.k_end; k0 += BK) {
+    const int nk = min(BK, t.k_end - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BK * (D / 8); i += blockDim.x) {
+      const int j = i / (D / 8), d8 = (i % (D / 8)) * 8;
+      uint4 kk = make_uint4(0, 0, 0, 0), vv = kk;
+      if (j < nk) {
+        kk = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + j) * D + d8);
+        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + j) * D + d8);
+      }
+      *reinterpret_cast<uint4*>(ks + j * LD + d8) = kk;
+      *reinterpret_cast<uint4*>(vs + j * LD + d8) = vv;
+    }
+    stage_keys<BK>(p, t, k0, ktab);
+    __syncthreads();
+    if (!warp_live) continue;
+
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < D / 16; ++kt) {
+        const __nv_bfloat16* kr = ks + (nt * 8 + g) * LD + kt * 16 + 2 * c;
+        uint32_t b[2];
+        b[0] = *reinterpret_cast<const uint32_t*>(kr);
+        b[1] = *reinterpret_cast<const uint32_t*>(kr + 8);
+        vdr::mma_bf16_16816(s[nt], qa[kt], b);
+      }
+    }
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = nt * 8 + 2 * c + (e & 1);
+        s[nt][e] = j < nk ? finish_score<BS>(s[nt][e], ktab[j],
+                                             e < 2 ? qwin_lo : qwin_hi,
+                                             bias_s,
+                                             e < 2 ? lrow_lo : lrow_hi,
+                                             has_bias)
+                          : kAbsent;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    const float a_lo = exp2f(m_lo - mx_lo), a_hi = exp2f(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= a_lo;
+    l_hi *= a_hi;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      o[i][0] *= a_lo;
+      o[i][1] *= a_lo;
+      o[i][2] *= a_hi;
+      o[i][3] *= a_hi;
+    }
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p0 = exp2f(s[nt][0] - m_lo), p1 = exp2f(s[nt][1] - m_lo);
+      const float p2 = exp2f(s[nt][2] - m_hi), p3 = exp2f(s[nt][3] - m_hi);
+      l_lo += p0 + p1;
+      l_hi += p2 + p3;
+      pa[nt / 2][(nt & 1) * 2 + 0] = vdr::pack_bf16(p0, p1);
+      pa[nt / 2][(nt & 1) * 2 + 1] = vdr::pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int kt = 0; kt < NT / 2; ++kt) {
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const __nv_bfloat16* v0 = vs + (kt * 16 + 2 * c) * LD + dt * 8 + g;
+        __nv_bfloat162 b0, b1;
+        b0.x = v0[0];
+        b0.y = v0[LD];
+        b1.x = v0[8 * LD];
+        b1.y = v0[9 * LD];
+        uint32_t b[2] = {*reinterpret_cast<uint32_t*>(&b0),
+                         *reinterpret_cast<uint32_t*>(&b1)};
+        vdr::mma_bf16_16816(o[dt], pa[kt], b);
+      }
+    }
+  }
+  if (!warp_live) return;
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float inv_lo = 1.f / (l_lo > 0.f ? l_lo : 1.f);
+  const float inv_hi = 1.f / (l_hi > 0.f ? l_hi : 1.f);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + t.head * p.Sq * D;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int d = dt * 8 + 2 * c;
+    if (r_lo < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r_lo * D + d) =
+          __floats2bfloat162_rn(o[dt][0] * inv_lo, o[dt][1] * inv_lo);
+    if (r_hi < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r_hi * D + d) =
+          __floats2bfloat162_rn(o[dt][2] * inv_hi, o[dt][3] * inv_hi);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRowsF32 * F32Shape<D>::TPR)
+    flash_f32_kernel(FlashParams p) {
+  extern __shared__ __align__(16) float smem_k3_f32[];
+  flash_rows_f32<D, kRowsF32, kBlockK>(p, smem_k3_f32);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRowsBf16 * 2)
+    flash_bf16_kernel(FlashParams p) {
+  extern __shared__ __align__(16) char smem_k3_bf16[];
+  flash_rows_bf16<D, kRowsBf16, kBlockK>(p, smem_k3_bf16);
+}
+
+template <int D>
+int launch(const FlashParams& p, int dtype, cudaStream_t stream) {
+  const size_t bias_bytes = (size_t)(p.kh + p.kw) * sizeof(float);
+  const size_t keys = (size_t)kBlockK * sizeof(int4);
+  dim3 grid;
+  cudaError_t err;
+  if (dtype != 0) {
+    const size_t smem = (size_t)2 * kBlockK * (D + 8) * 2 + keys +
+                        bias_bytes * vdr::bias_stride<kRowsBf16>();
+    err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    grid = dim3((p.Sq + kRowsBf16 - 1) / kRowsBf16, p.H, p.B);
+    flash_bf16_kernel<D><<<grid, kRowsBf16 * 2, smem, stream>>>(p);
+  } else {
+    const size_t smem = (size_t)2 * kBlockK * D * 4 + keys +
+                        bias_bytes * vdr::bias_stride<kRowsF32>();
+    err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    grid = dim3((p.Sq + kRowsF32 - 1) / kRowsF32, p.H, p.B);
+    flash_f32_kernel<D><<<grid, kRowsF32 * F32Shape<D>::TPR, smem, stream>>>(
+        p);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* vdr_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
+// head dim without a build (32, 64 and 128 are built). dtype: 0 = fp32,
+// 1 = bf16; kh_valid = kw_valid = 0 without a kv_grid mask, window = 0
+// outside window mode.
+int vdr_flash_attention(const void* q, const void* k, const void* v,
+                        const void* bias_h, const void* bias_w,
+                        const int* kv_len, void* out, int B, int H, int Sq,
+                        int Sk, int D, int kh, int kw, int kh_valid,
+                        int kw_valid, int window, float scale, int dtype,
+                        void* stream) {
+  const FlashParams p{q,  k,  v,        bias_h,   bias_w, kv_len,
+                      out, B, H,        Sq,       Sk,     kh,
+                      kw, kh_valid, kw_valid, window, scale * kLog2e};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(p, dtype, s);
+    case 64: return launch<64>(p, dtype, s);
+    case 128: return launch<128>(p, dtype, s);
+    default: return -1;
+  }
+}
+
+}  // extern "C"

@@ -6,7 +6,11 @@ Counterpart of ``vit_deep_radiomics_tpu/engine/extract.py``. Per volume:
 * every augmentation's flip→rotate→crop→resize is one bilinear gather
   (``ops/sampling.py``),
 * the frozen SAM ViT-B/16 runs on slice batches, its attention in the
-  fused CUDA kernels K1 and K2,
+  fused CUDA kernels K1 and K2 (at an image size whose global grid they
+  refuse, e.g. 768, the global layers in K3), under any precision policy:
+  ``fast``/``parity``, ``inference`` (bf16 parameters after init or load)
+  or ``int8`` (the per-block matmuls in K8); ``VDR_FUSED_MLP=1`` runs the
+  frozen bf16 blocks' MLP half in K7,
 * only the bucketed ROI crops of the (64, 64, 256) feature maps and of the
   transformed masks come back to the host, in one copy each, for the
   variable-shape crop and the HDF5/parquet store.
@@ -87,7 +91,7 @@ class ExtractionConfig:
 
     model_name: str = "medsam"
     model_path: str | None = None       # MedSAM .pth (random init if None)
-    image_size: int | None = None       # default 1024
+    image_size: int | None = None       # default 1024; medsam takes any
     slice_batch: int = 4
     precision: str = "fast"
     use_flash: bool = True

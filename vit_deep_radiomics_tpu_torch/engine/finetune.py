@@ -129,6 +129,10 @@ class FineTuner:
         self.config = config
         self.device = default_device(device)
         self.policy = get_policy(config.precision)
+        if self.policy.quantized:
+            raise ValueError(
+                "int8 is an inference-only policy (round() kills the "
+                "gradients); fine-tune with 'fast' or 'parity'")
         if config.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got "
                              f"{config.accum_steps}")

@@ -11,6 +11,10 @@ JAX package's ``sam_params_from_torch`` and, for DINOv2, of
 * DINOv2 ``ls1``/``ls2`` → ``ls1.gamma``/``ls2.gamma``, the MLP as
   ``fc1``/``fc2``, ``cls_token``, ``pos_embed`` and the final ``norm``.
 
+The bridges yield fp32 tensors; a module built under a bf16 policy
+(``inference``, ``int8``) holds bf16 parameters, and ``load_state_dict``
+rounds them on the copy.
+
 :func:`load_medsam_state_dict` reads a MedSAM/SAM ``.pth`` image encoder
 for ``load_state_dict``.
 """

@@ -14,8 +14,18 @@ windowed layers through K1, its 64×64 global layers through K2, and
 DINOv2's bias-free layers through K2 with the tokens padded (1370 → 1536)
 and masked by ``kv_len``, selected by :meth:`WindowedAttention.
 _fused_variant` exactly as in JAX (a rel-pos grid of ≤1024 tokens takes
-window mode even in a global layer). ``use_flash=False`` is the plain
-oracle path of the tests.
+window mode even in a global layer). Grids and head layouts the fused
+kernels refuse (a rel-pos grid over 1024 tokens that no tile divides, e.g.
+SAM's 48×48 global grid at 768 px; a head dim that does not tile 128 lanes)
+take the generic path, K3 (``flash_attention``) over the key grid padded
+as JAX pads it (:meth:`WindowedAttention._flash`). ``use_flash=False`` is
+the plain oracle path of the tests.
+
+Under the ``int8`` policy the five per-block matmuls of frozen layers run
+s8×s8→s32 through K8 (``ops/quant.py``); with ``VDR_FUSED_MLP=1`` a frozen
+bf16 block's LayerNorm → MLP → residual is one K7 call
+(``ops/mlp_fused.py``). Under a bf16 ``param_dtype`` (``inference``,
+``int8``) the modules hold bf16 parameters.
 
 ``trainable=True`` (fine-tuning) routes attention as JAX does (vit.py:
 307-318). Under ``fast`` (bf16) the fused autograd Functions of
@@ -28,7 +38,8 @@ over whole key grids with a bias or over padded tokens with ``kv_len``.
 (``torch.utils.checkpoint``).
 
 Numerics follow the JAX policy rules: matmuls in the compute dtype with
-fp32 accumulation and the bias added in fp32 (:func:`_policy_dot`),
+the fp32 accumulator kept and the bias added to it in fp32 before the one
+cast down (:func:`_policy_dot`),
 LayerNorm statistics in fp32, tanh GELU under bf16 and erf GELU under fp32,
 the rel-pos bias computed from the unscaled q in the compute dtype.
 """
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Sequence
 
 import torch
@@ -44,21 +56,59 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..core.precision import FAST, Policy
+from ..core.precision import FAST, Policy, cast_params
 from ..ops.attention import _head_group, attention_reference, \
-    flash_attention_fused_qkv
+    flash_attention, flash_attention_fused_qkv
 from ..ops.attention_grad import flash_attention_trainable, \
     global_attention_trainable, window_attention_trainable
+from ..ops.mlp_fused import fused_ln_mlp_residual
+from ..ops.quant import int8_dot, int8_dot_prequant, quantize_rows
 
 __all__ = ["ViTDenseConfig", "ViTDense", "SAM_VIT_B", "DINOV2_CONFIGS",
            "window_partition", "window_unpartition", "resize_bicubic"]
 
 
-def _policy_dot(x, weight, bias, dtype):
-    """``x @ weight.T + bias`` (torch Linear layout): the product in the
-    compute dtype with fp32 accumulation, the bias added in fp32. Returns
-    fp32; the caller casts down (JAX vit.py::_policy_dot)."""
-    out = torch.matmul(x.to(dtype), weight.to(dtype).t()).float()
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w.T`` for bf16 operands, returning the fp32 accumulator
+    unrounded (JAX's ``preferred_element_type=float32``): on the card one
+    cuBLAS bf16 product with an fp32 output, on the CPU the fp32 product of
+    the bf16 values (exact products, fp32 sums). The backward is the bf16
+    products of the rounded-down gradient, as a bf16 matmul's own."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.device.type == "cpu":
+            out = x2.float() @ w.float().t()
+        else:
+            out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gx = g @ w if ctx.needs_input_grad[0] else None
+        gw = None
+        if ctx.needs_input_grad[1]:
+            gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return gx, gw
+
+
+def _policy_dot(x, weight, bias, dtype, quant: bool = False, x_q=None):
+    """``x @ weight.T + bias`` (torch Linear layout), fp32 out; the caller
+    casts down (JAX vit.py::_policy_dot). The product keeps its fp32
+    accumulator and the bias is added to it in fp32. ``quant`` takes the
+    dynamic-int8 product (``ops/quant.py``, K8 on the card), ``x_q`` a
+    pre-quantized ``(int8, scale)`` pair of x shared by several matmuls."""
+    if quant:
+        out = int8_dot(x, weight.t()) if x_q is None \
+            else int8_dot_prequant(x_q, weight.t())
+    elif dtype == torch.float32:
+        out = torch.matmul(x.float(), weight.float().t())
+    else:
+        out = _MatmulF32.apply(x.to(dtype), weight.to(dtype))
     return out + bias.float() if bias is not None else out
 
 
@@ -126,17 +176,45 @@ DINOV2_CONFIGS = {
 }
 
 
-def _padded_tokens(s: int) -> int:
-    """The length JAX pads a bias-free token axis to (the padded length of
-    JAX vit.py:206 ``_q_blocking``, which trades padding against grid
-    steps): 1370 → 1536."""
+def _q_blocking(s: int) -> tuple[int, int]:
+    """(padded length, block) of a token axis, JAX vit.py:206: the TPU
+    grid-step cost model padded² · (1 + 0.05 · steps) over blocks of 1024,
+    512, 256 and 128 tokens. 196 → (256, 256); 1370 → (1536, 512); 2304 →
+    (3072, 1024); 4096 → (4096, 512)."""
     best = None
     for blk in (1024, 512, 256, 128):
         padded = -(-s // blk) * blk
         score = padded * padded * (1 + 0.05 * (padded // blk) ** 2)
         if best is None or score < best[0]:
-            best = (score, padded)
-    return best[1]
+            best = (score, padded, blk)
+    return best[1], best[2]
+
+
+def _pick_block_k(sq_pad: int, cap: int) -> int:
+    """Largest kv tile ≤ ``cap`` that divides ``sq_pad`` and is a multiple
+    of 128 (JAX vit.py:189)."""
+    for div in range(1, sq_pad // 128 + 1):
+        if sq_pad % div == 0:
+            bk = sq_pad // div
+            if bk <= cap and bk % 128 == 0:
+                return bk
+    return 128
+
+
+def _padded_tokens(s: int) -> int:
+    """The length JAX pads a bias-free token axis to (:func:`_q_blocking`):
+    1370 → 1536."""
+    return _q_blocking(s)[0]
+
+
+def _pad_to(x, size: int, dim: int):
+    """Zero-pad ``dim`` of x at the end to ``size``."""
+    extra = size - x.shape[dim]
+    if not extra:
+        return x
+    pad = [0, 0] * (x.ndim - dim % x.ndim)
+    pad[-1] = extra
+    return F.pad(x, pad)
 
 
 def _pad_tokens(tensors, s: int):
@@ -235,11 +313,14 @@ class WindowedAttention(nn.Module):
     decomposed relative-position bias when the config has it."""
 
     def __init__(self, cfg: ViTDenseConfig, input_size: int,
-                 use_flash: bool = True, trainable: bool = False):
+                 use_flash: bool = True, trainable: bool = False,
+                 window_group: int = 1):
         super().__init__()
         self.cfg = cfg
         self.use_flash = use_flash
         self.trainable = trainable
+        # independent windows batched per K3 call (JAX ``window_group``)
+        self.window_group = window_group
         c, hd = cfg.width, cfg.head_dim
         self.qkv = nn.Linear(c, 3 * c)
         self.proj = nn.Linear(c, c)
@@ -271,6 +352,9 @@ class WindowedAttention(nn.Module):
         b, h, w, c = x.shape
         dtype = policy.compute_dtype
         tokens = x.reshape(b, h * w, c).to(dtype)
+        # dynamic-int8 projections on frozen layers only (round() has no
+        # useful gradient): trainable layers keep the float matmuls
+        quant = policy.quantized and not self.trainable
         variant = self._fused_variant(h, w)
         # JAX vit.py:307-318: trainable layers take the fused layout under
         # bf16 only; parity (fp32) training takes the generic K6 path
@@ -278,29 +362,32 @@ class WindowedAttention(nn.Module):
                            and dtype == torch.bfloat16)
         if self.use_flash and (fused_trainable if self.trainable
                                else variant is not None):
-            out = self._fused(tokens, b, h, w, variant, dtype)
+            out = self._fused(tokens, b, h, w, variant, dtype, quant)
         elif self.use_flash and self.trainable:
             out = self._generic_trainable(tokens, b, h, w, dtype)
         elif self.use_flash:
-            raise NotImplementedError(
-                f"attention for a {h}x{w} grid with H={cfg.num_heads}, "
-                f"D={cfg.head_dim} needs the generic flash kernel, which is "
-                "not ported yet (ROADMAP.md Queue 2: K3)")
+            q, k, v, bias_h, bias_w = self._heads(tokens, b, h, w, dtype,
+                                                  quant)
+            out = self._flash(q, k, v, bias_h, bias_w, h, w)
+            out = out.transpose(1, 2).reshape(b, h * w, c)
         else:
-            out = self._oracle(tokens, b, h, w, dtype)
-        out = _policy_dot(out, self.proj.weight, self.proj.bias, dtype)
+            out = self._oracle(tokens, b, h, w, dtype, quant)
+        out = _policy_dot(out, self.proj.weight, self.proj.bias, dtype,
+                          quant)
         return out.to(dtype).reshape(b, h, w, c)
 
-    def _fused(self, tokens, b, h, w, variant, dtype):
+    def _fused(self, tokens, b, h, w, variant, dtype, quant=False):
         """Fused layout (JAX ``_fused_qkv``): split projection, per-head
         decomposed bias, K1 (window), K2 (global, nobias) or, trainable,
         K1/K4 and K5. nobias pads the tokens and masks them by kv_len."""
         c, nh = self.cfg.width, self.cfg.num_heads
-        # split projection: q and kv as separate matmuls, as in JAX
+        # split projection: q and kv as separate matmuls, as in JAX; under
+        # int8 they share one quantization of the tokens
         wq, wkv = self.qkv.weight[:c], self.qkv.weight[c:]
         bq, bkv = self.qkv.bias[:c], self.qkv.bias[c:]
-        q = _policy_dot(tokens, wq, bq, dtype).to(dtype)
-        kv = _policy_dot(tokens, wkv, bkv, dtype).to(dtype)
+        tok_q = quantize_rows(tokens) if quant else None
+        q = _policy_dot(tokens, wq, bq, dtype, quant, tok_q).to(dtype)
+        kv = _policy_dot(tokens, wkv, bkv, dtype, quant, tok_q).to(dtype)
         if variant == "nobias":
             s = h * w
             (q, kv), kv_len = _pad_tokens((q, kv), s)
@@ -335,13 +422,13 @@ class WindowedAttention(nn.Module):
         return (bias_h.reshape(b, nh, h * w, h).contiguous(),
                 bias_w.reshape(b, nh, h * w, w).contiguous())
 
-    def _heads(self, tokens, b, h, w, dtype):
+    def _heads(self, tokens, b, h, w, dtype, quant=False):
         """Packed projection → per-head q, k, v (B, H, S, D) and, with
         rel-pos, the fp32 decomposed bias (B, H, S, h), (B, H, S, w) from
         the unscaled q (JAX vit.py:330-379)."""
         nh, hd = self.cfg.num_heads, self.cfg.head_dim
         qkv = _policy_dot(tokens, self.qkv.weight, self.qkv.bias,
-                          dtype).to(dtype)
+                          dtype, quant).to(dtype)
         q, k, v = qkv.reshape(b, h * w, 3, nh, hd).permute(2, 0, 3, 1, 4)
         if not self.cfg.use_rel_pos:
             return q, k, v, None, None
@@ -371,10 +458,75 @@ class WindowedAttention(nn.Module):
                 kv_len=kv_len)[:, :, :s]
         return out.transpose(1, 2).reshape(b, s, -1)
 
-    def _oracle(self, tokens, b, h, w, dtype):
+    def _flash(self, q, k, v, bias_h, bias_w, h, w):
+        """The generic path (JAX vit.py:670-739): pad the key grid (rows to
+        a multiple of 8, columns to a power of two ≥ 8) and the queries
+        (``_q_blocking``) and run K3 with ``kv_grid`` when the grid was
+        padded; without a bias, pad the tokens and mask them by
+        ``kv_len``. Returns (B, H, S, D)."""
+        b, nh, s, hd = q.shape
+        if bias_h is not None:
+            hp = -(-h // 8) * 8
+            wp = max(8, 1 << (w - 1).bit_length())
+            sq_pad, bq = _q_blocking(s)
+            sk_pad = hp * wp
+
+            def grid(t):            # (B, H, h·w, D) → padded (B, H, hp·wp, D)
+                t = t.reshape(b, nh, h, w, hd)
+                return _pad_to(_pad_to(t, hp, 2), wp, 3).reshape(
+                    b, nh, sk_pad, hd)
+
+            qp, kp, vp = _pad_to(q, sq_pad, 2), grid(k), grid(v)
+            bh = _pad_to(_pad_to(bias_h, sq_pad, 2), hp, 3).to(q.dtype)
+            bw = _pad_to(_pad_to(bias_w, sq_pad, 2), wp, 3).to(q.dtype)
+            if self.window_group > 1 and sq_pad == sk_pad and \
+                    sk_pad * self.window_group <= 1024:
+                out = self._flash_grouped(qp, kp, vp, bh, bw, (h, w), sq_pad)
+            else:
+                out = flash_attention(
+                    *(t.contiguous() for t in (qp, kp, vp, bh, bw)),
+                    kv_grid=(h, w) if (hp, wp) != (h, w) else None,
+                    block_q=bq, block_k=min(1024, sk_pad))
+            return out[:, :, :s]
+        sq_pad, bq = _q_blocking(s)
+        kv_len = None
+        if sq_pad != s:
+            kv_len = torch.full((b,), s, dtype=torch.int32, device=q.device)
+        qp, kp, vp = (_pad_to(t, sq_pad, 2).contiguous() for t in (q, k, v))
+        out = flash_attention(qp, kp, vp, kv_len=kv_len, block_q=bq,
+                              block_k=bq)
+        return out[:, :, :s]
+
+    def _flash_grouped(self, qp, kp, vp, bh, bw, grid_hw, win):
+        """``window_group`` windows per K3 block-diagonal call (JAX vit.py:
+        741-770): the batch axis is grouped into the token axis, the bias
+        stays per window and the kv_grid mask keeps each window to
+        itself."""
+        g = self.window_group
+        b, nh, _, hd = qp.shape
+        pad_b = (-b) % g
+
+        def group(x):
+            if pad_b:
+                x = F.pad(x, (0, 0, 0, 0, 0, 0, 0, pad_b))
+            bb = x.shape[0] // g
+            x = x.reshape(bb, g, nh, win, x.shape[-1])
+            return x.transpose(1, 2).reshape(bb, nh, g * win, -1) \
+                .contiguous()
+
+        out = flash_attention(
+            group(qp), group(kp), group(vp), group(bh), group(bw),
+            kv_grid=grid_hw, window_tokens=win, block_q=g * win,
+            block_k=g * win)
+        bb = out.shape[0]
+        out = out.reshape(bb, nh, g, win, hd).transpose(1, 2)
+        out = out.reshape(bb * g, nh, win, hd)
+        return out[:b] if pad_b else out
+
+    def _oracle(self, tokens, b, h, w, dtype, quant=False):
         """Plain attention path (JAX use_flash=False): packed projection,
         fp32 bias einsums, dense bias cast to the compute dtype."""
-        q, k, v, bias_h, bias_w = self._heads(tokens, b, h, w, dtype)
+        q, k, v, bias_h, bias_w = self._heads(tokens, b, h, w, dtype, quant)
         dense = None
         if bias_h is not None:
             dense = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
@@ -387,21 +539,27 @@ class Mlp(nn.Module):
     """Two Linears with GELU between, under the reference names: SAM's
     ``lin1``/``lin2``, DINOv2's ``fc1``/``fc2``."""
 
-    def __init__(self, cfg: ViTDenseConfig):
+    def __init__(self, cfg: ViTDenseConfig, trainable: bool = False):
         super().__init__()
         hidden = int(cfg.mlp_ratio * cfg.width)
+        self.trainable = trainable
         self.names = ("fc1", "fc2") if cfg.use_cls_token else ("lin1", "lin2")
         self.add_module(self.names[0], nn.Linear(cfg.width, hidden))
         self.add_module(self.names[1], nn.Linear(hidden, cfg.width))
 
+    def layers(self):
+        return tuple(getattr(self, n) for n in self.names)
+
     def forward(self, x, policy: Policy):
         dtype = policy.compute_dtype
-        first, second = (getattr(self, n) for n in self.names)
-        x = _policy_dot(x, first.weight, first.bias, dtype)
-        # erf GELU under fp32, tanh approximation on the bf16 path
-        x = F.gelu(x, approximate="tanh" if dtype == torch.bfloat16
+        quant = policy.quantized and not self.trainable
+        first, second = self.layers()
+        x = _policy_dot(x, first.weight, first.bias, dtype, quant)
+        # erf GELU under fp32, tanh approximation on the bf16 path and
+        # straight off the dequantized int8 accumulator (JAX vit.py:808)
+        x = F.gelu(x, approximate="tanh" if quant or dtype == torch.bfloat16
                    else "none")
-        x = _policy_dot(x, second.weight, second.bias, dtype)
+        x = _policy_dot(x, second.weight, second.bias, dtype, quant)
         return x.to(dtype)
 
 
@@ -444,13 +602,15 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.windowed = windowed
+        self.use_flash = use_flash
+        self.trainable = trainable
         self.remat_mlp = remat_mlp
         self.norm1 = LayerNorm(cfg.width, eps=cfg.ln_eps)
         self.attn = WindowedAttention(
             cfg, cfg.window_size if windowed else cfg.grid,
             use_flash=use_flash, trainable=trainable)
         self.norm2 = LayerNorm(cfg.width, eps=cfg.ln_eps)
-        self.mlp = Mlp(cfg)
+        self.mlp = Mlp(cfg, trainable=trainable)
         if cfg.layerscale_init:
             self.ls1 = LayerScale(cfg.width, cfg.layerscale_init)
             self.ls2 = LayerScale(cfg.width, cfg.layerscale_init)
@@ -466,6 +626,15 @@ class Block(nn.Module):
         if self.cfg.layerscale_init:
             y = self.ls1(y)
         x = shortcut + y
+        if self._fused_mlp_on(policy):
+            # LayerNorm → MLP → residual in one K7 call, on the parameters
+            # of the modules (JAX vit.py:914-927)
+            first, second = self.mlp.layers()
+            return fused_ln_mlp_residual(
+                x, self.norm2.weight, self.norm2.bias, first.weight.t(),
+                first.bias, second.weight.t(), second.bias,
+                self.ls2.gamma if self.cfg.layerscale_init else None,
+                eps=self.norm2.eps)
         y = self.norm2(x)
         if self.remat_mlp and torch.is_grad_enabled():
             # selective remat: only the (B, S, 4C) hidden activations are
@@ -476,6 +645,14 @@ class Block(nn.Module):
         if self.cfg.layerscale_init:
             y = self.ls2(y)
         return x + y
+
+    def _fused_mlp_on(self, policy: Policy) -> bool:
+        """JAX's gate: frozen, flash, bf16, not quantized, and opted in
+        with ``VDR_FUSED_MLP=1``."""
+        return (not self.trainable and self.use_flash
+                and policy.compute_dtype == torch.bfloat16
+                and not policy.quantized
+                and os.environ.get("VDR_FUSED_MLP", "0") == "1")
 
 
 class SamNeck(nn.Sequential):
@@ -551,6 +728,8 @@ class ViTDense(nn.Module):
             self.norm = LayerNorm(cfg.width, eps=cfg.ln_eps)
         if cfg.neck_channels:
             self.neck = SamNeck(cfg)
+        if policy.param_dtype != torch.float32:
+            cast_params(self, policy.param_dtype)
 
     @torch.no_grad()
     def init_random(self, seed: int = 0) -> "ViTDense":

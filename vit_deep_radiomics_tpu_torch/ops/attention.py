@@ -16,13 +16,22 @@ Counterpart of ``vit_deep_radiomics_tpu/ops/attention.py``:
     (``Kh·Kw == S``) or a ``kv_len`` padding mask; kernel K2,
     ``csrc/fused_global_attention.cu``.
 
+* :func:`flash_attention` — generic head-major ``(B, H, S, D)`` flash
+  attention, kernel K3 (``csrc/flash_attention.cu``), the backbone's path
+  for the grids and head layouts the fused kernels refuse: the decomposed
+  bias (``Sk == Kh·Kw``), ``kv_grid`` validity on a padded key grid,
+  ``window_tokens`` block-diagonal attention and ``kv_len``.
+
 For a CUDA tensor the wrappers launch their kernel or raise; for a CPU
 tensor they run the plain version of the same function
-(:func:`fused_window_attention_plain`, :func:`fused_global_attention_plain`).
-Each wrapper counts its launches in :data:`LAUNCHES`.
+(:func:`fused_window_attention_plain`, :func:`fused_global_attention_plain`,
+:func:`flash_attention_plain`). Each wrapper counts its launches in
+:data:`LAUNCHES` (``ops/_kernels.py``), which also holds the counters of
+the kernels in ``ops/attention_grad.py``, ``ops/mlp_fused.py`` (K7) and
+``ops/quant.py`` (K8).
 
 Unlike the JAX kernels (nomax softmax by default, bf16 score chains on bf16
-inputs), both kernels keep the running max and fp32 scores: the same
+inputs), the kernels keep the running max and fp32 scores: the same
 function, with the tolerances stated in the tests.
 """
 
@@ -31,6 +40,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ._kernels import (LAUNCHES, _DTYPE_CODES, _F, _I, _P, _load, _ptr,
+                       register_launches, reset_launch_counts)
 
 __all__ = [
     "LAUNCHES",
@@ -41,27 +53,20 @@ __all__ = [
     "fused_window_attention_plain",
     "fused_global_attention",
     "fused_global_attention_plain",
+    "flash_attention",
+    "flash_attention_plain",
 ]
 
 _NEG_INF = -1e30  # large-negative instead of -inf: fully-masked rows stay finite
 
-# kernel launches per wrapper since the last reset; all but the first two
-# are the trainable kernels of ops/attention_grad.py (K4, K5 forward, dq,
-# dkv, K6 forward, dq, dkv)
-LAUNCHES = {"fused_window_attention": 0, "fused_global_attention": 0,
-            "window_attention_bwd": 0, "global_attention_fwd_lse": 0,
-            "global_attention_bwd_dq": 0, "global_attention_bwd_dkv": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+register_launches("fused_window_attention", "fused_global_attention",
+                  "flash_attention")
 
-# the one head dim csrc/*.cu build: every config of the repo has D = 64
+# the one head dim the fused and trainable kernels build: every config of
+# the repo has D = 64
 _KERNEL_HEAD_DIM = 64
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# the head dims K3 (csrc/flash_attention.cu) builds, template instances
+_K3_HEAD_DIMS = (32, 64, 128)
 
 
 def attention_reference(q, k, v, bias=None, kv_len=None, scale=None):
@@ -186,15 +191,16 @@ def _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, window_tokens):
     return d, kh, kw
 
 
-def _check_cuda(q, d, *tensors):
+def _check_cuda(q, d, *tensors, builds=(_KERNEL_HEAD_DIM,),
+                source="csrc/*.cu"):
     """What a kernel launch needs beyond the layout: a dtype and head dim
     with a build, and operands on q's device, in q's dtype, contiguous and
     16-byte aligned."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if d != _KERNEL_HEAD_DIM:
-        raise ValueError(f"no kernel build for head dim {d}; csrc/*.cu "
-                         f"build D={_KERNEL_HEAD_DIM} only")
+    if d not in builds:
+        raise ValueError(f"no kernel build for head dim {d}; {source} "
+                         f"build D={'/'.join(map(str, builds))} only")
     for t in (q, *tensors):
         if t is None:
             continue
@@ -207,10 +213,6 @@ def _check_cuda(q, d, *tensors):
                              "aligned")
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-
 def _raise_on(rc: int, lib, name: str) -> None:
     if rc == -1:
         raise ValueError(f"{name}: head dim has no kernel build "
@@ -218,20 +220,6 @@ def _raise_on(rc: int, lib, name: str) -> None:
     if rc:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.vdr_error_string(rc).decode()}")
-
-
-def _load(name: str, argtypes):
-    from ..utils import cuda_build
-
-    lib = cuda_build.load(name)
-    fn = getattr(lib, f"vdr_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fn
-
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def fused_window_attention(q, kv, bias_h=None, bias_w=None, *, num_heads,
@@ -315,3 +303,146 @@ def flash_attention_fused_qkv(q, kv, bias_h=None, bias_w=None, kv_len=None,
             window_tokens=window_tokens, scale=scale)
     return fused_global_attention(q, kv, bias_h, bias_w, kv_len,
                                   num_heads=num_heads, scale=scale)
+
+
+def _check_flash_layout(q, k, v, bias_h, bias_w, kv_len, kv_grid,
+                        window_tokens, block_q, block_k):
+    """The ValueErrors of JAX ``flash_attention`` (ops/attention.py:
+    265-318), in its order; ``block_q``/``block_k`` are TPU tilings whose
+    divisibility rules JAX raises on. Plus shape checks and one refusal of
+    the port's own: a ``kv_grid`` that keeps no key."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if tuple(k.shape) != (b, h, sk, d) or tuple(v.shape) != (b, h, sk, d):
+        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
+                         f"!= ({b}, {h}, Sk, {d})")
+    has_bias = bias_h is not None
+    if has_bias != (bias_w is not None):
+        raise ValueError("bias_h and bias_w must be given together")
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"seq lens ({sq}, {sk}) must divide blocks "
+                         f"({block_q}, {block_k})")
+    if kv_grid is not None and not has_bias:
+        raise ValueError("kv_grid requires bias_h/bias_w (they set Kw)")
+    kh = kw = 0
+    if has_bias:
+        kh, kw = bias_h.shape[-1], bias_w.shape[-1]
+        if tuple(bias_h.shape) != (b, h, sq, kh) or \
+                tuple(bias_w.shape) != (b, h, sq, kw):
+            raise ValueError(
+                f"bias shapes {tuple(bias_h.shape)}, {tuple(bias_w.shape)} "
+                f"!= ({b}, {h}, {sq}, K)")
+        if not window_tokens and kh * kw != sk:
+            raise ValueError(f"Kh*Kw = {kh}*{kw} != Sk = {sk}")
+    if window_tokens:
+        if kv_grid is None:
+            raise ValueError("window_tokens requires kv_grid")
+        if sq != sk:
+            raise ValueError("window_tokens requires Sq == Sk")
+        if kv_len is not None:
+            raise ValueError(
+                "kv_len is not supported in window mode; express validity "
+                "via the kv_grid (kh_valid, kw_valid) sub-grid instead")
+        if block_q % window_tokens or sq % block_q:
+            raise ValueError(
+                f"window_tokens {window_tokens} must divide block {block_q}"
+                f" and block must divide seq {sq}")
+        if kh * kw != window_tokens:
+            raise ValueError(
+                f"block-diagonal bias grid {kh}x{kw} must equal "
+                f"window_tokens = {window_tokens} (per-window bias layout)")
+    if kv_len is not None and tuple(kv_len.shape) != (b,):
+        raise ValueError(f"kv_len shape {tuple(kv_len.shape)} != ({b},)")
+    if kv_grid is not None and min(kv_grid) < 1:
+        raise ValueError(f"kv_grid {tuple(kv_grid)} keeps no key")
+    return d, kh, kw
+
+
+def flash_attention_plain(q, k, v, bias_h=None, bias_w=None, kv_len=None,
+                          *, kv_grid=None, window_tokens=None, scale):
+    """Plain PyTorch version of K3: dense fp32 scores from the inputs'
+    values, the decomposed bias, the masks (-1e30, as JAX), softmax, the
+    probabilities rounded to v's dtype for the PV product. Window mode runs
+    each window on its own."""
+    b, h, sq, d = q.shape
+    if window_tokens:
+        n = sq // window_tokens
+
+        def win(t):
+            return None if t is None else t.reshape(
+                b, h, n, window_tokens, t.shape[-1])
+
+        q, k, v, bias_h, bias_w = map(win, (q, k, v, bias_h, bias_w))
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
+    key = torch.arange(s.shape[-1], device=q.device)
+    valid = torch.ones_like(key, dtype=torch.bool)
+    if bias_h is not None:
+        kw = bias_w.shape[-1]
+        s = s + (bias_h.float()[..., :, None] + bias_w.float()[..., None, :]
+                 ).reshape(s.shape)
+        if kv_grid is not None:
+            valid = (key // kw < kv_grid[0]) & (key % kw < kv_grid[1])
+    if kv_len is not None:
+        valid = valid & (key[None, :] < kv_len.to(q.device)[:, None])
+        valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("...qk,...kd->...qd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_attention(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
+                    kv_grid=None, window_tokens=None, scale=None,
+                    block_q=512, block_k=512):
+    """Flash attention over head-major (B, H, S, D), K3.
+
+    Args:
+        q, k, v: (B, H, Sq, D) / (B, H, Sk, D).
+        bias_h, bias_w: optional decomposed rel-pos terms (B, H, Sq, Kh)
+            and (B, H, Sq, Kw); key j takes ``bias_h[..., j // Kw] +
+            bias_w[..., j % Kw]`` (window mode: of ``j % window_tokens``).
+            ``Sk == Kh·Kw`` outside window mode.
+        kv_len: optional (B,) valid key counts.
+        kv_grid: optional (kh_valid, kw_valid): only that top-left
+            sub-grid of the padded (Sk // Kw, Kw) key grid is real (window
+            mode: of each window's grid). Needs the bias.
+        window_tokens: block-diagonal mode, q/k a concatenation of windows
+            of this many tokens; needs ``kv_grid`` and Sq == Sk, refuses
+            ``kv_len``.
+        scale: score scale, default D^-1/2.
+        block_q, block_k: JAX's TPU tiles; only its divisibility rules are
+            checked.
+
+    Masked scores are -1e30, so a row with no valid key averages V over
+    the keys it was given, as JAX's does. CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch
+    ``csrc/flash_attention.cu`` (D in 32, 64, 128) on the current stream.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    d, kh, kw = _check_flash_layout(q, k, v, bias_h, bias_w, kv_len, kv_grid,
+                                    window_tokens, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, bias_h, bias_w, kv_len,
+                                     kv_grid=kv_grid,
+                                     window_tokens=window_tokens,
+                                     scale=scale)
+    _check_cuda(q, d, k, v, bias_h, bias_w, builds=_K3_HEAD_DIMS,
+                source="csrc/flash_attention.cu")
+    if kv_len is not None:
+        kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    b, h, sq, _ = q.shape
+    lib, fn = _load("flash_attention",
+                    [_P] * 7 + [_I] * 10 + [_F, _I, _P])
+    out = torch.empty_like(q)
+    kh_valid, kw_valid = kv_grid if kv_grid is not None else (0, 0)
+    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
+            _ptr(kv_len), _ptr(out), b, h, sq, k.shape[2], d, kh, kw,
+            kh_valid, kw_valid, window_tokens or 0, scale,
+            _DTYPE_CODES[q.dtype],
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    if rc:
+        raise RuntimeError("flash_attention launch failed: "
+                           f"{lib.vdr_error_string(rc).decode()}")
+    LAUNCHES["flash_attention"] += 1
+    return out

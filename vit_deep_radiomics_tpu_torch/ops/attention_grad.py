@@ -31,7 +31,7 @@ Each kernel has a plain PyTorch version beside it that writes out the same
 formulas in fp32; the wrappers take it for CPU tensors only, and for CUDA
 tensors launch their kernel or raise. K4 and K5 build bf16 only, K6 fp32
 only, all of them head dim 64 only. Launches are counted in
-``ops/attention.py::LAUNCHES``.
+``ops/_kernels.py::LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ import math
 
 import torch
 
-from .attention import (LAUNCHES, _I, _F, _P, _check_cuda, _check_layout,
-                        _heads, _load, _ptr, _raise_on,
+from ._kernels import LAUNCHES, _F, _I, _P, _load, _ptr, register_launches
+from .attention import (_check_cuda, _check_layout, _heads, _raise_on,
                         fused_global_attention_plain, fused_window_attention)
 
 __all__ = [
@@ -66,6 +66,11 @@ __all__ = [
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dkv_plain",
 ]
+
+register_launches("window_attention_bwd", "global_attention_fwd_lse",
+                  "global_attention_bwd_dq", "global_attention_bwd_dkv",
+                  "flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)

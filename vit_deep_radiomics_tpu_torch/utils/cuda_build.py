@@ -28,7 +28,8 @@ KERNEL_SOURCES = ("fused_window_attention", "fused_global_attention",
                   "window_attention_bwd", "global_attention_fwd_lse",
                   "global_attention_bwd_dq", "global_attention_bwd_dkv",
                   "flash_attention_fwd", "flash_attention_bwd_dq",
-                  "flash_attention_bwd_dkv")
+                  "flash_attention_bwd_dkv", "flash_attention",
+                  "fused_ln_mlp_residual", "int8_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -2,13 +2,17 @@
 
 Counterpart of ``vit_deep_radiomics_tpu/utils/profiling.py`` for the
 port: :func:`device_sync` is the fence for host-clock timing;
-:func:`profile_forward` traces steady-state SAM ViT-B/16 @1024 forwards and
+:func:`profile_forward` traces steady-state SAM ViT-B/16 forwards (any
+policy, any image size; ``VDR_FUSED_MLP=1`` in the environment takes the
+K7 path as the model does) and
 :func:`profile_finetune_step` steady-state fine-tuning steps (SAM or a
 DINOv2 config, ``fast`` or ``parity``) with ``torch.profiler``, and both
 report device time by kernel, the wall time per forward or step and the
 device's idle share. Run on the card::
 
     python -m vit_deep_radiomics_tpu_torch.utils.profiling --batch 4
+    python -m vit_deep_radiomics_tpu_torch.utils.profiling --batch 4 \
+        --precision int8 [--image-size 768]
     python -m vit_deep_radiomics_tpu_torch.utils.profiling --finetune \
         --batch 2 [--precision parity] [--backbone dinov2_vitb14]
 """
@@ -81,21 +85,29 @@ def _trace(run, steps: int, rows: int, **head) -> dict:
 
 
 def profile_forward(batch: int = 4, precision: str = "fast",
-                    steps: int = 3, rows: int = 25, seed: int = 0) -> dict:
-    """Full-width SAM ViT-B/16 @1024 forwards: wall and device time per
-    forward, the idle share and the top ``rows`` device ops."""
+                    steps: int = 3, rows: int = 25, seed: int = 0,
+                    image_size: int = 1024) -> dict:
+    """Full-width SAM ViT-B/16 forwards at ``image_size``: wall and device
+    time per forward, the idle share and the top ``rows`` device ops."""
+    import dataclasses
+    import os
+
     from .. import default_device
     from ..core.precision import get_policy
     from ..models.vit import SAM_VIT_B, ViTDense
 
     dev = default_device()
-    model = ViTDense(SAM_VIT_B, policy=get_policy(precision)) \
+    cfg = dataclasses.replace(SAM_VIT_B, image_size=image_size)
+    model = ViTDense(cfg, policy=get_policy(precision)) \
         .init_random(seed).to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    images = torch.rand(batch, 1024, 1024, 3, generator=gen, device=dev)
+    images = torch.rand(batch, image_size, image_size, 3, generator=gen,
+                        device=dev)
     with torch.no_grad():
         return _trace(lambda: model(images), steps, rows, what="forward",
-                      batch=batch, precision=precision)
+                      batch=batch, precision=precision,
+                      image_size=image_size,
+                      fused_mlp=os.environ.get("VDR_FUSED_MLP", "0") == "1")
 
 
 def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
@@ -127,7 +139,11 @@ def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=4)
-    p.add_argument("--precision", default="fast")
+    p.add_argument("--precision", default="fast",
+                   help="fast, parity, inference or int8 (the last two "
+                        "forward only)")
+    p.add_argument("--image-size", type=int, default=1024,
+                   help="forward: the SAM input size (768 takes K3)")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--rows", type=int, default=25)
     p.add_argument("--finetune", action="store_true",
@@ -141,7 +157,7 @@ def main(argv=None) -> int:
                                     backbone=args.backbone)
     else:
         res = profile_forward(args.batch, args.precision, args.steps,
-                              args.rows)
+                              args.rows, image_size=args.image_size)
     print(f"{res['what']} {res['precision']} B={res['batch']}: wall "
           f"{res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms, idle "
           f"share {res['idle_share']:.3f}")
