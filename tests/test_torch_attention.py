@@ -41,7 +41,7 @@ def _inputs(rng, b, s, heads, d, kh=0, kw=0):
 
 
 def _run_both(q, kv, bh, bw, heads, dtype, kv_len=None, window=None,
-              block=128):
+              block=128, nomax=None):
     d = q.shape[-1] // heads
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = getattr(torch, dtype)
@@ -61,7 +61,7 @@ def _run_both(q, kv, bh, bw, heads, dtype, kv_len=None, window=None,
         kv_len=None if kv_len is None else jnp.asarray(kv_len, jnp.int32),
         num_heads=heads, window_tokens=window,
         block_q=s if window else block, block_k=s if window else block,
-        interpret=True)
+        nomax=nomax, interpret=True)
     got = port.flash_attention_fused_qkv(
         tt(q), tt(kv), tt(bh), tt(bw),
         None if kv_len is None else torch.tensor(kv_len),
@@ -103,6 +103,34 @@ class TestGlobalMode:
         want, got = _run_both(q, kv, bh, bw, 4, dtype)
         np.testing.assert_allclose(got, want, atol=TOL[dtype],
                                    rtol=TOL[dtype])
+
+    @pytest.mark.parametrize("kh,kw", [(4, 64), (2, 128)])
+    def test_decomposed_bias_wide_grid_rows(self, rng, dtype, kh, kw):
+        """Key-grid rows of 64 and 128 keys, the widths K2's wgmma kernel
+        takes on the card (SAM @1024's global layers have Kw = 64): the
+        plain version that kernel is held to agrees with JAX there."""
+        q, kv, bh, bw = _inputs(rng, 2, kh * kw, 4, 64, kh, kw)
+        want, got = _run_both(q, kv, bh, bw, 4, dtype)
+        np.testing.assert_allclose(got, want, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+    def test_kv_len_zero_row_averages_v(self, rng, dtype):
+        """A batch row with no valid key: every score is masked alike, so
+        a softmax that keeps the running max (the port's kernels, JAX's
+        with ``nomax=False``) averages V over all S keys. JAX's default
+        unnormalised softmax writes 0 there instead, and in bf16 its
+        max-keeping one NaN (its fp32 initial max -1e30 sits above the
+        bf16-rounded masked score, so the first rescale overflows): there
+        the port is held to the mean of V alone, and JAX on the other row."""
+        q, kv, _, _ = _inputs(rng, 2, 128, 4, 64)
+        want, got = _run_both(q, kv, None, None, 4, dtype, kv_len=[0, 70],
+                              nomax=False)
+        rows = slice(None) if dtype == "float32" else slice(1, None)
+        np.testing.assert_allclose(got[rows], want[rows], atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        mean_v = kv[0, :, 256:].mean(axis=0)
+        np.testing.assert_allclose(got[0], np.broadcast_to(mean_v, (128, 256)),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
 
     def test_kv_len_no_bias(self, rng, dtype):
         q, kv, _, _ = _inputs(rng, 2, 256, 8, 16)

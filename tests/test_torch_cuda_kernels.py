@@ -63,6 +63,9 @@ def test_window_kernel_matches_plain(gen, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_global_kernel_matches_plain(gen, dtype, with_bias):
+    """fp32 and the biased Kw 20 call run the kept loops of
+    flash_attention_core.cuh (Kw is no multiple of 64); the bf16 kv_len
+    call runs the wgmma/TMA kernel with a ragged S."""
     b, heads, d, kh, kw = 2, 4, 64, 10, 20   # S = 200: ragged 64/128 tiles
     s = kh * kw
     q = _rand(gen, b, s, heads * d, dtype=dtype)
@@ -79,6 +82,39 @@ def test_global_kernel_matches_plain(gen, dtype, with_bias):
     want = A.fused_global_attention_plain(q, kv, bh, bw, kv_len,
                                           num_heads=heads, scale=d ** -0.5)
     _assert_close(got, want, dtype, "global")
+
+
+@pytest.mark.parametrize("case", ["kw64", "kw64_ragged_rows", "kw128",
+                                  "kv_len_ragged", "kv_len_zero",
+                                  "kv_len_zero_ragged_s"])
+def test_global_hopper_kernel_matches_plain(gen, case):
+    """The shapes the wgmma/TMA kernel takes (bf16; Kw 64 or 128, or no
+    bias): 8x64 and 4x128 key grids, a 5x64 grid whose second 192-row
+    query block runs past S, and kv_len at a padded length with a ragged
+    last key tile (77 of 512) or no valid key at all (the row averages V
+    over its S keys, also where S = 200 leaves the last key tile
+    ragged)."""
+    b, heads, d, dt = 2, 4, 64, torch.bfloat16
+    grids = {"kw64": (8, 64), "kw64_ragged_rows": (5, 64), "kw128": (4, 128)}
+    kh, kw = grids.get(case, (0, 0))
+    s = kh * kw or (200 if case == "kv_len_zero_ragged_s" else 512)
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = kv_len = None
+    if kh:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    else:
+        kv_len = torch.tensor([77, 512] if case == "kv_len_ragged"
+                              else [0, 150], device="cuda")
+    A.reset_launch_counts()
+    got = A.fused_global_attention(q, kv, bh, bw, kv_len, num_heads=heads,
+                                   scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_global_attention"] == 1
+    want = A.fused_global_attention_plain(q, kv, bh, bw, kv_len,
+                                          num_heads=heads, scale=d ** -0.5)
+    _assert_close(got, want, dt, "global")
 
 
 # The trainable kernels (bf16 only) against their plain versions, which

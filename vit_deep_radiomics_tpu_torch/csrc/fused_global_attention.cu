@@ -14,16 +14,45 @@
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the
 // extraction path's shapes (4 images x 4096 tokens x 12 heads of 64) the
 // call does 206 GFLOP (0.208 ms at the bf16 peak) against about 151 MB of
-// compulsory traffic (0.045 ms), so it is compute-bound; the same holds on
-// a PCIe H100 (756 TFLOP/s, 2.0 TB/s).
+// compulsory traffic (0.045 ms), so it is compute-bound. At D = 64 the
+// exponentials weigh as much as the products: a 64-key tile of 64 rows
+// costs 256 cycles of an SM's tensor cores for QK^T and PV together and
+// 256 cycles of its 16 exp2 units, so the softmax has to run under other
+// rows' products. Every 192-row block streams all of its head's K and V
+// from L2, and the products read their B operand from shared memory.
 //
-// What the design does about it: the (S, S) score matrix is never
-// written; keys stream through shared memory in 64-key tiles with an online
-// softmax, and in bf16 both products run on the tensor cores (mma.sync,
-// fp32 accumulate) with P passed from the score fragments straight into
-// the PV product in registers. 128-row query tiles (8 warps) halve the
-// K/V re-reads from L2 against 64-row tiles. The fp32 (`parity`) path runs
-// on the CUDA cores to keep full fp32 products.
+// What the design does about it (bf16, the `fast` path):
+//  * warp specialisation: one producer thread keeps 64-key K and V tiles in
+//    flight with TMA (cp.async.bulk.tensor, 128-byte swizzle) in a ring of
+//    6 shared-memory stages guarded by mbarriers; the copies never wait on
+//    the products;
+//  * three consumer warpgroups of 64 query rows run wgmma: S = Q K^T with
+//    Q's A fragments held in registers (loaded once from the TMA tile) and
+//    K read from shared memory, and O += P V with P taken from the score
+//    registers (rounded to bf16 in place) and V read from shared memory as
+//    an MN-major operand. Each warpgroup issues QK^T of tile j together
+//    with PV of tile j-1 and runs tile j's softmax while PV is on the
+//    tensor cores; the warpgroups take turns to issue (named barriers), so
+//    one's softmax runs under the others' products;
+//  * the softmax stays online in log2 units in fp32 registers with a
+//    running max that moves only when a row's max grows by more than 2^8
+//    (O is rescaled on those tiles alone); masked scores are -1e30 and the
+//    l > 0 guard stays, so a row with no valid key averages V over its S
+//    keys, as the plain version does;
+//  * the bias without per-score lookups: Kw is 64 or 128, so a 64-key tile
+//    lies inside one key-grid row. Each thread keeps its rows' bias_w
+//    columns in registers (Kw / 64 sets of 16 per row), and reads one
+//    bias_h scalar per row and tile from a table staged once per block;
+//    both are pre-multiplied by log2(e);
+//  * kv_len: tiles wholly past kv_len are never loaded, the ragged tile is
+//    masked; rows past S read zeros (TMA fills out-of-bounds boxes).
+// The fp32 (`parity`) path, and a biased bf16 call whose Kw is not 64 or
+// 128 (or whose bias table would not fit in shared memory), keep the
+// earlier loops of flash_attention_core.cuh: one thread per query row on
+// the CUDA cores (fp32), or mma.sync with synchronous K/V staging (bf16).
+// The C entry chooses by dtype and shape alone.
+
+#include <cuda.h>
 
 #include "flash_attention_core.cuh"
 
@@ -31,26 +60,591 @@ namespace {
 constexpr int kBlockK = 64;
 constexpr int kRowsF32 = 64;
 constexpr int kRowsBf16 = 128;
+
+// ---------------------------------------------------------------------------
+// Hopper kernel: TMA producer + three wgmma consumer warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kD = 64;                     // head dim (the only build)
+constexpr int kConsumers = 3;              // consumer warpgroups
+constexpr int kBQ = 64 * kConsumers;       // query rows per block
+constexpr int kBK = 64;                    // keys per tile
+constexpr int kStages = 6;                 // K/V ring depth
+constexpr int kTile = 64 * kD * 2;         // one 64 x 64 bf16 tile (8 KB)
+constexpr int kThreads = 128 * (kConsumers + 1);  // + 1 producer WG
+// registers a thread after setmaxnreg: the producer gives its share to the
+// consumers (64 K registers an SM, one block)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+constexpr int kBiasLd = kBQ + 1;           // bias_h table row (bank skew)
+constexpr int kMaxBiasW = 2;               // bias_w register sets (Kw/64)
+constexpr int kErrTensorMap = -2;          // cuTensorMapEncodeTiled failed
+
+struct HopperParams {
+  const __nv_bfloat16* bias_h;  // (B, H, S, kh) or nullptr
+  const __nv_bfloat16* bias_w;  // (B, H, S, kw) or nullptr
+  const int* kv_len;            // (B,) or nullptr
+  __nv_bfloat16* out;           // (B, S, H*D)
+  int S, H, kh, kw;
+  float scale_log2;             // D^-1/2 * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Named barriers among the consumer warpgroups (id 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One 64 x 64 box of a 3-D (col, row, batch) tensor map into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (tiles 1024-aligned).
+// K is K-major (64 key rows of 128 bytes): SBO 1024 between 8-row groups,
+// LBO unused (16). V is an MN-major operand (key rows of 64 contiguous
+// head-dim values): its 64 columns are one swizzle atom wide, so only the
+// 1024-byte step between 8-key groups is used; it is given as both offsets.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from touching wgmma operands before wgmma.wait_group:
+// accumulators are not read early, A fragments stay live (their registers
+// are not reused while the product reads them).
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k])::"memory");
+}
+
+#define VDR_F8(d, i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define VDR_D32(d) VDR_F8(d, 0), VDR_F8(d, 8), VDR_F8(d, 16), VDR_F8(d, 24)
+#define VDR_R32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// D(64x64, fp32) (+)= A(64x16, registers) * B(16x64, smem); TransB 0: B is
+// K-major (K), 1: MN-major (V)
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VDR_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : VDR_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TransB));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T for one key tile (4 k16 steps: 32 bytes along D)
+__device__ __forceinline__ void qk_tile(float (&s)[32],
+                                        const uint32_t (&qa)[kD / 16][4],
+                                        uint32_t k_tile) {
+  const uint64_t dk = desc_sw128(k_tile, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_rs<0>(s, qa[kk], dk + 2 * kk, kk > 0);
+}
+
+// O += P V for one key tile (16 keys = two 1024-byte 8-key groups a step)
+__device__ __forceinline__ void pv_tile(float (&o)[32],
+                                        const uint32_t (&pa)[4][4],
+                                        uint32_t v_tile) {
+#pragma unroll
+  for (int kt = 0; kt < kBK / 16; ++kt)
+    wgmma_rs<1>(o, pa[kt], desc_sw128(v_tile + kt * 2048, 1024, 1024), 1);
+}
+
+// Online-softmax state of a thread's two rows (log2 units). The max used
+// for the exponentials moves only when a row's max grows by more than
+// kRescaleLog2, so probabilities stay below 2^kRescaleLog2 and O is
+// rescaled only on the tiles where some row's max jumped; a_lo/a_hi are
+// the last tile's rescale factors (1 when the max stayed).
+constexpr float kRescaleLog2 = 8.f;
+struct Rows {
+  float m_lo, m_hi, l_lo, l_hi, a_lo, a_hi;
+};
+
+// Keys past S (the zero rows TMA reads beyond the tensor) score below the
+// -1e30 mask: a row with no valid key averages V over its S keys only.
+constexpr float kPastEnd = 2.f * vdr::kNegInf;
+
+// Scores of one tile -> probabilities in place: scale, the thread's
+// bias_w columns of this tile (bw), the kv_len mask on the ragged tile
+// (keys >= lim; end = S), the row max with the tile's bias_h scalar
+// added, exp2(s + bias_h - m) and the row sums. key0 is element 0's key.
+template <int NW>
+__device__ __forceinline__ void tile_probs(float (&s)[32],
+                                           const float (&bw)[8][4],
+                                           float scale, float bh_lo,
+                                           float bh_hi, int key0, bool ragged,
+                                           int lim, int end, Rows& st) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s[i] = NW > 0 ? fmaf(s[i], scale, bw[i / 4][i % 4]) : s[i] * scale;
+  if (ragged) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = key0 + (i / 4) * 8 + (i & 1);
+      if (key >= lim) s[i] = key < end ? vdr::kNegInf : kPastEnd;
+    }
+  }
+  float mx_lo = vdr::kNegInf, mx_hi = vdr::kNegInf;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+  // the 4 lanes of a group share a row
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  mx_lo += bh_lo;
+  mx_hi += bh_hi;
+  st.a_lo = st.a_hi = 1.f;
+  if (mx_lo > st.m_lo + kRescaleLog2) {
+    st.a_lo = fast_exp2(st.m_lo - mx_lo);
+    st.m_lo = mx_lo;
+    st.l_lo *= st.a_lo;
+  }
+  if (mx_hi > st.m_hi + kRescaleLog2) {
+    st.a_hi = fast_exp2(st.m_hi - mx_hi);
+    st.m_hi = mx_hi;
+    st.l_hi *= st.a_hi;
+  }
+  // a row with every key masked keeps m = -1e30 and takes p = 1 for each
+  const float mb_lo = st.m_lo - bh_lo, mb_hi = st.m_hi - bh_hi;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s[4 * i] = fast_exp2(s[4 * i] - mb_lo);
+    s[4 * i + 1] = fast_exp2(s[4 * i + 1] - mb_lo);
+    s[4 * i + 2] = fast_exp2(s[4 * i + 2] - mb_hi);
+    s[4 * i + 3] = fast_exp2(s[4 * i + 3] - mb_hi);
+    st.l_lo += s[4 * i] + s[4 * i + 1];
+    st.l_hi += s[4 * i + 2] + s[4 * i + 3];
+  }
+}
+
+// Probabilities -> bf16 A fragments of PV: two n8 score chunks are one
+// k16 A fragment (rows g and g + 8, keys 2c.. and 2c + 8..).
+__device__ __forceinline__ void pack_probs(const float (&s)[32],
+                                           uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    pa[i / 2][(i & 1) * 2] = vdr::pack_bf16(s[4 * i], s[4 * i + 1]);
+    pa[i / 2][(i & 1) * 2 + 1] = vdr::pack_bf16(s[4 * i + 2], s[4 * i + 3]);
+  }
+}
+
+// NW: bias_w register sets, Kw / 64 (0 = no bias).
+template <int NW>
+__global__ void __launch_bounds__(kThreads, 1)
+    k2_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tkv,
+                     const HopperParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], qbar;
+  // the swizzled tiles need 1024-byte alignment in the shared window
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_addr = smem_u32(base);             // kConsumers Q tiles
+  const uint32_t k_addr = q_addr + kConsumers * kTile;  // kStages K tiles
+  const uint32_t v_addr = k_addr + kStages * kTile;     // kStages V tiles
+  float* bias_s = reinterpret_cast<float*>(
+      base + (kConsumers + 2 * kStages) * kTile);       // [kh][kBiasLd]
+
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kBQ;
+  const int C = p.H * kD;
+  // keys j < lim are valid; with none valid every key of the row is
+  // visited, all masked, so the row averages V as the plain version does
+  int lim = p.S;
+  if (p.kv_len != nullptr) lim = min(p.S, max(p.kv_len[b], 0));
+  const int n_tiles = ((lim > 0 ? lim : p.S) + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers * 128);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
+                 : "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(&qbar, kConsumers * kTile);
+      for (int w = 0; w < kConsumers; ++w)
+        tma_load(q_addr + w * kTile, &tq, &qbar, h * kD, row0 + 64 * w, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * kTile);
+        tma_load(k_addr + st * kTile, &tkv, &full[st], h * kD, j * kBK, b);
+        tma_load(v_addr + st * kTile, &tkv, &full[st], C + h * kD, j * kBK,
+                 b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
+                 : "memory");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int r_lo = wg * 64 + warp * 16 + g;  // this thread's rows in the
+    const int r_hi = r_lo + 8;                 // block (and + row0: global)
+    const size_t head_row = ((size_t)b * p.H + h) * p.S;
+
+    float bw[NW > 0 ? NW : 1][8][4];
+    if constexpr (NW > 0) {
+      // bias_h of this warpgroup's 64 rows, transposed to [grid row][row]
+      for (int i = t; i < 64 * p.kh; i += 128) {
+        const int r = wg * 64 + i / p.kh, kr = i % p.kh;
+        const int R = row0 + r;
+        bias_s[kr * kBiasLd + r] =
+            R < p.S ? __bfloat162float(p.bias_h[(head_row + R) * p.kh + kr]) *
+                          vdr::kLog2e
+                    : 0.f;
+      }
+      // bias_w: column set w covers columns 64w .. 64w + 63 of the grid row
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int R = row0 + (half ? r_hi : r_lo);
+            float lo = 0.f, hi = 0.f;
+            if (R < p.S) {
+              const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+                  p.bias_w + (head_row + R) * p.kw + w * 64 + i * 8 + 2 * c);
+              lo = __low2float(v) * vdr::kLog2e;
+              hi = __high2float(v) * vdr::kLog2e;
+            }
+            bw[w][i][2 * half] = lo;
+            bw[w][i][2 * half + 1] = hi;
+          }
+        }
+      }
+      bar_sync(1 + wg, 128);
+    }
+
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    Rows st{vdr::kNegInf, vdr::kNegInf, 0.f, 0.f, 1.f, 1.f};
+    float s[32];
+    uint32_t pa[4][4];
+    // this tile's scores -> probabilities, in place
+    auto probs = [&](int j) {
+      const int k0 = j * kBK;
+      float bh_lo = 0.f, bh_hi = 0.f;
+      int set = 0;
+      if constexpr (NW > 0) {
+        const int kr = k0 / p.kw;
+        bh_lo = bias_s[kr * kBiasLd + r_lo];
+        bh_hi = bias_s[kr * kBiasLd + r_hi];
+        set = (k0 % p.kw) / 64;
+      }
+      const bool ragged = k0 + kBK > lim;
+      // a constant register-set index in each branch: no local memory
+      if (NW == 2 && set)
+        tile_probs<NW>(s, bw[NW == 2 ? 1 : 0], p.scale_log2, bh_lo, bh_hi, k0 + 2 * c,
+                       ragged, lim, p.S, st);
+      else
+        tile_probs<NW>(s, bw[0], p.scale_log2, bh_lo, bh_hi, k0 + 2 * c,
+                       ragged, lim, p.S, st);
+    };
+    // ping-pong: the warpgroups issue their products in turn, each after
+    // the one before it, so one's softmax runs under the others' products
+    // (named barriers 1 .. kConsumers serve the bias staging above)
+    const int my_bar = 1 + kConsumers + wg;
+    const int next_bar = 1 + kConsumers + (wg + 1) % kConsumers;
+    if (wg == kConsumers - 1) bar_arrive(next_bar, 256);
+    mbar_wait(&qbar, 0);
+    // Q's A fragments (rows g, g + 8 of the warp's 16; k 2c.., 2c + 8..)
+    // from the swizzled tile: 16-byte chunk k/8 of row r sits at chunk
+    // (k/8) ^ (r % 8)
+    uint32_t qa[kD / 16][4];
+    {
+      const unsigned char* qt = base + wg * kTile;
+      const int rl = warp * 16 + g;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int r = rl + (f & 1) * 8, chunk = 2 * kk + f / 2;
+          qa[kk][f] = *reinterpret_cast<const uint32_t*>(
+              qt + r * 128 + ((chunk ^ (r & 7)) * 16) + 4 * c);
+        }
+    }
+
+    // software pipeline: QK^T of tile j and PV of tile j-1 are issued
+    // together; the softmax of tile j runs while PV(j-1) is on the tensor
+    // cores, and O is rescaled once PV(j-1) has landed
+    mbar_wait(&full[0], 0);
+    bar_sync(my_bar, 256);
+    wgmma_fence();
+    qk_tile(s, qa, k_addr);
+    wgmma_commit();
+    bar_arrive(next_bar, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    probs(0);
+    pack_probs(s, pa);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int cur = j % kStages, prev = (j - 1) % kStages;
+      mbar_wait(&full[cur], (j / kStages) & 1);
+      bar_sync(my_bar, 256);
+      wgmma_fence();
+      qk_tile(s, qa, k_addr + cur * kTile);
+      wgmma_commit();
+      pv_tile(o, pa, v_addr + prev * kTile);
+      wgmma_commit();
+      bar_arrive(next_bar, 256);
+      wgmma_wait<1>();
+      fence_regs(s);
+      probs(j);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(&empty[prev]);
+      if (__any_sync(0xffffffffu, st.a_lo < 1.f || st.a_hi < 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[4 * i] *= st.a_lo;
+          o[4 * i + 1] *= st.a_lo;
+          o[4 * i + 2] *= st.a_hi;
+          o[4 * i + 3] *= st.a_hi;
+        }
+      }
+      pack_probs(s, pa);
+    }
+    const int last = (n_tiles - 1) % kStages;
+    bar_sync(my_bar, 256);
+    wgmma_fence();
+    pv_tile(o, pa, v_addr + last * kTile);
+    wgmma_commit();
+    // every last sync is matched: the last warpgroup's initial arrive
+    // stands in for its final one
+    if (wg != kConsumers - 1) bar_arrive(next_bar, 256);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&empty[last]);
+
+    float l_lo = st.l_lo, l_hi = st.l_hi;
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+    const float inv_lo = 1.f / (l_lo > 0.f ? l_lo : 1.f);
+    const float inv_hi = 1.f / (l_hi > 0.f ? l_hi : 1.f);
+    const int R_lo = row0 + r_lo, R_hi = row0 + r_hi;
+    __nv_bfloat16* out = p.out + (size_t)b * p.S * C + h * kD;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int d = i * 8 + 2 * c;
+      if (R_lo < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)R_lo * C + d) =
+            __floats2bfloat162_rn(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
+      if (R_hi < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)R_hi * C + d) =
+            __floats2bfloat162_rn(o[4 * i + 2] * inv_hi,
+                                  o[4 * i + 3] * inv_hi);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no link
+// against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &found);
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// 3-D map (width columns, S rows, B batches) of a row-major bf16 tensor,
+// 64 x 64 boxes, 128-byte swizzle; out-of-bounds rows read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int width, int S, int B) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)S * width * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+size_t hopper_smem(int kh) {
+  return 1024 + (size_t)(kConsumers + 2 * kStages) * kTile +
+         (size_t)kh * kBiasLd * sizeof(float);
+}
+
+// The calls the Hopper kernel takes: bf16, and no bias or a key grid whose
+// rows are 64 or 128 keys wide with a bias_h table that fits.
+bool hopper_takes(int dtype, const void* bias_h, int kh, int kw) {
+  if (dtype == 0) return false;
+  if (bias_h == nullptr) return true;
+  return kw % 64 == 0 && kw / 64 <= kMaxBiasW &&
+         hopper_smem(kh) <= 227 * 1024;
+}
+
+template <int NW>
+int launch_hopper(const CUtensorMap& tq, const CUtensorMap& tkv,
+                  const HopperParams& p, int B, cudaStream_t stream) {
+  const size_t smem = hopper_smem(NW > 0 ? p.kh : 0);
+  auto kern = k2_hopper_kernel<NW>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.S + kBQ - 1) / kBQ, p.H, B);
+  kern<<<grid, kThreads, smem, stream>>>(tq, tkv, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* vdr_error_string(int err) {
+  if (err == kErrTensorMap) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// head dim other than 64, the only one built (every config has D = 64).
+// Returns 0 on success, a cudaError_t after a failed launch, -1 for a head
+// dim other than 64, the only one built (every config has D = 64), or -2
+// when a TMA descriptor cannot be made.
 int vdr_fused_global_attention(const void* q, const void* kv,
                                const void* bias_h, const void* bias_w,
                                const int* kv_len, void* out, int B, int S,
                                int H, int D, int kh, int kw, float scale,
                                int dtype, void* stream) {
   if (D != 64) return -1;
-  vdr::AttnParams p{q, kv, bias_h, bias_w, kv_len, out, B, S,
-                    H, S,  kh,     kw,     scale * vdr::kLog2e};
-  return vdr::launch<64, kRowsF32, kRowsBf16, kBlockK>(
-      p, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!hopper_takes(dtype, bias_h, kh, kw)) {
+    vdr::AttnParams p{q, kv, bias_h, bias_w, kv_len, out, B, S,
+                      H, S,  kh,     kw,     scale * vdr::kLog2e};
+    return vdr::launch<64, kRowsF32, kRowsBf16, kBlockK>(p, dtype, st);
+  }
+  CUtensorMap tq, tkv;
+  if (!tensor_map(&tq, q, H * D, S, B) ||
+      !tensor_map(&tkv, kv, 2 * H * D, S, B))
+    return kErrTensorMap;
+  const HopperParams p{static_cast<const __nv_bfloat16*>(bias_h),
+                       static_cast<const __nv_bfloat16*>(bias_w),
+                       kv_len,
+                       static_cast<__nv_bfloat16*>(out),
+                       S,
+                       H,
+                       kh,
+                       kw,
+                       scale * vdr::kLog2e};
+  if (bias_h == nullptr) return launch_hopper<0>(tq, tkv, p, B, st);
+  if (kw == 64) return launch_hopper<1>(tq, tkv, p, B, st);
+  return launch_hopper<2>(tq, tkv, p, B, st);
 }
 
 }  // extern "C"
