@@ -12,8 +12,9 @@ Phases (each one fails the run with a non-zero exit):
    csrc`` for ``sm_90a``, one process per source, in parallel;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
-   bf16, held against their plain PyTorch versions (K2 in bf16 is the
-   Hopper kernel: TMA ring, wgmma; in fp32 the CUDA-core loop); kernel,
+   bf16, held against their plain PyTorch versions (K1 and K2 in bf16 are
+   Hopper kernels, TMA and wgmma, and K1's C entry is asked which body it
+   takes; in fp32 the CUDA-core loops); kernel,
    plain-version and one library call's (SDPA with the dense bias as
    ``attn_mask``) times, and the card's bound for the same work;
 4. forward: full-width SAM ViT-B/16 @1024 at batch 4 under ``fast``, with
@@ -111,8 +112,9 @@ PEAKS = {
 # at most 2^-7·|ref|, apart; ATOL bounds the fp32 gap before that rounding
 # (the order of the sums, and where P is rounded to bf16 for the PV
 # product), about 1.5 times the gap measured on an H100 SXM (PERF.md:
-# bf16 K1 3.27e-3, K2 5.98e-4 on its first kernel, 4.62e-4 on the wgmma
-# one; fp32 K1 2.6e-6, K2 1.2e-6).
+# bf16 K1 3.27e-3 on its first kernel, 1.98e-3 on the wgmma one, K2
+# 5.98e-4 on its first kernel, 4.62e-4 on the wgmma one; fp32 K1 2.6e-6,
+# K2 1.2e-6).
 RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 ATOL = {"fused_window_attention": {"float32": 2e-5, "bfloat16": 5e-3},
         "fused_global_attention": {"float32": 2e-5, "bfloat16": 1e-3}}
@@ -278,6 +280,20 @@ def kernel_phase(torch, A, peaks):
                 def plain():
                     return A.fused_global_attention_plain(
                         q, kv, bh, bwt, None, num_heads=heads, scale=scale)
+            if name == "fused_window_attention":
+                # the body the C entry takes: K1's Hopper kernel in bf16,
+                # the CUDA-core loop in fp32
+                body = A.fused_window_attention_route(
+                    q, kv, bh, bwt, num_heads=heads, window_tokens=seg,
+                    scale=scale)
+                want_body = "hopper" if dtype == torch.bfloat16 else "loops"
+                log(f"kernel {name} {dname}: body {body}")
+                if body != want_body:
+                    raise AssertionError(
+                        f"{name} {dname} takes the {body} body, not "
+                        f"{want_body}")
+                rec["body" if dtype == torch.bfloat16 else "fp32_body"] = \
+                    body
             out = kern()
             torch.cuda.synchronize()
             ref = plain().float()

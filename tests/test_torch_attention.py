@@ -175,6 +175,19 @@ class TestPlainVersions:
         port.flash_attention_fused_qkv(q, kv, bh, bw, num_heads=2)
         assert port.LAUNCHES == dict.fromkeys(port.LAUNCHES, 0)
 
+    def test_window_route_is_plain_on_the_cpu_and_checks_the_layout(self,
+                                                                     rng):
+        """The route query answers "plain" for CPU tensors (the card's
+        answers are held in tests/test_torch_cuda_kernels.py) and refuses
+        what the wrapper refuses."""
+        q, kv, bh, bw = map(torch.from_numpy,
+                            _inputs(rng, 1, 16, 2, 64, 4, 4))
+        kw = dict(num_heads=2, window_tokens=16, scale=0.125)
+        assert port.fused_window_attention_route(q, kv, bh, bw, **kw) == \
+            "plain"
+        with pytest.raises(ValueError, match="per-window bias grid"):
+            port.fused_window_attention_route(q, kv, bh[..., :2], bw, **kw)
+
 
 class TestKernelWrapperChecks:
     """The kernel wrappers refuse, before any launch, what their kernels

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 These tests build ``csrc/*.cu`` with nvcc and need an NVIDIA GPU; without
 one they skip (the ``cuda`` marker). Run them on the card with
@@ -50,14 +50,56 @@ def test_window_kernel_matches_plain(gen, dtype):
     kv = _rand(gen, b, 2 * win, 2 * heads * d, dtype=dtype)
     bh = _rand(gen, b, heads, 2 * win, 3, dtype=dtype, scale=0.3)
     bw = _rand(gen, b, heads, 2 * win, 5, dtype=dtype, scale=0.3)
+    kw = dict(num_heads=heads, window_tokens=win, scale=d ** -0.5)
+    # bf16 takes the Hopper kernel (15 rows: one 64-row tile, 64 keys),
+    # fp32 the CUDA-core loop
+    assert A.fused_window_attention_route(q, kv, bh, bw, **kw) == (
+        "hopper" if dtype == torch.bfloat16 else "loops")
     A.reset_launch_counts()
-    got = A.fused_window_attention(q, kv, bh, bw, num_heads=heads,
-                                   window_tokens=win, scale=d ** -0.5)
+    got = A.fused_window_attention(q, kv, bh, bw, **kw)
     torch.cuda.synchronize()
     assert A.LAUNCHES["fused_window_attention"] == 1
-    want = A.fused_window_attention_plain(q, kv, bh, bw, num_heads=heads,
-                                          window_tokens=win, scale=d ** -0.5)
+    want = A.fused_window_attention_plain(q, kv, bh, bw, **kw)
     _assert_close(got, want, dtype, "window")
+
+
+# (key grid, windows per batch row, bias, the body the C entry takes)
+WINDOW_CASES = {
+    "sam_14x14": ((14, 14), 3, True, "hopper"),   # 196 tokens, 4 row tiles
+    "grid_8x8": ((8, 8), 2, True, "hopper"),      # 64 tokens, one tile
+    "grid_10x10": ((10, 10), 2, True, "hopper"),  # 100 tokens, 208 keys
+    "grid_16x16": ((16, 16), 2, True, "hopper"),  # 256: one buffer
+    "sam_no_bias": ((14, 14), 3, False, "hopper"),
+    "over_256": ((17, 17), 2, True, "loops"),     # 289 tokens
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_window_kernel_routes_match_plain(gen, case):
+    """bf16 K1 at the window shapes of its routes: the Hopper kernel at
+    each of its key widths (TMA boxes of exactly one window, so a batch
+    row's next window is never read or written; keys padded to 64, 208
+    or 256 and masked; 256-token windows leave room for one buffered
+    item) and, for a window of more than 256 tokens, the mma.sync
+    loop."""
+    (kh, kw), n_win, biased, route = WINDOW_CASES[case]
+    b, heads, d, dt = 2, 2, 64, torch.bfloat16
+    win = kh * kw
+    s = n_win * win
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = None
+    if biased:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    kwargs = dict(num_heads=heads, window_tokens=win, scale=d ** -0.5)
+    assert A.fused_window_attention_route(q, kv, bh, bw, **kwargs) == route
+    A.reset_launch_counts()
+    got = A.fused_window_attention(q, kv, bh, bw, **kwargs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_window_attention"] == 1
+    want = A.fused_window_attention_plain(q, kv, bh, bw, **kwargs)
+    _assert_close(got, want, dt, "window")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -115,6 +157,68 @@ def test_global_hopper_kernel_matches_plain(gen, case):
     want = A.fused_global_attention_plain(q, kv, bh, bw, kv_len,
                                           num_heads=heads, scale=d ** -0.5)
     _assert_close(got, want, dt, "global")
+
+
+def test_kv_len_zero_row_matches_plain(gen):
+    """A batch row with kv_len 0 (S = 200): K2's fp32 loop and the three
+    K5 kernels follow their plain versions, where every key of the row
+    scores -1e30: the forward averages V, the lse is the plain version's
+    (-1e30 log2 e), and the backward takes P = 1 per key from it."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, heads, d, s = 2, 4, 64, 200
+    kv_len = torch.tensor([0, 150], device="cuda")
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    q = _rand(gen, b, s, heads * d, dtype=torch.float32)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=torch.float32)
+    _assert_close(
+        A.fused_global_attention(q, kv, None, None, kv_len, **kwargs),
+        A.fused_global_attention_plain(q, kv, None, None, kv_len, **kwargs),
+        torch.float32, "global")
+    dt = torch.bfloat16
+    q, kv = q.to(dt), kv.to(dt)
+    out, lse = G.global_attention_fwd_lse(q, kv, None, None, kv_len,
+                                          **kwargs)
+    want_out, want_lse = G.global_attention_fwd_lse_plain(
+        q, kv, None, None, kv_len, **kwargs)
+    _assert_close(out, want_out, dt, "global")
+    assert (lse - want_lse).abs().max().item() <= 1e-2
+    dout = _rand(gen, b, s, heads * d, dtype=dt)
+    args = (q, kv, None, None, kv_len, dout, lse,
+            G.attention_delta(out, dout, heads))
+    got = (G.global_attention_bwd_dq(*args, **kwargs)[0],
+           G.global_attention_bwd_dkv(*args, **kwargs))
+    want = (G.global_attention_bwd_dq_plain(*args, **kwargs)[0],
+            G.global_attention_bwd_dkv_plain(*args, **kwargs))
+    for g_, w_, name in zip(got, want, ("dq", "dkv")):
+        _assert_grad_close(g_[1:], w_[1:], name, "global")
+    # Batch row 0 has P = 1 on all 200 keys, so its dS is some 200 times a
+    # softmax row's, and the kernels round dS to bf16 as an mma operand:
+    # hold each element of dq and dk to that rounding's worst case,
+    # 2^-8 · scale · Σ |dS| |K| (|Q| for dk), beyond one bf16 step of the
+    # output and the rule of the other rows; dv takes P = 1 exactly.
+    c = heads * d
+
+    def hs(x):   # batch row 0, (S, H·D) -> (H, S, D) in fp32
+        return x[0].float().reshape(s, heads, -1).transpose(0, 1)
+
+    ds = (hs(dout) @ hs(kv[..., c:]).transpose(-1, -2)
+          - args[7][0][..., None]).abs()
+    scale = d ** -0.5
+
+    def rows(x):   # (H, S, D) -> (S, H·D)
+        return x.transpose(0, 1).reshape(s, c)
+
+    rounding = (rows(ds @ hs(kv[..., :c]).abs()),
+                torch.cat([rows(ds.transpose(-1, -2) @ hs(q).abs()),
+                           torch.zeros(s, c, device="cuda")], dim=-1))
+    for g_, w_, r_, name in zip(got, want, rounding, ("dq", "dkv")):
+        g_, w_ = g_[0].float(), w_[0].float()
+        excess = ((g_ - w_).abs() - 2.0 ** -7 * w_.abs()
+                  - 2.0 ** -8 * scale * r_).max().item()
+        print(f"{name} kv_len 0 row: excess {excess:.3e}")
+        assert torch.isfinite(g_).all() and excess <= GRAD_ATOL["global"], (
+            name, excess)
 
 
 # The trainable kernels (bf16 only) against their plain versions, which

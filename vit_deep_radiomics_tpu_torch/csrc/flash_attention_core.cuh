@@ -1,5 +1,7 @@
-// Shared core of the port's two fused attention kernels (K1 window mode,
-// K2 global mode). Both read q from the split projection q (B, S, H*D) and
+// Shared core of the port's fused attention kernels (K1 window mode, K2
+// global mode, and K2's trainable twin, the K5 forward): the first loops,
+// which K1 and K2 keep for fp32 and for the bf16 shapes their Hopper
+// kernels do not take. Both read q from the split projection q (B, S, H*D) and
 // k/v from kv (B, S, 2*H*D) (k in columns [0, H*D), v in [H*D, 2*H*D)), add
 // the decomposed relative-position bias
 //     bias_h[b, h, i, key / kw] + bias_w[b, h, i, key % kw]
@@ -33,6 +35,13 @@ namespace vdr {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;  // finite: keeps fully masked rows finite
+// A key at or past kv_len, in log2 units: the plain version's -1e30 score
+// times log2(e), bit for bit, so that a row with no valid key gets the
+// plain version's lse and its backward P of 1 per key.
+constexpr float kMaskedLog2 = kNegInf * kLog2e;
+// Keys past the segment in a ragged tile: below every masked key, so they
+// never join a row's sums (and the running max starts here).
+constexpr float kPastEnd = 2.f * kNegInf;
 
 struct AttnParams {
   const void* q;       // (B, S, H*D)
@@ -64,7 +73,9 @@ from_f32<__nv_bfloat16>(float x) {
 // Block coordinates shared by both loops: grid = (query tiles per segment,
 // H, B * segments per row).
 struct Tile {
-  int b, h, seg0, row0, n_keys;
+  int b, h, seg0, row0;
+  int n_keys;  // keys visited
+  bool none;   // kv_len 0: every key visited is masked
 };
 
 __device__ __forceinline__ Tile tile_of(const AttnParams& p, int bq) {
@@ -75,7 +86,16 @@ __device__ __forceinline__ Tile tile_of(const AttnParams& p, int bq) {
   t.h = blockIdx.y;
   t.row0 = blockIdx.x * bq;
   t.n_keys = p.seg;
-  if (p.kv_len != nullptr) t.n_keys = min(p.seg, p.kv_len[t.b]);
+  t.none = false;
+  if (p.kv_len != nullptr) {
+    // with no valid key every key of the segment is visited, all masked,
+    // so the row averages V as the plain version does; the mma loops
+    // replace such a row's scores once a tile, so the code per score is
+    // that of a row with valid keys
+    const int lim = min(p.seg, max(p.kv_len[t.b], 0));
+    t.none = lim == 0;
+    if (lim > 0) t.n_keys = lim;
+  }
   return t;
 }
 
@@ -150,7 +170,7 @@ __device__ void attend_rows_f32(const AttnParams& p, float* smem) {
     q[d] = valid ? qrow[d] * p.scale_log2 : 0.f;
     acc[d] = 0.f;
   }
-  float m = kNegInf, l = 0.f;
+  float m = kPastEnd, l = 0.f;
   const float* kv = static_cast<const float*>(p.kv);
 
   for (int k0 = 0; k0 < t.n_keys; k0 += BK) {
@@ -177,8 +197,10 @@ __device__ void attend_rows_f32(const AttnParams& p, float* smem) {
 #pragma unroll
       for (int jj = 0; jj < CH; ++jj) {
         const int j = c0 + jj;
-        float v = kNegInf;
-        if (j < nk) {
+        float v = kPastEnd;
+        if (j < nk && t.none) {
+          v = kMaskedLog2;
+        } else if (j < nk) {
           const float* kr = ks + j * D;
           float dot = 0.f;
 #pragma unroll
@@ -272,6 +294,7 @@ __device__ void attend_rows_bf16(const AttnParams& p, char* smem_raw) {
   float* bias_s = reinterpret_cast<float*>(ktab + BK);    // [kh + kw][BS]
   constexpr int BS = bias_stride<BQ>();
   const bool has_bias = p.bias_h != nullptr;
+  const bool add_bias = has_bias && !t.none;
   if (has_bias) stage_bias<__nv_bfloat16, BQ>(p, t, bias_s);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -306,7 +329,7 @@ __device__ void attend_rows_bf16(const AttnParams& p, char* smem_raw) {
   float o[DT][4];
 #pragma unroll
   for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  float m_lo = kPastEnd, m_hi = kPastEnd, l_lo = 0.f, l_hi = 0.f;
   const __nv_bfloat16* kv = static_cast<const __nv_bfloat16*>(p.kv);
   const int lrow_lo = wrow + g, lrow_hi = lrow_lo + 8;  // rows in bias_s
 
@@ -344,6 +367,12 @@ __device__ void attend_rows_bf16(const AttnParams& p, char* smem_raw) {
         mma_bf16_16816(s[nt], qa[kt], b);
       }
     }
+    // a kv_len 0 row: every key scores as masked, with no bias
+    if (t.none) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = kMaskedLog2;
+    }
     // bias, ragged-edge mask, row max
     float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
@@ -353,8 +382,8 @@ __device__ void attend_rows_bf16(const AttnParams& p, char* smem_raw) {
         const int j = nt * 8 + 2 * c + (e & 1);
         float v = s[nt][e];
         if (j >= nk) {
-          v = kNegInf;
-        } else if (has_bias) {
+          v = kPastEnd;
+        } else if (add_bias) {
           const int2 kt = ktab[j];
           const int lr = e < 2 ? lrow_lo : lrow_hi;
           v += bias_s[kt.x * BS + lr] + bias_s[kt.y * BS + lr];

@@ -52,11 +52,12 @@
 // the CUDA cores (fp32), or mma.sync with synchronous K/V staging (bf16).
 // The C entry chooses by dtype and shape alone.
 
-#include <cuda.h>
-
 #include "flash_attention_core.cuh"
+#include "hopper.cuh"
 
 namespace {
+using namespace vdr::sm90;
+
 constexpr int kBlockK = 64;
 constexpr int kRowsF32 = 64;
 constexpr int kRowsBf16 = 128;
@@ -89,133 +90,6 @@ struct HopperParams {
   float scale_log2;             // D^-1/2 * log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// Named barriers among the consumer warpgroups (id 0 is __syncthreads).
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// One 64 x 64 box of a 3-D (col, row, batch) tensor map into shared
-// memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row,
-                                         int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (tiles 1024-aligned).
-// K is K-major (64 key rows of 128 bytes): SBO 1024 between 8-row groups,
-// LBO unused (16). V is an MN-major operand (key rows of 64 contiguous
-// head-dim values): its 64 columns are one swizzle atom wide, so only the
-// 1024-byte step between 8-key groups is used; it is given as both offsets.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from touching wgmma operands before wgmma.wait_group:
-// accumulators are not read early, A fragments stay live (their registers
-// are not reused while the product reads them).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k])::"memory");
-}
-
-#define VDR_F8(d, i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define VDR_D32(d) VDR_F8(d, 0), VDR_F8(d, 8), VDR_F8(d, 16), VDR_F8(d, 24)
-#define VDR_R32                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-
-// D(64x64, fp32) (+)= A(64x16, registers) * B(16x64, smem); TransB 0: B is
-// K-major (K), 1: MN-major (V)
-template <int TransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VDR_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : VDR_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
-        "n"(TransB));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // S = Q K^T for one key tile (4 k16 steps: 32 bytes along D)
 __device__ __forceinline__ void qk_tile(float (&s)[32],
                                         const uint32_t (&qa)[kD / 16][4],
@@ -223,7 +97,7 @@ __device__ __forceinline__ void qk_tile(float (&s)[32],
   const uint64_t dk = desc_sw128(k_tile, 16, 1024);
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_rs<0>(s, qa[kk], dk + 2 * kk, kk > 0);
+    Wgmma<64>::rs<0>(s, qa[kk], dk + 2 * kk, kk > 0);
 }
 
 // O += P V for one key tile (16 keys = two 1024-byte 8-key groups a step)
@@ -232,7 +106,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[32],
                                         uint32_t v_tile) {
 #pragma unroll
   for (int kt = 0; kt < kBK / 16; ++kt)
-    wgmma_rs<1>(o, pa[kt], desc_sw128(v_tile + kt * 2048, 1024, 1024), 1);
+    Wgmma<64>::rs<1>(o, pa[kt], desc_sw128(v_tile + kt * 2048, 1024, 1024),
+                     1);
 }
 
 // Online-softmax state of a thread's two rows (log2 units). The max used
@@ -541,26 +416,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no link
-// against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &found);
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
 
 // 3-D map (width columns, S rows, B batches) of a row-major bf16 tensor,
 // 64 x 64 boxes, 128-byte swizzle; out-of-bounds rows read as zeros.

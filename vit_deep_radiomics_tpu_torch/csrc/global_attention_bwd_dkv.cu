@@ -54,8 +54,12 @@ __global__ void __launch_bounds__(BK * 2)
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
   const int C = p.H * D;
-  const int n_keys = p.kv_len != nullptr ? min(p.S, p.kv_len[b]) : p.S;
+  // keys j >= lim are masked; with none valid every key is visited, all
+  // masked (P = 1 per key from the residual, as in the plain version)
+  const int lim = p.kv_len != nullptr ? min(p.S, max(p.kv_len[b], 0)) : p.S;
+  const int n_keys = lim > 0 ? lim : p.S;
   const bool has_bias = p.bias_h != nullptr;
+  const bool add_bias = has_bias && lim > 0;
   const int nkr = has_bias ? BK / p.kw : 0;   // grid rows of the key block
   const int krow0 = has_bias ? k0 / p.kw : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -135,6 +139,13 @@ __global__ void __launch_bounds__(BK * 2)
           mma_bf16_16816(dpt[u], va[kt], bd);
         }
       }
+      // a kv_len 0 row: every key scores as masked, with no bias (once a
+      // chunk, so the code per score is that of a row with valid keys)
+      if (lim == 0) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          st[u][0] = st[u][1] = st[u][2] = st[u][3] = kMaskedLog2;
+      }
       float pt[2][4], dst[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -145,7 +156,7 @@ __global__ void __launch_bounds__(BK * 2)
           float pv = 0.f;
           if (i < nq && (lo ? key_lo : key_hi) < n_keys) {
             float v = st[u][e];
-            if (has_bias)
+            if (add_bias)
               v += bias_s[(lo ? th_lo : th_hi) * BS + i] +
                    bias_s[(lo ? tw_lo : tw_hi) * BS + i];
             pv = exp2f(v - lse_s[i]);

@@ -60,6 +60,7 @@ __global__ void __launch_bounds__(BQ * 2)
   const Tile t = tile_of(p, BQ);
   const int C = p.H * D;
   const bool has_bias = p.bias_h != nullptr;
+  const bool add_bias = has_bias && !t.none;
   if (has_bias) {
     stage_bias<bf16, BQ>(p, t, bias_s);
     for (int i = threadIdx.x; i < BQ * p.kh; i += blockDim.x) dbh_s[i] = 0.f;
@@ -118,6 +119,13 @@ __global__ void __launch_bounds__(BQ * 2)
           mma_bf16_16816(dp[u], da[kt], b);
         }
       }
+      // a kv_len 0 row: every key scores as masked, with no bias (once a
+      // chunk, as in the forward)
+      if (t.none) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          s[u][0] = s[u][1] = s[u][2] = s[u][3] = kMaskedLog2;
+      }
       float ds[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -128,7 +136,7 @@ __global__ void __launch_bounds__(BQ * 2)
           float pv = 0.f;
           if (j < nk) {
             float v = s[u][e];
-            if (has_bias) {
+            if (add_bias) {
               const int2 kt = ktab[j];
               const int lr = lo ? lrow_lo : lrow_hi;
               v += bias_s[kt.x * BS + lr] + bias_s[kt.y * BS + lr];

@@ -33,13 +33,13 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def _load(name: str, argtypes):
-    """(library, ``vdr_<name>`` entry point) of ``csrc/<name>.cu``, built
-    on first use."""
+def _load(name: str, argtypes, entry: str | None = None):
+    """(library, entry point) of ``csrc/<name>.cu``, built on first use; the
+    entry point is ``vdr_<name>`` unless another is named."""
     from ..utils import cuda_build
 
     lib = cuda_build.load(name)
-    fn = getattr(lib, f"vdr_{name}")
+    fn = getattr(lib, entry or f"vdr_{name}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -51,6 +51,7 @@ __all__ = [
     "flash_attention_fused_qkv",
     "fused_window_attention",
     "fused_window_attention_plain",
+    "fused_window_attention_route",
     "fused_global_attention",
     "fused_global_attention_plain",
     "flash_attention",
@@ -245,6 +246,25 @@ def fused_window_attention(q, kv, bias_h=None, bias_w=None, *, num_heads,
     _raise_on(rc, lib, "fused_window_attention")
     LAUNCHES["fused_window_attention"] += 1
     return out
+
+
+def fused_window_attention_route(q, kv, bias_h=None, bias_w=None, *,
+                                 num_heads, window_tokens, scale) -> str:
+    """Which body :func:`fused_window_attention` runs for these operands:
+    ``"plain"`` on the CPU; on the card, as ``csrc/fused_window_attention.cu``
+    chooses, ``"hopper"`` (the TMA + wgmma kernel: bf16, windows of at most
+    256 tokens) or ``"loops"`` (the first loops of
+    ``flash_attention_core.cuh``)."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, None, num_heads,
+                              window_tokens)
+    if q.device.type == "cpu":
+        return "plain"
+    _check_cuda(q, d, kv, bias_h, bias_w)
+    _, fn = _load("fused_window_attention", [_I] * 7 + [_F, _I],
+                  entry="vdr_fused_window_route")
+    hopper = fn(q.shape[1], num_heads, d, window_tokens, kh, kw,
+                int(bias_h is not None), scale, _DTYPE_CODES[q.dtype])
+    return "hopper" if hopper else "loops"
 
 
 def fused_global_attention(q, kv, bias_h=None, bias_w=None, kv_len=None, *,

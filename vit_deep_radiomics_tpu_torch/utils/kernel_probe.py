@@ -1,17 +1,20 @@
-"""Probes of K2 (``csrc/fused_global_attention.cu``) on the GPU.
+"""Probes of the Hopper kernels K1 (``csrc/fused_window_attention.cu``) and
+K2 (``csrc/fused_global_attention.cu``) on the GPU.
 
 Two measurements that ``chip_smoke.py`` does not make::
 
-    python -m vit_deep_radiomics_tpu_torch.utils.k2_probe variants
-    python -m vit_deep_radiomics_tpu_torch.utils.k2_probe pair PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
 
-``variants`` builds copies of the source with one constant or one step
-changed (the ring depth, the number of consumer warpgroups; the softmax
-or the products removed: timing ablations whose output is wrong by
-design), calls each through ``ctypes`` at the extraction shape (q (4,
-4096, 768), Kh = Kw = 64) and DINOv2's kv_len shape (4 x 1536, 1370
-valid), and prints its gap to the plain version and its time beside
-SDPA's. ``pair`` runs two
+``variants`` builds copies of one kernel's source with one constant or one
+step changed (K1: the number of buffered work items or of consumer
+warpgroups; K2: the ring depth or the consumer warpgroups; for both the
+softmax or the products removed: timing ablations whose output is wrong by
+design), calls each through ``ctypes`` at the extraction path's shapes
+(K1: q (100, 196, 768), Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64,
+and DINOv2's kv_len shape, 4 x 1536 with 1370 valid), and prints its gap
+to the plain version and its time beside SDPA's. ``pair`` runs two
 checkouts in turns (parent, change, change, parent), each in a fresh
 process: 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
 then ``chip_smoke.py``'s extraction phase. Nothing is built or run at
@@ -27,24 +30,71 @@ import subprocess
 import sys
 from pathlib import Path
 
-__all__ = ["VARIANTS", "variant_source", "main"]
+__all__ = ["SOURCES", "VARIANTS", "CALLS", "variant_source", "main"]
 
-_SOFTMAX = ("probs(0);", "probs(j);")
-_PRODUCTS = ("qk_tile(s, qa, k_addr);", "qk_tile(s, qa, k_addr + cur * kTile);",
-             "pv_tile(o, pa, v_addr + prev * kTile);",
-             "pv_tile(o, pa, v_addr + last * kTile);")
-# name: (substitutions of `constexpr` values, calls removed)
+SOURCES = {"k1": "fused_window_attention.cu",
+           "k2": "fused_global_attention.cu"}
+# kernel: {name: (substitutions of `constexpr` values, calls removed)}
 VARIANTS = {
-    "as_built": ({}, ()),
-    "stages_4": ({"kStages": 4}, ()),
-    "consumers_2": ({"kConsumers": 2}, ()),
-    "no_softmax": ({}, _SOFTMAX),
-    "no_products": ({}, _PRODUCTS),
+    "k1": {
+        "as_built": ({}, ()),
+        "buffers_1": ({"kBuffers": 1}, ()),
+        "consumers_1": ({"kConsumers": 1}, ()),
+        "no_softmax": ({}, ("softmax_rows<N>(s, pa, p.scale_log2, l_lo, "
+                            "l_hi);",)),
+        "no_products": ({}, (
+            "qk_products<N>(s, ba, nb, q_addr, k_addr, e_addr);",
+            "pv_products<N>(o, pa, v_addr);")),
+    },
+    "k2": {
+        "as_built": ({}, ()),
+        "stages_4": ({"kStages": 4}, ()),
+        "consumers_2": ({"kConsumers": 2}, ()),
+        "no_softmax": ({}, ("probs(0);", "probs(j);")),
+        "no_products": ({}, (
+            "qk_tile(s, qa, k_addr);",
+            "qk_tile(s, qa, k_addr + cur * kTile);",
+            "pv_tile(o, pa, v_addr + prev * kTile);",
+            "pv_tile(o, pa, v_addr + last * kTile);")),
+    },
+}
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _k1_call(A, q, kv, bh, bw, kl, heads, scale):
+    """K1's plain output, and its entry point's arguments before the dtype
+    code and the stream: one window a batch row, as the extraction path
+    gives it."""
+    b, s, c = q.shape
+    ref = A.fused_window_attention_plain(q, kv, bh, bw, num_heads=heads,
+                                         window_tokens=s, scale=scale)
+    return ref, lambda out: (q, kv, bh, bw, out, b, s, heads, c // heads, s,
+                             bh.shape[-1], bw.shape[-1], scale)
+
+
+def _k2_call(A, q, kv, bh, bw, kl, heads, scale):
+    b, s, c = q.shape
+    kh, kw = (bh.shape[-1], bw.shape[-1]) if bh is not None else (0, 0)
+    ref = A.fused_global_attention_plain(q, kv, bh, bw, kl, num_heads=heads,
+                                         scale=scale)
+    return ref, lambda out: (q, kv, bh, bw, kl, out, b, s, heads,
+                             c // heads, kh, kw, scale)
+
+
+# kernel: (entry point's argument types, shapes (B, S, Kh, Kw, kv_len),
+# the plain output and the arguments)
+CALLS = {
+    "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
+           _k1_call),
+    "k2": ([_P] * 6 + [_I] * 6 + [_F, _I, _P],
+           ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), _k2_call),
 }
 
 
 def variant_source(text: str, consts: dict, removed=()) -> str:
-    """The K2 source with `constexpr int` values replaced and, for the
+    """A kernel source with `constexpr int` values replaced and, for the
     ablations, the listed calls (a tile's softmax, or its products) taken
     out."""
     for name, value in consts.items():
@@ -72,50 +122,61 @@ def _ms(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def _variants(out_dir: Path) -> None:
-    import torch
-    import torch.nn.functional as F
-
-    from ..ops import attention as A
+def _build(kernel: str, out_dir: Path) -> dict:
+    """Every variant of one kernel, one nvcc each, in parallel: name ->
+    the library's entry point."""
     from . import cuda_build as cb
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    text = (cb.CSRC_DIR / "fused_global_attention.cu").read_text()
+    text = (cb.CSRC_DIR / SOURCES[kernel]).read_text()
+    entry = "vdr_" + SOURCES[kernel][:-3]
     jobs = {}
-    for name, (consts, removed) in VARIANTS.items():
-        cu = out_dir / f"k2_{name}.cu"
+    for name, (consts, removed) in VARIANTS[kernel].items():
+        cu = out_dir / f"{kernel}_{name}.cu"
         cu.write_text(variant_source(text, consts, removed))
         cmd = [cb._nvcc(), *cb.NVCC_FLAGS, "-I", str(cb.CSRC_DIR), "-o",
-               str(out_dir / f"k2_{name}.so"), str(cu)]
+               str(out_dir / f"{kernel}_{name}.so"), str(cu)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in jobs.items():
         log = proc.communicate()[0]
         notes = [ln.strip() for ln in log.splitlines()
-                 if "spill" in ln or "C75" in ln or "error" in ln]
-        print(f"build {name}: rc {proc.returncode}; " + " | ".join(notes))
+                 if "spill" in ln or "C75" in ln or "error" in ln
+                 or "registers" in ln]
+        print(f"build {kernel} {name}: rc {proc.returncode}; "
+              + " | ".join(notes))
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        fn = ctypes.CDLL(str(out_dir / f"k2_{name}.so")) \
-            .vdr_fused_global_attention
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so")), entry)
+        fn.argtypes = CALLS[kernel][0]
         fns[name] = fn
+    return fns
 
+
+def _variants(kernel: str, out_dir: Path) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import attention as A
+
+    fns = _build(kernel, out_dir)
     gen = torch.Generator(device="cuda").manual_seed(0)
     heads, d = 12, 64
     c = heads * d
+    scale = d ** -0.5
 
     def rand(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * scale).to(torch.bfloat16)
 
     def ptr(t):
-        return ctypes.c_void_p(0 if t is None else t.data_ptr())
+        if t is None or isinstance(t, torch.Tensor):
+            return ctypes.c_void_p(0 if t is None else t.data_ptr())
+        return t
 
-    for b, s, kh, kw, n_valid in ((4, 4096, 64, 64, None),
-                                  (4, 1536, 0, 0, 1370)):
+    _, shapes, call = CALLS[kernel]
+    for b, s, kh, kw, n_valid in shapes:
         q, kv = rand(b, s, c), rand(b, s, 2 * c)
         bh = bw = kl = None
         if kh:
@@ -123,16 +184,16 @@ def _variants(out_dir: Path) -> None:
             bw = rand(b, heads, s, kw, scale=0.3)
         else:
             kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
-        ref = A.fused_global_attention_plain(
-            q, kv, bh, bw, kl, num_heads=heads, scale=d ** -0.5).float()
-        print(f"shape q ({b}, {s}, {c}), Kw {kw}, kv_len {n_valid}:")
+        ref, args_of = call(A, q, kv, bh, bw, kl, heads, scale)
+        ref = ref.float()
+        print(f"{kernel} shape q ({b}, {s}, {c}), Kw {kw}, kv_len {n_valid}:")
         for name, fn in fns.items():
             out = torch.empty_like(q)
             stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            args = (*map(ptr, args_of(out)), 1, stream)
 
-            def run(fn=fn, out=out, stream=stream):
-                rc = fn(ptr(q), ptr(kv), ptr(bh), ptr(bw), ptr(kl), ptr(out),
-                        b, s, heads, d, kh, kw, d ** -0.5, 1, stream)
+            def run(fn=fn, args=args):
+                rc = fn(*args)
                 if rc:
                     raise RuntimeError(f"variant launch failed: {rc}")
 
@@ -207,10 +268,11 @@ def _pair(parent: Path, change: Path) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
-    v = sub.add_parser("variants", help="K2 variants at the path shapes")
+    v = sub.add_parser("variants", help="kernel variants at the path shapes")
+    v.add_argument("kernel", choices=sorted(SOURCES))
     v.add_argument("--out", type=Path,
                    default=Path(__file__).resolve().parents[1] / "_build"
-                   / "k2_variants")
+                   / "probe_variants")
     pr = sub.add_parser("pair", help="parent vs change, end to end")
     pr.add_argument("parent", type=Path)
     pr.add_argument("change", type=Path)
@@ -218,10 +280,10 @@ def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("k2_probe: no CUDA device is visible", file=sys.stderr)
+        print("kernel_probe: no CUDA device is visible", file=sys.stderr)
         return 2
     if args.cmd == "variants":
-        _variants(args.out)
+        _variants(args.kernel, args.out)
     else:
         _pair(args.parent.resolve(), args.change.resolve())
     return 0
