@@ -9,7 +9,9 @@ Phases (each one fails the run with a non-zero exit):
 
 1. card: name and power limit from ``nvidia-smi``;
 2. build: ``nvcc`` of every kernel under ``vit_deep_radiomics_tpu_torch/
-   csrc`` for ``sm_90a``, one process per source, in parallel;
+   csrc`` for ``sm_90a``, one process per source, in parallel; the ptxas
+   report of the register-tiled K6 backward kernels (registers, spills),
+   which must show no spill;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (K1 and K2 in bf16 are
@@ -135,6 +137,8 @@ STEP_LAUNCHES = {"fused_window_attention": 8, "fused_global_attention": 0,
 FT_STEPS = 5
 K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
+# Register-tiled sources whose ptxas report must show no spill
+NO_SPILL = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 K5_NAMES = ("global_attention_fwd_lse", "global_attention_bwd_dq",
             "global_attention_bwd_dkv")
 # Per step of a 12-layer backbone: every layer runs K6 under `parity`;
@@ -1516,9 +1520,16 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    cuda_build.build_all()
+    build_logs = cuda_build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for "
         f"{', '.join(cuda_build.KERNEL_SOURCES)}")
+    for src in NO_SPILL:
+        notes = [ln.split(":", 1)[-1].strip()
+                 for ln in build_logs[src].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"ptxas {src}: {' | '.join(notes) or 'built earlier, no log'}")
+        if cuda_build.spill_bytes(build_logs[src]):
+            raise AssertionError(f"{src} spills registers")
 
     records = kernel_phase(torch, A, peaks)
     state = forward_phase(torch, A, vit, precision)

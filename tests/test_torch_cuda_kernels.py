@@ -362,7 +362,14 @@ def _k6_run(fwd, dq, dkv, delta, args, dout, scale):
     (2, 196, 14, 14, None),      # SAM window: Kw = 14 cuts every key tile
     (1, 320, 5, 64, None),       # SAM global's Kw = 64 over 5 key tiles
     (2, 200, 0, 0, [77, 200]),   # kv_len, ragged 64-row tiles
-], ids=["kw14", "kw64", "kv_len"])
+    (3, 196, 14, 14, None),      # three windows' batch entries, ragged tiles
+    (2, 200, 10, 20, None),      # ragged S, Kw = 20 across the tiles
+    (2, 40, 5, 8, None),         # S shorter than one tile
+    (2, 1536, 0, 0, [1370, 1370]),   # DINOv2's kv_len cuts a tile
+    (2, 200, 0, 0, None),        # no bias, no kv_len
+    (2, 256, 8, 32, [100, 256]),  # Kw a multiple of the dq tile, kv_len
+], ids=["kw14", "kw64", "kv_len", "windows_3", "s200_kw20", "s40",
+        "kv_len_1370", "no_bias", "kw32_kv_len"])
 def test_flash_trainable_kernels_match_plain(gen, b, s, kh, kw, kv_len):
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
@@ -389,7 +396,61 @@ def test_flash_trainable_kernels_match_plain(gen, b, s, kh, kw, kv_len):
         print(f"{name}: gap {gap:.3e}")
         assert torch.isfinite(g_).all() and gap <= K6_ATOL, (name, gap)
     if kv_len is not None:     # keys past kv_len get no gradient
-        assert not got[5][0, :, 77:].any() and not got[6][0, :, 77:].any()
+        for i, n in enumerate(kv_len.tolist()):
+            assert not got[5][i, :, n:].any() and not got[6][i, :, n:].any()
+
+
+def test_flash_trainable_kv_len_zero_row_matches_plain(gen):
+    """A batch row with kv_len 0 (S = 200, kv_len [0, 150]): the K6
+    forward, dq and dkv follow their plain versions, where every key of
+    the row scores -1e30: the forward averages V, the lse is -1e30, and the
+    backward takes P = 1 per key."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    q, k, v, _, _, kv_len, dout = _k6_inputs(gen, 2, 3, 200, 0, 0, [0, 150])
+    args, scale = (q, k, v, None, None, kv_len), 64 ** -0.5
+    got = _k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,
+                  G.flash_attention_bwd_dkv, G.flash_attention_delta, args,
+                  dout, scale)
+    torch.cuda.synchronize()
+    want = _k6_run(G.flash_attention_fwd_plain,
+                   G.flash_attention_bwd_dq_plain,
+                   G.flash_attention_bwd_dkv_plain, G.flash_attention_delta,
+                   args, dout, scale)
+    assert torch.equal(got[1][0], want[1][0])      # lse -1e30 on every row
+    names = ("out", "lse", "dq", "dbh", "dbw", "dk", "dv")
+    for g_, w_, name in zip(got, want, names):
+        if w_ is None:
+            assert g_ is None, name
+            continue
+        # Row 1 as every other row. Row 0 has P = 1 on all 200 keys, so
+        # its gradients are sums of 200 unnormalised terms, some 200 times
+        # a softmax row's: the same fp32 rule relative to its largest value.
+        gap1 = (g_[1] - w_[1]).abs().max().item()
+        gap0 = (g_[0] - w_[0]).abs().max().item()
+        lim0 = K6_ATOL * max(1.0, w_[0].abs().max().item())
+        print(f"{name}: gap {gap1:.3e}, kv_len 0 row {gap0:.3e} "
+              f"(limit {lim0:.3e})")
+        assert torch.isfinite(g_).all() and gap1 <= K6_ATOL, (name, gap1)
+        assert gap0 <= lim0, (name, gap0)
+
+
+def test_flash_trainable_backward_builds_without_spill(gen, tmp_path):
+    """The register-tiled dq and dkv kernels fit their registers: ptxas
+    (-Xptxas -v, the build's flags) reports no spill bytes."""
+    import subprocess
+
+    from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
+
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        res = subprocess.run(
+            [cb._nvcc(), *cb.NVCC_FLAGS, "-o", str(tmp_path / f"{name}.so"),
+             str(cb.CSRC_DIR / f"{name}.cu")],
+            capture_output=True, text=True)
+        assert res.returncode == 0, res.stdout + res.stderr
+        log = res.stdout + res.stderr
+        print(name, [ln for ln in log.splitlines() if "registers" in ln])
+        assert "spill" in log and cb.spill_bytes(log) == 0, log
 
 
 def test_flash_trainable_kernels_are_deterministic(gen):

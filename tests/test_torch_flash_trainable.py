@@ -9,7 +9,8 @@ v and both bias factors agree to TOL = 2e-5 (abs and rel); the largest gap
 measured is 1.4e-6 on gradients of max |g| about 3. Three cases: a bias on
 one whole key grid whose width (7) is not a power of two, a bias over
 several key tiles, and a ``kv_len`` padding mask. Each plain backward is
-also held to torch autograd through the plain forward (1e-5).
+also held to torch autograd through the plain forward (1e-5). A fourth
+input, a ``kv_len`` of 0 on one batch row, is held to JAX alone.
 """
 
 import numpy as np
@@ -36,6 +37,11 @@ CASES = {
     "bias_16x16_four_key_tiles": (1, 2, 256, 16, 16, None, 128, 64),
     "kv_len": (2, 2, 128, 0, 0, (70, 128), 64, 64),
 }
+# Batch row 0 has kv_len 0: every key scores -1e30, so the forward averages
+# V, the lse is -1e30 and the backward (JAX's _recompute_p_ds) takes P = 1
+# per key. That backward is not autograd of the forward (whose output does
+# not depend on q or k there), so this case is held to JAX only.
+KV_LEN_ZERO = (2, 2, 128, 0, 0, (0, 100), 64, 64)
 
 
 def _inputs(seed, b, h, s, kh, kw, kv_len):
@@ -119,6 +125,25 @@ class TestPortVsJax:
         b, nq, h, _ = jlse.shape
         jlse = np.asarray(jlse).transpose(0, 2, 1, 3).reshape(b, h, -1)
         np.testing.assert_allclose(lse.numpy(), jlse, atol=TOL, rtol=TOL)
+
+    def test_kv_len_zero_row(self):
+        """Values, lse and gradients on a batch with a kv_len 0 row; the
+        row's gradients are sums of 128 unnormalised terms, so the
+        tolerance is relative to each output's largest value there."""
+        b, h, s, kh, kw, kv_len, bq, bk = KV_LEN_ZERO
+        inputs = _inputs(11, b, h, s, kh, kw, kv_len)
+        (out_p, g_p), (out_j, g_j) = _port(inputs), _jax(inputs, (bq, bk))
+        np.testing.assert_allclose(out_p, out_j, atol=TOL, rtol=TOL)
+        for name, a, b_ in zip(("dq", "dk", "dv"), g_p, g_j):
+            assert np.abs(a[0]).max() > 0, name     # P = 1, not 0
+            np.testing.assert_allclose(
+                a, b_, atol=TOL * max(1.0, np.abs(b_).max()), rtol=TOL,
+                err_msg=name)
+        q, k, v = (torch.from_numpy(x) for x in inputs[:3])
+        _, lse = G.flash_attention_fwd(q, k, v, None, None,
+                                       torch.from_numpy(inputs[5]),
+                                       scale=SCALE)
+        assert (lse[0] == -1e30).all()
 
     def test_padded_keys_get_no_gradient(self):
         inputs = _inputs(7, *CASES["kv_len"][:6])

@@ -1,5 +1,7 @@
 """The kernel probe's source variants are built from the committed kernels:
-each named constant and each call it removes is found exactly once."""
+each named constant and each call it removes is found exactly once. The
+build's ptxas spill report (``cuda_build.spill_bytes``) is read from a
+sample log."""
 
 import pytest
 
@@ -21,7 +23,8 @@ def test_variant_source_changes_what_it_names(kernel, name):
     for const, value in consts.items():
         assert f"constexpr int {const} = {value};" in text
     for call in removed:
-        assert source.count(call) == 1 and call not in text
+        call, repl = call if isinstance(call, tuple) else (call, ";")
+        assert source.count(call) == 1 and call not in text and repl in text
     if not consts and not removed:
         assert text == source
 
@@ -29,3 +32,15 @@ def test_variant_source_changes_what_it_names(kernel, name):
 def test_variant_source_refuses_an_unknown_constant():
     with pytest.raises(ValueError, match="kNoSuch"):
         kernel_probe.variant_source(_source("k2"), {"kNoSuch": 1})
+
+
+def test_spill_bytes_sums_every_kernel_of_a_ptxas_log():
+    log = ("ptxas info    : Function properties for _Z3fooPf\n"
+           "    80 bytes stack frame, 76 bytes spill stores, 12 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 255 registers, used 1 barriers\n"
+           "ptxas info    : Function properties for _Z3barPf\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 4 bytes spill "
+           "loads\n")
+    assert cuda_build.spill_bytes(log) == 92
+    assert cuda_build.spill_bytes("ptxas info    : Used 40 registers") == 0

@@ -4,15 +4,14 @@
 // Replaces: vit_deep_radiomics_tpu/ops/attention_grad.py::_bwd_dkv_kernel
 // (flash_attention_trainable's backward, a Pallas TPU kernel).
 //
-// A block owns 64 keys of one (batch, head), two lanes a key, each lane
-// holding half of the key's k and v rows and of its dk and dv
-// accumulators, and loops over the queries in 64-row tiles. A tile stages
-// the queries' pre-scaled q (for the score), q (for dk), dO, lse, D and
-// bias terms in shared memory once for the block. Per query it rebuilds
-// the forward's score (flash_trainable_core.cuh), P = exp2(s - lse),
-// dP = dO v^T, dS = P (dP - D); then
-//     dv += P dO        dk += dS q     (dk times D^-1/2 at the end)
-// Keys at or past kv_len get P = 0, so their dk and dv are zero.
+// A block owns 64 keys of one (batch, head) and walks the queries in tiles
+// of kCols. Per tile it rebuilds the forward's scores S^T (keys x queries,
+// flash_trainable_core.cuh), takes P^T = exp2(S^T - lse), dP^T = V dO^T and
+// dS^T = P^T (dP^T - D) in registers, puts P^T and dS^T in shared memory
+// once, then
+//     dv += P^T dO        dk += dS^T q     (dk times D^-1/2 at the end)
+// Keys at or past kv_len score -1e30 (P = 0; on a kv_len 0 row, P = 1).
+// A block whose keys all lie past a non-zero kv_len writes zeros.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 on the CUDA
 // cores): 8 S^2 D FLOP per (batch, head) (q k^T, dO v^T, P^T dO, dS^T q)
@@ -20,110 +19,204 @@
 // operations: SAM's global layers (2 x 12 x 4096 tokens) 206 GFLOP,
 // 3.08 ms; SAM's windowed layers (50 x 12 x 196 tokens) 11.8 GFLOP,
 // 0.18 ms, against 0.053 ms of traffic; DINOv2 ViT-B/14 (2 x 12 x 1536
-// tokens, 1370 valid keys) 62 GFLOP.
+// tokens, 1370 valid keys) 25.9 GFLOP, 0.39 ms. So the CUDA cores' FMA
+// rate is the roof, and the first design (two lanes a key, every FMA's
+// other operand streamed from shared memory, 255 registers and a spill,
+// synchronous tiles) ran at 16% of it: the load/store pipe paced it.
 //
-// What the design does about it: the score, P and dS stay in registers;
-// the query tile is read from shared memory as broadcasts, 16-byte vectors;
-// four queries' dot-product chains run side by side; the bias terms of a
-// query are staged [query][term], so the lanes of a warp (16 keys) read
-// distinct banks. fp32 on the CUDA cores.
+// What this design does about it: register tiles, as an SGEMM. Each thread
+// computes a 4 x 4 micro-tile of S^T and dP^T (8 shared 16-byte loads feed
+// 64 FMAs) and owns 4 keys x 8 dims of dk and dv (3 loads feed 32 FMAs per
+// product); the two score chains of the forward run in one thread, so no
+// shuffle. The next query tile (q, dO, lse, D, the bias terms these keys
+// take, by 16-byte copies where aligned) arrives by cp.async into the
+// second of two buffers while the current tile's products run; q is
+// pre-scaled once per tile into its own buffer for the score. About 111 KB
+// of shared memory at Kw = 64 and 228 registers a thread (the score chains
+// unrolled by 4: fully unrolled they spill), so two blocks (8 warps) share
+// an SM; the 4 x 4 micro-tile's shared loads and the per-tile steps hold it
+// to about 43% of the FMA rate (PERF.md, the probe's ablations).
+//
+// The library yardstick, PyTorch's fp32 SDPA backward (memory-efficient
+// backend), runs its products on the tensor cores as 3xTF32
+// (OpMultiplyAddFastF32); this kernel keeps `parity`'s fp32 FMA contract.
 
 #include "flash_trainable_core.cuh"
 
 namespace {
 using namespace vdr::k6;
+using namespace vdr::k6::bwd;
 
-constexpr int G = 4;   // queries whose chains run side by side
+constexpr int kCols = 32;    // queries a tile
+constexpr int kStages = 2;   // tile buffers
+constexpr int TC = kCols / TX;
+// The bias terms of a query row are staged as [kCols][LB]: nh grid-row
+// terms at [0, nh) (rows key0 / kw onwards) and nw grid-column terms at
+// [W0, W0 + nw) (all kw columns, or with kw > ROWS the block's own). LB is
+// 4 modulo 32, so a warp's reads (8 queries, 4 keys) hit distinct banks.
+__host__ __device__ int w0_of(int nh) { return round4(nh); }
+__host__ __device__ int lb_of(int nh, int nw) {
+  return nw ? (w0_of(nh) + nw + 27) / 32 * 32 + 4 : 0;
+}
 
-size_t smem_bytes(int kh, int kw) {
-  return (size_t)(3 * TILE * LDS + 2 * TILE + TILE * (kh + kw)) *
+__host__ __device__ int stage_floats(int lb) {
+  return 2 * kCols * LD + 2 * kCols + kCols * lb;
+}
+
+size_t smem_bytes(int lb) {
+  return (size_t)(2 * ROWS * LD + kStages * stage_floats(lb) + kCols * LD +
+                  2 * kCols * LP) *
          sizeof(float);
 }
 
-__global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
+__global__ void __launch_bounds__(NT, 2) dkv_kernel(Params p, int nh,
+                                                     int nw) {
   extern __shared__ __align__(16) float smem[];
-  float* qs_s = smem;                     // [TILE][LDS] pre-scaled q
-  float* q_s = qs_s + TILE * LDS;         // [TILE][LDS] q
-  float* do_s = q_s + TILE * LDS;         // [TILE][LDS] dO
-  float* lse_s = do_s + TILE * LDS;       // [TILE]
-  float* dl_s = lse_s + TILE;             // [TILE]
-  float* bias_s = dl_s + TILE;            // [TILE][kh + kw]
+  const int w0 = w0_of(nh), lb = lb_of(nh, nw), sf = stage_floats(lb);
+  float* ks = smem;                        // [ROWS][LD] k
+  float* vs = ks + ROWS * LD;              // [ROWS][LD] v
+  float* stages = vs + ROWS * LD;          // kStages x (q, dO, lse, D, bias)
+  float* qs = stages + kStages * sf;       // [kCols][LD] pre-scaled q
+  float* ps = qs + kCols * LD;             // [kCols][LP] P^T
+  float* dss = ps + kCols * LP;            // [kCols][LP] dS^T
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int key = blockIdx.x * ROWS + (threadIdx.x >> 1);
-  const int half = threadIdx.x & 1;
-  const bool in_range = key < p.S;
-  const bool live = key < valid_keys(p, b);
+  const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * ROWS;
+  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
   const size_t bh = (size_t)b * p.H + h;
   const size_t base = bh * p.S * D;
-  const bool has_bias = p.bias_h != nullptr;
-  const int bt = p.kh + p.kw;             // bias terms per staged query
-  const int th = has_bias ? key / p.kw : 0;
-  const int tw = has_bias ? p.kh + key % p.kw : 0;
-
-  float kk[HD], vv[HD], dk[HD], dv[HD];
-  const size_t koff = base + (size_t)key * D + half * HD;
-  load_half<false>(kk, p.k + koff, in_range, 1.f);
-  load_half<false>(vv, p.v + koff, in_range, 1.f);
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dk[d] = dv[d] = 0.f;
-  const int hc = half_col(half);
-
-  for (int q0 = 0; q0 < p.S; q0 += TILE) {
-    const int nq = min(TILE, p.S - q0);
-    __syncthreads();
-    load_rows<true>(qs_s, p.q + base + (size_t)q0 * D, nq, TILE,
-                    p.scale_log2);
-    load_rows<false>(q_s, p.q + base + (size_t)q0 * D, nq, TILE, 1.f);
-    load_rows<false>(do_s, p.dout + base + (size_t)q0 * D, nq, TILE, 1.f);
-    for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-      lse_s[i] = i < nq ? p.lse[bh * p.S + q0 + i] : 0.f;
-      dl_s[i] = i < nq ? p.delta[bh * p.S + q0 + i] : 0.f;
+  const int nrows = min(ROWS, p.S - key0);
+  const int n_keys = valid_keys(p, b);
+  if (n_keys > 0 && key0 >= n_keys) {
+    for (int i = threadIdx.x; i < nrows * D; i += NT) {
+      p.dk[base + (size_t)key0 * D + i] = 0.f;
+      p.dv[base + (size_t)key0 * D + i] = 0.f;
     }
-    if (has_bias) {
-      const float* bhp = p.bias_h + (bh * p.S + q0) * p.kh;
-      const float* bwp = p.bias_w + (bh * p.S + q0) * p.kw;
-      for (int i = threadIdx.x; i < TILE * p.kh; i += blockDim.x) {
-        const int r = i / p.kh, t = i % p.kh;
-        bias_s[r * bt + t] = r < nq ? bias_log2(bhp[i]) : 0.f;
-      }
-      for (int i = threadIdx.x; i < TILE * p.kw; i += blockDim.x) {
-        const int r = i / p.kw, t = i % p.kw;
-        bias_s[r * bt + p.kh + t] = r < nq ? bias_log2(bwp[i]) : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int i0 = 0; i0 < nq; i0 += G) {
-      float s[G], dp[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        s[g] = half_dot(kk, qs_s + (i0 + g) * LDS + hc);
-        dp[g] = half_dot(vv, do_s + (i0 + g) * LDS + hc);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        s[g] = join(s[g]);
-        dp[g] = join(dp[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int i = i0 + g;
-        float pv = 0.f;
-        if (i < nq && live) {
-          float sv = s[g];
-          if (has_bias)
-            sv = with_bias(sv, bias_s[i * bt + th], bias_s[i * bt + tw]);
-          pv = exp2f(sv - lse_s[i]);
-        }
-        const float ds = pv * (dp[g] - dl_s[i]);
-        half_axpy(dv, pv, do_s + i * LDS + hc);
-        half_axpy(dk, ds, q_s + i * LDS + hc);
-      }
-    }
+    return;
   }
-  if (!in_range) return;
-  store_half(p.dk + koff, dk, p.scale);
-  store_half(p.dv + koff, dv, 1.f);
+  const bool has_bias = p.bias_h != nullptr;
+  const bool mask_keys = key0 + ROWS > n_keys;   // one flag a block
+  const int th0 = has_bias ? key0 / p.kw : 0;
+
+  // This thread's score rows: keys key0 + ty + TY i, their staged bias
+  // terms (a key past S takes the last key's; it writes nothing).
+  int hs[TR], ws[TR];
+  bool dead[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int key = key0 + ty + TY * i, kc = min(key, p.S - 1);
+    dead[i] = key >= n_keys;
+    hs[i] = has_bias ? kc / p.kw - th0 : 0;
+    ws[i] = has_bias ? w0 + (p.kw <= ROWS ? kc % p.kw : kc - key0) : 0;
+  }
+  // The grid columns staged: from col0 on; by 16-byte copies where every
+  // query's run of them is 16-byte aligned and does not wrap.
+  const int col0 = p.kw <= ROWS ? 0 : key0 % p.kw;
+  const bool vec = p.kw % 4 == 0 && col0 % 4 == 0 && nw % 4 == 0 &&
+                   col0 + nw <= p.kw;
+
+  auto fetch = [&](int t, float* st) {
+    const int q0 = t * kCols, nq = min(kCols, p.S - q0);
+    copy_rows<kCols>(st, p.q + base + (size_t)q0 * D, nq);
+    copy_rows<kCols>(st + kCols * LD, p.dout + base + (size_t)q0 * D, nq);
+    copy_vec<kCols>(st + 2 * kCols * LD, p.lse + bh * p.S + q0, nq);
+    copy_vec<kCols>(st + 2 * kCols * LD + kCols, p.delta + bh * p.S + q0,
+                    nq);
+    if (!has_bias) return;
+    float* bs = st + 2 * kCols * LD + 2 * kCols;
+    const size_t row0 = bh * p.S + q0;
+    for (int i = threadIdx.x; i < kCols * nh; i += NT) {
+      const int c = i / nh, slot = i % nh;
+      const size_t row = row0 + (c < nq ? c : 0);
+      cp_async4(bs + c * lb + slot,
+                p.bias_h + row * p.kh + min(th0 + slot, p.kh - 1), c < nq);
+    }
+    if (vec) {
+      const int n4 = nw / 4;
+      for (int i = threadIdx.x; i < kCols * n4; i += NT) {
+        const int c = i / n4, w = (i % n4) * 4;
+        const size_t row = row0 + (c < nq ? c : 0);
+        cp_async16(bs + c * lb + w0 + w, p.bias_w + row * p.kw + col0 + w,
+                   c < nq);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kCols * nw; i += NT) {
+        const int c = i / nw, w = i % nw;
+        const size_t row = row0 + (c < nq ? c : 0);
+        cp_async4(bs + c * lb + w0 + w,
+                  p.bias_w + row * p.kw + (col0 + w) % p.kw, c < nq);
+      }
+    }
+  };
+
+  // P^T = exp2(S^T - lse) and dS^T = P^T (dP^T - D), in place.
+  auto p_ds = [&](float (&s)[TR][TC], float (&dp)[TR][TC], const float* st) {
+    const float* lse_s = st + 2 * kCols * LD;
+    const float* dl_s = lse_s + kCols;
+    const float* bs = dl_s + kCols;
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int c = tx + TX * j;
+        float sv = s[i][j];
+        if (has_bias)
+          sv = with_bias(sv, bias_log2(bs[c * lb + hs[i]]),
+                         bias_log2(bs[c * lb + ws[i]]));
+        if (mask_keys && dead[i]) sv = kNegInf;
+        const float pv = exp2f(sv - lse_s[c]);
+        dp[i][j] = pv * (dp[i][j] - dl_s[c]);
+        s[i][j] = pv;
+      }
+  };
+
+  copy_rows<ROWS>(ks, p.k + base + (size_t)key0 * D, nrows);
+  copy_rows<ROWS>(vs, p.v + base + (size_t)key0 * D, nrows);
+  if (kStages == 2) fetch(0, stages);
+  cp_async_commit();
+
+  float dk[4][8], dv[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dk[i][e] = dv[i][e] = 0.f;
+  const int nt = (p.S + kCols - 1) / kCols;
+  for (int t = 0; t < nt; ++t) {
+    float* st = stages + (kStages == 2 ? (t & 1) : 0) * sf;
+    if (kStages == 1) {
+      __syncthreads();
+      fetch(t, st);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i = threadIdx.x; i < kCols * (D / 4); i += NT) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      float4 x = ld4(st + r * LD + c);
+      x.x = __fmul_rn(x.x, p.scale_log2);
+      x.y = __fmul_rn(x.y, p.scale_log2);
+      x.z = __fmul_rn(x.z, p.scale_log2);
+      x.w = __fmul_rn(x.w, p.scale_log2);
+      *reinterpret_cast<float4*>(qs + r * LD + c) = x;
+    }
+    __syncthreads();
+    float s[TR][TC] = {}, dp[TR][TC] = {};  // zero for the no_scores probe
+    score_tile(s, ks, qs);
+    dp_tile(dp, vs, st + kCols * LD);
+    p_ds(s, dp, st);
+    store_cols(ps, s);
+    store_cols(dss, dp);
+    // the next tile loads during the products (its buffer's last readers
+    // finished before this tile's first barrier)
+    if (kStages == 2 && t + 1 < nt) {
+      fetch(t + 1, stages + ((t + 1) & 1) * sf);
+      cp_async_commit();
+    }
+    __syncthreads();
+    accumulate<kCols>(dv, ps, st + kCols * LD);
+    accumulate<kCols>(dk, dss, st);
+  }
+  store_rows(p.dk + base + (size_t)key0 * D, dk, nrows, p.scale);
+  store_rows(p.dv + base + (size_t)key0 * D, dv, nrows, 1.f);
 }
 
 }  // namespace
@@ -161,8 +254,14 @@ int vdr_flash_attention_bwd_dkv(const float* q, const float* k,
   p.kw = bias_h != nullptr ? kw : 1;
   p.scale = scale;
   p.scale_log2 = scale * vdr::k6::kLog2e;
-  return vdr::k6::launch(dkv_kernel, p, smem_bytes(p.kh, bias_h ? kw : 0),
-                         stream);
+  int nh = 0, nw = 0;
+  if (bias_h != nullptr) {
+    nh = (vdr::k6::ROWS - 1) / kw + 2;   // grid rows 64 keys can span
+    nh = nh < kh ? nh : kh;
+    nw = kw < vdr::k6::ROWS ? kw : vdr::k6::ROWS;
+  }
+  return vdr::k6::bwd::launch(dkv_kernel, p, smem_bytes(lb_of(nh, nw)),
+                              stream, nh, nw);
 }
 
 }  // extern "C"

@@ -4,18 +4,24 @@
 // Replaces: vit_deep_radiomics_tpu/ops/attention_grad.py::_bwd_dq_kernel
 // (flash_attention_trainable's backward, a Pallas TPU kernel).
 //
-// A block owns 64 query rows of one (batch, head), two lanes a row, each
-// lane holding half of the row's pre-scaled q, of dO and of the dq
-// accumulator, and loops over the keys in 64-key tiles. Per key it rebuilds
-// the forward's score (flash_trainable_core.cuh), P = exp2(s - lse) from
-// the forward's residual, dP = dO v^T and dS = P (dP - D) with D = sum_d
-// dO O per row; then
+// A block owns 64 query rows of one (batch, head) and walks the keys in
+// tiles of kCols. Per tile it rebuilds the forward's scores S
+// (flash_trainable_core.cuh), takes P = exp2(S - lse), dP = dO V^T and
+// dS = P (dP - D) in registers, with D = sum_d dO O per row, puts dS in
+// shared memory once, then
 //     dq += dS k                     (natural units; times D^-1/2 at the end)
-//     dbias_h[i, j / kw] += dS       (lane 0 of the pair)
-//     dbias_w[i, j % kw] += dS       (lane 1 of the pair)
-// The bias sums sit in shared memory, [term][row], each owned by one lane
-// and summed over the keys in order, so any key-grid width works (SAM's
-// 14-wide windows cut across every key tile) without atomics.
+//     dbias_h[i, r] = sum of dS[i, j] over the keys j of grid row r
+//     dbias_w[i, c] = sum of dS[i, j] over the keys j of grid column c
+// The bias sums are taken in a fixed order with no atomics, so any
+// key-grid width works (SAM's 14-wide windows cut across every key tile).
+// Where Kw is a multiple of kCols (SAM's global 64), a tile lies in one grid
+// row and its keys in distinct columns: each thread adds its dS to the
+// column sums in shared memory and, through a fixed shuffle tree, to its
+// rows' running grid-row sums, written once a grid row is complete.
+// Otherwise they are read back from the dS tile by one thread per (query,
+// grid rows) and one per (query, grid columns), keys in ascending order.
+// Keys at or past kv_len score -1e30; a kv_len 0 row visits every key at
+// that score (P = 1, the plain version and JAX), keys past S -2e30.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 on the CUDA
 // cores): 6 S^2 D FLOP per (batch, head) (q k^T, dO v^T, dS k) against
@@ -23,106 +29,255 @@
 // SAM's global layers (2 x 12 x 4096 tokens) 155 GFLOP, 2.31 ms; SAM's
 // windowed layers (50 x 12 x 196 tokens) 8.9 GFLOP, 0.13 ms, against
 // 0.053 ms of traffic; DINOv2 ViT-B/14 (2 x 12 x 1536 tokens, 1370 valid
-// keys) 46 GFLOP.
+// keys) 19.4 GFLOP, 0.29 ms. The first design (two lanes a query row,
+// every FMA's other operand streamed from shared memory, 254 registers,
+// synchronous tiles) ran at 19% of the FMA rate: the load/store pipe paced
+// it.
 //
-// What the design does about it: the score, P and dS stay in registers;
-// K/V tiles are shared-memory broadcasts read as 16-byte vectors; four
-// keys' dot-product chains run side by side. fp32 on the CUDA cores.
+// What this design does about it: register tiles, as an SGEMM. Each thread
+// computes a 4 x 4 micro-tile of S and dP (8 shared 16-byte loads feed 64
+// FMAs) and owns 4 rows x 8 dims of dq (3 loads feed 32 FMAs); the two
+// score chains of the forward run in one thread, so no shuffle. The next
+// key tile (k, v, the grid-row bias terms it needs) arrives by cp.async
+// into the second of two buffers while the current tile's products run.
+// About 111 KB of shared memory at Kw = 64, so two blocks (8 warps) share
+// an SM: with so few warps the 4 x 4 micro-tile's shared loads and the
+// per-score steps (bias, exp2, the bias sums) still hold it to about 40%
+// of the FMA rate (PERF.md, the probe's ablations).
+//
+// The library yardstick, PyTorch's fp32 SDPA backward (memory-efficient
+// backend), runs its products on the tensor cores as 3xTF32
+// (OpMultiplyAddFastF32); this kernel keeps `parity`'s fp32 FMA contract.
 
 #include "flash_trainable_core.cuh"
 
 namespace {
 using namespace vdr::k6;
+using namespace vdr::k6::bwd;
 
-constexpr int G = 4;   // keys whose chains run side by side
+constexpr int kCols = 32;    // keys a tile
+constexpr int kStages = 2;   // tile buffers
+constexpr int TC = kCols / TX;
+constexpr int BSR = ROWS + 1;   // stride of a [term][row] bias array
 
-size_t smem_bytes(int kh, int kw) {
-  return (size_t)(2 * TILE * LDS + 2 * (kh + kw) * BS) * sizeof(float);
+__host__ __device__ int stage_floats(int nht) {
+  return round4(2 * kCols * LD + nht * BSR);
 }
 
-__global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
+size_t smem_bytes(int kw, int nht) {
+  return (size_t)(2 * ROWS * LD + 2 * ROWS + 2 * round4(kw * BSR) +
+                  kStages * stage_floats(nht) + kCols * LP) *
+         sizeof(float);
+}
+
+// kw grid columns (0 without a bias); nht grid-row terms staged per key
+// tile, the most a tile of kCols keys can span.
+__global__ void __launch_bounds__(NT, 2) dq_kernel(Params p, int kw,
+                                                    int nht) {
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                          // [TILE][LDS]
-  float* vs = ks + TILE * LDS;               // [TILE][LDS]
-  float* bias_s = vs + TILE * LDS;           // [kh + kw][BS]
-  float* dbias_s = bias_s + (p.kh + p.kw) * BS;  // [kh + kw][BS]
+  const int sf = stage_floats(nht);
+  float* qs = smem;                        // [ROWS][LD] pre-scaled q
+  float* dos = qs + ROWS * LD;             // [ROWS][LD] dO
+  float* lse_s = dos + ROWS * LD;          // [ROWS]
+  float* dl_s = lse_s + ROWS;              // [ROWS]
+  float* bw_s = dl_s + ROWS;               // [kw][BSR] bias_w * log2(e)
+  float* dbw_s = bw_s + round4(kw * BSR);  // [kw][BSR] dbias_w sums
+  float* stages = dbw_s + round4(kw * BSR);  // kStages x (k, v, bias_h)
+  float* dss = stages + kStages * sf;      // [kCols][LP] dS^T
 
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * ROWS;
-  const int lr = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int r = row0 + lr;
-  const bool valid = r < p.S;
+  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
   const size_t bh = (size_t)b * p.H + h;
   const size_t base = bh * p.S * D;
+  const int nrows = min(ROWS, p.S - row0);
   const int n_keys = valid_keys(p, b);
+  const int lim = n_keys == 0 ? p.S : n_keys;   // keys visited
   const bool has_bias = p.bias_h != nullptr;
-  if (has_bias) {
-    stage_bias_rows(p, bh, row0, bias_s);
-    for (int i = threadIdx.x; i < (p.kh + p.kw) * BS; i += blockDim.x)
-      dbias_s[i] = 0.f;
-  }
+  const bool tile_bias = has_bias && kw % kCols == 0;
+  float hsum[TR] = {};   // grid-row sums of this thread's rows (tile_bias)
 
-  float q[HD], dout[HD], dq[HD];
-  const size_t roff = base + (size_t)r * D + half * HD;
-  load_half<true>(q, p.q + roff, valid, p.scale_log2);
-  load_half<false>(dout, p.dout + roff, valid, 1.f);
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dq[d] = 0.f;
-  const float lse = valid ? p.lse[bh * p.S + r] : 0.f;
-  const float dl = valid ? p.delta[bh * p.S + r] : 0.f;
-  const int hc = half_col(half);
+  auto fetch = [&](int t, float* st) {
+    const int k0 = t * kCols, nk = min(kCols, p.S - k0);
+    copy_rows<kCols>(st, p.k + base + (size_t)k0 * D, nk);
+    copy_rows<kCols>(st + kCols * LD, p.v + base + (size_t)k0 * D, nk);
+    if (!has_bias) return;
+    const int kr0 = k0 / kw;
+    float* bs = st + 2 * kCols * LD;
+    for (int i = threadIdx.x; i < ROWS * nht; i += NT) {
+      const int r = i / nht, slot = i % nht;
+      const bool ok = r < nrows && kr0 + slot < p.kh;
+      const size_t row = bh * p.S + row0 + (ok ? r : 0);
+      cp_async4(bs + slot * BSR + r,
+                p.bias_h + row * p.kh + (ok ? kr0 + slot : 0), ok);
+    }
+  };
 
-  for (int k0 = 0; k0 < n_keys; k0 += TILE) {
-    const int nk = min(TILE, n_keys - k0);
-    __syncthreads();
-    load_rows<false>(ks, p.k + base + (size_t)k0 * D, nk, TILE, 1.f);
-    load_rows<false>(vs, p.v + base + (size_t)k0 * D, nk, TILE, 1.f);
-    __syncthreads();
-    for (int j0 = 0; j0 < nk; j0 += G) {
-      float s[G], dp[G];
+  // P = exp2(S - lse) and dS = P (dP - D), in place in dp. A tile that
+  // holds a key at or past kv_len (every tile of a kv_len 0 row) or past S
+  // masks its scores; the others take no test.
+  auto p_ds = [&](float (&s)[TR][TC], float (&dp)[TR][TC], const float* st,
+                  int k0) {
+    const float* bhs = st + 2 * kCols * LD;
+    const bool edge = k0 + kCols > n_keys;
+    int hs[TC], wc[TC];
+    if (has_bias) {
+      const int kr0 = k0 / kw, c0 = k0 - kr0 * kw;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        s[g] = half_dot(q, ks + (j0 + g) * LDS + hc);
-        dp[g] = half_dot(dout, vs + (j0 + g) * LDS + hc);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        s[g] = join(s[g]);
-        dp[g] = join(dp[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int j = j0 + g, key = k0 + j;
-        float ds = 0.f;
-        if (j < nk && valid) {
-          float sv = s[g];
-          int kr = 0, kc = 0;
-          if (has_bias) {
-            kr = key / p.kw;
-            kc = key - kr * p.kw;
-            sv = with_bias(sv, bias_s[kr * BS + lr],
-                           bias_s[(p.kh + kc) * BS + lr]);
-          }
-          ds = exp2f(sv - lse) * (dp[g] - dl);
-          if (has_bias) {
-            if (half == 0)
-              dbias_s[kr * BS + lr] += ds;
-            else
-              dbias_s[(p.kh + kc) * BS + lr] += ds;
-          }
+      for (int j = 0; j < TC; ++j) {
+        int c = c0 + tx + TX * j, r = 0;
+        while (c >= kw) {
+          c -= kw;
+          ++r;
         }
-        half_axpy(dq, ds, ks + j * LDS + hc);
+        hs[j] = r;
+        wc[j] = c;
       }
     }
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int row = ty + TY * i, key = k0 + tx + TX * j;
+        float sv = s[i][j];
+        if (has_bias && (!edge || key < p.S))
+          sv = with_bias(sv, bias_log2(bhs[hs[j] * BSR + row]),
+                         bw_s[wc[j] * BSR + row]);
+        if (edge) sv = key >= p.S ? kPastS : key >= n_keys ? kNegInf : sv;
+        dp[i][j] = exp2f(sv - lse_s[row]) * (dp[i][j] - dl_s[row]);
+      }
+    if (!tile_bias) return;
+    // Kw a multiple of kCols: the tile lies in one grid row and its keys in
+    // distinct grid columns, so each thread adds its own dS to the column
+    // sums and, through a fixed shuffle tree over the 8 lanes of a row, to
+    // the running sums of its rows' grid row.
+    const int c0 = k0 % kw;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = ty + TY * i;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        dbw_s[(c0 + tx + TX * j) * BSR + row] += dp[i][j];
+        rs += dp[i][j];
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      hsum[i] += rs;
+    }
+  };
+
+  // Write the grid-row sums of this thread's rows as grid row r.
+  auto put_rows = [&](int r) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = ty + TY * i;
+      if (tx == 0 && row < nrows)
+        p.dbh[(bh * p.S + row0 + row) * p.kh + r] = hsum[i];
+      hsum[i] = 0.f;
+    }
+  };
+
+  if (kStages == 2) fetch(0, stages);
+  cp_async_commit();
+  // The block's rows: q pre-scaled (one rounding, as the forward), dO, lse,
+  // D, bias_w times log2(e); zero past S.
+  for (int i = threadIdx.x; i < ROWS * (D / 4); i += NT) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (r < nrows) {
+      const size_t o = base + (size_t)(row0 + r) * D + c;
+      x = ld4(p.q + o);
+      y = ld4(p.dout + o);
+      x.x = __fmul_rn(x.x, p.scale_log2);
+      x.y = __fmul_rn(x.y, p.scale_log2);
+      x.z = __fmul_rn(x.z, p.scale_log2);
+      x.w = __fmul_rn(x.w, p.scale_log2);
+    }
+    *reinterpret_cast<float4*>(qs + r * LD + c) = x;
+    *reinterpret_cast<float4*>(dos + r * LD + c) = y;
   }
-  if (valid) store_half(p.dq + roff, dq, p.scale);
+  for (int i = threadIdx.x; i < ROWS; i += NT) {
+    lse_s[i] = i < nrows ? p.lse[bh * p.S + row0 + i] : 0.f;
+    dl_s[i] = i < nrows ? p.delta[bh * p.S + row0 + i] : 0.f;
+  }
+  for (int i = threadIdx.x; i < ROWS * kw; i += NT) {
+    const int r = i / kw, c = i % kw;
+    bw_s[c * BSR + r] =
+        r < nrows ? bias_log2(p.bias_w[(bh * p.S + row0) * kw + i]) : 0.f;
+    dbw_s[c * BSR + r] = 0.f;
+  }
+
+  // The bias sums of this thread: query row qr, grid rows (role 0) or
+  // grid columns (role 1); (brow, bcol) is the next key's grid cell.
+  const int qr = threadIdx.x % ROWS, role = threadIdx.x / ROWS;
+  const size_t dbh_row = (bh * p.S + row0 + qr) * p.kh;
+  int brow = 0, bcol = 0;
+  float bacc = 0.f;
+  auto bias_sums = [&](int k0) {
+    const int nk = min(kCols, p.S - k0);   // keys past S have no cell
+    for (int c = 0; c < nk; ++c) {
+      const float ds = dss[c * LP + qr];
+      if (role == 0) {
+        bacc += ds;
+      } else {
+        dbw_s[bcol * BSR + qr] += ds;
+      }
+      if (++bcol == kw) {
+        bcol = 0;
+        if (role == 0 && qr < nrows) p.dbh[dbh_row + brow] = bacc;
+        bacc = 0.f;
+        ++brow;
+      }
+    }
+  };
+
+  float dq[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dq[i][e] = 0.f;
+  const int nt = (lim + kCols - 1) / kCols;
+  for (int t = 0; t < nt; ++t) {
+    float* st = stages + (kStages == 2 ? (t & 1) : 0) * sf;
+    if (kStages == 1) {
+      __syncthreads();
+      fetch(t, st);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    float s[TR][TC] = {}, dp[TR][TC] = {};  // zero for the no_scores probe
+    score_tile(s, qs, st);
+    dp_tile(dp, dos, st + kCols * LD);
+    p_ds(s, dp, st, t * kCols);
+    store_cols(dss, dp);
+    // the next tile loads during the products (its buffer's last readers
+    // finished before this tile's first barrier)
+    if (kStages == 2 && t + 1 < nt) {
+      fetch(t + 1, stages + ((t + 1) & 1) * sf);
+      cp_async_commit();
+    }
+    __syncthreads();
+    accumulate<kCols>(dq, dss, st);
+    if (tile_bias && (t + 1) * kCols % kw == 0) put_rows(t * kCols / kw);
+    if (has_bias && !tile_bias) bias_sums(t * kCols);
+  }
+  store_rows(p.dq + base + (size_t)row0 * D, dq, nrows, p.scale);
   if (!has_bias) return;
+  // grid rows cut short or never reached (keys past kv_len): their dS is 0
+  if (tile_bias) {
+    int r = nt * kCols / kw;
+    if (nt * kCols % kw) put_rows(r++);
+    for (; r < p.kh; ++r) put_rows(r);
+  } else if (role == 0 && qr < nrows) {
+    if (bcol) p.dbh[dbh_row + brow++] = bacc;
+    for (; brow < p.kh; ++brow) p.dbh[dbh_row + brow] = 0.f;
+  }
   __syncthreads();
-  const int nrows = min(ROWS, p.S - row0);
-  const size_t brow = bh * p.S + row0;
-  for (int i = threadIdx.x; i < nrows * p.kh; i += blockDim.x)
-    p.dbh[brow * p.kh + i] = dbias_s[(i % p.kh) * BS + i / p.kh];
-  for (int i = threadIdx.x; i < nrows * p.kw; i += blockDim.x)
-    p.dbw[brow * p.kw + i] = dbias_s[(p.kh + i % p.kw) * BS + i / p.kw];
+  const size_t brow0 = (bh * p.S + row0) * kw;
+  for (int i = threadIdx.x; i < nrows * kw; i += NT)
+    p.dbw[brow0 + i] = dbw_s[(i % kw) * BSR + i / kw];
 }
 
 }  // namespace
@@ -161,8 +316,14 @@ int vdr_flash_attention_bwd_dq(const float* q, const float* k,
   p.kw = bias_h != nullptr ? kw : 1;
   p.scale = scale;
   p.scale_log2 = scale * vdr::k6::kLog2e;
-  return vdr::k6::launch(dq_kernel, p, smem_bytes(p.kh, bias_h ? kw : 0),
-                         stream);
+  const int bkw = bias_h != nullptr ? kw : 0;
+  int nht = 0;
+  if (bias_h != nullptr) {
+    nht = (kCols - 1) / kw + 2;   // grid rows a key tile can span
+    nht = nht < kh ? nht : kh;
+  }
+  return vdr::k6::bwd::launch(dq_kernel, p, smem_bytes(bkw, nht), stream,
+                              bkw, nht);
 }
 
 }  // extern "C"

@@ -49,23 +49,28 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   const bool valid = r < p.S;
   const size_t bh = (size_t)b * p.H + h;
   const size_t base = bh * p.S * D;
+  // A kv_len 0 row: every key scores -1e30 (the plain version, JAX), so P
+  // is 1 on all S keys. Visit them with q = 0 and no bias (every score 0,
+  // the same P) and write the plain lse, -1e30 + log2(S).
   const int n_keys = valid_keys(p, b);
-  const bool has_bias = p.bias_h != nullptr;
+  const bool none = n_keys == 0;
+  const int lim = none ? p.S : n_keys;
+  const bool has_bias = p.bias_h != nullptr && !none;
   if (has_bias) stage_bias_rows(p, bh, row0, bias_s);
 
   float q[HD], acc[HD];
-  load_half<true>(q, p.q + base + (size_t)r * D + half * HD, valid,
+  load_half<true>(q, p.q + base + (size_t)r * D + half * HD, valid && !none,
                   p.scale_log2);
 #pragma unroll
   for (int d = 0; d < HD; ++d) acc[d] = 0.f;
   float m = kNegInf, l = 0.f;
   const int hc = half_col(half);
 
-  for (int k0 = 0; k0 < n_keys; k0 += TILE) {
-    const int nk = min(TILE, n_keys - k0);
+  for (int k0 = 0; k0 < lim; k0 += TILE) {
+    const int nk = min(TILE, lim - k0);
     __syncthreads();
-    load_rows<false>(ks, p.k + base + (size_t)k0 * D, nk, TILE, 1.f);
-    load_rows<false>(vs, p.v + base + (size_t)k0 * D, nk, TILE, 1.f);
+    load_rows(ks, p.k + base + (size_t)k0 * D, nk, TILE);
+    load_rows(vs, p.v + base + (size_t)k0 * D, nk, TILE);
     __syncthreads();
     for (int c0 = 0; c0 < nk; c0 += CH) {
       float s[CH];
@@ -104,7 +109,8 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   if (!valid) return;
   const float safe_l = l > 0.f ? l : 1.f;
   store_half(p.out + base + (size_t)r * D + half * HD, acc, 1.f / safe_l);
-  if (half == 0) p.lse_out[bh * p.S + r] = m + log2f(safe_l);
+  if (half == 0)
+    p.lse_out[bh * p.S + r] = (none ? kNegInf : m) + log2f(safe_l);
 }
 
 }  // namespace

@@ -14,12 +14,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load",
+           "spill_bytes"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -87,6 +89,13 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
     with _lock:
         jobs = {n: _start(n) for n in names}
         return {n: _finish(n, *jobs[n]) for n in names}
+
+
+def spill_bytes(log: str) -> int:
+    """Bytes of spill stores and loads that ptxas reports in a
+    ``-Xptxas -v`` log, summed over its kernels."""
+    return sum(int(st) + int(ld) for st, ld in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,24 +1,36 @@
-"""Probes of the Hopper kernels K1 (``csrc/fused_window_attention.cu``) and
-K2 (``csrc/fused_global_attention.cu``) on the GPU.
+"""Probes of the Hopper kernels K1 (``csrc/fused_window_attention.cu``), K2
+(``csrc/fused_global_attention.cu``) and the K6 backward
+(``csrc/flash_attention_bwd_dkv.cu``, ``csrc/flash_attention_bwd_dq.cu``)
+on the GPU.
 
 Two measurements that ``chip_smoke.py`` does not make::
 
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dkv
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity PARENT CHANGE
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
-warpgroups; K2: the ring depth or the consumer warpgroups; for both the
-softmax or the products removed: timing ablations whose output is wrong by
-design), calls each through ``ctypes`` at the extraction path's shapes
-(K1: q (100, 196, 768), Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64,
-and DINOv2's kv_len shape, 4 x 1536 with 1370 valid), and prints its gap
-to the plain version and its time beside SDPA's. ``pair`` runs two
-checkouts in turns (parent, change, change, parent), each in a fresh
-process: 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
-then ``chip_smoke.py``'s extraction phase. Nothing is built or run at
-import.
+warpgroups; K2: the ring depth or the consumer warpgroups; the K6 backward:
+one tile buffer instead of two, or 64-column tiles, a 4 x 8 score
+micro-tile; for all the softmax (K6: the exp2/dS step) or the products
+removed, and for K6 the score and dP products removed: timing ablations
+whose output is wrong by design), calls each through ``ctypes`` at its
+path's shapes (K1: q (100, 196, 768), Kh = Kw = 14; K2: q (4, 4096, 768),
+Kh = Kw = 64, and DINOv2's kv_len shape, 4 x 1536 with 1370 valid; K6: the
+`parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
+(50, 12, 196, 64), Kh = Kw = 14, fp32), and prints its gap to the plain
+version and its time (K1/K2 beside SDPA's, K6 beside the fp32 CUDA cores'
+peak). ``pair`` runs two checkouts in turns (parent, change, change,
+parent), each in a fresh process: with ``--path extraction`` (the default)
+10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock, then
+``chip_smoke.py``'s extraction phase; with ``--path parity`` 5 `parity`
+fine-tuning steps of SAM ViT-B/16 @1024 and of DINOv2 ViT-B/14 @518 at B=2
+(``chip_smoke.py``'s phases 12 and 13: host clock, steady = steps 3-5),
+then its K6 kernel phase 10. Nothing is built or run at import.
 """
 
 from __future__ import annotations
@@ -33,8 +45,11 @@ from pathlib import Path
 __all__ = ["SOURCES", "VARIANTS", "CALLS", "variant_source", "main"]
 
 SOURCES = {"k1": "fused_window_attention.cu",
-           "k2": "fused_global_attention.cu"}
-# kernel: {name: (substitutions of `constexpr` values, calls removed)}
+           "k2": "fused_global_attention.cu",
+           "k6dkv": "flash_attention_bwd_dkv.cu",
+           "k6dq": "flash_attention_bwd_dq.cu"}
+# kernel: {name: (substitutions of `constexpr` values, calls removed, or
+# (text, replacement) pairs)}
 VARIANTS = {
     "k1": {
         "as_built": ({}, ()),
@@ -56,6 +71,27 @@ VARIANTS = {
             "qk_tile(s, qa, k_addr + cur * kTile);",
             "pv_tile(o, pa, v_addr + prev * kTile);",
             "pv_tile(o, pa, v_addr + last * kTile);")),
+    },
+    "k6dkv": {
+        "as_built": ({}, ()),
+        "stages_1": ({"kStages": 1}, ()),
+        "cols_64": ({"kCols": 64}, ()),
+        "no_softmax": ({}, ("p_ds(s, dp, st);",)),
+        "no_products": ({}, ("accumulate<kCols>(dv, ps, st + kCols * LD);",
+                             "accumulate<kCols>(dk, dss, st);")),
+        "no_scores": ({}, ("score_tile(s, ks, qs);",
+                           "dp_tile(dp, vs, st + kCols * LD);")),
+    },
+    "k6dq": {
+        "as_built": ({}, ()),
+        "stages_1": ({"kStages": 1}, ()),
+        "cols_64": ({"kCols": 64}, ()),
+        # dS = S + dP: the scores stay live (removing p_ds would drop them)
+        "no_softmax": ({}, (("exp2f(sv - lse_s[row]) * (dp[i][j] - dl_s[row])",
+                             "sv + dp[i][j]"),)),
+        "no_products": ({}, ("accumulate<kCols>(dq, dss, st);",)),
+        "no_scores": ({}, ("score_tile(s, qs, st);",
+                           "dp_tile(dp, dos, st + kCols * LD);")),
     },
 }
 
@@ -84,28 +120,33 @@ def _k2_call(A, q, kv, bh, bw, kl, heads, scale):
 
 
 # kernel: (entry point's argument types, shapes (B, S, Kh, Kw, kv_len),
-# the plain output and the arguments)
+# the plain output and the arguments; None for the K6 backward, which
+# `_k6_variants` calls)
+_K6_SHAPES = ((2, 4096, 64, 64, None), (50, 196, 14, 14, None))
 CALLS = {
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
            _k1_call),
     "k2": ([_P] * 6 + [_I] * 6 + [_F, _I, _P],
            ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), _k2_call),
+    "k6dkv": ([_P] * 11 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
+    "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
 }
 
 
 def variant_source(text: str, consts: dict, removed=()) -> str:
     """A kernel source with `constexpr int` values replaced and, for the
     ablations, the listed calls (a tile's softmax, or its products) taken
-    out."""
+    out, or (text, replacement) pairs replaced."""
     for name, value in consts.items():
         text, n = re.subn(rf"constexpr int {name} = \d+;",
                           f"constexpr int {name} = {value};", text)
         if n != 1:
             raise ValueError(f"no single constexpr {name} in the source")
     for call in removed:
+        call, repl = call if isinstance(call, tuple) else (call, ";")
         if text.count(call) != 1:
             raise ValueError(f"no single {call} in the source")
-        text = text.replace(call, ";")
+        text = text.replace(call, repl)
     return text
 
 
@@ -218,6 +259,58 @@ def _variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def _k6_variants(kernel: str, out_dir: Path) -> None:
+    """The K6 backward's variants (fp32, per-head (B, H, S, D)) at the
+    `parity` path's shapes: gap to the plain version, ms, share of the fp32
+    CUDA-core peak (67 TFLOP/s, H100 SXM)."""
+    import torch
+
+    from ..ops import attention_grad as G
+
+    fns = _build(kernel, out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    heads, d = 12, 64
+    scale = d ** -0.5
+
+    def ptr(t):
+        return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+    for b, s, kh, kw, _ in CALLS[kernel][1]:
+        q, k, v, dout = (torch.randn(b, heads, s, d, generator=gen,
+                                     device="cuda") for _ in range(4))
+        bh, bw = (torch.randn(b, heads, s, n, generator=gen, device="cuda")
+                  * 0.3 for n in (kh, kw))
+        out, lse = G.flash_attention_fwd(q, k, v, bh, bw, None, scale=scale)
+        args = (q, k, v, bh, bw, None, dout, lse,
+                G.flash_attention_delta(out, dout))
+        if kernel == "k6dq":
+            ref = G.flash_attention_bwd_dq_plain(*args, scale=scale)
+            flops = 6.0 * b * heads * s * s * d
+        else:
+            ref = G.flash_attention_bwd_dkv_plain(*args, scale=scale)
+            flops = 8.0 * b * heads * s * s * d
+        print(f"{kernel} shape ({b}, {heads}, {s}, {d}), Kh {kh}, Kw {kw}:")
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for name, fn in fns.items():
+            outs = [torch.empty_like(r) for r in ref]
+            c_args = (*map(ptr, (*args, *outs)), b, heads, s, d, kh, kw,
+                      scale, stream)
+
+            def run(fn=fn, c_args=c_args):
+                rc = fn(*c_args)
+                if rc:
+                    raise RuntimeError(f"variant launch failed: {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            gap = max((o - r).abs().max().item() for o, r in zip(outs, ref))
+            ms = _ms(torch, run, 10)
+            print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
+                  f"({flops / (ms * 1e-3) / 67e12:.1%} of 67 TFLOP/s)")
+        del q, k, v, dout, bh, bw, out, lse, args, ref
+        torch.cuda.empty_cache()
+
+
 _PAIR_CHILD = r'''
 import sys, time
 sys.path.insert(0, ".")
@@ -250,16 +343,38 @@ torch.cuda.empty_cache()
 cs.extraction_phase(torch, A, tex, syn, state)
 '''
 
+_PAIR_PARITY_CHILD = r'''
+import sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.engine import finetune as ft
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+cuda_build.build_all(cs.K6_NAMES)
+for backbone in ("medsam", "dinov2_vitb14"):
+    cs.finetune_phase(torch, A, ft, backbone, "parity",
+                      cs.PARITY_STEP_LAUNCHES)
+    torch.cuda.empty_cache()
+recs = cs.k6_phase(torch, G, cs.peaks_for(torch.cuda.get_device_name(0))[1])
+for name, rec in recs.items():
+    for shape, r in rec["by_shape"].items():
+        print(f"k6 {name} [{shape}]: ms {r['ms']:.4f} bound {r['bound_ms']:.4f}"
+              f" sdpa {r['library_ms']:.4f} err {r['max_abs_err']:.3e}")
+'''
 
-def _pair(parent: Path, change: Path) -> None:
+
+def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
+    child = _PAIR_CHILD if path == "extraction" else _PAIR_PARITY_CHILD
+    keep = ("forward", "extraction", "fine-tune", "k6 ", "Traceback")
     for tag, tree in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):
-        res = subprocess.run([sys.executable, "-c", _PAIR_CHILD], cwd=tree,
+        res = subprocess.run([sys.executable, "-c", child], cwd=tree,
                              capture_output=True, text=True)
         print(f"{tag} ({tree}): rc {res.returncode}")
         for line in (res.stdout + res.stderr).splitlines():
-            if line.startswith(("forward", "extraction", "Traceback")) or \
-                    "Error" in line:
+            if line.startswith(keep) or "Error" in line:
                 print("  " + line[:240])
         if res.returncode:
             raise RuntimeError(f"{tag} run failed")
@@ -274,6 +389,8 @@ def main(argv=None) -> int:
                    default=Path(__file__).resolve().parents[1] / "_build"
                    / "probe_variants")
     pr = sub.add_parser("pair", help="parent vs change, end to end")
+    pr.add_argument("--path", choices=("extraction", "parity"),
+                    default="extraction")
     pr.add_argument("parent", type=Path)
     pr.add_argument("change", type=Path)
     args = p.parse_args(argv)
@@ -283,9 +400,12 @@ def main(argv=None) -> int:
         print("kernel_probe: no CUDA device is visible", file=sys.stderr)
         return 2
     if args.cmd == "variants":
-        _variants(args.kernel, args.out)
+        if args.kernel.startswith("k6"):
+            _k6_variants(args.kernel, args.out)
+        else:
+            _variants(args.kernel, args.out)
     else:
-        _pair(args.parent.resolve(), args.change.resolve())
+        _pair(args.parent.resolve(), args.change.resolve(), args.path)
     return 0
 
 
