@@ -10,8 +10,8 @@ Phases (each one fails the run with a non-zero exit):
 1. card: name and power limit from ``nvidia-smi``;
 2. build: ``nvcc`` of every kernel under ``vit_deep_radiomics_tpu_torch/
    csrc`` for ``sm_90a``, one process per source, in parallel; the ptxas
-   report of the register-tiled K6 backward kernels (registers, spills),
-   which must show no spill;
+   report of the K5 backward (TMA + wgmma) and the register-tiled K6
+   backward kernels (registers, spills), which must show no spill;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (K1 and K2 in bf16 are
@@ -32,9 +32,11 @@ Phases (each one fails the run with a non-zero exit):
 7. trainable kernels: K4 (window backward) and the K5 forward, dq and dkv
    kernels at the fine-tuning path's shapes (SAM ViT-B/16 @1024, batch 2:
    50 windows of 196 tokens, 2 x 4096 tokens; 12 heads of 64, bf16), each
-   output held against its plain PyTorch version; kernel, plain-version and
-   library (SDPA forward or backward with the dense bias as a trainable
-   ``attn_mask``) times and the card's bound;
+   output held against its plain PyTorch version (the C entries of the K5
+   backward are asked which body they take: the Hopper one, TMA and
+   wgmma); kernel, plain-version and library (SDPA forward or backward
+   with the dense bias as a trainable ``attn_mask``) times and the card's
+   bound;
 8. fine-tuning: ``FineTuner`` on full-width, full-depth SAM ViT-B/16 @1024
    under ``fast``, batch 2, 5 steps on a fixed synthetic batch (the main
    path of K4 and K5: launch counts per step, ms per step, img/s, peak
@@ -51,7 +53,7 @@ Phases (each one fails the run with a non-zero exit):
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
-    2;
+    2 (the K5 backward's route asked and printed, as in phase 7);
 12. parity fine-tuning: ``FineTuner`` on full-width SAM ViT-B/16 @1024
     under ``parity``, batch 2, 5 steps (the main path of K6: 12 launches of
     each K6 kernel per step, no other kernel);
@@ -125,7 +127,8 @@ ATOL = {"fused_window_attention": {"float32": 2e-5, "bfloat16": 5e-3},
 # lse residual is fp32 on both sides and held absolutely. Limits are about
 # 1.5 times the gap measured on an H100 SXM (PERF.md).
 # Measured: K4 1.135e-2 (dbias_w; dq 7.6e-3, dkv 6.7e-3), K5 forward
-# 5.6e-4 and lse 2.58e-3, dq 9.1e-4 (dbias_w), dkv 9.8e-4.
+# 5.6e-4 and lse 2.58e-3, dq 9.1e-4 (dbias_w), dkv 9.8e-4; the K5
+# backward's Hopper bodies dq 9.08e-4 (dbias_w), dkv 9.83e-4.
 TRAIN_ATOL = {"window_attention_bwd": 1.7e-2,
               "global_attention_fwd_lse": 9e-4, "lse": 4e-3,
               "global_attention_bwd_dq": 1.4e-3,
@@ -137,8 +140,10 @@ STEP_LAUNCHES = {"fused_window_attention": 8, "fused_global_attention": 0,
 FT_STEPS = 5
 K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
-# Register-tiled sources whose ptxas report must show no spill
-NO_SPILL = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# Sources whose ptxas report must show no spill: the K5 backward (TMA +
+# wgmma under setmaxnreg) and the register-tiled K6 backward
+NO_SPILL = ("global_attention_bwd_dq", "global_attention_bwd_dkv",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 K5_NAMES = ("global_attention_fwd_lse", "global_attention_bwd_dq",
             "global_attention_bwd_dkv")
 # Per step of a 12-layer backbone: every layer runs K6 under `parity`;
@@ -159,7 +164,7 @@ K6_SHAPES = {"sam_window": (50, 196, 14, 14, None),
 # K2 and K5 in kv_len mode at DINOv2 ViT-B/14 @518's padded shape (bf16,
 # the rule of phases 3 and 7); limits about 1.5 times the measured gap:
 # K2 8.91e-4 (7.10e-4 on the wgmma kernel), K5 forward 8.91e-4 and lse
-# 2.69e-3, dq 1.59e-3, dkv 1.69e-3.
+# 2.69e-3, dq 1.59e-3, dkv 1.69e-3 (the Hopper bodies 9.54e-4, 1.77e-3).
 KV_ATOL = {"fused_global_attention": 1.4e-3,
            "global_attention_fwd_lse": 1.4e-3, "lse": 4e-3,
            "global_attention_bwd_dq": 2.4e-3,
@@ -631,6 +636,18 @@ def _record(name, src, replaces, dtype, err, ms, plain_ms, lib, nb, flops,
     return rec
 
 
+def _k5_bwd_routes(G, args, heads, tag):
+    """Ask both K5 backward C entries which body they run for these
+    operands; the path's shapes must take the Hopper one."""
+    for kernel in ("dq", "dkv"):
+        route = G.global_attention_bwd_route(*args[:5], num_heads=heads,
+                                             kernel=kernel)
+        log(f"kernel global_attention_bwd_{kernel} {tag}: route {route}")
+        if route != "hopper":
+            raise AssertionError(f"K5 {kernel} {tag} takes the {route} body, "
+                                 "not the Hopper one")
+
+
 def train_kernel_phase(torch, A, G, peaks):
     """K4 and the three K5 kernels at the fine-tuning path's shapes (B=2):
     every output against the plain version, times, bounds."""
@@ -711,6 +728,7 @@ def train_kernel_phase(torch, A, G, peaks):
     dout = rand(b, s, c)
     delta = G.attention_delta(out, dout, heads)
     args = (q, kv, bh, bw, None, dout, lse, delta)
+    _k5_bwd_routes(G, args, heads, "[SAM global, B=2]")
     got = G.global_attention_bwd_dq(*args, **kw)
     torch.cuda.synchronize()
     err = check("global_attention_bwd_dq", got,
@@ -1015,6 +1033,7 @@ def kv_len_phase(torch, A, G, peaks):
     args = (q, kv, None, None, kl, dout, lse,
             G.attention_delta(out, dout, heads))
     lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale, doh, mask_grad=False)
+    _k5_bwd_routes(G, args, heads, tag)
     dq = G.global_attention_bwd_dq(*args, **kw)[0]
     dkv = G.global_attention_bwd_dkv(*args, **kw)
     torch.cuda.synchronize()

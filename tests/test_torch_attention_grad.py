@@ -236,3 +236,28 @@ def test_k5_refuses_an_untileable_bias_grid():
     with pytest.raises(ValueError, match="key-grid width"):
         G.global_attention_bwd_dq(q, kv, bh, bw, None, q, lse, lse,
                                   num_heads=2, scale=0.125)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_k5_bwd_route_is_plain_on_the_cpu(kernel):
+    q = torch.zeros(1, 64, 128, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 64, 256, dtype=torch.bfloat16)
+    bh = torch.zeros(1, 2, 64, 1, dtype=torch.bfloat16)
+    bw = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
+    assert G.global_attention_bwd_route(q, kv, bh, bw, num_heads=2,
+                                        kernel=kernel) == "plain"
+
+
+def test_k5_bwd_route_refuses_what_no_kernel_takes():
+    """The route is asked of a kernel by name, and a non-CPU tensor is
+    checked as a launch would check it (never answered "plain")."""
+    q = torch.zeros(1, 120, 128, dtype=torch.bfloat16, device="meta")
+    kv = torch.zeros(1, 120, 256, dtype=torch.bfloat16, device="meta")
+    bh = torch.zeros(1, 2, 120, 10, dtype=torch.bfloat16, device="meta")
+    bw = torch.zeros(1, 2, 120, 12, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="'dq' or 'dkv'"):
+        G.global_attention_bwd_route(q, kv, num_heads=2, kernel="dv")
+    with pytest.raises(TypeError, match="bfloat16"):
+        G.global_attention_bwd_route(q.float(), kv.float(), num_heads=2)
+    with pytest.raises(ValueError, match="key-grid width"):
+        G.global_attention_bwd_route(q, kv, bh, bw, num_heads=2)

@@ -295,6 +295,138 @@ def test_global_trainable_kernels_match_plain(gen, with_bias):
             _assert_grad_close(g_, w_, name, "global")
 
 
+def _k5_inputs(gen, b, heads, s, kh, kw, kv_len):
+    """bf16 operands of the K5 backward and the forward's residuals."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    dt, d = torch.bfloat16, 64
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = None
+    if kh:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    if kv_len is not None:
+        kv_len = torch.tensor(kv_len, device="cuda")
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kv_len, **kwargs)
+    dout = _rand(gen, b, s, heads * d, dtype=dt)
+    return (q, kv, bh, bw, kv_len, dout, lse,
+            G.attention_delta(out, dout, heads)), kwargs
+
+
+# The Hopper bodies of the K5 backward (TMA + wgmma): a 5 x 64 key grid
+# (S = 320, ragged against 128-row and 128-key blocks) and no bias with
+# kv_len, one row at 77 keys or at none (every key at -1e30, P = 1 from
+# the residual).
+K5_HOPPER_CASES = {"kh5_kw64": (5, 64, None), "kv_len_77": (0, 0, [77, 320]),
+                   "kv_len_0": (0, 0, [0, 320])}
+
+
+@pytest.mark.parametrize("case", sorted(K5_HOPPER_CASES))
+def test_global_hopper_bwd_matches_plain(gen, case):
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    kh, kw, kv_len = K5_HOPPER_CASES[case]
+    b, heads, s, d = 2, 4, 320, 64
+    args, kwargs = _k5_inputs(gen, b, heads, s, kh, kw, kv_len)
+    for kernel in ("dq", "dkv"):
+        assert G.global_attention_bwd_route(
+            *args[:5], num_heads=heads, kernel=kernel) == "hopper"
+    A.reset_launch_counts()
+    got = (*G.global_attention_bwd_dq(*args, **kwargs),
+           G.global_attention_bwd_dkv(*args, **kwargs))
+    torch.cuda.synchronize()
+    assert [A.LAUNCHES[k] for k in ("global_attention_bwd_dq",
+                                    "global_attention_bwd_dkv")] == [1, 1]
+    want = (*G.global_attention_bwd_dq_plain(*args, **kwargs),
+            G.global_attention_bwd_dkv_plain(*args, **kwargs))
+    names = ("dq", "dbh", "dbw", "dkv")
+    if kv_len is None or kv_len[0] > 0:
+        for g_, w_, name in zip(got, want, names):
+            if w_ is not None:
+                _assert_grad_close(g_, w_, name, "global")
+        if kv_len is not None:
+            assert not got[3][0, kv_len[0]:].any()
+        return
+    # a kv_len 0 row: the other row under the rule; row 0 has P = 1 on all
+    # S keys, so dS is some S times a softmax row's and its bf16 rounding
+    # as an mma operand is held to its worst case, 2^-8 scale sum |dS| |K|
+    # (|Q| for dk), beyond one bf16 step (the rule of
+    # test_kv_len_zero_row_matches_plain)
+    q, kv, dout, delta = args[0], args[1], args[5], args[7]
+    for g_, w_, name in zip(got, want, names):
+        if w_ is not None:
+            _assert_grad_close(g_[1:], w_[1:], name, "global")
+    c, scale = heads * d, kwargs["scale"]
+
+    def hs(x):   # batch row 0, (S, H·D) -> (H, S, D) in fp32
+        return x[0].float().reshape(s, heads, -1).transpose(0, 1)
+
+    def rows(x):   # (H, S, D) -> (S, H·D)
+        return x.transpose(0, 1).reshape(s, c)
+
+    ds = (hs(dout) @ hs(kv[..., c:]).transpose(-1, -2)
+          - delta[0][..., None]).abs()
+    rounding = (rows(ds @ hs(kv[..., :c]).abs()),
+                torch.cat([rows(ds.transpose(-1, -2) @ hs(q).abs()),
+                           torch.zeros(s, c, device="cuda")], dim=-1))
+    for g_, w_, r_, name in zip((got[0], got[3]), (want[0], want[3]),
+                                rounding, ("dq", "dkv")):
+        g_, w_ = g_[0].float(), w_[0].float()
+        excess = ((g_ - w_).abs() - 2.0 ** -7 * w_.abs()
+                  - 2.0 ** -8 * scale * r_).max().item()
+        print(f"{name} kv_len 0 row: excess {excess:.3e}")
+        assert torch.isfinite(g_).all() and excess <= GRAD_ATOL["global"], (
+            name, excess)
+
+
+@pytest.mark.parametrize("kh,kw,route", [(5, 64, "hopper"), (0, 0, "hopper"),
+                                         (20, 16, "loops")])
+def test_global_bwd_route(gen, kh, kw, route):
+    """Kw 64 and no bias take the Hopper bodies, Kw 16 the mma.sync
+    loops; the two kernels choose alike."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    s, heads = (kh * kw or 320), 2
+    q = _rand(gen, 1, s, heads * 64, dtype=torch.bfloat16)
+    kv = _rand(gen, 1, s, 2 * heads * 64, dtype=torch.bfloat16)
+    bh = bw = None
+    if kh:
+        bh = _rand(gen, 1, heads, s, kh, dtype=torch.bfloat16)
+        bw = _rand(gen, 1, heads, s, kw, dtype=torch.bfloat16)
+    for kernel in ("dq", "dkv"):
+        assert G.global_attention_bwd_route(q, kv, bh, bw, num_heads=heads,
+                                            kernel=kernel) == route
+
+
+def test_global_hopper_bwd_is_deterministic(gen):
+    """No atomics: two launches of each Hopper body give the same bits."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    args, kwargs = _k5_inputs(gen, 2, 4, 320, 5, 64, None)
+    runs = [(*G.global_attention_bwd_dq(*args, **kwargs),
+             G.global_attention_bwd_dkv(*args, **kwargs)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_global_trainable_backward_builds_without_spill(gen, tmp_path,
+                                                        monkeypatch):
+    """Both K5 backward sources, Hopper bodies and loops, fit their
+    registers: build_all's ptxas report (-Xptxas -v) shows no spill."""
+    from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
+
+    monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
+    names = ("global_attention_bwd_dq", "global_attention_bwd_dkv")
+    logs = cb.build_all(names)
+    for name in names:
+        print(name, [ln for ln in logs[name].splitlines()
+                     if "registers" in ln])
+        assert "spill" in logs[name] and cb.spill_bytes(logs[name]) == 0, \
+            logs[name]
+
+
 @pytest.mark.parametrize("remat", ["block", "mlp"])
 def test_remat_on_the_card_matches_no_remat(gen, remat):
     """Fine-tuning a small SAM-shaped model whose global layer has a 64x64

@@ -16,6 +16,7 @@
 #pragma once
 
 #include "flash_attention_core.cuh"
+#include "hopper.cuh"
 
 namespace vdr {
 
@@ -136,7 +137,112 @@ __device__ __forceinline__ void load_tile64(bf16* dst, const bf16* src,
 inline const char* error_string(int err) {
   if (err == -1) return "head dim has no kernel build (D=64 only)";
   if (err == -2) return "key-grid width not taken by this kernel";
+  if (err == -3) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// ---------------------------------------------------------------------------
+// The Hopper bodies of the K5 backward (TMA + wgmma), shared by
+// global_attention_bwd_dkv.cu and global_attention_bwd_dq.cu
+// ---------------------------------------------------------------------------
+namespace k5h {
+
+constexpr int kD = 64;                 // head dim (the only build)
+constexpr int kTile = 64 * kD * 2;     // one 64 x 64 bf16 tile (8 KB)
+constexpr int kErrTensorMap = -3;
+// bias_h grid rows the dq kernel's staged table takes (Kh * 512 bytes)
+constexpr int kMaxGridRows = 128;
+
+// The calls the Hopper bodies take (both kernels alike, so the route is
+// one): head dim 64, and no bias or a key grid 64 keys wide, so that a
+// 64-key tile is one grid row; the others keep the mma.sync loops.
+__host__ __device__ inline bool takes(int D, bool has_bias, int kh, int kw) {
+  return D == kD && (!has_bias || (kw == 64 && kh <= kMaxGridRows));
+}
+
+// Registers a thread under setmaxnreg in a block of `consumers` consumer
+// warpgroups and one producer warpgroup. ptxas gives every thread of the
+// launch 65536 / threads registers (rounded down to 8, so 168 at 384
+// threads); the producer drops to kProducerRegs and the consumers take the
+// rest of the block's share.
+constexpr int kProducerRegs = 40;
+__host__ __device__ constexpr int consumer_regs(int consumers) {
+  return ((65536 / (128 * (consumers + 1)) / 8 * 8) * 128 * (consumers + 1) -
+          128 * kProducerRegs) /
+         (128 * consumers) / 8 * 8;
+}
+
+// A 64 x 64 product over D (4 k16 steps), both operands K-major 64 x 64
+// tiles in shared memory: D(rows of a, rows of b) = a b^T.
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a,
+                                           uint32_t b) {
+  const uint64_t da = sm90::desc_sw128(a, 16, 1024);
+  const uint64_t db = sm90::desc_sw128(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    sm90::Wgmma<64>::ss(d, da + 2 * kk, db + 2 * kk, kk > 0);
+}
+
+// d += A B, A from registers (64 rows x 64 k, four k16 fragments), B a
+// 64 x 64 tile with its k index on the rows (MN-major, as V in P V).
+__device__ __forceinline__ void product_rs(float (&d)[32],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+    sm90::Wgmma<64>::rs<1>(d, a[kt], sm90::desc_sw128(b + kt * 2048, 1024, 1024),
+                           1);
+}
+
+// An accumulator (rows g, g + 8; columns 8i + 2c..) as bf16 A fragments
+// of the next product, whose k index is the accumulator's column.
+__device__ __forceinline__ void pack_a(const float (&s)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a[i / 2][(i & 1) * 2] = pack_bf16(s[4 * i], s[4 * i + 1]);
+    a[i / 2][(i & 1) * 2 + 1] = pack_bf16(s[4 * i + 2], s[4 * i + 3]);
+  }
+}
+
+// A swizzled 64 x 64 bf16 tile scaled by s in fp32 and rounded to bf16
+// (the forward's pre-scaled q): the swizzle permutes 16-byte chunks, so
+// chunk k of dst is chunk k of src scaled; threads `part` of `parts` take
+// every parts-th chunk.
+__device__ __forceinline__ void scale_tile(unsigned char* dst,
+                                           const unsigned char* src, float s,
+                                           int part, int parts) {
+  for (int k = part; k < kTile / 16; k += parts) {
+    const uint4 v = reinterpret_cast<const uint4*>(src)[k];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+      o[i] = pack_bf16(__low2float(x) * s, __high2float(x) * s);
+    }
+    reinterpret_cast<uint4*>(dst)[k] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lane 8m + r gives the address of
+// row r of matrix m; register m holds (row 2c, col g), (row 2c + 1, col g)
+// of matrix m.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// A bias term as the forward stages it: bf16 widened, times log2(e), in
+// fp32 and never contracted into a later add.
+__device__ __forceinline__ float term(__nv_bfloat16 x) {
+  return __fmul_rn(__bfloat162float(x), kLog2e);
+}
+
+}  // namespace k5h
 
 }  // namespace vdr

@@ -417,22 +417,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 
-// 3-D map (width columns, S rows, B batches) of a row-major bf16 tensor,
-// 64 x 64 boxes, 128-byte swizzle; out-of-bounds rows read as zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, int width, int S, int B) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
-                                 (cuuint64_t)S * width * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 size_t hopper_smem(int kh) {
   return 1024 + (size_t)(kConsumers + 2 * kStages) * kTile +
          (size_t)kh * kBiasLd * sizeof(float);
@@ -485,8 +469,8 @@ int vdr_fused_global_attention(const void* q, const void* kv,
     return vdr::launch<64, kRowsF32, kRowsBf16, kBlockK>(p, dtype, st);
   }
   CUtensorMap tq, tkv;
-  if (!tensor_map(&tq, q, H * D, S, B) ||
-      !tensor_map(&tkv, kv, 2 * H * D, S, B))
+  if (!tensor_map_64(&tq, q, H * D, S, B) ||
+      !tensor_map_64(&tkv, kv, 2 * H * D, S, B))
     return kErrTensorMap;
   const HopperParams p{static_cast<const __nv_bfloat16*>(bias_h),
                        static_cast<const __nv_bfloat16*>(bias_w),

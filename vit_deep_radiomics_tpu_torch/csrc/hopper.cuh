@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (K1 and K2 in bf16): shared-memory addresses, mbarriers, named barriers,
-// TMA tensor and bulk copies, wgmma descriptors and instructions, and the
-// runtime lookup of cuTensorMapEncodeTiled (no link against libcuda).
+// (K1, K2 and the K5 backward in bf16): shared-memory addresses, mbarriers,
+// named barriers, TMA tensor and bulk copies, wgmma descriptors and
+// instructions, and the runtime lookup of cuTensorMapEncodeTiled (no link
+// against libcuda) with the 64 x 64 tile maps it encodes.
 #pragma once
 
 #include <cuda.h>
@@ -150,7 +151,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
   ", " VDR_R8_14 ", " VDR_R8_15 "}"
 
 // Wgmma<N>: D(64xN, fp32) (+)= A(64x16) * B(16xN), bf16 in, for the widths
-// the kernels use (K2: 64; K1: 64 for PV, 208 and 256 for its scores).
+// the kernels use (K2 and the K5 backward: 64; K1: 64 for PV, 208 and 256
+// for its scores).
 // ss reads A and B from shared memory, both K-major; rs takes A from
 // registers, with B K-major (TransB 0: K, E) or MN-major (1: V). T0 .. T6
 // spell the numbers of the operands after D, %(N/2) .. %(N/2 + 6).
@@ -268,6 +270,24 @@ inline EncodeTiled encoder() {
     if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
   }
   return fn;
+}
+
+// 3-D map (width columns, rows, batches) of a row-major bf16 tensor, 64 x 64
+// boxes, 128-byte swizzle; rows past `rows` read as zeros.
+inline bool tensor_map_64(CUtensorMap* map, const void* ptr, int width,
+                          int rows, int batches) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows,
+                              (cuuint64_t)batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)rows * width * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -12,7 +12,9 @@ Kw)``, as in ``ops/attention.py``):
   log-sum-exp residual), backward the K5 dq kernel
   (``csrc/global_attention_bwd_dq.cu``: dq and both bias gradients over
   the keys) and the K5 dkv kernel (``csrc/global_attention_bwd_dkv.cu``:
-  dk and dv over the queries).
+  dk and dv over the queries). Both run a TMA + wgmma body on calls with
+  no bias or a key grid 64 keys wide, and mma.sync loops on Kw 8, 16 or
+  32; :func:`global_attention_bwd_route` says which.
 * :func:`flash_attention_trainable` — K6, the generic per-head
   ``(B, H, S, D)`` path of ``parity`` (fp32) fine-tuning: forward with the
   lse residual (``csrc/flash_attention_fwd.cu``), dq with both bias
@@ -57,6 +59,7 @@ __all__ = [
     "global_attention_bwd_dq_plain",
     "global_attention_bwd_dkv",
     "global_attention_bwd_dkv_plain",
+    "global_attention_bwd_route",
     "flash_attention_trainable",
     "flash_attention_delta",
     "flash_attention_fwd",
@@ -401,6 +404,26 @@ def global_attention_bwd_dkv(q, kv, bias_h, bias_w, kv_len, dout, lse,
     _raise_on(rc, lib, "global_attention_bwd_dkv")
     LAUNCHES["global_attention_bwd_dkv"] += 1
     return dkv
+
+
+def global_attention_bwd_route(q, kv, bias_h=None, bias_w=None,
+                               kv_len=None, *, num_heads, kernel="dkv") -> str:
+    """Which body the K5 backward kernel ``kernel`` (``"dq"`` or ``"dkv"``)
+    runs for these operands: ``"plain"`` on the CPU; on the card, as its
+    source's C entry chooses, ``"hopper"`` (the TMA + wgmma kernel: no bias
+    or a key grid 64 keys wide) or ``"loops"`` (the mma.sync loops, Kw in
+    {8, 16, 32})."""
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, None)
+    if q.device.type == "cpu":
+        return "plain"
+    _check_bwd_cuda(q, d, kv, bias_h, bias_w)
+    _check_k5_bias(kw)
+    _, fn = _load(f"global_attention_bwd_{kernel}", [_I] * 6,
+                  entry="vdr_global_attention_bwd_route")
+    hopper = fn(q.shape[1], num_heads, d, kh, kw, int(bias_h is not None))
+    return "hopper" if hopper else "loops"
 
 
 def _check_flash(q, k, v, bias_h, bias_w, kv_len):

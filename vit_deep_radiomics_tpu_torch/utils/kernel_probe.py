@@ -1,36 +1,45 @@
 """Probes of the Hopper kernels K1 (``csrc/fused_window_attention.cu``), K2
-(``csrc/fused_global_attention.cu``) and the K6 backward
-(``csrc/flash_attention_bwd_dkv.cu``, ``csrc/flash_attention_bwd_dq.cu``)
-on the GPU.
+(``csrc/fused_global_attention.cu``), the K5 backward
+(``csrc/global_attention_bwd_dkv.cu``, ``csrc/global_attention_bwd_dq.cu``)
+and the K6 backward (``csrc/flash_attention_bwd_dkv.cu``,
+``csrc/flash_attention_bwd_dq.cu``) on the GPU.
 
 Two measurements that ``chip_smoke.py`` does not make::
 
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dkv
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity PARENT CHANGE
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
-warpgroups; K2: the ring depth or the consumer warpgroups; the K6 backward:
-one tile buffer instead of two, or 64-column tiles, a 4 x 8 score
-micro-tile; for all the softmax (K6: the exp2/dS step) or the products
-removed, and for K6 the score and dP products removed: timing ablations
-whose output is wrong by design), calls each through ``ctypes`` at its
-path's shapes (K1: q (100, 196, 768), Kh = Kw = 14; K2: q (4, 4096, 768),
-Kh = Kw = 64, and DINOv2's kv_len shape, 4 x 1536 with 1370 valid; K6: the
-`parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
-(50, 12, 196, 64), Kh = Kw = 14, fp32), and prints its gap to the plain
-version and its time (K1/K2 beside SDPA's, K6 beside the fp32 CUDA cores'
-peak). ``pair`` runs two checkouts in turns (parent, change, change,
-parent), each in a fresh process: with ``--path extraction`` (the default)
-10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock, then
-``chip_smoke.py``'s extraction phase; with ``--path parity`` 5 `parity`
-fine-tuning steps of SAM ViT-B/16 @1024 and of DINOv2 ViT-B/14 @518 at B=2
-(``chip_smoke.py``'s phases 12 and 13: host clock, steady = steps 3-5),
-then its K6 kernel phase 10. Nothing is built or run at import.
+warpgroups; K2: the ring depth or the consumer warpgroups; the K5
+backward: three consumer warpgroups, the ring depth, the bias step
+removed; the K6 backward: one tile buffer instead of two, or 64-column
+tiles, a 4 x 8 score micro-tile; for all the softmax (K5 and K6: the
+exp2/dS step) or the products removed, and for K5 and K6 the score and
+dP products removed: timing ablations whose output is wrong by design),
+calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
+Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
+shape, 4 x 1536 with 1370 valid; K5: q (2, 4096, 768), Kh = Kw = 64, and
+the kv_len shape at B=2, bf16; K6: the `parity` path's SAM global (2, 12,
+4096, 64), Kh = Kw = 64, and windowed (50, 12, 196, 64), Kh = Kw = 14,
+fp32), and prints its gap to the plain version and its time (K1/K2 beside
+SDPA's, K5 beside the bf16 tensor-core peak, K6 beside the fp32 CUDA
+cores' peak). ``pair`` runs two checkouts in turns (parent, change,
+change, parent), each in a fresh process: with ``--path extraction`` (the
+default) 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
+then ``chip_smoke.py``'s extraction phase; with ``--path fast`` or
+``--path parity`` 5 fine-tuning steps of SAM ViT-B/16 @1024 and of DINOv2
+ViT-B/14 @518 at B=2 under that policy (``chip_smoke.py``'s phases 8 and
+13, or 12 and 13: host clock, steady = steps 3-5), then its kernel phases
+7 and 11 (K4, K5; `fast`) or 10 (K6; `parity`). Nothing is built or run at
+import.
 """
 
 from __future__ import annotations
@@ -47,7 +56,9 @@ __all__ = ["SOURCES", "VARIANTS", "CALLS", "variant_source", "main"]
 SOURCES = {"k1": "fused_window_attention.cu",
            "k2": "fused_global_attention.cu",
            "k6dkv": "flash_attention_bwd_dkv.cu",
-           "k6dq": "flash_attention_bwd_dq.cu"}
+           "k6dq": "flash_attention_bwd_dq.cu",
+           "k5dkv": "global_attention_bwd_dkv.cu",
+           "k5dq": "global_attention_bwd_dq.cu"}
 # kernel: {name: (substitutions of `constexpr` values, calls removed, or
 # (text, replacement) pairs)}
 VARIANTS = {
@@ -93,6 +104,39 @@ VARIANTS = {
         "no_scores": ({}, ("score_tile(s, qs, st);",
                            "dp_tile(dp, dos, st + kCols * LD);")),
     },
+    "k5dkv": {
+        "as_built": ({}, ()),
+        "consumers_3": ({"kConsumers": 3}, ()),
+        "stages_3": ({"kStages": 3}, ()),
+        "stages_5": ({"kStages": 5}, ()),
+        "no_bias": ({}, ("add_bias(s, sm + 128 + 64 * wg, bw_tile, warp, "
+                         "lane, c);",)),
+        "no_softmax": ({}, ("probs_ds(s, dp, sm, sm + 64, c, ragged, lo_ok, "
+                            "hi_ok);",)),
+        "no_products": ({}, ("grads_tile(dv, dk, pa, sa, prev + kTile, prev);",
+                             "grads_tile(dv, dk, pa, sa, last + kTile, "
+                             "last);")),
+        "no_scores": ({}, (
+            "scores_tile(s, dp, k_tile, v_tile, first + 2 * kTile, "
+            "first + kTile);",
+            "scores_tile(s, dp, k_tile, v_tile, cur + 2 * kTile, "
+            "cur + kTile);")),
+    },
+    "k5dq": {
+        "as_built": ({}, ()),
+        "consumers_3": ({"kConsumers": 3}, ()),
+        "stages_2": ({"kStages": 2}, ()),
+        "stages_6": ({"kStages": 6}, ()),
+        "no_bias": ({}, ("add_bias(s, bw, bh[r_lo], bh[r_hi]);",
+                         "bias_grads(dp, dbw, dbh_lo, dbh_hi, kr, c);")),
+        "no_softmax": ({}, ("probs_ds(s, dp, l_lo, l_hi, d_lo, d_hi, ragged, "
+                            "j * 64 + 2 * c, n_keys);",)),
+        "no_products": ({}, ("vdr::k5h::product_rs(dq, da, prev);",
+                             "vdr::k5h::product_rs(dq, da, last);")),
+        "no_scores": ({}, (
+            "scores_tile(s, dp, q_addr, do_addr, ring, ring + kTile);",
+            "scores_tile(s, dp, q_addr, do_addr, cur, cur + kTile);")),
+    },
 }
 
 
@@ -123,6 +167,8 @@ def _k2_call(A, q, kv, bh, bw, kl, heads, scale):
 # the plain output and the arguments; None for the K6 backward, which
 # `_k6_variants` calls)
 _K6_SHAPES = ((2, 4096, 64, 64, None), (50, 196, 14, 14, None))
+# the K5 backward (bf16): SAM @1024's global layers and DINOv2's kv_len
+_K5_SHAPES = ((2, 4096, 64, 64, None), (2, 1536, 0, 0, 1370))
 CALLS = {
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
            _k1_call),
@@ -130,6 +176,8 @@ CALLS = {
            ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), _k2_call),
     "k6dkv": ([_P] * 11 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
+    "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
+    "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
 }
 
 
@@ -311,6 +359,68 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def _k5_variants(kernel: str, out_dir: Path) -> None:
+    """The K5 backward's variants (bf16, the port's (B, S, H·D) layouts)
+    at the `fast` path's shapes: gap to the plain version beyond one bf16
+    step, ms, share of the bf16 tensor-core peak (989 TFLOP/s, H100 SXM)."""
+    import torch
+
+    from ..ops import attention_grad as G
+
+    fns = _build(kernel, out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    heads, d = 12, 64
+    c, scale = heads * d, d ** -0.5
+
+    def rand(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * s).to(torch.bfloat16)
+
+    def ptr(t):
+        return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+    for b, s, kh, kw, n_valid in CALLS[kernel][1]:
+        q, kv, dout = rand(b, s, c), rand(b, s, 2 * c), rand(b, s, c)
+        bh = bw = kl = None
+        if kh:
+            bh, bw = rand(b, heads, s, kh, s=0.3), rand(b, heads, s, kw, s=0.3)
+        else:
+            kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
+        kwargs = dict(num_heads=heads, scale=scale)
+        out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kl, **kwargs)
+        args = (q, kv, bh, bw, kl, dout, lse,
+                G.attention_delta(out, dout, heads))
+        pairs = b * heads * s * (n_valid or s)
+        if kernel == "k5dq":
+            ref = G.global_attention_bwd_dq_plain(*args, **kwargs)
+            flops = 6.0 * pairs * d
+        else:
+            ref = (G.global_attention_bwd_dkv_plain(*args, **kwargs),)
+            flops = 8.0 * pairs * d
+        print(f"{kernel} shape q ({b}, {s}, {c}), Kw {kw}, kv_len {n_valid}:")
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for name, fn in fns.items():
+            outs = [None if r is None else torch.empty_like(r) for r in ref]
+            c_args = (*map(ptr, (*args, *outs)), b, s, heads, d, kh, kw,
+                      scale, stream)
+
+            def run(fn=fn, c_args=c_args):
+                rc = fn(*c_args)
+                if rc:
+                    raise RuntimeError(f"variant launch failed: {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            gap = max(((o.float() - r.float()).abs()
+                       - 2 ** -7 * r.float().abs()).max().item()
+                      for o, r in zip(outs, ref) if r is not None)
+            ms = _ms(torch, run, 10)
+            print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
+                  f"({flops / (ms * 1e-3) / 989e12:.1%} of 989 TFLOP/s)")
+        del q, kv, dout, bh, bw, out, lse, args, ref
+        torch.cuda.empty_cache()
+
+
 _PAIR_CHILD = r'''
 import sys, time
 sys.path.insert(0, ".")
@@ -365,9 +475,38 @@ for name, rec in recs.items():
 '''
 
 
+_PAIR_FAST_CHILD = r'''
+import sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.engine import finetune as ft
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+cuda_build.build_all(("fused_window_attention", "fused_global_attention",
+                      "window_attention_bwd", *cs.K5_NAMES))
+cs.finetune_phase(torch, A, ft, "medsam", "fast", cs.STEP_LAUNCHES)
+torch.cuda.empty_cache()
+cs.finetune_phase(torch, A, ft, "dinov2_vitb14", "fast",
+                  cs.DINO_FAST_STEP_LAUNCHES)
+torch.cuda.empty_cache()
+peaks = cs.peaks_for(torch.cuda.get_device_name(0))[1]
+recs = {**cs.train_kernel_phase(torch, A, G, peaks),
+        **cs.kv_len_phase(torch, A, G, peaks)}
+for name, r in recs.items():
+    if "bwd_d" in name:
+        print(f"k5 {name}: ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
+              f"sdpa {r['library_ms']:.4f} err {r['max_abs_err']:.3e}")
+'''
+
+_CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
+             "fast": _PAIR_FAST_CHILD}
+
+
 def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
-    child = _PAIR_CHILD if path == "extraction" else _PAIR_PARITY_CHILD
-    keep = ("forward", "extraction", "fine-tune", "k6 ", "Traceback")
+    child = _CHILDREN[path]
+    keep = ("forward", "extraction", "fine-tune", "k6 ", "k5 ", "Traceback")
     for tag, tree in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):
         res = subprocess.run([sys.executable, "-c", child], cwd=tree,
@@ -389,7 +528,7 @@ def main(argv=None) -> int:
                    default=Path(__file__).resolve().parents[1] / "_build"
                    / "probe_variants")
     pr = sub.add_parser("pair", help="parent vs change, end to end")
-    pr.add_argument("--path", choices=("extraction", "parity"),
+    pr.add_argument("--path", choices=sorted(_CHILDREN),
                     default="extraction")
     pr.add_argument("parent", type=Path)
     pr.add_argument("change", type=Path)
@@ -402,6 +541,8 @@ def main(argv=None) -> int:
     if args.cmd == "variants":
         if args.kernel.startswith("k6"):
             _k6_variants(args.kernel, args.out)
+        elif args.kernel.startswith("k5"):
+            _k5_variants(args.kernel, args.out)
         else:
             _variants(args.kernel, args.out)
     else:
