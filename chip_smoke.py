@@ -10,18 +10,21 @@ Phases (each one fails the run with a non-zero exit):
 1. card: name and power limit from ``nvidia-smi``;
 2. build: ``nvcc`` of every kernel under ``vit_deep_radiomics_tpu_torch/
    csrc`` for ``sm_90a``, one process per source, in parallel; the ptxas
-   report of the K5 backward (TMA + wgmma) and the register-tiled K6
-   backward kernels (registers, spills), which must show no spill;
+   report of the K5 backward (TMA + wgmma), the register-tiled K6
+   backward kernels and the register-tiled fp32 forward's kernels in K2's
+   and K3's sources (registers, spills), which must show no spill;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
-   bf16, held against their plain PyTorch versions (K1 and K2 in bf16 are
-   Hopper kernels, TMA and wgmma, and K1's C entry is asked which body it
-   takes; in fp32 the CUDA-core loops); kernel,
+   bf16, held against their plain PyTorch versions (both C entries are
+   asked which body they take: in bf16 the Hopper kernels, TMA and wgmma;
+   in fp32 K1's CUDA-core loop and K2's register-tiled forward); kernel,
    plain-version and one library call's (SDPA with the dense bias as
    ``attn_mask``) times, and the card's bound for the same work;
 4. forward: full-width SAM ViT-B/16 @1024 at batch 4 under ``fast``, with
    the launch counts of K1 and K2 per forward; the same forward under
-   ``parity`` on one image against the port's plain-attention forward;
+   ``parity`` at batch 4 (K2 in fp32: host ms, device ms and idle share
+   from a trace, launches asserted) and on one image against the port's
+   plain-attention forward;
 5. extraction: ``DenseExtractor.extract_volume`` on 2 synthetic patients,
    CT and PET, 256x256 in-plane, 3 flips x 4 angles (the main path: the
    launch counts of the JSON line come from this run), the transformed
@@ -69,7 +72,8 @@ Phases (each one fails the run with a non-zero exit):
     ``kv_len`` mode at (4, 12, 1536, 64) with 1370 valid keys, and the
     ``window_tokens`` mode (the 100 windows of batch 4 @1024 padded to
     16x16, 4 per row: q (25, 12, 1024, 64), ``kv_grid`` (14, 14)); each
-    against its plain version, with plain, SDPA and bound times;
+    against its plain version, with plain, SDPA and bound times, and the
+    body its C entry takes (the register-tiled forward in fp32);
 16. K7, the fused LayerNorm -> MLP -> residual, at the SAM forward's rows
     (16384 x 768, hidden 3072, bf16) and DINOv2 ViT-B/14's (4 x 1370, with
     layerscale), against its plain version; the library time is the
@@ -81,8 +85,9 @@ Phases (each one fails the run with a non-zero exit):
     the bf16 matmul at each shape, and the CLI guard's ratio);
 18. paths: full-width SAM ViT-B/16 forwards at batch 4 under
     ``inference`` @1024, ``int8`` @1024 (K8), ``fast`` with
-    ``VDR_FUSED_MLP=1`` @1024 (K7) and ``fast`` @768 (K3), launch counts
-    asserted, each held at batch 1 to an oracle on the same weights, then
+    ``VDR_FUSED_MLP=1`` @1024 (K7), ``fast`` @768 (K3) and ``parity`` @768
+    (K3 in fp32: host and device ms), launch counts asserted, each held at
+    batch 1 to an oracle on the same weights, then
     one ``DenseExtractor.extract_volume`` per new path (``int8``, fused
     MLP, 768 px) with its launch counts, ms and img/s.
 
@@ -144,6 +149,12 @@ K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # wgmma under setmaxnreg) and the register-tiled K6 backward
 NO_SPILL = ("global_attention_bwd_dq", "global_attention_bwd_dkv",
             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# Sources that carry the register-tiled fp32 forward (f32_tiled_forward.cuh):
+# its kernels (with and without bias, *tiled_kernel*) must show no spill
+TILED_SOURCES = ("fused_global_attention", "flash_attention")
+# The body each fused kernel's C entry takes at the extraction path's shapes
+BODIES = {"fused_window_attention": {"bfloat16": "hopper", "float32": "loops"},
+          "fused_global_attention": {"bfloat16": "hopper", "float32": "tiled"}}
 K5_NAMES = ("global_attention_fwd_lse", "global_attention_bwd_dq",
             "global_attention_bwd_dkv")
 # Per step of a 12-layer backbone: every layer runs K6 under `parity`;
@@ -289,20 +300,21 @@ def kernel_phase(torch, A, peaks):
                 def plain():
                     return A.fused_global_attention_plain(
                         q, kv, bh, bwt, None, num_heads=heads, scale=scale)
+            # the body the C entry takes: the Hopper kernels in bf16; in
+            # fp32 K1's CUDA-core loop and K2's register-tiled forward
             if name == "fused_window_attention":
-                # the body the C entry takes: K1's Hopper kernel in bf16,
-                # the CUDA-core loop in fp32
                 body = A.fused_window_attention_route(
                     q, kv, bh, bwt, num_heads=heads, window_tokens=seg,
                     scale=scale)
-                want_body = "hopper" if dtype == torch.bfloat16 else "loops"
-                log(f"kernel {name} {dname}: body {body}")
-                if body != want_body:
-                    raise AssertionError(
-                        f"{name} {dname} takes the {body} body, not "
-                        f"{want_body}")
-                rec["body" if dtype == torch.bfloat16 else "fp32_body"] = \
-                    body
+            else:
+                body = A.fused_global_attention_route(
+                    q, kv, bh, bwt, None, num_heads=heads, scale=scale)
+            want_body = BODIES[name][dname]
+            log(f"kernel {name} {dname}: body {body}")
+            if body != want_body:
+                raise AssertionError(
+                    f"{name} {dname} takes the {body} body, not {want_body}")
+            rec["body" if dtype == torch.bfloat16 else "fp32_body"] = body
             out = kern()
             torch.cuda.synchronize()
             ref = plain().float()
@@ -360,8 +372,40 @@ def kernel_phase(torch, A, peaks):
     return records
 
 
+def parity_forward_b4(torch, A, model, images, label, expect):
+    """A full-width `parity` forward at B=4: host ms of one forward after a
+    warm-up, its launch counts held to ``expect`` (every other counter 0),
+    then the device ms and idle share over two traced forwards
+    (``utils/profiling.py::trace_runs``). Returns the record."""
+    from vit_deep_radiomics_tpu_torch.utils import profiling
+
+    out, dt, n = _timed_forward(torch, A, model, images)
+    b, grid = images.shape[0], images.shape[1] // 16
+    if n != dict(dict.fromkeys(A.LAUNCHES, 0), **expect):
+        raise AssertionError(f"{label}: launches per forward {n}")
+    if tuple(out.shape) != (b, grid, grid, 256) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label} forward output is not finite or of "
+                             "the expected shape")
+    del out
+    with torch.no_grad():
+        res = profiling.trace_runs(lambda: model(images), 2, 6)
+    rec = {"host_ms": dt * 1e3, "img_s": b / dt,
+           "device_ms": res["device_ms"], "traced_wall_ms": res["wall_ms"],
+           "idle_share": res["idle_share"], "launches": n}
+    log(f"forward {label} B={b}: host {dt * 1e3:.3f} ms ({b / dt:.2f} "
+        f"img/s); device {res['device_ms']:.3f} ms a forward (wall "
+        f"{res['wall_ms']:.3f} ms, idle share {res['idle_share']:.3f}); "
+        f"launches {n}")
+    for row in res["top"]:
+        log(f"  {row['ms']:9.3f} ms  {row['calls']:5.1f}x  {row['name']}")
+    return rec
+
+
 def forward_phase(torch, A, vit, precision):
-    """Full-width SAM ViT-B/16 @1024 forwards."""
+    """Full-width SAM ViT-B/16 @1024 forwards: `fast` at B=4, `parity` at
+    B=4 (K2 in fp32: host and device ms) and `parity` at B=1 against plain
+    attention. Returns the weights and the `parity` B=4 record."""
     cfg = vit.SAM_VIT_B
     fast = vit.ViTDense(cfg, policy=precision.FAST).init_random(SEED)
     fast = fast.cuda().eval()
@@ -387,16 +431,19 @@ def forward_phase(torch, A, vit, precision):
                              "the expected shape")
     state = fast.state_dict()
     del fast, out
-    with torch.no_grad():
-        results = {}
-        for use_flash in (True, False):
-            m = vit.ViTDense(cfg, policy=precision.PARITY,
-                             use_flash=use_flash)
-            m.load_state_dict(state)
-            m = m.cuda().eval()
+    results = {}
+    for use_flash in (True, False):
+        m = vit.ViTDense(cfg, policy=precision.PARITY, use_flash=use_flash)
+        m.load_state_dict(state)
+        m = m.cuda().eval()
+        if use_flash:
+            parity = parity_forward_b4(
+                torch, A, m, images, "parity @1024",
+                dict(fused_window_attention=8, fused_global_attention=4))
+        with torch.no_grad():
             results[use_flash] = m(images[:1]).float()
-            del m
-            torch.cuda.empty_cache()
+        del m
+        torch.cuda.empty_cache()
     err = (results[True] - results[False]).abs().max().item()
     scale = results[False].abs().max().item()
     log(f"forward parity B=1, fused kernels vs plain attention: max abs "
@@ -405,7 +452,7 @@ def forward_phase(torch, A, vit, precision):
     # order (measured ~1e-6 per kernel call)
     if not err <= 1e-4 * max(1.0, scale):
         raise AssertionError(f"parity forward disagrees: {err}")
-    return state
+    return state, parity
 
 
 def extraction_phase(torch, A, tex, syn, state):
@@ -1175,6 +1222,14 @@ def k3_phase(torch, A, peaks):
                 return A.flash_attention_plain(q, k, v, bh, bw, kl,
                                                scale=scale, **opts)
 
+            # the body: the register-tiled forward in fp32 (D 64, no
+            # window mode), the loops otherwise
+            body = A.flash_attention_route(q, k, v, bh, bw, kl, **opts)
+            want = "tiled" if dtype == fp32 else "loops"
+            log(f"kernel flash_attention [{shape}, {dname}]: body {body}")
+            if body != want:
+                raise AssertionError(f"flash_attention {shape} {dname} takes "
+                                     f"the {body} body, not {want}")
             out = kern()
             torch.cuda.synchronize()
             tag = f"flash_attention [{shape}, {dname}]"
@@ -1191,10 +1246,12 @@ def k3_phase(torch, A, peaks):
                 _nbytes(q, k, v, bh, bw, kl, out),
                 4.0 * b * heads * (s // (win or s)) * n_valid * n_valid * d,
                 peaks)
+            rows[shape, dname]["body"] = body
             del q, k, v, bh, bw, kl, out
             torch.cuda.empty_cache()
     rec = dict(rows["sam768_global", "bfloat16"], name="flash_attention")
     rec["fp32"] = _sub(rows["sam768_global", "float32"])
+    rec["fp32_body"] = rows["sam768_global", "float32"]["body"]
     rec["by_shape"] = {f"{shape} {dname}": _sub(r)
                        for (shape, dname), r in rows.items()}
     return rec
@@ -1354,7 +1411,8 @@ def paths_phase(torch, A, vit, precision, tex, syn):
     """Phase 18: the new forward paths of full-width SAM ViT-B/16 at batch
     4 with their launch counts asserted, each held at batch 1 to an oracle
     on the same weights, then one ``extract_volume`` per new path on one
-    synthetic patient (CT and PET). Returns the launches per forward."""
+    synthetic patient (CT and PET). Returns the launches per forward of
+    each path, and under "parity_768" the `parity` @768 B=4 record."""
     import dataclasses
 
     cfg = vit.SAM_VIT_B
@@ -1438,13 +1496,18 @@ def paths_phase(torch, A, vit, precision, tex, syn):
     del model
     torch.cuda.empty_cache()
 
-    # fast @768 (K3 in the global layers); parity fused vs plain at B=1
+    # fast @768 (K3 in the global layers); parity at B=4 (K3 in fp32: host
+    # and device ms), and fused vs plain at B=1
     model = build(cfg768, precision.FAST, state768)
     drive("fast_768", model, images768)
     del model
     outs = {}
     for use_flash in (True, False):
         model = build(cfg768, precision.PARITY, state768, use_flash)
+        if use_flash:
+            counts["parity_768"] = parity_forward_b4(
+                torch, A, model, images768, "parity @768",
+                PATH_LAUNCHES["fast_768"])
         outs[use_flash] = one(model, images768)
         del model
     err = (outs[True] - outs[False]).abs().max().item()
@@ -1549,9 +1612,21 @@ def main() -> int:
         log(f"ptxas {src}: {' | '.join(notes) or 'built earlier, no log'}")
         if cuda_build.spill_bytes(build_logs[src]):
             raise AssertionError(f"{src} spills registers")
+    for src in TILED_SOURCES:
+        funcs = cuda_build.ptxas_functions(build_logs[src])
+        tiled = {f: r for f, r in funcs.items() if "tiled_kernel" in f}
+        log(f"ptxas {src} (tiled fp32 forward): " + " | ".join(
+            f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
+            for f, r in tiled.items()) + f"; the whole source "
+            f"{cuda_build.spill_bytes(build_logs[src])} bytes spill")
+        if build_logs[src] and (len(tiled) != 2 or any(
+                r["spill"] for r in tiled.values())):
+            raise AssertionError(f"{src}: the tiled fp32 forward's kernels "
+                                 f"{tiled} spill or are missing")
 
     records = kernel_phase(torch, A, peaks)
-    state = forward_phase(torch, A, vit, precision)
+    state, parity_1024 = forward_phase(torch, A, vit, precision)
+    records["fused_global_attention"]["parity_forward_1024"] = parity_1024
     counts = extraction_phase(torch, A, tex, syn, state)
     mask_phase(torch, syn)
     extraction_reference_phase(torch, tex, syn, state)
@@ -1603,6 +1678,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_counts = paths_phase(torch, A, vit, precision, tex,
                               syn)                             # phase 18
+    records["flash_attention"]["parity_forward_768"] = \
+        path_counts.pop("parity_768")
     # K3: the @768 forward; K7: the fused-MLP forward; K8: the int8 forward
     for kname, path in (("flash_attention", "fast_768"),
                         ("fused_ln_mlp_residual", "fused_mlp"),

@@ -188,6 +188,36 @@ class TestPlainVersions:
         with pytest.raises(ValueError, match="per-window bias grid"):
             port.fused_window_attention_route(q, kv, bh[..., :2], bw, **kw)
 
+    @pytest.mark.parametrize("mode", ["bias", "nobias", "kv_len"])
+    def test_global_route_is_plain_on_the_cpu_and_checks_the_layout(
+            self, rng, mode):
+        """K2's route query answers "plain" for CPU tensors in each mode
+        (the card's answers, "tiled" for fp32, are held in
+        tests/test_torch_cuda_kernels.py) and refuses what the wrapper
+        refuses: a bias grid that is not S, a kv_len of the wrong length,
+        and (on a non-CPU tensor, before any build) a head dim with no
+        build."""
+        q, kv, bh, bw = map(torch.from_numpy,
+                            _inputs(rng, 2, 16, 2, 64, 4, 4))
+        kv_len = torch.tensor([16, 0]) if mode == "kv_len" else None
+        if mode != "bias":
+            bh = bw = None
+        kw = dict(num_heads=2, scale=0.125)
+        assert port.fused_global_attention_route(q, kv, bh, bw, kv_len,
+                                                 **kw) == "plain"
+        with pytest.raises(ValueError, match=r"Kh\*Kw"):
+            port.fused_global_attention_route(
+                q, kv, *map(torch.from_numpy, _inputs(rng, 2, 16, 2, 64, 2,
+                                                      4)[2:]), **kw)
+        with pytest.raises(ValueError, match="kv_len shape"):
+            port.fused_global_attention_route(q, kv, bh, bw,
+                                              torch.tensor([16]), **kw)
+        meta_q = torch.empty(2, 16, 4 * 32, device="meta")
+        meta_kv = torch.empty(2, 16, 8 * 32, device="meta")
+        with pytest.raises(ValueError, match="head dim 32"):
+            port.fused_global_attention_route(meta_q, meta_kv, num_heads=4,
+                                              scale=0.125)
+
 
 class TestKernelWrapperChecks:
     """The kernel wrappers refuse, before any launch, what their kernels

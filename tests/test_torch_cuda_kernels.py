@@ -105,9 +105,9 @@ def test_window_kernel_routes_match_plain(gen, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_global_kernel_matches_plain(gen, dtype, with_bias):
-    """fp32 and the biased Kw 20 call run the kept loops of
-    flash_attention_core.cuh (Kw is no multiple of 64); the bf16 kv_len
-    call runs the wgmma/TMA kernel with a ragged S."""
+    """fp32 runs the register-tiled body; the biased bf16 Kw 20 call the
+    kept mma.sync loop of flash_attention_core.cuh (Kw is no multiple of
+    64); the bf16 kv_len call the wgmma/TMA kernel with a ragged S."""
     b, heads, d, kh, kw = 2, 4, 64, 10, 20   # S = 200: ragged 64/128 tiles
     s = kh * kw
     q = _rand(gen, b, s, heads * d, dtype=dtype)
@@ -160,7 +160,7 @@ def test_global_hopper_kernel_matches_plain(gen, case):
 
 
 def test_kv_len_zero_row_matches_plain(gen):
-    """A batch row with kv_len 0 (S = 200): K2's fp32 loop and the three
+    """A batch row with kv_len 0 (S = 200): K2's fp32 body and the three
     K5 kernels follow their plain versions, where every key of the row
     scores -1e30: the forward averages V, the lse is the plain version's
     (-1e30 log2 e), and the backward takes P = 1 per key from it."""
@@ -708,6 +708,126 @@ def test_flash_attention_kernel_matches_plain(gen, dtype, d, mode):
     gap = ((got - want).abs() - RTOL[dtype] * want.abs()).max().item()
     print(f"K3 {mode} D={d} {dtype}: gap {gap:.3e}")
     assert torch.isfinite(got).all() and gap <= K3_ATOL[dtype], gap
+
+
+# The register-tiled fp32 forward (csrc/f32_tiled_forward.cuh) that K2's
+# and K3's fp32 calls take: name -> (B, S, Kh, Kw, kv_len). Ragged S (40,
+# 200, the last 64-row block and 32-key tile cut short), key-grid rows of 14,
+# 20 and 64 keys (a tile crosses grid rows at 14 and 20), no bias, and
+# kv_len with a row that has no valid key (it averages V over all S keys).
+K2_TILED_CASES = {"s40_kw20": (2, 40, 2, 20, None),
+                  "s200_kw20": (2, 200, 10, 20, None),
+                  "s196_kw14": (1, 196, 14, 14, None),
+                  "s320_kw64": (1, 320, 5, 64, None),
+                  "nobias_s200": (2, 200, 0, 0, None),
+                  "kv_len_zero_row": (2, 200, 0, 0, (0, 150)),
+                  "bias_kv_len": (2, 60, 3, 20, (0, 31))}
+
+
+def _k2_tiled_inputs(gen, case, heads=4, d=64):
+    b, s, kh, kw, kv_len = K2_TILED_CASES[case]
+    dt = torch.float32
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = kl = None
+    if kh:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.5)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.5)
+    if kv_len:
+        kl = torch.tensor(kv_len, device="cuda")
+    return (q, kv, bh, bw, kl), dict(num_heads=heads, scale=d ** -0.5)
+
+
+@pytest.mark.parametrize("case", sorted(K2_TILED_CASES))
+def test_global_tiled_f32_matches_plain(gen, case):
+    """K2's fp32 calls take the tiled body and hold to the plain version
+    at 2e-5."""
+    args, kwargs = _k2_tiled_inputs(gen, case)
+    assert A.fused_global_attention_route(*args, **kwargs) == "tiled"
+    A.reset_launch_counts()
+    got = A.fused_global_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_global_attention"] == 1
+    want = A.fused_global_attention_plain(*args, **kwargs)
+    gap = (got - want).abs().max().item()
+    print(f"K2 tiled {case}: {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= 2e-5, gap
+
+
+# K3's fp32 calls at D 64 outside window mode: name -> (B, Sq, Kh, Kw,
+# kv_grid, kv_len). A padded grid whose valid columns stop short of Kw
+# (@768's 48 of 64, and 13 of 20 across tiles), Sq != Sk, kv_len with a
+# row that has no valid key (it averages V over the Sk keys), and kv_grid
+# with kv_len (29 ends in a grid row's masked columns).
+K3_TILED_CASES = {"grid_3x64_48": (2, 192, 3, 64, (3, 48), None),
+                  "grid_sq100": (1, 100, 3, 64, (2, 48), None),
+                  "grid_5x20_13": (2, 70, 5, 20, (4, 13), None),
+                  "kv_len_zero_row": (3, 150, 0, 192, None, (0, 77, 192)),
+                  "grid_kv_len": (2, 48, 6, 8, (4, 6), (0, 29))}
+
+
+def _k3_tiled_inputs(gen, case, heads=3, d=64):
+    b, sq, kh, kw, grid, kv_len = K3_TILED_CASES[case]
+    sk = kh * kw if kh else kw
+    dt = torch.float32
+    q = _rand(gen, b, heads, sq, d, dtype=dt)
+    k = _rand(gen, b, heads, sk, d, dtype=dt)
+    v = _rand(gen, b, heads, sk, d, dtype=dt)
+    bh = bw = kl = None
+    if kh:
+        bh = _rand(gen, b, heads, sq, kh, dtype=dt, scale=0.5)
+        bw = _rand(gen, b, heads, sq, kw, dtype=dt, scale=0.5)
+    if kv_len:
+        kl = torch.tensor(kv_len, device="cuda")
+    return (q, k, v, bh, bw, kl), dict(kv_grid=grid)
+
+
+@pytest.mark.parametrize("case", sorted(K3_TILED_CASES))
+def test_flash_tiled_f32_matches_plain(gen, case):
+    """K3's fp32 calls at D 64 outside window mode take the tiled body and
+    hold to the plain version at 2e-5; window mode keeps the loops."""
+    args, kwargs = _k3_tiled_inputs(gen, case)
+    assert A.flash_attention_route(*args, **kwargs) == "tiled"
+    A.reset_launch_counts()
+    got = A.flash_attention(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_attention"] == 1
+    want = A.flash_attention_plain(*args, scale=0.125, **kwargs)
+    gap = (got - want).abs().max().item()
+    print(f"K3 tiled {case}: {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= 2e-5, gap
+    q = _rand(gen, 1, 3, 128, 64, dtype=torch.float32)
+    bh = _rand(gen, 1, 3, 128, 8, dtype=torch.float32)
+    assert A.flash_attention_route(q, q, q, bh, bh, kv_grid=(7, 6),
+                                   window_tokens=64) == "loops"
+
+
+def test_tiled_f32_forward_is_deterministic(gen):
+    """No atomics: two launches of the tiled body give the same bits."""
+    args, kwargs = _k2_tiled_inputs(gen, "s200_kw20")
+    assert torch.equal(A.fused_global_attention(*args, **kwargs),
+                       A.fused_global_attention(*args, **kwargs))
+    args, kwargs = _k3_tiled_inputs(gen, "grid_3x64_48")
+    assert torch.equal(A.flash_attention(*args, **kwargs),
+                       A.flash_attention(*args, **kwargs))
+
+
+def test_tiled_f32_forward_builds_without_spill(gen, tmp_path, monkeypatch):
+    """The tiled body's kernels (both instances, with and without bias, in
+    each of the two sources that carry it) fit their registers: ptxas
+    (-Xptxas -v, the build's flags) reports no spill bytes for them."""
+    from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
+
+    monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
+    names = ("fused_global_attention", "flash_attention")
+    logs = cb.build_all(names)
+    for name in names:
+        tiled = {f: r for f, r in cb.ptxas_functions(logs[name]).items()
+                 if "tiled_kernel" in f}
+        print(name, tiled)
+        assert len(tiled) == 2 and all(
+            r["spill"] == 0 and r["registers"] > 0 for r in tiled.values()), \
+            logs[name]
 
 
 # K7 (fused LayerNorm -> MLP -> residual): bf16 within one bf16 step

@@ -151,6 +151,28 @@ def test_same_value_errors(rng, case, match):
                           **kw)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_route_is_plain_on_the_cpu_and_checks_the_layout(rng, case):
+    """K3's route query answers "plain" for CPU tensors in every mode (the
+    card's answers, "tiled" for fp32 at D 64 outside window mode, are held
+    in tests/test_torch_cuda_kernels.py) and refuses what the wrapper
+    refuses, before any build: a bias grid that is not Sk, and a dtype with
+    no build on a non-CPU tensor."""
+    b, h, sq, sk, kh, kw, grid, win, kv_len, bq, bk = CASES[case]
+    q, k, v, bh, bw = map(lambda a: None if a is None else torch.from_numpy(a),
+                          _inputs(rng, b, h, sq, sk, 64, kh, kw))
+    kl = None if kv_len is None else torch.tensor(kv_len)
+    opts = dict(kv_grid=grid, window_tokens=win, block_q=bq, block_k=bk)
+    assert A.flash_attention_route(q, k, v, bh, bw, kl, **opts) == "plain"
+    if bh is not None:
+        with pytest.raises(ValueError, match="Kh|grid|window"):
+            A.flash_attention_route(q, k, v, bh[..., :1], bw, kl, **opts)
+    meta = [torch.empty(t.shape, dtype=torch.float16, device="meta")
+            for t in (q, k, v)]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        A.flash_attention_route(*meta, kv_len=kl, block_q=bq, block_k=bk)
+
+
 def test_empty_kv_grid_is_refused(rng):
     """The port's own refusal: a kv_grid that keeps no key."""
     q, k, v, bh, bw = map(torch.from_numpy,

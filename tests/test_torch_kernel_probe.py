@@ -17,16 +17,27 @@ def _source(kernel):
 
 @pytest.mark.parametrize("kernel,name", CASES)
 def test_variant_source_changes_what_it_names(kernel, name):
-    source = _source(kernel)
+    """Each constant is replaced in the kernel's source, and each removal
+    is made in the one file (the source or a header it may change) that
+    holds it once; the other files stay as they are."""
+    files = kernel_probe.variant_files(kernel, name)
+    src = kernel_probe.SOURCES[kernel]
+    originals = {f: (cuda_build.CSRC_DIR / f).read_text() for f in files}
+    assert set(files) == {src, *kernel_probe.HEADERS.get(kernel, ())}
     consts, removed = kernel_probe.VARIANTS[kernel][name]
-    text = kernel_probe.variant_source(source, consts, removed)
     for const, value in consts.items():
-        assert f"constexpr int {const} = {value};" in text
+        assert f"constexpr int {const} = {value};" in files[src]
+    changed = set()
     for call in removed:
         call, repl = call if isinstance(call, tuple) else (call, ";")
-        assert source.count(call) == 1 and call not in text and repl in text
-    if not consts and not removed:
-        assert text == source
+        hits = [f for f, text in originals.items() if call in text]
+        assert len(hits) == 1 and originals[hits[0]].count(call) == 1
+        assert call not in files[hits[0]] and repl in files[hits[0]]
+        changed.add(hits[0])
+    if consts:
+        changed.add(src)
+    for f in set(files) - changed:
+        assert files[f] == originals[f]
 
 
 def test_variant_source_refuses_an_unknown_constant():
@@ -44,3 +55,24 @@ def test_spill_bytes_sums_every_kernel_of_a_ptxas_log():
            "loads\n")
     assert cuda_build.spill_bytes(log) == 92
     assert cuda_build.spill_bytes("ptxas info    : Used 40 registers") == 0
+
+
+def test_ptxas_functions_reads_each_kernel():
+    """Registers and spill bytes per kernel, so that a check can hold one
+    body of a source (its tiled kernels) to no spill."""
+    log = ("ptxas info    : Compiling entry function '_Z9k2_tiledv' for "
+           "'sm_90a'\n"
+           "ptxas info    : Function properties for _Z9k2_tiledv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 126 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_Z6hopperv' for "
+           "'sm_90a'\n"
+           "ptxas info    : Function properties for _Z6hopperv\n"
+           "    8 bytes stack frame, 56 bytes spill stores, 56 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 168 registers\n")
+    assert cuda_build.ptxas_functions(log) == {
+        "_Z9k2_tiledv": {"registers": 126, "spill": 0},
+        "_Z6hopperv": {"registers": 168, "spill": 112}}
+    assert cuda_build.spill_bytes(log) == 112

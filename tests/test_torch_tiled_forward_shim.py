@@ -1,0 +1,271 @@
+"""The register-tiled fp32 forward of K2 and K3 (``csrc/f32_tiled_forward.cuh``)
+run on the CPU against the port's plain versions.
+
+The body uses CUDA-core instructions only (FMAs, shuffles, barriers and
+cp.async), so it also compiles with g++ under a small stand-in for the CUDA
+runtime: a block runs as 128 ``std::thread``s, ``__syncthreads`` is a
+``std::barrier``, a shuffle goes through a block-wide array between two
+barriers, and cp.async is a synchronous copy. That checks the body's
+indexing, its masks and both callers' problem builders (``k2_problem``,
+``k3_problem``) at the tile shape and buffer count the two sources ship with,
+without the card. The card's own checks are in
+``tests/test_torch_cuda_kernels.py``.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+
+RUNTIME_H = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __align__(n) alignas(n)
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+extern thread_local dim3 threadIdx, blockIdx, blockDim;
+struct BlockSync {
+  std::barrier<> bar;
+  float shfl[128];
+  explicit BlockSync(int n) : bar(n) {}
+};
+extern thread_local BlockSync* tl_block;
+inline void __syncthreads() { tl_block->bar.arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  __syncthreads();
+  tl_block->shfl[threadIdx.x] = v;
+  __syncthreads();
+  return tl_block->shfl[threadIdx.x ^ m];
+}
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+typedef void* cudaStream_t;
+"""
+
+RUNNER_CPP = r"""
+#include "cuda_runtime.h"
+#include <thread>
+#include <vector>
+thread_local dim3 threadIdx, blockIdx, blockDim;
+thread_local BlockSync* tl_block;
+#include "f32_tiled_forward.cuh"
+using namespace vdr::tiled;
+
+template <class Make>
+static void run_grid(int gx, int gy, int gz, int kh, int kw, bool bias,
+                     Make make) {
+  const size_t nf = smem_floats<COLS, STAGES, PINK>(kh, kw);
+  for (int z = 0; z < gz; ++z)
+    for (int y = 0; y < gy; ++y)
+      for (int x = 0; x < gx; ++x) {
+        std::vector<float> smem(nf, NAN);
+        BlockSync bs(NT);
+        std::vector<std::thread> th;
+        for (int t = 0; t < NT; ++t)
+          th.emplace_back([&, t] {
+            threadIdx = {(unsigned)t, 0, 0};
+            blockIdx = {(unsigned)x, (unsigned)y, (unsigned)z};
+            blockDim = {NT, 1, 1};
+            tl_block = &bs;
+            const Problem p = make(z, y);
+            if (bias)
+              forward<COLS, STAGES, PINK, true>(p, x * ROWS, smem.data());
+            else
+              forward<COLS, STAGES, PINK, false>(p, x * ROWS, smem.data());
+          });
+        for (auto& t : th) t.join();
+      }
+}
+
+extern "C" {
+void run_k2(const float* q, const float* kv, const float* bh,
+            const float* bw, const int* kv_len, float* out, int B, int S,
+            int H, int kh, int kw, float scale_log2) {
+  run_grid((S + ROWS - 1) / ROWS, H, B, bh ? kh : 0, bh ? kw : 0,
+           bh != nullptr, [&](int b, int h) {
+             return k2_problem(q, kv, bh, bw, kv_len, out, S, H, kh, kw,
+                               scale_log2, b, h);
+           });
+}
+void run_k3(const float* q, const float* k, const float* v, const float* bh,
+            const float* bw, const int* kv_len, float* out, int B, int H,
+            int Sq, int Sk, int kh, int kw, int khv, int kwv,
+            float scale_log2) {
+  run_grid((Sq + ROWS - 1) / ROWS, H, B, bh ? kh : 0, bh ? kw : 0,
+           bh != nullptr, [&](int b, int h) {
+             return k3_problem(q, k, v, bh, bw, kv_len, out, H, Sq, Sk, kh,
+                               kw, khv, kwv, SKIP, scale_log2, b, h);
+           });
+}
+}
+"""
+
+# cp.async becomes a synchronous copy (zero past the end); the launch
+# helpers (CUDA launch syntax) are not needed
+_CP_ASYNC = {
+    "cp_async16": "if (valid) std::memcpy(dst, src, 16); "
+                  "else std::memset(dst, 0, 16);",
+    "cp_async4": "if (valid) std::memcpy(dst, src, 4); "
+                 "else std::memset(dst, 0, 4);",
+    "cp_async_commit": "",
+    "cp_async_wait_all": "",
+}
+
+
+def _cpu_core_header(text: str) -> str:
+    for name, body in _CP_ASYNC.items():
+        text, n = re.subn(
+            rf"(void {name}\([^)]*\) \{{).*?\n\}}", rf"\1 {body} }}", text,
+            flags=re.S)
+        assert n == 1, name
+    text, n = re.subn(r"\n(// Launch over .*?\n)?(template <typename Kernel"
+                      r"[^\n]*\n)int launch\(.*?\n\}\n", "\n", text,
+                      flags=re.S)
+    assert n == 2
+    text, n = re.subn(r"inline const char\* error_string.*?\n\}\n", "", text,
+                      flags=re.S)
+    assert n == 1 and "asm" not in text and "<<<" not in text
+    return text
+
+
+def _shipped(source: str) -> dict:
+    """The constants a source instantiates the body with (K2 has no
+    column skip)."""
+    text = (cuda_build.CSRC_DIR / source).read_text()
+    found = {name: re.search(rf"constexpr int {name} = (\d+);", text)
+             for name in ("kF32Cols", "kF32Stages", "kF32PInK",
+                          "kF32SkipCols")}
+    return {name: int(m.group(1)) if m else 0 for name, m in found.items()}
+
+
+@pytest.fixture(scope="module")
+def shim(tmp_path_factory):
+    """name -> the body built for the CPU with that source's constants; K3
+    also with its column skip turned the other way ("k3_other")."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ (C++20) to build the body for the CPU")
+    d = tmp_path_factory.mktemp("tiled_shim")
+    (d / "cuda_runtime.h").write_text(RUNTIME_H)
+    (d / "flash_trainable_core.cuh").write_text(_cpu_core_header(
+        (cuda_build.CSRC_DIR / "flash_trainable_core.cuh").read_text()))
+    shutil.copy(cuda_build.CSRC_DIR / "f32_tiled_forward.cuh", d)
+    (d / "runner.cpp").write_text(RUNNER_CPP)
+    libs, procs = {}, {}
+    k3 = _shipped("flash_attention.cu")
+    for name, c in (("k2", _shipped("fused_global_attention.cu")),
+                    ("k3", k3),
+                    ("k3_other", dict(k3, kF32SkipCols=1 - k3[
+                        "kF32SkipCols"]))):
+        so = d / f"{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{d}",
+             f"-DCOLS={c['kF32Cols']}", f"-DSTAGES={c['kF32Stages']}",
+             f"-DPINK={'true' if c['kF32PInK'] else 'false'}",
+             f"-DSKIP={'true' if c['kF32SkipCols'] else 'false'}", "-o",
+             str(so), str(d / "runner.cpp"), "-lpthread"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log
+        lib = ctypes.CDLL(str(so))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.run_k2.argtypes = [P] * 6 + [I] * 5 + [F]
+        lib.run_k3.argtypes = [P] * 7 + [I] * 8 + [F]
+        lib.run_k2.restype = lib.run_k3.restype = None
+        libs[name] = lib
+    return libs
+
+
+def _ptr(t):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _t(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale)
+                            .astype(np.float32))
+
+
+HEADS, D = 2, 64
+LOG2E = 1.4426950408889634
+
+# K2: (B, S, Kh, Kw, kv_len): ragged S, key-grid rows of 14, 20 and 64 keys,
+# no bias, kv_len with a row that has no valid key, bias and kv_len together
+K2_CASES = {"s40_kw20": (1, 40, 2, 20, None),
+            "s200_kw20": (2, 200, 10, 20, None),
+            "s196_kw14": (1, 196, 14, 14, None),
+            "s128_kw64": (1, 128, 2, 64, None),
+            "nobias_s200": (2, 200, 0, 0, None),
+            "kv_len_zero_row": (2, 200, 0, 0, (0, 150)),
+            "bias_kv_len": (2, 60, 3, 20, (0, 31))}
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_tiled_body_matches_plain(shim, rng, case):
+    b, s, kh, kw, kv_len = K2_CASES[case]
+    c = HEADS * D
+    q, kv = _t(rng, b, s, c), _t(rng, b, s, 2 * c)
+    bh = _t(rng, b, HEADS, s, kh, scale=0.5) if kh else None
+    bw = _t(rng, b, HEADS, s, kw, scale=0.5) if kh else None
+    kl = torch.tensor(kv_len, dtype=torch.int32) if kv_len else None
+    out = torch.full_like(q, float("nan"))
+    shim["k2"].run_k2(_ptr(q), _ptr(kv), _ptr(bh), _ptr(bw), _ptr(kl),
+                      _ptr(out), b, s, HEADS, kh, kw, D ** -0.5 * LOG2E)
+    want = A.fused_global_attention_plain(q, kv, bh, bw, kl,
+                                          num_heads=HEADS, scale=D ** -0.5)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
+
+
+# K3: (B, Sq, Kh, Kw, kv_grid, kv_len): padded grids whose valid columns
+# stop short of Kw (48 of 64; 13 of 20, across tiles), Sq != Sk, kv_len
+# with a row that has no valid key, kv_grid and kv_len together (kv_len 20
+# ends inside a grid row's valid columns, 29 inside its masked ones)
+K3_CASES = {"grid_3x64_48": (1, 192, 3, 64, (3, 48), None),
+            "grid_sq100": (1, 100, 3, 64, (2, 48), None),
+            "grid_5x20_13": (2, 70, 5, 20, (4, 13), None),
+            "bias_5x20": (1, 64, 5, 20, None, None),
+            "kv_len_zero_row": (2, 40, 0, 130, None, (0, 3)),
+            "grid_kv_len": (2, 48, 6, 8, (4, 6), (0, 20)),
+            "grid_kv_len_masked_end": (2, 48, 6, 8, (4, 6), (29, 7))}
+
+
+@pytest.mark.parametrize("build", ["k3", "k3_other"])
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_tiled_body_matches_plain(shim, rng, case, build):
+    b, sq, kh, kw, grid, kv_len = K3_CASES[case]
+    sk = kh * kw if kh else kw
+    q, k, v = _t(rng, b, HEADS, sq, D), _t(rng, b, HEADS, sk, D), \
+        _t(rng, b, HEADS, sk, D)
+    bh = _t(rng, b, HEADS, sq, kh, scale=0.5) if kh else None
+    bw = _t(rng, b, HEADS, sq, kw, scale=0.5) if kh else None
+    kl = torch.tensor(kv_len, dtype=torch.int32) if kv_len else None
+    out = torch.full_like(q, float("nan"))
+    khv, kwv = grid or (0, 0)
+    shim[build].run_k3(_ptr(q), _ptr(k), _ptr(v), _ptr(bh), _ptr(bw),
+                      _ptr(kl), _ptr(out), b, HEADS, sq, sk, kh,
+                      kw if kh else 0, khv, kwv, D ** -0.5 * LOG2E)
+    want = A.flash_attention_plain(q, k, v, bh, bw, kl, kv_grid=grid,
+                                   scale=D ** -0.5)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)

@@ -34,12 +34,17 @@
 // shared-memory loads and a compare. Key tiles past kv_len or past the
 // valid rows of the key grid are skipped when every row keeps a valid key
 // (their weights are exact zeros). bf16 runs QK^T and PV on the tensor
-// cores (mma.sync.m16n8k16, one warp per 16 query rows, 128-row blocks);
-// fp32 runs on the CUDA cores, one thread per row (two for D = 128). The
-// head dim is a template parameter, built for D = 32, 64 and 128.
+// cores (mma.sync.m16n8k16, one warp per 16 query rows, 128-row blocks).
+// fp32 at D = 64 outside window mode (the `parity` @768 path) takes the
+// register-tiled CUDA-core forward of f32_tiled_forward.cuh (64 query rows
+// a block, K/V tiles by cp.async, 4 x 4 score and 4 x 8 output micro-tiles
+// a thread); other fp32 calls run on the CUDA cores one thread per row
+// (two for D = 128). The head dim is a template parameter, built for D =
+// 32, 64 and 128. vdr_flash_attention_route reports the body.
 
 #include <limits>
 
+#include "f32_tiled_forward.cuh"
 #include "flash_attention_core.cuh"
 
 namespace {
@@ -50,6 +55,16 @@ using vdr::kNegInf;
 constexpr int kBlockK = 64;
 constexpr int kRowsF32 = 64;
 constexpr int kRowsBf16 = 128;
+// the tiled fp32 body: keys a K/V tile (32: a 4 x 4 score micro-tile a
+// thread; 64: 4 x 8), tile buffers (2: the next tile loads during this
+// one) and P in the tile's K buffer (1). One buffer with P in K takes 70 KB
+// of shared memory at Kw 64, three blocks an SM; two buffers and a P tile
+// of its own (96 KB, two blocks) ran 4-5% slower on an H100 (PERF.md)
+constexpr int kF32Cols = 32;
+constexpr int kF32Stages = 1;
+constexpr int kF32PInK = 1;
+// 1: with kv_grid, visit only each grid row's valid columns
+constexpr int kF32SkipCols = 1;
 // a key outside the block's range: weight exactly 0, even in a row whose
 // every key is masked
 constexpr float kAbsent = -std::numeric_limits<float>::infinity();
@@ -466,12 +481,55 @@ int launch(const FlashParams& p, int dtype, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32, D = 64, outside window mode: the register-tiled forward
+// ---------------------------------------------------------------------------
+
+bool tiled_takes(int D, int window, int dtype) {
+  return dtype == 0 && D == vdr::tiled::D && window == 0;
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(vdr::tiled::NT, 2)
+    k3_tiled_kernel(const FlashParams p) {
+  extern __shared__ __align__(16) float smem_k3_tiled[];
+  const vdr::tiled::Problem pr = vdr::tiled::k3_problem(
+      static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+      static_cast<const float*>(p.v), static_cast<const float*>(p.bias_h),
+      static_cast<const float*>(p.bias_w), p.kv_len,
+      static_cast<float*>(p.out), p.H, p.Sq, p.Sk, p.kh, p.kw, p.kh_valid,
+      p.kw_valid, kF32SkipCols != 0, p.scale_log2, blockIdx.z, blockIdx.y);
+  vdr::tiled::forward<kF32Cols, kF32Stages, kF32PInK != 0, kBias>(
+      pr, blockIdx.x * vdr::tiled::ROWS, smem_k3_tiled);
+}
+
+template <bool kBias>
+int launch_tiled(const FlashParams& p, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) *
+      vdr::tiled::smem_floats<kF32Cols, kF32Stages, kF32PInK != 0>(
+          kBias ? p.kh : 0, kBias ? p.kw : 0);
+  auto kern = k3_tiled_kernel<kBias>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.Sq + vdr::tiled::ROWS - 1) / vdr::tiled::ROWS, p.H, p.B);
+  kern<<<grid, vdr::tiled::NT, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* vdr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The body a call with these arguments runs: 0 the loops above, 2 the
+// register-tiled fp32 forward.
+int vdr_flash_attention_route(int D, int window, int dtype) {
+  return tiled_takes(D, window, dtype) ? 2 : 0;
 }
 
 // Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
@@ -488,6 +546,9 @@ int vdr_flash_attention(const void* q, const void* k, const void* v,
                       out, B, H,        Sq,       Sk,     kh,
                       kw, kh_valid, kw_valid, window, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled_takes(D, window, dtype))
+    return bias_h != nullptr ? launch_tiled<true>(p, s)
+                             : launch_tiled<false>(p, s);
   switch (D) {
     case 32: return launch<32>(p, dtype, s);
     case 64: return launch<64>(p, dtype, s);

@@ -1,7 +1,8 @@
 // Shared core of the port's fused attention kernels (K1 window mode, K2
 // global mode, and K2's trainable twin, the K5 forward): the first loops,
-// which K1 and K2 keep for fp32 and for the bf16 shapes their Hopper
-// kernels do not take. Both read q from the split projection q (B, S, H*D) and
+// which K1 keeps for fp32 and K1 and K2 for the bf16 shapes their Hopper
+// kernels do not take (K2's fp32 calls take f32_tiled_forward.cuh). Both
+// read q from the split projection q (B, S, H*D) and
 // k/v from kv (B, S, 2*H*D) (k in columns [0, H*D), v in [H*D, 2*H*D)), add
 // the decomposed relative-position bias
 //     bias_h[b, h, i, key / kw] + bias_w[b, h, i, key % kw]

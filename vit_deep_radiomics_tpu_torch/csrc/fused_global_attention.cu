@@ -46,12 +46,15 @@
 //    both are pre-multiplied by log2(e);
 //  * kv_len: tiles wholly past kv_len are never loaded, the ragged tile is
 //    masked; rows past S read zeros (TMA fills out-of-bounds boxes).
-// The fp32 (`parity`) path, and a biased bf16 call whose Kw is not 64 or
-// 128 (or whose bias table would not fit in shared memory), keep the
-// earlier loops of flash_attention_core.cuh: one thread per query row on
-// the CUDA cores (fp32), or mma.sync with synchronous K/V staging (bf16).
-// The C entry chooses by dtype and shape alone.
+// The fp32 (`parity`) path takes the register-tiled CUDA-core forward of
+// f32_tiled_forward.cuh (64 query rows a block, K/V tiles by cp.async,
+// 4 x 4 score and 4 x 8 output micro-tiles a thread; fp32 FMAs only, with
+// any Kw, no bias, or kv_len). A biased bf16 call whose Kw is not 64 or 128
+// (or whose bias table would not fit in shared memory) keeps the earlier
+// mma.sync loop of flash_attention_core.cuh. The C entry chooses by dtype
+// and shape alone; vdr_fused_global_route reports the choice.
 
+#include "f32_tiled_forward.cuh"
 #include "flash_attention_core.cuh"
 #include "hopper.cuh"
 
@@ -59,8 +62,15 @@ namespace {
 using namespace vdr::sm90;
 
 constexpr int kBlockK = 64;
-constexpr int kRowsF32 = 64;
 constexpr int kRowsBf16 = 128;
+// the tiled fp32 body: keys a K/V tile (32: a 4 x 4 score micro-tile a
+// thread; 64: 4 x 8), tile buffers (2: the next tile loads during this
+// one) and P in the tile's K buffer (1). One buffer with P in K takes 70 KB
+// of shared memory at Kw 64, three blocks an SM; two buffers and a P tile
+// of its own (96 KB, two blocks) ran 4-5% slower on an H100 (PERF.md)
+constexpr int kF32Cols = 32;
+constexpr int kF32Stages = 1;
+constexpr int kF32PInK = 1;
 
 // ---------------------------------------------------------------------------
 // Hopper kernel: TMA producer + three wgmma consumer warpgroups
@@ -424,9 +434,9 @@ size_t hopper_smem(int kh) {
 
 // The calls the Hopper kernel takes: bf16, and no bias or a key grid whose
 // rows are 64 or 128 keys wide with a bias_h table that fits.
-bool hopper_takes(int dtype, const void* bias_h, int kh, int kw) {
+bool hopper_takes(int dtype, bool biased, int kh, int kw) {
   if (dtype == 0) return false;
-  if (bias_h == nullptr) return true;
+  if (!biased) return true;
   return kw % 64 == 0 && kw / 64 <= kMaxBiasW &&
          hopper_smem(kh) <= 227 * 1024;
 }
@@ -444,6 +454,39 @@ int launch_hopper(const CUtensorMap& tq, const CUtensorMap& tkv,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32: the register-tiled CUDA-core forward (f32_tiled_forward.cuh)
+// ---------------------------------------------------------------------------
+
+template <bool kBias>
+__global__ void __launch_bounds__(vdr::tiled::NT, 2)
+    k2_tiled_kernel(const vdr::AttnParams p) {
+  extern __shared__ __align__(16) float smem_tiled[];
+  const vdr::tiled::Problem pr = vdr::tiled::k2_problem(
+      static_cast<const float*>(p.q), static_cast<const float*>(p.kv),
+      static_cast<const float*>(p.bias_h),
+      static_cast<const float*>(p.bias_w), p.kv_len,
+      static_cast<float*>(p.out), p.S, p.H, p.kh, p.kw, p.scale_log2,
+      blockIdx.z, blockIdx.y);
+  vdr::tiled::forward<kF32Cols, kF32Stages, kF32PInK != 0, kBias>(
+      pr, blockIdx.x * vdr::tiled::ROWS, smem_tiled);
+}
+
+template <bool kBias>
+int launch_tiled(const vdr::AttnParams& p, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) *
+      vdr::tiled::smem_floats<kF32Cols, kF32Stages, kF32PInK != 0>(
+          kBias ? p.kh : 0, kBias ? p.kw : 0);
+  auto kern = k2_tiled_kernel<kBias>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.S + vdr::tiled::ROWS - 1) / vdr::tiled::ROWS, p.H, p.B);
+  kern<<<grid, vdr::tiled::NT, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -451,6 +494,14 @@ extern "C" {
 const char* vdr_error_string(int err) {
   if (err == kErrTensorMap) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The body a call with these arguments runs: 0 the mma.sync loop of
+// flash_attention_core.cuh, 1 the Hopper kernel, 2 the register-tiled fp32
+// forward.
+int vdr_fused_global_route(int kh, int kw, int biased, int dtype) {
+  if (dtype == 0) return 2;
+  return hopper_takes(dtype, biased != 0, kh, kw) ? 1 : 0;
 }
 
 // Returns 0 on success, a cudaError_t after a failed launch, -1 for a head
@@ -463,11 +514,13 @@ int vdr_fused_global_attention(const void* q, const void* kv,
                                int dtype, void* stream) {
   if (D != 64) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!hopper_takes(dtype, bias_h, kh, kw)) {
-    vdr::AttnParams p{q, kv, bias_h, bias_w, kv_len, out, B, S,
-                      H, S,  kh,     kw,     scale * vdr::kLog2e};
-    return vdr::launch<64, kRowsF32, kRowsBf16, kBlockK>(p, dtype, st);
-  }
+  const vdr::AttnParams ap{q,  kv, bias_h, bias_w, kv_len, out, B, S,
+                           H,  S,  kh,     kw,     scale * vdr::kLog2e};
+  if (dtype == 0)
+    return bias_h != nullptr ? launch_tiled<true>(ap, st)
+                             : launch_tiled<false>(ap, st);
+  if (!hopper_takes(dtype, bias_h != nullptr, kh, kw))
+    return vdr::launch_bf16<64, kRowsBf16, kBlockK, false>(ap, st);
   CUtensorMap tq, tkv;
   if (!tensor_map_64(&tq, q, H * D, S, B) ||
       !tensor_map_64(&tkv, kv, 2 * H * D, S, B))

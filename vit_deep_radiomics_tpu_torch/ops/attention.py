@@ -54,8 +54,10 @@ __all__ = [
     "fused_window_attention_route",
     "fused_global_attention",
     "fused_global_attention_plain",
+    "fused_global_attention_route",
     "flash_attention",
     "flash_attention_plain",
+    "flash_attention_route",
 ]
 
 _NEG_INF = -1e30  # large-negative instead of -inf: fully-masked rows stay finite
@@ -292,6 +294,24 @@ def fused_global_attention(q, kv, bias_h=None, bias_w=None, kv_len=None, *,
     return out
 
 
+def fused_global_attention_route(q, kv, bias_h=None, bias_w=None,
+                                 kv_len=None, *, num_heads, scale) -> str:
+    """Which body :func:`fused_global_attention` runs for these operands:
+    ``"plain"`` on the CPU; on the card, as ``csrc/fused_global_attention.cu``
+    chooses, ``"tiled"`` (fp32: the register-tiled forward of
+    ``f32_tiled_forward.cuh``), ``"hopper"`` (bf16 with no bias or Kw 64 or
+    128: the TMA + wgmma kernel) or ``"loops"`` (bf16 otherwise: the
+    mma.sync loop of ``flash_attention_core.cuh``)."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, None)
+    if q.device.type == "cpu":
+        return "plain"
+    _check_cuda(q, d, kv, bias_h, bias_w)
+    _, fn = _load("fused_global_attention", [_I] * 4,
+                  entry="vdr_fused_global_route")
+    return ("loops", "hopper", "tiled")[
+        fn(kh, kw, int(bias_h is not None), _DTYPE_CODES[q.dtype])]
+
+
 def flash_attention_fused_qkv(q, kv, bias_h=None, bias_w=None, kv_len=None,
                               *, num_heads, window_tokens=None, scale=None):
     """Attention straight from the split QKV projection.
@@ -410,6 +430,26 @@ def flash_attention_plain(q, k, v, bias_h=None, bias_w=None, kv_len=None,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("...qk,...kd->...qd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_attention_route(q, k, v, bias_h=None, bias_w=None, kv_len=None,
+                          *, kv_grid=None, window_tokens=None, block_q=512,
+                          block_k=512) -> str:
+    """Which body :func:`flash_attention` runs for these operands:
+    ``"plain"`` on the CPU; on the card, as ``csrc/flash_attention.cu``
+    chooses, ``"tiled"`` (fp32 at D 64 outside window mode: the
+    register-tiled forward of ``f32_tiled_forward.cuh``) or ``"loops"``
+    (the loops of ``flash_attention.cu``)."""
+    d, _, _ = _check_flash_layout(q, k, v, bias_h, bias_w, kv_len, kv_grid,
+                                  window_tokens, block_q, block_k)
+    if q.device.type == "cpu":
+        return "plain"
+    _check_cuda(q, d, k, v, bias_h, bias_w, builds=_K3_HEAD_DIMS,
+                source="csrc/flash_attention.cu")
+    _, fn = _load("flash_attention", [_I] * 3,
+                  entry="vdr_flash_attention_route")
+    tiled = fn(d, window_tokens or 0, _DTYPE_CODES[q.dtype]) == 2
+    return "tiled" if tiled else "loops"
 
 
 def flash_attention(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,

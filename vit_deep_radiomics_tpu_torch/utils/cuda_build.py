@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load",
-           "spill_bytes"]
+           "spill_bytes", "ptxas_functions"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -94,8 +94,35 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
 def spill_bytes(log: str) -> int:
     """Bytes of spill stores and loads that ptxas reports in a
     ``-Xptxas -v`` log, summed over its kernels."""
-    return sum(int(st) + int(ld) for st, ld in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    return sum(f["spill"] for f in ptxas_functions(log).values())
+
+
+def ptxas_functions(log: str) -> dict[str, dict]:
+    """Per kernel of a ``-Xptxas -v`` log: {mangled name: {"registers": n,
+    "spill": bytes of spill stores and loads}}."""
+    funcs: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs.setdefault(name, {"registers": 0, "spill": 0})
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            funcs.setdefault(name, {"registers": 0, "spill": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            funcs[name]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            funcs[name]["registers"] = int(m.group(1))
+    return funcs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,33 +12,49 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dq
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2f32
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity-forward PARENT CHANGE
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
 warpgroups; K2: the ring depth or the consumer warpgroups; the K5
 backward: three consumer warpgroups, the ring depth, the bias step
 removed; the K6 backward: one tile buffer instead of two, or 64-column
-tiles, a 4 x 8 score micro-tile; for all the softmax (K5 and K6: the
-exp2/dS step) or the products removed, and for K5 and K6 the score and
-dP products removed: timing ablations whose output is wrong by design),
+tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K2
+and K3 (``csrc/f32_tiled_forward.cuh``, ``k2f32`` and ``k3f32``): 64-key
+tiles, which make the score micro-tile 4 x 8, two tile buffers, P in a
+tile of its own, all of K3's grid columns visited, the bias step removed;
+for all the softmax (K5 and K6: the exp2/dS step) or the products
+removed, and for K5, K6 and the fp32 forward the score (and dP)
+products removed: timing ablations whose output is wrong by design),
 calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
 Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
 shape, 4 x 1536 with 1370 valid; K5: q (2, 4096, 768), Kh = Kw = 64, and
 the kv_len shape at B=2, bf16; K6: the `parity` path's SAM global (2, 12,
 4096, 64), Kh = Kw = 64, and windowed (50, 12, 196, 64), Kh = Kw = 14,
-fp32), and prints its gap to the plain version and its time (K1/K2 beside
-SDPA's, K5 beside the bf16 tensor-core peak, K6 beside the fp32 CUDA
-cores' peak). ``pair`` runs two checkouts in turns (parent, change,
+fp32; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
+K3 fp32: SAM @768's (4, 12, 3072, 64), Kh 48, Kw 64, ``kv_grid`` (48, 48),
+and (4, 12, 1536, 64) with 1370 valid keys), and prints its gap to the
+plain version and its time (K1/K2 and the fp32 forward beside SDPA's, K5
+beside the bf16 tensor-core peak, K6 beside the fp32 CUDA cores' peak).
+A variant that changes a header (the fp32 forward's steps) builds from
+its own directory, which holds the changed copy.
+``pair`` runs two checkouts in turns (parent, change,
 change, parent), each in a fresh process: with ``--path extraction`` (the
 default) 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
 then ``chip_smoke.py``'s extraction phase; with ``--path fast`` or
 ``--path parity`` 5 fine-tuning steps of SAM ViT-B/16 @1024 and of DINOv2
 ViT-B/14 @518 at B=2 under that policy (``chip_smoke.py``'s phases 8 and
 13, or 12 and 13: host clock, steady = steps 3-5), then its kernel phases
-7 and 11 (K4, K5; `fast`) or 10 (K6; `parity`). Nothing is built or run at
+7 and 11 (K4, K5; `fast`) or 10 (K6; `parity`); with ``--path
+parity-forward`` 5 `parity` SAM ViT-B/16 forwards at B=4 @1024 (K2 fp32)
+and @768 (K3 fp32) on the host clock, each after a warm-up, then K2 and K3
+in fp32 at their path shapes and at DINOv2's kv_len shape, and
+``chip_smoke.py``'s kernel phases 3 and 15. Nothing is built or run at
 import.
 """
 
@@ -51,14 +67,37 @@ import subprocess
 import sys
 from pathlib import Path
 
-__all__ = ["SOURCES", "VARIANTS", "CALLS", "variant_source", "main"]
+__all__ = ["SOURCES", "HEADERS", "VARIANTS", "CALLS", "variant_source",
+           "variant_files", "main"]
 
 SOURCES = {"k1": "fused_window_attention.cu",
            "k2": "fused_global_attention.cu",
            "k6dkv": "flash_attention_bwd_dkv.cu",
            "k6dq": "flash_attention_bwd_dq.cu",
            "k5dkv": "global_attention_bwd_dkv.cu",
-           "k5dq": "global_attention_bwd_dq.cu"}
+           "k5dq": "global_attention_bwd_dq.cu",
+           "k2f32": "fused_global_attention.cu",
+           "k3f32": "flash_attention.cu"}
+# headers a variant of the kernel may change (copied beside its source)
+HEADERS = {"k2f32": ("f32_tiled_forward.cuh",),
+           "k3f32": ("f32_tiled_forward.cuh",)}
+# the register-tiled fp32 forward (f32_tiled_forward.cuh) of K2 and K3
+_F32_TILED = {
+    "as_built": ({}, ()),   # one tile buffer, P in the tile's K buffer
+    "cols_64": ({"kF32Cols": 64}, ()),   # 64-key tiles: a 4 x 8 micro-tile
+    "stages_2": ({"kF32Stages": 2}, ()),
+    "p_tile": ({"kF32PInK": 0}, ()),     # P in a [kCols][LP] tile of its own
+    "stages_2_p_tile": ({"kF32Stages": 2, "kF32PInK": 0}, ()),
+    "no_bias": ({}, ("if (kBias) x += bias_s[ho[j] + row] + bias_s[wo[j] "
+                     "+ row];",)),
+    # scores minus the thread's own max: no shuffles, no exponentials
+    "no_softmax": ({}, (
+        ("mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));", ";"),
+        ("alpha[i] = exp2f(m[i] - mx);", "alpha[i] = 1.f;"),
+        ("s[i][j] = exp2f(s[i][j] - mx);", "s[i][j] -= mx;"))),
+    "no_scores": ({}, ("chain<0, D>(s, qs, st);",)),
+    "no_products": ({}, ("accumulate<kCols>(acc, pt, st + kCols * LD);",)),
+}
 # kernel: {name: (substitutions of `constexpr` values, calls removed, or
 # (text, replacement) pairs)}
 VARIANTS = {
@@ -137,6 +176,10 @@ VARIANTS = {
             "scores_tile(s, dp, q_addr, do_addr, ring, ring + kTile);",
             "scores_tile(s, dp, q_addr, do_addr, cur, cur + kTile);")),
     },
+    "k2f32": _F32_TILED,
+    # K3 also: every column of a padded key grid visited (the masked ones
+    # scored at -1e30) instead of the valid ones alone
+    "k3f32": {**_F32_TILED, "all_cols": ({"kF32SkipCols": 0}, ())},
 }
 
 
@@ -178,6 +221,12 @@ CALLS = {
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
     "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
+    # fp32: (B, S, Kh, Kw, kv_len); K3's kv_grid is (Kh, Kh), SAM @768's
+    # 48 x 48 grid padded to 48 x 64
+    "k2f32": ([_P] * 6 + [_I] * 6 + [_F, _I, _P],
+              ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), None),
+    "k3f32": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
+              ((4, 3072, 48, 64, None), (4, 1536, 0, 0, 1370)), None),
 }
 
 
@@ -196,6 +245,26 @@ def variant_source(text: str, consts: dict, removed=()) -> str:
             raise ValueError(f"no single {call} in the source")
         text = text.replace(call, repl)
     return text
+
+
+def variant_files(kernel: str, name: str) -> dict:
+    """One variant's files, name -> text: the kernel's source with its
+    constants replaced, and the headers it may change (``HEADERS``), each
+    listed removal made in the one file that holds it."""
+    from . import cuda_build as cb
+
+    consts, removed = VARIANTS[kernel][name]
+    src = SOURCES[kernel]
+    files = {f: (cb.CSRC_DIR / f).read_text()
+             for f in (src, *HEADERS.get(kernel, ()))}
+    files[src] = variant_source(files[src], consts)
+    for call in removed:
+        text = call[0] if isinstance(call, tuple) else call
+        hits = [f for f, body in files.items() if text in body]
+        if len(hits) != 1:
+            raise ValueError(f"{text} is in {hits}, not in one file")
+        files[hits[0]] = variant_source(files[hits[0]], {}, (call,))
+    return files
 
 
 def _ms(torch, fn, iters=20):
@@ -217,12 +286,15 @@ def _build(kernel: str, out_dir: Path) -> dict:
     from . import cuda_build as cb
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    text = (cb.CSRC_DIR / SOURCES[kernel]).read_text()
     entry = "vdr_" + SOURCES[kernel][:-3]
     jobs = {}
-    for name, (consts, removed) in VARIANTS[kernel].items():
-        cu = out_dir / f"{kernel}_{name}.cu"
-        cu.write_text(variant_source(text, consts, removed))
+    for name in VARIANTS[kernel]:
+        # its own directory: a changed header copy there is found first
+        vdir = out_dir / f"{kernel}_{name}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        for fname, body in variant_files(kernel, name).items():
+            (vdir / fname).write_text(body)
+        cu = vdir / SOURCES[kernel]
         cmd = [cb._nvcc(), *cb.NVCC_FLAGS, "-I", str(cb.CSRC_DIR), "-o",
                str(out_dir / f"{kernel}_{name}.so"), str(cu)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -232,7 +304,7 @@ def _build(kernel: str, out_dir: Path) -> dict:
         log = proc.communicate()[0]
         notes = [ln.strip() for ln in log.splitlines()
                  if "spill" in ln or "C75" in ln or "error" in ln
-                 or "registers" in ln]
+                 or "registers" in ln or "entry function" in ln]
         print(f"build {kernel} {name}: rc {proc.returncode}; "
               + " | ".join(notes))
         if proc.returncode:
@@ -421,6 +493,89 @@ def _k5_variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def _f32_variants(kernel: str, out_dir: Path) -> None:
+    """The fp32 forward's variants (K2: the port's (B, S, H·D) layouts;
+    K3: head-major (B, H, S, D)) at the `parity` paths' shapes: gap to the
+    plain version, ms beside fp32 SDPA's (the dense bias, or -inf at every
+    masked key, as ``attn_mask``), share of the fp32 CUDA-core peak (67
+    TFLOP/s, H100 SXM) on the work the call is handed."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import attention as A
+
+    fns = _build(kernel, out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    heads, d = 12, 64
+    c, scale = heads * d, d ** -0.5
+
+    def rand(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * s
+
+    def ptr(t):
+        return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+    for b, s, kh, kw, n_valid in CALLS[kernel][1]:
+        bh = bw = kl = grid = None
+        if kh:
+            bh, bw = rand(b, heads, s, kh, s=0.3), rand(b, heads, s, kw, s=0.3)
+            grid = (kh, kh) if kernel == "k3f32" else None
+        else:
+            kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
+        sk = kh * kw if kh else s
+        if kernel == "k2f32":
+            q, kv = rand(b, s, c), rand(b, s, 2 * c)
+            ref = A.fused_global_attention_plain(q, kv, bh, bw, kl,
+                                                 num_heads=heads, scale=scale)
+            views = [t.reshape(b, s, heads, d).transpose(1, 2)
+                     for t in (q, kv[..., :c], kv[..., c:])]
+
+            def c_args(out):
+                return (*map(ptr, (q, kv, bh, bw, kl, out)), b, s, heads, d,
+                        kh, kw, scale)
+        else:
+            q, k, v = (rand(b, heads, n, d) for n in (s, sk, sk))
+            ref = A.flash_attention_plain(q, k, v, bh, bw, kl, kv_grid=grid,
+                                          scale=scale)
+            views = [q, k, v]
+
+            def c_args(out):
+                return (*map(ptr, (q, k, v, bh, bw, kl, out)), b, heads, s,
+                        sk, d, kh, kw, *(grid or (0, 0)), 0, scale)
+        key = torch.arange(sk, device="cuda")
+        valid = key < (n_valid or sk)
+        if grid:
+            valid &= (key // kw < grid[0]) & (key % kw < grid[1])
+        mask = torch.zeros(b, heads, s, sk, device="cuda")
+        if kh:
+            mask = (bh[..., :, None] + bw[..., None, :]).reshape(mask.shape)
+        mask = mask.masked_fill(~valid, float("-inf"))
+        flops = 4.0 * b * heads * s * sk * d
+        print(f"{kernel} shape ({b}, {heads}, {s}, {d}), Kh {kh}, Kw {kw}, "
+              f"kv_len {n_valid}, kv_grid {grid}:")
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for name, fn in fns.items():
+            out = torch.empty_like(ref)
+            args = (*c_args(out), 0, stream)
+
+            def run(fn=fn, args=args):
+                rc = fn(*args)
+                if rc:
+                    raise RuntimeError(f"variant launch failed: {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            gap = (out - ref).abs().max().item()
+            ms = _ms(torch, run, 10)
+            print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
+                  f"({flops / (ms * 1e-3) / 67e12:.1%} of 67 TFLOP/s)")
+        lib = _ms(torch, lambda: F.scaled_dot_product_attention(
+            *views, attn_mask=mask, scale=scale), 5)
+        print(f"  sdpa: ms {lib:.4f}")
+        del q, ref, views, mask, bh, bw, kl
+        torch.cuda.empty_cache()
+
+
 _PAIR_CHILD = r'''
 import sys, time
 sys.path.insert(0, ".")
@@ -500,13 +655,73 @@ for name, r in recs.items():
               f"sdpa {r['library_ms']:.4f} err {r['max_abs_err']:.3e}")
 '''
 
+_PAIR_PARITY_FORWARD_CHILD = r'''
+import dataclasses, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.core import precision
+from vit_deep_radiomics_tpu_torch.models import vit
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+cuda_build.build_all(("fused_window_attention", "fused_global_attention",
+                      "flash_attention"))
+for size in (1024, 768):
+    cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=size)
+    m = vit.ViTDense(cfg, policy=precision.PARITY).init_random(0)
+    m = m.cuda().eval()
+    x = torch.rand(4, size, size, 3, device="cuda")
+    with torch.no_grad():
+        for _ in range(2):
+            m(x)
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            m(x)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+    n = {k: v // 5 for k, v in A.LAUNCHES.items() if v}
+    print(f"forward parity @{size} B=4, mean of 5: {dt * 1e3:.3f} ms = "
+          f"{4 / dt:.2f} img/s; launches per forward {n}", flush=True)
+    del m, x
+    torch.cuda.empty_cache()
+# the fp32 kv_len shape (DINOv2 @518: 4 x 1536 tokens, 1370 valid)
+g = torch.Generator(device="cuda").manual_seed(0)
+b, s, h, d, nv = 4, 1536, 12, 64, 1370
+kl = torch.full((b,), nv, dtype=torch.int32, device="cuda")
+q, kv = (torch.randn(b, s, w, generator=g, device="cuda") for w in (768, 1536))
+ms = cs.cuda_ms(torch, lambda: A.fused_global_attention(
+    q, kv, None, None, kl, num_heads=h, scale=d ** -0.5), 10)
+print(f"kernel fused_global_attention fp32 [kv_len]: ms {ms:.4f}")
+q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda")
+           for _ in range(3))
+ms = cs.cuda_ms(torch, lambda: A.flash_attention(q, k, v, None, None, kl), 10)
+print(f"kernel flash_attention fp32 [kv_len]: ms {ms:.4f}")
+del q, kv, k, v
+torch.cuda.empty_cache()
+peaks = cs.peaks_for(torch.cuda.get_device_name(0))[1]
+recs = cs.kernel_phase(torch, A, peaks)
+for name, rec in recs.items():
+    print(f"kernel {name} [fp32]: ms {rec['fp32']['ms']:.4f} "
+          f"bound {rec['fp32']['bound_ms']:.4f} sdpa "
+          f"{rec['fp32']['library_ms']:.4f}; bf16 ms {rec['ms']:.4f}")
+rec = cs.k3_phase(torch, A, peaks)
+for shape, r in rec["by_shape"].items():
+    print(f"kernel flash_attention [{shape}]: ms {r['ms']:.4f} bound "
+          f"{r['bound_ms']:.4f} sdpa {r['library_ms']:.4f} "
+          f"err {r['max_abs_err']:.3e}")
+'''
+
 _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
-             "fast": _PAIR_FAST_CHILD}
+             "fast": _PAIR_FAST_CHILD,
+             "parity-forward": _PAIR_PARITY_FORWARD_CHILD}
 
 
 def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
     child = _CHILDREN[path]
-    keep = ("forward", "extraction", "fine-tune", "k6 ", "k5 ", "Traceback")
+    keep = ("forward", "extraction", "fine-tune", "k6 ", "k5 ", "kernel ",
+            "Traceback")
     for tag, tree in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):
         res = subprocess.run([sys.executable, "-c", child], cwd=tree,
@@ -543,6 +758,8 @@ def main(argv=None) -> int:
             _k6_variants(args.kernel, args.out)
         elif args.kernel.startswith("k5"):
             _k5_variants(args.kernel, args.out)
+        elif args.kernel.endswith("f32"):
+            _f32_variants(args.kernel, args.out)
         else:
             _variants(args.kernel, args.out)
     else:

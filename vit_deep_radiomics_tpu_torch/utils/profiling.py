@@ -25,7 +25,8 @@ import time
 
 import torch
 
-__all__ = ["device_sync", "profile_forward", "profile_finetune_step"]
+__all__ = ["device_sync", "trace_runs", "profile_forward",
+           "profile_finetune_step"]
 
 
 def device_sync() -> None:
@@ -51,7 +52,7 @@ def _is_kernel(evt) -> bool:
             and not evt.key.startswith("Optimizer."))
 
 
-def _trace(run, steps: int, rows: int, **head) -> dict:
+def trace_runs(run, steps: int, rows: int, **head) -> dict:
     """Two warm-up runs, then ``steps`` runs on the host clock without the
     profiler (the wall time), then ``steps`` traced runs (device time by
     kernel). The idle share compares the two, so the profiler's own host
@@ -104,10 +105,11 @@ def profile_forward(batch: int = 4, precision: str = "fast",
     images = torch.rand(batch, image_size, image_size, 3, generator=gen,
                         device=dev)
     with torch.no_grad():
-        return _trace(lambda: model(images), steps, rows, what="forward",
-                      batch=batch, precision=precision,
-                      image_size=image_size,
-                      fused_mlp=os.environ.get("VDR_FUSED_MLP", "0") == "1")
+        return trace_runs(lambda: model(images), steps, rows,
+                          what="forward", batch=batch, precision=precision,
+                          image_size=image_size,
+                          fused_mlp=os.environ.get("VDR_FUSED_MLP",
+                                                   "0") == "1")
 
 
 def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
@@ -129,9 +131,9 @@ def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
     mask[:, grid * 3 // 8:grid * 5 // 8, grid * 3 // 8:grid * 5 // 8] = True
     labels = torch.eye(2, device=dev)[torch.arange(batch, device=dev) % 2]
     torch.cuda.reset_peak_memory_stats(dev)
-    res = _trace(lambda: tuner.step(state, images, mask, labels), steps,
-                 rows, what=f"finetune step {backbone}", batch=batch,
-                 precision=precision)
+    res = trace_runs(lambda: tuner.step(state, images, mask, labels),
+                     steps, rows, what=f"finetune step {backbone}",
+                     batch=batch, precision=precision)
     res["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     return res
 
