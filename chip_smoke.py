@@ -10,9 +10,10 @@ Phases (each one fails the run with a non-zero exit):
 1. card: name and power limit from ``nvidia-smi``;
 2. build: ``nvcc`` of every kernel under ``vit_deep_radiomics_tpu_torch/
    csrc`` for ``sm_90a``, one process per source, in parallel; the ptxas
-   report of the K5 backward (TMA + wgmma), the register-tiled K6
-   backward kernels and the register-tiled fp32 forward's kernels in K2's
-   and K3's sources (registers, spills), which must show no spill;
+   report of K4 and the K5 backward (TMA + wgmma), the register-tiled K6
+   backward kernels and the register-tiled fp32 forward's kernels in K2's,
+   K3's and the K6 forward's sources (registers, spills), which must show
+   no spill;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -35,9 +36,9 @@ Phases (each one fails the run with a non-zero exit):
 7. trainable kernels: K4 (window backward) and the K5 forward, dq and dkv
    kernels at the fine-tuning path's shapes (SAM ViT-B/16 @1024, batch 2:
    50 windows of 196 tokens, 2 x 4096 tokens; 12 heads of 64, bf16), each
-   output held against its plain PyTorch version (the C entries of the K5
-   backward are asked which body they take: the Hopper one, TMA and
-   wgmma); kernel, plain-version and library (SDPA forward or backward
+   output held against its plain PyTorch version (the C entries of K4 and
+   the K5 backward are asked which body they take: the Hopper ones, TMA
+   and wgmma); kernel, plain-version and library (SDPA forward or backward
    with the dense bias as a trainable ``attn_mask``) times and the card's
    bound;
 8. fine-tuning: ``FineTuner`` on full-width, full-depth SAM ViT-B/16 @1024
@@ -51,8 +52,9 @@ Phases (each one fails the run with a non-zero exit):
     kernels (fp32) at the ``parity`` path's shapes (SAM windowed: 50
     windows x 12 heads x 196 tokens, Kh = Kw = 14; SAM global: 2 x 12 x
     4096, Kh = Kw = 64; DINOv2: 2 x 12 x 1536 with kv_len 1370), each
-    output held against its plain version; kernel, plain-version, library
-    (fp32 SDPA) times and the bound;
+    output held against its plain version (the backward kernels fed the
+    forward kernel's lse); kernel, plain-version, library (fp32 SDPA) times
+    and the bound;
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
@@ -145,13 +147,15 @@ STEP_LAUNCHES = {"fused_window_attention": 8, "fused_global_attention": 0,
 FT_STEPS = 5
 K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
-# Sources whose ptxas report must show no spill: the K5 backward (TMA +
-# wgmma under setmaxnreg) and the register-tiled K6 backward
-NO_SPILL = ("global_attention_bwd_dq", "global_attention_bwd_dkv",
-            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# Sources whose ptxas report must show no spill: K4 and the K5 backward
+# (TMA + wgmma under setmaxnreg) and the register-tiled K6 backward
+NO_SPILL = ("window_attention_bwd", "global_attention_bwd_dq",
+            "global_attention_bwd_dkv", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
 # Sources that carry the register-tiled fp32 forward (f32_tiled_forward.cuh):
 # its kernels (with and without bias, *tiled_kernel*) must show no spill
-TILED_SOURCES = ("fused_global_attention", "flash_attention")
+TILED_SOURCES = ("fused_global_attention", "flash_attention",
+                 "flash_attention_fwd")
 # The body each fused kernel's C entry takes at the extraction path's shapes
 BODIES = {"fused_window_attention": {"bfloat16": "hopper", "float32": "loops"},
           "fused_global_attention": {"bfloat16": "hopper", "float32": "tiled"}}
@@ -724,6 +728,10 @@ def train_kernel_phase(torch, A, G, peaks):
     out = A.fused_window_attention(q, kv, bh, bw, **kw)
     dout = rand(nwin, seg, c)
     args = (q, kv, bh, bw, out, dout)
+    body = G.window_attention_bwd_route(q, kv, bh, bw, **kw)
+    log(f"kernel window_attention_bwd: body {body}")
+    if body != "hopper":
+        raise AssertionError(f"K4 takes the {body} body, not the Hopper one")
     got = G.window_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     err = check("window_attention_bwd", got,
@@ -742,6 +750,7 @@ def train_kernel_phase(torch, A, G, peaks):
         "vit_deep_radiomics_tpu/ops/attention_grad.py:671", err, ms,
         plain_ms, lib, nbytes(*args, *got),
         10.0 * nwin * heads * seg * seg * d)
+    records["window_attention_bwd"]["body"] = body
     del q, kv, bh, bw, out, dout, args, got
     torch.cuda.empty_cache()
 

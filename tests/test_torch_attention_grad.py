@@ -261,3 +261,29 @@ def test_k5_bwd_route_refuses_what_no_kernel_takes():
         G.global_attention_bwd_route(q.float(), kv.float(), num_heads=2)
     with pytest.raises(ValueError, match="key-grid width"):
         G.global_attention_bwd_route(q, kv, bh, bw, num_heads=2)
+
+
+@pytest.mark.parametrize("biased", [True, False])
+def test_k4_bwd_route_is_plain_on_the_cpu_and_checks_the_layout(biased):
+    """K4's route query answers "plain" for CPU tensors (the card's answers,
+    "hopper" up to 208 tokens a window and "loops" beyond, are held in
+    tests/test_torch_cuda_kernels.py) and refuses what the wrapper
+    refuses: a bias grid that is not the window, a window that does not
+    divide S, and (on a non-CPU tensor, before any build) fp32."""
+    q = torch.zeros(2, 98, 128, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 98, 256, dtype=torch.bfloat16)
+    bh = torch.zeros(2, 2, 98, 7, dtype=torch.bfloat16) if biased else None
+    bw = torch.zeros(2, 2, 98, 7, dtype=torch.bfloat16) if biased else None
+    kw = dict(num_heads=2, window_tokens=49, scale=0.125)
+    assert G.window_attention_bwd_route(q, kv, bh, bw, **kw) == "plain"
+    if biased:
+        with pytest.raises(ValueError, match="per-window bias grid"):
+            G.window_attention_bwd_route(q, kv, bh[..., :3], bw, **kw)
+    with pytest.raises(ValueError, match="window_tokens 40"):
+        G.window_attention_bwd_route(q, kv, None, None, num_heads=2,
+                                     window_tokens=40, scale=0.125)
+    meta = [None if t is None else t.to("meta") for t in (q, kv, bh, bw)]
+    with pytest.raises(TypeError, match="bfloat16"):
+        G.window_attention_bwd_route(meta[0].float(), meta[1].float(),
+                                     *[None if t is None else t.float()
+                                       for t in meta[2:]], **kw)

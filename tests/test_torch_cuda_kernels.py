@@ -257,6 +257,79 @@ def test_window_bwd_kernel_matches_plain(gen):
         _assert_grad_close(g_, w_, name, "window")
 
 
+# K4 at the window shapes of its routes: (key grid, windows per batch row,
+# bias, the body the C entry takes)
+K4_CASES = {
+    "grid_7x7": ((7, 7), 3, True, "hopper"),      # 49 tokens: N 64
+    "grid_7x7_no_bias": ((7, 7), 3, False, "hopper"),
+    "grid_10x10": ((10, 10), 2, True, "hopper"),  # 100: N 208, 2 tiles
+    "sam_14x14": ((14, 14), 3, True, "hopper"),   # 196: N 208, 4 tiles
+    "sam_no_bias": ((14, 14), 3, False, "hopper"),
+    "grid_16x16": ((16, 16), 2, True, "loops"),   # 256 tokens, 33 terms
+    "grid_16x16_no_bias": ((16, 16), 2, False, "loops"),
+    "over_256": ((17, 17), 2, True, "loops"),     # 289 tokens
+}
+
+
+def _k4_inputs(gen, grid, n_win, biased, b=2, heads=2):
+    kh, kw = grid
+    win, dt = kh * kw, torch.bfloat16
+    s = n_win * win
+    q = _rand(gen, b, s, heads * 64, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * 64, dtype=dt)
+    bh = bw = None
+    if biased:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    kwargs = dict(num_heads=heads, window_tokens=win, scale=0.125)
+    out = A.fused_window_attention(q, kv, bh, bw, **kwargs)
+    dout = _rand(gen, b, s, heads * 64, dtype=dt)
+    return (q, kv, bh, bw, out, dout), kwargs
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_window_bwd_routes_match_plain(gen, case):
+    """bf16 K4 at each key width of its Hopper body (TMA boxes of one
+    window, rows past it read as zeros; keys padded to 64 or 208 and masked
+    by E's mask term; 64-row query and key tiles), with and without the
+    bias, and windows of 256 and 289 tokens on the mma.sync loops;
+    every output against the plain version, several windows and heads a
+    call (so items of other windows and heads sit beside each one)."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    grid, n_win, biased, route = K4_CASES[case]
+    args, kwargs = _k4_inputs(gen, grid, n_win, biased)
+    assert G.window_attention_bwd_route(*args[:4], **kwargs) == route
+    A.reset_launch_counts()
+    got = G.window_attention_bwd(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["window_attention_bwd"] == 1
+    want = G.window_attention_bwd_plain(*args, **kwargs)
+    for g_, w_, name in zip(got, want, ("dq", "dkv", "dbh", "dbw")):
+        if w_ is None:
+            assert g_ is None, name
+            continue
+        _assert_grad_close(g_, w_, name, "window")
+
+
+def test_window_bwd_hopper_is_deterministic_and_builds_without_spill(
+        gen, tmp_path, monkeypatch):
+    """No atomics: two launches of K4's Hopper body give the same bits; and
+    its source (Hopper instances and loops) fits its registers: ptxas
+    (-Xptxas -v, the build's flags) reports no spill."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+    from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
+
+    args, kwargs = _k4_inputs(gen, (14, 14), 3, True)
+    runs = [G.window_attention_bwd(*args, **kwargs) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
+    log = cb.build_all(("window_attention_bwd",))["window_attention_bwd"]
+    print([ln for ln in log.splitlines() if "registers" in ln])
+    assert "spill" in log and cb.spill_bytes(log) == 0, log
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_global_trainable_kernels_match_plain(gen, with_bias):
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
@@ -567,6 +640,38 @@ def test_flash_trainable_kv_len_zero_row_matches_plain(gen):
         assert gap0 <= lim0, (name, gap0)
 
 
+# the K6 forward on the tiled body: (B, S, Kh, Kw, kv_len)
+K6_FWD_CASES = {"grid_14x14": (2, 196, 14, 14, None),
+                "grid_16x16": (1, 256, 16, 16, None),
+                "kv_len_zero_row": (2, 200, 0, 0, [0, 150]),
+                "s40": (2, 40, 5, 8, None)}
+
+
+@pytest.mark.parametrize("case", sorted(K6_FWD_CASES))
+def test_flash_trainable_forward_matches_plain(gen, case):
+    """The K6 forward (the register-tiled body with K6's problem and split
+    score chains) against its plain version at the CPU shim's limits: out
+    within 2e-5, the log2 lse within 1e-5 (the fp32 sums' order alone; a
+    kv_len 0 row's lse is -1e30 on both sides, exactly); ragged rows (196
+    = 3 x 64 + 4) and ragged key tiles."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, s, kh, kw, kv_len = K6_FWD_CASES[case]
+    q, k, v, bh, bw, kv_len, _ = _k6_inputs(gen, b, 3, s, kh, kw, kv_len)
+    args = (q, k, v, bh, bw, kv_len)
+    A.reset_launch_counts()
+    out, lse = G.flash_attention_fwd(*args, scale=0.125)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_attention_fwd"] == 1
+    want_out, want_lse = G.flash_attention_fwd_plain(*args, scale=0.125)
+    gap_o = (out - want_out).abs().max().item()
+    gap_l = (lse - want_lse).abs().max().item()
+    print(f"out gap {gap_o:.3e}, lse gap {gap_l:.3e}")
+    assert torch.isfinite(out).all() and gap_o <= 2e-5 and gap_l <= 1e-5
+    if kv_len is not None and kv_len[0] == 0:
+        assert torch.equal(lse[0], want_lse[0])
+
+
 def test_flash_trainable_backward_builds_without_spill(gen, tmp_path):
     """The register-tiled dq and dkv kernels fit their registers: ptxas
     (-Xptxas -v, the build's flags) reports no spill bytes."""
@@ -814,12 +919,13 @@ def test_tiled_f32_forward_is_deterministic(gen):
 
 def test_tiled_f32_forward_builds_without_spill(gen, tmp_path, monkeypatch):
     """The tiled body's kernels (both instances, with and without bias, in
-    each of the two sources that carry it) fit their registers: ptxas
+    each of the three sources that carry it) fit their registers: ptxas
     (-Xptxas -v, the build's flags) reports no spill bytes for them."""
     from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
 
     monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
-    names = ("fused_global_attention", "flash_attention")
+    names = ("fused_global_attention", "flash_attention",
+             "flash_attention_fwd")
     logs = cb.build_all(names)
     for name in names:
         tiled = {f: r for f, r in cb.ptxas_functions(logs[name]).items()

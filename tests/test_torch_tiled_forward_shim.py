@@ -1,13 +1,15 @@
-"""The register-tiled fp32 forward of K2 and K3 (``csrc/f32_tiled_forward.cuh``)
-run on the CPU against the port's plain versions.
+"""The register-tiled fp32 forward of K2, K3 and the K6 forward
+(``csrc/f32_tiled_forward.cuh``) run on the CPU against the port's plain
+versions.
 
 The body uses CUDA-core instructions only (FMAs, shuffles, barriers and
 cp.async), so it also compiles with g++ under a small stand-in for the CUDA
 runtime: a block runs as 128 ``std::thread``s, ``__syncthreads`` is a
 ``std::barrier``, a shuffle goes through a block-wide array between two
 barriers, and cp.async is a synchronous copy. That checks the body's
-indexing, its masks and both callers' problem builders (``k2_problem``,
-``k3_problem``) at the tile shape and buffer count the two sources ship with,
+indexing, its masks and its callers' problem builders (``k2_problem``,
+``k3_problem``, ``k6_problem`` with K6's split score chains and its lse
+store) at the tile shape and buffer count the three sources ship with,
 without the card. The card's own checks are in
 ``tests/test_torch_cuda_kernels.py``.
 """
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 from vit_deep_radiomics_tpu_torch.utils import cuda_build
 
 RUNTIME_H = r"""
@@ -73,7 +76,7 @@ thread_local BlockSync* tl_block;
 #include "f32_tiled_forward.cuh"
 using namespace vdr::tiled;
 
-template <class Make>
+template <bool kSplit = false, class Make>
 static void run_grid(int gx, int gy, int gz, int kh, int kw, bool bias,
                      Make make) {
   const size_t nf = smem_floats<COLS, STAGES, PINK>(kh, kw);
@@ -91,9 +94,11 @@ static void run_grid(int gx, int gy, int gz, int kh, int kw, bool bias,
             tl_block = &bs;
             const Problem p = make(z, y);
             if (bias)
-              forward<COLS, STAGES, PINK, true>(p, x * ROWS, smem.data());
+              forward<COLS, STAGES, PINK, true, kSplit, kSplit>(
+                  p, x * ROWS, smem.data());
             else
-              forward<COLS, STAGES, PINK, false>(p, x * ROWS, smem.data());
+              forward<COLS, STAGES, PINK, false, kSplit, kSplit>(
+                  p, x * ROWS, smem.data());
           });
         for (auto& t : th) t.join();
       }
@@ -119,6 +124,15 @@ void run_k3(const float* q, const float* k, const float* v, const float* bh,
                                kw, khv, kwv, SKIP, scale_log2, b, h);
            });
 }
+void run_k6(const float* q, const float* k, const float* v, const float* bh,
+            const float* bw, const int* kv_len, float* out, float* lse,
+            int B, int H, int S, int kh, int kw, float scale_log2) {
+  run_grid<true>((S + ROWS - 1) / ROWS, H, B, bh ? kh : 0, bh ? kw : 0,
+                 bh != nullptr, [&](int b, int h) {
+                   return k6_problem(q, k, v, bh, bw, kv_len, out, lse, H,
+                                     S, kh, kw, scale_log2, b, h);
+                 });
+}
 }
 """
 
@@ -143,7 +157,7 @@ def _cpu_core_header(text: str) -> str:
     text, n = re.subn(r"\n(// Launch over .*?\n)?(template <typename Kernel"
                       r"[^\n]*\n)int launch\(.*?\n\}\n", "\n", text,
                       flags=re.S)
-    assert n == 2
+    assert n == 1
     text, n = re.subn(r"inline const char\* error_string.*?\n\}\n", "", text,
                       flags=re.S)
     assert n == 1 and "asm" not in text and "<<<" not in text
@@ -163,7 +177,8 @@ def _shipped(source: str) -> dict:
 @pytest.fixture(scope="module")
 def shim(tmp_path_factory):
     """name -> the body built for the CPU with that source's constants; K3
-    also with its column skip turned the other way ("k3_other")."""
+    also with its column skip turned the other way ("k3_other"), K6 with
+    the constants of ``flash_attention_fwd.cu``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to build the body for the CPU")
@@ -178,7 +193,8 @@ def shim(tmp_path_factory):
     for name, c in (("k2", _shipped("fused_global_attention.cu")),
                     ("k3", k3),
                     ("k3_other", dict(k3, kF32SkipCols=1 - k3[
-                        "kF32SkipCols"]))):
+                        "kF32SkipCols"])),
+                    ("k6", _shipped("flash_attention_fwd.cu"))):
         so = d / f"{name}.so"
         procs[name] = (so, subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{d}",
@@ -194,7 +210,8 @@ def shim(tmp_path_factory):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.run_k2.argtypes = [P] * 6 + [I] * 5 + [F]
         lib.run_k3.argtypes = [P] * 7 + [I] * 8 + [F]
-        lib.run_k2.restype = lib.run_k3.restype = None
+        lib.run_k6.argtypes = [P] * 8 + [I] * 5 + [F]
+        lib.run_k2.restype = lib.run_k3.restype = lib.run_k6.restype = None
         libs[name] = lib
     return libs
 
@@ -269,3 +286,38 @@ def test_k3_tiled_body_matches_plain(shim, rng, case, build):
     want = A.flash_attention_plain(q, k, v, bh, bw, kl, kv_grid=grid,
                                    scale=D ** -0.5)
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
+
+
+# K6: (B, S, Kh, Kw, kv_len): SAM's 14 x 14 windows (rows ragged at 196 =
+# 3 x 64 + 4, keys in 7 tiles of 32 with 28 slots absent), a 16 x 16 grid,
+# and kv_len with a row that has no valid key and a ragged last tile (150
+# keys: 4 tiles of 32 and 22)
+K6_CASES = {"grid_14x14": (2, 196, 14, 14, None),
+            "grid_16x16": (1, 256, 16, 16, None),
+            "kv_len_zero_row": (2, 200, 0, 0, (0, 150))}
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_tiled_body_matches_plain(shim, rng, case):
+    """The K6 forward on the tiled body (``k6_problem``, the split score
+    chains, the lse store) against ``flash_attention_fwd_plain``: out
+    within 2e-5 and the log2 lse within 1e-5, the fp32 sums' order alone;
+    a kv_len 0 row's lse is -1e30 on both sides, exactly."""
+    b, s, kh, kw, kv_len = K6_CASES[case]
+    q, k, v = (_t(rng, b, HEADS, s, D) for _ in range(3))
+    bh = _t(rng, b, HEADS, s, kh, scale=0.5) if kh else None
+    bw = _t(rng, b, HEADS, s, kw, scale=0.5) if kh else None
+    kl = torch.tensor(kv_len, dtype=torch.int32) if kv_len else None
+    out = torch.full_like(q, float("nan"))
+    lse = torch.full((b, HEADS, s), float("nan"))
+    shim["k6"].run_k6(_ptr(q), _ptr(k), _ptr(v), _ptr(bh), _ptr(bw),
+                      _ptr(kl), _ptr(out), _ptr(lse), b, HEADS, s, kh, kw,
+                      D ** -0.5 * LOG2E)
+    want_out, want_lse = G.flash_attention_fwd_plain(q, k, v, bh, bw, kl,
+                                                     scale=D ** -0.5)
+    np.testing.assert_allclose(out.numpy(), want_out.numpy(), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=1e-5,
+                               rtol=0)
+    if kv_len and kv_len[0] == 0:
+        assert torch.equal(lse[0], want_lse[0])

@@ -1,6 +1,7 @@
 // The register-tiled fp32 attention forward shared by K2
-// (fused_global_attention.cu) and K3 (flash_attention.cu): the body of
-// their `parity` calls at D = 64 (K3 outside window mode).
+// (fused_global_attention.cu), K3 (flash_attention.cu) and the K6 forward
+// (flash_attention_fwd.cu): the body of their `parity` calls at D = 64 (K3
+// outside window mode; K6 always, with its log2 lse residual).
 //
 // Computes, for one (batch, head) and its query rows i,
 //     out_i = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp2(s_ij - m_i)
@@ -13,10 +14,30 @@
 // outside the (kh_valid, kw_valid) sub-grid of the key grid, scores
 // `masked` instead; a slot past n_visit (a ragged last tile) scores
 // `absent`. The callers' rules differ only
-// in those numbers (k2_problem, k3_problem below): K2 masks to -1e30 log2 e
-// and drops keys past the segment at -2e30; K3 masks to -1e30 and drops
-// keys past its range at -inf. So a row with no valid key averages V over
-// the keys it visits, as the plain versions do.
+// in those numbers (k2_problem, k3_problem, k6_problem below): K2 masks to
+// -1e30 log2 e and drops keys past the segment at -2e30; K3 masks to -1e30
+// and drops keys past its range at -inf; K6 masks to -1e30 and drops
+// slots past its range at -2e30. So a row with no valid key averages V
+// over the keys it visits, as the plain versions do.
+//
+// K6's scores must be the bits its two backward kernels rebuild
+// (flash_trainable_core.cuh): the dot product as two FMA chains, dims
+// 0..31 and 32..63, joined by one __fadd_rn (bwd::score_tile, kSplit), and
+// the bias as dot + (bias_h log2 e + bias_w log2 e). Every product and sum
+// of the bias and of the pre-scaled q is written with __fmul_rn /
+// __fadd_rn, which nvcc never contracts into an FMA; the same IEEE
+// expressions as before for K2 and K3, whose single chain stays. With
+// p.lse set the body also writes lse_i = m_i + log2(l_i) per row.
+//
+// K6 also sums each tile's P V in an accumulator of its own and folds it
+// into O with one fmaf(O, alpha, tile) (kTileSum). Its backward takes
+// D = sum_d dO O from this output, and dS = P (dP - D) is sensitive to a
+// bias in O along O: summed key by key over 4096 keys, the small P v
+// terms that fall below half an ulp of the running O are dropped, and on
+// real activations (V with a common direction) they are dropped along O.
+// The lane partials of l lose almost nothing, so O came out about 2e-6
+// small on average and the global layers' bias gradients 1e-4 off
+// (PERF.md, PR 11). Summed a tile at a time, O loses what l loses.
 //
 // What bounds it on an H100 SXM (67 TFLOP/s fp32 on the CUDA cores, no
 // tensor cores: `parity` must not round to TF32): 4 S_q S_k D FLOP per
@@ -60,6 +81,7 @@ using k6::bwd::cp_async16;
 using k6::bwd::cp_async_commit;
 using k6::bwd::cp_async_wait_all;
 using k6::bwd::ld4;
+using k6::bwd::score_tile;
 using k6::bwd::store_cols;
 
 constexpr int D = k6::D;          // 64, the one head dim built
@@ -84,6 +106,7 @@ struct Problem {
   const float* k;       // key 0, rows ldkv floats apart
   const float* v;       // value 0, rows ldkv floats apart
   float* out;           // output row 0, rows ldo floats apart
+  float* lse;           // (n_rows) log2 log-sum-exp of each row, or nullptr
   const float* bias_h;  // (n_rows, kh) of this (batch, head), or nullptr
   const float* bias_w;  // (n_rows, kw), or nullptr
   long long ldq, ldkv, ldo;
@@ -113,6 +136,7 @@ __host__ __device__ inline Problem k2_problem(
   p.k = kv + (long long)b * S * 2 * C + h * D;
   p.v = p.k + C;
   p.out = out + (long long)b * S * C + h * D;
+  p.lse = nullptr;
   const long long head = (long long)b * H + h;
   p.bias_h = bias_h != nullptr ? bias_h + head * S * kh : nullptr;
   p.bias_w = bias_h != nullptr ? bias_w + head * S * kw : nullptr;
@@ -154,6 +178,7 @@ __host__ __device__ inline Problem k3_problem(
   p.k = k + head * Sk * D;
   p.v = v + head * Sk * D;
   p.out = out + head * Sq * D;
+  p.lse = nullptr;
   p.bias_h = bias_h != nullptr ? bias_h + head * Sq * kh : nullptr;
   p.bias_w = bias_h != nullptr ? bias_w + head * Sq * kw : nullptr;
   p.ldq = p.ldkv = p.ldo = D;
@@ -178,6 +203,43 @@ __host__ __device__ inline Problem k3_problem(
   }
   p.masked = -1e30f;
   p.absent = -INFINITY;
+  p.scale_log2 = scale_log2;
+  return p;
+}
+
+// K6 (head-major q, k, v, out (B, H, S, D); bias (B, H, S, kh|kw); lse
+// (B, H, S)): keys at or past kv_len score -1e30 (already log2 units, as
+// the backward's mask) and are not visited unless kv_len is 0, when every
+// key of the row is visited at that score (P = 1 on each, out the mean of
+// V, lse -1e30 + log2(S)); slots past S score -2e30 (bwd::kPastS), below
+// the running max's start.
+__host__ __device__ inline Problem k6_problem(
+    const float* q, const float* k, const float* v, const float* bias_h,
+    const float* bias_w, const int* kv_len, float* out, float* lse, int H,
+    int S, int kh, int kw, float scale_log2, int b, int h) {
+  const long long head = (long long)b * H + h;
+  Problem p;
+  p.q = q + head * S * D;
+  p.k = k + head * S * D;
+  p.v = v + head * S * D;
+  p.out = out + head * S * D;
+  p.lse = lse + head * S;
+  p.bias_h = bias_h != nullptr ? bias_h + head * S * kh : nullptr;
+  p.bias_w = bias_h != nullptr ? bias_w + head * S * kw : nullptr;
+  p.ldq = p.ldkv = p.ldo = D;
+  p.n_rows = S;
+  p.kh = bias_h != nullptr ? kh : 0;
+  p.kw = p.gw = bias_h != nullptr ? kw : 1;
+  int lim = S;
+  if (kv_len != nullptr) {
+    lim = kv_len[b] < 0 ? 0 : kv_len[b];
+    lim = lim < S ? lim : S;
+  }
+  p.n_visit = lim > 0 ? lim : S;
+  p.n_valid = lim;
+  p.kh_valid = p.kw_valid = 0;
+  p.masked = k6::kNegInf;
+  p.absent = k6::bwd::kPastS;
   p.scale_log2 = scale_log2;
   return p;
 }
@@ -207,8 +269,10 @@ __host__ __device__ constexpr int smem_floats(int kh, int kw) {
 // kCols keys a tile (32 or 64: a 4 x kCols/8 score micro-tile), kStages
 // tile buffers (1 or 2), kPInK: P takes the place of the tile's K once
 // every score is made (one barrier more a tile, one [kCols][LP] tile less
-// of shared memory), kBias: p.bias_h is set.
-template <int kCols, int kStages, bool kPInK, bool kBias>
+// of shared memory), kBias: p.bias_h is set, kSplit: the dot product as
+// K6's two joined chains, kTileSum: each tile's P V summed on its own.
+template <int kCols, int kStages, bool kPInK, bool kBias, bool kSplit = false,
+          bool kTileSum = false>
 __device__ void forward(const Problem& p, int row0, float* smem) {
   constexpr int TC = kCols / TX;
   constexpr int kStage = 2 * kCols * LD;   // floats of one K + V buffer
@@ -237,10 +301,10 @@ __device__ void forward(const Problem& p, int row0, float* smem) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < nrows) {
       x = ld4(p.q + (row0 + r) * p.ldq + c);
-      x.x *= p.scale_log2;
-      x.y *= p.scale_log2;
-      x.z *= p.scale_log2;
-      x.w *= p.scale_log2;
+      x.x = __fmul_rn(x.x, p.scale_log2);
+      x.y = __fmul_rn(x.y, p.scale_log2);
+      x.z = __fmul_rn(x.z, p.scale_log2);
+      x.w = __fmul_rn(x.w, p.scale_log2);
     }
     *reinterpret_cast<float4*>(qs + r * LD + c) = x;
   }
@@ -249,11 +313,12 @@ __device__ void forward(const Problem& p, int row0, float* smem) {
     const float* bw = p.bias_w + (long long)row0 * p.kw;
     for (int i = threadIdx.x; i < ROWS * p.kh; i += NT) {
       const int r = i / p.kh, c = i % p.kh;
-      bias_s[c * BS + r] = r < nrows ? bh[i] * kLog2e : 0.f;
+      bias_s[c * BS + r] = r < nrows ? __fmul_rn(bh[i], kLog2e) : 0.f;
     }
     for (int i = threadIdx.x; i < ROWS * p.kw; i += NT) {
       const int r = i / p.kw, c = i % p.kw;
-      bias_s[(p.kh + c) * BS + r] = r < nrows ? bw[i] * kLog2e : 0.f;
+      bias_s[(p.kh + c) * BS + r] =
+          r < nrows ? __fmul_rn(bw[i], kLog2e) : 0.f;
     }
   }
 
@@ -287,7 +352,10 @@ __device__ void forward(const Problem& p, int row0, float* smem) {
       cp_async_commit();
     }
     float s[TR][TC] = {};   // zero for the probe without the products
-    chain<0, D>(s, qs, st);
+    if constexpr (kSplit)
+      score_tile(s, qs, st);
+    else
+      chain<0, D>(s, qs, st);
 
     // each of this thread's keys: scored (with its bias rows' offsets), or
     // its fixed score
@@ -313,7 +381,9 @@ __device__ void forward(const Problem& p, int row0, float* smem) {
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
         float x = s[i][j];
-        if (kBias) x += bias_s[ho[j] + row] + bias_s[wo[j] + row];
+        if (kBias)
+          x = __fadd_rn(x, __fadd_rn(bias_s[ho[j] + row],
+                                     bias_s[wo[j] + row]));
         x = ok[j] ? x : fixed[j];
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -342,11 +412,21 @@ __device__ void forward(const Problem& p, int row0, float* smem) {
     // O rows 4 ty .. 4 ty + 3: rescale, then O += P V
     const float4 a = ld4(row_s + 4 * ty);
     const float av[4] = {a.x, a.y, a.z, a.w};
+    if constexpr (kTileSum) {
+      float tile[4][8] = {};
+      accumulate<kCols>(tile, pt, st + kCols * LD);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= av[i];
-    accumulate<kCols>(acc, pt, st + kCols * LD);
+        for (int e = 0; e < 8; ++e)
+          acc[i][e] = fmaf(acc[i][e], av[i], tile[i][e]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i][e] *= av[i];
+      accumulate<kCols>(acc, pt, st + kCols * LD);
+    }
   }
 
   // each row's sum over its 8 lanes, to the accumulator's rows
@@ -358,7 +438,13 @@ __device__ void forward(const Problem& p, int row0, float* smem) {
   __syncthreads();   // every thread has read the last rescale factors
   if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < TR; ++i) row_s[ty + TY * i] = l[i];
+    for (int i = 0; i < TR; ++i) {
+      const int row = ty + TY * i;
+      row_s[row] = l[i];
+      // the lane that holds the row's max and its joined sum
+      if (p.lse != nullptr && row < nrows)
+        p.lse[row0 + row] = m[i] + log2f(l[i]);
+    }
   }
   __syncthreads();
   const float4 ls = ld4(row_s + 4 * ty);

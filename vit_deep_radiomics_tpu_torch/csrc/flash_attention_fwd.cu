@@ -4,113 +4,70 @@
 // Replaces: vit_deep_radiomics_tpu/ops/attention_grad.py::_fwd_kernel
 // (flash_attention_trainable's forward, a Pallas TPU kernel).
 //
-// A block owns 64 query rows of one (batch, head), two lanes a row, each
-// lane holding half of the row's pre-scaled q and of its fp32 accumulator,
-// and loops over the keys in 64-key tiles staged in shared memory, with an
-// online softmax in log2 units (running max, running sum). It writes
-// out = sum_j P_ij v_j and lse_i = m_i + log2(l_i). The score is the one
-// of flash_trainable_core.cuh, which both backward kernels rebuild.
+// Writes out = sum_j P_ij v_j / sum_j P_ij and lse_i = m_i + log2(l_i) in
+// log2 units, with an optional decomposed bias (bias_h (B, H, S, kh),
+// bias_w (B, H, S, kw), kh * kw = S, any kw) or an optional kv_len (B,).
+// The score is the one of flash_trainable_core.cuh, which both backward
+// kernels rebuild bit for bit from this lse.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 on the CUDA
-// cores): 4 S^2 D FLOP per (batch, head) against 5 S D words. At the
+// cores; `parity` must not round to TF32): 4 S_k S D FLOP per (batch,
+// head) on the S_k keys a row scores, against about 4 S D words. At the
 // `parity` path's shapes that is operations in every case: SAM's global
 // layers (2 x 12 x 4096 tokens) 103 GFLOP, 1.54 ms, against 0.05 ms of
 // traffic; SAM's windowed layers (50 x 12 x 196 tokens, bias 14 x 14)
 // 5.9 GFLOP, 0.088 ms, against 0.040 ms; DINOv2 ViT-B/14 (2 x 12 x 1536
-// tokens, 1370 valid keys) 31 GFLOP, 0.46 ms.
+// tokens, 1370 valid keys) 12.9 GFLOP, 0.193 ms. The first loop (two
+// lanes a query row, each holding half of q and of the accumulator, every
+// K and V element a shared-memory broadcast operand of one FMA, 64-key
+// tiles with no asynchronous copy) ran at about 24% of that rate: the
+// load/store pipe paced it.
 //
-// What the design does about it: the (S, S) scores never leave registers;
-// K/V tiles are read from shared memory as broadcasts, 16-byte vectors, so
-// each FMA needs a quarter of a shared load; 16 keys' score chains run
-// side by side for instruction-level parallelism. fp32 stays on the CUDA
-// cores (TF32 would round it). Faster versions (a cp.async ring, larger
-// tiles) are later work.
+// What the design does about it: the register-tiled CUDA-core body of K2's
+// and K3's fp32 forwards (f32_tiled_forward.cuh), with K6's problem
+// (k6_problem: head-major rows, K6's masks) and K6's score (the two FMA
+// chains of bwd::score_tile joined by one __fadd_rn, the bias added as
+// the backward adds it), the lse written by the lane that holds each
+// row's max and joined sum, and each tile's P V summed on its own before
+// it joins O (kF32TileSum: the backward's D = sum dO O needs an O without
+// a bias along itself; f32_tiled_forward.cuh). A block of 128 threads owns
+// 64 query rows; 32-key K/V tiles arrive by cp.async into one buffer, P is
+// written over the tile's K (70 KB of shared memory at Kw 64: three blocks
+// an SM); each thread scores a 4 x 4 micro-tile and accumulates a 4 x 8
+// tile of O. No atomics: two runs give the same bits.
 
-#include "flash_trainable_core.cuh"
+#include "f32_tiled_forward.cuh"
 
 namespace {
-using namespace vdr::k6;
 
-constexpr int CH = 16;   // keys per online-softmax step
+// the tiled fp32 body: keys a K/V tile (32: a 4 x 4 score micro-tile a
+// thread; 64: 4 x 8), tile buffers (2: the next tile loads during this
+// one) and P in the tile's K buffer (1), as K2 ships them; each tile's
+// P V summed on its own (1)
+constexpr int kF32Cols = 32;
+constexpr int kF32Stages = 1;
+constexpr int kF32PInK = 1;
+constexpr int kF32TileSum = 1;
 
-size_t smem_bytes(int kh, int kw) {
-  return (size_t)(2 * TILE * LDS + (kh + kw) * BS) * sizeof(float);
+template <bool kBias>
+__global__ void __launch_bounds__(vdr::tiled::NT, 2)
+    k6_tiled_kernel(const vdr::k6::Params p) {
+  extern __shared__ __align__(16) float smem_k6[];
+  const vdr::tiled::Problem pr = vdr::tiled::k6_problem(
+      p.q, p.k, p.v, p.bias_h, p.bias_w, p.kv_len, p.out, p.lse_out, p.H,
+      p.S, p.kh, p.kw, p.scale_log2, blockIdx.z, blockIdx.y);
+  vdr::tiled::forward<kF32Cols, kF32Stages, kF32PInK != 0, kBias, true,
+                      kF32TileSum != 0>(pr, blockIdx.x * vdr::tiled::ROWS,
+                                        smem_k6);
 }
 
-__global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                  // [TILE][LDS]
-  float* vs = ks + TILE * LDS;       // [TILE][LDS]
-  float* bias_s = vs + TILE * LDS;   // [kh + kw][BS]
-
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * ROWS;
-  const int lr = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int r = row0 + lr;
-  const bool valid = r < p.S;
-  const size_t bh = (size_t)b * p.H + h;
-  const size_t base = bh * p.S * D;
-  // A kv_len 0 row: every key scores -1e30 (the plain version, JAX), so P
-  // is 1 on all S keys. Visit them with q = 0 and no bias (every score 0,
-  // the same P) and write the plain lse, -1e30 + log2(S).
-  const int n_keys = valid_keys(p, b);
-  const bool none = n_keys == 0;
-  const int lim = none ? p.S : n_keys;
-  const bool has_bias = p.bias_h != nullptr && !none;
-  if (has_bias) stage_bias_rows(p, bh, row0, bias_s);
-
-  float q[HD], acc[HD];
-  load_half<true>(q, p.q + base + (size_t)r * D + half * HD, valid && !none,
-                  p.scale_log2);
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-  const int hc = half_col(half);
-
-  for (int k0 = 0; k0 < lim; k0 += TILE) {
-    const int nk = min(TILE, lim - k0);
-    __syncthreads();
-    load_rows(ks, p.k + base + (size_t)k0 * D, nk, TILE);
-    load_rows(vs, p.v + base + (size_t)k0 * D, nk, TILE);
-    __syncthreads();
-    for (int c0 = 0; c0 < nk; c0 += CH) {
-      float s[CH];
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        const int j = c0 + jj;
-        float v = join(half_dot(q, ks + j * LDS + hc));
-        if (j < nk) {
-          if (has_bias) {
-            const int key = k0 + j, kr = key / p.kw;
-            v = with_bias(v, bias_s[kr * BS + lr],
-                          bias_s[(p.kh + key - kr * p.kw) * BS + lr]);
-          }
-        } else {
-          v = kNegInf;
-        }
-        s[jj] = v;
-        mx = fmaxf(mx, v);
-      }
-      const float alpha = exp2f(m - mx);
-      m = mx;
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        if (c0 + jj < nk) {
-          const float pj = exp2f(s[jj] - m);
-          l += pj;
-          half_axpy(acc, pj, vs + (c0 + jj) * LDS + hc);
-        }
-      }
-    }
-  }
-  if (!valid) return;
-  const float safe_l = l > 0.f ? l : 1.f;
-  store_half(p.out + base + (size_t)r * D + half * HD, acc, 1.f / safe_l);
-  if (half == 0)
-    p.lse_out[bh * p.S + r] = (none ? kNegInf : m) + log2f(safe_l);
+template <bool kBias>
+int launch_tiled(const vdr::k6::Params& p, void* stream) {
+  const size_t smem =
+      sizeof(float) *
+      vdr::tiled::smem_floats<kF32Cols, kF32Stages, kF32PInK != 0>(
+          kBias ? p.kh : 0, kBias ? p.kw : 0);
+  return vdr::k6::bwd::launch(k6_tiled_kernel<kBias>, p, smem, stream);
 }
 
 }  // namespace
@@ -143,8 +100,8 @@ int vdr_flash_attention_fwd(const float* q, const float* k, const float* v,
   p.kw = bias_h != nullptr ? kw : 1;
   p.scale = scale;
   p.scale_log2 = scale * vdr::k6::kLog2e;
-  return vdr::k6::launch(fwd_kernel, p, smem_bytes(p.kh, bias_h ? kw : 0),
-                         stream);
+  return bias_h != nullptr ? launch_tiled<true>(p, stream)
+                           : launch_tiled<false>(p, stream);
 }
 
 }  // extern "C"

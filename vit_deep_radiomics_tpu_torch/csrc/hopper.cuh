@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (K1, K2 and the K5 backward in bf16): shared-memory addresses, mbarriers,
+// (K1, K2, K4 and the K5 backward in bf16): shared-memory addresses, mbarriers,
 // named barriers, TMA tensor and bulk copies, wgmma descriptors and
 // instructions, and the runtime lookup of cuTensorMapEncodeTiled (no link
 // against libcuda) with the 64 x 64 tile maps it encodes.
@@ -115,12 +115,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 // The asm templates below number their operands: the fp32 accumulators D
 // come first, %0 .. %(N/2 - 1), as the prefix VDR_R<N/2> of one list of
 // placeholders, bound by VDR_D<N/2>.
+#define VDR_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define VDR_F8(d, i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define VDR_F32(d, i) \
   VDR_F8(d, i), VDR_F8(d, i + 8), VDR_F8(d, i + 16), VDR_F8(d, i + 24)
+#define VDR_D8(d) VDR_F8(d, 0)
 #define VDR_D32(d) VDR_F32(d, 0)
+#define VDR_D52(d) VDR_F32(d, 0), VDR_F8(d, 32), VDR_F8(d, 40), VDR_F4(d, 48)
 #define VDR_D104(d) VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F8(d, 96)
 #define VDR_D128(d) VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F32(d, 96)
 #define VDR_R8_0 "%0, %1, %2, %3, %4, %5, %6, %7"
@@ -139,7 +142,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_R8_13 "%104, %105, %106, %107, %108, %109, %110, %111"
 #define VDR_R8_14 "%112, %113, %114, %115, %116, %117, %118, %119"
 #define VDR_R8_15 "%120, %121, %122, %123, %124, %125, %126, %127"
+#define VDR_R8 "{" VDR_R8_0 "}"
 #define VDR_R32 "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 "}"
+#define VDR_R52                                                         \
+  "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4 \
+  ", " VDR_R8_5 ", %48, %49, %50, %51}"
 #define VDR_R104                                                           \
   "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4    \
   ", " VDR_R8_5 ", " VDR_R8_6 ", " VDR_R8_7 ", " VDR_R8_8 ", " VDR_R8_9 \
@@ -152,7 +159,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 
 // Wgmma<N>: D(64xN, fp32) (+)= A(64x16) * B(16xN), bf16 in, for the widths
 // the kernels use (K2 and the K5 backward: 64; K1: 64 for PV, 208 and 256
-// for its scores).
+// for its scores; K4: 64 and 208 for its scores, 64 and 104 for dP's key
+// chunks, 16 and 64 for phase B's query chunks).
 // ss reads A and B from shared memory, both K-major; rs takes A from
 // registers, with B K-major (TransB 0: K, E) or MN-major (1: V). T0 .. T6
 // spell the numbers of the operands after D, %(N/2) .. %(N/2 + 6).
@@ -186,8 +194,11 @@ struct Wgmma;
     }                                                                       \
   };
 
+VDR_WGMMA(16, VDR_R8, VDR_D8, "%8", "%9", "%10", "%11", "%12", "%13", "%14")
 VDR_WGMMA(64, VDR_R32, VDR_D32, "%32", "%33", "%34", "%35", "%36", "%37",
           "%38")
+VDR_WGMMA(104, VDR_R52, VDR_D52, "%52", "%53", "%54", "%55", "%56", "%57",
+          "%58")
 VDR_WGMMA(208, VDR_R104, VDR_D104, "%104", "%105", "%106", "%107", "%108",
           "%109", "%110")
 VDR_WGMMA(256, VDR_R128, VDR_D128, "%128", "%129", "%130", "%131", "%132",

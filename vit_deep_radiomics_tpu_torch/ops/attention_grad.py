@@ -6,7 +6,9 @@ Kw)``, as in ``ops/attention.py``):
 
 * :func:`window_attention_trainable` — forward K1
   (``csrc/fused_window_attention.cu``, max softmax), backward K4
-  (``csrc/window_attention_bwd.cu``): one pass per window and head.
+  (``csrc/window_attention_bwd.cu``): one pass per window and head, a TMA +
+  wgmma body for windows of at most 208 tokens and mma.sync loops beyond;
+  :func:`window_attention_bwd_route` says which.
 * :func:`global_attention_trainable` — forward K5
   (``csrc/global_attention_fwd_lse.cu``: K2 plus a per-row log2
   log-sum-exp residual), backward the K5 dq kernel
@@ -17,7 +19,8 @@ Kw)``, as in ``ops/attention.py``):
   32; :func:`global_attention_bwd_route` says which.
 * :func:`flash_attention_trainable` — K6, the generic per-head
   ``(B, H, S, D)`` path of ``parity`` (fp32) fine-tuning: forward with the
-  lse residual (``csrc/flash_attention_fwd.cu``), dq with both bias
+  lse residual (``csrc/flash_attention_fwd.cu``, the register-tiled body
+  of ``csrc/f32_tiled_forward.cuh``), dq with both bias
   gradients (``csrc/flash_attention_bwd_dq.cu``) and dk/dv
   (``csrc/flash_attention_bwd_dkv.cu``), any key-grid width.
 
@@ -53,6 +56,7 @@ __all__ = [
     "attention_delta",
     "window_attention_bwd",
     "window_attention_bwd_plain",
+    "window_attention_bwd_route",
     "global_attention_fwd_lse",
     "global_attention_fwd_lse_plain",
     "global_attention_bwd_dq",
@@ -332,6 +336,25 @@ def window_attention_bwd(q, kv, bias_h, bias_w, out, dout, *, num_heads,
     _raise_on(rc, lib, "window_attention_bwd")
     LAUNCHES["window_attention_bwd"] += 1
     return dq, dkv, dbh, dbw
+
+
+def window_attention_bwd_route(q, kv, bias_h=None, bias_w=None, *, num_heads,
+                              window_tokens, scale) -> str:
+    """Which body :func:`window_attention_bwd` runs for these operands:
+    ``"plain"`` on the CPU; on the card, as ``csrc/window_attention_bwd.cu``
+    chooses, ``"hopper"`` (the TMA + wgmma kernel: windows of at most 208
+    tokens, at most 63 bias terms, 1/scale a power of two) or ``"loops"``
+    (the mma.sync loops)."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, None, num_heads,
+                              window_tokens)
+    if q.device.type == "cpu":
+        return "plain"
+    _check_bwd_cuda(q, d, kv, bias_h, bias_w)
+    _, fn = _load("window_attention_bwd", [_I] * 7 + [_F],
+                  entry="vdr_window_attention_bwd_route")
+    hopper = fn(q.shape[1], num_heads, d, window_tokens, kh, kw,
+                int(bias_h is not None), scale)
+    return "hopper" if hopper else "loops"
 
 
 def global_attention_fwd_lse(q, kv, bias_h, bias_w, kv_len, *, num_heads,

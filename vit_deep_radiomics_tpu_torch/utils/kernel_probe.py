@@ -1,17 +1,21 @@
 """Probes of the Hopper kernels K1 (``csrc/fused_window_attention.cu``), K2
-(``csrc/fused_global_attention.cu``), the K5 backward
-(``csrc/global_attention_bwd_dkv.cu``, ``csrc/global_attention_bwd_dq.cu``)
-and the K6 backward (``csrc/flash_attention_bwd_dkv.cu``,
-``csrc/flash_attention_bwd_dq.cu``) on the GPU.
+(``csrc/fused_global_attention.cu``), K4 (``csrc/window_attention_bwd.cu``),
+the K5 backward (``csrc/global_attention_bwd_dkv.cu``,
+``csrc/global_attention_bwd_dq.cu``), the K6 forward
+(``csrc/flash_attention_fwd.cu``) and the K6 backward
+(``csrc/flash_attention_bwd_dkv.cu``, ``csrc/flash_attention_bwd_dq.cu``) on
+the GPU.
 
 Two measurements that ``chip_smoke.py`` does not make::
 
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k4
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dq
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6fwd
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
@@ -21,26 +25,32 @@ Two measurements that ``chip_smoke.py`` does not make::
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
-warpgroups; K2: the ring depth or the consumer warpgroups; the K5
-backward: three consumer warpgroups, the ring depth, the bias step
+warpgroups; K2: the ring depth or the consumer warpgroups; K4: one
+warpgroup, the bias rows read from device memory instead of staged by
+bulk copy, the bias gradients' product or the bias tile's build removed, phase A or phase B (the key-major recompute)
+removed, phase B's dk/dv products removed; the
+K5 backward: three consumer warpgroups, the ring depth, the bias step
 removed; the K6 backward: one tile buffer instead of two, or 64-column
-tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K2
-and K3 (``csrc/f32_tiled_forward.cuh``, ``k2f32`` and ``k3f32``): 64-key
-tiles, which make the score micro-tile 4 x 8, two tile buffers, P in a
-tile of its own, all of K3's grid columns visited, the bias step removed;
+tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K2,
+K3 and K6 (``csrc/f32_tiled_forward.cuh``, ``k2f32``, ``k3f32`` and
+``k6fwd``): 64-key tiles, which make the score micro-tile 4 x 8, two tile
+buffers, P in a tile of its own, all of K3's grid columns visited, the bias
+step removed;
 for all the softmax (K5 and K6: the exp2/dS step) or the products
 removed, and for K5, K6 and the fp32 forward the score (and dP)
 products removed: timing ablations whose output is wrong by design),
 calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
 Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
-shape, 4 x 1536 with 1370 valid; K5: q (2, 4096, 768), Kh = Kw = 64, and
-the kv_len shape at B=2, bf16; K6: the `parity` path's SAM global (2, 12,
-4096, 64), Kh = Kw = 64, and windowed (50, 12, 196, 64), Kh = Kw = 14,
-fp32; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
+shape, 4 x 1536 with 1370 valid; K4: q (50, 196, 768), Kh = Kw = 14; K5:
+q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16; K6: the
+`parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
+(50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
+1536, 64) with 1370 valid keys); K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
 K3 fp32: SAM @768's (4, 12, 3072, 64), Kh 48, Kw 64, ``kv_grid`` (48, 48),
 and (4, 12, 1536, 64) with 1370 valid keys), and prints its gap to the
-plain version and its time (K1/K2 and the fp32 forward beside SDPA's, K5
-beside the bf16 tensor-core peak, K6 beside the fp32 CUDA cores' peak).
+plain version and its time (K1/K2 and the fp32 forward beside SDPA's, K4
+and K5 beside the bf16 tensor-core peak, K6 beside the fp32 CUDA cores'
+peak).
 A variant that changes a header (the fp32 forward's steps) builds from
 its own directory, which holds the changed copy.
 ``pair`` runs two checkouts in turns (parent, change,
@@ -49,7 +59,8 @@ default) 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
 then ``chip_smoke.py``'s extraction phase; with ``--path fast`` or
 ``--path parity`` 5 fine-tuning steps of SAM ViT-B/16 @1024 and of DINOv2
 ViT-B/14 @518 at B=2 under that policy (``chip_smoke.py``'s phases 8 and
-13, or 12 and 13: host clock, steady = steps 3-5), then its kernel phases
+13, or 12 and 13: host clock, steady = steps 3-5), the device time of a
+step of each (``utils/profiling.py``), then its kernel phases
 7 and 11 (K4, K5; `fast`) or 10 (K6; `parity`); with ``--path
 parity-forward`` 5 `parity` SAM ViT-B/16 forwards at B=4 @1024 (K2 fp32)
 and @768 (K3 fp32) on the host clock, each after a warm-up, then K2 and K3
@@ -72,6 +83,8 @@ __all__ = ["SOURCES", "HEADERS", "VARIANTS", "CALLS", "variant_source",
 
 SOURCES = {"k1": "fused_window_attention.cu",
            "k2": "fused_global_attention.cu",
+           "k4": "window_attention_bwd.cu",
+           "k6fwd": "flash_attention_fwd.cu",
            "k6dkv": "flash_attention_bwd_dkv.cu",
            "k6dq": "flash_attention_bwd_dq.cu",
            "k5dkv": "global_attention_bwd_dkv.cu",
@@ -80,7 +93,8 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k3f32": "flash_attention.cu"}
 # headers a variant of the kernel may change (copied beside its source)
 HEADERS = {"k2f32": ("f32_tiled_forward.cuh",),
-           "k3f32": ("f32_tiled_forward.cuh",)}
+           "k3f32": ("f32_tiled_forward.cuh",),
+           "k6fwd": ("f32_tiled_forward.cuh",)}
 # the register-tiled fp32 forward (f32_tiled_forward.cuh) of K2 and K3
 _F32_TILED = {
     "as_built": ({}, ()),   # one tile buffer, P in the tile's K buffer
@@ -88,8 +102,9 @@ _F32_TILED = {
     "stages_2": ({"kF32Stages": 2}, ()),
     "p_tile": ({"kF32PInK": 0}, ()),     # P in a [kCols][LP] tile of its own
     "stages_2_p_tile": ({"kF32Stages": 2, "kF32PInK": 0}, ()),
-    "no_bias": ({}, ("if (kBias) x += bias_s[ho[j] + row] + bias_s[wo[j] "
-                     "+ row];",)),
+    "no_bias": ({}, (("x = __fadd_rn(x, __fadd_rn(bias_s[ho[j] + row],\n"
+                      "                                     "
+                      "bias_s[wo[j] + row]));", ";"),)),
     # scores minus the thread's own max: no shuffles, no exponentials
     "no_softmax": ({}, (
         ("mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));", ";"),
@@ -176,6 +191,30 @@ VARIANTS = {
             "scores_tile(s, dp, q_addr, do_addr, ring, ring + kTile);",
             "scores_tile(s, dp, q_addr, do_addr, cur, cur + kTile);")),
     },
+    "k4": {
+        "as_built": ({}, ()),
+        "consumers_1": ({"kConsumers": 1}, ()),
+        "bias_rows_global": ({"kBiasBulk": 0}, ()),
+        "no_dbias": ({}, ("Wgmma<64>::rs<1>(db, da[kt], mn_desc(sm.e, kt), "
+                          "1);",)),
+        "no_bias_tile": ({}, ("build_bias_tile(p, sm, item, base + p.rows "
+                              "* 128);",)),
+        "no_phase_a": ({}, ("query_tile<N>(p, sm, item, tile);",)),
+        "no_phase_b": ({}, ("key_tile(p, sm, item, tile);",)),
+        "no_key_products": ({}, (
+            "Wgmma<64>::rs<1>(dv, pa[kt], mn_desc(sm.dout + q0 * 128, kt), "
+            "1);",
+            "Wgmma<64>::rs<1>(dk, sa[kt], mn_desc(sm.q + q0 * 128, kt), "
+            "1);")),
+    },
+    # the K6 forward on the tiled body: its score is the split chain pair
+    "k6fwd": {
+        **{k: v for k, v in _F32_TILED.items() if k != "no_scores"},
+        "no_scores": ({}, ("score_tile(s, qs, st);",)),
+        "no_products": ({}, ("accumulate<kCols>(tile, pt, st + kCols * LD);",)),
+        # O summed key by key, as K2 and K3 sum it
+        "no_tile_sum": ({"kF32TileSum": 0}, ()),
+    },
     "k2f32": _F32_TILED,
     # K3 also: every column of a padded key grid visited (the masked ones
     # scored at -1e30) instead of the valid ones alone
@@ -217,6 +256,9 @@ CALLS = {
            _k1_call),
     "k2": ([_P] * 6 + [_I] * 6 + [_F, _I, _P],
            ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), _k2_call),
+    "k4": ([_P] * 10 + [_I] * 7 + [_F, _P], ((50, 196, 14, 14, None),), None),
+    "k6fwd": ([_P] * 8 + [_I] * 6 + [_F, _P],
+              (*_K6_SHAPES, (2, 1536, 0, 0, 1370)), None),
     "k6dkv": ([_P] * 11 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
@@ -380,9 +422,9 @@ def _variants(kernel: str, out_dir: Path) -> None:
 
 
 def _k6_variants(kernel: str, out_dir: Path) -> None:
-    """The K6 backward's variants (fp32, per-head (B, H, S, D)) at the
-    `parity` path's shapes: gap to the plain version, ms, share of the fp32
-    CUDA-core peak (67 TFLOP/s, H100 SXM)."""
+    """The K6 forward's or backward's variants (fp32, per-head (B, H, S,
+    D)) at the `parity` path's shapes: gap to the plain version, ms, share
+    of the fp32 CUDA-core peak (67 TFLOP/s, H100 SXM) on the keys scored."""
     import torch
 
     from ..ops import attention_grad as G
@@ -395,24 +437,36 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
-    for b, s, kh, kw, _ in CALLS[kernel][1]:
+    for b, s, kh, kw, n_valid in CALLS[kernel][1]:
         q, k, v, dout = (torch.randn(b, heads, s, d, generator=gen,
                                      device="cuda") for _ in range(4))
-        bh, bw = (torch.randn(b, heads, s, n, generator=gen, device="cuda")
-                  * 0.3 for n in (kh, kw))
-        out, lse = G.flash_attention_fwd(q, k, v, bh, bw, None, scale=scale)
-        args = (q, k, v, bh, bw, None, dout, lse,
-                G.flash_attention_delta(out, dout))
+        bh = bw = kl = None
+        if kh:
+            bh, bw = (torch.randn(b, heads, s, n, generator=gen,
+                                  device="cuda") * 0.3 for n in (kh, kw))
+        if n_valid:
+            kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
+        pairs = b * heads * s * (n_valid or s) * d
+        if kernel == "k6fwd":
+            args = (q, k, v, bh, bw, kl)
+            ref = G.flash_attention_fwd_plain(*args, scale=scale)
+            flops = 4.0 * pairs
+        else:
+            out, lse = G.flash_attention_fwd(q, k, v, bh, bw, kl, scale=scale)
+            args = (q, k, v, bh, bw, kl, dout, lse,
+                    G.flash_attention_delta(out, dout))
+            del out
         if kernel == "k6dq":
             ref = G.flash_attention_bwd_dq_plain(*args, scale=scale)
-            flops = 6.0 * b * heads * s * s * d
-        else:
+            flops = 6.0 * pairs
+        elif kernel == "k6dkv":
             ref = G.flash_attention_bwd_dkv_plain(*args, scale=scale)
-            flops = 8.0 * b * heads * s * s * d
-        print(f"{kernel} shape ({b}, {heads}, {s}, {d}), Kh {kh}, Kw {kw}:")
+            flops = 8.0 * pairs
+        print(f"{kernel} shape ({b}, {heads}, {s}, {d}), Kh {kh}, Kw {kw}, "
+              f"kv_len {n_valid}:")
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         for name, fn in fns.items():
-            outs = [torch.empty_like(r) for r in ref]
+            outs = [None if r is None else torch.empty_like(r) for r in ref]
             c_args = (*map(ptr, (*args, *outs)), b, heads, s, d, kh, kw,
                       scale, stream)
 
@@ -423,11 +477,12 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
 
             run()
             torch.cuda.synchronize()
-            gap = max((o - r).abs().max().item() for o, r in zip(outs, ref))
+            gap = max((o - r).abs().max().item()
+                      for o, r in zip(outs, ref) if r is not None)
             ms = _ms(torch, run, 10)
             print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
                   f"({flops / (ms * 1e-3) / 67e12:.1%} of 67 TFLOP/s)")
-        del q, k, v, dout, bh, bw, out, lse, args, ref
+        del q, k, v, dout, bh, bw, kl, args, ref
         torch.cuda.empty_cache()
 
 
@@ -490,6 +545,73 @@ def _k5_variants(kernel: str, out_dir: Path) -> None:
             print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
                   f"({flops / (ms * 1e-3) / 989e12:.1%} of 989 TFLOP/s)")
         del q, kv, dout, bh, bw, out, lse, args, ref
+        torch.cuda.empty_cache()
+
+
+def _k4_variants(kernel: str, out_dir: Path) -> None:
+    """K4's variants (bf16, the port's (B, S, H·D) layouts) at the `fast`
+    path's shape, 50 windows of 14 x 14 tokens: gap to the plain version
+    beyond one bf16 step, ms beside SDPA's backward (the dense bias a
+    trainable ``attn_mask``), and the share of the 0.0399 ms bound (bytes,
+    H100 SXM) it reaches."""
+    import torch
+
+    from ..ops import attention as A
+    from ..ops import attention_grad as G
+
+    fns = _build(kernel, out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    heads, d = 12, 64
+    c, scale = heads * d, d ** -0.5
+
+    def rand(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * s).to(torch.bfloat16)
+
+    def ptr(t):
+        return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+    for b, s, kh, kw, _ in CALLS[kernel][1]:
+        q, kv, dout = rand(b, s, c), rand(b, s, 2 * c), rand(b, s, c)
+        bh, bw = rand(b, heads, s, kh, s=0.3), rand(b, heads, s, kw, s=0.3)
+        kwargs = dict(num_heads=heads, window_tokens=s, scale=scale)
+        out = A.fused_window_attention(q, kv, bh, bw, **kwargs)
+        args = (q, kv, bh, bw, out, dout)
+        ref = G.window_attention_bwd_plain(*args, **kwargs)
+        nbytes = sum(t.numel() * 2 for t in (*args, *ref))
+        bound = nbytes / 3.35e12 * 1e3
+        print(f"{kernel} shape q ({b}, {s}, {c}), Kh {kh}, Kw {kw} "
+              f"(bound {bound:.4f} ms, bytes):")
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for name, fn in fns.items():
+            outs = [torch.empty_like(r) for r in ref]
+            c_args = (*map(ptr, (*args, *outs)), b, s, heads, d, s, kh, kw,
+                      scale, stream)
+
+            def run(fn=fn, c_args=c_args):
+                rc = fn(*c_args)
+                if rc:
+                    raise RuntimeError(f"variant launch failed: {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            gap = max(((o.float() - r.float()).abs()
+                       - 2 ** -7 * r.float().abs()).max().item()
+                      for o, r in zip(outs, ref))
+            ms = _ms(torch, run, 20)
+            print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
+                  f"({bound / ms:.1%} of the bound)")
+        heads_of = [t.reshape(b, s, heads, d).transpose(1, 2).detach()
+                    .requires_grad_() for t in (q, kv[..., :c], kv[..., c:])]
+        mask = (bh.float()[..., :, None] + bw.float()[..., None, :]).reshape(
+            b, heads, s, s).to(torch.bfloat16).requires_grad_()
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *heads_of, attn_mask=mask, scale=scale)
+        g = dout.reshape(b, s, heads, d).transpose(1, 2)
+        lib = _ms(torch, lambda: torch.autograd.grad(
+            o, [*heads_of, mask], g, retain_graph=True), 10)
+        print(f"  sdpa backward: ms {lib:.4f}")
+        del q, kv, dout, bh, bw, out, args, ref, heads_of, mask, o
         torch.cuda.empty_cache()
 
 
@@ -608,6 +730,20 @@ torch.cuda.empty_cache()
 cs.extraction_phase(torch, A, tex, syn, state)
 '''
 
+# device time of SAM's and DINOv2's steps (utils/profiling.py), for the
+# `fast` and `parity` children
+_DEVICE_STEPS = r'''
+from vit_deep_radiomics_tpu_torch.utils import profiling
+for backbone in ("medsam", "dinov2_vitb14"):
+    r = profiling.profile_finetune_step(2, rows=5, precision="{precision}",
+                                        backbone=backbone)
+    print(f"fine-tune device {{backbone}} {precision} B=2: wall "
+          f"{{r['wall_ms']:.3f}} ms, device {{r['device_ms']:.3f}} ms, idle "
+          f"{{r['idle_share']:.3f}}; " + "; ".join(
+              f"{{x['name'][:28]}} {{x['ms']:.3f}}" for x in r["top"]))
+    torch.cuda.empty_cache()
+'''
+
 _PAIR_PARITY_CHILD = r'''
 import sys
 sys.path.insert(0, ".")
@@ -622,7 +758,7 @@ for backbone in ("medsam", "dinov2_vitb14"):
     cs.finetune_phase(torch, A, ft, backbone, "parity",
                       cs.PARITY_STEP_LAUNCHES)
     torch.cuda.empty_cache()
-recs = cs.k6_phase(torch, G, cs.peaks_for(torch.cuda.get_device_name(0))[1])
+''' + _DEVICE_STEPS.format(precision="parity") + r'''recs = cs.k6_phase(torch, G, cs.peaks_for(torch.cuda.get_device_name(0))[1])
 for name, rec in recs.items():
     for shape, r in rec["by_shape"].items():
         print(f"k6 {name} [{shape}]: ms {r['ms']:.4f} bound {r['bound_ms']:.4f}"
@@ -646,7 +782,7 @@ torch.cuda.empty_cache()
 cs.finetune_phase(torch, A, ft, "dinov2_vitb14", "fast",
                   cs.DINO_FAST_STEP_LAUNCHES)
 torch.cuda.empty_cache()
-peaks = cs.peaks_for(torch.cuda.get_device_name(0))[1]
+''' + _DEVICE_STEPS.format(precision="fast") + r'''peaks = cs.peaks_for(torch.cuda.get_device_name(0))[1]
 recs = {**cs.train_kernel_phase(torch, A, G, peaks),
         **cs.kv_len_phase(torch, A, G, peaks)}
 for name, r in recs.items():
@@ -754,7 +890,9 @@ def main(argv=None) -> int:
         print("kernel_probe: no CUDA device is visible", file=sys.stderr)
         return 2
     if args.cmd == "variants":
-        if args.kernel.startswith("k6"):
+        if args.kernel == "k4":
+            _k4_variants(args.kernel, args.out)
+        elif args.kernel.startswith("k6"):
             _k6_variants(args.kernel, args.out)
         elif args.kernel.startswith("k5"):
             _k5_variants(args.kernel, args.out)
