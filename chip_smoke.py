@@ -11,14 +11,14 @@ Phases (each one fails the run with a non-zero exit):
 2. build: ``nvcc`` of every kernel under ``vit_deep_radiomics_tpu_torch/
    csrc`` for ``sm_90a``, one process per source, in parallel; the ptxas
    report of K4 and the K5 backward (TMA + wgmma), the register-tiled K6
-   backward kernels and the register-tiled fp32 forward's kernels in K2's,
-   K3's and the K6 forward's sources (registers, spills), which must show
-   no spill;
+   backward kernels and the register-tiled fp32 forward's kernels in K1's,
+   K2's, K3's and the K6 forward's sources and K3's Hopper kernel
+   (registers, spills), which must show no spill;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
    asked which body they take: in bf16 the Hopper kernels, TMA and wgmma;
-   in fp32 K1's CUDA-core loop and K2's register-tiled forward); kernel,
+   in fp32 the register-tiled CUDA-core forward); kernel,
    plain-version and one library call's (SDPA with the dense bias as
    ``attn_mask``) times, and the card's bound for the same work;
 4. forward: full-width SAM ViT-B/16 @1024 at batch 4 under ``fast``, with
@@ -69,13 +69,16 @@ Phases (each one fails the run with a non-zero exit):
     through K6 against plain attention, per leaf about 1e-4 of the leaf's
     max |grad|;
 15. K3, the generic flash attention, at the shapes its paths give it: SAM
-    ViT-B/16 @768's global layers (q/k/v (4, 12, 3072, 64), the 48x48 key
-    grid padded to 48x64, ``kv_grid`` (48, 48)) in bf16 and fp32, the
-    ``kv_len`` mode at (4, 12, 1536, 64) with 1370 valid keys, and the
-    ``window_tokens`` mode (the 100 windows of batch 4 @1024 padded to
-    16x16, 4 per row: q (25, 12, 1024, 64), ``kv_grid`` (14, 14)); each
-    against its plain version, with plain, SDPA and bound times, and the
-    body its C entry takes (the register-tiled forward in fp32);
+    ViT-B/16 @768's global layers (q (4, 12, 2304, 64), k/v (4, 12, 3072,
+    64): the 48x48 key grid padded to 48x64, ``kv_grid`` (48, 48)) in bf16
+    and fp32, and in bf16 the same with the queries padded to 3072 as JAX
+    pads them, the ``kv_len`` mode at q (4, 12, 1370, 64), k/v 1536 rows
+    with 1370 valid keys, and the ``window_tokens`` mode (the 100 windows
+    of batch 4 @1024 padded to 16x16, 4 per row: q (25, 12, 1024, 64),
+    ``kv_grid`` (14, 14)); each against its plain version, with plain,
+    SDPA and bound times, and the body its C entry takes (the Hopper
+    kernel in bf16 but in window mode, the register-tiled forward in
+    fp32);
 16. K7, the fused LayerNorm -> MLP -> residual, at the SAM forward's rows
     (16384 x 768, hidden 3072, bf16) and DINOv2 ViT-B/14's (4 x 1370, with
     layerscale), against its plain version; the library time is the
@@ -83,7 +86,8 @@ Phases (each one fails the run with a non-zero exit):
 17. K8, the s8 x s8 -> s32 matmul, at the five backbone contractions at
     batch 4 (M = 16384 and the windowed layers' 19600 rows padded to
     19712), exactly equal to its plain version; ``torch._int_mm`` as the
-    library time, and the rate probes (K8 and ``torch._int_mm`` against
+    library time, the times and bounds summed over an ``int8`` forward's
+    60 launches, and the rate probes (K8 and ``torch._int_mm`` against
     the bf16 matmul at each shape, and the CLI guard's ratio);
 18. paths: full-width SAM ViT-B/16 forwards at batch 4 under
     ``inference`` @1024, ``int8`` @1024 (K8), ``fast`` with
@@ -154,10 +158,10 @@ NO_SPILL = ("window_attention_bwd", "global_attention_bwd_dq",
             "flash_attention_bwd_dkv")
 # Sources that carry the register-tiled fp32 forward (f32_tiled_forward.cuh):
 # its kernels (with and without bias, *tiled_kernel*) must show no spill
-TILED_SOURCES = ("fused_global_attention", "flash_attention",
-                 "flash_attention_fwd")
+TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
+                 "flash_attention", "flash_attention_fwd")
 # The body each fused kernel's C entry takes at the extraction path's shapes
-BODIES = {"fused_window_attention": {"bfloat16": "hopper", "float32": "loops"},
+BODIES = {"fused_window_attention": {"bfloat16": "hopper", "float32": "tiled"},
           "fused_global_attention": {"bfloat16": "hopper", "float32": "tiled"}}
 K5_NAMES = ("global_attention_fwd_lse", "global_attention_bwd_dq",
             "global_attention_bwd_dkv")
@@ -304,8 +308,8 @@ def kernel_phase(torch, A, peaks):
                 def plain():
                     return A.fused_global_attention_plain(
                         q, kv, bh, bwt, None, num_heads=heads, scale=scale)
-            # the body the C entry takes: the Hopper kernels in bf16; in
-            # fp32 K1's CUDA-core loop and K2's register-tiled forward
+            # the body the C entry takes: the Hopper kernels in bf16, the
+            # register-tiled forward in fp32
             if name == "fused_window_attention":
                 body = A.fused_window_attention_route(
                     q, kv, bh, bwt, num_heads=heads, window_tokens=seg,
@@ -1190,23 +1194,34 @@ def k3_phase(torch, A, peaks):
     """Phase 15: K3 at its paths' shapes against its plain version; kernel,
     plain, SDPA (the dense bias with K3's masked keys at -inf as
     ``attn_mask``) times and the bound, which counts only the valid keys
-    and the query rows the path keeps (the padded rows it cuts off are left
-    out). The row is SAM @768's global shape in bf16, the main path's;
-    ``fp32`` and ``by_shape`` hold the others. The ``window`` shape checks
-    the ``window_tokens`` mode, which only ``WindowedAttention``'s
+    and the query rows the path keeps. The row is SAM @768's global shape
+    in bf16, the main path's: the 2304 query rows ``WindowedAttention.
+    _flash`` passes against the 48 x 64 padded key grid; ``fp32`` and
+    ``by_shape`` hold the others, among them the same call with the queries
+    padded to 3072 as JAX pads them (``sam768_padded``, the bound the same).
+    The bodies: the Hopper kernel for bf16 at @768 and in ``kv_len`` mode
+    (no bias: 64-key tiles up to kv_len), the register-tiled forward for
+    fp32, the loops for the ``window`` shape. That shape checks the
+    ``window_tokens`` mode, which only ``WindowedAttention``'s
     ``window_group`` > 1 reaches (JAX's default is 1, and no entry point
     of either package sets it), so no path of the port runs it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     heads, d = 12, 64
     scale = d ** -0.5
     bf16, fp32 = torch.bfloat16, torch.float32
-    # B, S, Kh, Kw, kv_grid, kv_len, window_tokens, dtypes
-    shapes = {"sam768_global": (4, 3072, 48, 64, (48, 48), None, None,
+    # B, Sq, Sk, Kh, Kw, kv_grid, kv_len, window_tokens, dtypes
+    shapes = {"sam768_global": (4, 2304, 3072, 48, 64, (48, 48), None, None,
                                 (bf16, fp32)),
-              "kv_len": (4, 1536, 0, 0, None, 1370, None, (bf16,)),
-              "window": (25, 1024, 16, 16, (14, 14), None, 256, (bf16,))}
+              "sam768_padded": (4, 3072, 3072, 48, 64, (48, 48), None, None,
+                                (bf16,)),
+              "kv_len": (4, 1370, 1536, 0, 0, None, 1370, None, (bf16,)),
+              "window": (25, 1024, 1024, 16, 16, (14, 14), None, 256,
+                         (bf16,))}
+    bodies = {"sam768_global": "hopper", "sam768_padded": "hopper",
+              "kv_len": "hopper", "window": "loops"}
     rows = {}
-    for shape, (b, s, kh, kw, grid, kv_len, win, dtypes) in shapes.items():
+    for shape, (b, sq, sk, kh, kw, grid, kv_len, win,
+                dtypes) in shapes.items():
         for dtype in dtypes:
             dname = str(dtype).split(".")[1]
 
@@ -1214,27 +1229,30 @@ def k3_phase(torch, A, peaks):
                 return (torch.randn(*sh, generator=gen, device="cuda")
                         * sc).to(dtype)
 
-            q, k, v = (rand(b, heads, s, d) for _ in range(3))
+            q = rand(b, heads, sq, d)
+            k, v = (rand(b, heads, sk, d) for _ in range(2))
             bh = bw = kl = None
             if kh:
-                bh, bw = rand(b, heads, s, kh, sc=0.3), rand(b, heads, s, kw,
-                                                              sc=0.3)
+                bh, bw = rand(b, heads, sq, kh, sc=0.3), rand(b, heads, sq,
+                                                               kw, sc=0.3)
             if kv_len:
                 kl = torch.full((b,), kv_len, dtype=torch.int32,
                                 device="cuda")
-            opts = dict(kv_grid=grid, window_tokens=win)
+            # JAX's blocks divide the lengths: one block a call
+            opts = dict(kv_grid=grid, window_tokens=win, block_q=sq,
+                        block_k=sk)
 
             def kern():
                 return A.flash_attention(q, k, v, bh, bw, kl, **opts)
 
             def plain():
                 return A.flash_attention_plain(q, k, v, bh, bw, kl,
-                                               scale=scale, **opts)
+                                               kv_grid=grid,
+                                               window_tokens=win,
+                                               scale=scale)
 
-            # the body: the register-tiled forward in fp32 (D 64, no
-            # window mode), the loops otherwise
             body = A.flash_attention_route(q, k, v, bh, bw, kl, **opts)
-            want = "tiled" if dtype == fp32 else "loops"
+            want = "tiled" if dtype == fp32 else bodies[shape]
             log(f"kernel flash_attention [{shape}, {dname}]: body {body}")
             if body != want:
                 raise AssertionError(f"flash_attention {shape} {dname} takes "
@@ -1248,12 +1266,14 @@ def k3_phase(torch, A, peaks):
                                                    kl, grid, win)
             lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale)
             del qh, kh_, vh, mask
+            # the query rows the path keeps: as many as the valid keys of
+            # a row (or of a window)
             rows[shape, dname] = _record(
                 tag, "flash_attention.cu",
                 "vit_deep_radiomics_tpu/ops/attention.py:87", dname, err,
                 cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2), lib,
                 _nbytes(q, k, v, bh, bw, kl, out),
-                4.0 * b * heads * (s // (win or s)) * n_valid * n_valid * d,
+                4.0 * b * heads * (sq // (win or sq)) * n_valid * n_valid * d,
                 peaks)
             rows[shape, dname]["body"] = body
             del q, k, v, bh, bw, kl, out
@@ -1390,6 +1410,15 @@ def k8_phase(torch, Q, peaks, int8_peak):
     rec = dict(rows[K8_ROWS[0], "lin1"], name="int8_matmul")
     rec["by_shape"] = {f"M={m} {label}": _sub(r)
                        for (m, label), r in rows.items()}
+    # an `int8` forward's 60 launches: the five products of each of the 4
+    # global blocks (M = 16384) and of the 8 windowed ones (M = 19712)
+    blocks = dict(zip(K8_ROWS, (4, 8)))
+    for key in ("ms", "bound_ms"):
+        rec[f"forward_{key}"] = sum(n * rows[m, label][key]
+                                    for m, n in blocks.items()
+                                    for label in K8_SHAPES)
+    log(f"kernel int8_matmul over an int8 forward's 60 launches: ms "
+        f"{rec['forward_ms']:.4f} bound_ms {rec['forward_bound_ms']:.4f}")
     rec["rate_probe"] = rates
     rec["guard_ratio"] = guard
     return rec
@@ -1632,6 +1661,17 @@ def main() -> int:
                 r["spill"] for r in tiled.values())):
             raise AssertionError(f"{src}: the tiled fp32 forward's kernels "
                                  f"{tiled} spill or are missing")
+    # K3's Hopper kernel: its three instances (48-key tiles with the bias,
+    # 64-key tiles with and without) must show no spill
+    hopper = {f: r for f, r in cuda_build.ptxas_functions(
+        build_logs["flash_attention"]).items() if "hopper_kernel" in f}
+    log("ptxas flash_attention (Hopper): " + " | ".join(
+        f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
+        for f, r in hopper.items()))
+    if build_logs["flash_attention"] and (len(hopper) != 3 or any(
+            r["spill"] for r in hopper.values())):
+        raise AssertionError(f"flash_attention: the Hopper kernels {hopper} "
+                             "spill or are missing")
 
     records = kernel_phase(torch, A, peaks)
     state, parity_1024 = forward_phase(torch, A, vit, precision)

@@ -52,9 +52,9 @@ def test_window_kernel_matches_plain(gen, dtype):
     bw = _rand(gen, b, heads, 2 * win, 5, dtype=dtype, scale=0.3)
     kw = dict(num_heads=heads, window_tokens=win, scale=d ** -0.5)
     # bf16 takes the Hopper kernel (15 rows: one 64-row tile, 64 keys),
-    # fp32 the CUDA-core loop
+    # fp32 the register-tiled forward
     assert A.fused_window_attention_route(q, kv, bh, bw, **kw) == (
-        "hopper" if dtype == torch.bfloat16 else "loops")
+        "hopper" if dtype == torch.bfloat16 else "tiled")
     A.reset_launch_counts()
     got = A.fused_window_attention(q, kv, bh, bw, **kw)
     torch.cuda.synchronize()
@@ -815,6 +815,82 @@ def test_flash_attention_kernel_matches_plain(gen, dtype, d, mode):
     assert torch.isfinite(got).all() and gap <= K3_ATOL[dtype], gap
 
 
+# K3's Hopper body (bf16, D 64, no window mode): name -> (B, H, Sq, Kh, Kw,
+# kv_grid, kv_len), Sk = Kh·Kw (or Kw without a bias). SAM @768's global
+# layer cut to B 1, H 2 (the 2304 query rows its caller keeps against the
+# 48 x 64 padded grid: 48-key tiles); a ragged Sq with 40 valid columns (a
+# 48-key tile, columns 40-47 masked in bias_w); 64-key tiles on the valid
+# rows of a grid and on a whole grid; no bias, ragged Sk; kv_len with a row
+# that has no valid key (it averages V over all Sk keys).
+K3_HOPPER_CASES = {"sam768_reduced": (1, 2, 2304, 48, 64, (48, 48), None),
+                   "ragged_sq_cols_40": (2, 2, 200, 5, 64, (4, 40), None),
+                   "grid_rows_64": (1, 3, 130, 6, 64, (4, 64), None),
+                   "bias_no_grid": (2, 2, 100, 3, 64, None, None),
+                   "no_bias_ragged_sk": (2, 2, 300, 0, 200, None, None),
+                   "kv_len_zero_row": (3, 2, 150, 0, 192, None,
+                                       (0, 77, 192))}
+
+
+@pytest.mark.parametrize("case", sorted(K3_HOPPER_CASES))
+def test_flash_hopper_matches_plain(gen, case):
+    """bf16 K3 calls at D 64 outside window mode with no bias, or a bias on
+    key-grid rows of 64 keys and no kv_len, take the Hopper kernel and hold
+    to the plain version by the rule of the other K3 tests."""
+    b, heads, sq, kh, kw, grid, kv_len = K3_HOPPER_CASES[case]
+    dt, d = torch.bfloat16, 64
+    sk = kh * kw if kh else kw
+    q = _rand(gen, b, heads, sq, d, dtype=dt)
+    k, v = (_rand(gen, b, heads, sk, d, dtype=dt) for _ in range(2))
+    bh = bw = kl = None
+    if kh:
+        bh = _rand(gen, b, heads, sq, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, sq, kw, dtype=dt, scale=0.3)
+    if kv_len:
+        kl = torch.tensor(kv_len, device="cuda")
+    # JAX's blocks divide the lengths (2304 queries: one block)
+    kw_ = dict(kv_grid=grid, block_q=sq, block_k=sk)
+    assert A.flash_attention_route(q, k, v, bh, bw, kl, **kw_) == "hopper"
+    A.reset_launch_counts()
+    got = A.flash_attention(q, k, v, bh, bw, kl, **kw_)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_attention"] == 1
+    want = A.flash_attention_plain(q, k, v, bh, bw, kl, kv_grid=grid,
+                                   scale=d ** -0.5)
+    got, want = got.float(), want.float()
+    gap = ((got - want).abs() - RTOL[dt] * want.abs()).max().item()
+    print(f"K3 hopper {case}: gap {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= K3_ATOL[dt], gap
+    assert torch.equal(got, A.flash_attention(q, k, v, bh, bw, kl,
+                                              **kw_).float())
+
+
+@pytest.mark.parametrize("case,route", [
+    ("bias_kv_len", "loops"), ("kw_32", "loops"), ("cols_20", "loops"),
+    ("window", "loops"), ("d_128", "loops"), ("fp32", "tiled")])
+def test_flash_hopper_route_refuses(gen, case, route):
+    """The calls the Hopper body does not take keep their earlier bodies: a
+    bias with kv_len, key-grid rows of 32 keys, 20 valid columns (a
+    32-key tile), window mode, D 128, fp32."""
+    b, heads, sq, d, kh, kw = 1, 2, 64, 64, 4, 64
+    dt = torch.float32 if case == "fp32" else torch.bfloat16
+    if case == "kw_32":
+        kw = 32
+    if case == "d_128":
+        d = 128
+    opts, kl = dict(kv_grid=(4, 20) if case == "cols_20" else None), None
+    if case == "window":
+        sq, kh, kw = 128, 8, 8
+        opts = dict(kv_grid=(7, 6), window_tokens=64)
+    sk = sq if case == "window" else kh * kw
+    if case == "bias_kv_len":
+        kl = torch.tensor([100], device="cuda")
+    q = _rand(gen, b, heads, sq, d, dtype=dt)
+    k = _rand(gen, b, heads, sk, d, dtype=dt)
+    bh = _rand(gen, b, heads, sq, kh, dtype=dt)
+    bw = _rand(gen, b, heads, sq, kw, dtype=dt)
+    assert A.flash_attention_route(q, k, k, bh, bw, kl, **opts) == route
+
+
 # The register-tiled fp32 forward (csrc/f32_tiled_forward.cuh) that K2's
 # and K3's fp32 calls take: name -> (B, S, Kh, Kw, kv_len). Ragged S (40,
 # 200, the last 64-row block and 32-key tile cut short), key-grid rows of 14,
@@ -907,6 +983,43 @@ def test_flash_tiled_f32_matches_plain(gen, case):
                                    window_tokens=64) == "loops"
 
 
+# K1's fp32 calls on the tiled body: (B, windows a batch row, Kh, Kw, bias):
+# SAM's 196-token windows (three 64-row blocks and one of 4 rows, 7 key
+# tiles of 32, 28 slots absent), without a bias, and 7 x 7 windows
+K1_TILED_CASES = {"sam_14x14": (2, 3, 14, 14, True),
+                  "sam_14x14_no_bias": (1, 2, 14, 14, False),
+                  "win_7x7": (2, 4, 7, 7, True)}
+
+
+@pytest.mark.parametrize("case", sorted(K1_TILED_CASES))
+def test_window_tiled_f32_matches_plain(gen, case):
+    """K1's fp32 calls take the tiled body (one (window, head) a problem)
+    and hold to the plain version at 2e-5; two launches give the same
+    bits."""
+    b, n_win, kh, kw, biased = K1_TILED_CASES[case]
+    heads, d, dt = 2, 64, torch.float32
+    win = kh * kw
+    s = n_win * win
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = None
+    if biased:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.5)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.5)
+    kwargs = dict(num_heads=heads, window_tokens=win, scale=d ** -0.5)
+    assert A.fused_window_attention_route(q, kv, bh, bw, **kwargs) == "tiled"
+    A.reset_launch_counts()
+    got = A.fused_window_attention(q, kv, bh, bw, **kwargs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_window_attention"] == 1
+    want = A.fused_window_attention_plain(q, kv, bh, bw, **kwargs)
+    gap = (got - want).abs().max().item()
+    print(f"K1 tiled {case}: {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= 2e-5, gap
+    assert torch.equal(got, A.fused_window_attention(q, kv, bh, bw,
+                                                     **kwargs))
+
+
 def test_tiled_f32_forward_is_deterministic(gen):
     """No atomics: two launches of the tiled body give the same bits."""
     args, kwargs = _k2_tiled_inputs(gen, "s200_kw20")
@@ -919,13 +1032,13 @@ def test_tiled_f32_forward_is_deterministic(gen):
 
 def test_tiled_f32_forward_builds_without_spill(gen, tmp_path, monkeypatch):
     """The tiled body's kernels (both instances, with and without bias, in
-    each of the three sources that carry it) fit their registers: ptxas
+    each of the four sources that carry it) fit their registers: ptxas
     (-Xptxas -v, the build's flags) reports no spill bytes for them."""
     from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
 
     monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
-    names = ("fused_global_attention", "flash_attention",
-             "flash_attention_fwd")
+    names = ("fused_window_attention", "fused_global_attention",
+             "flash_attention", "flash_attention_fwd")
     logs = cb.build_all(names)
     for name in names:
         tiled = {f: r for f, r in cb.ptxas_functions(logs[name]).items()

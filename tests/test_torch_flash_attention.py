@@ -229,21 +229,61 @@ def test_tiny_sam_takes_the_generic_path():
 @pytest.mark.parametrize("jax_flash_path", [False, True])
 def test_tiny_sam_matches_jax(tiny_sam, jax_flash_path, monkeypatch):
     """fp32: the port's _flash path (K3's plain version) against the JAX
-    _flash path (K3 in interpret mode) and the JAX oracle, 2e-5; every
-    layer called K3's wrapper."""
+    _flash path (K3 in interpret mode, its queries padded to
+    ``_q_blocking``'s length) and the JAX oracle, 2e-5; every layer called
+    K3's wrapper with the S query rows it keeps (16 a window, 64 in the
+    global layer), not the padded length (128)."""
     img, sd, outs = tiny_sam
     calls = []
     real = tvit.flash_attention
     monkeypatch.setattr(tvit, "flash_attention",
-                        lambda *a, **k: calls.append(k) or real(*a, **k))
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
     model = tvit.ViTDense(T_CFG, policy=PARITY)
     model.load_state_dict(sd)
     with torch.no_grad():
         got = model(torch.from_numpy(img)).numpy()
     assert len(calls) == 3
-    assert [c.get("kv_grid") for c in calls] == [(4, 4), None, (4, 4)]
+    assert [k.get("kv_grid") for _, k in calls] == [(4, 4), None, (4, 4)]
+    assert [a[0].shape[2] for a, _ in calls] == [16, 64, 16]
+    assert [tvit._q_blocking(a[0].shape[2])[0] for a, _ in calls] == [128] * 3
     np.testing.assert_allclose(got, outs[jax_flash_path], atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kept_query_rows_match_jax_padded(rng, dtype):
+    """K3 as ``WindowedAttention._flash`` now calls it, on the S query rows
+    it keeps, against JAX's K3 (interpret mode) on the queries and bias
+    rows padded to ``_q_blocking``'s length as JAX's _flash pads them, on
+    the same padded key grid (a 6 x 6 grid padded to 8 x 8, ``kv_grid``
+    (6, 6); 36 queries padded to 128): the kept rows agree at the file's
+    tolerances (fp32 2e-5, bf16 2e-2)."""
+    b, h, d, g, gp = 2, 2, 64, 6, 8
+    s = g * g
+    sq_pad, bq = tvit._q_blocking(s)
+    q, k, v, bh, bw = _inputs(rng, b, h, s, gp * gp, d, gp, gp)
+    grid_keys = np.zeros((gp, gp), bool)
+    grid_keys[:g, :g] = True
+    k[:, :, ~grid_keys.ravel()] = 0.0      # the grid's padding is zeros
+    v[:, :, ~grid_keys.ravel()] = 0.0
+    bh[..., g:] = 0.0
+    bw[..., g:] = 0.0
+
+    def pad_rows(a):
+        return np.pad(a, ((0, 0), (0, 0), (0, sq_pad - s), (0, 0)))
+
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    want = jax_flash(*(jnp.asarray(a).astype(jdt) for a in (
+        pad_rows(q), k, v, pad_rows(bh), pad_rows(bw))), None,
+        kv_grid=(g, g), block_q=bq, block_k=gp * gp, interpret=True)
+    got = A.flash_attention(*(torch.from_numpy(a).to(tdt)
+                              for a in (q, k, v, bh, bw)),
+                            kv_grid=(g, g), block_q=s, block_k=gp * gp)
+    assert tuple(got.shape) == (b, h, s, d) and sq_pad == 128
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32)[:, :, :s],
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def test_window_group_batches_windows(monkeypatch):

@@ -1,4 +1,4 @@
-"""The register-tiled fp32 forward of K2, K3 and the K6 forward
+"""The register-tiled fp32 forward of K1, K2, K3 and the K6 forward
 (``csrc/f32_tiled_forward.cuh``) run on the CPU against the port's plain
 versions.
 
@@ -7,9 +7,10 @@ cp.async), so it also compiles with g++ under a small stand-in for the CUDA
 runtime: a block runs as 128 ``std::thread``s, ``__syncthreads`` is a
 ``std::barrier``, a shuffle goes through a block-wide array between two
 barriers, and cp.async is a synchronous copy. That checks the body's
-indexing, its masks and its callers' problem builders (``k2_problem``,
-``k3_problem``, ``k6_problem`` with K6's split score chains and its lse
-store) at the tile shape and buffer count the three sources ship with,
+indexing, its masks and its callers' problem builders (``k1_problem``,
+``k2_problem``, ``k3_problem``, ``k6_problem`` with K6's split score chains
+and its lse store) at the tile shape and buffer count the four sources ship
+with,
 without the card. The card's own checks are in
 ``tests/test_torch_cuda_kernels.py``.
 """
@@ -105,6 +106,15 @@ static void run_grid(int gx, int gy, int gz, int kh, int kw, bool bias,
 }
 
 extern "C" {
+void run_k1(const float* q, const float* kv, const float* bh,
+            const float* bw, float* out, int B, int S, int H, int T, int kh,
+            int kw, float scale_log2) {
+  run_grid((T + ROWS - 1) / ROWS, (S / T) * H, B, bh ? kh : 0, bh ? kw : 0,
+           bh != nullptr, [&](int b, int y) {
+             return k1_problem(q, kv, bh, bw, out, S, H, T, kh, kw,
+                               scale_log2, b, y / H, y % H);
+           });
+}
 void run_k2(const float* q, const float* kv, const float* bh,
             const float* bw, const int* kv_len, float* out, int B, int S,
             int H, int kh, int kw, float scale_log2) {
@@ -190,7 +200,8 @@ def shim(tmp_path_factory):
     (d / "runner.cpp").write_text(RUNNER_CPP)
     libs, procs = {}, {}
     k3 = _shipped("flash_attention.cu")
-    for name, c in (("k2", _shipped("fused_global_attention.cu")),
+    for name, c in (("k1", _shipped("fused_window_attention.cu")),
+                    ("k2", _shipped("fused_global_attention.cu")),
                     ("k3", k3),
                     ("k3_other", dict(k3, kF32SkipCols=1 - k3[
                         "kF32SkipCols"])),
@@ -208,10 +219,12 @@ def shim(tmp_path_factory):
         assert proc.returncode == 0, log
         lib = ctypes.CDLL(str(so))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.run_k1.argtypes = [P] * 5 + [I] * 6 + [F]
         lib.run_k2.argtypes = [P] * 6 + [I] * 5 + [F]
         lib.run_k3.argtypes = [P] * 7 + [I] * 8 + [F]
         lib.run_k6.argtypes = [P] * 8 + [I] * 5 + [F]
-        lib.run_k2.restype = lib.run_k3.restype = lib.run_k6.restype = None
+        lib.run_k1.restype = lib.run_k2.restype = None
+        lib.run_k3.restype = lib.run_k6.restype = None
         libs[name] = lib
     return libs
 
@@ -227,6 +240,36 @@ def _t(rng, *shape, scale=1.0):
 
 HEADS, D = 2, 64
 LOG2E = 1.4426950408889634
+
+# K1: (B, windows a batch row, Kh, Kw, bias): SAM's 14 x 14 windows (rows
+# ragged at 196 = 3 x 64 + 4, keys in 7 tiles of 32 with 28 slots absent),
+# a 7 x 7 window (one 64-row block, two key tiles), and 14 x 14 windows
+# without a bias
+K1_CASES = {"win_14x14": (2, 2, 14, 14, True),
+            "win_7x7": (2, 3, 7, 7, True),
+            "win_14x14_no_bias": (1, 2, 14, 14, False)}
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k1_tiled_body_matches_plain(shim, rng, case):
+    """K1's fp32 calls on the tiled body (``k1_problem``: one (window,
+    head) a problem, read from and written to the fused layouts) against
+    ``fused_window_attention_plain``, 2e-5: the fp32 sums' order alone."""
+    b, n_win, kh, kw, biased = K1_CASES[case]
+    t_win = kh * kw
+    s, c = n_win * t_win, HEADS * D
+    q, kv = _t(rng, b, s, c), _t(rng, b, s, 2 * c)
+    bh = _t(rng, b, HEADS, s, kh, scale=0.5) if biased else None
+    bw = _t(rng, b, HEADS, s, kw, scale=0.5) if biased else None
+    out = torch.full_like(q, float("nan"))
+    shim["k1"].run_k1(_ptr(q), _ptr(kv), _ptr(bh), _ptr(bw), _ptr(out), b, s,
+                      HEADS, t_win, kh if biased else 0,
+                      kw if biased else 0, D ** -0.5 * LOG2E)
+    want = A.fused_window_attention_plain(q, kv, bh, bw, num_heads=HEADS,
+                                          window_tokens=t_win,
+                                          scale=D ** -0.5)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
+
 
 # K2: (B, S, Kh, Kw, kv_len): ragged S, key-grid rows of 14, 20 and 64 keys,
 # no bias, kv_len with a row that has no valid key, bias and kv_len together

@@ -1,7 +1,8 @@
-// The register-tiled fp32 attention forward shared by K2
-// (fused_global_attention.cu), K3 (flash_attention.cu) and the K6 forward
-// (flash_attention_fwd.cu): the body of their `parity` calls at D = 64 (K3
-// outside window mode; K6 always, with its log2 lse residual).
+// The register-tiled fp32 attention forward shared by K1
+// (fused_window_attention.cu), K2 (fused_global_attention.cu), K3
+// (flash_attention.cu) and the K6 forward (flash_attention_fwd.cu): the
+// body of their `parity` calls at D = 64 (K3 outside window mode; K6
+// always, with its log2 lse residual).
 //
 // Computes, for one (batch, head) and its query rows i,
 //     out_i = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp2(s_ij - m_i)
@@ -14,7 +15,8 @@
 // outside the (kh_valid, kw_valid) sub-grid of the key grid, scores
 // `masked` instead; a slot past n_visit (a ragged last tile) scores
 // `absent`. The callers' rules differ only
-// in those numbers (k2_problem, k3_problem, k6_problem below): K2 masks to
+// in those numbers (k1_problem, k2_problem, k3_problem, k6_problem below):
+// K1 takes K2's, and each window is a problem of its own; K2 masks to
 // -1e30 log2 e and drops keys past the segment at -2e30; K3 masks to -1e30
 // and drops keys past its range at -inf; K6 masks to -1e30 and drops
 // slots past its range at -2e30. So a row with no valid key averages V
@@ -152,6 +154,37 @@ __host__ __device__ inline Problem k2_problem(
   }
   p.n_visit = lim > 0 ? lim : S;
   p.n_valid = lim;
+  p.kh_valid = p.kw_valid = 0;
+  p.masked = -1e30f * kLog2e;
+  p.absent = 2.f * -1e30f;
+  p.scale_log2 = scale_log2;
+  return p;
+}
+
+// K1 (the layouts of K2; the token axis a concatenation of windows of T
+// tokens, each attending to itself): one (window w, head) is a problem of
+// T rows and T keys, every one scored, with K2's mask values (slots past T
+// in a ragged last tile score -2e30).
+__host__ __device__ inline Problem k1_problem(
+    const float* q, const float* kv, const float* bias_h,
+    const float* bias_w, float* out, int S, int H, int T, int kh, int kw,
+    float scale_log2, int b, int w, int h) {
+  const long long C = (long long)H * D;
+  const long long tok = (long long)b * S + (long long)w * T;
+  Problem p;
+  p.q = q + tok * C + h * D;
+  p.k = kv + tok * 2 * C + h * D;
+  p.v = p.k + C;
+  p.out = out + tok * C + h * D;
+  p.lse = nullptr;
+  const long long row = ((long long)b * H + h) * S + (long long)w * T;
+  p.bias_h = bias_h != nullptr ? bias_h + row * kh : nullptr;
+  p.bias_w = bias_h != nullptr ? bias_w + row * kw : nullptr;
+  p.ldq = p.ldo = C;
+  p.ldkv = 2 * C;
+  p.n_rows = p.n_visit = p.n_valid = T;
+  p.kh = bias_h != nullptr ? kh : 0;
+  p.kw = p.gw = bias_h != nullptr ? kw : 1;
   p.kh_valid = p.kw_valid = 0;
   p.masked = -1e30f * kLog2e;
   p.absent = 2.f * -1e30f;

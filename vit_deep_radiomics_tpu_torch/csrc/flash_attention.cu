@@ -22,32 +22,54 @@
 // nomax mode); scores, max, sums and the accumulator are fp32.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the
-// SAM @768 path's shape (4 x 12 heads, 3072 query rows and 3072 keys of
-// 64, Kh 48, Kw 64) the call does 116 GFLOP (0.117 ms at the bf16 peak)
-// against 47 MB of compulsory traffic (0.014 ms): operations bound it.
+// SAM @768 path's shape (4 x 12 heads, the 2304 query rows its caller
+// keeps, 3072 keys of 64 on the 48 x 64 padded grid, 2304 of them valid)
+// the valid work is 65 GFLOP (0.066 ms at the bf16 peak) against about 91
+// MB of compulsory traffic (0.027 ms): operations bound it.
 //
-// What the design does about it: the (Sq, Sk) scores are never written.
-// Keys stream through shared memory in 64-key tiles, zero-filled past the
-// end; the per-head bias rows of the block's queries are staged once in
-// shared memory, transposed and times log2(e) (as K2); a per-tile table
-// gives each key its bias terms and its mask state, so a score costs two
-// shared-memory loads and a compare. Key tiles past kv_len or past the
-// valid rows of the key grid are skipped when every row keeps a valid key
-// (their weights are exact zeros). bf16 runs QK^T and PV on the tensor
-// cores (mma.sync.m16n8k16, one warp per 16 query rows, 128-row blocks).
-// fp32 at D = 64 outside window mode (the `parity` @768 path) takes the
-// register-tiled CUDA-core forward of f32_tiled_forward.cuh (64 query rows
-// a block, K/V tiles by cp.async, 4 x 4 score and 4 x 8 output micro-tiles
-// a thread); other fp32 calls run on the CUDA cores one thread per row
-// (two for D = 128). The head dim is a template parameter, built for D =
-// 32, 64 and 128. vdr_flash_attention_route reports the body.
+// What the design does about it. The (Sq, Sk) scores are never written.
+//  * bf16 at D = 64 outside window mode, with no bias or a bias on key-grid
+//    rows of 64 keys (SAM @768's global layers), takes K2's Hopper design
+//    over the head-major layout: one producer thread brings Q once and K/V
+//    tiles into a 4-stage ring on mbarriers by TMA (128-byte swizzle; 3-D
+//    maps of 64 columns x rows x B*H, so a box never crosses into the next
+//    head: a ragged Sq reads zeros and its rows are not stored); three
+//    consumer warpgroups of 64 query rows run S = Q K^T with Q's A
+//    fragments in registers and O += P V with P from the score registers,
+//    issuing QK^T of tile j with PV of tile j-1 and taking turns on named
+//    barriers (hopper_flash.cuh holds the pieces K2 and K3 share). With the
+//    bias a tile is one key-grid row's valid columns rounded up to 16: the
+//    48 of 64 at @768, a box of 48 key rows and wgmma N = 48 for the
+//    scores, K = 48 for PV; grid rows past kh_valid are never loaded.
+//    bias_w stays in registers (times log2 e, -1e30 on a tile's columns
+//    past kw_valid), bias_h is one scalar a row and tile from a table
+//    staged once. The softmax is online in log2 units with the max kept
+//    (moved lazily, by more than 2^8) and the l > 0 guard. Without a bias
+//    64-key tiles run to kv_len (all of Sk when a row has no valid key).
+//  * fp32 at D = 64 outside window mode (the `parity` @768 path) takes the
+//    register-tiled CUDA-core forward of f32_tiled_forward.cuh (64 query
+//    rows a block, K/V tiles by cp.async, 4 x 4 score and 4 x 8 output
+//    micro-tiles a thread).
+//  * The rest (window mode, D 32/128, other key grids, a bias with kv_len)
+//    keeps the first loops: keys stream through shared memory in 64-key
+//    tiles, zero-filled past the end; the block's bias rows are staged
+//    once, transposed and times log2(e); a per-tile table gives each key
+//    its bias terms and its mask state. Key tiles past kv_len or past the
+//    valid rows of the key grid are skipped when every row keeps a valid
+//    key (their weights are exact zeros). bf16 runs QK^T and PV on
+//    mma.sync.m16n8k16 (one warp per 16 query rows, 128-row blocks), fp32
+//    on the CUDA cores one thread per row (two for D = 128). The head dim
+//    is a template parameter, built for D = 32, 64 and 128.
+// vdr_flash_attention_route reports the body.
 
 #include <limits>
 
 #include "f32_tiled_forward.cuh"
 #include "flash_attention_core.cuh"
+#include "hopper_flash.cuh"
 
 namespace {
+using namespace vdr::sm90;
 
 using vdr::kLog2e;
 using vdr::kNegInf;
@@ -482,6 +504,271 @@ int launch(const FlashParams& p, int dtype, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, D = 64, outside window mode: the Hopper kernel (K2's design over
+// the head-major layout)
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 3;              // consumer warpgroups
+constexpr int kBQ = 64 * kConsumers;       // query rows per block
+// K/V ring depth (4 ran 2% faster than K2's 6 at SAM @768 on an H100,
+// PERF.md)
+constexpr int kStages = 4;
+constexpr int kQTile = 64 * kFlashD * 2;   // one 64-row bf16 Q tile (8 KB)
+constexpr int kThreads = 128 * (kConsumers + 1);  // + 1 producer WG
+// registers a thread after setmaxnreg: the producer gives its share to the
+// consumers (64 K registers an SM, one block)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+constexpr int kBiasLd = kBQ + 1;           // bias_h table row (bank skew)
+// 1: a key-grid row's tile is its valid columns rounded up to 16 (SAM
+// @768's 48 of 64); 0: all 64 columns, the masked ones through bias_w
+constexpr int kSkipCols = 1;
+constexpr int kErrTensorMap = -2;          // cuTensorMapEncodeTiled failed
+
+struct HopperParams {
+  const __nv_bfloat16* bias_h;  // (B, H, Sq, kh) or nullptr
+  const __nv_bfloat16* bias_w;  // (B, H, Sq, kw) or nullptr
+  const int* kv_len;            // (B,) or nullptr (never with the bias)
+  __nv_bfloat16* out;           // (B, H, Sq, D)
+  int H, Sq, Sk, kh, kw;
+  int n_rows;                   // with the bias: grid rows visited
+  int cols;                     // with the bias: valid columns of a row
+  float scale_log2;             // D^-1/2 * log2(e)
+};
+
+// NK: keys a tile (48 or 64), each a K/V TMA box of NK rows. With the bias
+// (Kw 64) tile j is the first NK keys of key-grid row j, for the grid's
+// valid rows; columns >= cols of a tile score -1e30 through bias_w. Without
+// it tile j is keys 64 j .. 64 j + 63 up to kv_len (or Sk), as in K2.
+template <int NK, bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+    k3_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const HopperParams p) {
+  constexpr int kKTile = NK * kFlashD * 2;  // NK rows of 128 bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], qbar;
+  // the swizzled tiles need 1024-byte alignment in the shared window (an
+  // NK-row tile is NK / 8 swizzle atoms of 1024 bytes)
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_addr = smem_u32(base);               // kConsumers Q
+  const uint32_t k_addr = q_addr + kConsumers * kQTile;  // kStages K
+  const uint32_t v_addr = k_addr + kStages * kKTile;     // kStages V
+  float* bias_s = reinterpret_cast<float*>(
+      base + kConsumers * kQTile + 2 * kStages * kKTile);  // [row][kBiasLd]
+
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kBQ;
+  const int head = b * p.H + h;
+  // keys j < lim are valid; with none valid every key is visited, all
+  // masked, so the row averages V as the plain version does
+  int lim = p.Sk;
+  if (p.kv_len != nullptr) lim = min(p.Sk, max(p.kv_len[b], 0));
+  const int n_tiles =
+      kBias ? p.n_rows : ((lim > 0 ? lim : p.Sk) + NK - 1) / NK;
+  // key rows between two tiles' first keys
+  const int stride = kBias ? p.kw : NK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers * 128);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
+                 : "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(&qbar, kConsumers * kQTile);
+      for (int w = 0; w < kConsumers; ++w)
+        tma_load(q_addr + w * kQTile, &tq, &qbar, 0, row0 + 64 * w, head);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * kKTile);
+        tma_load(k_addr + st * kKTile, &tk, &full[st], 0, j * stride, head);
+        tma_load(v_addr + st * kKTile, &tv, &full[st], 0, j * stride, head);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
+                 : "memory");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int r_lo = wg * 64 + warp * 16 + g;  // this thread's rows in the
+    const int r_hi = r_lo + 8;                 // block (and + row0: global)
+    const size_t head_row = (size_t)head * p.Sq;
+
+    // bias_w of the thread's rows and tile columns, times log2(e); columns
+    // at or past `cols` are masked (-1e30)
+    float bw[NK / 8][4];
+    if constexpr (kBias) {
+      // bias_h of this warpgroup's rows, transposed to [grid row][row]
+      for (int i = t; i < 64 * p.n_rows; i += 128) {
+        const int r = wg * 64 + i / p.n_rows, kr = i % p.n_rows;
+        const int R = row0 + r;
+        bias_s[kr * kBiasLd + r] =
+            R < p.Sq
+                ? __bfloat162float(p.bias_h[(head_row + R) * p.kh + kr]) *
+                      vdr::kLog2e
+                : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < NK / 8; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int R = row0 + (half ? r_hi : r_lo), col = i * 8 + 2 * c;
+          float lo = 0.f, hi = 0.f;
+          if (R < p.Sq) {
+            const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+                p.bias_w + (head_row + R) * p.kw + col);
+            lo = __low2float(v) * vdr::kLog2e;
+            hi = __high2float(v) * vdr::kLog2e;
+          }
+          bw[i][2 * half] = col < p.cols ? lo : vdr::kNegInf;
+          bw[i][2 * half + 1] = col + 1 < p.cols ? hi : vdr::kNegInf;
+        }
+      }
+      bar_sync(1 + wg, 128);
+    }
+
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    Rows st{vdr::kNegInf, vdr::kNegInf, 0.f, 0.f, 1.f, 1.f};
+    float s[NK / 2];
+    uint32_t pa[NK / 16][4];
+    // this tile's scores -> probabilities, in place
+    auto probs = [&](int j) {
+      if constexpr (kBias)
+        tile_probs<NK, 1>(s, bw, p.scale_log2, bias_s[j * kBiasLd + r_lo],
+                          bias_s[j * kBiasLd + r_hi], 0, false, 0, 0, st);
+      else
+        tile_probs<NK, 0>(s, bw, p.scale_log2, 0.f, 0.f, j * NK + 2 * c,
+                          j * NK + NK > lim, lim, p.Sk, st);
+    };
+    // ping-pong: the warpgroups issue their products in turn, each after
+    // the one before it, so one's softmax runs under the others' products
+    // (named barriers 1 .. kConsumers serve the bias staging above)
+    const int my_bar = 1 + kConsumers + wg;
+    const int next_bar = 1 + kConsumers + (wg + 1) % kConsumers;
+    if (wg == kConsumers - 1) bar_arrive(next_bar, 256);
+    mbar_wait(&qbar, 0);
+    uint32_t qa[kFlashD / 16][4];
+    q_frags(qa, base + wg * kQTile, warp, g, c);
+
+    // software pipeline: QK^T of tile j and PV of tile j-1 are issued
+    // together; the softmax of tile j runs while PV(j-1) is on the tensor
+    // cores, and O is rescaled once PV(j-1) has landed
+    mbar_wait(&full[0], 0);
+    bar_sync(my_bar, 256);
+    wgmma_fence();
+    qk_tile<NK>(s, qa, k_addr);
+    wgmma_commit();
+    bar_arrive(next_bar, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    probs(0);
+    pack_probs<NK>(s, pa);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int cur = j % kStages, prev = (j - 1) % kStages;
+      mbar_wait(&full[cur], (j / kStages) & 1);
+      bar_sync(my_bar, 256);
+      wgmma_fence();
+      qk_tile<NK>(s, qa, k_addr + cur * kKTile);
+      wgmma_commit();
+      pv_tile<NK>(o, pa, v_addr + prev * kKTile);
+      wgmma_commit();
+      bar_arrive(next_bar, 256);
+      wgmma_wait<1>();
+      fence_regs(s);
+      probs(j);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(&empty[prev]);
+      rescale(o, st);
+      pack_probs<NK>(s, pa);
+    }
+    const int last = (n_tiles - 1) % kStages;
+    bar_sync(my_bar, 256);
+    wgmma_fence();
+    pv_tile<NK>(o, pa, v_addr + last * kKTile);
+    wgmma_commit();
+    // every last sync is matched: the last warpgroup's initial arrive
+    // stands in for its final one
+    if (wg != kConsumers - 1) bar_arrive(next_bar, 256);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&empty[last]);
+
+    store_rows(p.out + head_row * kFlashD, kFlashD, row0 + r_lo,
+               row0 + r_hi, p.Sq, c, o, st);
+  }
+}
+
+size_t hopper_smem(int nk, int n_rows) {
+  return 1024 + (size_t)kConsumers * kQTile +
+         (size_t)2 * kStages * nk * kFlashD * 2 +
+         (size_t)n_rows * kBiasLd * sizeof(float);
+}
+
+// The keys a tile of the Hopper kernel takes for a call (48 or 64), or 0
+// when the call keeps the loops: bf16 at D 64 outside window mode, with no
+// bias (kv_len or not) or a bias on key-grid rows of 64 keys (no kv_len)
+// whose valid columns, rounded up to 16, are 48 or 64.
+int hopper_keys(int D, int window, int dtype, bool biased, bool kv_len,
+                int kh, int kw, int kh_valid, int kw_valid) {
+  if (dtype == 0 || D != kFlashD || window) return 0;
+  if (!biased) return 64;
+  if (kv_len || kw != 64) return 0;
+  const int cols = kh_valid ? kw_valid : kw;
+  const int nk = kSkipCols ? (cols + 15) / 16 * 16 : 64;
+  if (nk != 48 && nk != 64) return 0;
+  return hopper_smem(nk, kh_valid ? kh_valid : kh) <= 227 * 1024 ? nk : 0;
+}
+
+template <int NK, bool kBias>
+int launch_hopper(const FlashParams& fp, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int bh = fp.B * fp.H;
+  if (!tensor_map_3d(&tq, fp.q, kFlashD, fp.Sq, bh, 64) ||
+      !tensor_map_3d(&tk, fp.k, kFlashD, fp.Sk, bh, NK) ||
+      !tensor_map_3d(&tv, fp.v, kFlashD, fp.Sk, bh, NK))
+    return kErrTensorMap;
+  HopperParams p;
+  p.bias_h = static_cast<const __nv_bfloat16*>(fp.bias_h);
+  p.bias_w = static_cast<const __nv_bfloat16*>(fp.bias_w);
+  p.kv_len = fp.kv_len;
+  p.out = static_cast<__nv_bfloat16*>(fp.out);
+  p.H = fp.H;
+  p.Sq = fp.Sq;
+  p.Sk = fp.Sk;
+  p.kh = fp.kh;
+  p.kw = fp.kw;
+  p.n_rows = fp.kh_valid ? fp.kh_valid : fp.kh;
+  p.cols = fp.kh_valid ? fp.kw_valid : fp.kw;
+  p.scale_log2 = fp.scale_log2;
+  const size_t smem = hopper_smem(NK, kBias ? p.n_rows : 0);
+  auto kern = k3_hopper_kernel<NK, kBias>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((fp.Sq + kBQ - 1) / kBQ, fp.H, fp.B);
+  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // fp32, D = 64, outside window mode: the register-tiled forward
 // ---------------------------------------------------------------------------
 
@@ -523,17 +810,25 @@ int launch_tiled(const FlashParams& p, cudaStream_t stream) {
 extern "C" {
 
 const char* vdr_error_string(int err) {
+  if (err == kErrTensorMap) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The body a call with these arguments runs: 0 the loops above, 2 the
-// register-tiled fp32 forward.
-int vdr_flash_attention_route(int D, int window, int dtype) {
-  return tiled_takes(D, window, dtype) ? 2 : 0;
+// The body a call with these arguments runs: 0 the loops above, 1 the
+// Hopper kernel, 2 the register-tiled fp32 forward.
+int vdr_flash_attention_route(int D, int window, int dtype, int biased,
+                              int kv_len, int kh, int kw, int kh_valid,
+                              int kw_valid) {
+  if (tiled_takes(D, window, dtype)) return 2;
+  return hopper_keys(D, window, dtype, biased != 0, kv_len != 0, kh, kw,
+                     kh_valid, kw_valid)
+             ? 1
+             : 0;
 }
 
-// Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// head dim without a build (32, 64 and 128 are built). dtype: 0 = fp32,
+// Returns 0 on success, a cudaError_t after a failed launch, -1 for a head
+// dim without a build (32, 64 and 128 are built), or -2 when a TMA
+// descriptor cannot be made. dtype: 0 = fp32,
 // 1 = bf16; kh_valid = kw_valid = 0 without a kv_grid mask, window = 0
 // outside window mode.
 int vdr_flash_attention(const void* q, const void* k, const void* v,
@@ -549,6 +844,13 @@ int vdr_flash_attention(const void* q, const void* k, const void* v,
   if (tiled_takes(D, window, dtype))
     return bias_h != nullptr ? launch_tiled<true>(p, s)
                              : launch_tiled<false>(p, s);
+  switch (hopper_keys(D, window, dtype, bias_h != nullptr, kv_len != nullptr,
+                      kh, kw, kh_valid, kw_valid)) {
+    case 48: return launch_hopper<48, true>(p, s);
+    case 64: return bias_h != nullptr ? launch_hopper<64, true>(p, s)
+                                      : launch_hopper<64, false>(p, s);
+    default: break;
+  }
   switch (D) {
     case 32: return launch<32>(p, dtype, s);
     case 64: return launch<64>(p, dtype, s);

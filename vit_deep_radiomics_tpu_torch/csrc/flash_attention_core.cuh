@@ -1,8 +1,8 @@
 // Shared core of the port's fused attention kernels (K1 window mode, K2
-// global mode, and K2's trainable twin, the K5 forward): the first loops,
-// which K1 keeps for fp32 and K1 and K2 for the bf16 shapes their Hopper
-// kernels do not take (K2's fp32 calls take f32_tiled_forward.cuh). Both
-// read q from the split projection q (B, S, H*D) and
+// global mode, and K2's trainable twin, the K5 forward): the first bf16
+// loop, which K1 and K2 keep for the shapes their Hopper kernels do not
+// take and the K5 forward runs (their fp32 calls take f32_tiled_forward.cuh).
+// It reads q from the split projection q (B, S, H*D) and
 // k/v from kv (B, S, 2*H*D) (k in columns [0, H*D), v in [H*D, 2*H*D)), add
 // the decomposed relative-position bias
 //     bias_h[b, h, i, key / kw] + bias_w[b, h, i, key % kw]
@@ -14,18 +14,12 @@
 // segment (seg = 196), K2 one segment over the whole sequence (seg = S).
 //
 // Algorithm: online-softmax flash attention in log2 units. Scores, the
-// running max, the running sum and the accumulator are fp32 for both input
-// types; the max is kept (no "nomax" variant), so the result is the exact
-// softmax up to rounding.
-//
-// Two inner loops, selected by the input type:
-//  * fp32 (`parity`): one thread per query row, q and the accumulator in
-//    registers, K/V tiles in shared memory read as broadcasts, FMA on the
-//    CUDA cores (tensor cores would round to TF32).
-//  * bf16 (`fast`): one warp per 16 query rows, QK^T and PV on the tensor
-//    cores with mma.sync.m16n8k16 (bf16 in, fp32 accumulate), the score
-//    fragments turned into the PV operand in registers (no shared-memory
-//    round trip for P).
+// running max, the running sum and the accumulator are fp32; the max is
+// kept (no "nomax" variant), so the result is the exact softmax up to
+// rounding. One warp per 16 query rows, QK^T and PV on the tensor cores
+// with mma.sync.m16n8k16 (bf16 in, fp32 accumulate), the score fragments
+// turned into the PV operand in registers (no shared-memory round trip for
+// P).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -141,112 +135,6 @@ __device__ __forceinline__ void stage_key_terms(const AttnParams& p, int k0,
     ktab[j] = p.bias_h != nullptr ? make_int2(key / p.kw, p.kh + key % p.kw)
                                   : make_int2(0, 0);
   }
-}
-
-// ---------------------------------------------------------------------------
-// fp32: one thread per query row
-// ---------------------------------------------------------------------------
-
-template <int D, int BQ, int BK>
-__device__ void attend_rows_f32(const AttnParams& p, float* smem) {
-  constexpr int CH = 16;  // keys per online-softmax step
-  const Tile t = tile_of(p, BQ);
-  const int C = p.H * D;
-  float* ks = smem;               // [BK][D]
-  float* vs = ks + BK * D;        // [BK][D]
-  int2* ktab = reinterpret_cast<int2*>(vs + BK * D);  // [BK]
-  float* bias_s = reinterpret_cast<float*>(ktab + BK);  // [kh + kw][BS]
-  constexpr int BS = bias_stride<BQ>();
-  const bool has_bias = p.bias_h != nullptr;
-  if (has_bias) stage_bias<float, BQ>(p, t, bias_s);
-
-  const int r = t.row0 + threadIdx.x;
-  const bool valid = r < p.seg;
-  const float* qrow = static_cast<const float*>(p.q) +
-                      ((size_t)t.b * p.S + t.seg0 + (valid ? r : 0)) * C +
-                      t.h * D;
-  float q[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = valid ? qrow[d] * p.scale_log2 : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = kPastEnd, l = 0.f;
-  const float* kv = static_cast<const float*>(p.kv);
-
-  for (int k0 = 0; k0 < t.n_keys; k0 += BK) {
-    const int nk = min(BK, t.n_keys - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * (D / 4); i += blockDim.x) {
-      const int j = i / (D / 4), d4 = (i % (D / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (j < nk) {
-        const float* row =
-            kv + ((size_t)t.b * p.S + t.seg0 + k0 + j) * (2 * C) + t.h * D;
-        kk = *reinterpret_cast<const float4*>(row + d4);
-        vv = *reinterpret_cast<const float4*>(row + C + d4);
-      }
-      *reinterpret_cast<float4*>(ks + j * D + d4) = kk;
-      *reinterpret_cast<float4*>(vs + j * D + d4) = vv;
-    }
-    stage_key_terms<BK>(p, k0, ktab);
-    __syncthreads();
-    if (!valid) continue;
-    for (int c0 = 0; c0 < nk; c0 += CH) {
-      float s[CH];
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        const int j = c0 + jj;
-        float v = kPastEnd;
-        if (j < nk && t.none) {
-          v = kMaskedLog2;
-        } else if (j < nk) {
-          const float* kr = ks + j * D;
-          float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < D; ++d) dot = fmaf(q[d], kr[d], dot);
-          if (has_bias) {
-            const int2 kt = ktab[j];
-            dot += bias_s[kt.x * BS + threadIdx.x] +
-                   bias_s[kt.y * BS + threadIdx.x];
-          }
-          v = dot;
-        }
-        s[jj] = v;
-        mx = fmaxf(mx, v);
-      }
-      const float alpha = exp2f(m - mx);
-      m = mx;
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        const int j = c0 + jj;
-        if (j < nk) {
-          const float pj = exp2f(s[jj] - m);
-          l += pj;
-          const float* vr = vs + j * D;
-#pragma unroll
-          for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, vr[d], acc[d]);
-        }
-      }
-    }
-  }
-  if (valid) {
-    float* orow = static_cast<float*>(p.out) +
-                  ((size_t)t.b * p.S + t.seg0 + r) * C + t.h * D;
-    const float inv = 1.f / (l > 0.f ? l : 1.f);
-#pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = acc[d] * inv;
-  }
-}
-
-template <int D, int BQ, int BK>
-constexpr size_t smem_bytes_f32(int kh, int kw) {
-  return (size_t)(2 * BK * D + 2 * BK + (kh + kw) * bias_stride<BQ>()) *
-         sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -474,12 +362,6 @@ constexpr size_t smem_bytes_bf16(int kh, int kw) {
          (size_t)(kh + kw) * bias_stride<BQ>() * sizeof(float);
 }
 
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(BQ) attn_f32_kernel(AttnParams p) {
-  extern __shared__ __align__(16) float smem_f32[];
-  attend_rows_f32<D, BQ, BK>(p, smem_f32);
-}
-
 template <int D, int BQ, int BK, bool kLse = false>
 __global__ void __launch_bounds__(BQ * 2) attn_bf16_kernel(AttnParams p) {
   extern __shared__ __align__(16) char smem_bf16[];
@@ -496,20 +378,6 @@ int launch_bf16(const AttnParams& p, cudaStream_t stream) {
                        (int)smem);
   dim3 grid((p.seg + BQ - 1) / BQ, p.H, p.B * (p.S / p.seg));
   kern<<<grid, (BQ / 16) * 32, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// Launch one configuration. dtype: 0 = fp32, 1 = bf16. Returns the CUDA
-// error of the launch (0 on success).
-template <int D, int BQ_F32, int BQ_BF16, int BK>
-int launch(const AttnParams& p, int dtype, cudaStream_t stream) {
-  if (dtype != 0) return launch_bf16<D, BQ_BF16, BK, false>(p, stream);
-  const size_t smem = smem_bytes_f32<D, BQ_F32, BK>(p.kh, p.kw);
-  auto kern = attn_f32_kernel<D, BQ_F32, BK>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((p.seg + BQ_F32 - 1) / BQ_F32, p.H, p.B * (p.S / p.seg));
-  kern<<<grid, BQ_F32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

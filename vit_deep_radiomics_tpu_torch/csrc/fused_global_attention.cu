@@ -46,6 +46,8 @@
 //    both are pre-multiplied by log2(e);
 //  * kv_len: tiles wholly past kv_len are never loaded, the ragged tile is
 //    masked; rows past S read zeros (TMA fills out-of-bounds boxes).
+// The consumer pieces (Q fragments, the products of a tile, the softmax,
+// the store) are in hopper_flash.cuh, shared with K3's Hopper kernel.
 // The fp32 (`parity`) path takes the register-tiled CUDA-core forward of
 // f32_tiled_forward.cuh (64 query rows a block, K/V tiles by cp.async,
 // 4 x 4 score and 4 x 8 output micro-tiles a thread; fp32 FMAs only, with
@@ -56,7 +58,7 @@
 
 #include "f32_tiled_forward.cuh"
 #include "flash_attention_core.cuh"
-#include "hopper.cuh"
+#include "hopper_flash.cuh"
 
 namespace {
 using namespace vdr::sm90;
@@ -76,7 +78,7 @@ constexpr int kF32PInK = 1;
 // Hopper kernel: TMA producer + three wgmma consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kD = 64;                     // head dim (the only build)
+constexpr int kD = kFlashD;                // head dim (the only build)
 constexpr int kConsumers = 3;              // consumer warpgroups
 constexpr int kBQ = 64 * kConsumers;       // query rows per block
 constexpr int kBK = 64;                    // keys per tile
@@ -99,108 +101,6 @@ struct HopperParams {
   int S, H, kh, kw;
   float scale_log2;             // D^-1/2 * log2(e)
 };
-
-// S = Q K^T for one key tile (4 k16 steps: 32 bytes along D)
-__device__ __forceinline__ void qk_tile(float (&s)[32],
-                                        const uint32_t (&qa)[kD / 16][4],
-                                        uint32_t k_tile) {
-  const uint64_t dk = desc_sw128(k_tile, 16, 1024);
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    Wgmma<64>::rs<0>(s, qa[kk], dk + 2 * kk, kk > 0);
-}
-
-// O += P V for one key tile (16 keys = two 1024-byte 8-key groups a step)
-__device__ __forceinline__ void pv_tile(float (&o)[32],
-                                        const uint32_t (&pa)[4][4],
-                                        uint32_t v_tile) {
-#pragma unroll
-  for (int kt = 0; kt < kBK / 16; ++kt)
-    Wgmma<64>::rs<1>(o, pa[kt], desc_sw128(v_tile + kt * 2048, 1024, 1024),
-                     1);
-}
-
-// Online-softmax state of a thread's two rows (log2 units). The max used
-// for the exponentials moves only when a row's max grows by more than
-// kRescaleLog2, so probabilities stay below 2^kRescaleLog2 and O is
-// rescaled only on the tiles where some row's max jumped; a_lo/a_hi are
-// the last tile's rescale factors (1 when the max stayed).
-constexpr float kRescaleLog2 = 8.f;
-struct Rows {
-  float m_lo, m_hi, l_lo, l_hi, a_lo, a_hi;
-};
-
-// Keys past S (the zero rows TMA reads beyond the tensor) score below the
-// -1e30 mask: a row with no valid key averages V over its S keys only.
-constexpr float kPastEnd = 2.f * vdr::kNegInf;
-
-// Scores of one tile -> probabilities in place: scale, the thread's
-// bias_w columns of this tile (bw), the kv_len mask on the ragged tile
-// (keys >= lim; end = S), the row max with the tile's bias_h scalar
-// added, exp2(s + bias_h - m) and the row sums. key0 is element 0's key.
-template <int NW>
-__device__ __forceinline__ void tile_probs(float (&s)[32],
-                                           const float (&bw)[8][4],
-                                           float scale, float bh_lo,
-                                           float bh_hi, int key0, bool ragged,
-                                           int lim, int end, Rows& st) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    s[i] = NW > 0 ? fmaf(s[i], scale, bw[i / 4][i % 4]) : s[i] * scale;
-  if (ragged) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int key = key0 + (i / 4) * 8 + (i & 1);
-      if (key >= lim) s[i] = key < end ? vdr::kNegInf : kPastEnd;
-    }
-  }
-  float mx_lo = vdr::kNegInf, mx_hi = vdr::kNegInf;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
-    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-  }
-  // the 4 lanes of a group share a row
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-  mx_lo += bh_lo;
-  mx_hi += bh_hi;
-  st.a_lo = st.a_hi = 1.f;
-  if (mx_lo > st.m_lo + kRescaleLog2) {
-    st.a_lo = fast_exp2(st.m_lo - mx_lo);
-    st.m_lo = mx_lo;
-    st.l_lo *= st.a_lo;
-  }
-  if (mx_hi > st.m_hi + kRescaleLog2) {
-    st.a_hi = fast_exp2(st.m_hi - mx_hi);
-    st.m_hi = mx_hi;
-    st.l_hi *= st.a_hi;
-  }
-  // a row with every key masked keeps m = -1e30 and takes p = 1 for each
-  const float mb_lo = st.m_lo - bh_lo, mb_hi = st.m_hi - bh_hi;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    s[4 * i] = fast_exp2(s[4 * i] - mb_lo);
-    s[4 * i + 1] = fast_exp2(s[4 * i + 1] - mb_lo);
-    s[4 * i + 2] = fast_exp2(s[4 * i + 2] - mb_hi);
-    s[4 * i + 3] = fast_exp2(s[4 * i + 3] - mb_hi);
-    st.l_lo += s[4 * i] + s[4 * i + 1];
-    st.l_hi += s[4 * i + 2] + s[4 * i + 3];
-  }
-}
-
-// Probabilities -> bf16 A fragments of PV: two n8 score chunks are one
-// k16 A fragment (rows g and g + 8, keys 2c.. and 2c + 8..).
-__device__ __forceinline__ void pack_probs(const float (&s)[32],
-                                           uint32_t (&pa)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    pa[i / 2][(i & 1) * 2] = vdr::pack_bf16(s[4 * i], s[4 * i + 1]);
-    pa[i / 2][(i & 1) * 2 + 1] = vdr::pack_bf16(s[4 * i + 2], s[4 * i + 3]);
-  }
-}
 
 // NW: bias_w register sets, Kw / 64 (0 = no bias).
 template <int NW>
@@ -319,11 +219,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool ragged = k0 + kBK > lim;
       // a constant register-set index in each branch: no local memory
       if (NW == 2 && set)
-        tile_probs<NW>(s, bw[NW == 2 ? 1 : 0], p.scale_log2, bh_lo, bh_hi, k0 + 2 * c,
-                       ragged, lim, p.S, st);
+        tile_probs<kBK, NW>(s, bw[NW == 2 ? 1 : 0], p.scale_log2, bh_lo,
+                            bh_hi, k0 + 2 * c, ragged, lim, p.S, st);
       else
-        tile_probs<NW>(s, bw[0], p.scale_log2, bh_lo, bh_hi, k0 + 2 * c,
-                       ragged, lim, p.S, st);
+        tile_probs<kBK, NW>(s, bw[0], p.scale_log2, bh_lo, bh_hi, k0 + 2 * c,
+                            ragged, lim, p.S, st);
     };
     // ping-pong: the warpgroups issue their products in turn, each after
     // the one before it, so one's softmax runs under the others' products
@@ -332,22 +232,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int next_bar = 1 + kConsumers + (wg + 1) % kConsumers;
     if (wg == kConsumers - 1) bar_arrive(next_bar, 256);
     mbar_wait(&qbar, 0);
-    // Q's A fragments (rows g, g + 8 of the warp's 16; k 2c.., 2c + 8..)
-    // from the swizzled tile: 16-byte chunk k/8 of row r sits at chunk
-    // (k/8) ^ (r % 8)
     uint32_t qa[kD / 16][4];
-    {
-      const unsigned char* qt = base + wg * kTile;
-      const int rl = warp * 16 + g;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const int r = rl + (f & 1) * 8, chunk = 2 * kk + f / 2;
-          qa[kk][f] = *reinterpret_cast<const uint32_t*>(
-              qt + r * 128 + ((chunk ^ (r & 7)) * 16) + 4 * c);
-        }
-    }
+    q_frags(qa, base + wg * kTile, warp, g, c);
 
     // software pipeline: QK^T of tile j and PV of tile j-1 are issued
     // together; the softmax of tile j runs while PV(j-1) is on the tensor
@@ -355,21 +241,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(&full[0], 0);
     bar_sync(my_bar, 256);
     wgmma_fence();
-    qk_tile(s, qa, k_addr);
+    qk_tile<kBK>(s, qa, k_addr);
     wgmma_commit();
     bar_arrive(next_bar, 256);
     wgmma_wait<0>();
     fence_regs(s);
     probs(0);
-    pack_probs(s, pa);
+    pack_probs<kBK>(s, pa);
     for (int j = 1; j < n_tiles; ++j) {
       const int cur = j % kStages, prev = (j - 1) % kStages;
       mbar_wait(&full[cur], (j / kStages) & 1);
       bar_sync(my_bar, 256);
       wgmma_fence();
-      qk_tile(s, qa, k_addr + cur * kTile);
+      qk_tile<kBK>(s, qa, k_addr + cur * kTile);
       wgmma_commit();
-      pv_tile(o, pa, v_addr + prev * kTile);
+      pv_tile<kBK>(o, pa, v_addr + prev * kTile);
       wgmma_commit();
       bar_arrive(next_bar, 256);
       wgmma_wait<1>();
@@ -379,21 +265,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(o);
       fence_regs(pa);
       mbar_arrive(&empty[prev]);
-      if (__any_sync(0xffffffffu, st.a_lo < 1.f || st.a_hi < 1.f)) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          o[4 * i] *= st.a_lo;
-          o[4 * i + 1] *= st.a_lo;
-          o[4 * i + 2] *= st.a_hi;
-          o[4 * i + 3] *= st.a_hi;
-        }
-      }
-      pack_probs(s, pa);
+      rescale(o, st);
+      pack_probs<kBK>(s, pa);
     }
     const int last = (n_tiles - 1) % kStages;
     bar_sync(my_bar, 256);
     wgmma_fence();
-    pv_tile(o, pa, v_addr + last * kTile);
+    pv_tile<kBK>(o, pa, v_addr + last * kTile);
     wgmma_commit();
     // every last sync is matched: the last warpgroup's initial arrive
     // stands in for its final one
@@ -403,26 +281,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(pa);
     mbar_arrive(&empty[last]);
 
-    float l_lo = st.l_lo, l_hi = st.l_hi;
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-    const float inv_lo = 1.f / (l_lo > 0.f ? l_lo : 1.f);
-    const float inv_hi = 1.f / (l_hi > 0.f ? l_hi : 1.f);
-    const int R_lo = row0 + r_lo, R_hi = row0 + r_hi;
-    __nv_bfloat16* out = p.out + (size_t)b * p.S * C + h * kD;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int d = i * 8 + 2 * c;
-      if (R_lo < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)R_lo * C + d) =
-            __floats2bfloat162_rn(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
-      if (R_hi < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)R_hi * C + d) =
-            __floats2bfloat162_rn(o[4 * i + 2] * inv_hi,
-                                  o[4 * i + 3] * inv_hi);
-    }
+    store_rows(p.out + (size_t)b * p.S * C + h * kD, C, row0 + r_lo,
+               row0 + r_hi, p.S, c, o, st);
   }
 }
 

@@ -40,15 +40,22 @@
 //    the l > 0 guard stays;
 //  * the output tile is normalised, written over the tile's own Q rows in
 //    shared memory, and stored by TMA (rows past the window never leave).
-// The fp32 (`parity`) path, windows of more than 256 tokens, bias grids of
-// more than 63 terms and scales whose inverse is not a power of two keep
-// the first loops of flash_attention_core.cuh (one thread per query row on
-// the CUDA cores in fp32; mma.sync over 112-key tiles with an online
-// softmax in bf16). The C entry chooses by dtype and shape alone, and
+// The fp32 (`parity`) path takes the register-tiled CUDA-core forward of
+// f32_tiled_forward.cuh, one (window, head) a problem (k1_problem): 64
+// query rows a block (196 = 3 x 64 + 4), 32-key K/V tiles by cp.async
+// into two buffers (7 tiles, 28 slots of the last absent), 4 x 4 score
+// and 4 x 8 output micro-tiles a thread, fp32 FMAs only (67 TFLOP/s
+// bounds it: 11.8 GFLOP, 0.176 ms at the extraction path's shape; the
+// fourth, 4-row block of a window costs about a fifth of the time, PERF.md).
+// bf16 windows of more than 256 tokens, bias grids of more than
+// 63 terms and scales whose inverse is not a power of two keep the first
+// mma.sync loop of flash_attention_core.cuh (112-key tiles, an online
+// softmax). The C entry chooses by dtype and shape alone, and
 // vdr_fused_window_route reports the choice.
 
 #include <math.h>
 
+#include "f32_tiled_forward.cuh"
 #include "flash_attention_core.cuh"
 #include "hopper.cuh"
 
@@ -56,11 +63,18 @@ namespace {
 using namespace vdr::sm90;
 using bf16 = __nv_bfloat16;
 
-// the first loops: 196 = 112 + 84, two query tiles and two key tiles per
+// the first loop: 196 = 112 + 84, two query tiles and two key tiles per
 // window
 constexpr int kBlockK = 112;
-constexpr int kRowsF32 = 112;
 constexpr int kRowsBf16 = 112;
+// the tiled fp32 body: keys a K/V tile (32: a 4 x 4 score micro-tile a
+// thread; 64: 4 x 8), tile buffers (2: the next tile loads during this
+// one) and P in the tile's K buffer (1). Two buffers ran 3-5% faster than
+// one at SAM's windows on an H100 (PERF.md), as for the K6 forward's
+// windowed calls; K2 and K3 take one
+constexpr int kF32Cols = 32;
+constexpr int kF32Stages = 2;
+constexpr int kF32PInK = 1;
 
 // ---------------------------------------------------------------------------
 // Hopper kernel: persistent blocks, a TMA producer, wgmma consumers
@@ -467,6 +481,42 @@ int launch_hopper(const CUtensorMap& tq, const CUtensorMap& tkv,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32: the register-tiled CUDA-core forward (f32_tiled_forward.cuh)
+// ---------------------------------------------------------------------------
+
+// blockIdx: x the window's 64-row block, y window * H + head, z the batch
+// row.
+template <bool kBias>
+__global__ void __launch_bounds__(vdr::tiled::NT, 2)
+    k1_tiled_kernel(const vdr::AttnParams p) {
+  extern __shared__ __align__(16) float smem_tiled[];
+  const vdr::tiled::Problem pr = vdr::tiled::k1_problem(
+      static_cast<const float*>(p.q), static_cast<const float*>(p.kv),
+      static_cast<const float*>(p.bias_h),
+      static_cast<const float*>(p.bias_w), static_cast<float*>(p.out), p.S,
+      p.H, p.seg, p.kh, p.kw, p.scale_log2, blockIdx.z, blockIdx.y / p.H,
+      blockIdx.y % p.H);
+  vdr::tiled::forward<kF32Cols, kF32Stages, kF32PInK != 0, kBias>(
+      pr, blockIdx.x * vdr::tiled::ROWS, smem_tiled);
+}
+
+template <bool kBias>
+int launch_tiled(const vdr::AttnParams& p, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) *
+      vdr::tiled::smem_floats<kF32Cols, kF32Stages, kF32PInK != 0>(
+          kBias ? p.kh : 0, kBias ? p.kw : 0);
+  auto kern = k1_tiled_kernel<kBias>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.seg + vdr::tiled::ROWS - 1) / vdr::tiled::ROWS,
+            (p.S / p.seg) * p.H, p.B);
+  kern<<<grid, vdr::tiled::NT, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -476,10 +526,12 @@ const char* vdr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// 1 when a call with these arguments runs the Hopper kernel, 0 when it
-// runs the first loops of flash_attention_core.cuh.
+// The body a call with these arguments runs: 0 the first loop of
+// flash_attention_core.cuh, 1 the Hopper kernel, 2 the register-tiled fp32
+// forward.
 int vdr_fused_window_route(int S, int H, int D, int window_tokens, int kh,
                            int kw, int biased, float scale, int dtype) {
+  if (dtype == 0) return 2;
   WinParams p;
   int n = 0;
   size_t smem = 0;
@@ -499,15 +551,17 @@ int vdr_fused_window_attention(const void* q, const void* kv,
                                int dtype, void* stream) {
   if (D != kD) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const vdr::AttnParams a{q,  kv, bias_h, bias_w, nullptr, out, B,  S,
+                          H,  window_tokens, kh, kw, scale * vdr::kLog2e};
+  if (dtype == 0)
+    return bias_h != nullptr ? launch_tiled<true>(a, st)
+                             : launch_tiled<false>(a, st);
   WinParams p;
   int n = 0;
   size_t smem = 0;
   if (!hopper_plan(B, S, H, D, window_tokens, kh, kw, bias_h != nullptr,
-                   scale, dtype, &p, &n, &smem)) {
-    vdr::AttnParams a{q,  kv, bias_h, bias_w, nullptr, out, B,  S,
-                      H,  window_tokens, kh, kw, scale * vdr::kLog2e};
-    return vdr::launch<64, kRowsF32, kRowsBf16, kBlockK>(a, dtype, st);
-  }
+                   scale, dtype, &p, &n, &smem))
+    return vdr::launch_bf16<64, kRowsBf16, kBlockK, false>(a, st);
   p.bias_h = static_cast<const bf16*>(bias_h);
   p.bias_w = static_cast<const bf16*>(bias_w);
   CUtensorMap tq, tkv, tout;

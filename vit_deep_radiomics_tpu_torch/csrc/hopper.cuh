@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (K1, K2, K4 and the K5 backward in bf16): shared-memory addresses, mbarriers,
+// (K1, K2, K3, K4 and the K5 backward in bf16): shared-memory addresses, mbarriers,
 // named barriers, TMA tensor and bulk copies, wgmma descriptors and
 // instructions, and the runtime lookup of cuTensorMapEncodeTiled (no link
 // against libcuda) with the 64 x 64 tile maps it encodes.
@@ -100,9 +100,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // Keep the compiler from touching wgmma operands before wgmma.wait_group:
 // accumulators are not read early, A fragments stay live (their registers
 // are not reused while the product reads them).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
@@ -122,6 +123,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_F32(d, i) \
   VDR_F8(d, i), VDR_F8(d, i + 8), VDR_F8(d, i + 16), VDR_F8(d, i + 24)
 #define VDR_D8(d) VDR_F8(d, 0)
+#define VDR_D24(d) VDR_F8(d, 0), VDR_F8(d, 8), VDR_F8(d, 16)
 #define VDR_D32(d) VDR_F32(d, 0)
 #define VDR_D52(d) VDR_F32(d, 0), VDR_F8(d, 32), VDR_F8(d, 40), VDR_F4(d, 48)
 #define VDR_D104(d) VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F8(d, 96)
@@ -143,6 +145,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_R8_14 "%112, %113, %114, %115, %116, %117, %118, %119"
 #define VDR_R8_15 "%120, %121, %122, %123, %124, %125, %126, %127"
 #define VDR_R8 "{" VDR_R8_0 "}"
+#define VDR_R24 "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 "}"
 #define VDR_R32 "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 "}"
 #define VDR_R52                                                         \
   "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4 \
@@ -158,9 +161,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
   ", " VDR_R8_14 ", " VDR_R8_15 "}"
 
 // Wgmma<N>: D(64xN, fp32) (+)= A(64x16) * B(16xN), bf16 in, for the widths
-// the kernels use (K2 and the K5 backward: 64; K1: 64 for PV, 208 and 256
-// for its scores; K4: 64 and 208 for its scores, 64 and 104 for dP's key
-// chunks, 16 and 64 for phase B's query chunks).
+// the kernels use (K2 and the K5 backward: 64; K3: 48 and 64 for its
+// scores, 64 for PV; K1: 64 for PV, 208 and 256 for its scores; K4: 64 and
+// 208 for its scores, 64 and 104 for dP's key chunks, 16 and 64 for phase
+// B's query chunks).
 // ss reads A and B from shared memory, both K-major; rs takes A from
 // registers, with B K-major (TransB 0: K, E) or MN-major (1: V). T0 .. T6
 // spell the numbers of the operands after D, %(N/2) .. %(N/2 + 6).
@@ -195,6 +199,8 @@ struct Wgmma;
   };
 
 VDR_WGMMA(16, VDR_R8, VDR_D8, "%8", "%9", "%10", "%11", "%12", "%13", "%14")
+VDR_WGMMA(48, VDR_R24, VDR_D24, "%24", "%25", "%26", "%27", "%28", "%29",
+          "%30")
 VDR_WGMMA(64, VDR_R32, VDR_D32, "%32", "%33", "%34", "%35", "%36", "%37",
           "%38")
 VDR_WGMMA(104, VDR_R52, VDR_D52, "%52", "%53", "%54", "%55", "%56", "%57",
@@ -283,22 +289,30 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// 3-D map (width columns, rows, batches) of a row-major bf16 tensor, 64 x 64
-// boxes, 128-byte swizzle; rows past `rows` read as zeros.
-inline bool tensor_map_64(CUtensorMap* map, const void* ptr, int width,
-                          int rows, int batches) {
+// 3-D map (width columns, rows, batches) of a row-major bf16 tensor, boxes
+// of 64 columns (128 bytes: the 128-byte swizzle) x box_rows rows x one
+// batch; rows past `rows` read as zeros, so a box never reads the next
+// batch's rows.
+inline bool tensor_map_3d(CUtensorMap* map, const void* ptr, int width,
+                          int rows, int batches, int box_rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows,
                               (cuuint64_t)batches};
   const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
                                  (cuuint64_t)rows * width * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same map with 64 x 64 boxes.
+inline bool tensor_map_64(CUtensorMap* map, const void* ptr, int width,
+                          int rows, int batches) {
+  return tensor_map_3d(map, ptr, width, rows, batches, 64);
 }
 
 }  // namespace sm90

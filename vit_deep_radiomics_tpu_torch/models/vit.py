@@ -460,15 +460,22 @@ class WindowedAttention(nn.Module):
 
     def _flash(self, q, k, v, bias_h, bias_w, h, w):
         """The generic path (JAX vit.py:670-739): pad the key grid (rows to
-        a multiple of 8, columns to a power of two ≥ 8) and the queries
-        (``_q_blocking``) and run K3 with ``kv_grid`` when the grid was
-        padded; without a bias, pad the tokens and mask them by
-        ``kv_len``. Returns (B, H, S, D)."""
+        a multiple of 8, columns to a power of two ≥ 8) and run K3 with
+        ``kv_grid`` when the grid was padded; without a bias, pad the keys
+        to ``_q_blocking``'s length and mask them by ``kv_len``. Returns
+        (B, H, S, D).
+
+        JAX also pads the queries to ``_q_blocking``'s length (its TPU
+        grid-step rule) and cuts the padded rows off the output. A query
+        row's output depends on that row alone, so K3 gets the S rows the
+        caller keeps (``block_q`` = S: one block, JAX's divisibility rule
+        holds), except in ``window_group`` mode, whose block-diagonal call
+        needs Sq == Sk."""
         b, nh, s, hd = q.shape
+        sq_pad, bq = _q_blocking(s)
         if bias_h is not None:
             hp = -(-h // 8) * 8
             wp = max(8, 1 << (w - 1).bit_length())
-            sq_pad, bq = _q_blocking(s)
             sk_pad = hp * wp
 
             def grid(t):            # (B, H, h·w, D) → padded (B, H, hp·wp, D)
@@ -476,26 +483,25 @@ class WindowedAttention(nn.Module):
                 return _pad_to(_pad_to(t, hp, 2), wp, 3).reshape(
                     b, nh, sk_pad, hd)
 
-            qp, kp, vp = _pad_to(q, sq_pad, 2), grid(k), grid(v)
-            bh = _pad_to(_pad_to(bias_h, sq_pad, 2), hp, 3).to(q.dtype)
-            bw = _pad_to(_pad_to(bias_w, sq_pad, 2), wp, 3).to(q.dtype)
+            kp, vp = grid(k), grid(v)
+            bh = _pad_to(bias_h, hp, 3).to(q.dtype)
+            bw = _pad_to(bias_w, wp, 3).to(q.dtype)
             if self.window_group > 1 and sq_pad == sk_pad and \
                     sk_pad * self.window_group <= 1024:
-                out = self._flash_grouped(qp, kp, vp, bh, bw, (h, w), sq_pad)
-            else:
-                out = flash_attention(
-                    *(t.contiguous() for t in (qp, kp, vp, bh, bw)),
-                    kv_grid=(h, w) if (hp, wp) != (h, w) else None,
-                    block_q=bq, block_k=min(1024, sk_pad))
-            return out[:, :, :s]
-        sq_pad, bq = _q_blocking(s)
+                qp, bhp, bwp = (_pad_to(t, sq_pad, 2) for t in (q, bh, bw))
+                out = self._flash_grouped(qp, kp, vp, bhp, bwp, (h, w),
+                                          sq_pad)
+                return out[:, :, :s]
+            return flash_attention(
+                *(t.contiguous() for t in (q, kp, vp, bh, bw)),
+                kv_grid=(h, w) if (hp, wp) != (h, w) else None,
+                block_q=s, block_k=min(1024, sk_pad))
         kv_len = None
         if sq_pad != s:
             kv_len = torch.full((b,), s, dtype=torch.int32, device=q.device)
-        qp, kp, vp = (_pad_to(t, sq_pad, 2).contiguous() for t in (q, k, v))
-        out = flash_attention(qp, kp, vp, kv_len=kv_len, block_q=bq,
-                              block_k=bq)
-        return out[:, :, :s]
+        kp, vp = (_pad_to(t, sq_pad, 2).contiguous() for t in (k, v))
+        return flash_attention(q.contiguous(), kp, vp, kv_len=kv_len,
+                               block_q=s, block_k=bq)
 
     def _flash_grouped(self, qp, kp, vp, bh, bw, grid_hw, win):
         """``window_group`` windows per K3 block-diagonal call (JAX vit.py:

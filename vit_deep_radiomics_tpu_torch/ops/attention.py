@@ -254,9 +254,10 @@ def fused_window_attention_route(q, kv, bias_h=None, bias_w=None, *,
                                  num_heads, window_tokens, scale) -> str:
     """Which body :func:`fused_window_attention` runs for these operands:
     ``"plain"`` on the CPU; on the card, as ``csrc/fused_window_attention.cu``
-    chooses, ``"hopper"`` (the TMA + wgmma kernel: bf16, windows of at most
-    256 tokens) or ``"loops"`` (the first loops of
-    ``flash_attention_core.cuh``)."""
+    chooses, ``"tiled"`` (fp32: the register-tiled forward of
+    ``f32_tiled_forward.cuh``), ``"hopper"`` (the TMA + wgmma kernel: bf16,
+    windows of at most 256 tokens) or ``"loops"`` (bf16 otherwise: the
+    mma.sync loop of ``flash_attention_core.cuh``)."""
     d, kh, kw = _check_layout(q, kv, bias_h, bias_w, None, num_heads,
                               window_tokens)
     if q.device.type == "cpu":
@@ -264,9 +265,9 @@ def fused_window_attention_route(q, kv, bias_h=None, bias_w=None, *,
     _check_cuda(q, d, kv, bias_h, bias_w)
     _, fn = _load("fused_window_attention", [_I] * 7 + [_F, _I],
                   entry="vdr_fused_window_route")
-    hopper = fn(q.shape[1], num_heads, d, window_tokens, kh, kw,
-                int(bias_h is not None), scale, _DTYPE_CODES[q.dtype])
-    return "hopper" if hopper else "loops"
+    return ("loops", "hopper", "tiled")[
+        fn(q.shape[1], num_heads, d, window_tokens, kh, kw,
+           int(bias_h is not None), scale, _DTYPE_CODES[q.dtype])]
 
 
 def fused_global_attention(q, kv, bias_h=None, bias_w=None, kv_len=None, *,
@@ -438,18 +439,24 @@ def flash_attention_route(q, k, v, bias_h=None, bias_w=None, kv_len=None,
     """Which body :func:`flash_attention` runs for these operands:
     ``"plain"`` on the CPU; on the card, as ``csrc/flash_attention.cu``
     chooses, ``"tiled"`` (fp32 at D 64 outside window mode: the
-    register-tiled forward of ``f32_tiled_forward.cuh``) or ``"loops"``
-    (the loops of ``flash_attention.cu``)."""
-    d, _, _ = _check_flash_layout(q, k, v, bias_h, bias_w, kv_len, kv_grid,
-                                  window_tokens, block_q, block_k)
+    register-tiled forward of ``f32_tiled_forward.cuh``), ``"hopper"``
+    (bf16 at D 64 outside window mode with no bias, or a bias on key-grid
+    rows of 64 keys whose valid columns round up to 48 or 64 and no
+    ``kv_len``: the TMA + wgmma kernel) or ``"loops"`` (the loops of
+    ``flash_attention.cu``)."""
+    d, kh, kw = _check_flash_layout(q, k, v, bias_h, bias_w, kv_len,
+                                    kv_grid, window_tokens, block_q, block_k)
     if q.device.type == "cpu":
         return "plain"
     _check_cuda(q, d, k, v, bias_h, bias_w, builds=_K3_HEAD_DIMS,
                 source="csrc/flash_attention.cu")
-    _, fn = _load("flash_attention", [_I] * 3,
+    _, fn = _load("flash_attention", [_I] * 9,
                   entry="vdr_flash_attention_route")
-    tiled = fn(d, window_tokens or 0, _DTYPE_CODES[q.dtype]) == 2
-    return "tiled" if tiled else "loops"
+    kh_valid, kw_valid = kv_grid if kv_grid is not None else (0, 0)
+    return ("loops", "hopper", "tiled")[
+        fn(d, window_tokens or 0, _DTYPE_CODES[q.dtype],
+           int(bias_h is not None), int(kv_len is not None), kh, kw,
+           kh_valid, kw_valid)]
 
 
 def flash_attention(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
@@ -477,7 +484,8 @@ def flash_attention(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
     Masked scores are -1e30, so a row with no valid key averages V over
     the keys it was given, as JAX's does. CPU tensors take
     :func:`flash_attention_plain`; CUDA tensors launch
-    ``csrc/flash_attention.cu`` (D in 32, 64, 128) on the current stream.
+    ``csrc/flash_attention.cu`` (D in 32, 64, 128) on the current stream,
+    on the body :func:`flash_attention_route` names.
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     d, kh, kw = _check_flash_layout(q, k, v, bias_h, bias_w, kv_len, kv_grid,

@@ -1,5 +1,6 @@
 """Probes of the Hopper kernels K1 (``csrc/fused_window_attention.cu``), K2
-(``csrc/fused_global_attention.cu``), K4 (``csrc/window_attention_bwd.cu``),
+(``csrc/fused_global_attention.cu``), K3 (``csrc/flash_attention.cu``), K4
+(``csrc/window_attention_bwd.cu``),
 the K5 backward (``csrc/global_attention_bwd_dkv.cu``,
 ``csrc/global_attention_bwd_dq.cu``), the K6 forward
 (``csrc/flash_attention_fwd.cu``) and the K6 backward
@@ -10,44 +11,54 @@ Two measurements that ``chip_smoke.py`` does not make::
 
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k4
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6fwd
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity-forward PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-768 PARENT CHANGE
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
-warpgroups; K2: the ring depth or the consumer warpgroups; K4: one
+warpgroups; K2: the ring depth or the consumer warpgroups; K3 bf16: 64-key
+tiles with the masked columns in bias_w instead of 48-key boxes, two
+consumer warpgroups, the ring depth; K4: one
 warpgroup, the bias rows read from device memory instead of staged by
 bulk copy, the bias gradients' product or the bias tile's build removed, phase A or phase B (the key-major recompute)
 removed, phase B's dk/dv products removed; the
 K5 backward: three consumer warpgroups, the ring depth, the bias step
 removed; the K6 backward: one tile buffer instead of two, or 64-column
-tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K2,
-K3 and K6 (``csrc/f32_tiled_forward.cuh``, ``k2f32``, ``k3f32`` and
-``k6fwd``): 64-key tiles, which make the score micro-tile 4 x 8, two tile
-buffers, P in a tile of its own, all of K3's grid columns visited, the bias
+tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K1,
+K2, K3 and K6 (``csrc/f32_tiled_forward.cuh``, ``k1f32``, ``k2f32``,
+``k3f32`` and ``k6fwd``): 64-key tiles, which make the score micro-tile 4 x
+8, two tile buffers, P in a tile of its own, all of K3's grid columns
+visited, K1's ragged fourth row block of a window not launched, the bias
 step removed;
 for all the softmax (K5 and K6: the exp2/dS step) or the products
 removed, and for K5, K6 and the fp32 forward the score (and dP)
 products removed: timing ablations whose output is wrong by design),
 calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
 Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
-shape, 4 x 1536 with 1370 valid; K4: q (50, 196, 768), Kh = Kw = 14; K5:
+shape, 4 x 1536 with 1370 valid; K3 bf16: SAM @768's q (4, 12, 2304, 64)
+and JAX's padded (4, 12, 3072, 64) against k/v (4, 12, 3072, 64), Kh 48,
+Kw 64, ``kv_grid`` (48, 48); K4: q (50, 196, 768), Kh = Kw = 14; K5:
 q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16; K6: the
 `parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
 (50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
-1536, 64) with 1370 valid keys); K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
-K3 fp32: SAM @768's (4, 12, 3072, 64), Kh 48, Kw 64, ``kv_grid`` (48, 48),
-and (4, 12, 1536, 64) with 1370 valid keys), and prints its gap to the
+1536, 64) with 1370 valid keys); K1 fp32: q (100, 196, 768), Kh = Kw =
+14; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
+K3 fp32: SAM @768's q (4, 12, 2304, 64), k/v 3072 rows, Kh 48, Kw 64,
+``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys), and
+prints its gap to the
 plain version and its time (K1/K2 and the fp32 forward beside SDPA's, K4
 and K5 beside the bf16 tensor-core peak, K6 beside the fp32 CUDA cores'
 peak).
@@ -63,10 +74,13 @@ ViT-B/14 @518 at B=2 under that policy (``chip_smoke.py``'s phases 8 and
 step of each (``utils/profiling.py``), then its kernel phases
 7 and 11 (K4, K5; `fast`) or 10 (K6; `parity`); with ``--path
 parity-forward`` 5 `parity` SAM ViT-B/16 forwards at B=4 @1024 (K2 fp32)
-and @768 (K3 fp32) on the host clock, each after a warm-up, then K2 and K3
+and @768 (K3 fp32) on the host clock, each after a warm-up, and their
+device ms (``utils/profiling.py``), then K2 and K3
 in fp32 at their path shapes and at DINOv2's kv_len shape, and
-``chip_smoke.py``'s kernel phases 3 and 15. Nothing is built or run at
-import.
+``chip_smoke.py``'s kernel phases 3 and 15; with ``--path fast-768`` the
+`fast` SAM @768 forward at B=4 (host and device ms, ``utils/profiling.py``)
+and a one-patient @768 extraction as ``chip_smoke.py``'s phase 18 runs it.
+Nothing is built or run at import.
 """
 
 from __future__ import annotations
@@ -82,6 +96,8 @@ __all__ = ["SOURCES", "HEADERS", "VARIANTS", "CALLS", "variant_source",
            "variant_files", "main"]
 
 SOURCES = {"k1": "fused_window_attention.cu",
+           "k1f32": "fused_window_attention.cu",
+           "k3": "flash_attention.cu",
            "k2": "fused_global_attention.cu",
            "k4": "window_attention_bwd.cu",
            "k6fwd": "flash_attention_fwd.cu",
@@ -92,7 +108,8 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k2f32": "fused_global_attention.cu",
            "k3f32": "flash_attention.cu"}
 # headers a variant of the kernel may change (copied beside its source)
-HEADERS = {"k2f32": ("f32_tiled_forward.cuh",),
+HEADERS = {"k1f32": ("f32_tiled_forward.cuh",),
+           "k2f32": ("f32_tiled_forward.cuh",),
            "k3f32": ("f32_tiled_forward.cuh",),
            "k6fwd": ("f32_tiled_forward.cuh",)}
 # the register-tiled fp32 forward (f32_tiled_forward.cuh) of K2 and K3
@@ -132,10 +149,26 @@ VARIANTS = {
         "consumers_2": ({"kConsumers": 2}, ()),
         "no_softmax": ({}, ("probs(0);", "probs(j);")),
         "no_products": ({}, (
-            "qk_tile(s, qa, k_addr);",
-            "qk_tile(s, qa, k_addr + cur * kTile);",
-            "pv_tile(o, pa, v_addr + prev * kTile);",
-            "pv_tile(o, pa, v_addr + last * kTile);")),
+            "qk_tile<kBK>(s, qa, k_addr);",
+            "qk_tile<kBK>(s, qa, k_addr + cur * kTile);",
+            "pv_tile<kBK>(o, pa, v_addr + prev * kTile);",
+            "pv_tile<kBK>(o, pa, v_addr + last * kTile);")),
+    },
+    # K3's Hopper body (bf16): 64-key tiles with the masked columns in
+    # bias_w instead of 48-key boxes, two consumer warpgroups, the ring
+    # depth; the softmax or the products removed
+    "k3": {
+        "as_built": ({}, ()),
+        "cols_64": ({"kSkipCols": 0}, ()),
+        "consumers_2": ({"kConsumers": 2}, ()),
+        "stages_6": ({"kStages": 6}, ()),
+        "stages_8": ({"kStages": 8}, ()),
+        "no_softmax": ({}, ("probs(0);", "probs(j);")),
+        "no_products": ({}, (
+            "qk_tile<NK>(s, qa, k_addr);",
+            "qk_tile<NK>(s, qa, k_addr + cur * kKTile);",
+            "pv_tile<NK>(o, pa, v_addr + prev * kKTile);",
+            "pv_tile<NK>(o, pa, v_addr + last * kKTile);")),
     },
     "k6dkv": {
         "as_built": ({}, ()),
@@ -215,6 +248,14 @@ VARIANTS = {
         # O summed key by key, as K2 and K3 sum it
         "no_tile_sum": ({"kF32TileSum": 0}, ()),
     },
+    # K1 (two tile buffers as built): one buffer, and the windows' fourth
+    # 64-row block (4 of 196 rows) not launched
+    "k1f32": {**{k: v for k, v in _F32_TILED.items()
+                 if not k.startswith("stages_")},
+              "stages_1": ({"kF32Stages": 1}, ()),
+              "no_ragged_block": ({}, ((
+                  "(p.seg + vdr::tiled::ROWS - 1) / vdr::tiled::ROWS,",
+                  "p.seg / vdr::tiled::ROWS,"),))},
     "k2f32": _F32_TILED,
     # K3 also: every column of a padded key grid visited (the masked ones
     # scored at -1e30) instead of the valid ones alone
@@ -263,12 +304,18 @@ CALLS = {
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
     "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
-    # fp32: (B, S, Kh, Kw, kv_len); K3's kv_grid is (Kh, Kh), SAM @768's
-    # 48 x 48 grid padded to 48 x 64
+    # K3 (head-major; S the query rows, Sk = Kh·Kw or S): SAM @768's 48 x
+    # 48 grid padded to 48 x 64 with kv_grid (Kh, Kh), against the 2304
+    # query rows the path passes and the 3072 JAX pads them to
+    "k3": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
+           ((4, 2304, 48, 64, None), (4, 3072, 48, 64, None)), None),
+    # fp32: (B, S, Kh, Kw, kv_len); K1 one window a batch row
+    "k1f32": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
+              None),
     "k2f32": ([_P] * 6 + [_I] * 6 + [_F, _I, _P],
               ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), None),
     "k3f32": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
-              ((4, 3072, 48, 64, None), (4, 1536, 0, 0, 1370)), None),
+              ((4, 2304, 48, 64, None), (4, 1536, 0, 0, 1370)), None),
 }
 
 
@@ -615,12 +662,15 @@ def _k4_variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
-def _f32_variants(kernel: str, out_dir: Path) -> None:
-    """The fp32 forward's variants (K2: the port's (B, S, H·D) layouts;
-    K3: head-major (B, H, S, D)) at the `parity` paths' shapes: gap to the
-    plain version, ms beside fp32 SDPA's (the dense bias, or -inf at every
-    masked key, as ``attn_mask``), share of the fp32 CUDA-core peak (67
-    TFLOP/s, H100 SXM) on the work the call is handed."""
+def _forward_variants(kernel: str, out_dir: Path) -> None:
+    """The variants of the fp32 forward (K1 and K2: the port's (B, S, H·D)
+    layouts, K1 one window a batch row; K3: head-major (B, H, S, D)) at the
+    `parity` paths' shapes, and of K3's bf16 Hopper body at SAM @768's: gap
+    to the plain version (bf16: beyond one step, 2^-7·|ref|), ms beside
+    SDPA's in the same dtype (the dense bias, or -inf at every masked key,
+    as ``attn_mask``), share of the fp32 CUDA-core peak (67 TFLOP/s) or of
+    the bf16 tensor-core peak (989 TFLOP/s, H100 SXM) on the work the call
+    is handed."""
     import torch
     import torch.nn.functional as F
 
@@ -630,9 +680,13 @@ def _f32_variants(kernel: str, out_dir: Path) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     heads, d = 12, 64
     c, scale = heads * d, d ** -0.5
+    bf16 = kernel == "k3"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    peak, rtol = (989e12, 2 ** -7) if bf16 else (67e12, 0.0)
 
     def rand(*shape, s=1.0):
-        return torch.randn(*shape, generator=gen, device="cuda") * s
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * s).to(dtype)
 
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
@@ -641,16 +695,24 @@ def _f32_variants(kernel: str, out_dir: Path) -> None:
         bh = bw = kl = grid = None
         if kh:
             bh, bw = rand(b, heads, s, kh, s=0.3), rand(b, heads, s, kw, s=0.3)
-            grid = (kh, kh) if kernel == "k3f32" else None
+            grid = (kh, kh) if kernel.startswith("k3") else None
         else:
             kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
         sk = kh * kw if kh else s
-        if kernel == "k2f32":
+        if kernel in ("k1f32", "k2f32"):
             q, kv = rand(b, s, c), rand(b, s, 2 * c)
-            ref = A.fused_global_attention_plain(q, kv, bh, bw, kl,
-                                                 num_heads=heads, scale=scale)
             views = [t.reshape(b, s, heads, d).transpose(1, 2)
                      for t in (q, kv[..., :c], kv[..., c:])]
+        if kernel == "k1f32":
+            ref = A.fused_window_attention_plain(
+                q, kv, bh, bw, num_heads=heads, window_tokens=s, scale=scale)
+
+            def c_args(out):
+                return (*map(ptr, (q, kv, bh, bw, out)), b, s, heads, d, s,
+                        kh, kw, scale)
+        elif kernel == "k2f32":
+            ref = A.fused_global_attention_plain(q, kv, bh, bw, kl,
+                                                 num_heads=heads, scale=scale)
 
             def c_args(out):
                 return (*map(ptr, (q, kv, bh, bw, kl, out)), b, s, heads, d,
@@ -668,7 +730,7 @@ def _f32_variants(kernel: str, out_dir: Path) -> None:
         valid = key < (n_valid or sk)
         if grid:
             valid &= (key // kw < grid[0]) & (key % kw < grid[1])
-        mask = torch.zeros(b, heads, s, sk, device="cuda")
+        mask = torch.zeros(b, heads, s, sk, device="cuda", dtype=dtype)
         if kh:
             mask = (bh[..., :, None] + bw[..., None, :]).reshape(mask.shape)
         mask = mask.masked_fill(~valid, float("-inf"))
@@ -676,9 +738,10 @@ def _f32_variants(kernel: str, out_dir: Path) -> None:
         print(f"{kernel} shape ({b}, {heads}, {s}, {d}), Kh {kh}, Kw {kw}, "
               f"kv_len {n_valid}, kv_grid {grid}:")
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        ref_f = ref.float()
         for name, fn in fns.items():
             out = torch.empty_like(ref)
-            args = (*c_args(out), 0, stream)
+            args = (*c_args(out), int(bf16), stream)
 
             def run(fn=fn, args=args):
                 rc = fn(*args)
@@ -687,10 +750,12 @@ def _f32_variants(kernel: str, out_dir: Path) -> None:
 
             run()
             torch.cuda.synchronize()
-            gap = (out - ref).abs().max().item()
+            gap = ((out.float() - ref_f).abs()
+                   - rtol * ref_f.abs()).max().item()
             ms = _ms(torch, run, 10)
-            print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
-                  f"({flops / (ms * 1e-3) / 67e12:.1%} of 67 TFLOP/s)")
+            rate = flops / (ms * 1e-3) / peak
+            print(f"  {name}: gap {gap:.3e} ms {ms:.4f} ({rate:.1%} of "
+                  f"{peak / 1e12:.0f} TFLOP/s)")
         lib = _ms(torch, lambda: F.scaled_dot_product_attention(
             *views, attn_mask=mask, scale=scale), 5)
         print(f"  sdpa: ms {lib:.4f}")
@@ -799,7 +864,7 @@ import chip_smoke as cs
 from vit_deep_radiomics_tpu_torch.core import precision
 from vit_deep_radiomics_tpu_torch.models import vit
 from vit_deep_radiomics_tpu_torch.ops import attention as A
-from vit_deep_radiomics_tpu_torch.utils import cuda_build
+from vit_deep_radiomics_tpu_torch.utils import cuda_build, profiling
 cuda_build.build_all(("fused_window_attention", "fused_global_attention",
                       "flash_attention"))
 for size in (1024, 768):
@@ -821,6 +886,13 @@ for size in (1024, 768):
     print(f"forward parity @{size} B=4, mean of 5: {dt * 1e3:.3f} ms = "
           f"{4 / dt:.2f} img/s; launches per forward {n}", flush=True)
     del m, x
+    torch.cuda.empty_cache()
+    r = profiling.profile_forward(4, "parity", steps=3, rows=6,
+                                  image_size=size)
+    print(f"forward parity @{size} B=4 device: wall {r['wall_ms']:.3f} ms, "
+          f"device {r['device_ms']:.3f} ms, idle {r['idle_share']:.3f}; "
+          + "; ".join(f"{x['name'][:28]} {x['ms']:.3f}" for x in r["top"]),
+          flush=True)
     torch.cuda.empty_cache()
 # the fp32 kv_len shape (DINOv2 @518: 4 x 1536 tokens, 1370 valid)
 g = torch.Generator(device="cuda").manual_seed(0)
@@ -849,8 +921,51 @@ for shape, r in rec["by_shape"].items():
           f"err {r['max_abs_err']:.3e}")
 '''
 
+# SAM @768 under `fast` (its global layers on K3 bf16): the B=4 forward's
+# host and device ms (utils/profiling.py), then a one-patient extraction as
+# chip_smoke.py's phase 18 runs it
+_PAIR_FAST768_CHILD = r'''
+import dataclasses, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.core import precision
+from vit_deep_radiomics_tpu_torch.data import synthetic as syn
+from vit_deep_radiomics_tpu_torch.engine import extract as tex
+from vit_deep_radiomics_tpu_torch.models import vit
+from vit_deep_radiomics_tpu_torch.utils import cuda_build, profiling
+cuda_build.build_all(("fused_window_attention", "fused_global_attention",
+                      "flash_attention"))
+r = profiling.profile_forward(4, "fast", steps=5, rows=6, image_size=768)
+print(f"forward fast @768 B=4: wall {r['wall_ms']:.3f} ms, device "
+      f"{r['device_ms']:.3f} ms, idle {r['idle_share']:.3f}; " + "; ".join(
+          f"{x['name'][:28]} {x['ms']:.3f}" for x in r["top"]), flush=True)
+torch.cuda.empty_cache()
+cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=768)
+state = vit.ViTDense(cfg, policy=precision.FAST).init_random(0).state_dict()
+ex = tex.DenseExtractor(tex.ExtractionConfig(precision="fast",
+                                             image_size=768),
+                        state_dict=state)
+patient = next(iter(syn.synthetic_cohort(n_patients=1, seed=cs.SEED,
+                                         height=256, width=256).values()))
+warm = syn.synthetic_volume(np.random.default_rng(9), 256, 256, 2,
+                            modality="pet")
+ex.extract_volume(warm[0], warm[1], "pet")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+n = 0
+for modality in ("ct", "pet"):
+    vol, mask, _ = patient[modality]
+    n += len(ex.extract_volume(vol, mask, modality)[0])
+torch.cuda.synchronize()
+dt = time.perf_counter() - t0
+print(f"extraction fast @768: 1 patient x (CT, PET), {n} images in "
+      f"{dt * 1e3:.1f} ms = {n / dt:.2f} img/s")
+'''
+
 _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
-             "fast": _PAIR_FAST_CHILD,
+             "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
              "parity-forward": _PAIR_PARITY_FORWARD_CHILD}
 
 
@@ -896,8 +1011,8 @@ def main(argv=None) -> int:
             _k6_variants(args.kernel, args.out)
         elif args.kernel.startswith("k5"):
             _k5_variants(args.kernel, args.out)
-        elif args.kernel.endswith("f32"):
-            _f32_variants(args.kernel, args.out)
+        elif args.kernel.endswith("f32") or args.kernel == "k3":
+            _forward_variants(args.kernel, args.out)
         else:
             _variants(args.kernel, args.out)
     else:
