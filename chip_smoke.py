@@ -12,8 +12,9 @@ Phases (each one fails the run with a non-zero exit):
    csrc`` for ``sm_90a``, one process per source, in parallel; the ptxas
    report of K4 and the K5 backward (TMA + wgmma), the register-tiled K6
    backward kernels and the register-tiled fp32 forward's kernels in K1's,
-   K2's, K3's and the K6 forward's sources and K3's Hopper kernel
-   (registers, spills), which must show no spill;
+   K2's, K3's and the K6 forward's sources, K3's Hopper kernel and the
+   Hopper kernels of K7 and K8 (registers, spills), which must show no
+   spill (K7 and K8 also no ``C75xx`` wgmma serialisation line);
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -81,11 +82,14 @@ Phases (each one fails the run with a non-zero exit):
     fp32);
 16. K7, the fused LayerNorm -> MLP -> residual, at the SAM forward's rows
     (16384 x 768, hidden 3072, bf16) and DINOv2 ViT-B/14's (4 x 1370, with
-    layerscale), against its plain version; the library time is the
-    unfused PyTorch path (LayerNorm, two cuBLAS GEMMs, GELU, residual);
-17. K8, the s8 x s8 -> s32 matmul, at the five backbone contractions at
-    batch 4 (M = 16384 and the windowed layers' 19600 rows padded to
-    19712), exactly equal to its plain version; ``torch._int_mm`` as the
+    layerscale), against its plain version, its C entry asked which body
+    it takes (the Hopper body, TMA and wgmma, at both); the library time
+    is the unfused PyTorch path (LayerNorm, two cuBLAS GEMMs, GELU,
+    residual);
+17. K8 (TMA and wgmma, persistent), the s8 x s8 -> s32 matmul, at the
+    five backbone contractions at batch 4 (M = 16384 and the windowed
+    layers' 19600 rows padded to 19712), exactly equal to its plain
+    version; ``torch._int_mm`` as the
     library time, the times and bounds summed over an ``int8`` forward's
     60 launches, and the rate probes (K8 and ``torch._int_mm`` against
     the bf16 matmul at each shape, and the CLI guard's ratio);
@@ -160,6 +164,9 @@ NO_SPILL = ("window_attention_bwd", "global_attention_bwd_dq",
 # its kernels (with and without bias, *tiled_kernel*) must show no spill
 TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
                  "flash_attention", "flash_attention_fwd")
+# Sources with one Hopper kernel (*hopper_kernel*) that must show no spill
+# and no wgmma serialisation (ptxas's C75xx lines): K7 and K8
+HOPPER_SOURCES = ("fused_ln_mlp_residual", "int8_matmul")
 # The body each fused kernel's C entry takes at the extraction path's shapes
 BODIES = {"fused_window_attention": {"bfloat16": "hopper", "float32": "tiled"},
           "fused_global_attention": {"bfloat16": "hopper", "float32": "tiled"}}
@@ -1320,9 +1327,13 @@ def k7_phase(torch, peaks):
         def plain():
             return M.fused_ln_mlp_residual_plain(*args, eps=eps)
 
+        body = M.fused_ln_mlp_residual_route(*args)
+        if body != "hopper":
+            raise AssertionError(f"K7 at {shape}'s rows takes the {body} "
+                                 "body, not the Hopper one")
         out = kern()
         torch.cuda.synchronize()
-        tag = f"fused_ln_mlp_residual [{shape}, {b}x{s} rows]"
+        tag = f"fused_ln_mlp_residual [{shape}, {b}x{s} rows, {body}]"
         err = _check_outputs(torch, tag, [out], [plain()], ["out"],
                              RTOL["bfloat16"], K7_ATOL)
         p = [None if t is None else t.to(dt) for t in (ln_s, ln_b, b1, b2,
@@ -1343,6 +1354,7 @@ def k7_phase(torch, peaks):
             4.0 * b * s * c * hidden, peaks,
             library="unfused PyTorch bf16: LayerNorm, 2 cuBLAS GEMMs, "
                     "tanh GELU, residual")
+        rows[shape]["body"] = body
         del x, args, out
         torch.cuda.empty_cache()
     rec = dict(rows["sam"], name="fused_ln_mlp_residual")
@@ -1672,6 +1684,18 @@ def main() -> int:
             r["spill"] for r in hopper.values())):
         raise AssertionError(f"flash_attention: the Hopper kernels {hopper} "
                              "spill or are missing")
+    for src in HOPPER_SOURCES:
+        blog = build_logs[src]
+        hopper = {f: r for f, r in cuda_build.ptxas_functions(blog).items()
+                  if "hopper_kernel" in f}
+        serial = [ln.strip() for ln in blog.splitlines() if "C75" in ln]
+        log(f"ptxas {src} (Hopper): " + " | ".join(
+            f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
+            for f, r in hopper.items()) + f"; C75xx lines: {len(serial)}")
+        if blog and (len(hopper) != 1 or serial or any(
+                r["spill"] for r in hopper.values())):
+            raise AssertionError(f"{src}: the Hopper kernel {hopper} spills, "
+                                 f"is missing or is serialised: {serial}")
 
     records = kernel_phase(torch, A, peaks)
     state, parity_1024 = forward_phase(torch, A, vit, precision)

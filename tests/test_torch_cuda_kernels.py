@@ -1085,6 +1085,111 @@ def test_fused_mlp_kernel_matches_plain(gen, dtype, c, hidden, rows,
     assert torch.isfinite(got).all() and gap <= K7_ATOL[dtype], gap
 
 
+# K7's Hopper body (bf16, C 768, hidden 3072: SAM ViT-B/16 and DINOv2
+# ViT-B/14) at row counts around its 64-row tile and DINOv2's 4 x 1370
+# rows (86 tiles, the last ragged), held to chip_smoke.py's K7_ATOL (the
+# limit at the path's shapes: the more rows, the more double roundings
+# that may flip, 1.49e-2 measured at 16384 rows on the first version)
+K7_HOPPER_ATOL = 2.5e-2
+
+
+def _k7_inputs(gen, rows, c, hidden, with_ls, dtype=torch.bfloat16):
+    x = _rand(gen, rows, c, dtype=dtype)
+    ln_s = 1.0 + 0.1 * _rand(gen, c, dtype=torch.float32)
+    ln_b = 0.1 * _rand(gen, c, dtype=torch.float32)
+    w1 = _rand(gen, hidden, c, dtype=dtype, scale=c ** -0.5).t()
+    b1 = 0.02 * _rand(gen, hidden, dtype=torch.float32)
+    w2 = _rand(gen, c, hidden, dtype=dtype, scale=hidden ** -0.5).t()
+    b2 = 0.02 * _rand(gen, c, dtype=torch.float32)
+    ls = 0.1 + 0.02 * _rand(gen, c, dtype=torch.float32) if with_ls else None
+    return x, ln_s, ln_b, w1, b1, w2, b2, ls
+
+
+@pytest.mark.parametrize("rows", [1, 63, 65, 100, 5480])
+@pytest.mark.parametrize("with_ls", [False, True])
+def test_fused_mlp_hopper_matches_plain(gen, rows, with_ls):
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    args = _k7_inputs(gen, rows, 768, 3072, with_ls)
+    assert M.fused_ln_mlp_residual_route(*args) == "hopper"
+    A.reset_launch_counts()
+    got = M.fused_ln_mlp_residual(*args).float()
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_ln_mlp_residual"] == 1
+    want = M.fused_ln_mlp_residual_plain(*args).float()
+    gap = ((got - want).abs() - RTOL[torch.bfloat16] * want.abs()).max()
+    print(f"K7 hopper rows={rows} ls={with_ls}: gap {gap.item():.3e}")
+    assert torch.isfinite(got).all() and gap.item() <= K7_HOPPER_ATOL, gap
+
+
+@pytest.mark.parametrize("c,hidden,dtype,route", [
+    (768, 3040, torch.bfloat16, "loops"), (384, 1536, torch.bfloat16, "loops"),
+    (768, 3072, torch.float32, "loops"), (768, 3072, torch.bfloat16, "hopper")])
+def test_fused_mlp_route(gen, c, hidden, dtype, route):
+    """The Hopper body takes bf16 at C 768 with a hidden width that is a
+    multiple of its 128-unit chunk; a bf16 width of 32-unit chunks, another
+    C or fp32 keeps the loops, which still match the plain version."""
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    args = _k7_inputs(gen, 70, c, hidden, False, dtype)
+    assert M.fused_ln_mlp_residual_route(*args) == route
+    got = M.fused_ln_mlp_residual(*args).float()
+    want = M.fused_ln_mlp_residual_plain(*args).float()
+    gap = ((got - want).abs() - RTOL[dtype] * want.abs()).max().item()
+    assert torch.isfinite(got).all() and gap <= K7_ATOL[dtype], gap
+
+
+def test_k7_k8_hopper_bodies_build_without_spill(gen, tmp_path, monkeypatch):
+    """K7's Hopper kernel and K8's fit their registers: ptxas reports no
+    spill bytes and no wgmma serialisation (C75xx) for them."""
+    from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
+
+    monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
+    logs = cb.build_all(("fused_ln_mlp_residual", "int8_matmul"))
+    for name, key in (("fused_ln_mlp_residual", "hopper_kernel"),
+                      ("int8_matmul", "hopper_kernel")):
+        funcs = {f: r for f, r in cb.ptxas_functions(logs[name]).items()
+                 if key in f}
+        print(name, funcs)
+        assert len(funcs) == 1 and all(r["spill"] == 0
+                                       for r in funcs.values()), logs[name]
+        assert "C75" not in logs[name], logs[name]
+
+
+# K8 at the backbone's five contractions (K, N) under `int8`
+K8_SHAPES = {"q": (768, 768), "kv": (768, 1536), "proj": (768, 768),
+             "lin1": (768, 3072), "lin2": (3072, 768)}
+
+
+@pytest.mark.parametrize("label", sorted(K8_SHAPES))
+@pytest.mark.parametrize("m", [128, 384, 19712])
+def test_int8_matmul_backbone_shapes_are_exact(gen, m, label):
+    from vit_deep_radiomics_tpu_torch.ops import quant as Q
+
+    k, n = K8_SHAPES[label]
+    x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    got = Q.int8_matmul_nk(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, Q.int8_matmul_plain(x, w.t().contiguous()))
+
+
+def test_int8_matmul_ragged_tile_queue_is_exact(gen):
+    """133 row blocks x 3 column tiles: 399 tiles, which the 132 persistent
+    blocks of an H100 SXM share unevenly (3 or 4 each)."""
+    from vit_deep_radiomics_tpu_torch.ops import quant as Q
+
+    x = torch.randint(-127, 128, (133 * 128, 256), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (384, 256), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    got = Q.int8_matmul_nk(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, Q.int8_matmul_plain(x, w.t().contiguous()))
+
+
 @pytest.mark.parametrize("m,k,n", [(256, 384, 256), (384, 768, 1536),
                                    (128, 3072, 768)])
 def test_int8_matmul_kernel_is_exact(gen, m, k, n):

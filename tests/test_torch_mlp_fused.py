@@ -66,6 +66,34 @@ def test_plain_matches_jax(rng, dtype, with_ls):
         assert gap.max() <= 0.0, gap.max()
 
 
+@pytest.mark.parametrize("with_ls", [False, True])
+def test_plain_matches_jax_at_the_path_width(rng, with_ls):
+    """bf16 at the Hopper body's width (C 768, hidden 3072: SAM ViT-B/16,
+    DINOv2 ViT-B/14), 70 rows: one bf16 step plus 1e-2, the card tests'
+    bf16 K7 limit. At this width a flip of the rounded branch output moves
+    the rounded residual sum by a further step of |x + o| (up to 5 here):
+    measured at most 7.6e-3 beyond one step over three seeds, with fewer
+    than 0.1% of the elements past one step."""
+    x, *rest = _inputs(rng, 70, 768, 3072, with_ls)
+    want = jax_fused(jnp.asarray(x).astype(jnp.bfloat16),
+                     *(None if a is None else jnp.asarray(a) for a in rest),
+                     eps=1e-6, chunk=512)
+    got = M.fused_ln_mlp_residual(
+        torch.from_numpy(x).bfloat16(),
+        *(None if a is None else torch.from_numpy(a) for a in rest),
+        eps=1e-6)
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    gap = np.abs(got - want) - 2.0 ** -7 * np.abs(want)
+    assert gap.max() <= 1e-2, gap.max()
+
+
+def test_route_is_plain_on_cpu(rng):
+    t = [None if a is None else torch.from_numpy(a)
+         for a in _inputs(rng, 8, 64, 256, True)]
+    assert M.fused_ln_mlp_residual_route(*t) == "plain"
+    assert M.fused_ln_mlp_residual_route(t[0].bfloat16(), *t[1:]) == "plain"
+
+
 def test_leading_shape_and_cpu_launch_count(rng):
     x, *rest = _inputs(rng, 30, 64, 256, True)
     t = [None if a is None else torch.from_numpy(a) for a in rest]
@@ -104,6 +132,31 @@ def test_unbuilt_width_refused_before_launch():
         M.fused_ln_mlp_residual(meta(4, 96).bfloat16(), meta(96), meta(96),
                                 meta(96, 384), meta(384), meta(384, 96),
                                 meta(96))
+    assert A.LAUNCHES["fused_ln_mlp_residual"] == 0
+
+
+@pytest.mark.parametrize("c,hidden,dtype,err", [
+    (96, 384, torch.bfloat16, "width 96"),
+    (768, 3050, torch.bfloat16, "hidden width 3050"),
+    (768, 3080, torch.float32, "hidden width 3080"),
+    (768, 3072, torch.float16, "float32 or bfloat16")])
+@pytest.mark.parametrize("entry", ["route", "kernel"])
+def test_refused_before_launch(c, hidden, dtype, err, entry):
+    """What neither body takes is refused by the route and by the wrapper
+    before any build or launch: a width without a build, a hidden width
+    that is not a multiple of the loops' chunk (32 in bf16, 16 in fp32; the
+    Hopper body's 128 is the route's to decide) or another dtype (meta
+    tensors stand in for CUDA ones)."""
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(*shape, device="meta", dtype=dt)
+
+    args = (meta(4, c, dt=dtype), meta(c), meta(c), meta(c, hidden),
+            meta(hidden), meta(hidden, c), meta(c))
+    fn = M.fused_ln_mlp_residual_route if entry == "route" \
+        else M.fused_ln_mlp_residual
+    A.reset_launch_counts()
+    with pytest.raises((ValueError, TypeError), match=err):
+        fn(*args)
     assert A.LAUNCHES["fused_ln_mlp_residual"] == 0
 
 

@@ -99,6 +99,19 @@ def test_kernel_wrapper_refuses_before_launch():
     assert A.LAUNCHES["int8_matmul"] == 0
 
 
+@pytest.mark.parametrize("m,k,n", [(19600, 768, 768), (16384, 768, 1000),
+                                   (16384, 700, 3072), (0, 768, 768)])
+def test_kernel_wrapper_refuses_untiled_shapes_before_launch(m, k, n):
+    """K8's one body takes every M, N and K that are positive multiples of
+    128; the (N, K) wrapper refuses any other before a launch (the
+    windowed layers' 19600 rows are padded to 19712 by its caller)."""
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match="128-multiple"):
+        Q.int8_matmul_nk(torch.empty(m, k, device="meta", dtype=torch.int8),
+                         torch.empty(n, k, device="meta", dtype=torch.int8))
+    assert A.LAUNCHES["int8_matmul"] == 0
+
+
 class TestGuard:
     """warn_if_int8_emulated, JAX tests/test_quant.py:298-333."""
 

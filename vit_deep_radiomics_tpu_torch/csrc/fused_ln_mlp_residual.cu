@@ -16,27 +16,45 @@
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at SAM
 // ViT-B/16's rows at batch 4 (16384 x 768, hidden 3072) it does 154.6
 // GFLOP (0.156 ms at the bf16 peak) against 59 MB of compulsory traffic
-// (x in, out, both weights once: 0.018 ms): operations bound it.
+// (x in, out, both weights once: 0.018 ms): operations bound it. But the
+// (rows x 768) fp32 accumulator of the second product is the design
+// constraint: 64 rows of it fill 192 registers a thread of two warpgroups,
+// so a block holds 64 rows and streams both whole weights (9.4 MB) from L2
+// for every 64 rows, and shared memory (the 96 KB y tile beside the ring)
+// caps the weight bytes in flight: the stream's latency holds the body.
 //
-// What the design does about it: the (rows, H) hidden activation never
-// leaves the chip. A block takes 32 rows, normalises them once into shared
-// memory, then walks the hidden dimension in chunks of 32: the chunk's w1
-// rows and w2 columns are staged in shared memory, h = y . w1 runs on the
-// tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate; one 16 x 8
-// tile per warp), the GELU'd chunk goes back to shared memory in bf16, and
-// o += g . w2 accumulates in registers. The (32 x C) fp32 output
-// accumulator is split over the 8 warps by output column (C / 8 columns
-// each: 96 registers a thread at C = 768), the design constraint of the
-// kernel. The staged tiles take 163 KB at C = 768, above 48 KB, so the
-// block opts in and that call's error is returned. fp32 inputs (the JAX
-// tests' type; not on the card's main path) run the same schedule on the
-// CUDA cores with 16-row blocks and 16-wide chunks. First version: the
-// weight chunks load synchronously and every block re-reads all of w1 and
-// w2 from L2; a load pipeline comes later.
+// What the Hopper body does about it (bf16, C = 768, H a multiple of 128:
+// SAM ViT-B/16 and DINOv2 ViT-B/14; vdr_fused_ln_mlp_residual_route says
+// "hopper"):
+//  * persistent blocks of two warpgroups (256 threads: 255 registers a
+//    thread, where a third, producer warpgroup would hold every thread to
+//    168), one 64-row tile at a time;
+//  * the tile's rows are normalised once (fp32 statistics) into a bf16,
+//    128-byte-swizzled, K-major y tile (96 KB), the A operand of the first
+//    product, fenced for the async proxy;
+//  * the hidden dimension is walked in chunks of kChunkH (128). Warpgroup
+//    w computes hidden units 64 w .. 64 w + 63 of the chunk (wgmma
+//    m64n64k16 over the 768 columns of y), adds b1, applies JAX's tanh
+//    GELU in registers (tanhf, as the loops and the plain version) and
+//    writes its half of the chunk's g tile (bf16,
+//    swizzled; two buffers), then both pass a named barrier; for the
+//    second product warpgroup w owns output columns 384 w .. 384 w + 383
+//    (three m64n128k16 a k step into 192 fp32 accumulators) over the whole
+//    g chunk;
+//  * the weights come by TMA, in the order each warpgroup uses them, into
+//    a ring of kStagesH 16 KB slots per warpgroup on mbarriers (no weight
+//    byte is read by both warpgroups). Thread 0 of each warpgroup is its
+//    producer: it refills a slot once the warpgroup's wgmma on it is done,
+//    and the stream runs on into the next tile's weights;
+//  * the epilogue (+ b2, round, x ls, + x re-read) writes the bf16 tile
+//    over the now dead y tile and stores it by TMA; rows past `rows` are
+//    normalised as zeros and clipped by the store.
+// fp32 inputs (the JAX tests' type; not on the card's main path) and bf16
+// at C 384 or 1024 keep the first version's loops below: 32-row (bf16,
+// mma.sync) or 16-row (fp32, CUDA cores) blocks that stage the weight
+// chunks synchronously and re-read all of w1 and w2 from L2 per block.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -352,6 +370,306 @@ __global__ void __launch_bounds__(kThreads) mlp_f32_kernel(MlpParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at C = 768: the Hopper body (TMA + wgmma)
+// ---------------------------------------------------------------------------
+
+using namespace vdr::sm90;
+
+constexpr int kHC = 768;          // the width the Hopper body takes
+constexpr int kRowsH = 64;        // rows a tile (one wgmma M)
+constexpr int kChunkH = 128;      // hidden units a chunk
+constexpr int kStagesH = 3;       // ring slots a warpgroup
+constexpr int kThreadsH = 256;    // two warpgroups
+constexpr int kHalf = kChunkH / 2;              // a warpgroup's hidden units
+constexpr int kKbSlot = 128 / kHalf;            // y column blocks a w1 slot
+constexpr int kW1Slots = kHC / 64 / kKbSlot;    // w1 slots a chunk
+constexpr int kW2Slots = 3 * (kChunkH / 64);    // w2 slots a chunk
+constexpr int kSlotsChunk = kW1Slots + kW2Slots;
+constexpr int kSlot = 16384;                    // bytes a slot
+constexpr int kBox = 64 * 128;                  // a 64-row, 128-byte box
+constexpr int kYBytes = kRowsH * kHC * 2;       // the y (and out) tile
+constexpr int kGBytes = kRowsH * kChunkH * 2;   // one g buffer
+constexpr size_t kSmemH =
+    1024 + kYBytes + 2 * kGBytes + (size_t)2 * kStagesH * kSlot;
+constexpr int kErrTensorMap = -2;   // cuTensorMapEncodeTiled failed
+static_assert(kSmemH <= 227 * 1024, "K7's tiles exceed 227 KB");
+
+// bf16 byte offset of element (r, col) in a row-major tile of 64-column
+// boxes with the 128-byte swizzle (64 rows x 128 bytes a box)
+__device__ __forceinline__ int swz(int r, int col) {
+  return (col / 64) * kBox + r * 128 +
+         ((((col % 64) / 8) ^ (r & 7)) << 4) + (col % 8) * 2;
+}
+
+// LayerNorm of the tile's 64 rows (fp32 statistics, as layer_norm_rows)
+// into the swizzled y tile; 8 rows a warp, 8 columns a lane at a time.
+__device__ void layer_norm_tile(const MlpParams& p, int row0,
+                                unsigned char* y) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+  for (int r = warp; r < kRowsH; r += kThreadsH / 32) {
+    const int row = row0 + r;
+    uint4 v8[kHC / 256];
+    if (row >= p.rows) {
+#pragma unroll
+      for (int k = 0; k < kHC / 256; ++k)
+        *reinterpret_cast<uint4*>(y + swz(r, 8 * (lane + 32 * k))) =
+            make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    float v[kHC / 32];
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kHC / 256; ++k) {
+      v8[k] = *reinterpret_cast<const uint4*>(x + (size_t)row * kHC +
+                                              8 * (lane + 32 * k));
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v8[k]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[8 * k + 2 * e] = __low2float(h2[e]);
+        v[8 * k + 2 * e + 1] = __high2float(h2[e]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kHC / 32; ++i) sum += v[i];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum / kHC;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < kHC / 32; ++i) {
+      const float d = v[i] - mean;
+      sq += d * d;
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float inv = 1.f / sqrtf(sq / kHC + p.eps);
+#pragma unroll
+    for (int k = 0; k < kHC / 256; ++k) {
+      const int c0 = 8 * (lane + 32 * k);
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 2 * e;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(
+            (v[8 * k + 2 * e] - mean) * inv * p.ln_scale[c] + p.ln_bias[c],
+            (v[8 * k + 2 * e + 1] - mean) * inv * p.ln_scale[c + 1] +
+                p.ln_bias[c + 1]);
+        w[e] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(y + swz(r, c0)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsH, 1)
+    mlp_hopper_kernel(const __grid_constant__ CUtensorMap tw1,
+                      const __grid_constant__ CUtensorMap tw2,
+                      const __grid_constant__ CUtensorMap tout,
+                      const MlpParams p) {
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  __shared__ __align__(8) uint64_t full[2][kStagesH], empty[2][kStagesH];
+  unsigned char* base = smem_h + ((1024 - (smem_u32(smem_h) & 1023)) & 1023);
+  unsigned char* y = base;                   // 12 boxes: C columns 64 kb..
+  unsigned char* gs = base + kYBytes;        // two g buffers
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const uint32_t y_addr = smem_u32(y);
+  const uint32_t ring =
+      smem_u32(gs + 2 * kGBytes) + wg * kStagesH * kSlot;
+
+  // block b takes tiles b, b + gridDim.x, ..
+  const int n_tiles = (p.rows + kRowsH - 1) / kRowsH;
+  const int n_chunks = p.H / kChunkH;
+  const int my_tiles = blockIdx.x < n_tiles
+                           ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1
+                           : 0;
+  const int total = my_tiles * n_chunks * kSlotsChunk;  // slots a warpgroup
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w)
+      for (int i = 0; i < kStagesH; ++i) {
+        mbar_init(&full[w][i], 1);
+        mbar_init(&empty[w][i], 4);   // one arrival a warp
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // slot n of this warpgroup's stream (the same for every tile): per chunk
+  // kW1Slots slots of w1 (kKbSlot boxes of 64 columns x kHalf hidden
+  // rows), then kW2Slots of w2 (64 hidden columns x 128 output rows, two
+  // boxes of 64 rows).
+  auto load = [&](int n) {
+    if (n >= total) return;
+    const int st = n % kStagesH, k = n % kSlotsChunk;
+    const int h0 = (n / kSlotsChunk % n_chunks) * kChunkH;
+    const uint32_t dst = ring + st * kSlot;
+    uint64_t* bar = &full[wg][st];
+    mbar_expect_tx(bar, kSlot);
+    if (k < kW1Slots) {
+      for (int b = 0; b < kKbSlot; ++b)
+        tma_load_2d(dst + b * kHalf * 128, &tw1, bar, (k * kKbSlot + b) * 64,
+                    h0 + wg * kHalf);
+    } else {
+      const int q = k - kW1Slots;
+      for (int b = 0; b < 2; ++b)
+        tma_load_2d(dst + b * kBox, &tw2, bar, h0 + (q / 3) * 64,
+                    wg * (kHC / 2) + (q % 3) * 128 + 64 * b);
+    }
+  };
+  if (t == 0)
+    for (int n = 0; n < kStagesH; ++n) load(n);
+
+  // one wgmma group a slot: `it` slots issued, `rel` handed back; once all
+  // but the newest `keep` groups are done their slots are refilled
+  int it = 0, rel = 0;
+  auto release = [&](int keep) {
+    for (; rel < it - keep; ++rel) {
+      __syncwarp();
+      if (t % 32 == 0) mbar_arrive(&empty[wg][rel % kStagesH]);
+      if (t == 0) {
+        mbar_wait(&empty[wg][rel % kStagesH], (rel / kStagesH) & 1);
+        load(rel + kStagesH);
+      }
+    }
+  };
+  auto slot_ready = [&]() {
+    const int st = it % kStagesH;
+    mbar_wait(&full[wg][st], (it / kStagesH) & 1);
+    return ring + st * kSlot;
+  };
+
+  const int warp = t / 32, lane = t % 32, g = lane / 4, c = lane % 4;
+  const int r_lo = warp * 16 + g;            // and r_lo + 8
+  const uint64_t dy = desc_sw128(y_addr, 16, 1024);
+  float acc1[kHalf / 2];
+  float acc2[3][64];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * kRowsH;
+    // y is free once both warpgroups' stores of the last tile read it
+    if (t == 0) bulk_wait_read();
+    bar_sync(1, kThreadsH);
+    layer_norm_tile(p, row0, y);
+    fence_proxy_async();
+    bar_sync(1, kThreadsH);
+    for (int j = 0; j < n_chunks; ++j) {
+      // h = y . w1[hidden units h0 + kHalf wg ..]^T
+#pragma unroll
+      for (int s = 0; s < kW1Slots; ++s) {
+        const uint32_t slot = slot_ready();
+        wgmma_fence();
+#pragma unroll
+        for (int b = 0; b < kKbSlot; ++b) {
+          const uint64_t dw = desc_sw128(slot + b * kHalf * 128, 16, 1024);
+          const uint64_t da = dy + ((s * kKbSlot + b) * kBox >> 4);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<kHalf>::ss(acc1, da + 2 * kk, dw + 2 * kk,
+                             s + b + kk > 0);
+        }
+        wgmma_commit();
+        ++it;
+        wgmma_wait<1>();
+        release(1);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc1);
+      release(0);
+      // g = bf16(gelu(h + b1)) into this warpgroup's half of the chunk
+      unsigned char* gb = gs + (j & 1) * kGBytes;
+      const float* b1 = p.b1 + j * kChunkH + wg * kHalf;
+#pragma unroll
+      for (int i = 0; i < kHalf / 8; ++i) {
+        const int col = wg * kHalf + 8 * i + 2 * c;
+        const float bb0 = b1[8 * i + 2 * c], bb1 = b1[8 * i + 2 * c + 1];
+        *reinterpret_cast<__nv_bfloat162*>(gb + swz(r_lo, col)) =
+            __floats2bfloat162_rn(gelu_tanh(acc1[4 * i] + bb0),
+                                  gelu_tanh(acc1[4 * i + 1] + bb1));
+        *reinterpret_cast<__nv_bfloat162*>(gb + swz(r_lo + 8, col)) =
+            __floats2bfloat162_rn(gelu_tanh(acc1[4 * i + 2] + bb0),
+                                  gelu_tanh(acc1[4 * i + 3] + bb1));
+      }
+      fence_proxy_async();
+      bar_sync(1, kThreadsH);   // both halves of g are written
+      // out[:, 384 wg + 128 ob ..] += g[:, 64 hb ..] . w2[..]^T
+      const uint64_t dg = desc_sw128(smem_u32(gb), 16, 1024);
+#pragma unroll
+      for (int q = 0; q < kW2Slots; ++q) {
+        const int hb = q / 3, ob = q % 3;
+        const uint64_t dw = desc_sw128(slot_ready(), 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<128>::ss(acc2[ob], dg + (hb * kBox >> 4) + 2 * kk,
+                         dw + 2 * kk, j + hb + kk > 0);
+        wgmma_commit();
+        ++it;
+        wgmma_wait<1>();
+        release(1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc2[0]);
+    fence_regs(acc2[1]);
+    fence_regs(acc2[2]);
+    release(0);
+    // out = x + ls * (o + b2), over the dead y tile; this warpgroup's
+    // 384 columns are boxes 6 wg .. 6 wg + 5
+#pragma unroll
+    for (int ob = 0; ob < 3; ++ob)
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r_lo + 8 * half, row = row0 + r;
+          const int col = wg * (kHC / 2) + ob * 128 + 8 * i + 2 * c;
+          __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+          if (row < p.rows) {
+            v.x = finish<__nv_bfloat16>(p, row, col, acc2[ob][4 * i + 2 * half],
+                                        kHC);
+            v.y = finish<__nv_bfloat16>(p, row, col + 1,
+                                        acc2[ob][4 * i + 2 * half + 1], kHC);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(y + swz(r, col)) = v;
+        }
+    fence_proxy_async();
+    bar_sync(2 + wg, 128);
+    if (t == 0) {
+      for (int b = 0; b < 6; ++b)
+        tma_store_2d(&tout, y_addr + (6 * wg + b) * kBox,
+                     (6 * wg + b) * 64, row0);
+      bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait();
+}
+
+// The calls the Hopper body takes: bf16 at C 768, H a multiple of its chunk.
+bool hopper_takes(int C, int H, int dtype) {
+  return dtype == 1 && C == kHC && H > 0 && H % kChunkH == 0;
+}
+
+int launch_hopper(const MlpParams& p, cudaStream_t stream) {
+  CUtensorMap tw1, tw2, tout;
+  if (!tensor_map_2d_sw128(&tw1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.w1,
+                           kHC, p.H, 64, kHalf) ||
+      !tensor_map_2d_sw128(&tw2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.w2,
+                           p.H, kHC, 64, 64) ||
+      !tensor_map_2d_sw128(&tout, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.out,
+                           kHC, p.rows, 64, kRowsH))
+    return kErrTensorMap;
+  const cudaError_t err = cudaFuncSetAttribute(
+      mlp_hopper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemH);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (p.rows + kRowsH - 1) / kRowsH;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  mlp_hopper_kernel<<<grid, kThreadsH, kSmemH, stream>>>(tw1, tw2, tout, p);
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch(const MlpParams& p, int dtype, cudaStream_t stream) {
   if (dtype != 0) {
@@ -381,12 +699,21 @@ int launch(const MlpParams& p, int dtype, cudaStream_t stream) {
 extern "C" {
 
 const char* vdr_error_string(int err) {
+  if (err == kErrTensorMap) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns 0 on success, a cudaError_t after a failed launch, or -1 for a
-// width C without a build (384, 768 and 1024 are built). dtype: 0 = fp32,
-// 1 = bf16. H must be a multiple of 32 (bf16) or 16 (fp32).
+// The body a call with these arguments runs: 1 the Hopper body, 0 the
+// loops.
+int vdr_fused_ln_mlp_residual_route(int C, int H, int dtype) {
+  return hopper_takes(C, H, dtype) ? 1 : 0;
+}
+
+// Returns 0 on success, a cudaError_t after a failed launch, -1 for a
+// width C without a build (384, 768 and 1024 are built), or -2 when a TMA
+// descriptor cannot be made. dtype: 0 = fp32, 1 = bf16. H must be a
+// multiple of 32 (bf16) or 16 (fp32); bf16 at C 768 with H a multiple of
+// 128 takes the Hopper body, every other call the loops.
 int vdr_fused_ln_mlp_residual(const void* x, const float* ln_scale,
                               const float* ln_bias, const void* w1,
                               const float* b1, const void* w2,
@@ -396,6 +723,7 @@ int vdr_fused_ln_mlp_residual(const void* x, const float* ln_scale,
   const MlpParams p{x, ln_scale, ln_bias, w1, b1, w2, b2, ls, out, rows, H,
                     eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hopper_takes(C, H, dtype)) return launch_hopper(p, s);
   switch (C) {
     case 384: return launch<384>(p, dtype, s);
     case 768: return launch<768>(p, dtype, s);

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (K1, K2, K3, K4 and the K5 backward in bf16): shared-memory addresses, mbarriers,
-// named barriers, TMA tensor and bulk copies, wgmma descriptors and
-// instructions, and the runtime lookup of cuTensorMapEncodeTiled (no link
-// against libcuda) with the 64 x 64 tile maps it encodes.
+// (K1, K2, K3, K4, the K5 backward and K7 in bf16, K8 in int8): shared-memory
+// addresses, mbarriers, named barriers, TMA tensor and bulk copies, wgmma
+// descriptors and instructions (bf16 with fp32 accumulators, s8 with s32),
+// and the runtime lookup of cuTensorMapEncodeTiled (no link against
+// libcuda) with the tile maps it encodes.
 #pragma once
 
 #include <cuda.h>
@@ -105,6 +106,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #pragma unroll
@@ -125,6 +131,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_D8(d) VDR_F8(d, 0)
 #define VDR_D24(d) VDR_F8(d, 0), VDR_F8(d, 8), VDR_F8(d, 16)
 #define VDR_D32(d) VDR_F32(d, 0)
+#define VDR_D64(d) VDR_F32(d, 0), VDR_F32(d, 32)
 #define VDR_D52(d) VDR_F32(d, 0), VDR_F8(d, 32), VDR_F8(d, 40), VDR_F4(d, 48)
 #define VDR_D104(d) VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F8(d, 96)
 #define VDR_D128(d) VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F32(d, 96)
@@ -147,6 +154,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_R8 "{" VDR_R8_0 "}"
 #define VDR_R24 "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 "}"
 #define VDR_R32 "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 "}"
+#define VDR_R64                                                         \
+  "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4 \
+  ", " VDR_R8_5 ", " VDR_R8_6 ", " VDR_R8_7 "}"
 #define VDR_R52                                                         \
   "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4 \
   ", " VDR_R8_5 ", %48, %49, %50, %51}"
@@ -164,7 +174,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 // the kernels use (K2 and the K5 backward: 64; K3: 48 and 64 for its
 // scores, 64 for PV; K1: 64 for PV, 208 and 256 for its scores; K4: 64 and
 // 208 for its scores, 64 and 104 for dP's key chunks, 16 and 64 for phase
-// B's query chunks).
+// B's query chunks; K7: 64 for the first product's hidden columns, 128
+// for the second's output columns).
 // ss reads A and B from shared memory, both K-major; rs takes A from
 // registers, with B K-major (TransB 0: K, E) or MN-major (1: V). T0 .. T6
 // spell the numbers of the operands after D, %(N/2) .. %(N/2 + 6).
@@ -203,12 +214,44 @@ VDR_WGMMA(48, VDR_R24, VDR_D24, "%24", "%25", "%26", "%27", "%28", "%29",
           "%30")
 VDR_WGMMA(64, VDR_R32, VDR_D32, "%32", "%33", "%34", "%35", "%36", "%37",
           "%38")
+VDR_WGMMA(128, VDR_R64, VDR_D64, "%64", "%65", "%66", "%67", "%68", "%69",
+          "%70")
 VDR_WGMMA(104, VDR_R52, VDR_D52, "%52", "%53", "%54", "%55", "%56", "%57",
           "%58")
 VDR_WGMMA(208, VDR_R104, VDR_D104, "%104", "%105", "%106", "%107", "%108",
           "%109", "%110")
 VDR_WGMMA(256, VDR_R128, VDR_D128, "%128", "%129", "%130", "%131", "%132",
           "%133", "%134")
+
+// WgmmaS8<N>: D(64xN, s32) (+)= A(64x32) * B(32xN), s8 in (K8: N 128).
+// Both operands come from shared memory, K-major: integer wgmma takes no
+// transpose and no scale of A or B, only the accumulate predicate. T0 ..
+// T2 spell the numbers of the operands after D.
+#define VDR_I8(d, i)                                                      \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),             \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define VDR_I32(d, i) \
+  VDR_I8(d, i), VDR_I8(d, i + 8), VDR_I8(d, i + 16), VDR_I8(d, i + 24)
+#define VDR_DI64(d) VDR_I32(d, 0), VDR_I32(d, 32)
+
+template <int N>
+struct WgmmaS8;
+
+#define VDR_WGMMA_S8(N, R, D, T0, T1, T2)                                 \
+  template <>                                                             \
+  struct WgmmaS8<N> {                                                     \
+    static __device__ __forceinline__ void ss(int (&d)[N / 2],            \
+                                              uint64_t da, uint64_t db,   \
+                                              int accumulate) {           \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " T2 ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                 \
+                   "k32.s32.s8.s8 " R ", " T0 ", " T1 ", p;\n}\n"          \
+                   : D(d)                                                 \
+                   : "l"(da), "l"(db), "r"(accumulate));                  \
+    }                                                                     \
+  };
+
+VDR_WGMMA_S8(128, VDR_R64, VDR_DI64, "%64", "%65", "%66")
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -307,6 +350,35 @@ inline bool tensor_map_3d(CUtensorMap* map, const void* ptr, int width,
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 2-D map (width columns, rows) of a row-major tensor of `elem_bytes`-byte
+// elements (bf16, int8 or int32), boxes of box_cols x box_rows with the
+// 128-byte swizzle (box_cols * elem_bytes <= 128). Loads past the edges
+// read zeros; stores past them are clipped.
+inline bool tensor_map_2d_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                                int elem_bytes, const void* ptr, int width,
+                                int rows, int box_cols, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The SM count of the current device (persistent grids).
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 132;
+  return n;
 }
 
 // The same map with 64 x 64 boxes.

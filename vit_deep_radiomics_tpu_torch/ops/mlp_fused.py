@@ -17,7 +17,10 @@ transposed view of a torch ``Linear`` weight is what the kernel reads, so
 the model passes ``lin1.weight.t()`` at no cost. For a CPU tensor
 :func:`fused_ln_mlp_residual` runs :func:`fused_ln_mlp_residual_plain`; for
 a CUDA tensor it launches K7 (C in 384, 768, 1024; bf16, the path, or fp32)
-or raises.
+or raises. :func:`fused_ln_mlp_residual_route` says which body a call
+takes: bf16 at C 768 with a hidden width that is a multiple of 128 (SAM
+ViT-B/16, DINOv2 ViT-B/14) the Hopper body (TMA + wgmma), every other call
+the first version's loops.
 """
 
 from __future__ import annotations
@@ -29,13 +32,16 @@ import torch.nn.functional as F
 
 from ._kernels import _DTYPE_CODES, LAUNCHES, _load, _ptr, register_launches
 
-__all__ = ["fused_ln_mlp_residual", "fused_ln_mlp_residual_plain"]
+__all__ = ["fused_ln_mlp_residual", "fused_ln_mlp_residual_plain",
+           "fused_ln_mlp_residual_route"]
 
 register_launches("fused_ln_mlp_residual")
 
-# the widths K7 builds (template instances) and its hidden-chunk widths
+# the widths K7 builds (template instances) and the hidden-chunk widths of
+# its loops (the Hopper body takes bf16 at C 768 with hidden % 128 == 0)
 _WIDTHS = (384, 768, 1024)
 _CHUNK = {torch.bfloat16: 32, torch.float32: 16}
+_ROUTES = ("loops", "hopper")
 
 
 def fused_ln_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -68,6 +74,37 @@ def _check_shapes(x, ln_scale, ln_bias, w1, b1, w2, b2, layerscale):
     return c, hidden
 
 
+def _check_cuda(x, c, hidden):
+    """What K7 refuses before any launch: a dtype, a width or a hidden
+    width it has no body for."""
+    dt = x.dtype
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"K7 takes float32 or bfloat16, got {dt}")
+    if c not in _WIDTHS:
+        raise ValueError(f"no K7 build for width {c}; "
+                         f"csrc/fused_ln_mlp_residual.cu builds C="
+                         f"{'/'.join(map(str, _WIDTHS))} only")
+    if hidden % _CHUNK[dt]:
+        raise ValueError(f"K7 needs the hidden width {hidden} to be a "
+                         f"multiple of {_CHUNK[dt]} for {dt}")
+
+
+def fused_ln_mlp_residual_route(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                layerscale=None) -> str:
+    """Which body :func:`fused_ln_mlp_residual` runs for these operands:
+    ``"plain"`` on the CPU; on the card, as ``csrc/fused_ln_mlp_residual.cu``
+    chooses, ``"hopper"`` (bf16, C 768, hidden a multiple of 128) or
+    ``"loops"``. Raises for a call K7 refuses."""
+    c, hidden = _check_shapes(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                              layerscale)
+    if x.device.type == "cpu":
+        return "plain"
+    _check_cuda(x, c, hidden)
+    _, fn = _load("fused_ln_mlp_residual", [ctypes.c_int] * 3,
+                  entry="vdr_fused_ln_mlp_residual_route")
+    return _ROUTES[fn(c, hidden, _DTYPE_CODES[x.dtype])]
+
+
 def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
                           layerscale=None, *, eps: float = 1e-6):
     """``x + ls·(gelu_tanh(LN(x)·w1 + b1)·w2 + b2)`` over the last axis of
@@ -79,16 +116,8 @@ def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
     if x.device.type == "cpu":
         return fused_ln_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2,
                                            b2, layerscale, eps=eps)
+    _check_cuda(x, c, hidden)
     dt = x.dtype
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"K7 takes float32 or bfloat16, got {dt}")
-    if c not in _WIDTHS:
-        raise ValueError(f"no K7 build for width {c}; "
-                         f"csrc/fused_ln_mlp_residual.cu builds C="
-                         f"{'/'.join(map(str, _WIDTHS))} only")
-    if hidden % _CHUNK[dt]:
-        raise ValueError(f"K7 needs the hidden width {hidden} to be a "
-                         f"multiple of {_CHUNK[dt]} for {dt}")
     x2 = x.reshape(-1, c).contiguous()
     dev = x2.device
 

@@ -3,8 +3,9 @@
 (``csrc/window_attention_bwd.cu``),
 the K5 backward (``csrc/global_attention_bwd_dkv.cu``,
 ``csrc/global_attention_bwd_dq.cu``), the K6 forward
-(``csrc/flash_attention_fwd.cu``) and the K6 backward
-(``csrc/flash_attention_bwd_dkv.cu``, ``csrc/flash_attention_bwd_dq.cu``) on
+(``csrc/flash_attention_fwd.cu``), the K6 backward
+(``csrc/flash_attention_bwd_dkv.cu``, ``csrc/flash_attention_bwd_dq.cu``),
+K7 (``csrc/fused_ln_mlp_residual.cu``) and K8 (``csrc/int8_matmul.cu``) on
 the GPU.
 
 Two measurements that ``chip_smoke.py`` does not make::
@@ -21,11 +22,14 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3f32
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k7
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k8
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity-forward PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-768 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
@@ -45,7 +49,10 @@ visited, K1's ragged fourth row block of a window not launched, the bias
 step removed;
 for all the softmax (K5 and K6: the exp2/dS step) or the products
 removed, and for K5, K6 and the fp32 forward the score (and dP)
-products removed: timing ablations whose output is wrong by design),
+products removed; K7's Hopper body: two ring slots a warpgroup, the
+hardware tanh in the GELU, the GELU or either product removed; K8: the
+ring depth: timing ablations
+whose output is wrong by design where a step is removed),
 calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
 Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
 shape, 4 x 1536 with 1370 valid; K3 bf16: SAM @768's q (4, 12, 2304, 64)
@@ -57,8 +64,10 @@ q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16; K6: the
 1536, 64) with 1370 valid keys); K1 fp32: q (100, 196, 768), Kh = Kw =
 14; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
 K3 fp32: SAM @768's q (4, 12, 2304, 64), k/v 3072 rows, Kh 48, Kw 64,
-``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys), and
-prints its gap to the
+``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys; K7:
+SAM's 16384 rows and DINOv2's 4 x 1370 with a layerscale, C 768, hidden
+3072, bf16; K8: an `int8` forward's ten shapes, with the sum over its 60
+launches), and prints its gap to the
 plain version and its time (K1/K2 and the fp32 forward beside SDPA's, K4
 and K5 beside the bf16 tensor-core peak, K6 beside the fp32 CUDA cores'
 peak).
@@ -79,7 +88,11 @@ device ms (``utils/profiling.py``), then K2 and K3
 in fp32 at their path shapes and at DINOv2's kv_len shape, and
 ``chip_smoke.py``'s kernel phases 3 and 15; with ``--path fast-768`` the
 `fast` SAM @768 forward at B=4 (host and device ms, ``utils/profiling.py``)
-and a one-patient @768 extraction as ``chip_smoke.py``'s phase 18 runs it.
+and a one-patient @768 extraction as ``chip_smoke.py``'s phase 18 runs it;
+with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
+SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
+a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
+and 17 (K7 and K8).
 Nothing is built or run at import.
 """
 
@@ -106,7 +119,9 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k5dkv": "global_attention_bwd_dkv.cu",
            "k5dq": "global_attention_bwd_dq.cu",
            "k2f32": "fused_global_attention.cu",
-           "k3f32": "flash_attention.cu"}
+           "k3f32": "flash_attention.cu",
+           "k7": "fused_ln_mlp_residual.cu",
+           "k8": "int8_matmul.cu"}
 # headers a variant of the kernel may change (copied beside its source)
 HEADERS = {"k1f32": ("f32_tiled_forward.cuh",),
            "k2f32": ("f32_tiled_forward.cuh",),
@@ -130,9 +145,38 @@ _F32_TILED = {
     "no_scores": ({}, ("chain<0, D>(s, qs, st);",)),
     "no_products": ({}, ("accumulate<kCols>(acc, pt, st + kCols * LD);",)),
 }
+# K7's four GELU calls (the elements of a thread's two rows and columns)
+_K7_G = (("", 0), (" + 1", 1), (" + 2", 0), (" + 3", 1))
 # kernel: {name: (substitutions of `constexpr` values, calls removed, or
 # (text, replacement) pairs)}
 VARIANTS = {
+    # K7's Hopper body (bf16, C 768): two ring slots a warpgroup, the
+    # hardware tanh (tanh.approx.f32) in the GELU, the GELU or either
+    # product removed
+    "k7": {
+        "as_built": ({}, ()),
+        "stages_2": ({"kStagesH": 2}, ()),
+        "gelu_approx": ({}, ((
+            "return x * (0.5f * (1.f + tanhf(inner)));",
+            "float t;\n  asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(t) : "
+            "\"f\"(inner));\n  return x * (0.5f * (1.f + t));"),)),
+        "no_gelu": ({}, tuple(
+            (f"gelu_tanh(acc1[4 * i{e}] + bb{e2})",
+             f"(acc1[4 * i{e}] + bb{e2})") for e, e2 in _K7_G)),
+        "no_first_product": ({}, (
+            "Wgmma<kHalf>::ss(acc1, da + 2 * kk, dw + 2 * kk,\n"
+            "                             s + b + kk > 0);",)),
+        "no_second_product": ({}, (
+            "Wgmma<128>::ss(acc2[ob], dg + (hb * kBox >> 4) + 2 * kk,\n"
+            "                         dw + 2 * kk, j + hb + kk > 0);",)),
+    },
+    # K8: the ring depth
+    "k8": {
+        "as_built": ({}, ()),
+        "stages_2": ({"kStages": 2}, ()),
+        "stages_3": ({"kStages": 3}, ()),
+        "stages_4": ({"kStages": 4}, ()),
+    },
     "k1": {
         "as_built": ({}, ()),
         "buffers_1": ({"kBuffers": 1}, ()),
@@ -316,6 +360,11 @@ CALLS = {
               ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), None),
     "k3f32": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
               ((4, 2304, 48, 64, None), (4, 1536, 0, 0, 1370)), None),
+    # K7 (rows, with a layerscale): SAM's 4 x 4096 rows, DINOv2's 4 x 1370
+    "k7": ([_P] * 9 + [_I] * 3 + [_F, _I, _P],
+           ((16384, False), (5480, True)), None),
+    # K8 (M, K, N): an `int8` forward's ten shapes (chip_smoke.py phase 17)
+    "k8": ([_P] * 3 + [_I] * 3 + [_P], None, None),
 }
 
 
@@ -763,6 +812,138 @@ def _forward_variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def _k7_variants(kernel: str, out_dir: Path) -> None:
+    """K7's variants (bf16, C 768, hidden 3072, the weights in the torch
+    Linear layout) at SAM's and DINOv2's rows: gap to the plain version
+    beyond one bf16 step, ms beside the unfused PyTorch path's, and the
+    share of the bf16 tensor-core peak (989 TFLOP/s, H100 SXM). First the
+    time of the wrapper's two weight casts under `fast` (the model's fp32
+    Linear weights to bf16), one call's and a SAM ViT-B forward's 12."""
+    import torch
+    import torch.nn.functional as F
+
+    from ..ops import mlp_fused as M
+
+    fns = _build(kernel, out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c, hidden, dt, eps = 768, 3072, torch.bfloat16, 1e-6
+
+    def rand(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * s).to(dtype)
+
+    def ptr(t):
+        return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+    w1 = rand(hidden, c, s=c ** -0.5, dtype=dt)
+    w2 = rand(c, hidden, s=hidden ** -0.5, dtype=dt)
+    b1, b2 = rand(hidden, s=0.02), rand(c, s=0.02)
+    ln_s, ln_b = 1.0 + rand(c, s=0.1), rand(c, s=0.1)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    # as models/vit.py passes them (first.weight.t(), second.weight.t())
+    # and ops/mlp_fused.py casts them
+    w1_arg, w2_arg = w1.float().t(), w2.float().t()
+    casts = _ms(torch, lambda: (w1_arg.t().to(dt).contiguous(),
+                                w2_arg.t().to(dt).contiguous()), 20)
+    print(f"{kernel} weight casts fp32 -> bf16 (w1 and w2): ms {casts:.4f} "
+          f"a call, {12 * casts:.4f} over a forward's 12 calls")
+    del w1_arg, w2_arg
+    for rows, with_ls in CALLS[kernel][1]:
+        x = rand(rows, c, dtype=dt)
+        ls = 0.1 + rand(c, s=0.02, dtype=dt) if with_ls else None
+        ref = M.fused_ln_mlp_residual_plain(x, ln_s, ln_b, w1.t(), b1,
+                                            w2.t(), b2, ls, eps=eps).float()
+        flops = 4.0 * rows * c * hidden
+        print(f"{kernel} rows {rows} x {c}, hidden {hidden}, layerscale "
+              f"{with_ls}:")
+        for name, fn in fns.items():
+            out = torch.empty_like(x)
+            args = (*map(ptr, (x, ln_s, ln_b, w1, b1, w2, b2, ls, out)),
+                    rows, c, hidden, eps, 1, stream)
+
+            def run(fn=fn, args=args):
+                rc = fn(*args)
+                if rc:
+                    raise RuntimeError(f"variant launch failed: {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            gap = ((out.float() - ref).abs() - 2 ** -7 * ref.abs()).max()
+            ms = _ms(torch, run, 10)
+            print(f"  {name}: gap {gap.item():.3e} ms {ms:.4f} "
+                  f"({flops / (ms * 1e-3) / 989e12:.1%} of 989 TFLOP/s)")
+        p = [t.to(dt) for t in (ln_s, ln_b, b1, b2)]
+
+        def unfused():
+            y = F.layer_norm(x, (c,), p[0], p[1], eps)
+            o = F.linear(F.gelu(F.linear(y, w1, p[2]), approximate="tanh"),
+                         w2, p[3])
+            return x + (o * ls if with_ls else o)
+
+        print(f"  unfused PyTorch bf16: ms {_ms(torch, unfused, 10):.4f}")
+        del x, ref
+        torch.cuda.empty_cache()
+
+
+# K8's shapes: an `int8` forward's five contractions (K, N) at the global
+# layers' M 16384 (4 blocks) and the windowed layers' 19712 (8 blocks)
+_K8_FORWARD = {16384: 4, 19712: 8}
+_K8_KN = {"q": (768, 768), "kv": (768, 1536), "proj": (768, 768),
+          "lin1": (768, 3072), "lin2": (3072, 768)}
+
+
+def _k8_variants(kernel: str, out_dir: Path) -> None:
+    """K8's variants at an `int8` forward's ten shapes: exact or not
+    (``torch.equal`` against the plain version), ms per shape, and the
+    sum over the forward's 60 launches beside ``torch._int_mm``'s and the
+    bound's (bytes or int8 operations, H100 SXM: 3.35 TB/s, 1979 TOP/s)."""
+    import torch
+
+    from ..ops import quant as Q
+
+    fns = _build(kernel, out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    sums = dict.fromkeys([*fns, "int_mm", "bound"], 0.0)
+    for m, blocks in _K8_FORWARD.items():
+        for label, (k, n) in _K8_KN.items():
+            x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            w_kn = w.t().contiguous()
+            ref = Q.int8_matmul_plain(x, w_kn)
+            bound = max((m * k + n * k + 4 * m * n) / 3.35e12,
+                        2.0 * m * k * n / 1979e12) * 1e3
+            cells = []
+            for name, fn in fns.items():
+                out = torch.empty(m, n, dtype=torch.int32, device="cuda")
+                args = (ctypes.c_void_p(x.data_ptr()),
+                        ctypes.c_void_p(w.data_ptr()),
+                        ctypes.c_void_p(out.data_ptr()), m, n, k, stream)
+
+                def run(fn=fn, args=args):
+                    rc = fn(*args)
+                    if rc:
+                        raise RuntimeError(f"variant launch failed: {rc}")
+
+                run()
+                torch.cuda.synchronize()
+                ms = _ms(torch, run, 20)
+                sums[name] += blocks * ms
+                cells.append(f"{name} {ms:.4f}"
+                             + ("" if torch.equal(out, ref) else " WRONG"))
+            lib = _ms(torch, lambda: torch._int_mm(x, w_kn), 20)
+            sums["int_mm"] += blocks * lib
+            sums["bound"] += blocks * bound
+            print(f"{kernel} M={m} {label} {k}x{n}: " + "; ".join(cells)
+                  + f"; _int_mm {lib:.4f}; bound {bound:.4f}")
+            del x, w, w_kn, ref
+        torch.cuda.empty_cache()
+    print(f"{kernel} over an int8 forward's 60 launches, ms: " + "; ".join(
+        f"{name} {ms:.4f}" for name, ms in sums.items()))
+
+
 _PAIR_CHILD = r'''
 import sys, time
 sys.path.insert(0, ".")
@@ -964,9 +1145,87 @@ print(f"extraction fast @768: 1 patient x (CT, PET), {n} images in "
       f"{dt * 1e3:.1f} ms = {n / dt:.2f} img/s")
 '''
 
+# The frozen-backbone paths of K7 and K8: `fast`, `int8` and `fast` with
+# VDR_FUSED_MLP=1 SAM ViT-B/16 @1024 forwards at B=4 (host ms, mean of 5
+# after two warm-ups; device ms from utils/profiling.py), a one-patient
+# extraction of each as chip_smoke.py's phase 18 runs it, then
+# chip_smoke.py's kernel phases 16 (K7) and 17 (K8)
+_PAIR_FROZEN_CHILD = r'''
+import os, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.core import precision
+from vit_deep_radiomics_tpu_torch.data import synthetic as syn
+from vit_deep_radiomics_tpu_torch.engine import extract as tex
+from vit_deep_radiomics_tpu_torch.models import vit
+from vit_deep_radiomics_tpu_torch.utils import cuda_build, profiling
+cuda_build.build_all(("fused_window_attention", "fused_global_attention",
+                      "fused_ln_mlp_residual", "int8_matmul"))
+paths = {"fast": ("fast", {}), "int8": ("int8", {}),
+         "fused_mlp": ("fast", {"VDR_FUSED_MLP": "1"})}
+state = vit.ViTDense(vit.SAM_VIT_B, policy=precision.FAST).init_random(
+    0).state_dict()
+x = torch.rand(4, 1024, 1024, 3, device="cuda")
+for label, (prec, env) in paths.items():
+    os.environ.update(env)
+    m = vit.ViTDense(vit.SAM_VIT_B, policy=precision.get_policy(prec))
+    m.load_state_dict(state)
+    m = m.cuda().eval()
+    with torch.no_grad():
+        for _ in range(2):
+            m(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            m(x)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+    del m
+    torch.cuda.empty_cache()
+    r = profiling.profile_forward(4, prec, steps=3, rows=6)
+    print(f"forward {label} @1024 B=4: host {dt * 1e3:.3f} ms = "
+          f"{4 / dt:.2f} img/s; device {r['device_ms']:.3f} ms, wall "
+          f"{r['wall_ms']:.3f}, idle {r['idle_share']:.3f}; " + "; ".join(
+              f"{e['name'][:28]} {e['ms']:.3f}" for e in r["top"]),
+          flush=True)
+    for key in env:
+        os.environ.pop(key)
+    torch.cuda.empty_cache()
+patient = next(iter(syn.synthetic_cohort(n_patients=1, seed=cs.SEED,
+                                         height=256, width=256).values()))
+for label, (prec, env) in paths.items():
+    os.environ.update(env)
+    ex = tex.DenseExtractor(tex.ExtractionConfig(precision=prec),
+                            state_dict=state)
+    warm = syn.synthetic_volume(np.random.default_rng(9), 256, 256, 2,
+                                modality="pet")
+    ex.extract_volume(warm[0], warm[1], "pet")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for modality in ("ct", "pet"):
+        vol, mask, _ = patient[modality]
+        n += len(ex.extract_volume(vol, mask, modality)[0])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"extraction {label}: 1 patient x (CT, PET), {n} images in "
+          f"{dt * 1e3:.1f} ms = {n / dt:.2f} img/s", flush=True)
+    for key in env:
+        os.environ.pop(key)
+    del ex
+    torch.cuda.empty_cache()
+from vit_deep_radiomics_tpu_torch.ops import quant as Q
+sku, peaks = cs.peaks_for(torch.cuda.get_device_name(0))
+cs.k7_phase(torch, peaks)
+cs.k8_phase(torch, Q, peaks, cs.INT8_PEAKS[sku])
+'''
+
 _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
-             "parity-forward": _PAIR_PARITY_FORWARD_CHILD}
+             "parity-forward": _PAIR_PARITY_FORWARD_CHILD,
+             "frozen": _PAIR_FROZEN_CHILD}
 
 
 def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
@@ -980,7 +1239,7 @@ def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
         print(f"{tag} ({tree}): rc {res.returncode}")
         for line in (res.stdout + res.stderr).splitlines():
             if line.startswith(keep) or "Error" in line:
-                print("  " + line[:240])
+                print("  " + line[:400])
         if res.returncode:
             raise RuntimeError(f"{tag} run failed")
 
@@ -1007,6 +1266,10 @@ def main(argv=None) -> int:
     if args.cmd == "variants":
         if args.kernel == "k4":
             _k4_variants(args.kernel, args.out)
+        elif args.kernel == "k7":
+            _k7_variants(args.kernel, args.out)
+        elif args.kernel == "k8":
+            _k8_variants(args.kernel, args.out)
         elif args.kernel.startswith("k6"):
             _k6_variants(args.kernel, args.out)
         elif args.kernel.startswith("k5"):
