@@ -13,8 +13,9 @@ Phases (each one fails the run with a non-zero exit):
    report of K4 and the K5 backward (TMA + wgmma), the register-tiled K6
    backward kernels and the register-tiled fp32 forward's kernels in K1's,
    K2's, K3's and the K6 forward's sources, K3's Hopper kernel and the
-   Hopper kernels of K7 and K8 (registers, spills), which must show no
-   spill (K7 and K8 also no ``C75xx`` wgmma serialisation line);
+   Hopper kernels of the K5 forward, K7 and K8 (registers, spills), which
+   must show no spill (the K5 forward, K7 and K8 also no ``C75xx`` wgmma
+   serialisation line);
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -38,10 +39,11 @@ Phases (each one fails the run with a non-zero exit):
    kernels at the fine-tuning path's shapes (SAM ViT-B/16 @1024, batch 2:
    50 windows of 196 tokens, 2 x 4096 tokens; 12 heads of 64, bf16), each
    output held against its plain PyTorch version (the C entries of K4 and
-   the K5 backward are asked which body they take: the Hopper ones, TMA
-   and wgmma); kernel, plain-version and library (SDPA forward or backward
-   with the dense bias as a trainable ``attn_mask``) times and the card's
-   bound;
+   the three K5 kernels are asked which body they take: the Hopper ones,
+   TMA and wgmma), and the K5 chain (the kernel forward's out and lse fed
+   to the dq and dkv kernels) against the plain chain; kernel,
+   plain-version and library (SDPA forward or backward with the dense bias
+   as a trainable ``attn_mask``) times and the card's bound;
 8. fine-tuning: ``FineTuner`` on full-width, full-depth SAM ViT-B/16 @1024
    under ``fast``, batch 2, 5 steps on a fixed synthetic batch (the main
    path of K4 and K5: launch counts per step, ms per step, img/s, peak
@@ -59,7 +61,7 @@ Phases (each one fails the run with a non-zero exit):
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
-    2 (the K5 backward's route asked and printed, as in phase 7);
+    2 (the K5 kernels' routes asked and the K5 chain held, as in phase 7);
 12. parity fine-tuning: ``FineTuner`` on full-width SAM ViT-B/16 @1024
     under ``parity``, batch 2, 5 steps (the main path of K6: 12 launches of
     each K6 kernel per step, no other kernel);
@@ -143,7 +145,8 @@ ATOL = {"fused_window_attention": {"float32": 2e-5, "bfloat16": 5e-3},
 # 1.5 times the gap measured on an H100 SXM (PERF.md).
 # Measured: K4 1.135e-2 (dbias_w; dq 7.6e-3, dkv 6.7e-3), K5 forward
 # 5.6e-4 and lse 2.58e-3, dq 9.1e-4 (dbias_w), dkv 9.8e-4; the K5
-# backward's Hopper bodies dq 9.08e-4 (dbias_w), dkv 9.83e-4.
+# backward's Hopper bodies dq 9.08e-4 (dbias_w), dkv 9.83e-4; the K5
+# forward's Hopper body 8.25e-4 and lse 2.58e-3.
 TRAIN_ATOL = {"window_attention_bwd": 1.7e-2,
               "global_attention_fwd_lse": 9e-4, "lse": 4e-3,
               "global_attention_bwd_dq": 1.4e-3,
@@ -164,12 +167,18 @@ NO_SPILL = ("window_attention_bwd", "global_attention_bwd_dq",
 # its kernels (with and without bias, *tiled_kernel*) must show no spill
 TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
                  "flash_attention", "flash_attention_fwd")
-# Sources with one Hopper kernel (*hopper_kernel*) that must show no spill
-# and no wgmma serialisation (ptxas's C75xx lines): K7 and K8
-HOPPER_SOURCES = ("fused_ln_mlp_residual", "int8_matmul")
-# The body each fused kernel's C entry takes at the extraction path's shapes
+# Sources with Hopper kernels (*hopper_kernel*, this many) that must show
+# no spill and no wgmma serialisation (ptxas's C75xx lines): the K5 forward
+# (K2's body with the lse store, without and with the bias), K7 and K8
+HOPPER_SOURCES = {"global_attention_fwd_lse": 2, "fused_ln_mlp_residual": 1,
+                  "int8_matmul": 1}
+# The body each kernel's C entry takes at its path's shapes: K1 and K2 by
+# dtype at the extraction path's, the K5 forward at SAM's global layers
+# (Kw 64) and DINOv2's kv_len layers
 BODIES = {"fused_window_attention": {"bfloat16": "hopper", "float32": "tiled"},
-          "fused_global_attention": {"bfloat16": "hopper", "float32": "tiled"}}
+          "fused_global_attention": {"bfloat16": "hopper", "float32": "tiled"},
+          "global_attention_fwd_lse": {"sam_global": "hopper",
+                                       "kv_len": "hopper"}}
 K5_NAMES = ("global_attention_fwd_lse", "global_attention_bwd_dq",
             "global_attention_bwd_dkv")
 # Per step of a 12-layer backbone: every layer runs K6 under `parity`;
@@ -190,11 +199,20 @@ K6_SHAPES = {"sam_window": (50, 196, 14, 14, None),
 # K2 and K5 in kv_len mode at DINOv2 ViT-B/14 @518's padded shape (bf16,
 # the rule of phases 3 and 7); limits about 1.5 times the measured gap:
 # K2 8.91e-4 (7.10e-4 on the wgmma kernel), K5 forward 8.91e-4 and lse
-# 2.69e-3, dq 1.59e-3, dkv 1.69e-3 (the Hopper bodies 9.54e-4, 1.77e-3).
+# 2.69e-3 (the Hopper body 9.08e-4, 2.72e-3), dq 1.59e-3, dkv 1.69e-3
+# (the Hopper bodies 9.54e-4, 1.77e-3).
 KV_ATOL = {"fused_global_attention": 1.4e-3,
            "global_attention_fwd_lse": 1.4e-3, "lse": 4e-3,
            "global_attention_bwd_dq": 2.4e-3,
            "global_attention_bwd_dkv": 2.5e-3}
+# The K5 chain (the kernel forward's out and lse fed to the kernel dq and
+# dkv) against the plain chain (the plain forward's fed to the plain
+# backward), the rule of phase 7 on each gradient; limits about 1.5 times
+# the gap measured on an H100 SXM (PERF.md): SAM dq 6.77e-4, dbias_h
+# 8.07e-4, dbias_w 8.15e-4, dkv 9.23e-4; kv_len dq 8.90e-4, dkv 1.17e-3
+CHAIN_ATOL = {"sam_global": {"dq": 1e-3, "dbias_h": 1.2e-3,
+                             "dbias_w": 1.2e-3, "dkv": 1.4e-3},
+              "kv_len": {"dq": 1.4e-3, "dkv": 1.8e-3}}
 DINO_TOKENS, DINO_PADDED = 1370, 1536
 DINO_FWD_BATCH = 4                  # the DINOv2 inference forward's batch
 # Dense int8 tensor-core peaks (TOP/s) of the same H100 variants
@@ -710,6 +728,36 @@ def _k5_bwd_routes(G, args, heads, tag):
                                  "not the Hopper one")
 
 
+def _k5_fwd_route(G, q, kv, bh, bw, kl, heads, shape, tag):
+    """Ask the K5 forward's C entry which body it runs; the path's shapes
+    must take ``BODIES``'s."""
+    route = G.global_attention_fwd_route(q, kv, bh, bw, kl, num_heads=heads)
+    want = BODIES["global_attention_fwd_lse"][shape]
+    log(f"kernel global_attention_fwd_lse {tag}: route {route}")
+    if route != want:
+        raise AssertionError(f"K5 forward {tag} takes the {route} body, "
+                             f"not the {want} one")
+
+
+def _k5_chain(torch, G, fwd_args, dout, got, heads, kw, shape, tag):
+    """The kernel chain's gradients ``got`` (dq, dbias_h, dbias_w, dkv: the
+    K5 forward's out and lse fed to the dq and dkv kernels) against the
+    plain chain's (the plain forward's fed to the plain backward), each
+    elementwise under ``CHAIN_ATOL[shape]``; a forward that scored unlike
+    the backward would show here. Returns the largest |got - want|."""
+    out, lse = G.global_attention_fwd_lse_plain(*fwd_args, **kw)
+    args = (*fwd_args, dout, lse, G.attention_delta(out, dout, heads))
+    del out
+    want = (*G.global_attention_bwd_dq_plain(*args, **kw),
+            G.global_attention_bwd_dkv_plain(*args, **kw))
+    labels = ("dq", "dbias_h", "dbias_w", "dkv")
+    keep = [i for i, w in enumerate(want) if w is not None]
+    return _check_outputs(
+        torch, f"K5 chain {tag}", [got[i] for i in keep],
+        [want[i] for i in keep], [labels[i] for i in keep], 2.0 ** -7,
+        [CHAIN_ATOL[shape][labels[i]] for i in keep])
+
+
 def train_kernel_phase(torch, A, G, peaks):
     """K4 and the three K5 kernels at the fine-tuning path's shapes (B=2):
     every output against the plain version, times, bounds."""
@@ -770,6 +818,8 @@ def train_kernel_phase(torch, A, G, peaks):
     q, kv = rand(b, s, c), rand(b, s, 2 * c)
     bh, bw = rand(b, heads, s, 64, s=0.3), rand(b, heads, s, 64, s=0.3)
     kw = dict(num_heads=heads, scale=scale)
+    tag = "[SAM global, B=2]"
+    _k5_fwd_route(G, q, kv, bh, bw, None, heads, "sam_global", tag)
     out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, None, **kw)
     torch.cuda.synchronize()
     ref_out, ref_lse = G.global_attention_fwd_lse_plain(q, kv, bh, bw, None,
@@ -795,7 +845,7 @@ def train_kernel_phase(torch, A, G, peaks):
     dout = rand(b, s, c)
     delta = G.attention_delta(out, dout, heads)
     args = (q, kv, bh, bw, None, dout, lse, delta)
-    _k5_bwd_routes(G, args, heads, "[SAM global, B=2]")
+    _k5_bwd_routes(G, args, heads, tag)
     got = G.global_attention_bwd_dq(*args, **kw)
     torch.cuda.synchronize()
     err = check("global_attention_bwd_dq", got,
@@ -826,6 +876,8 @@ def train_kernel_phase(torch, A, G, peaks):
         dkv_plain, bwd_lib, nbytes(*args[:4], *args[5:], dkv), 2.0 * fl)
     log("library yardstick of both K5 backward kernels: the whole SDPA "
         "backward (dq, dk, dv and the mask gradient in one call)")
+    _k5_chain(torch, G, (q, kv, bh, bw, None), dout, (*got, dkv), heads, kw,
+              "sam_global", tag)
     del q, kv, bh, bw, out, lse, dout, delta, args, got, dkv
     torch.cuda.empty_cache()
     return records
@@ -1079,11 +1131,12 @@ def kv_len_phase(torch, A, G, peaks):
     torch.cuda.empty_cache()
 
     q, kv, dout, kl, mask, (qh, kh_, vh, doh), pairs = inputs(2)
+    tag = "[kv_len, B=2]"
+    _k5_fwd_route(G, q, kv, None, None, kl, heads, "kv_len", tag)
     out, lse = G.global_attention_fwd_lse(q, kv, None, None, kl, **kw)
     torch.cuda.synchronize()
     ref_out, ref_lse = G.global_attention_fwd_lse_plain(q, kv, None, None,
                                                         kl, **kw)
-    tag = "[kv_len, B=2]"
     err = max(_check_outputs(torch, f"global_attention_fwd_lse {tag}",
                              [out], [ref_out], ["out"], rtol,
                              KV_ATOL["global_attention_fwd_lse"]),
@@ -1122,6 +1175,8 @@ def kv_len_phase(torch, A, G, peaks):
         f"{grad}:1255", err, lambda: G.global_attention_bwd_dkv(*args, **kw),
         lambda: G.global_attention_bwd_dkv_plain(*args, **kw), lib,
         _nbytes(*args, dkv), 8.0 * pairs)
+    _k5_chain(torch, G, (q, kv, None, None, kl), dout, (dq, None, None, dkv),
+              heads, kw, "kv_len", tag)
     del q, kv, dout, mask, qh, kh_, vh, doh, out, lse, args, dq, dkv
     torch.cuda.empty_cache()
     return records
@@ -1684,7 +1739,7 @@ def main() -> int:
             r["spill"] for r in hopper.values())):
         raise AssertionError(f"flash_attention: the Hopper kernels {hopper} "
                              "spill or are missing")
-    for src in HOPPER_SOURCES:
+    for src, n_hopper in HOPPER_SOURCES.items():
         blog = build_logs[src]
         hopper = {f: r for f, r in cuda_build.ptxas_functions(blog).items()
                   if "hopper_kernel" in f}
@@ -1692,10 +1747,10 @@ def main() -> int:
         log(f"ptxas {src} (Hopper): " + " | ".join(
             f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
             for f, r in hopper.items()) + f"; C75xx lines: {len(serial)}")
-        if blog and (len(hopper) != 1 or serial or any(
+        if blog and (len(hopper) != n_hopper or serial or any(
                 r["spill"] for r in hopper.values())):
-            raise AssertionError(f"{src}: the Hopper kernel {hopper} spills, "
-                                 f"is missing or is serialised: {serial}")
+            raise AssertionError(f"{src}: the Hopper kernels {hopper} spill, "
+                                 f"are missing or are serialised: {serial}")
 
     records = kernel_phase(torch, A, peaks)
     state, parity_1024 = forward_phase(torch, A, vit, precision)

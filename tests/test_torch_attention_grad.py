@@ -85,6 +85,18 @@ def _jax(fn, q, kv, bh, bw, cot, **kw):
     return np.asarray(out), grads
 
 
+def _jax_lse(q, kv, bh, bw):
+    """The JAX forward's lse residual (laid out (B, H/pair, S/bq, pair,
+    bq)) as the port's (B, H, S)."""
+    _, jlse = _fgt_fwd_impl(
+        jnp.asarray(q), jnp.asarray(kv), jnp.asarray(_pack(bh)),
+        jnp.asarray(_pack(bw)), None, num_heads=HEADS, scale=D ** -0.5,
+        block_q=64, block_k=64, schedule="base", interpret=True)
+    b, hp, nq, pair, bq = jlse.shape
+    return np.asarray(jlse).transpose(0, 1, 3, 2, 4).reshape(
+        b, hp * pair, nq * bq)
+
+
 def _assert_all(got, want):
     (out_p, g_p), (out_j, g_j) = got, want
     np.testing.assert_allclose(out_p, out_j, atol=TOL, rtol=TOL)
@@ -134,6 +146,26 @@ class TestPortVsJax:
                     block_q=64, block_k=64, interpret=True)
         _assert_all(got, want)
 
+    def test_global_kw64_values_lse_and_grads(self):
+        """The width the Hopper route takes (Kw 64; S = 5 × 64, ragged
+        against the kernel's 192-row blocks): out, the lse residual and
+        every gradient against JAX. The inputs are bf16 values (what the
+        `fast` path hands the kernels) carried in fp32, so both sides run
+        at fp32 precision under the same tolerance."""
+        q, kv, bh, bw, cot = (
+            torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+            for a in _inputs(4, 2, 5, 64))
+        got = _port(G.global_attention_trainable, q, kv, bh, bw, cot,
+                    num_heads=HEADS)
+        want = _jax(jax_global, q, kv, bh, bw, cot, num_heads=HEADS,
+                    block_q=64, block_k=64, interpret=True)
+        _assert_all(got, want)
+        _, lse = G.global_attention_fwd_lse(
+            *(torch.from_numpy(a) for a in (q, kv, bh, bw)), None,
+            num_heads=HEADS, scale=D ** -0.5)
+        np.testing.assert_allclose(lse.numpy(), _jax_lse(q, kv, bh, bw),
+                                   atol=TOL, rtol=TOL)
+
     def test_lse_residual(self, global_case):
         """The K5 forward's residual: log2 log-sum-exp per row and head,
         against the JAX forward's (laid out (B, H/pair, S/bq, pair, bq))."""
@@ -141,15 +173,8 @@ class TestPortVsJax:
         out, lse = G.global_attention_fwd_lse(
             *(torch.from_numpy(a) for a in (q, kv, bh, bw)), None,
             num_heads=HEADS, scale=D ** -0.5)
-        _, jlse = _fgt_fwd_impl(
-            jnp.asarray(q), jnp.asarray(kv), jnp.asarray(_pack(bh)),
-            jnp.asarray(_pack(bw)), None, num_heads=HEADS,
-            scale=D ** -0.5, block_q=64, block_k=64, schedule="base",
-            interpret=True)
-        b, hp, nq, pair, bq = jlse.shape
-        jlse = np.asarray(jlse).transpose(0, 1, 3, 2, 4).reshape(
-            b, hp * pair, nq * bq)
-        np.testing.assert_allclose(lse.numpy(), jlse, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(lse.numpy(), _jax_lse(q, kv, bh, bw),
+                                   atol=TOL, rtol=TOL)
 
     def test_cpu_takes_no_kernel(self, window_case):
         q, kv, bh, bw, cot = window_case
@@ -261,6 +286,56 @@ def test_k5_bwd_route_refuses_what_no_kernel_takes():
         G.global_attention_bwd_route(q.float(), kv.float(), num_heads=2)
     with pytest.raises(ValueError, match="key-grid width"):
         G.global_attention_bwd_route(q, kv, bh, bw, num_heads=2)
+
+
+@pytest.mark.parametrize("case", ["kw64", "kw16", "kv_len"])
+def test_k5_fwd_route_is_plain_on_the_cpu(case):
+    """The CPU takes the plain forward whatever the width (the card's
+    answers, "hopper" at Kw 64 and with no bias, "loops" at Kw 8/16/32,
+    are held in tests/test_torch_cuda_kernels.py)."""
+    kw = {"kw64": 64, "kw16": 16}.get(case)
+    s = 128
+    q = torch.zeros(1, s, 128, dtype=torch.bfloat16)
+    kv = torch.zeros(1, s, 256, dtype=torch.bfloat16)
+    bh = bw = kv_len = None
+    if kw:
+        bh = torch.zeros(1, 2, s, s // kw, dtype=torch.bfloat16)
+        bw = torch.zeros(1, 2, s, kw, dtype=torch.bfloat16)
+    else:
+        kv_len = torch.tensor([77])
+    assert G.global_attention_fwd_route(q, kv, bh, bw, kv_len,
+                                        num_heads=2) == "plain"
+
+
+@pytest.mark.parametrize("case,exc,err", [
+    ("kw128", ValueError, "key-grid width"),
+    ("fp32", TypeError, "bfloat16"),
+    ("d32", ValueError, "head dim 32")])
+@pytest.mark.parametrize("entry", ["route", "kernel"])
+def test_k5_fwd_refused_before_launch(case, exc, err, entry):
+    """What no K5 kernel takes is refused by the forward's route and by its
+    wrapper before any build or launch, as the backward refuses it: a
+    key-grid width outside (8, 16, 32, 64) (Kw 128, which JAX takes), fp32
+    and a head dim other than 64 (meta tensors stand in for CUDA ones)."""
+    heads, d, dt = (4, 32, torch.bfloat16) if case == "d32" else \
+        (2, 64, torch.float32 if case == "fp32" else torch.bfloat16)
+    s, c = 256, heads * d
+
+    def meta(*shape):
+        return torch.empty(*shape, device="meta", dtype=dt)
+
+    q, kv = meta(1, s, c), meta(1, s, 2 * c)
+    bh = bw = None
+    if case == "kw128":
+        bh, bw = meta(1, heads, s, 2), meta(1, heads, s, 128)
+    A.reset_launch_counts()
+    with pytest.raises(exc, match=err):
+        if entry == "route":
+            G.global_attention_fwd_route(q, kv, bh, bw, num_heads=heads)
+        else:
+            G.global_attention_fwd_lse(q, kv, bh, bw, None, num_heads=heads,
+                                       scale=d ** -0.5)
+    assert A.LAUNCHES["global_attention_fwd_lse"] == 0
 
 
 @pytest.mark.parametrize("biased", [True, False])

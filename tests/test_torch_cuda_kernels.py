@@ -454,6 +454,186 @@ def test_global_hopper_bwd_matches_plain(gen, case):
             name, excess)
 
 
+@pytest.mark.parametrize("case", sorted(K5_HOPPER_CASES))
+def test_global_hopper_fwd_matches_plain(gen, case):
+    """The K5 forward's Hopper body (K2's, with the lse store) at the
+    backward's cases: out and lse against the plain version; a kv_len 0
+    row averages V over its S keys and gets the plain version's lse,
+    -1e30 log2 e + log2 S (the backward then takes P = 1 per key)."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    kh, kw, kv_len = K5_HOPPER_CASES[case]
+    b, heads, s, d, dt = 2, 4, 320, 64, torch.bfloat16
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = None
+    if kh:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    kl = None if kv_len is None else torch.tensor(kv_len, device="cuda")
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    assert G.global_attention_fwd_route(q, kv, bh, bw, kl,
+                                        num_heads=heads) == "hopper"
+    A.reset_launch_counts()
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kl, **kwargs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["global_attention_fwd_lse"] == 1
+    want_out, want_lse = G.global_attention_fwd_lse_plain(
+        q, kv, bh, bw, kl, **kwargs)
+    _assert_close(out, want_out, dt, "global")
+    gap = (lse - want_lse).abs().max().item()
+    print(f"{case}: lse gap {gap:.3e}")
+    assert torch.isfinite(lse).all() and gap <= 1e-2
+    if kv_len is not None and kv_len[0] == 0:
+        assert torch.equal(lse[0], want_lse[0]), (lse[0], want_lse[0])
+
+
+def _lse_as_the_backward_scores(q, kv, bh, bw, kv_len, heads, scale):
+    """The log2 lse of the scores the K5 backward rebuilds, in fp32: Q^ =
+    bf16(q · scale · log2 e), S = Q^ Kᵀ, plus the bias terms times log2 e,
+    keys at or past kv_len at -1e30 log2 e."""
+    log2e = 1.4426950408889634
+    b, s, c = q.shape
+    d = c // heads
+
+    def hs(x):
+        return x.float().reshape(b, s, heads, d).transpose(1, 2)
+
+    qhat = (q.float() * (scale * log2e)).to(torch.bfloat16)
+    sc = hs(qhat) @ hs(kv[..., :c]).transpose(-1, -2)
+    if bh is not None:
+        th, tw = bh.float() * log2e, bw.float() * log2e
+        sc = sc + (th[..., :, None] + tw[..., None, :]).reshape(sc.shape)
+    if kv_len is not None:
+        masked = torch.tensor(-1e30, device=q.device) * log2e
+        key = torch.arange(s, device=q.device)
+        sc = torch.where((key[None, :] < kv_len[:, None])[:, None, None, :],
+                         sc, masked)
+    m = sc.amax(-1, keepdim=True)
+    return (m + torch.log2(torch.exp2(sc - m).sum(-1, keepdim=True)))[..., 0]
+
+
+# The K5 forward's lse against the lse of the scores the backward rebuilds
+# (``_lse_as_the_backward_scores``): the order of the fp32 sums and the
+# exp2 approximation alone. Measured on an H100 SXM: 9.54e-7 in both cases,
+# one fp32 step at |lse| in [8, 16), where the plain version's unrounded
+# fp32 scores sit 2.8e-3 to 3.5e-3 away (as would a forward that scaled
+# the fp32 Q Kᵀ, K2's order); the limit is four such steps
+LSE_REBUILT_ATOL = 4e-6
+
+
+@pytest.mark.parametrize("case", ["kh5_kw64", "kv_len_77"])
+def test_global_hopper_fwd_scores_as_the_backward(gen, case):
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    kh, kw, kv_len = K5_HOPPER_CASES[case]
+    b, heads, s, d, dt = 2, 4, 320, 64, torch.bfloat16
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = bw = None
+    if kh:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    kl = None if kv_len is None else torch.tensor(kv_len, device="cuda")
+    _, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kl, num_heads=heads,
+                                        scale=d ** -0.5)
+    want = _lse_as_the_backward_scores(q, kv, bh, bw, kl, heads, d ** -0.5)
+    gap = (lse - want).abs().max().item()
+    print(f"{case}: lse against the backward's scores {gap:.3e}")
+    assert gap <= LSE_REBUILT_ATOL, gap
+
+
+@pytest.mark.parametrize("case", ["kh5_kw64", "kv_len_77"])
+def test_global_kernel_chain_matches_plain_chain(gen, case):
+    """The whole K5 chain: the kernel forward's out and lse fed to the
+    kernel dq and dkv, against the plain forward's fed to the plain
+    backward (a forward that scored unlike the backward would show in the
+    gradients, not in out)."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    kh, kw, kv_len = K5_HOPPER_CASES[case]
+    b, heads, s, d, dt = 2, 4, 320, 64, torch.bfloat16
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    dout = _rand(gen, b, s, heads * d, dtype=dt)
+    bh = bw = None
+    if kh:
+        bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+        bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    kl = None if kv_len is None else torch.tensor(kv_len, device="cuda")
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    grads = []
+    for fwd, dq, dkv in (
+            (G.global_attention_fwd_lse, G.global_attention_bwd_dq,
+             G.global_attention_bwd_dkv),
+            (G.global_attention_fwd_lse_plain,
+             G.global_attention_bwd_dq_plain,
+             G.global_attention_bwd_dkv_plain)):
+        out, lse = fwd(q, kv, bh, bw, kl, **kwargs)
+        args = (q, kv, bh, bw, kl, dout, lse,
+                G.attention_delta(out, dout, heads))
+        grads.append((*dq(*args, **kwargs), dkv(*args, **kwargs)))
+    for g_, w_, name in zip(*grads, ("dq", "dbh", "dbw", "dkv")):
+        if w_ is not None:
+            _assert_grad_close(g_, w_, f"chain {name}", "global")
+
+
+def test_global_hopper_fwd_is_deterministic(gen):
+    """Two launches of the K5 forward give the same bits (out and lse), at
+    Kw 64 and in kv_len mode."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    for case in ("kh5_kw64", "kv_len_77"):
+        kh, kw, kv_len = K5_HOPPER_CASES[case]
+        b, heads, s, d, dt = 2, 4, 320, 64, torch.bfloat16
+        q = _rand(gen, b, s, heads * d, dtype=dt)
+        kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+        bh = bw = None
+        if kh:
+            bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+            bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+        kl = None if kv_len is None else torch.tensor(kv_len, device="cuda")
+        runs = [G.global_attention_fwd_lse(q, kv, bh, bw, kl, num_heads=heads,
+                                           scale=d ** -0.5)
+                for _ in range(2)]
+        for a, b_ in zip(*runs):
+            assert torch.equal(a, b_), case
+
+
+def test_global_fwd_builds_without_spill(gen, tmp_path, monkeypatch):
+    """The K5 forward's source fits its registers: its two Hopper kernels
+    (no bias, Kw 64) and the loop show no spill and ptxas no wgmma
+    serialisation (C75xx)."""
+    from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
+
+    monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
+    log = cb.build_all(("global_attention_fwd_lse",))[
+        "global_attention_fwd_lse"]
+    funcs = cb.ptxas_functions(log)
+    print(funcs)
+    hopper = [f for f in funcs if "hopper_kernel" in f]
+    assert len(hopper) == 2 and cb.spill_bytes(log) == 0, log
+    assert "C75" not in log, log
+
+
+@pytest.mark.parametrize("kh,kw,route", [(5, 64, "hopper"), (0, 0, "hopper"),
+                                         (20, 16, "loops")])
+def test_global_fwd_route(gen, kh, kw, route):
+    """The K5 forward routes as the backward does: Kw 64 and no bias take
+    the Hopper body, Kw 16 the mma.sync loop."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    s, heads = (kh * kw or 320), 2
+    q = _rand(gen, 1, s, heads * 64, dtype=torch.bfloat16)
+    kv = _rand(gen, 1, s, 2 * heads * 64, dtype=torch.bfloat16)
+    bh = bw = None
+    if kh:
+        bh = _rand(gen, 1, heads, s, kh, dtype=torch.bfloat16)
+        bw = _rand(gen, 1, heads, s, kw, dtype=torch.bfloat16)
+    assert G.global_attention_fwd_route(q, kv, bh, bw,
+                                        num_heads=heads) == route
+
+
 @pytest.mark.parametrize("kh,kw,route", [(5, 64, "hopper"), (0, 0, "hopper"),
                                          (20, 16, "loops")])
 def test_global_bwd_route(gen, kh, kw, route):

@@ -1,7 +1,7 @@
 // Shared core of the port's fused attention kernels (K1 window mode, K2
 // global mode, and K2's trainable twin, the K5 forward): the first bf16
-// loop, which K1 and K2 keep for the shapes their Hopper kernels do not
-// take and the K5 forward runs (their fp32 calls take f32_tiled_forward.cuh).
+// loop, which K1, K2 and the K5 forward keep for the shapes their Hopper
+// kernels do not take (their fp32 calls take f32_tiled_forward.cuh).
 // It reads q from the split projection q (B, S, H*D) and
 // k/v from kv (B, S, 2*H*D) (k in columns [0, H*D), v in [H*D, 2*H*D)), add
 // the decomposed relative-position bias

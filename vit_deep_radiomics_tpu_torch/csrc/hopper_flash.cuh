@@ -1,7 +1,8 @@
-// The consumer side of the port's TMA + wgmma flash forwards, K2
-// (fused_global_attention.cu) and K3 (flash_attention.cu): Q's A fragments
-// from a swizzled tile, the two products of one key tile, and the online
-// softmax in log2 units over the score registers of a warpgroup's 64 rows.
+// The consumer side of the port's TMA + wgmma flash forwards, K2 and the
+// K5 forward (global_fwd_hopper.cuh) and K3 (flash_attention.cu): Q's A
+// fragments from a swizzled tile, the two products of one key tile, the
+// online softmax in log2 units over the score registers of a warpgroup's
+// 64 rows, and the stores of O and of the lse.
 //
 // A key tile holds NK keys (a multiple of 16, at most 64: it lies inside
 // one key-grid row of 64 keys). A thread holds rows g and g + 8 of its
@@ -73,25 +74,36 @@ struct Rows {
 // ragged tile (keys >= lim score -1e30, keys past the end, the zero rows
 // TMA reads beyond the tensor, below it), the row max with the tile's
 // bias_h scalar added, exp2(s + bias_h - m) and the row sums. key0 is
-// element 0's key.
-template <int NK, int NW>
+// element 0's key. kPreScaled (the K5 forward): the scores come from a
+// pre-scaled Q^, so `scale` is not applied, and masked keys score
+// -1e30 log2 e, as the K5 backward rebuilds them.
+template <int NK, int NW, bool kPreScaled = false>
 __device__ __forceinline__ void tile_probs(float (&s)[NK / 2],
                                            const float (&bw)[NK / 8][4],
                                            float scale, float bh_lo,
                                            float bh_hi, int key0, bool ragged,
                                            int lim, int end, Rows& st) {
   constexpr int NS = NK / 2;
+  constexpr float kMasked = kPreScaled ? vdr::kMaskedLog2 : vdr::kNegInf;
+  // the max starts at or below the masked score, so that a tile of masked
+  // keys has the masked score as its max
+  constexpr float kMax0 = kPreScaled ? vdr::kPastEnd : vdr::kNegInf;
 #pragma unroll
-  for (int i = 0; i < NS; ++i)
-    s[i] = NW > 0 ? fmaf(s[i], scale, bw[i / 4][i % 4]) : s[i] * scale;
+  for (int i = 0; i < NS; ++i) {
+    if constexpr (kPreScaled) {
+      if (NW > 0) s[i] += bw[i / 4][i % 4];
+    } else {
+      s[i] = NW > 0 ? fmaf(s[i], scale, bw[i / 4][i % 4]) : s[i] * scale;
+    }
+  }
   if (ragged) {
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       const int key = key0 + (i / 4) * 8 + (i & 1);
-      if (key >= lim) s[i] = key < end ? vdr::kNegInf : vdr::kPastEnd;
+      if (key >= lim) s[i] = key < end ? kMasked : vdr::kPastEnd;
     }
   }
-  float mx_lo = vdr::kNegInf, mx_hi = vdr::kNegInf;
+  float mx_lo = kMax0, mx_hi = kMax0;
 #pragma unroll
   for (int i = 0; i < NS / 4; ++i) {
     mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
@@ -176,6 +188,23 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ld,
       *reinterpret_cast<__nv_bfloat162*>(out + R_hi * ld + d) =
           __floats2bfloat162_rn(o[4 * i + 2] * inv_hi,
                                 o[4 * i + 3] * inv_hi);
+  }
+}
+
+// The log2 log-sum-exp m + log2(l) of the thread's rows R_lo, R_hi into
+// lse (rows at or past n_rows are not written), l summed over the quad as
+// store_rows sums it; one lane of the quad writes. A row with no valid key
+// keeps the old loop's rule, m + log2(l > 0 ? l : 1).
+__device__ __forceinline__ void store_lse(float* lse, int R_lo, int R_hi,
+                                          int n_rows, int c, const Rows& st) {
+  float l_lo = st.l_lo, l_hi = st.l_hi;
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  if (c == 0) {
+    if (R_lo < n_rows) lse[R_lo] = st.m_lo + log2f(l_lo > 0.f ? l_lo : 1.f);
+    if (R_hi < n_rows) lse[R_hi] = st.m_hi + log2f(l_hi > 0.f ? l_hi : 1.f);
   }
 }
 

@@ -10,13 +10,16 @@ Kw)``, as in ``ops/attention.py``):
   wgmma body for windows of at most 208 tokens and mma.sync loops beyond;
   :func:`window_attention_bwd_route` says which.
 * :func:`global_attention_trainable` — forward K5
-  (``csrc/global_attention_fwd_lse.cu``: K2 plus a per-row log2
-  log-sum-exp residual), backward the K5 dq kernel
-  (``csrc/global_attention_bwd_dq.cu``: dq and both bias gradients over
-  the keys) and the K5 dkv kernel (``csrc/global_attention_bwd_dkv.cu``:
-  dk and dv over the queries). Both run a TMA + wgmma body on calls with
-  no bias or a key grid 64 keys wide, and mma.sync loops on Kw 8, 16 or
-  32; :func:`global_attention_bwd_route` says which.
+  (``csrc/global_attention_fwd_lse.cu``: K2's function plus a per-row
+  log2 log-sum-exp residual, on K2's Hopper body,
+  ``csrc/global_fwd_hopper.cuh``, scoring as the backward rebuilds a
+  score), backward the K5 dq kernel (``csrc/global_attention_bwd_dq.cu``:
+  dq and both bias gradients over the keys) and the K5 dkv kernel
+  (``csrc/global_attention_bwd_dkv.cu``: dk and dv over the queries). All
+  three run a TMA + wgmma body on calls with no bias or a key grid 64 keys
+  wide, and mma.sync loops on Kw 8, 16 or 32;
+  :func:`global_attention_fwd_route` and :func:`global_attention_bwd_route`
+  say which.
 * :func:`flash_attention_trainable` — K6, the generic per-head
   ``(B, H, S, D)`` path of ``parity`` (fp32) fine-tuning: forward with the
   lse residual (``csrc/flash_attention_fwd.cu``, the register-tiled body
@@ -59,6 +62,7 @@ __all__ = [
     "window_attention_bwd_route",
     "global_attention_fwd_lse",
     "global_attention_fwd_lse_plain",
+    "global_attention_fwd_route",
     "global_attention_bwd_dq",
     "global_attention_bwd_dq_plain",
     "global_attention_bwd_dkv",
@@ -367,6 +371,7 @@ def global_attention_fwd_lse(q, kv, bias_h, bias_w, kv_len, *, num_heads,
         return global_attention_fwd_lse_plain(
             q, kv, bias_h, bias_w, kv_len, num_heads=num_heads, scale=scale)
     _check_bwd_cuda(q, d, kv, bias_h, bias_w)
+    _check_k5_bias(kw)
     b, s, _ = q.shape
     lib, fn = _load("global_attention_fwd_lse",
                     [_P] * 7 + [_I] * 6 + [_F, _P])
@@ -378,6 +383,32 @@ def global_attention_fwd_lse(q, kv, bias_h, bias_w, kv_len, *, num_heads,
     _raise_on(rc, lib, "global_attention_fwd_lse")
     LAUNCHES["global_attention_fwd_lse"] += 1
     return out, lse
+
+
+def global_attention_fwd_route(q, kv, bias_h=None, bias_w=None,
+                               kv_len=None, *, num_heads) -> str:
+    """Which body :func:`global_attention_fwd_lse` runs for these operands:
+    ``"plain"`` on the CPU; on the card, as
+    ``csrc/global_attention_fwd_lse.cu`` chooses, ``"hopper"`` (K2's TMA +
+    wgmma body with the lse store: no bias or a key grid 64 keys wide, the
+    calls the backward's Hopper bodies take) or ``"loops"`` (the mma.sync
+    loop, Kw in {8, 16, 32})."""
+    return _k5_route("global_attention_fwd_lse",
+                     "vdr_global_attention_fwd_route", q, kv, bias_h, bias_w,
+                     kv_len, num_heads)
+
+
+def _k5_route(source, entry, q, kv, bias_h, bias_w, kv_len, num_heads):
+    """A K5 kernel's body for these operands: "plain" on the CPU, else the
+    answer of ``csrc/<source>.cu``'s ``entry`` after the launch checks."""
+    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, None)
+    if q.device.type == "cpu":
+        return "plain"
+    _check_bwd_cuda(q, d, kv, bias_h, bias_w)
+    _check_k5_bias(kw)
+    _, fn = _load(source, [_I] * 6, entry=entry)
+    hopper = fn(q.shape[1], num_heads, d, kh, kw, int(bias_h is not None))
+    return "hopper" if hopper else "loops"
 
 
 def global_attention_bwd_dq(q, kv, bias_h, bias_w, kv_len, dout, lse, delta,
@@ -438,15 +469,9 @@ def global_attention_bwd_route(q, kv, bias_h=None, bias_w=None,
     {8, 16, 32})."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
-    d, kh, kw = _check_layout(q, kv, bias_h, bias_w, kv_len, num_heads, None)
-    if q.device.type == "cpu":
-        return "plain"
-    _check_bwd_cuda(q, d, kv, bias_h, bias_w)
-    _check_k5_bias(kw)
-    _, fn = _load(f"global_attention_bwd_{kernel}", [_I] * 6,
-                  entry="vdr_global_attention_bwd_route")
-    hopper = fn(q.shape[1], num_heads, d, kh, kw, int(bias_h is not None))
-    return "hopper" if hopper else "loops"
+    return _k5_route(f"global_attention_bwd_{kernel}",
+                     "vdr_global_attention_bwd_route", q, kv, bias_h, bias_w,
+                     kv_len, num_heads)
 
 
 def _check_flash(q, k, v, bias_h, bias_w, kv_len):

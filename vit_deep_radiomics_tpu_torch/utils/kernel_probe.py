@@ -1,6 +1,8 @@
 """Probes of the Hopper kernels K1 (``csrc/fused_window_attention.cu``), K2
 (``csrc/fused_global_attention.cu``), K3 (``csrc/flash_attention.cu``), K4
-(``csrc/window_attention_bwd.cu``),
+(``csrc/window_attention_bwd.cu``), the K5 forward
+(``csrc/global_attention_fwd_lse.cu``; K2's and its Hopper body in
+``csrc/global_fwd_hopper.cuh``),
 the K5 backward (``csrc/global_attention_bwd_dkv.cu``,
 ``csrc/global_attention_bwd_dq.cu``), the K6 forward
 (``csrc/flash_attention_fwd.cu``), the K6 backward
@@ -14,6 +16,7 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k4
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5fwd
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dkv
@@ -38,7 +41,9 @@ tiles with the masked columns in bias_w instead of 48-key boxes, two
 consumer warpgroups, the ring depth; K4: one
 warpgroup, the bias rows read from device memory instead of staged by
 bulk copy, the bias gradients' product or the bias tile's build removed, phase A or phase B (the key-major recompute)
-removed, phase B's dk/dv products removed; the
+removed, phase B's dk/dv products removed; the K5 forward: two consumer
+warpgroups, the ring depth, Q^ formed in the shared Q tile instead of in
+the A fragments; the
 K5 backward: three consumer warpgroups, the ring depth, the bias step
 removed; the K6 backward: one tile buffer instead of two, or 64-column
 tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K1,
@@ -58,7 +63,8 @@ Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
 shape, 4 x 1536 with 1370 valid; K3 bf16: SAM @768's q (4, 12, 2304, 64)
 and JAX's padded (4, 12, 3072, 64) against k/v (4, 12, 3072, 64), Kh 48,
 Kw 64, ``kv_grid`` (48, 48); K4: q (50, 196, 768), Kh = Kw = 14; K5:
-q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16; K6: the
+q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16, the
+forward's out and lse held to its plain version; K6: the
 `parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
 (50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
 1536, 64) with 1370 valid keys); K1 fp32: q (100, 196, 768), Kh = Kw =
@@ -81,7 +87,9 @@ then ``chip_smoke.py``'s extraction phase; with ``--path fast`` or
 ViT-B/14 @518 at B=2 under that policy (``chip_smoke.py``'s phases 8 and
 13, or 12 and 13: host clock, steady = steps 3-5), the device time of a
 step of each (``utils/profiling.py``), then its kernel phases
-7 and 11 (K4, K5; `fast`) or 10 (K6; `parity`); with ``--path
+7 and 11 (K4, the K5 forward and backward, K2 in kv_len mode; `fast`) or
+10 (K6; `parity`), `fast` also K2 bf16 at phase 3's shapes (ms and a
+SHA-256 of its output bits, which must not differ between the trees); with ``--path
 parity-forward`` 5 `parity` SAM ViT-B/16 forwards at B=4 @1024 (K2 fp32)
 and @768 (K3 fp32) on the host clock, each after a warm-up, and their
 device ms (``utils/profiling.py``), then K2 and K3
@@ -114,6 +122,7 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k2": "fused_global_attention.cu",
            "k4": "window_attention_bwd.cu",
            "k6fwd": "flash_attention_fwd.cu",
+           "k5fwd": "global_attention_fwd_lse.cu",
            "k6dkv": "flash_attention_bwd_dkv.cu",
            "k6dq": "flash_attention_bwd_dq.cu",
            "k5dkv": "global_attention_bwd_dkv.cu",
@@ -123,7 +132,9 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k7": "fused_ln_mlp_residual.cu",
            "k8": "int8_matmul.cu"}
 # headers a variant of the kernel may change (copied beside its source)
-HEADERS = {"k1f32": ("f32_tiled_forward.cuh",),
+HEADERS = {"k2": ("global_fwd_hopper.cuh",),
+           "k5fwd": ("global_fwd_hopper.cuh",),
+           "k1f32": ("f32_tiled_forward.cuh",),
            "k2f32": ("f32_tiled_forward.cuh",),
            "k3f32": ("f32_tiled_forward.cuh",),
            "k6fwd": ("f32_tiled_forward.cuh",)}
@@ -234,6 +245,36 @@ VARIANTS = {
         "no_products": ({}, ("accumulate<kCols>(dq, dss, st);",)),
         "no_scores": ({}, ("score_tile(s, qs, st);",
                            "dp_tile(dp, dos, st + kCols * LD);")),
+    },
+    # the K5 forward on K2's Hopper body (global_fwd_hopper.cuh): two
+    # consumer warpgroups (128-row blocks), the ring depth (K2's 6; more
+    # leave no room for a 128-row bias_h table), Q^ formed in the shared Q
+    # tile; the softmax or the products removed
+    "k5fwd": {
+        "as_built": ({}, ()),
+        "consumers_2": ({"kConsumers": 2}, ()),
+        "stages_3": ({"kStages": 3}, ()),
+        "stages_6": ({"kStages": 6}, ()),
+        # each warpgroup scales its shared Q tile in place (the swizzle
+        # permutes 16-byte chunks, so chunk k scaled stays chunk k)
+        "qhat_smem": ({}, ((
+            "q_frags_scaled(qa, base + wg * kTile, warp, g, c, p.scale_log2);",
+            "{\n      uint4* tile = reinterpret_cast<uint4*>(base + wg * "
+            "kTile);\n      for (int k = t; k < kTile / 16; k += 128) {\n"
+            "        uint4 v = tile[k];\n        uint32_t* w = "
+            "reinterpret_cast<uint32_t*>(&v);\n        for (int i = 0; i < 4;"
+            " ++i) {\n          const __nv_bfloat162 x = *reinterpret_cast<"
+            "const __nv_bfloat162*>(&w[i]);\n          w[i] = vdr::pack_bf16("
+            "__low2float(x) * p.scale_log2, __high2float(x) * "
+            "p.scale_log2);\n        }\n        tile[k] = v;\n      }\n"
+            "      bar_sync(1 + wg, 128);\n      q_frags(qa, base + wg * "
+            "kTile, warp, g, c);\n    }"),)),
+        "no_softmax": ({}, ("probs(0);", "probs(j);")),
+        "no_products": ({}, (
+            "qk_tile<kBK>(s, qa, k_addr);",
+            "qk_tile<kBK>(s, qa, k_addr + cur * kTile);",
+            "pv_tile<kBK>(o, pa, v_addr + prev * kTile);",
+            "pv_tile<kBK>(o, pa, v_addr + last * kTile);")),
     },
     "k5dkv": {
         "as_built": ({}, ()),
@@ -346,6 +387,7 @@ CALLS = {
               (*_K6_SHAPES, (2, 1536, 0, 0, 1370)), None),
     "k6dkv": ([_P] * 11 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
+    "k5fwd": ([_P] * 7 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
     "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
     "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
     # K3 (head-major; S the query rows, Sk = Kh·Kw or S): SAM @768's 48 x
@@ -583,9 +625,10 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
 
 
 def _k5_variants(kernel: str, out_dir: Path) -> None:
-    """The K5 backward's variants (bf16, the port's (B, S, H·D) layouts)
-    at the `fast` path's shapes: gap to the plain version beyond one bf16
-    step, ms, share of the bf16 tensor-core peak (989 TFLOP/s, H100 SXM)."""
+    """The K5 forward's or backward's variants (bf16, the port's (B, S,
+    H·D) layouts) at the `fast` path's shapes: gap to the plain version
+    beyond one bf16 step (the forward's lse: beyond 2^-7·|lse|), ms, share
+    of the bf16 tensor-core peak (989 TFLOP/s, H100 SXM)."""
     import torch
 
     from ..ops import attention_grad as G
@@ -610,14 +653,21 @@ def _k5_variants(kernel: str, out_dir: Path) -> None:
         else:
             kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
         kwargs = dict(num_heads=heads, scale=scale)
-        out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kl, **kwargs)
-        args = (q, kv, bh, bw, kl, dout, lse,
-                G.attention_delta(out, dout, heads))
         pairs = b * heads * s * (n_valid or s)
+        if kernel == "k5fwd":
+            args = (q, kv, bh, bw, kl)
+            ref = G.global_attention_fwd_lse_plain(*args, **kwargs)
+            flops = 4.0 * pairs * d
+        else:
+            out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kl,
+                                                  **kwargs)
+            args = (q, kv, bh, bw, kl, dout, lse,
+                    G.attention_delta(out, dout, heads))
+            del out, lse
         if kernel == "k5dq":
             ref = G.global_attention_bwd_dq_plain(*args, **kwargs)
             flops = 6.0 * pairs * d
-        else:
+        elif kernel == "k5dkv":
             ref = (G.global_attention_bwd_dkv_plain(*args, **kwargs),)
             flops = 8.0 * pairs * d
         print(f"{kernel} shape q ({b}, {s}, {c}), Kw {kw}, kv_len {n_valid}:")
@@ -640,7 +690,7 @@ def _k5_variants(kernel: str, out_dir: Path) -> None:
             ms = _ms(torch, run, 10)
             print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
                   f"({flops / (ms * 1e-3) / 989e12:.1%} of 989 TFLOP/s)")
-        del q, kv, dout, bh, bw, out, lse, args, ref
+        del q, kv, dout, bh, bw, args, ref
         torch.cuda.empty_cache()
 
 
@@ -1032,9 +1082,28 @@ torch.cuda.empty_cache()
 recs = {**cs.train_kernel_phase(torch, A, G, peaks),
         **cs.kv_len_phase(torch, A, G, peaks)}
 for name, r in recs.items():
-    if "bwd_d" in name:
-        print(f"k5 {name}: ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
-              f"sdpa {r['library_ms']:.4f} err {r['max_abs_err']:.3e}")
+    print(f"k5 {name}: ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
+          f"sdpa {r['library_ms']:.4f} err {r['max_abs_err']:.3e}")
+torch.cuda.empty_cache()
+# K2 bf16 at phase 3's shapes: its time and its output bits
+import hashlib
+g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+for tag, (b, s, kh, nv) in {"sam": (4, 4096, 64, None),
+                            "kv_len": (4, 1536, 0, 1370)}.items():
+    q, kv = (torch.randn(b, s, w, generator=g, device="cuda").to(
+        torch.bfloat16) for w in (768, 1536))
+    bh = bw = kl = None
+    if kh:
+        bh, bw = ((torch.randn(b, 12, s, kh, generator=g, device="cuda")
+                   * 0.3).to(torch.bfloat16) for _ in range(2))
+    else:
+        kl = torch.full((b,), nv, dtype=torch.int32, device="cuda")
+    def k2():
+        return A.fused_global_attention(q, kv, bh, bw, kl, num_heads=12,
+                                        scale=0.125)
+    bits = hashlib.sha256(k2().view(torch.int16).cpu().numpy().tobytes())
+    print(f"k5 K2 bf16 [{tag}]: ms {cs.cuda_ms(torch, k2, 20):.4f} sha256 "
+          f"{bits.hexdigest()[:16]}")
 '''
 
 _PAIR_PARITY_FORWARD_CHILD = r'''
