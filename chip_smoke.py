@@ -13,9 +13,9 @@ Phases (each one fails the run with a non-zero exit):
    report of K4 and the K5 backward (TMA + wgmma), the register-tiled K6
    backward kernels and the register-tiled fp32 forward's kernels in K1's,
    K2's, K3's and the K6 forward's sources, K3's Hopper kernel and the
-   Hopper kernels of the K5 forward, K7 and K8 (registers, spills), which
-   must show no spill (the K5 forward, K7 and K8 also no ``C75xx`` wgmma
-   serialisation line);
+   Hopper kernels of the K5 forward, K7 and K8, and K7's C 1536 loop
+   instance (registers, spills), which must show no spill (the K5 forward,
+   K7 and K8 also no ``C75xx`` wgmma serialisation line);
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -43,7 +43,9 @@ Phases (each one fails the run with a non-zero exit):
    TMA and wgmma), and the K5 chain (the kernel forward's out and lse fed
    to the dq and dkv kernels) against the plain chain; kernel,
    plain-version and library (SDPA forward or backward with the dense bias
-   as a trainable ``attn_mask``) times and the card's bound;
+   as a trainable ``attn_mask``) times and the card's bound; then the same
+   for the three K5 kernels on a key grid 128 keys wide (B=1, Kh 32, 12
+   heads: their mma.sync loops, the routes asked);
 8. fine-tuning: ``FineTuner`` on full-width, full-depth SAM ViT-B/16 @1024
    under ``fast``, batch 2, 5 steps on a fixed synthetic batch (the main
    path of K4 and K5: launch counts per step, ms per step, img/s, peak
@@ -62,6 +64,8 @@ Phases (each one fails the run with a non-zero exit):
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
     2 (the K5 kernels' routes asked and the K5 chain held, as in phase 7);
+    then K2 at DINOv2 ViT-L/14's and ViT-g/14's widths (16 and 24 heads,
+    B=4, 1536 rows, 1370 valid);
 12. parity fine-tuning: ``FineTuner`` on full-width SAM ViT-B/16 @1024
     under ``parity``, batch 2, 5 steps (the main path of K6: 12 launches of
     each K6 kernel per step, no other kernel);
@@ -83,11 +87,12 @@ Phases (each one fails the run with a non-zero exit):
     kernel in bf16 but in window mode, the register-tiled forward in
     fp32);
 16. K7, the fused LayerNorm -> MLP -> residual, at the SAM forward's rows
-    (16384 x 768, hidden 3072, bf16) and DINOv2 ViT-B/14's (4 x 1370, with
+    (16384 x 768, hidden 3072, bf16), DINOv2 ViT-B/14's (4 x 1370, with
+    layerscale) and DINOv2 ViT-g/14's (4 x 1370 x 1536, hidden 6144, with
     layerscale), against its plain version, its C entry asked which body
-    it takes (the Hopper body, TMA and wgmma, at both); the library time
-    is the unfused PyTorch path (LayerNorm, two cuBLAS GEMMs, GELU,
-    residual);
+    it takes (the Hopper body, TMA and wgmma, at C 768; the loops' 32-row
+    instance at C 1536); the library time is the unfused PyTorch path
+    (LayerNorm, two cuBLAS GEMMs, GELU, residual);
 17. K8 (TMA and wgmma, persistent), the s8 x s8 -> s32 matmul, at the
     five backbone contractions at batch 4 (M = 16384 and the windowed
     layers' 19600 rows padded to 19712), exactly equal to its plain
@@ -101,7 +106,15 @@ Phases (each one fails the run with a non-zero exit):
     (K3 in fp32: host and device ms), launch counts asserted, each held at
     batch 1 to an oracle on the same weights, then
     one ``DenseExtractor.extract_volume`` per new path (``int8``, fused
-    MLP, 768 px) with its launch counts, ms and img/s.
+    MLP, 768 px) with its launch counts, ms and img/s;
+19. DINOv2 extraction under ``fast``: ViT-L/14 ``full`` @518 (a B=4
+    forward with host ms, device ms and idle share, K2's 24 launches
+    asserted, held at batch 1 against plain attention, then one
+    ``extract_volume`` of a synthetic patient, CT through HU→RGB and PET),
+    ViT-L/14 ``patch_embed`` @896 (the same extraction: no kernel
+    launched, a 64 x 64 x 1024 grid) and ViT-g/14 ``full`` @518 with
+    ``VDR_FUSED_MLP=1`` (a B=4 forward with 40 K7 and 40 K2 launches, held
+    at batch 1 against the unfused forward, one extraction).
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -212,9 +225,31 @@ KV_ATOL = {"fused_global_attention": 1.4e-3,
 # 8.07e-4, dbias_w 8.15e-4, dkv 9.23e-4; kv_len dq 8.90e-4, dkv 1.17e-3
 CHAIN_ATOL = {"sam_global": {"dq": 1e-3, "dbias_h": 1.2e-3,
                              "dbias_w": 1.2e-3, "dkv": 1.4e-3},
-              "kv_len": {"dq": 1.4e-3, "dkv": 1.8e-3}}
+              "kv_len": {"dq": 1.4e-3, "dkv": 1.8e-3},
+              "kw128": {"dq": 1e-3, "dbias_h": 1.3e-3, "dbias_w": 1.2e-3,
+                        "dkv": 1.4e-3}}
+# The K5 kernels at a key grid 128 keys wide (SAM's global layers at 2048
+# px, which JAX takes; no published config reaches it): B=1, Kh 32, 12
+# heads of 64, bf16, on their mma.sync loops, each output against its plain
+# version and the chain against the plain chain; limits about 1.5 times
+# the gap measured on an H100 SXM: out 4.87e-4, lse 2.40e-3, dq 5.88e-4,
+# dbias_h 2.87e-3, dbias_w 2.08e-3, dkv 9.40e-4; chain dq 4.98e-4, dbias_h
+# 8.54e-4, dbias_w 5.30e-4, dkv 6.98e-4. dbias_h and dbias_w sit further
+# from the plain version than at Kw 64 because the backward kernel is fed
+# the kernel forward's lse, scored on Q^ = bf16(q D^-1/2 log2 e), where the
+# plain version scores the fp32 q: fed Q^ instead, the plain version gives
+# the kernel's bias gradients within one bf16 step (3.2e-8 beyond it;
+# tests/test_torch_cuda_kernels.py); the chain,
+# which scores alike on each side, stays within the Kw 64 limits
+KW128 = (1, 32, 128)
+KW128_ATOL = {"global_attention_fwd_lse": 9e-4, "lse": 4e-3,
+              "global_attention_bwd_dq": 4.5e-3,
+              "global_attention_bwd_dkv": 1.5e-3}
 DINO_TOKENS, DINO_PADDED = 1370, 1536
 DINO_FWD_BATCH = 4                  # the DINOv2 inference forward's batch
+# K2 in kv_len mode at DINOv2 ViT-L/14's and ViT-g/14's widths (16 and 24
+# heads of 64) at the inference forward's batch, phase 11
+DINO_WIDE = {"dinov2_vitl14": 16, "dinov2_vitg14": 24}
 # Dense int8 tensor-core peaks (TOP/s) of the same H100 variants
 INT8_PEAKS = {"PCIe": 1513e12, "NVL": 1671e12, "SXM": 1979e12}
 # K3 against its plain version, the rule of phase 3. Measured on an H100
@@ -227,6 +262,12 @@ K3_ATOL = {"float32": 2e-5, "bfloat16": 5.5e-3}
 # output and the residual sum round twice, a flip of the first moves the
 # second; 100 rows read 6.35e-3)
 K7_ATOL = 2.5e-2
+# K7 at DINOv2 ViT-g/14's rows at batch 4 (4 x 1370, C 1536, hidden 6144,
+# with layerscale): the loops' 32-row instance; the C 768 shapes take the
+# Hopper body
+K7_SHAPES = {"sam": (4, 4096, 768, 3072, False, "hopper"),
+             "dinov2": (4, 1370, 768, 3072, True, "hopper"),
+             "dinov2_vitg14": (4, 1370, 1536, 6144, True, "loops")}
 # Phase 18's forwards: launches per forward of each path (every other
 # counter 0), and each path's batch-1 oracle limit beyond one bf16 step.
 # Measured on an H100 SXM: `inference` equals `fast` on the bf16-rounded
@@ -242,6 +283,22 @@ PATH_LAUNCHES = {
     "fast_768": dict(flash_attention=4, fused_window_attention=8),
 }
 PATH_ATOL = {"inference": 0.0, "fused_mlp": 6e-2}
+# Phase 19, DINOv2 extraction: launches per forward of each path (every
+# other counter 0) and the batch-1 limits beyond one bf16 step against the
+# plain-attention (ViT-L) or unfused (ViT-g) forward on the same weights,
+# about 1.5 times the gap measured on an H100 SXM (ViT-L/14's 24 layers
+# 7.58e-2, ViT-g/14's 40 K7 layers 1.005e-1 with 16-row blocks, on outputs
+# of max |x| 5.2 and 5.4; the 32-row blocks split the first product's sums
+# otherwise and read 1.309e-1)
+DINO_PATHS = {
+    "vitl14_full": ("dinov2_vitl14", "full", {},
+                    dict(fused_global_attention=24)),
+    "vitl14_patch_embed": ("dinov2_vitl14", "patch_embed", {}, {}),
+    "vitg14_full_fused_mlp": ("dinov2_vitg14", "full", {"VDR_FUSED_MLP": "1"},
+                              dict(fused_global_attention=40,
+                                   fused_ln_mlp_residual=40)),
+}
+DINO_ATOL = {"vitl14_full": 0.12, "vitg14_full_fused_mlp": 0.15}
 INT8_MIN_COSINE = 0.995             # JAX tests/test_quant.py:116
 
 
@@ -880,7 +937,89 @@ def train_kernel_phase(torch, A, G, peaks):
               "sam_global", tag)
     del q, kv, bh, bw, out, lse, dout, delta, args, got, dkv
     torch.cuda.empty_cache()
+    k5_kw128(torch, G, peaks, records, rand)
     return records
+
+
+def k5_kw128(torch, G, peaks, records, rand):
+    """Phase 7, Kw 128: the three K5 kernels on a key grid 128 keys wide
+    (``KW128``), each C entry asked for its body (the mma.sync loops), each
+    output against its plain version, the kernel chain against the plain
+    chain; times, SDPA and bounds go under each K5 record's
+    ``by_shape["kw128"]``."""
+    b, kh, kwidth = KW128
+    heads, d = 12, 64
+    c, scale, s = heads * d, d ** -0.5, kh * kwidth
+    q, kv, dout = rand(b, s, c), rand(b, s, 2 * c), rand(b, s, c)
+    bh = rand(b, heads, s, kh, s=0.3)
+    bw = rand(b, heads, s, kwidth, s=0.3)
+    kw = dict(num_heads=heads, scale=scale)
+    tag = f"[Kw 128, B={b}, Kh {kh}]"
+    routes = {"fwd": G.global_attention_fwd_route(q, kv, bh, bw,
+                                                  num_heads=heads)}
+    for kernel in ("dq", "dkv"):
+        routes[kernel] = G.global_attention_bwd_route(
+            q, kv, bh, bw, num_heads=heads, kernel=kernel)
+    log(f"kernel K5 {tag}: routes {routes}")
+    if set(routes.values()) != {"loops"}:
+        raise AssertionError(f"K5 {tag} routes {routes}, not the loops")
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, None, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = G.global_attention_fwd_lse_plain(q, kv, bh, bw, None,
+                                                        **kw)
+    name = "global_attention_fwd_lse"
+    errs = {name: max(
+        _check_outputs(torch, f"{name} {tag}", [out], [ref_out], ["out"],
+                       2.0 ** -7, KW128_ATOL[name]),
+        _check_outputs(torch, f"{name} {tag}", [lse], [ref_lse], ["lse"],
+                       0.0, KW128_ATOL["lse"]))}
+    del ref_out, ref_lse
+    args = (q, kv, bh, bw, None, dout, lse, G.attention_delta(out, dout,
+                                                              heads))
+    got = G.global_attention_bwd_dq(*args, **kw)
+    dkv = G.global_attention_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    name = "global_attention_bwd_dq"
+    errs[name] = _check_outputs(
+        torch, f"{name} {tag}", got,
+        G.global_attention_bwd_dq_plain(*args, **kw),
+        ("dq", "dbias_h", "dbias_w"), 2.0 ** -7, KW128_ATOL[name])
+    name = "global_attention_bwd_dkv"
+    errs[name] = _check_outputs(
+        torch, f"{name} {tag}", [dkv],
+        [G.global_attention_bwd_dkv_plain(*args, **kw)], ["dkv"], 2.0 ** -7,
+        KW128_ATOL[name])
+    _k5_chain(torch, G, (q, kv, bh, bw, None), dout, (*got, dkv), heads, kw,
+              "kw128", tag)
+    qh, kh_, vh, doh = (_heads_of(t, 1, s, heads)
+                        for t in (q, kv[..., :c], kv[..., c:], dout))
+    mask = _dense_mask(bh, bw, 1, s, heads)
+    fwd_lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale)
+    bwd_lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale, doh)
+    del qh, kh_, vh, doh, mask
+    fl = 4.0 * b * heads * s * s * d
+    rows = {
+        "global_attention_fwd_lse": (
+            lambda: G.global_attention_fwd_lse(q, kv, bh, bw, None, **kw),
+            lambda: G.global_attention_fwd_lse_plain(q, kv, bh, bw, None,
+                                                     **kw),
+            fwd_lib, _nbytes(q, kv, bh, bw, out, lse), fl),
+        "global_attention_bwd_dq": (
+            lambda: G.global_attention_bwd_dq(*args, **kw),
+            lambda: G.global_attention_bwd_dq_plain(*args, **kw), bwd_lib,
+            _nbytes(*args[:4], *args[5:], *got), 1.5 * fl),
+        "global_attention_bwd_dkv": (
+            lambda: G.global_attention_bwd_dkv(*args, **kw),
+            lambda: G.global_attention_bwd_dkv_plain(*args, **kw), bwd_lib,
+            _nbytes(*args[:4], *args[5:], dkv), 2.0 * fl)}
+    for name, (fn, plain, lib, nb, flops) in rows.items():
+        rec = _record(f"{name} {tag}", f"{name}.cu", "", "bfloat16",
+                      errs[name], cuda_ms(torch, fn, 5),
+                      cuda_ms(torch, plain, 2), lib, nb, flops, peaks)
+        records[name].setdefault("by_shape", {})["kw128"] = dict(
+            _sub(rec), body="loops")
+    del q, kv, dout, bh, bw, out, lse, args, got, dkv
+    torch.cuda.empty_cache()
 
 
 def _ft_batch(torch, b, size=1024, grid=64):
@@ -1179,6 +1318,45 @@ def kv_len_phase(torch, A, G, peaks):
               heads, kw, "kv_len", tag)
     del q, kv, dout, mask, qh, kh_, vh, doh, out, lse, args, dq, dkv
     torch.cuda.empty_cache()
+
+    # K2 at DINOv2 ViT-L/14's and ViT-g/14's widths (16 and 24 heads: row
+    # strides of 2C and 3C elements in the Hopper body's tensor maps)
+    wide = records["fused_global_attention_kv_len"].setdefault("by_width",
+                                                                {})
+    for model, nh in DINO_WIDE.items():
+        b, cw = DINO_FWD_BATCH, nh * d
+        q, kv = (torch.randn(b, s, w, generator=gen, device="cuda").to(dt)
+                 for w in (cw, 2 * cw))
+        kl = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        kwh = dict(num_heads=nh, scale=scale)
+        tag = f"[kv_len, {model}, {nh} heads, B={b}]"
+        body = A.fused_global_attention_route(q, kv, None, None, kl, **kwh)
+        log(f"kernel fused_global_attention {tag}: body {body}")
+        if body != "hopper":
+            raise AssertionError(f"K2 {tag} takes the {body} body")
+        out = A.fused_global_attention(q, kv, None, None, kl, **kwh)
+        torch.cuda.synchronize()
+        err = _check_outputs(
+            torch, f"fused_global_attention {tag}", [out],
+            [A.fused_global_attention_plain(q, kv, None, None, kl, **kwh)],
+            ["out"], rtol, KV_ATOL["fused_global_attention"])
+        key = torch.arange(s, device="cuda")
+        mask = torch.zeros(b, nh, s, s, device="cuda", dtype=dt).masked_fill(
+            key >= n, float("-inf"))
+        views = [_heads_of(t, 1, s, nh) for t in (q, kv[..., :cw],
+                                                  kv[..., cw:])]
+        rec = _record(
+            f"fused_global_attention {tag}", "fused_global_attention.cu", k2,
+            "bfloat16", err,
+            cuda_ms(torch, lambda: A.fused_global_attention(
+                q, kv, None, None, kl, **kwh), 10),
+            cuda_ms(torch, lambda: A.fused_global_attention_plain(
+                q, kv, None, None, kl, **kwh), 3),
+            _sdpa_ms(torch, *views, mask, scale), _nbytes(q, kv, kl, out),
+            4.0 * b * nh * s * n * d, peaks)
+        wide[model] = dict(_sub(rec), heads=nh, body=body)
+        del q, kv, kl, out, mask, views
+        torch.cuda.empty_cache()
     return records
 
 
@@ -1349,29 +1527,34 @@ def k3_phase(torch, A, peaks):
 
 
 def k7_phase(torch, peaks):
-    """Phase 16: K7 at SAM ViT-B/16's rows at batch 4 (16384 x 768, hidden
-    3072) and DINOv2 ViT-B/14's (4 x 1370, with layerscale), bf16 with the
-    weights in the torch Linear layout, against its plain version; the
+    """Phase 16: K7 at the rows of its paths (``K7_SHAPES``): SAM ViT-B/16's
+    at batch 4 (16384 x 768, hidden 3072), DINOv2 ViT-B/14's (4 x 1370,
+    with layerscale) and DINOv2 ViT-g/14's (4 x 1370 x 1536, hidden 6144,
+    with layerscale), bf16 with the weights in the torch Linear layout,
+    against its plain version, its C entry asked which body it takes; the
     library time is the unfused PyTorch path on the same bf16 inputs. The
     row is SAM's shape, the main path's."""
     import torch.nn.functional as F
     from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    c, hidden, dt, eps = 768, 3072, torch.bfloat16, 1e-6
+    dt, eps = torch.bfloat16, 1e-6
 
     def rand(*sh, sc=1.0, dtype=torch.float32):
         return (torch.randn(*sh, generator=gen, device="cuda")
                 * sc).to(dtype)
 
-    w1 = rand(hidden, c, sc=c ** -0.5, dtype=dt)          # lin1.weight
-    w2 = rand(c, hidden, sc=hidden ** -0.5, dtype=dt)     # lin2.weight
-    b1, b2 = rand(hidden, sc=0.02), rand(c, sc=0.02)
-    ln_s, ln_b = 1.0 + rand(c, sc=0.1), rand(c, sc=0.1)
-    ls = 0.1 + rand(c, sc=0.02)
+    weights = {}
     rows = {}
-    for shape, (b, s, with_ls) in {"sam": (4, 4096, False),
-                                   "dinov2": (4, 1370, True)}.items():
+    for shape, (b, s, c, hidden, with_ls, want) in K7_SHAPES.items():
+        if (c, hidden) not in weights:
+            weights[(c, hidden)] = (
+                rand(hidden, c, sc=c ** -0.5, dtype=dt),       # lin1.weight
+                rand(c, hidden, sc=hidden ** -0.5, dtype=dt),  # lin2.weight
+                rand(hidden, sc=0.02), rand(c, sc=0.02),
+                1.0 + rand(c, sc=0.1), rand(c, sc=0.1),
+                0.1 + rand(c, sc=0.02))
+        w1, w2, b1, b2, ln_s, ln_b, ls = weights[(c, hidden)]
         x = rand(b, s, c, dtype=dt)
         lsv = ls if with_ls else None
         args = (x, ln_s, ln_b, w1.t(), b1, w2.t(), b2, lsv)
@@ -1383,12 +1566,12 @@ def k7_phase(torch, peaks):
             return M.fused_ln_mlp_residual_plain(*args, eps=eps)
 
         body = M.fused_ln_mlp_residual_route(*args)
-        if body != "hopper":
+        if body != want:
             raise AssertionError(f"K7 at {shape}'s rows takes the {body} "
-                                 "body, not the Hopper one")
+                                 f"body, not the {want} one")
         out = kern()
         torch.cuda.synchronize()
-        tag = f"fused_ln_mlp_residual [{shape}, {b}x{s} rows, {body}]"
+        tag = f"fused_ln_mlp_residual [{shape}, {b}x{s} rows, C {c}, {body}]"
         err = _check_outputs(torch, tag, [out], [plain()], ["out"],
                              RTOL["bfloat16"], K7_ATOL)
         p = [None if t is None else t.to(dt) for t in (ln_s, ln_b, b1, b2,
@@ -1413,7 +1596,8 @@ def k7_phase(torch, peaks):
         del x, args, out
         torch.cuda.empty_cache()
     rec = dict(rows["sam"], name="fused_ln_mlp_residual")
-    rec["by_shape"] = {shape: _sub(r) for shape, r in rows.items()}
+    rec["by_shape"] = {shape: dict(_sub(r), body=r["body"])
+                       for shape, r in rows.items()}
     return rec
 
 
@@ -1672,6 +1856,164 @@ def paths_phase(torch, A, vit, precision, tex, syn):
     return counts
 
 
+def dinov2_extraction_phase(torch, A, vit, precision, tex, syn):
+    """Phase 19: DINOv2 dense extraction at full width and depth, random
+    weights from the seed, under ``fast`` (``DINO_PATHS``): ViT-L/14
+    ``full`` @518 (a B=4 forward with host ms, device ms and idle share and
+    K2's 24 launches asserted, held at batch 1 against the plain-attention
+    forward on the same weights, then ``DenseExtractor.extract_volume`` on
+    one synthetic patient, CT through HU→RGB and PET), ViT-L/14
+    ``patch_embed`` @896 (the same extraction: no kernel launched, a 64 x
+    64 x 1024 grid) and ViT-g/14 ``full`` @518 with ``VDR_FUSED_MLP=1`` (a
+    B=4 forward with 40 K7 and 40 K2 launches, held at batch 1 against the
+    unfused forward, one extraction). Returns each path's record."""
+    from vit_deep_radiomics_tpu_torch.utils import profiling
+
+    patient = next(iter(syn.synthetic_cohort(
+        n_patients=1, seed=SEED, height=256, width=256).values()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    images = torch.rand(DINO_FWD_BATCH, 518, 518, 3, generator=gen,
+                        device="cuda")
+    records = {}
+
+    def expect(launches, times=1):
+        return {k: times * launches.get(k, 0) for k in A.LAUNCHES}
+
+    def with_env(env, fn):
+        os.environ.update(env)
+        try:
+            return fn()
+        finally:
+            for key in env:
+                os.environ.pop(key)
+
+    def forward(label, model, env, launches, width):
+        """B=4: host ms after a warm-up, launches, device ms and idle
+        share over traced forwards."""
+        out, dt, n = with_env(env, lambda: _timed_forward(torch, A, model,
+                                                          images))
+        grid = images.shape[1] // 14
+        if n != expect(launches):
+            raise AssertionError(f"{label}: launches per forward {n}")
+        if tuple(out.shape) != (DINO_FWD_BATCH, grid, grid, width) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label} forward output is not finite or "
+                                 "of the expected shape")
+        del out
+        with torch.no_grad():
+            res = with_env(env, lambda: profiling.trace_runs(
+                lambda: model(images), 2, 6))
+        log(f"forward {label} B={DINO_FWD_BATCH}: host {dt * 1e3:.3f} ms "
+            f"({DINO_FWD_BATCH / dt:.2f} img/s); device "
+            f"{res['device_ms']:.3f} ms a forward (wall {res['wall_ms']:.3f}"
+            f" ms, idle share {res['idle_share']:.3f}); launches {n}")
+        for row in res["top"]:
+            log(f"  {row['ms']:9.3f} ms  {row['calls']:5.1f}x  {row['name']}")
+        return {"host_ms": dt * 1e3, "img_s": DINO_FWD_BATCH / dt,
+                "device_ms": res["device_ms"],
+                "traced_wall_ms": res["wall_ms"],
+                "idle_share": res["idle_share"], "launches": n}
+
+    def hold(label, got, ref):
+        atol = DINO_ATOL[label]
+        diff = (got - ref).abs()
+        err = diff.max().item()
+        gap = (diff - 2.0 ** -7 * ref.abs()).max().item()
+        log(f"forward {label} B=1 vs its oracle: max abs err {err:.3e} on "
+            f"max |x| {ref.abs().max().item():.3f}; gap beyond one bf16 step "
+            f"{gap:.3e} (limit {atol:.1e})")
+        if not gap <= atol:
+            raise AssertionError(f"{label} forward disagrees with its "
+                                 f"oracle: gap {gap} > {atol}")
+        return err
+
+    def extract(label, ex, env, launches, width):
+        """One patient, CT and PET, after a warm-up: ms, img/s and the
+        launches (per forward as ``launches``)."""
+        warm = syn.synthetic_volume(np.random.default_rng(9), 256, 256, 2,
+                                    modality="pet")
+        forwards = [0]
+
+        def run():
+            ex.extract_volume(warm[0], warm[1], "pet")      # warm-up
+            ex.model.register_forward_hook(
+                lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+            torch.cuda.synchronize()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            n_images = 0
+            for modality in ("ct", "pet"):
+                vol, mask, _ = patient[modality]
+                feats, masks, meta = ex.extract_volume(vol, mask, modality)
+                n_images += len(feats)
+                if not (len(feats) == len(masks) == len(meta[0])) or not all(
+                        f.ndim == 3 and f.shape[2] == width
+                        and np.isfinite(f).all() for f in feats):
+                    raise AssertionError(f"{label} extraction: bad crop")
+            torch.cuda.synchronize()
+            return n_images, time.perf_counter() - t0
+
+        n_images, dt = with_env(env, run)
+        n = dict(A.LAUNCHES)
+        log(f"extraction {label}: 1 patient x (CT, PET) at 256x256, "
+            f"{n_images} images in {dt * 1e3:.1f} ms = {n_images / dt:.2f} "
+            f"img/s; {forwards[0]} forwards, launches {n}")
+        if n != expect(launches, forwards[0]) or not n_images:
+            raise AssertionError(f"{label} extraction launches {n}")
+        return {"ms": dt * 1e3, "img_s": n_images / dt, "images": n_images,
+                "forwards": forwards[0], "launches": n}
+
+    state = name_of_state = None
+    for label, (name, mode, env, launches) in DINO_PATHS.items():
+        cfg = vit.DINOV2_CONFIGS[name]
+        if name != name_of_state:
+            state = None
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            state = vit.ViTDense(cfg, policy=precision.FAST).init_random(
+                SEED).state_dict()
+            name_of_state = name
+            log(f"{name}: random weights from seed {SEED} in "
+                f"{time.perf_counter() - t0:.1f} s")
+        rec = {}
+        if mode == "full":
+            model = vit.ViTDense(cfg, policy=precision.FAST)
+            model.load_state_dict(state)
+            model = model.cuda().eval()
+            rec["forward"] = forward(label, model, env, launches, cfg.width)
+            with torch.no_grad():
+                got = with_env(env, lambda: model(images[:1]).float())
+                if env:      # the unfused forward of the same model
+                    ref = model(images[:1]).float()
+                else:        # plain attention on the same weights
+                    plain = vit.ViTDense(cfg, policy=precision.FAST,
+                                         use_flash=False)
+                    plain.load_state_dict(state)
+                    ref = plain.cuda().eval()(images[:1]).float()
+                    del plain
+            rec["b1_max_abs_err"] = hold(label, got, ref)
+            del model, got, ref
+            torch.cuda.empty_cache()
+        ex = tex.DenseExtractor(tex.ExtractionConfig(
+            model_name=name, dinov2_mode=mode, precision="fast"),
+            state_dict=state)
+        if mode == "patch_embed":
+            with torch.no_grad():
+                grid = tuple(ex.model(torch.zeros(1, 896, 896, 3,
+                                                  device="cuda")).shape)
+            log(f"extraction {label}: image {ex.image_size} px, feature map "
+                f"{grid[1:]}")
+            if ex.image_size != 896 or grid != (1, 64, 64, cfg.width):
+                raise AssertionError(f"{label}: feature map {grid}")
+        rec["extraction"] = extract(label, ex, env, launches, cfg.width)
+        records[label] = rec
+        del ex
+        torch.cuda.empty_cache()
+    del state, images
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1695,7 +2037,8 @@ def main() -> int:
               f"({exc})", file=sys.stderr)
         return 2
 
-    # phase 18 sets VDR_FUSED_MLP itself; every other phase runs without it
+    # phases 18 and 19 set VDR_FUSED_MLP themselves; every other phase runs
+    # without it
     os.environ.pop("VDR_FUSED_MLP", None)
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1751,6 +2094,18 @@ def main() -> int:
                 r["spill"] for r in hopper.values())):
             raise AssertionError(f"{src}: the Hopper kernels {hopper} spill, "
                                  f"are missing or are serialised: {serial}")
+    # K7 at C 1536 (DINOv2 ViT-g/14): the loops' 32-row instance keeps its
+    # 192 output accumulators a thread in registers
+    wide = {f: r for f, r in cuda_build.ptxas_functions(
+        build_logs["fused_ln_mlp_residual"]).items()
+        if "mlp_bf16_kernel" in f and "1536" in f}
+    log("ptxas fused_ln_mlp_residual (C 1536 loop): " + " | ".join(
+        f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
+        for f, r in wide.items()))
+    if build_logs["fused_ln_mlp_residual"] and (len(wide) != 1 or any(
+            r["spill"] for r in wide.values())):
+        raise AssertionError(f"fused_ln_mlp_residual: the C 1536 instance "
+                             f"{wide} spills or is missing")
 
     records = kernel_phase(torch, A, peaks)
     state, parity_1024 = forward_phase(torch, A, vit, precision)
@@ -1813,6 +2168,17 @@ def main() -> int:
                         ("fused_ln_mlp_residual", "fused_mlp"),
                         ("int8_matmul", "int8")):
         records[kname]["launches"] = path_counts[path][kname]
+    torch.cuda.empty_cache()
+    dino = dinov2_extraction_phase(torch, A, vit, precision, tex,
+                                   syn)                        # phase 19
+    # DINOv2 extraction's launches per forward: K2 (kv_len) at ViT-L/14's
+    # 24 layers, K7 at ViT-g/14's 40 (C 1536)
+    records["fused_global_attention_kv_len"]["launches_dinov2_vitl14"] = \
+        dino["vitl14_full"]["forward"]["launches"]["fused_global_attention"]
+    records["fused_ln_mlp_residual"]["launches_dinov2_vitg14"] = \
+        dino["vitg14_full_fused_mlp"]["forward"]["launches"][
+            "fused_ln_mlp_residual"]
+    log("dinov2 extraction: " + json.dumps(dino))
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

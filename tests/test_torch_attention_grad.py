@@ -166,6 +166,25 @@ class TestPortVsJax:
         np.testing.assert_allclose(lse.numpy(), _jax_lse(q, kv, bh, bw),
                                    atol=TOL, rtol=TOL)
 
+    def test_global_kw128_values_lse_and_grads(self):
+        """A key grid 128 keys wide (Kh 2: S = 256), which JAX's K5 takes
+        and the port's kernels take on their mma.sync loops: out, the lse
+        residual and every gradient against JAX, bf16 values carried in
+        fp32 as above."""
+        q, kv, bh, bw, cot = (
+            torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+            for a in _inputs(5, 2, 2, 128))
+        got = _port(G.global_attention_trainable, q, kv, bh, bw, cot,
+                    num_heads=HEADS)
+        want = _jax(jax_global, q, kv, bh, bw, cot, num_heads=HEADS,
+                    block_q=64, block_k=128, interpret=True)
+        _assert_all(got, want)
+        _, lse = G.global_attention_fwd_lse(
+            *(torch.from_numpy(a) for a in (q, kv, bh, bw)), None,
+            num_heads=HEADS, scale=D ** -0.5)
+        np.testing.assert_allclose(lse.numpy(), _jax_lse(q, kv, bh, bw),
+                                   atol=TOL, rtol=TOL)
+
     def test_lse_residual(self, global_case):
         """The K5 forward's residual: log2 log-sum-exp per row and head,
         against the JAX forward's (laid out (B, H/pair, S/bq, pair, bq))."""
@@ -308,26 +327,27 @@ def test_k5_fwd_route_is_plain_on_the_cpu(case):
 
 
 @pytest.mark.parametrize("case,exc,err", [
-    ("kw128", ValueError, "key-grid width"),
+    ("kw48", ValueError, "key-grid width"),
     ("fp32", TypeError, "bfloat16"),
     ("d32", ValueError, "head dim 32")])
 @pytest.mark.parametrize("entry", ["route", "kernel"])
 def test_k5_fwd_refused_before_launch(case, exc, err, entry):
     """What no K5 kernel takes is refused by the forward's route and by its
     wrapper before any build or launch, as the backward refuses it: a
-    key-grid width outside (8, 16, 32, 64) (Kw 128, which JAX takes), fp32
-    and a head dim other than 64 (meta tensors stand in for CUDA ones)."""
+    key-grid width outside (8, 16, 32, 64, 128) (Kw 48: S = 240, whose 64-key
+    tiles would cut grid rows), fp32 and a head dim other than 64 (meta
+    tensors stand in for CUDA ones)."""
     heads, d, dt = (4, 32, torch.bfloat16) if case == "d32" else \
         (2, 64, torch.float32 if case == "fp32" else torch.bfloat16)
-    s, c = 256, heads * d
+    s, c = (240 if case == "kw48" else 256), heads * d
 
     def meta(*shape):
         return torch.empty(*shape, device="meta", dtype=dt)
 
     q, kv = meta(1, s, c), meta(1, s, 2 * c)
     bh = bw = None
-    if case == "kw128":
-        bh, bw = meta(1, heads, s, 2), meta(1, heads, s, 128)
+    if case == "kw48":
+        bh, bw = meta(1, heads, s, 5), meta(1, heads, s, 48)
     A.reset_launch_counts()
     with pytest.raises(exc, match=err):
         if entry == "route":
@@ -362,3 +382,49 @@ def test_k4_bwd_route_is_plain_on_the_cpu_and_checks_the_layout(biased):
         G.window_attention_bwd_route(meta[0].float(), meta[1].float(),
                                      *[None if t is None else t.float()
                                        for t in meta[2:]], **kw)
+
+
+class _Built(Exception):
+    """Raised in place of a kernel build: every check before it passed."""
+
+
+@pytest.mark.parametrize("entry", ["fwd_route", "fwd", "bwd_route_dq",
+                                   "bwd_route_dkv", "dq", "dkv"])
+def test_k5_kw128_reaches_the_kernels(entry, monkeypatch):
+    """A key grid 128 keys wide (SAM's global layers at 2048 px, which JAX
+    takes) passes every check of the three K5 wrappers and their routes
+    and goes on to the build, where the routes answer "loops" (the card
+    tests hold that and the kernels); meta tensors stand in for CUDA
+    ones and the build is replaced by a marker."""
+    def built(*args, **kwargs):
+        raise _Built()
+
+    monkeypatch.setattr(G, "_load", built)
+    heads, d, s, dt = 2, 64, 256, torch.bfloat16
+
+    def meta(*shape, dtype=dt):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    q, kv = meta(1, s, heads * d), meta(1, s, 2 * heads * d)
+    bh, bw = meta(1, heads, s, 2), meta(1, heads, s, 128)
+    lse = meta(1, heads, s, dtype=torch.float32)
+    kw = dict(num_heads=heads)
+    calls = {
+        "fwd_route": lambda: G.global_attention_fwd_route(q, kv, bh, bw,
+                                                          **kw),
+        "fwd": lambda: G.global_attention_fwd_lse(q, kv, bh, bw, None,
+                                                  scale=0.125, **kw),
+        "bwd_route_dq": lambda: G.global_attention_bwd_route(
+            q, kv, bh, bw, kernel="dq", **kw),
+        "bwd_route_dkv": lambda: G.global_attention_bwd_route(
+            q, kv, bh, bw, kernel="dkv", **kw),
+        "dq": lambda: G.global_attention_bwd_dq(q, kv, bh, bw, None, q, lse,
+                                                lse, scale=0.125, **kw),
+        "dkv": lambda: G.global_attention_bwd_dkv(q, kv, bh, bw, None, q,
+                                                  lse, lse, scale=0.125,
+                                                  **kw),
+    }
+    A.reset_launch_counts()
+    with pytest.raises(_Built):
+        calls[entry]()
+    assert not any(A.LAUNCHES.values())

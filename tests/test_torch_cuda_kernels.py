@@ -617,10 +617,11 @@ def test_global_fwd_builds_without_spill(gen, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kh,kw,route", [(5, 64, "hopper"), (0, 0, "hopper"),
-                                         (20, 16, "loops")])
+                                         (20, 16, "loops"),
+                                         (4, 128, "loops")])
 def test_global_fwd_route(gen, kh, kw, route):
     """The K5 forward routes as the backward does: Kw 64 and no bias take
-    the Hopper body, Kw 16 the mma.sync loop."""
+    the Hopper body, Kw 16 and Kw 128 the mma.sync loop."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     s, heads = (kh * kw or 320), 2
@@ -635,10 +636,11 @@ def test_global_fwd_route(gen, kh, kw, route):
 
 
 @pytest.mark.parametrize("kh,kw,route", [(5, 64, "hopper"), (0, 0, "hopper"),
-                                         (20, 16, "loops")])
+                                         (20, 16, "loops"),
+                                         (4, 128, "loops")])
 def test_global_bwd_route(gen, kh, kw, route):
-    """Kw 64 and no bias take the Hopper bodies, Kw 16 the mma.sync
-    loops; the two kernels choose alike."""
+    """Kw 64 and no bias take the Hopper bodies, Kw 16 and Kw 128 the
+    mma.sync loops; the two kernels choose alike."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     s, heads = (kh * kw or 320), 2
@@ -651,6 +653,87 @@ def test_global_bwd_route(gen, kh, kw, route):
     for kernel in ("dq", "dkv"):
         assert G.global_attention_bwd_route(q, kv, bh, bw, num_heads=heads,
                                             kernel=kernel) == route
+
+
+@pytest.mark.parametrize("kh", [2, 5])
+def test_global_kw128_loops_match_plain(gen, kh):
+    """A key grid 128 keys wide (JAX takes it; SAM's global grid at 2048
+    px): the three K5 kernels take their mma.sync loops, where a 64-key
+    tile is half a grid row, and each output matches its plain version;
+    the kernel chain (the kernel forward's out and lse fed to the kernel
+    dq and dkv) matches the plain chain."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, heads, d, kw, dt = 2, 2, 64, 128, torch.bfloat16
+    s = kh * kw
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+    bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    dout = _rand(gen, b, s, heads * d, dtype=dt)
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    assert G.global_attention_fwd_route(q, kv, bh, bw,
+                                        num_heads=heads) == "loops"
+    for kernel in ("dq", "dkv"):
+        assert G.global_attention_bwd_route(q, kv, bh, bw, num_heads=heads,
+                                            kernel=kernel) == "loops"
+    A.reset_launch_counts()
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, None, **kwargs)
+    want_out, want_lse = G.global_attention_fwd_lse_plain(q, kv, bh, bw,
+                                                          None, **kwargs)
+    _assert_close(out, want_out, dt, "global")
+    assert (lse - want_lse).abs().max().item() <= 4e-3
+    for res in ((out, lse), (want_out, want_lse)):
+        args = (q, kv, bh, bw, None, dout, res[1],
+                G.attention_delta(res[0], dout, heads))
+        got = (*G.global_attention_bwd_dq(*args, **kwargs),
+               G.global_attention_bwd_dkv(*args, **kwargs))
+        want = (*G.global_attention_bwd_dq_plain(*args, **kwargs),
+                G.global_attention_bwd_dkv_plain(*args, **kwargs))
+        for g_, w_, name in zip(got, want, ("dq", "dbh", "dbw", "dkv")):
+            _assert_grad_close(g_, w_, name, "global")
+    torch.cuda.synchronize()
+    assert [A.LAUNCHES[k] for k in ("global_attention_fwd_lse",
+                                    "global_attention_bwd_dq",
+                                    "global_attention_bwd_dkv")] == [1, 2, 2]
+
+
+@pytest.mark.parametrize("kh,kw", [(32, 128), (64, 64)])
+def test_global_bias_grads_follow_the_kernels_scoring(gen, kh, kw):
+    """The K5 dq kernel scores on Q^ = bf16(q D^-1/2 log2 e), the plain
+    version on the fp32 q: fed the kernel forward's lse, the plain
+    version's bias gradients sit up to a few bf16 steps from the kernel's
+    (PERF.md §6). Fed q rounded as Q^ is, the plain version gives the
+    kernel's dbias_h and dbias_w within one bf16 step plus 1e-6, at Kw 128
+    (the loops) and Kw 64 (the Hopper body): what is left is the order of
+    the fp32 sums."""
+    import math
+
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, heads, d = 1, 12, 64
+    c, scale, s = heads * d, d ** -0.5, kh * kw
+    dt = torch.bfloat16
+    q, kv, dout = (_rand(gen, b, s, w, dtype=dt) for w in (c, 2 * c, c))
+    bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+    bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    kwargs = dict(num_heads=heads, scale=scale)
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, None, **kwargs)
+    args = (q, kv, bh, bw, None, dout, lse,
+            G.attention_delta(out, dout, heads))
+    got = G.global_attention_bwd_dq(*args, **kwargs)
+    k = scale * math.log2(math.e)
+    qhat = (q.float() * k).to(dt).float() / k
+    want = G.global_attention_bwd_dq_plain(qhat, *args[1:], **kwargs)
+    fp32_q = G.global_attention_bwd_dq_plain(*args, **kwargs)
+    for name, g_, w_, f_ in zip(("dbias_h", "dbias_w"), got[1:], want[1:],
+                                fp32_q[1:]):
+        g_, w_, f_ = g_.float(), w_.float(), f_.float()
+        gap = ((g_ - w_).abs() - 2.0 ** -7 * w_.abs()).max().item()
+        fp32_gap = ((g_ - f_).abs() - 2.0 ** -7 * f_.abs()).max().item()
+        print(f"Kh {kh} Kw {kw} {name}: gap beyond one bf16 step to the "
+              f"plain version on Q^ {gap:.3e}, on the fp32 q {fp32_gap:.3e}")
+        assert gap <= 1e-6, (name, gap)
 
 
 def test_global_hopper_bwd_is_deterministic(gen):
@@ -915,6 +998,28 @@ def test_kv_len_kernels_at_a_padded_dinov2_shape(gen):
     for g_, w_, name in zip(got, want, ("dq", "dkv")):
         _assert_grad_close(g_, w_, name, "global")
     assert not got[1][:, n:].any()
+
+
+@pytest.mark.parametrize("width,heads", [(1024, 16), (1536, 24)])
+def test_global_kv_len_at_dinov2_large_widths(gen, width, heads):
+    """K2 in kv_len mode at DINOv2 ViT-L/14's and ViT-g/14's head counts
+    (16 and 24 heads of 64: row strides of 2C and 3C elements in the
+    Hopper body's tensor maps), 1536 padded tokens with 1370 valid, bf16:
+    the Hopper body against its plain version."""
+    b, s, n, dt = 2, 1536, 1370, torch.bfloat16
+    q = _rand(gen, b, s, width, dtype=dt)
+    kv = _rand(gen, b, s, 2 * width, dtype=dt)
+    kv_len = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    kwargs = dict(num_heads=heads, scale=64 ** -0.5)
+    assert A.fused_global_attention_route(q, kv, None, None, kv_len,
+                                          **kwargs) == "hopper"
+    A.reset_launch_counts()
+    got = A.fused_global_attention(q, kv, None, None, kv_len, **kwargs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_global_attention"] == 1
+    _assert_close(got, A.fused_global_attention_plain(q, kv, None, None,
+                                                      kv_len, **kwargs),
+                  dt, "global")
 
 
 @pytest.mark.parametrize("remat", ["block", "mlp"])
@@ -1302,9 +1407,30 @@ def test_fused_mlp_hopper_matches_plain(gen, rows, with_ls):
     assert torch.isfinite(got).all() and gap.item() <= K7_HOPPER_ATOL, gap
 
 
+@pytest.mark.parametrize("rows", [1, 31, 33, 300])
+@pytest.mark.parametrize("with_ls", [False, True])
+def test_fused_mlp_c1536_matches_plain(gen, rows, with_ls):
+    """K7 at DINOv2 ViT-g/14's width (C 1536, hidden 6144, bf16): the
+    loops' instance of 32-row blocks and 16-unit hidden chunks, whose first
+    product two warps share a tile of, at row counts around its block."""
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    args = _k7_inputs(gen, rows, 1536, 6144, with_ls)
+    assert M.fused_ln_mlp_residual_route(*args) == "loops"
+    A.reset_launch_counts()
+    got = M.fused_ln_mlp_residual(*args).float()
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_ln_mlp_residual"] == 1
+    want = M.fused_ln_mlp_residual_plain(*args).float()
+    gap = ((got - want).abs() - RTOL[torch.bfloat16] * want.abs()).max()
+    print(f"K7 C 1536 rows={rows} ls={with_ls}: gap {gap.item():.3e}")
+    assert torch.isfinite(got).all() and gap.item() <= K7_HOPPER_ATOL, gap
+
+
 @pytest.mark.parametrize("c,hidden,dtype,route", [
     (768, 3040, torch.bfloat16, "loops"), (384, 1536, torch.bfloat16, "loops"),
-    (768, 3072, torch.float32, "loops"), (768, 3072, torch.bfloat16, "hopper")])
+    (768, 3072, torch.float32, "loops"), (768, 3072, torch.bfloat16, "hopper"),
+    (1536, 6144, torch.bfloat16, "loops")])
 def test_fused_mlp_route(gen, c, hidden, dtype, route):
     """The Hopper body takes bf16 at C 768 with a hidden width that is a
     multiple of its 128-unit chunk; a bf16 width of 32-unit chunks, another
@@ -1334,6 +1460,13 @@ def test_k7_k8_hopper_bodies_build_without_spill(gen, tmp_path, monkeypatch):
         assert len(funcs) == 1 and all(r["spill"] == 0
                                        for r in funcs.values()), logs[name]
         assert "C75" not in logs[name], logs[name]
+    # the C 1536 loop instance (32-row blocks) keeps its 192 accumulators
+    # in registers
+    wide = {f: r for f, r in cb.ptxas_functions(
+        logs["fused_ln_mlp_residual"]).items()
+        if "mlp_bf16_kernel" in f and "1536" in f}
+    print(wide)
+    assert len(wide) == 1 and all(r["spill"] == 0 for r in wide.values())
 
 
 # K8 at the backbone's five contractions (K, N) under `int8`

@@ -268,12 +268,30 @@ class TestIsotropicSweep:
 class TestNotPortedYet:
     @pytest.mark.parametrize("over,match", [
         (dict(pipeline=True), "pipeline"),
-        (dict(wire_dtype="int16"), "int16"),
-        (dict(model_name="dinov2_vitb14"), "DINOv2"),
     ])
     def test_raises(self, over, match):
         with pytest.raises(NotImplementedError, match=match):
             tex.DenseExtractor(tex.ExtractionConfig(**over), device="cpu")
+
+    @pytest.mark.parametrize("over", [
+        dict(wire_dtype="int16"),
+        dict(model_name="dinov2_vits14", dinov2_mode="patch_embed",
+             image_size=56),
+    ], ids=["int16", "dinov2"])
+    def test_now_extracts(self, over):
+        """What raised before the DINOv2 slice now extracts: the int16 CT
+        wire (here on the small SAM-shaped model) and a DINOv2 backbone
+        by name (its patch embedding at 56 px); tests/
+        test_torch_dinov2_extract.py holds both to JAX."""
+        cfg = tex.ExtractionConfig(**dict(RUN, **over))
+        small = None if "model_name" in over else \
+            dataclasses.replace(T_SAM, **SMALL)
+        t = tex.DenseExtractor(cfg, backbone_cfg=small, device="cpu")
+        rng = np.random.default_rng(9)
+        vol, mask, _ = t_syn.synthetic_volume(rng, 64, 64, 2)
+        feats, masks, meta = t.extract_volume(vol, mask, "ct")
+        assert len(feats) == len(masks) == len(meta[0]) > 0
+        assert all(np.isfinite(f).all() for f in feats)
 
     def test_mesh_raises(self):
         with pytest.raises(NotImplementedError, match="mesh"):

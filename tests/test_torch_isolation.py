@@ -22,10 +22,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "vit_deep_radiomics_tpu")
 
 
 def test_new_modules_are_covered():
-    """The modules of the int8, fused-MLP and generic-attention paths are
-    among those the isolation checks import and parse."""
+    """The modules of the int8, fused-MLP and generic-attention paths and
+    the tfds source are among those the isolation checks import and
+    parse."""
     for mod in ("ops.quant", "ops.mlp_fused", "ops.attention",
-                "ops._kernels", "core.precision", "utils.cuda_build"):
+                "ops._kernels", "core.precision", "utils.cuda_build",
+                "data.ingest"):
         assert f"vit_deep_radiomics_tpu_torch.{mod}" in MODULES
 
 
@@ -144,8 +146,13 @@ class TestCli:
         assert (args.device, args.precision, args.model_name,
                 args.source) == ("cuda", "fast", "medsam", "isotropic")
 
-    def test_tfds_source_raises(self):
+    def test_tfds_source_raises(self, monkeypatch):
+        """The tfds source is ported; without tensorflow_datasets it
+        raises, naming the package."""
         from vit_deep_radiomics_tpu_torch.cli.extract import main
+        from vit_deep_radiomics_tpu_torch.data import ingest
 
-        with pytest.raises(NotImplementedError, match="tfds"):
-            main(["--source", "tfds"])
+        monkeypatch.setattr(ingest, "HAS_TFDS", False)
+        with pytest.raises(ImportError, match="tensorflow_datasets"):
+            main(["--source", "tfds", "-mn", "dinov2_vits14",
+                  "--image-size", "28", "--device", "cpu"])

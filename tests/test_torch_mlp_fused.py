@@ -87,6 +87,26 @@ def test_plain_matches_jax_at_the_path_width(rng, with_ls):
     assert gap.max() <= 1e-2, gap.max()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_at_vitg_width(rng, dtype):
+    """DINOv2 ViT-g/14's width (C 1536, hidden 6144), 40 rows, with the
+    layerscale: fp32 to 5e-6 and bf16 to one bf16 step plus 1e-2, the
+    limits of the widths above."""
+    x, *rest = _inputs(rng, 40, 1536, 6144, True)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jax_fused(jnp.asarray(x).astype(jdt),
+                     *(jnp.asarray(a) for a in rest), eps=1e-6, chunk=512)
+    got = M.fused_ln_mlp_residual(
+        torch.from_numpy(x).to(getattr(torch, dtype)),
+        *(torch.from_numpy(a) for a in rest), eps=1e-6)
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=5e-6, rtol=5e-6)
+    else:
+        gap = np.abs(got - want) - 2.0 ** -7 * np.abs(want)
+        assert gap.max() <= 1e-2, gap.max()
+
+
 def test_route_is_plain_on_cpu(rng):
     t = [None if a is None else torch.from_numpy(a)
          for a in _inputs(rng, 8, 64, 256, True)]
@@ -139,7 +159,9 @@ def test_unbuilt_width_refused_before_launch():
     (96, 384, torch.bfloat16, "width 96"),
     (768, 3050, torch.bfloat16, "hidden width 3050"),
     (768, 3080, torch.float32, "hidden width 3080"),
-    (768, 3072, torch.float16, "float32 or bfloat16")])
+    (768, 3072, torch.float16, "float32 or bfloat16"),
+    (1536, 6144, torch.float32, "width 1536 in torch.float32"),
+    (1536, 6152, torch.bfloat16, "hidden width 6152")])
 @pytest.mark.parametrize("entry", ["route", "kernel"])
 def test_refused_before_launch(c, hidden, dtype, err, entry):
     """What neither body takes is refused by the route and by the wrapper
@@ -156,6 +178,35 @@ def test_refused_before_launch(c, hidden, dtype, err, entry):
         else M.fused_ln_mlp_residual
     A.reset_launch_counts()
     with pytest.raises((ValueError, TypeError), match=err):
+        fn(*args)
+    assert A.LAUNCHES["fused_ln_mlp_residual"] == 0
+
+
+class _Built(Exception):
+    """Raised in place of a kernel build: every check before it passed."""
+
+
+@pytest.mark.parametrize("entry", ["route", "kernel"])
+def test_vitg_width_admitted(entry, monkeypatch):
+    """bf16 at C 1536 with ViT-g/14's hidden 6144 passes every check of
+    the route and of the wrapper and goes on to the build (the card tests
+    hold the kernel); meta tensors stand in for CUDA ones and the build is
+    replaced by a marker."""
+    def built(*args, **kwargs):
+        raise _Built()
+
+    monkeypatch.setattr(M, "_load", built)
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(*shape, device="meta", dtype=dt)
+
+    c, hidden = 1536, 6144
+    args = (meta(4, c, dt=torch.bfloat16), meta(c), meta(c),
+            meta(c, hidden), meta(hidden), meta(hidden, c), meta(c), meta(c))
+    fn = M.fused_ln_mlp_residual_route if entry == "route" \
+        else M.fused_ln_mlp_residual
+    A.reset_launch_counts()
+    with pytest.raises(_Built):
         fn(*args)
     assert A.LAUNCHES["fused_ln_mlp_residual"] == 0
 

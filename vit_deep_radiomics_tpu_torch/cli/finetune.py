@@ -161,8 +161,8 @@ def main(argv=None) -> int:
 
     if args.zero1:
         raise NotImplementedError(
-            "--zero1 is multi-device work, not ported yet (ROADMAP.md "
-            "Queue 1 item 10)")
+            "--zero1 is multi-device work, not ported yet "
+            "(parallel/sharding.py has no port)")
     device = default_device(args.device)
     bcfg, images, masks, onehot = _load_samples(args)
     n = images.shape[0]

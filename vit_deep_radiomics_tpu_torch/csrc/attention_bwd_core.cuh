@@ -160,6 +160,13 @@ __host__ __device__ inline bool takes(int D, bool has_bias, int kh, int kw) {
   return D == kD && (!has_bias || (kw == 64 && kh <= kMaxGridRows));
 }
 
+// The key-grid widths the three K5 kernels take with a bias: an 8-key mma
+// tile lies in one grid row, and a 64-key tile holds whole grid rows (Kw
+// 8..64) or half of one (Kw 128, which the mma.sync loops take).
+__host__ __device__ inline bool bias_width_ok(int kw) {
+  return kw == 8 || kw == 16 || kw == 32 || kw == 64 || kw == 128;
+}
+
 // Registers a thread under setmaxnreg in a block of `consumers` consumer
 // warpgroups and one producer warpgroup. ptxas gives every thread of the
 // launch 65536 / threads registers (rounded down to 8, so 168 at 384

@@ -50,9 +50,25 @@
 //    over the now dead y tile and stores it by TMA; rows past `rows` are
 //    normalised as zeros and clipped by the store.
 // fp32 inputs (the JAX tests' type; not on the card's main path) and bf16
-// at C 384 or 1024 keep the first version's loops below: 32-row (bf16,
-// mma.sync) or 16-row (fp32, CUDA cores) blocks that stage the weight
-// chunks synchronously and re-read all of w1 and w2 from L2 per block.
+// at C 384, 1024 or 1536 keep the first version's loops below: 32-row
+// (bf16, mma.sync) or 16-row (fp32, CUDA cores) blocks that re-read all of
+// w1 and w2 from L2 per block. The fp32 loop stages its weight chunks
+// synchronously; the bf16 loop by cp.async, each chunk's w1 while the
+// chunk before runs its second product and its w2 while its own first
+// product runs.
+//
+// At C 1536 (DINOv2 ViT-g/14, hidden 6144; bf16 only) the 32-unit hidden
+// chunks do not fit: the y rows, w1 and w2 chunks would take 323 KB of
+// shared memory. Its instance keeps 32-row blocks with 16-unit chunks (222
+// KB); a chunk's first product is then four m16n8 tiles, so two warps
+// share each tile, half of the 1536 y columns each, and add their partial
+// sums through shared memory; the fp32 output accumulator is 192 registers
+// a thread (255 in all, no spill). It does the bound's operations once,
+// but every 32 rows re-read both weights (37.7 MB) from L2: at ViT-g's
+// 5480 rows that is 172 blocks and 6.5 GB of L2 reads per call, which is
+// what holds it. On an H100 SXM (PERF.md): 3.54 ms, 17 times its bound;
+// 16-row blocks 4.56 ms, and 6.02 ms with the chunks staged synchronously
+// (each 16-byte load's latency paid in turn).
 
 #include "hopper.cuh"
 
@@ -154,7 +170,12 @@ __device__ __forceinline__ T finish(const MlpParams& p, int row, int col,
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
+// the loops' bf16 blocks at C 384, 768 and 1024: 32 rows, 32-unit hidden
+// chunks; at C 1536 (DINOv2 ViT-g/14) 32 rows and 16-unit chunks, so that
+// the staged y rows and weight chunks fit in shared memory (222 KB)
 constexpr int kRows = 32, kChunk = 32, kThreads = 256;
+constexpr int kRowsG = 32;
+constexpr int kChunkG = 16;
 
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
                                                const uint32_t b[2]) {
@@ -170,15 +191,45 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int C>
+// 16 bytes global -> shared without a register round trip (L2 only), so a
+// thread's copies of a weight chunk are all in flight at once
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   vdr::sm90::smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `kPending` committed groups are still in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// R rows a block, CH hidden units a chunk. The first product of a chunk is
+// MT x (CH / 8) m16n8 tiles; with fewer tiles than the 8 warps, KS warps
+// share a tile, each over C / KS of the y columns, and add their partial
+// sums through shared memory (part: one float4 a lane of every warp).
+template <int C, int R, int CH>
 struct Bf16Layout {
+  static constexpr int MT = R / 16;               // m16 row tiles
+  static constexpr int HT = MT * (CH / 8);        // first-product tiles
+  static constexpr int KS = (kThreads / 32) / HT; // warps a tile
+  static_assert(HT * KS == kThreads / 32 && C % (16 * KS) == 0,
+                "the first product's tiles must split over the warps");
   static constexpr int LDY = C + 8;        // ys and w1s row (elements)
-  static constexpr int LDW2 = kChunk + 8;  // w2s row
-  static constexpr int LDG = kChunk + 8;   // gs row
+  static constexpr int LDW2 = CH + 8;      // w2s row
+  static constexpr int LDG = CH + 8;       // gs row
+  static constexpr size_t part_bytes =
+      KS > 1 ? sizeof(float) * 4 * kThreads : 0;
   static constexpr size_t bytes =
       sizeof(__nv_bfloat16) *
-      ((size_t)kRows * LDY + (size_t)kChunk * LDY + (size_t)C * LDW2 +
-       (size_t)kRows * LDG);
+          ((size_t)R * LDY + (size_t)CH * LDY + (size_t)C * LDW2 +
+           (size_t)R * LDG) +
+      part_bytes;
+  static_assert(bytes <= 227 * 1024, "K7's loop tiles exceed 227 KB");
 };
 
 // Fragments (PTX ISA, mma.m16n8k16 .bf16), lane = 4*g + c:
@@ -186,51 +237,68 @@ struct Bf16Layout {
 //              a3 = (g+8, 2c+8..)
 //   B (16x8):  b0 = (k 2c..2c+1, n g), b1 = (k 2c+8..2c+9, n g)
 //   C (16x8):  c0,c1 = (g, 2c..2c+1), c2,c3 = (g+8, 2c..2c+1)
-template <int C>
+template <int C, int R, int CH>
 __global__ void __launch_bounds__(kThreads)
     mlp_bf16_kernel(MlpParams p) {
-  using L = Bf16Layout<C>;
+  using L = Bf16Layout<C, R, CH>;
+  constexpr int MT = L::MT, KS = L::KS;
   constexpr int NT = C / 64;  // output n8 tiles per warp (C / 8 columns)
+  constexpr int KC = C / KS;  // y columns a warp's first product covers
   extern __shared__ __align__(16) char smem_raw[];
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* w1s = ys + kRows * L::LDY;
-  __nv_bfloat16* w2s = w1s + kChunk * L::LDY;
+  __nv_bfloat16* w1s = ys + R * L::LDY;
+  __nv_bfloat16* w2s = w1s + CH * L::LDY;
   __nv_bfloat16* gs = w2s + C * L::LDW2;
+  float* part = reinterpret_cast<float*>(gs + R * L::LDG);  // KS > 1
   const __nv_bfloat16* w1 = static_cast<const __nv_bfloat16*>(p.w1);
   const __nv_bfloat16* w2 = static_cast<const __nv_bfloat16*>(p.w2);
 
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
-  layer_norm_rows<__nv_bfloat16, C>(p, row0, kRows, ys, L::LDY);
 
-  float acc[2][NT][4];
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  const int hm = warp / 4, hn = warp % 4;  // this warp's h tile
+  // this warp's h tile and its share of the y columns
+  const int hm = (warp % L::HT) / (CH / 8), hn = warp % (CH / 8);
+  const int kbeg = (warp / L::HT) * KC;
   const int ocol0 = warp * (C / 8);        // this warp's output columns
 
-  for (int h0 = 0; h0 < p.H; h0 += kChunk) {
-    __syncthreads();  // ys ready (first pass); w1s/w2s/gs free (later)
-    // w1 rows h0..h0+31 (contiguous), w2 columns h0..h0+31 of every row
-    for (int i = threadIdx.x; i < kChunk * (C / 8); i += kThreads) {
-      const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1s + r * L::LDY + c8) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)(h0 + r) * C + c8);
-    }
-    for (int i = threadIdx.x; i < C * (kChunk / 8); i += kThreads) {
-      const int r = i / (kChunk / 8), c8 = (i % (kChunk / 8)) * 8;
-      *reinterpret_cast<uint4*>(w2s + r * L::LDW2 + c8) =
-          *reinterpret_cast<const uint4*>(w2 + (size_t)r * p.H + h0 + c8);
-    }
-    __syncthreads();
-    // h tile (16 rows x 8 hidden units) over the full C
+  // w1 rows h0..h0+CH-1 (contiguous) and w2 columns h0..h0+CH-1 of every
+  // row, each one cp.async group. A chunk's w1 is fetched while the chunk
+  // before runs its second product, its w2 while its own first product
+  // runs: at most two groups in flight, waited for in order.
+  auto fetch_w1 = [&](int h0) {
+    if (h0 < p.H)
+      for (int i = threadIdx.x; i < CH * (C / 8); i += kThreads) {
+        const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+        cp_async16(w1s + r * L::LDY + c8, w1 + (size_t)(h0 + r) * C + c8);
+      }
+    cp_async_commit();
+  };
+  auto fetch_w2 = [&](int h0) {
+    if (h0 < p.H)
+      for (int i = threadIdx.x; i < C * (CH / 8); i += kThreads) {
+        const int r = i / (CH / 8), c8 = (i % (CH / 8)) * 8;
+        cp_async16(w2s + r * L::LDW2 + c8, w2 + (size_t)r * p.H + h0 + c8);
+      }
+    cp_async_commit();
+  };
+  fetch_w1(0);
+  fetch_w2(0);
+  layer_norm_rows<__nv_bfloat16, C>(p, row0, R, ys, L::LDY);
+
+  for (int h0 = 0; h0 < p.H; h0 += CH) {
+    cp_async_wait<1>();   // this chunk's w1 (its w2 may be in flight)
+    __syncthreads();      // ys ready (first pass); w1s complete
+    // h tile (16 rows x 8 hidden units) over this warp's KC columns of y
     float h[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 8
-    for (int k0 = 0; k0 < C; k0 += 16) {
+    for (int k0 = kbeg; k0 < kbeg + KC; k0 += 16) {
       const __nv_bfloat16* ar = ys + (hm * 16 + g) * L::LDY + k0 + 2 * c;
       const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * L::LDY), ld32(ar + 8),
                              ld32(ar + 8 * L::LDY + 8)};
@@ -238,7 +306,26 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t b[2] = {ld32(br), ld32(br + 8)};
       mma_bf16_16816(h, a, b);
     }
-    {
+    if constexpr (KS > 1) {
+      // the tile's first warp adds the others' partial sums, in warp order
+      *reinterpret_cast<float4*>(part + 4 * threadIdx.x) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      __syncthreads();
+      if (warp < L::HT) {
+#pragma unroll
+        for (int s = 1; s < KS; ++s) {
+          const float4 o = *reinterpret_cast<const float4*>(
+              part + 4 * (threadIdx.x + s * L::HT * 32));
+          h[0] += o.x;
+          h[1] += o.y;
+          h[2] += o.z;
+          h[3] += o.w;
+        }
+      }
+    }
+    __syncthreads();      // every warp is done with w1s (and part)
+    fetch_w1(h0 + CH);
+    if (warp < L::HT) {
       const int col = hn * 8 + 2 * c;
       const float bb0 = p.b1[h0 + col], bb1 = p.b1[h0 + col + 1];
       __nv_bfloat16* g0 = gs + (hm * 16 + g) * L::LDG + col;
@@ -248,13 +335,14 @@ __global__ void __launch_bounds__(kThreads)
           __floats2bfloat162_rn(gelu_tanh(h[2] + bb0),
                                 gelu_tanh(h[3] + bb1));
     }
+    cp_async_wait<1>();   // this chunk's w2 (the next w1 may be in flight)
     __syncthreads();
-    // acc += g (32 x 32) . w2 chunk, this warp's C / 8 columns
+    // acc += g (R x CH) . w2 chunk, this warp's C / 8 columns
 #pragma unroll
-    for (int ks = 0; ks < kChunk; ks += 16) {
-      uint32_t a[2][4];
+    for (int ks = 0; ks < CH; ks += 16) {
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < MT; ++i) {
         const __nv_bfloat16* ar = gs + (i * 16 + g) * L::LDG + ks + 2 * c;
         a[i][0] = ld32(ar);
         a[i][1] = ld32(ar + 8 * L::LDG);
@@ -266,15 +354,17 @@ __global__ void __launch_bounds__(kThreads)
         const __nv_bfloat16* br =
             w2s + (ocol0 + j * 8 + g) * L::LDW2 + ks + 2 * c;
         const uint32_t b[2] = {ld32(br), ld32(br + 8)};
-        mma_bf16_16816(acc[0][j], a[0], b);
-        mma_bf16_16816(acc[1][j], a[1], b);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_bf16_16816(acc[i][j], a[i], b);
       }
     }
+    __syncthreads();      // every warp is done with w2s and gs
+    fetch_w2(h0 + CH);
   }
 
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < MT; ++i) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row0 + i * 16 + g + 8 * half;
@@ -393,6 +483,7 @@ constexpr int kGBytes = kRowsH * kChunkH * 2;   // one g buffer
 constexpr size_t kSmemH =
     1024 + kYBytes + 2 * kGBytes + (size_t)2 * kStagesH * kSlot;
 constexpr int kErrTensorMap = -2;   // cuTensorMapEncodeTiled failed
+constexpr int kErrNoBuild = -1;     // a width (or dtype) without a build
 static_assert(kSmemH <= 227 * 1024, "K7's tiles exceed 227 KB");
 
 // bf16 byte offset of element (r, col) in a row-major tile of 64-column
@@ -670,17 +761,23 @@ int launch_hopper(const MlpParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int C, int R, int CH>
+int launch_bf16(const MlpParams& p, cudaStream_t stream) {
+  if (p.H % CH) return (int)cudaErrorInvalidValue;
+  const size_t smem = Bf16Layout<C, R, CH>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_bf16_kernel<C, R, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mlp_bf16_kernel<C, R, CH><<<(p.rows + R - 1) / R, kThreads, smem,
+                              stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch(const MlpParams& p, int dtype, cudaStream_t stream) {
   if (dtype != 0) {
-    if (p.H % kChunk) return (int)cudaErrorInvalidValue;
-    const size_t smem = Bf16Layout<C>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        mlp_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    mlp_bf16_kernel<C><<<(p.rows + kRows - 1) / kRows, kThreads, smem,
-                         stream>>>(p);
+    return launch_bf16<C, kRows, kChunk>(p, stream);
   } else {
     if (p.H % kChunkF) return (int)cudaErrorInvalidValue;
     const size_t smem = F32Layout<C>::bytes;
@@ -700,6 +797,7 @@ extern "C" {
 
 const char* vdr_error_string(int err) {
   if (err == kErrTensorMap) return "cuTensorMapEncodeTiled failed";
+  if (err == kErrNoBuild) return "no K7 build for this width and dtype";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
@@ -710,10 +808,11 @@ int vdr_fused_ln_mlp_residual_route(int C, int H, int dtype) {
 }
 
 // Returns 0 on success, a cudaError_t after a failed launch, -1 for a
-// width C without a build (384, 768 and 1024 are built), or -2 when a TMA
-// descriptor cannot be made. dtype: 0 = fp32, 1 = bf16. H must be a
-// multiple of 32 (bf16) or 16 (fp32); bf16 at C 768 with H a multiple of
-// 128 takes the Hopper body, every other call the loops.
+// width C without a build (384, 768 and 1024 are built in both dtypes,
+// 1536 in bf16), or -2 when a TMA descriptor cannot be made. dtype: 0 =
+// fp32, 1 = bf16. H must be a multiple of 32 (bf16; 16 at C 1536) or 16
+// (fp32); bf16 at C 768 with H a multiple of 128 takes the Hopper body,
+// every other call the loops.
 int vdr_fused_ln_mlp_residual(const void* x, const float* ln_scale,
                               const float* ln_bias, const void* w1,
                               const float* b1, const void* w2,
@@ -728,7 +827,10 @@ int vdr_fused_ln_mlp_residual(const void* x, const float* ln_scale,
     case 384: return launch<384>(p, dtype, s);
     case 768: return launch<768>(p, dtype, s);
     case 1024: return launch<1024>(p, dtype, s);
-    default: return -1;
+    case 1536:
+      return dtype != 0 ? launch_bf16<1536, kRowsG, kChunkG>(p, s)
+                        : kErrNoBuild;
+    default: return kErrNoBuild;
   }
 }
 

@@ -50,9 +50,10 @@
 //    -1e30 log2 e by one flag per block; queries past S read zeros (TMA
 //    fill) and an lse of +inf, so P = 0 there.
 // Every output element is written once by one thread: no atomics, the
-// same bits on every run. Biased calls with Kw in {8, 16, 32} keep the
-// first loops below (mma.sync, one synchronously staged query tile, the
-// bias read per score from shared memory); vdr_global_attention_bwd_route
+// same bits on every run. Biased calls with Kw in {8, 16, 32, 128} keep
+// the first loops below (mma.sync, one synchronously staged query tile, the
+// bias read per score from shared memory; at Kw 128 a block's 64 keys are
+// half of one grid row); vdr_global_attention_bwd_route
 // reports the choice, which the C entry makes by shape alone.
 
 #include "attention_bwd_core.cuh"
@@ -61,7 +62,7 @@ namespace {
 using vdr::bf16;
 
 // ---------------------------------------------------------------------------
-// First loops (mma.sync): biased calls with Kw in {8, 16, 32}
+// First loops (mma.sync): biased calls with Kw in {8, 16, 32, 128}
 // ---------------------------------------------------------------------------
 
 constexpr int D = 64;
@@ -70,9 +71,14 @@ constexpr int BQ = 64;   // queries per tile
 constexpr int LD = D + 8;
 constexpr int BS = BQ + 4;   // row stride of the staged bias terms
 
+// grid rows a block's 64 keys span: 64 / kw, or one (Kw 128, half a row)
+__host__ __device__ inline int block_grid_rows(int kw) {
+  return kw > BK ? 1 : BK / kw;
+}
+
 size_t smem_bytes(int kw, bool has_bias) {
   size_t n = 2 * BQ * LD * sizeof(bf16) + 2 * BQ * sizeof(float);
-  if (has_bias) n += (size_t)(BK / kw + kw) * BS * sizeof(float);
+  if (has_bias) n += (size_t)(block_grid_rows(kw) + kw) * BS * sizeof(float);
   return n;
 }
 
@@ -94,7 +100,7 @@ __global__ void __launch_bounds__(BK * 2)
   const int n_keys = lim > 0 ? lim : p.S;
   const bool has_bias = p.bias_h != nullptr;
   const bool add_bias = has_bias && lim > 0;
-  const int nkr = has_bias ? BK / p.kw : 0;   // grid rows of the key block
+  const int nkr = has_bias ? block_grid_rows(p.kw) : 0;  // grid rows here
   const int krow0 = has_bias ? k0 / p.kw : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
@@ -566,7 +572,8 @@ int vdr_global_attention_bwd_route(int S, int H, int D, int kh, int kw,
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
-// for a head dim other than 64, -2 for a bias with kw not in {8,16,32,64},
+// for a head dim other than 64, -2 for a bias with kw not in
+// {8,16,32,64,128},
 // -3 when a TMA descriptor cannot be made.
 int vdr_global_attention_bwd_dkv(const void* q, const void* kv,
                                  const void* bias_h, const void* bias_w,
@@ -576,7 +583,7 @@ int vdr_global_attention_bwd_dkv(const void* q, const void* kv,
                                  int kh, int kw, float scale, void* stream) {
   if (D != 64) return -1;
   const bool has_bias = bias_h != nullptr;
-  if (has_bias && (kw % 8 != 0 || BK % kw != 0)) return -2;
+  if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vdr::k5h::takes(D, has_bias, kh, kw)) {
     const HopperParams hp{static_cast<const bf16*>(bias_h), kv_len, lse,

@@ -15,8 +15,9 @@
 //     dbias_h[i, key row]  = sum of dS over the row's keys
 //     dbias_w[i, key col] += dS, kept per key position in registers
 // and dq is scaled by D^-1/2 and stored once. The bias gradients need a
-// key-grid width kw in {8, 16, 32, 64}: a 64-key tile then holds whole
-// grid rows, so every key keeps its grid column across tiles.
+// key-grid width kw in {8, 16, 32, 64, 128}: a 64-key tile then holds
+// whole grid rows, so every key keeps its grid column across tiles, or
+// (Kw 128) half of one, whose columns the loops fold per tile.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the
 // fine-tuning path's shapes (2 x 4096 tokens x 12 heads of 64) it does
@@ -51,8 +52,8 @@
 //    keys past S read zeros (TMA fill), rows past S an lse of +inf.
 // Every output element is written once by one thread, after sums in a
 // fixed order: the same bits on every run. Biased calls with Kw in
-// {8, 16, 32} keep the first loops below (mma.sync, synchronously staged
-// K/V tiles, the bias read per score from shared memory);
+// {8, 16, 32, 128} keep the first loops below (mma.sync, synchronously
+// staged K/V tiles, the bias read per score from shared memory);
 // vdr_global_attention_bwd_route reports the choice, which the C entry
 // makes by shape alone.
 
@@ -62,7 +63,7 @@ namespace {
 using vdr::bf16;
 
 // ---------------------------------------------------------------------------
-// First loops (mma.sync): biased calls with Kw in {8, 16, 32}
+// First loops (mma.sync): biased calls with Kw in {8, 16, 32, 128}
 // ---------------------------------------------------------------------------
 
 constexpr int D = 64;
@@ -72,10 +73,15 @@ constexpr int LD = D + 8;
 constexpr int NT = BK / 8;
 constexpr int BS = vdr::bias_stride<BQ>();
 
+// Row stride of the dbias_w staging: a tile's key positions (Kw <= 64,
+// folded by column at the end) or the grid's columns (Kw 128)
+__host__ __device__ inline int dbw_stride(int kw) { return kw > BK ? kw : BK; }
+
 size_t smem_bytes(int kh, int kw, bool has_bias) {
   size_t n = 2 * BK * LD * sizeof(bf16) + BK * sizeof(int2);
   if (has_bias)
-    n += ((size_t)(kh + kw) * BS + (size_t)BQ * kh + BQ * BK) * sizeof(float);
+    n += ((size_t)(kh + kw) * BS + (size_t)BQ * kh +
+          (size_t)BQ * dbw_stride(kw)) * sizeof(float);
   return n;
 }
 
@@ -88,7 +94,8 @@ __global__ void __launch_bounds__(BQ * 2)
   int2* ktab = reinterpret_cast<int2*>(vs + BK * LD);    // [BK]
   float* bias_s = reinterpret_cast<float*>(ktab + BK);   // [kh + kw][BS]
   float* dbh_s = bias_s + (p.kh + p.kw) * BS;            // [BQ][kh]
-  float* dbw_s = dbh_s + BQ * p.kh;                      // [BQ][BK]
+  float* dbw_s = dbh_s + BQ * p.kh;             // [BQ][dbw_stride(kw)]
+  const int ldw = dbw_stride(p.kw);
 
   const Tile t = tile_of(p, BQ);
   const int C = p.H * D;
@@ -97,6 +104,8 @@ __global__ void __launch_bounds__(BQ * 2)
   if (has_bias) {
     stage_bias<bf16, BQ>(p, t, bias_s);
     for (int i = threadIdx.x; i < BQ * p.kh; i += blockDim.x) dbh_s[i] = 0.f;
+    if (p.kw > BK)
+      for (int i = threadIdx.x; i < BQ * ldw; i += blockDim.x) dbw_s[i] = 0.f;
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
@@ -208,19 +217,36 @@ __global__ void __launch_bounds__(BQ * 2)
         mma_bf16_16816(dq[dt], a, b);
       }
     }
+    // Kw 128: the tile is half a grid row, columns k0 % kw ..; fold its
+    // per-position sums into the grid columns (each thread its own)
+    if (has_bias && p.kw > BK) {
+      const int col0 = k0 % p.kw;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lr = e < 2 ? lrow_lo : lrow_hi;
+          dbw_s[lr * ldw + col0 + nt * 8 + 2 * c + (e & 1)] += dbw_acc[nt][e];
+          dbw_acc[nt][e] = 0.f;
+        }
+      }
+    }
   }
   if (warp_live)
     store_c64(gp.dq + rowbase, C, dq, r_lo, r_hi, p.seg, c, gp.scale);
   if (!has_bias) return;
 
-  // dbias_w: key position j of a tile has grid column j % kw in every
-  // tile (64 % kw == 0); fold the per-position sums through shared memory
+  // dbias_w: with 64 % kw == 0 key position j of a tile has grid column
+  // j % kw in every tile; fold the per-position sums through shared memory
+  // (Kw 128 folded them per tile above)
+  if (p.kw <= BK) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int lr = e < 2 ? lrow_lo : lrow_hi;
-      dbw_s[lr * BK + nt * 8 + 2 * c + (e & 1)] = dbw_acc[nt][e];
+      for (int e = 0; e < 4; ++e) {
+        const int lr = e < 2 ? lrow_lo : lrow_hi;
+        dbw_s[lr * BK + nt * 8 + 2 * c + (e & 1)] = dbw_acc[nt][e];
+      }
     }
   }
   __syncthreads();
@@ -231,7 +257,7 @@ __global__ void __launch_bounds__(BQ * 2)
   for (int i = threadIdx.x; i < nrows * p.kw; i += blockDim.x) {
     const int r = i / p.kw, col = i % p.kw;
     float sum = 0.f;
-    for (int j = col; j < BK; j += p.kw) sum += dbw_s[r * BK + j];
+    for (int j = col; j < ldw; j += p.kw) sum += dbw_s[r * ldw + j];
     gp.dbw[brow * p.kw + i] = __float2bfloat16(sum);
   }
 }
@@ -585,7 +611,8 @@ int vdr_global_attention_bwd_route(int S, int H, int D, int kh, int kw,
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
-// for a head dim other than 64, -2 for a bias with kw not in {8,16,32,64},
+// for a head dim other than 64, -2 for a bias with kw not in
+// {8,16,32,64,128},
 // -3 when a TMA descriptor cannot be made.
 int vdr_global_attention_bwd_dq(const void* q, const void* kv,
                                 const void* bias_h, const void* bias_w,
@@ -596,7 +623,7 @@ int vdr_global_attention_bwd_dq(const void* q, const void* kv,
                                 void* stream) {
   if (D != 64) return -1;
   const bool has_bias = bias_h != nullptr;
-  if (has_bias && (kw % 8 != 0 || BK % kw != 0)) return -2;
+  if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vdr::k5h::takes(D, has_bias, kh, kw)) {
     const HopperParams hp{static_cast<const bf16*>(bias_h),

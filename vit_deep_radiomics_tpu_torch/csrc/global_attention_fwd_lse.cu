@@ -28,10 +28,11 @@
 // does: Q^ = bf16(q D^-1/2 log2 e) formed once in the A fragments, the
 // bias terms times log2 e in fp32, masked keys at -1e30 log2 e; a forward
 // that scaled the fp32 Q K^T instead would hand the backward an lse its
-// P rows do not sum to. Biased calls with Kw in {8, 16, 32} keep the first
-// mma.sync loop of flash_attention_core.cuh (synchronously staged K/V
-// tiles, the bias read per score from shared memory), as the backward
-// keeps its loops for them. vdr_global_attention_fwd_route reports the
+// P rows do not sum to. Biased calls with Kw in {8, 16, 32, 128} keep the
+// first mma.sync loop of flash_attention_core.cuh (synchronously staged
+// K/V tiles, the bias read per score from shared memory through a key
+// table, so a 64-key tile may hold half a grid row), as the backward keeps
+// its loops for them. vdr_global_attention_fwd_route reports the
 // choice, which the C entry makes by shape alone.
 
 #include "attention_bwd_core.cuh"
@@ -71,7 +72,8 @@ int vdr_global_attention_fwd_route(int S, int H, int D, int kh, int kw,
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
-// for a head dim other than 64, -2 for a bias with kw not in {8,16,32,64},
+// for a head dim other than 64, -2 for a bias with kw not in
+// {8,16,32,64,128},
 // -3 when a TMA descriptor cannot be made.
 int vdr_global_attention_fwd_lse(const void* q, const void* kv,
                                  const void* bias_h, const void* bias_w,
@@ -80,7 +82,7 @@ int vdr_global_attention_fwd_lse(const void* q, const void* kv,
                                  float scale, void* stream) {
   if (D != 64) return -1;
   const bool has_bias = bias_h != nullptr;
-  if (has_bias && (kw % 8 != 0 || kBlockK % kw != 0)) return -2;
+  if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vdr::k5h::takes(D, has_bias, kh, kw)) {
     const gfwd::Params p{static_cast<const __nv_bfloat16*>(bias_h),

@@ -4,8 +4,8 @@ The port's own copy of the contract of
 ``vit_deep_radiomics_tpu/data/feature_store.py``:
 
 * HDF5 layout ``{patient_id}/features/{i}`` and ``{patient_id}/masks/{i}``,
-  lzf-compressed through h5py's own filter (the native parallel codec is
-  still to port, ROADMAP.md Queue 1 item 4), overwrite-if-exists,
+  lzf-compressed through h5py's own filter (the parallel LZF writer over
+  ``native/lzf_codec.cpp`` has no port), overwrite-if-exists,
 * per-patient parquet with columns feature_id, slice, angle, flip,
   patient_id, label, dataset, modality, augmentation, spatial_res.
 

@@ -5,21 +5,28 @@ Counterpart of ``vit_deep_radiomics_tpu/engine/extract.py``. Per volume:
 * the volume goes to the device once and is normalised there,
 * every augmentation's flip→rotate→crop→resize is one bilinear gather
   (``ops/sampling.py``),
-* the frozen SAM ViT-B/16 runs on slice batches, its attention in the
-  fused CUDA kernels K1 and K2 (at an image size whose global grid they
-  refuse, e.g. 768, the global layers in K3), under any precision policy:
-  ``fast``/``parity``, ``inference`` (bf16 parameters after init or load)
-  or ``int8`` (the per-block matmuls in K8); ``VDR_FUSED_MLP=1`` runs the
-  frozen bf16 blocks' MLP half in K7,
-* only the bucketed ROI crops of the (64, 64, 256) feature maps and of the
-  transformed masks come back to the host, in one copy each, for the
-  variable-shape crop and the HDF5/parquet store.
+* the frozen backbone runs on slice batches: SAM ViT-B/16 (MedSAM), its
+  attention in the fused CUDA kernels K1 and K2 (at an image size whose
+  global grid they refuse, e.g. 768, the global layers in K3), or a DINOv2
+  ViT-*/14, either its patch embedding alone at 896 px (``dinov2_mode=
+  "patch_embed"``, the reference's mode) or the whole transformer at 518
+  px (``"full"``: K2 in kv_len mode over the 1370 tokens padded to 1536);
+  under any precision policy: ``fast``/``parity``, ``inference`` (bf16
+  parameters after init or load) or ``int8`` (the per-block matmuls in
+  K8); ``VDR_FUSED_MLP=1`` runs the frozen bf16 blocks' MLP half in K7,
+* only the bucketed ROI crops of the (grid, grid, channels) feature maps
+  (SAM 64 x 64 x 256, DINOv2 ``full`` 37 x 37 x width, ``patch_embed`` 64 x
+  64 x width) and of the transformed masks come back to the host, in one
+  copy each, for the variable-shape crop and the HDF5/parquet store.
 
 Geometry follows the reference crop arithmetic of ``ops/roi.py`` exactly,
-so features, masks and metadata line up with the JAX sweep's.
+so features, masks and metadata line up with the JAX sweep's. Sources: the
+isotropic HDF5 (:func:`extract_isotropic_dataset`) and tfds patient
+datasets (:func:`extract_tfds_dataset`, ``data/ingest.py``).
 
-Not ported yet (they raise): device meshes and pipeline extraction, the
-``int16`` CT wire dtype, the tfds source and the DINOv2 backbones.
+Not ported (they raise): device meshes, pipeline extraction and the
+multi-process sweep (``core/mesh.py``, ``parallel/pipeline.py`` and
+``core/distributed.py`` have no port).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from .. import default_device
 from ..core.precision import Policy, get_policy
 from ..data import feature_store
 from ..data.synthetic import read_isotropic_hdf5
-from ..models.convert import load_medsam_state_dict
+from ..models.convert import load_dinov2_state_dict, load_medsam_state_dict
 from ..models.vit import DINOV2_CONFIGS, SAM_VIT_B, ViTDense, ViTDenseConfig
 from ..ops import preprocess as pp
 from ..ops import roi
@@ -52,6 +59,7 @@ __all__ = [
     "DenseExtractor",
     "sweep_crop_buckets",
     "extract_isotropic_dataset",
+    "extract_tfds_dataset",
 ]
 
 FLIPS = (None, "horizontal", "vertical")
@@ -89,9 +97,13 @@ class ExtractionConfig:
     """Extraction run settings (the JAX config's fields that the port
     runs; the ones it does not run yet raise when set)."""
 
-    model_name: str = "medsam"
-    model_path: str | None = None       # MedSAM .pth (random init if None)
-    image_size: int | None = None       # default 1024; medsam takes any
+    model_name: str = "medsam"          # 'medsam' | 'dinov2_vit{s,b,l,g}14'
+    model_path: str | None = None       # .pth checkpoint (random if None)
+    image_size: int | None = None       # default 1024 medsam; dinov2 896
+                                        # (patch_embed) or 518 (full)
+    dinov2_mode: str = "patch_embed"    # 'patch_embed' (the reference's
+                                        # mode) or 'full' (the whole
+                                        # transformer's dense tokens)
     slice_batch: int = 4
     precision: str = "fast"
     use_flash: bool = True
@@ -99,7 +111,11 @@ class ExtractionConfig:
     ct_window: tuple[float, float] = (800.0, 40.0)   # (width, level)
     flips: tuple = FLIPS
     angles: tuple = ANGLES
-    wire_dtype: str = "float32"         # 'int16' not ported: raises
+    # CT host→device wire dtype: 'float32' (exact) or 'int16' (fractional
+    # HU rounded to the nearest integer on the host, widened to fp32 on the
+    # device: half the upload bytes, at most 0.5 HU against the 800 HU
+    # window). PET stays float.
+    wire_dtype: str = "float32"
     # augmentations per resample group (None: as many as fit ~768 MB)
     aug_group: int | None = None
     # sweep-shared crop-bucket floors (None: per-volume)
@@ -159,15 +175,21 @@ def sweep_crop_buckets(
     return mb, fb
 
 
-def _backbone_for(cfg: ExtractionConfig) -> ViTDenseConfig:
-    """Model config for a reference model name (medsam only)."""
+def _backbone_for(cfg: ExtractionConfig) -> tuple[ViTDenseConfig, bool]:
+    """(model config, patch_embed_only) for a reference model name (JAX
+    engine/extract.py:274-295): DINOv2 at 896 px in ``patch_embed`` mode,
+    at 518 px in ``full`` mode, unless ``image_size`` says otherwise."""
     if cfg.model_name == "medsam":
         return dataclasses.replace(SAM_VIT_B,
-                                   image_size=cfg.image_size or 1024)
+                                   image_size=cfg.image_size or 1024), False
     if cfg.model_name in DINOV2_CONFIGS:
-        raise NotImplementedError(
-            f"{cfg.model_name}: DINOv2 backbones are not ported yet "
-            "(ROADMAP.md Queue 1 item 3)")
+        if cfg.dinov2_mode not in ("patch_embed", "full"):
+            raise ValueError(f"dinov2_mode must be 'patch_embed' or 'full', "
+                             f"got {cfg.dinov2_mode!r}")
+        patch_only = cfg.dinov2_mode == "patch_embed"
+        image_size = cfg.image_size or (896 if patch_only else 518)
+        return dataclasses.replace(DINOV2_CONFIGS[cfg.model_name],
+                                   image_size=image_size), patch_only
     raise ValueError(f"unknown model_name {cfg.model_name!r}")
 
 
@@ -185,43 +207,71 @@ class DenseExtractor:
         """``state_dict`` in the port's (reference PyTorch) names; without
         one, ``config.model_path`` is loaded, else seeded random weights.
         ``backbone_cfg`` replaces the model-name lookup (small test
-        models). ``device`` defaults to CUDA and raises without a GPU."""
+        models) and runs the whole transformer, as in JAX. ``device``
+        defaults to CUDA and raises without a GPU."""
         if mesh is not None:
             raise NotImplementedError(
-                "mesh extraction is not ported yet (ROADMAP.md Queue 1 "
-                "item 10)")
+                "mesh extraction is not ported: core/mesh.py has no port")
         self.device = default_device(device)
         self.config = dataclasses.replace(config) if config is not None \
             else ExtractionConfig()
         if self.config.pipeline:
             raise NotImplementedError(
-                "pipeline extraction is not ported yet (ROADMAP.md Queue 1 "
-                "item 10)")
-        if self.config.wire_dtype != "float32":
-            raise NotImplementedError(
-                f"wire_dtype {self.config.wire_dtype!r} is not ported yet "
-                "(ROADMAP.md Queue 1 item 4)")
+                "pipeline extraction is not ported: parallel/pipeline.py "
+                "has no port")
+        if self.config.wire_dtype not in ("float32", "int16"):
+            raise ValueError(f"wire_dtype must be 'float32' or 'int16', got "
+                             f"{self.config.wire_dtype!r}")
         self.policy: Policy = get_policy(self.config.precision)
-        self.backbone_cfg = backbone_cfg or _backbone_for(self.config)
+        if backbone_cfg is not None:
+            self.backbone_cfg, patch_only = backbone_cfg, False
+        else:
+            self.backbone_cfg, patch_only = _backbone_for(self.config)
+        if self.policy.quantized and patch_only:
+            raise ValueError(
+                "int8 applies to the backbone's projection/MLP matmuls; "
+                "the dinov2 patch_embed mode has none (one conv) — "
+                "extract with 'fast' or 'parity'")
         self.image_size = self.backbone_cfg.image_size
         self.model = ViTDense(self.backbone_cfg, policy=self.policy,
-                              use_flash=self.config.use_flash).eval()
+                              use_flash=self.config.use_flash,
+                              patch_embed_only=patch_only).eval()
         if state_dict is None and self.config.model_path:
-            state_dict = load_medsam_state_dict(self.config.model_path)
+            load = load_medsam_state_dict \
+                if self.config.model_name == "medsam" \
+                else load_dinov2_state_dict
+            state_dict = load(self.config.model_path)
         if state_dict is None:
             self.model.init_random(rng_seed)
         else:
+            if patch_only:   # a whole checkpoint: the patch embedding of it
+                state_dict = {k: state_dict[k]
+                              for k in self.model.state_dict()}
             self.model.load_state_dict(state_dict)
         self.model.to(self.device)
         # optional StageTimes sink for per-stage wall attribution
         self.stats: StageTimes | None = None
 
     def _normalize(self, vol: np.ndarray, modality: str) -> torch.Tensor:
-        """medsam CT → HU window; PET → /max; on the device."""
-        v = torch.as_tensor(np.asarray(vol, np.float32), device=self.device)
+        """The reference's normalisation, on the device (JAX :418-433):
+        medsam CT → HU window (800, 40); DINOv2 CT → HU→RGB / 255, an
+        (H, W, S, 3) volume; PET → /max. A CT volume crosses to the
+        device as fp32, or under ``wire_dtype='int16'`` as int16 HU
+        (fractional HU rounded on the host with ``np.rint``) widened to
+        fp32 there."""
         if modality in ("ct", "chest"):
-            width, level = self.config.ct_window
-            return pp.apply_window_ct(v, width, level)
+            vol = np.asarray(vol)
+            if self.config.wire_dtype == "int16":
+                if np.issubdtype(vol.dtype, np.floating):
+                    vol = np.rint(vol).astype(np.int16)
+            else:
+                vol = vol.astype(np.float32, copy=False)
+            v = torch.as_tensor(vol, device=self.device).float()
+            if self.config.model_name == "medsam":
+                width, level = self.config.ct_window
+                return pp.apply_window_ct(v, width, level)
+            return pp.hu_to_rgb(v).float() / 255.0
+        v = torch.as_tensor(np.asarray(vol, np.float32), device=self.device)
         return pp.normalize_pet(v)
 
     def extract_volume(self, vol: np.ndarray, mask: np.ndarray,
@@ -479,4 +529,93 @@ def extract_isotropic_dataset(
         return finalize
 
     queue.run(items, worker, log=progress or print)
+    return written
+
+
+def extract_tfds_dataset(
+    feature_folder: str | os.PathLike,
+    extractor: DenseExtractor,
+    datasets: Iterable[str] = ("santa_maria_dataset", "stanford_dataset"),
+    data_dir: str | os.PathLike | None = None,
+    modalities: tuple[str, str] = ("pet", "ct"),
+    progress: Callable[[str], None] | None = None,
+    loader: Callable | None = None,
+    process_grid: tuple[int, int] | None = None,
+) -> list[str]:
+    """Sweep tfds patient datasets → per-patient parquet + HDF5 store, on
+    one device (JAX engine/extract.py::extract_tfds_dataset).
+
+    Per (patient, modality): the slices stacked into a volume, PET divided
+    by its liver uptake (``data/ingest.py::samples_to_voxels``); a label
+    outside {0, 1} is skipped with a warning, as is an empty nodule mask;
+    then the same augmentation sweep, work queue and feature-store writes
+    as the isotropic path. ``loader(dataset_name, data_dir)`` returns ``(ds_pet,
+    ds_ct, patient_ids)`` with ``ds_X[patient_id]`` an iterable of per-
+    slice sample mappings; the default,
+    ``data/ingest.py::load_tfds_pair``, needs ``tensorflow_datasets``.
+    ``process_grid`` with more than one process raises: the multi-process
+    sweep (``core/distributed.py``) has no port."""
+    from ..data import ingest
+    from .workqueue import WorkQueue
+
+    if process_grid is not None and process_grid[1] > 1:
+        raise NotImplementedError(
+            "the multi-process sweep is not ported: core/distributed.py "
+            "has no port")
+    loader = loader or ingest.load_tfds_pair
+    feature_folder = Path(feature_folder)
+
+    items: list[str] = []
+    meta: dict[str, tuple] = {}
+    for dataset_name in datasets:
+        ds_pet, ds_ct, patient_ids = loader(dataset_name, data_dir)
+        features_dir = feature_folder / dataset_name
+        features_dir.mkdir(parents=True, exist_ok=True)
+        for pid in patient_ids:
+            for modality in modalities:
+                key = f"{dataset_name}/{pid}/{modality}"
+                items.append(key)
+                meta[key] = (dataset_name, pid, modality,
+                             ds_pet if modality == "pet" else ds_ct,
+                             features_dir)
+
+    written: list[str] = []
+    log = progress or print
+    stats = extractor.stats
+
+    def worker(key: str):
+        dataset_name, pid, modality, source, features_dir = meta[key]
+        df_path = features_dir / f"{pid}_{modality}.parquet"
+        h5_path = feature_folder / f"features_masks_{modality}.hdf5"
+        if df_path.exists():
+            return None  # idempotent resume
+        if progress:
+            progress(key)
+        with _timed(stats, "read"):
+            vol, mask, labels, spatial_res = ingest.samples_to_voxels(
+                source[pid], pet=(modality == "pet"))
+        label = int(labels[0])
+        if label not in (0, 1):
+            log(f"Warning: skip {pid} with label {label}")
+            return None
+        if not mask.sum(axis=(0, 1)).max():
+            log(f"Warning: {pid} has empty mask")
+            return None
+        feats, masks, (sl, an, fl) = extractor.extract_volume(
+            vol, mask, modality)
+        df = feature_store.slice_metadata_frame(
+            sl, an, fl, patient_id=pid, label=label,
+            dataset=dataset_name.replace("_dataset", ""),
+            modality=modality, spatial_res=spatial_res)
+
+        def finalize() -> None:
+            with _timed(stats, "write"):
+                feature_store.save_features(h5_path, feats, masks, pid)
+                df.to_parquet(df_path)
+            written.append(str(df_path))
+
+        return finalize
+
+    WorkQueue(feature_folder / "extract_queue.json").run(items, worker,
+                                                         log=log)
     return written

@@ -19,7 +19,8 @@ Typical use::
 parameters leave the optimizer (the patch and position embeddings stay
 trainable, as in JAX's ``_freeze_mask``). ``accum_steps`` splits each
 batch into equal microbatches and applies the optimizer once. ZeRO-1 and
-the mesh are multi-device work (ROADMAP.md Queue 1 item 10) and raise.
+the mesh are multi-device work (``core/mesh.py`` and ``parallel/sharding.py``
+have no port) and raise.
 Under ``parity`` the backward runs with TF32 off too (``Policy.backends``
 around ``FineTuner.backward``), so no fp32 product of the step rounds to
 TF32.
@@ -42,8 +43,8 @@ from ..models.vit import DINOV2_CONFIGS, SAM_VIT_B, ViTDense, \
 
 __all__ = ["FineTuneConfig", "FineTuneModel", "FineTuner"]
 
-_MULTI_DEVICE = "is multi-device work, not ported yet (ROADMAP.md Queue 1 " \
-                "item 10)"
+_MULTI_DEVICE = "is multi-device work, not ported yet (core/mesh.py and " \
+                "parallel/sharding.py have no port)"
 
 
 @dataclasses.dataclass(frozen=True)

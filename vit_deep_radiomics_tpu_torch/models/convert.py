@@ -16,7 +16,11 @@ The bridges yield fp32 tensors; a module built under a bf16 policy
 rounds them on the copy.
 
 :func:`load_medsam_state_dict` reads a MedSAM/SAM ``.pth`` image encoder
-for ``load_state_dict``.
+for ``load_state_dict``; :func:`load_dinov2_state_dict` reads a DINOv2
+``.pth`` under torch.hub's or ``transformers``' names into torch.hub's (the
+names JAX ``convert.py::dinov2_params_from_torch`` takes). Both packages
+load only the ``mlp.fc1``/``fc2`` MLP: torch.hub's ViT-g/14 checkpoint is
+SwiGLU (``mlp.w12``/``w3``) and loads into neither.
 """
 
 from __future__ import annotations
@@ -29,23 +33,30 @@ import torch
 from .vit import ViTDenseConfig
 
 __all__ = ["params_from_jax", "dinov2_params_from_jax",
-           "finetune_params_from_jax", "load_medsam_state_dict"]
+           "finetune_params_from_jax", "load_medsam_state_dict",
+           "load_dinov2_state_dict"]
 
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
 
 
-def _backbone_from_jax(p: Mapping, cfg: ViTDenseConfig, mlp_names) -> dict:
-    """Patch embedding, position embedding and blocks, both families."""
+def _patch_embed_from_jax(p: Mapping, cfg: ViTDenseConfig) -> dict:
+    """The patch embedding: (kh·kw·in, out) → conv weight (out, in, kh,
+    kw)."""
     pe = np.asarray(p["patch_embed"]["kernel"])
     ps = cfg.patch_size
-    sd = {
+    return {
         "patch_embed.proj.weight": _t(
             pe.reshape(ps, ps, -1, cfg.width).transpose(3, 2, 0, 1)),
         "patch_embed.proj.bias": _t(p["patch_embed"]["bias"]),
-        "pos_embed": _t(p["pos_embed"]),
     }
+
+
+def _backbone_from_jax(p: Mapping, cfg: ViTDenseConfig, mlp_names) -> dict:
+    """Patch embedding, position embedding and blocks, both families."""
+    sd = _patch_embed_from_jax(p, cfg)
+    sd["pos_embed"] = _t(p["pos_embed"])
     fc1, fc2 = (f"mlp.{n}." for n in mlp_names)
     for i in range(cfg.depth):
         blk = p[f"block_{i}"]
@@ -77,8 +88,11 @@ def _backbone_from_jax(p: Mapping, cfg: ViTDenseConfig, mlp_names) -> dict:
 def dinov2_params_from_jax(tree: Mapping, cfg: ViTDenseConfig) -> dict:
     """JAX ViTDense params of a DINOv2 config → the port's ``state_dict``
     under torch.hub's names (the inverse of JAX ``convert.py::
-    dinov2_params_from_torch``)."""
+    dinov2_params_from_torch``). The tree of JAX's ``patch_embed_only``
+    model holds the patch embedding alone, and so does the state dict."""
     p = tree["params"] if "params" in tree else tree
+    if "cls_token" not in p:
+        return _patch_embed_from_jax(p, cfg)
     sd = _backbone_from_jax(p, cfg, ("fc1", "fc2"))
     sd.update({
         "cls_token": _t(p["cls_token"]),
@@ -137,3 +151,50 @@ def load_medsam_state_dict(path: str) -> dict:
         state = {k[len(prefix):]: v for k, v in state.items()
                  if k.startswith(prefix)}
     return state
+
+
+# transformers' DINOv2 block names → torch.hub's (the query, key and value
+# projections are concatenated into ``attn.qkv``)
+_HF_BLOCK = {
+    "norm1": "norm1", "norm2": "norm2", "mlp.fc1": "mlp.fc1",
+    "mlp.fc2": "mlp.fc2", "attention.output.dense": "attn.proj",
+}
+
+
+def load_dinov2_state_dict(path: str) -> dict:
+    """A DINOv2 ``.pth`` checkpoint → the port's state dict (torch.hub's
+    names), from torch.hub's names or from ``transformers``' (``encoder.
+    layer.N.attention.attention.query`` … concatenated into ``attn.qkv``,
+    ``layer_scale1.lambda1`` → ``ls1.gamma``, ``layernorm`` → ``norm``), as
+    JAX ``convert.py::dinov2_params_from_torch`` reads both. ``mask_token``
+    (pretraining only) is dropped."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    if not any(k.startswith("encoder.layer.") for k in state):
+        return {k: v for k, v in state.items() if k != "mask_token"}
+    emb = "embeddings."
+    sd = {
+        "patch_embed.proj.weight":
+            state[emb + "patch_embeddings.projection.weight"],
+        "patch_embed.proj.bias":
+            state[emb + "patch_embeddings.projection.bias"],
+        "cls_token": state[emb + "cls_token"].reshape(1, 1, -1),
+        "pos_embed": state[emb + "position_embeddings"],
+        "norm.weight": state["layernorm.weight"],
+        "norm.bias": state["layernorm.bias"],
+    }
+    i = 0
+    while f"encoder.layer.{i}.norm1.weight" in state:
+        hf, pre = f"encoder.layer.{i}.", f"blocks.{i}."
+        for src, dst in _HF_BLOCK.items():
+            for kind in ("weight", "bias"):
+                sd[f"{pre}{dst}.{kind}"] = state[f"{hf}{src}.{kind}"]
+        for kind in ("weight", "bias"):
+            sd[f"{pre}attn.qkv.{kind}"] = torch.cat([
+                state[f"{hf}attention.attention.{n}.{kind}"]
+                for n in ("query", "key", "value")])
+        sd[pre + "ls1.gamma"] = state[hf + "layer_scale1.lambda1"]
+        sd[pre + "ls2.gamma"] = state[hf + "layer_scale2.lambda1"]
+        i += 1
+    return sd

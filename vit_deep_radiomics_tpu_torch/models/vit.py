@@ -695,8 +695,11 @@ class ViTDense(nn.Module):
     * DINOv2 config → the normalised patch tokens after the full
       transformer as a (B, H/p, W/p, width) map (JAX's full mode). The
       position embedding is resized bicubically, as ``jax.image.resize``
-      does, when the image is not the config's size. JAX's
-      ``patch_embed_only`` mode is not ported yet.
+      does, when the image is not the config's size;
+    * ``patch_embed_only=True`` → the patch embedding alone as a (B, H/p,
+      W/p, width) map, what the reference's ``model.patch_embed(img)``
+      gives (JAX vit.py:1009-1010); the model then holds ``patch_embed``
+      and nothing else, as the JAX module creates no other parameter.
 
     ``trainable`` selects the differentiable attention kernels; ``remat``
     (only with ``trainable``) is False/'none', True/'block' (recompute
@@ -705,7 +708,7 @@ class ViTDense(nn.Module):
 
     def __init__(self, cfg: ViTDenseConfig, policy: Policy = FAST,
                  use_flash: bool = True, trainable: bool = False,
-                 remat: bool | str = False):
+                 remat: bool | str = False, patch_embed_only: bool = False):
         super().__init__()
         remat_mode = {False: "none", True: "block"}.get(remat, remat)
         if remat_mode not in ("none", "block", "mlp"):
@@ -715,7 +718,16 @@ class ViTDense(nn.Module):
         self.cfg = cfg
         self.policy = policy
         self.remat_block = trainable and remat_mode == "block"
+        self.patch_embed_only = patch_embed_only
         self.patch_embed = PatchEmbed(cfg)
+        if not patch_embed_only:
+            self._build_transformer(use_flash, trainable, remat_mode)
+        if policy.param_dtype != torch.float32:
+            cast_params(self, policy.param_dtype)
+
+    def _build_transformer(self, use_flash, trainable, remat_mode):
+        """Position embedding, blocks, and the final norm or the neck."""
+        cfg = self.cfg
         if cfg.use_cls_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width))
             self.pos_embed = nn.Parameter(
@@ -734,8 +746,6 @@ class ViTDense(nn.Module):
             self.norm = LayerNorm(cfg.width, eps=cfg.ln_eps)
         if cfg.neck_channels:
             self.neck = SamNeck(cfg)
-        if policy.param_dtype != torch.float32:
-            cast_params(self, policy.param_dtype)
 
     @torch.no_grad()
     def init_random(self, seed: int = 0) -> "ViTDense":
@@ -765,6 +775,8 @@ class ViTDense(nn.Module):
         cfg, policy = self.cfg, self.policy
         with policy.backends():
             x = self.patch_embed(policy.cast_input(images), policy)
+            if self.patch_embed_only:
+                return policy.cast_output(x)
             b, hp, wp, c = x.shape
             if cfg.use_cls_token:
                 x = self._tokens(x)

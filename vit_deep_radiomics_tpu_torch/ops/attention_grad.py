@@ -17,7 +17,7 @@ Kw)``, as in ``ops/attention.py``):
   dq and both bias gradients over the keys) and the K5 dkv kernel
   (``csrc/global_attention_bwd_dkv.cu``: dk and dv over the queries). All
   three run a TMA + wgmma body on calls with no bias or a key grid 64 keys
-  wide, and mma.sync loops on Kw 8, 16 or 32;
+  wide, and mma.sync loops on Kw 8, 16, 32 or 128;
   :func:`global_attention_fwd_route` and :func:`global_attention_bwd_route`
   say which.
 * :func:`flash_attention_trainable` — K6, the generic per-head
@@ -85,9 +85,10 @@ register_launches("window_attention_bwd", "global_attention_fwd_lse",
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
-# key-grid widths the K5 kernels take with a bias: a 64-key tile holds whole
-# grid rows, and an 8-key mma tile lies in one of them
-_K5_BIAS_WIDTHS = (8, 16, 32, 64)
+# key-grid widths the K5 kernels take with a bias: an 8-key mma tile lies in
+# one grid row, and a 64-key tile holds whole grid rows or half of one (Kw
+# 128, SAM's global grid at 2048 px, which the mma.sync loops take)
+_K5_BIAS_WIDTHS = (8, 16, 32, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +393,7 @@ def global_attention_fwd_route(q, kv, bias_h=None, bias_w=None,
     ``csrc/global_attention_fwd_lse.cu`` chooses, ``"hopper"`` (K2's TMA +
     wgmma body with the lse store: no bias or a key grid 64 keys wide, the
     calls the backward's Hopper bodies take) or ``"loops"`` (the mma.sync
-    loop, Kw in {8, 16, 32})."""
+    loop, Kw in {8, 16, 32, 128})."""
     return _k5_route("global_attention_fwd_lse",
                      "vdr_global_attention_fwd_route", q, kv, bias_h, bias_w,
                      kv_len, num_heads)
@@ -466,7 +467,7 @@ def global_attention_bwd_route(q, kv, bias_h=None, bias_w=None,
     runs for these operands: ``"plain"`` on the CPU; on the card, as its
     source's C entry chooses, ``"hopper"`` (the TMA + wgmma kernel: no bias
     or a key grid 64 keys wide) or ``"loops"`` (the mma.sync loops, Kw in
-    {8, 16, 32})."""
+    {8, 16, 32, 128})."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
     return _k5_route(f"global_attention_bwd_{kernel}",

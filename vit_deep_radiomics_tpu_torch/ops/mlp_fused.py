@@ -16,11 +16,13 @@ Weights keep JAX's layout at this function, w1 (C, H) and w2 (H, C); the
 transposed view of a torch ``Linear`` weight is what the kernel reads, so
 the model passes ``lin1.weight.t()`` at no cost. For a CPU tensor
 :func:`fused_ln_mlp_residual` runs :func:`fused_ln_mlp_residual_plain`; for
-a CUDA tensor it launches K7 (C in 384, 768, 1024; bf16, the path, or fp32)
-or raises. :func:`fused_ln_mlp_residual_route` says which body a call
-takes: bf16 at C 768 with a hidden width that is a multiple of 128 (SAM
-ViT-B/16, DINOv2 ViT-B/14) the Hopper body (TMA + wgmma), every other call
-the first version's loops.
+a CUDA tensor it launches K7 (C in 384, 768, 1024 in bf16, the path, or
+fp32; C 1536, DINOv2 ViT-g/14, in bf16) or raises.
+:func:`fused_ln_mlp_residual_route` says which body a call takes: bf16 at
+C 768 with a hidden width that is a multiple of 128 (SAM ViT-B/16, DINOv2
+ViT-B/14) the Hopper body (TMA + wgmma), every other call the first
+version's loops (at C 1536 their instance of 32-row blocks and 16-unit
+hidden chunks).
 """
 
 from __future__ import annotations
@@ -37,10 +39,11 @@ __all__ = ["fused_ln_mlp_residual", "fused_ln_mlp_residual_plain",
 
 register_launches("fused_ln_mlp_residual")
 
-# the widths K7 builds (template instances) and the hidden-chunk widths of
-# its loops (the Hopper body takes bf16 at C 768 with hidden % 128 == 0)
-_WIDTHS = (384, 768, 1024)
-_CHUNK = {torch.bfloat16: 32, torch.float32: 16}
+# the widths K7 builds (template instances), per dtype, and the hidden-chunk
+# width of each loop instance (the Hopper body takes bf16 at C 768 with
+# hidden % 128 == 0)
+_CHUNK = {torch.bfloat16: {384: 32, 768: 32, 1024: 32, 1536: 16},
+          torch.float32: {384: 16, 768: 16, 1024: 16}}
 _ROUTES = ("loops", "hopper")
 
 
@@ -80,13 +83,14 @@ def _check_cuda(x, c, hidden):
     dt = x.dtype
     if dt not in _DTYPE_CODES:
         raise TypeError(f"K7 takes float32 or bfloat16, got {dt}")
-    if c not in _WIDTHS:
-        raise ValueError(f"no K7 build for width {c}; "
+    chunks = _CHUNK[dt]
+    if c not in chunks:
+        raise ValueError(f"no K7 build for width {c} in {dt}; "
                          f"csrc/fused_ln_mlp_residual.cu builds C="
-                         f"{'/'.join(map(str, _WIDTHS))} only")
-    if hidden % _CHUNK[dt]:
+                         f"{'/'.join(map(str, chunks))} only")
+    if hidden % chunks[c]:
         raise ValueError(f"K7 needs the hidden width {hidden} to be a "
-                         f"multiple of {_CHUNK[dt]} for {dt}")
+                         f"multiple of {chunks[c]} for {dt} at C {c}")
 
 
 def fused_ln_mlp_residual_route(x, ln_scale, ln_bias, w1, b1, w2, b2,

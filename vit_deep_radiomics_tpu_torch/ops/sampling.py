@@ -88,13 +88,18 @@ def _gather_bilinear_planes(planes, ys, xs, hmax, wmax, width):
 def fused_flip_rotate_crop_resize(volume, box, angle_deg, flip_h, flip_v,
                                   valid_hw, out_size: int,
                                   out_dtype=torch.float32):
-    """(H, W, S) normalised volume → (S, out, out) resampled slices clipped
-    to [0, 1]; computed in fp32 and rounded once to ``out_dtype``."""
+    """(H, W, S) or (H, W, S, C) normalised volume → (S, out, out[, C])
+    resampled slices clipped to [0, 1]; computed in fp32 and rounded once
+    to ``out_dtype``."""
     ys, xs = _source_coords(out_size, out_size, box, angle_deg, flip_h,
                             flip_v, valid_hw[0], valid_hw[1], volume.device)
-    h, w, s = volume.shape
-    planes = volume.float().reshape(h * w, s).t()
+    h, w = volume.shape[:2]
+    rest = tuple(volume.shape[2:])                  # (S,) or (S, C)
+    planes = volume.float().reshape(h * w, -1).t()  # (S·C, H·W)
     out = _gather_bilinear_planes(planes, ys, xs, h - 1, w - 1, w)
+    out = out.reshape(rest + (out_size, out_size))
+    if len(rest) == 2:
+        out = out.permute(0, 2, 3, 1)
     return torch.clamp(out, 0.0, 1.0).to(out_dtype)
 
 
@@ -102,9 +107,10 @@ def resample_all_augmentations(volume, boxes, angles, flips_h, flips_v,
                                valid_hw, out_size: int,
                                out_dtype=torch.float32,
                                slice_batch: int | None = None):
-    """Every augmentation's resample → ``(A·S, out, out, 3)`` RGB slices, or
-    with ``slice_batch`` ``(ceil(A·S/slice_batch), slice_batch, out, out,
-    3)``, the last chunk padded by repeating the last slice.
+    """Every augmentation's resample → ``(A·S, out, out, 3)`` RGB slices
+    (a grayscale (H, W, S) volume broadcast to RGB, an (H, W, S, 3) one as
+    it is), or with ``slice_batch`` ``(ceil(A·S/slice_batch), slice_batch,
+    out, out, 3)``, the last chunk padded by repeating the last slice.
 
     ``boxes`` are (ymin, xmin, crop_h, crop_w) per augmentation; angles and
     flips are host sequences."""
@@ -112,9 +118,10 @@ def resample_all_augmentations(volume, boxes, angles, flips_h, flips_v,
         fused_flip_rotate_crop_resize(volume, box, a, fh, fv, valid_hw,
                                       out_size, out_dtype)
         for box, a, fh, fv in zip(boxes, angles, flips_h, flips_v)
-    ])                                                  # (A, S, o, o)
-    out = out[..., None].expand(*out.shape, 3).reshape(
-        (-1, out_size, out_size, 3))
+    ])                                                  # (A, S, o, o[, 3])
+    if out.ndim == 4:
+        out = out[..., None].expand(*out.shape, 3)
+    out = out.reshape((-1, out_size, out_size, 3))
     if slice_batch is not None:
         n = out.shape[0]
         nchunks = -(-n // slice_batch)

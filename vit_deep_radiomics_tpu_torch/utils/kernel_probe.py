@@ -26,6 +26,7 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k7
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k7wide
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k8
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast PARENT CHANGE
@@ -55,7 +56,9 @@ step removed;
 for all the softmax (K5 and K6: the exp2/dS step) or the products
 removed, and for K5, K6 and the fp32 forward the score (and dP)
 products removed; K7's Hopper body: two ring slots a warpgroup, the
-hardware tanh in the GELU, the GELU or either product removed; K8: the
+hardware tanh in the GELU, the GELU or either product removed; K7's C
+1536 loop (``k7wide``): the weight chunks copied synchronously, or both of
+a chunk's copy groups waited for before its first product; K8: the
 ring depth: timing ablations
 whose output is wrong by design where a step is removed),
 calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
@@ -72,7 +75,8 @@ forward's out and lse held to its plain version; K6: the
 K3 fp32: SAM @768's q (4, 12, 2304, 64), k/v 3072 rows, Kh 48, Kw 64,
 ``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys; K7:
 SAM's 16384 rows and DINOv2's 4 x 1370 with a layerscale, C 768, hidden
-3072, bf16; K8: an `int8` forward's ten shapes, with the sum over its 60
+3072, bf16; ``k7wide``: ViT-g/14's 4 x 1370 with a layerscale, C 1536,
+hidden 6144, bf16; K8: an `int8` forward's ten shapes, with the sum over its 60
 launches), and prints its gap to the
 plain version and its time (K1/K2 and the fp32 forward beside SDPA's, K4
 and K5 beside the bf16 tensor-core peak, K6 beside the fp32 CUDA cores'
@@ -130,6 +134,7 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k2f32": "fused_global_attention.cu",
            "k3f32": "flash_attention.cu",
            "k7": "fused_ln_mlp_residual.cu",
+           "k7wide": "fused_ln_mlp_residual.cu",
            "k8": "int8_matmul.cu"}
 # headers a variant of the kernel may change (copied beside its source)
 HEADERS = {"k2": ("global_fwd_hopper.cuh",),
@@ -180,6 +185,27 @@ VARIANTS = {
         "no_second_product": ({}, (
             "Wgmma<128>::ss(acc2[ob], dg + (hb * kBox >> 4) + 2 * kk,\n"
             "                         dw + 2 * kk, j + hb + kk > 0);",)),
+    },
+    # K7's loop at C 1536 (DINOv2 ViT-g/14): the weight chunks copied
+    # synchronously (a load's latency paid per 16 bytes, the first
+    # version), or by cp.async with both of a chunk's groups waited for
+    # before its first product (no overlap with the products)
+    "k7wide": {
+        "as_built": ({}, ()),
+        "sync_staging": ({}, ((
+            'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(\n'
+            '                   vdr::sm90::smem_u32(smem)),\n'
+            '               "l"(gmem)\n'
+            '               : "memory");',
+            "*reinterpret_cast<uint4*>(smem) =\n"
+            "      *reinterpret_cast<const uint4*>(gmem);"),)),
+        "one_group": ({}, ((
+            "cp_async_wait<1>();   // this chunk's w1 (its w2 may be in "
+            "flight)",
+            "cp_async_wait<0>();"),)),
+        # 16-row blocks (177 KB of shared memory, 96 accumulators a
+        # thread): twice the weight reads from L2
+        "rows_16": ({"kRowsG": 16}, ()),
     },
     # K8: the ring depth
     "k8": {
@@ -405,6 +431,7 @@ CALLS = {
     # K7 (rows, with a layerscale): SAM's 4 x 4096 rows, DINOv2's 4 x 1370
     "k7": ([_P] * 9 + [_I] * 3 + [_F, _I, _P],
            ((16384, False), (5480, True)), None),
+    "k7wide": ([_P] * 9 + [_I] * 3 + [_F, _I, _P], ((5480, True),), None),
     # K8 (M, K, N): an `int8` forward's ten shapes (chip_smoke.py phase 17)
     "k8": ([_P] * 3 + [_I] * 3 + [_P], None, None),
 }
@@ -862,13 +889,19 @@ def _forward_variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
+# K7's width, hidden width and calls per forward: the Hopper body's (SAM
+# ViT-B/16, DINOv2 ViT-B/14) and the C 1536 loop's (DINOv2 ViT-g/14)
+_K7_WIDTHS = {"k7": (768, 3072, 12), "k7wide": (1536, 6144, 40)}
+
+
 def _k7_variants(kernel: str, out_dir: Path) -> None:
-    """K7's variants (bf16, C 768, hidden 3072, the weights in the torch
-    Linear layout) at SAM's and DINOv2's rows: gap to the plain version
-    beyond one bf16 step, ms beside the unfused PyTorch path's, and the
-    share of the bf16 tensor-core peak (989 TFLOP/s, H100 SXM). First the
-    time of the wrapper's two weight casts under `fast` (the model's fp32
-    Linear weights to bf16), one call's and a SAM ViT-B forward's 12."""
+    """K7's variants (bf16, the weights in the torch Linear layout): the
+    Hopper body at C 768, hidden 3072 (SAM's and DINOv2's rows) or the
+    loop at C 1536, hidden 6144 (ViT-g/14's rows): gap to the plain
+    version beyond one bf16 step, ms beside the unfused PyTorch path's,
+    and the share of the bf16 tensor-core peak (989 TFLOP/s, H100 SXM).
+    First the time of the wrapper's two weight casts under `fast` (the
+    model's fp32 Linear weights to bf16), one call's and a forward's."""
     import torch
     import torch.nn.functional as F
 
@@ -876,7 +909,8 @@ def _k7_variants(kernel: str, out_dir: Path) -> None:
 
     fns = _build(kernel, out_dir)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    c, hidden, dt, eps = 768, 3072, torch.bfloat16, 1e-6
+    c, hidden, per_forward = _K7_WIDTHS[kernel]
+    dt, eps = torch.bfloat16, 1e-6
 
     def rand(*shape, s=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=gen, device="cuda")
@@ -896,7 +930,8 @@ def _k7_variants(kernel: str, out_dir: Path) -> None:
     casts = _ms(torch, lambda: (w1_arg.t().to(dt).contiguous(),
                                 w2_arg.t().to(dt).contiguous()), 20)
     print(f"{kernel} weight casts fp32 -> bf16 (w1 and w2): ms {casts:.4f} "
-          f"a call, {12 * casts:.4f} over a forward's 12 calls")
+          f"a call, {per_forward * casts:.4f} over a forward's "
+          f"{per_forward} calls")
     del w1_arg, w2_arg
     for rows, with_ls in CALLS[kernel][1]:
         x = rand(rows, c, dtype=dt)
@@ -1335,7 +1370,7 @@ def main(argv=None) -> int:
     if args.cmd == "variants":
         if args.kernel == "k4":
             _k4_variants(args.kernel, args.out)
-        elif args.kernel == "k7":
+        elif args.kernel.startswith("k7"):
             _k7_variants(args.kernel, args.out)
         elif args.kernel == "k8":
             _k8_variants(args.kernel, args.out)
