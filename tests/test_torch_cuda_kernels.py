@@ -1407,16 +1407,18 @@ def test_fused_mlp_hopper_matches_plain(gen, rows, with_ls):
     assert torch.isfinite(got).all() and gap.item() <= K7_HOPPER_ATOL, gap
 
 
-@pytest.mark.parametrize("rows", [1, 31, 33, 300])
+@pytest.mark.parametrize("rows", [1, 31, 33, 63, 65, 129, 300, 1370, 5480])
 @pytest.mark.parametrize("with_ls", [False, True])
 def test_fused_mlp_c1536_matches_plain(gen, rows, with_ls):
     """K7 at DINOv2 ViT-g/14's width (C 1536, hidden 6144, bf16): the
-    loops' instance of 32-row blocks and 16-unit hidden chunks, whose first
-    product two warps share a tile of, at row counts around its block."""
+    cluster body (four blocks a 128-row tile), at row counts that leave the
+    row tile, the warpgroup's 64 rows, the cluster's tiles and the last
+    round of persistent clusters ragged (1370 and 5480 are ViT-g/14's
+    rows at batch 1 and 4), held to the K7 limit."""
     from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
 
     args = _k7_inputs(gen, rows, 1536, 6144, with_ls)
-    assert M.fused_ln_mlp_residual_route(*args) == "loops"
+    assert M.fused_ln_mlp_residual_route(*args) == "cluster"
     A.reset_launch_counts()
     got = M.fused_ln_mlp_residual(*args).float()
     torch.cuda.synchronize()
@@ -1430,11 +1432,14 @@ def test_fused_mlp_c1536_matches_plain(gen, rows, with_ls):
 @pytest.mark.parametrize("c,hidden,dtype,route", [
     (768, 3040, torch.bfloat16, "loops"), (384, 1536, torch.bfloat16, "loops"),
     (768, 3072, torch.float32, "loops"), (768, 3072, torch.bfloat16, "hopper"),
-    (1536, 6144, torch.bfloat16, "loops")])
+    (1536, 6144, torch.bfloat16, "cluster"),
+    (1536, 6160, torch.bfloat16, "loops")])
 def test_fused_mlp_route(gen, c, hidden, dtype, route):
     """The Hopper body takes bf16 at C 768 with a hidden width that is a
-    multiple of its 128-unit chunk; a bf16 width of 32-unit chunks, another
-    C or fp32 keeps the loops, which still match the plain version."""
+    multiple of its 128-unit chunk, the cluster body bf16 at C 1536 with a
+    multiple of its 256-unit chunk; a bf16 width of 32-unit chunks (16 at
+    C 1536), another C or fp32 keeps the loops, which still match the
+    plain version."""
     from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
 
     args = _k7_inputs(gen, 70, c, hidden, False, dtype)
@@ -1446,19 +1451,19 @@ def test_fused_mlp_route(gen, c, hidden, dtype, route):
 
 
 def test_k7_k8_hopper_bodies_build_without_spill(gen, tmp_path, monkeypatch):
-    """K7's Hopper kernel and K8's fit their registers: ptxas reports no
-    spill bytes and no wgmma serialisation (C75xx) for them."""
+    """K7's Hopper kernels (the C 768 body and the C 1536 cluster body) and
+    K8's fit their registers: ptxas reports no spill bytes and no wgmma
+    serialisation (C75xx) for them."""
     from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
 
     monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
     logs = cb.build_all(("fused_ln_mlp_residual", "int8_matmul"))
-    for name, key in (("fused_ln_mlp_residual", "hopper_kernel"),
-                      ("int8_matmul", "hopper_kernel")):
+    for name, count in (("fused_ln_mlp_residual", 2), ("int8_matmul", 1)):
         funcs = {f: r for f, r in cb.ptxas_functions(logs[name]).items()
-                 if key in f}
+                 if "hopper_kernel" in f}
         print(name, funcs)
-        assert len(funcs) == 1 and all(r["spill"] == 0
-                                       for r in funcs.values()), logs[name]
+        assert len(funcs) == count and all(
+            r["spill"] == 0 for r in funcs.values()), logs[name]
         assert "C75" not in logs[name], logs[name]
     # the C 1536 loop instance (32-row blocks) keeps its 192 accumulators
     # in registers

@@ -161,14 +161,16 @@ def test_unbuilt_width_refused_before_launch():
     (768, 3080, torch.float32, "hidden width 3080"),
     (768, 3072, torch.float16, "float32 or bfloat16"),
     (1536, 6144, torch.float32, "width 1536 in torch.float32"),
+    (1536, 6160, torch.float32, "width 1536 in torch.float32"),
     (1536, 6152, torch.bfloat16, "hidden width 6152")])
 @pytest.mark.parametrize("entry", ["route", "kernel"])
 def test_refused_before_launch(c, hidden, dtype, err, entry):
     """What neither body takes is refused by the route and by the wrapper
     before any build or launch: a width without a build, a hidden width
-    that is not a multiple of the loops' chunk (32 in bf16, 16 in fp32; the
-    Hopper body's 128 is the route's to decide) or another dtype (meta
-    tensors stand in for CUDA ones)."""
+    that is not a multiple of the loops' chunk (32 in bf16, 16 in fp32, 16
+    in bf16 at C 1536; the Hopper body's 128 and the cluster body's 256
+    are the route's to decide), another dtype, or fp32 at C 1536 whatever
+    its hidden width (meta tensors stand in for CUDA ones)."""
     def meta(*shape, dt=torch.float32):
         return torch.empty(*shape, device="meta", dtype=dt)
 
@@ -186,12 +188,14 @@ class _Built(Exception):
     """Raised in place of a kernel build: every check before it passed."""
 
 
+@pytest.mark.parametrize("hidden", [6144, 6160])
 @pytest.mark.parametrize("entry", ["route", "kernel"])
-def test_vitg_width_admitted(entry, monkeypatch):
-    """bf16 at C 1536 with ViT-g/14's hidden 6144 passes every check of
-    the route and of the wrapper and goes on to the build (the card tests
-    hold the kernel); meta tensors stand in for CUDA ones and the build is
-    replaced by a marker."""
+def test_vitg_width_admitted(entry, hidden, monkeypatch):
+    """bf16 at C 1536 with ViT-g/14's hidden 6144 (the cluster body's) or
+    an odd multiple of 16 (the loops') passes every check of the route and
+    of the wrapper and goes on to the build (the card tests hold both
+    bodies); meta tensors stand in for CUDA ones and the build is replaced
+    by a marker."""
     def built(*args, **kwargs):
         raise _Built()
 
@@ -200,7 +204,7 @@ def test_vitg_width_admitted(entry, monkeypatch):
     def meta(*shape, dt=torch.float32):
         return torch.empty(*shape, device="meta", dtype=dt)
 
-    c, hidden = 1536, 6144
+    c = 1536
     args = (meta(4, c, dt=torch.bfloat16), meta(c), meta(c),
             meta(c, hidden), meta(hidden), meta(hidden, c), meta(c), meta(c))
     fn = M.fused_ln_mlp_residual_route if entry == "route" \
@@ -209,6 +213,31 @@ def test_vitg_width_admitted(entry, monkeypatch):
     with pytest.raises(_Built):
         fn(*args)
     assert A.LAUNCHES["fused_ln_mlp_residual"] == 0
+
+
+@pytest.mark.parametrize("code,body", [(0, "loops"), (1, "hopper"),
+                                       (2, "cluster")])
+def test_route_names_the_c_entrys_body(code, body, monkeypatch):
+    """On a non-CPU tensor the route reports the body the C entry
+    (vdr_fused_ln_mlp_residual_route) names by its code, asked with the
+    width, the hidden width and the dtype's code; the entry is replaced by
+    a stand-in (meta tensors stand in for CUDA ones)."""
+    asked = []
+
+    def entry(*a):
+        asked.append(a)
+        return code
+
+    monkeypatch.setattr(M, "_load", lambda *a, **k: (None, entry))
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(*shape, device="meta", dtype=dt)
+
+    c, hidden = 1536, 6144
+    args = (meta(4, c, dt=torch.bfloat16), meta(c), meta(c),
+            meta(c, hidden), meta(hidden), meta(hidden, c), meta(c))
+    assert M.fused_ln_mlp_residual_route(*args) == body
+    assert asked == [(c, hidden, 1)]
 
 
 SAM_TINY = dict(image_size=64, patch_size=8, width=128, depth=3, num_heads=2,

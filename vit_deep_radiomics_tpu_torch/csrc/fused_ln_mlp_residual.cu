@@ -49,26 +49,83 @@
 //  * the epilogue (+ b2, round, x ls, + x re-read) writes the bf16 tile
 //    over the now dead y tile and stores it by TMA; rows past `rows` are
 //    normalised as zeros and clipped by the store.
-// fp32 inputs (the JAX tests' type; not on the card's main path) and bf16
-// at C 384, 1024 or 1536 keep the first version's loops below: 32-row
-// (bf16, mma.sync) or 16-row (fp32, CUDA cores) blocks that re-read all of
-// w1 and w2 from L2 per block. The fp32 loop stages its weight chunks
-// synchronously; the bf16 loop by cp.async, each chunk's w1 while the
-// chunk before runs its second product and its w2 while its own first
-// product runs.
-//
-// At C 1536 (DINOv2 ViT-g/14, hidden 6144; bf16 only) the 32-unit hidden
-// chunks do not fit: the y rows, w1 and w2 chunks would take 323 KB of
-// shared memory. Its instance keeps 32-row blocks with 16-unit chunks (222
-// KB); a chunk's first product is then four m16n8 tiles, so two warps
-// share each tile, half of the 1536 y columns each, and add their partial
-// sums through shared memory; the fp32 output accumulator is 192 registers
-// a thread (255 in all, no spill). It does the bound's operations once,
-// but every 32 rows re-read both weights (37.7 MB) from L2: at ViT-g's
-// 5480 rows that is 172 blocks and 6.5 GB of L2 reads per call, which is
-// what holds it. On an H100 SXM (PERF.md): 3.54 ms, 17 times its bound;
-// 16-row blocks 4.56 ms, and 6.02 ms with the chunks staged synchronously
-// (each 16-byte load's latency paid in turn).
+// What the cluster body does at C 1536 (bf16, H a multiple of 256: DINOv2
+// ViT-g/14, hidden 6144; the route says "cluster"). Its work at ViT-g/14's
+// rows at batch 4 (5480 x 1536) is 207 GFLOP (0.209 ms at the bf16 peak)
+// against 71 MB of compulsory traffic (0.021 ms): operations bound it. The
+// C 768 design does not stretch: a 64-row tile's fp32 output at C 1536 is
+// 98,304 values, more than an SM's 65,536 registers, and its bf16 y tile
+// alone would take 192 KB of shared memory. So:
+//  * a cluster of kClusterC (4) blocks owns a 128-row tile (kRowsC): block
+//    `rank` owns output columns 384 rank .. 384 rank + 383, its warpgroup w
+//    rows 64 w .. 64 w + 63 of them (three m64n128 accumulators, 192 fp32
+//    a thread, the C 768 body's budget). Both warpgroups read every weight
+//    slot of their block, so each weight byte is read from L2 once per 128
+//    rows (the loops: once per 32);
+//  * each 256-unit hidden chunk's first product is split among the four
+//    blocks (64 units each: m64n64k16 over the 24 k blocks of y, no
+//    operation done twice); a block's bf16 GELU output, its 16 KB piece of
+//    the chunk's g tile, reaches the other three blocks by bulk copies
+//    between shared memories (cp.async.bulk shared::cta -> shared::cluster,
+//    completed on each receiver's `gfull` mbarrier); each receiving
+//    warpgroup announces on the sender's `gfree` mbarrier (remote
+//    arrivals) when the chunk's second product is done with it, one g
+//    tile (64 KB) in all;
+//  * y: a LayerNorm prologue (mlp_ln_kernel, the loops' fp32 statistics)
+//    writes y once to a bf16 (rows, 1536) scratch that the wrapper
+//    allocates, and the body streams y's 64-column k blocks by TMA: each
+//    block loads a quarter (32 rows) of the tile's slice and multicasts it
+//    to the four (cp.async.bulk.tensor ... multicast::cluster). A y split
+//    by K across blocks would keep 96 KB a block resident but add an fp32
+//    exchange of partial h and a second sum order; the scratch keeps each
+//    h a single wgmma chain over all 1536 columns and costs about 0.4 GB
+//    of L2 reads a call;
+//  * one ring of kStagesC (3) 48 KB slots carries, per chunk, 12
+//    first-product slots (two k blocks: 32 KB of y, 16 KB of the block's
+//    w1) and 4 second-product slots (w2: the block's 384 output rows x 64
+//    units), each one wgmma group, waited for at once; each warpgroup then
+//    releases the slot in all four blocks (lane 0 of its warp r arrives at
+//    rank r), so a block's `empty` barrier completes once the cluster is
+//    done with it. The second product takes the block's own g piece first,
+//    so the other pieces' copies overlap its first step;
+//  * no producer warp or warpgroup: in this source ptxas allocates every
+//    warp at the launch cap whatever setmaxnreg asks (168 registers at 288
+//    or 384 threads), and 224 accumulators do not fit in 168. Thread 0 of
+//    each warpgroup produces every other slot, its state one register (the
+//    slot's index, placed by the chunk being consumed), issuing at most
+//    one slot at the start of each of its waits and polling while the rest
+//    of its warp waits at __syncwarp;
+//  * the epilogue (+ b2, round, x ls, + x) stores straight from registers;
+//    rows past `rows` read y as zeros (the tensor map's edge) and are not
+//    stored.
+// Budget at ViT-g/14's 5480 rows (43 tiles): 128 rows a weight pass; L2
+// reads 1.62 GB of weights (43 x 37.7 MB) + 0.41 GB of y (43 x 24 chunks x
+// 384 KB) = 2.0 GB a call; shared memory 64 KB (g) + 3 x 48 KB (ring) +
+// 1 KB of alignment = 209 KB a block, one block an SM; 256 threads at 255
+// registers (224 accumulators), no spill. Schedule: persistent clusters,
+// as many as the card holds at once (cudaOccupancyMaxActiveClusters), each
+// walking tiles cid, cid + clusters, ..: 43 tiles on at most 33 clusters
+// are two rounds, the second a third full. Predicted before the first card
+// run: about 0.55 ms, held by the L2 stream. Measured on an H100 SXM
+// (PERF.md): 0.91 ms, 4.4 times its bound and 4 times faster than the
+// loops, and not held by L2 or the ring: a call is two rounds of equal
+// time whatever the ring depth or the multicast. A 128-row tile takes
+// 0.45 ms, 1.2 us a slot against about 0.5 us of tensor and shared-memory
+// work: the producers' barrier tests and issues and the remote arrivals
+// sit on the warpgroups' path.
+// fp32 inputs (the JAX tests' type; not on the card's main path), bf16 at C
+// 384 or 1024, and bf16 at C 1536 with H not a multiple of 256 keep the
+// first version's loops below: 32-row (bf16, mma.sync) or 16-row (fp32,
+// CUDA cores) blocks that re-read all of w1 and w2 from L2 per block. The
+// fp32 loop stages its weight chunks synchronously; the bf16 loop by
+// cp.async, each chunk's w1 while the chunk before runs its second product
+// and its w2 while its own first product runs. At C 1536 32-unit chunks
+// would take 323 KB of shared memory, so its instance keeps 32-row blocks
+// with 16-unit chunks (222 KB): two warps share each m16n8 tile of a
+// chunk's first product, half of the y columns each, and add their partial
+// sums through shared memory; 192 fp32 accumulators a thread (255
+// registers, no spill). At ViT-g/14's rows it re-reads 6.5 GB from L2 a
+// call: 3.65 ms on an H100 SXM (PERF.md), 17 times its bound.
 
 #include "hopper.cuh"
 
@@ -761,6 +818,335 @@ int launch_hopper(const MlpParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at C = 1536: the cluster body (TMA multicast + wgmma + DSMEM)
+// ---------------------------------------------------------------------------
+
+constexpr int kCC = 1536;           // the width the cluster body takes
+constexpr int kClusterC = 4;        // blocks a cluster: the output's quarters
+constexpr int kColsC = kCC / kClusterC;    // 384 output columns a block
+constexpr int kWgsC = 2;            // warpgroups a block, stacked by rows
+constexpr int kRowsC = 64 * kWgsC;  // rows a tile: a weight pass
+constexpr int kChunkC = 256;        // hidden units a chunk, 64 a block
+constexpr int kStagesC = 3;         // ring slots
+constexpr int kMulticast = 1;       // y multicast (0: each block loads all)
+constexpr int kThreadsC = 128 * kWgsC;
+constexpr int kUnitsC = kChunkC / kClusterC;   // a block's units of a chunk
+constexpr int kKbSlotC = 2;                    // k blocks a first-product slot
+constexpr int kW1SlotsC = kCC / 64 / kKbSlotC; // first-product slots a chunk
+constexpr int kObC = kColsC / 128;             // n128 blocks a warpgroup
+constexpr int kStepsC = kW1SlotsC + kChunkC / 64;   // slots a chunk
+constexpr int kYRowsC = kRowsC / kClusterC;    // rows of y a block loads
+constexpr int kYPartC = kRowsC * 128;          // the tile's y, one k block
+constexpr int kW1PartC = kUnitsC * 128;        // w1, one k block
+constexpr int kW2PartC = 128 * 128;            // w2: 128 outputs x 64 units
+constexpr int kSlotC =
+    kKbSlotC * (kYPartC + kW1PartC) > kObC * kW2PartC
+        ? kKbSlotC * (kYPartC + kW1PartC)
+        : kObC * kW2PartC;
+constexpr int kPieceC = kRowsC * kUnitsC * 2;  // a block's piece of g
+constexpr int kGBytesC = kClusterC * kPieceC;  // the chunk's g tile
+constexpr size_t kSmemC = 1024 + kGBytesC + (size_t)kStagesC * kSlotC;
+constexpr int kErrNoScratch = -3;   // the cluster body without its y scratch
+static_assert(kSmemC <= 227 * 1024, "K7's cluster tiles exceed 227 KB");
+static_assert(kUnitsC == 64 && kColsC % 128 == 0 && kYRowsC % 8 == 0 &&
+                  kClusterC == 4 && kCC % (64 * kKbSlotC) == 0,
+              "the cluster body's tiles (a warpgroup's warp r releases a "
+              "slot in rank r)");
+
+// bf16(lo), bf16(hi) into 4 bytes of shared memory at a 32-bit address
+__device__ __forceinline__ void st_shared_bf16x2(uint32_t addr, float lo,
+                                                 float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+               "r"(*reinterpret_cast<const uint32_t*>(&v))
+               : "memory");
+}
+
+// LayerNorm of every row into the y scratch (rows, C) in bf16, the A
+// operand the cluster body streams: 8 rows a block, one a warp.
+__global__ void __launch_bounds__(256) mlp_ln_kernel(const MlpParams p,
+                                                     __nv_bfloat16* y) {
+  const int row0 = blockIdx.x * 8;
+  const int n = p.rows - row0 < 8 ? p.rows - row0 : 8;
+  layer_norm_rows<__nv_bfloat16, kCC>(p, row0, n, y + (size_t)row0 * kCC,
+                                      kCC);
+}
+
+// Clusters of kClusterC blocks own 128-row tiles: block `rank` owns output
+// columns 384 rank .. 384 rank + 383 (warpgroup w rows 64 w .. 64 w + 63 of
+// them) and, of each 256-unit hidden chunk, units 64 rank .. 64 rank + 63
+// of the first product; the header says how the ring, the producers and
+// the g exchange work.
+__global__ void __launch_bounds__(kThreadsC, 2 / kWgsC)
+    mlp_wide_hopper_kernel(const __grid_constant__ CUtensorMap ty,
+                           const __grid_constant__ CUtensorMap tw1,
+                           const __grid_constant__ CUtensorMap tw2,
+                           const MlpParams p) {
+  extern __shared__ __align__(16) unsigned char smem_c[];
+  __shared__ __align__(8) uint64_t full[kStagesC], empty[kStagesC];
+  __shared__ __align__(8) uint64_t gfull, gfree;
+  const uint32_t g_addr =
+      smem_u32(smem_c) + ((1024 - (smem_u32(smem_c) & 1023)) & 1023);
+  const uint32_t ring = g_addr + kGBytesC;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  // thread 0 of each warpgroup produces every kWgsC-th slot
+  const bool producer = threadIdx.x % 128 == 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStagesC; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kWgsC * kClusterC);   // each warpgroup, each block
+    }
+    mbar_init(&gfull, 1);
+    mbar_init(&gfree, kWgsC * (kClusterC - 1));  // the other blocks' ones
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();   // no arrival or multicast reaches an uninitialised barrier
+
+  // cluster q takes tiles q, q + clusters, ..; the chunk being consumed is
+  // chunk j of `tile`, chunk jj of the stream: slots 16 jj .. 16 jj + 15
+  int tile = blockIdx.x / kClusterC, j = 0, jj = 0;
+  // `it` slots consumed; a producer's next slot `issued` is one whose
+  // release has not been seen yet, so it lies in the chunk being consumed
+  // or the next one (the ring is shorter than a chunk)
+  int it = 0, issued = wg;
+  // a producer issues its next slot once the slot's release has completed
+  // (at most one a call: each call tests one barrier)
+  auto pump = [&]() {
+    const int n = issued, st = n % kStagesC;
+    if (n >= kStagesC && !mbar_test(&empty[st], (n / kStagesC - 1) & 1))
+      return;
+    int pt = tile, pj = j;
+    if (n / kStepsC != jj && ++pj == p.H / kChunkC) {
+      pj = 0;
+      pt += gridDim.x / kClusterC;
+    }
+    if (pt * kRowsC >= p.rows) return;
+    const uint32_t rank = cluster_rank();
+    const uint32_t dst = ring + st * kSlotC;
+    const int k = n % kStepsC, h0 = pj * kChunkC;
+    if (k < kW1SlotsC) {
+      mbar_expect_tx(&full[st], kKbSlotC * (kYPartC + kW1PartC));
+#pragma unroll 1
+      for (int b = 0; b < kKbSlotC; ++b) {
+        const int col = 64 * (k * kKbSlotC + b);
+        const uint32_t yd = dst + b * kYPartC;
+        if (kMulticast) {
+          tma_load_2d_mc(yd + rank * kYRowsC * 128, &ty, &full[st], col,
+                         pt * kRowsC + rank * kYRowsC,
+                         (1u << kClusterC) - 1);
+        } else {
+          for (int q = 0; q < kClusterC; ++q)
+            tma_load_2d(yd + q * kYRowsC * 128, &ty, &full[st], col,
+                        pt * kRowsC + q * kYRowsC);
+        }
+        tma_load_2d(dst + kKbSlotC * kYPartC + b * kW1PartC, &tw1,
+                    &full[st], col, h0 + rank * kUnitsC);
+      }
+    } else {
+      // the block's own units first: hidden block (rank + i) % 4
+      const int hb = (rank + k - kW1SlotsC) % (kChunkC / 64);
+      mbar_expect_tx(&full[st], kObC * kW2PartC);
+#pragma unroll 1
+      for (int ob = 0; ob < kObC; ++ob)
+        tma_load_2d(dst + ob * kW2PartC, &tw2, &full[st], h0 + 64 * hb,
+                    rank * kColsC + 128 * ob);
+    }
+    issued = n + kWgsC;
+  };
+  // every wait starts with a producer's refill (a wait follows each
+  // release), then it polls the barrier, issuing meanwhile, while the rest
+  // of its warp waits for it at __syncwarp (a lane suspended in try_wait
+  // beside it would hold it back until the suspension times out). One
+  // call site a wait keeps the producer's registers out of the products'.
+  auto wait_bar = [&](uint64_t* bar, uint32_t parity) {
+    if (producer)
+      for (;;) {
+        pump();
+        if (mbar_test(bar, parity)) break;
+      }
+    __syncwarp();
+    mbar_wait(bar, parity);   // every thread's own acquire
+  };
+  if (producer)
+    for (int i = 0; i < kStagesC; ++i) pump();
+
+  // one wgmma group a slot, waited for at once: each warpgroup then
+  // releases the slot in every block of the cluster, lane 0 of its warp r
+  // to rank r (the warpgroup's wait covers its four warps' shares)
+  const int to_rank = threadIdx.x % 128 / 32;
+  auto slot_ready = [&]() {
+    wait_bar(&full[it % kStagesC], (it / kStagesC) & 1);
+    return ring + (it % kStagesC) * kSlotC;
+  };
+  auto release = [&]() {
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0)
+      mbar_arrive_cluster(
+          map_rank(smem_u32(&empty[it % kStagesC]), to_rank));
+    ++it;
+  };
+
+  float h1[kUnitsC / 2];
+  float acc[kObC][64];
+  for (; tile * kRowsC < p.rows; tile += gridDim.x / kClusterC) {
+    for (j = 0; j < p.H / kChunkC; ++j, ++jj) {
+      // h = y . w1[units h0 + 64 rank ..]^T over the 24 k blocks
+#pragma unroll 1
+      for (int s = 0; s < kW1SlotsC; ++s) {
+        const uint32_t slot = slot_ready();
+        wgmma_fence();
+#pragma unroll
+        for (int b = 0; b < kKbSlotC; ++b) {
+          const uint64_t da =
+              desc_sw128(slot + b * kYPartC + wg * kBox, 16, 1024);
+          const uint64_t dw = desc_sw128(
+              slot + kKbSlotC * kYPartC + b * kW1PartC, 16, 1024);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<kUnitsC>::ss(h1, da + 2 * kk, dw + 2 * kk,
+                               s + b + kk > 0);
+        }
+        release();
+        // the chunk before's second product is done: its g may be replaced
+        if (s == 0 && jj > 0 && lane == 0 && to_rank != (int)cluster_rank())
+          mbar_arrive_cluster(map_rank(smem_u32(&gfree), to_rank));
+      }
+      fence_regs(h1);
+      // g = bf16(gelu(h + b1)) into this block's piece, once every block
+      // has read the chunk before's g
+      if (jj > 0) wait_bar(&gfree, (jj - 1) & 1);
+      {
+        const uint32_t rank = cluster_rank();
+        const uint32_t piece = g_addr + rank * kPieceC + wg * kBox;
+        const float* b1 = p.b1 + j * kChunkC + rank * kUnitsC;
+        const int r_lo = (threadIdx.x % 128) / 32 * 16 + lane / 4;
+#pragma unroll
+        for (int i = 0; i < kUnitsC / 8; ++i) {
+          const int col = 8 * i + 2 * (lane % 4);
+          const float bb0 = b1[col], bb1 = b1[col + 1];
+          st_shared_bf16x2(piece + swz(r_lo, col),
+                           gelu_tanh(h1[4 * i] + bb0),
+                           gelu_tanh(h1[4 * i + 1] + bb1));
+          st_shared_bf16x2(piece + swz(r_lo + 8, col),
+                           gelu_tanh(h1[4 * i + 2] + bb0),
+                           gelu_tanh(h1[4 * i + 3] + bb1));
+        }
+      }
+      fence_proxy_async();
+      bar_sync(1, kThreadsC);   // the block's piece is written
+      if (threadIdx.x == 0) {
+        const uint32_t rank = cluster_rank();
+        const uint32_t piece = g_addr + rank * kPieceC;
+        mbar_expect_tx(&gfull, (kClusterC - 1) * kPieceC);
+        for (uint32_t r = 1; r < kClusterC; ++r) {
+          const uint32_t to = (rank + r) % kClusterC;
+          bulk_copy_to_rank(map_rank(piece, to), piece, kPieceC,
+                            map_rank(smem_u32(&gfull), to));
+        }
+      }
+      // out[:, 384 rank + 128 ob ..] += g[:, 64 hb ..] . w2[..]^T, hidden
+      // block hb = rank (this block's piece) first, the others once they
+      // have arrived
+#pragma unroll 1
+      for (int i = 0; i < kChunkC / 64; ++i) {
+        if (i == 1) wait_bar(&gfull, jj & 1);
+        const uint32_t slot = slot_ready();
+        const uint64_t dg = desc_sw128(
+            g_addr + (cluster_rank() + i) % kClusterC * kPieceC + wg * kBox,
+            16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int ob = 0; ob < kObC; ++ob) {
+          const uint64_t dw = desc_sw128(slot + ob * kW2PartC, 16, 1024);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<128>::ss(acc[ob], dg + 2 * kk, dw + 2 * kk,
+                           j + i + kk > 0);
+        }
+        release();
+      }
+    }
+#pragma unroll
+    for (int ob = 0; ob < kObC; ++ob) fence_regs(acc[ob]);
+    // out = x + ls * (o + b2), this warpgroup's 64 rows, straight to memory
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+    const int col0 = cluster_rank() * kColsC + 2 * (lane % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = tile * kRowsC + threadIdx.x / 32 * 16 + lane / 4 +
+                      8 * half;
+      if (row >= p.rows) continue;
+#pragma unroll
+      for (int ob = 0; ob < kObC; ++ob)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int col = col0 + ob * 128 + 8 * i;
+          __nv_bfloat162 v;
+          v.x = finish<__nv_bfloat16>(p, row, col, acc[ob][4 * i + 2 * half],
+                                      kCC);
+          v.y = finish<__nv_bfloat16>(p, row, col + 1,
+                                      acc[ob][4 * i + 2 * half + 1], kCC);
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * kCC + col) =
+              v;
+        }
+    }
+  }
+  cluster_sync();   // no block leaves while another may still reach it
+}
+
+// The calls the cluster body takes: bf16 at C 1536, H a multiple of its
+// chunk (DINOv2 ViT-g/14's 6144).
+bool cluster_takes(int C, int H, int dtype) {
+  return dtype == 1 && C == kCC && H > 0 && H % kChunkC == 0;
+}
+
+int launch_cluster(const MlpParams& p, void* y, cudaStream_t stream) {
+  if (y == nullptr) return kErrNoScratch;
+  CUtensorMap ty, tw1, tw2;
+  if (!tensor_map_2d_sw128(&ty, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, kCC,
+                           p.rows, 64, kYRowsC) ||
+      !tensor_map_2d_sw128(&tw1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.w1,
+                           kCC, p.H, 64, kUnitsC) ||
+      !tensor_map_2d_sw128(&tw2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.w2,
+                           p.H, kCC, 64, 128))
+    return kErrTensorMap;
+  mlp_ln_kernel<<<(p.rows + 7) / 8, 256, 0, stream>>>(
+      p, static_cast<__nv_bfloat16*>(y));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(mlp_wide_hopper_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemC);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreadsC);
+  cfg.dynamicSmemBytes = kSmemC;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // persistent clusters: as many as the card holds at once, at most one a
+  // tile
+  cfg.gridDim = dim3(kClusterC);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, mlp_wide_hopper_kernel,
+                                       &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = (p.rows + kRowsC - 1) / kRowsC;
+  cfg.gridDim = dim3(kClusterC * (tiles < clusters ? tiles : clusters));
+  err = cudaLaunchKernelEx(&cfg, mlp_wide_hopper_kernel, ty, tw1, tw2, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <int C, int R, int CH>
 int launch_bf16(const MlpParams& p, cudaStream_t stream) {
   if (p.H % CH) return (int)cudaErrorInvalidValue;
@@ -797,32 +1183,37 @@ extern "C" {
 
 const char* vdr_error_string(int err) {
   if (err == kErrTensorMap) return "cuTensorMapEncodeTiled failed";
+  if (err == kErrNoScratch) return "the cluster body needs its y scratch";
   if (err == kErrNoBuild) return "no K7 build for this width and dtype";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The body a call with these arguments runs: 1 the Hopper body, 0 the
-// loops.
+// The body a call with these arguments runs: 1 the Hopper body, 2 the
+// cluster body, 0 the loops.
 int vdr_fused_ln_mlp_residual_route(int C, int H, int dtype) {
-  return hopper_takes(C, H, dtype) ? 1 : 0;
+  return hopper_takes(C, H, dtype) ? 1 : cluster_takes(C, H, dtype) ? 2 : 0;
 }
 
 // Returns 0 on success, a cudaError_t after a failed launch, -1 for a
 // width C without a build (384, 768 and 1024 are built in both dtypes,
-// 1536 in bf16), or -2 when a TMA descriptor cannot be made. dtype: 0 =
-// fp32, 1 = bf16. H must be a multiple of 32 (bf16; 16 at C 1536) or 16
-// (fp32); bf16 at C 768 with H a multiple of 128 takes the Hopper body,
-// every other call the loops.
+// 1536 in bf16), -2 when a TMA descriptor cannot be made, or -3 for the
+// cluster body without `y`. dtype: 0 = fp32, 1 = bf16. H must be a
+// multiple of 32 (bf16; 16 at C 1536) or 16 (fp32); bf16 at C 768 with H a
+// multiple of 128 takes the Hopper body, bf16 at C 1536 with H a multiple
+// of 256 the cluster body (which needs `y`, a (rows, 1536) bf16 scratch
+// for the LayerNorm's output; other calls ignore it), every other call
+// the loops.
 int vdr_fused_ln_mlp_residual(const void* x, const float* ln_scale,
                               const float* ln_bias, const void* w1,
                               const float* b1, const void* w2,
                               const float* b2, const void* ls, void* out,
-                              int rows, int C, int H, float eps, int dtype,
-                              void* stream) {
+                              void* y, int rows, int C, int H, float eps,
+                              int dtype, void* stream) {
   const MlpParams p{x, ln_scale, ln_bias, w1, b1, w2, b2, ls, out, rows, H,
                     eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hopper_takes(C, H, dtype)) return launch_hopper(p, s);
+  if (cluster_takes(C, H, dtype)) return launch_cluster(p, y, s);
   switch (C) {
     case 384: return launch<384>(p, dtype, s);
     case 768: return launch<768>(p, dtype, s);

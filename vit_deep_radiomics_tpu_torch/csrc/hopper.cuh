@@ -2,8 +2,10 @@
 // (K1, K2, K3, K4, the K5 backward and K7 in bf16, K8 in int8): shared-memory
 // addresses, mbarriers, named barriers, TMA tensor and bulk copies, wgmma
 // descriptors and instructions (bf16 with fp32 accumulators, s8 with s32),
-// and the runtime lookup of cuTensorMapEncodeTiled (no link against
-// libcuda) with the tile maps it encodes.
+// the cluster pieces K7's C 1536 body uses (rank, cluster barrier, remote
+// mbarrier arrivals, TMA multicast, bulk copies between blocks), and the
+// runtime lookup of cuTensorMapEncodeTiled (no link against libcuda) with
+// the tile maps it encodes.
 #pragma once
 
 #include <cuda.h>
@@ -52,6 +54,47 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// Without blocking: has the barrier's phase of the given parity completed?
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Thread block clusters (K7 at C 1536): this block's rank in its cluster,
+// the cluster-wide barrier (every thread of every block: arrive with
+// release, wait with acquire), the shared::cluster address of a
+// shared-memory location in the block of another rank, and an arrival on
+// an mbarrier at such an address.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
 }
 
 // Named barriers among the consumer warpgroups (id 0 is __syncthreads).
@@ -269,6 +312,34 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row)
+      : "memory");
+}
+
+// The same box written into the shared memory of every block of the
+// cluster whose bit is set in `mask`, at the same offset, each completion
+// counted on the barrier at `bar`'s offset in that block.
+__device__ __forceinline__ void tma_load_2d_mc(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int col,
+                                               int row, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "h"(mask)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at `src` into
+// another block of the cluster: `dst` and `bar` are shared::cluster
+// addresses in that block (map_rank), the completion counted on `bar`.
+__device__ __forceinline__ void bulk_copy_to_rank(uint32_t dst, uint32_t src,
+                                                  int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

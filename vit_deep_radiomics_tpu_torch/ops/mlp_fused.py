@@ -20,7 +20,12 @@ a CUDA tensor it launches K7 (C in 384, 768, 1024 in bf16, the path, or
 fp32; C 1536, DINOv2 ViT-g/14, in bf16) or raises.
 :func:`fused_ln_mlp_residual_route` says which body a call takes: bf16 at
 C 768 with a hidden width that is a multiple of 128 (SAM ViT-B/16, DINOv2
-ViT-B/14) the Hopper body (TMA + wgmma), every other call the first
+ViT-B/14) the Hopper body (TMA + wgmma); bf16 at C 1536 with a hidden
+width that is a multiple of 256 (DINOv2 ViT-g/14's 6144) the cluster body
+(four blocks a 128-row tile, each a quarter of the output columns, y
+multicast by TMA, the GELU output passed between the blocks' shared
+memories), for which the wrapper allocates a (rows, 1536) bf16 scratch
+that the kernel's LayerNorm prologue fills; every other call the first
 version's loops (at C 1536 their instance of 32-row blocks and 16-unit
 hidden chunks).
 """
@@ -40,11 +45,14 @@ __all__ = ["fused_ln_mlp_residual", "fused_ln_mlp_residual_plain",
 register_launches("fused_ln_mlp_residual")
 
 # the widths K7 builds (template instances), per dtype, and the hidden-chunk
-# width of each loop instance (the Hopper body takes bf16 at C 768 with
-# hidden % 128 == 0)
+# width of each loop instance: a hidden width that is not a multiple of it
+# is refused. The C entry routes the rest: bf16 at C 768 with hidden % 128
+# == 0 to the Hopper body, bf16 at C 1536 with hidden % 256 == 0 to the
+# cluster body, every other call to the loops
 _CHUNK = {torch.bfloat16: {384: 32, 768: 32, 1024: 32, 1536: 16},
           torch.float32: {384: 16, 768: 16, 1024: 16}}
-_ROUTES = ("loops", "hopper")
+# vdr_fused_ln_mlp_residual_route's codes
+_ROUTES = ("loops", "hopper", "cluster")
 
 
 def fused_ln_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -97,16 +105,21 @@ def fused_ln_mlp_residual_route(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                 layerscale=None) -> str:
     """Which body :func:`fused_ln_mlp_residual` runs for these operands:
     ``"plain"`` on the CPU; on the card, as ``csrc/fused_ln_mlp_residual.cu``
-    chooses, ``"hopper"`` (bf16, C 768, hidden a multiple of 128) or
-    ``"loops"``. Raises for a call K7 refuses."""
+    chooses, ``"hopper"`` (bf16, C 768, hidden a multiple of 128),
+    ``"cluster"`` (bf16, C 1536, hidden a multiple of 256) or ``"loops"``.
+    Raises for a call K7 refuses."""
     c, hidden = _check_shapes(x, ln_scale, ln_bias, w1, b1, w2, b2,
                               layerscale)
     if x.device.type == "cpu":
         return "plain"
     _check_cuda(x, c, hidden)
+    return _route(c, hidden, x.dtype)
+
+
+def _route(c, hidden, dtype) -> str:
     _, fn = _load("fused_ln_mlp_residual", [ctypes.c_int] * 3,
                   entry="vdr_fused_ln_mlp_residual_route")
-    return _ROUTES[fn(c, hidden, _DTYPE_CODES[x.dtype])]
+    return _ROUTES[fn(c, hidden, _DTYPE_CODES[dtype])]
 
 
 def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -114,7 +127,9 @@ def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
     """``x + ls·(gelu_tanh(LN(x)·w1 + b1)·w2 + b2)`` over the last axis of
     x (any leading shape, any number of rows), K7. Weights are cast to
     x's dtype and LN parameters and biases to fp32, as the unfused path
-    does."""
+    does. On the cluster route (bf16, C 1536) the call also allocates the
+    (rows, 1536) bf16 scratch that the kernel's LayerNorm prologue writes
+    and its body streams."""
     c, hidden = _check_shapes(x, ln_scale, ln_bias, w1, b1, w2, b2,
                               layerscale)
     if x.device.type == "cpu":
@@ -136,10 +151,12 @@ def fused_ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
             raise ValueError("K7 operands must lie on x's device, 16-byte "
                              "aligned")
     lib, fn = _load("fused_ln_mlp_residual",
-                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(x2)
-    rc = fn(*map(_ptr, ops), _ptr(out), x2.shape[0], c, hidden, eps,
+    # the cluster body's LayerNorm output, the A operand it streams
+    y = torch.empty_like(x2) if _route(c, hidden, dt) == "cluster" else None
+    rc = fn(*map(_ptr, ops), _ptr(out), _ptr(y), x2.shape[0], c, hidden, eps,
             _DTYPE_CODES[dt],
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc:

@@ -34,6 +34,7 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity-forward PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-768 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path dinov2 PARENT CHANGE
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
@@ -57,8 +58,10 @@ for all the softmax (K5 and K6: the exp2/dS step) or the products
 removed, and for K5, K6 and the fp32 forward the score (and dP)
 products removed; K7's Hopper body: two ring slots a warpgroup, the
 hardware tanh in the GELU, the GELU or either product removed; K7's C
-1536 loop (``k7wide``): the weight chunks copied synchronously, or both of
-a chunk's copy groups waited for before its first product; K8: the
+1536 cluster body (``k7wide``): no multicast (each block loads the whole
+y slice itself), 64-row tiles (one warpgroup a block: each weight byte
+read once per 64 rows), two ring slots, and the loops' 32-row instance
+(and its 16-row blocks) that the body replaced; K8: the
 ring depth: timing ablations
 whose output is wrong by design where a step is removed),
 calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
@@ -104,7 +107,11 @@ and a one-patient @768 extraction as ``chip_smoke.py``'s phase 18 runs it;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
 a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
-and 17 (K7 and K8).
+and 17 (K7 and K8); with ``--path dinov2`` ``chip_smoke.py``'s phase 16
+(K7, ViT-g/14's rows among them) and its phase 19 for ViT-g/14 ``full``
+@518 with ``VDR_FUSED_MLP=1`` alone (the B=4 forward's host ms, device
+ms, idle share and top device costs, the batch-1 checks and a one-patient
+extraction's img/s).
 Nothing is built or run at import.
 """
 
@@ -163,6 +170,9 @@ _F32_TILED = {
 }
 # K7's four GELU calls (the elements of a thread's two rows and columns)
 _K7_G = (("", 0), (" + 1", 1), (" + 2", 0), (" + 3", 1))
+# K7 at C 1536 routed to the loops instead of the cluster body
+_K7_LOOPS = ("return dtype == 1 && C == kCC && H > 0 && H % kChunkC == 0;",
+             "return false;")
 # kernel: {name: (substitutions of `constexpr` values, calls removed, or
 # (text, replacement) pairs)}
 VARIANTS = {
@@ -186,26 +196,24 @@ VARIANTS = {
             "Wgmma<128>::ss(acc2[ob], dg + (hb * kBox >> 4) + 2 * kk,\n"
             "                         dw + 2 * kk, j + hb + kk > 0);",)),
     },
-    # K7's loop at C 1536 (DINOv2 ViT-g/14): the weight chunks copied
-    # synchronously (a load's latency paid per 16 bytes, the first
-    # version), or by cp.async with both of a chunk's groups waited for
-    # before its first product (no overlap with the products)
+    # K7's cluster body at C 1536 (DINOv2 ViT-g/14): no multicast (each
+    # block loads all four quarters of the tile's y slice: 4x the y reads
+    # from L2), 64-row tiles (one warpgroup a block: each weight byte read
+    # once per 64 rows, not 128), two ring slots instead of three; for
+    # reference the loops' 32-row instance that the body replaced and its
+    # 16-row blocks (the route sends C 1536 to the loops)
     "k7wide": {
         "as_built": ({}, ()),
-        "sync_staging": ({}, ((
-            'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(\n'
-            '                   vdr::sm90::smem_u32(smem)),\n'
-            '               "l"(gmem)\n'
-            '               : "memory");',
-            "*reinterpret_cast<uint4*>(smem) =\n"
-            "      *reinterpret_cast<const uint4*>(gmem);"),)),
-        "one_group": ({}, ((
-            "cp_async_wait<1>();   // this chunk's w1 (its w2 may be in "
-            "flight)",
-            "cp_async_wait<0>();"),)),
-        # 16-row blocks (177 KB of shared memory, 96 accumulators a
-        # thread): twice the weight reads from L2
-        "rows_16": ({"kRowsG": 16}, ()),
+        "no_multicast": ({"kMulticast": 0}, ()),
+        "rows_64": ({"kWgsC": 1}, ()),
+        "stages_2": ({"kStagesC": 2}, ()),
+        # a producer refills only once the barrier it waits for is not
+        # complete (the ring may run dry before it does)
+        "refill_when_stalled": ({}, ((
+            "        pump();\n        if (mbar_test(bar, parity)) break;",
+            "        if (mbar_test(bar, parity)) break;\n        pump();"),)),
+        "loops": ({}, (_K7_LOOPS,)),
+        "loops_rows_16": ({"kRowsG": 16}, (_K7_LOOPS,)),
     },
     # K8: the ring depth
     "k8": {
@@ -429,9 +437,10 @@ CALLS = {
     "k3f32": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
               ((4, 2304, 48, 64, None), (4, 1536, 0, 0, 1370)), None),
     # K7 (rows, with a layerscale): SAM's 4 x 4096 rows, DINOv2's 4 x 1370
-    "k7": ([_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    "k7": ([_P] * 10 + [_I] * 3 + [_F, _I, _P],
            ((16384, False), (5480, True)), None),
-    "k7wide": ([_P] * 9 + [_I] * 3 + [_F, _I, _P], ((5480, True),), None),
+    "k7wide": ([_P] * 10 + [_I] * 3 + [_F, _I, _P],
+               ((5480, True), (1370, True)), None),
     # K8 (M, K, N): an `int8` forward's ten shapes (chip_smoke.py phase 17)
     "k8": ([_P] * 3 + [_I] * 3 + [_P], None, None),
 }
@@ -890,14 +899,16 @@ def _forward_variants(kernel: str, out_dir: Path) -> None:
 
 
 # K7's width, hidden width and calls per forward: the Hopper body's (SAM
-# ViT-B/16, DINOv2 ViT-B/14) and the C 1536 loop's (DINOv2 ViT-g/14)
+# ViT-B/16, DINOv2 ViT-B/14) and the C 1536 cluster body's (DINOv2
+# ViT-g/14)
 _K7_WIDTHS = {"k7": (768, 3072, 12), "k7wide": (1536, 6144, 40)}
 
 
 def _k7_variants(kernel: str, out_dir: Path) -> None:
     """K7's variants (bf16, the weights in the torch Linear layout): the
     Hopper body at C 768, hidden 3072 (SAM's and DINOv2's rows) or the
-    loop at C 1536, hidden 6144 (ViT-g/14's rows): gap to the plain
+    cluster body at C 1536, hidden 6144 (ViT-g/14's rows at batch 4 and
+    1): gap to the plain
     version beyond one bf16 step, ms beside the unfused PyTorch path's,
     and the share of the bf16 tensor-core peak (989 TFLOP/s, H100 SXM).
     First the time of the wrapper's two weight casts under `fast` (the
@@ -941,9 +952,10 @@ def _k7_variants(kernel: str, out_dir: Path) -> None:
         flops = 4.0 * rows * c * hidden
         print(f"{kernel} rows {rows} x {c}, hidden {hidden}, layerscale "
               f"{with_ls}:")
+        y = torch.empty_like(x)       # the cluster body's LayerNorm output
         for name, fn in fns.items():
             out = torch.empty_like(x)
-            args = (*map(ptr, (x, ln_s, ln_b, w1, b1, w2, b2, ls, out)),
+            args = (*map(ptr, (x, ln_s, ln_b, w1, b1, w2, b2, ls, out, y)),
                     rows, c, hidden, eps, 1, stream)
 
             def run(fn=fn, args=args):
@@ -966,7 +978,7 @@ def _k7_variants(kernel: str, out_dir: Path) -> None:
             return x + (o * ls if with_ls else o)
 
         print(f"  unfused PyTorch bf16: ms {_ms(torch, unfused, 10):.4f}")
-        del x, ref
+        del x, y, ref
         torch.cuda.empty_cache()
 
 
@@ -1326,16 +1338,41 @@ cs.k7_phase(torch, peaks)
 cs.k8_phase(torch, Q, peaks, cs.INT8_PEAKS[sku])
 '''
 
+# K7 at C 1536: chip_smoke.py's phase 16 (ViT-g/14's rows among its
+# shapes), then its phase 19 for the ViT-g/14 `full` @518 path with
+# VDR_FUSED_MLP=1 alone (the B=4 forward: host ms, device ms, idle share,
+# top device costs; the batch-1 checks; a one-patient extraction)
+_PAIR_DINOV2_CHILD = r'''
+import sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.core import precision
+from vit_deep_radiomics_tpu_torch.data import synthetic as syn
+from vit_deep_radiomics_tpu_torch.engine import extract as tex
+from vit_deep_radiomics_tpu_torch.models import vit
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+cuda_build.build_all(("fused_global_attention", "fused_ln_mlp_residual"))
+sku, peaks = cs.peaks_for(torch.cuda.get_device_name(0))
+cs.k7_phase(torch, peaks)
+cs.DINO_PATHS = {k: v for k, v in cs.DINO_PATHS.items()
+                 if k.startswith("vitg14")}
+cs.dinov2_extraction_phase(torch, A, vit, precision, tex, syn)
+'''
+
 _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
              "parity-forward": _PAIR_PARITY_FORWARD_CHILD,
-             "frozen": _PAIR_FROZEN_CHILD}
+             "frozen": _PAIR_FROZEN_CHILD, "dinov2": _PAIR_DINOV2_CHILD}
 
 
 def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
     child = _CHILDREN[path]
     keep = ("forward", "extraction", "fine-tune", "k6 ", "k5 ", "kernel ",
             "Traceback")
+    if path == "dinov2":    # phase 19's top device costs, one a line
+        keep += ("  ",)
     for tag, tree in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):
         res = subprocess.run([sys.executable, "-c", child], cwd=tree,
