@@ -13,10 +13,10 @@ Phases (each one fails the run with a non-zero exit):
    report of K4 and the K5 backward (TMA + wgmma), the register-tiled K6
    backward kernels and the register-tiled fp32 forward's kernels in K1's,
    K2's, K3's and the K6 forward's sources, K3's Hopper kernel and the
-   Hopper kernels of the K5 forward, K7 (its C 768 body and its C 1536
-   cluster body) and K8, and K7's C 1536 loop instance (registers, spills),
-   which must show no spill (the K5 forward, K7 and K8 also no ``C75xx``
-   wgmma serialisation line);
+   Hopper kernels of the K5 forward and backward, K7 (its C 768 body and
+   its C 1536 cluster body) and K8, and K7's C 1536 loop instance
+   (registers, spills), which must show no spill (the K5 kernels, K7 and
+   K8 also no ``C75xx`` wgmma serialisation line);
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -46,7 +46,10 @@ Phases (each one fails the run with a non-zero exit):
    plain-version and library (SDPA forward or backward with the dense bias
    as a trainable ``attn_mask``) times and the card's bound; then the same
    for the three K5 kernels on a key grid 128 keys wide (B=1, Kh 32, 12
-   heads: their mma.sync loops, the routes asked);
+   heads: the forward's mma.sync loop, the backward's Hopper bodies, the
+   routes asked), and the same at SAM ViT-B/16 @2048's global shape (B=1,
+   Kh = Kw = 128, 16384 tokens), each backward output held against its
+   plain version two heads at a time;
 8. fine-tuning: ``FineTuner`` on full-width, full-depth SAM ViT-B/16 @1024
    under ``fast``, batch 2, 5 steps on a fixed synthetic batch (the main
    path of K4 and K5: launch counts per step, ms per step, img/s, peak
@@ -120,7 +123,12 @@ Phases (each one fails the run with a non-zero exit):
     the fused forward held against the unfused one, and both held to a
     ``parity`` (fp32) forward on the same weights: the fused forward's
     error no larger than ``VITG_PARITY_RATIO`` times the unfused one's; one
-    extraction).
+    extraction);
+20. SAM ViT-B/16 ``fast`` fine-tuning at 2048 px: ``FineTuner`` at full
+    width and depth, batch 1, 5 steps (the main path of the K5 backward at
+    a key grid 128 keys wide: 8 windowed layers of 100 windows, 4 global
+    layers of 16384 tokens; the launches of every step, the K5 routes, ms
+    per step, peak memory, the loss of every step, parameters moved).
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -129,6 +137,7 @@ kernels' JSON record, and the last line is ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -188,10 +197,12 @@ TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
                  "flash_attention", "flash_attention_fwd")
 # Sources with Hopper kernels (*hopper_kernel*, this many) that must show
 # no spill and no wgmma serialisation (ptxas's C75xx lines): the K5 forward
-# (K2's body with the lse store, without and with the bias), K7 (the C 768
-# body and the C 1536 cluster body) and K8
+# (K2's body with the lse store, without and with the bias), the K5 dq and
+# dkv (no bias, Kw 64, Kw 128), K7 (the C 768 body and the C 1536 cluster
+# body) and K8
 HOPPER_SOURCES = {"global_attention_fwd_lse": 2, "fused_ln_mlp_residual": 2,
-                  "int8_matmul": 1}
+                  "int8_matmul": 1, "global_attention_bwd_dq": 3,
+                  "global_attention_bwd_dkv": 3}
 # The body each kernel's C entry takes at its path's shapes: K1 and K2 by
 # dtype at the extraction path's, the K5 forward at SAM's global layers
 # (Kw 64) and DINOv2's kv_len layers
@@ -237,11 +248,14 @@ CHAIN_ATOL = {"sam_global": {"dq": 1e-3, "dbias_h": 1.2e-3,
                         "dkv": 1.4e-3}}
 # The K5 kernels at a key grid 128 keys wide (SAM's global layers at 2048
 # px, which JAX takes; no published config reaches it): B=1, Kh 32, 12
-# heads of 64, bf16, on their mma.sync loops, each output against its plain
+# heads of 64, bf16, the forward on its mma.sync loop and the backward on
+# its Hopper bodies (``KW128_ROUTES``), each output against its plain
 # version and the chain against the plain chain; limits about 1.5 times
-# the gap measured on an H100 SXM: out 4.87e-4, lse 2.40e-3, dq 5.88e-4,
-# dbias_h 2.87e-3, dbias_w 2.08e-3, dkv 9.40e-4; chain dq 4.98e-4, dbias_h
-# 8.54e-4, dbias_w 5.30e-4, dkv 6.98e-4. dbias_h and dbias_w sit further
+# the gap measured on an H100 SXM with the backward's loops: out 4.87e-4,
+# lse 2.40e-3, dq 5.88e-4, dbias_h 2.87e-3, dbias_w 2.08e-3, dkv 9.40e-4;
+# chain dq 4.98e-4, dbias_h 8.54e-4, dbias_w 5.30e-4, dkv 6.98e-4. The
+# same limits hold the backward at SAM @2048's own global shape
+# (``KW128_SAM2048``). dbias_h and dbias_w sit further
 # from the plain version than at Kw 64 because the backward kernel is fed
 # the kernel forward's lse, scored on Q^ = bf16(q D^-1/2 log2 e), where the
 # plain version scores the fp32 q: fed Q^ instead, the plain version gives
@@ -249,6 +263,10 @@ CHAIN_ATOL = {"sam_global": {"dq": 1e-3, "dbias_h": 1.2e-3,
 # tests/test_torch_cuda_kernels.py); the chain,
 # which scores alike on each side, stays within the Kw 64 limits
 KW128 = (1, 32, 128)
+KW128_SAM2048 = (1, 128, 128)
+KW128_ROUTES = {"fwd": "loops", "dq": "hopper", "dkv": "hopper"}
+# SAM ViT-B/16 @2048, phase 20: the image size and the grid of 16 px patches
+SAM2048 = (2048, 128)
 KW128_ATOL = {"global_attention_fwd_lse": 9e-4, "lse": 4e-3,
               "global_attention_bwd_dq": 4.5e-3,
               "global_attention_bwd_dkv": 1.5e-3}
@@ -954,12 +972,33 @@ def train_kernel_phase(torch, A, G, peaks):
     return records
 
 
+# the K5 records' short names in KW128_ROUTES
+K5_SHORT = {"global_attention_fwd_lse": "fwd", "global_attention_bwd_dq": "dq",
+            "global_attention_bwd_dkv": "dkv"}
+
+
+def _k5_kw128_routes(G, q, kv, bh, bw, heads, tag):
+    """Ask the three K5 C entries which body they run on a key grid 128
+    keys wide; they must answer ``KW128_ROUTES``."""
+    routes = {"fwd": G.global_attention_fwd_route(q, kv, bh, bw,
+                                                  num_heads=heads)}
+    for kernel in ("dq", "dkv"):
+        routes[kernel] = G.global_attention_bwd_route(
+            q, kv, bh, bw, num_heads=heads, kernel=kernel)
+    log(f"kernel K5 {tag}: routes {routes}")
+    if routes != KW128_ROUTES:
+        raise AssertionError(f"K5 {tag} routes {routes}, not "
+                             f"{KW128_ROUTES}")
+    return routes
+
+
 def k5_kw128(torch, G, peaks, records, rand):
     """Phase 7, Kw 128: the three K5 kernels on a key grid 128 keys wide
-    (``KW128``), each C entry asked for its body (the mma.sync loops), each
+    (``KW128``), each C entry asked for its body (``KW128_ROUTES``), each
     output against its plain version, the kernel chain against the plain
-    chain; times, SDPA and bounds go under each K5 record's
-    ``by_shape["kw128"]``."""
+    chain; then the same kernels at SAM @2048's global shape
+    (:func:`k5_sam2048`). Times, SDPA and bounds go under each K5 record's
+    ``by_shape``."""
     b, kh, kwidth = KW128
     heads, d = 12, 64
     c, scale, s = heads * d, d ** -0.5, kh * kwidth
@@ -968,14 +1007,7 @@ def k5_kw128(torch, G, peaks, records, rand):
     bw = rand(b, heads, s, kwidth, s=0.3)
     kw = dict(num_heads=heads, scale=scale)
     tag = f"[Kw 128, B={b}, Kh {kh}]"
-    routes = {"fwd": G.global_attention_fwd_route(q, kv, bh, bw,
-                                                  num_heads=heads)}
-    for kernel in ("dq", "dkv"):
-        routes[kernel] = G.global_attention_bwd_route(
-            q, kv, bh, bw, num_heads=heads, kernel=kernel)
-    log(f"kernel K5 {tag}: routes {routes}")
-    if set(routes.values()) != {"loops"}:
-        raise AssertionError(f"K5 {tag} routes {routes}, not the loops")
+    routes = _k5_kw128_routes(G, q, kv, bh, bw, heads, tag)
     out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, None, **kw)
     torch.cuda.synchronize()
     ref_out, ref_lse = G.global_attention_fwd_lse_plain(q, kv, bh, bw, None,
@@ -1030,8 +1062,119 @@ def k5_kw128(torch, G, peaks, records, rand):
                       errs[name], cuda_ms(torch, fn, 5),
                       cuda_ms(torch, plain, 2), lib, nb, flops, peaks)
         records[name].setdefault("by_shape", {})["kw128"] = dict(
-            _sub(rec), body="loops")
+            _sub(rec), body=routes[K5_SHORT[name]])
     del q, kv, dout, bh, bw, out, lse, args, got, dkv
+    torch.cuda.empty_cache()
+    k5_sam2048(torch, G, peaks, records, rand)
+
+
+def _head_slice(torch, args, h0, h1, d=64):
+    """The K5 operands ``args`` (q, kv, bias_h, bias_w, kv_len[, dout, lse,
+    delta]) cut to heads [h0, h1)."""
+    c = args[0].shape[-1]
+    cols = slice(h0 * d, h1 * d)
+    kv = torch.cat([args[1][..., cols], args[1][..., c + h0 * d:c + h1 * d]],
+                   -1)
+    cut = [args[0][..., cols], kv, args[2][:, h0:h1], args[3][:, h0:h1],
+           args[4]]
+    if len(args) > 5:
+        cut += [args[5][..., cols], args[6][:, h0:h1], args[7][:, h0:h1]]
+    return tuple(None if x is None else x.contiguous() for x in cut)
+
+
+def _plain_by_heads(torch, plain, args, heads, step, scale, dims):
+    """``plain`` (a K5 plain version) on ``args`` ``step`` heads at a time,
+    its outputs joined back to the whole call's layout: output i along
+    ``dims[i]`` (-1 the head columns, 1 the heads of (B, H, ...)); ``dims``
+    None for dkv, whose k and v columns join apart."""
+    parts = [plain(*_head_slice(torch, args, h0, h0 + step),
+                   num_heads=step, scale=scale)
+             for h0 in range(0, heads, step)]
+    if dims is None:                         # dkv: (B, S, 2·step·D) each
+        half = parts[0].shape[-1] // 2
+        return (torch.cat([x[..., :half] for x in parts]
+                          + [x[..., half:] for x in parts], -1),)
+    return tuple(torch.cat([x[i] for x in parts], dim)
+                 for i, dim in enumerate(dims))
+
+
+def k5_sam2048(torch, G, peaks, records, rand):
+    """Phase 7 at SAM ViT-B/16 @2048's global shape (``KW128_SAM2048``:
+    B=1, Kh = Kw = 128, 16384 tokens, 12 heads of 64): the routes, the
+    kernel forward's out and lse fed to the dq and dkv kernels, each output
+    held against its plain version under ``KW128_ATOL``, two heads at a
+    time (one plain call over all 12 heads would hold several (S, S) fp32
+    score tensors of 12.9 GB), the plain version's peak memory printed;
+    times, SDPA (its dense bias fits: 6.4 GB in bf16) and bounds under
+    each K5 record's ``by_shape["sam2048"]``."""
+    b, kh, kwidth = KW128_SAM2048
+    heads, d, step = 12, 64, 2
+    c, scale, s = heads * d, d ** -0.5, kh * kwidth
+    q, kv, dout = rand(b, s, c), rand(b, s, 2 * c), rand(b, s, c)
+    bh = rand(b, heads, s, kh, s=0.3)
+    bw = rand(b, heads, s, kwidth, s=0.3)
+    kw = dict(num_heads=heads, scale=scale)
+    tag = f"[SAM @2048 global, B={b}, Kh {kh}, Kw {kwidth}]"
+    routes = _k5_kw128_routes(G, q, kv, bh, bw, heads, tag)
+    fwd_args = (q, kv, bh, bw, None)
+    out, lse = G.global_attention_fwd_lse(*fwd_args, **kw)
+    args = (*fwd_args, dout, lse, G.attention_delta(out, dout, heads))
+    got = G.global_attention_bwd_dq(*args, **kw)
+    dkv = G.global_attention_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    plains = {"global_attention_fwd_lse": (G.global_attention_fwd_lse_plain,
+                                           fwd_args, (-1, 1)),
+              "global_attention_bwd_dq": (G.global_attention_bwd_dq_plain,
+                                          args, (-1, 1, 1)),
+              "global_attention_bwd_dkv": (G.global_attention_bwd_dkv_plain,
+                                           args, None)}
+    held = {"global_attention_fwd_lse": ((out, lse), ("out", "lse"),
+                                         (2.0 ** -7, 0.0)),
+            "global_attention_bwd_dq": (got, ("dq", "dbias_h", "dbias_w"),
+                                        (2.0 ** -7,) * 3),
+            "global_attention_bwd_dkv": ((dkv,), ("dkv",), (2.0 ** -7,))}
+    errs = {}
+    for name, (plain, p_args, dims) in plains.items():
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref = _plain_by_heads(torch, plain, p_args, heads, step, scale, dims)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"plain {name} {tag}: {heads // step} calls of {step} heads, "
+            f"peak memory {peak / 2 ** 30:.2f} GiB beyond the operands")
+        outs, labels, rtols = held[name]
+        errs[name] = max(
+            _check_outputs(torch, f"{name} {tag}", [o], [r], [lab], rt,
+                           KW128_ATOL["lse" if lab == "lse" else name])
+            for o, r, lab, rt in zip(outs, ref, labels, rtols))
+        del ref
+    qh, kh_, vh, doh = (_heads_of(t, 1, s, heads)
+                        for t in (q, kv[..., :c], kv[..., c:], dout))
+    mask = _dense_mask(bh, bw, 1, s, heads)
+    fwd_lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale)
+    bwd_lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale, doh)
+    del qh, kh_, vh, doh, mask
+    torch.cuda.empty_cache()
+    fl = 4.0 * b * heads * s * s * d
+    rows = {
+        "global_attention_fwd_lse": (
+            lambda: G.global_attention_fwd_lse(*fwd_args, **kw), fwd_lib,
+            _nbytes(q, kv, bh, bw, out, lse), fl),
+        "global_attention_bwd_dq": (
+            lambda: G.global_attention_bwd_dq(*args, **kw), bwd_lib,
+            _nbytes(*args[:4], *args[5:], *got), 1.5 * fl),
+        "global_attention_bwd_dkv": (
+            lambda: G.global_attention_bwd_dkv(*args, **kw), bwd_lib,
+            _nbytes(*args[:4], *args[5:], dkv), 2.0 * fl)}
+    for name, (fn, lib, nb, flops) in rows.items():
+        plain_ms = cuda_ms(torch, lambda: _plain_by_heads(
+            torch, *plains[name][:2], heads, step, scale, plains[name][2]),
+            1)
+        rec = _record(f"{name} {tag}", f"{name}.cu", "", "bfloat16",
+                      errs[name], cuda_ms(torch, fn, 3), plain_ms, lib, nb,
+                      flops, peaks)
+        records[name].setdefault("by_shape", {})["sam2048"] = dict(
+            _sub(rec), body=routes[K5_SHORT[name]])
+    del q, kv, dout, bh, bw, out, lse, args, fwd_args, got, dkv
     torch.cuda.empty_cache()
 
 
@@ -1047,17 +1190,19 @@ def _ft_batch(torch, b, size=1024, grid=64):
 
 
 def finetune_phase(torch, A, ft, backbone="medsam", precision="fast",
-                   per_step=STEP_LAUNCHES):
+                   per_step=STEP_LAUNCHES, batch_size=2, backbone_cfg=None):
     """A fine-tuning main path: ``FineTuner`` at full width and depth,
-    batch 2, 5 steps on a fixed batch, the launches of every step held to
-    ``per_step``. SAM ViT-B/16 @1024 ``fast`` runs K1/K4/K5, ``parity``
-    K6; DINOv2 ViT-B/14 @518 ``fast`` runs K5 in kv_len mode, ``parity``
-    K6 in kv_len mode."""
+    ``batch_size`` 2 unless given, 5 steps on a fixed batch, the launches
+    of every step held to ``per_step``. SAM ViT-B/16 @1024 ``fast`` runs
+    K1/K4/K5, ``parity`` K6; DINOv2 ViT-B/14 @518 ``fast`` runs K5 in
+    kv_len mode, ``parity`` K6 in kv_len mode; ``backbone_cfg`` replaces
+    the backbone's config (SAM @2048: K5 at a key grid 128 keys wide)."""
     tuner = ft.FineTuner(ft.FineTuneConfig(backbone=backbone,
-                                           precision=precision))
+                                           precision=precision,
+                                           backbone_cfg=backbone_cfg))
     state = tuner.init(seed=SEED)
     cfg = tuner.backbone_cfg
-    batch = _ft_batch(torch, 2, cfg.image_size, cfg.grid)
+    batch = _ft_batch(torch, batch_size, cfg.image_size, cfg.grid)
     before = {k: p.detach().clone()
               for k, p in state["model"].named_parameters()}
     torch.cuda.synchronize()
@@ -1076,19 +1221,42 @@ def finetune_phase(torch, A, ft, backbone="medsam", precision="fast",
                 for k, p in state["model"].named_parameters())
     # steps 1-2 allocate the optimizer state and warm the allocator
     steady = sum(times[2:]) / (len(times) - 2)
-    log(f"fine-tune {cfg.name} {precision} B=2, {FT_STEPS} steps: ms per "
-        f"step {', '.join(f'{t * 1e3:.2f}' for t in times)}; steady (steps "
-        f"3-{FT_STEPS}) {steady * 1e3:.2f} ms = {2 / steady:.2f} img/s; "
+    log(f"fine-tune {cfg.name} @{cfg.image_size} {precision} B={batch_size}"
+        f", {FT_STEPS} steps: ms per step "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)}; steady (steps "
+        f"3-{FT_STEPS}) {steady * 1e3:.2f} ms = {batch_size / steady:.2f} "
+        f"img/s; "
         f"peak memory {peak / 2 ** 30:.3f} GiB; losses "
-        f"{', '.join(f'{x:.6f}' for x in losses)}; max parameter move "
+        f"{', '.join(f'{x:.6g}' for x in losses)}; max parameter move "
         f"{moved:.3e}; launches {counts}")
     expect = {k: FT_STEPS * per_step.get(k, 0) for k in A.LAUNCHES}
     if counts != expect:
         raise AssertionError(f"fine-tune launches {counts} != {expect}")
     if not all(np.isfinite(losses)) or not moved > 0 or \
-            tuple(logits.shape) != (2, 2):
+            tuple(logits.shape) != (batch_size, 2):
         raise AssertionError("fine-tuning: non-finite loss or no update")
     return counts
+
+
+def sam2048_phase(torch, A, G, ft, vit):
+    """Phase 20: SAM ViT-B/16 ``fast`` fine-tuning at 2048 px, batch 1, the
+    main path of the K5 backward at a key grid 128 keys wide: the three K5
+    C entries asked for their bodies at its global layers' shape (1, 16384
+    tokens, Kh = Kw = 128; ``KW128_ROUTES``), then ``FT_STEPS`` steps whose
+    launches are held to ``STEP_LAUNCHES`` (8 windowed layers: K1 and K4;
+    4 global layers: the three K5 kernels)."""
+    size, grid = SAM2048
+    heads, c, s = 12, 768, grid * grid
+
+    def zeros(*shape):
+        return torch.zeros(*shape, device="cuda", dtype=torch.bfloat16)
+
+    _k5_kw128_routes(G, zeros(1, s, c), zeros(1, s, 2 * c),
+                     zeros(1, heads, s, grid), zeros(1, heads, s, grid),
+                     heads, "[SAM @2048 fast step]")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=size)
+    return finetune_phase(torch, A, ft, batch_size=1, backbone_cfg=cfg)
 
 
 # Per-leaf gradient limits of the checks against plain attention:
@@ -2223,6 +2391,10 @@ def main() -> int:
         dino["vitg14_full_fused_mlp"]["forward"]["launches"][
             "fused_ln_mlp_residual"]
     log("dinov2 extraction: " + json.dumps(dino))
+    torch.cuda.empty_cache()
+    sam2048 = sam2048_phase(torch, A, G, ft, vit)              # phase 20
+    for kname in K5_NAMES:
+        records[kname]["launches_sam2048_fast"] = sam2048[kname]
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -384,6 +384,41 @@ def test_k4_bwd_route_is_plain_on_the_cpu_and_checks_the_layout(biased):
                                        for t in meta[2:]], **kw)
 
 
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("answer,body", [(1, "hopper"), (0, "loops")])
+@pytest.mark.parametrize("kh,kw", [(128, 128), (64, 64), (0, 0)])
+def test_bwd_route_names_the_c_entrys_body(kernel, answer, body, kh, kw,
+                                           monkeypatch):
+    """On a non-CPU tensor the K5 backward's route asks its source's C entry
+    (vdr_global_attention_bwd_route) with (S, H, D, Kh, Kw, biased) and
+    reports "hopper" or "loops" by its answer; the entry is replaced by a
+    stand-in (meta tensors stand in for CUDA ones)."""
+    asked, loaded = [], []
+
+    def stand_in(*a):
+        asked.append(a)
+        return answer
+
+    def load(name, argtypes, entry=None):
+        loaded.append((name, entry))
+        return None, stand_in
+
+    monkeypatch.setattr(G, "_load", load)
+    heads, d, s, dt = 12, 64, (kh * kw or 320), torch.bfloat16
+
+    def meta(*shape):
+        return torch.empty(*shape, device="meta", dtype=dt)
+
+    q, kv = meta(1, s, heads * d), meta(1, s, 2 * heads * d)
+    bh = meta(1, heads, s, kh) if kh else None
+    bw = meta(1, heads, s, kw) if kh else None
+    assert G.global_attention_bwd_route(q, kv, bh, bw, num_heads=heads,
+                                        kernel=kernel) == body
+    assert asked == [(s, heads, d, kh, kw, int(kh > 0))]
+    assert loaded == [(f"global_attention_bwd_{kernel}",
+                       "vdr_global_attention_bwd_route")]
+
+
 class _Built(Exception):
     """Raised in place of a kernel build: every check before it passed."""
 
@@ -393,9 +428,10 @@ class _Built(Exception):
 def test_k5_kw128_reaches_the_kernels(entry, monkeypatch):
     """A key grid 128 keys wide (SAM's global layers at 2048 px, which JAX
     takes) passes every check of the three K5 wrappers and their routes
-    and goes on to the build, where the routes answer "loops" (the card
-    tests hold that and the kernels); meta tensors stand in for CUDA
-    ones and the build is replaced by a marker."""
+    and goes on to the build, where the forward's route answers "loops"
+    and the backward's "hopper" (the card tests hold that and the
+    kernels); meta tensors stand in for CUDA ones and the build is
+    replaced by a marker."""
     def built(*args, **kwargs):
         raise _Built()
 

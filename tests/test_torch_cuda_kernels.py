@@ -488,10 +488,10 @@ def test_global_hopper_fwd_matches_plain(gen, case):
         assert torch.equal(lse[0], want_lse[0]), (lse[0], want_lse[0])
 
 
-def _lse_as_the_backward_scores(q, kv, bh, bw, kv_len, heads, scale):
-    """The log2 lse of the scores the K5 backward rebuilds, in fp32: Q^ =
-    bf16(q · scale · log2 e), S = Q^ Kᵀ, plus the bias terms times log2 e,
-    keys at or past kv_len at -1e30 log2 e."""
+def _scores_as_the_kernel(q, kv, bh, bw, kv_len, heads, scale):
+    """The scores the K5 kernels build, (B, H, S, S) in fp32 log2 units:
+    Q^ = bf16(q · scale · log2 e), S = Q^ Kᵀ, plus the bias terms times
+    log2 e, keys at or past kv_len at -1e30 log2 e."""
     log2e = 1.4426950408889634
     b, s, c = q.shape
     d = c // heads
@@ -509,6 +509,13 @@ def _lse_as_the_backward_scores(q, kv, bh, bw, kv_len, heads, scale):
         key = torch.arange(s, device=q.device)
         sc = torch.where((key[None, :] < kv_len[:, None])[:, None, None, :],
                          sc, masked)
+    return sc
+
+
+def _lse_as_the_backward_scores(q, kv, bh, bw, kv_len, heads, scale):
+    """The log2 lse of the scores the K5 backward rebuilds, in fp32
+    (``_scores_as_the_kernel``)."""
+    sc = _scores_as_the_kernel(q, kv, bh, bw, kv_len, heads, scale)
     m = sc.amax(-1, keepdim=True)
     return (m + torch.log2(torch.exp2(sc - m).sum(-1, keepdim=True)))[..., 0]
 
@@ -637,10 +644,10 @@ def test_global_fwd_route(gen, kh, kw, route):
 
 @pytest.mark.parametrize("kh,kw,route", [(5, 64, "hopper"), (0, 0, "hopper"),
                                          (20, 16, "loops"),
-                                         (4, 128, "loops")])
+                                         (4, 128, "hopper")])
 def test_global_bwd_route(gen, kh, kw, route):
-    """Kw 64 and no bias take the Hopper bodies, Kw 16 and Kw 128 the
-    mma.sync loops; the two kernels choose alike."""
+    """Kw 64, Kw 128 and no bias take the Hopper bodies, Kw 16 the mma.sync
+    loops; the two kernels choose alike."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     s, heads = (kh * kw or 320), 2
@@ -658,10 +665,11 @@ def test_global_bwd_route(gen, kh, kw, route):
 @pytest.mark.parametrize("kh", [2, 5])
 def test_global_kw128_loops_match_plain(gen, kh):
     """A key grid 128 keys wide (JAX takes it; SAM's global grid at 2048
-    px): the three K5 kernels take their mma.sync loops, where a 64-key
-    tile is half a grid row, and each output matches its plain version;
-    the kernel chain (the kernel forward's out and lse fed to the kernel
-    dq and dkv) matches the plain chain."""
+    px): the K5 forward takes its mma.sync loop and the dq and dkv kernels
+    their Hopper bodies, where a 64-key tile is half a grid row, and each
+    output matches its plain version; the kernel chain (the kernel
+    forward's out and lse fed to the kernel dq and dkv) matches the plain
+    chain."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     b, heads, d, kw, dt = 2, 2, 64, 128, torch.bfloat16
@@ -676,7 +684,7 @@ def test_global_kw128_loops_match_plain(gen, kh):
                                         num_heads=heads) == "loops"
     for kernel in ("dq", "dkv"):
         assert G.global_attention_bwd_route(q, kv, bh, bw, num_heads=heads,
-                                            kernel=kernel) == "loops"
+                                            kernel=kernel) == "hopper"
     A.reset_launch_counts()
     out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, None, **kwargs)
     want_out, want_lse = G.global_attention_fwd_lse_plain(q, kv, bh, bw,
@@ -705,8 +713,8 @@ def test_global_bias_grads_follow_the_kernels_scoring(gen, kh, kw):
     version's bias gradients sit up to a few bf16 steps from the kernel's
     (PERF.md §6). Fed q rounded as Q^ is, the plain version gives the
     kernel's dbias_h and dbias_w within one bf16 step plus 1e-6, at Kw 128
-    (the loops) and Kw 64 (the Hopper body): what is left is the order of
-    the fp32 sums."""
+    and Kw 64 (both on the Hopper body): what is left is the order of the
+    fp32 sums."""
     import math
 
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
@@ -736,6 +744,114 @@ def test_global_bias_grads_follow_the_kernels_scoring(gen, kh, kw):
         assert gap <= 1e-6, (name, gap)
 
 
+def _qhat_plain(q, scale):
+    """q rounded as the K5 kernels round Q^ = bf16(q D^-1/2 log2 e), back
+    in q's units (fp32): fed it, a plain version scores as the kernels
+    do."""
+    import math
+
+    k = scale * math.log2(math.e)
+    return (q.float() * k).to(torch.bfloat16).float() / k
+
+
+def _k5_rounding(args, heads, scale):
+    """Worst cases of the K5 backward's bf16 operands, in fp32 from the
+    scores the kernels build (``_scores_as_the_kernel``) and ``args``' lse
+    and D: P and dS are rounded to bf16 for the products (relative 2^-9
+    each), so 2^-8 of "dq" (scale Σ_j |dS| |K|) and "dkv" (scale Σ_i |dS|
+    |Q|, Σ_i P |dO|) bounds what that rounding moves; "dbh"/"dbw" are Σ
+    |dS| over a grid row or column, which scales the fp32 sums' order."""
+    q, kv, bh, bw, kv_len, dout, lse, delta = args
+    b, s, c = q.shape
+    d, kh, kw = c // heads, bh.shape[-1], bw.shape[-1]
+
+    def hs(x):
+        return x.float().reshape(b, s, heads, d).transpose(1, 2)
+
+    def rows(x):
+        return x.transpose(1, 2).reshape(b, s, c)
+
+    p = torch.exp2(_scores_as_the_kernel(q, kv, bh, bw, kv_len, heads, scale)
+                   - lse[..., None])
+    v, do = hs(kv[..., c:]), hs(dout)
+    ds = (p * (do @ v.transpose(-1, -2) - delta[..., None])).abs()
+    grid = ds.reshape(b, heads, s, kh, kw)
+    return {"dq": scale * rows(ds @ hs(kv[..., :c]).abs()),
+            "dkv": torch.cat([scale * rows(ds.transpose(-1, -2)
+                                           @ hs(q).abs()),
+                              rows(p.transpose(-1, -2) @ do.abs())], -1),
+            "dbh": grid.sum(-1), "dbw": grid.sum(-2)}
+
+
+def _assert_within(got, want, bound, limit, name):
+    """|got - want| beyond one bf16 step (2^-7 |want|) and ``bound`` is at
+    most ``limit`` elementwise (also printed without ``bound``)."""
+    got, want = got.float(), want.float()
+    gap = (got - want).abs() - 2.0 ** -7 * want.abs()
+    excess = (gap - bound).max().item()
+    print(f"{name}: gap {gap.max().item():.3e}, beyond the bound "
+          f"{excess:.3e}")
+    assert torch.isfinite(got).all() and excess <= limit, (name, excess)
+
+
+# The Hopper dq and dkv on a key grid 128 keys wide: a grid row is two
+# 64-key tiles, which dq visits even tiles first. kv_len ("ragged") cuts
+# row 0 at S - 59 keys (the last, odd tile ragged; Kh 1: two tiles) and a
+# second row at 50 keys (one tile visited: no odd half).
+@pytest.mark.parametrize("kh", [1, 2, 5, 32])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("kv_len", [None, "ragged"])
+def test_global_hopper_bwd_kw128_matches_plain(gen, kh, b, kv_len):
+    """Against the plain versions fed q rounded as Q^, so that both score
+    alike (with a few keys a row's P is peaked, and scores on the fp32 q
+    sit further off than the kernels' own rounding): dq and dkv beyond one
+    bf16 step and 2^-8 of the worst case of the kernels' bf16 operands
+    (``_k5_rounding``) within GRAD_ATOL, dbias_h and dbias_w (fp32 sums of
+    dS, no rounded operand) beyond one bf16 step and 2^-16 of their Σ |dS|
+    within 1e-6. The chain: the same, the plain backward fed the plain
+    forward's lse (scored on the same Q^) in place of the forward loop's,
+    so a forward that scored unlike the backward would show. A second
+    launch gives the same bits."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    heads, d, s = 2, 64, kh * 128
+    kl = None if kv_len is None else [max(1, s - 59), 50][:b]
+    args, kwargs = _k5_inputs(gen, b, heads, s, kh, 128, kl)
+    assert G.global_attention_fwd_route(*args[:5],
+                                        num_heads=heads) == "loops"
+    for kernel in ("dq", "dkv"):
+        assert G.global_attention_bwd_route(
+            *args[:5], num_heads=heads, kernel=kernel) == "hopper"
+    A.reset_launch_counts()
+    got = (*G.global_attention_bwd_dq(*args, **kwargs),
+           G.global_attention_bwd_dkv(*args, **kwargs))
+    again = (*G.global_attention_bwd_dq(*args, **kwargs),
+             G.global_attention_bwd_dkv(*args, **kwargs))
+    torch.cuda.synchronize()
+    assert [A.LAUNCHES[k] for k in ("global_attention_bwd_dq",
+                                    "global_attention_bwd_dkv")] == [2, 2]
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    if kl is not None:
+        for row, n in enumerate(kl):
+            assert not got[3][row, n:].any()
+    scale = kwargs["scale"]
+    qhat = _qhat_plain(args[0], scale)
+    r = _k5_rounding(args, heads, scale)
+    bounds = (2.0 ** -8 * r["dq"], 2.0 ** -16 * r["dbh"],
+              2.0 ** -16 * r["dbw"], 2.0 ** -8 * r["dkv"])
+    limits = (GRAD_ATOL["global"], 1e-6, 1e-6, GRAD_ATOL["global"])
+    names = ("dq", "dbias_h", "dbias_w", "dkv")
+    _, lse = G.global_attention_fwd_lse_plain(qhat, *args[1:5], **kwargs)
+    for tag, lse_ in (("", args[6]), ("chain ", lse)):
+        p_args = (qhat, *args[1:6], lse_, args[7])
+        want = (*G.global_attention_bwd_dq_plain(*p_args, **kwargs),
+                G.global_attention_bwd_dkv_plain(*p_args, **kwargs))
+        for g_, w_, bound, limit, name in zip(got, want, bounds, limits,
+                                              names):
+            _assert_within(g_, w_, bound, limit, tag + name)
+
+
 def test_global_hopper_bwd_is_deterministic(gen):
     """No atomics: two launches of each Hopper body give the same bits."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
@@ -749,8 +865,9 @@ def test_global_hopper_bwd_is_deterministic(gen):
 
 def test_global_trainable_backward_builds_without_spill(gen, tmp_path,
                                                         monkeypatch):
-    """Both K5 backward sources, Hopper bodies and loops, fit their
-    registers: build_all's ptxas report (-Xptxas -v) shows no spill."""
+    """Both K5 backward sources, Hopper bodies (no bias, Kw 64, Kw 128) and
+    loops, fit their registers: build_all's ptxas report (-Xptxas -v)
+    shows no spill and no wgmma serialisation (C75xx)."""
     from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
 
     monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
@@ -761,6 +878,9 @@ def test_global_trainable_backward_builds_without_spill(gen, tmp_path,
                      if "registers" in ln])
         assert "spill" in logs[name] and cb.spill_bytes(logs[name]) == 0, \
             logs[name]
+        hopper = [f for f in cb.ptxas_functions(logs[name])
+                  if "hopper_kernel" in f]
+        assert len(hopper) == 3 and "C75" not in logs[name], logs[name]
 
 
 @pytest.mark.parametrize("remat", ["block", "mlp"])

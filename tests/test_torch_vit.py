@@ -109,6 +109,9 @@ class TestFusedVariant:
         (8, 8, 2, 128, "window"),       # tiny global layer → window
         (33, 33, 12, 768, None),        # 1089 tokens, no tile divides
         (14, 14, 3, 96, None),          # head layout does not tile
+        (128, 128, 12, 768, "global"),  # SAM @2048 global layer (Kw 128)
+        (48, 48, 12, 768, None),        # SAM @768 global layer
+        (96, 96, 12, 768, None),        # SAM @1536 global layer
     ])
     def test_same_selection(self, h, w, heads, width, expect):
         j_cfg = dataclasses.replace(J_CFG, num_heads=heads, width=width)

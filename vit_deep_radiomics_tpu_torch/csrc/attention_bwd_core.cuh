@@ -150,19 +150,31 @@ namespace k5h {
 constexpr int kD = 64;                 // head dim (the only build)
 constexpr int kTile = 64 * kD * 2;     // one 64 x 64 bf16 tile (8 KB)
 constexpr int kErrTensorMap = -3;
-// bias_h grid rows the dq kernel's staged table takes (Kh * 512 bytes)
+// bias_h grid rows the dq kernel's staged tables take (Kh * 516 bytes
+// each)
 constexpr int kMaxGridRows = 128;
 
-// The calls the Hopper bodies take (both kernels alike, so the route is
-// one): head dim 64, and no bias or a key grid 64 keys wide, so that a
-// 64-key tile is one grid row; the others keep the mma.sync loops.
-__host__ __device__ inline bool takes(int D, bool has_bias, int kh, int kw) {
+// The calls the backward's Hopper bodies take (dq and dkv alike, so the
+// route is one): head dim 64, and no bias or a key grid 64 or 128 keys
+// wide of at most kMaxGridRows rows, so that a 64-key tile is one grid row
+// or half of one; the others keep the mma.sync loops.
+__host__ __device__ inline bool bwd_takes(int D, bool has_bias, int kh,
+                                          int kw) {
+  return D == kD &&
+         (!has_bias || ((kw == 64 || kw == 128) && kh <= kMaxGridRows));
+}
+
+// The calls the forward's Hopper body (K2's) takes: head dim 64, and no
+// bias or a key grid 64 keys wide of at most kMaxGridRows rows; Kw 128
+// keeps the forward's mma.sync loop, which scores as the backward does.
+__host__ __device__ inline bool fwd_takes(int D, bool has_bias, int kh,
+                                          int kw) {
   return D == kD && (!has_bias || (kw == 64 && kh <= kMaxGridRows));
 }
 
 // The key-grid widths the three K5 kernels take with a bias: an 8-key mma
 // tile lies in one grid row, and a 64-key tile holds whole grid rows (Kw
-// 8..64) or half of one (Kw 128, which the mma.sync loops take).
+// 8..64) or half of one (Kw 128).
 __host__ __device__ inline bool bias_width_ok(int kw) {
   return kw == 8 || kw == 16 || kw == 32 || kw == 64 || kw == 128;
 }

@@ -22,8 +22,9 @@
 // each 64 x 64 tile carries 32 exponentials and the bias per thread
 // besides its four products, so that work has to run under the products.
 //
-// What the design does about it (bf16 calls with no bias or Kw = 64: the
-// fast path of SAM's global layers and of DINOv2's kv_len layers):
+// What the design does about it (bf16 calls with no bias or Kw = 64 or
+// 128: the fast path of SAM's global layers at 1024 and 2048 px and of
+// DINOv2's kv_len layers):
 //  * warp specialisation: one producer warp brings each query tile's q,
 //    dO and bias_w rows by TMA (128-byte swizzle) into a ring of kStages
 //    stages guarded by full/empty mbarriers, and stages lse, D and the
@@ -44,17 +45,22 @@
 //  * the bias: a 64-key warpgroup lies inside one grid row, so bias_h is
 //    one staged scalar per query, and ldmatrix.trans reads bias_w from its
 //    [query][key] rows with one 32-bit register for the two queries a
-//    thread holds per key;
+//    thread holds per key. At Kw 64 both warpgroups read the grid's 64
+//    columns from one box; at Kw 128 a block's 128 keys are one grid row,
+//    so the stage carries two 64-column boxes (the 128-byte swizzle caps a
+//    box at 64 bf16), one a warpgroup: 5 tiles a stage, 197 KB in all;
 //  * kv_len: a block wholly past it writes zeros; the ragged warpgroup
 //    masks its keys by one flag; a kv_len 0 row scores every key at
 //    -1e30 log2 e by one flag per block; queries past S read zeros (TMA
 //    fill) and an lse of +inf, so P = 0 there.
 // Every output element is written once by one thread: no atomics, the
-// same bits on every run. Biased calls with Kw in {8, 16, 32, 128} keep
-// the first loops below (mma.sync, one synchronously staged query tile, the
-// bias read per score from shared memory; at Kw 128 a block's 64 keys are
-// half of one grid row); vdr_global_attention_bwd_route
-// reports the choice, which the C entry makes by shape alone.
+// same bits on every run. Biased calls with Kw in {8, 16, 32}, or Kw 128
+// on a grid of more than k5h::kMaxGridRows rows (the dq kernel's limit: the
+// two kernels route alike), keep the first loops below (mma.sync, one
+// synchronously staged query tile, the bias read per score from shared
+// memory; at Kw 128 a block's 64 keys are half of one grid row);
+// vdr_global_attention_bwd_route reports the choice, which the C entry
+// makes by shape alone.
 
 #include "attention_bwd_core.cuh"
 
@@ -62,7 +68,7 @@ namespace {
 using vdr::bf16;
 
 // ---------------------------------------------------------------------------
-// First loops (mma.sync): biased calls with Kw in {8, 16, 32, 128}
+// First loops (mma.sync): biased calls the Hopper body does not take
 // ---------------------------------------------------------------------------
 
 constexpr int D = 64;
@@ -235,8 +241,12 @@ constexpr int kStages = 4;                 // query-tile ring depth
 constexpr int kKeys = 64 * kConsumers;     // keys per block
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 constexpr int kConsumerRegs = vdr::k5h::consumer_regs(kConsumers);
-// a stage: the raw q tile, dO, the scaled copy Q^ and the bias_w rows
-constexpr int kStageBytes = 4 * kTile;
+// a stage: the raw q tile, dO, the scaled copy Q^ and the bias_w rows of
+// kBoxes 64-column boxes (one at Kw 64, whose slot the no-bias instance
+// keeps; two at Kw 128, one a warpgroup)
+__host__ __device__ constexpr int stage_bytes(int boxes) {
+  return (3 + (boxes > 1 ? boxes : 1)) * kTile;
+}
 // and in fp32: lse, D, and each warpgroup's bias_h column (log2 units)
 constexpr int kSmallFloats = (2 + kConsumers) * 64;
 static_assert(kStages >= 3, "Q^ of tile j+1 is made before tile j-1's "
@@ -323,14 +333,17 @@ __device__ __forceinline__ void probs_ds(float (&s)[32], float (&dp)[32],
   }
 }
 
-// kBias: the decomposed bias with a 64-key grid row (Kw = 64).
-template <bool kBias>
+// kBoxes: 0 without a bias; with the decomposed bias, the 64-column
+// bias_w boxes of a grid row, 1 (Kw 64) or 2 (Kw 128).
+template <int kBoxes>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tkv,
                       const __grid_constant__ CUtensorMap tdo,
                       const __grid_constant__ CUtensorMap tbw,
                       const HopperParams p) {
+  constexpr bool kBias = kBoxes > 0;
+  constexpr int kStageBytes = stage_bytes(kBoxes);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages],
       qready[kStages], kvbar;
@@ -413,11 +426,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (lane == 0) {
         const uint32_t sa = smem_u32(stages + st * kStageBytes);
-        mbar_expect_tx(&full[st], (kBias ? 3 : 2) * kTile);
+        mbar_expect_tx(&full[st], (2 + kBoxes) * kTile);
         tma_load(sa, &tq, &full[st], h * 64, q0, b);
         tma_load(sa + kTile, &tdo, &full[st], h * 64, q0, b);
-        if constexpr (kBias)
-          tma_load(sa + 3 * kTile, &tbw, &full[st], 0, q0, b * p.H + h);
+        for (int w = 0; w < kBoxes; ++w)
+          tma_load(sa + (3 + w) * kTile, &tbw, &full[st], 64 * w, q0,
+                   b * p.H + h);
       } else {
         mbar_arrive(&full[st]);
       }
@@ -433,6 +447,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool ragged = k0 + 64 * wg + 64 > n_keys;
     const bool lo_ok = key_lo < n_keys, hi_ok = key_hi < n_keys;
     const bool add = kBias && !none;
+    // the warpgroup's bias_w box: its keys' grid columns (Kw 128: 0-63 or
+    // 64-127)
+    const int box = kBoxes > 1 ? (k0 + 64 * wg) % p.kw / 64 : 0;
     const uint32_t k_tile = kv_addr + 2 * wg * kTile, v_tile = k_tile + kTile;
     auto stage = [&](int j) { return stages + (j % kStages) * kStageBytes; };
     auto stage_at = [&](int j) { return smem_u32(stage(j)); };
@@ -458,7 +475,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = vdr::kMaskedLog2;
       }
-      const uint32_t bw_tile = stage_at(j) + 3 * kTile;
+      const uint32_t bw_tile = stage_at(j) + (3 + box) * kTile;
       if (add) add_bias(s, sm + 128 + 64 * wg, bw_tile, warp, lane, c);
       probs_ds(s, dp, sm, sm + 64, c, ragged, lo_ok, hi_ok);
     };
@@ -531,8 +548,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-size_t hopper_smem() {
-  return 1024 + (size_t)(2 * kConsumers + kStages * 4) * kTile +
+size_t hopper_smem(int boxes) {
+  return 1024 + (size_t)2 * kConsumers * kTile +
+         (size_t)kStages * stage_bytes(boxes) +
          (size_t)kStages * kSmallFloats * sizeof(float);
 }
 
@@ -549,8 +567,11 @@ int launch_hopper(const void* q, const void* kv, const void* bias_w,
   if (bias && !tensor_map_64(&tbw, bias_w, p.kw, p.S, B * p.H))
     return vdr::k5h::kErrTensorMap;
   if (!bias) tbw = tdo;   // never read
-  const size_t smem = hopper_smem();
-  auto kern = bias ? dkv_hopper_kernel<true> : dkv_hopper_kernel<false>;
+  const int boxes = bias ? p.kw / 64 : 0;
+  const size_t smem = hopper_smem(boxes);
+  auto kern = boxes == 2   ? dkv_hopper_kernel<2>
+              : boxes == 1 ? dkv_hopper_kernel<1>
+                           : dkv_hopper_kernel<0>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -568,7 +589,7 @@ const char* vdr_error_string(int err) { return vdr::error_string(err); }
 // runs the first loops (the same choice as the dq kernel's).
 int vdr_global_attention_bwd_route(int S, int H, int D, int kh, int kw,
                                    int biased) {
-  return vdr::k5h::takes(D, biased != 0, kh, kw) ? 1 : 0;
+  return vdr::k5h::bwd_takes(D, biased != 0, kh, kw) ? 1 : 0;
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
@@ -585,7 +606,7 @@ int vdr_global_attention_bwd_dkv(const void* q, const void* kv,
   const bool has_bias = bias_h != nullptr;
   if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vdr::k5h::takes(D, has_bias, kh, kw)) {
+  if (vdr::k5h::bwd_takes(D, has_bias, kh, kw)) {
     const HopperParams hp{static_cast<const bf16*>(bias_h), kv_len, lse,
                           delta, static_cast<bf16*>(dkv), S, H, kh, kw,
                           scale * vdr::kLog2e, scale};

@@ -17,7 +17,7 @@
 // and dq is scaled by D^-1/2 and stored once. The bias gradients need a
 // key-grid width kw in {8, 16, 32, 64, 128}: a 64-key tile then holds
 // whole grid rows, so every key keeps its grid column across tiles, or
-// (Kw 128) half of one, whose columns the loops fold per tile.
+// (Kw 128) half of one.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the
 // fine-tuning path's shapes (2 x 4096 tokens x 12 heads of 64) it does
@@ -27,8 +27,9 @@
 // exponentials, the bias and its gradients per thread, which have to run
 // under the products.
 //
-// What the design does about it (bf16 calls with no bias or Kw = 64: the
-// fast path of SAM's global layers and of DINOv2's kv_len layers):
+// What the design does about it (bf16 calls with no bias or Kw = 64 or
+// 128: the fast path of SAM's global layers at 1024 and 2048 px and of
+// DINOv2's kv_len layers):
 //  * warp specialisation: one producer thread keeps 64-key K and V tiles in
 //    flight by TMA (128-byte swizzle) in a ring of kStages stages guarded
 //    by full/empty mbarriers; tiles wholly past kv_len are never loaded;
@@ -47,13 +48,27 @@
 //    bias_h scalar per row and tile from a table staged once; dbias_w is a
 //    per-position register accumulator across tiles, dbias_h one row sum
 //    per tile (quad shuffles) stored by one lane: no atomics;
+//  * Kw 128: tiles 2r and 2r + 1 are grid row r, columns 0-63 and 64-127.
+//    A second set of bias_w terms and dbias_w sums (64 registers) would
+//    not fit the consumers' 168 registers (ptxas gives every thread of a
+//    384-thread launch that many, whatever setmaxnreg asks), and keeping
+//    one half in shared memory would read and write 80 bytes a thread per
+//    odd tile beside the products' operands. So the producer streams the
+//    even tiles first and then the odd ones: one set of bias_w columns is
+//    live at a time, swapped once (the even half's dbias_w stored, the odd
+//    half's bias_w loaded), and the even tile's dbias_h row sums wait in
+//    the thread's own fp32 slots of a [grid row][row] table (Kh x 516
+//    bytes beside the bias_h table, 211 KB at Kh 128) until the odd tile
+//    adds its own, even + odd, and one lane stores the row;
 //  * kv_len: the ragged tile masks by one flag per tile, a kv_len 0 row
 //    scores every key at -1e30 log2 e by one flag per block; rows and
 //    keys past S read zeros (TMA fill), rows past S an lse of +inf.
 // Every output element is written once by one thread, after sums in a
 // fixed order: the same bits on every run. Biased calls with Kw in
-// {8, 16, 32, 128} keep the first loops below (mma.sync, synchronously
-// staged K/V tiles, the bias read per score from shared memory);
+// {8, 16, 32}, or Kw 128 on a grid of more than k5h::kMaxGridRows rows,
+// keep the first loops below (mma.sync, synchronously staged K/V tiles,
+// the bias read per score from shared memory; at Kw 128 they fold the
+// tile's dbias_w sums into the grid's columns every tile);
 // vdr_global_attention_bwd_route reports the choice, which the C entry
 // makes by shape alone.
 
@@ -63,7 +78,7 @@ namespace {
 using vdr::bf16;
 
 // ---------------------------------------------------------------------------
-// First loops (mma.sync): biased calls with Kw in {8, 16, 32, 128}
+// First loops (mma.sync): biased calls the Hopper body does not take
 // ---------------------------------------------------------------------------
 
 constexpr int D = 64;
@@ -326,12 +341,19 @@ __device__ __forceinline__ void probs_ds(float (&s)[32], float (&dp)[32],
 }
 
 // The bias gradients of one tile from dS in registers: dbias_w per key
-// position, summed across tiles (a 64-key tile is one grid row); dbias_h
+// position, summed across the tiles of one set of grid columns; dbias_h
 // the tile's row sums (quad shuffles), stored by the lane with c == 0 at
-// grid row kr of the thread's rows (dbh_lo, dbh_hi; nullptr past S).
+// grid row kr of the thread's rows (dbh_lo, dbh_hi; nullptr past S). With
+// kHalves (Kw 128) tile kt is half of grid row kr: an even tile whose odd
+// partner is still to come (kt + 1 < n_tiles) leaves its sums in the
+// thread's slots part[0] (row lo) and part[8] (row hi) of the grid row's
+// table row, and the odd tile stores them plus its own.
+template <bool kHalves>
 __device__ __forceinline__ void bias_grads(const float (&ds)[32],
                                            float (&dbw)[32], bf16* dbh_lo,
-                                           bf16* dbh_hi, int kr, int c) {
+                                           bf16* dbh_hi, int kr, int c,
+                                           float* part, int kt,
+                                           int n_tiles) {
   float lo = 0.f, hi = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -346,18 +368,39 @@ __device__ __forceinline__ void bias_grads(const float (&ds)[32],
   hi += __shfl_xor_sync(0xffffffffu, hi, 1);
   hi += __shfl_xor_sync(0xffffffffu, hi, 2);
   if (c == 0) {
+    if constexpr (kHalves) {
+      if ((kt & 1) == 0 && kt + 1 < n_tiles) {
+        part[0] = lo;
+        part[8] = hi;
+        return;
+      }
+      if (kt & 1) {
+        lo = part[0] + lo;
+        hi = part[8] + hi;
+      }
+    }
     if (dbh_lo != nullptr) dbh_lo[kr] = __float2bfloat16(lo);
     if (dbh_hi != nullptr) dbh_hi[kr] = __float2bfloat16(hi);
   }
 }
 
-// kBias: the decomposed bias with a 64-key grid row (Kw = 64).
-template <bool kBias>
+// The key tile visited at step j: in order, or (Kw 128, kHalves) the n_even
+// even tiles first (grid columns 0-63), then the odd ones (64-127).
+template <bool kHalves>
+__device__ __forceinline__ int key_tile(int j, int n_even) {
+  if constexpr (kHalves) return j < n_even ? 2 * j : 2 * (j - n_even) + 1;
+  return j;
+}
+
+// kBoxes: 0 without a bias; with the decomposed bias, the 64-column
+// halves of a grid row, 1 (Kw 64) or 2 (Kw 128).
+template <int kBoxes>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tkv,
                      const __grid_constant__ CUtensorMap tdo,
                      const HopperParams p) {
+  constexpr bool kBias = kBoxes > 0, kHalves = kBoxes > 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], qbar;
   // the swizzled tiles need 1024-byte alignment in the shared window
@@ -367,6 +410,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t ring = qd_addr + 2 * kConsumers * kTile;  // K, V stages
   float* bh_s = reinterpret_cast<float*>(
       base + (2 * kConsumers + 2 * kStages) * kTile);      // [kh][kBiasLd]
+  // Kw 128: the even tiles' dbias_h row sums, [kh][kBiasLd]
+  float* dbh_s = bh_s + p.kh * kBiasLd;
 
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
   const int C = p.H * 64;
@@ -376,6 +421,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_keys = lim > 0 ? lim : p.S;
   const bool none = lim == 0;
   const int n_tiles = (n_keys + 63) / 64;
+  const int n_even = (n_tiles + 1) / 2;   // Kw 128: the tiles of columns 0-63
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -404,10 +450,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        const int key0 = key_tile<kHalves>(j, n_even) * 64;
         mbar_expect_tx(&full[st], 2 * kTile);
-        tma_load(ring + 2 * st * kTile, &tkv, &full[st], h * 64, j * 64, b);
+        tma_load(ring + 2 * st * kTile, &tkv, &full[st], h * 64, key0, b);
         tma_load(ring + (2 * st + 1) * kTile, &tkv, &full[st], C + h * 64,
-                 j * 64, b);
+                 key0, b);
       }
     }
   } else {
@@ -439,8 +486,11 @@ __global__ void __launch_bounds__(kThreads, 1)
             R < p.S ? vdr::k5h::term(p.bias_h[(res_row + R) * p.kh + kr])
                     : 0.f;
       }
-      // bias_w: a 64-key tile is one grid row, so key 8i + 2c.. of every
-      // tile takes the same columns
+    }
+    // bias_w: a 64-key tile is one grid row (or, Kw 128, the half of one
+    // at columns col0..), so key 8i + 2c.. of every tile takes the same
+    // columns
+    auto load_bw = [&](int col0) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
@@ -448,13 +498,28 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int R = half ? R_hi : R_lo;
           if (R < p.S) {
             const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-                p.bias_w + (res_row + R) * p.kw + i * 8 + 2 * c);
+                p.bias_w + (res_row + R) * p.kw + col0 + i * 8 + 2 * c);
             bw[4 * i + 2 * half] = vdr::k5h::term(__low2bfloat16(v));
             bw[4 * i + 2 * half + 1] = vdr::k5h::term(__high2bfloat16(v));
           }
         }
       }
-    }
+    };
+    auto store_dbw = [&](int col0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = col0 + 8 * i + 2 * c;
+        if (R_lo < p.S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              p.dbw + (res_row + R_lo) * p.kw + col) =
+              __floats2bfloat162_rn(dbw[4 * i], dbw[4 * i + 1]);
+        if (R_hi < p.S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              p.dbw + (res_row + R_hi) * p.kw + col) =
+              __floats2bfloat162_rn(dbw[4 * i + 2], dbw[4 * i + 3]);
+      }
+    };
+    if constexpr (kBias) load_bw(0);
     // Q^ in place: the warpgroup scales its own q tile
     const uint32_t q_addr = qd_addr + 2 * wg * kTile, do_addr = q_addr + kTile;
     mbar_wait(&qbar, 0);
@@ -471,19 +536,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     bf16* dbh_hi = nullptr;
     if (kBias && R_lo < p.S) dbh_lo = p.dbh + (res_row + R_lo) * p.kh;
     if (kBias && R_hi < p.S) dbh_hi = p.dbh + (res_row + R_hi) * p.kh;
-    // tile j's scores -> P and dS in place (bias, exponentials, masks), and
+    // step j's scores -> P and dS in place (bias, exponentials, masks), and
     // its bias gradients
     auto tile_math = [&](int j) {
       if (none) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = vdr::kMaskedLog2;
       }
-      const int kr = j * 64 / p.kw;
+      const int kt = key_tile<kHalves>(j, n_even);
+      const int kr = kt * 64 / p.kw;
       const float* bh = bh_s + kr * kBiasLd;
       if (add) add_bias(s, bw, bh[r_lo], bh[r_hi]);
-      const bool ragged = (j + 1) * 64 > n_keys;
-      probs_ds(s, dp, l_lo, l_hi, d_lo, d_hi, ragged, j * 64 + 2 * c, n_keys);
-      if constexpr (kBias) bias_grads(dp, dbw, dbh_lo, dbh_hi, kr, c);
+      const bool ragged = (kt + 1) * 64 > n_keys;
+      probs_ds(s, dp, l_lo, l_hi, d_lo, d_hi, ragged, kt * 64 + 2 * c,
+               n_keys);
+      if constexpr (kBias)
+        bias_grads<kHalves>(dp, dbw, dbh_lo, dbh_hi, kr, c,
+                            dbh_s + kr * kBiasLd + r_lo, kt, n_tiles);
+    };
+    // Kw 128, at the first odd tile: the even half's dbias_w goes out and
+    // the odd half's bias_w comes in
+    auto next_half = [&] {
+      store_dbw(0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dbw[i] = 0.f;
+      load_bw(64);
     };
     // ping-pong: a warpgroup issues its products after the one before it
     // (named barriers 1 .. kConsumers serve the set-up above)
@@ -509,6 +586,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int st = j % kStages;
       const uint32_t cur = ring + 2 * st * kTile;
       const uint32_t prev = ring + 2 * ((j - 1) % kStages) * kTile;
+      if constexpr (kHalves) {
+        if (j == n_even) next_half();
+      }
       mbar_wait(&full[st], (j / kStages) & 1);
       issue_wait();
       wgmma_fence();
@@ -552,21 +632,16 @@ __global__ void __launch_bounds__(kThreads, 1)
             __floats2bfloat162_rn(dq[4 * i + 2] * p.scale,
                                   dq[4 * i + 3] * p.scale);
     }
+    if constexpr (kHalves) {
+      // one tile visited: no odd half, whose columns take zeros
+      if (n_tiles == 1) next_half();
+      store_dbw(64);
+    } else if constexpr (kBias) {
+      store_dbw(0);
+    }
     if constexpr (kBias) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int col = 8 * i + 2 * c;
-        if (R_lo < p.S)
-          *reinterpret_cast<__nv_bfloat162*>(
-              p.dbw + (res_row + R_lo) * p.kw + col) =
-              __floats2bfloat162_rn(dbw[4 * i], dbw[4 * i + 1]);
-        if (R_hi < p.S)
-          *reinterpret_cast<__nv_bfloat162*>(
-              p.dbw + (res_row + R_hi) * p.kw + col) =
-              __floats2bfloat162_rn(dbw[4 * i + 2], dbw[4 * i + 3]);
-      }
       // grid rows past the visited tiles (all keys masked): zero
-      for (int kr = n_tiles + c; kr < p.kh; kr += 4) {
+      for (int kr = (kHalves ? n_even : n_tiles) + c; kr < p.kh; kr += 4) {
         if (dbh_lo != nullptr) dbh_lo[kr] = __float2bfloat16(0.f);
         if (dbh_hi != nullptr) dbh_hi[kr] = __float2bfloat16(0.f);
       }
@@ -574,9 +649,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-size_t hopper_smem(int kh) {
+// kh tables of bias_h terms and (Kw 128) of the even tiles' dbias_h sums
+size_t hopper_smem(int kh, int tables) {
   return 1024 + (size_t)(2 * kConsumers + 2 * kStages) * kTile +
-         (size_t)kh * kBiasLd * sizeof(float);
+         (size_t)tables * kh * kBiasLd * sizeof(float);
 }
 
 int launch_hopper(const void* q, const void* kv, const void* dout,
@@ -587,9 +663,11 @@ int launch_hopper(const void* q, const void* kv, const void* dout,
       !tensor_map_64(&tkv, kv, 2 * C, p.S, B) ||
       !tensor_map_64(&tdo, dout, C, p.S, B))
     return vdr::k5h::kErrTensorMap;
-  const bool bias = p.bias_h != nullptr;
-  const size_t smem = hopper_smem(bias ? p.kh : 0);
-  auto kern = bias ? dq_hopper_kernel<true> : dq_hopper_kernel<false>;
+  const int boxes = p.bias_h != nullptr ? p.kw / 64 : 0;
+  const size_t smem = hopper_smem(p.kh, boxes);
+  auto kern = boxes == 2   ? dq_hopper_kernel<2>
+              : boxes == 1 ? dq_hopper_kernel<1>
+                           : dq_hopper_kernel<0>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -607,7 +685,7 @@ const char* vdr_error_string(int err) { return vdr::error_string(err); }
 // runs the first loops (the same choice as the dkv kernel's).
 int vdr_global_attention_bwd_route(int S, int H, int D, int kh, int kw,
                                    int biased) {
-  return vdr::k5h::takes(D, biased != 0, kh, kw) ? 1 : 0;
+  return vdr::k5h::bwd_takes(D, biased != 0, kh, kw) ? 1 : 0;
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
@@ -625,7 +703,7 @@ int vdr_global_attention_bwd_dq(const void* q, const void* kv,
   const bool has_bias = bias_h != nullptr;
   if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vdr::k5h::takes(D, has_bias, kh, kw)) {
+  if (vdr::k5h::bwd_takes(D, has_bias, kh, kw)) {
     const HopperParams hp{static_cast<const bf16*>(bias_h),
                           static_cast<const bf16*>(bias_w),
                           kv_len,

@@ -17,7 +17,7 @@
 // exponentials as K2 per product.
 //
 // What the design does about it: bf16 calls with no bias or a key grid 64
-// keys wide (the calls the backward's Hopper bodies take) run K2's Hopper
+// keys wide run K2's Hopper
 // body, global_fwd_hopper.cuh, with its lse store (Config::kLse): one TMA
 // producer thread and a 4-stage K/V ring on mbarriers, three wgmma
 // consumer warpgroups of 64 query rows issuing in turns, the online
@@ -31,9 +31,10 @@
 // P rows do not sum to. Biased calls with Kw in {8, 16, 32, 128} keep the
 // first mma.sync loop of flash_attention_core.cuh (synchronously staged
 // K/V tiles, the bias read per score from shared memory through a key
-// table, so a 64-key tile may hold half a grid row), as the backward keeps
-// its loops for them. vdr_global_attention_fwd_route reports the
-// choice, which the C entry makes by shape alone.
+// table, so a 64-key tile may hold half a grid row); the backward's
+// Hopper bodies also take Kw 128 and keep their loops for the other
+// widths. vdr_global_attention_fwd_route reports the choice, which the C
+// entry makes by shape alone.
 
 #include "attention_bwd_core.cuh"
 #include "global_fwd_hopper.cuh"
@@ -51,9 +52,10 @@ constexpr int kRows = 128;
 constexpr int kConsumers = 3;
 constexpr int kStages = 4;
 using HopperCfg = gfwd::Config<kConsumers, kStages, 1, true>;
-// the Hopper body takes the K5 backward's calls (k5h::takes: head dim 64,
-// and no bias or a key grid 64 keys wide of at most kMaxGridRows rows), so
-// that the three K5 kernels route alike; each such bias_h table fits
+// the Hopper body takes head dim 64 with no bias or a key grid 64 keys
+// wide of at most kMaxGridRows rows (k5h::fwd_takes; the backward's Hopper
+// bodies also take Kw 128, which this forward keeps on its loop); each
+// such bias_h table fits
 static_assert(gfwd::smem_bytes<HopperCfg>(vdr::k5h::kMaxGridRows) <=
                   227 * 1024,
               "the bias_h table of every grid the route takes fits");
@@ -65,10 +67,10 @@ extern "C" {
 const char* vdr_error_string(int err) { return vdr::error_string(err); }
 
 // 1 when a call with these arguments runs the Hopper body, 0 when it runs
-// the first loop (the K5 backward's choice).
+// the first loop.
 int vdr_global_attention_fwd_route(int S, int H, int D, int kh, int kw,
                                    int biased) {
-  return vdr::k5h::takes(D, biased != 0, kh, kw) ? 1 : 0;
+  return vdr::k5h::fwd_takes(D, biased != 0, kh, kw) ? 1 : 0;
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
@@ -84,7 +86,7 @@ int vdr_global_attention_fwd_lse(const void* q, const void* kv,
   const bool has_bias = bias_h != nullptr;
   if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vdr::k5h::takes(D, has_bias, kh, kw)) {
+  if (vdr::k5h::fwd_takes(D, has_bias, kh, kw)) {
     const gfwd::Params p{static_cast<const __nv_bfloat16*>(bias_h),
                          static_cast<const __nv_bfloat16*>(bias_w),
                          kv_len,

@@ -17,7 +17,9 @@ Kw)``, as in ``ops/attention.py``):
   dq and both bias gradients over the keys) and the K5 dkv kernel
   (``csrc/global_attention_bwd_dkv.cu``: dk and dv over the queries). All
   three run a TMA + wgmma body on calls with no bias or a key grid 64 keys
-  wide, and mma.sync loops on Kw 8, 16, 32 or 128;
+  wide, the two backward kernels also on a key grid 128 keys wide (SAM's
+  global layers at 2048 px), and mma.sync loops on the other widths (the
+  forward on Kw 128 too);
   :func:`global_attention_fwd_route` and :func:`global_attention_bwd_route`
   say which.
 * :func:`flash_attention_trainable` — K6, the generic per-head
@@ -391,9 +393,8 @@ def global_attention_fwd_route(q, kv, bias_h=None, bias_w=None,
     """Which body :func:`global_attention_fwd_lse` runs for these operands:
     ``"plain"`` on the CPU; on the card, as
     ``csrc/global_attention_fwd_lse.cu`` chooses, ``"hopper"`` (K2's TMA +
-    wgmma body with the lse store: no bias or a key grid 64 keys wide, the
-    calls the backward's Hopper bodies take) or ``"loops"`` (the mma.sync
-    loop, Kw in {8, 16, 32, 128})."""
+    wgmma body with the lse store: no bias or a key grid 64 keys wide) or
+    ``"loops"`` (the mma.sync loop, Kw in {8, 16, 32, 128})."""
     return _k5_route("global_attention_fwd_lse",
                      "vdr_global_attention_fwd_route", q, kv, bias_h, bias_w,
                      kv_len, num_heads)
@@ -466,8 +467,8 @@ def global_attention_bwd_route(q, kv, bias_h=None, bias_w=None,
     """Which body the K5 backward kernel ``kernel`` (``"dq"`` or ``"dkv"``)
     runs for these operands: ``"plain"`` on the CPU; on the card, as its
     source's C entry chooses, ``"hopper"`` (the TMA + wgmma kernel: no bias
-    or a key grid 64 keys wide) or ``"loops"`` (the mma.sync loops, Kw in
-    {8, 16, 32, 128})."""
+    or a key grid 64 or 128 keys wide of at most 128 rows) or ``"loops"``
+    (the mma.sync loops, Kw in {8, 16, 32})."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
     return _k5_route(f"global_attention_bwd_{kernel}",

@@ -33,6 +33,7 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity-forward PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-768 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-2048 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path dinov2 PARENT CHANGE
 
@@ -70,7 +71,8 @@ shape, 4 x 1536 with 1370 valid; K3 bf16: SAM @768's q (4, 12, 2304, 64)
 and JAX's padded (4, 12, 3072, 64) against k/v (4, 12, 3072, 64), Kh 48,
 Kw 64, ``kv_grid`` (48, 48); K4: q (50, 196, 768), Kh = Kw = 14; K5:
 q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16, the
-forward's out and lse held to its plain version; K6: the
+backward also q (1, 4096, 768) on a key grid of 32 x 128, the forward's
+out and lse held to its plain version; K6: the
 `parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
 (50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
 1536, 64) with 1370 valid keys); K1 fp32: q (100, 196, 768), Kh = Kw =
@@ -104,6 +106,13 @@ in fp32 at their path shapes and at DINOv2's kv_len shape, and
 ``chip_smoke.py``'s kernel phases 3 and 15; with ``--path fast-768`` the
 `fast` SAM @768 forward at B=4 (host and device ms, ``utils/profiling.py``)
 and a one-patient @768 extraction as ``chip_smoke.py``'s phase 18 runs it;
+with ``--path fast-2048`` a SAM ViT-B/16 @2048 `fast` fine-tuning step at
+B=1 (``FineTuner`` with ``backbone_cfg``; wall ms, device ms, idle share
+and the top device costs from ``utils/profiling.py``'s ``trace_runs``),
+the three K5 kernels' ms on key grids 128 keys wide (B=1, Kh 32 and Kh
+128: SAM @2048's global layers), and a SHA-256 of the K5 dq and dkv
+outputs at SAM @1024's Kw 64 shape and DINOv2's kv_len shape (no bias),
+which must not differ between the trees;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
 a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
@@ -334,9 +343,11 @@ VARIANTS = {
         "stages_2": ({"kStages": 2}, ()),
         "stages_6": ({"kStages": 6}, ()),
         "no_bias": ({}, ("add_bias(s, bw, bh[r_lo], bh[r_hi]);",
-                         "bias_grads(dp, dbw, dbh_lo, dbh_hi, kr, c);")),
+                         "bias_grads<kHalves>(dp, dbw, dbh_lo, dbh_hi, kr, "
+                         "c,\n                            dbh_s + kr * "
+                         "kBiasLd + r_lo, kt, n_tiles);")),
         "no_softmax": ({}, ("probs_ds(s, dp, l_lo, l_hi, d_lo, d_hi, ragged, "
-                            "j * 64 + 2 * c, n_keys);",)),
+                            "kt * 64 + 2 * c,\n               n_keys);",)),
         "no_products": ({}, ("vdr::k5h::product_rs(dq, da, prev);",
                              "vdr::k5h::product_rs(dq, da, last);")),
         "no_scores": ({}, (
@@ -409,8 +420,11 @@ def _k2_call(A, q, kv, bh, bw, kl, heads, scale):
 # the plain output and the arguments; None for the K6 backward, which
 # `_k6_variants` calls)
 _K6_SHAPES = ((2, 4096, 64, 64, None), (50, 196, 14, 14, None))
-# the K5 backward (bf16): SAM @1024's global layers and DINOv2's kv_len
+# the K5 backward (bf16): SAM @1024's global layers and DINOv2's kv_len;
+# the backward also a key grid 128 keys wide (chip_smoke.py's KW128, B=1,
+# Kh 32: SAM @2048's rows of 128 keys at a quarter of its grid rows)
 _K5_SHAPES = ((2, 4096, 64, 64, None), (2, 1536, 0, 0, 1370))
+_K5_BWD_SHAPES = (*_K5_SHAPES, (1, 4096, 32, 128, None))
 CALLS = {
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
            _k1_call),
@@ -422,8 +436,8 @@ CALLS = {
     "k6dkv": ([_P] * 11 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k5fwd": ([_P] * 7 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
-    "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
-    "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
+    "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_BWD_SHAPES, None),
+    "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_BWD_SHAPES, None),
     # K3 (head-major; S the query rows, Sk = Kh·Kw or S): SAM @768's 48 x
     # 48 grid padded to 48 x 64 with kv_grid (Kh, Kh), against the 2304
     # query rows the path passes and the 3072 JAX pads them to
@@ -718,7 +732,10 @@ def _k5_variants(kernel: str, out_dir: Path) -> None:
                 if rc:
                     raise RuntimeError(f"variant launch failed: {rc}")
 
-            run()
+            rc = fn(*c_args)
+            if rc:   # e.g. a deeper ring than this shape's shared memory
+                print(f"  {name}: launch refused (error {rc})")
+                continue
             torch.cuda.synchronize()
             gap = max(((o.float() - r.float()).abs()
                        - 2 ** -7 * r.float().abs()).max().item()
@@ -1261,6 +1278,94 @@ print(f"extraction fast @768: 1 patient x (CT, PET), {n} images in "
       f"{dt * 1e3:.1f} ms = {n / dt:.2f} img/s")
 '''
 
+# SAM @2048 under `fast` (its global layers on the K5 kernels at Kw 128):
+# one B=1 fine-tuning step traced (wall, device, idle share, top device
+# costs), the K5 kernels' ms at Kw 128, and the bits of the K5 backward's
+# outputs at Kw 64 and without a bias. It uses only what the trees before
+# the Kw 128 bodies have (FineTuner's backbone_cfg, trace_runs).
+_PAIR_FAST2048_CHILD = r'''
+import dataclasses, hashlib, sys
+sys.path.insert(0, ".")
+import torch
+from vit_deep_radiomics_tpu_torch.engine import finetune as ft
+from vit_deep_radiomics_tpu_torch.models import vit
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+from vit_deep_radiomics_tpu_torch.utils import cuda_build, profiling
+cuda_build.build_all(("fused_window_attention", "window_attention_bwd",
+                      "global_attention_fwd_lse", "global_attention_bwd_dq",
+                      "global_attention_bwd_dkv"))
+cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=2048)
+tuner = ft.FineTuner(ft.FineTuneConfig(backbone_cfg=cfg))
+state = tuner.init(seed=0)
+g = torch.Generator(device="cuda").manual_seed(1)
+images = torch.rand(1, 2048, 2048, 3, generator=g, device="cuda")
+mask = torch.zeros(1, 128, 128, dtype=torch.bool, device="cuda")
+mask[:, 48:80, 48:80] = True
+labels = torch.eye(2, device="cuda")[:1]
+torch.cuda.reset_peak_memory_stats()
+r = profiling.trace_runs(lambda: tuner.step(state, images, mask, labels),
+                         3, 8)
+print(f"fine-tune fast @2048 B=1: wall {r['wall_ms']:.3f} ms, device "
+      f"{r['device_ms']:.3f} ms, idle {r['idle_share']:.3f}, peak memory "
+      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+for x in r["top"]:
+    print(f"  {x['ms']:9.3f} ms {x['calls']:5.1f}x {x['name'][:70]}")
+del tuner, state, images
+torch.cuda.empty_cache()
+
+
+def rand(*shape, s=1.0):
+    return (torch.randn(*shape, generator=g, device="cuda") * s).to(
+        torch.bfloat16)
+
+
+def ms(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k5_inputs(b, s, kh, kw, n_valid):
+    q, kv, dout = rand(b, s, 768), rand(b, s, 1536), rand(b, s, 768)
+    bh = bw = kl = None
+    if kh:
+        bh, bw = rand(b, 12, s, kh, s=0.3), rand(b, 12, s, kw, s=0.3)
+    else:
+        kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
+    kw_ = dict(num_heads=12, scale=0.125)
+    out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kl, **kw_)
+    return (q, kv, bh, bw, kl), (q, kv, bh, bw, kl, dout, lse,
+                                 G.attention_delta(out, dout, 12)), kw_
+
+
+for b, kh in ((1, 32), (1, 128)):
+    fa, args, kw_ = k5_inputs(b, kh * 128, kh, 128, None)
+    print(f"k5 Kw 128 [B={b}, Kh {kh}]: fwd ms "
+          f"{ms(lambda: G.global_attention_fwd_lse(*fa, **kw_), 5):.4f}, dq "
+          f"ms {ms(lambda: G.global_attention_bwd_dq(*args, **kw_), 5):.4f}"
+          f", dkv ms "
+          f"{ms(lambda: G.global_attention_bwd_dkv(*args, **kw_), 5):.4f}",
+          flush=True)
+    del fa, args
+    torch.cuda.empty_cache()
+for tag, shape in {"kw64": (2, 4096, 64, 64, None),
+                   "no bias, kv_len": (2, 1536, 0, 0, 1370)}.items():
+    _, args, kw_ = k5_inputs(*shape)
+    h = hashlib.sha256()
+    for o in (*G.global_attention_bwd_dq(*args, **kw_),
+              G.global_attention_bwd_dkv(*args, **kw_)):
+        if o is not None:
+            h.update(o.view(torch.int16).cpu().numpy().tobytes())
+    print(f"k5 backward [{tag}]: sha256 {h.hexdigest()[:16]}")
+'''
+
 # The frozen-backbone paths of K7 and K8: `fast`, `int8` and `fast` with
 # VDR_FUSED_MLP=1 SAM ViT-B/16 @1024 forwards at B=4 (host ms, mean of 5
 # after two warm-ups; device ms from utils/profiling.py), a one-patient
@@ -1363,6 +1468,7 @@ cs.dinov2_extraction_phase(torch, A, vit, precision, tex, syn)
 
 _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
+             "fast-2048": _PAIR_FAST2048_CHILD,
              "parity-forward": _PAIR_PARITY_FORWARD_CHILD,
              "frozen": _PAIR_FROZEN_CHILD, "dinov2": _PAIR_DINOV2_CHILD}
 
@@ -1371,7 +1477,7 @@ def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
     child = _CHILDREN[path]
     keep = ("forward", "extraction", "fine-tune", "k6 ", "k5 ", "kernel ",
             "Traceback")
-    if path == "dinov2":    # phase 19's top device costs, one a line
+    if path in ("dinov2", "fast-2048"):    # top device costs, one a line
         keep += ("  ",)
     for tag, tree in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):

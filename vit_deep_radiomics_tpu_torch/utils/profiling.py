@@ -6,7 +6,8 @@ port: :func:`device_sync` is the fence for host-clock timing;
 policy, any image size; ``VDR_FUSED_MLP=1`` in the environment takes the
 K7 path as the model does) and
 :func:`profile_finetune_step` steady-state fine-tuning steps (SAM or a
-DINOv2 config, ``fast`` or ``parity``) with ``torch.profiler``, and both
+DINOv2 config, ``fast`` or ``parity``, any image size) with
+``torch.profiler``, and both
 report device time by kernel, the wall time per forward or step and the
 device's idle share. Run on the card::
 
@@ -15,6 +16,8 @@ device's idle share. Run on the card::
         --precision int8 [--image-size 768]
     python -m vit_deep_radiomics_tpu_torch.utils.profiling --finetune \
         --batch 2 [--precision parity] [--backbone dinov2_vitb14]
+    python -m vit_deep_radiomics_tpu_torch.utils.profiling --finetune \
+        --batch 1 --image-size 2048
 """
 
 from __future__ import annotations
@@ -114,14 +117,22 @@ def profile_forward(batch: int = 4, precision: str = "fast",
 
 def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
                           seed: int = 0, precision: str = "fast",
-                          backbone: str = "medsam") -> dict:
-    """Full-width fine-tuning steps (SAM ViT-B/16 @1024 or a DINOv2
-    config at its image size, no remat): wall and device time per step,
-    the idle share, the top ``rows`` device ops and the peak device
-    memory."""
+                          backbone: str = "medsam",
+                          image_size: int | None = None) -> dict:
+    """Full-width fine-tuning steps (SAM ViT-B/16 or a DINOv2 config, at
+    its own image size unless ``image_size`` is given; no remat): wall and
+    device time per step, the idle share, the top ``rows`` device ops and
+    the peak device memory. SAM at 2048 px runs its global layers' K5
+    kernels on a key grid 128 keys wide."""
+    import dataclasses
+
     from ..engine.finetune import FineTuneConfig, FineTuner
 
-    tuner = FineTuner(FineTuneConfig(precision=precision, backbone=backbone))
+    config = FineTuneConfig(precision=precision, backbone=backbone)
+    if image_size is not None:
+        config = dataclasses.replace(config, backbone_cfg=dataclasses.replace(
+            config.resolve_backbone(), image_size=image_size))
+    tuner = FineTuner(config)
     state = tuner.init(seed=seed)
     dev = tuner.device
     size, grid = tuner.backbone_cfg.image_size, tuner.backbone_cfg.grid
@@ -133,7 +144,7 @@ def profile_finetune_step(batch: int = 2, steps: int = 3, rows: int = 25,
     torch.cuda.reset_peak_memory_stats(dev)
     res = trace_runs(lambda: tuner.step(state, images, mask, labels),
                      steps, rows, what=f"finetune step {backbone}",
-                     batch=batch, precision=precision)
+                     batch=batch, precision=precision, image_size=size)
     res["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     return res
 
@@ -144,8 +155,11 @@ def main(argv=None) -> int:
     p.add_argument("--precision", default="fast",
                    help="fast, parity, inference or int8 (the last two "
                         "forward only)")
-    p.add_argument("--image-size", type=int, default=1024,
-                   help="forward: the SAM input size (768 takes K3)")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="the input size: SAM forwards 1024 unless given "
+                        "(768 takes K3), fine-tuning the backbone's own "
+                        "unless given (SAM at 2048 takes K5 on a key grid "
+                        "128 keys wide)")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--rows", type=int, default=25)
     p.add_argument("--finetune", action="store_true",
@@ -156,10 +170,11 @@ def main(argv=None) -> int:
     if args.finetune:
         res = profile_finetune_step(args.batch, args.steps, args.rows,
                                     precision=args.precision,
-                                    backbone=args.backbone)
+                                    backbone=args.backbone,
+                                    image_size=args.image_size)
     else:
         res = profile_forward(args.batch, args.precision, args.steps,
-                              args.rows, image_size=args.image_size)
+                              args.rows, image_size=args.image_size or 1024)
     print(f"{res['what']} {res['precision']} B={res['batch']}: wall "
           f"{res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms, idle "
           f"share {res['idle_share']:.3f}")
