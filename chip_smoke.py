@@ -46,10 +46,10 @@ Phases (each one fails the run with a non-zero exit):
    plain-version and library (SDPA forward or backward with the dense bias
    as a trainable ``attn_mask``) times and the card's bound; then the same
    for the three K5 kernels on a key grid 128 keys wide (B=1, Kh 32, 12
-   heads: the forward's mma.sync loop, the backward's Hopper bodies, the
-   routes asked), and the same at SAM ViT-B/16 @2048's global shape (B=1,
-   Kh = Kw = 128, 16384 tokens), each backward output held against its
-   plain version two heads at a time;
+   heads: their Hopper bodies, the forward's and dq's visiting the even
+   key tiles before the odd ones, the routes asked), and the same at SAM
+   ViT-B/16 @2048's global shape (B=1, Kh = Kw = 128, 16384 tokens), each
+   output held against its plain version two heads at a time;
 8. fine-tuning: ``FineTuner`` on full-width, full-depth SAM ViT-B/16 @1024
    under ``fast``, batch 2, 5 steps on a fixed synthetic batch (the main
    path of K4 and K5: launch counts per step, ms per step, img/s, peak
@@ -123,9 +123,13 @@ Phases (each one fails the run with a non-zero exit):
     the fused forward held against the unfused one, and both held to a
     ``parity`` (fp32) forward on the same weights: the fused forward's
     error no larger than ``VITG_PARITY_RATIO`` times the unfused one's; one
-    extraction);
+    extraction); and ViT-L/14 ``full`` under ``int8`` at batch 1 (K8 in
+    every block's five projections, K2 in each layer, launches asserted)
+    against a ``parity`` plain-attention forward on the same weights, by
+    JAX's criterion (the smallest per-position cosine above
+    ``INT8_MIN_COSINE``);
 20. SAM ViT-B/16 ``fast`` fine-tuning at 2048 px: ``FineTuner`` at full
-    width and depth, batch 1, 5 steps (the main path of the K5 backward at
+    width and depth, batch 1, 5 steps (the main path of the K5 kernels at
     a key grid 128 keys wide: 8 windowed layers of 100 windows, 4 global
     layers of 16384 tokens; the launches of every step, the K5 routes, ms
     per step, peak memory, the loss of every step, parameters moved).
@@ -197,10 +201,10 @@ TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
                  "flash_attention", "flash_attention_fwd")
 # Sources with Hopper kernels (*hopper_kernel*, this many) that must show
 # no spill and no wgmma serialisation (ptxas's C75xx lines): the K5 forward
-# (K2's body with the lse store, without and with the bias), the K5 dq and
-# dkv (no bias, Kw 64, Kw 128), K7 (the C 768 body and the C 1536 cluster
-# body) and K8
-HOPPER_SOURCES = {"global_attention_fwd_lse": 2, "fused_ln_mlp_residual": 2,
+# (K2's body with the lse store: no bias, Kw 64, and Kw 128 visiting the
+# even key tiles first), the K5 dq and dkv (no bias, Kw 64, Kw 128), K7
+# (the C 768 body and the C 1536 cluster body) and K8
+HOPPER_SOURCES = {"global_attention_fwd_lse": 3, "fused_ln_mlp_residual": 2,
                   "int8_matmul": 1, "global_attention_bwd_dq": 3,
                   "global_attention_bwd_dkv": 3}
 # The body each kernel's C entry takes at its path's shapes: K1 and K2 by
@@ -248,13 +252,13 @@ CHAIN_ATOL = {"sam_global": {"dq": 1e-3, "dbias_h": 1.2e-3,
                         "dkv": 1.4e-3}}
 # The K5 kernels at a key grid 128 keys wide (SAM's global layers at 2048
 # px, which JAX takes; no published config reaches it): B=1, Kh 32, 12
-# heads of 64, bf16, the forward on its mma.sync loop and the backward on
-# its Hopper bodies (``KW128_ROUTES``), each output against its plain
-# version and the chain against the plain chain; limits about 1.5 times
-# the gap measured on an H100 SXM with the backward's loops: out 4.87e-4,
+# heads of 64, bf16, the three on their Hopper bodies (``KW128_ROUTES``),
+# each output against its plain version and the chain against the plain
+# chain; limits about 1.5 times the gap measured on an H100 SXM with the
+# mma.sync loops: out 4.87e-4,
 # lse 2.40e-3, dq 5.88e-4, dbias_h 2.87e-3, dbias_w 2.08e-3, dkv 9.40e-4;
 # chain dq 4.98e-4, dbias_h 8.54e-4, dbias_w 5.30e-4, dkv 6.98e-4. The
-# same limits hold the backward at SAM @2048's own global shape
+# same limits hold the three at SAM @2048's own global shape
 # (``KW128_SAM2048``). dbias_h and dbias_w sit further
 # from the plain version than at Kw 64 because the backward kernel is fed
 # the kernel forward's lse, scored on Q^ = bf16(q D^-1/2 log2 e), where the
@@ -264,7 +268,7 @@ CHAIN_ATOL = {"sam_global": {"dq": 1e-3, "dbias_h": 1.2e-3,
 # which scores alike on each side, stays within the Kw 64 limits
 KW128 = (1, 32, 128)
 KW128_SAM2048 = (1, 128, 128)
-KW128_ROUTES = {"fwd": "loops", "dq": "hopper", "dkv": "hopper"}
+KW128_ROUTES = {"fwd": "hopper", "dq": "hopper", "dkv": "hopper"}
 # SAM ViT-B/16 @2048, phase 20: the image size and the grid of 16 px patches
 SAM2048 = (2048, 128)
 KW128_ATOL = {"global_attention_fwd_lse": 9e-4, "lse": 4e-3,
@@ -2048,8 +2052,9 @@ def dinov2_extraction_phase(torch, A, vit, precision, tex, syn):
     64 x 1024 grid) and ViT-g/14 ``full`` @518 with ``VDR_FUSED_MLP=1`` (a
     B=4 forward with 40 K7 and 40 K2 launches and the same forward
     unfused; at batch 1 held against the unfused forward, and both held to
-    a ``parity`` forward on the same weights; one extraction). Returns
-    each path's record."""
+    a ``parity`` forward on the same weights; one extraction); ViT-L/14
+    ``full`` also under ``int8`` at batch 1 against a ``parity``
+    plain-attention forward. Returns each path's record."""
     from vit_deep_radiomics_tpu_torch.utils import profiling
 
     patient = next(iter(syn.synthetic_cohort(
@@ -2130,6 +2135,39 @@ def dinov2_extraction_phase(torch, A, vit, precision, tex, syn):
                                  f"times the unfused one ({unfused})")
         return {"fused_max_abs_err": fused, "unfused_max_abs_err": unfused}
 
+    def hold_int8(label, cfg):
+        """Batch 1 under ``int8`` (K8 in each block's five projections, K2
+        in each layer, launches asserted) against a ``parity``
+        plain-attention forward on the same weights: the smallest
+        per-position cosine above INT8_MIN_COSINE, as phase 18 holds SAM."""
+        q8 = vit.ViTDense(cfg, policy=precision.INT8)
+        q8.load_state_dict(state)
+        q8 = q8.cuda().eval()
+        A.reset_launch_counts()
+        with torch.no_grad():
+            got = q8(images[:1]).float()
+        torch.cuda.synchronize()
+        n = dict(A.LAUNCHES)
+        del q8
+        par = vit.ViTDense(cfg, policy=precision.PARITY, use_flash=False)
+        par.load_state_dict(state)
+        with torch.no_grad():
+            want = par.cuda().eval()(images[:1]).float()
+        del par
+        cos = _min_cosine(got, want)
+        log(f"forward {label} int8 B=1 vs parity plain attention: smallest "
+            f"per-position cosine {cos:.6f} (limit > {INT8_MIN_COSINE}); "
+            f"launches {n}")
+        want_n = expect(dict(int8_matmul=5 * cfg.depth,
+                             fused_global_attention=cfg.depth))
+        if n != want_n:
+            raise AssertionError(f"{label} int8: launches {n} != {want_n}")
+        if tuple(got.shape) != tuple(want.shape) or \
+                not bool(torch.isfinite(got).all()) or \
+                not cos > INT8_MIN_COSINE:
+            raise AssertionError(f"{label} int8 forward: cosine {cos}")
+        return {"min_cosine": cos, "launches": n}
+
     def extract(label, ex, env, launches, width):
         """One patient, CT and PET, after a warm-up: ms, img/s and the
         launches (per forward as ``launches``)."""
@@ -2206,6 +2244,9 @@ def dinov2_extraction_phase(torch, A, vit, precision, tex, syn):
                 rec["b1_vs_parity"] = hold_parity(label, cfg, got, ref)
             del got, ref
             torch.cuda.empty_cache()
+            if not env:
+                rec["int8_b1"] = hold_int8(label, cfg)
+                torch.cuda.empty_cache()
         ex = tex.DenseExtractor(tex.ExtractionConfig(
             model_name=name, dinov2_mode=mode, precision="fast"),
             state_dict=state)

@@ -310,8 +310,8 @@ def test_k5_bwd_route_refuses_what_no_kernel_takes():
 @pytest.mark.parametrize("case", ["kw64", "kw16", "kv_len"])
 def test_k5_fwd_route_is_plain_on_the_cpu(case):
     """The CPU takes the plain forward whatever the width (the card's
-    answers, "hopper" at Kw 64 and with no bias, "loops" at Kw 8/16/32,
-    are held in tests/test_torch_cuda_kernels.py)."""
+    answers, "hopper" at Kw 64 and 128 and with no bias, "loops" at Kw
+    8/16/32, are held in tests/test_torch_cuda_kernels.py)."""
     kw = {"kw64": 64, "kw16": 16}.get(case)
     s = 128
     q = torch.zeros(1, s, 128, dtype=torch.bfloat16)
@@ -428,10 +428,9 @@ class _Built(Exception):
 def test_k5_kw128_reaches_the_kernels(entry, monkeypatch):
     """A key grid 128 keys wide (SAM's global layers at 2048 px, which JAX
     takes) passes every check of the three K5 wrappers and their routes
-    and goes on to the build, where the forward's route answers "loops"
-    and the backward's "hopper" (the card tests hold that and the
-    kernels); meta tensors stand in for CUDA ones and the build is
-    replaced by a marker."""
+    and goes on to the build, where the three routes answer "hopper" (the
+    card tests hold that and the kernels); meta tensors stand in for CUDA
+    ones and the build is replaced by a marker."""
     def built(*args, **kwargs):
         raise _Built()
 

@@ -608,9 +608,9 @@ def test_global_hopper_fwd_is_deterministic(gen):
 
 
 def test_global_fwd_builds_without_spill(gen, tmp_path, monkeypatch):
-    """The K5 forward's source fits its registers: its two Hopper kernels
-    (no bias, Kw 64) and the loop show no spill and ptxas no wgmma
-    serialisation (C75xx)."""
+    """The K5 forward's source fits its registers: its three Hopper kernels
+    (no bias, Kw 64, Kw 128 in the halves order) and the loop show no spill
+    and ptxas no wgmma serialisation (C75xx)."""
     from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
 
     monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
@@ -619,16 +619,16 @@ def test_global_fwd_builds_without_spill(gen, tmp_path, monkeypatch):
     funcs = cb.ptxas_functions(log)
     print(funcs)
     hopper = [f for f in funcs if "hopper_kernel" in f]
-    assert len(hopper) == 2 and cb.spill_bytes(log) == 0, log
+    assert len(hopper) == 3 and cb.spill_bytes(log) == 0, log
     assert "C75" not in log, log
 
 
 @pytest.mark.parametrize("kh,kw,route", [(5, 64, "hopper"), (0, 0, "hopper"),
                                          (20, 16, "loops"),
-                                         (4, 128, "loops")])
+                                         (4, 128, "hopper")])
 def test_global_fwd_route(gen, kh, kw, route):
-    """The K5 forward routes as the backward does: Kw 64 and no bias take
-    the Hopper body, Kw 16 and Kw 128 the mma.sync loop."""
+    """The K5 forward routes as the backward does: Kw 64, Kw 128 and no
+    bias take the Hopper body, Kw 16 the mma.sync loop."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     s, heads = (kh * kw or 320), 2
@@ -662,17 +662,19 @@ def test_global_bwd_route(gen, kh, kw, route):
                                             kernel=kernel) == route
 
 
-@pytest.mark.parametrize("kh", [2, 5])
-def test_global_kw128_loops_match_plain(gen, kh):
+# Kh 128 at B=1 (S = 16384, SAM @2048's global grid) fills the largest
+# bias_h table the route takes, and its last grid row's odd tile comes
+# after the swap of the bias_w register set
+@pytest.mark.parametrize("kh,b", [(2, 2), (5, 2), (128, 1)])
+def test_global_kw128_hopper_bodies_match_plain(gen, kh, b):
     """A key grid 128 keys wide (JAX takes it; SAM's global grid at 2048
-    px): the K5 forward takes its mma.sync loop and the dq and dkv kernels
-    their Hopper bodies, where a 64-key tile is half a grid row, and each
-    output matches its plain version; the kernel chain (the kernel
-    forward's out and lse fed to the kernel dq and dkv) matches the plain
-    chain."""
+    px): the K5 forward and the dq and dkv kernels take their Hopper
+    bodies, where a 64-key tile is half a grid row, and each output
+    matches its plain version; the kernel chain (the kernel forward's out
+    and lse fed to the kernel dq and dkv) matches the plain chain."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
-    b, heads, d, kw, dt = 2, 2, 64, 128, torch.bfloat16
+    heads, d, kw, dt = 2, 64, 128, torch.bfloat16
     s = kh * kw
     q = _rand(gen, b, s, heads * d, dtype=dt)
     kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
@@ -681,7 +683,7 @@ def test_global_kw128_loops_match_plain(gen, kh):
     dout = _rand(gen, b, s, heads * d, dtype=dt)
     kwargs = dict(num_heads=heads, scale=d ** -0.5)
     assert G.global_attention_fwd_route(q, kv, bh, bw,
-                                        num_heads=heads) == "loops"
+                                        num_heads=heads) == "hopper"
     for kernel in ("dq", "dkv"):
         assert G.global_attention_bwd_route(q, kv, bh, bw, num_heads=heads,
                                             kernel=kernel) == "hopper"
@@ -704,6 +706,62 @@ def test_global_kw128_loops_match_plain(gen, kh):
     assert [A.LAUNCHES[k] for k in ("global_attention_fwd_lse",
                                     "global_attention_bwd_dq",
                                     "global_attention_bwd_dkv")] == [1, 2, 2]
+
+
+# The K5 forward's Hopper body on a key grid 128 keys wide visits the even
+# key tiles before the odd ones on one bias_w register set: Kh 1 is two
+# tiles, Kh 3 an odd number of grid rows; kv_len "ragged" cuts row 0 at
+# S - 59 keys (the last, odd tile ragged) and row 1 at 50 (one tile
+# visited, no odd tile).
+@pytest.mark.parametrize("kh", [1, 3, 32])
+@pytest.mark.parametrize("kv_len", [None, "ragged"])
+def test_global_hopper_fwd_kw128_matches_plain(gen, kh, kv_len):
+    """Out and lse against the plain version (the rules of
+    test_global_hopper_fwd_matches_plain), keys past kv_len leaving no
+    trace, two launches with the same bits; at the shapes LSE_REBUILT_ATOL
+    was measured at (S at most 384) the lse against the lse of the scores
+    the backward rebuilds."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    b, heads, d, dt = 2, 2, 64, torch.bfloat16
+    s = kh * 128
+    q = _rand(gen, b, s, heads * d, dtype=dt)
+    kv = _rand(gen, b, s, 2 * heads * d, dtype=dt)
+    bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+    bw = _rand(gen, b, heads, s, 128, dtype=dt, scale=0.3)
+    kl = None
+    if kv_len is not None:
+        kl = torch.tensor([max(1, s - 59), 50], device="cuda")
+    kwargs = dict(num_heads=heads, scale=d ** -0.5)
+    assert G.global_attention_fwd_route(q, kv, bh, bw, kl,
+                                        num_heads=heads) == "hopper"
+    A.reset_launch_counts()
+    runs = [G.global_attention_fwd_lse(q, kv, bh, bw, kl, **kwargs)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["global_attention_fwd_lse"] == 2
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    out, lse = runs[0]
+    if kl is not None:      # keys past kv_len changed: the same output
+        kv2 = kv.clone()
+        for row, n in enumerate(kl.tolist()):
+            kv2[row, n:] = 0
+        out2, lse2 = G.global_attention_fwd_lse(q, kv2, bh, bw, kl, **kwargs)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    want_out, want_lse = G.global_attention_fwd_lse_plain(
+        q, kv, bh, bw, kl, **kwargs)
+    _assert_close(out, want_out, dt, "global")
+    gap = (lse - want_lse).abs().max().item()
+    print(f"Kh {kh} kv_len {kv_len}: lse gap {gap:.3e}")
+    assert torch.isfinite(lse).all() and gap <= 1e-2
+    if s <= 384:
+        want = _lse_as_the_backward_scores(q, kv, bh, bw, kl, heads,
+                                           d ** -0.5)
+        gap = (lse - want).abs().max().item()
+        print(f"Kh {kh} kv_len {kv_len}: lse against the backward's "
+              f"scores {gap:.3e}")
+        assert gap <= LSE_REBUILT_ATOL, gap
 
 
 @pytest.mark.parametrize("kh,kw", [(32, 128), (64, 64)])
@@ -818,7 +876,7 @@ def test_global_hopper_bwd_kw128_matches_plain(gen, kh, b, kv_len):
     kl = None if kv_len is None else [max(1, s - 59), 50][:b]
     args, kwargs = _k5_inputs(gen, b, heads, s, kh, 128, kl)
     assert G.global_attention_fwd_route(*args[:5],
-                                        num_heads=heads) == "loops"
+                                        num_heads=heads) == "hopper"
     for kernel in ("dq", "dkv"):
         assert G.global_attention_bwd_route(
             *args[:5], num_heads=heads, kernel=kernel) == "hopper"

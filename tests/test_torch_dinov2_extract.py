@@ -50,6 +50,9 @@ FEAT_TOL = 2e-5
 # volumes, on features of max |x| 3.4-3.8: one or two bf16 steps; JAX
 # `fast` itself sits 0.054-0.071 from its fp32 oracle on them)
 FAST_FEAT_TOL = 8.5e-2
+# `int8` against JAX `int8`: JAX's own criterion for its int8 path, the
+# smallest per-position cosine (JAX tests/test_quant.py:116)
+INT8_MIN_COSINE = 0.995
 
 
 def _random_layerscale(params, seed=0):
@@ -151,6 +154,35 @@ class TestExtractVolume:
             np.testing.assert_array_equal(a, b)
         gap = max(float(np.abs(a - b).max()) for a, b in zip(tf, jf))
         assert gap <= FAST_FEAT_TOL, gap
+
+    @pytest.mark.parametrize("precision", ["inference", "int8"])
+    def test_bf16_policies_match_jax(self, precision):
+        """``inference`` and ``int8`` (K8's plain version on the CPU, JAX's
+        Pallas kernel in interpret mode), the whole transformer through the
+        fused paths of both packages on the same bridged weights: masks and
+        metadata equal, ``inference`` features within FAST_FEAT_TOL (one
+        or two bf16 steps, as ``fast``), ``int8``'s by JAX's criterion, the
+        smallest per-position cosine above INT8_MIN_COSINE."""
+        j, t = _pair("full", precision=precision, use_flash=True)
+        assert {p.dtype for p in t.model.parameters()} == {torch.bfloat16}
+        vol, mask = _volume(5)
+        (tf, tm, tmeta), (jf, jm, jmeta) = (t.extract_volume(vol, mask, "ct"),
+                                            j.extract_volume(vol, mask, "ct"))
+        assert tmeta == jmeta and len(tf) == len(jf)
+        for a, b in zip(tm, jm):
+            np.testing.assert_array_equal(a, b)
+        gap = max(float(np.abs(a - b).max()) for a, b in zip(tf, jf))
+        a = np.concatenate([f.reshape(-1, f.shape[-1]) for f in tf])
+        b = np.concatenate([f.reshape(-1, f.shape[-1]) for f in jf])
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        cos = float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                        * np.linalg.norm(b, axis=-1))).min())
+        print(f"{precision}: max abs gap {gap:.3e}, smallest cosine "
+              f"{cos:.6f}")
+        if precision == "inference":
+            assert gap <= FAST_FEAT_TOL, gap
+        else:
+            assert cos > INT8_MIN_COSINE, cos
 
     def test_patch_embed_at_its_default_size(self):
         """The reference's mode at its own size, 896 px: a 64 x 64 grid of

@@ -154,22 +154,14 @@ constexpr int kErrTensorMap = -3;
 // each)
 constexpr int kMaxGridRows = 128;
 
-// The calls the backward's Hopper bodies take (dq and dkv alike, so the
-// route is one): head dim 64, and no bias or a key grid 64 or 128 keys
-// wide of at most kMaxGridRows rows, so that a 64-key tile is one grid row
-// or half of one; the others keep the mma.sync loops.
-__host__ __device__ inline bool bwd_takes(int D, bool has_bias, int kh,
-                                          int kw) {
+// The calls the Hopper bodies of the three K5 kernels take (the forward,
+// dq and dkv alike, so the route is one): head dim 64, and no bias or a
+// key grid 64 or 128 keys wide of at most kMaxGridRows rows, so that a
+// 64-key tile is one grid row or half of one; the others keep the
+// mma.sync loops.
+__host__ __device__ inline bool takes(int D, bool has_bias, int kh, int kw) {
   return D == kD &&
          (!has_bias || ((kw == 64 || kw == 128) && kh <= kMaxGridRows));
-}
-
-// The calls the forward's Hopper body (K2's) takes: head dim 64, and no
-// bias or a key grid 64 keys wide of at most kMaxGridRows rows; Kw 128
-// keeps the forward's mma.sync loop, which scores as the backward does.
-__host__ __device__ inline bool fwd_takes(int D, bool has_bias, int kh,
-                                          int kw) {
-  return D == kD && (!has_bias || (kw == 64 && kh <= kMaxGridRows));
 }
 
 // The key-grid widths the three K5 kernels take with a bias: an 8-key mma

@@ -589,7 +589,7 @@ const char* vdr_error_string(int err) { return vdr::error_string(err); }
 // runs the first loops (the same choice as the dq kernel's).
 int vdr_global_attention_bwd_route(int S, int H, int D, int kh, int kw,
                                    int biased) {
-  return vdr::k5h::bwd_takes(D, biased != 0, kh, kw) ? 1 : 0;
+  return vdr::k5h::takes(D, biased != 0, kh, kw) ? 1 : 0;
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
@@ -606,7 +606,7 @@ int vdr_global_attention_bwd_dkv(const void* q, const void* kv,
   const bool has_bias = bias_h != nullptr;
   if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vdr::k5h::bwd_takes(D, has_bias, kh, kw)) {
+  if (vdr::k5h::takes(D, has_bias, kh, kw)) {
     const HopperParams hp{static_cast<const bf16*>(bias_h), kv_len, lse,
                           delta, static_cast<bf16*>(dkv), S, H, kh, kw,
                           scale * vdr::kLog2e, scale};

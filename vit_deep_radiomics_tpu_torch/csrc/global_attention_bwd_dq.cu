@@ -384,14 +384,6 @@ __device__ __forceinline__ void bias_grads(const float (&ds)[32],
   }
 }
 
-// The key tile visited at step j: in order, or (Kw 128, kHalves) the n_even
-// even tiles first (grid columns 0-63), then the odd ones (64-127).
-template <bool kHalves>
-__device__ __forceinline__ int key_tile(int j, int n_even) {
-  if constexpr (kHalves) return j < n_even ? 2 * j : 2 * (j - n_even) + 1;
-  return j;
-}
-
 // kBoxes: 0 without a bias; with the decomposed bias, the 64-column
 // halves of a grid row, 1 (Kw 64) or 2 (Kw 128).
 template <int kBoxes>
@@ -685,7 +677,7 @@ const char* vdr_error_string(int err) { return vdr::error_string(err); }
 // runs the first loops (the same choice as the dkv kernel's).
 int vdr_global_attention_bwd_route(int S, int H, int D, int kh, int kw,
                                    int biased) {
-  return vdr::k5h::bwd_takes(D, biased != 0, kh, kw) ? 1 : 0;
+  return vdr::k5h::takes(D, biased != 0, kh, kw) ? 1 : 0;
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
@@ -703,7 +695,7 @@ int vdr_global_attention_bwd_dq(const void* q, const void* kv,
   const bool has_bias = bias_h != nullptr;
   if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vdr::k5h::bwd_takes(D, has_bias, kh, kw)) {
+  if (vdr::k5h::takes(D, has_bias, kh, kw)) {
     const HopperParams hp{static_cast<const bf16*>(bias_h),
                           static_cast<const bf16*>(bias_w),
                           kv_len,

@@ -17,24 +17,28 @@
 // exponentials as K2 per product.
 //
 // What the design does about it: bf16 calls with no bias or a key grid 64
-// keys wide run K2's Hopper
+// or 128 keys wide run K2's Hopper
 // body, global_fwd_hopper.cuh, with its lse store (Config::kLse): one TMA
 // producer thread and a 4-stage K/V ring on mbarriers, three wgmma
 // consumer warpgroups of 64 query rows issuing in turns, the online
 // softmax lazily rescaled, bias_w in registers and a staged bias_h table.
+// There is room for one bias_w register set (64 columns), so at Kw 128
+// (SAM's global layers at 2048 px), where a 64-key tile is half a grid
+// row, the producer streams the even key tiles (grid columns 0-63) before
+// the odd ones (64-127), and each consumer swaps its set once between
+// them, as the dq kernel does; the softmax does not depend on the order.
 // The lse is m + log2(l) of each row's lazily moved max and its sum, 4
 // bytes a row and head written from registers. The backward rebuilds
 // P = exp2(s - lse) from its own scores, so this forward scores as it
 // does: Q^ = bf16(q D^-1/2 log2 e) formed once in the A fragments, the
 // bias terms times log2 e in fp32, masked keys at -1e30 log2 e; a forward
 // that scaled the fp32 Q K^T instead would hand the backward an lse its
-// P rows do not sum to. Biased calls with Kw in {8, 16, 32, 128} keep the
-// first mma.sync loop of flash_attention_core.cuh (synchronously staged
-// K/V tiles, the bias read per score from shared memory through a key
-// table, so a 64-key tile may hold half a grid row); the backward's
-// Hopper bodies also take Kw 128 and keep their loops for the other
-// widths. vdr_global_attention_fwd_route reports the choice, which the C
-// entry makes by shape alone.
+// P rows do not sum to. Biased calls with Kw in {8, 16, 32}, and Kw 128
+// past kMaxGridRows grid rows, keep the first mma.sync loop of
+// flash_attention_core.cuh (synchronously staged K/V tiles, the bias read
+// per score from shared memory through a key table); the backward's
+// sources route alike (k5h::takes). vdr_global_attention_fwd_route
+// reports the choice, which the C entry makes by shape alone.
 
 #include "attention_bwd_core.cuh"
 #include "global_fwd_hopper.cuh"
@@ -52,10 +56,9 @@ constexpr int kRows = 128;
 constexpr int kConsumers = 3;
 constexpr int kStages = 4;
 using HopperCfg = gfwd::Config<kConsumers, kStages, 1, true>;
-// the Hopper body takes head dim 64 with no bias or a key grid 64 keys
-// wide of at most kMaxGridRows rows (k5h::fwd_takes; the backward's Hopper
-// bodies also take Kw 128, which this forward keeps on its loop); each
-// such bias_h table fits
+// the Hopper body takes head dim 64 with no bias or a key grid 64 or 128
+// keys wide of at most kMaxGridRows rows (k5h::takes; one bias_w register
+// set, Kw 128 in the halves order); each such bias_h table fits
 static_assert(gfwd::smem_bytes<HopperCfg>(vdr::k5h::kMaxGridRows) <=
                   227 * 1024,
               "the bias_h table of every grid the route takes fits");
@@ -70,7 +73,7 @@ const char* vdr_error_string(int err) { return vdr::error_string(err); }
 // the first loop.
 int vdr_global_attention_fwd_route(int S, int H, int D, int kh, int kw,
                                    int biased) {
-  return vdr::k5h::fwd_takes(D, biased != 0, kh, kw) ? 1 : 0;
+  return vdr::k5h::takes(D, biased != 0, kh, kw) ? 1 : 0;
 }
 
 // bf16 only. Returns 0 on success, a cudaError_t after a failed launch, -1
@@ -86,7 +89,7 @@ int vdr_global_attention_fwd_lse(const void* q, const void* kv,
   const bool has_bias = bias_h != nullptr;
   if (has_bias && !vdr::k5h::bias_width_ok(kw)) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vdr::k5h::fwd_takes(D, has_bias, kh, kw)) {
+  if (vdr::k5h::takes(D, has_bias, kh, kw)) {
     const gfwd::Params p{static_cast<const __nv_bfloat16*>(bias_h),
                          static_cast<const __nv_bfloat16*>(bias_w),
                          kv_len,

@@ -35,11 +35,15 @@
 //    does (K2: masked scores and the first max at -1e30; kLse: masked
 //    scores at -1e30 log2 e and the first max below them, so such a row
 //    gets the plain version's lse, -1e30 log2 e + log2 S);
-//  * the bias without per-score lookups: Kw is a multiple of 64, so a
-//    64-key tile lies inside one key-grid row. Each thread keeps its rows'
-//    bias_w columns in registers (Kw / 64 sets of 16 per row), and reads
-//    one bias_h scalar per row and tile from a table staged once per
-//    block; both are pre-multiplied by log2(e);
+//  * the bias without per-score lookups: Kw is 64 or 128, so a 64-key
+//    tile lies inside one key-grid row. Each thread keeps its rows' bias_w
+//    columns in registers, and reads one bias_h scalar per row and tile
+//    from a table staged once per block; both are pre-multiplied by
+//    log2(e). At Kw 128 an instance keeps both column sets (K2), or keeps
+//    one and visits the even key tiles (grid columns 0-63) before the odd
+//    ones (64-127), swapping the set once between them (the K5 forward,
+//    whose registers hold no second set); an online softmax does not
+//    depend on the order in which it visits the keys;
 //  * kv_len: tiles wholly past kv_len are never loaded, the ragged tile is
 //    masked; rows past S read zeros (TMA fills out-of-bounds boxes) and are
 //    never stored.
@@ -54,8 +58,9 @@ namespace sm90 {
 namespace gfwd {
 
 // Consumers: consumer warpgroups (64 query rows each); Stages: K/V ring
-// depth; BiasSets: the most bias_w register sets an instance takes (Kw /
-// 64); Lse: the K5 forward's scoring and lse store.
+// depth; BiasSets: the bias_w register sets of a Kw 128 instance, 2 (both
+// halves of a grid row) or 1 (the even key tiles before the odd ones, the
+// set swapped once); Lse: the K5 forward's scoring and lse store.
 template <int Consumers, int Stages, int BiasSets, bool Lse>
 struct Config {
   static constexpr int kConsumers = Consumers;
@@ -108,8 +113,9 @@ __device__ __forceinline__ void q_frags_scaled(
     }
 }
 
-// NW: bias_w register sets, Kw / 64 (0 = no bias).
-template <int NW, class Cfg>
+// NW: bias_w register sets, Kw / 64 (0 = no bias). Halves (NW 1 at Kw
+// 128): the even key tiles first, then the odd ones, on one set.
+template <int NW, class Cfg, bool Halves = false>
 __global__ void __launch_bounds__(Cfg::kThreads, 1)
     global_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tkv,
@@ -135,6 +141,7 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
   int lim = p.S;
   if (p.kv_len != nullptr) lim = min(p.S, max(p.kv_len[b], 0));
   const int n_tiles = ((lim > 0 ? lim : p.S) + kBK - 1) / kBK;
+  const int n_even = (n_tiles + 1) / 2;  // Halves: the tiles of columns 0-63
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -158,10 +165,10 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        const int key0 = key_tile<Halves>(j, n_even) * kBK;
         mbar_expect_tx(&full[st], 2 * kTile);
-        tma_load(k_addr + st * kTile, &tkv, &full[st], h * kD, j * kBK, b);
-        tma_load(v_addr + st * kTile, &tkv, &full[st], C + h * kD, j * kBK,
-                 b);
+        tma_load(k_addr + st * kTile, &tkv, &full[st], h * kD, key0, b);
+        tma_load(v_addr + st * kTile, &tkv, &full[st], C + h * kD, key0, b);
       }
     }
   } else {
@@ -175,6 +182,25 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
     const size_t head_row = ((size_t)b * p.H + h) * p.S;
 
     float bw[NW > 0 ? NW : 1][8][4];
+    // bias_w columns col0 .. col0 + 63 of the thread's rows into set w
+    auto load_bw = [&](int w, int col0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int R = row0 + (half ? r_hi : r_lo);
+          float lo = 0.f, hi = 0.f;
+          if (R < p.S) {
+            const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+                p.bias_w + (head_row + R) * p.kw + col0 + i * 8 + 2 * c);
+            lo = bias_term<kLse>(__low2float(v));
+            hi = bias_term<kLse>(__high2float(v));
+          }
+          bw[w][i][2 * half] = lo;
+          bw[w][i][2 * half + 1] = hi;
+        }
+      }
+    };
     if constexpr (NW > 0) {
       // bias_h of this warpgroup's 64 rows, transposed to [grid row][row]
       for (int i = t; i < 64 * p.kh; i += 128) {
@@ -186,25 +212,9 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
                     : 0.f;
       }
       // bias_w: column set w covers columns 64w .. 64w + 63 of the grid row
+      // (Halves: set 0 the even tiles' columns first)
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int R = row0 + (half ? r_hi : r_lo);
-            float lo = 0.f, hi = 0.f;
-            if (R < p.S) {
-              const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-                  p.bias_w + (head_row + R) * p.kw + w * 64 + i * 8 + 2 * c);
-              lo = bias_term<kLse>(__low2float(v));
-              hi = bias_term<kLse>(__high2float(v));
-            }
-            bw[w][i][2 * half] = lo;
-            bw[w][i][2 * half + 1] = hi;
-          }
-        }
-      }
+      for (int w = 0; w < NW; ++w) load_bw(w, 64 * w);
       bar_sync(1 + wg, 128);
     }
 
@@ -217,16 +227,16 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
     Rows st{kM0, kM0, 0.f, 0.f, 1.f, 1.f};
     float s[32];
     uint32_t pa[4][4];
-    // this tile's scores -> probabilities, in place
+    // step j's scores (key tile kt) -> probabilities, in place
     auto probs = [&](int j) {
-      const int k0 = j * kBK;
+      const int kt = key_tile<Halves>(j, n_even), k0 = kt * kBK;
       float bh_lo = 0.f, bh_hi = 0.f;
       int set = 0;
       if constexpr (NW > 0) {
-        const int kr = k0 / p.kw;
+        const int kr = Halves ? kt / 2 : k0 / p.kw;
         bh_lo = bias_s[kr * kBiasLd + r_lo];
         bh_hi = bias_s[kr * kBiasLd + r_hi];
-        set = (k0 % p.kw) / 64;
+        if constexpr (!Halves) set = (k0 % p.kw) / 64;
       }
       const bool ragged = k0 + kBK > lim;
       // a constant register-set index in each branch: no local memory
@@ -264,7 +274,7 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
     fence_regs(s);
     probs(0);
     pack_probs<kBK>(s, pa);
-    for (int j = 1; j < n_tiles; ++j) {
+    auto step = [&](int j) {
       const int cur = j % kStages, prev = (j - 1) % kStages;
       mbar_wait(&full[cur], (j / kStages) & 1);
       bar_sync(my_bar, 256);
@@ -283,6 +293,16 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
       mbar_arrive(&empty[prev]);
       rescale(o, st);
       pack_probs<kBK>(s, pa);
+    };
+    if constexpr (Halves) {
+      // the even tiles, then the odd ones, whose bias_w columns come in
+      // between the two loops (no product in flight, none issued under the
+      // branch, and no reload code inside either loop)
+      for (int j = 1; j < n_even; ++j) step(j);
+      if (n_even < n_tiles) load_bw(0, 64);
+      for (int j = n_even; j < n_tiles; ++j) step(j);
+    } else {
+      for (int j = 1; j < n_tiles; ++j) step(j);
     }
     const int last = (n_tiles - 1) % kStages;
     bar_sync(my_bar, 256);
@@ -310,19 +330,19 @@ constexpr size_t smem_bytes(int kh) {
          (size_t)kh * Cfg::kBiasLd * sizeof(float);
 }
 
-// The bias grids an instance takes: rows of 64 keys per bias_w register
-// set, at most Cfg::kBiasSets sets, and a bias_h table that fits.
+// The bias grids an instance takes: rows of 64 or 128 keys (two bias_w
+// register sets, or one and the halves order), and a bias_h table that
+// fits.
 template <class Cfg>
 bool takes_bias(int kh, int kw) {
-  return kw % 64 == 0 && kw / 64 >= 1 && kw / 64 <= Cfg::kBiasSets &&
-         smem_bytes<Cfg>(kh) <= 227 * 1024;
+  return (kw == 64 || kw == 128) && smem_bytes<Cfg>(kh) <= 227 * 1024;
 }
 
-template <int NW, class Cfg>
+template <int NW, class Cfg, bool Halves = false>
 int launch_nw(const CUtensorMap& tq, const CUtensorMap& tkv, const Params& p,
               int B, cudaStream_t stream) {
   const size_t smem = smem_bytes<Cfg>(NW > 0 ? p.kh : 0);
-  auto kern = global_fwd_hopper_kernel<NW, Cfg>;
+  auto kern = global_fwd_hopper_kernel<NW, Cfg, Halves>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -342,8 +362,12 @@ int launch(const void* q, const void* kv, const Params& p, int B,
       !tensor_map_64(&tkv, kv, 2 * p.H * kD, p.S, B))
     return err_map;
   if (p.bias_h == nullptr) return launch_nw<0, Cfg>(tq, tkv, p, B, stream);
-  if constexpr (Cfg::kBiasSets >= 2)
-    if (p.kw == 128) return launch_nw<2, Cfg>(tq, tkv, p, B, stream);
+  if (p.kw == 128) {
+    if constexpr (Cfg::kBiasSets >= 2)
+      return launch_nw<2, Cfg>(tq, tkv, p, B, stream);
+    else
+      return launch_nw<1, Cfg, true>(tq, tkv, p, B, stream);
+  }
   return launch_nw<1, Cfg>(tq, tkv, p, B, stream);
 }
 

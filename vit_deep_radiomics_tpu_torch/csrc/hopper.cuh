@@ -452,6 +452,16 @@ inline int sm_count() {
   return n;
 }
 
+// The 64-key tile visited at step j: in order, or (kHalves: a key grid 128
+// keys wide, two tiles a grid row) the n_even even tiles first (grid
+// columns 0-63), then the odd ones (64-127), so that one register set of
+// bias_w columns serves each half. Used by the K5 forward and dq kernels.
+template <bool kHalves>
+__device__ __forceinline__ int key_tile(int j, int n_even) {
+  if constexpr (kHalves) return j < n_even ? 2 * j : 2 * (j - n_even) + 1;
+  return j;
+}
+
 // The same map with 64 x 64 boxes.
 inline bool tensor_map_64(CUtensorMap* map, const void* ptr, int width,
                           int rows, int batches) {

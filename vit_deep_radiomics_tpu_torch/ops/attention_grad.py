@@ -16,10 +16,9 @@ Kw)``, as in ``ops/attention.py``):
   score), backward the K5 dq kernel (``csrc/global_attention_bwd_dq.cu``:
   dq and both bias gradients over the keys) and the K5 dkv kernel
   (``csrc/global_attention_bwd_dkv.cu``: dk and dv over the queries). All
-  three run a TMA + wgmma body on calls with no bias or a key grid 64 keys
-  wide, the two backward kernels also on a key grid 128 keys wide (SAM's
-  global layers at 2048 px), and mma.sync loops on the other widths (the
-  forward on Kw 128 too);
+  three run a TMA + wgmma body on calls with no bias or a key grid 64 or
+  128 keys wide (Kw 128: SAM's global layers at 2048 px) of at most 128
+  grid rows, and mma.sync loops on the other widths;
   :func:`global_attention_fwd_route` and :func:`global_attention_bwd_route`
   say which.
 * :func:`flash_attention_trainable` — K6, the generic per-head
@@ -89,7 +88,7 @@ _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
 # key-grid widths the K5 kernels take with a bias: an 8-key mma tile lies in
 # one grid row, and a 64-key tile holds whole grid rows or half of one (Kw
-# 128, SAM's global grid at 2048 px, which the mma.sync loops take)
+# 128, SAM's global grid at 2048 px, which the Hopper bodies take)
 _K5_BIAS_WIDTHS = (8, 16, 32, 64, 128)
 
 
@@ -393,8 +392,9 @@ def global_attention_fwd_route(q, kv, bias_h=None, bias_w=None,
     """Which body :func:`global_attention_fwd_lse` runs for these operands:
     ``"plain"`` on the CPU; on the card, as
     ``csrc/global_attention_fwd_lse.cu`` chooses, ``"hopper"`` (K2's TMA +
-    wgmma body with the lse store: no bias or a key grid 64 keys wide) or
-    ``"loops"`` (the mma.sync loop, Kw in {8, 16, 32, 128})."""
+    wgmma body with the lse store: no bias or a key grid 64 or 128 keys
+    wide of at most 128 rows, as the backward's route) or ``"loops"`` (the
+    mma.sync loop, Kw in {8, 16, 32})."""
     return _k5_route("global_attention_fwd_lse",
                      "vdr_global_attention_fwd_route", q, kv, bias_h, bias_w,
                      kv_len, num_heads)

@@ -46,7 +46,8 @@ warpgroup, the bias rows read from device memory instead of staged by
 bulk copy, the bias gradients' product or the bias tile's build removed, phase A or phase B (the key-major recompute)
 removed, phase B's dk/dv products removed; the K5 forward: two consumer
 warpgroups, the ring depth, Q^ formed in the shared Q tile instead of in
-the A fragments; the
+the A fragments, the bias or the Kw 128 swap of its bias_w registers
+removed; the
 K5 backward: three consumer warpgroups, the ring depth, the bias step
 removed; the K6 backward: one tile buffer instead of two, or 64-column
 tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K1,
@@ -70,9 +71,10 @@ Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
 shape, 4 x 1536 with 1370 valid; K3 bf16: SAM @768's q (4, 12, 2304, 64)
 and JAX's padded (4, 12, 3072, 64) against k/v (4, 12, 3072, 64), Kh 48,
 Kw 64, ``kv_grid`` (48, 48); K4: q (50, 196, 768), Kh = Kw = 14; K5:
-q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16, the
-backward also q (1, 4096, 768) on a key grid of 32 x 128, the forward's
-out and lse held to its plain version; K6: the
+q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16, both
+also q (1, 4096, 768) on a key grid of 32 x 128 and the forward q (1,
+16384, 768) on 128 x 128 (SAM @2048's), the forward's out and lse held to
+its plain version (two heads a call); K6: the
 `parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
 (50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
 1536, 64) with 1370 valid keys); K1 fp32: q (100, 196, 768), Kh = Kw =
@@ -292,7 +294,9 @@ VARIANTS = {
     # the K5 forward on K2's Hopper body (global_fwd_hopper.cuh): two
     # consumer warpgroups (128-row blocks), the ring depth (K2's 6; more
     # leave no room for a 128-row bias_h table), Q^ formed in the shared Q
-    # tile; the softmax or the products removed
+    # tile; the bias (the no-bias instance on the same operands) or, at
+    # Kw 128, the swap of the bias_w register set removed; the softmax or
+    # the products removed
     "k5fwd": {
         "as_built": ({}, ()),
         "consumers_2": ({"kConsumers": 2}, ()),
@@ -312,6 +316,9 @@ VARIANTS = {
             "p.scale_log2);\n        }\n        tile[k] = v;\n      }\n"
             "      bar_sync(1 + wg, 128);\n      q_frags(qa, base + wg * "
             "kTile, warp, g, c);\n    }"),)),
+        "no_bias": ({}, (("static_cast<const __nv_bfloat16*>(bias_h),",
+                          "nullptr,"),)),
+        "no_swap": ({}, ("if (n_even < n_tiles) load_bw(0, 64);",)),
         "no_softmax": ({}, ("probs(0);", "probs(j);")),
         "no_products": ({}, (
             "qk_tile<kBK>(s, qa, k_addr);",
@@ -420,11 +427,13 @@ def _k2_call(A, q, kv, bh, bw, kl, heads, scale):
 # the plain output and the arguments; None for the K6 backward, which
 # `_k6_variants` calls)
 _K6_SHAPES = ((2, 4096, 64, 64, None), (50, 196, 14, 14, None))
-# the K5 backward (bf16): SAM @1024's global layers and DINOv2's kv_len;
-# the backward also a key grid 128 keys wide (chip_smoke.py's KW128, B=1,
-# Kh 32: SAM @2048's rows of 128 keys at a quarter of its grid rows)
-_K5_SHAPES = ((2, 4096, 64, 64, None), (2, 1536, 0, 0, 1370))
-_K5_BWD_SHAPES = (*_K5_SHAPES, (1, 4096, 32, 128, None))
+# the K5 kernels (bf16): SAM @1024's global layers, DINOv2's kv_len and
+# key grids 128 keys wide (chip_smoke.py's KW128, B=1, Kh 32: SAM @2048's
+# rows of 128 keys at a quarter of its grid rows; the forward also SAM
+# @2048's global layers, Kh 128, whose plain backward would not fit)
+_K5_SHAPES = ((2, 4096, 64, 64, None), (2, 1536, 0, 0, 1370),
+              (1, 4096, 32, 128, None), (1, 16384, 128, 128, None))
+_K5_BWD_SHAPES = _K5_SHAPES[:3]
 CALLS = {
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
            _k1_call),
@@ -674,6 +683,27 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def _k5_fwd_plain(torch, G, q, kv, bh, bw, kl, heads, scale, step=2):
+    """The K5 forward's plain version, ``step`` heads a call (at SAM
+    @2048's shape one call over 12 heads would hold several (S, S) fp32
+    score tensors of 12.9 GB): out (B, S, H·D) and lse (B, H, S)."""
+    c = q.shape[-1]
+    d = c // heads
+    outs, lses = [], []
+    for h0 in range(0, heads, step):
+        cols = slice(h0 * d, (h0 + step) * d)
+        kv_h = torch.cat([kv[..., cols],
+                          kv[..., c + h0 * d:c + (h0 + step) * d]], -1)
+        bias = [None if x is None else x[:, h0:h0 + step].contiguous()
+                for x in (bh, bw)]
+        out, lse = G.global_attention_fwd_lse_plain(
+            q[..., cols].contiguous(), kv_h.contiguous(), *bias, kl,
+            num_heads=step, scale=scale)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, -1), torch.cat(lses, 1)
+
+
 def _k5_variants(kernel: str, out_dir: Path) -> None:
     """The K5 forward's or backward's variants (bf16, the port's (B, S,
     H·D) layouts) at the `fast` path's shapes: gap to the plain version
@@ -706,7 +736,7 @@ def _k5_variants(kernel: str, out_dir: Path) -> None:
         pairs = b * heads * s * (n_valid or s)
         if kernel == "k5fwd":
             args = (q, kv, bh, bw, kl)
-            ref = G.global_attention_fwd_lse_plain(*args, **kwargs)
+            ref = _k5_fwd_plain(torch, G, *args, heads, scale)
             flops = 4.0 * pairs * d
         else:
             out, lse = G.global_attention_fwd_lse(q, kv, bh, bw, kl,
@@ -1280,9 +1310,10 @@ print(f"extraction fast @768: 1 patient x (CT, PET), {n} images in "
 
 # SAM @2048 under `fast` (its global layers on the K5 kernels at Kw 128):
 # one B=1 fine-tuning step traced (wall, device, idle share, top device
-# costs), the K5 kernels' ms at Kw 128, and the bits of the K5 backward's
-# outputs at Kw 64 and without a bias. It uses only what the trees before
-# the Kw 128 bodies have (FineTuner's backbone_cfg, trace_runs).
+# costs), the K5 kernels' ms at Kw 128, and the bits of the K5 forward's
+# and backward's outputs at Kw 64 and without a bias and of K2 bf16's at
+# Kw 64, Kw 128 and without a bias. It uses only what the trees before the
+# Kw 128 bodies have (FineTuner's backbone_cfg, trace_runs).
 _PAIR_FAST2048_CHILD = r'''
 import dataclasses, hashlib, sys
 sys.path.insert(0, ".")
@@ -1291,9 +1322,10 @@ from vit_deep_radiomics_tpu_torch.engine import finetune as ft
 from vit_deep_radiomics_tpu_torch.models import vit
 from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 from vit_deep_radiomics_tpu_torch.utils import cuda_build, profiling
+from vit_deep_radiomics_tpu_torch.ops import attention as A
 cuda_build.build_all(("fused_window_attention", "window_attention_bwd",
                       "global_attention_fwd_lse", "global_attention_bwd_dq",
-                      "global_attention_bwd_dkv"))
+                      "global_attention_bwd_dkv", "fused_global_attention"))
 cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=2048)
 tuner = ft.FineTuner(ft.FineTuneConfig(backbone_cfg=cfg))
 state = tuner.init(seed=0)
@@ -1345,6 +1377,14 @@ def k5_inputs(b, s, kh, kw, n_valid):
                                  G.attention_delta(out, dout, 12)), kw_
 
 
+def sha(*outs):
+    h = hashlib.sha256()
+    for o in outs:
+        if o is not None:
+            h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 for b, kh in ((1, 32), (1, 128)):
     fa, args, kw_ = k5_inputs(b, kh * 128, kh, 128, None)
     print(f"k5 Kw 128 [B={b}, Kh {kh}]: fwd ms "
@@ -1357,13 +1397,25 @@ for b, kh in ((1, 32), (1, 128)):
     torch.cuda.empty_cache()
 for tag, shape in {"kw64": (2, 4096, 64, 64, None),
                    "no bias, kv_len": (2, 1536, 0, 0, 1370)}.items():
-    _, args, kw_ = k5_inputs(*shape)
+    fa, args, kw_ = k5_inputs(*shape)
     h = hashlib.sha256()
     for o in (*G.global_attention_bwd_dq(*args, **kw_),
               G.global_attention_bwd_dkv(*args, **kw_)):
         if o is not None:
             h.update(o.view(torch.int16).cpu().numpy().tobytes())
     print(f"k5 backward [{tag}]: sha256 {h.hexdigest()[:16]}")
+    print(f"k5 forward [{tag}]: sha256 "
+          f"{sha(*G.global_attention_fwd_lse(*fa, **kw_))}")
+    del fa, args
+# K2 bf16 (inference): its Kw 64, Kw 128 (both bias_w register sets) and
+# no-bias instances
+for tag, shape in {"kw64": (4, 4096, 64, 64, None),
+                   "kw128": (1, 4096, 32, 128, None),
+                   "no bias, kv_len": (4, 1536, 0, 0, 1370)}.items():
+    fa, args, kw_ = k5_inputs(*shape)
+    print(f"k5 K2 bf16 [{tag}]: sha256 "
+          f"{sha(A.fused_global_attention(*fa, **kw_))}")
+    del fa, args
 '''
 
 # The frozen-backbone paths of K7 and K8: `fast`, `int8` and `fast` with
