@@ -133,6 +133,22 @@ Phases (each one fails the run with a non-zero exit):
     a key grid 128 keys wide: 8 windowed layers of 100 windows, 4 global
     layers of 16384 tokens; the launches of every step, the K5 routes, ms
     per step, peak memory, the loss of every step, parameters moved).
+21. classifier training on the descriptors at the published transformer
+    config (feature_dim 256, CT and PET encoders of 2 layers x 4 heads,
+    FFN 1024, lr 5e-4, virtual batch 32) under ``TrainerConfig``'s
+    defaults (bimodal, cross-modal focal loss, batch 8, ``fast``): 64
+    train and 16 test ``TokenItem``s from a seed (CT 700-2048 tokens, PET
+    60-400, token buckets up to 2048) through ``FoldTrainer`` and
+    ``FoldBookkeeping`` (a train and a test epoch: 8 micro-batches, 2
+    updates; the report JSONs, ``losses.html`` and a checkpoint, reloaded
+    into a fresh model that must give the same test logits), a second
+    train epoch timed (ms per micro-batch, samples/s, peak memory), a
+    micro-batch step traced (device ms, idle share), one epoch each of the
+    unimodal ``ct`` transformer (focal) and of the conv classifier on 7-14
+    x 16 x 16 x 256 volumes, and one ``parity`` micro-batch step on the
+    card against the CPU's at the same weights and batch (the loss and
+    every gradient leaf within 1e-4 of the leaf's max |grad|). It launches
+    none of K1-K8.
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -144,6 +160,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -335,6 +352,29 @@ DINO_ATOL = {"vitl14_full": 0.12, "vitg14_full_fused_mlp": 0.15}
 # with the cluster body (1.000: 1.558e-1 each, on max |x| 5.5)
 VITG_PARITY_RATIO = 1.5
 INT8_MIN_COSINE = 0.995             # JAX tests/test_quant.py:116
+# Phase 21, classifier training: the published classifier configs
+# (conf/parameters_models.yaml `models`, held equal to it by
+# tests/test_torch_train.py; the card's machine has no yaml) and the token
+# buckets up to `runtime.max_tokens` 2048
+_LAYER = {"num_layers": 2, "num_heads": 4, "mlp_ratio": 4}
+CLASSIFIER_CFG = {"models": {
+    "transformer": {"learning_rate": 0.0005, "feature_dim": 256,
+                    "batch_size": 1, "virtual_batch_size": 32,
+                    "num_epochs": 50, "patience": 15,
+                    "chest": _LAYER, "ct": _LAYER, "pet": _LAYER},
+    "conv": {"learning_rate": 0.0005, "feature_dim": 256, "batch_size": 1,
+             "virtual_batch_size": 32, "num_epochs": 50, "patience": 15,
+             "ct": {"div": 2}, "pet": {"div": 2}}}}
+MAX_TOKENS = 2048
+# 64 train and 16 test items, balanced labels; CT 700-2048 tokens (buckets
+# 1024, 2048), PET 60-400 (buckets 128-512); conv volumes of 7-14 slices of
+# 16 x 16 x 256
+CLS_ITEMS = {"train": 64, "test": 16, "ct": (700, MAX_TOKENS),
+             "pet": (60, 400), "conv_slices": (7, 14), "conv_train": 16}
+# The `parity` micro-batch step on the card against the CPU's at the same
+# weights and batch: the loss and every gradient leaf within this share of
+# the leaf's max |grad| (TF32 off on the card, the sum order alone)
+CLS_PARITY_REL = 1e-4
 
 
 def log(*args):
@@ -2267,6 +2307,228 @@ def dinov2_extraction_phase(torch, A, vit, precision, tex, syn):
     return records
 
 
+def _token_items(ds, rng, n, dim):
+    """``n`` TokenItems from ``rng`` at ``CLS_ITEMS``'s lengths, labels
+    alternating (balanced)."""
+    items = []
+    for i in range(n):
+        lc = int(rng.integers(CLS_ITEMS["ct"][0], CLS_ITEMS["ct"][1] + 1))
+        lp = int(rng.integers(CLS_ITEMS["pet"][0], CLS_ITEMS["pet"][1] + 1))
+        items.append(ds.TokenItem(
+            rng.standard_normal((lc, dim), dtype=np.float32),
+            rng.standard_normal((lp, dim), dtype=np.float32),
+            np.eye(2, dtype=np.float32)[i % 2], f"P{i:03d}"))
+    return items
+
+
+def _classifier_epoch(T, ds, cfg, label, items, **tcfg):
+    """One train epoch of a fresh ``FoldTrainer`` (seeded weights) on
+    ``items``: the epoch's loss, finite, and the parameters moved."""
+    trainer = T.FoldTrainer(cfg, T.TrainerConfig(**tcfg))
+    trainer.init_params()
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    batches = list(ds.batch_items(T._bucket_sorted(items),
+                                  trainer.tcfg.batch_size))
+    t0 = time.perf_counter()
+    loss, _, scores, _ = trainer.run_epoch(batches, 0, train=True,
+                                           rng_seed=SEED)
+    dt = time.perf_counter() - t0
+    moved = max((v - before[k]).abs().max().item()
+                for k, v in trainer.model.state_dict().items())
+    log(f"classifier {label}: {len(batches)} micro-batches in "
+        f"{dt * 1e3:.1f} ms, loss {loss:.6g}, max parameter move "
+        f"{moved:.3e}")
+    if not (np.isfinite(loss) and np.isfinite(scores).all() and moved > 0):
+        raise AssertionError(f"classifier {label}: non-finite or no update")
+    return {"micro_batches": len(batches), "ms": dt * 1e3, "loss": loss,
+            "moved": moved}
+
+
+def _parity_grads(torch, T, cfg, state, batch, device):
+    """One ``parity`` micro-batch step of the bimodal classifier (dropout
+    off) on ``device`` at the weights ``state``: (loss, {leaf: grad})."""
+    trainer = T.FoldTrainer(cfg, T.TrainerConfig(precision="parity",
+                                                 device=device))
+    trainer.model.dropout_rate = 0.0
+    trainer.init_params(state)
+    with trainer.policy.backends():
+        loss, _ = trainer.step(batch, scale=1.0 / 32, train=True)
+    return float(loss), {k: p.grad.detach().cpu()
+                         for k, p in trainer.model.named_parameters()}
+
+
+def classifier_phase(torch, A):
+    """Phase 21: classifier training on the descriptors at the published
+    transformer config (feature_dim 256, CT and PET encoders of 2 layers x
+    4 heads, FFN 1024; ``TrainerConfig``'s defaults: bimodal, cross-modal
+    focal loss, batch 8, ``fast``; virtual batch 32, so 4 micro-batches an
+    update) from in-memory ``TokenItem``s (the card has no HDF5): a train
+    and a test epoch through ``FoldTrainer`` and ``FoldBookkeeping`` (report
+    JSONs, ``losses.html``, a checkpoint reloaded into a fresh model that
+    gives the same test logits), a timed second train epoch, a profiled
+    micro-batch step, one epoch each of the unimodal ``ct`` transformer
+    and of the conv classifier, and a ``parity`` micro-batch step on the
+    card against the CPU's. No kernel of K1-K8 runs."""
+    from vit_deep_radiomics_tpu_torch.analysis import reports
+    from vit_deep_radiomics_tpu_torch.data import datasets as ds
+    from vit_deep_radiomics_tpu_torch.engine import checkpoint as ck
+    from vit_deep_radiomics_tpu_torch.engine import train as T
+    from vit_deep_radiomics_tpu_torch.utils.profiling import trace_runs
+
+    cfg = CLASSIFIER_CFG
+    dim = cfg["models"]["transformer"]["feature_dim"]
+    rng = np.random.default_rng(SEED)
+    train_items = _token_items(ds, rng, CLS_ITEMS["train"], dim)
+    test_items = _token_items(ds, rng, CLS_ITEMS["test"], dim)
+    A.reset_launch_counts()
+    trainer = T.FoldTrainer(cfg, T.TrainerConfig())
+    trainer.init_params()
+    tc = trainer.tcfg
+    bsz = tc.batch_size
+    train_batches = list(ds.batch_items(T._bucket_sorted(train_items), bsz))
+    test_batches = list(ds.batch_items(T._bucket_sorted(test_items), bsz))
+    buckets = sorted({(b["ct"].shape[1], b["pet"].shape[1])
+                      for b in train_batches + test_batches})
+    accum = min(-(-trainer.virtual_batch // bsz), len(train_batches))
+    log(f"classifier {tc.arch}/{tc.modality}/{tc.loss} {tc.precision}: "
+        f"{len(train_items)} train and {len(test_items)} test items, batch "
+        f"{bsz}, {len(train_batches)} micro-batches an epoch, "
+        f"{len(train_batches) // accum} updates (virtual batch "
+        f"{trainer.virtual_batch}), (CT, PET) buckets {buckets}")
+    if max(max(b) for b in buckets) > MAX_TOKENS:
+        raise AssertionError(f"classifier buckets {buckets}")
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    save_dir = Path(tempfile.mkdtemp(prefix="vdr_classifier_"))
+    history = {k: [] for k in T.HISTORY_KEYS}
+    book = T.FoldBookkeeping(history, trainer.patience, save_dir, 0,
+                             tc.dataset, log=lambda *_: None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = trainer.run_epoch(train_batches, 0, train=True, rng_seed=tc.seed)
+    warm = time.perf_counter() - t0
+    te = trainer.run_epoch(test_batches, 0, train=False)
+    reps = [reports.device_epoch_report(
+        y, s, T._patient_weights(p), kfold=0, loss=loss, epoch=0,
+        split=split, device=trainer.device)
+        for split, (loss, y, s, p) in (("train", tr), ("test", te))]
+    book.record_epoch(0, tr[0], te[0], *reps, trainer.checkpoint_state)
+    ck.wait_pending()
+    with torch.no_grad():
+        ref_logits = torch.cat([trainer.step(b)[1] for b in test_batches])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr1 = trainer.run_epoch(train_batches, 1, train=True, rng_seed=tc.seed)
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    moved = max((v - before[k]).abs().max().item()
+                for k, v in trainer.model.state_dict().items())
+    step_ms = epoch_s * 1e3 / len(train_batches)
+    log(f"classifier epochs: train 0 loss {tr[0]:.6g} ({warm * 1e3:.1f} ms, "
+        f"warm-up), test 0 loss {te[0]:.6g}, train 1 loss {tr1[0]:.6g}; "
+        f"train AUC {reps[0]['ROC AUC']:.4f} macro F1 "
+        f"{reps[0]['macro avg']['f1-score']:.4f}, test AUC "
+        f"{reps[1]['ROC AUC']:.4f} macro F1 "
+        f"{reps[1]['macro avg']['f1-score']:.4f}")
+    log(f"classifier step (epoch 1, host clock): {step_ms:.3f} ms per "
+        f"micro-batch of {bsz}, {len(train_items) / epoch_s:.2f} samples/s, "
+        f"peak memory {peak / 2 ** 30:.3f} GiB; max parameter move "
+        f"{moved:.3e}")
+    if not (all(np.isfinite(x[0]) for x in (tr, te, tr1)) and moved > 0):
+        raise AssertionError("classifier: non-finite loss or no update")
+
+    files = sorted(p.name for p in save_dir.iterdir())
+    want = ["history_0000.json", "losses.html", "model_epoch_0000.pt",
+            "test_metrics_0.json", "train_metrics_0.json"]
+    log(f"classifier bookkeeping wrote {files}")
+    if files != want:
+        raise AssertionError(f"classifier files {files} != {want}")
+    fresh = T.FoldTrainer(cfg, T.TrainerConfig())
+    fresh.init_params()
+    state = ck.load_checkpoint(save_dir, 0, map_location="cuda")
+    fresh.load_state(state)
+    with torch.no_grad():
+        got = torch.cat([fresh.step(b)[1] for b in test_batches])
+    reload_err = (got - ref_logits).abs().max().item()
+    log(f"classifier checkpoint reload: test logits max |diff| "
+        f"{reload_err:.3e}")
+    if reload_err != 0.0:
+        raise AssertionError("the reloaded checkpoint's logits differ")
+    del fresh, state, got
+
+    # the micro-batch step at the largest bucket, traced
+    big = train_batches[-1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def micro_step():
+        with trainer.policy.backends():
+            trainer.step(big, 1.0 / (accum * bsz), True, gen)
+
+    prof = trace_runs(micro_step, 3, 8, what="classifier micro-batch",
+                      buckets=(big["ct"].shape[1], big["pet"].shape[1]))
+    trainer.optimizer.zero_grad(set_to_none=True)
+    log(f"classifier micro-batch (CT {prof['buckets'][0]}, PET "
+        f"{prof['buckets'][1]}, B={bsz}) traced: wall {prof['wall_ms']:.3f} "
+        f"ms, device {prof['device_ms']:.3f} ms, idle share "
+        f"{prof['idle_share']:.3f}; top " + "; ".join(
+            f"{r['name'][:60]} {r['ms']:.3f} ms ({r['calls']:.0f}x)"
+            for r in prof["top"]))
+
+    uni = _classifier_epoch(T, ds, cfg, "transformer/ct/focal", train_items,
+                            modality="ct", loss="focal")
+    crng = np.random.default_rng(SEED + 1)
+    cdim = cfg["models"]["conv"]["feature_dim"]
+    lo, hi = CLS_ITEMS["conv_slices"]
+    conv_items = []
+    for i in range(CLS_ITEMS["conv_train"]):
+        vol = crng.standard_normal((int(crng.integers(lo, hi + 1)), 16, 16,
+                                    cdim), dtype=np.float32)
+        conv_items.append(ds.TokenItem(
+            vol, vol, np.eye(2, dtype=np.float32)[i % 2], f"C{i:03d}"))
+    conv = _classifier_epoch(T, ds, cfg, "conv/ct/focal", conv_items,
+                             arch="conv", modality="ct", loss="focal")
+
+    # `parity` on the card against the CPU: the smallest batch, the
+    # trained weights
+    state = {k: v.detach().cpu() for k, v in
+             trainer.model.state_dict().items()}
+    batch = train_batches[0]
+    loss_c, g_c = _parity_grads(torch, T, cfg, state, batch, "cuda")
+    t0 = time.perf_counter()
+    loss_h, g_h = _parity_grads(torch, T, cfg, state, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    worst, worst_name = abs(loss_c - loss_h) / abs(loss_h), "loss"
+    for k, ref in g_h.items():
+        scale = ref.abs().max().item()
+        err = (g_c[k] - ref).abs().max().item()
+        ratio = err / scale if scale > 0 else (0.0 if err == 0 else
+                                               float("inf"))
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    log(f"classifier parity step (CT {batch['ct'].shape[1]}, PET "
+        f"{batch['pet'].shape[1]}, B={bsz}), card vs CPU ({cpu_s:.1f} s): "
+        f"loss {loss_c:.8g} vs {loss_h:.8g}; {len(g_h)} leaves, worst "
+        f"|diff| / leaf max |grad| {worst:.3e} ({worst_name}), limit "
+        f"{CLS_PARITY_REL:g}")
+    if not worst <= CLS_PARITY_REL:
+        raise AssertionError(f"classifier parity: {worst_name} at {worst:.3e}")
+    counts = dict(A.LAUNCHES)
+    if any(counts.values()):
+        raise AssertionError(f"classifier phase launched kernels: {counts}")
+    shutil.rmtree(save_dir)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "samples_s": len(train_items) / epoch_s,
+            "peak_gib": peak / 2 ** 30, "losses": [tr[0], te[0], tr1[0]],
+            "test_auc": reps[1]["ROC AUC"],
+            "test_f1": reps[1]["macro avg"]["f1-score"],
+            "profile": {k: prof[k] for k in ("wall_ms", "device_ms",
+                                             "idle_share")},
+            "unimodal": uni, "conv": conv, "parity_worst": worst}
+
+
 def main() -> int:
     import torch
 
@@ -2436,6 +2698,9 @@ def main() -> int:
     sam2048 = sam2048_phase(torch, A, G, ft, vit)              # phase 20
     for kname in K5_NAMES:
         records[kname]["launches_sam2048_fast"] = sam2048[kname]
+    torch.cuda.empty_cache()
+    log("classifier training: " + json.dumps(
+        classifier_phase(torch, A)))                           # phase 21
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -22,12 +22,18 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "vit_deep_radiomics_tpu")
 
 
 def test_new_modules_are_covered():
-    """The modules of the int8, fused-MLP and generic-attention paths and
-    the tfds source are among those the isolation checks import and
-    parse."""
+    """The modules of the int8, fused-MLP and generic-attention paths, the
+    tfds source and the classifier-training path are among those the
+    isolation checks import and parse."""
     for mod in ("ops.quant", "ops.mlp_fused", "ops.attention",
                 "ops._kernels", "core.precision", "utils.cuda_build",
-                "data.ingest"):
+                "data.ingest", "ops.posenc", "ops.metrics",
+                "models.classifiers", "models.losses", "models.convert",
+                "utils.config", "utils.native", "data.datasets",
+                "data.splits", "data.feature_store", "engine.checkpoint",
+                "engine.train", "engine.evaluate", "analysis.reports",
+                "cli.train", "cli.evaluate", "cli.merge", "cli.split",
+                "cli.sweep", "cli.convert"):
         assert f"vit_deep_radiomics_tpu_torch.{mod}" in MODULES
 
 

@@ -7,7 +7,10 @@ The port's own copy of the contract of
   lzf-compressed through h5py's own filter (the parallel LZF writer over
   ``native/lzf_codec.cpp`` has no port), overwrite-if-exists,
 * per-patient parquet with columns feature_id, slice, angle, flip,
-  patient_id, label, dataset, modality, augmentation, spatial_res.
+  patient_id, label, dataset, modality, augmentation, spatial_res,
+  merged into ``petct.parquet`` by :func:`merge_metadata`;
+* :func:`merge_part_stores` folds the per-process part stores of a
+  multi-process sweep into the contract files.
 
 ``h5py`` and ``pandas`` are imported inside the functions.
 """
@@ -25,6 +28,8 @@ __all__ = [
     "read_patient_features",
     "patient_ids_in_store",
     "slice_metadata_frame",
+    "merge_metadata",
+    "merge_part_stores",
 ]
 
 
@@ -90,3 +95,61 @@ def slice_metadata_frame(slices: Sequence[int], angles: Sequence[int],
     df["augmentation"] = ~((df["flip"] == "None") & (df["angle"] == 0))
     df["spatial_res"] = [np.asarray(spatial_res, np.float64)] * len(df)
     return df
+
+
+def merge_metadata(feature_dir: str | os.PathLike,
+                   datasets: Sequence[str] = ("santa_maria_dataset",
+                                              "stanford_dataset"),
+                   output_path: str | os.PathLike | None = None):
+    """Concatenate the per-patient parquets of each dataset folder into
+    ``petct.parquet`` (``flip`` as text, ``augmentation`` recomputed)."""
+    import pandas as pd
+
+    feature_dir = Path(feature_dir)
+    frames = []
+    for dataset in datasets:
+        ds_dir = feature_dir / dataset
+        if ds_dir.is_dir():
+            frames.extend(pd.read_parquet(fn)
+                          for fn in sorted(ds_dir.iterdir())
+                          if fn.suffix == ".parquet")
+    if not frames:
+        raise FileNotFoundError(
+            f"no per-patient parquets under {feature_dir}")
+    df = pd.concat(frames)
+    df["flip"] = df["flip"].astype(str)
+    df["augmentation"] = ~((df["flip"] == "None") & (df["angle"] == 0))
+    df = df.reset_index(drop=True)
+    out = Path(output_path) if output_path else feature_dir / "petct.parquet"
+    df.to_parquet(out)
+    return df
+
+
+def merge_part_stores(feature_folder: str | os.PathLike,
+                      modalities: Sequence[str] = ("pet", "ct"),
+                      remove_parts: bool = True) -> list[str]:
+    """Fold ``features_masks_<mod>.part<pid>.hdf5`` stores (one writer per
+    process, disjoint patients) into ``features_masks_<mod>.hdf5`` by
+    group copy; returns the merged stores."""
+    import h5py
+
+    feature_folder = Path(feature_folder)
+    merged: list[str] = []
+    for modality in modalities:
+        parts = sorted(
+            feature_folder.glob(f"features_masks_{modality}.part*.hdf5"))
+        if not parts:
+            continue
+        out = feature_folder / f"features_masks_{modality}.hdf5"
+        with h5py.File(out, "a") as dst:
+            for part in parts:
+                with h5py.File(part, "r") as src:
+                    for pid in src:
+                        if pid in dst:
+                            del dst[pid]
+                        src.copy(src[pid], dst, name=pid)
+        if remove_parts:
+            for part in parts:
+                part.unlink()
+        merged.append(str(out))
+    return merged

@@ -21,6 +21,15 @@ for ``load_state_dict``; :func:`load_dinov2_state_dict` reads a DINOv2
 names JAX ``convert.py::dinov2_params_from_torch`` takes). Both packages
 load only the ``mlp.fc1``/``fc2`` MLP: torch.hub's ViT-g/14 checkpoint is
 SwiGLU (``mlp.w12``/``w3``) and loads into neither.
+
+The downstream classifiers (``models/classifiers.py``) carry the
+reference's names too: :func:`classifier_params_from_jax` turns a Flax
+classifier tree of any of the three families into the port's
+``state_dict`` (Dense kernels transposed, conv kernels (kd, kh, kw, in,
+out) → (out, in, kd, kh, kw)), and a reference classifier ``.pth`` loads
+as it is, after the depth checks of
+:func:`transformer_classifier_params_from_torch` /
+:func:`conv_classifier_params_from_torch`.
 """
 
 from __future__ import annotations
@@ -34,7 +43,9 @@ from .vit import ViTDenseConfig
 
 __all__ = ["params_from_jax", "dinov2_params_from_jax",
            "finetune_params_from_jax", "load_medsam_state_dict",
-           "load_dinov2_state_dict"]
+           "load_dinov2_state_dict", "classifier_params_from_jax",
+           "transformer_classifier_params_from_torch",
+           "conv_classifier_params_from_torch"]
 
 
 def _t(x) -> torch.Tensor:
@@ -197,4 +208,124 @@ def load_dinov2_state_dict(path: str) -> dict:
         sd[pre + "ls1.gamma"] = state[hf + "layer_scale1.lambda1"]
         sd[pre + "ls2.gamma"] = state[hf + "layer_scale2.lambda1"]
         i += 1
+    return sd
+
+
+# -- downstream classifiers --------------------------------------------------
+
+
+def _linear_from_jax(p: Mapping, base: str, sd: dict,
+                     bias: bool = True) -> None:
+    sd[f"{base}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if bias:
+        sd[f"{base}.bias"] = _t(p["bias"])
+
+
+def _head_from_jax(p: Mapping, base: str, sd: dict) -> None:
+    _linear_from_jax(p["dense1"], f"{base}.dense1", sd)
+    _linear_from_jax(p["dense2"], f"{base}.dense2", sd)
+
+
+def _attn_from_jax(p: Mapping, base: str, sd: dict) -> None:
+    sd[f"{base}.in_proj_weight"] = _t(np.asarray(p["in_kernel"]).T)
+    sd[f"{base}.in_proj_bias"] = _t(p["in_bias"])
+    sd[f"{base}.out_proj.weight"] = _t(np.asarray(p["out_kernel"]).T)
+    sd[f"{base}.out_proj.bias"] = _t(p["out_bias"])
+
+
+def _norm_from_jax(p: Mapping, base: str, sd: dict) -> None:
+    sd[f"{base}.weight"] = _t(p["scale"])
+    sd[f"{base}.bias"] = _t(p["bias"])
+
+
+def _encoder_from_jax(p: Mapping, prefix: str, sd: dict) -> None:
+    for name, layer in p.items():
+        base = f"{prefix}.layers.{name.split('_')[1]}"
+        _attn_from_jax(layer["self_attn"], f"{base}.self_attn", sd)
+        for lin in ("linear1", "linear2"):
+            _linear_from_jax(layer[lin], f"{base}.{lin}", sd)
+        for norm in ("norm1", "norm2"):
+            _norm_from_jax(layer[norm], f"{base}.{norm}", sd)
+
+
+def classifier_params_from_jax(tree: Mapping) -> dict:
+    """A JAX classifier tree (``{"params": …}`` or the inner dict, numpy or
+    jax arrays) → the port's ``state_dict`` under the reference's names,
+    for the unimodal transformer, the bimodal transformer and the conv
+    classifier (the family read from the tree's keys, as JAX
+    ``convert.py::classifier_params_to_torch`` does)."""
+    p = tree["params"] if "params" in tree else tree
+    sd: dict = {}
+    if "conv1" in p:
+        for base in ("conv1", "conv2"):
+            sd[f"{base}.weight"] = _t(
+                np.asarray(p[base]["kernel"]).transpose(4, 3, 0, 1, 2))
+            sd[f"{base}.bias"] = _t(p[base]["bias"])
+        for base in ("se1", "se2"):
+            _linear_from_jax(p[base]["fc1"], f"{base}.fc.0", sd, bias=False)
+            _linear_from_jax(p[base]["fc2"], f"{base}.fc.2", sd, bias=False)
+        _linear_from_jax(p["fc1"], "fc1", sd)
+        _head_from_jax(p["head"], "classifier", sd)
+        return sd
+    if "cls_token_ct" in p:
+        for mod in ("ct", "pet"):
+            sd[f"cls_token_{mod}"] = _t(p[f"cls_token_{mod}"])
+            _norm_from_jax(p[f"norm_{mod}"], f"norm_{mod}", sd)
+            _encoder_from_jax(p[f"encoder_{mod}"],
+                              f"transformer_encoder_{mod}", sd)
+            _attn_from_jax(p[f"cross_attention_{mod}"],
+                           f"cross_attention_{mod}.multihead_attn", sd)
+            _head_from_jax(p[f"classifier_{mod}"], f"classifier_{mod}", sd)
+        _head_from_jax(p["projection_petct"], "projection_petct", sd)
+        _head_from_jax(p["classifier_petct"], "classifier_petct", sd)
+        return sd
+    sd["cls_token"] = _t(p["cls_token"])
+    _norm_from_jax(p["norm"], "norm", sd)
+    _encoder_from_jax(p["encoder"], "transformer_encoder", sd)
+    _head_from_jax(p["head"], "classifier", sd)
+    return sd
+
+
+def _as_tensors(state: Mapping) -> dict:
+    return {k: v if torch.is_tensor(v) else _t(v) for k, v in state.items()}
+
+
+def _count_encoder_layers(sd: Mapping, prefix: str) -> int:
+    n = 0
+    while any(k.startswith(f"{prefix}.layers.{n}.") for k in sd):
+        n += 1
+    return n
+
+
+def transformer_classifier_params_from_torch(
+        state: Mapping, num_layers: int | None = None,
+        bimodal: bool = False) -> dict:
+    """A reference transformer classifier ``state_dict`` → the port's (the
+    same names, as tensors), after JAX's depth checks: each encoder's depth
+    is read from its ``….layers.N`` keys (per modality in bimodal mode), a
+    given ``num_layers`` must equal it, and an encoder with no layer keys
+    needs ``num_layers``."""
+    sd = _as_tensors(state)
+    prefixes = (("transformer_encoder_ct", "transformer_encoder_pet")
+                if bimodal else ("transformer_encoder",))
+    for prefix in prefixes:
+        found = _count_encoder_layers(sd, prefix)
+        if found == 0 and num_layers is None:
+            raise KeyError(f"no '{prefix}.layers.N' keys in the checkpoint")
+        if found and num_layers is not None and num_layers != found:
+            raise ValueError(
+                f"num_layers={num_layers} but checkpoint has {found} "
+                f"'{prefix}.layers.N' layers")
+    return sd
+
+
+def conv_classifier_params_from_torch(state: Mapping) -> dict:
+    """A reference conv classifier ``state_dict`` → the port's (the same
+    names, as tensors); a missing ``conv1``/``conv2``/``se1``/``se2``/
+    ``fc1``/``classifier`` entry raises ``KeyError``."""
+    sd = _as_tensors(state)
+    for key in ("conv1.weight", "conv2.weight", "se1.fc.0.weight",
+                "se2.fc.2.weight", "fc1.weight", "classifier.dense2.weight"):
+        if key not in sd:
+            raise KeyError(key)
     return sd
