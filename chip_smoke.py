@@ -149,6 +149,28 @@ Phases (each one fails the run with a non-zero exit):
     card against the CPU's at the same weights and batch (the loss and
     every gradient leaf within 1e-4 of the leaf's max |grad|). It launches
     none of K1-K8.
+22. serving through ``cli.serve`` and ``engine.serve``: first K1 (325
+    and 50 windows), K2 (batch 13 and 2) and K7 (batch 1, 4096 rows), the
+    shapes serving gives them, in bf16 against their plain versions by
+    the rules of phases 3 and 16; then (a) SAM ViT-B/16
+    @1024 `fast` exported at B=4 by the CLI's ``export`` from the seed-0
+    weights, ``serve run`` over 8 batches of random images (warm status
+    and stats, img/s, latency p50/p90), the output equal bit for bit to a
+    ``ViTDense`` on the same baked weights, 8 K1 and 4 K2 launches a call,
+    one call from host images traced (device ms, idle share);
+    (b) the bimodal raw-HU pipeline (CT int16 13 x 512², PET float32 2 x
+    128², 512 tokens, B=1, `fast`) at the published classifier config with
+    seeded weights, on ``make_server``'s handler behind
+    ``ThreadingHTTPServer`` on 127.0.0.1: ``/health``, a malformed body
+    (400), an unknown path (404), 8 requests, each response's four outputs
+    held to the two-stage path (the backbone on the same baked weights,
+    the trainer's tokens on the host, the classifier) within
+    ``SERVE_ATOL``, 16 K1 and 8 K2 launches a request, the wall p50/p90,
+    one request traced (device ms, idle share), the peak memory, and
+    ``serve run --overlap`` over three requests (pinned copies on a side
+    stream) equal to their responses; (c) an
+    artifact exported with ``VDR_FUSED_MLP=1`` and served without it
+    launches K7 in all 12 blocks.
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -375,6 +397,40 @@ CLS_ITEMS = {"train": 64, "test": 16, "ct": (700, MAX_TOKENS),
 # weights and batch: the loss and every gradient leaf within this share of
 # the leaf's max |grad| (TF32 off on the card, the sum order alone)
 CLS_PARITY_REL = 1e-4
+# Phase 22, serving: the dense SAM ViT-B/16 @1024 `fast` artifact at B=4
+# over 8 batches, and the bimodal raw-HU pipeline at the published
+# classifier config (CT int16 13 x 512², PET float32 2 x 128², a 512-token
+# budget, B=1) served over HTTP; each request's launches (two backbone
+# calls: the 13 CT and the 2 PET slices), each forward's
+SERVE_BATCH, SERVE_BATCHES, SERVE_REQUESTS = 4, 8, 8
+SERVE_SLICES = {"ct": 13, "pet": 2}
+SERVE_NATIVE = {"ct": 512, "pet": 128}
+SERVE_MAX_TOKENS = 512
+SERVE_LAUNCHES = {
+    "dense": dict(fused_window_attention=8, fused_global_attention=4),
+    "pipeline": dict(fused_window_attention=16, fused_global_attention=8),
+    "fused_mlp": dict(fused_ln_mlp_residual=12, fused_window_attention=8,
+                      fused_global_attention=4),
+}
+# nodule discs on the 64 x 64 descriptor grid, in cells: CT 37 cells x 13
+# slices (481 voxels), PET 81 x 2 (162), both within the token budget
+SERVE_RADII = {"ct": 3.2, "pet": 5.0}
+# a response's four outputs against the two-stage path (the backbone, the
+# trainer's tokens on the host, the classifier), elementwise: about 1.5
+# times the gap measured on an H100 SXM (7.81e-3, one bf16 step of an
+# output between 1 and 2; 3.91e-3 on 7 of 8 requests): the encoding's
+# sin/cos on the card against the host's moves a bf16 rounding in the
+# classifier
+SERVE_ATOL = 1.2e-2
+# The kernels at the shapes serving gives them that no earlier phase runs,
+# each held against its plain version by the limits of phases 3 and 16
+# (bf16): K1 over a CT stack's 13 x 25 and a PET stack's 2 x 25 windows,
+# K2 at batch 13 and 2, K7 at batch 1 (4096 rows, the routing cell)
+SERVE_KERNEL_SHAPES = {
+    "fused_window_attention": {"ct": 325, "pet": 50},
+    "fused_global_attention": {"ct": 13, "pet": 2},
+    "fused_ln_mlp_residual": {"b1": 1},
+}
 
 
 def log(*args):
@@ -2529,6 +2585,432 @@ def classifier_phase(torch, A):
             "unimodal": uni, "conv": conv, "parity_worst": worst}
 
 
+def _check_launches(A, label: str, expect: dict) -> dict:
+    """The launches since the last reset: exactly ``expect``."""
+    counts = {k: v for k, v in A.LAUNCHES.items() if v}
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts} != {expect}")
+    return counts
+
+
+def _serve_cli(cs, argv) -> list[str]:
+    """Run the serve CLI in this process; its stdout lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cs.main(argv)
+    if rc != 0:
+        raise AssertionError(f"serve {argv[0]} exited {rc}")
+    return buf.getvalue().strip().splitlines()
+
+
+def _baked_twin(torch, es, vit, meta, backbone, device):
+    """A live ViTDense built from an artifact's header and the baked state
+    dict of its loaded backbone (its routing read from the environment)."""
+    cfg = dict(meta["config"])
+    cfg["global_indexes"] = tuple(cfg["global_indexes"])
+    twin = vit.ViTDense(vit.ViTDenseConfig(**cfg),
+                        policy=es.get_policy(meta["policy"]))
+    twin.to(torch.bfloat16).load_state_dict(backbone.state_dict())
+    return twin.to(device).eval()
+
+
+def _serve_dense(torch, A, cs, es, vit, tmp, device):
+    """Phase 22 (a): export SAM ViT-B/16 @1024 `fast` at B=4 with the CLI,
+    `serve run` over 8 batches, the output against a ViTDense on the same
+    baked weights (bit for bit), one call's launches, and one call from
+    host images traced."""
+    from vit_deep_radiomics_tpu_torch.utils.profiling import trace_runs
+
+    art = str(tmp / "sam_fast_b4.vdr")
+    t0 = time.perf_counter()
+    _serve_cli(cs, ["export", "-mn", "medsam", "-o", art, "-b",
+                    str(SERVE_BATCH), "--precision", "fast", "--device",
+                    device])
+    export_s = time.perf_counter() - t0
+    size = es.read_header(art)["image_size"]
+    images = np.random.default_rng(SEED).random(
+        (SERVE_BATCH * SERVE_BATCHES, size, size, 3), dtype=np.float32)
+    np.save(tmp / "images.npy", images)
+    report = json.loads(_serve_cli(cs, [
+        "run", art, "-i", str(tmp / "images.npy"), "-o",
+        str(tmp / "features.npy"), "--device", device])[-1])
+    mib = Path(art).stat().st_size / 2 ** 20
+    log(f"serve dense: export {export_s:.2f} s ({mib:.1f} MiB); run: "
+        f"exec_cache {report['exec_cache']}, "
+        f"warm {report['warm_s']} s (build {report['warm_build_s']} s of "
+        f"{report['built']}, first call {report['warm_first_exec_s']} "
+        f"s), {report['images']} images in {report['seconds']} s, "
+        f"{report['img_per_s']} img/s, latency p50 "
+        f"{report['latency_p50_ms']} ms, p90 {report['latency_p90_ms']} "
+        f"ms (first batch {report['first_batch_ms']} ms)")
+    feats = np.load(tmp / "features.npy")
+    model = es.load_exported(art, device=device)
+    twin = _baked_twin(torch, es, vit, model.meta, model.module, device)
+    with torch.no_grad():
+        want = twin(torch.from_numpy(images[:SERVE_BATCH]).to(device))
+    if not np.array_equal(feats[:SERVE_BATCH], want.cpu().numpy()):
+        raise AssertionError(
+            "serve dense: the artifact's output differs from a ViTDense on "
+            "its baked weights by "
+            f"{np.abs(feats[:SERVE_BATCH] - want.cpu().numpy()).max():.3e}")
+    A.reset_launch_counts()
+    model(images[:SERVE_BATCH]).cpu()
+    counts = _check_launches(A, "serve dense", SERVE_LAUNCHES["dense"])
+    prof = trace_runs(lambda: model(images[:SERVE_BATCH]), 3, 6,
+                      what="served dense batch")
+    log(f"serve dense: output equal to the ViTDense twin bit for bit; "
+        f"launches per call {counts}; one call from host images traced: "
+        f"wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} "
+        f"ms, idle share {prof['idle_share']:.3f}; top " + "; ".join(
+            f"{r['name'][:50]} {r['ms']:.3f} ms ({r['calls']:.0f}x)"
+            for r in prof["top"]))
+    return {"export_s": export_s, "run": report, "launches": counts,
+            "profile": {k: prof[k] for k in ("wall_ms", "device_ms",
+                                             "idle_share")}}
+
+
+def _serve_inputs(rng, g: int) -> dict:
+    """One bimodal raw-HU request in ``in_spec`` order: CT int16 HU and
+    PET float32 activity at their native sizes, a nodule disc on the
+    descriptor grid through every slice of each stack, spacings (mm)."""
+    vols, masks = {}, {}
+    yy, xx = np.mgrid[:g, :g]
+    for mod in ("ct", "pet"):
+        s, n = SERVE_SLICES[mod], SERVE_NATIVE[mod]
+        vols[mod] = (rng.integers(-1024, 1500, (1, s, n, n)).astype(np.int16)
+                     if mod == "ct" else
+                     rng.gamma(2.0, 1.5, (1, s, n, n)).astype(np.float32))
+        cy, cx = rng.integers(g // 4, 3 * g // 4, size=2)
+        disc = (yy - cy) ** 2 + (xx - cx) ** 2 <= SERVE_RADII[mod] ** 2
+        masks[mod] = np.broadcast_to(disc, (1, s, g, g)).copy()
+    return {"ct_images": vols["ct"], "pet_images": vols["pet"],
+            "ct_grid_mask": masks["ct"], "pet_grid_mask": masks["pet"],
+            "ct_res": np.asarray([[0.7, 0.7, 1.25]], np.float32),
+            "pet_res": np.asarray([[4.0, 4.0, 3.0]], np.float32)}
+
+
+def _two_stage(torch, pp, ds, twin, clf, inputs, meta, device):
+    """The reference's two stages on one request: each stack normalised
+    (``ops/preprocess.py``) through the backbone, the trainer's tokens on
+    the host (``data/datasets.py::voxel_tokens``) padded to the budget,
+    then the classifier."""
+    toks, valid = [], []
+    for mod in ("ct", "pet"):
+        vol = torch.from_numpy(inputs[f"{mod}_images"][0]).to(device).float()
+        x = (pp.apply_window_ct(vol, *meta["ct_window"]) if mod == "ct"
+             else pp.normalize_pet(vol))
+        with torch.no_grad():
+            feats = twin(pp.prepare_vit_input(x, meta["image_size"]))
+        mask = inputs[f"{mod}_grid_mask"][0]
+        tok = ds.voxel_tokens(feats.float().cpu().numpy(),
+                              mask.astype(np.float32), mask.shape[1:],
+                              inputs[f"{mod}_res"][0])
+        n, t = tok.shape[0], meta["max_tokens"]
+        if n > t:
+            raise AssertionError(f"serve: {n} {mod} tokens over the budget")
+        padded = np.zeros((1, t, tok.shape[1]), np.float32)
+        padded[0, :n] = tok
+        toks.append(torch.from_numpy(padded).to(device))
+        valid.append(torch.arange(t, device=device)[None] < n)
+    with torch.no_grad():
+        out = clf(ct_tokens=toks[0], pet_tokens=toks[1], ct_mask=valid[0],
+                  pet_mask=valid[1])
+    return [o.float().cpu().numpy() for o in out]
+
+
+def _http(url, body=None):
+    """(status, body) of a GET, or of a POST when ``body`` is given."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def _serve_pipeline(torch, A, cs, es, vit, tmp, device):
+    """Phase 22 (b): the bimodal raw-HU pipeline at the published
+    classifier config on `ThreadingHTTPServer`: health, a malformed body
+    (400), an unknown path (404), ``SERVE_REQUESTS`` requests held to the
+    two-stage path, one request's launches, the wall latencies, one
+    request traced in process and the peak memory."""
+    import io
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from vit_deep_radiomics_tpu_torch.data import datasets as ds
+    from vit_deep_radiomics_tpu_torch.engine import extract as tex
+    from vit_deep_radiomics_tpu_torch.models import classifiers as C
+    from vit_deep_radiomics_tpu_torch.ops import preprocess as pp
+    from vit_deep_radiomics_tpu_torch.utils.profiling import (
+        memory_summary_gib, trace_runs)
+
+    backbone = tex.DenseExtractor(tex.ExtractionConfig(), device=device)
+    clf = C.init_classifier(C.build_classifier(
+        CLASSIFIER_CFG, "transformer", "petct"), SEED)
+    art = es.export_pipeline(
+        backbone.model.state_dict(), backbone.backbone_cfg,
+        clf.state_dict(), CLASSIFIER_CFG, "transformer", "petct",
+        tmp / "petct_raw_hu.vdr", slices=SERVE_SLICES["ct"],
+        pet_slices=SERVE_SLICES["pet"], max_tokens=SERVE_MAX_TOKENS,
+        batch=1, policy="fast", input_mode="raw_hu",
+        native_size=SERVE_NATIVE["ct"], pet_native_size=SERVE_NATIVE["pet"])
+    del backbone, clf
+    model = es.load_exported(art, device=device)
+    t0 = time.perf_counter()
+    model.warm()
+    warm_s = time.perf_counter() - t0
+    meta = model.meta
+    log(f"serve pipeline: {meta['model']} @{meta['image_size']} "
+        f"{meta['policy']} -> {meta['arch']}/{meta['modality']} raw-HU "
+        f"(CT {meta['in_spec']['ct_images']}, PET "
+        f"{meta['in_spec']['pet_images']}, {meta['max_tokens']} tokens); "
+        f"warm {warm_s:.2f} s, exec_cache {model.cache_status}, "
+        f"{model.warm_stats}")
+    rng = np.random.default_rng(SEED + 22)
+    requests = [_serve_inputs(rng, meta["grid"])
+                for _ in range(SERVE_REQUESTS)]
+    bodies = []
+    for inputs in requests:
+        buf = io.BytesIO()
+        np.savez(buf, **inputs)
+        bodies.append(buf.getvalue())
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), cs.make_server(model))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    walls, responses = [], []
+    try:
+        code, body = _http(url + "/health")
+        if code != 200 or json.loads(body)["status"] != "ok":
+            raise AssertionError(f"serve /health: {code} {body[:200]}")
+        code, body = _http(url + "/infer", b"not-an-npz")
+        if code != 400 or "error" not in json.loads(body):
+            raise AssertionError(f"serve malformed body: {code}")
+        code, _ = _http(url + "/nowhere")
+        if code != 404:
+            raise AssertionError(f"serve unknown path: {code}")
+        torch.cuda.reset_peak_memory_stats()
+        for i, body in enumerate(bodies):
+            if i == 1:
+                A.reset_launch_counts()
+            t0 = time.perf_counter()
+            code, resp = _http(url + "/infer", body)
+            walls.append(time.perf_counter() - t0)
+            if i == 1:
+                counts = _check_launches(A, "serve request",
+                                         SERVE_LAUNCHES["pipeline"])
+            if code != 200:
+                raise AssertionError(f"serve request {i}: {code} "
+                                     f"{resp[:300]}")
+            with np.load(io.BytesIO(resp)) as z:
+                responses.append([z[n] for n in meta["out_names"]])
+        peak = memory_summary_gib(device)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    steady = np.asarray(walls[1:]) * 1e3
+    prof = trace_runs(lambda: model(*requests[0].values()), 3, 8,
+                      what="served request")
+    # `serve run --overlap` on three of the requests: the next batch's
+    # copy from pinned memory on a side stream, the same outputs
+    np.savez(tmp / "requests.npz", **{
+        k: np.concatenate([r[k] for r in requests[:3]]) for k in requests[0]})
+    overlap = json.loads(_serve_cli(cs, [
+        "run", art, "-i", str(tmp / "requests.npz"), "-o",
+        str(tmp / "outputs.npz"), "--overlap", "--device", device])[-1])
+    with np.load(tmp / "outputs.npz") as z:
+        for i, got in enumerate(responses[:3]):
+            if not all(np.array_equal(z[n][i], g[0])
+                       for n, g in zip(meta["out_names"], got)):
+                raise AssertionError(f"serve run --overlap: item {i} "
+                                     "differs from its HTTP response")
+
+    twin = _baked_twin(torch, es, vit, meta, model.module.vit, device)
+    ref_clf = C.build_classifier(CLASSIFIER_CFG, "transformer", "petct")
+    ref_clf.to(torch.bfloat16).load_state_dict(model.module.clf.state_dict())
+    ref_clf = ref_clf.to(device).eval()
+    gaps = []
+    for inputs, got in zip(requests, responses):
+        want = _two_stage(torch, pp, ds, twin, ref_clf, inputs, meta,
+                          device)
+        if not all(np.isfinite(g).all() and g.shape == w.shape
+                   for g, w in zip(got, want)):
+            raise AssertionError("serve: non-finite or misshapen outputs")
+        gaps.append(max(float(np.abs(g - w).max())
+                        for g, w in zip(got, want)))
+    log(f"serve pipeline: {len(walls)} requests over HTTP, wall first "
+        f"{walls[0] * 1e3:.3f} ms, then p50 "
+        f"{np.percentile(steady, 50):.3f} ms, p90 "
+        f"{np.percentile(steady, 90):.3f} ms; launches per request "
+        f"{counts}; peak memory {peak}; one request in process traced: "
+        f"wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} "
+        f"ms, idle share {prof['idle_share']:.3f}; top " + "; ".join(
+            f"{r['name'][:50]} {r['ms']:.3f} ms ({r['calls']:.0f}x)"
+            for r in prof["top"]))
+    log(f"serve pipeline: `serve run --overlap` over 3 requests equals "
+        f"their HTTP responses; {overlap['items_per_s']} items/s, latency "
+        f"p50 {overlap['latency_p50_ms']} ms")
+    log(f"serve pipeline vs the two-stage path: max |diff| per request "
+        f"{[f'{g:.3e}' for g in gaps]}, limit {SERVE_ATOL:g}")
+    if not max(gaps) <= SERVE_ATOL:
+        raise AssertionError(f"serve pipeline: gap {max(gaps):.3e}")
+    return {"warm_s": warm_s, "warm_stats": model.warm_stats,
+            "cache_status": model.cache_status,
+            "wall_first_ms": walls[0] * 1e3,
+            "wall_p50_ms": float(np.percentile(steady, 50)),
+            "wall_p90_ms": float(np.percentile(steady, 90)),
+            "launches": counts, "peak": peak, "max_gap": max(gaps),
+            "overlap_items_s": overlap["items_per_s"],
+            "profile": {k: prof[k] for k in ("wall_ms", "device_ms",
+                                             "idle_share")}}
+
+
+def _serve_routing(torch, A, cs, es, tmp, device):
+    """Phase 22 (c): a dense artifact exported under ``VDR_FUSED_MLP=1``
+    and served with it unset runs K7 in every block: the header governs."""
+    art = str(tmp / "sam_fast_fused_b1.vdr")
+    os.environ["VDR_FUSED_MLP"] = "1"
+    try:
+        _serve_cli(cs, ["export", "-mn", "medsam", "-o", art, "-b", "1",
+                        "--precision", "fast", "--device", device])
+    finally:
+        os.environ.pop("VDR_FUSED_MLP")
+    model = es.load_exported(art, device=device).warm()
+    size = model.meta["image_size"]
+    A.reset_launch_counts()
+    model(np.random.default_rng(SEED).random(
+        (1, size, size, 3), dtype=np.float32)).cpu()
+    counts = _check_launches(A, "serve routing", SERVE_LAUNCHES["fused_mlp"])
+    log(f"serve routing: kernel_env {model.meta.get('kernel_env')}, served "
+        f"without it: launches {counts}, warm {model.warm_stats}")
+    return {"launches": counts}
+
+
+def _serve_kernels(torch, A) -> dict:
+    """Phase 22's kernels at ``SERVE_KERNEL_SHAPES`` in bf16 against their
+    plain versions on the same inputs (phase 3's rule for K1 and K2,
+    phase 16's for K7), each asked which body it takes: the body of the
+    main path's shapes. K2's plain version runs four images at a time (the
+    images are independent); each shape's kernel ms, bound and error."""
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    peaks = peaks_for(torch.cuda.get_device_name(0))[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    dt, heads, d = torch.bfloat16, 12, 64
+    c, scale = heads * d, d ** -0.5
+
+    def rand(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * sc).to(dt)
+
+    def hold(name, tag, kern, plain, body, want, rtol, atol, nb, flops):
+        if body != want:
+            raise AssertionError(f"{name} at the serving shape {tag} takes "
+                                 f"the {body} body, not the {want} one")
+        out = kern()
+        torch.cuda.synchronize()
+        err = _check_outputs(torch, f"{name} [serve {tag}]", [out],
+                             [plain()], ["out"], rtol, atol)
+        t_bytes, t_ops = nb / peaks[0] * 1e3, flops / peaks[1] * 1e3
+        res = {"shape": list(out.shape), "body": body, "max_abs_err": err,
+               "ms": cuda_ms(torch, kern, 10),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"kernel {name} [serve {tag}]: {res}")
+        return res
+
+    found = {name: {} for name in SERVE_KERNEL_SHAPES}
+    for tag, b in SERVE_KERNEL_SHAPES["fused_window_attention"].items():
+        s = 196
+        q, kv = rand(b, s, c), rand(b, s, 2 * c)
+        bh, bw = rand(b, heads, s, 14, sc=0.3), rand(b, heads, s, 14, sc=0.3)
+        kw = dict(num_heads=heads, window_tokens=s, scale=scale)
+        found["fused_window_attention"][tag] = hold(
+            "fused_window_attention", f"{tag} {b} windows",
+            lambda: A.fused_window_attention(q, kv, bh, bw, **kw),
+            lambda: A.fused_window_attention_plain(q, kv, bh, bw, **kw),
+            A.fused_window_attention_route(q, kv, bh, bw, **kw),
+            BODIES["fused_window_attention"]["bfloat16"], RTOL["bfloat16"],
+            ATOL["fused_window_attention"]["bfloat16"],
+            _nbytes(q, q, kv, bh, bw), 4.0 * b * heads * s * s * d)
+        del q, kv, bh, bw
+    for tag, b in SERVE_KERNEL_SHAPES["fused_global_attention"].items():
+        s = 4096
+        q, kv = rand(b, s, c), rand(b, s, 2 * c)
+        bh, bw = rand(b, heads, s, 64, sc=0.3), rand(b, heads, s, 64, sc=0.3)
+        kw = dict(num_heads=heads, scale=scale)
+
+        def plain():
+            return torch.cat([A.fused_global_attention_plain(
+                q[i:i + 4], kv[i:i + 4], bh[i:i + 4], bw[i:i + 4], None,
+                **kw) for i in range(0, b, 4)])
+
+        found["fused_global_attention"][tag] = hold(
+            "fused_global_attention", f"{tag} batch {b}",
+            lambda: A.fused_global_attention(q, kv, bh, bw, None, **kw),
+            plain,
+            A.fused_global_attention_route(q, kv, bh, bw, None, **kw),
+            BODIES["fused_global_attention"]["bfloat16"], RTOL["bfloat16"],
+            ATOL["fused_global_attention"]["bfloat16"],
+            _nbytes(q, q, kv, bh, bw), 4.0 * b * heads * s * s * d)
+        del q, kv, bh, bw
+        torch.cuda.empty_cache()
+    _, s, _, hidden, _, want = K7_SHAPES["sam"]
+    for tag, b in SERVE_KERNEL_SHAPES["fused_ln_mlp_residual"].items():
+        x = rand(b, s, c)
+        w1, w2 = rand(hidden, c, sc=c ** -0.5), rand(c, hidden,
+                                                     sc=hidden ** -0.5)
+        ln_s = 1.0 + rand(c, sc=0.1).float()
+        ln_b, b1, b2 = (rand(n, sc=sc).float() for n, sc in (
+            (c, 0.1), (hidden, 0.02), (c, 0.02)))
+        args = (x, ln_s, ln_b, w1.t(), b1, w2.t(), b2, None)
+        found["fused_ln_mlp_residual"][tag] = hold(
+            "fused_ln_mlp_residual", f"{b}x{s} rows",
+            lambda: M.fused_ln_mlp_residual(*args, eps=1e-6),
+            lambda: M.fused_ln_mlp_residual_plain(*args, eps=1e-6),
+            M.fused_ln_mlp_residual_route(*args), want, RTOL["bfloat16"],
+            K7_ATOL, _nbytes(x, ln_s, ln_b, w1, b1, w2, b2, x),
+            4.0 * b * s * c * hidden)
+        del x, args
+    torch.cuda.empty_cache()
+    return found
+
+
+def serving_phase(torch, A, device: str = "cuda") -> dict:
+    """Phase 22: serving through the port's entry points (``cli.serve``,
+    ``engine.serve``) at SAM ViT-B/16 @1024 `fast`: the kernels at the
+    shapes serving gives them against their plain versions, then (a) the
+    dense artifact, (b) the bimodal raw-HU pipeline at the published
+    classifier config over HTTP, (c) the recorded kernel env routing the
+    loaded model."""
+    from vit_deep_radiomics_tpu_torch.cli import serve as cs
+    from vit_deep_radiomics_tpu_torch.engine import serve as es
+    from vit_deep_radiomics_tpu_torch.models import vit
+
+    kernels = _serve_kernels(torch, A)
+    tmp = Path(tempfile.mkdtemp(prefix="vdr_serve_"))
+    try:
+        dense = _serve_dense(torch, A, cs, es, vit, tmp, device)
+        torch.cuda.empty_cache()
+        pipeline = _serve_pipeline(torch, A, cs, es, vit, tmp, device)
+        torch.cuda.empty_cache()
+        routing = _serve_routing(torch, A, cs, es, tmp, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"kernels": kernels, "dense": dense, "pipeline": pipeline,
+            "routing": routing}
+
+
 def main() -> int:
     import torch
 
@@ -2701,6 +3183,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("classifier training: " + json.dumps(
         classifier_phase(torch, A)))                           # phase 21
+    torch.cuda.empty_cache()
+    serving = serving_phase(torch, A)                          # phase 22
+    log("serving: " + json.dumps(serving))
+    for kname in ("fused_window_attention", "fused_global_attention"):
+        records[kname]["launches_serve_dense"] = \
+            serving["dense"]["launches"][kname]
+        records[kname]["launches_serve_pipeline"] = \
+            serving["pipeline"]["launches"][kname]
+    records["fused_ln_mlp_residual"]["launches_serve_fused_mlp"] = \
+        serving["routing"]["launches"]["fused_ln_mlp_residual"]
+    for kname, shapes in serving["kernels"].items():
+        records[kname]["serve_shapes"] = shapes
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, no import of the JAX package, GPU by
-default, and the policies it does not run yet refuse loudly."""
+"""The port stands alone: no JAX, no import of the JAX package (in the
+package and in ``chip_smoke.py``), GPU by default, and the policies it
+does not run yet refuse loudly."""
 
 import ast
 import os
@@ -33,8 +34,42 @@ def test_new_modules_are_covered():
                 "data.splits", "data.feature_store", "engine.checkpoint",
                 "engine.train", "engine.evaluate", "analysis.reports",
                 "cli.train", "cli.evaluate", "cli.merge", "cli.split",
-                "cli.sweep", "cli.convert"):
+                "cli.sweep", "cli.convert", "engine.serve", "cli.serve",
+                "ops.preprocess", "utils.profiling"):
         assert f"vit_deep_radiomics_tpu_torch.{mod}" in MODULES
+
+
+def test_chip_smoke_imports_no_jax():
+    """The card's script imports neither JAX nor the JAX package."""
+    tree = ast.parse((PKG.parent / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN[:3], name
+            assert name.split(".")[0] != "vit_deep_radiomics_tpu", name
+
+
+def test_serving_imports_without_host_libraries():
+    """The card's machine has no pandas, h5py, sklearn or yaml: the
+    serving modules (and the CLI's parser) import without them."""
+    code = (
+        "import sys\n"
+        "for m in ('pandas', 'h5py', 'sklearn', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        "from vit_deep_radiomics_tpu_torch.engine import serve\n"
+        "from vit_deep_radiomics_tpu_torch.cli import serve as cli\n"
+        "assert serve.load_exported and cli.make_server\n"
+        "cli.build_parser().parse_args(['info', 'x.vdr'])\n")
+    root = str(PKG.parent)
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=root))
+    assert res.returncode == 0, res.stderr[-2000:]
 
 
 def test_every_kernel_source_has_one_launch_counter():

@@ -1,5 +1,5 @@
-"""Port vs JAX: intensity preprocessing, the fused resample, mask
-transforms and ROI geometry, on random volumes.
+"""Port vs JAX: intensity preprocessing, the slice resize, the fused
+resample, mask transforms and ROI geometry, on random volumes.
 
 Masks and ROI boxes must be exactly equal; fp32 intensities agree to
 1e-5. bf16 resample outputs are the fp32 result rounded once, so they
@@ -49,6 +49,33 @@ class TestIntensity:
             tpp.normalize_pet(torch.from_numpy(pet)).numpy(),
             np.asarray(jpp.normalize_pet(jnp.asarray(pet))),
             atol=1e-5, rtol=1e-5)
+
+
+class TestResize:
+    """``resize_slices`` and ``prepare_vit_input`` against
+    ``jax.image.resize(..., "linear")`` (half-pixel centres; antialiased
+    when shrinking), to 1e-5: up and down, grayscale and RGB, an uneven
+    ratio and a non-square slice."""
+
+    @pytest.mark.parametrize("shape,out", [
+        ((3, 24, 24), 32), ((2, 40, 40), 24), ((3, 33, 33), 20),
+        ((2, 16, 16, 3), 50), ((2, 40, 40, 3), 24), ((2, 37, 37, 3), 14)])
+    def test_prepare_vit_input(self, rng, shape, out):
+        vol = rng.uniform(size=shape).astype(np.float32)
+        want = np.asarray(jpp.prepare_vit_input(jnp.asarray(vol), out))
+        got = tpp.prepare_vit_input(torch.from_numpy(vol), out)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("shape,out_hw", [
+        ((2, 20, 30), (16, 16)), ((2, 12, 10, 3), (30, 24)),
+        ((1, 30, 20, 3), (15, 40))])
+    def test_resize_slices(self, rng, shape, out_hw):
+        vol = rng.uniform(size=shape).astype(np.float32)
+        want = np.asarray(jpp.resize_slices(jnp.asarray(vol), out_hw))
+        got = tpp.resize_slices(torch.from_numpy(vol), out_hw)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 def _jax_resample(vol, boxes, valid_hw, out, dtype, slice_batch):

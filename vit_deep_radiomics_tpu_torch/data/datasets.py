@@ -35,6 +35,7 @@ from ..utils import native
 
 __all__ = [
     "find_divisor",
+    "voxel_tokens",
     "prepare_windows",
     "nearest_resize",
     "TokenItem",
@@ -44,6 +45,30 @@ __all__ = [
     "token_buckets_for",
     "batch_items",
 ]
+
+
+def voxel_tokens(fmaps: np.ndarray, fmasks: np.ndarray, orig_hw,
+                 spatial_res, noise=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """The trainer's tokens of one item (the numpy path): (S, h, w, D)
+    feature maps and their (S, h, w) masks → the masked voxels'
+    descriptors in (h, w, slice) order plus their 3D encoding / 4. Each
+    voxel's mm coordinates (x column, y row, z slice, rescaled from the
+    feature grid to ``orig_hw``) are centred on the mean over all voxels
+    and shifted by ``noise``."""
+    s, h_new, w_new, dim = fmaps.shape
+    h_orig, w_orig = orig_hw
+    ii, jj, kk = np.meshgrid(np.arange(h_new), np.arange(w_new),
+                             np.arange(s), indexing="ij")
+    x = (jj / w_new) * w_orig * spatial_res[0]
+    y = (ii / h_new) * h_orig * spatial_res[1]
+    z = kk * spatial_res[2]
+    sel = np.transpose(fmasks, (1, 2, 0)).reshape(-1) > 0  # (h, w, s)
+    x = (x - x.mean() + noise[0]).reshape(-1)[sel]
+    y = (y - y.mean() + noise[1]).reshape(-1)[sel]
+    z = (z - z.mean() + noise[2]).reshape(-1)[sel]
+    pe = positional_encoding_3d(x, y, z, dim).numpy()
+    tok = np.transpose(fmaps, (1, 2, 0, 3)).reshape(-1, dim)[sel]
+    return tok + pe / 4.0
 
 
 def find_divisor(slice_count: int, modality: str) -> int:
@@ -223,21 +248,8 @@ class PETCTDataset:
         if self.arch == "conv":
             return fmaps * fmasks[..., None], fmasks
 
-        s, h_new, w_new, _ = fmaps.shape
-        # voxel coordinates in mm: x = column, y = row, z = slice
-        ii, jj, kk = np.meshgrid(np.arange(h_new), np.arange(w_new),
-                                 np.arange(s), indexing="ij")
-        x = (jj / w_new) * w_orig * spatial_res[0]
-        y = (ii / h_new) * h_orig * spatial_res[1]
-        z = kk * spatial_res[2]
-        sel = np.transpose(fmasks, (1, 2, 0)).reshape(-1) > 0  # (h, w, s)
-        x = (x - x.mean() + noise[0]).reshape(-1)[sel]
-        y = (y - y.mean() + noise[1]).reshape(-1)[sel]
-        z = (z - z.mean() + noise[2]).reshape(-1)[sel]
-        pe = positional_encoding_3d(x, y, z, self.feature_dim).numpy()
-        tok = np.transpose(fmaps, (1, 2, 0, 3)).reshape(
-            -1, self.feature_dim)[sel]
-        return tok + pe / 4.0, None
+        return voxel_tokens(fmaps, fmasks, (h_orig, w_orig), spatial_res,
+                            noise), None
 
     def __getitem__(self, idx: int) -> TokenItem:
         row = self.items.iloc[idx]

@@ -611,6 +611,9 @@ class Block(nn.Module):
         self.use_flash = use_flash
         self.trainable = trainable
         self.remat_mlp = remat_mlp
+        # True/False fixes the K7 gate for this block (a loaded serving
+        # artifact routes as its header says); None reads VDR_FUSED_MLP
+        self.fused_mlp: bool | None = None
         self.norm1 = LayerNorm(cfg.width, eps=cfg.ln_eps)
         self.attn = WindowedAttention(
             cfg, cfg.window_size if windowed else cfg.grid,
@@ -654,11 +657,12 @@ class Block(nn.Module):
 
     def _fused_mlp_on(self, policy: Policy) -> bool:
         """JAX's gate: frozen, flash, bf16, not quantized, and opted in
-        with ``VDR_FUSED_MLP=1``."""
+        with ``VDR_FUSED_MLP=1`` (or by :attr:`fused_mlp`)."""
+        opted = os.environ.get("VDR_FUSED_MLP", "0") == "1" \
+            if self.fused_mlp is None else self.fused_mlp
         return (not self.trainable and self.use_flash
                 and policy.compute_dtype == torch.bfloat16
-                and not policy.quantized
-                and os.environ.get("VDR_FUSED_MLP", "0") == "1")
+                and not policy.quantized and opted)
 
 
 class SamNeck(nn.Sequential):

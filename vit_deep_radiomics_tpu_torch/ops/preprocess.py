@@ -2,15 +2,19 @@
 
 Counterpart of ``vit_deep_radiomics_tpu/ops/preprocess.py``: HU windowing,
 the HU→RGB tissue transfer function (with the reference's 40..80 HU band
-quirk) and PET max-normalisation, as plain tensor code on the input's
-device.
+quirk), PET max-normalisation and the slice resize to the backbone input
+(``jax.image.resize``'s ``linear``: half-pixel centres, the triangle
+kernel widened when the image shrinks), as plain tensor code on the
+input's device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["windowing_ct", "apply_window_ct", "hu_to_rgb", "normalize_pet"]
+__all__ = ["windowing_ct", "apply_window_ct", "hu_to_rgb", "normalize_pet",
+           "resize_slices", "prepare_vit_input"]
 
 
 def windowing_ct(width: float, level: float) -> tuple[float, float]:
@@ -70,3 +74,33 @@ def hu_to_rgb(hu: torch.Tensor) -> torch.Tensor:
 def normalize_pet(pet: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """PET → [0, 1] by the global max."""
     return pet / (torch.max(pet) + eps)
+
+
+def resize_slices(vol: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Resize a (S, H, W, C) or (S, H, W) stack of slices in-plane, as
+    ``jax.image.resize(..., "linear")`` does: half-pixel centres, and when
+    an axis shrinks the triangle kernel widened by the scale (antialias),
+    its weights renormalised at the borders. That is ``F.interpolate``'s
+    bilinear with ``align_corners=False`` and, when shrinking,
+    ``antialias=True``."""
+    squeeze = vol.ndim == 3
+    x = vol[..., None] if squeeze else vol
+    h, w = x.shape[1:3]
+    shrink = out_hw[0] < h or out_hw[1] < w
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
+                        mode="bilinear", align_corners=False,
+                        antialias=shrink).permute(0, 2, 3, 1)
+    return out[..., 0] if squeeze else out
+
+
+def prepare_vit_input(vol: torch.Tensor, image_size: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(S, H, W) grayscale or (S, H, W, 3) RGB slices → the backbone input
+    (S, image_size, image_size, 3). A grayscale stack is resized once and
+    then repeated over the three channels (JAX repeats first: the same
+    values, a third of the work)."""
+    gray = vol.ndim == 3
+    out = resize_slices(vol.float(), (image_size, image_size))
+    if gray:
+        out = out[..., None].expand(*out.shape, 3)
+    return out.to(dtype).contiguous()

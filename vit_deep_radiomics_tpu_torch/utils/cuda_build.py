@@ -18,10 +18,11 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "KERNEL_SOURCES", "build_all", "load",
-           "spill_bytes", "ptxas_functions"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "KERNEL_SOURCES", "BUILDS", "build_all",
+           "load", "spill_bytes", "ptxas_functions"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -39,6 +40,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: (source, seconds of its nvcc) of every build this process ran, in order
+BUILDS: list[tuple[str, float]] = []
 
 
 def _nvcc() -> str:
@@ -69,17 +72,18 @@ def _start(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return target, (proc, tmp)
+    return target, (proc, tmp, time.perf_counter())
 
 
 def _finish(name: str, target: Path, job) -> str:
     if job is None:
         return ""
-    proc, tmp = job
+    proc, tmp, t0 = job
     log = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     tmp.replace(target)
+    BUILDS.append((name, time.perf_counter() - t0))
     return log
 
 

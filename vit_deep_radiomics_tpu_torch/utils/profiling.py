@@ -2,6 +2,8 @@
 
 Counterpart of ``vit_deep_radiomics_tpu/utils/profiling.py`` for the
 port: :func:`device_sync` is the fence for host-clock timing;
+:func:`device_memory_stats` and :func:`memory_summary_gib` read the card's
+allocator for report lines (the serve CLI's);
 :func:`profile_forward` traces steady-state SAM ViT-B/16 forwards (any
 policy, any image size; ``VDR_FUSED_MLP=1`` in the environment takes the
 K7 path as the model does) and
@@ -28,14 +30,40 @@ import time
 
 import torch
 
-__all__ = ["device_sync", "trace_runs", "profile_forward",
-           "profile_finetune_step"]
+__all__ = ["device_sync", "device_memory_stats", "memory_summary_gib",
+           "trace_runs", "profile_forward", "profile_finetune_step"]
 
 
 def device_sync() -> None:
     """Wait for the device: host-clock timings end here."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def device_memory_stats(device=None) -> dict:
+    """The allocator's counters for one CUDA device: ``bytes_in_use``,
+    ``peak_bytes_in_use`` (since the last ``reset_peak_memory_stats``),
+    ``bytes_reserved`` and the card's ``bytes_limit``; {} for the CPU or
+    when no card is visible."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return {}
+    return {
+        "bytes_in_use": torch.cuda.memory_allocated(dev),
+        "peak_bytes_in_use": torch.cuda.max_memory_allocated(dev),
+        "bytes_reserved": torch.cuda.memory_reserved(dev),
+        "bytes_limit": torch.cuda.get_device_properties(dev).total_memory,
+    }
+
+
+def memory_summary_gib(device=None) -> dict:
+    """:func:`device_memory_stats` as the GiB numbers a report line
+    carries: ``{hbm_peak_gib, hbm_limit_gib}``, {} on the CPU."""
+    stats = device_memory_stats(device)
+    if not stats:
+        return {}
+    return {"hbm_peak_gib": round(stats["peak_bytes_in_use"] / 2 ** 30, 3),
+            "hbm_limit_gib": round(stats["bytes_limit"] / 2 ** 30, 3)}
 
 
 def _device_us(evt) -> float:
