@@ -171,6 +171,31 @@ Phases (each one fails the run with a non-zero exit):
     stream) equal to their responses; (c) an
     artifact exported with ``VDR_FUSED_MLP=1`` and served without it
     launches K7 in all 12 blocks.
+23. whole-volume and fold-parallel classifier training at phase 21's
+    published transformer config (bimodal, cross-modal focal loss,
+    ``fast`` unless marked): (a) the 5 folds (the published k) in lockstep
+    through ``ParallelFoldTrainer`` at B=8, each with 16 test items and
+    64/60/56/64/48 train items (so the folds run out and fire their
+    optimizer at different steps), CT 700-2048 and PET 60-400 tokens; a
+    warm epoch, a timed train epoch and a test epoch (ms per lockstep
+    step and the host's stacking, cast and copy of its batches, peak
+    memory) against the same folds trained one by one by ``FoldTrainer``
+    in the same run (their wall and peak); fold 2's ``fold_state`` through the
+    port's checkpoint into a fresh ``FoldTrainer``, whose test scores must
+    be the lockstep's within 2^-7 times the largest |logit| (derived at
+    ``FOLD_CKPT_STEPS``); one lockstep step traced (device ms, idle
+    share); (b) 2 folds under ``parity`` with dropout on, at the
+    sequential batches' shapes, against two sequential ``FoldTrainer``s:
+    losses within rel 2e-4, scores and parameters within rtol 2e-4 / atol
+    2e-5 (JAX's own limits, JAX ``tests/test_foldpar.py:113-136``), the
+    zero-gradient key third of each ``in_proj_bias`` within Adam's step
+    bound; (c) whole volumes: 16 train and 8 test items of CT 1500-8192
+    and PET 200-1600 tokens at B=4, buckets widened past 4096 to 8192 with
+    no truncation (mask sums equal the item lengths, no warning), a train
+    and a test epoch (ms per micro-batch, peak memory), an 8192-bucket
+    micro-batch traced, and a ``parity`` B=1 step on the longest item on
+    the card against the CPU's within 1e-4 of each leaf's max |grad|
+    (phase 21's rule). It launches none of K1-K8.
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -431,6 +456,46 @@ SERVE_KERNEL_SHAPES = {
     "fused_global_attention": {"ct": 13, "pet": 2},
     "fused_ln_mlp_residual": {"b1": 1},
 }
+
+
+# Phase 23, whole-volume and fold-parallel training at the published
+# transformer config (`fast`, bimodal, cross-modal focal loss). Lockstep:
+# the published k of 5 folds at B=8, each fold 16 test items and its own
+# number of train items, so the folds run out and fire their optimizer at
+# different steps (8, 8, 7, 8 and 6 micro-batches); CT and PET lengths as
+# phase 21's (CLS_ITEMS)
+FOLD_TRAIN_ITEMS = (64, 60, 56, 64, 48)
+FOLD_TEST_ITEMS = 16
+# `parity` equality with dropout on: 2 folds of 16 and 8 train items (one
+# update each) and 8 test items, every item CT 1024 / PET 256 tokens, so
+# every lockstep step has the sequential batches' shapes; losses within
+# rel 2e-4, scores and parameters within rtol 2e-4 / atol 2e-5 (JAX's own
+# limits, tests/test_foldpar.py:113-136). The key third of each
+# in_proj_bias has a zero gradient in exact arithmetic (a bias on every
+# key of a row cancels in the softmax); Adam's first update turns either
+# side's rounding noise there into a step of up to lr, so that slice is
+# held to 2 lr per update instead (tests/test_torch_train.py's rule)
+FOLD_EQ = {"train": (16, 8), "test": 8, "ct": 1024, "pet": 256}
+FOLD_SEQ_REL, FOLD_SEQ_RTOL, FOLD_SEQ_ATOL = 2e-4, 2e-4, 2e-5
+FOLD_KEY_BIAS_STEPS = 2.0
+# The `fast` checkpoint round trip: fold_state(f) through the port's
+# checkpoint into a fresh FoldTrainer, whose test scores are held to the
+# lockstep's. Both compute the same function of the same weights and
+# tokens; they differ only in the key padding (exact zeros after the
+# softmax) and in how the GEMMs batch (one product per fold against one
+# per stack: another fp32 summation order). A different order can move a
+# bf16-rounded activation by one bf16 step (2^-8 relative); allowing 4
+# such steps on each of the two logits of a score, a score (the sigmoid
+# of their difference, slope <= 1/4) moves by at most 2 x 4 x 2^-8 x M / 4
+# = 2^-7 x M, M the largest |logit|, at least 1
+FOLD_CKPT_STEPS = 4
+# Whole volume: 16 train and 8 test items at B=4, CT 1500-8192 tokens
+# (buckets 2048, 4096 and 8192, past DEFAULT_BUCKETS' 4096 cap) and PET
+# 200-1600. attention_reference keeps fp32 (B, 4, S, S) scores: 4.3 GB each
+# at B=4 and S=8192, and the backward keeps about two a CT layer, so B=8
+# would come near the card's 80 GB
+WV_ITEMS = {"train": 16, "test": 8, "ct": (1500, 8192), "pet": (200, 1600),
+            "batch": 4}
 
 
 def log(*args):
@@ -3011,6 +3076,338 @@ def serving_phase(torch, A, device: str = "cuda") -> dict:
             "routing": routing}
 
 
+def _fold_items(ds, rng, n, dim, ct, pet, tag):
+    """``n`` TokenItems from ``rng``: CT and PET lengths drawn from the
+    inclusive ranges ``ct`` and ``pet`` (or fixed when an int), labels
+    alternating."""
+    def draw(r):
+        return r if isinstance(r, int) else int(rng.integers(r[0], r[1] + 1))
+
+    f32 = np.float32
+    return [ds.TokenItem(rng.standard_normal((draw(ct), dim), dtype=f32),
+                         rng.standard_normal((draw(pet), dim), dtype=f32),
+                         np.eye(2, dtype=f32)[i % 2], f"{tag}{i:03d}")
+            for i in range(n)]
+
+
+def _lockstep(torch, T, FP, ds, ck, trace_runs, cfg, dim, device):
+    """Phase 23 (a): the 5 folds in lockstep against the same folds one by
+    one, and a fold's checkpoint round trip."""
+    rng = np.random.default_rng(SEED + 23)
+    train = [_fold_items(ds, rng, n, dim, CLS_ITEMS["ct"], CLS_ITEMS["pet"],
+                         f"F{f}T") for f, n in enumerate(FOLD_TRAIN_ITEMS)]
+    test = [_fold_items(ds, rng, FOLD_TEST_ITEMS, dim, CLS_ITEMS["ct"],
+                        CLS_ITEMS["pet"], f"F{f}E")
+            for f in range(len(FOLD_TRAIN_ITEMS))]
+    tc = T.TrainerConfig(device=device)
+    bsz = tc.batch_size
+    train_fb = [list(ds.batch_items(T._bucket_sorted(it), bsz))
+                for it in train]
+    test_fb = [list(ds.batch_items(T._bucket_sorted(it), bsz)) for it in test]
+    n_folds = len(train_fb)
+    par = FP.ParallelFoldTrainer(cfg, tc, n_folds)
+    par.init_stacked()
+    steps = max(len(b) for b in train_fb)
+    log(f"lockstep {tc.arch}/{tc.modality}/{tc.loss} {tc.precision}: "
+        f"{n_folds} folds, train micro-batches {[len(b) for b in train_fb]}"
+        f" (B={bsz}), {steps} lockstep steps an epoch, test "
+        f"{[len(b) for b in test_fb]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = par.run_lockstep_epoch(train_fb, 0, True, rng_seed=tc.seed)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = par.run_lockstep_epoch(train_fb, 1, True, rng_seed=tc.seed)
+    lock_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    te = par.run_lockstep_epoch(test_fb, 1, False)
+    losses = [[r[0] for r in x] for x in (warm, tr, te)]
+    n_micro = -(-par.virtual_batch // bsz)
+    updates = [2 * -(-len(b) // min(n_micro, len(b))) for b in train_fb]
+    if not all(np.isfinite(v) for row in losses for v in row) or \
+            par.steps != updates:
+        raise AssertionError(f"lockstep: losses {losses}, updates "
+                             f"{par.steps}")
+
+    # the host's share of a step that is not dispatch: stacking the folds'
+    # batches, the bf16 cast and the copy to the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        stacked, _ = FP.stack_fold_batches(
+            [b[s] if s < len(b) else None for b in train_fb], bsz)
+        par._model_inputs(stacked)
+    torch.cuda.synchronize()
+    stack_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    # the same folds one by one: a warm epoch, then the timed one
+    seq_s, seq_peak = 0.0, 0
+    for f in range(n_folds):
+        t = T.FoldTrainer(cfg, tc)
+        t.init_params()
+        t.run_epoch(train_fb[f], 0, True, rng_seed=tc.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t.run_epoch(train_fb[f], 1, True, rng_seed=tc.seed)
+        seq_s += time.perf_counter() - t0
+        seq_peak = max(seq_peak, torch.cuda.max_memory_allocated())
+        del t
+    ratio = lock_s / seq_s
+    log(f"lockstep epoch 1 (host clock): {lock_s * 1e3:.1f} ms for "
+        f"{n_folds} folds, {lock_s * 1e3 / steps:.3f} ms a lockstep step "
+        f"(stacking, cast and copy {stack_ms:.3f} ms of it), peak memory "
+        f"{peak / 2 ** 30:.3f} GiB (warm-up epoch {warm_s * 1e3:.1f} ms); "
+        f"the same {n_folds} folds one by one {seq_s * 1e3:.1f} ms, peak "
+        f"{seq_peak / 2 ** 30:.3f} GiB: lockstep / sequential {ratio:.3f}; "
+        f"train losses {['%.6g' % v for v in losses[1]]}, test "
+        f"{['%.6g' % v for v in losses[2]]}")
+
+    # fold 2 through the port's checkpoint into a fresh FoldTrainer
+    f = 2
+    tmp = Path(tempfile.mkdtemp(prefix="vdr_foldpar_"))
+    try:
+        ck.save_checkpoint({**par.fold_state(f), "epoch": 1}, tmp, 1)
+        fresh = T.FoldTrainer(cfg, tc)
+        fresh.init_params()
+        fresh.load_state(ck.load_checkpoint(tmp, 1, map_location=device))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    with torch.no_grad():
+        logits = torch.cat([fresh.step(b)[1] for b in test_fb[f]])
+    got = fresh.run_epoch(test_fb[f], 1, False)
+    m = max(1.0, logits.abs().max().item())
+    limit = 2 * FOLD_CKPT_STEPS * 2.0 ** -8 * m / 4
+    gap = float(np.abs(got[2] - te[f][2]).max())
+    log(f"lockstep checkpoint (fold {f}) in a fresh FoldTrainer: test scores"
+        f" max |diff| {gap:.3e} (limit 2^-7 x {m:.3f} = {limit:.3e}), "
+        f"loss {got[0]:.6g} vs {te[f][0]:.6g}")
+    if not gap <= limit or got[3] != te[f][3]:
+        raise AssertionError(f"lockstep checkpoint: scores {gap:.3e}")
+    del fresh
+
+    # one lockstep step (each fold's largest micro-batch) and its AdamW
+    # application, traced
+    last = [[b[-1]] for b in train_fb]
+
+    def step():
+        par.run_lockstep_epoch(last, 2, True, rng_seed=tc.seed)
+
+    prof = trace_runs(step, 3, 8, what="lockstep step",
+                      buckets=[(b[0]["ct"].shape[1], b[0]["pet"].shape[1])
+                               for b in last])
+    log(f"lockstep step (buckets {prof['buckets']}, B={bsz}, with its AdamW "
+        f"application) traced: wall {prof['wall_ms']:.3f} ms, device "
+        f"{prof['device_ms']:.3f} ms, idle share {prof['idle_share']:.3f}; "
+        "top " + "; ".join(f"{r['name'][:60]} {r['ms']:.3f} ms "
+                           f"({r['calls']:.0f}x)" for r in prof["top"]))
+    del par
+    torch.cuda.empty_cache()
+    return {"folds": n_folds, "steps": steps,
+            "step_ms": lock_s * 1e3 / steps, "stack_ms": stack_ms,
+            "epoch_ms": lock_s * 1e3, "sequential_ms": seq_s * 1e3,
+            "ratio": ratio, "peak_gib": peak / 2 ** 30,
+            "sequential_peak_gib": seq_peak / 2 ** 30, "losses": losses,
+            "checkpoint_gap": gap, "checkpoint_limit": limit,
+            "profile": {k: prof[k] for k in ("wall_ms", "device_ms",
+                                             "idle_share")}}
+
+
+def _lockstep_equality(torch, T, FP, ds, cfg, dim, device):
+    """Phase 23 (b): two folds in lockstep under `parity` with dropout on,
+    at the sequential batches' shapes, against two sequential trainers."""
+    rng = np.random.default_rng(SEED + 24)
+    folds = [(_fold_items(ds, rng, n, dim, FOLD_EQ["ct"], FOLD_EQ["pet"],
+                          f"Q{f}T"),
+              _fold_items(ds, rng, FOLD_EQ["test"], dim, FOLD_EQ["ct"],
+                          FOLD_EQ["pet"], f"Q{f}E"))
+             for f, n in enumerate(FOLD_EQ["train"])]
+    tc = T.TrainerConfig(precision="parity", device=device)
+    train_fb = [list(ds.batch_items(tr, tc.batch_size)) for tr, _ in folds]
+    test_fb = [list(ds.batch_items(te, tc.batch_size)) for _, te in folds]
+    par = FP.ParallelFoldTrainer(cfg, tc, len(folds))
+    par.init_stacked()
+    got = [par.run_lockstep_epoch(fb, 0, train, rng_seed=tc.seed)
+           for fb, train in ((train_fb, True), (test_fb, False))]
+    worst = {"loss": 0.0, "scores": 0.0, "params": 0.0, "key_bias": 0.0}
+    bound = FOLD_KEY_BIAS_STEPS * T.cosine_lr(0, par.lr0, par.num_epochs)
+    for f in range(len(folds)):
+        t = T.FoldTrainer(cfg, tc)
+        t.init_params()
+        ref = [t.run_epoch(fb[f], 0, train, rng_seed=tc.seed)
+               for fb, train in ((train_fb, True), (test_fb, False))]
+        for r, g in zip(ref, got):
+            worst["loss"] = max(worst["loss"], abs(g[f][0] - r[0]) / abs(r[0]))
+            over = np.abs(g[f][2] - r[2]) - FOLD_SEQ_RTOL * np.abs(r[2])
+            worst["scores"] = max(worst["scores"], float(over.max()))
+            if g[f][3] != r[3] or not np.array_equal(g[f][1], r[1]):
+                raise AssertionError(f"lockstep equality: fold {f} order")
+        mine = par.fold_state(f)["params"]
+        for k, v in t.model.state_dict().items():
+            over = (mine[k] - v).abs() - FOLD_SEQ_RTOL * v.abs()
+            if k.endswith("in_proj_bias"):
+                q, kk, vv = over.split(v.shape[0] // 3)
+                over = torch.cat([q, vv])
+                worst["key_bias"] = max(worst["key_bias"], float(
+                    (mine[k] - v).abs().split(v.shape[0] // 3)[1].max()))
+            worst["params"] = max(worst["params"], float(over.max()))
+        del t
+    log(f"lockstep parity, dropout on, {len(folds)} folds x "
+        f"{[len(b) for b in train_fb]} micro-batches against sequential "
+        f"FoldTrainers: loss rel {worst['loss']:.3e} (limit "
+        f"{FOLD_SEQ_REL:g}), scores and parameters past rtol "
+        f"{FOLD_SEQ_RTOL:g} by {worst['scores']:.3e} and "
+        f"{worst['params']:.3e} (limit {FOLD_SEQ_ATOL:g}), in_proj_bias key "
+        f"third {worst['key_bias']:.3e} (limit {bound:.3e})")
+    if not (worst["loss"] <= FOLD_SEQ_REL
+            and worst["scores"] <= FOLD_SEQ_ATOL
+            and worst["params"] <= FOLD_SEQ_ATOL
+            and worst["key_bias"] <= bound):
+        raise AssertionError(f"lockstep equality: {worst}")
+    del par
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _whole_volume(torch, T, ds, trace_runs, cfg, dim, device):
+    """Phase 23 (c): one train and one test epoch on whole volumes at B=4,
+    buckets past 4096, nothing truncated; an 8192-bucket micro-batch
+    traced; a `parity` B=1 step on an 8192-token item against the CPU's."""
+    import warnings
+
+    rng = np.random.default_rng(SEED + 25)
+    train = _fold_items(ds, rng, WV_ITEMS["train"], dim, WV_ITEMS["ct"],
+                        WV_ITEMS["pet"], "W")
+    test = _fold_items(ds, rng, WV_ITEMS["test"], dim, WV_ITEMS["ct"],
+                       WV_ITEMS["pet"], "V")
+    tc = T.TrainerConfig(whole_volume=True, batch_size=WV_ITEMS["batch"],
+                         device=device)
+    trainer = T.FoldTrainer(cfg, tc)
+    trainer.init_params()
+    train, test = T._bucket_sorted(train), T._bucket_sorted(test)
+    buckets = ds.token_buckets_for(train + test)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        train_b = list(ds.batch_items(train, tc.batch_size, buckets=buckets))
+        test_b = list(ds.batch_items(test, tc.batch_size, buckets=buckets))
+    for items, batches in ((train, train_b), (test, test_b)):
+        sums = [int(x) for b in batches for x in b["ct_mask"].sum(1)]
+        psums = [int(x) for b in batches for x in b["pet_mask"].sum(1)]
+        if sums != [it.tokens_ct.shape[0] for it in items] or psums != [
+                it.tokens_pet.shape[0] for it in items]:
+            raise AssertionError("whole volume: tokens truncated")
+    shapes = [(b["ct"].shape[1], b["pet"].shape[1]) for b in train_b + test_b]
+    log(f"whole volume {tc.precision}: {len(train)} train and {len(test)} "
+        f"test items, B={tc.batch_size}, buckets {buckets}, (CT, PET) "
+        f"shapes {shapes}, longest CT item "
+        f"{max(it.tokens_ct.shape[0] for it in train + test)} tokens")
+    if max(s[0] for s in shapes) <= 4096:
+        raise AssertionError("whole volume: no bucket past 4096")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = trainer.run_epoch(train_b, 0, True, rng_seed=tc.seed)
+    train_s = time.perf_counter() - t0
+    te = trainer.run_epoch(test_b, 0, False)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"whole volume epoch (host clock): train {train_s * 1e3:.1f} ms, "
+        f"{train_s * 1e3 / len(train_b):.3f} ms a micro-batch, loss "
+        f"{tr[0]:.6g}; test loss {te[0]:.6g}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    if not (np.isfinite(tr[0]) and np.isfinite(te[0])
+            and np.isfinite(te[2]).all()):
+        raise AssertionError("whole volume: non-finite")
+
+    big = max(train_b, key=lambda b: b["ct"].shape[1])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    accum = min(-(-trainer.virtual_batch // tc.batch_size), len(train_b))
+
+    def micro_step():
+        with trainer.policy.backends():
+            trainer.step(big, 1.0 / (accum * tc.batch_size), True, gen)
+
+    prof = trace_runs(micro_step, 3, 8, what="whole-volume micro-batch",
+                      buckets=(big["ct"].shape[1], big["pet"].shape[1]))
+    trainer.optimizer.zero_grad(set_to_none=True)
+    log(f"whole-volume micro-batch (CT {prof['buckets'][0]}, PET "
+        f"{prof['buckets'][1]}, B={tc.batch_size}) traced: wall "
+        f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms, idle "
+        f"share {prof['idle_share']:.3f}; top " + "; ".join(
+            f"{r['name'][:60]} {r['ms']:.3f} ms ({r['calls']:.0f}x)"
+            for r in prof["top"]))
+
+    # `parity`, B=1, the longest CT item: the card against the CPU
+    state = {k: v.detach().cpu() for k, v in
+             trainer.model.state_dict().items()}
+    item = max(train + test, key=lambda it: it.tokens_ct.shape[0])
+    one = next(ds.batch_items([item], 1, buckets=buckets))
+    del trainer
+    torch.cuda.empty_cache()
+    loss_c, g_c = _parity_grads(torch, T, cfg, state, one, device)
+    t0 = time.perf_counter()
+    loss_h, g_h = _parity_grads(torch, T, cfg, state, one, "cpu")
+    cpu_s = time.perf_counter() - t0
+    worst, worst_name = abs(loss_c - loss_h) / abs(loss_h), "loss"
+    for k, ref in g_h.items():
+        scale = ref.abs().max().item()
+        err = (g_c[k] - ref).abs().max().item()
+        ratio = err / scale if scale > 0 else (0.0 if err == 0 else
+                                               float("inf"))
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    log(f"whole-volume parity step (CT {one['ct'].shape[1]}, PET "
+        f"{one['pet'].shape[1]}, B=1), card vs CPU ({cpu_s:.1f} s): loss "
+        f"{loss_c:.8g} vs {loss_h:.8g}; worst |diff| / leaf max |grad| "
+        f"{worst:.3e} ({worst_name}), limit {CLS_PARITY_REL:g}")
+    if not worst <= CLS_PARITY_REL:
+        raise AssertionError(f"whole-volume parity: {worst_name} at "
+                             f"{worst:.3e}")
+    torch.cuda.empty_cache()
+    return {"micro_batches": len(train_b), "step_ms": train_s * 1e3 /
+            len(train_b), "peak_gib": peak / 2 ** 30,
+            "losses": [tr[0], te[0]], "buckets": list(buckets),
+            "profile": {k: prof[k] for k in ("wall_ms", "device_ms",
+                                             "idle_share")},
+            "parity_worst": worst}
+
+
+def foldpar_phase(torch, A, device: str = "cuda") -> dict:
+    """Phase 23: whole-volume and fold-parallel classifier training on one
+    card at the published transformer config: (a) the 5 folds in lockstep
+    (``ParallelFoldTrainer``) against the same folds one by one, a fold's
+    checkpoint round trip and a traced lockstep step, (b) the lockstep's
+    `parity` trajectory with dropout on against sequential trainers, (c)
+    whole volumes past the 4096 bucket. No kernel of K1-K8 runs."""
+    from vit_deep_radiomics_tpu_torch.data import datasets as ds
+    from vit_deep_radiomics_tpu_torch.engine import checkpoint as ck
+    from vit_deep_radiomics_tpu_torch.engine import foldpar as FP
+    from vit_deep_radiomics_tpu_torch.engine import train as T
+    from vit_deep_radiomics_tpu_torch.utils.profiling import trace_runs
+
+    cfg = CLASSIFIER_CFG
+    dim = cfg["models"]["transformer"]["feature_dim"]
+    A.reset_launch_counts()
+    out, seconds = {}, {}
+    for name, part in (
+            ("lockstep", lambda: _lockstep(torch, T, FP, ds, ck, trace_runs,
+                                           cfg, dim, device)),
+            ("equality", lambda: _lockstep_equality(torch, T, FP, ds, cfg,
+                                                    dim, device)),
+            ("whole_volume", lambda: _whole_volume(torch, T, ds, trace_runs,
+                                                   cfg, dim, device))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"phase 23 seconds: {json.dumps(seconds)}")
+    counts = dict(A.LAUNCHES)
+    if any(counts.values()):
+        raise AssertionError(f"phase 23 launched kernels: {counts}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3195,6 +3592,9 @@ def main() -> int:
         serving["routing"]["launches"]["fused_ln_mlp_residual"]
     for kname, shapes in serving["kernels"].items():
         records[kname]["serve_shapes"] = shapes
+    torch.cuda.empty_cache()
+    log("fold-parallel and whole-volume training: " + json.dumps(
+        foldpar_phase(torch, A)))                              # phase 23
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -24,8 +24,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "vit_deep_radiomics_tpu")
 
 def test_new_modules_are_covered():
     """The modules of the int8, fused-MLP and generic-attention paths, the
-    tfds source and the classifier-training path are among those the
-    isolation checks import and parse."""
+    tfds source, the classifier-training path (the fold-parallel trainer
+    too) and the k-fold aggregation are among those the isolation checks
+    import and parse."""
     for mod in ("ops.quant", "ops.mlp_fused", "ops.attention",
                 "ops._kernels", "core.precision", "utils.cuda_build",
                 "data.ingest", "ops.posenc", "ops.metrics",
@@ -35,7 +36,8 @@ def test_new_modules_are_covered():
                 "engine.train", "engine.evaluate", "analysis.reports",
                 "cli.train", "cli.evaluate", "cli.merge", "cli.split",
                 "cli.sweep", "cli.convert", "engine.serve", "cli.serve",
-                "ops.preprocess", "utils.profiling"):
+                "ops.preprocess", "utils.profiling", "engine.foldpar",
+                "analysis.aggregate", "cli.aggregate"):
         assert f"vit_deep_radiomics_tpu_torch.{mod}" in MODULES
 
 

@@ -405,6 +405,110 @@ def test_cli_train_one_epoch(store, tmp_path, monkeypatch):
             / "kfold_1" / "losses.html").exists()
 
 
+# whole volumes: CT 9 slices of 24 x 24 fully masked cells (576 tokens a
+# slice), so a test item's 8 slices are 4608 tokens (bucket 8192, past
+# DEFAULT_BUCKETS' 4096); one layer and one head a modality, batch 1
+WV_LAYER = {"num_layers": 1, "num_heads": 1, "mlp_ratio": 2}
+
+
+@pytest.fixture(scope="module")
+def wv_store(tmp_path_factory):
+    pytest.importorskip("h5py")
+    pytest.importorskip("sklearn")
+    root = tmp_path_factory.mktemp("wv_store")
+    df, h5_ct, h5_pet = write_store(root, n_patients=4, dim=DIM,
+                                    slices={"ct": 9, "pet": 3}, grid=24,
+                                    full_masks=True)
+    from vit_deep_radiomics_tpu_torch.data import splits
+
+    cfg = tiny_cfg(splits.build_kfold_patients(df, n_splits=2), dim=DIM)
+    cfg["models"]["transformer"].update(ct=WV_LAYER, pet=WV_LAYER)
+    return {"df": df, "ct": h5_ct, "pet": h5_pet, "cfg": cfg}
+
+
+def test_whole_volume_train_and_evaluate_match_jax(wv_store, tmp_path,
+                                                   monkeypatch):
+    """``train_kfold(whole_volume=True)`` of one fold in both packages
+    (dropout 0, the same initial weights): the port's batches keep every
+    token of the items (CT past 4096 in a bucket of 8192, mask sums equal
+    to the item lengths, no truncation warning), the histories agree
+    within 1e-5, and ``evaluate_checkpoint(whole_volume=True)`` of each
+    package's checkpoint gives the same report."""
+    import warnings
+
+    cfg = wv_store["cfg"]
+    kw = dict(arch="transformer", modality="petct", loss="crossmodal",
+              batch_size=1, precision="parity", max_epochs=1,
+              whole_volume=True)
+    jt = jtrain.FoldTrainer(cfg, jtrain.TrainerConfig(**kw))
+    jt.init_params(_batches(np.random.default_rng(0), 1, "bimodal")[0])
+    state0 = classifier_params_from_jax(jax.device_get(jt.params))
+    j_init, t_init = jtrain.FoldTrainer.init_params, \
+        ttrain.FoldTrainer.init_params
+
+    def jax_init(self, batch):
+        self.model = self.model.clone(dropout_rate=0.0)
+        j_init(self, batch)
+
+    def port_init(self, state_dict=None):
+        self.model.dropout_rate = 0.0
+        t_init(self, state0 if state_dict is None else state_dict)
+
+    seen = []
+    real_batch_items = ttrain.batch_items
+
+    def spy(items, bsz, **bkw):
+        for i, b in enumerate(real_batch_items(items, bsz, **bkw)):
+            seen.append(([it.tokens_ct.shape[0]
+                          for it in items[i * bsz:(i + 1) * bsz]],
+                         b["ct_mask"].sum(axis=1), b["ct"].shape[1]))
+            yield b
+
+    monkeypatch.setattr(jtrain.FoldTrainer, "init_params", jax_init)
+    monkeypatch.setattr(ttrain.FoldTrainer, "init_params", port_init)
+    monkeypatch.setattr(ttrain, "batch_items", spy)
+    hist = {}
+    for label, mod in (("jax", jtrain), ("port", ttrain)):
+        tcfg = mod.TrainerConfig(**kw, **(
+            {"device": "cpu"} if mod is ttrain else {}))
+        with warnings.catch_warnings():
+            # JAX's init batch (one item, default buckets) truncates with a
+            # warning; every batch of the port's must not
+            warnings.simplefilter("error" if mod is ttrain else "ignore",
+                                  UserWarning)
+            hist[label] = mod.train_kfold(
+                wv_store["df"], cfg, tcfg, wv_store["ct"], wv_store["pet"],
+                tmp_path / label, folds=[0], log=lambda *_: None)[0]
+    lengths = [n for lens, _, _ in seen for n in lens]
+    assert max(lengths) > 4096
+    assert max(bucket for *_, bucket in seen) == 8192
+    assert sorted(lengths) == sorted(int(m) for _, sums, _ in seen
+                                     for m in sums)
+    for col in ttrain.HISTORY_KEYS:
+        np.testing.assert_allclose(
+            np.asarray(hist["port"][col], np.float64),
+            np.asarray(hist["jax"][col], np.float64), rtol=0,
+            atol=LOSS_ATOL, err_msg=col)
+
+    # the checkpoint of epoch 0 over the fold's test split is the
+    # evaluation JAX's trainer reported after epoch 0
+    from vit_deep_radiomics_tpu_torch.engine.evaluate import \
+        evaluate_checkpoint
+
+    df = wv_store["df"]
+    df_test = df[df["patient_id"].isin(
+        cfg["kfold_patients"]["ct"]["stanford"][0]["test"])]
+    fold = ("petct", "medsam_transformer_stanford", "petct", "kfold_0")
+    got = evaluate_checkpoint(
+        df_test, cfg, ttrain.TrainerConfig(**kw, device="cpu"),
+        wv_store["ct"], wv_store["pet"], tmp_path.joinpath("port", *fold), 0)
+    ref = json.loads(tmp_path.joinpath("jax", *fold,
+                                       "test_metrics_0.json").read_text())
+    assert abs(got["loss"] - ref["loss"]) <= LOSS_ATOL
+    got["loss"] = ref["loss"]
+    _same_report(ref, json.loads(json.dumps(got)))
+
+
 class TestRefusals:
     def test_default_device_raises_without_gpu(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -415,18 +519,15 @@ class TestRefusals:
             trep.device_epoch_report([0, 1], [0.2, 0.7], None, kfold=0,
                                      loss=0.0, epoch=0, split="test")
 
-    @pytest.mark.parametrize("what", ["mesh", "fold_parallel",
-                                      "whole_volume", "int8"])
+    @pytest.mark.parametrize("what", ["mesh", "int8"])
     def test_multi_device_modes_raise(self, what):
         cfg = tiny_cfg(dim=DIM)
         kw = {"device": "cpu"}
         mesh = None
         if what == "mesh":
             mesh = object()
-        elif what == "int8":
-            kw["precision"] = "int8"
         else:
-            kw[what] = True
+            kw["precision"] = "int8"
         err = ValueError if what == "int8" else NotImplementedError
         with pytest.raises(err):
             ttrain.FoldTrainer(cfg, ttrain.TrainerConfig(**kw), mesh)
@@ -451,7 +552,7 @@ class TestRefusals:
 
 def test_training_modules_import_without_pandas():
     """The card's machine has no pandas, h5py, sklearn or yaml: the
-    modules chip_smoke.py's phase 21 drives import without them."""
+    modules chip_smoke.py's phases 21 and 23 drive import without them."""
     import subprocess
 
     code = (
@@ -459,9 +560,11 @@ def test_training_modules_import_without_pandas():
         "for m in ('pandas', 'h5py', 'sklearn', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "from vit_deep_radiomics_tpu_torch.engine import train, checkpoint\n"
+        "from vit_deep_radiomics_tpu_torch.engine import foldpar\n"
         "from vit_deep_radiomics_tpu_torch.analysis import reports\n"
         "from vit_deep_radiomics_tpu_torch.data import datasets\n"
         "assert train.FoldTrainer and train.FoldBookkeeping\n"
+        "assert foldpar.ParallelFoldTrainer and foldpar.stack_fold_batches\n"
         "assert datasets.batch_items and reports.device_epoch_report\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,

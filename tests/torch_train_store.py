@@ -12,11 +12,12 @@ SPACING = {"ct": (0.8, 0.8, 1.5), "pet": (4.0, 4.0, 4.0)}
 
 
 def write_store(root, n_patients=6, dim=16, slices=None, grid=4,
-                mask_px=8, seed=0):
+                mask_px=8, seed=0, full_masks=False):
     """``root/features/{features_masks_<mod>.hdf5, stanford_dataset/*.
     parquet, petct.parquet}``; returns (merged frame, CT store, PET
     store). Labels alternate; CT volumes are 16 slices (windows of 13),
-    PET 4."""
+    PET 4. Masks are small boxes, or cover every pixel with
+    ``full_masks`` (``grid``² tokens a slice)."""
     from vit_deep_radiomics_tpu_torch.data import feature_store
 
     slices = slices or {"ct": 16, "pet": 4}
@@ -33,7 +34,8 @@ def write_store(root, n_patients=6, dim=16, slices=None, grid=4,
                 for flip, angle in AUGS:
                     feats.append(rng.normal(size=(grid, grid, dim))
                                  .astype(np.float32))
-                    m = np.zeros((mask_px, mask_px), np.float32)
+                    m = np.full((mask_px, mask_px), float(full_masks),
+                                np.float32)
                     r0, c0 = rng.integers(0, mask_px // 2, 2)
                     m[r0:r0 + 3 + p % 2, c0:c0 + 4] = 1.0
                     masks.append(m)

@@ -42,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="eval is deterministic; parity (fp32) by default")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--whole-volume", action="store_true",
-                   help="unchunked whole-volume token sets (not ported "
-                        "yet; raises)")
+                   help="evaluate on unchunked whole-volume token sets "
+                        "(for checkpoints trained with --whole-volume)")
     p.add_argument("--out", default=None,
                    help="also write the report JSON here")
     p.add_argument("--device", default="cuda",

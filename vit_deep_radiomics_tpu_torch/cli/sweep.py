@@ -8,7 +8,7 @@ grid of 10 trainings (arch × dataset × modality × loss, its
         [--datasets stanford] [--max-epochs 1]
 
 Reads the parquet/HDF5 store and the k-fold YAML (pandas, h5py, yaml).
-``--fold-parallel`` is multi-device work and raises.
+``--fold-parallel`` trains each experiment's folds in one vmapped step.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--archs", nargs="*", default=None,
                    help="restrict the grid to these archs")
     p.add_argument("--fold-parallel", action="store_true",
-                   help="every fold in one lockstep program (not ported "
-                        "yet; raises)")
+                   help="train each experiment's folds in one vmapped "
+                        "lockstep step (engine/foldpar.py)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain PyTorch path)")
     return p

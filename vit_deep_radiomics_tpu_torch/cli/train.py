@@ -9,8 +9,10 @@ defaults, on one device (the card unless ``--device cpu``)::
 It reads ``<data-dir>/features/petct.parquet``, the feature stores beside
 it and the merged ``conf/parameters*.yaml`` of the project (the k-fold map
 of ``cli/split.py`` included), so it needs pandas, pyarrow, h5py and
-yaml. ``--whole-volume``, ``--fold-parallel`` and ``--data-parallel``
-over more than one device are multi-device work and raise.
+yaml. ``--whole-volume`` trains on unchunked volumes (buckets widened
+past 4096 tokens), ``--fold-parallel`` every fold in one vmapped step
+(``engine/foldpar.py``); ``--data-parallel`` over more than one device is
+multi-device work and raises.
 """
 
 from __future__ import annotations
@@ -49,11 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's WeightedRandomSampler, off by default "
                         "there too)")
     p.add_argument("--whole-volume", action="store_true",
-                   help="no slice chunking (ring attention: multi-device, "
-                        "not ported yet; raises)")
+                   help="no slice chunking: one unchunked token set per "
+                        "patient, token buckets widened to the longest")
     p.add_argument("--fold-parallel", action="store_true",
-                   help="every fold in one lockstep program (not ported "
-                        "yet; raises)")
+                   help="train every fold in one vmapped lockstep step "
+                        "(engine/foldpar.py) instead of the sequential "
+                        "fold loop; excludes --whole-volume")
     p.add_argument("--data-parallel", action="store_true",
                    help="shard batches over every visible device (a no-op "
                         "on one device; raises on more)")

@@ -23,10 +23,17 @@ Counterpart of ``vit_deep_radiomics_tpu/engine/train.py``:
   JSONs, ``losses.html``, a checkpoint when ``test_auc² · √test_f1`` ≥ the
   running mean, patience early stopping, mid-fold resume.
 
+* ``whole_volume``: one unchunked token set per patient; the token
+  buckets of an epoch double past the 4096 cap to cover its longest item,
+  so nothing is truncated (JAX's one-device whole-volume mode),
+* ``fold_parallel``: :func:`train_kfold` hands over to
+  ``engine/foldpar.py::train_kfold_parallel`` (every fold in one vmapped
+  step).
+
 :func:`train_fold` and :func:`train_kfold` read the HDF5/parquet store
-(pandas, h5py); ``FoldTrainer`` and ``FoldBookkeeping`` need neither. The
-mesh (data parallelism), the fold-parallel trainer and whole-volume mode
-are multi-device work and raise.
+(pandas, h5py); ``FoldTrainer`` and ``FoldBookkeeping`` need neither. A
+mesh (data parallelism, or ring attention over the sequence in
+whole-volume mode) is multi-device work and raises.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ import torch
 from .. import default_device
 from ..analysis import reports
 from ..core.precision import Policy, get_policy
-from ..data.datasets import DEFAULT_BUCKETS, _bucket, batch_items
+from ..data.datasets import DEFAULT_BUCKETS, _bucket, batch_items, \
+    token_buckets_for
 from ..engine import checkpoint as ckpt
 from ..models.classifiers import build_classifier, init_classifier
 from ..models.losses import cross_modal_focal_loss, focal_loss
@@ -51,8 +59,10 @@ from ..models.losses import cross_modal_focal_loss, focal_loss
 __all__ = ["TrainerConfig", "cosine_lr", "FoldTrainer", "FoldBookkeeping",
            "train_fold", "train_kfold"]
 
-_MULTI_DEVICE = ("is multi-device work, not ported yet (core/mesh.py and "
-                 "engine/foldpar.py have no port)")
+_MULTI_DEVICE = ("is multi-device work, not ported yet (core/mesh.py has "
+                 "no port)")
+# torch AdamW's settings of JAX's optax chain (the lr is set per epoch)
+ADAMW = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 0.01}
 HISTORY_KEYS = ("epoch", "train_loss", "test_loss", "train_auc", "test_auc",
                 "train_f1", "test_f1", "target_metric")
 
@@ -74,8 +84,8 @@ class TrainerConfig:
     num_classes: int = 2
     max_epochs: int | None = None        # override cfg num_epochs
     use_sampler: bool = False            # class-balanced resampling
-    whole_volume: bool = False           # multi-device: raises
-    fold_parallel: bool = False          # multi-device: raises
+    whole_volume: bool = False           # unchunked volumes, wider buckets
+    fold_parallel: bool = False          # every fold in one vmapped step
     device: str | None = None            # None: the card
 
 
@@ -95,14 +105,9 @@ def _patient_weights(patient_ids: Sequence[str]) -> np.ndarray:
     return 1.0 / counts[inv]
 
 
-def _check_single_device(tcfg: TrainerConfig, mesh) -> None:
+def _check_single_device(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(f"a training mesh {_MULTI_DEVICE}")
-    if tcfg.fold_parallel:
-        raise NotImplementedError(f"fold-parallel training {_MULTI_DEVICE}")
-    if tcfg.whole_volume:
-        raise NotImplementedError(
-            f"whole-volume training (ring attention) {_MULTI_DEVICE}")
 
 
 class FoldTrainer:
@@ -110,7 +115,7 @@ class FoldTrainer:
 
     def __init__(self, cfg: dict, tcfg: TrainerConfig, mesh=None,
                  modality_a: str = "pet", modality_b: str = "ct"):
-        _check_single_device(tcfg, mesh)
+        _check_single_device(mesh)
         self.cfg, self.tcfg = cfg, tcfg
         self.device = default_device(tcfg.device)
         self.policy: Policy = get_policy(tcfg.precision)
@@ -140,9 +145,8 @@ class FoldTrainer:
         else:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device)
-        self.optimizer = torch.optim.AdamW(
-            self.model.parameters(), lr=self.lr0, betas=(0.9, 0.999),
-            eps=1e-8, weight_decay=0.01)
+        self.optimizer = torch.optim.AdamW(self.model.parameters(),
+                                           lr=self.lr0, **ADAMW)
 
     def checkpoint_state(self) -> dict:
         return {"params": self.model.state_dict(),
@@ -403,8 +407,14 @@ def train_fold(df_train, df_test, cfg: dict, tcfg: TrainerConfig,
              for i in _draw_train_indices(train_ds, tcfg, sampler_rng)])
         test_items = _bucket_sorted(
             [test_ds[i] for i in range(len(test_ds))])
-        train_batches = list(batch_items(train_items, tcfg.batch_size))
-        test_batches = list(batch_items(test_items, tcfg.batch_size))
+        bkw = {}
+        if tcfg.whole_volume:
+            # unchunked token sets may pass the 4096 cap: wider buckets,
+            # not truncated volumes
+            bkw["buckets"] = token_buckets_for(train_items + test_items)
+        train_batches = list(batch_items(train_items, tcfg.batch_size,
+                                         **bkw))
+        test_batches = list(batch_items(test_items, tcfg.batch_size, **bkw))
 
         tr_loss, tr_y, tr_s, tr_pids = trainer.run_epoch(
             train_batches, epoch, train=True, rng_seed=tcfg.seed)
@@ -429,15 +439,23 @@ def train_kfold(df, cfg: dict, tcfg: TrainerConfig, hdf5_ct_path,
     """Every fold of the generated k-fold YAML
     (``cfg['kfold_patients'][modality_b][dataset]``) in turn, into
     ``models/<experiment>/<backbone>_<arch>_<dataset>/<modality>/
-    kfold_k``."""
+    kfold_k``; under ``tcfg.fold_parallel`` every fold in one lockstep
+    step instead (``engine/foldpar.py``)."""
+    if tcfg.fold_parallel:
+        from .foldpar import train_kfold_parallel
+
+        return train_kfold_parallel(df, cfg, tcfg, hdf5_ct_path,
+                                    hdf5_pet_path, models_dir, mesh=mesh,
+                                    folds=folds, log=log)
     from ..data.datasets import prepare_windows
 
-    _check_single_device(tcfg, mesh)
+    _check_single_device(mesh)
     modality_a = "pet"
     modality_b = "chest" if "chest" in tcfg.modality else "ct"
     df = df.copy()
     df["flip"] = df["flip"].astype(str)
-    df = prepare_windows(df, modality_a, modality_b)
+    df = prepare_windows(df, modality_a, modality_b,
+                         whole_volume=tcfg.whole_volume)
 
     fold_map = cfg["kfold_patients"][modality_b][tcfg.dataset]
     folds = folds if folds is not None else list(fold_map.keys())

@@ -73,17 +73,35 @@ class _MatmulF32(torch.autograd.Function):
     unrounded (JAX's ``preferred_element_type=float32``): on the card one
     cuBLAS bf16 product with an fp32 output, on the CPU the fp32 product of
     the bf16 values (exact products, fp32 sums). The backward is the bf16
-    products of the rounded-down gradient, as a bf16 matmul's own."""
+    products of the rounded-down gradient, as a bf16 matmul's own.
+
+    A 3-D ``w`` (G, out, in) is a stack of weights, one per group of a
+    ``x`` (G, ..., in): one batched product (``torch.bmm`` with an fp32
+    output on the card). That is the batching rule ``torch.func.vmap``
+    takes for this function (the fold-parallel trainer's stacked
+    classifiers); its gradients are taken inside the ``vmap``, so the
+    backward sees one weight."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
+    def forward(x, w):
+        if w.dim() == 3:
+            x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+            wt = w.transpose(1, 2)
+            if x.device.type == "cpu":
+                out = x3.float() @ wt.float()
+            else:
+                out = torch.bmm(x3, wt, out_dtype=torch.float32)
+            return out.reshape(*x.shape[:-1], w.shape[1])
         x2 = x.reshape(-1, x.shape[-1])
         if x.device.type == "cpu":
             out = x2.float() @ w.float().t()
         else:
             out = torch.mm(x2, w.t(), out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
@@ -94,6 +112,15 @@ class _MatmulF32(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
         return gx, gw
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        xd, wd = in_dims
+        x = x.movedim(xd, 0) if xd is not None else \
+            x.expand(info.batch_size, *x.shape)
+        if wd is None:
+            return _MatmulF32.apply(x, w), 0
+        return _MatmulF32.apply(x, w.movedim(wd, 0)), 0
 
 
 def _policy_dot(x, weight, bias, dtype, quant: bool = False, x_q=None):
