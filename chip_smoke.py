@@ -16,7 +16,8 @@ Phases (each one fails the run with a non-zero exit):
    Hopper kernels of the K5 forward and backward, K7 (its C 768 body and
    its C 1536 cluster body) and K8, and K7's C 1536 loop instance
    (registers, spills), which must show no spill (the K5 kernels, K7 and
-   K8 also no ``C75xx`` wgmma serialisation line);
+   K8 also no ``C75xx`` wgmma serialisation line), and the K6 bf16
+   forward's mma.sync kernel and K7's fp32 C 1536 loop instance no spill;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -63,7 +64,10 @@ Phases (each one fails the run with a non-zero exit):
     4096, Kh = Kw = 64; DINOv2: 2 x 12 x 1536 with kv_len 1370), each
     output held against its plain version (the backward kernels fed the
     forward kernel's lse); kernel, plain-version, library (fp32 SDPA) times
-    and the bound;
+    and the bound; then the same three in bf16 (their mma.sync bodies, the
+    route asked) at SAM ViT-B/16 @768's global shape under ``fast`` (2 x 12
+    x 2304, Kh = Kw = 48, fp32 bias) and DINOv2's kv_len shape, the library
+    bf16 SDPA with a bf16 ``attn_mask``;
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
@@ -97,7 +101,10 @@ Phases (each one fails the run with a non-zero exit):
     asked which body it takes (the Hopper body, TMA and wgmma, at C 768;
     the cluster body, four blocks a 128-row tile with y multicast by TMA,
     at C 1536); the library time is the unfused PyTorch path (LayerNorm,
-    two cuBLAS GEMMs, GELU, residual);
+    two cuBLAS GEMMs, GELU, residual); then K7 in fp32 at C 1536
+    (ViT-g/14's 4 x 1370 rows, hidden 6144, layerscale; the loops' 16-row,
+    8-unit instance, on no path) against its plain version, the library
+    the unfused path in fp32 with TF32 off;
 17. K8 (TMA and wgmma, persistent), the s8 x s8 -> s32 matmul, at the
     five backbone contractions at batch 4 (M = 16384 and the windowed
     layers' 19600 rows padded to 19712), exactly equal to its plain
@@ -196,6 +203,14 @@ Phases (each one fails the run with a non-zero exit):
     micro-batch traced, and a ``parity`` B=1 step on the longest item on
     the card against the CPU's within 1e-4 of each leaf's max |grad|
     (phase 21's rule). It launches none of K1-K8.
+24. SAM ViT-B/16 ``fast`` fine-tuning at 768 px: ``FineTuner`` at full
+    width and depth, batch 2, 5 steps (the main path of K6 in bf16: the 4
+    global layers' 48 x 48 grid fits no fused kernel and takes K6's
+    mma.sync bodies, the 8 windowed layers K1 and K4 over 14 x 14 windows
+    of the grid padded to 56; the K6 route asked, the launches of every
+    step held: K1 8, K4 8, each K6 kernel 4, K2 and the K5 kernels 0; ms
+    per step, peak memory, the loss of every step, parameters moved), then
+    3 traced steps (wall, device ms, idle share, top device costs).
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -291,6 +306,30 @@ DINO_FAST_STEP_LAUNCHES = dict.fromkeys(K5_NAMES, 12)
 # windowed); dkv 1.79e-6.
 K6_ATOL = {"flash_attention_fwd": 2.5e-6, "lse": 1e-5,
            "flash_attention_bwd_dq": 8.5e-6, "flash_attention_bwd_dkv": 3e-6}
+# K6 in bf16 (the mma.sync bodies) against its plain versions on the same
+# bf16 inputs and fp32 bias, phase 10: the bf16 outputs |got - ref| <= atol
+# + 2^-7·|ref| (one bf16 step after fp32 sums in another order), the fp32
+# lse and bias gradients |got - ref| <= atol. About 1.5 times the gap
+# measured on an H100 SXM at the two shapes (PERF.md): out 4.01e-4,
+# lse 1.91e-6, dq 2.67e-4, dk 3.16e-4, dv 1.29e-4; the bias gradients
+# 9.77e-4 = 2^-10, one flipped bf16 rounding of a dS term in a sum, so
+# their limit allows two.
+K6_BF16_ATOL = {"out": 6e-4, "lse": 3e-6, "dq": 4e-4, "dbias_h": 2e-3,
+                "dbias_w": 2e-3, "dk": 5e-4, "dv": 2e-4}
+# K6 in bf16 at its paths' shapes: SAM ViT-B/16 @768's global layers under
+# `fast` (B=2, a 48 x 48 grid, Kh = Kw = 48) and DINOv2 ViT-B/14 @518's
+# kv_len shape
+K6_BF16_SHAPES = {"sam768_global": (2, 2304, 48, 48, None),
+                  "dinov2": (2, 1536, 0, 0, 1370)}
+# Phase 24, SAM ViT-B/16 `fast` fine-tuning at 768 px, B=2: launches per
+# step (8 windowed layers of 14 x 14 windows over the 48 x 48 grid padded
+# to 56: K1 and K4; 4 global layers of 2304 tokens, which no fused kernel
+# takes: the three K6 kernels in bf16, counted under their bf16 builds'
+# names; every other counter 0, the fp32 K6 builds' included)
+SAM768 = 768
+FAST768_STEP_LAUNCHES = {"fused_window_attention": 8,
+                         "window_attention_bwd": 8,
+                         **{f"{n}_bf16": 4 for n in K6_NAMES}}
 # K6 at the `parity` path's shapes: (batch entries, tokens, Kh, Kw, kv_len)
 K6_SHAPES = {"sam_window": (50, 196, 14, 14, None),
              "sam_global": (2, 4096, 64, 64, None),
@@ -358,6 +397,12 @@ K7_ATOL = 2.5e-2
 # K7 at DINOv2 ViT-g/14's rows at batch 4 (4 x 1370, C 1536, hidden 6144,
 # with layerscale) and at batch 1, whose last 128-row tile and last cluster
 # are ragged: the cluster body; the C 768 shapes take the Hopper body
+# K7 in fp32 at C 1536 (DINOv2 ViT-g/14's rows at batch 4, hidden 6144,
+# with layerscale; on no path of the port, JAX's own test runs it) against
+# its plain version in fp32 (TF32 off on both): |got - ref| <= this, about
+# 1.5 times the gap measured on an H100 SXM (8.34e-7; PERF.md)
+K7_F32_WIDE = (4, 1370, 1536, 6144)
+K7_F32_ATOL = 1.3e-6
 K7_SHAPES = {"sam": (4, 4096, 768, 3072, False, "hopper"),
              "dinov2": (4, 1370, 768, 3072, True, "hopper"),
              "dinov2_vitg14": (4, 1370, 1536, 6144, True, "cluster"),
@@ -924,10 +969,12 @@ def _nbytes(*ts):
 
 def _check_outputs(torch, name, outs, refs, labels, rtol, atol):
     """Each output against its plain version, elementwise
-    |got - ref| <= atol + rtol·|ref|; returns the largest |got - ref|."""
+    |got - ref| <= atol + rtol·|ref| (``rtol`` and ``atol`` one for all
+    outputs or one each); returns the largest |got - ref|."""
     atols = atol if isinstance(atol, (list, tuple)) else [atol] * len(outs)
+    rtols = rtol if isinstance(rtol, (list, tuple)) else [rtol] * len(outs)
     worst = 0.0
-    for got, ref, label, lim in zip(outs, refs, labels, atols):
+    for got, ref, label, lim, rtol in zip(outs, refs, labels, atols, rtols):
         got, ref = got.float(), ref.float()
         diff = (got - ref).abs()
         err = diff.max().item()
@@ -1355,13 +1402,18 @@ def _ft_batch(torch, b, size=1024, grid=64):
 
 
 def finetune_phase(torch, A, ft, backbone="medsam", precision="fast",
-                   per_step=STEP_LAUNCHES, batch_size=2, backbone_cfg=None):
+                   per_step=STEP_LAUNCHES, batch_size=2, backbone_cfg=None,
+                   trace=False):
     """A fine-tuning main path: ``FineTuner`` at full width and depth,
     ``batch_size`` 2 unless given, 5 steps on a fixed batch, the launches
     of every step held to ``per_step``. SAM ViT-B/16 @1024 ``fast`` runs
     K1/K4/K5, ``parity`` K6; DINOv2 ViT-B/14 @518 ``fast`` runs K5 in
     kv_len mode, ``parity`` K6 in kv_len mode; ``backbone_cfg`` replaces
-    the backbone's config (SAM @2048: K5 at a key grid 128 keys wide)."""
+    the backbone's config (SAM @2048: K5 at a key grid 128 keys wide; SAM
+    @768: K1/K4 and K6 in bf16). Returns the launches; with ``trace`` also
+    the steps' summary (ms per step, peak memory, and the wall ms, device
+    ms and idle share of traced steps after the counted ones,
+    ``utils/profiling.py::trace_runs``)."""
     tuner = ft.FineTuner(ft.FineTuneConfig(backbone=backbone,
                                            precision=precision,
                                            backbone_cfg=backbone_cfg))
@@ -1400,7 +1452,22 @@ def finetune_phase(torch, A, ft, backbone="medsam", precision="fast",
     if not all(np.isfinite(losses)) or not moved > 0 or \
             tuple(logits.shape) != (batch_size, 2):
         raise AssertionError("fine-tuning: non-finite loss or no update")
-    return counts
+    if not trace:
+        return counts
+    from vit_deep_radiomics_tpu_torch.utils import profiling
+
+    prof = profiling.trace_runs(lambda: tuner.step(state, *batch), 3, 8)
+    log(f"fine-tune {cfg.name} @{cfg.image_size} {precision} B={batch_size}"
+        f" traced: wall {prof['wall_ms']:.3f} ms, device "
+        f"{prof['device_ms']:.3f} ms, idle share {prof['idle_share']:.3f}; "
+        + "; ".join(f"{x['name'][:40]} {x['calls']:g}x {x['ms']:.3f} ms"
+                    for x in prof["top"]))
+    return counts, {"step_ms": [t * 1e3 for t in times],
+                    "steady_ms": steady * 1e3,
+                    "peak_memory_gib": peak / 2 ** 30,
+                    "losses": losses,
+                    **{k: prof[k] for k in ("wall_ms", "device_ms",
+                                            "idle_share")}}
 
 
 def sam2048_phase(torch, A, G, ft, vit):
@@ -1473,56 +1540,94 @@ def grad_check_phase(torch, ft, precision="fast"):
                              f"{worst:.3f} of its limit")
 
 
-def k6_phase(torch, G, peaks):
-    """Phase 10: the three K6 kernels (fp32) at the ``parity`` path's
-    shapes, each output against its plain version; kernel, plain-version and
-    library (fp32 SDPA with the dense bias, or the padding mask, as
-    ``attn_mask``; forward, or the whole backward) times and the bound.
-    A row's numbers are SAM's global shape's; ``by_shape`` holds all
-    three."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+def k6_inputs(torch, gen, dt, b, s, kh, kw, kv_len, heads=12, d=64):
+    """K6's operands at one shape of ``K6_SHAPES`` or ``K6_BF16_SHAPES``:
+    ((q, k, v, bias_h, bias_w, kv_len), dO), q, k, v and dO (B, H, S, D)
+    normal in ``dt``, the bias factors fp32 (normal times 0.3) when Kh is
+    given, else kv_len (int32, one per batch row) when given."""
+    def rand(*sh, sc=1.0):
+        return torch.randn(*sh, generator=gen, device="cuda") * sc
+
+    q, k, v, dout = (rand(b, heads, s, d).to(dt) for _ in range(4))
+    bh = bw = kl = None
+    if kh:
+        bh, bw = rand(b, heads, s, kh, sc=0.3), rand(b, heads, s, kw, sc=0.3)
+    if kv_len:
+        kl = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+    return (q, k, v, bh, bw, kl), dout
+
+
+def k6_phase(torch, G, peaks, dtype="float32"):
+    """Phase 10: the three K6 kernels at their paths' shapes, each output
+    against its plain version (the backward kernels fed the forward
+    kernel's lse), the body the C entry takes asked; kernel, plain-version
+    and library (SDPA with the dense bias, or the padding mask, as
+    ``attn_mask`` in the operands' dtype; forward, or the whole backward)
+    times and the bound. fp32: the ``parity`` path's shapes
+    (``K6_SHAPES``, the register-tiled bodies); bf16: ``K6_BF16_SHAPES``
+    (SAM @768's global layers under ``fast`` and DINOv2's kv_len shape, the
+    fp32 bias; the mma.sync bodies, rows named ``<kernel>_bf16``). A row's
+    numbers are SAM's global shape's; ``by_shape`` holds every shape."""
+    bf16 = dtype == "bfloat16"
+    shapes, main, body, suffix = (
+        (K6_BF16_SHAPES, "sam768_global", "mma", "_bf16") if bf16
+        else (K6_SHAPES, "sam_global", "tiled", ""))
+    gen = torch.Generator(device="cuda").manual_seed(
+        SEED + (10 if bf16 else 4))
+    dt = getattr(torch, dtype)
     heads, d = 12, 64
     scale = d ** -0.5
     grad = "vit_deep_radiomics_tpu/ops/attention_grad.py"
     where = {"flash_attention_fwd": f"{grad}:56",
              "flash_attention_bwd_dq": f"{grad}:186",
              "flash_attention_bwd_dkv": f"{grad}:266"}
-    rows = {n: {} for n in K6_NAMES}
-    for shape, (b, s, kh, kw, kv_len) in K6_SHAPES.items():
-        def rand(*sh, sc=1.0):
-            return torch.randn(*sh, generator=gen, device="cuda") * sc
 
-        q, k, v, dout = (rand(b, heads, s, d) for _ in range(4))
-        bh = bw = kl = None
-        if kh:
-            bh, bw = rand(b, heads, s, kh, sc=0.3), rand(b, heads, s, kw,
-                                                          sc=0.3)
+    def limits(name, labels):
+        """(rtols, atols) of the outputs ``labels`` of kernel ``name``:
+        fp32 ``K6_ATOL``; bf16 ``K6_BF16_ATOL``, with one bf16 step
+        (``RTOL``) on the bf16 outputs (not on the fp32 lse and bias
+        gradients)."""
+        if not bf16:
+            return 0.0, [K6_ATOL["lse" if lb == "lse" else name]
+                         for lb in labels]
+        return ([0.0 if lb in ("lse", "dbias_h", "dbias_w") else RTOL[dtype]
+                 for lb in labels], [K6_BF16_ATOL[lb] for lb in labels])
+
+    rows = {n: {} for n in K6_NAMES}
+    for shape, (b, s, kh, kw, kv_len) in shapes.items():
+        (q, k, v, bh, bw, kl), dout = k6_inputs(torch, gen, dt, b, s, kh,
+                                                kw, kv_len)
         n_keys = kv_len or s
         if kv_len:
-            kl = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
             key = torch.arange(s, device="cuda")
-            mask = torch.zeros(b, heads, s, s, device="cuda").masked_fill(
-                key >= n_keys, float("-inf"))
+            mask = torch.zeros(b, heads, s, s, device="cuda",
+                               dtype=dt).masked_fill(key >= n_keys,
+                                                     float("-inf"))
         else:
             mask = (bh[..., :, None] + bw[..., None, :]).reshape(
-                b, heads, s, s)
+                b, heads, s, s).to(dt)
         args, pairs = (q, k, v, bh, bw, kl), b * heads * s * n_keys * d
         iters = 20 if s < 1000 else 5
-        tag = f"[{shape}]"
+        tag = f"[{dtype} {shape}]"
+        route = G.flash_attention_route(*args)
+        log(f"kernel K6 {tag}: route {route}")
+        if route != body:
+            raise AssertionError(f"K6 {tag} takes the {route} body, not the "
+                                 f"{body} one")
 
         def row(name, err, fn, plain, lib, nb, flops):
             ms = cuda_ms(torch, fn, iters)
             plain_ms = cuda_ms(torch, plain, 2)
             rows[name][shape] = _record(
-                f"{name} {tag}", f"{name}.cu", where[name], "float32", err,
-                ms, plain_ms, lib, nb, flops, peaks)
+                f"{name}{suffix} {tag}", f"{name}.cu", where[name], dtype,
+                err, ms, plain_ms, lib, nb, flops, peaks)
 
         out, lse = G.flash_attention_fwd(*args, scale=scale)
         torch.cuda.synchronize()
         err = _check_outputs(
             torch, f"flash_attention_fwd {tag}", [out, lse],
             G.flash_attention_fwd_plain(*args, scale=scale), ["out", "lse"],
-            0.0, [K6_ATOL["flash_attention_fwd"], K6_ATOL["lse"]])
+            *limits("flash_attention_fwd", ["out", "lse"]))
         row("flash_attention_fwd", err,
             lambda: G.flash_attention_fwd(*args, scale=scale),
             lambda: G.flash_attention_fwd_plain(*args, scale=scale),
@@ -1543,8 +1648,8 @@ def k6_phase(torch, G, peaks):
             keep = [i for i, r in enumerate(ref) if r is not None]
             err = _check_outputs(
                 torch, f"{name} {tag}", [got[i] for i in keep],
-                [ref[i] for i in keep], [labels[i] for i in keep], 0.0,
-                K6_ATOL[name])
+                [ref[i] for i in keep], [labels[i] for i in keep],
+                *limits(name, [labels[i] for i in keep]))
             del ref
             row(name, err, lambda: fn(*args, *rest, scale=scale),
                 lambda: plain_fn(*args, *rest, scale=scale), lib,
@@ -1552,18 +1657,39 @@ def k6_phase(torch, G, peaks):
             del got
         del q, k, v, dout, bh, bw, kl, mask, args, out, lse, rest
         torch.cuda.empty_cache()
-    log("library yardstick of both K6 backward kernels: the whole fp32 SDPA "
-        "backward (dq, dk, dv and, with a bias, the mask gradient)")
+    log(f"library yardstick of both K6 {dtype} backward kernels: the whole "
+        f"{dtype} SDPA backward (dq, dk, dv and, with a bias, the mask "
+        "gradient)")
     records = {}
     for name, by in rows.items():
-        rec = dict(by["sam_global"], name=name,
+        rec = dict(by[main], name=f"{name}{suffix}",
                    max_abs_err=max(r["max_abs_err"] for r in by.values()))
-        rec["by_shape"] = {
-            shape: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}
-            for shape, r in by.items()}
-        records[name] = rec
+        rec["by_shape"] = {shape: _sub(r) for shape, r in by.items()}
+        records[f"{name}{suffix}"] = rec
     return records
+
+
+def sam768_phase(torch, A, G, ft, vit):
+    """Phase 24: SAM ViT-B/16 ``fast`` fine-tuning at 768 px, batch 2, the
+    main path of K6 in bf16: its global layers' 48 x 48 grid fits no fused
+    kernel, so they take the generic path. The K6 route is asked at their
+    shape (2, 12, 2304, 64, Kh = Kw = 48: the mma.sync bodies), then
+    ``FT_STEPS`` steps whose launches are held to ``FAST768_STEP_LAUNCHES``
+    (K1 and K4 in the 8 windowed layers, the three K6 kernels in the 4
+    global ones; K2 and the K5 kernels 0), then traced steps (device ms,
+    idle share). Returns (launches, the steps' summary)."""
+    cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM768)
+    heads, s, grid = 12, cfg.grid * cfg.grid, cfg.grid
+    qkv = torch.zeros(2, heads, s, 64, device="cuda", dtype=torch.bfloat16)
+    bias = torch.zeros(2, heads, s, grid, device="cuda")
+    route = G.flash_attention_route(qkv, qkv, qkv, bias, bias)
+    log(f"kernel K6 [SAM @768 fast step, bf16, Kh = Kw = {grid}]: route "
+        f"{route}")
+    if route != "mma":
+        raise AssertionError(f"K6 at SAM @768 takes the {route} body")
+    del qkv, bias
+    return finetune_phase(torch, A, ft, per_step=FAST768_STEP_LAUNCHES,
+                          backbone_cfg=cfg, trace=True)
 
 
 def kv_len_phase(torch, A, G, peaks):
@@ -1945,6 +2071,70 @@ def k7_phase(torch, peaks):
     rec["by_shape"] = {shape: dict(_sub(r), body=r["body"])
                        for shape, r in rows.items()}
     return rec
+
+
+def k7_f32_wide_phase(torch, peaks):
+    """Phase 16, fp32 at C 1536: K7 at DINOv2 ViT-g/14's rows at batch 4
+    (4 x 1370, hidden 6144, with layerscale), fp32 inputs and weights, its
+    C entry asked for the body ("loops": 16-row blocks, 8-unit hidden
+    chunks), against its plain version; the library time is the unfused
+    PyTorch path in fp32 with TF32 off. On no path of the port: its row's
+    launches are 0."""
+    import torch.nn.functional as F
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    b, s, c, hidden = K7_F32_WIDE
+    eps = 1e-6
+
+    def rand(*sh, sc=1.0):
+        return torch.randn(*sh, generator=gen, device="cuda") * sc
+
+    w1, w2 = rand(hidden, c, sc=c ** -0.5), rand(c, hidden, sc=hidden ** -0.5)
+    b1, b2 = rand(hidden, sc=0.02), rand(c, sc=0.02)
+    ln_s, ln_b, ls = 1.0 + rand(c, sc=0.1), rand(c, sc=0.1), \
+        0.1 + rand(c, sc=0.02)
+    x = rand(b, s, c)
+    args = (x, ln_s, ln_b, w1.t(), b1, w2.t(), b2, ls)
+    tag = f"fused_ln_mlp_residual [fp32, dinov2_vitg14, {b}x{s} rows, C {c}"
+    body = M.fused_ln_mlp_residual_route(*args)
+    if body != "loops":
+        raise AssertionError(f"K7 fp32 at C {c} takes the {body} body")
+    tag += f", {body}]"
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = M.fused_ln_mlp_residual(*args, eps=eps)
+        torch.cuda.synchronize()
+        err = _check_outputs(
+            torch, tag, [out],
+            [M.fused_ln_mlp_residual_plain(*args, eps=eps)], ["out"], 0.0,
+            K7_F32_ATOL)
+
+        def unfused():
+            y = F.layer_norm(x, (c,), ln_s, ln_b, eps)
+            o = F.linear(F.gelu(F.linear(y, w1, b1), approximate="tanh"),
+                         w2, b2)
+            return x + o * ls
+
+        rec = _record(
+            tag, "fused_ln_mlp_residual.cu",
+            "vit_deep_radiomics_tpu/ops/mlp_fused.py:47", "float32", err,
+            cuda_ms(torch, lambda: M.fused_ln_mlp_residual(*args, eps=eps),
+                    3),
+            cuda_ms(torch, lambda: M.fused_ln_mlp_residual_plain(
+                *args, eps=eps), 3),
+            (cuda_ms(torch, unfused, 5), None),
+            _nbytes(x, ln_s, ln_b, w1, b1, w2, b2, ls, out),
+            4.0 * b * s * c * hidden, peaks,
+            library="unfused PyTorch fp32, TF32 off: LayerNorm, 2 cuBLAS "
+                    "GEMMs, tanh GELU, residual")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del x, args, out
+    torch.cuda.empty_cache()
+    return dict(rec, name="fused_ln_mlp_residual_f32_c1536", body=body,
+                launches=0, path="none (JAX's own fp32 test at C 1536)")
 
 
 # The backbone's five per-block contractions under `int8`: (K, N)
@@ -3501,6 +3691,21 @@ def main() -> int:
         raise AssertionError(f"fused_ln_mlp_residual: the C 1536 instance "
                              f"{wide} spills or is missing")
 
+    # the K6 bf16 forward (its dq and dkv sit in NO_SPILL's sources) and
+    # K7's fp32 C 1536 loop instance keep their accumulators in registers
+    for src, key, want in (("flash_attention_fwd", "mma_fwd_kernel", None),
+                           ("fused_ln_mlp_residual", "mlp_f32_kernel",
+                            "1536")):
+        funcs = {f: r for f, r in cuda_build.ptxas_functions(
+            build_logs[src]).items() if key in f and (want or "") in f}
+        log(f"ptxas {src} ({key}{' ' + want if want else ''}): " +
+            " | ".join(f"{f}: {r['registers']} registers, {r['spill']} "
+                       f"bytes spill" for f, r in funcs.items()))
+        if build_logs[src] and (len(funcs) != 1 or any(
+                r["spill"] for r in funcs.values())):
+            raise AssertionError(f"{src}: {key} {funcs} spills or is "
+                                 "missing")
+
     records = kernel_phase(torch, A, peaks)
     state, parity_1024 = forward_phase(torch, A, vit, precision)
     records["fused_global_attention"]["parity_forward_1024"] = parity_1024
@@ -3523,6 +3728,7 @@ def main() -> int:
             ft_counts[kname]
 
     k6_records = k6_phase(torch, G, peaks)                     # phase 10
+    k6_bf16_records = k6_phase(torch, G, peaks, "bfloat16")
     kv_records = kv_len_phase(torch, A, G, peaks)              # phase 11
     parity_counts = finetune_phase(torch, A, ft, "medsam", "parity",
                                    PARITY_STEP_LAUNCHES)       # phase 12
@@ -3550,6 +3756,8 @@ def main() -> int:
 
     records["flash_attention"] = k3_phase(torch, A, peaks)     # phase 15
     records["fused_ln_mlp_residual"] = k7_phase(torch, peaks)  # phase 16
+    records["fused_ln_mlp_residual_f32_c1536"] = k7_f32_wide_phase(torch,
+                                                                   peaks)
     records["int8_matmul"] = k8_phase(torch, Q, peaks,
                                       INT8_PEAKS[sku])         # phase 17
     torch.cuda.empty_cache()
@@ -3595,6 +3803,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("fold-parallel and whole-volume training: " + json.dumps(
         foldpar_phase(torch, A)))                              # phase 23
+    torch.cuda.empty_cache()
+    sam768_counts, sam768 = sam768_phase(torch, A, G, ft, vit)  # phase 24
+    log("fine-tune SAM @768 fast: " + json.dumps(sam768))
+    # K6 in bf16: the @768 `fast` steps are its main path
+    for kname in K6_NAMES:
+        k6_bf16_records[f"{kname}_bf16"]["launches"] = \
+            sam768_counts[f"{kname}_bf16"]
+        k6_bf16_records[f"{kname}_bf16"]["fast768_step"] = sam768
+    records.update(k6_bf16_records)
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

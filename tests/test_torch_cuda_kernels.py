@@ -1144,6 +1144,100 @@ def test_flash_trainable_kernels_are_deterministic(gen):
         assert torch.equal(a, b)
 
 
+# K6 on bf16 operands (the mma.sync bodies) against the plain versions on
+# the same bf16 inputs, fp32 bias: |got - want| <= K6_BF16_ATOL +
+# 2^-7·|want| on the bf16 outputs (a flip of one bf16 rounding after fp32
+# sums in another order), the fp32 lse and bias gradients absolutely;
+# about 1.5 times the largest gap measured over these cases on an H100 SXM
+# (out 1.09e-3, lse 1.91e-6, dq 1.32e-4, dk 1.05e-4, dv 2.30e-4); the bias
+# gradients 9.77e-4 = 2^-10, one flipped bf16 rounding of a dS term in a
+# sum, so their limit allows two.
+K6_BF16_ATOL = {"out": 1.6e-3, "lse": 3e-6, "dq": 2e-4, "dbh": 2e-3,
+                "dbw": 2e-3, "dk": 2e-4, "dv": 3.5e-4}
+
+
+def _k6_bf16(args, dout):
+    q, k, v = (t.to(torch.bfloat16) for t in args[:3])
+    return (q, k, v, *args[3:]), dout.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,kh,kw,kv_len", [
+    (1, 192, 4, 48, None),       # Kw 48: a 64-key tile spans two grid rows
+    (2, 2304, 48, 48, None),     # SAM @768's global grid
+    (2, 196, 14, 14, None),      # SAM window: Kw = 14 cuts every key tile
+    (2, 200, 0, 0, [77, 200]),   # kv_len, ragged 64-row tiles
+    (2, 130, 0, 0, [0, 70]),     # a kv_len 0 row
+    (2, 1536, 0, 0, [1370, 1370]),   # DINOv2's kv_len cuts a tile
+    (2, 100, 10, 10, [37, 100]),  # a bias and kv_len together
+], ids=["kw48", "sam768", "kw14", "kv_len", "kv_len_zero_row",
+        "kv_len_1370", "bias_kv_len"])
+def test_flash_trainable_bf16_kernels_match_plain(gen, b, s, kh, kw, kv_len):
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    *args, dout = _k6_inputs(gen, b, 3, s, kh, kw, kv_len)
+    args, dout = _k6_bf16(args, dout)
+    scale = 64 ** -0.5
+    assert G.flash_attention_route(*args) == "mma"
+    A.reset_launch_counts()
+    out, lse = G.flash_attention_fwd(*args, scale=scale)
+    rest = (dout, lse, G.flash_attention_delta(out, dout))
+    got = (out, lse, *G.flash_attention_bwd_dq(*args, *rest, scale=scale),
+           *G.flash_attention_bwd_dkv(*args, *rest, scale=scale))
+    torch.cuda.synchronize()
+    # counted under the bf16 builds' names, none under the fp32 ones
+    assert [A.LAUNCHES[n + suffix] for suffix in ("_bf16", "")
+            for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")] == [1, 1, 1, 0, 0, 0]
+    # the forward against the plain forward; the backward against the
+    # plain backward fed the same lse and delta
+    want = (*G.flash_attention_fwd_plain(*args, scale=scale),
+            *G.flash_attention_bwd_dq_plain(*args, *rest, scale=scale),
+            *G.flash_attention_bwd_dkv_plain(*args, *rest, scale=scale))
+    names = ("out", "lse", "dq", "dbh", "dbw", "dk", "dv")
+    for g_, w_, name in zip(got, want, names):
+        if w_ is None:
+            assert g_ is None, name
+            continue
+        assert g_.dtype == w_.dtype, name
+        g_, w_ = g_.float(), w_.float()
+        rtol = 2.0 ** -7 if name in ("out", "dq", "dk", "dv") else 0.0
+        # a kv_len 0 row sums unnormalised terms: the rule relative to the
+        # output's largest value
+        rel = max(1.0, w_.abs().max().item()) if kv_len and \
+            kv_len[0] == 0 and name != "lse" else 1.0
+        gap = ((g_ - w_).abs() - rtol * w_.abs()).max().item()
+        print(f"{name}: gap {gap:.3e} beyond {rtol:g}·|want|")
+        assert torch.isfinite(g_).all() and \
+            gap <= K6_BF16_ATOL[name] * rel, (name, gap)
+    if kv_len is not None:     # keys past a non-zero kv_len: no gradient
+        for i, n in enumerate(kv_len):
+            if n:
+                assert not got[5][i, :, n:].float().any()
+                assert not got[6][i, :, n:].float().any()
+
+
+def test_flash_trainable_bf16_route_and_determinism(gen):
+    """fp32 calls take the tiled bodies and bf16 calls the mma.sync ones;
+    a bf16 bias grid of more than 320 terms is refused by the C entry; two
+    bf16 runs give the same bits (no atomics)."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    *args, dout = _k6_inputs(gen, 2, 3, 192, 4, 48)
+    assert G.flash_attention_route(*args) == "tiled"
+    args, dout = _k6_bf16(args, dout)
+    assert G.flash_attention_route(*args) == "mma"
+    runs = [_k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,
+                    G.flash_attention_bwd_dkv, G.flash_attention_delta, args,
+                    dout, 0.125) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    wide = _k6_bf16(_k6_inputs(gen, 1, 1, 400, 1, 400)[:6], dout)[0]
+    with pytest.raises(RuntimeError, match="320 terms"):
+        G.flash_attention_route(*wide)
+    with pytest.raises(RuntimeError, match="320 terms"):
+        G.flash_attention_fwd(*wide, scale=0.125)
+
+
 def test_kv_len_kernels_at_a_padded_dinov2_shape(gen):
     """K2 and the three K5 kernels in kv_len mode, bf16, on the layout a
     DINOv2 layer gives them: 226 tokens (15x15 patches and the CLS token)
@@ -1605,6 +1699,33 @@ def test_fused_mlp_c1536_matches_plain(gen, rows, with_ls):
     gap = ((got - want).abs() - RTOL[torch.bfloat16] * want.abs()).max()
     print(f"K7 C 1536 rows={rows} ls={with_ls}: gap {gap.item():.3e}")
     assert torch.isfinite(got).all() and gap.item() <= K7_HOPPER_ATOL, gap
+
+
+# K7 fp32 at C 1536: sums of 6144 hidden units in another order than
+# cuBLAS's; about 1.6 times the largest gap measured on an H100 SXM
+# (1.22e-5, 300 rows without layerscale; PERF.md)
+K7_F32_WIDE_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("rows", [1, 17, 300])
+@pytest.mark.parametrize("with_ls", [False, True])
+def test_fused_mlp_f32_c1536_matches_plain(gen, rows, with_ls):
+    """K7 in fp32 at C 1536 (hidden 6144): the loops' instance of 16-row
+    blocks and 8-unit hidden chunks, two threads a (row, unit) dot product,
+    fp32 FMAs with no TF32, against the plain version in fp32 (TF32 off:
+    torch's default for matmuls), within K7_F32_WIDE_ATOL."""
+    from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
+
+    args = _k7_inputs(gen, rows, 1536, 6144, with_ls, torch.float32)
+    assert M.fused_ln_mlp_residual_route(*args) == "loops"
+    A.reset_launch_counts()
+    got = M.fused_ln_mlp_residual(*args)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_ln_mlp_residual"] == 1
+    want = M.fused_ln_mlp_residual_plain(*args)
+    gap = (got - want).abs().max().item()
+    print(f"K7 fp32 C 1536 rows={rows} ls={with_ls}: gap {gap:.3e}")
+    assert torch.isfinite(got).all() and gap <= K7_F32_WIDE_ATOL, gap
 
 
 @pytest.mark.parametrize("c,hidden,dtype,route", [

@@ -11,7 +11,14 @@ batches. ``parity``: the loss of every step to 1e-4 relative and every
 parameter after 3 steps to 1e-4; ``fast``: the loss to 5e-2 relative (both
 sides round to bf16 at other places). A tiny DINOv2-shaped backbone (CLS
 token, LayerScale, 17 tokens padded to 128 with ``kv_len``) is held to
-JAX the same way under ``parity``.
+JAX the same way under ``parity``. A tiny SAM of two heads of 48, which
+no fused kernel takes (``_head_group`` refuses head dim 48), runs K6 in
+every layer under ``fast`` too, on bf16 q, k, v (the path of SAM's
+global layers at 768 px): 3 ``fast`` steps, the loss of each to the
+``fast`` 5e-2 relative, every parameter after 3 steps to 1e-4, and, since
+3 steps at LR 1e-5 move an element by 3e-5 at most, the first-step
+gradients and the 3-step moves of each leaf to FAST_REL, bf16 noise
+elements left out of the moves (FAST_NOISE).
 
 Where a gradient is at fp32 rounding level (the k third of ``qkv.bias``:
 it adds a per-row constant under the softmax, so its exact gradient is
@@ -66,10 +73,26 @@ JAX_TINY_DINO = dataclasses.replace(JAX_DINOV2["dinov2_vits14"],
                                     **TINY_DINO_ARGS)
 STEPS = 3
 LR = 1e-5
+# two heads of 48: no fused kernel takes the layers (JAX vit.py:430), so
+# every one, windowed or global, runs K6 under ``fast`` in both packages
+# (one key tile of 16 tokens in JAX: no block knob needed)
+GENERIC = dict(TINY, width=96)
+TINY_GENERIC = dataclasses.replace(SAM_VIT_B, **GENERIC)
+JAX_TINY_GENERIC = dataclasses.replace(JAX_SAM_VIT_B, **GENERIC)
 # fp32 rounding level of a gradient, relative to its leaf's max |grad|:
 # the k third of qkv.bias measured at most 6.7e-8 (JAX) and 1.4e-7 (port),
 # the smallest q/v element 1.9e-4
 ROUNDING = 1e-6
+# ``fast``: both sides compute in bf16 and round at other points (JAX on
+# the CPU drops its fp32 -> bf16 -> fp32 round trips), so a gradient element
+# under FAST_NOISE of its leaf's max |grad| is noise whose sign may differ
+# (the k third of qkv.bias, exactly zero, measured at most 6.5e-4 of its
+# leaf's max in JAX and 2.0e-3 in the port). Port vs JAX per leaf,
+# |port - jax| / |jax| in norm: the first gradients measured at most 0.064
+# and the 3-step moves (noise elements left out) 0.064, both at
+# blocks.2.attn.rel_pos_w; held to FAST_REL
+FAST_NOISE = 1e-2
+FAST_REL = 0.1
 
 
 def _batch(seed, b=2, size=64, grid=4):
@@ -125,9 +148,9 @@ def _jax_run(precision, batch, backbone=JAX_TINY_SAM, grads=False, **cfg):
     return out
 
 
-def _port_grads(batch, p0, backbone=TINY_SAM, **cfg):
+def _port_grads(batch, p0, backbone=TINY_SAM, precision="parity", **cfg):
     """The port's gradients of the first step (None where frozen)."""
-    tuner = FineTuner(FineTuneConfig(num_classes=2, precision="parity",
+    tuner = FineTuner(FineTuneConfig(num_classes=2, precision=precision,
                                      backbone_cfg=backbone, **cfg),
                       device="cpu")
     model = tuner.init(state_dict=finetune_params_from_jax(p0, backbone))[
@@ -230,6 +253,79 @@ class TestAgainstJax:
 
 
 @pytest.fixture(scope="module")
+def generic_fast_runs():
+    """3 ``fast`` steps of the all-generic tiny SAM, both sides, with the
+    first step's gradients of each; the port's K6 calls (bias or not, q's
+    dtype) with the fused trainable Functions taken away."""
+    batch = _batch(12)
+    p0, p3, jax_losses, g0 = _jax_run("fast", batch,
+                                      backbone=JAX_TINY_GENERIC, grads=True)
+    grads = (finetune_params_from_jax(g0, TINY_GENERIC),
+             _port_grads(batch, p0, backbone=TINY_GENERIC, precision="fast"))
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tvit, "flash_attention_trainable",
+                   lambda *a, **k: calls.append((a[3] is not None,
+                                                 a[0].dtype))
+                   or G.flash_attention_trainable(*a, **k))
+        for name in ("window_attention_trainable",
+                     "global_attention_trainable"):
+            mp.setattr(tvit, name, None)
+        sd, port_losses = _port_run("fast", batch, p0,
+                                    backbone=TINY_GENERIC)
+    return p0, p3, jax_losses, sd, port_losses, grads, calls
+
+
+class TestGenericFastAgainstJax:
+    def test_every_layer_runs_k6_on_bf16(self, generic_fast_runs):
+        *_, calls = generic_fast_runs
+        assert calls == [(True, torch.bfloat16)] * \
+            (TINY_GENERIC.depth * STEPS)
+
+    def test_fast_losses(self, generic_fast_runs):
+        _, _, jax_losses, _, port_losses, _, _ = generic_fast_runs
+        assert np.isfinite(port_losses).all()
+        np.testing.assert_allclose(port_losses, jax_losses, rtol=5e-2)
+
+    def test_fast_first_gradients(self, generic_fast_runs):
+        """Every leaf's first-step gradient, the rel-pos tables' (reached
+        only through K6's bias gradients) included, to FAST_REL of the JAX
+        gradient's norm."""
+        *_, (g_jax, g_port), _ = generic_fast_runs
+        assert set(g_jax) == set(g_port)
+        for name, gj in g_jax.items():
+            rel = (g_port[name] - gj).norm() / gj.norm()
+            assert rel < FAST_REL, (name, float(rel))
+
+    def test_fast_parameters(self, generic_fast_runs):
+        """The weights after 3 steps to 1e-4, and the update itself: the
+        moves of port and JAX from the start to FAST_REL (norms), the
+        elements whose first JAX gradient is under FAST_NOISE of the leaf's
+        largest left out."""
+        p0, p3, _, sd, _, (g_jax, g_port), _ = generic_fast_runs
+        want = finetune_params_from_jax(p3, TINY_GENERIC)
+        start = finetune_params_from_jax(p0, TINY_GENERIC)
+        assert set(want) == set(sd)
+        for name, w in want.items():
+            got = sd[name]
+            np.testing.assert_allclose(got.numpy(), w.numpy(), atol=1e-4,
+                                       err_msg=name)
+            gj = g_jax[name].flatten().abs()
+            noise = gj <= FAST_NOISE * gj.max()
+            if name.endswith("attn.qkv.bias"):
+                # the k third's exact gradient is zero (module docstring)
+                k_third = torch.arange(gj.numel()) // (gj.numel() // 3) == 1
+                gp = g_port[name].flatten().abs()
+                assert noise[k_third].all(), name
+                assert (gp[k_third] <= FAST_NOISE * gp.max()).all(), name
+            moved_p = (got - start[name]).flatten()[~noise]
+            moved_j = (w - start[name]).flatten()[~noise]
+            assert moved_j.abs().max() > 0.5 * LR, name
+            rel = (moved_p - moved_j).norm() / moved_j.norm()
+            assert rel < FAST_REL, (name, float(rel))
+
+
+@pytest.fixture(scope="module")
 def dino_runs():
     """3 ``parity`` steps of a tiny DINOv2-shaped backbone, both sides."""
     batch = _batch(9, size=56, grid=4)
@@ -328,6 +424,49 @@ class TestPortOnly:
         x = torch.zeros(1, 4, 4, TINY_SAM.width, device="meta")
         with pytest.raises(RuntimeError, match="K6 launch reached"):
             attn.to("meta")(x, model.policy)
+
+
+def test_fast_global_layer_at_768_px_reaches_the_bf16_k6_launch(
+        monkeypatch):
+    """SAM ViT-B/16 at 768 px: a global layer's 48 x 48 grid fits no fused
+    kernel (2304 tokens divide neither 1024 nor 512, and 256 and 128 are no
+    multiples of 48), so under ``fast`` it takes the generic path: K6 on
+    contiguous bf16 q, k, v (2 x 12 x 2304 x 64) with the fp32 bias of a
+    48-wide key grid, stopped at the bf16 build's library load. No plain
+    version and no fused kernel is reached, and no dtype check stops it."""
+    entries = []
+
+    def launch(_, __, entry=None):
+        entries.append(entry)
+        raise RuntimeError("K6 launch reached")
+
+    monkeypatch.setattr(G, "_load", launch)
+    for name in ("flash_attention_fwd_plain", "flash_attention_bwd_dq_plain",
+                 "flash_attention_bwd_dkv_plain"):
+        monkeypatch.setattr(G, name, None)
+    for name in ("window_attention_trainable", "global_attention_trainable"):
+        monkeypatch.setattr(tvit, name, None)
+    seen = []
+    monkeypatch.setattr(
+        tvit, "flash_attention_trainable",
+        lambda *a, **k: seen.append(a) or G.flash_attention_trainable(
+            *a, **k))
+    cfg = dataclasses.replace(SAM_VIT_B, image_size=768)
+    assert cfg.grid == 48
+    attn = tvit.WindowedAttention(cfg, cfg.grid, trainable=True)
+    assert attn._fused_variant(48, 48) is None
+    policy = FineTuner(FineTuneConfig(precision="fast"), device="cpu").policy
+    x = torch.zeros(2, 48, 48, cfg.width, device="meta")
+    with pytest.raises(RuntimeError, match="K6 launch reached"):
+        attn.to("meta")(x, policy)
+    assert entries == ["vdr_flash_attention_fwd_bf16"]
+    q, k, v, bh, bw = seen[0]
+    for t in (q, k, v):
+        assert t.dtype == torch.bfloat16 and t.is_contiguous()
+        assert tuple(t.shape) == (2, 12, 2304, 64)
+    for t in (bh, bw):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+        assert tuple(t.shape) == (2, 12, 2304, 48)
 
 
 GRID64 = dataclasses.replace(

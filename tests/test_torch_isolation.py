@@ -77,13 +77,17 @@ def test_serving_imports_without_host_libraries():
 def test_every_kernel_source_has_one_launch_counter():
     """Each ops module registers the counters of its own kernels in the
     shared table: once the model is imported, the table names exactly the
-    sources ``build_all()`` builds."""
+    sources ``build_all()`` builds, and beside them the bf16 builds of
+    K6's three sources, which count apart from their fp32 builds."""
     from vit_deep_radiomics_tpu_torch.models import vit  # noqa: F401
     from vit_deep_radiomics_tpu_torch.ops import _kernels, attention
     from vit_deep_radiomics_tpu_torch.utils import cuda_build
 
+    k6_bf16 = [f"flash_attention_{k}_bf16"
+               for k in ("fwd", "bwd_dq", "bwd_dkv")]
     assert attention.LAUNCHES is _kernels.LAUNCHES
-    assert sorted(_kernels.LAUNCHES) == sorted(cuda_build.KERNEL_SOURCES)
+    assert sorted(_kernels.LAUNCHES) == sorted(
+        [*cuda_build.KERNEL_SOURCES, *k6_bf16])
 
 
 def test_importing_every_module_leaves_jax_out():

@@ -160,17 +160,17 @@ def test_unbuilt_width_refused_before_launch():
     (768, 3050, torch.bfloat16, "hidden width 3050"),
     (768, 3080, torch.float32, "hidden width 3080"),
     (768, 3072, torch.float16, "float32 or bfloat16"),
-    (1536, 6144, torch.float32, "width 1536 in torch.float32"),
-    (1536, 6160, torch.float32, "width 1536 in torch.float32"),
+    (1536, 6148, torch.float32, "hidden width 6148"),
+    (1280, 5120, torch.float32, "width 1280 in torch.float32"),
     (1536, 6152, torch.bfloat16, "hidden width 6152")])
 @pytest.mark.parametrize("entry", ["route", "kernel"])
 def test_refused_before_launch(c, hidden, dtype, err, entry):
     """What neither body takes is refused by the route and by the wrapper
     before any build or launch: a width without a build, a hidden width
     that is not a multiple of the loops' chunk (32 in bf16, 16 in fp32, 16
-    in bf16 at C 1536; the Hopper body's 128 and the cluster body's 256
-    are the route's to decide), another dtype, or fp32 at C 1536 whatever
-    its hidden width (meta tensors stand in for CUDA ones)."""
+    in bf16 and 8 in fp32 at C 1536; the Hopper body's 128 and the cluster
+    body's 256 are the route's to decide), or another dtype (meta tensors
+    stand in for CUDA ones)."""
     def meta(*shape, dt=torch.float32):
         return torch.empty(*shape, device="meta", dtype=dt)
 
@@ -188,14 +188,16 @@ class _Built(Exception):
     """Raised in place of a kernel build: every check before it passed."""
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hidden", [6144, 6160])
 @pytest.mark.parametrize("entry", ["route", "kernel"])
-def test_vitg_width_admitted(entry, hidden, monkeypatch):
-    """bf16 at C 1536 with ViT-g/14's hidden 6144 (the cluster body's) or
-    an odd multiple of 16 (the loops') passes every check of the route and
-    of the wrapper and goes on to the build (the card tests hold both
-    bodies); meta tensors stand in for CUDA ones and the build is replaced
-    by a marker."""
+def test_vitg_width_admitted(entry, hidden, dtype, monkeypatch):
+    """C 1536 with ViT-g/14's hidden 6144 (bf16: the cluster body's) or an
+    odd multiple of 16 (bf16: the loops'), in bf16 or fp32 (the loops'
+    16-row, 8-unit instance), passes every check of the route and of the
+    wrapper and goes on to the build (the card tests hold every body); meta
+    tensors stand in for CUDA ones and the build is replaced by a
+    marker."""
     def built(*args, **kwargs):
         raise _Built()
 
@@ -205,7 +207,7 @@ def test_vitg_width_admitted(entry, hidden, monkeypatch):
         return torch.empty(*shape, device="meta", dtype=dt)
 
     c = 1536
-    args = (meta(4, c, dt=torch.bfloat16), meta(c), meta(c),
+    args = (meta(4, c, dt=dtype), meta(c), meta(c),
             meta(c, hidden), meta(hidden), meta(hidden, c), meta(c), meta(c))
     fn = M.fused_ln_mlp_residual_route if entry == "route" \
         else M.fused_ln_mlp_residual

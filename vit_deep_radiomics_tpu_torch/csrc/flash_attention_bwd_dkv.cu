@@ -41,6 +41,7 @@
 // backend), runs its products on the tensor cores as 3xTF32
 // (OpMultiplyAddFastF32); this kernel keeps `parity`'s fp32 FMA contract.
 
+#include "flash_trainable_bf16.cuh"
 #include "flash_trainable_core.cuh"
 
 namespace {
@@ -219,14 +220,22 @@ __global__ void __launch_bounds__(NT, 2) dkv_kernel(Params p, int nh,
   store_rows(p.dv + base + (size_t)key0 * D, dv, nrows, 1.f);
 }
 
+// bf16: the mma.sync body of flash_trainable_bf16.cuh
+__global__ void __launch_bounds__(vdr::k6b::NT)
+    dkv_mma_kernel(const vdr::k6b::Params p) {
+  extern __shared__ __align__(16) char smem_mma[];
+  vdr::k6b::dkv(p, blockIdx.z, blockIdx.y, blockIdx.x * vdr::k6b::ROWS,
+                smem_mma);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* vdr_error_string(int err) { return vdr::k6::error_string(err); }
 
-// fp32 only. Returns 0 on success, a cudaError_t after a failed attribute
-// call or launch, or -1 for a head dim other than 64.
+// fp32. Returns 0 on success, a cudaError_t after a failed attribute call
+// or launch, or -1 for a head dim other than 64.
 int vdr_flash_attention_bwd_dkv(const float* q, const float* k,
                                 const float* v, const float* bias_h,
                                 const float* bias_w, const int* kv_len,
@@ -262,6 +271,44 @@ int vdr_flash_attention_bwd_dkv(const float* q, const float* k,
   }
   return vdr::k6::bwd::launch(dkv_kernel, p, smem_bytes(lb_of(nh, nw)),
                               stream, nh, nw);
+}
+
+// bf16 q, k, v, dO, dk and dv; fp32 bias, lse and delta. Returns 0 on
+// success, a cudaError_t after a failed attribute call or launch, -1 for a
+// head dim other than 64, or -2 for a bias grid of more than
+// vdr::k6b::kMaxTerms terms.
+int vdr_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
+                                     const void* v, const float* bias_h,
+                                     const float* bias_w, const int* kv_len,
+                                     const void* dout, const float* lse,
+                                     const float* delta, void* dk, void* dv,
+                                     int B, int H, int S, int D, int kh,
+                                     int kw, float scale, void* stream) {
+  using vdr::k6b::bf16;
+  if (D != vdr::k6b::D) return -1;
+  const bool bias = bias_h != nullptr;
+  if (!vdr::k6b::takes(bias, kh, kw)) return vdr::k6b::kErrTerms;
+  vdr::k6b::Params p{};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.bias_h = bias_h;
+  p.bias_w = bias_w;
+  p.kv_len = kv_len;
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.B = B;
+  p.H = H;
+  p.S = S;
+  p.kh = bias ? kh : 0;
+  p.kw = bias ? kw : 1;
+  p.scale = scale;
+  p.scale_log2 = vdr::k6b::scale_log2_bf16(scale);
+  return vdr::k6b::launch(dkv_mma_kernel, p,
+                          vdr::k6b::dkv_smem(bias ? kh + kw : 0), stream);
 }
 
 }  // extern "C"

@@ -37,6 +37,7 @@
 // tile of O. No atomics: two runs give the same bits.
 
 #include "f32_tiled_forward.cuh"
+#include "flash_trainable_bf16.cuh"
 
 namespace {
 
@@ -70,14 +71,22 @@ int launch_tiled(const vdr::k6::Params& p, void* stream) {
   return vdr::k6::bwd::launch(k6_tiled_kernel<kBias>, p, smem, stream);
 }
 
+// bf16: the mma.sync body of flash_trainable_bf16.cuh
+__global__ void __launch_bounds__(vdr::k6b::NT)
+    k6_mma_fwd_kernel(const vdr::k6b::Params p) {
+  extern __shared__ __align__(16) char smem_mma[];
+  vdr::k6b::forward(p, blockIdx.z, blockIdx.y, blockIdx.x * vdr::k6b::ROWS,
+                    smem_mma);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* vdr_error_string(int err) { return vdr::k6::error_string(err); }
 
-// fp32 only. Returns 0 on success, a cudaError_t after a failed attribute
-// call or launch, or -1 for a head dim other than 64.
+// fp32. Returns 0 on success, a cudaError_t after a failed attribute call
+// or launch, or -1 for a head dim other than 64.
 int vdr_flash_attention_fwd(const float* q, const float* k, const float* v,
                             const float* bias_h, const float* bias_w,
                             const int* kv_len, float* out, float* lse, int B,
@@ -102,6 +111,49 @@ int vdr_flash_attention_fwd(const float* q, const float* k, const float* v,
   p.scale_log2 = scale * vdr::k6::kLog2e;
   return bias_h != nullptr ? launch_tiled<true>(p, stream)
                            : launch_tiled<false>(p, stream);
+}
+
+// bf16 q, k, v and out; fp32 bias, lse. Returns 0 on success, a cudaError_t
+// after a failed attribute call or launch, -1 for a head dim other than 64,
+// or -2 for a bias grid of more than vdr::k6b::kMaxTerms terms.
+int vdr_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                                 const float* bias_h, const float* bias_w,
+                                 const int* kv_len, void* out, float* lse,
+                                 int B, int H, int S, int D, int kh, int kw,
+                                 float scale, void* stream) {
+  using vdr::k6b::bf16;
+  if (D != vdr::k6b::D) return -1;
+  const bool bias = bias_h != nullptr;
+  if (!vdr::k6b::takes(bias, kh, kw)) return vdr::k6b::kErrTerms;
+  vdr::k6b::Params p{};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.bias_h = bias_h;
+  p.bias_w = bias_w;
+  p.kv_len = kv_len;
+  p.out = static_cast<bf16*>(out);
+  p.lse_out = lse;
+  p.B = B;
+  p.H = H;
+  p.S = S;
+  p.kh = bias ? kh : 0;
+  p.kw = bias ? kw : 1;
+  p.scale = scale;
+  p.scale_log2 = vdr::k6b::scale_log2_bf16(scale);
+  return vdr::k6b::launch(k6_mma_fwd_kernel, p,
+                          vdr::k6b::fwd_smem(bias ? kh + kw : 0), stream);
+}
+
+// The body the three K6 kernels run for a call (dtype 0 fp32, 1 bf16): 0
+// the register-tiled CUDA-core bodies (fp32), 1 the mma.sync bodies
+// (bf16); -1 for a head dim other than 64, -2 for a bf16 bias grid of more
+// than vdr::k6b::kMaxTerms terms.
+int vdr_flash_attention_route(int dtype, int D, int has_bias, int kh,
+                              int kw) {
+  if (D != vdr::k6::D) return -1;
+  if (dtype == 0) return 0;
+  return vdr::k6b::takes(has_bias != 0, kh, kw) ? 1 : vdr::k6b::kErrTerms;
 }
 
 }  // extern "C"

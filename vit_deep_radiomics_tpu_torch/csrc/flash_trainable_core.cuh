@@ -1,11 +1,14 @@
-// Shared core of K6, the generic trainable flash attention of `parity`
-// fine-tuning: forward with the lse residual (flash_attention_fwd.cu, on
-// the register-tiled body of f32_tiled_forward.cuh), dq with both bias
-// gradients (flash_attention_bwd_dq.cu), and dk/dv
-// (flash_attention_bwd_dkv.cu), over per-head fp32 q, k, v (B, H, S, D),
-// D = 64, with an optional decomposed bias bias_h (B, H, S, kh), bias_w
-// (B, H, S, kw) (kh * kw == S, any kw) or an optional kv_len (B,) padding
-// mask.
+// Shared core of K6's fp32 build, the generic trainable flash attention of
+// `parity` fine-tuning: forward with the lse residual
+// (flash_attention_fwd.cu, on the register-tiled body of
+// f32_tiled_forward.cuh), dq with both bias gradients
+// (flash_attention_bwd_dq.cu), and dk/dv (flash_attention_bwd_dkv.cu),
+// over per-head fp32 q, k, v (B, H, S, D), D = 64, with an optional
+// decomposed bias bias_h (B, H, S, kh), bias_w (B, H, S, kw) (kh * kw ==
+// S, any kw) or an optional kv_len (B,) padding mask. The same three
+// sources build K6 on bf16 operands (`fast` fine-tuning where no fused
+// kernel takes a grid) from the mma.sync bodies of
+// flash_trainable_bf16.cuh.
 //
 // The score, in log2 units, is rebuilt by every kernel exactly as the
 // forward built it:
@@ -76,6 +79,7 @@ __device__ __forceinline__ float bias_log2(float x) {
 
 inline const char* error_string(int err) {
   if (err == -1) return "head dim has no kernel build (D=64 only)";
+  if (err == -2) return "bias grid of more than 320 terms (Kh + Kw) in bf16";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -116,8 +116,11 @@
 // fp32 inputs (the JAX tests' type; not on the card's main path), bf16 at C
 // 384 or 1024, and bf16 at C 1536 with H not a multiple of 256 keep the
 // first version's loops below: 32-row (bf16, mma.sync) or 16-row (fp32,
-// CUDA cores) blocks that re-read all of w1 and w2 from L2 per block. The
-// fp32 loop stages its weight chunks synchronously; the bf16 loop by
+// CUDA cores, fp32 FMAs and no TF32) blocks that re-read all of w1 and w2
+// from L2 per block. The fp32 loop stages its weight chunks synchronously
+// (at C 1536 in 8-unit chunks: its bound at ViT-g/14's rows, 207 GFLOP at
+// 67 TFLOP/s, is 3.1 ms; the L2 re-reads, 75 MB a 16-row block, hold it
+// further off; PERF.md has its time); the bf16 loop by
 // cp.async, each chunk's w1 while the chunk before runs its second product
 // and its w2 while its own first product runs. At C 1536 32-unit chunks
 // would take 323 KB of shared memory, so its instance keeps 32-row blocks
@@ -440,72 +443,96 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores, 16 rows per block, 16-wide hidden chunks
+// fp32: CUDA cores, RF rows per block, CF-wide hidden chunks
 // ---------------------------------------------------------------------------
 
-constexpr int kRowsF = 16, kChunkF = 16;
+// 16 rows and 16-unit chunks up to C 1024; at C 1536 those tiles would take
+// 296 KB of shared memory, so its instance keeps 16-row blocks with 8-unit
+// chunks (197 KB) and two threads share each (row, hidden unit) dot
+// product, half of the y columns each, added in a fixed order
+constexpr int kRowsF = 16, kChunkF = 16, kChunkF1536 = 8;
 
-template <int C>
+template <int C, int RF, int CF>
 struct F32Layout {
-  static constexpr int LDW1 = C + 1;  // odd stride: the 16 w1 rows a warp
-                                      // reads at once sit on distinct banks
+  static constexpr int LDY = C + 1;   // odd strides: the y and w1 rows a
+  static constexpr int LDW1 = C + 1;  // warp reads at once sit on distinct
+                                      // banks
+  static constexpr int PAIRS = RF * CF;           // (row, unit) dot products
+  static constexpr int PARTS = kThreads / PAIRS;  // threads a dot product
+  static_assert(PARTS * PAIRS == kThreads && C % PARTS == 0,
+                "K7's fp32 tiles must split the dot products evenly");
   static constexpr size_t bytes =
-      sizeof(float) * ((size_t)kRowsF * C + (size_t)kChunkF * LDW1 +
-                       (size_t)kChunkF * C + (size_t)kRowsF * kChunkF);
+      sizeof(float) * ((size_t)RF * LDY + (size_t)CF * LDW1 + (size_t)CF * C +
+                       (size_t)PARTS * PAIRS);
 };
 
-template <int C>
+template <int C, int RF, int CF>
 __global__ void __launch_bounds__(kThreads) mlp_f32_kernel(MlpParams p) {
+  using L = F32Layout<C, RF, CF>;
   constexpr int CPT = (C + kThreads - 1) / kThreads;  // columns per thread
+  constexpr int KP = C / L::PARTS;                    // y columns a part
   extern __shared__ __align__(16) char smem_raw[];
-  float* ys = reinterpret_cast<float*>(smem_raw);  // [row][C]
-  float* w1s = ys + kRowsF * C;                    // [hidden][LDW1]
-  float* w2s = w1s + kChunkF * F32Layout<C>::LDW1;  // [hidden][C] (w2^T)
-  float* gs = w2s + kChunkF * C;                   // [row][hidden]
+  float* ys = reinterpret_cast<float*>(smem_raw);  // [row][LDY]
+  float* w1s = ys + RF * L::LDY;                   // [hidden][LDW1]
+  float* w2s = w1s + CF * L::LDW1;                 // [hidden][C] (w2^T)
+  float* gs = w2s + CF * C;                        // [part][row][hidden]
   const float* w1 = static_cast<const float*>(p.w1);
   const float* w2 = static_cast<const float*>(p.w2);
-  const int row0 = blockIdx.x * kRowsF;
-  layer_norm_rows<float, C>(p, row0, kRowsF, ys, C);
+  const int row0 = blockIdx.x * RF;
+  layer_norm_rows<float, C>(p, row0, RF, ys, L::LDY);
 
-  float acc[kRowsF][CPT];
+  float acc[RF][CPT];
 #pragma unroll
-  for (int r = 0; r < kRowsF; ++r)
+  for (int r = 0; r < RF; ++r)
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[r][j] = 0.f;
-  const int hr = threadIdx.x / kChunkF, hc = threadIdx.x % kChunkF;
+  const int pair = threadIdx.x % L::PAIRS, part = threadIdx.x / L::PAIRS;
+  const int hr = pair / CF, hc = pair % CF;
 
-  for (int h0 = 0; h0 < p.H; h0 += kChunkF) {
+  for (int h0 = 0; h0 < p.H; h0 += CF) {
     __syncthreads();
-    for (int i = threadIdx.x; i < kChunkF * C; i += kThreads) {
+    for (int i = threadIdx.x; i < CF * C; i += kThreads) {
       const int r = i / C, col = i % C;
-      w1s[r * F32Layout<C>::LDW1 + col] = w1[(size_t)(h0 + r) * C + col];
+      w1s[r * L::LDW1 + col] = w1[(size_t)(h0 + r) * C + col];
     }
-    for (int i = threadIdx.x; i < C * kChunkF; i += kThreads) {
-      const int n = i / kChunkF, k = i % kChunkF;
+    for (int i = threadIdx.x; i < C * CF; i += kThreads) {
+      const int n = i / CF, k = i % CF;
       w2s[k * C + n] = w2[(size_t)n * p.H + h0 + k];
     }
     __syncthreads();
     float hv = 0.f;
-    for (int k = 0; k < C; ++k) hv = fmaf(ys[hr * C + k], w1s[hc * F32Layout<C>::LDW1 + k], hv);
-    gs[hr * kChunkF + hc] = gelu_tanh(hv + p.b1[h0 + hc]);
+    for (int k = part * KP; k < (part + 1) * KP; ++k)
+      hv = fmaf(ys[hr * L::LDY + k], w1s[hc * L::LDW1 + k], hv);
+    if constexpr (L::PARTS == 1) {
+      gs[pair] = gelu_tanh(hv + p.b1[h0 + hc]);
+    } else {
+      gs[part * L::PAIRS + pair] = hv;
+      __syncthreads();
+      if (part == 0) {
+        for (int t = 1; t < L::PARTS; ++t) hv += gs[t * L::PAIRS + pair];
+        hv = gelu_tanh(hv + p.b1[h0 + hc]);
+      }
+      __syncthreads();
+      if (part == 0) gs[pair] = hv;
+    }
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kChunkF; ++k) {
+    for (int k = 0; k < CF; ++k) {
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int col = threadIdx.x + j * kThreads;
         if (col < C) {
           const float w = w2s[k * C + col];
 #pragma unroll
-          for (int r = 0; r < kRowsF; ++r)
-            acc[r][j] = fmaf(gs[r * kChunkF + k], w, acc[r][j]);
+          for (int r = 0; r < RF; ++r)
+            acc[r][j] = fmaf(gs[r * CF + k], w, acc[r][j]);
         }
       }
     }
   }
   float* out = static_cast<float*>(p.out);
 #pragma unroll
-  for (int r = 0; r < kRowsF; ++r) {
+  for (int r = 0; r < RF; ++r) {
     const int row = row0 + r;
     if (row >= p.rows) continue;
 #pragma unroll
@@ -1160,21 +1187,23 @@ int launch_bf16(const MlpParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int C, int RF, int CF>
+int launch_f32(const MlpParams& p, cudaStream_t stream) {
+  if (p.H % CF) return (int)cudaErrorInvalidValue;
+  const size_t smem = F32Layout<C, RF, CF>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_f32_kernel<C, RF, CF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mlp_f32_kernel<C, RF, CF><<<(p.rows + RF - 1) / RF, kThreads, smem,
+                              stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch(const MlpParams& p, int dtype, cudaStream_t stream) {
-  if (dtype != 0) {
-    return launch_bf16<C, kRows, kChunk>(p, stream);
-  } else {
-    if (p.H % kChunkF) return (int)cudaErrorInvalidValue;
-    const size_t smem = F32Layout<C>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        mlp_f32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    mlp_f32_kernel<C><<<(p.rows + kRowsF - 1) / kRowsF, kThreads, smem,
-                        stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+  return dtype != 0 ? launch_bf16<C, kRows, kChunk>(p, stream)
+                    : launch_f32<C, kRowsF, kChunkF>(p, stream);
 }
 
 }  // namespace
@@ -1195,10 +1224,10 @@ int vdr_fused_ln_mlp_residual_route(int C, int H, int dtype) {
 }
 
 // Returns 0 on success, a cudaError_t after a failed launch, -1 for a
-// width C without a build (384, 768 and 1024 are built in both dtypes,
-// 1536 in bf16), -2 when a TMA descriptor cannot be made, or -3 for the
-// cluster body without `y`. dtype: 0 = fp32, 1 = bf16. H must be a
-// multiple of 32 (bf16; 16 at C 1536) or 16 (fp32); bf16 at C 768 with H a
+// width C without a build (384, 768, 1024 and 1536 are built in both
+// dtypes), -2 when a TMA descriptor cannot be made, or -3 for the cluster
+// body without `y`. dtype: 0 = fp32, 1 = bf16. H must be a multiple of 32
+// (bf16; 16 at C 1536) or 16 (fp32; 8 at C 1536); bf16 at C 768 with H a
 // multiple of 128 takes the Hopper body, bf16 at C 1536 with H a multiple
 // of 256 the cluster body (which needs `y`, a (rows, 1536) bf16 scratch
 // for the LayerNorm's output; other calls ignore it), every other call
@@ -1220,7 +1249,7 @@ int vdr_fused_ln_mlp_residual(const void* x, const float* ln_scale,
     case 1024: return launch<1024>(p, dtype, s);
     case 1536:
       return dtype != 0 ? launch_bf16<1536, kRowsG, kChunkG>(p, s)
-                        : kErrNoBuild;
+                        : launch_f32<1536, kRowsF, kChunkF1536>(p, s);
     default: return kErrNoBuild;
   }
 }

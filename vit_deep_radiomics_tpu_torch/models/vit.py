@@ -384,7 +384,9 @@ class WindowedAttention(nn.Module):
         quant = policy.quantized and not self.trainable
         variant = self._fused_variant(h, w)
         # JAX vit.py:307-318: trainable layers take the fused layout under
-        # bf16 only; parity (fp32) training takes the generic K6 path
+        # bf16 only; parity (fp32) training, and bf16 training on a grid no
+        # fused kernel takes (SAM's global layers at 768 px), the generic
+        # K6 path
         fused_trainable = (self.trainable and variant is not None
                            and dtype == torch.bfloat16)
         if self.use_flash and (fused_trainable if self.trainable

@@ -22,11 +22,16 @@ Kw)``, as in ``ops/attention.py``):
   :func:`global_attention_fwd_route` and :func:`global_attention_bwd_route`
   say which.
 * :func:`flash_attention_trainable` — K6, the generic per-head
-  ``(B, H, S, D)`` path of ``parity`` (fp32) fine-tuning: forward with the
-  lse residual (``csrc/flash_attention_fwd.cu``, the register-tiled body
-  of ``csrc/f32_tiled_forward.cuh``), dq with both bias
-  gradients (``csrc/flash_attention_bwd_dq.cu``) and dk/dv
-  (``csrc/flash_attention_bwd_dkv.cu``), any key-grid width.
+  ``(B, H, S, D)`` path of ``parity`` (fp32) fine-tuning, and of ``fast``
+  (bf16) fine-tuning at grids the fused kernels refuse (SAM's global layers
+  at 768 px: 48 x 48 tokens): forward with the lse residual
+  (``csrc/flash_attention_fwd.cu``), dq with both bias gradients
+  (``csrc/flash_attention_bwd_dq.cu``) and dk/dv
+  (``csrc/flash_attention_bwd_dkv.cu``), any key-grid width. fp32 calls
+  run the register-tiled CUDA-core bodies (``csrc/f32_tiled_forward.cuh``,
+  ``csrc/flash_trainable_core.cuh``), bf16 calls the mma.sync bodies of
+  ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias gradients);
+  :func:`flash_attention_route` says which.
 
 The backward formulas, with ``P`` the softmax of the scores and ``O`` the
 forward's output, natural units::
@@ -37,10 +42,12 @@ forward's output, natural units::
     dbias_w[i, c] = Σ_{key j in grid column c} dS[i, j]
 
 Each kernel has a plain PyTorch version beside it that writes out the same
-formulas in fp32; the wrappers take it for CPU tensors only, and for CUDA
-tensors launch their kernel or raise. K4 and K5 build bf16 only, K6 fp32
-only, all of them head dim 64 only. Launches are counted in
-``ops/_kernels.py::LAUNCHES``.
+formulas in fp32 (K6's with the JAX kernels' bf16 rounding points on bf16
+operands); the wrappers take it for CPU tensors only, and for CUDA tensors
+launch their kernel or raise. K4 and K5 build bf16 only, K6 fp32 and
+bf16, all of them head dim 64 only. Launches are counted in
+``ops/_kernels.py::LAUNCHES``, K6's bf16 builds under their own names
+(``flash_attention_fwd_bf16`` and so on).
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ import math
 
 import torch
 
-from ._kernels import LAUNCHES, _F, _I, _P, _load, _ptr, register_launches
+from ._kernels import (LAUNCHES, _DTYPE_CODES, _F, _I, _P, _load, _ptr,
+                       register_launches)
 from .attention import (_check_cuda, _check_layout, _heads, _raise_on,
                         fused_global_attention_plain, fused_window_attention)
 
@@ -77,12 +85,14 @@ __all__ = [
     "flash_attention_bwd_dq_plain",
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dkv_plain",
+    "flash_attention_route",
 ]
 
 register_launches("window_attention_bwd", "global_attention_fwd_lse",
                   "global_attention_bwd_dq", "global_attention_bwd_dkv",
-                  "flash_attention_fwd", "flash_attention_bwd_dq",
-                  "flash_attention_bwd_dkv")
+                  *(f"flash_attention_{k}{suffix}"
+                    for suffix in ("", "_bf16")
+                    for k in ("fwd", "bwd_dq", "bwd_dkv")))
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
@@ -90,6 +100,10 @@ _LOG2E = math.log2(math.e)
 # one grid row, and a 64-key tile holds whole grid rows or half of one (Kw
 # 128, SAM's global grid at 2048 px, which the Hopper bodies take)
 _K5_BIAS_WIDTHS = (8, 16, 32, 64, 128)
+# K6's builds: fp32 (register-tiled CUDA-core bodies) and bf16 (mma.sync)
+_K6_DTYPES = (torch.float32, torch.bfloat16)
+# csrc/flash_attention_fwd.cu's vdr_flash_attention_route codes
+_K6_ROUTES = ("tiled", "mma")
 
 
 # ---------------------------------------------------------------------------
@@ -220,14 +234,27 @@ def global_attention_bwd_dkv_plain(q, kv, bias_h, bias_w, kv_len, dout, lse,
                         num_heads, scale)[1]
 
 
+def _round(x, dtype):
+    """x (fp32) rounded to ``dtype`` and widened back: a no-op for fp32,
+    the JAX kernels' rounding points on bf16 operands."""
+    return x.to(dtype).float()
+
+
 def _flash_scores(q, k, bias_h, bias_w, kv_len, scale):
-    """K6's fp32 scores in log2 units, (B, H, S, S): q·scale·log2(e)·kᵀ +
-    log2(e)·bias_h[i, j // Kw] + log2(e)·bias_w[i, j % Kw], keys j ≥
-    kv_len at -1e30 (JAX ``_fwd_kernel`` and ``_recompute_p_ds``)."""
-    s = torch.matmul(q.float() * (scale * _LOG2E),
+    """K6's fp32 scores in log2 units, (B, H, S, S): Q^·kᵀ +
+    t(bias_h[i, j // Kw]) + t(bias_w[i, j % Kw]), keys j ≥ kv_len at
+    -1e30 (JAX ``_fwd_kernel`` and ``_recompute_p_ds``). Q^ = q times
+    scale·log2(e), and t(x) = x·log2(e), both in q's dtype as JAX rounds
+    them: on bf16 q the constant scale·log2(e) is itself a bf16 (JAX's weak
+    type), Q^ and each bias term are rounded to bf16, and the two terms are
+    added in fp32 before they join the score."""
+    scale2 = torch.tensor(scale * _LOG2E, dtype=torch.float64) \
+        .to(q.dtype).item()
+    s = torch.matmul(_round(q.float() * scale2, q.dtype),
                      k.float().transpose(-1, -2))
     if bias_h is not None:
-        bh, bw = bias_h.float() * _LOG2E, bias_w.float() * _LOG2E
+        bh, bw = (_round(t.float() * _LOG2E, q.dtype)
+                  for t in (bias_h, bias_w))
         s = s + (bh[..., :, None] + bw[..., None, :]).flatten(-2)
     if kv_len is not None:
         key = torch.arange(k.shape[2], device=q.device)
@@ -239,12 +266,13 @@ def _flash_scores(q, k, bias_h, bias_w, kv_len, scale):
 
 def flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len, *, scale):
     """Plain version of the K6 forward: (out, lse) with lse (B, H, S) the
-    log2 log-sum-exp of each row's scores, fp32."""
+    log2 log-sum-exp of each row's scores, fp32; P rounded to v's dtype
+    before P·V, the row sums taken on the unrounded P (JAX :121)."""
     s = _flash_scores(q, k, bias_h, bias_w, kv_len, scale)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp2(s - m)
     l = e.sum(dim=-1, keepdim=True)
-    out = torch.matmul(e, v.float()) / l
+    out = torch.matmul(_round(e, v.dtype), v.float()) / l
     return out.to(q.dtype), (m + torch.log2(l)).squeeze(-1).contiguous()
 
 
@@ -254,19 +282,24 @@ def flash_attention_delta(out, dout):
 
 
 def _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale):
-    """P from the residual and the natural-unit score gradient dS."""
+    """P from the residual and the natural-unit score gradient dS, fp32;
+    dP = dO·Vᵀ on dO rounded to v's dtype."""
     p = torch.exp2(_flash_scores(q, k, bias_h, bias_w, kv_len, scale)
                    - lse[..., None])
-    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    dp = torch.matmul(_round(dout.float(), v.dtype),
+                      v.float().transpose(-1, -2))
     return p, p * (dp - delta[..., None])
 
 
 def flash_attention_bwd_dq_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
                                  delta, *, scale):
     """Plain version of the K6 dq kernel: (dq, dbias_h, dbias_w), the bias
-    gradients the sums of dS over each key-grid row and column."""
+    gradients the sums of dS over each key-grid row and column. dS is
+    rounded to q's dtype before the product and the sums (JAX :230,
+    :242)."""
     _, ds = _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
                         scale)
+    ds = _round(ds, q.dtype)
     dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
     if bias_h is None:
         return dq, None, None
@@ -276,11 +309,13 @@ def flash_attention_bwd_dq_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
 
 def flash_attention_bwd_dkv_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
                                   delta, *, scale):
-    """Plain version of the K6 dkv kernel: (dk, dv)."""
+    """Plain version of the K6 dkv kernel: (dk, dv), dS rounded to q's
+    dtype and P to dO's before the products (JAX :242, :309)."""
     p, ds = _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
                         scale)
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
-    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    dk = torch.matmul(_round(ds, q.dtype).transpose(-1, -2), q.float()) \
+        * scale
+    dv = torch.matmul(_round(p, dout.dtype).transpose(-1, -2), dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -288,19 +323,22 @@ def flash_attention_bwd_dkv_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_bwd_cuda(q, d, *tensors, fp32=(), dtype=torch.bfloat16):
-    """What a trainable kernel needs: its build's dtype (K4 and K5 bf16, K6
-    fp32), then ``_check_cuda``'s launch needs for the operands; the
-    ``fp32`` residuals float32 and contiguous on q's device."""
-    if q.dtype != dtype:
-        raise TypeError(f"this trainable kernel takes {dtype}, got "
-                        f"{q.dtype}")
+def _check_bwd_cuda(q, d, *tensors, fp32=(), dtype=(torch.bfloat16,)):
+    """What a trainable kernel needs: a dtype it has a build for (``dtype``:
+    K4 and K5 bf16, K6 fp32 and bf16), then ``_check_cuda``'s launch needs
+    for the operands; the ``fp32`` tensors (the lse and delta residuals,
+    K6's bias factors) float32 and contiguous on q's device."""
+    if q.dtype not in dtype:
+        raise TypeError(f"this trainable kernel takes "
+                        f"{' or '.join(map(str, dtype))}, got {q.dtype}")
     _check_cuda(q, d, *tensors)
     for t in fp32:
+        if t is None:
+            continue
         if t.device != q.device or t.dtype != torch.float32 or \
-                not t.is_contiguous():
-            raise ValueError("lse and delta must be contiguous float32 on "
-                             f"{q.device}")
+                not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("lse, delta and K6's bias must be contiguous, "
+                             f"16-byte aligned float32 on {q.device}")
 
 
 def _check_k5_bias(kw):
@@ -500,40 +538,52 @@ def _check_flash(q, k, v, bias_h, bias_w, kv_len):
     return kh, kw
 
 
+def _k6_entry(source, q, d, bias_h, bias_w, *tensors, fp32=(), args):
+    """(lib, fn, name): the C entry of a K6 kernel for q's dtype
+    (``vdr_<name>``) after the launch checks (k, v and dO in q's dtype, the
+    bias factors and residuals fp32), and the build's launch counter
+    ``name``: ``<source>`` for fp32, ``<source>_bf16`` for bf16."""
+    _check_bwd_cuda(q, d, *tensors, fp32=(bias_h, bias_w, *fp32),
+                    dtype=_K6_DTYPES)
+    name = source + ("_bf16" if q.dtype == torch.bfloat16 else "")
+    return (*_load(source, args, entry=f"vdr_{name}"), name)
+
+
 def flash_attention_fwd(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
                         scale):
     """K6 forward wrapper: (out, lse), lse (B, H, S) fp32 in log2 units.
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/flash_attention_fwd.cu``."""
+    ``csrc/flash_attention_fwd.cu`` (its fp32 or bf16 build)."""
     kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len,
                                          scale=scale)
     b, h, s, d = q.shape
-    _check_bwd_cuda(q, d, k, v, bias_h, bias_w, dtype=torch.float32)
-    lib, fn = _load("flash_attention_fwd", [_P] * 8 + [_I] * 6 + [_F, _P])
+    lib, fn, name = _k6_entry("flash_attention_fwd", q, d, bias_h, bias_w,
+                              k, v, args=[_P] * 8 + [_I] * 6 + [_F, _P])
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, device=q.device, dtype=torch.float32)
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
             _ptr(_kv_len_i32(kv_len, q)), _ptr(out), _ptr(lse),
             b, h, s, d, kh, kw, scale, _stream(q))
     _raise_on(rc, lib, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"] += 1
+    LAUNCHES[name] += 1
     return out, lse
 
 
 def flash_attention_bwd_dq(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
                            *, scale):
     """K6 dq wrapper: (dq, dbias_h, dbias_w). CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/flash_attention_bwd_dq.cu``."""
+    version; CUDA tensors launch ``csrc/flash_attention_bwd_dq.cu`` (its
+    fp32 or bf16 build; the bias gradients fp32 in both)."""
     kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(
             q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale=scale)
     b, h, s, d = q.shape
-    _check_bwd_cuda(q, d, k, v, bias_h, bias_w, dout, fp32=(lse, delta),
-                    dtype=torch.float32)
-    lib, fn = _load("flash_attention_bwd_dq", [_P] * 12 + [_I] * 6 + [_F, _P])
+    lib, fn, name = _k6_entry("flash_attention_bwd_dq", q, d, bias_h,
+                              bias_w, k, v, dout, fp32=(lse, delta),
+                              args=[_P] * 12 + [_I] * 6 + [_F, _P])
     dq = torch.empty_like(q)
     dbh = torch.empty_like(bias_h) if bias_h is not None else None
     dbw = torch.empty_like(bias_w) if bias_w is not None else None
@@ -542,30 +592,51 @@ def flash_attention_bwd_dq(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
             _ptr(dq), _ptr(dbh), _ptr(dbw), b, h, s, d, kh, kw, scale,
             _stream(q))
     _raise_on(rc, lib, "flash_attention_bwd_dq")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    LAUNCHES[name] += 1
     return dq, dbh, dbw
 
 
 def flash_attention_bwd_dkv(q, k, v, bias_h, bias_w, kv_len, dout, lse,
                             delta, *, scale):
     """K6 dkv wrapper: (dk, dv). CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/flash_attention_bwd_dkv.cu``."""
+    tensors launch ``csrc/flash_attention_bwd_dkv.cu`` (its fp32 or bf16
+    build)."""
     kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(
             q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale=scale)
     b, h, s, d = q.shape
-    _check_bwd_cuda(q, d, k, v, bias_h, bias_w, dout, fp32=(lse, delta),
-                    dtype=torch.float32)
-    lib, fn = _load("flash_attention_bwd_dkv",
-                    [_P] * 11 + [_I] * 6 + [_F, _P])
+    lib, fn, name = _k6_entry("flash_attention_bwd_dkv", q, d, bias_h,
+                              bias_w, k, v, dout, fp32=(lse, delta),
+                              args=[_P] * 11 + [_I] * 6 + [_F, _P])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
             _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse), _ptr(delta),
             _ptr(dk), _ptr(dv), b, h, s, d, kh, kw, scale, _stream(q))
     _raise_on(rc, lib, "flash_attention_bwd_dkv")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    LAUNCHES[name] += 1
     return dk, dv
+
+
+def flash_attention_route(q, k, v, bias_h=None, bias_w=None,
+                          kv_len=None) -> str:
+    """Which body the three K6 kernels run for these operands: ``"plain"``
+    on the CPU; on the card, as ``csrc/flash_attention_fwd.cu``'s C entry
+    chooses, ``"tiled"`` (fp32: the register-tiled CUDA-core bodies) or
+    ``"mma"`` (bf16: the mma.sync bodies). Raises for a call the kernels
+    refuse (a head dim other than 64; in bf16, a bias grid of more than 320
+    terms Kh + Kw)."""
+    kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
+    if q.device.type == "cpu":
+        return "plain"
+    d = q.shape[-1]
+    _check_bwd_cuda(q, d, k, v, fp32=(bias_h, bias_w), dtype=_K6_DTYPES)
+    lib, fn = _load("flash_attention_fwd", [_I] * 5,
+                    entry="vdr_flash_attention_route")
+    code = fn(_DTYPE_CODES[q.dtype], d, int(bias_h is not None), kh, kw)
+    if code < 0:
+        _raise_on(code, lib, "flash_attention_route")
+    return _K6_ROUTES[code]
 
 
 # ---------------------------------------------------------------------------
@@ -670,7 +741,8 @@ def flash_attention_trainable(q, k, v, bias_h=None, bias_w=None, kv_len=None,
     Optional decomposed bias ``bias_h (B, H, S, Kh)``, ``bias_w (B, H, S,
     Kw)`` with Kh·Kw == S (any Kw), key j taking ``bias_h[..., j // Kw] +
     bias_w[..., j % Kw]``; optional ``kv_len (B,)`` key-padding mask, which
-    is not differentiable. Returns (B, H, S, D); gradients flow to q, k, v
-    and both bias factors."""
+    is not differentiable. q, k, v in fp32 or bf16 (the bias fp32 either
+    way). Returns (B, H, S, D) in q's dtype; gradients flow to q, k, v and
+    both bias factors."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return _FlashAttention.apply(q, k, v, bias_h, bias_w, kv_len, scale)

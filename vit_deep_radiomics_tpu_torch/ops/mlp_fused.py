@@ -16,8 +16,8 @@ Weights keep JAX's layout at this function, w1 (C, H) and w2 (H, C); the
 transposed view of a torch ``Linear`` weight is what the kernel reads, so
 the model passes ``lin1.weight.t()`` at no cost. For a CPU tensor
 :func:`fused_ln_mlp_residual` runs :func:`fused_ln_mlp_residual_plain`; for
-a CUDA tensor it launches K7 (C in 384, 768, 1024 in bf16, the path, or
-fp32; C 1536, DINOv2 ViT-g/14, in bf16) or raises.
+a CUDA tensor it launches K7 (C in 384, 768, 1024 and 1536, DINOv2
+ViT-g/14's width, in bf16, the path, or fp32) or raises.
 :func:`fused_ln_mlp_residual_route` says which body a call takes: bf16 at
 C 768 with a hidden width that is a multiple of 128 (SAM ViT-B/16, DINOv2
 ViT-B/14) the Hopper body (TMA + wgmma); bf16 at C 1536 with a hidden
@@ -26,8 +26,9 @@ width that is a multiple of 256 (DINOv2 ViT-g/14's 6144) the cluster body
 multicast by TMA, the GELU output passed between the blocks' shared
 memories), for which the wrapper allocates a (rows, 1536) bf16 scratch
 that the kernel's LayerNorm prologue fills; every other call the first
-version's loops (at C 1536 their instance of 32-row blocks and 16-unit
-hidden chunks).
+version's loops (at C 1536 their bf16 instance of 32-row blocks and 16-unit
+hidden chunks, and their fp32 instance of 16-row blocks and 8-unit hidden
+chunks, on fp32 FMAs with no TF32).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ register_launches("fused_ln_mlp_residual")
 # == 0 to the Hopper body, bf16 at C 1536 with hidden % 256 == 0 to the
 # cluster body, every other call to the loops
 _CHUNK = {torch.bfloat16: {384: 32, 768: 32, 1024: 32, 1536: 16},
-          torch.float32: {384: 16, 768: 16, 1024: 16}}
+          torch.float32: {384: 16, 768: 16, 1024: 16, 1536: 8}}
 # vdr_fused_ln_mlp_residual_route's codes
 _ROUTES = ("loops", "hopper", "cluster")
 

@@ -34,6 +34,7 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path parity-forward PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-768 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-2048 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-768 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path dinov2 PARENT CHANGE
 
@@ -114,7 +115,15 @@ and the top device costs from ``utils/profiling.py``'s ``trace_runs``),
 the three K5 kernels' ms on key grids 128 keys wide (B=1, Kh 32 and Kh
 128: SAM @2048's global layers), and a SHA-256 of the K5 dq and dkv
 outputs at SAM @1024's Kw 64 shape and DINOv2's kv_len shape (no bias),
-which must not differ between the trees;
+which must not differ between the trees; with ``--path finetune-768``
+``chip_smoke.py``'s phase 24 (SAM ViT-B/16 @768 `fast` fine-tuning at B=2,
+its global layers on K6 in bf16: step ms, launches, then wall ms, device
+ms, idle share and the top device costs from ``trace_runs``), the three K6
+kernels' ms in bf16 at ``chip_smoke.py``'s ``K6_BF16_SHAPES`` (its global
+layers' shape (2, 12, 2304, 64), Kh = Kw = 48, and DINOv2's kv_len shape
+(2, 12, 1536, 64), 1370 valid) and a SHA-256 of their outputs at both,
+which must not differ between the trees unless the change means to
+change them;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
 a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
@@ -1418,6 +1427,47 @@ for tag, shape in {"kw64": (4, 4096, 64, 64, None),
     del fa, args
 '''
 
+# SAM @768 under `fast` fine-tuning (its global layers' 48 x 48 grid on K6
+# in bf16, its windowed layers on K1/K4): chip_smoke.py's phase 24 (five B=2
+# steps with their launches held, then traced steps), then the three K6
+# kernels' ms in bf16 at chip_smoke.py's K6_BF16_SHAPES (its phase 10
+# inputs) and the bits of their outputs
+_PAIR_FINETUNE768_CHILD = r'''
+import hashlib, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.engine import finetune as ft
+from vit_deep_radiomics_tpu_torch.models import vit
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+cuda_build.build_all(("fused_window_attention", "window_attention_bwd",
+                      *cs.K6_NAMES))
+cs.sam768_phase(torch, A, G, ft, vit)
+torch.cuda.empty_cache()
+g = torch.Generator(device="cuda").manual_seed(1)
+for tag, shape in cs.K6_BF16_SHAPES.items():
+    args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
+    out, lse = G.flash_attention_fwd(*args, scale=0.125)
+    rest = (dout, lse, G.flash_attention_delta(out, dout))
+    outs = (out, lse, *G.flash_attention_bwd_dq(*args, *rest, scale=0.125),
+            *G.flash_attention_bwd_dkv(*args, *rest, scale=0.125))
+    h = hashlib.sha256()
+    for o in outs:
+        if o is not None:
+            h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    fwd, dq, dkv = (
+        cs.cuda_ms(torch, lambda fn=fn, a=a: fn(*a, scale=0.125), 5)
+        for fn, a in ((G.flash_attention_fwd, args),
+                      (G.flash_attention_bwd_dq, (*args, *rest)),
+                      (G.flash_attention_bwd_dkv, (*args, *rest))))
+    print(f"k6 bf16 [{tag}]: fwd ms {fwd:.4f}, dq ms {dq:.4f}, dkv ms "
+          f"{dkv:.4f}; sha256 {h.hexdigest()[:16]}", flush=True)
+    del args, dout, out, lse, rest, outs
+    torch.cuda.empty_cache()
+'''
+
 # The frozen-backbone paths of K7 and K8: `fast`, `int8` and `fast` with
 # VDR_FUSED_MLP=1 SAM ViT-B/16 @1024 forwards at B=4 (host ms, mean of 5
 # after two warm-ups; device ms from utils/profiling.py), a one-patient
@@ -1521,6 +1571,7 @@ cs.dinov2_extraction_phase(torch, A, vit, precision, tex, syn)
 _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
              "fast-2048": _PAIR_FAST2048_CHILD,
+             "finetune-768": _PAIR_FINETUNE768_CHILD,
              "parity-forward": _PAIR_PARITY_FORWARD_CHILD,
              "frozen": _PAIR_FROZEN_CHILD, "dinov2": _PAIR_DINOV2_CHILD}
 
@@ -1529,7 +1580,8 @@ def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
     child = _CHILDREN[path]
     keep = ("forward", "extraction", "fine-tune", "k6 ", "k5 ", "kernel ",
             "Traceback")
-    if path in ("dinov2", "fast-2048"):    # top device costs, one a line
+    if path in ("dinov2", "fast-2048"):
+        # top device costs, one a line
         keep += ("  ",)
     for tag, tree in (("parent", parent), ("change", change),
                       ("change", change), ("parent", parent)):
