@@ -419,6 +419,66 @@ def test_bwd_route_names_the_c_entrys_body(kernel, answer, body, kh, kw,
                        "vdr_global_attention_bwd_route")]
 
 
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_k6_bwd_route_is_plain_on_the_cpu(kernel):
+    """K6's backward route answers "plain" for CPU tensors (the card's
+    answers, "hopper" with no bias or Kw 48 and "mma" at other widths, are
+    held in tests/test_torch_cuda_kernels.py) and checks the layout."""
+    q = torch.zeros(1, 2, 240, 64, dtype=torch.bfloat16)
+    bh, bw = torch.zeros(1, 2, 240, 5), torch.zeros(1, 2, 240, 48)
+    assert G.flash_attention_bwd_route(q, q, q, bh, bw,
+                                       kernel=kernel) == "plain"
+    with pytest.raises(ValueError, match="Kh\\*Kw"):
+        G.flash_attention_bwd_route(q, q, q, bh[..., :4], bw, kernel=kernel)
+    with pytest.raises(ValueError, match="'dq' or 'dkv'"):
+        G.flash_attention_bwd_route(q, q, q, kernel="dv")
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("answer,counter", [
+    (2, "_hopper"), (1, "_bf16"), (0, "")])
+def test_k6_bwd_counts_the_body_its_entry_reports(kernel, answer, counter,
+                                                  monkeypatch):
+    """A K6 backward wrapper counts each launch under the body that ran, as
+    its bf16 C entry reports it through its last argument: ``_hopper`` for
+    the TMA + wgmma bodies (2), ``_bf16`` for the mma.sync ones (1); an
+    fp32 call (answer 0) passes no such argument and counts under the fp32
+    build's name. No route entry is asked. The entries are stand-ins and
+    meta tensors stand in for CUDA ones."""
+    asked, argc = [], []
+
+    def entry_fn(*args):
+        argc.append(len(args))
+        if answer:
+            args[-1]._obj.value = answer
+        return 0
+
+    def load(name, argtypes, entry=None):
+        asked.append(entry)
+        return None, entry_fn
+
+    monkeypatch.setattr(G, "_load", load)
+    monkeypatch.setattr(G, "_stream", lambda t: None)
+    dt = torch.float32 if answer == 0 else torch.bfloat16
+
+    def meta(*shape, dtype=dt):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    q = meta(1, 2, 2304, 64)
+    bh, bw = (meta(1, 2, 2304, 48, dtype=torch.float32) for _ in range(2))
+    lse = meta(1, 2, 2304, dtype=torch.float32)
+    fn = getattr(G, f"flash_attention_bwd_{kernel}")
+    A.reset_launch_counts()
+    fn(q, q, q, bh, bw, None, q, lse, lse, scale=0.125)
+    source = f"flash_attention_bwd_{kernel}"
+    assert {k: v for k, v in A.LAUNCHES.items() if v} == \
+        {source + counter: 1}
+    suffix = "_bf16" if answer else ""
+    assert asked == [f"vdr_{source}{suffix}"]
+    n_out = 3 if kernel == "dq" else 2
+    assert argc == [9 + n_out + 8 + bool(answer)]
+
+
 class _Built(Exception):
     """Raised in place of a kernel build: every check before it passed."""
 

@@ -1161,33 +1161,33 @@ def _k6_bf16(args, dout):
     return (q, k, v, *args[3:]), dout.to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("b,s,kh,kw,kv_len", [
-    (1, 192, 4, 48, None),       # Kw 48: a 64-key tile spans two grid rows
-    (2, 2304, 48, 48, None),     # SAM @768's global grid
-    (2, 196, 14, 14, None),      # SAM window: Kw = 14 cuts every key tile
-    (2, 200, 0, 0, [77, 200]),   # kv_len, ragged 64-row tiles
-    (2, 130, 0, 0, [0, 70]),     # a kv_len 0 row
-    (2, 1536, 0, 0, [1370, 1370]),   # DINOv2's kv_len cuts a tile
-    (2, 100, 10, 10, [37, 100]),  # a bias and kv_len together
-], ids=["kw48", "sam768", "kw14", "kv_len", "kv_len_zero_row",
-        "kv_len_1370", "bias_kv_len"])
-def test_flash_trainable_bf16_kernels_match_plain(gen, b, s, kh, kw, kv_len):
+def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len):
+    """K6 in bf16 at one shape: the forward (the mma.sync body) and the
+    backward (the body its route names, counted under that body's name)
+    against the plain versions, the backward fed the kernel forward's lse
+    and delta. Returns the backward's body."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
-    *args, dout = _k6_inputs(gen, b, 3, s, kh, kw, kv_len)
+    *args, dout = _k6_inputs(gen, b, heads, s, kh, kw, kv_len)
     args, dout = _k6_bf16(args, dout)
     scale = 64 ** -0.5
     assert G.flash_attention_route(*args) == "mma"
+    body = G.flash_attention_bwd_route(*args)
+    assert body == G.flash_attention_bwd_route(*args, kernel="dkv")
     A.reset_launch_counts()
     out, lse = G.flash_attention_fwd(*args, scale=scale)
     rest = (dout, lse, G.flash_attention_delta(out, dout))
     got = (out, lse, *G.flash_attention_bwd_dq(*args, *rest, scale=scale),
            *G.flash_attention_bwd_dkv(*args, *rest, scale=scale))
     torch.cuda.synchronize()
-    # counted under the bf16 builds' names, none under the fp32 ones
-    assert [A.LAUNCHES[n + suffix] for suffix in ("_bf16", "")
-            for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                      "flash_attention_bwd_dkv")] == [1, 1, 1, 0, 0, 0]
+    # counted under the names of the bodies that ran: the forward's bf16
+    # build, the backward's Hopper or mma.sync bodies; none under the fp32
+    # builds' names
+    suffix = "_hopper" if body == "hopper" else "_bf16"
+    names = ("flash_attention_fwd_bf16", f"flash_attention_bwd_dq{suffix}",
+             f"flash_attention_bwd_dkv{suffix}")
+    assert {n: c for n, c in A.LAUNCHES.items() if c} == \
+        dict.fromkeys(names, 1)
     # the forward against the plain forward; the backward against the
     # plain backward fed the same lse and delta
     want = (*G.flash_attention_fwd_plain(*args, scale=scale),
@@ -1206,7 +1206,7 @@ def test_flash_trainable_bf16_kernels_match_plain(gen, b, s, kh, kw, kv_len):
         rel = max(1.0, w_.abs().max().item()) if kv_len and \
             kv_len[0] == 0 and name != "lse" else 1.0
         gap = ((g_ - w_).abs() - rtol * w_.abs()).max().item()
-        print(f"{name}: gap {gap:.3e} beyond {rtol:g}·|want|")
+        print(f"{name} [{body}]: gap {gap:.3e} beyond {rtol:g}·|want|")
         assert torch.isfinite(g_).all() and \
             gap <= K6_BF16_ATOL[name] * rel, (name, gap)
     if kv_len is not None:     # keys past a non-zero kv_len: no gradient
@@ -1214,26 +1214,70 @@ def test_flash_trainable_bf16_kernels_match_plain(gen, b, s, kh, kw, kv_len):
             if n:
                 assert not got[5][i, :, n:].float().any()
                 assert not got[6][i, :, n:].float().any()
+    return body
+
+
+@pytest.mark.parametrize("b,s,kh,kw,kv_len", [
+    (1, 192, 4, 48, None),       # Kw 48: a 64-key tile spans two grid rows
+    (2, 2304, 48, 48, None),     # SAM @768's global grid
+    (2, 196, 14, 14, None),      # SAM window: Kw = 14 cuts every key tile
+    (2, 200, 0, 0, [77, 200]),   # kv_len, ragged 64-row tiles
+    (2, 130, 0, 0, [0, 70]),     # a kv_len 0 row
+    (2, 1536, 0, 0, [1370, 1370]),   # DINOv2's kv_len cuts a tile
+    (2, 100, 10, 10, [37, 100]),  # a bias and kv_len together
+], ids=["kw48", "sam768", "kw14", "kv_len", "kv_len_zero_row",
+        "kv_len_1370", "bias_kv_len"])
+def test_flash_trainable_bf16_kernels_match_plain(gen, b, s, kh, kw, kv_len):
+    """Three heads: the backward takes the Hopper bodies with no bias or
+    Kw 48 and the mma.sync bodies at Kw 14 and 10."""
+    body = _k6_bf16_check(gen, b, 3, s, kh, kw, kv_len)
+    assert body == ("mma" if kw in (10, 14) else "hopper")
+
+
+@pytest.mark.parametrize("s,kh,kv_len", [
+    (2304, 48, None),     # SAM @768's global grid, Kh = Kw = 48
+    (240, 5, None),       # S = 5 x 48: not a multiple of 64 or 128
+    (2304, 48, [1000]),   # a bias and kv_len inside a 48-key tile
+    (130, 0, [0]),        # no bias, a kv_len 0 row over a ragged S
+    (200, 0, [77]),       # no bias, kv_len inside a tile
+    (200, 0, [200]),      # no bias, kv_len at S (ragged S)
+    (1000, 0, None),      # no bias, no kv_len, ragged S
+], ids=["sam768", "kh5", "sam768_kv_len", "kv_len_zero", "kv_len_77",
+        "kv_len_at_s", "s1000"])
+def test_flash_trainable_bf16_hopper_bodies_match_plain(gen, s, kh, kv_len):
+    """The Hopper bodies of K6's bf16 backward (TMA + wgmma, key tiles of
+    one 48-key grid row in dq, 128-key blocks in dkv) at B=1 and two heads
+    against the plain versions."""
+    assert _k6_bf16_check(gen, 1, 2, s, kh, 48 if kh else 0,
+                          kv_len) == "hopper"
 
 
 def test_flash_trainable_bf16_route_and_determinism(gen):
-    """fp32 calls take the tiled bodies and bf16 calls the mma.sync ones;
-    a bf16 bias grid of more than 320 terms is refused by the C entry; two
-    bf16 runs give the same bits (no atomics)."""
+    """fp32 calls take the tiled bodies; bf16 forwards the mma.sync body and
+    bf16 backwards the Hopper bodies at Kw 48 and the mma.sync ones at Kw
+    14; a bf16 bias grid of more than 320 terms is refused by the C entry;
+    two bf16 runs give the same bits on either backward body (no
+    atomics)."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
-    *args, dout = _k6_inputs(gen, 2, 3, 192, 4, 48)
-    assert G.flash_attention_route(*args) == "tiled"
-    args, dout = _k6_bf16(args, dout)
-    assert G.flash_attention_route(*args) == "mma"
-    runs = [_k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,
-                    G.flash_attention_bwd_dkv, G.flash_attention_delta, args,
-                    dout, 0.125) for _ in range(2)]
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    for shape, body in (((2, 3, 192, 4, 48), "hopper"),
+                        ((2, 3, 196, 14, 14), "mma")):
+        *args, dout = _k6_inputs(gen, *shape)
+        assert G.flash_attention_route(*args) == "tiled"
+        assert G.flash_attention_bwd_route(*args) == "tiled"
+        args, dout = _k6_bf16(args, dout)
+        assert G.flash_attention_route(*args) == "mma"
+        for kernel in ("dq", "dkv"):
+            assert G.flash_attention_bwd_route(*args, kernel=kernel) == body
+        runs = [_k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,
+                        G.flash_attention_bwd_dkv, G.flash_attention_delta,
+                        args, dout, 0.125) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
     wide = _k6_bf16(_k6_inputs(gen, 1, 1, 400, 1, 400)[:6], dout)[0]
-    with pytest.raises(RuntimeError, match="320 terms"):
-        G.flash_attention_route(*wide)
+    for route in (G.flash_attention_route, G.flash_attention_bwd_route):
+        with pytest.raises(RuntimeError, match="320 terms"):
+            route(*wide)
     with pytest.raises(RuntimeError, match="320 terms"):
         G.flash_attention_fwd(*wide, scale=0.125)
 

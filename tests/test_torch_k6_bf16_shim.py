@@ -263,6 +263,65 @@ def shim(tmp_path_factory):
     return lib
 
 
+ROUTE_CPP = r"""
+#include "flash_trainable_bf16.cuh"
+thread_local dim3 threadIdx, blockIdx, blockDim;
+thread_local BlockSync* tl_block;
+extern "C" int route(int has_bias, int kh, int kw) {
+  return vdr::k6b::bwd_route(has_bias != 0, kh, kw);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def route_lib(tmp_path_factory):
+    """The bf16 backward's shape predicate (``k6b::bwd_route``) built alone
+    under the same stand-in."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ (C++20) to build the predicate for the CPU")
+    d = tmp_path_factory.mktemp("k6_bf16_route")
+    (d / "flash_attention_core.cuh").write_text(CORE_H)
+    shutil.copy(cuda_build.CSRC_DIR / "flash_trainable_bf16.cuh", d)
+    (d / "route.cpp").write_text(ROUTE_CPP)
+    so = d / "route.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O0", "-shared", "-fPIC", f"-I{d}", "-o",
+         str(so), str(d / "route.cpp"), "-lpthread"],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.route.argtypes = [ctypes.c_int] * 3
+    lib.route.restype = ctypes.c_int
+    return lib
+
+
+# (has_bias, Kh, Kw) -> the code of the body the bf16 backward runs: 2 the
+# Hopper bodies (TMA + wgmma), 1 the mma.sync bodies, -2 refused
+ROUTES = {"sam768": ((1, 48, 48), 2),
+          "kw48_kh5": ((1, 5, 48), 2),
+          "kw48_kh128": ((1, 128, 48), 2),
+          "no_bias": ((0, 0, 0), 2),
+          "kw48_kh129": ((1, 129, 48), 1),
+          "kw7": ((1, 7, 7), 1),
+          "kw14": ((1, 14, 14), 1),
+          "kw64": ((1, 64, 64), 1),
+          "kw49": ((1, 48, 49), 1),
+          "kw48_kh272": ((1, 272, 48), 1),
+          "over_320_terms": ((1, 273, 48), -2),
+          "kw400": ((1, 1, 400), -2)}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_bwd_route_takes_the_hopper_bodies_at_kw48(route_lib, case):
+    """SAM @768's grid (Kh = Kw = 48) and calls with no bias go to the
+    Hopper bodies, other key-grid widths (and Kw 48 past 128 grid rows,
+    whose bias_h table would not fit dq's shared memory) to the mma.sync
+    bodies, and grids of more than 320 terms are refused."""
+    args, want = ROUTES[case]
+    assert route_lib.route(*args) == want
+
+
 def _ptr(t):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 

@@ -248,6 +248,29 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// Scores -> P^T (in s) and dP^T -> dS^T (in dp), in place, for the dkv
+// bodies of K5 and K6 (keys on the rows g, g + 8; queries 8i + 2c..): P =
+// exp2(s - lse) with the forward's lse (+inf past S: P = 0), dS = P (dP -
+// D); keys at or past the valid end take P = 0 (a warpgroup-wide flag,
+// `ragged`).
+__device__ __forceinline__ void probs_ds(float (&s)[32], float (&dp)[32],
+                                         const float* lse, const float* dl,
+                                         int c, bool ragged, bool lo_ok,
+                                         bool hi_ok) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * i + 2 * c);
+    const float2 d = *reinterpret_cast<const float2*>(dl + 8 * i + 2 * c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = sm90::fast_exp2(s[4 * i + e] - ((e & 1) ? l.y : l.x));
+      if (ragged && !(e < 2 ? lo_ok : hi_ok)) p = 0.f;
+      s[4 * i + e] = p;
+      dp[4 * i + e] = p * (dp[4 * i + e] - ((e & 1) ? d.y : d.x));
+    }
+  }
+}
+
 // A bias term as the forward stages it: bf16 widened, times log2(e), in
 // fp32 and never contracted into a later add.
 __device__ __forceinline__ float term(__nv_bfloat16 x) {

@@ -43,6 +43,7 @@
 
 #include "flash_trainable_bf16.cuh"
 #include "flash_trainable_core.cuh"
+#include "flash_trainable_hopper.cuh"
 
 namespace {
 using namespace vdr::k6;
@@ -228,6 +229,23 @@ __global__ void __launch_bounds__(vdr::k6b::NT)
                 smem_mma);
 }
 
+
+// bf16 with no bias or a key grid 48 keys wide: the Hopper body
+int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
+               const vdr::k6h::Params& p, int B, cudaStream_t stream) {
+  namespace h = vdr::k6h;
+  CUtensorMap m[4], tbw;
+  if (!h::qkv_maps(m, q, k, v, dout, p.S, B * p.H, 64))
+    return h::kErrTensorMap;
+  const bool bias = p.bias_h != nullptr;
+  if (bias && !h::bias_map(&tbw, p.bias_w, p.S, B * p.H))
+    return h::kErrTensorMap;
+  if (!bias) tbw = m[3];   // never read
+  return h::launch(bias ? h::dkv_hopper_kernel<true>
+                        : h::dkv_hopper_kernel<false>,
+                   h::dkv_smem(bias), (p.S + h::kKeys - 1) / h::kKeys, B, p,
+                   stream, m[0], m[1], m[2], m[3], tbw);
+}
 }  // namespace
 
 extern "C" {
@@ -273,21 +291,44 @@ int vdr_flash_attention_bwd_dkv(const float* q, const float* k,
                               stream, nh, nw);
 }
 
-// bf16 q, k, v, dO, dk and dv; fp32 bias, lse and delta. Returns 0 on
+// bf16 q, k, v, dO, dk and dv; fp32 bias, lse and delta: the Hopper body
+// of flash_trainable_hopper.cuh or the mma.sync one, as
+// vdr_flash_attention_bwd_route (flash_attention_bwd_dq.cu) says; the code
+// of the body launched is written to *body unless it is null. Returns 0 on
 // success, a cudaError_t after a failed attribute call or launch, -1 for a
-// head dim other than 64, or -2 for a bias grid of more than
-// vdr::k6b::kMaxTerms terms.
+// head dim other than 64, -2 for a bias grid of more than
+// vdr::k6b::kMaxTerms terms, or -3 when a TMA descriptor cannot be made.
 int vdr_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
                                      const void* v, const float* bias_h,
                                      const float* bias_w, const int* kv_len,
                                      const void* dout, const float* lse,
                                      const float* delta, void* dk, void* dv,
                                      int B, int H, int S, int D, int kh,
-                                     int kw, float scale, void* stream) {
+                                     int kw, float scale, void* stream,
+                                     int* body) {
   using vdr::k6b::bf16;
   if (D != vdr::k6b::D) return -1;
   const bool bias = bias_h != nullptr;
-  if (!vdr::k6b::takes(bias, kh, kw)) return vdr::k6b::kErrTerms;
+  const int route = vdr::k6b::bwd_route(bias, kh, kw);
+  if (route < 0) return route;
+  if (body != nullptr) *body = route;
+  if (route == vdr::k6b::kRouteHopper) {
+    vdr::k6h::Params hp{};
+    hp.bias_h = bias_h;
+    hp.bias_w = bias_w;
+    hp.kv_len = kv_len;
+    hp.lse = lse;
+    hp.delta = delta;
+    hp.dk = static_cast<bf16*>(dk);
+    hp.dv = static_cast<bf16*>(dv);
+    hp.H = H;
+    hp.S = S;
+    hp.kh = bias ? kh : 0;
+    hp.scale_log2 = vdr::k6b::scale_log2_bf16(scale);
+    hp.scale = scale;
+    return dkv_hopper(q, k, v, dout, hp, B,
+                      static_cast<cudaStream_t>(stream));
+  }
   vdr::k6b::Params p{};
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);

@@ -51,6 +51,7 @@
 
 #include "flash_trainable_bf16.cuh"
 #include "flash_trainable_core.cuh"
+#include "flash_trainable_hopper.cuh"
 
 namespace {
 using namespace vdr::k6;
@@ -289,11 +290,38 @@ __global__ void __launch_bounds__(vdr::k6b::NT)
                smem_mma);
 }
 
+
+// bf16 with no bias or a key grid 48 keys wide: the Hopper body
+int dq_hopper(const void* q, const void* k, const void* v, const void* dout,
+              const vdr::k6h::Params& p, int B, cudaStream_t stream) {
+  namespace h = vdr::k6h;
+  CUtensorMap m[4];
+  if (!h::qkv_maps(m, q, k, v, dout, p.S, B * p.H, h::kNK))
+    return h::kErrTensorMap;
+  const bool bias = p.bias_h != nullptr;
+  return h::launch(bias ? h::dq_hopper_kernel<true>
+                        : h::dq_hopper_kernel<false>,
+                   h::dq_smem(bias ? p.kh : 0),
+                   (p.S + h::kDqRows - 1) / h::kDqRows, B, p, stream, m[0],
+                   m[1], m[2], m[3]);
+}
 }  // namespace
 
 extern "C" {
 
 const char* vdr_error_string(int err) { return vdr::k6::error_string(err); }
+
+// The body the K6 backward kernels (dq and dkv alike: the dkv source has
+// no entry of its own) run for a call (dtype 0 fp32, 1 bf16): 0 the
+// register-tiled CUDA-core bodies (fp32), 1 the mma.sync bodies, 2 the
+// Hopper bodies (bf16); -1 for a head dim other than 64, -2 for a bf16 bias
+// grid of more than vdr::k6b::kMaxTerms terms.
+int vdr_flash_attention_bwd_route(int dtype, int D, int has_bias, int kh,
+                                  int kw) {
+  if (D != vdr::k6::D) return -1;
+  if (dtype == 0) return 0;
+  return vdr::k6b::bwd_route(has_bias != 0, kh, kw);
+}
 
 // fp32. Returns 0 on success, a cudaError_t after a failed attribute call
 // or launch, or -1 for a head dim other than 64.
@@ -335,10 +363,13 @@ int vdr_flash_attention_bwd_dq(const float* q, const float* k,
                               bkw, nht);
 }
 
-// bf16 q, k, v, dO and dq; fp32 bias, lse, delta and bias gradients.
-// Returns 0 on success, a cudaError_t after a failed attribute call or
-// launch, -1 for a head dim other than 64, or -2 for a bias grid of more
-// than vdr::k6b::kMaxTerms terms.
+// bf16 q, k, v, dO and dq; fp32 bias, lse, delta and bias gradients: the
+// Hopper body of flash_trainable_hopper.cuh or the mma.sync one, as
+// vdr_flash_attention_bwd_route says; the code of the body launched is
+// written to *body unless it is null. Returns 0 on success, a cudaError_t
+// after a failed attribute call or launch, -1 for a head dim other than
+// 64, -2 for a bias grid of more than vdr::k6b::kMaxTerms terms, or -3 when
+// a TMA descriptor cannot be made.
 int vdr_flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                     const void* v, const float* bias_h,
                                     const float* bias_w, const int* kv_len,
@@ -346,11 +377,31 @@ int vdr_flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                     const float* delta, void* dq, float* dbh,
                                     float* dbw, int B, int H, int S, int D,
                                     int kh, int kw, float scale,
-                                    void* stream) {
+                                    void* stream, int* body) {
   using vdr::k6b::bf16;
   if (D != vdr::k6b::D) return -1;
   const bool bias = bias_h != nullptr;
-  if (!vdr::k6b::takes(bias, kh, kw)) return vdr::k6b::kErrTerms;
+  const int route = vdr::k6b::bwd_route(bias, kh, kw);
+  if (route < 0) return route;
+  if (body != nullptr) *body = route;
+  if (route == vdr::k6b::kRouteHopper) {
+    vdr::k6h::Params hp{};
+    hp.bias_h = bias_h;
+    hp.bias_w = bias_w;
+    hp.kv_len = kv_len;
+    hp.lse = lse;
+    hp.delta = delta;
+    hp.dq = static_cast<bf16*>(dq);
+    hp.dbh = dbh;
+    hp.dbw = dbw;
+    hp.H = H;
+    hp.S = S;
+    hp.kh = bias ? kh : 0;
+    hp.scale_log2 = vdr::k6b::scale_log2_bf16(scale);
+    hp.scale = scale;
+    return dq_hopper(q, k, v, dout, hp, B,
+                     static_cast<cudaStream_t>(stream));
+  }
   vdr::k6b::Params p{};
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);

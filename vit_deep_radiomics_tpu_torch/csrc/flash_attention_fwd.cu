@@ -145,10 +145,11 @@ int vdr_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                           vdr::k6b::fwd_smem(bias ? kh + kw : 0), stream);
 }
 
-// The body the three K6 kernels run for a call (dtype 0 fp32, 1 bf16): 0
-// the register-tiled CUDA-core bodies (fp32), 1 the mma.sync bodies
-// (bf16); -1 for a head dim other than 64, -2 for a bf16 bias grid of more
-// than vdr::k6b::kMaxTerms terms.
+// The body the K6 forward runs for a call (dtype 0 fp32, 1 bf16): 0 the
+// register-tiled CUDA-core body (fp32), 1 the mma.sync body (bf16); -1 for
+// a head dim other than 64, -2 for a bf16 bias grid of more than
+// vdr::k6b::kMaxTerms terms. The backward's is
+// vdr_flash_attention_bwd_route (flash_attention_bwd_dq.cu).
 int vdr_flash_attention_route(int dtype, int D, int has_bias, int kh,
                               int kw) {
   if (D != vdr::k6::D) return -1;

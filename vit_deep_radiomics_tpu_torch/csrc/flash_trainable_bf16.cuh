@@ -39,7 +39,10 @@
 // the warp's mma (vdr::mma_bf16_16816 of flash_attention_core.cuh), with
 // control flow uniform over the block around every mma and shuffle, so the
 // bodies also run on the CPU under a g++ stand-in for those
-// (tests/test_torch_k6_bf16_shim.py).
+// (tests/test_torch_k6_bf16_shim.py), as does bwd_route, the choice
+// between the backward's bodies here and its TMA + wgmma bodies
+// (flash_trainable_hopper.cuh: no bias, or a key grid 48 keys wide, SAM
+// ViT-B/16 @768's global layers).
 #pragma once
 
 #include "flash_attention_core.cuh"
@@ -90,6 +93,20 @@ struct Params {
 // terms (kh + kw).
 __host__ __device__ inline bool takes(bool has_bias, int kh, int kw) {
   return !has_bias || kh + kw <= kMaxTerms;
+}
+
+// The body the bf16 backward (dq and dkv alike) runs for a call:
+// kRouteHopper, the TMA + wgmma bodies of flash_trainable_hopper.cuh (no
+// bias, or a key grid kHopperKw keys wide of at most kHopperMaxKh rows,
+// whose bias_h terms dq stages in one table), else kRouteMma, the mma.sync
+// bodies below, or kErrTerms for a grid they refuse too. The forward keeps
+// the mma.sync body whatever the shape.
+constexpr int kRouteMma = 1, kRouteHopper = 2;
+constexpr int kHopperKw = 48, kHopperMaxKh = 128;
+__host__ __device__ inline int bwd_route(bool has_bias, int kh, int kw) {
+  if (!has_bias || (kw == kHopperKw && kh <= kHopperMaxKh))
+    return kRouteHopper;
+  return takes(has_bias, kh, kw) ? kRouteMma : kErrTerms;
 }
 
 // Shared memory of each body (bytes), `terms` = kh + kw with a bias, else 0.

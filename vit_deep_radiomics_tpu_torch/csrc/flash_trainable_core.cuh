@@ -80,6 +80,7 @@ __device__ __forceinline__ float bias_log2(float x) {
 inline const char* error_string(int err) {
   if (err == -1) return "head dim has no kernel build (D=64 only)";
   if (err == -2) return "bias grid of more than 320 terms (Kh + Kw) in bf16";
+  if (err == -3) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

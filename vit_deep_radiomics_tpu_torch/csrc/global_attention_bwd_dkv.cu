@@ -312,27 +312,6 @@ __device__ __forceinline__ void add_bias(float (&s)[32], const float* bh,
   }
 }
 
-// Scores -> P^T (in s) and dP^T -> dS^T (in dp), in place: P = exp2(s -
-// lse) with the forward's lse (+inf past S: P = 0), dS = P (dP - D); keys
-// at or past the valid end take P = 0 (a warpgroup-wide flag, `ragged`).
-__device__ __forceinline__ void probs_ds(float (&s)[32], float (&dp)[32],
-                                         const float* lse, const float* dl,
-                                         int c, bool ragged, bool lo_ok,
-                                         bool hi_ok) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * i + 2 * c);
-    const float2 d = *reinterpret_cast<const float2*>(dl + 8 * i + 2 * c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float p = fast_exp2(s[4 * i + e] - ((e & 1) ? l.y : l.x));
-      if (ragged && !(e < 2 ? lo_ok : hi_ok)) p = 0.f;
-      s[4 * i + e] = p;
-      dp[4 * i + e] = p * (dp[4 * i + e] - ((e & 1) ? d.y : d.x));
-    }
-  }
-}
-
 // kBoxes: 0 without a bias; with the decomposed bias, the 64-column
 // bias_w boxes of a grid row, 1 (Kw 64) or 2 (Kw 128).
 template <int kBoxes>
@@ -477,7 +456,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       const uint32_t bw_tile = stage_at(j) + (3 + box) * kTile;
       if (add) add_bias(s, sm + 128 + 64 * wg, bw_tile, warp, lane, c);
-      probs_ds(s, dp, sm, sm + 64, c, ragged, lo_ok, hi_ok);
+      vdr::k5h::probs_ds(s, dp, sm, sm + 64, c, ragged, lo_ok, hi_ok);
     };
     // software pipeline: the scores of tile j are issued with the products
     // of tile j-1, and tile j's exponentials run while those are on the

@@ -30,8 +30,12 @@ Kw)``, as in ``ops/attention.py``):
   (``csrc/flash_attention_bwd_dkv.cu``), any key-grid width. fp32 calls
   run the register-tiled CUDA-core bodies (``csrc/f32_tiled_forward.cuh``,
   ``csrc/flash_trainable_core.cuh``), bf16 calls the mma.sync bodies of
-  ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias gradients);
-  :func:`flash_attention_route` says which.
+  ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias gradients),
+  except the backward's calls with no bias or a key grid 48 keys wide (SAM
+  @768), which run the TMA + wgmma bodies of
+  ``csrc/flash_trainable_hopper.cuh``; :func:`flash_attention_route` says
+  which body the forward runs, :func:`flash_attention_bwd_route` the
+  backward.
 
 The backward formulas, with ``P`` the softmax of the scores and ``O`` the
 forward's output, natural units::
@@ -47,7 +51,10 @@ operands); the wrappers take it for CPU tensors only, and for CUDA tensors
 launch their kernel or raise. K4 and K5 build bf16 only, K6 fp32 and
 bf16, all of them head dim 64 only. Launches are counted in
 ``ops/_kernels.py::LAUNCHES``, K6's bf16 builds under their own names
-(``flash_attention_fwd_bf16`` and so on).
+(``flash_attention_fwd_bf16`` and so on), and the Hopper bodies of its
+bf16 backward under theirs (``flash_attention_bwd_dq_hopper``,
+``flash_attention_bwd_dkv_hopper``): the bf16 backward entries report the
+body each launch ran.
 """
 
 from __future__ import annotations
@@ -86,13 +93,16 @@ __all__ = [
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dkv_plain",
     "flash_attention_route",
+    "flash_attention_bwd_route",
 ]
 
 register_launches("window_attention_bwd", "global_attention_fwd_lse",
                   "global_attention_bwd_dq", "global_attention_bwd_dkv",
                   *(f"flash_attention_{k}{suffix}"
                     for suffix in ("", "_bf16")
-                    for k in ("fwd", "bwd_dq", "bwd_dkv")))
+                    for k in ("fwd", "bwd_dq", "bwd_dkv")),
+                  "flash_attention_bwd_dq_hopper",
+                  "flash_attention_bwd_dkv_hopper")
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
@@ -100,10 +110,14 @@ _LOG2E = math.log2(math.e)
 # one grid row, and a 64-key tile holds whole grid rows or half of one (Kw
 # 128, SAM's global grid at 2048 px, which the Hopper bodies take)
 _K5_BIAS_WIDTHS = (8, 16, 32, 64, 128)
-# K6's builds: fp32 (register-tiled CUDA-core bodies) and bf16 (mma.sync)
+# K6's builds: fp32 (register-tiled CUDA-core bodies) and bf16 (mma.sync;
+# the backward's Hopper bodies)
 _K6_DTYPES = (torch.float32, torch.bfloat16)
-# csrc/flash_attention_fwd.cu's vdr_flash_attention_route codes
-_K6_ROUTES = ("tiled", "mma")
+# the codes of vdr_flash_attention_route (csrc/flash_attention_fwd.cu) and
+# vdr_flash_attention_bwd_route (csrc/flash_attention_bwd_dq.cu), and the
+# suffix of each body's launch counter
+_K6_ROUTES = ("tiled", "mma", "hopper")
+_K6_COUNTERS = ("", "_bf16", "_hopper")
 
 
 # ---------------------------------------------------------------------------
@@ -539,14 +553,49 @@ def _check_flash(q, k, v, bias_h, bias_w, kv_len):
 
 
 def _k6_entry(source, q, d, bias_h, bias_w, *tensors, fp32=(), args):
-    """(lib, fn, name): the C entry of a K6 kernel for q's dtype
-    (``vdr_<name>``) after the launch checks (k, v and dO in q's dtype, the
-    bias factors and residuals fp32), and the build's launch counter
-    ``name``: ``<source>`` for fp32, ``<source>_bf16`` for bf16."""
+    """(lib, fn): the C entry of a K6 kernel for q's dtype (``vdr_<source>``
+    or ``vdr_<source>_bf16``) after the launch checks (k, v and dO in q's
+    dtype, the bias factors and residuals fp32). The backward's bf16
+    entries take one pointer more, where they write the code of the body
+    they launched (:func:`_k6_bwd_launch`)."""
     _check_bwd_cuda(q, d, *tensors, fp32=(bias_h, bias_w, *fp32),
                     dtype=_K6_DTYPES)
-    name = source + ("_bf16" if q.dtype == torch.bfloat16 else "")
-    return (*_load(source, args, entry=f"vdr_{name}"), name)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and source != "flash_attention_fwd":
+        args = args + [_P]
+    return _load(source, args,
+                 entry=f"vdr_{source}" + ("_bf16" if bf16 else ""))
+
+
+def _k6_bwd_launch(lib, fn, source, q, *c_args):
+    """Launch a K6 backward entry and count the launch under the body that
+    ran: ``<source>`` for fp32 (the tiled bodies), and in bf16 as the entry
+    reports through its last argument, ``<source>_bf16`` for the mma.sync
+    bodies or ``<source>_hopper`` for the Hopper ones."""
+    body = ctypes.c_int(0)
+    extra = (ctypes.byref(body),) if q.dtype == torch.bfloat16 else ()
+    _raise_on(fn(*c_args, *extra), lib, source)
+    LAUNCHES[source + _K6_COUNTERS[body.value]] += 1
+
+
+def _k6_route(source, q, bias_h, bias_w):
+    """The body name a K6 route entry gives for these operands
+    (``vdr_flash_attention_route`` of the forward's source, or the
+    backward's one choice for dq and dkv, ``vdr_flash_attention_bwd_route``
+    of the dq source); raises for a call the kernels refuse."""
+    kh, kw = (bias_h.shape[-1], bias_w.shape[-1]) if bias_h is not None \
+        else (0, 0)
+    if source != "flash_attention_fwd":
+        source, entry = "flash_attention_bwd_dq", \
+            "vdr_flash_attention_bwd_route"
+    else:
+        entry = "vdr_flash_attention_route"
+    lib, fn = _load(source, [_I] * 5, entry=entry)
+    code = fn(_DTYPE_CODES[q.dtype], q.shape[-1], int(bias_h is not None),
+              kh, kw)
+    if code < 0:
+        _raise_on(code, lib, entry[len("vdr_"):])
+    return _K6_ROUTES[code]
 
 
 def flash_attention_fwd(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
@@ -559,15 +608,16 @@ def flash_attention_fwd(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
         return flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len,
                                          scale=scale)
     b, h, s, d = q.shape
-    lib, fn, name = _k6_entry("flash_attention_fwd", q, d, bias_h, bias_w,
-                              k, v, args=[_P] * 8 + [_I] * 6 + [_F, _P])
+    lib, fn = _k6_entry("flash_attention_fwd", q, d, bias_h, bias_w, k, v,
+                        args=[_P] * 8 + [_I] * 6 + [_F, _P])
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, device=q.device, dtype=torch.float32)
     rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
             _ptr(_kv_len_i32(kv_len, q)), _ptr(out), _ptr(lse),
             b, h, s, d, kh, kw, scale, _stream(q))
     _raise_on(rc, lib, "flash_attention_fwd")
-    LAUNCHES[name] += 1
+    LAUNCHES["flash_attention_fwd"
+             + ("_bf16" if q.dtype == torch.bfloat16 else "")] += 1
     return out, lse
 
 
@@ -581,18 +631,17 @@ def flash_attention_bwd_dq(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
         return flash_attention_bwd_dq_plain(
             q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale=scale)
     b, h, s, d = q.shape
-    lib, fn, name = _k6_entry("flash_attention_bwd_dq", q, d, bias_h,
-                              bias_w, k, v, dout, fp32=(lse, delta),
-                              args=[_P] * 12 + [_I] * 6 + [_F, _P])
+    lib, fn = _k6_entry("flash_attention_bwd_dq", q, d, bias_h, bias_w, k,
+                        v, dout, fp32=(lse, delta),
+                        args=[_P] * 12 + [_I] * 6 + [_F, _P])
     dq = torch.empty_like(q)
     dbh = torch.empty_like(bias_h) if bias_h is not None else None
     dbw = torch.empty_like(bias_w) if bias_w is not None else None
-    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
-            _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse), _ptr(delta),
-            _ptr(dq), _ptr(dbh), _ptr(dbw), b, h, s, d, kh, kw, scale,
-            _stream(q))
-    _raise_on(rc, lib, "flash_attention_bwd_dq")
-    LAUNCHES[name] += 1
+    _k6_bwd_launch(lib, fn, "flash_attention_bwd_dq", q, _ptr(q), _ptr(k),
+                   _ptr(v), _ptr(bias_h), _ptr(bias_w),
+                   _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse),
+                   _ptr(delta), _ptr(dq), _ptr(dbh), _ptr(dbw), b, h, s, d,
+                   kh, kw, scale, _stream(q))
     return dq, dbh, dbw
 
 
@@ -606,37 +655,52 @@ def flash_attention_bwd_dkv(q, k, v, bias_h, bias_w, kv_len, dout, lse,
         return flash_attention_bwd_dkv_plain(
             q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale=scale)
     b, h, s, d = q.shape
-    lib, fn, name = _k6_entry("flash_attention_bwd_dkv", q, d, bias_h,
-                              bias_w, k, v, dout, fp32=(lse, delta),
-                              args=[_P] * 11 + [_I] * 6 + [_F, _P])
+    lib, fn = _k6_entry("flash_attention_bwd_dkv", q, d, bias_h, bias_w, k,
+                        v, dout, fp32=(lse, delta),
+                        args=[_P] * 11 + [_I] * 6 + [_F, _P])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
-            _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse), _ptr(delta),
-            _ptr(dk), _ptr(dv), b, h, s, d, kh, kw, scale, _stream(q))
-    _raise_on(rc, lib, "flash_attention_bwd_dkv")
-    LAUNCHES[name] += 1
+    _k6_bwd_launch(lib, fn, "flash_attention_bwd_dkv", q, _ptr(q), _ptr(k),
+                   _ptr(v), _ptr(bias_h), _ptr(bias_w),
+                   _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse),
+                   _ptr(delta), _ptr(dk), _ptr(dv), b, h, s, d, kh, kw, scale,
+                   _stream(q))
     return dk, dv
 
 
 def flash_attention_route(q, k, v, bias_h=None, bias_w=None,
                           kv_len=None) -> str:
-    """Which body the three K6 kernels run for these operands: ``"plain"``
-    on the CPU; on the card, as ``csrc/flash_attention_fwd.cu``'s C entry
-    chooses, ``"tiled"`` (fp32: the register-tiled CUDA-core bodies) or
-    ``"mma"`` (bf16: the mma.sync bodies). Raises for a call the kernels
+    """Which body the K6 forward runs for these operands: ``"plain"`` on
+    the CPU; on the card, as ``csrc/flash_attention_fwd.cu``'s C entry
+    chooses, ``"tiled"`` (fp32: the register-tiled CUDA-core body) or
+    ``"mma"`` (bf16: the mma.sync body). Raises for a call the kernels
     refuse (a head dim other than 64; in bf16, a bias grid of more than 320
-    terms Kh + Kw)."""
-    kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
+    terms Kh + Kw). :func:`flash_attention_bwd_route` answers for the
+    backward."""
+    _check_flash(q, k, v, bias_h, bias_w, kv_len)
     if q.device.type == "cpu":
         return "plain"
-    d = q.shape[-1]
-    _check_bwd_cuda(q, d, k, v, fp32=(bias_h, bias_w), dtype=_K6_DTYPES)
-    lib, fn = _load("flash_attention_fwd", [_I] * 5,
-                    entry="vdr_flash_attention_route")
-    code = fn(_DTYPE_CODES[q.dtype], d, int(bias_h is not None), kh, kw)
-    if code < 0:
-        _raise_on(code, lib, "flash_attention_route")
-    return _K6_ROUTES[code]
+    _check_bwd_cuda(q, q.shape[-1], k, v, fp32=(bias_h, bias_w),
+                    dtype=_K6_DTYPES)
+    return _k6_route("flash_attention_fwd", q, bias_h, bias_w)
+
+
+def flash_attention_bwd_route(q, k, v, bias_h=None, bias_w=None,
+                              kv_len=None, *, kernel="dq") -> str:
+    """Which body the K6 backward kernel ``kernel`` (``"dq"`` or
+    ``"dkv"``) runs for these operands: ``"plain"`` on the CPU; on the card,
+    as the dq source's route entry chooses (one choice for both),
+    ``"tiled"`` (fp32), ``"hopper"`` (bf16 with no bias or a key grid 48
+    keys wide of at most 128 rows: the TMA + wgmma bodies) or ``"mma"``
+    (other bf16 grids: the mma.sync bodies). Raises where
+    :func:`flash_attention_route` does."""
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
+    _check_flash(q, k, v, bias_h, bias_w, kv_len)
+    if q.device.type == "cpu":
+        return "plain"
+    _check_bwd_cuda(q, q.shape[-1], k, v, fp32=(bias_h, bias_w),
+                    dtype=_K6_DTYPES)
+    return _k6_route(f"flash_attention_bwd_{kernel}", q, bias_h, bias_w)
 
 
 # ---------------------------------------------------------------------------

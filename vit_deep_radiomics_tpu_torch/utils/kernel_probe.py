@@ -6,9 +6,10 @@
 the K5 backward (``csrc/global_attention_bwd_dkv.cu``,
 ``csrc/global_attention_bwd_dq.cu``), the K6 forward
 (``csrc/flash_attention_fwd.cu``), the K6 backward
-(``csrc/flash_attention_bwd_dkv.cu``, ``csrc/flash_attention_bwd_dq.cu``),
-K7 (``csrc/fused_ln_mlp_residual.cu``) and K8 (``csrc/int8_matmul.cu``) on
-the GPU.
+(``csrc/flash_attention_bwd_dkv.cu``, ``csrc/flash_attention_bwd_dq.cu``;
+its bf16 Hopper bodies in ``csrc/flash_trainable_hopper.cuh``), K7
+(``csrc/fused_ln_mlp_residual.cu``) and K8 (``csrc/int8_matmul.cu``) on the
+GPU.
 
 Two measurements that ``chip_smoke.py`` does not make::
 
@@ -22,6 +23,8 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6dq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6fwd
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6hdkv
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6hdq
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3f32
@@ -51,7 +54,10 @@ the A fragments, the bias or the Kw 128 swap of its bias_w registers
 removed; the
 K5 backward: three consumer warpgroups, the ring depth, the bias step
 removed; the K6 backward: one tile buffer instead of two, or 64-column
-tiles, a 4 x 8 score micro-tile; the register-tiled fp32 forward of K1,
+tiles, a 4 x 8 score micro-tile; the K6 bf16 backward's Hopper bodies
+(``k6hdq``, ``k6hdkv``): the ring depth, exp2f instead of ex2.approx.ftz,
+dq without the warpgroups' turns or the bias sums, dkv without the bias
+add or the bias_w terms' conversion; the register-tiled fp32 forward of K1,
 K2, K3 and K6 (``csrc/f32_tiled_forward.cuh``, ``k1f32``, ``k2f32``,
 ``k3f32`` and ``k6fwd``): 64-key tiles, which make the score micro-tile 4 x
 8, two tile buffers, P in a tile of its own, all of K3's grid columns
@@ -78,7 +84,9 @@ also q (1, 4096, 768) on a key grid of 32 x 128 and the forward q (1,
 its plain version (two heads a call); K6: the
 `parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
 (50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
-1536, 64) with 1370 valid keys); K1 fp32: q (100, 196, 768), Kh = Kw =
+1536, 64) with 1370 valid keys); the K6 bf16 Hopper bodies: SAM @768's (2,
+12, 2304, 64), Kh = Kw = 48, and DINOv2's kv_len shape, beside the whole
+bf16 SDPA backward; K1 fp32: q (100, 196, 768), Kh = Kw =
 14; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
 K3 fp32: SAM @768's q (4, 12, 2304, 64), k/v 3072 rows, Kh 48, Kw 64,
 ``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys; K7:
@@ -87,10 +95,11 @@ SAM's 16384 rows and DINOv2's 4 x 1370 with a layerscale, C 768, hidden
 hidden 6144, bf16; K8: an `int8` forward's ten shapes, with the sum over its 60
 launches), and prints its gap to the
 plain version and its time (K1/K2 and the fp32 forward beside SDPA's, K4
-and K5 beside the bf16 tensor-core peak, K6 beside the fp32 CUDA cores'
-peak).
-A variant that changes a header (the fp32 forward's steps) builds from
-its own directory, which holds the changed copy.
+and K5 and the K6 bf16 backward beside the bf16 tensor-core peak, K6 in
+fp32 beside the fp32 CUDA cores' peak).
+A variant that changes a header (the fp32 forward's steps, the K6 bf16
+backward's constants) builds from its own directory, which holds the
+changed copy.
 ``pair`` runs two checkouts in turns (parent, change,
 change, parent), each in a fresh process: with ``--path extraction`` (the
 default) 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
@@ -119,11 +128,13 @@ which must not differ between the trees; with ``--path finetune-768``
 ``chip_smoke.py``'s phase 24 (SAM ViT-B/16 @768 `fast` fine-tuning at B=2,
 its global layers on K6 in bf16: step ms, launches, then wall ms, device
 ms, idle share and the top device costs from ``trace_runs``), the three K6
-kernels' ms in bf16 at ``chip_smoke.py``'s ``K6_BF16_SHAPES`` (its global
-layers' shape (2, 12, 2304, 64), Kh = Kw = 48, and DINOv2's kv_len shape
-(2, 12, 1536, 64), 1370 valid) and a SHA-256 of their outputs at both,
-which must not differ between the trees unless the change means to
-change them;
+kernels' ms in bf16 and the whole bf16 SDPA backward's at ``chip_smoke.py``'s
+``K6_BF16_SHAPES`` (its global layers' shape (2, 12, 2304, 64), Kh = Kw =
+48, and DINOv2's kv_len shape (2, 12, 1536, 64), 1370 valid) and SHA-256s
+of the forward's outputs (out, lse), which must not differ between the
+trees, and of the backward's (dq, both bias gradients, dk, dv), which
+change where the change gives the backward another body that sums in
+another order;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
 a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
@@ -156,6 +167,8 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k5fwd": "global_attention_fwd_lse.cu",
            "k6dkv": "flash_attention_bwd_dkv.cu",
            "k6dq": "flash_attention_bwd_dq.cu",
+           "k6hdkv": "flash_attention_bwd_dkv.cu",
+           "k6hdq": "flash_attention_bwd_dq.cu",
            "k5dkv": "global_attention_bwd_dkv.cu",
            "k5dq": "global_attention_bwd_dq.cu",
            "k2f32": "fused_global_attention.cu",
@@ -169,7 +182,12 @@ HEADERS = {"k2": ("global_fwd_hopper.cuh",),
            "k1f32": ("f32_tiled_forward.cuh",),
            "k2f32": ("f32_tiled_forward.cuh",),
            "k3f32": ("f32_tiled_forward.cuh",),
-           "k6fwd": ("f32_tiled_forward.cuh",)}
+           "k6fwd": ("f32_tiled_forward.cuh",),
+           "k6hdkv": ("flash_trainable_hopper.cuh", "attention_bwd_core.cuh"),
+           "k6hdq": ("flash_trainable_hopper.cuh",)}
+# entry points other than vdr_<source>: K6's bf16 builds
+ENTRIES = {"k6hdkv": "vdr_flash_attention_bwd_dkv_bf16",
+           "k6hdq": "vdr_flash_attention_bwd_dq_bf16"}
 # the register-tiled fp32 forward (f32_tiled_forward.cuh) of K2 and K3
 _F32_TILED = {
     "as_built": ({}, ()),   # one tile buffer, P in the tile's K buffer
@@ -335,6 +353,54 @@ VARIANTS = {
             "pv_tile<kBK>(o, pa, v_addr + prev * kTile);",
             "pv_tile<kBK>(o, pa, v_addr + last * kTile);")),
     },
+    # K6's bf16 backward on its Hopper bodies (flash_trainable_hopper.cuh):
+    # the ring depth, the warpgroups' turns in issuing their products, the
+    # bias gradients (dq) or the bias terms (dkv), the exponentials or
+    # either product removed
+    "k6hdq": {
+        "as_built": ({}, ()),
+        "stages_4": ({"kDqStages": 4}, ()),
+        "stages_8": ({"kDqStages": 8}, ()),
+        "no_pingpong": ({}, (
+            ("auto issue_wait = [&] { bar_sync(my_bar, 256); };",
+             "auto issue_wait = [&] {};"),
+            ("auto issue_done = [&] { bar_arrive(next_bar, 256); };",
+             "auto issue_done = [&] {};"))),
+        "no_bias_grads": ({}, (
+            "dbw[i] += ds;",
+            "if (dbh_lo != nullptr) dbh_lo[j] = lo;",
+            "if (dbh_hi != nullptr) dbh_hi[j] = hi;")),
+        # exp2f (ex2.approx with subnormal handling) for ex2.approx.ftz
+        "exp2f": ({}, (("fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))",
+                        "exp2f(s[i] - ((i & 2) ? l_hi : l_lo))"),)),
+        "no_softmax": ({}, (("fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))",
+                             "(s[i] - ((i & 2) ? l_hi : l_lo))"),)),
+        "no_products": ({}, ("pv_tile<kNK>(dq, da, k_of(j - 1));",
+                             "pv_tile<kNK>(dq, da, k_of(n_tiles - 1));")),
+        "no_scores": ({}, (
+            "dq_scores(s, dp, q_addr, do_addr, ring, ring + kKTile);",
+            "dq_scores(s, dp, q_addr, do_addr, cur, cur + kKTile);")),
+    },
+    "k6hdkv": {
+        "as_built": ({}, ()),
+        "stages_3": ({"kDkvStages": 3}, ()),
+        "no_bias": ({}, ("add_bias(s, sm + 128, stage_at(j) + kTermOff, "
+                         "hr_lo, hr_hi, col_lo,\n               col_hi, "
+                         "lane, c);",)),
+        "no_terms": ({}, (("k < 64 * kNK / 4;", "k < 0;"),)),
+        "exp2f": ({}, (("sm90::fast_exp2(s[4 * i + e] - ((e & 1) ? l.y : "
+                        "l.x))", "exp2f(s[4 * i + e] - ((e & 1) ? l.y : "
+                        "l.x))"),)),
+        "no_softmax": ({}, (("sm90::fast_exp2(s[4 * i + e] - ((e & 1) ? l.y "
+                             ": l.x))",
+                             "(s[4 * i + e] - ((e & 1) ? l.y : l.x))"),)),
+        "no_products": ({}, ("k5h::product_rs(dv, pa, prev + kTile);",
+                             "k5h::product_rs(dk, sa, prev);",
+                             "k5h::product_rs(dv, pa, last + kTile);",
+                             "k5h::product_rs(dk, sa, last);")),
+        "no_scores": ({}, ("k5h::product_ss(s, k_tile, cur + 2 * kTile);",
+                           "k5h::product_ss(dp, v_tile, cur + kTile);")),
+    },
     "k5dkv": {
         "as_built": ({}, ()),
         "consumers_3": ({"kConsumers": 3}, ()),
@@ -342,8 +408,8 @@ VARIANTS = {
         "stages_5": ({"kStages": 5}, ()),
         "no_bias": ({}, ("add_bias(s, sm + 128 + 64 * wg, bw_tile, warp, "
                          "lane, c);",)),
-        "no_softmax": ({}, ("probs_ds(s, dp, sm, sm + 64, c, ragged, lo_ok, "
-                            "hi_ok);",)),
+        "no_softmax": ({}, ("vdr::k5h::probs_ds(s, dp, sm, sm + 64, c, "
+                            "ragged, lo_ok, hi_ok);",)),
         "no_products": ({}, ("grads_tile(dv, dk, pa, sa, prev + kTile, prev);",
                              "grads_tile(dv, dk, pa, sa, last + kTile, "
                              "last);")),
@@ -443,6 +509,7 @@ _K6_SHAPES = ((2, 4096, 64, 64, None), (50, 196, 14, 14, None))
 _K5_SHAPES = ((2, 4096, 64, 64, None), (2, 1536, 0, 0, 1370),
               (1, 4096, 32, 128, None), (1, 16384, 128, 128, None))
 _K5_BWD_SHAPES = _K5_SHAPES[:3]
+_K6H_SHAPES = ((2, 2304, 48, 48, None), (2, 1536, 0, 0, 1370))
 CALLS = {
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
            _k1_call),
@@ -453,6 +520,11 @@ CALLS = {
               (*_K6_SHAPES, (2, 1536, 0, 0, 1370)), None),
     "k6dkv": ([_P] * 11 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
+    # K6's bf16 backward: SAM @768's global layers and DINOv2's kv_len
+    # shape, both on the Hopper bodies (the last pointer, where the entry
+    # writes the body it ran, null)
+    "k6hdkv": ([_P] * 11 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
+    "k6hdq": ([_P] * 12 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
     "k5fwd": ([_P] * 7 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
     "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_BWD_SHAPES, None),
     "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_BWD_SHAPES, None),
@@ -505,7 +577,14 @@ def variant_files(kernel: str, name: str) -> dict:
     src = SOURCES[kernel]
     files = {f: (cb.CSRC_DIR / f).read_text()
              for f in (src, *HEADERS.get(kernel, ()))}
-    files[src] = variant_source(files[src], consts)
+    for const, value in consts.items():
+        # in the source, else in the one header that defines it
+        pattern = rf"constexpr int {const} = \d+;"
+        hits = [f for f, body in files.items() if re.search(pattern, body)]
+        where = src if src in hits else hits[0] if len(hits) == 1 else None
+        if where is None:
+            raise ValueError(f"no single constexpr {const} in {hits}")
+        files[where] = variant_source(files[where], {const: value})
     for call in removed:
         text = call[0] if isinstance(call, tuple) else call
         hits = [f for f, body in files.items() if text in body]
@@ -534,7 +613,7 @@ def _build(kernel: str, out_dir: Path) -> dict:
     from . import cuda_build as cb
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    entry = "vdr_" + SOURCES[kernel][:-3]
+    entry = ENTRIES.get(kernel, "vdr_" + SOURCES[kernel][:-3])
     jobs = {}
     for name in VARIANTS[kernel]:
         # its own directory: a changed header copy there is found first
@@ -627,10 +706,30 @@ def _variants(kernel: str, out_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def _sdpa_bwd_ms(torch, q, k, v, mask, scale, dout, mask_grad):
+    """The whole SDPA backward (memory-efficient backend) on a retained
+    graph, the mask a trainable ``attn_mask`` when ``mask_grad``: ms."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    m = mask.detach().requires_grad_(mask_grad)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=m,
+                                             scale=scale)
+        wrt = leaves + ([m] if mask_grad else [])
+        return _ms(torch, lambda: torch.autograd.grad(out, wrt, dout,
+                                                      retain_graph=True), 5)
+
+
 def _k6_variants(kernel: str, out_dir: Path) -> None:
-    """The K6 forward's or backward's variants (fp32, per-head (B, H, S,
-    D)) at the `parity` path's shapes: gap to the plain version, ms, share
-    of the fp32 CUDA-core peak (67 TFLOP/s, H100 SXM) on the keys scored."""
+    """The K6 forward's or backward's variants (per-head (B, H, S, D)):
+    fp32 (k6fwd, k6dq, k6dkv) at the `parity` path's shapes, ms and share of
+    the fp32 CUDA-core peak (67 TFLOP/s, H100 SXM) on the keys scored; the
+    bf16 backward's Hopper bodies (k6hdq, k6hdkv) at SAM @768's global and
+    DINOv2's kv_len shapes, ms and share of the bf16 tensor-core peak (989
+    TFLOP/s) beside the whole bf16 SDPA backward's ms. Each with its
+    largest gap to the plain version."""
     import torch
 
     from ..ops import attention_grad as G
@@ -639,13 +738,16 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     heads, d = 12, 64
     scale = d ** -0.5
+    bf16 = kernel.startswith("k6h")
+    dt, peak = (torch.bfloat16, 989e12) if bf16 else (torch.float32, 67e12)
+    which = kernel.replace("k6h", "k6")
 
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
     for b, s, kh, kw, n_valid in CALLS[kernel][1]:
         q, k, v, dout = (torch.randn(b, heads, s, d, generator=gen,
-                                     device="cuda") for _ in range(4))
+                                     device="cuda").to(dt) for _ in range(4))
         bh = bw = kl = None
         if kh:
             bh, bw = (torch.randn(b, heads, s, n, generator=gen,
@@ -653,7 +755,7 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
         if n_valid:
             kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
         pairs = b * heads * s * (n_valid or s) * d
-        if kernel == "k6fwd":
+        if which == "k6fwd":
             args = (q, k, v, bh, bw, kl)
             ref = G.flash_attention_fwd_plain(*args, scale=scale)
             flops = 4.0 * pairs
@@ -662,10 +764,10 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
             args = (q, k, v, bh, bw, kl, dout, lse,
                     G.flash_attention_delta(out, dout))
             del out
-        if kernel == "k6dq":
+        if which == "k6dq":
             ref = G.flash_attention_bwd_dq_plain(*args, scale=scale)
             flops = 6.0 * pairs
-        elif kernel == "k6dkv":
+        elif which == "k6dkv":
             ref = G.flash_attention_bwd_dkv_plain(*args, scale=scale)
             flops = 8.0 * pairs
         print(f"{kernel} shape ({b}, {heads}, {s}, {d}), Kh {kh}, Kw {kw}, "
@@ -674,7 +776,7 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
         for name, fn in fns.items():
             outs = [None if r is None else torch.empty_like(r) for r in ref]
             c_args = (*map(ptr, (*args, *outs)), b, heads, s, d, kh, kw,
-                      scale, stream)
+                      scale, stream, *((ptr(None),) if bf16 else ()))
 
             def run(fn=fn, c_args=c_args):
                 rc = fn(*c_args)
@@ -683,11 +785,24 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
 
             run()
             torch.cuda.synchronize()
-            gap = max((o - r).abs().max().item()
+            gap = max((o.float() - r.float()).abs().max().item()
                       for o, r in zip(outs, ref) if r is not None)
             ms = _ms(torch, run, 10)
             print(f"  {name}: gap {gap:.3e} ms {ms:.4f} "
-                  f"({flops / (ms * 1e-3) / 67e12:.1%} of 67 TFLOP/s)")
+                  f"({flops / (ms * 1e-3) / peak:.1%} of "
+                  f"{peak / 1e12:.0f} TFLOP/s)")
+        if bf16:
+            if kh:
+                mask = (bh[..., :, None] + bw[..., None, :]).reshape(
+                    b, heads, s, s).to(dt)
+            else:
+                key = torch.arange(s, device="cuda")
+                mask = torch.zeros(b, heads, s, s, device="cuda",
+                                   dtype=dt).masked_fill(key >= n_valid,
+                                                         float("-inf"))
+            lib = _sdpa_bwd_ms(torch, q, k, v, mask, scale, dout, bool(kh))
+            print(f"  sdpa backward: ms {lib:.4f}")
+            del mask
         del q, k, v, dout, bh, bw, kl, args, ref
         torch.cuda.empty_cache()
 
@@ -1429,9 +1544,14 @@ for tag, shape in {"kw64": (4, 4096, 64, 64, None),
 
 # SAM @768 under `fast` fine-tuning (its global layers' 48 x 48 grid on K6
 # in bf16, its windowed layers on K1/K4): chip_smoke.py's phase 24 (five B=2
-# steps with their launches held, then traced steps), then the three K6
-# kernels' ms in bf16 at chip_smoke.py's K6_BF16_SHAPES (its phase 10
-# inputs) and the bits of their outputs
+# steps with their launches held, then traced steps: device ms, idle
+# share), then at each of chip_smoke.py's K6_BF16_SHAPES (its phase 10
+# inputs) the three K6 kernels' ms in bf16, the whole bf16 SDPA backward's
+# ms (chip_smoke._sdpa_ms: the dense bias or the padding mask as a
+# trainable attn_mask) and two SHA-256s: of the forward's outputs (out,
+# lse), which must not differ between the trees, and of the backward's (dq,
+# both bias gradients, dk, dv), which differ where the backward's body
+# changed (its sums run in another order)
 _PAIR_FINETUNE768_CHILD = r'''
 import hashlib, sys
 sys.path.insert(0, ".")
@@ -1444,27 +1564,47 @@ from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 from vit_deep_radiomics_tpu_torch.utils import cuda_build
 cuda_build.build_all(("fused_window_attention", "window_attention_bwd",
                       *cs.K6_NAMES))
-cs.sam768_phase(torch, A, G, ft, vit)
+cs.sam768_phase(torch, A, ft, vit)
 torch.cuda.empty_cache()
-g = torch.Generator(device="cuda").manual_seed(1)
-for tag, shape in cs.K6_BF16_SHAPES.items():
-    args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
-    out, lse = G.flash_attention_fwd(*args, scale=0.125)
-    rest = (dout, lse, G.flash_attention_delta(out, dout))
-    outs = (out, lse, *G.flash_attention_bwd_dq(*args, *rest, scale=0.125),
-            *G.flash_attention_bwd_dkv(*args, *rest, scale=0.125))
+
+
+def sha(*outs):
     h = hashlib.sha256()
     for o in outs:
         if o is not None:
             h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+g = torch.Generator(device="cuda").manual_seed(1)
+for tag, shape in cs.K6_BF16_SHAPES.items():
+    b, s, kh = shape[:3]
+    args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
+    out, lse = G.flash_attention_fwd(*args, scale=0.125)
+    rest = (dout, lse, G.flash_attention_delta(out, dout))
+    grads = (*G.flash_attention_bwd_dq(*args, *rest, scale=0.125),
+             *G.flash_attention_bwd_dkv(*args, *rest, scale=0.125))
     fwd, dq, dkv = (
         cs.cuda_ms(torch, lambda fn=fn, a=a: fn(*a, scale=0.125), 5)
         for fn, a in ((G.flash_attention_fwd, args),
                       (G.flash_attention_bwd_dq, (*args, *rest)),
                       (G.flash_attention_bwd_dkv, (*args, *rest))))
+    q, k, v, bh, bw, kl = args
+    if kh:
+        mask = (bh[..., :, None] + bw[..., None, :]).reshape(
+            b, 12, s, s).to(torch.bfloat16)
+    else:
+        key = torch.arange(s, device="cuda")
+        mask = torch.zeros(b, 12, s, s, device="cuda",
+                           dtype=torch.bfloat16).masked_fill(
+            key >= shape[4], float("-inf"))
+    sdpa = cs._sdpa_ms(torch, q, k, v, mask, 0.125, dout,
+                       mask_grad=bool(kh))[0]
     print(f"k6 bf16 [{tag}]: fwd ms {fwd:.4f}, dq ms {dq:.4f}, dkv ms "
-          f"{dkv:.4f}; sha256 {h.hexdigest()[:16]}", flush=True)
-    del args, dout, out, lse, rest, outs
+          f"{dkv:.4f}, dq + dkv ms {dq + dkv:.4f}, sdpa backward ms "
+          f"{sdpa:.4f}; sha256 forward {sha(out, lse)} backward "
+          f"{sha(*grads)}", flush=True)
+    del args, dout, out, lse, rest, grads, mask, q, k, v, bh, bw, kl
     torch.cuda.empty_cache()
 '''
 
