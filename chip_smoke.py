@@ -66,11 +66,13 @@ Phases (each one fails the run with a non-zero exit):
     forward kernel's lse); kernel, plain-version, library (fp32 SDPA) times
     and the bound; then the same three in bf16 (fp32 bias, the route
     asked and the launch counter of the body it names read) at SAM
-    ViT-B/16 @768's global shape under ``fast`` (2 x 12 x 2304, Kh = Kw =
-    48) and DINOv2's kv_len shape, where the forward takes its mma.sync
-    body and dq and dkv their Hopper bodies (TMA + wgmma), and at SAM
-    @640's global shape (2 x 12 x 1600, Kh = Kw = 40), where all three take
-    the mma.sync bodies; the library bf16 SDPA with a bf16 ``attn_mask``;
+    ViT-B/16's global shapes under ``fast`` at 768 px (2 x 12 x 2304, Kh =
+    Kw = 48), 640 px (2 x 12 x 1600, Kh = Kw = 40) and 896 px (2 x 12 x
+    3136, Kh = Kw = 56) and DINOv2's kv_len shape, where the forward takes
+    its mma.sync body and dq and dkv their Hopper bodies (TMA + wgmma), and
+    at SAM @576's global shape (2 x 12 x 1296, Kh = Kw = 36) and SAM's 14 x
+    14 windows (50 x 12 x 196), where all three take the mma.sync bodies;
+    the library bf16 SDPA with a bf16 ``attn_mask``;
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
@@ -217,10 +219,17 @@ Phases (each one fails the run with a non-zero exit):
     step, peak memory, the loss of every step, parameters moved), then 3
     traced steps (wall, device ms, idle share, top device costs);
 25. SAM ViT-B/16 ``fast`` fine-tuning at 640 px, batch 2, 5 steps: the
-    main path of the K6 bf16 backward's mma.sync bodies (the 4 global
-    layers' 40 x 40 grid fits no fused kernel and no Hopper body), the
-    launches of every step held as in phase 24, with the mma.sync dq and
-    dkv 4 and the Hopper ones 0.
+    4 global layers' 40 x 40 grid fits no fused kernel, so dq and dkv run
+    their Hopper bodies at Kw 40, the launches of every step held as in
+    phase 24 (the K6 forward and the Hopper dq and dkv 4, the mma.sync dq
+    and dkv 0), then 3 traced steps (device ms, idle share);
+26. the same at 896 px (a 56 x 56 grid: the Hopper dq and dkv at Kw 56),
+    5 steps and 3 traced ones (ms per step, device ms, idle share, peak
+    memory);
+27. the same at 576 px, 5 steps: the main path of the K6 bf16 backward's
+    mma.sync bodies (the 36 x 36 grid's Kw 36, not a multiple of 8, fits
+    no Hopper body), the mma.sync dq and dkv 4 a step and the Hopper ones
+    0.
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -293,11 +302,11 @@ TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
 # (K2's body with the lse store: no bias, Kw 64, and Kw 128 visiting the
 # even key tiles first), the K5 dq and dkv (no bias, Kw 64, Kw 128), K7
 # (the C 768 body and the C 1536 cluster body), K8 and K6's bf16 dq and dkv
-# (no bias, Kw 48)
+# (no bias, and one instance per key-grid width 16, 24, ... 128)
 HOPPER_SOURCES = {"global_attention_fwd_lse": 3, "fused_ln_mlp_residual": 2,
                   "int8_matmul": 1, "global_attention_bwd_dq": 3,
-                  "global_attention_bwd_dkv": 3, "flash_attention_bwd_dq": 2,
-                  "flash_attention_bwd_dkv": 2}
+                  "global_attention_bwd_dkv": 3, "flash_attention_bwd_dq": 16,
+                  "flash_attention_bwd_dkv": 16}
 # The body each kernel's C entry takes at its path's shapes: K1 and K2 by
 # dtype at the extraction path's, the K5 forward at SAM's global layers
 # (Kw 64) and DINOv2's kv_len layers
@@ -318,33 +327,65 @@ DINO_FAST_STEP_LAUNCHES = dict.fromkeys(K5_NAMES, 12)
 # windowed); dkv 1.79e-6.
 K6_ATOL = {"flash_attention_fwd": 2.5e-6, "lse": 1e-5,
            "flash_attention_bwd_dq": 8.5e-6, "flash_attention_bwd_dkv": 3e-6}
-# K6 in bf16 (the mma.sync bodies) against its plain versions on the same
-# bf16 inputs and fp32 bias, phase 10: the bf16 outputs |got - ref| <= atol
-# + 2^-7·|ref| (one bf16 step after fp32 sums in another order), the fp32
-# lse and bias gradients |got - ref| <= atol. About 1.5 times the gap
-# measured on an H100 SXM at the two shapes (PERF.md): out 4.01e-4,
-# lse 1.91e-6, dq 2.67e-4, dk 3.16e-4, dv 1.29e-4; the bias gradients
-# 9.77e-4 = 2^-10, one flipped bf16 rounding of a dS term in a sum, so
-# their limit allows two.
-K6_BF16_ATOL = {"out": 6e-4, "lse": 3e-6, "dq": 4e-4, "dbias_h": 2e-3,
-                "dbias_w": 2e-3, "dk": 5e-4, "dv": 2e-4}
+# K6 in bf16 against its plain versions on the same bf16 inputs and fp32
+# bias, phase 10: |got - ref| <= K6_BF16_STEPS[shape][output] · 2^-8 ·
+# max |ref| + 2^-7·|ref| on the bf16 outputs (one bf16 step of the element
+# after fp32 sums in another order), K6_BF16_STEPS · 2^-8 · max |ref| alone
+# on the fp32 bias gradients, and K6_BF16_LSE_ATOL on the fp32 lse. A gap
+# comes from single roundings to bf16 (P, dS) that flip where two fp32 sums
+# differ in their last bits. The kernels sum their products on the tensor
+# cores, the plain versions on the CUDA cores: the plain backward with its
+# products on the tensor cores comes within 3.1e-5 bf16 steps (as above) of
+# the kernels' outputs at every shape and seed read below, and the plain
+# version has 0.64-0.97 times the kernels' share of elements more than one
+# bf16 step from the fp64 oracle of the rounding points
+# (``utils/kernel_probe.py gaps``, PERF.md). Each shape's limits are about
+# 1.5 times the largest kernel-against-plain gap of 10 seeds there (the
+# probe's ``gaps``, 12 heads, an H100 SXM), in bf16 steps of the output's
+# largest |ref|, for out, dq, dbias_h, dbias_w, dk, dv: SAM @768 0.299,
+# 0.213, 0.423, 0.421, 0.113, 0.150; DINOv2 kv_len 0.313, 0.161, -, -,
+# 0.170, 0.127; @640 0.334, 0.128, 0.199, 0.199, 0.088, 0.114; @896 0.270,
+# 0.176, 0.260, 0.254, 0.156, 0.154; @576 0.277, 0.347, 0.659, 0.660,
+# 0.239, 0.148; 14 x 14 windows 0.189, 0.215, 0.405, 0.436, 0.235, 0.150.
+# They follow no law in the number of keys summed (196 to 3136; dq's
+# largest gap is @576's, dk's the windows'). The fp32 lse: 1.9e-6.
+K6_BF16_STEPS = {
+    "sam768_global": {"out": 0.45, "dq": 0.32, "dbias_h": 0.64,
+                      "dbias_w": 0.64, "dk": 0.17, "dv": 0.23},
+    "dinov2": {"out": 0.47, "dq": 0.25, "dk": 0.26, "dv": 0.20},
+    "sam640_global": {"out": 0.51, "dq": 0.20, "dbias_h": 0.30,
+                      "dbias_w": 0.30, "dk": 0.14, "dv": 0.18},
+    "sam896_global": {"out": 0.41, "dq": 0.27, "dbias_h": 0.39,
+                      "dbias_w": 0.39, "dk": 0.24, "dv": 0.24},
+    "sam576_global": {"out": 0.42, "dq": 0.53, "dbias_h": 0.99,
+                      "dbias_w": 1.0, "dk": 0.36, "dv": 0.23},
+    "window": {"out": 0.29, "dq": 0.33, "dbias_h": 0.61, "dbias_w": 0.66,
+               "dk": 0.36, "dv": 0.23}}
+K6_BF16_LSE_ATOL = 3e-6
 # K6 in bf16 at its paths' shapes: SAM ViT-B/16 @768's global layers under
 # `fast` (B=2, a 48 x 48 grid, Kh = Kw = 48), DINOv2 ViT-B/14 @518's kv_len
-# shape and SAM @640's global layers (a 40 x 40 grid); at all three the
-# forward takes its mma.sync body, and the backward the body of
-# K6_BF16_BWD_BODY (rows and counters `<kernel>_hopper` or `<kernel>_bf16`)
+# shape, SAM @640's (a 40 x 40 grid) and @896's (56 x 56) global layers,
+# SAM @576's (36 x 36: the main path of the mma.sync backward, whose Kw 36
+# no Hopper body takes), and SAM's 14 x 14 windows (50 windows, which no
+# bf16 path gives K6: a second check of the mma.sync backward); at all of
+# them the forward takes its mma.sync body, and the backward the body of
+# K6_BF16_BWD_BODY (rows and counters `<kernel>_hopper` or
+# `<kernel>_bf16`). A row's numbers are those of its main path's shape,
+# K6_BF16_MAIN_SHAPE.
 K6_BF16_SHAPES = {"sam768_global": (2, 2304, 48, 48, None),
                   "dinov2": (2, 1536, 0, 0, 1370),
-                  "sam640_global": (2, 1600, 40, 40, None)}
+                  "sam640_global": (2, 1600, 40, 40, None),
+                  "sam896_global": (2, 3136, 56, 56, None),
+                  "sam576_global": (2, 1296, 36, 36, None),
+                  "window": (50, 196, 14, 14, None)}
 K6_BF16_BWD_BODY = {"sam768_global": "hopper", "dinov2": "hopper",
-                    "sam640_global": "mma"}
-# Limits of one shape that replace K6_BF16_ATOL's: the mma.sync dkv body at
-# SAM @640 measured dv 2.241e-4 beyond 2^-7·|ref| on an H100 SXM, over the
-# 2e-4 set at the other two shapes, every other output inside
-# K6_BF16_ATOL; its largest error is one bf16 step of an element of 0.096
-# (a sum of 1600 P·dO terms whose bf16 P roundings flip where exp2 differs
-# in its last fp32 bit), so the limit is 1.5 times that gap
-K6_BF16_SHAPE_ATOL = {"sam640_global": {"dv": 3.4e-4}}
+                    "sam640_global": "hopper", "sam896_global": "hopper",
+                    "sam576_global": "mma", "window": "mma"}
+K6_BF16_MAIN_SHAPE = {"flash_attention_fwd_bf16": "sam768_global",
+                      "flash_attention_bwd_dq_hopper": "sam768_global",
+                      "flash_attention_bwd_dkv_hopper": "sam768_global",
+                      "flash_attention_bwd_dq_bf16": "sam576_global",
+                      "flash_attention_bwd_dkv_bf16": "sam576_global"}
 # Phase 24, SAM ViT-B/16 `fast` fine-tuning at 768 px, B=2: launches per
 # step (8 windowed layers of 14 x 14 windows over the 48 x 48 grid padded
 # to 56: K1 and K4; 4 global layers of 2304 tokens, which no fused kernel
@@ -357,11 +398,17 @@ FAST768_STEP_LAUNCHES = {"fused_window_attention": 8,
                          "flash_attention_fwd_bf16": 4,
                          "flash_attention_bwd_dq_hopper": 4,
                          "flash_attention_bwd_dkv_hopper": 4}
-# Phase 25, the same at 640 px: the 40 x 40 grid (windows over it padded to
-# 42) whose global layers' Kw 40 no Hopper body takes, so dq and dkv run
-# and count under the mma.sync bodies
-SAM640 = 640
-FAST640_STEP_LAUNCHES = {"fused_window_attention": 8,
+# Phases 25 and 26, the same at 640 px (the 40 x 40 grid, windows over it
+# padded to 42) and at 896 px (56 x 56, windows exact): dq and dkv on their
+# Hopper bodies at Kw 40 and 56
+SAM640, SAM896 = 640, 896
+FAST640_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
+FAST896_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
+# Phase 27, the same at 576 px: the 36 x 36 grid, whose Kw 36 (not a
+# multiple of 8) no Hopper body takes, so dq and dkv run and count under
+# the mma.sync bodies
+SAM576 = 576
+FAST576_STEP_LAUNCHES = {"fused_window_attention": 8,
                          "window_attention_bwd": 8,
                          "flash_attention_fwd_bf16": 4,
                          "flash_attention_bwd_dq_bf16": 4,
@@ -1601,16 +1648,16 @@ def k6_phase(torch, G, peaks, dtype="float32"):
     ``attn_mask`` in the operands' dtype; forward, or the whole backward)
     times and the bound. fp32: the ``parity`` path's shapes
     (``K6_SHAPES``, the register-tiled bodies); bf16: ``K6_BF16_SHAPES``
-    (SAM @768's and @640's global layers under ``fast`` and DINOv2's
-    kv_len shape, the fp32 bias; the forward's mma.sync body, rows
-    ``flash_attention_fwd_bf16``; the backward's body of
-    ``K6_BF16_BWD_BODY``, rows ``<kernel>_hopper`` or ``<kernel>_bf16``).
+    (SAM @768's, @640's, @896's and @576's global layers under ``fast``,
+    DINOv2's kv_len shape and SAM's 14 x 14 windows, the fp32 bias; the
+    forward's mma.sync body, rows ``flash_attention_fwd_bf16``; the
+    backward's body of ``K6_BF16_BWD_BODY``, rows ``<kernel>_hopper`` or
+    ``<kernel>_bf16``).
     Each launch is held to have counted under its row's name. A row's
-    numbers are SAM's global shape's (@768 in bf16, or the first shape
-    the row has); ``by_shape`` holds every shape."""
+    numbers are its main path's shape's (fp32: SAM's global shape; bf16:
+    ``K6_BF16_MAIN_SHAPE``); ``by_shape`` holds every shape."""
     bf16 = dtype == "bfloat16"
-    shapes, main = ((K6_BF16_SHAPES, "sam768_global") if bf16
-                    else (K6_SHAPES, "sam_global"))
+    shapes = K6_BF16_SHAPES if bf16 else K6_SHAPES
     gen = torch.Generator(device="cuda").manual_seed(
         SEED + (10 if bf16 else 4))
     dt = getattr(torch, dtype)
@@ -1621,19 +1668,22 @@ def k6_phase(torch, G, peaks, dtype="float32"):
              "flash_attention_bwd_dq": f"{grad}:186",
              "flash_attention_bwd_dkv": f"{grad}:266"}
 
-    def limits(name, labels, shape):
+    def limits(shape, name, labels, refs):
         """(rtols, atols) of the outputs ``labels`` of kernel ``name`` at
-        ``shape``: fp32 ``K6_ATOL``; bf16 ``K6_BF16_ATOL`` unless
-        ``K6_BF16_SHAPE_ATOL`` has the shape's own, with one bf16 step
-        (``RTOL``) on the bf16 outputs (not on the fp32 lse and bias
-        gradients)."""
+        ``shape`` against their plain versions ``refs``: fp32 ``K6_ATOL``;
+        bf16 the shape's ``K6_BF16_STEPS`` bf16 steps of each output's
+        largest |ref| (the lse ``K6_BF16_LSE_ATOL``), with one bf16 step of
+        the element (``RTOL``) on the bf16 outputs (not on the fp32 lse and
+        bias gradients)."""
         if not bf16:
             return 0.0, [K6_ATOL["lse" if lb == "lse" else name]
                          for lb in labels]
-        own = K6_BF16_SHAPE_ATOL.get(shape, {})
         return ([0.0 if lb in ("lse", "dbias_h", "dbias_w") else RTOL[dtype]
                  for lb in labels],
-                [own.get(lb, K6_BF16_ATOL[lb]) for lb in labels])
+                [K6_BF16_LSE_ATOL if lb == "lse" else
+                 K6_BF16_STEPS[shape][lb] * 2.0 ** -8
+                 * r.float().abs().max().item()
+                 for lb, r in zip(labels, refs)])
 
     def body_of(name, shape, args):
         """(body, row name) of kernel ``name`` at ``shape``: the body its
@@ -1696,10 +1746,11 @@ def k6_phase(torch, G, peaks, dtype="float32"):
         body, row_name, (out, lse) = launch(
             "flash_attention_fwd", shape,
             lambda: G.flash_attention_fwd(*args, scale=scale))
+        ref = G.flash_attention_fwd_plain(*args, scale=scale)
         err = _check_outputs(
-            torch, f"flash_attention_fwd {tag}", [out, lse],
-            G.flash_attention_fwd_plain(*args, scale=scale), ["out", "lse"],
-            *limits("flash_attention_fwd", ["out", "lse"], shape))
+            torch, f"flash_attention_fwd {tag}", [out, lse], ref,
+            ["out", "lse"],
+            *limits(shape, "flash_attention_fwd", ["out", "lse"], ref))
         row("flash_attention_fwd", body, row_name, err,
             lambda: G.flash_attention_fwd(*args, scale=scale),
             lambda: G.flash_attention_fwd_plain(*args, scale=scale),
@@ -1721,7 +1772,8 @@ def k6_phase(torch, G, peaks, dtype="float32"):
             err = _check_outputs(
                 torch, f"{name} {tag}", [got[i] for i in keep],
                 [ref[i] for i in keep], [labels[i] for i in keep],
-                *limits(name, [labels[i] for i in keep], shape))
+                *limits(shape, name, [labels[i] for i in keep],
+                        [ref[i] for i in keep]))
             del ref
             row(name, body, row_name, err,
                 lambda: fn(*args, *rest, scale=scale),
@@ -1735,8 +1787,8 @@ def k6_phase(torch, G, peaks, dtype="float32"):
         "gradient)")
     records = {}
     for row_name, by in rows.items():
-        rec = dict(by.get(main) or next(iter(by.values())), name=row_name,
-                   max_abs_err=max(r["max_abs_err"] for r in by.values()))
+        main = K6_BF16_MAIN_SHAPE[row_name] if bf16 else "sam_global"
+        rec = dict(by[main], name=row_name)
         rec["by_shape"] = {shape: dict(_sub(r), body=r["body"])
                            for shape, r in by.items()}
         records[row_name] = rec
@@ -1759,13 +1811,37 @@ def sam768_phase(torch, A, ft, vit):
 
 
 def sam640_phase(torch, A, ft, vit):
-    """Phase 25: SAM ViT-B/16 ``fast`` fine-tuning at 640 px, batch 2, the
-    main path of the K6 bf16 backward's mma.sync bodies: its global layers'
-    40 x 40 grid fits no fused kernel and no Hopper body. ``FT_STEPS``
-    steps whose launches are held to ``FAST640_STEP_LAUNCHES``. Returns
-    the launches."""
+    """Phase 25: SAM ViT-B/16 ``fast`` fine-tuning at 640 px, batch 2: its
+    global layers' 40 x 40 grid fits no fused kernel, so they take K6 in
+    bf16, dq and dkv on their Hopper bodies at Kw 40 (48-key tiles).
+    ``FT_STEPS`` steps whose launches are held to ``FAST640_STEP_LAUNCHES``,
+    then traced steps. Returns (launches, the steps' summary)."""
     cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM640)
     return finetune_phase(torch, A, ft, per_step=FAST640_STEP_LAUNCHES,
+                          backbone_cfg=cfg, trace=True)
+
+
+def sam896_phase(torch, A, ft, vit):
+    """Phase 26: SAM ViT-B/16 ``fast`` fine-tuning at 896 px, batch 2: the
+    8 windowed layers run K1 and K4 over 14 x 14 windows of the 56 x 56
+    grid, the 4 global layers (3136 tokens, which no fused kernel takes)
+    the K6 bf16 forward and the Hopper dq and dkv at Kw 56 (64-key tiles).
+    ``FT_STEPS`` steps whose launches are held to
+    ``FAST896_STEP_LAUNCHES``, then traced steps. Returns (launches, the
+    steps' summary)."""
+    cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM896)
+    return finetune_phase(torch, A, ft, per_step=FAST896_STEP_LAUNCHES,
+                          backbone_cfg=cfg, trace=True)
+
+
+def sam576_phase(torch, A, ft, vit):
+    """Phase 27: SAM ViT-B/16 ``fast`` fine-tuning at 576 px, batch 2, the
+    main path of the K6 bf16 backward's mma.sync bodies: its global layers'
+    36 x 36 grid fits no fused kernel and no Hopper body (Kw 36 is not a
+    multiple of 8). ``FT_STEPS`` steps whose launches are held to
+    ``FAST576_STEP_LAUNCHES``. Returns the launches."""
+    cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM576)
+    return finetune_phase(torch, A, ft, per_step=FAST576_STEP_LAUNCHES,
                           backbone_cfg=cfg)
 
 
@@ -3884,15 +3960,26 @@ def main() -> int:
     sam768_counts, sam768 = sam768_phase(torch, A, ft, vit)  # phase 24
     log("fine-tune SAM @768 fast: " + json.dumps(sam768))
     torch.cuda.empty_cache()
-    sam640_counts = sam640_phase(torch, A, ft, vit)            # phase 25
+    sam640_counts, sam640 = sam640_phase(torch, A, ft, vit)  # phase 25
+    log("fine-tune SAM @640 fast: " + json.dumps(sam640))
+    torch.cuda.empty_cache()
+    sam896_counts, sam896 = sam896_phase(torch, A, ft, vit)  # phase 26
+    log("fine-tune SAM @896 fast: " + json.dumps(sam896))
+    torch.cuda.empty_cache()
+    sam576_counts = sam576_phase(torch, A, ft, vit)            # phase 27
     # K6 in bf16: the @768 `fast` steps are the main path of the forward
-    # and the backward's Hopper bodies, the @640 ones of the backward's
-    # mma.sync bodies
+    # and the backward's Hopper bodies (also @640 and @896), the @576 ones
+    # of the backward's mma.sync bodies
     for kname, rec in k6_bf16_records.items():
-        at640 = kname.endswith(("_dq_bf16", "_dkv_bf16"))
-        rec["launches"] = (sam640_counts if at640 else sam768_counts)[kname]
-        if not at640:
+        at576 = kname.endswith(("_dq_bf16", "_dkv_bf16"))
+        rec["launches"] = (sam576_counts if at576 else sam768_counts)[kname]
+        if not at576:
             rec["fast768_step"] = sam768
+            rec["launches_sam640_fast"] = sam640_counts[kname]
+            rec["launches_sam896_fast"] = sam896_counts[kname]
+        if kname.endswith("_hopper"):
+            rec["fast640_step"] = sam640
+            rec["fast896_step"] = sam896
     records.update(k6_bf16_records)
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))

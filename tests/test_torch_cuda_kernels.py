@@ -1161,11 +1161,30 @@ def _k6_bf16(args, dout):
     return (q, k, v, *args[3:]), dout.to(torch.bfloat16)
 
 
-def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len):
+def _k6_bf16_steps():
+    """The rule of chip_smoke.py's phase 10 (K6_BF16_STEPS): a gap in bf16
+    steps of the output's largest |value|, the fp32 lse absolutely. Phase
+    10 holds each of its shapes to limits set from that shape's readings;
+    the widths here have none of their own, so each output takes the
+    loosest of phase 10's limits."""
+    import chip_smoke as cs
+
+    names = {"dbias_h": "dbh", "dbias_w": "dbw"}
+    steps = {"lse": None}
+    for by_output in cs.K6_BF16_STEPS.values():
+        for name, x in by_output.items():
+            name = names.get(name, name)
+            steps[name] = max(steps.get(name, 0.0), x)
+    return steps
+
+
+def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len, steps=None):
     """K6 in bf16 at one shape: the forward (the mma.sync body) and the
     backward (the body its route names, counted under that body's name)
     against the plain versions, the backward fed the kernel forward's lse
-    and delta. Returns the backward's body."""
+    and delta: K6_BF16_ATOL, or with ``steps`` (``_k6_bf16_steps()``)
+    that many bf16 steps of each output's largest |value|. Returns the
+    backward's body."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     *args, dout = _k6_inputs(gen, b, heads, s, kh, kw, kv_len)
@@ -1206,9 +1225,12 @@ def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len):
         rel = max(1.0, w_.abs().max().item()) if kv_len and \
             kv_len[0] == 0 and name != "lse" else 1.0
         gap = ((g_ - w_).abs() - rtol * w_.abs()).max().item()
-        print(f"{name} [{body}]: gap {gap:.3e} beyond {rtol:g}·|want|")
-        assert torch.isfinite(g_).all() and \
-            gap <= K6_BF16_ATOL[name] * rel, (name, gap)
+        limit = K6_BF16_ATOL[name] * rel
+        if steps and steps[name] is not None:
+            limit = steps[name] * 2.0 ** -8 * w_.abs().max().item()
+        print(f"{name} [{body}]: gap {gap:.3e} beyond {rtol:g}·|want| "
+              f"(limit {limit:.3e})")
+        assert torch.isfinite(g_).all() and gap <= limit, (name, gap, limit)
     if kv_len is not None:     # keys past a non-zero kv_len: no gradient
         for i, n in enumerate(kv_len):
             if n:
@@ -1252,15 +1274,55 @@ def test_flash_trainable_bf16_hopper_bodies_match_plain(gen, s, kh, kv_len):
                           kv_len) == "hopper"
 
 
+@pytest.mark.parametrize("b,s,kh,kw,kv_len", [
+    (2, 1600, 40, 40, None),      # SAM @640: 48-key dq tiles, half blocks
+    (2, 3136, 56, 56, None),      # SAM @896: 64-key dq tiles, half blocks
+    (1, 1440, 20, 72, None),      # two 48-key passes a row (24 live in
+                                  # the second), 1/4 blocks
+    (1, 160, 10, 16, None),       # 16-key tiles, 9 grid rows a dkv block
+    (1, 240, 10, 24, None),       # 32-key tiles over 24 keys
+    (1, 320, 10, 32, None),
+    (1, 640, 10, 64, None),       # two 32-key passes, 3 dkv stages
+    (1, 800, 10, 80, None),       # two 48-key passes, 32 live in the
+                                  # second
+    (1, 880, 10, 88, None),
+    (1, 960, 10, 96, None),       # two whole 48-key passes
+    (1, 1040, 10, 104, None),     # three 48-key passes (8 live in the
+                                  # third), 2 dkv stages
+    (1, 1120, 10, 112, None),
+    (1, 1200, 10, 120, None),
+    (1, 1280, 10, 128, None),     # three 48-key passes, 2 grid rows a
+                                  # dkv block
+    (1, 5120, 128, 40, None),     # 128 grid rows
+    (2, 1600, 40, 40, [900, 1600]),   # kv_len inside a grid row
+    (1, 1440, 20, 72, [1000]),        # kv_len inside the second pass
+    (2, 3136, 56, 56, [0, 3000]),     # a kv_len 0 row
+], ids=["sam640", "sam896", "kw72", "kw16", "kw24", "kw32", "kw64", "kw80",
+        "kw88", "kw96", "kw104", "kw112", "kw120", "kw128", "kw40_kh128",
+        "sam640_kv_len", "kw72_kv_len", "sam896_kv_len_zero_row"])
+def test_flash_trainable_bf16_hopper_bodies_at_every_grid_width(
+        gen, b, s, kh, kw, kv_len):
+    """The Hopper bodies at key-grid widths other than 48 (every multiple
+    of 8 from 16 to 128): dq in one to three passes a grid row of 16-,
+    32-, 48- or 64-key tiles (``hopper_dq_passes``, ``hopper_dq_tile``),
+    masking the next row's keys in a tile wider than the row's share; dkv with the grid rows and ring depth of each width;
+    S not a multiple of 128 (the last block half idle), kv_len with a bias,
+    against the plain versions at two heads, by phase 10's rule."""
+    assert _k6_bf16_check(gen, b, 2, s, kh, kw, kv_len,
+                          steps=_k6_bf16_steps()) == "hopper"
+
+
 def test_flash_trainable_bf16_route_and_determinism(gen):
     """fp32 calls take the tiled bodies; bf16 forwards the mma.sync body and
-    bf16 backwards the Hopper bodies at Kw 48 and the mma.sync ones at Kw
-    14; a bf16 bias grid of more than 320 terms is refused by the C entry;
+    bf16 backwards the Hopper bodies at Kw 48 and 72 (two passes a grid row
+    in dq) and the mma.sync ones at Kw 14; a bf16 bias grid of more than
+    320 terms is refused by the C entry;
     two bf16 runs give the same bits on either backward body (no
     atomics)."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     for shape, body in (((2, 3, 192, 4, 48), "hopper"),
+                        ((1, 2, 1440, 20, 72), "hopper"),
                         ((2, 3, 196, 14, 14), "mma")):
         *args, dout = _k6_inputs(gen, *shape)
         assert G.flash_attention_route(*args) == "tiled"

@@ -13,9 +13,10 @@ a bias over several key tiles, and a ``kv_len`` padding mask. Each plain
 backward is also held to torch autograd through the plain forward (1e-5).
 A fourth input, a ``kv_len`` of 0 on one batch row, is held to JAX alone.
 
-bf16: the same three cases and a key grid 48 keys wide (SAM's global grid
-at 768 px) over several JAX key tiles (S 192 = 4 x 48, blocks of 96), q, k
-and v rounded to bf16 on both sides, the bias fp32 as the fine-tuning path
+bf16: the same three cases, a key grid 48 keys wide (SAM's global grid
+at 768 px) over several JAX key tiles (S 192 = 4 x 48, blocks of 96), and
+SAM's global grids at 640 px (40 x 40) and 896 px (56 x 56) at two heads
+(blocks of eight grid rows), q, k and v rounded to bf16 on both sides, the bias fp32 as the fine-tuning path
 gives it. The port's plain versions round where the JAX kernels' source
 does (Q^, the bias terms, P before P·V, dS before each product and the
 bias sums, P before dV). By default XLA on the CPU drops an fp32 → bf16 →
@@ -82,9 +83,13 @@ CASES = {
     "bias_16x16_four_key_tiles": (1, 2, 256, 16, 16, None, 128, 64),
     "kv_len": (2, 2, 128, 0, 0, (70, 128), 64, 64),
 }
-# bf16: the fp32 cases and a key grid 48 keys wide over four JAX key tiles
+# bf16: the fp32 cases, a key grid 48 keys wide over four JAX key tiles,
+# and SAM ViT-B/16's global grids at 640 px (40 x 40) and 896 px (56 x 56)
+# at two heads, over five and seven JAX key tiles of eight grid rows
 BF16_CASES = dict(CASES, kw48_four_key_tiles=(1, 2, 192, 4, 48, None, 96,
-                                              96))
+                                              96),
+                  sam640_grid=(1, 2, 1600, 40, 40, None, 320, 320),
+                  sam896_grid=(1, 2, 3136, 56, 56, None, 448, 448))
 BF16_TOL = 0.01
 ONE_TILE_MEAN_TOL = 1e-4
 LSE_BF16_TOL = 2e-6

@@ -14,8 +14,11 @@ even. That checks the bodies' indexing, fragment layouts, masks, the bias
 table and key table (a 48-wide key grid, whose 64-key tiles span two grid
 rows; a 7-wide one, ragged everywhere), the kv_len rules (a row with no
 valid key, a valid count inside a tile) and the fixed-order bias sums,
-without the card. The card's own checks are in
-``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py`` phase 10.
+without the card, through the stand-in of ``tests/k6_bf16_shim.py``. The
+same build holds the backward's route (``k6b::bwd_route``) and the Hopper
+bodies' tiling (``k6b::hopper_*``) to their closed forms. The card's own
+checks are in ``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``
+phase 10.
 
 Both sides are given the same bf16 inputs and, for the backward, the same
 lse and delta (the plain forward's). The outputs are bf16 on both sides
@@ -27,204 +30,13 @@ within 1e-3 (measured 4.9e-4: where a sum order flips the bf16 rounding of
 one dS term).
 """
 
-import ctypes
-import shutil
-import subprocess
-
 import numpy as np
 import pytest
 import torch
 
+from k6_bf16_shim import SCALE, D, backward, build, forward
 from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
-from vit_deep_radiomics_tpu_torch.utils import cuda_build
 
-CORE_H = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-using std::max;
-using std::min;
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-struct dim3 { unsigned x = 0, y = 0, z = 0; };
-struct int2 { int x, y; };
-inline int2 make_int2(int x, int y) { return {x, y}; }
-struct uint4 { unsigned x, y, z, w; };
-inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
-  return {x, y, z, w};
-}
-struct __nv_bfloat16 { uint16_t bits; };
-struct __nv_bfloat162 { __nv_bfloat16 x, y; };
-inline __nv_bfloat16 __float2bfloat16(float f) {
-  uint32_t u;
-  std::memcpy(&u, &f, 4);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return {uint16_t((u >> 16) | 0x40)};
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return {uint16_t(u >> 16)};
-}
-inline float __bfloat162float(__nv_bfloat16 h) {
-  const uint32_t u = uint32_t(h.bits) << 16;
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
-  return {__float2bfloat16(a), __float2bfloat16(b)};
-}
-inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
-inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
-inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
-inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
-extern thread_local dim3 threadIdx, blockIdx, blockDim;
-struct BlockSync {
-  std::barrier<> bar;
-  float shfl[128];
-  uint32_t a[128][4], b[128][2];
-  explicit BlockSync(int n) : bar(n) {}
-};
-extern thread_local BlockSync* tl_block;
-inline void __syncthreads() { tl_block->bar.arrive_and_wait(); }
-inline float __shfl_xor_sync(unsigned, float v, int m) {
-  __syncthreads();
-  tl_block->shfl[threadIdx.x] = v;
-  __syncthreads();
-  return tl_block->shfl[threadIdx.x ^ m];
-}
-namespace vdr {
-inline uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  std::memcpy(&u, &v, 4);
-  return u;
-}
-inline float half_of(uint32_t w, int hi) {
-  return __bfloat162float({uint16_t(hi ? w >> 16 : w & 0xffffu)});
-}
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 over the 32 lanes of the
-// caller's warp: lane 4g + c holds A (g, 2c..), (g + 8, 2c..), (g, 2c + 8..),
-// (g + 8, 2c + 8..), B (k 2c.., n g), (k 2c + 8.., n g), C (g, 2c..),
-// (g + 8, 2c..)
-inline void mma_bf16_16816(float c[4], const uint32_t a[4],
-                           const uint32_t b[2]) {
-  BlockSync* bs = tl_block;
-  const int t = threadIdx.x, w0 = t & ~31, g = (t & 31) / 4, cc = t & 3;
-  __syncthreads();
-  for (int i = 0; i < 4; ++i) bs->a[t][i] = a[i];
-  bs->b[t][0] = b[0];
-  bs->b[t][1] = b[1];
-  __syncthreads();
-  for (int e = 0; e < 4; ++e) {
-    const int m = g + (e >= 2 ? 8 : 0), n = 2 * cc + (e & 1);
-    float sum = 0.f;
-    for (int k = 0; k < 16; ++k) {
-      const float av = half_of(
-          bs->a[w0 + (m % 8) * 4 + (k % 8) / 2][(k < 8 ? 0 : 2) + (m >= 8)],
-          k % 2);
-      const float bv =
-          half_of(bs->b[w0 + n * 4 + (k % 8) / 2][k < 8 ? 0 : 1], k % 2);
-      sum += av * bv;
-    }
-    c[e] += sum;
-  }
-}
-}  // namespace vdr
-"""
-
-RUNNER_CPP = r"""
-#include "flash_trainable_bf16.cuh"
-#include <thread>
-#include <vector>
-thread_local dim3 threadIdx, blockIdx, blockDim;
-thread_local BlockSync* tl_block;
-using namespace vdr::k6b;
-
-template <class Body>
-static void run_grid(const Params& p, size_t smem_bytes, Body body) {
-  for (int z = 0; z < p.B; ++z)
-    for (int y = 0; y < p.H; ++y)
-      for (int x = 0; x < (p.S + ROWS - 1) / ROWS; ++x) {
-        std::vector<float> smem(smem_bytes / 4 + 4, NAN);
-        BlockSync bs(NT);
-        std::vector<std::thread> th;
-        for (int t = 0; t < NT; ++t)
-          th.emplace_back([&, t] {
-            threadIdx = {(unsigned)t, 0, 0};
-            blockIdx = {(unsigned)x, (unsigned)y, (unsigned)z};
-            blockDim = {NT, 1, 1};
-            tl_block = &bs;
-            body(reinterpret_cast<char*>(smem.data()), z, y, x * ROWS);
-          });
-        for (auto& t : th) t.join();
-      }
-}
-
-static Params make(const void* q, const void* k, const void* v,
-                   const float* bh, const float* bw, const int* kv_len,
-                   int B, int H, int S, int kh, int kw, float scale) {
-  Params p{};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.bias_h = bh;
-  p.bias_w = bw;
-  p.kv_len = kv_len;
-  p.B = B;
-  p.H = H;
-  p.S = S;
-  p.kh = bh ? kh : 0;
-  p.kw = bh ? kw : 1;
-  p.scale = scale;
-  p.scale_log2 = round_bf16(scale * kLog2e);
-  return p;
-}
-
-extern "C" {
-void run_fwd(const void* q, const void* k, const void* v, const float* bh,
-             const float* bw, const int* kv_len, void* out, float* lse,
-             int B, int H, int S, int kh, int kw, float scale) {
-  Params p = make(q, k, v, bh, bw, kv_len, B, H, S, kh, kw, scale);
-  p.out = static_cast<bf16*>(out);
-  p.lse_out = lse;
-  run_grid(p, fwd_smem(bh ? kh + kw : 0),
-           [&](char* sm, int b, int h, int r0) { vdr::k6b::forward(p, b, h, r0, sm); });
-}
-void run_dq(const void* q, const void* k, const void* v, const float* bh,
-            const float* bw, const int* kv_len, const void* dout,
-            const float* lse, const float* delta, void* dq, float* dbh,
-            float* dbw, int B, int H, int S, int kh, int kw, float scale) {
-  Params p = make(q, k, v, bh, bw, kv_len, B, H, S, kh, kw, scale);
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse = lse;
-  p.delta = delta;
-  p.dq = static_cast<bf16*>(dq);
-  p.dbh = dbh;
-  p.dbw = dbw;
-  run_grid(p, dq_smem(bh ? kh + kw : 0, bh ? kw : 0),
-           [&](char* sm, int b, int h, int r0) { vdr::k6b::dq(p, b, h, r0, sm); });
-}
-void run_dkv(const void* q, const void* k, const void* v, const float* bh,
-             const float* bw, const int* kv_len, const void* dout,
-             const float* lse, const float* delta, void* dk, void* dv, int B,
-             int H, int S, int kh, int kw, float scale) {
-  Params p = make(q, k, v, bh, bw, kv_len, B, H, S, kh, kw, scale);
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse = lse;
-  p.delta = delta;
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  run_grid(p, dkv_smem(bh ? kh + kw : 0),
-           [&](char* sm, int b, int h, int r0) { vdr::k6b::dkv(p, b, h, r0, sm); });
-}
-}
-"""
-
-D = 64
-SCALE = D ** -0.5
 RTOL, ATOL = 2.0 ** -7, 1.5e-3
 LSE_ATOL, DBIAS_ATOL = 2e-6, 1e-3
 
@@ -240,60 +52,21 @@ CASES = {"grid_4x48": (1, 2, 192, 4, 48, None),
 
 @pytest.fixture(scope="module")
 def shim(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ (C++20) to build the bodies for the CPU")
-    d = tmp_path_factory.mktemp("k6_bf16_shim")
-    (d / "flash_attention_core.cuh").write_text(CORE_H)
-    shutil.copy(cuda_build.CSRC_DIR / "flash_trainable_bf16.cuh", d)
-    (d / "runner.cpp").write_text(RUNNER_CPP)
-    so = d / "k6b.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{d}", "-o",
-         str(so), str(d / "runner.cpp"), "-lpthread"],
-        capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.run_fwd.argtypes = [P] * 8 + [I] * 5 + [F]
-    lib.run_dq.argtypes = [P] * 12 + [I] * 5 + [F]
-    lib.run_dkv.argtypes = [P] * 11 + [I] * 5 + [F]
-    for fn in (lib.run_fwd, lib.run_dq, lib.run_dkv):
-        fn.restype = None
-    return lib
-
-
-ROUTE_CPP = r"""
-#include "flash_trainable_bf16.cuh"
-thread_local dim3 threadIdx, blockIdx, blockDim;
-thread_local BlockSync* tl_block;
-extern "C" int route(int has_bias, int kh, int kw) {
-  return vdr::k6b::bwd_route(has_bias != 0, kh, kw);
-}
-"""
+    try:
+        return build(tmp_path_factory.mktemp("k6_bf16_shim"))
+    except FileNotFoundError as exc:
+        pytest.skip(str(exc))
 
 
 @pytest.fixture(scope="module")
 def route_lib(tmp_path_factory):
-    """The bf16 backward's shape predicate (``k6b::bwd_route``) built alone
-    under the same stand-in."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ (C++20) to build the predicate for the CPU")
-    d = tmp_path_factory.mktemp("k6_bf16_route")
-    (d / "flash_attention_core.cuh").write_text(CORE_H)
-    shutil.copy(cuda_build.CSRC_DIR / "flash_trainable_bf16.cuh", d)
-    (d / "route.cpp").write_text(ROUTE_CPP)
-    so = d / "route.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O0", "-shared", "-fPIC", f"-I{d}", "-o",
-         str(so), str(d / "route.cpp"), "-lpthread"],
-        capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
-    lib.route.argtypes = [ctypes.c_int] * 3
-    lib.route.restype = ctypes.c_int
-    return lib
+    """The bf16 backward's shape predicate (``k6b::bwd_route``) and the
+    Hopper bodies' tiling (``k6b::hopper_*``) built alone under the same
+    stand-in."""
+    try:
+        return build(tmp_path_factory.mktemp("k6_bf16_route"), "route")
+    except FileNotFoundError as exc:
+        pytest.skip(str(exc))
 
 
 # (has_bias, Kh, Kw) -> the code of the body the bf16 backward runs: 2 the
@@ -302,11 +75,22 @@ ROUTES = {"sam768": ((1, 48, 48), 2),
           "kw48_kh5": ((1, 5, 48), 2),
           "kw48_kh128": ((1, 128, 48), 2),
           "no_bias": ((0, 0, 0), 2),
+          "kw16": ((1, 16, 16), 2),
+          "sam640_kw40": ((1, 40, 40), 2),
+          "sam896_kw56": ((1, 56, 56), 2),
+          "sam1152_kw72": ((1, 72, 72), 2),
+          "sam1280_kw80": ((1, 80, 80), 2),
+          "sam1536_kw96": ((1, 96, 96), 2),
+          "kw64": ((1, 64, 64), 2),
+          "kw128": ((1, 128, 128), 2),
           "kw48_kh129": ((1, 129, 48), 1),
+          "kw40_kh129": ((1, 129, 40), 1),
           "kw7": ((1, 7, 7), 1),
+          "kw8": ((1, 8, 8), 1),
           "kw14": ((1, 14, 14), 1),
-          "kw64": ((1, 64, 64), 1),
+          "sam576_kw36": ((1, 36, 36), 1),
           "kw49": ((1, 48, 49), 1),
+          "kw136": ((1, 8, 136), 1),
           "kw48_kh272": ((1, 272, 48), 1),
           "over_320_terms": ((1, 273, 48), -2),
           "kw400": ((1, 1, 400), -2)}
@@ -314,16 +98,49 @@ ROUTES = {"sam768": ((1, 48, 48), 2),
 
 @pytest.mark.parametrize("case", sorted(ROUTES))
 def test_bwd_route_takes_the_hopper_bodies_at_kw48(route_lib, case):
-    """SAM @768's grid (Kh = Kw = 48) and calls with no bias go to the
-    Hopper bodies, other key-grid widths (and Kw 48 past 128 grid rows,
-    whose bias_h table would not fit dq's shared memory) to the mma.sync
-    bodies, and grids of more than 320 terms are refused."""
+    """Calls with no bias and every key grid whose width is a multiple of
+    8 from 16 to 128 (SAM ViT-B/16's global grids at 640 to 1536 px: Kw
+    40-96; 48 at 768 px) with at most 128 grid rows go to the Hopper
+    bodies; other widths (14 x 14 windows, Kw 36 at 576 px, Kw 8, 49, 136)
+    and grids past 128 rows, whose bias_h table would not fit dq's shared
+    memory, to the mma.sync bodies; grids of more than 320 terms are
+    refused."""
     args, want = ROUTES[case]
     assert route_lib.route(*args) == want
 
 
-def _ptr(t):
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+HOPPER_KWS = range(16, 129, 8)
+
+
+@pytest.mark.parametrize("kw", HOPPER_KWS)
+def test_hopper_tiling_holds_its_closed_form(route_lib, kw):
+    """dq takes a grid row in one pass up to Kw 56, else in ceil(Kw / 48)
+    passes, each a key tile of the row's share rounded up to a k16 step and
+    every pass but the last whole (so no pass holds more than 56 live
+    columns, a tile of several passes at most 48 keys, and the passes cover
+    the row); dkv's block of 128 aligned keys spans floor(127 / Kw) + 2
+    grid rows at most, its bias_w terms' rows lie an odd number of 16-byte
+    chunks apart, and its ring has 4 stages up to Kw 56, 3 up to 96 and 2
+    beyond, the most that fit in 227 KB; dq's shared memory at Kh 128 fits
+    too."""
+    n = 1 if kw <= 56 else -(-kw // 48)
+    tile = -(-(-(-kw // n)) // 16) * 16
+    assert route_lib.passes(kw) == n and route_lib.tile(kw) == tile
+    assert (n - 1) * tile < kw <= n * tile
+    assert min(tile, kw) <= 56 and (n == 1 or tile <= 48)
+    assert route_lib.hrows(kw) == 127 // kw + 2
+    rows = {(k0 + j) // kw for k0 in range(0, 128 * kw, 128)
+            for j in (0, 127)}
+    spans = [(k0 + 127) // kw - k0 // kw + 1 for k0 in range(0, 128 * kw,
+                                                           128)]
+    assert max(spans) <= route_lib.hrows(kw) and rows
+    ld = route_lib.term_ld(kw)
+    assert ld >= kw and ld % 8 == 0 and (ld // 8) % 2 == 1
+    stages = route_lib.stages(kw)
+    assert stages == (4 if kw <= 56 else 3 if kw <= 96 else 2)
+    limit = 232448
+    assert route_lib.dkv_smem(kw) <= limit
+    assert route_lib.dq_smem(kw, 128) <= limit
 
 
 def _inputs(case):
@@ -350,13 +167,8 @@ def _close(got, want, name, rtol=RTOL, atol=ATOL):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_matches_plain(shim, case):
     args, _ = _inputs(case)
-    q, k, v, bh, bw, kl = args
-    b, h, s, _ = q.shape
-    out = torch.full_like(q, float("nan"))
-    lse = torch.full((b, h, s), float("nan"))
-    shim.run_fwd(*(_ptr(x) for x in args), _ptr(out), _ptr(lse), b, h, s,
-                 bh.shape[-1] if bh is not None else 0,
-                 bw.shape[-1] if bw is not None else 0, SCALE)
+    kl = args[5]
+    out, lse = forward(shim, *args, scale=SCALE)
     want_out, want_lse = G.flash_attention_fwd_plain(*args, scale=SCALE)
     _close(out, want_out, "out")
     _close(lse, want_lse, "lse", rtol=0.0, atol=LSE_ATOL)
@@ -367,20 +179,10 @@ def test_forward_matches_plain(shim, case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_backward_matches_plain(shim, case):
     args, dout = _inputs(case)
-    q, k, v, bh, bw, kl = args
-    b, h, s, _ = q.shape
-    kh = bh.shape[-1] if bh is not None else 0
-    kw = bw.shape[-1] if bw is not None else 0
+    kl = args[5]
     out, lse = G.flash_attention_fwd_plain(*args, scale=SCALE)
     rest = (dout, lse, G.flash_attention_delta(out, dout))
-    dq = torch.full_like(q, float("nan"))
-    dk, dv = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
-    dbh = torch.full_like(bh, float("nan")) if kh else None
-    dbw = torch.full_like(bw, float("nan")) if kh else None
-    ptrs = [_ptr(x) for x in (*args, *rest)]
-    shim.run_dq(*ptrs, _ptr(dq), _ptr(dbh), _ptr(dbw), b, h, s, kh, kw,
-                SCALE)
-    shim.run_dkv(*ptrs, _ptr(dk), _ptr(dv), b, h, s, kh, kw, SCALE)
+    dq, dbh, dbw, dk, dv = backward(shim, *args, *rest, scale=SCALE)
     want_dq, want_dbh, want_dbw = G.flash_attention_bwd_dq_plain(
         *args, *rest, scale=SCALE)
     want_dk, want_dv = G.flash_attention_bwd_dkv_plain(*args, *rest,
@@ -388,7 +190,7 @@ def test_backward_matches_plain(shim, case):
     for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
                             ("dv", dv, want_dv)):
         _close(got, want, name)
-    if kh:
+    if args[3] is not None:
         _close(dbh, want_dbh, "dbias_h", rtol=0.0, atol=DBIAS_ATOL)
         _close(dbw, want_dbw, "dbias_w", rtol=0.0, atol=DBIAS_ATOL)
     if kl is not None:

@@ -42,6 +42,17 @@ def store(tmp_path_factory):
     return {"root": root, "df": df, "ct": h5_ct, "pet": h5_pet}
 
 
+@pytest.fixture(scope="module")
+def frame(tmp_path_factory):
+    """The store's metadata frame alone, written without the HDF5 stores:
+    the splits read nothing else, so their test does not depend on HDF5
+    writes (under xdist, extraction tests sharing a worker have failed
+    in h5py with "no VOL object wrap context" and H5Dwrite_chunk
+    errors)."""
+    return write_store(tmp_path_factory.mktemp("torch_frame"), dim=DIM,
+                       features=False)[0]
+
+
 def test_merge_metadata_matches_jax(store):
     feat_dir = store["root"] / "features"
     ref = jfs.merge_metadata(feat_dir, datasets=("stanford_dataset",),
@@ -170,11 +181,11 @@ def test_token_buckets_and_truncation():
 
 
 @pytest.mark.parametrize("n_splits", [2, 3])
-def test_kfold_patients_and_yaml_match_jax(store, tmp_path, n_splits):
+def test_kfold_patients_and_yaml_match_jax(frame, tmp_path, n_splits):
     pytest.importorskip("sklearn")
     pytest.importorskip("yaml")
-    ref = jsplits.build_kfold_patients(store["df"], n_splits=n_splits)
-    got = tsplits.build_kfold_patients(store["df"], n_splits=n_splits)
+    ref = jsplits.build_kfold_patients(frame, n_splits=n_splits)
+    got = tsplits.build_kfold_patients(frame, n_splits=n_splits)
     assert got == ref
     (tmp_path / ".git").mkdir()
     conf = tmp_path / "conf"

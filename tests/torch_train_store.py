@@ -12,12 +12,14 @@ SPACING = {"ct": (0.8, 0.8, 1.5), "pet": (4.0, 4.0, 4.0)}
 
 
 def write_store(root, n_patients=6, dim=16, slices=None, grid=4,
-                mask_px=8, seed=0, full_masks=False):
+                mask_px=8, seed=0, full_masks=False, features=True):
     """``root/features/{features_masks_<mod>.hdf5, stanford_dataset/*.
     parquet, petct.parquet}``; returns (merged frame, CT store, PET
     store). Labels alternate; CT volumes are 16 slices (windows of 13),
     PET 4. Masks are small boxes, or cover every pixel with
-    ``full_masks`` (``grid``² tokens a slice)."""
+    ``full_masks`` (``grid``² tokens a slice). Without ``features`` the
+    HDF5 stores are not written (h5py is not touched): the parquets and
+    the merged frame alone, the same frame."""
     from vit_deep_radiomics_tpu_torch.data import feature_store
 
     slices = slices or {"ct": 16, "pet": 4}
@@ -42,7 +44,8 @@ def write_store(root, n_patients=6, dim=16, slices=None, grid=4,
                     rows_s.append(s)
                     rows_a.append(angle)
                     rows_f.append(flip)
-            feature_store.save_features(stores[mod], feats, masks, pid)
+            if features:
+                feature_store.save_features(stores[mod], feats, masks, pid)
             feature_store.slice_metadata_frame(
                 rows_s, rows_a, rows_f, pid, p % 2, "stanford", mod,
                 np.asarray(SPACING[mod])).to_parquet(

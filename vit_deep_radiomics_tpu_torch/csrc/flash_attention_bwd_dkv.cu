@@ -230,7 +230,30 @@ __global__ void __launch_bounds__(vdr::k6b::NT)
 }
 
 
-// bf16 with no bias or a key grid 48 keys wide: the Hopper body
+// bf16 with no bias or a key grid the Hopper bodies take: the dkv body
+// built for the grid's width (its stage layout and ring depth)
+template <bool kBias, int kKw>
+int dkv_hopper_at(const vdr::k6h::Params& p, const CUtensorMap (&m)[4],
+                  const CUtensorMap& tbw, int B, cudaStream_t stream) {
+  namespace h = vdr::k6h;
+  return h::launch(h::dkv_hopper_kernel<kBias, kKw>,
+                   vdr::k6b::hopper_dkv_smem(kKw),
+                   (p.S + h::kKeys - 1) / h::kKeys, B, p, stream, m[0], m[1],
+                   m[2], m[3], tbw);
+}
+
+// the instance of width p.kw among kKw, kKw + 8, ... kHopperMaxKw
+template <int kKw>
+int dkv_hopper_kw(const vdr::k6h::Params& p, const CUtensorMap (&m)[4],
+                  const CUtensorMap& tbw, int B, cudaStream_t stream) {
+  if constexpr (kKw > vdr::k6b::kHopperMaxKw) {
+    return vdr::k6b::kErrTerms;
+  } else {
+    return p.kw == kKw ? dkv_hopper_at<true, kKw>(p, m, tbw, B, stream)
+                       : dkv_hopper_kw<kKw + 8>(p, m, tbw, B, stream);
+  }
+}
+
 int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
                const vdr::k6h::Params& p, int B, cudaStream_t stream) {
   namespace h = vdr::k6h;
@@ -238,13 +261,13 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
   if (!h::qkv_maps(m, q, k, v, dout, p.S, B * p.H, 64))
     return h::kErrTensorMap;
   const bool bias = p.bias_h != nullptr;
-  if (bias && !h::bias_map(&tbw, p.bias_w, p.S, B * p.H))
+  if (bias && !h::bias_map(&tbw, p.bias_w, p.S, B * p.H, p.kw))
     return h::kErrTensorMap;
-  if (!bias) tbw = m[3];   // never read
-  return h::launch(bias ? h::dkv_hopper_kernel<true>
-                        : h::dkv_hopper_kernel<false>,
-                   h::dkv_smem(bias), (p.S + h::kKeys - 1) / h::kKeys, B, p,
-                   stream, m[0], m[1], m[2], m[3], tbw);
+  if (!bias) {
+    tbw = m[3];   // never read
+    return dkv_hopper_at<false, 0>(p, m, tbw, B, stream);
+  }
+  return dkv_hopper_kw<16>(p, m, tbw, B, stream);
 }
 }  // namespace
 
@@ -324,6 +347,7 @@ int vdr_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
     hp.H = H;
     hp.S = S;
     hp.kh = bias ? kh : 0;
+    hp.kw = bias ? kw : 0;
     hp.scale_log2 = vdr::k6b::scale_log2_bf16(scale);
     hp.scale = scale;
     return dkv_hopper(q, k, v, dout, hp, B,

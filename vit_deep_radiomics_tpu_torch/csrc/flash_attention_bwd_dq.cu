@@ -291,19 +291,42 @@ __global__ void __launch_bounds__(vdr::k6b::NT)
 }
 
 
-// bf16 with no bias or a key grid 48 keys wide: the Hopper body
+// bf16 with no bias or a key grid the Hopper bodies take: the dq body
+// built for the grid's width (tiles of 48 keys with no bias)
+template <bool kBias, int kKw>
+int dq_hopper_at(const vdr::k6h::Params& p, const CUtensorMap (&m)[4], int B,
+                 cudaStream_t stream) {
+  namespace h = vdr::k6h;
+  return h::launch(h::dq_hopper_kernel<kBias, kKw>,
+                   vdr::k6b::hopper_dq_smem(kBias ? kKw : 0, p.kh),
+                   (p.S + h::kDqRows - 1) / h::kDqRows, B, p, stream, m[0],
+                   m[1], m[2], m[3]);
+}
+
+// the instance of width p.kw among kKw, kKw + 8, ... kHopperMaxKw
+template <int kKw>
+int dq_hopper_kw(const vdr::k6h::Params& p, const CUtensorMap (&m)[4], int B,
+                 cudaStream_t stream) {
+  if constexpr (kKw > vdr::k6b::kHopperMaxKw) {
+    return vdr::k6b::kErrTerms;
+  } else {
+    return p.kw == kKw ? dq_hopper_at<true, kKw>(p, m, B, stream)
+                       : dq_hopper_kw<kKw + 8>(p, m, B, stream);
+  }
+}
+
 int dq_hopper(const void* q, const void* k, const void* v, const void* dout,
               const vdr::k6h::Params& p, int B, cudaStream_t stream) {
   namespace h = vdr::k6h;
-  CUtensorMap m[4];
-  if (!h::qkv_maps(m, q, k, v, dout, p.S, B * p.H, h::kNK))
-    return h::kErrTensorMap;
   const bool bias = p.bias_h != nullptr;
-  return h::launch(bias ? h::dq_hopper_kernel<true>
-                        : h::dq_hopper_kernel<false>,
-                   h::dq_smem(bias ? p.kh : 0),
-                   (p.S + h::kDqRows - 1) / h::kDqRows, B, p, stream, m[0],
-                   m[1], m[2], m[3]);
+  const int tile =
+      bias ? vdr::k6b::hopper_dq_tile(p.kw) : vdr::k6b::kHopperNoBiasTile;
+  CUtensorMap m[4];
+  if (!h::qkv_maps(m, q, k, v, dout, p.S, B * p.H, tile))
+    return h::kErrTensorMap;
+  if (!bias)
+    return dq_hopper_at<false, vdr::k6b::kHopperNoBiasTile>(p, m, B, stream);
+  return dq_hopper_kw<16>(p, m, B, stream);
 }
 }  // namespace
 
@@ -397,6 +420,7 @@ int vdr_flash_attention_bwd_dq_bf16(const void* q, const void* k,
     hp.H = H;
     hp.S = S;
     hp.kh = bias ? kh : 0;
+    hp.kw = bias ? kw : 0;
     hp.scale_log2 = vdr::k6b::scale_log2_bf16(scale);
     hp.scale = scale;
     return dq_hopper(q, k, v, dout, hp, B,

@@ -41,8 +41,9 @@
 // bodies also run on the CPU under a g++ stand-in for those
 // (tests/test_torch_k6_bf16_shim.py), as does bwd_route, the choice
 // between the backward's bodies here and its TMA + wgmma bodies
-// (flash_trainable_hopper.cuh: no bias, or a key grid 48 keys wide, SAM
-// ViT-B/16 @768's global layers).
+// (flash_trainable_hopper.cuh: no bias, or a key grid whose width is a
+// multiple of 8 from 16 to 128, every SAM ViT-B/16 global grid that
+// fast fine-tuning hands to K6), with the Hopper bodies' tiling.
 #pragma once
 
 #include "flash_attention_core.cuh"
@@ -97,16 +98,93 @@ __host__ __device__ inline bool takes(bool has_bias, int kh, int kw) {
 
 // The body the bf16 backward (dq and dkv alike) runs for a call:
 // kRouteHopper, the TMA + wgmma bodies of flash_trainable_hopper.cuh (no
-// bias, or a key grid kHopperKw keys wide of at most kHopperMaxKh rows,
-// whose bias_h terms dq stages in one table), else kRouteMma, the mma.sync
-// bodies below, or kErrTerms for a grid they refuse too. The forward keeps
-// the mma.sync body whatever the shape.
+// bias, or a key grid of whole 8-key chunks from 16 to kHopperMaxKw keys
+// wide and at most kHopperMaxKh rows, whose bias_h terms dq stages in one
+// table), else kRouteMma, the mma.sync bodies below, or kErrTerms for a
+// grid they refuse too. The forward keeps the mma.sync body whatever the
+// shape.
 constexpr int kRouteMma = 1, kRouteHopper = 2;
-constexpr int kHopperKw = 48, kHopperMaxKh = 128;
+constexpr int kHopperMaxKw = 128;
+constexpr int kHopperMaxKh = 128;
+__host__ __device__ constexpr bool hopper_kw(int kw) {
+  return kw % 8 == 0 && kw >= 16 && kw <= kHopperMaxKw;
+}
 __host__ __device__ inline int bwd_route(bool has_bias, int kh, int kw) {
-  if (!has_bias || (kw == kHopperKw && kh <= kHopperMaxKh))
+  if (!has_bias || (hopper_kw(kw) && kh <= kHopperMaxKh))
     return kRouteHopper;
   return takes(has_bias, kh, kw) ? kRouteMma : kErrTerms;
+}
+
+// The Hopper bodies' tiling of a key grid kw wide (with a bias; here so
+// that the CPU tests hold it without the card).
+// dq takes each grid row in hopper_dq_passes(kw) passes, pass u a key
+// tile of hopper_dq_tile(kw) keys (a k16 step multiple) from grid column
+// u * tile; the tile's columns past the row's end are masked. A pass of
+// 64 live columns spilled its scores, dP, bias_w terms and dbias_w sums
+// (132-236 bytes), and a first pass with masked columns before a second
+// one serialized the wgmma pipeline (ptxas C7511), so one pass up to Kw 56
+// (16, 32, 48 or 64 keys: Kw 56 has 56 live in 64), else ceil(Kw / 48)
+// passes of at most 48 keys, every pass but the last whole: Kw 64 two of
+// 32, Kw 72-96 two of 48, Kw 104-128 three of 48. Calls with no bias take
+// 48 consecutive keys a tile.
+constexpr int kHopperNoBiasTile = 48;
+__host__ __device__ constexpr int hopper_dq_passes(int kw) {
+  return kw <= 56 ? 1 : (kw + 47) / 48;
+}
+__host__ __device__ constexpr int hopper_dq_tile(int kw) {
+  return ((kw + hopper_dq_passes(kw) - 1) / hopper_dq_passes(kw) + 15) /
+         16 * 16;
+}
+// dkv: the grid rows a block of 128 aligned keys spans, and the bf16 row of
+// the staged bias_w terms, whose 16-byte chunks lie an odd number apart so
+// that the 8 rows an ldmatrix reads fall in distinct banks.
+__host__ __device__ constexpr int hopper_dkv_hrows(int kw) {
+  return 127 / kw + 2;
+}
+__host__ __device__ constexpr int hopper_term_ld(int kw) {
+  return (kw / 8) % 2 ? kw : kw + 8;
+}
+// dkv's stage (kw 0: no bias): raw q, dO and Q^ (three 8 KB tiles), then
+// with a bias the tile's fp32 bias_w rows, their bf16 terms, and fp32 lse,
+// D and (bias) the bias_h terms of the block's grid rows, 64 queries each;
+// the stages are as many as fit beside the K and V tiles, at most
+// kHopperDkvMaxStages and at least 2 (Kw up to 56: 4; up to 96: 3; beyond:
+// 2).
+constexpr int kHopperDkvMaxStages = 4;
+constexpr int kHopperTile = 64 * 64 * 2;
+constexpr int kHopperSmemMax = 232448 - 256;   // 227 KB less the barriers
+__host__ __device__ constexpr int hopper_term_off(int kw) {
+  return 3 * kHopperTile + 64 * kw * 4;
+}
+__host__ __device__ constexpr int hopper_small_off(int kw) {
+  return kw ? hopper_term_off(kw) + 64 * hopper_term_ld(kw) * 2
+            : 3 * kHopperTile;
+}
+__host__ __device__ constexpr int hopper_stage_bytes(int kw) {
+  return (hopper_small_off(kw) + (2 + (kw ? hopper_dkv_hrows(kw) : 0)) *
+                                     64 * 4 + 1023) / 1024 * 1024;
+}
+__host__ __device__ constexpr size_t hopper_dkv_smem_at(int kw, int stages) {
+  return 1024 + (size_t)4 * kHopperTile +
+         (size_t)stages * hopper_stage_bytes(kw);
+}
+__host__ __device__ constexpr int hopper_dkv_stages(int kw) {
+  int n = kHopperDkvMaxStages;
+  while (n > 2 && hopper_dkv_smem_at(kw, n) > kHopperSmemMax) --n;
+  return n;
+}
+__host__ __device__ constexpr size_t hopper_dkv_smem(int kw) {
+  return hopper_dkv_smem_at(kw, hopper_dkv_stages(kw));
+}
+// dq: Q^ and dO of both warpgroups, a ring of kHopperDqStages K/V tiles of
+// the key tile's rows, and the [grid row][query] bias_h table.
+constexpr int kHopperDqStages = 6;
+constexpr int kHopperBiasLd = 2 * 64 + 1;
+__host__ __device__ constexpr size_t hopper_dq_smem(int kw, int kh) {
+  const int tile = kw ? hopper_dq_tile(kw) : kHopperNoBiasTile;
+  return 1024 + (size_t)4 * kHopperTile +
+         (size_t)2 * kHopperDqStages * tile * 128 +
+         (size_t)kh * kHopperBiasLd * sizeof(float);
 }
 
 // Shared memory of each body (bytes), `terms` = kh + kw with a bias, else 0.

@@ -1,10 +1,13 @@
 // K6's bf16 backward on Hopper: the TMA + wgmma bodies of dq (with both
 // bias gradients, flash_attention_bwd_dq.cu) and dk/dv
 // (flash_attention_bwd_dkv.cu) for per-head bf16 q, k, v (B, H, S, D),
-// D = 64, with no bias or a decomposed fp32 bias on a key grid 48 keys wide
-// (SAM ViT-B/16's global layers at 768 px: Kh = Kw = 48), kv_len or not.
-// k6b::bwd_route (flash_trainable_bf16.cuh) says which calls they take;
-// the others keep the mma.sync bodies there.
+// D = 64, with no bias or a decomposed fp32 bias on a key grid of Kh <= 128
+// rows whose width Kw is a multiple of 8 from 16 to 128 (SAM ViT-B/16's
+// global layers under fast fine-tuning: Kw 40 at 640 px, 48 at 768, 56 at
+// 896, 72, 80 and 96 at 1152, 1280 and 1536), kv_len or not.
+// k6b::bwd_route (flash_trainable_bf16.cuh) says which calls they take,
+// and the k6b::hopper_* functions there give their tiling; the others keep
+// the mma.sync bodies there.
 //
 // Replaces: vit_deep_radiomics_tpu/ops/attention_grad.py::_bwd_dq_kernel
 // and ::_bwd_dkv_kernel (flash_attention_trainable's backward, Pallas TPU
@@ -22,32 +25,45 @@
 // Beside its products each tile carries an exponential, the bias and (dq)
 // the bias sums per score, which have to run under the products.
 //
-// dq, query-major: one producer thread keeps K and V tiles of 48 keys, one
-// grid row, in flight by TMA (128-byte swizzle) in a ring of kDqStages
-// stages on full/empty mbarriers; two consumer warpgroups own 64 query rows
-// each, whose q (scaled in place into Q^) and dO tiles arrive once and stay
-// as the K-major A operands of S = Q^ K^T and dP = dO V^T (wgmma N = 48).
-// As every tile starts at grid column 0, each thread keeps its rows' 24
-// bias_w terms and 24 dbias_w sums in registers for the whole loop, reads
-// one bias_h term per row and tile from a table staged once, and stores
-// one dbias_h row sum per tile (quad shuffles, one lane). dS rounded in its
-// fp32 registers is the register A operand of dQ += dS K; dQ of tile j-1 is
-// issued with the scores of tile j, and the warpgroups issue in turn.
+// dq, query-major: one producer thread keeps K and V tiles of kNK keys in
+// flight by TMA (128-byte swizzle) in a ring of kDqStages stages on
+// full/empty mbarriers; two consumer warpgroups own 64 query rows each,
+// whose q (scaled in place into Q^) and dO tiles arrive once and stay as
+// the K-major A operands of S = Q^ K^T and dP = dO V^T (wgmma N = kNK).
+// With a bias a grid row is taken in one pass, or in two or three
+// (k6b::hopper_dq_passes, hopper_dq_tile), every tile of pass u starting at
+// grid column u * tile, so each thread keeps its rows' bias_w terms and
+// dbias_w sums of the pass in registers, reloads the terms and stores the
+// sums once between passes, reads one bias_h term per row and tile from a
+// table staged once, and stores one dbias_h row sum per tile (quad
+// shuffles, one lane; a later pass adds its share to the earlier ones').
+// The instance is built for the grid's width, so the columns a tile holds
+// past the row (Kw 40 in 48 keys: the next grid row's first keys, or TMA's
+// zeros past S) are masked to P = 0 at compile time and add nothing to dQ
+// += dS K. dS rounded in its fp32 registers is the register A operand of
+// that product; dQ of tile j-1 is issued with the scores of tile j, and
+// the warpgroups issue in turn.
 //
 // dkv, key-major: two consumer warpgroups own 64 keys each (wgmma M = 64),
 // whose K and V tiles arrive once; per 64-query tile one producer warp
 // brings q, dO and the tile's fp32 bias_w rows by TMA and writes lse, D
-// and the bias_h terms of the at most four grid rows of the block's 128
-// keys by plain loads. The consumers form Q^ and the bf16 bias_w terms
-// (exact: t(x) is a bf16 value) once per tile for the whole block, half
-// each, one tile ahead of their use; ldmatrix.trans reads a key's terms for
-// the two queries a thread holds in one register. P^T and dS^T, rounded in
-// registers, are the A operands of dV += P^T dO and dK += dS^T q (the raw
-// q; dk is scaled at the end), issued with the next tile's scores.
+// and the bias_h terms of the grid rows the block's 128 keys span
+// (k6b::hopper_dkv_hrows) by plain loads; the instance is built for the
+// grid's width, so its stage layout and ring depth (4 stages up to Kw 56,
+// 3 up to 96, 2 beyond: as many as fit) are constants. The consumers form
+// Q^ and the bf16 bias_w terms (exact: t(x) is a bf16 value) once per tile
+// for the whole block, half each, one tile ahead of their use where the
+// ring has three stages or more; ldmatrix.trans reads a key's terms for the
+// two queries a thread holds in one register (an 8-key block never wraps a
+// grid row: Kw is a multiple of 8). P^T and dS^T, rounded in registers,
+// are the A operands of dV += P^T dO and dK += dS^T q (the raw q; dk is
+// scaled at the end), issued with the next tile's scores.
 //
 // Every output element is written once by one thread after sums in a fixed
 // order: no atomics, the same bits on every run.
 #pragma once
+
+#include <type_traits>
 
 #include "attention_bwd_core.cuh"
 #include "flash_trainable_bf16.cuh"
@@ -60,51 +76,36 @@ using bf16 = __nv_bfloat16;
 using namespace vdr::sm90;
 using k5h::kTile;   // one 64 x 64 bf16 tile, 8 KB
 
-constexpr int kNK = k6b::kHopperKw;   // keys a dq tile: one grid row
-constexpr int kKTile = kNK * 64 * 2;  // a 48-key K or V tile, 6 KB
 constexpr int kConsumers = 2;         // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kConsumerRegs = k5h::consumer_regs(kConsumers);
 constexpr int kErrTensorMap = -3;
 
 // dq
-constexpr int kDqStages = 6;                // K/V ring depth
-constexpr int kDqRows = 64 * kConsumers;    // query rows a block
-constexpr int kBiasLd = kDqRows + 1;        // bias_h table row (bank skew)
+constexpr int kDqStages = k6b::kHopperDqStages;   // K/V ring depth
+constexpr int kDqRows = 64 * kConsumers;           // query rows a block
+constexpr int kBiasLd = k6b::kHopperBiasLd;        // bias_h table row (skew)
+static_assert(kBiasLd == kDqRows + 1, "one bias_h term a query row");
 
-// dkv
-constexpr int kDkvStages = 4;               // query-tile ring depth
+// dkv: a stage holds raw q, dO, Q^ (swizzled tiles), then with a bias the
+// tile's fp32 bias_w rows and their bf16 terms; then fp32 lse, D and (bias)
+// the bias_h terms [hrows][64] (offsets: k6b::hopper_*_off)
 constexpr int kKeys = 64 * kConsumers;      // keys a block
-constexpr int kHRows = 4;        // grid rows 128 aligned keys of Kw 48 span
-constexpr int kTermLd = kNK + 8; // bf16 row of the bias_w terms: the 8
-                                 // rows of an ldmatrix in distinct banks
-// a stage: raw q, dO, Q^ (swizzled tiles), then with a bias the tile's
-// fp32 bias_w rows and their bf16 terms; then fp32 lse, D and (bias) the
-// bias_h terms [kHRows][64]
 constexpr int kRawOff = 3 * kTile;
-constexpr int kTermOff = kRawOff + 64 * kNK * 4;
-__host__ __device__ constexpr int small_off(bool bias) {
-  return bias ? kTermOff + 64 * kTermLd * 2 : kRawOff;
-}
-__host__ __device__ constexpr int stage_bytes(bool bias) {
-  return (small_off(bias) + (2 + (bias ? kHRows : 0)) * 64 * 4 + 1023) /
-         1024 * 1024;
-}
-static_assert(kDkvStages >= 3, "Q^ of tile j+1 is made before tile j-1's "
-                               "stage is released");
+static_assert(kTile == k6b::kHopperTile, "the stage layout's tile");
 
 struct Params {
   const float* bias_h;  // (B, H, S, kh) or nullptr
-  const float* bias_w;  // (B, H, S, 48) or nullptr
+  const float* bias_w;  // (B, H, S, kw) or nullptr
   const int* kv_len;    // (B,) or nullptr
   const float* lse;     // (B, H, S) log2 log-sum-exp
   const float* delta;   // (B, H, S) sum_d dO * O
   bf16* dq;             // (B, H, S, D)
   float* dbh;           // (B, H, S, kh) or nullptr
-  float* dbw;           // (B, H, S, 48) or nullptr
+  float* dbw;           // (B, H, S, kw) or nullptr
   bf16* dk;             // (B, H, S, D)
   bf16* dv;             // (B, H, S, D)
-  int H, S, kh;
+  int H, S, kh, kw;     // kh, kw: the key grid (bias), else 0
   float scale_log2;     // bf16(D^-1/2 log2 e): Q^ = bf16(q * scale_log2)
   float scale;          // D^-1/2
 };
@@ -123,8 +124,9 @@ __device__ __forceinline__ Keys keys_of(const Params& p, int b) {
   return {lim > 0 ? lim : p.S, lim == 0};
 }
 
-// S = Q^ K^T and dP = dO V^T for one 48-key tile: all four operands K-major
-// in shared memory, four k16 steps along D.
+// S = Q^ K^T and dP = dO V^T for one kNK-key tile: all four operands
+// K-major in shared memory, four k16 steps along D.
+template <int kNK>
 __device__ __forceinline__ void dq_scores(float (&s)[kNK / 2],
                                           float (&dp)[kNK / 2], uint32_t qhat,
                                           uint32_t dout, uint32_t k_tile,
@@ -142,14 +144,39 @@ __device__ __forceinline__ void dq_scores(float (&s)[kNK / 2],
 }
 
 // ---------------------------------------------------------------------------
-// dq and both bias gradients: 128 query rows of one (batch, head) a block
+// dq and both bias gradients: 128 query rows of one (batch, head) a block,
+// on a key grid kKw keys wide (no bias: tiles of kKw = 48 consecutive keys)
 // ---------------------------------------------------------------------------
-template <bool kBias>
+template <int U>
+using Pass = std::integral_constant<int, U>;
+
+// f(Pass<U>{}), f(Pass<U + 1>{}), ... f(Pass<N - 1>{})
+template <int U, int N, class F>
+__device__ __forceinline__ void for_passes(F&& f) {
+  if constexpr (U < N) {
+    f(Pass<U>{});
+    for_passes<U + 1, N>(f);
+  }
+}
+
+// The columns of a grid row kw wide that pass u takes (tiles of nk keys):
+// the tile's columns past them are the next row's keys, masked.
+__host__ __device__ constexpr int pass_cols(int kw, int nk, int u) {
+  return nk < kw - u * nk ? nk : kw - u * nk;
+}
+
+template <bool kBias, int kKw>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
               const __grid_constant__ CUtensorMap tdo, const Params p) {
+  // a grid row in kPasses key tiles of kNK keys, pass u from grid column
+  // u * kNK (k6b::hopper_dq_passes, hopper_dq_tile)
+  constexpr int kPasses = kBias ? k6b::hopper_dq_passes(kKw) : 1;
+  constexpr int kNK = kBias ? k6b::hopper_dq_tile(kKw) : kKw;
+  constexpr int kKTile = kNK * 64 * 2;   // a K or V tile
+  static_assert(kNK % 16 == 0 && kKw % 8 == 0, "k16 tiles, 8-key chunks");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kDqStages], empty[kDqStages], qbar;
   // the swizzled tiles need 1024-byte alignment in the shared window
@@ -163,7 +190,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kDqRows;
   const int head = b * p.H + h;
   const Keys ks = keys_of(p, b);
-  const int n_tiles = (ks.n_keys + kNK - 1) / kNK;
+  // tile j: pass j / n_rows over grid row j % n_rows
+  const int n_rows = (ks.n_keys + kKw - 1) / kKw;   // grid rows visited
+  const int n_tiles = n_rows * kPasses;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kDqStages; ++i) {
@@ -189,11 +218,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                  row0 + 64 * w, head);
       }
       for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % kDqStages;
+        const int st = j % kDqStages, u = j / n_rows;
+        const int key = (j - u * n_rows) * kKw + u * kNK;
         mbar_wait(&empty[st], ((j / kDqStages) & 1) ^ 1);
         mbar_expect_tx(&full[st], 2 * kKTile);
-        tma_load(ring + 2 * st * kKTile, &tk, &full[st], 0, j * kNK, head);
-        tma_load(ring + (2 * st + 1) * kKTile, &tv, &full[st], 0, j * kNK,
+        tma_load(ring + 2 * st * kKTile, &tk, &full[st], 0, key, head);
+        tma_load(ring + (2 * st + 1) * kKTile, &tv, &full[st], 0, key,
                  head);
       }
     }
@@ -214,11 +244,50 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float d_hi = R_hi < p.S ? p.delta[head_row + R_hi] : 0.f;
   const bool add = kBias && !ks.none;
 
-  // this thread's bias_w terms (rows g, g + 8; columns 8i + 2c..) and
-  // dbias_w sums, the same columns in every tile
+  // this thread's bias_w terms (rows g, g + 8; columns 8i + 2c.. of the
+  // pass) and dbias_w sums, the same columns in every tile of a pass; a
+  // tile's columns past the pass's kCols (the next pass's or the next grid
+  // row's keys) are known at compile time: 8-column chunks at or past kCols
   float bw[kNK / 2], dbw[kNK / 2];
 #pragma unroll
   for (int i = 0; i < kNK / 2; ++i) bw[i] = dbw[i] = 0.f;
+  auto load_bw = [&](auto pass) {
+    constexpr int kCols = pass_cols(kKw, kNK, decltype(pass)::value);
+#pragma unroll
+    for (int i = 0; i < kNK / 8; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int R = half ? R_hi : R_lo;
+        float2 v = make_float2(0.f, 0.f);
+        if (8 * i < kCols && R < p.S) {
+          v = *reinterpret_cast<const float2*>(
+              p.bias_w + (head_row + R) * kKw +
+              decltype(pass)::value * kNK + 8 * i + 2 * c);
+          v = make_float2(k6b::term(v.x), k6b::term(v.y));
+        }
+        bw[4 * i + 2 * half] = v.x;
+        bw[4 * i + 2 * half + 1] = v.y;
+      }
+    }
+  };
+  // the dbias_w sums of a pass, stored and cleared
+  auto store_dbw = [&](auto pass) {
+    constexpr int kCols = pass_cols(kKw, kNK, decltype(pass)::value);
+#pragma unroll
+    for (int i = 0; i < kNK / 8; ++i) {
+      const int col = decltype(pass)::value * kNK + 8 * i + 2 * c;
+      if (8 * i < kCols) {
+        if (R_lo < p.S)
+          *reinterpret_cast<float2*>(p.dbw + (head_row + R_lo) * kKw + col) =
+              make_float2(dbw[4 * i], dbw[4 * i + 1]);
+        if (R_hi < p.S)
+          *reinterpret_cast<float2*>(p.dbw + (head_row + R_hi) * kKw + col) =
+              make_float2(dbw[4 * i + 2], dbw[4 * i + 3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dbw[4 * i + e] = 0.f;
+    }
+  };
   if constexpr (kBias) {
     // bias_h terms of this warpgroup's 64 rows, as [grid row][row]
     for (int i = t; i < 64 * p.kh; i += 128) {
@@ -227,19 +296,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       bh_s[kr * kBiasLd + r] =
           R < p.S ? k6b::term(p.bias_h[(head_row + R) * p.kh + kr]) : 0.f;
     }
-#pragma unroll
-    for (int i = 0; i < kNK / 8; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int R = half ? R_hi : R_lo;
-        if (R < p.S) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              p.bias_w + (head_row + R) * kNK + 8 * i + 2 * c);
-          bw[4 * i + 2 * half] = k6b::term(v.x);
-          bw[4 * i + 2 * half + 1] = k6b::term(v.y);
-        }
-      }
-    }
+    load_bw(Pass<0>{});
   }
   // Q^ in place: the warpgroup scales its own q tile
   const uint32_t q_addr = qd_addr + 2 * wg * kTile, do_addr = q_addr + kTile;
@@ -258,30 +315,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* dbh_hi = kBias && R_hi < p.S ? p.dbh + (head_row + R_hi) * p.kh
                                       : nullptr;
   // tile j's scores -> dS in dp (bias, exponentials, masks), and its bias
-  // gradients; tile j is grid row j
-  auto tile_math = [&](int j) {
+  // gradients; tile j is pass `pass` over grid row j - pass * n_rows
+  auto tile_math = [&](int j, auto pass) {
+    constexpr int kU = decltype(pass)::value;
+    constexpr int kCols = pass_cols(kKw, kNK, kU);
+    const int r = j - kU * n_rows, key0 = r * kKw + kU * kNK;
     if (ks.none) {
 #pragma unroll
       for (int i = 0; i < kNK / 2; ++i) s[i] = k6b::kNegInf;
     } else if (add) {
-      const float th_lo = bh_s[j * kBiasLd + r_lo];
-      const float th_hi = bh_s[j * kBiasLd + r_hi];
+      const float th_lo = bh_s[r * kBiasLd + r_lo];
+      const float th_hi = bh_s[r * kBiasLd + r_hi];
 #pragma unroll
       for (int i = 0; i < kNK / 2; ++i)
-        s[i] = __fadd_rn(s[i], __fadd_rn((i & 2) ? th_hi : th_lo, bw[i]));
+        if ((i / 4) * 8 < kCols)
+          s[i] = __fadd_rn(s[i], __fadd_rn((i & 2) ? th_hi : th_lo, bw[i]));
     }
 #pragma unroll
     for (int i = 0; i < kNK / 2; ++i)
-      s[i] = fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo));
+      s[i] = (i / 4) * 8 < kCols ? fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))
+                                 : 0.f;
     // keys at or past the visited count (kv_len; zero rows past S) P = 0,
-    // on the last tile alone
-    if ((j + 1) * kNK > ks.n_keys) {
-      const int key0 = j * kNK + 2 * c;
+    // on the tiles that reach it
+    if (key0 + kCols > ks.n_keys) {
 #pragma unroll
       for (int i = 0; i < kNK / 2; ++i)
-        if (key0 + (i / 4) * 8 + (i & 1) >= ks.n_keys) s[i] = 0.f;
+        if (key0 + (i / 4) * 8 + 2 * c + (i & 1) >= ks.n_keys) s[i] = 0.f;
     }
-    float lo = 0.f, hi = 0.f;
+    [[maybe_unused]] float lo = 0.f, hi = 0.f;
 #pragma unroll
     for (int i = 0; i < kNK / 2; ++i) {
       const bool row_lo = (i & 2) == 0;
@@ -289,11 +350,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           k6b::round_bf16(s[i] * (dp[i] - (row_lo ? d_lo : d_hi)));
       dp[i] = ds;
       if constexpr (kBias) {
-        dbw[i] += ds;
-        if (row_lo)
-          lo += ds;
-        else
-          hi += ds;
+        if ((i / 4) * 8 < kCols) {
+          dbw[i] += ds;
+          if (row_lo)
+            lo += ds;
+          else
+            hi += ds;
+        }
       }
     }
     if constexpr (kBias) {
@@ -301,9 +364,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       lo += __shfl_xor_sync(0xffffffffu, lo, 2);
       hi += __shfl_xor_sync(0xffffffffu, hi, 1);
       hi += __shfl_xor_sync(0xffffffffu, hi, 2);
+      // the second pass adds its share to the first's (this lane's store)
       if (c == 0) {
-        if (dbh_lo != nullptr) dbh_lo[j] = lo;
-        if (dbh_hi != nullptr) dbh_hi[j] = hi;
+        if (dbh_lo != nullptr) dbh_lo[r] = kU ? dbh_lo[r] + lo : lo;
+        if (dbh_hi != nullptr) dbh_hi[r] = kU ? dbh_hi[r] + hi : hi;
       }
     }
   };
@@ -316,24 +380,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto k_of = [&](int j) { return ring + 2 * (j % kDqStages) * kKTile; };
   // software pipeline: the scores of tile j are issued with dQ of tile
   // j-1, and tile j's exponentials run while that is on the tensor cores
-  if (wg == kConsumers - 1) issue_done();
-  mbar_wait(&full[0], 0);
-  issue_wait();
-  wgmma_fence();
-  dq_scores(s, dp, q_addr, do_addr, ring, ring + kKTile);
-  wgmma_commit();
-  issue_done();
-  wgmma_wait<0>();
-  fence_regs(s);
-  fence_regs(dp);
-  tile_math(0);
-  pack_probs<kNK>(dp, da);
-  for (int j = 1; j < n_tiles; ++j) {
+  auto step = [&](int j, auto pass) {
     const uint32_t cur = k_of(j);
     mbar_wait(&full[j % kDqStages], (j / kDqStages) & 1);
     issue_wait();
     wgmma_fence();
-    dq_scores(s, dp, q_addr, do_addr, cur, cur + kKTile);
+    dq_scores<kNK>(s, dp, q_addr, do_addr, cur, cur + kKTile);
     wgmma_commit();
     pv_tile<kNK>(dq, da, k_of(j - 1));   // dQ += dS K
     wgmma_commit();
@@ -341,13 +393,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<1>();
     fence_regs(s);
     fence_regs(dp);
-    tile_math(j);
+    tile_math(j, pass);
     wgmma_wait<0>();
     fence_regs(dq);
     fence_regs(da);
     mbar_arrive(&empty[(j - 1) % kDqStages]);
     pack_probs<kNK>(dp, da);
-  }
+  };
+  if (wg == kConsumers - 1) issue_done();
+  mbar_wait(&full[0], 0);
+  issue_wait();
+  wgmma_fence();
+  dq_scores<kNK>(s, dp, q_addr, do_addr, ring, ring + kKTile);
+  wgmma_commit();
+  issue_done();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  tile_math(0, Pass<0>{});
+  pack_probs<kNK>(dp, da);
+  for (int j = 1; j < n_rows; ++j) step(j, Pass<0>{});
+  // each later pass: the previous pass's dbias_w sums out, its bias_w
+  // terms in, between two loops over one step
+  for_passes<1, kPasses>([&](auto pass) {
+    constexpr int kU = decltype(pass)::value;
+    store_dbw(Pass<kU - 1>{});
+    load_bw(pass);
+    for (int j = kU * n_rows; j < (kU + 1) * n_rows; ++j) step(j, pass);
+  });
   issue_wait();
   wgmma_fence();
   pv_tile<kNK>(dq, da, k_of(n_tiles - 1));
@@ -372,18 +445,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 dq[4 * i + 3] * p.scale);
   }
   if constexpr (kBias) {
-#pragma unroll
-    for (int i = 0; i < kNK / 8; ++i) {
-      const int col = 8 * i + 2 * c;
-      if (R_lo < p.S)
-        *reinterpret_cast<float2*>(p.dbw + (head_row + R_lo) * kNK + col) =
-            make_float2(dbw[4 * i], dbw[4 * i + 1]);
-      if (R_hi < p.S)
-        *reinterpret_cast<float2*>(p.dbw + (head_row + R_hi) * kNK + col) =
-            make_float2(dbw[4 * i + 2], dbw[4 * i + 3]);
-    }
+    store_dbw(Pass<kPasses - 1>{});
     // grid rows past the visited tiles (every key masked): zero
-    for (int kr = n_tiles + c; kr < p.kh; kr += 4) {
+    for (int kr = n_rows + c; kr < p.kh; kr += 4) {
       if (dbh_lo != nullptr) dbh_lo[kr] = 0.f;
       if (dbh_hi != nullptr) dbh_hi[kr] = 0.f;
     }
@@ -397,9 +461,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The tile's bias terms added to the thread's scores S^T (keys g, g + 8 of
 // its warp; queries 8i + 2c, 8i + 2c + 1): bias_h from the stage's [grid
 // row][query] table at the keys' rows hr_lo/hr_hi among the block's, bias_w
-// by ldmatrix.trans from the [query][kTermLd] bf16 terms at the 8-column
-// chunks col_lo/col_hi of the warp's two 8-key blocks (48 = 6 x 8: an 8-key
-// block never wraps a grid row). The sum is the forward's: s + (th + tw).
+// by ldmatrix.trans from the [query][kLd] bf16 terms at the 8-column chunks
+// col_lo/col_hi of the warp's two 8-key blocks (Kw is a multiple of 8: an
+// 8-key block never wraps a grid row). The sum is the forward's: s + (th +
+// tw).
+template <int kLd>
 __device__ __forceinline__ void add_bias(float (&s)[32], const float* th,
                                          uint32_t tw, int hr_lo, int hr_hi,
                                          int col_lo, int col_hi, int lane,
@@ -411,7 +477,7 @@ __device__ __forceinline__ void add_bias(float (&s)[32], const float* th,
     // matrices (query block 2n + m/2, key block m % 2)
     const int qr = 8 * (2 * n + (m >> 1)) + rr;
     uint32_t r[4];
-    k5h::ldmatrix_x4_trans(r, tw + (qr * kTermLd + col) * 2);
+    k5h::ldmatrix_x4_trans(r, tw + (qr * kLd + col) * 2);
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int i = 2 * n + u;
@@ -430,18 +496,29 @@ __device__ __forceinline__ void add_bias(float (&s)[32], const float* th,
   }
 }
 
-template <bool kBias>
+// On a key grid kKw keys wide (kBias; 0 without a bias). The query-tile
+// ring has kStages stages (k6b::hopper_dkv_stages): with three or more Q^
+// of tile j+1 is made while tile j's products run, before tile j-1's stage
+// is released; with two, after it.
+template <bool kBias, int kKw>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tbw, const Params p) {
-  constexpr int kStageBytes = stage_bytes(kBias);
-  constexpr int kSmall = small_off(kBias);
+  // the stage layout of the grid (k6b::hopper_*)
+  constexpr int kStages = k6b::hopper_dkv_stages(kKw);
+  constexpr int kStageBytes = k6b::hopper_stage_bytes(kKw);
+  constexpr int kSmall = k6b::hopper_small_off(kKw);
+  constexpr int kTermOff = kBias ? k6b::hopper_term_off(kKw) : 0;
+  constexpr int kTermLd = kBias ? k6b::hopper_term_ld(kKw) : 0;
+  constexpr int kHRows = kBias ? k6b::hopper_dkv_hrows(kKw) : 0;
+  static_assert(kStages >= 2, "a stage in use and one being filled");
+  static_assert(kBias == (kKw > 0), "a grid width with a bias alone");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[kDkvStages], empty[kDkvStages],
-      qready[kDkvStages], kvbar;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages],
+      qready[kStages], kvbar;
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t kv_addr = smem_u32(base);      // per warpgroup: K, V
@@ -466,7 +543,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kDkvStages; ++i) {
+    for (int i = 0; i < kStages; ++i) {
       mbar_init(&full[i], 32);
       mbar_init(&empty[i], kConsumers * 128);
       mbar_init(&qready[i], kConsumers * 128);
@@ -477,7 +554,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  const int kr0 = k0 / kNK;   // the block's first grid row (bias)
+  const int kr0 = kBias ? k0 / kKw : 0;   // the block's first grid row
   if (wg == kConsumers) {
     // ---- producer: one warp, TMA for the tiles, plain loads for the rest
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
@@ -494,8 +571,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     for (int j = 0; j < n_tiles; ++j) {
-      const int st = j % kDkvStages, q0 = j * 64;
-      mbar_wait(&empty[st], ((j / kDkvStages) & 1) ^ 1);
+      const int st = j % kStages, q0 = j * 64;
+      mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
       unsigned char* sp = stages + st * kStageBytes;
       float* sm = reinterpret_cast<float*>(sp + kSmall);
       for (int i = lane; i < 64; i += 32) {
@@ -516,7 +593,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (lane == 0) {
         const uint32_t sa = smem_u32(sp);
-        mbar_expect_tx(&full[st], 2 * kTile + (kBias ? 64 * kNK * 4 : 0));
+        mbar_expect_tx(&full[st], 2 * kTile + 64 * kKw * 4);
         tma_load(sa, &tq, &full[st], 0, q0, head);
         tma_load(sa + kTile, &tdo, &full[st], 0, q0, head);
         if constexpr (kBias)
@@ -538,23 +615,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool lo_ok = key_lo < ks.n_keys, hi_ok = key_hi < ks.n_keys;
   const bool add = kBias && !ks.none;
   // the keys' grid rows among the block's and the warp's bias_w chunks
-  const int hr_lo = key_lo / kNK - kr0, hr_hi = key_hi / kNK - kr0;
-  const int col_lo = wkey % kNK, col_hi = (wkey + 8) % kNK;
+  const int hr_lo = kBias ? key_lo / kKw - kr0 : 0;
+  const int hr_hi = kBias ? key_hi / kKw - kr0 : 0;
+  const int col_lo = kBias ? wkey % kKw : 0;
+  const int col_hi = kBias ? (wkey + 8) % kKw : 0;
   const uint32_t k_tile = kv_addr + 2 * wg * kTile, v_tile = k_tile + kTile;
-  auto stage = [&](int j) { return stages + (j % kDkvStages) * kStageBytes; };
+  auto stage = [&](int j) { return stages + (j % kStages) * kStageBytes; };
   auto stage_at = [&](int j) { return smem_u32(stage(j)); };
   // Q^ and the bias_w terms of tile j: both warpgroups make half of each
   // and say so on qready (no wait: a warpgroup waits only before its
   // scores)
   auto make_qhat = [&](int j) {
-    mbar_wait(&full[j % kDkvStages], (j / kDkvStages) & 1);
+    mbar_wait(&full[j % kStages], (j / kStages) & 1);
     unsigned char* st = stage(j);
     k5h::scale_tile(st + 2 * kTile, st, p.scale_log2, threadIdx.x,
                     kConsumers * 128);
     if constexpr (kBias) {
       const float4* raw = reinterpret_cast<const float4*>(st + kRawOff);
-      for (int k = threadIdx.x; k < 64 * kNK / 4; k += kConsumers * 128) {
-        const int q = k / (kNK / 4), col = (k % (kNK / 4)) * 4;
+      for (int k = threadIdx.x; k < 16 * kKw; k += kConsumers * 128) {
+        const int q = k / (kKw / 4), col = (k % (kKw / 4)) * 4;
         const float4 v = raw[k];
         *reinterpret_cast<uint2*>(st + kTermOff + (q * kTermLd + col) * 2) =
             make_uint2(pack_bf16(__fmul_rn(v.x, kLog2e),
@@ -564,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     fence_proxy_async();
-    mbar_arrive(&qready[j % kDkvStages]);
+    mbar_arrive(&qready[j % kStages]);
   };
 
   float dk[32], dv[32], s[32], dp[32];
@@ -579,13 +658,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 32; ++i) s[i] = k6b::kNegInf;
     }
     if (add)
-      add_bias(s, sm + 128, stage_at(j) + kTermOff, hr_lo, hr_hi, col_lo,
-               col_hi, lane, c);
+      add_bias<kTermLd>(s, sm + 128, stage_at(j) + kTermOff, hr_lo, hr_hi,
+                        col_lo, col_hi, lane, c);
     k5h::probs_ds(s, dp, sm, sm + 64, c, ragged, lo_ok, hi_ok);
   };
   // software pipeline: the scores of tile j are issued with the products
   // of tile j-1, and tile j's exponentials run while those are on the
-  // tensor cores; Q^ of tile j+1 is made meanwhile
+  // tensor cores; Q^ of tile j+1 is made meanwhile (two stages: once tile
+  // j-1's stage is free)
   make_qhat(0);
   mbar_wait(&kvbar, 0);
   const uint32_t first = stage_at(0);
@@ -603,7 +683,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   k5h::pack_a(dp, sa);
   for (int j = 1; j < n_tiles; ++j) {
     const uint32_t cur = stage_at(j), prev = stage_at(j - 1);
-    mbar_wait(&qready[j % kDkvStages], (j / kDkvStages) & 1);
+    mbar_wait(&qready[j % kStages], (j / kStages) & 1);
     wgmma_fence();
     k5h::product_ss(s, k_tile, cur + 2 * kTile);
     k5h::product_ss(dp, v_tile, cur + kTile);
@@ -611,7 +691,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     k5h::product_rs(dv, pa, prev + kTile);   // dV += P^T dO
     k5h::product_rs(dk, sa, prev);           // dK += dS^T q
     wgmma_commit();
-    if (j + 1 < n_tiles) make_qhat(j + 1);
+    if (kStages > 2 && j + 1 < n_tiles) make_qhat(j + 1);
     wgmma_wait<1>();
     fence_regs(s);
     fence_regs(dp);
@@ -621,7 +701,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dv);
     fence_regs(pa);
     fence_regs(sa);
-    mbar_arrive(&empty[(j - 1) % kDkvStages]);
+    mbar_arrive(&empty[(j - 1) % kStages]);
+    if (kStages == 2 && j + 1 < n_tiles) make_qhat(j + 1);
     k5h::pack_a(s, pa);
     k5h::pack_a(dp, sa);
   }
@@ -633,7 +714,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   wgmma_wait<0>();
   fence_regs(dk);
   fence_regs(dv);
-  mbar_arrive(&empty[(n_tiles - 1) % kDkvStages]);
+  mbar_arrive(&empty[(n_tiles - 1) % kStages]);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -659,32 +740,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-// 3-D map (kNK columns, S rows, B·H heads) of the fp32 bias_w, boxes of
-// the 64 rows of a query tile, no swizzle (rows of 192 bytes); rows past S
-// read as zeros.
-inline bool bias_map(CUtensorMap* map, const float* ptr, int S, int heads) {
+// 3-D map (kw columns, S rows, B·H heads) of the fp32 bias_w, boxes of
+// the 64 rows of a query tile, no swizzle (rows of kw * 4 bytes, a multiple
+// of 32); rows past S read as zeros.
+inline bool bias_map(CUtensorMap* map, const float* ptr, int S, int heads,
+                     int kw) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)kNK, (cuuint64_t)S,
+  const cuuint64_t dims[3] = {(cuuint64_t)kw, (cuuint64_t)S,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)kNK * 4,
-                                 (cuuint64_t)S * kNK * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)kNK, 64, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)kw * 4,
+                                 (cuuint64_t)S * kw * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)kw, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
              const_cast<float*>(ptr), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-inline size_t dq_smem(int kh) {
-  return 1024 + (size_t)2 * kConsumers * kTile +
-         (size_t)2 * kDqStages * kKTile + (size_t)kh * kBiasLd * sizeof(float);
-}
-inline size_t dkv_smem(bool bias) {
-  return 1024 + (size_t)2 * kConsumers * kTile +
-         (size_t)kDkvStages * stage_bytes(bias);
 }
 
 // The tensor maps of q, dO (64-row boxes) and k, v (`key_rows`-row boxes)

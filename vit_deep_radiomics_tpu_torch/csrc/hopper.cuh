@@ -172,6 +172,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_F32(d, i) \
   VDR_F8(d, i), VDR_F8(d, i + 8), VDR_F8(d, i + 16), VDR_F8(d, i + 24)
 #define VDR_D8(d) VDR_F8(d, 0)
+#define VDR_D16(d) VDR_F8(d, 0), VDR_F8(d, 8)
 #define VDR_D24(d) VDR_F8(d, 0), VDR_F8(d, 8), VDR_F8(d, 16)
 #define VDR_D32(d) VDR_F32(d, 0)
 #define VDR_D64(d) VDR_F32(d, 0), VDR_F32(d, 32)
@@ -195,6 +196,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_R8_14 "%112, %113, %114, %115, %116, %117, %118, %119"
 #define VDR_R8_15 "%120, %121, %122, %123, %124, %125, %126, %127"
 #define VDR_R8 "{" VDR_R8_0 "}"
+#define VDR_R16 "{" VDR_R8_0 ", " VDR_R8_1 "}"
 #define VDR_R24 "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 "}"
 #define VDR_R32 "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 "}"
 #define VDR_R64                                                         \
@@ -218,7 +220,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 // scores, 64 for PV; K1: 64 for PV, 208 and 256 for its scores; K4: 64 and
 // 208 for its scores, 64 and 104 for dP's key chunks, 16 and 64 for phase
 // B's query chunks; K7: 64 for the first product's hidden columns, 128
-// for the second's output columns).
+// for the second's output columns; the K6 bf16 dq: 16, 32, 48 and 64 for
+// its key tiles).
 // ss reads A and B from shared memory, both K-major; rs takes A from
 // registers, with B K-major (TransB 0: K, E) or MN-major (1: V). T0 .. T6
 // spell the numbers of the operands after D, %(N/2) .. %(N/2 + 6).
@@ -253,6 +256,8 @@ struct Wgmma;
   };
 
 VDR_WGMMA(16, VDR_R8, VDR_D8, "%8", "%9", "%10", "%11", "%12", "%13", "%14")
+VDR_WGMMA(32, VDR_R16, VDR_D16, "%16", "%17", "%18", "%19", "%20", "%21",
+          "%22")
 VDR_WGMMA(48, VDR_R24, VDR_D24, "%24", "%25", "%26", "%27", "%28", "%29",
           "%30")
 VDR_WGMMA(64, VDR_R32, VDR_D32, "%32", "%33", "%34", "%35", "%36", "%37",

@@ -31,8 +31,9 @@ Kw)``, as in ``ops/attention.py``):
   run the register-tiled CUDA-core bodies (``csrc/f32_tiled_forward.cuh``,
   ``csrc/flash_trainable_core.cuh``), bf16 calls the mma.sync bodies of
   ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias gradients),
-  except the backward's calls with no bias or a key grid 48 keys wide (SAM
-  @768), which run the TMA + wgmma bodies of
+  except the backward's calls with no bias or a key grid whose width is a
+  multiple of 8 from 16 to 128 (SAM @640 to @1536: Kw 40 to 96) of at
+  most 128 rows, which run the TMA + wgmma bodies of
   ``csrc/flash_trainable_hopper.cuh``; :func:`flash_attention_route` says
   which body the forward runs, :func:`flash_attention_bwd_route` the
   backward.
@@ -248,26 +249,33 @@ def global_attention_bwd_dkv_plain(q, kv, bias_h, bias_w, kv_len, dout, lse,
                         num_heads, scale)[1]
 
 
-def _round(x, dtype):
-    """x (fp32) rounded to ``dtype`` and widened back: a no-op for fp32,
-    the JAX kernels' rounding points on bf16 operands."""
-    return x.to(dtype).float()
+def _round(x, dtype, acc=torch.float32):
+    """x rounded to ``dtype`` and widened back to ``acc``: a no-op for fp32
+    in fp32, the JAX kernels' rounding points on bf16 operands."""
+    return x.to(dtype).to(acc)
 
 
-def _flash_scores(q, k, bias_h, bias_w, kv_len, scale):
-    """K6's fp32 scores in log2 units, (B, H, S, S): Q^·kᵀ +
+def _out(x, dtype, acc):
+    """An output in ``dtype``, or unrounded where the sums run in fp64 (the
+    oracle of the rounding points)."""
+    return x if acc == torch.float64 else x.to(dtype)
+
+
+def _flash_scores(q, k, bias_h, bias_w, kv_len, scale, acc=torch.float32):
+    """K6's scores in log2 units, (B, H, S, S), summed in ``acc``: Q^·kᵀ +
     t(bias_h[i, j // Kw]) + t(bias_w[i, j % Kw]), keys j ≥ kv_len at
     -1e30 (JAX ``_fwd_kernel`` and ``_recompute_p_ds``). Q^ = q times
     scale·log2(e), and t(x) = x·log2(e), both in q's dtype as JAX rounds
     them: on bf16 q the constant scale·log2(e) is itself a bf16 (JAX's weak
-    type), Q^ and each bias term are rounded to bf16, and the two terms are
-    added in fp32 before they join the score."""
+    type), Q^ and each bias term are rounded to bf16 (the term's product
+    taken in fp32, as the kernels take it), and the two terms are added
+    before they join the score."""
     scale2 = torch.tensor(scale * _LOG2E, dtype=torch.float64) \
         .to(q.dtype).item()
-    s = torch.matmul(_round(q.float() * scale2, q.dtype),
-                     k.float().transpose(-1, -2))
+    s = torch.matmul(_round(q.to(acc) * scale2, q.dtype, acc),
+                     k.to(acc).transpose(-1, -2))
     if bias_h is not None:
-        bh, bw = (_round(t.float() * _LOG2E, q.dtype)
+        bh, bw = (_round(t.float() * _LOG2E, q.dtype, acc)
                   for t in (bias_h, bias_w))
         s = s + (bh[..., :, None] + bw[..., None, :]).flatten(-2)
     if kv_len is not None:
@@ -278,16 +286,20 @@ def _flash_scores(q, k, bias_h, bias_w, kv_len, scale):
     return s
 
 
-def flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len, *, scale):
+def flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len, *, scale,
+                              acc=torch.float32):
     """Plain version of the K6 forward: (out, lse) with lse (B, H, S) the
     log2 log-sum-exp of each row's scores, fp32; P rounded to v's dtype
-    before P·V, the row sums taken on the unrounded P (JAX :121)."""
-    s = _flash_scores(q, k, bias_h, bias_w, kv_len, scale)
+    before P·V, the row sums taken on the unrounded P (JAX :121). ``acc``
+    is the type of the sums between the rounding points: fp32, or fp64 for
+    the oracle those points define (outputs then fp64, unrounded)."""
+    s = _flash_scores(q, k, bias_h, bias_w, kv_len, scale, acc)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp2(s - m)
     l = e.sum(dim=-1, keepdim=True)
-    out = torch.matmul(_round(e, v.dtype), v.float()) / l
-    return out.to(q.dtype), (m + torch.log2(l)).squeeze(-1).contiguous()
+    out = torch.matmul(_round(e, v.dtype, acc), v.to(acc)) / l
+    return (_out(out, q.dtype, acc),
+            (m + torch.log2(l)).squeeze(-1).contiguous())
 
 
 def flash_attention_delta(out, dout):
@@ -295,42 +307,46 @@ def flash_attention_delta(out, dout):
     return (dout.float() * out.float()).sum(dim=-1).contiguous()
 
 
-def _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale):
-    """P from the residual and the natural-unit score gradient dS, fp32;
-    dP = dO·Vᵀ on dO rounded to v's dtype."""
-    p = torch.exp2(_flash_scores(q, k, bias_h, bias_w, kv_len, scale)
-                   - lse[..., None])
-    dp = torch.matmul(_round(dout.float(), v.dtype),
-                      v.float().transpose(-1, -2))
-    return p, p * (dp - delta[..., None])
+def _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta, scale,
+                acc=torch.float32):
+    """P from the residual and the natural-unit score gradient dS, in
+    ``acc``; dP = dO·Vᵀ on dO rounded to v's dtype."""
+    p = torch.exp2(_flash_scores(q, k, bias_h, bias_w, kv_len, scale, acc)
+                   - lse[..., None].to(acc))
+    dp = torch.matmul(_round(dout.to(acc), v.dtype, acc),
+                      v.to(acc).transpose(-1, -2))
+    return p, p * (dp - delta[..., None].to(acc))
 
 
 def flash_attention_bwd_dq_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
-                                 delta, *, scale):
+                                 delta, *, scale, acc=torch.float32):
     """Plain version of the K6 dq kernel: (dq, dbias_h, dbias_w), the bias
     gradients the sums of dS over each key-grid row and column. dS is
     rounded to q's dtype before the product and the sums (JAX :230,
-    :242)."""
+    :242). ``acc`` as in :func:`flash_attention_fwd_plain`."""
     _, ds = _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
-                        scale)
-    ds = _round(ds, q.dtype)
-    dq = (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+                        scale, acc)
+    ds = _round(ds, q.dtype, acc)
+    dq = _out(torch.matmul(ds, k.to(acc)) * scale, q.dtype, acc)
     if bias_h is None:
         return dq, None, None
     grid = ds.reshape(*ds.shape[:-1], bias_h.shape[-1], bias_w.shape[-1])
-    return dq, grid.sum(-1).to(bias_h.dtype), grid.sum(-2).to(bias_w.dtype)
+    return (dq, _out(grid.sum(-1), bias_h.dtype, acc),
+            _out(grid.sum(-2), bias_w.dtype, acc))
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, bias_h, bias_w, kv_len, dout, lse,
-                                  delta, *, scale):
+                                  delta, *, scale, acc=torch.float32):
     """Plain version of the K6 dkv kernel: (dk, dv), dS rounded to q's
-    dtype and P to dO's before the products (JAX :242, :309)."""
+    dtype and P to dO's before the products (JAX :242, :309). ``acc`` as in
+    :func:`flash_attention_fwd_plain`."""
     p, ds = _flash_p_ds(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
-                        scale)
-    dk = torch.matmul(_round(ds, q.dtype).transpose(-1, -2), q.float()) \
-        * scale
-    dv = torch.matmul(_round(p, dout.dtype).transpose(-1, -2), dout.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+                        scale, acc)
+    dk = torch.matmul(_round(ds, q.dtype, acc).transpose(-1, -2),
+                      q.to(acc)) * scale
+    dv = torch.matmul(_round(p, dout.dtype, acc).transpose(-1, -2),
+                      dout.to(acc))
+    return _out(dk, k.dtype, acc), _out(dv, v.dtype, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -689,10 +705,10 @@ def flash_attention_bwd_route(q, k, v, bias_h=None, bias_w=None,
     """Which body the K6 backward kernel ``kernel`` (``"dq"`` or
     ``"dkv"``) runs for these operands: ``"plain"`` on the CPU; on the card,
     as the dq source's route entry chooses (one choice for both),
-    ``"tiled"`` (fp32), ``"hopper"`` (bf16 with no bias or a key grid 48
-    keys wide of at most 128 rows: the TMA + wgmma bodies) or ``"mma"``
-    (other bf16 grids: the mma.sync bodies). Raises where
-    :func:`flash_attention_route` does."""
+    ``"tiled"`` (fp32), ``"hopper"`` (bf16 with no bias or a key grid
+    whose width is a multiple of 8 from 16 to 128, of at most 128 rows:
+    the TMA + wgmma bodies) or ``"mma"`` (other bf16 grids: the mma.sync
+    bodies). Raises where :func:`flash_attention_route` does."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
     _check_flash(q, k, v, bias_h, bias_w, kv_len)

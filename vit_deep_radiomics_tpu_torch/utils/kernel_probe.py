@@ -38,6 +38,9 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-768 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path fast-2048 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-768 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-640 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-896 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe gaps [--seeds 10]
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path dinov2 PARENT CHANGE
 
@@ -85,8 +88,9 @@ its plain version (two heads a call); K6: the
 `parity` path's SAM global (2, 12, 4096, 64), Kh = Kw = 64, and windowed
 (50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
 1536, 64) with 1370 valid keys); the K6 bf16 Hopper bodies: SAM @768's (2,
-12, 2304, 64), Kh = Kw = 48, and DINOv2's kv_len shape, beside the whole
-bf16 SDPA backward; K1 fp32: q (100, 196, 768), Kh = Kw =
+12, 2304, 64), Kh = Kw = 48, @640's (2, 12, 1600, 64), Kw 40, @896's (2,
+12, 3136, 64), Kw 56, and DINOv2's kv_len shape, beside the whole bf16
+SDPA backward; K1 fp32: q (100, 196, 768), Kh = Kw =
 14; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
 K3 fp32: SAM @768's q (4, 12, 2304, 64), k/v 3072 rows, Kh 48, Kw 64,
 ``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys; K7:
@@ -100,6 +104,11 @@ fp32 beside the fp32 CUDA cores' peak).
 A variant that changes a header (the fp32 forward's steps, the K6 bf16
 backward's constants) builds from its own directory, which holds the
 changed copy.
+``gaps`` reads each K6 bf16 output's distance to the fp64 oracle of its
+rounding points (``k6_oracle_gaps``) over seeds at every bf16 shape of
+``chip_smoke.py``'s phase 10, for the backward body the tree's route
+takes there, beside the plain versions' distance; one JSON line a shape
+and seed (``tests/k6_bf16_shim.py`` reads the same on the CPU).
 ``pair`` runs two checkouts in turns (parent, change,
 change, parent), each in a fresh process: with ``--path extraction`` (the
 default) 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
@@ -134,7 +143,12 @@ kernels' ms in bf16 and the whole bf16 SDPA backward's at ``chip_smoke.py``'s
 of the forward's outputs (out, lse), which must not differ between the
 trees, and of the backward's (dq, both bias gradients, dk, dv), which
 change where the change gives the backward another body that sums in
-another order;
+another order; with ``--path finetune-640`` or ``finetune-896`` the same
+for SAM ViT-B/16 `fast` fine-tuning at that size (B=2, 5 steps held to
+the launches of the backward body each tree's route names at its 40 x 40
+or 56 x 56 global grid, traced steps), then the three K6 bf16 kernels'
+ms at that grid beside the whole bf16 SDPA backward's and SHA-256s of
+their outputs;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
 a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
@@ -183,8 +197,9 @@ HEADERS = {"k2": ("global_fwd_hopper.cuh",),
            "k2f32": ("f32_tiled_forward.cuh",),
            "k3f32": ("f32_tiled_forward.cuh",),
            "k6fwd": ("f32_tiled_forward.cuh",),
-           "k6hdkv": ("flash_trainable_hopper.cuh", "attention_bwd_core.cuh"),
-           "k6hdq": ("flash_trainable_hopper.cuh",)}
+           "k6hdkv": ("flash_trainable_hopper.cuh", "attention_bwd_core.cuh",
+                      "flash_trainable_bf16.cuh"),
+           "k6hdq": ("flash_trainable_hopper.cuh", "flash_trainable_bf16.cuh")}
 # entry points other than vdr_<source>: K6's bf16 builds
 ENTRIES = {"k6hdkv": "vdr_flash_attention_bwd_dkv_bf16",
            "k6hdq": "vdr_flash_attention_bwd_dq_bf16"}
@@ -359,8 +374,8 @@ VARIANTS = {
     # either product removed
     "k6hdq": {
         "as_built": ({}, ()),
-        "stages_4": ({"kDqStages": 4}, ()),
-        "stages_8": ({"kDqStages": 8}, ()),
+        "stages_4": ({"kHopperDqStages": 4}, ()),
+        "stages_8": ({"kHopperDqStages": 8}, ()),
         "no_pingpong": ({}, (
             ("auto issue_wait = [&] { bar_sync(my_bar, 256); };",
              "auto issue_wait = [&] {};"),
@@ -368,26 +383,26 @@ VARIANTS = {
              "auto issue_done = [&] {};"))),
         "no_bias_grads": ({}, (
             "dbw[i] += ds;",
-            "if (dbh_lo != nullptr) dbh_lo[j] = lo;",
-            "if (dbh_hi != nullptr) dbh_hi[j] = hi;")),
+            "if (dbh_lo != nullptr) dbh_lo[r] = kU ? dbh_lo[r] + lo : lo;",
+            "if (dbh_hi != nullptr) dbh_hi[r] = kU ? dbh_hi[r] + hi : hi;")),
         # exp2f (ex2.approx with subnormal handling) for ex2.approx.ftz
-        "exp2f": ({}, (("fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))",
-                        "exp2f(s[i] - ((i & 2) ? l_hi : l_lo))"),)),
-        "no_softmax": ({}, (("fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))",
-                             "(s[i] - ((i & 2) ? l_hi : l_lo))"),)),
+        "exp2f": ({}, (("? fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))",
+                        "? exp2f(s[i] - ((i & 2) ? l_hi : l_lo))"),)),
+        "no_softmax": ({}, (("? fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))",
+                             "? (s[i] - ((i & 2) ? l_hi : l_lo))"),)),
         "no_products": ({}, ("pv_tile<kNK>(dq, da, k_of(j - 1));",
                              "pv_tile<kNK>(dq, da, k_of(n_tiles - 1));")),
         "no_scores": ({}, (
-            "dq_scores(s, dp, q_addr, do_addr, ring, ring + kKTile);",
-            "dq_scores(s, dp, q_addr, do_addr, cur, cur + kKTile);")),
+            "dq_scores<kNK>(s, dp, q_addr, do_addr, ring, ring + kKTile);",
+            "dq_scores<kNK>(s, dp, q_addr, do_addr, cur, cur + kKTile);")),
     },
     "k6hdkv": {
         "as_built": ({}, ()),
-        "stages_3": ({"kDkvStages": 3}, ()),
-        "no_bias": ({}, ("add_bias(s, sm + 128, stage_at(j) + kTermOff, "
-                         "hr_lo, hr_hi, col_lo,\n               col_hi, "
-                         "lane, c);",)),
-        "no_terms": ({}, (("k < 64 * kNK / 4;", "k < 0;"),)),
+        "stages_3": ({"kHopperDkvMaxStages": 3}, ()),
+        "no_bias": ({}, ("add_bias<kTermLd>(s, sm + 128, stage_at(j) + "
+                         "kTermOff, hr_lo, hr_hi,\n                        "
+                         "col_lo, col_hi, lane, c);",)),
+        "no_terms": ({}, (("k < 16 * kKw;", "k < 0;"),)),
         "exp2f": ({}, (("sm90::fast_exp2(s[4 * i + e] - ((e & 1) ? l.y : "
                         "l.x))", "exp2f(s[4 * i + e] - ((e & 1) ? l.y : "
                         "l.x))"),)),
@@ -509,7 +524,8 @@ _K6_SHAPES = ((2, 4096, 64, 64, None), (50, 196, 14, 14, None))
 _K5_SHAPES = ((2, 4096, 64, 64, None), (2, 1536, 0, 0, 1370),
               (1, 4096, 32, 128, None), (1, 16384, 128, 128, None))
 _K5_BWD_SHAPES = _K5_SHAPES[:3]
-_K6H_SHAPES = ((2, 2304, 48, 48, None), (2, 1536, 0, 0, 1370))
+_K6H_SHAPES = ((2, 2304, 48, 48, None), (2, 1600, 40, 40, None),
+               (2, 3136, 56, 56, None), (2, 1536, 0, 0, 1370))
 CALLS = {
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
            _k1_call),
@@ -726,8 +742,8 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
     """The K6 forward's or backward's variants (per-head (B, H, S, D)):
     fp32 (k6fwd, k6dq, k6dkv) at the `parity` path's shapes, ms and share of
     the fp32 CUDA-core peak (67 TFLOP/s, H100 SXM) on the keys scored; the
-    bf16 backward's Hopper bodies (k6hdq, k6hdkv) at SAM @768's global and
-    DINOv2's kv_len shapes, ms and share of the bf16 tensor-core peak (989
+    bf16 backward's Hopper bodies (k6hdq, k6hdkv) at SAM @768's, @640's and
+    @896's global and DINOv2's kv_len shapes, ms and share of the bf16 tensor-core peak (989
     TFLOP/s) beside the whole bf16 SDPA backward's ms. Each with its
     largest gap to the plain version."""
     import torch
@@ -805,6 +821,173 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
             del mask
         del q, k, v, dout, bh, bw, kl, args, ref
         torch.cuda.empty_cache()
+
+
+K6_LABELS = ("out", "lse", "dq", "dbias_h", "dbias_w", "dk", "dv")
+
+
+def tiled_forward_oracle(torch, G, q, k, v, bh, bw, kl, scale, cols=64):
+    """K6's forward out in fp64 at the mma.sync body's own rounding points:
+    the online softmax over ``cols``-key tiles, P rounded to bf16 against
+    the running max of the tiles so far (as JAX's kernel rounds it per key
+    block), every sum unrounded."""
+    s = G._flash_scores(q, k, bh, bw, kl, scale, torch.float64)
+    vv = v.double()
+    m = torch.full(s.shape[:-1] + (1,), -2e30, dtype=torch.float64,
+                   device=s.device)
+    o = torch.zeros(s.shape[:-1] + (vv.shape[-1],), dtype=torch.float64,
+                    device=s.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, s.shape[-1], cols):
+        st = s[..., k0:k0 + cols]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        a, p = torch.exp2(m - mn), torch.exp2(st - mn)
+        o = o * a + p.to(torch.bfloat16).double() @ vv[..., k0:k0 + cols, :]
+        l, m = l * a + p.sum(-1, keepdim=True), mn
+    return o / l
+
+
+def oracle_gap(torch, x, oracle, rtol):
+    """x's distance to the oracle: {"beyond": max |x - o| beyond rtol·|o|,
+    "steps": the largest |x - o| in bf16 steps of the element among
+    elements of at least 1/64 of the largest |o|, "rms": the root mean
+    square of x - o in bf16 steps of the largest |o|, "off": the share of
+    elements more than one bf16 step of the element from o}. "steps" is
+    one element's reading and "rms" and "off" read every element."""
+    x, o = x.double(), oracle.double()
+    err = (x - o).abs()
+    top = o.abs().max()
+    big = o.abs() >= top / 64
+    ulp = torch.exp2(torch.floor(torch.log2(o.abs().clamp_min(1e-30))) - 7)
+    return {"beyond": (err - rtol * o.abs()).max().item(),
+            "steps": (err / ulp)[big].max().item(),
+            "rms": (err.square().mean().sqrt() / (2.0 ** -8 * top)).item(),
+            "off": (err > ulp).double().mean().item()}
+
+
+class _TensorCoreTorch:
+    """``torch`` whose ``matmul`` runs on the tensor cores: the operands,
+    which hold bf16 values in fp32 in the plain K6 versions, rounded to
+    bf16 (exactly, checked) and multiplied with fp32 sums and output
+    (``torch.bmm(..., out_dtype=torch.float32)``), as the K6 kernels'
+    ``mma.sync`` and ``wgmma`` products sum; every other attribute is
+    torch's own."""
+
+    def __init__(self, torch):
+        self._torch = torch
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def matmul(self, a, b):
+        torch = self._torch
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if not (torch.equal(a16.to(a.dtype), a)
+                and torch.equal(b16.to(b.dtype), b)):
+            raise ValueError("a K6 product operand holds no bf16 values")
+        out = torch.bmm(a16.reshape(-1, *a.shape[-2:]),
+                        b16.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def k6_oracle_gaps(torch, G, args, dout, fwd, bwd, scale,
+                   tensor_cores=False):
+    """{output: {"kernel": gap, "plain": gap, "kernel_vs_plain_steps": x}}:
+    the kernels' outputs (fwd: out, lse; bwd: dq, dbias_h, dbias_w, dk, dv,
+    with the forward's lse and D) and the plain versions' against the fp64
+    oracle of their rounding points (the plain versions with
+    ``acc=torch.float64``), each gap ``oracle_gap``'s, and the
+    kernel's gap to the plain version beyond one bf16 step of the element
+    in bf16 steps of the plain version's largest |value| (what ``chip_smoke.py``'s
+    phase 10 limits count); "out_tiled" holds the forward's out against
+    ``tiled_forward_oracle``, the oracle of its own 64-key tiles. With
+    ``tensor_cores`` each backward output also has "plain_tc", the plain
+    version's gap with its products on the tensor cores
+    (``_TensorCoreTorch``), and "kernel_vs_plain_tc_steps"."""
+    rest = (dout, fwd[1], G.flash_attention_delta(fwd[0], dout))
+    plain = (*G.flash_attention_fwd_plain(*args, scale=scale),
+             *G.flash_attention_bwd_dq_plain(*args, *rest, scale=scale),
+             *G.flash_attention_bwd_dkv_plain(*args, *rest, scale=scale))
+    tc = (None, None)
+    if tensor_cores:
+        G.torch = _TensorCoreTorch(torch)
+        try:
+            tc += (*G.flash_attention_bwd_dq_plain(*args, *rest, scale=scale),
+                   *G.flash_attention_bwd_dkv_plain(*args, *rest,
+                                                    scale=scale))
+        finally:
+            G.torch = torch
+    else:
+        tc += (None,) * 5
+    wide = dict(scale=scale, acc=torch.float64)
+    oracle = (*G.flash_attention_fwd_plain(*args, **wide),
+              *G.flash_attention_bwd_dq_plain(*args, *rest, **wide),
+              *G.flash_attention_bwd_dkv_plain(*args, *rest, **wide))
+    res = {}
+    for label, x, pl, t, o in zip(K6_LABELS, (*fwd, *bwd), plain, tc,
+                                  oracle):
+        if o is None:
+            continue
+        rtol = 0.0 if label in ("lse", "dbias_h", "dbias_w") else 2.0 ** -7
+        # and the kernel against the plain version, in bf16 steps of the
+        # plain version's largest |value| (phase 10's rule)
+        top = pl.float().abs().max().item()
+        res[label] = {"kernel": oracle_gap(torch, x, o, rtol),
+                      "plain": oracle_gap(torch, pl, o, rtol),
+                      "kernel_vs_plain_steps": oracle_gap(
+                          torch, x, pl, rtol)["beyond"] / (2.0 ** -8 * top)}
+        if t is not None:
+            res[label]["plain_tc"] = oracle_gap(torch, t, o, rtol)
+            res[label]["kernel_vs_plain_tc_steps"] = oracle_gap(
+                torch, x, t, rtol)["beyond"] / (2.0 ** -8 * top)
+    res["out_tiled"] = {"kernel": oracle_gap(
+        torch, fwd[0], tiled_forward_oracle(torch, G, *args, scale),
+        2.0 ** -7)}
+    return res
+
+
+
+def _k6_gaps(seeds: int) -> None:
+    """Each K6 bf16 output's distance to the fp64 oracle of its rounding
+    points (``k6_oracle_gaps``) over seeds at every shape of
+    ``chip_smoke.K6_BF16_SHAPES`` (12 heads; the backward on the body the
+    tree's route takes there: the Hopper dq and dkv at the SAM @640-@896
+    global grids and DINOv2's kv_len shape, the mma.sync ones at SAM @576's
+    36 x 36 grid and at 14 x 14 windows), beside the plain versions'
+    distance (fp32 products, and the backward's also on the tensor cores)
+    and the kernel's gap to the plain version in the rule's units
+    (``chip_smoke.py``'s phase 10); one JSON line a shape and seed, after a
+    line with the card and the fp32 matmul setting of the plain versions."""
+    import json
+
+    import torch
+
+    from ..ops import attention_grad as G
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke as cs
+
+    scale = 0.125
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "allow_tf32": torch.backends.cuda.matmul.allow_tf32}),
+          flush=True)
+    for tag, (b, s, kh, kw, kv_len) in cs.K6_BF16_SHAPES.items():
+        for seed in range(seeds):
+            g = torch.Generator(device="cuda").manual_seed(100 + seed)
+            args, dout = cs.k6_inputs(torch, g, torch.bfloat16, b, s, kh, kw,
+                                      kv_len)
+            fwd = G.flash_attention_fwd(*args, scale=scale)
+            rest = (dout, fwd[1], G.flash_attention_delta(fwd[0], dout))
+            bwd = (*G.flash_attention_bwd_dq(*args, *rest, scale=scale),
+                   *G.flash_attention_bwd_dkv(*args, *rest, scale=scale))
+            gaps = k6_oracle_gaps(torch, G, args, dout, fwd, bwd, scale,
+                                  tensor_cores=True)
+            print(json.dumps({"shape": tag, "seed": seed,
+                              "body": G.flash_attention_bwd_route(*args),
+                              "gaps": gaps}), flush=True)
+            del args, dout, fwd, rest, bwd
+            torch.cuda.empty_cache()
 
 
 def _k5_fwd_plain(torch, G, q, kv, bh, bw, kl, heads, scale, step=2):
@@ -1608,6 +1791,72 @@ for tag, shape in cs.K6_BF16_SHAPES.items():
     torch.cuda.empty_cache()
 '''
 
+# SAM ViT-B/16 `fast` fine-tuning at @SIZE@ px, B=2 (``--path finetune-640``,
+# ``finetune-896``): 5 steps through chip_smoke.py's finetune_phase, their
+# launches held to K1 and K4 8, the K6 bf16 forward 4 and dq and dkv 4
+# under the body the tree's route names at the global layers' grid, then
+# traced steps (wall, device ms, idle share, top device costs); then the
+# three K6 kernels' ms in bf16 at that grid (B=2, 12 heads, inputs from
+# chip_smoke.k6_inputs), the whole bf16 SDPA backward's, and SHA-256s of
+# the forward's and the backward's outputs
+_PAIR_FINETUNE_SIZE_CHILD = r'''
+import dataclasses, hashlib, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from vit_deep_radiomics_tpu_torch.engine import finetune as ft
+from vit_deep_radiomics_tpu_torch.models import vit
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+cuda_build.build_all(("fused_window_attention", "window_attention_bwd",
+                      *cs.K6_NAMES))
+size = @SIZE@
+grid = size // 16
+shape = (2, grid * grid, grid, grid, None)
+g = torch.Generator(device="cuda").manual_seed(1)
+args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
+body = G.flash_attention_bwd_route(*args)
+suffix = "_hopper" if body == "hopper" else "_bf16"
+per_step = {"fused_window_attention": 8, "window_attention_bwd": 8,
+            "flash_attention_fwd_bf16": 4,
+            "flash_attention_bwd_dq" + suffix: 4,
+            "flash_attention_bwd_dkv" + suffix: 4}
+print(f"k6 bf16 [@{size}]: backward body {body}", flush=True)
+cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=size)
+counts, summary = cs.finetune_phase(torch, A, ft, per_step=per_step,
+                                    backbone_cfg=cfg, trace=True)
+torch.cuda.empty_cache()
+
+
+def sha(*outs):
+    h = hashlib.sha256()
+    for o in outs:
+        if o is not None:
+            h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+b, s = shape[:2]
+out, lse = G.flash_attention_fwd(*args, scale=0.125)
+rest = (dout, lse, G.flash_attention_delta(out, dout))
+grads = (*G.flash_attention_bwd_dq(*args, *rest, scale=0.125),
+         *G.flash_attention_bwd_dkv(*args, *rest, scale=0.125))
+fwd, dq, dkv = (
+    cs.cuda_ms(torch, lambda fn=fn, a=a: fn(*a, scale=0.125), 10)
+    for fn, a in ((G.flash_attention_fwd, args),
+                  (G.flash_attention_bwd_dq, (*args, *rest)),
+                  (G.flash_attention_bwd_dkv, (*args, *rest))))
+q, k, v, bh, bw, kl = args
+mask = (bh[..., :, None] + bw[..., None, :]).reshape(b, 12, s, s).to(
+    torch.bfloat16)
+sdpa = cs._sdpa_ms(torch, q, k, v, mask, 0.125, dout, mask_grad=True)[0]
+print(f"k6 bf16 [@{size} global {shape}]: fwd ms {fwd:.4f}, dq ms {dq:.4f},"
+      f" dkv ms {dkv:.4f}, dq + dkv ms {dq + dkv:.4f}, sdpa backward ms "
+      f"{sdpa:.4f}; sha256 forward {sha(out, lse)} backward {sha(*grads)}",
+      flush=True)
+'''
+
 # The frozen-backbone paths of K7 and K8: `fast`, `int8` and `fast` with
 # VDR_FUSED_MLP=1 SAM ViT-B/16 @1024 forwards at B=4 (host ms, mean of 5
 # after two warm-ups; device ms from utils/profiling.py), a one-patient
@@ -1712,6 +1961,10 @@ _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
              "fast-2048": _PAIR_FAST2048_CHILD,
              "finetune-768": _PAIR_FINETUNE768_CHILD,
+             "finetune-640": _PAIR_FINETUNE_SIZE_CHILD.replace("@SIZE@",
+                                                               "640"),
+             "finetune-896": _PAIR_FINETUNE_SIZE_CHILD.replace("@SIZE@",
+                                                               "896"),
              "parity-forward": _PAIR_PARITY_FORWARD_CHILD,
              "frozen": _PAIR_FROZEN_CHILD, "dinov2": _PAIR_DINOV2_CHILD}
 
@@ -1743,6 +1996,9 @@ def main(argv=None) -> int:
     v.add_argument("--out", type=Path,
                    default=Path(__file__).resolve().parents[1] / "_build"
                    / "probe_variants")
+    gp = sub.add_parser("gaps", help="K6 bf16 outputs against the fp64 "
+                        "oracle of their rounding points")
+    gp.add_argument("--seeds", type=int, default=10)
     pr = sub.add_parser("pair", help="parent vs change, end to end")
     pr.add_argument("--path", choices=sorted(_CHILDREN),
                     default="extraction")
@@ -1769,6 +2025,8 @@ def main(argv=None) -> int:
             _forward_variants(args.kernel, args.out)
         else:
             _variants(args.kernel, args.out)
+    elif args.cmd == "gaps":
+        _k6_gaps(args.seeds)
     else:
         _pair(args.parent.resolve(), args.change.resolve(), args.path)
     return 0
