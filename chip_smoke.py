@@ -67,10 +67,11 @@ Phases (each one fails the run with a non-zero exit):
     and the bound; then the same three in bf16 (fp32 bias, the route
     asked and the launch counter of the body it names read) at SAM
     ViT-B/16's global shapes under ``fast`` at 768 px (2 x 12 x 2304, Kh =
-    Kw = 48), 640 px (2 x 12 x 1600, Kh = Kw = 40) and 896 px (2 x 12 x
-    3136, Kh = Kw = 56) and DINOv2's kv_len shape, where the forward takes
-    its mma.sync body and dq and dkv their Hopper bodies (TMA + wgmma), and
-    at SAM @576's global shape (2 x 12 x 1296, Kh = Kw = 36) and SAM's 14 x
+    Kw = 48), 640 px (2 x 12 x 1600, Kh = Kw = 40), 896 px (2 x 12 x
+    3136, Kh = Kw = 56) and 576 px (2 x 12 x 1296, Kh = Kw = 36: a width of
+    4 mod 8) and DINOv2's kv_len shape, where the forward takes its
+    mma.sync body and dq and dkv their Hopper bodies (TMA + wgmma), and at
+    SAM @544's global shape (2 x 12 x 1156, Kh = Kw = 34) and SAM's 14 x
     14 windows (50 x 12 x 196), where all three take the mma.sync bodies;
     the library bf16 SDPA with a bf16 ``attn_mask``;
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
@@ -226,8 +227,10 @@ Phases (each one fails the run with a non-zero exit):
 26. the same at 896 px (a 56 x 56 grid: the Hopper dq and dkv at Kw 56),
     5 steps and 3 traced ones (ms per step, device ms, idle share, peak
     memory);
-27. the same at 576 px, 5 steps: the main path of the K6 bf16 backward's
-    mma.sync bodies (the 36 x 36 grid's Kw 36, not a multiple of 8, fits
+27. the same at 576 px (a 36 x 36 grid: the Hopper dq and dkv at Kw 36,
+    a width of 4 mod 8), 5 steps and 3 traced ones;
+28. the same at 544 px, 5 steps: the main path of the K6 bf16 backward's
+    mma.sync bodies (the 34 x 34 grid's Kw 34, not a multiple of 4, fits
     no Hopper body), the mma.sync dq and dkv 4 a step and the Hopper ones
     0.
 
@@ -302,11 +305,11 @@ TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
 # (K2's body with the lse store: no bias, Kw 64, and Kw 128 visiting the
 # even key tiles first), the K5 dq and dkv (no bias, Kw 64, Kw 128), K7
 # (the C 768 body and the C 1536 cluster body), K8 and K6's bf16 dq and dkv
-# (no bias, and one instance per key-grid width 16, 24, ... 128)
+# (no bias, and one instance per key-grid width 16, 20, ... 128)
 HOPPER_SOURCES = {"global_attention_fwd_lse": 3, "fused_ln_mlp_residual": 2,
                   "int8_matmul": 1, "global_attention_bwd_dq": 3,
-                  "global_attention_bwd_dkv": 3, "flash_attention_bwd_dq": 16,
-                  "flash_attention_bwd_dkv": 16}
+                  "global_attention_bwd_dkv": 3, "flash_attention_bwd_dq": 30,
+                  "flash_attention_bwd_dkv": 30}
 # The body each kernel's C entry takes at its path's shapes: K1 and K2 by
 # dtype at the extraction path's, the K5 forward at SAM's global layers
 # (Kw 64) and DINOv2's kv_len layers
@@ -346,7 +349,10 @@ K6_ATOL = {"flash_attention_fwd": 2.5e-6, "lse": 1e-5,
 # 0.213, 0.423, 0.421, 0.113, 0.150; DINOv2 kv_len 0.313, 0.161, -, -,
 # 0.170, 0.127; @640 0.334, 0.128, 0.199, 0.199, 0.088, 0.114; @896 0.270,
 # 0.176, 0.260, 0.254, 0.156, 0.154; @576 0.277, 0.347, 0.659, 0.660,
-# 0.239, 0.148; 14 x 14 windows 0.189, 0.215, 0.405, 0.436, 0.235, 0.150.
+# 0.239, 0.148 (the mma.sync backward's, and the Hopper backward's again
+# to these digits); 14 x 14 windows 0.189, 0.215, 0.405, 0.436, 0.235,
+# 0.150; @544 (the mma.sync backward) 0.284, 0.160, 0.228, 0.281, 0.126,
+# 0.198.
 # They follow no law in the number of keys summed (196 to 3136; dq's
 # largest gap is @576's, dk's the windows'). The fp32 lse: 1.9e-6.
 K6_BF16_STEPS = {
@@ -359,16 +365,19 @@ K6_BF16_STEPS = {
                       "dbias_w": 0.39, "dk": 0.24, "dv": 0.24},
     "sam576_global": {"out": 0.42, "dq": 0.53, "dbias_h": 0.99,
                       "dbias_w": 1.0, "dk": 0.36, "dv": 0.23},
+    "sam544_global": {"out": 0.43, "dq": 0.25, "dbias_h": 0.35,
+                      "dbias_w": 0.43, "dk": 0.19, "dv": 0.30},
     "window": {"out": 0.29, "dq": 0.33, "dbias_h": 0.61, "dbias_w": 0.66,
                "dk": 0.36, "dv": 0.23}}
 K6_BF16_LSE_ATOL = 3e-6
 # K6 in bf16 at its paths' shapes: SAM ViT-B/16 @768's global layers under
 # `fast` (B=2, a 48 x 48 grid, Kh = Kw = 48), DINOv2 ViT-B/14 @518's kv_len
-# shape, SAM @640's (a 40 x 40 grid) and @896's (56 x 56) global layers,
-# SAM @576's (36 x 36: the main path of the mma.sync backward, whose Kw 36
-# no Hopper body takes), and SAM's 14 x 14 windows (50 windows, which no
-# bf16 path gives K6: a second check of the mma.sync backward); at all of
-# them the forward takes its mma.sync body, and the backward the body of
+# shape, SAM @640's (a 40 x 40 grid), @896's (56 x 56) and @576's (36 x
+# 36: a width of 4 mod 8) global layers, SAM @544's (34 x 34: the main
+# path of the mma.sync backward, whose Kw 34 no Hopper body takes), and
+# SAM's 14 x 14 windows (50 windows, which no bf16 path gives K6: a second
+# check of the mma.sync backward); at all of them the forward takes its
+# mma.sync body, and the backward the body of
 # K6_BF16_BWD_BODY (rows and counters `<kernel>_hopper` or
 # `<kernel>_bf16`). A row's numbers are those of its main path's shape,
 # K6_BF16_MAIN_SHAPE.
@@ -377,15 +386,17 @@ K6_BF16_SHAPES = {"sam768_global": (2, 2304, 48, 48, None),
                   "sam640_global": (2, 1600, 40, 40, None),
                   "sam896_global": (2, 3136, 56, 56, None),
                   "sam576_global": (2, 1296, 36, 36, None),
+                  "sam544_global": (2, 1156, 34, 34, None),
                   "window": (50, 196, 14, 14, None)}
 K6_BF16_BWD_BODY = {"sam768_global": "hopper", "dinov2": "hopper",
                     "sam640_global": "hopper", "sam896_global": "hopper",
-                    "sam576_global": "mma", "window": "mma"}
+                    "sam576_global": "hopper", "sam544_global": "mma",
+                    "window": "mma"}
 K6_BF16_MAIN_SHAPE = {"flash_attention_fwd_bf16": "sam768_global",
                       "flash_attention_bwd_dq_hopper": "sam768_global",
                       "flash_attention_bwd_dkv_hopper": "sam768_global",
-                      "flash_attention_bwd_dq_bf16": "sam576_global",
-                      "flash_attention_bwd_dkv_bf16": "sam576_global"}
+                      "flash_attention_bwd_dq_bf16": "sam544_global",
+                      "flash_attention_bwd_dkv_bf16": "sam544_global"}
 # Phase 24, SAM ViT-B/16 `fast` fine-tuning at 768 px, B=2: launches per
 # step (8 windowed layers of 14 x 14 windows over the 48 x 48 grid padded
 # to 56: K1 and K4; 4 global layers of 2304 tokens, which no fused kernel
@@ -404,11 +415,16 @@ FAST768_STEP_LAUNCHES = {"fused_window_attention": 8,
 SAM640, SAM896 = 640, 896
 FAST640_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
 FAST896_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
-# Phase 27, the same at 576 px: the 36 x 36 grid, whose Kw 36 (not a
-# multiple of 8) no Hopper body takes, so dq and dkv run and count under
-# the mma.sync bodies
+# Phase 27, the same at 576 px: the 36 x 36 grid, whose Kw 36 (4 mod 8)
+# the Hopper bodies take with their doubled dkv terms and dq's column-pair
+# masks
 SAM576 = 576
-FAST576_STEP_LAUNCHES = {"fused_window_attention": 8,
+FAST576_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
+# Phase 28, the same at 544 px: the 34 x 34 grid (windows over it padded to
+# 42), whose Kw 34 (not a multiple of 4) no Hopper body takes, so dq and
+# dkv run and count under the mma.sync bodies
+SAM544 = 544
+FAST544_STEP_LAUNCHES = {"fused_window_attention": 8,
                          "window_attention_bwd": 8,
                          "flash_attention_fwd_bf16": 4,
                          "flash_attention_bwd_dq_bf16": 4,
@@ -1648,7 +1664,8 @@ def k6_phase(torch, G, peaks, dtype="float32"):
     ``attn_mask`` in the operands' dtype; forward, or the whole backward)
     times and the bound. fp32: the ``parity`` path's shapes
     (``K6_SHAPES``, the register-tiled bodies); bf16: ``K6_BF16_SHAPES``
-    (SAM @768's, @640's, @896's and @576's global layers under ``fast``,
+    (SAM @768's, @640's, @896's, @576's and @544's global layers under
+    ``fast``,
     DINOv2's kv_len shape and SAM's 14 x 14 windows, the fp32 bias; the
     forward's mma.sync body, rows ``flash_attention_fwd_bf16``; the
     backward's body of ``K6_BF16_BWD_BODY``, rows ``<kernel>_hopper`` or
@@ -1835,13 +1852,26 @@ def sam896_phase(torch, A, ft, vit):
 
 
 def sam576_phase(torch, A, ft, vit):
-    """Phase 27: SAM ViT-B/16 ``fast`` fine-tuning at 576 px, batch 2, the
-    main path of the K6 bf16 backward's mma.sync bodies: its global layers'
-    36 x 36 grid fits no fused kernel and no Hopper body (Kw 36 is not a
-    multiple of 8). ``FT_STEPS`` steps whose launches are held to
-    ``FAST576_STEP_LAUNCHES``. Returns the launches."""
+    """Phase 27: SAM ViT-B/16 ``fast`` fine-tuning at 576 px, batch 2: its
+    global layers' 36 x 36 grid (1296 tokens) fits no fused kernel, so they
+    take K6 in bf16, dq and dkv on their Hopper bodies at Kw 36, a width of
+    4 mod 8 (48-key dq tiles with 36 live columns, dkv's terms staged
+    twice). ``FT_STEPS`` steps whose launches are held to
+    ``FAST576_STEP_LAUNCHES``, then traced steps. Returns (launches, the
+    steps' summary)."""
     cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM576)
     return finetune_phase(torch, A, ft, per_step=FAST576_STEP_LAUNCHES,
+                          backbone_cfg=cfg, trace=True)
+
+
+def sam544_phase(torch, A, ft, vit):
+    """Phase 28: SAM ViT-B/16 ``fast`` fine-tuning at 544 px, batch 2, the
+    main path of the K6 bf16 backward's mma.sync bodies: its global layers'
+    34 x 34 grid fits no fused kernel and no Hopper body (Kw 34 is not a
+    multiple of 4). ``FT_STEPS`` steps whose launches are held to
+    ``FAST544_STEP_LAUNCHES``. Returns the launches."""
+    cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM544)
+    return finetune_phase(torch, A, ft, per_step=FAST544_STEP_LAUNCHES,
                           backbone_cfg=cfg)
 
 
@@ -3308,7 +3338,12 @@ def _serve_kernels(torch, A) -> dict:
     plain versions on the same inputs (phase 3's rule for K1 and K2,
     phase 16's for K7), each asked which body it takes: the body of the
     main path's shapes. K2's plain version runs four images at a time (the
-    images are independent); each shape's kernel ms, bound and error."""
+    images are independent); each shape's kernel ms, bound, error and
+    library ms (K1 and K2: SDPA, memory-efficient, the dense bias as a bf16
+    ``attn_mask`` built outside the timed call; K7: the unfused path)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from vit_deep_radiomics_tpu_torch.ops import mlp_fused as M
 
     peaks = peaks_for(torch.cuda.get_device_name(0))[1]
@@ -3320,7 +3355,23 @@ def _serve_kernels(torch, A) -> dict:
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * sc).to(dt)
 
-    def hold(name, tag, kern, plain, body, want, rtol, atol, nb, flops):
+    def sdpa(q, kv, bh, bw):
+        """SDPA on head-major views of one image or window each, the dense
+        bias as ``attn_mask``: a timed call."""
+        b, s = q.shape[:2]
+        qh, kh_, vh = (_heads_of(t, 1, s, heads)
+                       for t in (q, kv[..., :c], kv[..., c:]))
+        mask = _dense_mask(bh, bw, 1, s, heads)
+
+        def call():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(qh, kh_, vh,
+                                                      attn_mask=mask,
+                                                      scale=scale)
+        return call
+
+    def hold(name, tag, kern, plain, body, want, rtol, atol, nb, flops,
+             lib):
         if body != want:
             raise AssertionError(f"{name} at the serving shape {tag} takes "
                                  f"the {body} body, not the {want} one")
@@ -3331,6 +3382,7 @@ def _serve_kernels(torch, A) -> dict:
         t_bytes, t_ops = nb / peaks[0] * 1e3, flops / peaks[1] * 1e3
         res = {"shape": list(out.shape), "body": body, "max_abs_err": err,
                "ms": cuda_ms(torch, kern, 10),
+               "library_ms": cuda_ms(torch, lib, 10),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         log(f"kernel {name} [serve {tag}]: {res}")
@@ -3349,7 +3401,8 @@ def _serve_kernels(torch, A) -> dict:
             A.fused_window_attention_route(q, kv, bh, bw, **kw),
             BODIES["fused_window_attention"]["bfloat16"], RTOL["bfloat16"],
             ATOL["fused_window_attention"]["bfloat16"],
-            _nbytes(q, q, kv, bh, bw), 4.0 * b * heads * s * s * d)
+            _nbytes(q, q, kv, bh, bw), 4.0 * b * heads * s * s * d,
+            sdpa(q, kv, bh, bw))
         del q, kv, bh, bw
     for tag, b in SERVE_KERNEL_SHAPES["fused_global_attention"].items():
         s = 4096
@@ -3369,7 +3422,8 @@ def _serve_kernels(torch, A) -> dict:
             A.fused_global_attention_route(q, kv, bh, bw, None, **kw),
             BODIES["fused_global_attention"]["bfloat16"], RTOL["bfloat16"],
             ATOL["fused_global_attention"]["bfloat16"],
-            _nbytes(q, q, kv, bh, bw), 4.0 * b * heads * s * s * d)
+            _nbytes(q, q, kv, bh, bw), 4.0 * b * heads * s * s * d,
+            sdpa(q, kv, bh, bw))
         del q, kv, bh, bw
         torch.cuda.empty_cache()
     _, s, _, hidden, _, want = K7_SHAPES["sam"]
@@ -3381,13 +3435,20 @@ def _serve_kernels(torch, A) -> dict:
         ln_b, b1, b2 = (rand(n, sc=sc).float() for n, sc in (
             (c, 0.1), (hidden, 0.02), (c, 0.02)))
         args = (x, ln_s, ln_b, w1.t(), b1, w2.t(), b2, None)
+        p = [t.to(dt) for t in (ln_s, ln_b, b1, b2)]
+
+        def unfused():
+            y = F.layer_norm(x, (c,), p[0], p[1], 1e-6)
+            return x + F.linear(F.gelu(F.linear(y, w1, p[2]),
+                                       approximate="tanh"), w2, p[3])
+
         found["fused_ln_mlp_residual"][tag] = hold(
             "fused_ln_mlp_residual", f"{b}x{s} rows",
             lambda: M.fused_ln_mlp_residual(*args, eps=1e-6),
             lambda: M.fused_ln_mlp_residual_plain(*args, eps=1e-6),
             M.fused_ln_mlp_residual_route(*args), want, RTOL["bfloat16"],
             K7_ATOL, _nbytes(x, ln_s, ln_b, w1, b1, w2, b2, x),
-            4.0 * b * s * c * hidden)
+            4.0 * b * s * c * hidden, unfused)
         del x, args
     torch.cuda.empty_cache()
     return found
@@ -3824,9 +3885,12 @@ def main() -> int:
         hopper = {f: r for f, r in cuda_build.ptxas_functions(blog).items()
                   if "hopper_kernel" in f}
         serial = [ln.strip() for ln in blog.splitlines() if "C75" in ln]
-        log(f"ptxas {src} (Hopper): " + " | ".join(
-            f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
-            for f, r in hopper.items()) + f"; C75xx lines: {len(serial)}")
+        secs = dict(cuda_build.BUILDS).get(src)
+        took = f"nvcc {secs:.2f} s" if secs else "built earlier"
+        log(f"ptxas {src} (Hopper, {len(hopper)} instances, {took}): " +
+            " | ".join(
+                f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
+                for f, r in hopper.items()) + f"; C75xx lines: {len(serial)}")
         if blog and (len(hopper) != n_hopper or serial or any(
                 r["spill"] for r in hopper.values())):
             raise AssertionError(f"{src}: the Hopper kernels {hopper} spill, "
@@ -3966,20 +4030,25 @@ def main() -> int:
     sam896_counts, sam896 = sam896_phase(torch, A, ft, vit)  # phase 26
     log("fine-tune SAM @896 fast: " + json.dumps(sam896))
     torch.cuda.empty_cache()
-    sam576_counts = sam576_phase(torch, A, ft, vit)            # phase 27
+    sam576_counts, sam576 = sam576_phase(torch, A, ft, vit)  # phase 27
+    log("fine-tune SAM @576 fast: " + json.dumps(sam576))
+    torch.cuda.empty_cache()
+    sam544_counts = sam544_phase(torch, A, ft, vit)            # phase 28
     # K6 in bf16: the @768 `fast` steps are the main path of the forward
-    # and the backward's Hopper bodies (also @640 and @896), the @576 ones
-    # of the backward's mma.sync bodies
+    # and the backward's Hopper bodies (also @640, @896 and @576), the
+    # @544 ones of the backward's mma.sync bodies
     for kname, rec in k6_bf16_records.items():
-        at576 = kname.endswith(("_dq_bf16", "_dkv_bf16"))
-        rec["launches"] = (sam576_counts if at576 else sam768_counts)[kname]
-        if not at576:
+        at544 = kname.endswith(("_dq_bf16", "_dkv_bf16"))
+        rec["launches"] = (sam544_counts if at544 else sam768_counts)[kname]
+        if not at544:
             rec["fast768_step"] = sam768
             rec["launches_sam640_fast"] = sam640_counts[kname]
             rec["launches_sam896_fast"] = sam896_counts[kname]
+            rec["launches_sam576_fast"] = sam576_counts[kname]
         if kname.endswith("_hopper"):
             rec["fast640_step"] = sam640
             rec["fast896_step"] = sam896
+            rec["fast576_step"] = sam576
     records.update(k6_bf16_records)
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))

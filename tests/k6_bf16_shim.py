@@ -244,6 +244,7 @@ int tile(int kw) { return hopper_dq_tile(kw); }
 int passes(int kw) { return hopper_dq_passes(kw); }
 int hrows(int kw) { return hopper_dkv_hrows(kw); }
 int term_ld(int kw) { return hopper_term_ld(kw); }
+int term_period(int kw) { return hopper_term_period(kw); }
 int stages(int kw) { return hopper_dkv_stages(kw); }
 long long dkv_smem(int kw) { return (long long)hopper_dkv_smem(kw); }
 long long dq_smem(int kw, int kh) { return (long long)hopper_dq_smem(kw, kh); }
@@ -284,11 +285,11 @@ def build(out_dir: Path, kind: str = "bodies") -> ctypes.CDLL:
             fn.restype = None
     else:
         for name in ("route", "tile", "passes", "hrows", "term_ld",
-                     "stages"):
+                     "term_period", "stages"):
             getattr(lib, name).restype = I
         lib.route.argtypes = [I] * 3
-        for name in ("tile", "passes", "hrows", "term_ld", "stages",
-                     "dkv_smem"):
+        for name in ("tile", "passes", "hrows", "term_ld", "term_period",
+                     "stages", "dkv_smem"):
             getattr(lib, name).argtypes = [I]
         lib.dkv_smem.restype = ctypes.c_longlong
         lib.dq_smem.argtypes = [I, I]

@@ -1297,15 +1297,33 @@ def test_flash_trainable_bf16_hopper_bodies_match_plain(gen, s, kh, kv_len):
     (2, 1600, 40, 40, [900, 1600]),   # kv_len inside a grid row
     (1, 1440, 20, 72, [1000]),        # kv_len inside the second pass
     (2, 3136, 56, 56, [0, 3000]),     # a kv_len 0 row
+    # widths 4 mod 8: a dq pass ends inside an 8-column chunk, dkv's 8-key
+    # blocks wrap grid rows or start at 4 mod 8 (doubled terms)
+    (1, 320, 16, 20, None),       # 32-key tiles over 20 keys
+    (2, 1296, 36, 36, None),      # SAM @576: 48-key tiles over 36 keys,
+                                  # a last dkv block of 16 keys
+    (1, 1936, 44, 44, None),      # SAM @704
+    (1, 2704, 52, 52, None),      # SAM @832: 64-key tiles, 3 dkv stages
+    (1, 3600, 60, 60, None),      # SAM @960: two 32-key passes (28 live
+                                  # in the second)
+    (1, 1240, 10, 124, None),     # three 48-key passes (28 live in the
+                                  # third), 2 dkv stages
+    (2, 1296, 36, 36, [700, 1296]),   # kv_len inside a grid row
+    (2, 1936, 44, 44, [0, 1936]),     # a kv_len 0 row
 ], ids=["sam640", "sam896", "kw72", "kw16", "kw24", "kw32", "kw64", "kw80",
         "kw88", "kw96", "kw104", "kw112", "kw120", "kw128", "kw40_kh128",
-        "sam640_kv_len", "kw72_kv_len", "sam896_kv_len_zero_row"])
+        "sam640_kv_len", "kw72_kv_len", "sam896_kv_len_zero_row", "kw20",
+        "sam576", "sam704", "sam832", "sam960", "kw124", "sam576_kv_len",
+        "sam704_kv_len_zero_row"])
 def test_flash_trainable_bf16_hopper_bodies_at_every_grid_width(
         gen, b, s, kh, kw, kv_len):
-    """The Hopper bodies at key-grid widths other than 48 (every multiple
-    of 8 from 16 to 128): dq in one to three passes a grid row of 16-,
-    32-, 48- or 64-key tiles (``hopper_dq_passes``, ``hopper_dq_tile``),
-    masking the next row's keys in a tile wider than the row's share; dkv with the grid rows and ring depth of each width;
+    """The Hopper bodies at key-grid widths other than 48 (multiples of 8
+    from 16 to 128, and of 4: Kw 20, SAM @576-@960's 36, 44, 52, 60, and
+    124): dq in one to three passes a grid row of 16-, 32-, 48- or 64-key
+    tiles (``hopper_dq_passes``, ``hopper_dq_tile``), masking the next
+    row's keys in a tile wider than the row's share (per column pair where
+    a pass ends inside an 8-column chunk); dkv with the grid rows, the
+    bias_w term layout and ring depth of each width;
     S not a multiple of 128 (the last block half idle), kv_len with a bias,
     against the plain versions at two heads, by phase 10's rule."""
     assert _k6_bf16_check(gen, b, 2, s, kh, kw, kv_len,
@@ -1314,8 +1332,9 @@ def test_flash_trainable_bf16_hopper_bodies_at_every_grid_width(
 
 def test_flash_trainable_bf16_route_and_determinism(gen):
     """fp32 calls take the tiled bodies; bf16 forwards the mma.sync body and
-    bf16 backwards the Hopper bodies at Kw 48 and 72 (two passes a grid row
-    in dq) and the mma.sync ones at Kw 14; a bf16 bias grid of more than
+    bf16 backwards the Hopper bodies at Kw 48, 72 (two passes a grid row
+    in dq) and 36 (4 mod 8: the doubled dkv terms, dq's pair masks) and
+    the mma.sync ones at Kw 14; a bf16 bias grid of more than
     320 terms is refused by the C entry;
     two bf16 runs give the same bits on either backward body (no
     atomics)."""
@@ -1323,6 +1342,7 @@ def test_flash_trainable_bf16_route_and_determinism(gen):
 
     for shape, body in (((2, 3, 192, 4, 48), "hopper"),
                         ((1, 2, 1440, 20, 72), "hopper"),
+                        ((1, 2, 1296, 36, 36), "hopper"),
                         ((2, 3, 196, 14, 14), "mma")):
         *args, dout = _k6_inputs(gen, *shape)
         assert G.flash_attention_route(*args) == "tiled"

@@ -76,19 +76,28 @@ ROUTES = {"sam768": ((1, 48, 48), 2),
           "kw48_kh128": ((1, 128, 48), 2),
           "no_bias": ((0, 0, 0), 2),
           "kw16": ((1, 16, 16), 2),
+          "kw20": ((1, 20, 20), 2),
+          "sam576_kw36": ((1, 36, 36), 2),
           "sam640_kw40": ((1, 40, 40), 2),
+          "sam704_kw44": ((1, 44, 44), 2),
+          "sam832_kw52": ((1, 52, 52), 2),
           "sam896_kw56": ((1, 56, 56), 2),
+          "sam960_kw60": ((1, 60, 60), 2),
           "sam1152_kw72": ((1, 72, 72), 2),
           "sam1280_kw80": ((1, 80, 80), 2),
           "sam1536_kw96": ((1, 96, 96), 2),
           "kw64": ((1, 64, 64), 2),
+          "kw124": ((1, 124, 124), 2),
           "kw128": ((1, 128, 128), 2),
           "kw48_kh129": ((1, 129, 48), 1),
           "kw40_kh129": ((1, 129, 40), 1),
           "kw7": ((1, 7, 7), 1),
           "kw8": ((1, 8, 8), 1),
           "kw14": ((1, 14, 14), 1),
-          "sam576_kw36": ((1, 36, 36), 1),
+          "sam544_kw34": ((1, 34, 34), 1),
+          "kw37": ((1, 37, 37), 1),
+          "kw12": ((1, 12, 12), 1),
+          "kw132": ((1, 4, 132), 1),
           "kw49": ((1, 48, 49), 1),
           "kw136": ((1, 8, 136), 1),
           "kw48_kh272": ((1, 272, 48), 1),
@@ -99,17 +108,33 @@ ROUTES = {"sam768": ((1, 48, 48), 2),
 @pytest.mark.parametrize("case", sorted(ROUTES))
 def test_bwd_route_takes_the_hopper_bodies_at_kw48(route_lib, case):
     """Calls with no bias and every key grid whose width is a multiple of
-    8 from 16 to 128 (SAM ViT-B/16's global grids at 640 to 1536 px: Kw
-    40-96; 48 at 768 px) with at most 128 grid rows go to the Hopper
-    bodies; other widths (14 x 14 windows, Kw 36 at 576 px, Kw 8, 49, 136)
-    and grids past 128 rows, whose bias_h table would not fit dq's shared
-    memory, to the mma.sync bodies; grids of more than 320 terms are
-    refused."""
+    4 from 16 to 128 (SAM ViT-B/16's global grids at 576 to 1536 px: Kw
+    36-96; 48 at 768 px; the widths 4 mod 8 among them at 576, 704, 832
+    and 960 px) with at most 128 grid rows go to the Hopper bodies; other
+    widths (14 x 14 windows, Kw 34 at 544 px, 37 at 592 px, Kw 8, 12, 49,
+    132, 136) and grids past 128 rows, whose bias_h table would not fit
+    dq's shared memory, to the mma.sync bodies; grids of more than 320
+    terms are refused."""
     args, want = ROUTES[case]
     assert route_lib.route(*args) == want
 
 
-HOPPER_KWS = range(16, 129, 8)
+HOPPER_KWS = range(16, 129, 4)
+
+
+def _dkv_stages(kw):
+    """The most stages (4 at most, 2 at least) of dkv's query-tile ring
+    that fit in 227 KB beside the K and V tiles: a stage holds q, dO and
+    Q^ (8 KB each), the tile's fp32 bias_w rows (256 Kw bytes), its bf16
+    terms (128 ld bytes), and lse, D and the bias_h terms of the block's
+    grid rows (256 bytes each), rounded up to 1 KB."""
+    ld = 2 * kw if kw % 8 else kw if (kw // 8) % 2 else kw + 8
+    stage = 3 * 8192 + 256 * kw + 128 * ld + 256 * (2 + 127 // kw + 2)
+    stage = -(-stage // 1024) * 1024
+    n = 4
+    while n > 2 and 1024 + 4 * 8192 + n * stage > 232448 - 256:
+        n -= 1
+    return n
 
 
 @pytest.mark.parametrize("kw", HOPPER_KWS)
@@ -120,9 +145,13 @@ def test_hopper_tiling_holds_its_closed_form(route_lib, kw):
     columns, a tile of several passes at most 48 keys, and the passes cover
     the row); dkv's block of 128 aligned keys spans floor(127 / Kw) + 2
     grid rows at most, its bias_w terms' rows lie an odd number of 16-byte
-    chunks apart, and its ring has 4 stages up to Kw 56, 3 up to 96 and 2
-    beyond, the most that fit in 227 KB; dq's shared memory at Kh 128 fits
-    too."""
+    chunks apart, and every 8-key block's terms are one 16-byte chunk of a
+    row: at Kw 0 mod 8 the row holds each term once (column key % Kw), at
+    Kw 4 mod 8 twice (2 Kw columns, column key % (2 Kw)), which holds the
+    8 consecutive keys' terms also where the block wraps a grid row; its
+    ring has the most stages that fit in 227 KB (Kw 0 mod 8: 4 up to 56, 3
+    up to 96, 2 beyond; Kw 4 mod 8: 4 up to 44, 3 up to 76, 2 beyond); dq's
+    shared memory at Kh 128 fits too."""
     n = 1 if kw <= 56 else -(-kw // 48)
     tile = -(-(-(-kw // n)) // 16) * 16
     assert route_lib.passes(kw) == n and route_lib.tile(kw) == tile
@@ -135,9 +164,23 @@ def test_hopper_tiling_holds_its_closed_form(route_lib, kw):
                                                            128)]
     assert max(spans) <= route_lib.hrows(kw) and rows
     ld = route_lib.term_ld(kw)
-    assert ld >= kw and ld % 8 == 0 and (ld // 8) % 2 == 1
+    period = route_lib.term_period(kw)
+    assert ld % 8 == 0 and (ld // 8) % 2 == 1 and ld >= period
+    assert period == (kw if kw % 8 == 0 else 2 * kw)
+    # every block of 8 keys (a multiple of 8 apart) reads 8 consecutive
+    # keys' terms from one aligned 16-byte chunk of the doubled or single
+    # row, whose column x holds the term of grid column x % Kw
+    for kb in range(0, 4 * kw * 8, 8):
+        col = kb % period
+        assert col % 8 == 0 and col + 8 <= ld
+        assert [(col + i) % kw for i in range(8)] == \
+            [(kb + i) % kw for i in range(8)]
     stages = route_lib.stages(kw)
-    assert stages == (4 if kw <= 56 else 3 if kw <= 96 else 2)
+    assert stages == _dkv_stages(kw)
+    if kw % 8 == 0:
+        assert stages == (4 if kw <= 56 else 3 if kw <= 96 else 2)
+    else:
+        assert stages == (4 if kw <= 44 else 3 if kw <= 76 else 2)
     limit = 232448
     assert route_lib.dkv_smem(kw) <= limit
     assert route_lib.dq_smem(kw, 128) <= limit

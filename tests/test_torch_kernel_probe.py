@@ -1,7 +1,9 @@
 """The kernel probe's source variants are built from the committed kernels:
 each named constant and each call it removes is found exactly once. The
 build's ptxas spill report (``cuda_build.spill_bytes``) is read from a
-sample log."""
+sample log. Each ``pair`` child is whole Python source."""
+
+import re
 
 import pytest
 
@@ -81,3 +83,44 @@ def test_ptxas_functions_reads_each_kernel():
         "_Z9k2_tiledv": {"registers": 126, "spill": 0},
         "_Z6hopperv": {"registers": 168, "spill": 112}}
     assert cuda_build.spill_bytes(log) == 112
+
+
+@pytest.mark.parametrize("path", sorted(kernel_probe._CHILDREN))
+def test_pair_child_is_whole_python(path):
+    """Each ``pair --path`` child is complete Python source (every
+    placeholder of a templated child filled in), so a chip call does not
+    fail on it after the parent's turn."""
+    child = kernel_probe._CHILDREN[path]
+    assert not re.search(r"@[A-Z_]+@", child), path
+    compile(child, f"<pair {path}>", "exec")
+
+
+def test_sass_functions_splits_a_listing_by_kernel(monkeypatch, tmp_path):
+    """``sass`` compares kernels one by one: each ``Function :`` block of a
+    ``cuobjdump -sass`` listing up to the row of dots that ends it, so
+    what follows a kernel (the next ELF section's header) is not part of
+    it."""
+    listing = """
+	code for sm_90a
+		Function : _Z3twoPf
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   EXIT ;
+		..........
+
+		Function : _Z3onePf
+        /*0000*/                   EXIT ;
+		..........
+Fatbin elf code:
+identifier = a.cu
+"""
+
+    class Done:
+        stdout = listing
+
+    monkeypatch.setattr(kernel_probe.subprocess, "run",
+                        lambda *a, **k: Done())
+    funcs = kernel_probe._sass_functions(tmp_path / "x.so")
+    assert sorted(funcs) == ["_Z3onePf", "_Z3twoPf"]
+    assert funcs["_Z3onePf"] == "/*0000*/                   EXIT ;"
+    assert funcs["_Z3twoPf"].count("\n") == 2 and "EXIT" in funcs["_Z3twoPf"]

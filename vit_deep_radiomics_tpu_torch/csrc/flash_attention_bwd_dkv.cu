@@ -242,15 +242,16 @@ int dkv_hopper_at(const vdr::k6h::Params& p, const CUtensorMap (&m)[4],
                    m[2], m[3], tbw);
 }
 
-// the instance of width p.kw among kKw, kKw + 8, ... kHopperMaxKw
+// the instance of width p.kw among kKw, kKw + 4, ... kHopperMaxKw
 template <int kKw>
 int dkv_hopper_kw(const vdr::k6h::Params& p, const CUtensorMap (&m)[4],
                   const CUtensorMap& tbw, int B, cudaStream_t stream) {
   if constexpr (kKw > vdr::k6b::kHopperMaxKw) {
     return vdr::k6b::kErrTerms;
   } else {
+    constexpr int kNext = kKw + vdr::k6b::kHopperKwStep;
     return p.kw == kKw ? dkv_hopper_at<true, kKw>(p, m, tbw, B, stream)
-                       : dkv_hopper_kw<kKw + 8>(p, m, tbw, B, stream);
+                       : dkv_hopper_kw<kNext>(p, m, tbw, B, stream);
   }
 }
 

@@ -303,15 +303,16 @@ int dq_hopper_at(const vdr::k6h::Params& p, const CUtensorMap (&m)[4], int B,
                    m[1], m[2], m[3]);
 }
 
-// the instance of width p.kw among kKw, kKw + 8, ... kHopperMaxKw
+// the instance of width p.kw among kKw, kKw + 4, ... kHopperMaxKw
 template <int kKw>
 int dq_hopper_kw(const vdr::k6h::Params& p, const CUtensorMap (&m)[4], int B,
                  cudaStream_t stream) {
   if constexpr (kKw > vdr::k6b::kHopperMaxKw) {
     return vdr::k6b::kErrTerms;
   } else {
+    constexpr int kNext = kKw + vdr::k6b::kHopperKwStep;
     return p.kw == kKw ? dq_hopper_at<true, kKw>(p, m, B, stream)
-                       : dq_hopper_kw<kKw + 8>(p, m, B, stream);
+                       : dq_hopper_kw<kNext>(p, m, B, stream);
   }
 }
 

@@ -42,8 +42,9 @@
 // (tests/test_torch_k6_bf16_shim.py), as does bwd_route, the choice
 // between the backward's bodies here and its TMA + wgmma bodies
 // (flash_trainable_hopper.cuh: no bias, or a key grid whose width is a
-// multiple of 8 from 16 to 128, every SAM ViT-B/16 global grid that
-// fast fine-tuning hands to K6), with the Hopper bodies' tiling.
+// multiple of 4 from 16 to 128, every SAM ViT-B/16 global grid that
+// fast fine-tuning hands to K6 from 576 px up), with the Hopper bodies'
+// tiling.
 #pragma once
 
 #include "flash_attention_core.cuh"
@@ -98,16 +99,18 @@ __host__ __device__ inline bool takes(bool has_bias, int kh, int kw) {
 
 // The body the bf16 backward (dq and dkv alike) runs for a call:
 // kRouteHopper, the TMA + wgmma bodies of flash_trainable_hopper.cuh (no
-// bias, or a key grid of whole 8-key chunks from 16 to kHopperMaxKw keys
-// wide and at most kHopperMaxKh rows, whose bias_h terms dq stages in one
-// table), else kRouteMma, the mma.sync bodies below, or kErrTerms for a
-// grid they refuse too. The forward keeps the mma.sync body whatever the
-// shape.
+// bias, or a key grid whose width is a multiple of 4 from 16 to
+// kHopperMaxKw keys, so that a row of fp32 bias_w is whole 16-byte units
+// as TMA needs, and of at most kHopperMaxKh rows, whose bias_h terms dq
+// stages in one table), else kRouteMma, the mma.sync bodies below, or
+// kErrTerms for a grid they refuse too. The forward keeps the mma.sync
+// body whatever the shape.
 constexpr int kRouteMma = 1, kRouteHopper = 2;
 constexpr int kHopperMaxKw = 128;
 constexpr int kHopperMaxKh = 128;
+constexpr int kHopperKwStep = 4;   // the widths built: 16, 20, ... 128
 __host__ __device__ constexpr bool hopper_kw(int kw) {
-  return kw % 8 == 0 && kw >= 16 && kw <= kHopperMaxKw;
+  return kw % kHopperKwStep == 0 && kw >= 16 && kw <= kHopperMaxKw;
 }
 __host__ __device__ inline int bwd_route(bool has_bias, int kh, int kw) {
   if (!has_bias || (hopper_kw(kw) && kh <= kHopperMaxKh))
@@ -119,14 +122,15 @@ __host__ __device__ inline int bwd_route(bool has_bias, int kh, int kw) {
 // that the CPU tests hold it without the card).
 // dq takes each grid row in hopper_dq_passes(kw) passes, pass u a key
 // tile of hopper_dq_tile(kw) keys (a k16 step multiple) from grid column
-// u * tile; the tile's columns past the row's end are masked. A pass of
+// u * tile; the tile's columns past the row's end are masked (per column
+// pair: at Kw 4 mod 8 a pass can end inside an 8-column chunk). A pass of
 // 64 live columns spilled its scores, dP, bias_w terms and dbias_w sums
 // (132-236 bytes), and a first pass with masked columns before a second
 // one serialized the wgmma pipeline (ptxas C7511), so one pass up to Kw 56
 // (16, 32, 48 or 64 keys: Kw 56 has 56 live in 64), else ceil(Kw / 48)
 // passes of at most 48 keys, every pass but the last whole: Kw 64 two of
-// 32, Kw 72-96 two of 48, Kw 104-128 three of 48. Calls with no bias take
-// 48 consecutive keys a tile.
+// 32, Kw 60 two of 32 (28 live in the second), Kw 68-96 two of 48, Kw
+// 100-128 three of 48. Calls with no bias take 48 consecutive keys a tile.
 constexpr int kHopperNoBiasTile = 48;
 __host__ __device__ constexpr int hopper_dq_passes(int kw) {
   return kw <= 56 ? 1 : (kw + 47) / 48;
@@ -137,19 +141,32 @@ __host__ __device__ constexpr int hopper_dq_tile(int kw) {
 }
 // dkv: the grid rows a block of 128 aligned keys spans, and the bf16 row of
 // the staged bias_w terms, whose 16-byte chunks lie an odd number apart so
-// that the 8 rows an ldmatrix reads fall in distinct banks.
+// that the 8 rows an ldmatrix reads fall in distinct banks. An 8-key block
+// of a thread's warp reads its keys' terms from one 16-byte chunk of a
+// query's row. At Kw 0 mod 8 the row holds the Kw terms once (padded by 8
+// where Kw / 8 is even) and a block starts at column key % Kw. At Kw 4
+// mod 8 a block starting at column Kw - 4 runs into the next grid row's
+// columns 0-3, and one starting at 4 mod 8 is not 16-byte aligned; there
+// the row holds the Kw terms twice (2 Kw columns: Kw / 4 chunks, odd) and
+// a block starts at column key % (2 Kw), a multiple of 8: in even grid rows
+// the first copy's column (a block at Kw - 4 reads on into the second
+// copy's 0-3), in odd ones the second copy's.
 __host__ __device__ constexpr int hopper_dkv_hrows(int kw) {
   return 127 / kw + 2;
 }
 __host__ __device__ constexpr int hopper_term_ld(int kw) {
-  return (kw / 8) % 2 ? kw : kw + 8;
+  return kw % 8 ? 2 * kw : (kw / 8) % 2 ? kw : kw + 8;
+}
+__host__ __device__ constexpr int hopper_term_period(int kw) {
+  return kw % 8 ? 2 * kw : kw;
 }
 // dkv's stage (kw 0: no bias): raw q, dO and Q^ (three 8 KB tiles), then
 // with a bias the tile's fp32 bias_w rows, their bf16 terms, and fp32 lse,
 // D and (bias) the bias_h terms of the block's grid rows, 64 queries each;
 // the stages are as many as fit beside the K and V tiles, at most
-// kHopperDkvMaxStages and at least 2 (Kw up to 56: 4; up to 96: 3; beyond:
-// 2).
+// kHopperDkvMaxStages and at least 2 (Kw 0 mod 8: 4 up to 56, 3 up to 96, 2
+// beyond; Kw 4 mod 8, whose doubled terms cost 128 Kw bytes more a stage:
+// 4 up to 44, 3 up to 76, 2 beyond).
 constexpr int kHopperDkvMaxStages = 4;
 constexpr int kHopperTile = 64 * 64 * 2;
 constexpr int kHopperSmemMax = 232448 - 256;   // 227 KB less the barriers

@@ -2,9 +2,10 @@
 // bias gradients, flash_attention_bwd_dq.cu) and dk/dv
 // (flash_attention_bwd_dkv.cu) for per-head bf16 q, k, v (B, H, S, D),
 // D = 64, with no bias or a decomposed fp32 bias on a key grid of Kh <= 128
-// rows whose width Kw is a multiple of 8 from 16 to 128 (SAM ViT-B/16's
-// global layers under fast fine-tuning: Kw 40 at 640 px, 48 at 768, 56 at
-// 896, 72, 80 and 96 at 1152, 1280 and 1536), kv_len or not.
+// rows whose width Kw is a multiple of 4 from 16 to 128 (SAM ViT-B/16's
+// global layers under fast fine-tuning: Kw 36, 40, 44, 48, 52, 56 and 60 at
+// 576, 640, ... 960 px, 72, 80 and 96 at 1152, 1280 and 1536), kv_len or
+// not.
 // k6b::bwd_route (flash_trainable_bf16.cuh) says which calls they take,
 // and the k6b::hopper_* functions there give their tiling; the others keep
 // the mma.sync bodies there.
@@ -40,7 +41,8 @@
 // The instance is built for the grid's width, so the columns a tile holds
 // past the row (Kw 40 in 48 keys: the next grid row's first keys, or TMA's
 // zeros past S) are masked to P = 0 at compile time and add nothing to dQ
-// += dS K. dS rounded in its fp32 registers is the register A operand of
+// += dS K; where a pass ends inside an 8-column chunk (Kw 4 mod 8) the
+// lanes of that chunk mask by their column pair. dS rounded in its fp32 registers is the register A operand of
 // that product; dQ of tile j-1 is issued with the scores of tile j, and
 // the warpgroups issue in turn.
 //
@@ -54,8 +56,11 @@
 // Q^ and the bf16 bias_w terms (exact: t(x) is a bf16 value) once per tile
 // for the whole block, half each, one tile ahead of their use where the
 // ring has three stages or more; ldmatrix.trans reads a key's terms for the
-// two queries a thread holds in one register (an 8-key block never wraps a
-// grid row: Kw is a multiple of 8). P^T and dS^T, rounded in registers,
+// two queries a thread holds in one register, at the 16-byte chunk of the
+// block's first key (k6b::hopper_term_ld: at Kw 4 mod 8 each query's terms
+// are staged twice over, so that a block that wraps a grid row, or starts
+// at 4 mod 8, reads 8 consecutive terms at an aligned column). P^T and
+// dS^T, rounded in registers,
 // are the A operands of dV += P^T dO and dK += dS^T q (the raw q; dk is
 // scaled at the end), issued with the next tile's scores.
 //
@@ -176,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kPasses = kBias ? k6b::hopper_dq_passes(kKw) : 1;
   constexpr int kNK = kBias ? k6b::hopper_dq_tile(kKw) : kKw;
   constexpr int kKTile = kNK * 64 * 2;   // a K or V tile
-  static_assert(kNK % 16 == 0 && kKw % 8 == 0, "k16 tiles, 8-key chunks");
+  static_assert(kNK % 16 == 0 && kKw % 4 == 0, "k16 tiles, 4-key pairs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kDqStages], empty[kDqStages], qbar;
   // the swizzled tiles need 1024-byte alignment in the shared window
@@ -247,7 +252,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   // this thread's bias_w terms (rows g, g + 8; columns 8i + 2c.. of the
   // pass) and dbias_w sums, the same columns in every tile of a pass; a
   // tile's columns past the pass's kCols (the next pass's or the next grid
-  // row's keys) are known at compile time: 8-column chunks at or past kCols
+  // row's keys) are known at compile time: 8-column chunks at or past
+  // kCols, and with kCols 4 mod 8 the upper half of the chunk it ends in,
+  // lanes c = 2, 3 (live(8i, kCols) for the pair 8i + 2c, 8i + 2c + 1);
+  // at Kw 0 mod 8 every pass ends on a chunk
+  auto live = [&](int chunk0, int cols) {
+    if constexpr (kKw % 8 == 0)
+      return chunk0 < cols;
+    else
+      return chunk0 + 8 <= cols || (chunk0 < cols && 2 * c < cols - chunk0);
+  };
   float bw[kNK / 2], dbw[kNK / 2];
 #pragma unroll
   for (int i = 0; i < kNK / 2; ++i) bw[i] = dbw[i] = 0.f;
@@ -259,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int half = 0; half < 2; ++half) {
         const int R = half ? R_hi : R_lo;
         float2 v = make_float2(0.f, 0.f);
-        if (8 * i < kCols && R < p.S) {
+        if (live(8 * i, kCols) && R < p.S) {
           v = *reinterpret_cast<const float2*>(
               p.bias_w + (head_row + R) * kKw +
               decltype(pass)::value * kNK + 8 * i + 2 * c);
@@ -276,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kNK / 8; ++i) {
       const int col = decltype(pass)::value * kNK + 8 * i + 2 * c;
-      if (8 * i < kCols) {
+      if (live(8 * i, kCols)) {
         if (R_lo < p.S)
           *reinterpret_cast<float2*>(p.dbw + (head_row + R_lo) * kKw + col) =
               make_float2(dbw[4 * i], dbw[4 * i + 1]);
@@ -333,8 +347,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 #pragma unroll
     for (int i = 0; i < kNK / 2; ++i)
-      s[i] = (i / 4) * 8 < kCols ? fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))
-                                 : 0.f;
+      s[i] = live((i / 4) * 8, kCols)
+                 ? fast_exp2(s[i] - ((i & 2) ? l_hi : l_lo))
+                 : 0.f;
     // keys at or past the visited count (kv_len; zero rows past S) P = 0,
     // on the tiles that reach it
     if (key0 + kCols > ks.n_keys) {
@@ -462,9 +477,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // its warp; queries 8i + 2c, 8i + 2c + 1): bias_h from the stage's [grid
 // row][query] table at the keys' rows hr_lo/hr_hi among the block's, bias_w
 // by ldmatrix.trans from the [query][kLd] bf16 terms at the 8-column chunks
-// col_lo/col_hi of the warp's two 8-key blocks (Kw is a multiple of 8: an
-// 8-key block never wraps a grid row). The sum is the forward's: s + (th +
-// tw).
+// col_lo/col_hi of the warp's two 8-key blocks (k6b::hopper_term_ld: the
+// chunk holds the block's 8 keys' terms, also where the block wraps a grid
+// row). The sum is the forward's: s + (th + tw).
 template <int kLd>
 __device__ __forceinline__ void add_bias(float (&s)[32], const float* th,
                                          uint32_t tw, int hr_lo, int hr_hi,
@@ -514,6 +529,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kTermOff = kBias ? k6b::hopper_term_off(kKw) : 0;
   constexpr int kTermLd = kBias ? k6b::hopper_term_ld(kKw) : 0;
   constexpr int kHRows = kBias ? k6b::hopper_dkv_hrows(kKw) : 0;
+  // a block's first term column is its first key mod kPeriod (Kw, or 2 Kw
+  // where the terms are staged twice)
+  constexpr int kPeriod = kBias ? k6b::hopper_term_period(kKw) : 1;
+  constexpr bool kTwice = kBias && kPeriod != kKw;
+  static_assert(!kBias || (kTermLd % 8 == 0 && (kTermLd / 8) % 2 == 1 &&
+                           kTermLd >= kPeriod),
+                "16-byte rows an odd number of chunks apart");
   static_assert(kStages >= 2, "a stage in use and one being filled");
   static_assert(kBias == (kKw > 0), "a grid width with a bias alone");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -617,8 +639,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the keys' grid rows among the block's and the warp's bias_w chunks
   const int hr_lo = kBias ? key_lo / kKw - kr0 : 0;
   const int hr_hi = kBias ? key_hi / kKw - kr0 : 0;
-  const int col_lo = kBias ? wkey % kKw : 0;
-  const int col_hi = kBias ? (wkey + 8) % kKw : 0;
+  const int col_lo = kBias ? wkey % kPeriod : 0;
+  const int col_hi = kBias ? (wkey + 8) % kPeriod : 0;
   const uint32_t k_tile = kv_addr + 2 * wg * kTile, v_tile = k_tile + kTile;
   auto stage = [&](int j) { return stages + (j % kStages) * kStageBytes; };
   auto stage_at = [&](int j) { return smem_u32(stage(j)); };
@@ -635,11 +657,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int k = threadIdx.x; k < 16 * kKw; k += kConsumers * 128) {
         const int q = k / (kKw / 4), col = (k % (kKw / 4)) * 4;
         const float4 v = raw[k];
+        const uint2 w = make_uint2(
+            pack_bf16(__fmul_rn(v.x, kLog2e), __fmul_rn(v.y, kLog2e)),
+            pack_bf16(__fmul_rn(v.z, kLog2e), __fmul_rn(v.w, kLog2e)));
         *reinterpret_cast<uint2*>(st + kTermOff + (q * kTermLd + col) * 2) =
-            make_uint2(pack_bf16(__fmul_rn(v.x, kLog2e),
-                                 __fmul_rn(v.y, kLog2e)),
-                       pack_bf16(__fmul_rn(v.z, kLog2e),
-                                 __fmul_rn(v.w, kLog2e)));
+            w;
+        if constexpr (kTwice)
+          *reinterpret_cast<uint2*>(st + kTermOff +
+                                    (q * kTermLd + kKw + col) * 2) = w;
       }
     }
     fence_proxy_async();
@@ -742,7 +767,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // 3-D map (kw columns, S rows, B·H heads) of the fp32 bias_w, boxes of
 // the 64 rows of a query tile, no swizzle (rows of kw * 4 bytes, a multiple
-// of 32); rows past S read as zeros.
+// of 16 for every width the Hopper bodies take); rows past S read as
+// zeros.
 inline bool bias_map(CUtensorMap* map, const float* ptr, int S, int heads,
                      int kw) {
   const EncodeTiled enc = encoder();

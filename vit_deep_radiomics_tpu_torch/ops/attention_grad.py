@@ -32,7 +32,7 @@ Kw)``, as in ``ops/attention.py``):
   ``csrc/flash_trainable_core.cuh``), bf16 calls the mma.sync bodies of
   ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias gradients),
   except the backward's calls with no bias or a key grid whose width is a
-  multiple of 8 from 16 to 128 (SAM @640 to @1536: Kw 40 to 96) of at
+  multiple of 4 from 16 to 128 (SAM @576 to @1536: Kw 36 to 96) of at
   most 128 rows, which run the TMA + wgmma bodies of
   ``csrc/flash_trainable_hopper.cuh``; :func:`flash_attention_route` says
   which body the forward runs, :func:`flash_attention_bwd_route` the
@@ -706,7 +706,7 @@ def flash_attention_bwd_route(q, k, v, bias_h=None, bias_w=None,
     ``"dkv"``) runs for these operands: ``"plain"`` on the CPU; on the card,
     as the dq source's route entry chooses (one choice for both),
     ``"tiled"`` (fp32), ``"hopper"`` (bf16 with no bias or a key grid
-    whose width is a multiple of 8 from 16 to 128, of at most 128 rows:
+    whose width is a multiple of 4 from 16 to 128, of at most 128 rows:
     the TMA + wgmma bodies) or ``"mma"`` (other bf16 grids: the mma.sync
     bodies). Raises where :func:`flash_attention_route` does."""
     if kernel not in ("dq", "dkv"):

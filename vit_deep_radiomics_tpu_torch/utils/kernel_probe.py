@@ -40,7 +40,10 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-768 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-640 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-896 PARENT CHANGE
-    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe gaps [--seeds 10]
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-576 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-960 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe gaps [--seeds 10] [--shape sam544_global]
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe sass [--source flash_attention_bwd_dq] PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path dinov2 PARENT CHANGE
 
@@ -109,6 +112,9 @@ rounding points (``k6_oracle_gaps``) over seeds at every bf16 shape of
 ``chip_smoke.py``'s phase 10, for the backward body the tree's route
 takes there, beside the plain versions' distance; one JSON line a shape
 and seed (``tests/k6_bf16_shim.py`` reads the same on the CPU).
+``sass`` builds kernel sources (default: the K6 backward's two) in two
+checkouts and says, kernel by kernel (``--match``, default the Hopper
+bodies), whether ``cuobjdump -sass`` lists the same code in both.
 ``pair`` runs two checkouts in turns (parent, change,
 change, parent), each in a fresh process: with ``--path extraction`` (the
 default) 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
@@ -143,12 +149,13 @@ kernels' ms in bf16 and the whole bf16 SDPA backward's at ``chip_smoke.py``'s
 of the forward's outputs (out, lse), which must not differ between the
 trees, and of the backward's (dq, both bias gradients, dk, dv), which
 change where the change gives the backward another body that sums in
-another order; with ``--path finetune-640`` or ``finetune-896`` the same
-for SAM ViT-B/16 `fast` fine-tuning at that size (B=2, 5 steps held to
-the launches of the backward body each tree's route names at its 40 x 40
-or 56 x 56 global grid, traced steps), then the three K6 bf16 kernels'
-ms at that grid beside the whole bf16 SDPA backward's and SHA-256s of
-their outputs;
+another order; with ``--path finetune-576``, ``finetune-640``,
+``finetune-896`` or ``finetune-960`` the same for SAM ViT-B/16 `fast`
+fine-tuning at that size (B=2, 5 steps held to the launches of the
+backward body each tree's route names at its 36 x 36, 40 x 40, 56 x 56 or
+60 x 60 global grid, traced steps), then the three K6 bf16 kernels' ms at
+that grid (``finetune-960``: also at @704's and @832's, 44 x 44 and 52 x
+52) beside the whole bf16 SDPA backward's and SHA-256s of their outputs;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
 a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
@@ -165,6 +172,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -525,7 +533,9 @@ _K5_SHAPES = ((2, 4096, 64, 64, None), (2, 1536, 0, 0, 1370),
               (1, 4096, 32, 128, None), (1, 16384, 128, 128, None))
 _K5_BWD_SHAPES = _K5_SHAPES[:3]
 _K6H_SHAPES = ((2, 2304, 48, 48, None), (2, 1600, 40, 40, None),
-               (2, 3136, 56, 56, None), (2, 1536, 0, 0, 1370))
+               (2, 3136, 56, 56, None), (2, 1536, 0, 0, 1370),
+               (2, 1296, 36, 36, None), (2, 2704, 52, 52, None),
+               (2, 3600, 60, 60, None))
 CALLS = {
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
            _k1_call),
@@ -742,8 +752,8 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
     """The K6 forward's or backward's variants (per-head (B, H, S, D)):
     fp32 (k6fwd, k6dq, k6dkv) at the `parity` path's shapes, ms and share of
     the fp32 CUDA-core peak (67 TFLOP/s, H100 SXM) on the keys scored; the
-    bf16 backward's Hopper bodies (k6hdq, k6hdkv) at SAM @768's, @640's and
-    @896's global and DINOv2's kv_len shapes, ms and share of the bf16 tensor-core peak (989
+    bf16 backward's Hopper bodies (k6hdq, k6hdkv) at SAM @768's, @640's,
+    @896's, @576's, @832's and @960's global and DINOv2's kv_len shapes, ms and share of the bf16 tensor-core peak (989
     TFLOP/s) beside the whole bf16 SDPA backward's ms. Each with its
     largest gap to the plain version."""
     import torch
@@ -948,14 +958,14 @@ def k6_oracle_gaps(torch, G, args, dout, fwd, bwd, scale,
 
 
 
-def _k6_gaps(seeds: int) -> None:
+def _k6_gaps(seeds: int, shapes=None) -> None:
     """Each K6 bf16 output's distance to the fp64 oracle of its rounding
     points (``k6_oracle_gaps``) over seeds at every shape of
-    ``chip_smoke.K6_BF16_SHAPES`` (12 heads; the backward on the body the
-    tree's route takes there: the Hopper dq and dkv at the SAM @640-@896
-    global grids and DINOv2's kv_len shape, the mma.sync ones at SAM @576's
-    36 x 36 grid and at 14 x 14 windows), beside the plain versions'
-    distance (fp32 products, and the backward's also on the tensor cores)
+    ``chip_smoke.K6_BF16_SHAPES`` (or those named in ``shapes``; 12
+    heads; the backward on the body the tree's route takes there: the
+    Hopper dq and dkv at the SAM @576-@896 global grids and DINOv2's kv_len
+    shape, the mma.sync ones at SAM @544's 34 x 34 grid and at 14 x 14
+    windows), beside the plain versions' distance (fp32 products, and the backward's also on the tensor cores)
     and the kernel's gap to the plain version in the rule's units
     (``chip_smoke.py``'s phase 10); one JSON line a shape and seed, after a
     line with the card and the fp32 matmul setting of the plain versions."""
@@ -973,6 +983,8 @@ def _k6_gaps(seeds: int) -> None:
                       "allow_tf32": torch.backends.cuda.matmul.allow_tf32}),
           flush=True)
     for tag, (b, s, kh, kw, kv_len) in cs.K6_BF16_SHAPES.items():
+        if shapes and tag not in shapes:
+            continue
         for seed in range(seeds):
             g = torch.Generator(device="cuda").manual_seed(100 + seed)
             args, dout = cs.k6_inputs(torch, g, torch.bfloat16, b, s, kh, kw,
@@ -1791,14 +1803,16 @@ for tag, shape in cs.K6_BF16_SHAPES.items():
     torch.cuda.empty_cache()
 '''
 
-# SAM ViT-B/16 `fast` fine-tuning at @SIZE@ px, B=2 (``--path finetune-640``,
-# ``finetune-896``): 5 steps through chip_smoke.py's finetune_phase, their
-# launches held to K1 and K4 8, the K6 bf16 forward 4 and dq and dkv 4
-# under the body the tree's route names at the global layers' grid, then
-# traced steps (wall, device ms, idle share, top device costs); then the
-# three K6 kernels' ms in bf16 at that grid (B=2, 12 heads, inputs from
-# chip_smoke.k6_inputs), the whole bf16 SDPA backward's, and SHA-256s of
-# the forward's and the backward's outputs
+# SAM ViT-B/16 `fast` fine-tuning at @SIZE@ px, B=2 (``--path finetune-576``,
+# ``finetune-640``, ``finetune-896``, ``finetune-960``): 5 steps through
+# chip_smoke.py's finetune_phase, their launches held to K1 and K4 8, the
+# K6 bf16 forward 4 and dq and dkv 4 under the body the tree's route names
+# at the global layers' grid, then traced steps (wall, device ms, idle
+# share, top device costs); then, at the global grid of each size of
+# @TIME_SIZES@ (the step's size last), the backward's body, the three K6
+# kernels' ms in bf16 (B=2, 12 heads, inputs from chip_smoke.k6_inputs),
+# the whole bf16 SDPA backward's, and SHA-256s of the forward's and the
+# backward's outputs
 _PAIR_FINETUNE_SIZE_CHILD = r'''
 import dataclasses, hashlib, sys
 sys.path.insert(0, ".")
@@ -1817,6 +1831,7 @@ shape = (2, grid * grid, grid, grid, None)
 g = torch.Generator(device="cuda").manual_seed(1)
 args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
 body = G.flash_attention_bwd_route(*args)
+del args, dout
 suffix = "_hopper" if body == "hopper" else "_bf16"
 per_step = {"fused_window_attention": 8, "window_attention_bwd": 8,
             "flash_attention_fwd_bf16": 4,
@@ -1837,25 +1852,41 @@ def sha(*outs):
     return h.hexdigest()[:16]
 
 
-b, s = shape[:2]
-out, lse = G.flash_attention_fwd(*args, scale=0.125)
-rest = (dout, lse, G.flash_attention_delta(out, dout))
-grads = (*G.flash_attention_bwd_dq(*args, *rest, scale=0.125),
-         *G.flash_attention_bwd_dkv(*args, *rest, scale=0.125))
-fwd, dq, dkv = (
-    cs.cuda_ms(torch, lambda fn=fn, a=a: fn(*a, scale=0.125), 10)
-    for fn, a in ((G.flash_attention_fwd, args),
-                  (G.flash_attention_bwd_dq, (*args, *rest)),
-                  (G.flash_attention_bwd_dkv, (*args, *rest))))
-q, k, v, bh, bw, kl = args
-mask = (bh[..., :, None] + bw[..., None, :]).reshape(b, 12, s, s).to(
-    torch.bfloat16)
-sdpa = cs._sdpa_ms(torch, q, k, v, mask, 0.125, dout, mask_grad=True)[0]
-print(f"k6 bf16 [@{size} global {shape}]: fwd ms {fwd:.4f}, dq ms {dq:.4f},"
-      f" dkv ms {dkv:.4f}, dq + dkv ms {dq + dkv:.4f}, sdpa backward ms "
-      f"{sdpa:.4f}; sha256 forward {sha(out, lse)} backward {sha(*grads)}",
-      flush=True)
+for at in @TIME_SIZES@:
+    grid = at // 16
+    shape = (2, grid * grid, grid, grid, None)
+    b, s = shape[:2]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
+    body = G.flash_attention_bwd_route(*args)
+    out, lse = G.flash_attention_fwd(*args, scale=0.125)
+    rest = (dout, lse, G.flash_attention_delta(out, dout))
+    grads = (*G.flash_attention_bwd_dq(*args, *rest, scale=0.125),
+             *G.flash_attention_bwd_dkv(*args, *rest, scale=0.125))
+    fwd, dq, dkv = (
+        cs.cuda_ms(torch, lambda fn=fn, a=a: fn(*a, scale=0.125), 10)
+        for fn, a in ((G.flash_attention_fwd, args),
+                      (G.flash_attention_bwd_dq, (*args, *rest)),
+                      (G.flash_attention_bwd_dkv, (*args, *rest))))
+    q, k, v, bh, bw, kl = args
+    mask = (bh[..., :, None] + bw[..., None, :]).reshape(b, 12, s, s).to(
+        torch.bfloat16)
+    sdpa = cs._sdpa_ms(torch, q, k, v, mask, 0.125, dout,
+                       mask_grad=True)[0]
+    print(f"k6 bf16 [@{at} global {shape}, backward {body}]: fwd ms "
+          f"{fwd:.4f}, dq ms {dq:.4f}, dkv ms {dkv:.4f}, dq + dkv ms "
+          f"{dq + dkv:.4f}, sdpa backward ms {sdpa:.4f}; sha256 forward "
+          f"{sha(out, lse)} backward {sha(*grads)}", flush=True)
+    del args, dout, out, lse, rest, grads, q, k, v, bh, bw, kl, mask
+    torch.cuda.empty_cache()
 '''
+
+
+def _finetune_child(size: int, time_sizes=None) -> str:
+    """The ``finetune-<size>`` child: the step at ``size`` px, then the K6
+    bf16 kernels at each of ``time_sizes`` (default: ``size`` alone)."""
+    return (_PAIR_FINETUNE_SIZE_CHILD.replace("@SIZE@", str(size))
+            .replace("@TIME_SIZES@", repr(tuple(time_sizes or (size,)))))
 
 # The frozen-backbone paths of K7 and K8: `fast`, `int8` and `fast` with
 # VDR_FUSED_MLP=1 SAM ViT-B/16 @1024 forwards at B=4 (host ms, mean of 5
@@ -1961,10 +1992,10 @@ _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
              "fast-2048": _PAIR_FAST2048_CHILD,
              "finetune-768": _PAIR_FINETUNE768_CHILD,
-             "finetune-640": _PAIR_FINETUNE_SIZE_CHILD.replace("@SIZE@",
-                                                               "640"),
-             "finetune-896": _PAIR_FINETUNE_SIZE_CHILD.replace("@SIZE@",
-                                                               "896"),
+             "finetune-576": _finetune_child(576),
+             "finetune-640": _finetune_child(640),
+             "finetune-896": _finetune_child(896),
+             "finetune-960": _finetune_child(960, (704, 832, 960)),
              "parity-forward": _PAIR_PARITY_FORWARD_CHILD,
              "frozen": _PAIR_FROZEN_CHILD, "dinov2": _PAIR_DINOV2_CHILD}
 
@@ -1988,6 +2019,59 @@ def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
             raise RuntimeError(f"{tag} run failed")
 
 
+_SASS_CHILD = r'''
+import sys
+sys.path.insert(0, ".")
+from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
+names = sys.argv[1:]
+cb.build_all(names)
+for n in names:
+    print(cb._target(n))
+'''
+
+
+def _sass_functions(so: Path) -> dict:
+    """{kernel: its SASS text} of one built library (``cuobjdump -sass``):
+    the lines between a kernel's ``Function :`` line and the row of dots
+    that ends its listing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif line.strip().startswith(".."):
+            name = None
+        elif name is not None:
+            funcs[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def _sass(parent: Path, change: Path, names, match: str) -> None:
+    """Each kernel whose name holds ``match`` in the sources ``names``,
+    built in both trees: the same SASS, another, or only in one tree."""
+    libs = {}
+    for tag, tree in (("parent", parent), ("change", change)):
+        res = subprocess.run([sys.executable, "-c", _SASS_CHILD, *names],
+                             cwd=tree, capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"{tag} build failed:\n{res.stderr[-2000:]}")
+        libs[tag] = res.stdout.split()
+    for name, a, b in zip(names, libs["parent"], libs["change"]):
+        fa, fb = (_sass_functions(Path(x)) for x in (a, b))
+        same = sorted(k for k in fa if match in k and fb.get(k) == fa[k])
+        other = sorted(k for k in fa if match in k and k in fb and
+                       fb[k] != fa[k])
+        only = sorted(k for k in set(fa) ^ set(fb) if match in k)
+        print(f"sass {name}: {len(same)} kernels the same, {len(other)} "
+              f"another, {len(only)} in one tree only")
+        for k in other + only:
+            print(f"  {'another' if k in other else 'one tree'}: {k}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1999,6 +2083,16 @@ def main(argv=None) -> int:
     gp = sub.add_parser("gaps", help="K6 bf16 outputs against the fp64 "
                         "oracle of their rounding points")
     gp.add_argument("--seeds", type=int, default=10)
+    gp.add_argument("--shape", action="append", dest="shapes",
+                    help="a K6_BF16_SHAPES name (repeatable; default all)")
+    sa = sub.add_parser("sass", help="parent vs change: the kernels' "
+                        "SASS, kernel by kernel")
+    sa.add_argument("--source", action="append", dest="sources",
+                    help="a csrc/*.cu name (repeatable)")
+    sa.add_argument("--match", default="hopper_kernel",
+                    help="compare the kernels whose names hold this")
+    sa.add_argument("parent", type=Path)
+    sa.add_argument("change", type=Path)
     pr = sub.add_parser("pair", help="parent vs change, end to end")
     pr.add_argument("--path", choices=sorted(_CHILDREN),
                     default="extraction")
@@ -2026,7 +2120,11 @@ def main(argv=None) -> int:
         else:
             _variants(args.kernel, args.out)
     elif args.cmd == "gaps":
-        _k6_gaps(args.seeds)
+        _k6_gaps(args.seeds, args.shapes)
+    elif args.cmd == "sass":
+        _sass(args.parent.resolve(), args.change.resolve(),
+              args.sources or ["flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkv"], args.match)
     else:
         _pair(args.parent.resolve(), args.change.resolve(), args.path)
     return 0
