@@ -14,10 +14,11 @@ Phases (each one fails the run with a non-zero exit):
    backward kernels and the register-tiled fp32 forward's kernels in K1's,
    K2's, K3's and the K6 forward's sources, K3's Hopper kernel and the
    Hopper kernels of the K5 forward and backward, K7 (its C 768 body and
-   its C 1536 cluster body) and K8, and K7's C 1536 loop instance
-   (registers, spills), which must show no spill (the K5 kernels, K7 and
-   K8 also no ``C75xx`` wgmma serialisation line), and the K6 bf16
-   forward's mma.sync kernel and K7's fp32 C 1536 loop instance no spill;
+   its C 1536 cluster body), K8 and K6's bf16 forward, dq and dkv (30
+   instances each), and K7's C 1536 loop instance (registers, spills),
+   which must show no spill (the Hopper kernels also no ``C75xx`` wgmma
+   serialisation line), and the K6 bf16 forward's mma.sync kernel and
+   K7's fp32 C 1536 loop instance no spill;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -69,11 +70,11 @@ Phases (each one fails the run with a non-zero exit):
     ViT-B/16's global shapes under ``fast`` at 768 px (2 x 12 x 2304, Kh =
     Kw = 48), 640 px (2 x 12 x 1600, Kh = Kw = 40), 896 px (2 x 12 x
     3136, Kh = Kw = 56) and 576 px (2 x 12 x 1296, Kh = Kw = 36: a width of
-    4 mod 8) and DINOv2's kv_len shape, where the forward takes its
-    mma.sync body and dq and dkv their Hopper bodies (TMA + wgmma), and at
-    SAM @544's global shape (2 x 12 x 1156, Kh = Kw = 34) and SAM's 14 x
-    14 windows (50 x 12 x 196), where all three take the mma.sync bodies;
-    the library bf16 SDPA with a bf16 ``attn_mask``;
+    4 mod 8) and DINOv2's kv_len shape, where all three take their Hopper
+    bodies (TMA + wgmma), and at SAM @544's global shape (2 x 12 x 1156,
+    Kh = Kw = 34) and SAM's 14 x 14 windows (50 x 12 x 196), where all
+    three take the mma.sync bodies; the library bf16 SDPA (forward, or the
+    whole backward) with a bf16 ``attn_mask`` at every shape;
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
@@ -212,26 +213,25 @@ Phases (each one fails the run with a non-zero exit):
 24. SAM ViT-B/16 ``fast`` fine-tuning at 768 px: ``FineTuner`` at full
     width and depth, batch 2, 5 steps (the main path of K6 in bf16: the 4
     global layers' 48 x 48 grid fits no fused kernel and takes K6's
-    mma.sync forward and the backward's Hopper bodies, the 8 windowed
-    layers K1 and K4 over 14 x 14 windows of the grid padded to 56; the
-    launches of every step held, each K6 backward launch counted under the
-    body its C entry reports: K1 8, K4 8, the K6 forward and the Hopper dq
-    and dkv 4, the mma.sync dq and dkv, K2 and the K5 kernels 0; ms per
-    step, peak memory, the loss of every step, parameters moved), then 3
-    traced steps (wall, device ms, idle share, top device costs);
+    Hopper bodies, the 8 windowed layers K1 and K4 over 14 x 14 windows of
+    the grid padded to 56; the launches of every step held, each K6 launch
+    counted under the body its C entry reports: K1 8, K4 8, the Hopper
+    forward, dq and dkv 4, the mma.sync bodies, K2 and the K5 kernels 0;
+    ms per step, peak memory, the loss of every step, parameters moved),
+    then 3 traced steps (wall, device ms, idle share, top device costs);
 25. SAM ViT-B/16 ``fast`` fine-tuning at 640 px, batch 2, 5 steps: the
-    4 global layers' 40 x 40 grid fits no fused kernel, so dq and dkv run
-    their Hopper bodies at Kw 40, the launches of every step held as in
-    phase 24 (the K6 forward and the Hopper dq and dkv 4, the mma.sync dq
-    and dkv 0), then 3 traced steps (device ms, idle share);
-26. the same at 896 px (a 56 x 56 grid: the Hopper dq and dkv at Kw 56),
-    5 steps and 3 traced ones (ms per step, device ms, idle share, peak
+    4 global layers' 40 x 40 grid fits no fused kernel, so the K6 forward,
+    dq and dkv run their Hopper bodies at Kw 40, the launches of every
+    step held as in phase 24 (the Hopper bodies 4 each, the mma.sync ones
+    0), then 3 traced steps (device ms, idle share);
+26. the same at 896 px (a 56 x 56 grid: the Hopper bodies at Kw 56), 5
+    steps and 3 traced ones (ms per step, device ms, idle share, peak
     memory);
-27. the same at 576 px (a 36 x 36 grid: the Hopper dq and dkv at Kw 36,
-    a width of 4 mod 8), 5 steps and 3 traced ones;
-28. the same at 544 px, 5 steps: the main path of the K6 bf16 backward's
-    mma.sync bodies (the 34 x 34 grid's Kw 34, not a multiple of 4, fits
-    no Hopper body), the mma.sync dq and dkv 4 a step and the Hopper ones
+27. the same at 576 px (a 36 x 36 grid: the Hopper bodies at Kw 36, a
+    width of 4 mod 8), 5 steps and 3 traced ones;
+28. the same at 544 px, 5 steps: the main path of the K6 bf16 mma.sync
+    bodies (the 34 x 34 grid's Kw 34, not a multiple of 4, fits no Hopper
+    body), the mma.sync forward, dq and dkv 4 a step and the Hopper ones
     0.
 
 Every phase runs at full width and depth. The line before the last is the
@@ -304,12 +304,12 @@ TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
 # no spill and no wgmma serialisation (ptxas's C75xx lines): the K5 forward
 # (K2's body with the lse store: no bias, Kw 64, and Kw 128 visiting the
 # even key tiles first), the K5 dq and dkv (no bias, Kw 64, Kw 128), K7
-# (the C 768 body and the C 1536 cluster body), K8 and K6's bf16 dq and dkv
-# (no bias, and one instance per key-grid width 16, 20, ... 128)
+# (the C 768 body and the C 1536 cluster body), K8 and K6's bf16 forward,
+# dq and dkv (no bias, and one instance per key-grid width 16, 20, ... 128)
 HOPPER_SOURCES = {"global_attention_fwd_lse": 3, "fused_ln_mlp_residual": 2,
                   "int8_matmul": 1, "global_attention_bwd_dq": 3,
-                  "global_attention_bwd_dkv": 3, "flash_attention_bwd_dq": 30,
-                  "flash_attention_bwd_dkv": 30}
+                  "global_attention_bwd_dkv": 3, "flash_attention_fwd": 30,
+                  "flash_attention_bwd_dq": 30, "flash_attention_bwd_dkv": 30}
 # The body each kernel's C entry takes at its path's shapes: K1 and K2 by
 # dtype at the extraction path's, the K5 forward at SAM's global layers
 # (Kw 64) and DINOv2's kv_len layers
@@ -374,11 +374,11 @@ K6_BF16_LSE_ATOL = 3e-6
 # `fast` (B=2, a 48 x 48 grid, Kh = Kw = 48), DINOv2 ViT-B/14 @518's kv_len
 # shape, SAM @640's (a 40 x 40 grid), @896's (56 x 56) and @576's (36 x
 # 36: a width of 4 mod 8) global layers, SAM @544's (34 x 34: the main
-# path of the mma.sync backward, whose Kw 34 no Hopper body takes), and
+# path of the mma.sync bodies, whose Kw 34 no Hopper body takes), and
 # SAM's 14 x 14 windows (50 windows, which no bf16 path gives K6: a second
-# check of the mma.sync backward); at all of them the forward takes its
-# mma.sync body, and the backward the body of
-# K6_BF16_BWD_BODY (rows and counters `<kernel>_hopper` or
+# check of the mma.sync bodies); at each the forward takes the body of
+# K6_BF16_FWD_BODY and the backward that of K6_BF16_BWD_BODY (one
+# predicate: the same body; rows and counters `<kernel>_hopper` or
 # `<kernel>_bf16`). A row's numbers are those of its main path's shape,
 # K6_BF16_MAIN_SHAPE.
 K6_BF16_SHAPES = {"sam768_global": (2, 2304, 48, 48, None),
@@ -392,7 +392,9 @@ K6_BF16_BWD_BODY = {"sam768_global": "hopper", "dinov2": "hopper",
                     "sam640_global": "hopper", "sam896_global": "hopper",
                     "sam576_global": "hopper", "sam544_global": "mma",
                     "window": "mma"}
-K6_BF16_MAIN_SHAPE = {"flash_attention_fwd_bf16": "sam768_global",
+K6_BF16_FWD_BODY = K6_BF16_BWD_BODY
+K6_BF16_MAIN_SHAPE = {"flash_attention_fwd_hopper": "sam768_global",
+                      "flash_attention_fwd_bf16": "sam544_global",
                       "flash_attention_bwd_dq_hopper": "sam768_global",
                       "flash_attention_bwd_dkv_hopper": "sam768_global",
                       "flash_attention_bwd_dq_bf16": "sam544_global",
@@ -400,29 +402,29 @@ K6_BF16_MAIN_SHAPE = {"flash_attention_fwd_bf16": "sam768_global",
 # Phase 24, SAM ViT-B/16 `fast` fine-tuning at 768 px, B=2: launches per
 # step (8 windowed layers of 14 x 14 windows over the 48 x 48 grid padded
 # to 56: K1 and K4; 4 global layers of 2304 tokens, which no fused kernel
-# takes: K6 in bf16, the forward counted under its bf16 build's name and
-# dq and dkv under their Hopper bodies'; every other counter 0, the fp32 K6
-# builds' and the backward's mma.sync bodies' included)
+# takes: K6 in bf16, the forward, dq and dkv counted under their Hopper
+# bodies' names; every other counter 0, the fp32 K6 builds' and the
+# mma.sync bodies' included)
 SAM768 = 768
 FAST768_STEP_LAUNCHES = {"fused_window_attention": 8,
                          "window_attention_bwd": 8,
-                         "flash_attention_fwd_bf16": 4,
+                         "flash_attention_fwd_hopper": 4,
                          "flash_attention_bwd_dq_hopper": 4,
                          "flash_attention_bwd_dkv_hopper": 4}
 # Phases 25 and 26, the same at 640 px (the 40 x 40 grid, windows over it
-# padded to 42) and at 896 px (56 x 56, windows exact): dq and dkv on their
-# Hopper bodies at Kw 40 and 56
+# padded to 42) and at 896 px (56 x 56, windows exact): the forward, dq and
+# dkv on their Hopper bodies at Kw 40 and 56
 SAM640, SAM896 = 640, 896
 FAST640_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
 FAST896_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
 # Phase 27, the same at 576 px: the 36 x 36 grid, whose Kw 36 (4 mod 8)
-# the Hopper bodies take with their doubled dkv terms and dq's column-pair
-# masks
+# the Hopper bodies take with their doubled dkv terms and the forward's and
+# dq's column-pair masks
 SAM576 = 576
 FAST576_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
 # Phase 28, the same at 544 px: the 34 x 34 grid (windows over it padded to
-# 42), whose Kw 34 (not a multiple of 4) no Hopper body takes, so dq and
-# dkv run and count under the mma.sync bodies
+# 42), whose Kw 34 (not a multiple of 4) no Hopper body takes, so the
+# forward, dq and dkv run and count under the mma.sync bodies
 SAM544 = 544
 FAST544_STEP_LAUNCHES = {"fused_window_attention": 8,
                          "window_attention_bwd": 8,
@@ -1667,9 +1669,8 @@ def k6_phase(torch, G, peaks, dtype="float32"):
     (SAM @768's, @640's, @896's, @576's and @544's global layers under
     ``fast``,
     DINOv2's kv_len shape and SAM's 14 x 14 windows, the fp32 bias; the
-    forward's mma.sync body, rows ``flash_attention_fwd_bf16``; the
-    backward's body of ``K6_BF16_BWD_BODY``, rows ``<kernel>_hopper`` or
-    ``<kernel>_bf16``).
+    forward's body of ``K6_BF16_FWD_BODY``, the backward's of
+    ``K6_BF16_BWD_BODY``, rows ``<kernel>_hopper`` or ``<kernel>_bf16``).
     Each launch is held to have counted under its row's name. A row's
     numbers are its main path's shape's (fp32: SAM's global shape; bf16:
     ``K6_BF16_MAIN_SHAPE``); ``by_shape`` holds every shape."""
@@ -1707,7 +1708,7 @@ def k6_phase(torch, G, peaks, dtype="float32"):
         C entry's route names, held to the one expected."""
         if name == "flash_attention_fwd":
             got = G.flash_attention_route(*args)
-            want = "mma" if bf16 else "tiled"
+            want = K6_BF16_FWD_BODY[shape] if bf16 else "tiled"
         else:
             got = G.flash_attention_bwd_route(*args,
                                               kernel=name.split("_")[-1])
@@ -1817,10 +1818,10 @@ def sam768_phase(torch, A, ft, vit):
     main path of K6 in bf16: its global layers' 48 x 48 grid fits no fused
     kernel, so they take the generic path. ``FT_STEPS`` steps whose
     launches are held to ``FAST768_STEP_LAUNCHES`` (K1 and K4 in the 8
-    windowed layers; in the 4 global ones the K6 forward under its bf16
-    build's counter and dq and dkv under the Hopper bodies', each counted
-    by the body its C entry reports it launched; K2, the K5 kernels and the
-    mma.sync backward 0), then traced steps (device ms, idle share).
+    windowed layers; in the 4 global ones the K6 forward, dq and dkv under
+    the Hopper bodies' counters, each counted by the body its C entry
+    reports it launched; K2, the K5 kernels and the mma.sync bodies 0),
+    then traced steps (device ms, idle share).
     Returns (launches, the steps' summary)."""
     cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM768)
     return finetune_phase(torch, A, ft, per_step=FAST768_STEP_LAUNCHES,
@@ -1830,7 +1831,8 @@ def sam768_phase(torch, A, ft, vit):
 def sam640_phase(torch, A, ft, vit):
     """Phase 25: SAM ViT-B/16 ``fast`` fine-tuning at 640 px, batch 2: its
     global layers' 40 x 40 grid fits no fused kernel, so they take K6 in
-    bf16, dq and dkv on their Hopper bodies at Kw 40 (48-key tiles).
+    bf16, the forward, dq and dkv on their Hopper bodies at Kw 40 (48-key
+    tiles).
     ``FT_STEPS`` steps whose launches are held to ``FAST640_STEP_LAUNCHES``,
     then traced steps. Returns (launches, the steps' summary)."""
     cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM640)
@@ -1842,7 +1844,8 @@ def sam896_phase(torch, A, ft, vit):
     """Phase 26: SAM ViT-B/16 ``fast`` fine-tuning at 896 px, batch 2: the
     8 windowed layers run K1 and K4 over 14 x 14 windows of the 56 x 56
     grid, the 4 global layers (3136 tokens, which no fused kernel takes)
-    the K6 bf16 forward and the Hopper dq and dkv at Kw 56 (64-key tiles).
+    the K6 bf16 forward, dq and dkv on their Hopper bodies at Kw 56
+    (64-key tiles).
     ``FT_STEPS`` steps whose launches are held to
     ``FAST896_STEP_LAUNCHES``, then traced steps. Returns (launches, the
     steps' summary)."""
@@ -1854,11 +1857,11 @@ def sam896_phase(torch, A, ft, vit):
 def sam576_phase(torch, A, ft, vit):
     """Phase 27: SAM ViT-B/16 ``fast`` fine-tuning at 576 px, batch 2: its
     global layers' 36 x 36 grid (1296 tokens) fits no fused kernel, so they
-    take K6 in bf16, dq and dkv on their Hopper bodies at Kw 36, a width of
-    4 mod 8 (48-key dq tiles with 36 live columns, dkv's terms staged
-    twice). ``FT_STEPS`` steps whose launches are held to
-    ``FAST576_STEP_LAUNCHES``, then traced steps. Returns (launches, the
-    steps' summary)."""
+    take K6 in bf16, the forward, dq and dkv on their Hopper bodies at Kw
+    36, a width of 4 mod 8 (48-key forward and dq tiles with 36 live
+    columns, dkv's terms staged twice). ``FT_STEPS`` steps whose launches
+    are held to ``FAST576_STEP_LAUNCHES``, then traced steps. Returns
+    (launches, the steps' summary)."""
     cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM576)
     return finetune_phase(torch, A, ft, per_step=FAST576_STEP_LAUNCHES,
                           backbone_cfg=cfg, trace=True)
@@ -1866,7 +1869,7 @@ def sam576_phase(torch, A, ft, vit):
 
 def sam544_phase(torch, A, ft, vit):
     """Phase 28: SAM ViT-B/16 ``fast`` fine-tuning at 544 px, batch 2, the
-    main path of the K6 bf16 backward's mma.sync bodies: its global layers'
+    main path of the K6 bf16 mma.sync bodies: its global layers'
     34 x 34 grid fits no fused kernel and no Hopper body (Kw 34 is not a
     multiple of 4). ``FT_STEPS`` steps whose launches are held to
     ``FAST544_STEP_LAUNCHES``. Returns the launches."""
@@ -4034,18 +4037,17 @@ def main() -> int:
     log("fine-tune SAM @576 fast: " + json.dumps(sam576))
     torch.cuda.empty_cache()
     sam544_counts = sam544_phase(torch, A, ft, vit)            # phase 28
-    # K6 in bf16: the @768 `fast` steps are the main path of the forward
-    # and the backward's Hopper bodies (also @640, @896 and @576), the
-    # @544 ones of the backward's mma.sync bodies
+    # K6 in bf16: the @768 `fast` steps are the main path of the Hopper
+    # bodies (also @640, @896 and @576), the @544 ones of the mma.sync
+    # bodies
     for kname, rec in k6_bf16_records.items():
-        at544 = kname.endswith(("_dq_bf16", "_dkv_bf16"))
+        at544 = kname.endswith("_bf16")
         rec["launches"] = (sam544_counts if at544 else sam768_counts)[kname]
         if not at544:
             rec["fast768_step"] = sam768
             rec["launches_sam640_fast"] = sam640_counts[kname]
             rec["launches_sam896_fast"] = sam896_counts[kname]
             rec["launches_sam576_fast"] = sam576_counts[kname]
-        if kname.endswith("_hopper"):
             rec["fast640_step"] = sam640
             rec["fast896_step"] = sam896
             rec["fast576_step"] = sam576

@@ -12,8 +12,8 @@ mma go through block-wide arrays between two barriers (the mma reads the
 bf16 A and B fragments of its warp's 32 lanes as the PTX ISA lays them out
 and sums the 16 exact products in fp32), and bf16 rounding is to nearest
 even. ``tests/test_torch_k6_bf16_shim.py`` holds the bodies to the plain
-versions through it, and the backward's shape predicates
-(``k6b::bwd_route`` and the Hopper bodies' tiling) to their closed forms.
+versions through it, and the shape predicates (``k6b::bwd_route``,
+``k6b::fwd_route`` and the Hopper bodies' tiling) to their closed forms.
 
 Run as a script it measures, over seeds, each output's gap to the oracle
 (``ops/attention_grad.py``'s plain versions with ``acc=torch.float64``:
@@ -240,6 +240,14 @@ extern "C" {
 int route(int has_bias, int kh, int kw) {
   return bwd_route(has_bias != 0, kh, kw);
 }
+int fwd(int has_bias, int kh, int kw) {
+  return fwd_route(has_bias != 0, kh, kw);
+}
+int fwd_tile(int kw) { return hopper_fwd_tile(kw); }
+int fwd_passes(int kw) { return hopper_fwd_passes(kw); }
+long long fwd_smem(int kw, int kh) {
+  return (long long)hopper_fwd_smem(kw, kh);
+}
 int tile(int kw) { return hopper_dq_tile(kw); }
 int passes(int kw) { return hopper_dq_passes(kw); }
 int hrows(int kw) { return hopper_dkv_hrows(kw); }
@@ -257,7 +265,7 @@ SCALE = D ** -0.5
 
 def build(out_dir: Path, kind: str = "bodies") -> ctypes.CDLL:
     """Build the bodies (``kind`` "bodies": ``run_fwd``, ``run_dq``,
-    ``run_dkv``) or the backward's shape predicates ("route") with g++ into
+    ``run_dkv``) or the shape predicates ("route") with g++ into
     ``out_dir`` and load them. Raises if there is no g++ or it fails."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -284,16 +292,18 @@ def build(out_dir: Path, kind: str = "bodies") -> ctypes.CDLL:
         for fn in (lib.run_fwd, lib.run_dq, lib.run_dkv):
             fn.restype = None
     else:
-        for name in ("route", "tile", "passes", "hrows", "term_ld",
-                     "term_period", "stages"):
+        for name in ("route", "fwd", "tile", "passes", "fwd_tile",
+                     "fwd_passes", "hrows", "term_ld", "term_period",
+                     "stages"):
             getattr(lib, name).restype = I
-        lib.route.argtypes = [I] * 3
-        for name in ("tile", "passes", "hrows", "term_ld", "term_period",
-                     "stages", "dkv_smem"):
+        lib.route.argtypes = lib.fwd.argtypes = [I] * 3
+        for name in ("tile", "passes", "fwd_tile", "fwd_passes", "hrows",
+                     "term_ld", "term_period", "stages", "dkv_smem"):
             getattr(lib, name).argtypes = [I]
         lib.dkv_smem.restype = ctypes.c_longlong
-        lib.dq_smem.argtypes = [I, I]
-        lib.dq_smem.restype = ctypes.c_longlong
+        for name in ("dq_smem", "fwd_smem"):
+            getattr(lib, name).argtypes = [I, I]
+            getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 

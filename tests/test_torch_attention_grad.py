@@ -479,6 +479,42 @@ def test_k6_bwd_counts_the_body_its_entry_reports(kernel, answer, counter,
     assert argc == [9 + n_out + 8 + bool(answer)]
 
 
+@pytest.mark.parametrize("answer,counter", [
+    (2, "_hopper"), (1, "_bf16"), (0, "")])
+def test_k6_fwd_counts_the_body_its_entry_reports(answer, counter,
+                                                  monkeypatch):
+    """The K6 forward wrapper counts each launch as the backward's do: in
+    bf16 under the body its C entry reports through its last argument
+    (``_hopper`` for the TMA + wgmma body, ``_bf16`` for the mma.sync
+    one), in fp32 (answer 0, no such argument) under the fp32 build's
+    name. The entry is a stand-in and meta tensors stand in for CUDA
+    ones."""
+    asked, argc = [], []
+
+    def entry_fn(*args):
+        argc.append(len(args))
+        if answer:
+            args[-1]._obj.value = answer
+        return 0
+
+    def load(name, argtypes, entry=None):
+        asked.append(entry)
+        return None, entry_fn
+
+    monkeypatch.setattr(G, "_load", load)
+    monkeypatch.setattr(G, "_stream", lambda t: None)
+    dt = torch.float32 if answer == 0 else torch.bfloat16
+    q = torch.empty(1, 2, 2304, 64, device="meta", dtype=dt)
+    bh, bw = (torch.empty(1, 2, 2304, 48, device="meta") for _ in range(2))
+    A.reset_launch_counts()
+    out, lse = G.flash_attention_fwd(q, q, q, bh, bw, None, scale=0.125)
+    assert {k: v for k, v in A.LAUNCHES.items() if v} == \
+        {"flash_attention_fwd" + counter: 1}
+    assert asked == ["vdr_flash_attention_fwd" + ("_bf16" if answer else "")]
+    assert argc == [8 + 8 + bool(answer)]
+    assert out.shape == q.shape and lse.shape == (1, 2, 2304)
+
+
 class _Built(Exception):
     """Raised in place of a kernel build: every check before it passed."""
 

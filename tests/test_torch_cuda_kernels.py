@@ -1179,31 +1179,30 @@ def _k6_bf16_steps():
 
 
 def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len, steps=None):
-    """K6 in bf16 at one shape: the forward (the mma.sync body) and the
-    backward (the body its route names, counted under that body's name)
-    against the plain versions, the backward fed the kernel forward's lse
-    and delta: K6_BF16_ATOL, or with ``steps`` (``_k6_bf16_steps()``)
-    that many bf16 steps of each output's largest |value|. Returns the
-    backward's body."""
+    """K6 in bf16 at one shape: the forward and the backward (the body
+    their routes name, one choice for all three, each counted under that
+    body's name) against the plain versions, the backward fed the kernel
+    forward's lse and delta: K6_BF16_ATOL, or with ``steps``
+    (``_k6_bf16_steps()``) that many bf16 steps of each output's largest
+    |value|. Returns the body."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     *args, dout = _k6_inputs(gen, b, heads, s, kh, kw, kv_len)
     args, dout = _k6_bf16(args, dout)
     scale = 64 ** -0.5
-    assert G.flash_attention_route(*args) == "mma"
     body = G.flash_attention_bwd_route(*args)
     assert body == G.flash_attention_bwd_route(*args, kernel="dkv")
+    assert G.flash_attention_route(*args) == body
     A.reset_launch_counts()
     out, lse = G.flash_attention_fwd(*args, scale=scale)
     rest = (dout, lse, G.flash_attention_delta(out, dout))
     got = (out, lse, *G.flash_attention_bwd_dq(*args, *rest, scale=scale),
            *G.flash_attention_bwd_dkv(*args, *rest, scale=scale))
     torch.cuda.synchronize()
-    # counted under the names of the bodies that ran: the forward's bf16
-    # build, the backward's Hopper or mma.sync bodies; none under the fp32
-    # builds' names
+    # counted under the names of the bodies that ran, the Hopper or
+    # mma.sync ones; none under the fp32 builds' names
     suffix = "_hopper" if body == "hopper" else "_bf16"
-    names = ("flash_attention_fwd_bf16", f"flash_attention_bwd_dq{suffix}",
+    names = (f"flash_attention_fwd{suffix}", f"flash_attention_bwd_dq{suffix}",
              f"flash_attention_bwd_dkv{suffix}")
     assert {n: c for n, c in A.LAUNCHES.items() if c} == \
         dict.fromkeys(names, 1)
@@ -1250,8 +1249,8 @@ def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len, steps=None):
 ], ids=["kw48", "sam768", "kw14", "kv_len", "kv_len_zero_row",
         "kv_len_1370", "bias_kv_len"])
 def test_flash_trainable_bf16_kernels_match_plain(gen, b, s, kh, kw, kv_len):
-    """Three heads: the backward takes the Hopper bodies with no bias or
-    Kw 48 and the mma.sync bodies at Kw 14 and 10."""
+    """Three heads: the forward and the backward take the Hopper bodies
+    with no bias or Kw 48 and the mma.sync bodies at Kw 14 and 10."""
     body = _k6_bf16_check(gen, b, 3, s, kh, kw, kv_len)
     assert body == ("mma" if kw in (10, 14) else "hopper")
 
@@ -1330,14 +1329,55 @@ def test_flash_trainable_bf16_hopper_bodies_at_every_grid_width(
                           steps=_k6_bf16_steps()) == "hopper"
 
 
+@pytest.mark.parametrize("b,s,kh,kw,kv_len", [
+    (1, 16, 1, 16, None),         # one grid row of 16 keys, 48 query rows
+                                  # of the block past S
+    (2, 80, 5, 16, None),         # 16-key tiles, S not a multiple of 64
+    (1, 36, 1, 36, None),         # 48-key tiles over 36 keys (4 mod 8: the
+                                  # column-pair mask)
+    (2, 180, 5, 36, None),
+    (1, 40, 1, 40, None),
+    (2, 200, 5, 40, None),        # a 48-key tile holds the next row's 8
+    (1, 48, 1, 48, None),
+    (2, 240, 5, 48, None),
+    (2, 1296, 36, 36, None),      # SAM @576's global grid
+    (2, 300, 5, 60, None),        # one 64-key pass over 60 keys (4 mod 8)
+    (1, 320, 5, 64, None),        # one pass of 64 live keys
+    (1, 360, 5, 72, None),        # two 48-key passes (24 live in the
+                                  # second)
+    (2, 130, 0, 0, [0, 70]),      # no bias: a kv_len 0 row, ragged S
+    (2, 200, 0, 0, [77, 200]),    # kv_len inside a 64-key tile
+    (1, 1000, 0, 0, None),        # no bias, no kv_len, ragged S
+    (2, 180, 5, 36, [0, 100]),    # a bias with a kv_len 0 row
+], ids=["kw16_kh1", "kw16_kh5", "kw36_kh1", "kw36_kh5", "kw40_kh1",
+        "kw40_kh5", "kw48_kh1", "kw48_kh5", "sam576", "kw60", "kw64",
+        "kw72", "kv_len_zero_row", "kv_len_77", "s1000",
+        "kw36_kv_len_zero_row"])
+def test_flash_trainable_bf16_hopper_forward_matches_plain(gen, b, s, kh, kw,
+                                                           kv_len):
+    """The forward's Hopper body (TMA + wgmma, dq's key tiles of a grid
+    row but one 64-key pass at Kw 60 and 64, an online softmax with the
+    exact running max) against the plain
+    forward at two heads, by phase 10's rule (the loosest of
+    K6_BF16_STEPS for out, K6_BF16_LSE_ATOL for the lse), and the Hopper
+    dq and dkv fed its lse within theirs; two runs give the same bits."""
+    from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
+
+    assert _k6_bf16_check(gen, b, 2, s, kh, kw, kv_len,
+                          steps=_k6_bf16_steps()) == "hopper"
+    *args, dout = _k6_inputs(gen, b, 2, s, kh, kw, kv_len)
+    args, _ = _k6_bf16(args, dout)
+    runs = [G.flash_attention_fwd(*args, scale=0.125) for _ in range(2)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
 def test_flash_trainable_bf16_route_and_determinism(gen):
-    """fp32 calls take the tiled bodies; bf16 forwards the mma.sync body and
-    bf16 backwards the Hopper bodies at Kw 48, 72 (two passes a grid row
-    in dq) and 36 (4 mod 8: the doubled dkv terms, dq's pair masks) and
-    the mma.sync ones at Kw 14; a bf16 bias grid of more than
-    320 terms is refused by the C entry;
-    two bf16 runs give the same bits on either backward body (no
-    atomics)."""
+    """fp32 calls take the tiled bodies; bf16 calls the Hopper bodies at
+    Kw 48, 72 (two passes a grid row) and 36 (4 mod 8: the doubled dkv
+    terms, the pair masks) and the mma.sync ones at Kw 14; a bf16 bias
+    grid of more than 320 terms is refused by the C entry;
+    two bf16 runs give the same bits on either body (no atomics)."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     for shape, body in (((2, 3, 192, 4, 48), "hopper"),
@@ -1348,7 +1388,7 @@ def test_flash_trainable_bf16_route_and_determinism(gen):
         assert G.flash_attention_route(*args) == "tiled"
         assert G.flash_attention_bwd_route(*args) == "tiled"
         args, dout = _k6_bf16(args, dout)
-        assert G.flash_attention_route(*args) == "mma"
+        assert G.flash_attention_route(*args) == body
         for kernel in ("dq", "dkv"):
             assert G.flash_attention_bwd_route(*args, kernel=kernel) == body
         runs = [_k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,

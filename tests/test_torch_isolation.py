@@ -79,15 +79,16 @@ def test_every_kernel_source_has_one_launch_counter():
     shared table: once the model is imported, the table names exactly the
     sources ``build_all()`` builds, and beside them the bf16 builds of
     K6's three sources, which count apart from their fp32 builds, and the
-    Hopper bodies of K6's bf16 backward, which count apart from its
-    mma.sync bodies."""
+    Hopper bodies of K6's bf16 forward and backward, which count apart
+    from their mma.sync bodies."""
     from vit_deep_radiomics_tpu_torch.models import vit  # noqa: F401
     from vit_deep_radiomics_tpu_torch.ops import _kernels, attention
     from vit_deep_radiomics_tpu_torch.utils import cuda_build
 
     k6_bf16 = [f"flash_attention_{k}_bf16"
                for k in ("fwd", "bwd_dq", "bwd_dkv")]
-    k6_hopper = [f"flash_attention_{k}_hopper" for k in ("bwd_dq", "bwd_dkv")]
+    k6_hopper = [f"flash_attention_{k}_hopper"
+                 for k in ("fwd", "bwd_dq", "bwd_dkv")]
     assert attention.LAUNCHES is _kernels.LAUNCHES
     assert sorted(_kernels.LAUNCHES) == sorted(
         [*cuda_build.KERNEL_SOURCES, *k6_bf16, *k6_hopper])

@@ -15,10 +15,11 @@ table and key table (a 48-wide key grid, whose 64-key tiles span two grid
 rows; a 7-wide one, ragged everywhere), the kv_len rules (a row with no
 valid key, a valid count inside a tile) and the fixed-order bias sums,
 without the card, through the stand-in of ``tests/k6_bf16_shim.py``. The
-same build holds the backward's route (``k6b::bwd_route``) and the Hopper
-bodies' tiling (``k6b::hopper_*``) to their closed forms. The card's own
-checks are in ``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``
-phase 10.
+same build holds the routes (``k6b::bwd_route``, and ``k6b::fwd_route``,
+which ``ops/attention_grad.py::flash_attention_route`` reads through the
+forward's C entry) and the Hopper bodies' tiling (``k6b::hopper_*``) to
+their closed forms. The card's own checks are in
+``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py`` phase 10.
 
 Both sides are given the same bf16 inputs and, for the backward, the same
 lse and delta (the plain forward's). The outputs are bf16 on both sides
@@ -60,17 +61,17 @@ def shim(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def route_lib(tmp_path_factory):
-    """The bf16 backward's shape predicate (``k6b::bwd_route``) and the
-    Hopper bodies' tiling (``k6b::hopper_*``) built alone under the same
-    stand-in."""
+    """The bf16 shape predicates (``k6b::bwd_route``, ``k6b::fwd_route``)
+    and the Hopper bodies' tiling (``k6b::hopper_*``) built alone under the
+    same stand-in."""
     try:
         return build(tmp_path_factory.mktemp("k6_bf16_route"), "route")
     except FileNotFoundError as exc:
         pytest.skip(str(exc))
 
 
-# (has_bias, Kh, Kw) -> the code of the body the bf16 backward runs: 2 the
-# Hopper bodies (TMA + wgmma), 1 the mma.sync bodies, -2 refused
+# (has_bias, Kh, Kw) -> the code of the body the bf16 backward and forward
+# run: 2 the Hopper bodies (TMA + wgmma), 1 the mma.sync bodies, -2 refused
 ROUTES = {"sam768": ((1, 48, 48), 2),
           "kw48_kh5": ((1, 5, 48), 2),
           "kw48_kh128": ((1, 128, 48), 2),
@@ -117,6 +118,68 @@ def test_bwd_route_takes_the_hopper_bodies_at_kw48(route_lib, case):
     terms are refused."""
     args, want = ROUTES[case]
     assert route_lib.route(*args) == want
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_fwd_route_is_the_bwd_route(route_lib, case):
+    """The forward takes its Hopper body exactly where the backward takes
+    its Hopper bodies (one predicate: the forward's lse is the residual
+    those bodies rebuild their scores against), its mma.sync body where
+    they take theirs, and refuses what they refuse."""
+    args, want = ROUTES[case]
+    assert route_lib.fwd(*args) == want == route_lib.route(*args)
+
+
+class _FwdSource:
+    """A stand-in for the forward's library (``csrc/flash_attention_fwd.cu``)
+    whose route entry ``vdr_flash_attention_route`` answers as the C one:
+    -1 for a head dim other than 64, 0 for fp32, else ``k6b::fwd_route``
+    from the g++ build."""
+
+    def __init__(self, route_lib):
+        self.route_lib = route_lib
+
+    def vdr_flash_attention_route(self, dtype, d, has_bias, kh, kw):
+        if d != 64:
+            return -1
+        return 0 if dtype == 0 else self.route_lib.fwd(has_bias, kh, kw)
+
+    @staticmethod
+    def vdr_error_string(rc):
+        return b"bias grid of more than 320 terms (Kh + Kw) in bf16"
+
+    def load(self, name, argtypes, entry=None):
+        assert name == "flash_attention_fwd"
+        return self, getattr(self, entry)
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_flash_attention_route_names_the_fwd_body(route_lib, case,
+                                                   monkeypatch):
+    """``flash_attention_route`` names the body the forward's C entry
+    reports for bf16 operands on the card: "hopper" for code 2, "mma" for
+    code 1, and raises for a refused grid; fp32 operands name "tiled".
+    Meta tensors stand in for CUDA ones, the g++ build of
+    ``k6b::fwd_route`` for the entry."""
+    (has_bias, kh, kw), want = ROUTES[case]
+    monkeypatch.setattr(G, "_load", _FwdSource(route_lib).load)
+    s = kh * kw if has_bias else 256
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    q = meta(1, 1, s, D)
+    bias = ((meta(1, 1, s, kh, dtype=torch.float32),
+             meta(1, 1, s, kw, dtype=torch.float32)) if has_bias
+            else (None, None))
+    if want < 0:
+        with pytest.raises(RuntimeError, match="320 terms"):
+            G.flash_attention_route(q, q, q, *bias)
+    else:
+        assert G.flash_attention_route(q, q, q, *bias) == \
+            {2: "hopper", 1: "mma"}[want]
+    q32 = q.float()
+    assert G.flash_attention_route(q32, q32, q32, *bias) == "tiled"
 
 
 HOPPER_KWS = range(16, 129, 4)
@@ -184,6 +247,25 @@ def test_hopper_tiling_holds_its_closed_form(route_lib, kw):
     limit = 232448
     assert route_lib.dkv_smem(kw) <= limit
     assert route_lib.dq_smem(kw, 128) <= limit
+
+
+@pytest.mark.parametrize("kw", HOPPER_KWS)
+def test_hopper_fwd_tiling_is_dqs(route_lib, kw):
+    """The forward's Hopper body walks dq's key tiles (a grid row in the
+    same passes of the same tile), except at Kw 60 and 64, where it takes
+    the row in one pass of 64 keys (dq two of 32: with no dP and no dq
+    accumulator 64 live columns fit); its shared memory (the q tiles, a
+    ring of 6 K/V stages of the tile, the bias_h table of 128 grid rows)
+    fits in 227 KB at every width and with no bias."""
+    if kw in (60, 64):
+        assert (route_lib.fwd_passes(kw), route_lib.fwd_tile(kw)) == (1, 64)
+    else:
+        assert route_lib.fwd_passes(kw) == route_lib.passes(kw)
+        assert route_lib.fwd_tile(kw) == route_lib.tile(kw)
+    tile = route_lib.fwd_tile(kw)
+    want = 1024 + 2 * 8192 + 2 * 6 * tile * 128 + 128 * 129 * 4
+    assert route_lib.fwd_smem(kw, 128) == want <= 232448
+    assert route_lib.fwd_smem(0, 0) == 1024 + 2 * 8192 + 2 * 6 * 64 * 128
 
 
 def _inputs(case):

@@ -35,9 +35,16 @@
 // written over the tile's K (70 KB of shared memory at Kw 64: three blocks
 // an SM); each thread scores a 4 x 4 micro-tile and accumulates a 4 x 8
 // tile of O. No atomics: two runs give the same bits.
+//
+// bf16 calls take the TMA + wgmma body of flash_trainable_hopper.cuh
+// (k6h::fwd_hopper_kernel: no bias, or a key grid whose width is a multiple
+// of 4 from 16 to 128 of at most 128 rows, as the backward's Hopper bodies;
+// one instance per width) or, on other grids, the mma.sync body of
+// flash_trainable_bf16.cuh; vdr_flash_attention_route says which.
 
 #include "f32_tiled_forward.cuh"
 #include "flash_trainable_bf16.cuh"
+#include "flash_trainable_hopper.cuh"
 
 namespace {
 
@@ -79,6 +86,53 @@ __global__ void __launch_bounds__(vdr::k6b::NT)
                     smem_mma);
 }
 
+// bf16 with no bias or a key grid the Hopper bodies take: the forward
+// built for the grid's width (with no bias, tiles of
+// k6b::kHopperFwdNoBiasTile consecutive keys)
+template <bool kBias, int kKw>
+int fwd_hopper_at(const vdr::k6h::Params& p, const CUtensorMap (&m)[3],
+                  int B, cudaStream_t stream) {
+  namespace h = vdr::k6h;
+  return h::launch<h::kFwdThreads>(
+      h::fwd_hopper_kernel<kBias, kKw>,
+      vdr::k6b::hopper_fwd_smem(kBias ? kKw : 0, p.kh),
+      (p.S + h::kFwdRows - 1) / h::kFwdRows, B, p, stream, m[0], m[1], m[2]);
+}
+
+// the instance of width p.kw among kKw, kKw + 4, ... kHopperMaxKw
+template <int kKw>
+int fwd_hopper_kw(const vdr::k6h::Params& p, const CUtensorMap (&m)[3],
+                  int B, cudaStream_t stream) {
+  if constexpr (kKw > vdr::k6b::kHopperMaxKw) {
+    return vdr::k6b::kErrTerms;
+  } else {
+    constexpr int kNext = kKw + vdr::k6b::kHopperKwStep;
+    return p.kw == kKw ? fwd_hopper_at<true, kKw>(p, m, B, stream)
+                       : fwd_hopper_kw<kNext>(p, m, B, stream);
+  }
+}
+
+// q (64-row boxes), k and v (boxes of the key tile's rows) over (64
+// columns, S rows, B·H heads)
+int fwd_hopper(const void* q, const void* k, const void* v,
+               const vdr::k6h::Params& p, int B, cudaStream_t stream) {
+  namespace h = vdr::k6h;
+  using vdr::sm90::tensor_map_3d;
+  const bool bias = p.bias_h != nullptr;
+  const int tile = bias ? vdr::k6b::hopper_fwd_tile(p.kw)
+                        : vdr::k6b::kHopperFwdNoBiasTile;
+  const int heads = B * p.H;
+  CUtensorMap m[3];
+  if (!tensor_map_3d(&m[0], q, 64, p.S, heads, 64) ||
+      !tensor_map_3d(&m[1], k, 64, p.S, heads, tile) ||
+      !tensor_map_3d(&m[2], v, 64, p.S, heads, tile))
+    return h::kErrTensorMap;
+  if (!bias)
+    return fwd_hopper_at<false, vdr::k6b::kHopperFwdNoBiasTile>(p, m, B,
+                                                                stream);
+  return fwd_hopper_kw<16>(p, m, B, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -113,18 +167,39 @@ int vdr_flash_attention_fwd(const float* q, const float* k, const float* v,
                            : launch_tiled<false>(p, stream);
 }
 
-// bf16 q, k, v and out; fp32 bias, lse. Returns 0 on success, a cudaError_t
-// after a failed attribute call or launch, -1 for a head dim other than 64,
-// or -2 for a bias grid of more than vdr::k6b::kMaxTerms terms.
+// bf16 q, k, v and out; fp32 bias, lse: the Hopper body of
+// flash_trainable_hopper.cuh or the mma.sync one, as
+// vdr_flash_attention_route says; the code of the body launched is written
+// to *body unless it is null. Returns 0 on success, a cudaError_t after a
+// failed attribute call or launch, -1 for a head dim other than 64, -2 for
+// a bias grid of more than vdr::k6b::kMaxTerms terms, or -3 when a TMA
+// descriptor cannot be made.
 int vdr_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                  const float* bias_h, const float* bias_w,
                                  const int* kv_len, void* out, float* lse,
                                  int B, int H, int S, int D, int kh, int kw,
-                                 float scale, void* stream) {
+                                 float scale, void* stream, int* body) {
   using vdr::k6b::bf16;
   if (D != vdr::k6b::D) return -1;
   const bool bias = bias_h != nullptr;
-  if (!vdr::k6b::takes(bias, kh, kw)) return vdr::k6b::kErrTerms;
+  const int route = vdr::k6b::fwd_route(bias, kh, kw);
+  if (route < 0) return route;
+  if (body != nullptr) *body = route;
+  if (route == vdr::k6b::kRouteHopper) {
+    vdr::k6h::Params hp{};
+    hp.bias_h = bias_h;
+    hp.bias_w = bias_w;
+    hp.kv_len = kv_len;
+    hp.out = static_cast<bf16*>(out);
+    hp.lse_out = lse;
+    hp.H = H;
+    hp.S = S;
+    hp.kh = bias ? kh : 0;
+    hp.kw = bias ? kw : 0;
+    hp.scale_log2 = vdr::k6b::scale_log2_bf16(scale);
+    hp.scale = scale;
+    return fwd_hopper(q, k, v, hp, B, static_cast<cudaStream_t>(stream));
+  }
   vdr::k6b::Params p{};
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -146,15 +221,15 @@ int vdr_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
 }
 
 // The body the K6 forward runs for a call (dtype 0 fp32, 1 bf16): 0 the
-// register-tiled CUDA-core body (fp32), 1 the mma.sync body (bf16); -1 for
-// a head dim other than 64, -2 for a bf16 bias grid of more than
-// vdr::k6b::kMaxTerms terms. The backward's is
+// register-tiled CUDA-core body (fp32), 1 the mma.sync body, 2 the Hopper
+// body (bf16, k6b::fwd_route); -1 for a head dim other than 64, -2 for a
+// bf16 bias grid of more than vdr::k6b::kMaxTerms terms. The backward's is
 // vdr_flash_attention_bwd_route (flash_attention_bwd_dq.cu).
 int vdr_flash_attention_route(int dtype, int D, int has_bias, int kh,
                               int kw) {
   if (D != vdr::k6::D) return -1;
   if (dtype == 0) return 0;
-  return vdr::k6b::takes(has_bias != 0, kh, kw) ? 1 : vdr::k6b::kErrTerms;
+  return vdr::k6b::fwd_route(has_bias != 0, kh, kw);
 }
 
 }  // extern "C"

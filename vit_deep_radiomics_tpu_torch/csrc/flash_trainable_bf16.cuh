@@ -39,8 +39,8 @@
 // the warp's mma (vdr::mma_bf16_16816 of flash_attention_core.cuh), with
 // control flow uniform over the block around every mma and shuffle, so the
 // bodies also run on the CPU under a g++ stand-in for those
-// (tests/test_torch_k6_bf16_shim.py), as does bwd_route, the choice
-// between the backward's bodies here and its TMA + wgmma bodies
+// (tests/test_torch_k6_bf16_shim.py), as do bwd_route and fwd_route, the
+// choice between the bodies here and the TMA + wgmma bodies
 // (flash_trainable_hopper.cuh: no bias, or a key grid whose width is a
 // multiple of 4 from 16 to 128, every SAM ViT-B/16 global grid that
 // fast fine-tuning hands to K6 from 576 px up), with the Hopper bodies'
@@ -103,8 +103,8 @@ __host__ __device__ inline bool takes(bool has_bias, int kh, int kw) {
 // kHopperMaxKw keys, so that a row of fp32 bias_w is whole 16-byte units
 // as TMA needs, and of at most kHopperMaxKh rows, whose bias_h terms dq
 // stages in one table), else kRouteMma, the mma.sync bodies below, or
-// kErrTerms for a grid they refuse too. The forward keeps the mma.sync
-// body whatever the shape.
+// kErrTerms for a grid they refuse too. The forward takes the same
+// choice (fwd_route) between its Hopper body and its mma.sync one.
 constexpr int kRouteMma = 1, kRouteHopper = 2;
 constexpr int kHopperMaxKw = 128;
 constexpr int kHopperMaxKh = 128;
@@ -116,6 +116,9 @@ __host__ __device__ inline int bwd_route(bool has_bias, int kh, int kw) {
   if (!has_bias || (hopper_kw(kw) && kh <= kHopperMaxKh))
     return kRouteHopper;
   return takes(has_bias, kh, kw) ? kRouteMma : kErrTerms;
+}
+__host__ __device__ inline int fwd_route(bool has_bias, int kh, int kw) {
+  return bwd_route(has_bias, kh, kw);
 }
 
 // The Hopper bodies' tiling of a key grid kw wide (with a bias; here so
@@ -202,6 +205,33 @@ __host__ __device__ constexpr size_t hopper_dq_smem(int kw, int kh) {
   return 1024 + (size_t)4 * kHopperTile +
          (size_t)2 * kHopperDqStages * tile * 128 +
          (size_t)kh * kHopperBiasLd * sizeof(float);
+}
+
+// The forward: kHopperFwdConsumers consumer warpgroups of 64 query rows,
+// whose Q^ lives in registers once its tiles have arrived, a ring of
+// kHopperFwdStages K/V tiles, and the [grid row][query] bias_h table. Its
+// key tile is dq's (a grid row in hopper_fwd_passes passes of
+// hopper_fwd_tile keys), except that it takes a grid row in one pass up to
+// Kw kHopperFwdOnePass: with no dP and no dq accumulator a pass of 64 live
+// columns fits its 168 registers, and at Kw 60 one 64-key pass ran 16%
+// faster than dq's two of 32 (kernel_probe variants k6hfwd). With no bias,
+// kHopperFwdNoBiasTile consecutive keys.
+constexpr int kHopperFwdConsumers = 2;
+constexpr int kHopperFwdStages = 6;
+constexpr int kHopperFwdOnePass = 64;
+constexpr int kHopperFwdNoBiasTile = 64;
+__host__ __device__ constexpr int hopper_fwd_passes(int kw) {
+  return kw <= kHopperFwdOnePass ? 1 : (kw + 47) / 48;
+}
+__host__ __device__ constexpr int hopper_fwd_tile(int kw) {
+  return ((kw + hopper_fwd_passes(kw) - 1) / hopper_fwd_passes(kw) + 15) /
+         16 * 16;
+}
+__host__ __device__ constexpr size_t hopper_fwd_smem(int kw, int kh) {
+  const int tile = kw ? hopper_fwd_tile(kw) : kHopperFwdNoBiasTile;
+  return 1024 + (size_t)kHopperFwdConsumers * kHopperTile +
+         (size_t)2 * kHopperFwdStages * tile * 128 +
+         (size_t)kh * (64 * kHopperFwdConsumers + 1) * sizeof(float);
 }
 
 // Shared memory of each body (bytes), `terms` = kh + kw with a bias, else 0.

@@ -1,18 +1,20 @@
-// K6's bf16 backward on Hopper: the TMA + wgmma bodies of dq (with both
-// bias gradients, flash_attention_bwd_dq.cu) and dk/dv
-// (flash_attention_bwd_dkv.cu) for per-head bf16 q, k, v (B, H, S, D),
+// K6 in bf16 on Hopper: the TMA + wgmma bodies of the forward with the lse
+// residual (flash_attention_fwd.cu), dq (with both bias gradients,
+// flash_attention_bwd_dq.cu) and dk/dv (flash_attention_bwd_dkv.cu) for
+// per-head bf16 q, k, v (B, H, S, D),
 // D = 64, with no bias or a decomposed fp32 bias on a key grid of Kh <= 128
 // rows whose width Kw is a multiple of 4 from 16 to 128 (SAM ViT-B/16's
 // global layers under fast fine-tuning: Kw 36, 40, 44, 48, 52, 56 and 60 at
 // 576, 640, ... 960 px, 72, 80 and 96 at 1152, 1280 and 1536), kv_len or
 // not.
-// k6b::bwd_route (flash_trainable_bf16.cuh) says which calls they take,
-// and the k6b::hopper_* functions there give their tiling; the others keep
-// the mma.sync bodies there.
+// k6b::bwd_route and k6b::fwd_route (flash_trainable_bf16.cuh, one
+// predicate) say which calls they take, and the k6b::hopper_* functions
+// there give their tiling; the others keep the mma.sync bodies there.
 //
-// Replaces: vit_deep_radiomics_tpu/ops/attention_grad.py::_bwd_dq_kernel
-// and ::_bwd_dkv_kernel (flash_attention_trainable's backward, Pallas TPU
-// kernels), at the rounding points of flash_trainable_bf16.cuh's header:
+// Replaces: vit_deep_radiomics_tpu/ops/attention_grad.py::_fwd_kernel,
+// ::_bwd_dq_kernel and ::_bwd_dkv_kernel (flash_attention_trainable's
+// forward and backward, Pallas TPU kernels), at the rounding points of
+// flash_trainable_bf16.cuh's header:
 // Q^ = bf16(q * bf16(D^-1/2 log2 e)), each bias term t(x) = bf16(x log2 e)
 // and a key's two terms added in fp32 before they join the score, keys at
 // or past kv_len at -1e30 (a kv_len 0 row: every key, so P = 1), P =
@@ -64,6 +66,21 @@
 // are the A operands of dV += P^T dO and dK += dS^T q (the raw q; dk is
 // scaled at the end), issued with the next tile's scores.
 //
+// The forward, query-major like dq (k6h::fwd_hopper_kernel): 4 S^2 D H B
+// FLOP (SAM @768: 33 GFLOP, 0.033 ms at the bf16 peak) against 4 S D H B
+// bf16 words, so compute-bound as well. One producer thread keeps K and V
+// tiles in flight as dq does, in dq's key tiles but one pass a grid row up
+// to Kw 64 (k6b::hopper_fwd_tile, hopper_fwd_passes: with no bias 64
+// consecutive keys); two consumer warpgroups own 64 query rows each, Q^
+// formed once in the register A fragments of S = Q^ K^T (the same k16
+// chain from zero as dq's, so the backward rebuilds the forward's scores),
+// the bias as dq adds it, the columns past a pass and the keys at or past
+// the visited count at -2e30 (a kv_len 0 row: every key at -1e30, as JAX),
+// an online softmax with the exact running max (P = exp2(s - m) rounded to
+// bf16 in its registers is the A operand of O += P V, the unrounded P
+// summed into l); the QK^T of tile j is issued with the PV of tile j-1 and
+// the warpgroups issue in turn. lse = m + log2 l, O / l rounded to bf16.
+//
 // Every output element is written once by one thread after sums in a fixed
 // order: no atomics, the same bits on every run.
 #pragma once
@@ -113,6 +130,8 @@ struct Params {
   int H, S, kh, kw;     // kh, kw: the key grid (bias), else 0
   float scale_log2;     // bf16(D^-1/2 log2 e): Q^ = bf16(q * scale_log2)
   float scale;          // D^-1/2
+  bf16* out;            // (B, H, S, D)  forward
+  float* lse_out;       // (B, H, S)     forward: log2 log-sum-exp
 };
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
@@ -762,6 +781,304 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The forward with the lse residual: 64 query rows of one (batch, head) a
+// consumer warpgroup, on a key grid kKw keys wide (no bias: tiles of kKw
+// consecutive keys)
+// ---------------------------------------------------------------------------
+constexpr int kFwdConsumers = k6b::kHopperFwdConsumers;
+constexpr int kFwdThreads = 128 * (kFwdConsumers + 1);
+constexpr int kFwdConsumerRegs = k5h::consumer_regs(kFwdConsumers);
+constexpr int kFwdStages = k6b::kHopperFwdStages;   // K/V ring depth
+constexpr int kFwdRows = 64 * kFwdConsumers;         // query rows a block
+constexpr int kFwdBiasLd = kFwdRows + 1;             // bias_h table row
+
+template <bool kBias, int kKw>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const Params p) {
+  // a grid row in kPasses key tiles of kNK keys, pass u from grid column
+  // u * kNK (k6b::hopper_fwd_passes, hopper_fwd_tile)
+  constexpr int kPasses = kBias ? k6b::hopper_fwd_passes(kKw) : 1;
+  constexpr int kNK = kBias ? k6b::hopper_fwd_tile(kKw) : kKw;
+  constexpr int kKTile = kNK * 64 * 2;   // a K or V tile
+  static_assert(kNK % 16 == 0 && kKw % 4 == 0, "k16 tiles, 4-key pairs");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kFwdStages], empty[kFwdStages], qbar;
+  // the swizzled tiles need 1024-byte alignment in the shared window
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_addr = smem_u32(base);   // per warpgroup: q
+  const uint32_t ring = q_addr + kFwdConsumers * kTile;   // K, V stages
+  float* bh_s = reinterpret_cast<float*>(
+      base + kFwdConsumers * kTile + 2 * kFwdStages * kKTile);  // [kh][Ld]
+
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kFwdRows;
+  const int head = b * p.H + h;
+  const Keys ks = keys_of(p, b);
+  // tile j: pass j / n_rows over grid row j % n_rows
+  const int n_rows = (ks.n_keys + kKw - 1) / kKw;   // grid rows visited
+  const int n_tiles = n_rows * kPasses;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kFwdConsumers * 128);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kFwdConsumers) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     k5h::kProducerRegs)
+                 : "memory");
+    if (threadIdx.x == kFwdConsumers * 128) {
+      mbar_expect_tx(&qbar, kFwdConsumers * kTile);
+      for (int w = 0; w < kFwdConsumers; ++w)
+        tma_load(q_addr + w * kTile, &tq, &qbar, 0, row0 + 64 * w, head);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kFwdStages, u = j / n_rows;
+        const int key = (j - u * n_rows) * kKw + u * kNK;
+        mbar_wait(&empty[st], ((j / kFwdStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * kKTile);
+        tma_load(ring + 2 * st * kKTile, &tk, &full[st], 0, key, head);
+        tma_load(ring + (2 * st + 1) * kKTile, &tv, &full[st], 0, key,
+                 head);
+      }
+    }
+    return;
+  }
+  // ---- consumers: 64 query rows per warpgroup, the key tiles stream ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                   kFwdConsumerRegs)
+               : "memory");
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r_lo = wg * 64 + warp * 16 + g, r_hi = r_lo + 8;   // in block
+  const int R_lo = row0 + r_lo, R_hi = row0 + r_hi;
+  const size_t head_row = (size_t)head * p.S;
+  const bool add = kBias && !ks.none;
+
+  // this thread's bias_w terms (rows g, g + 8; columns 8i + 2c.. of the
+  // pass), and which of a tile's columns the pass takes, as in dq
+  auto live = [&](int chunk0, int cols) {
+    if constexpr (kKw % 8 == 0)
+      return chunk0 < cols;
+    else
+      return chunk0 + 8 <= cols || (chunk0 < cols && 2 * c < cols - chunk0);
+  };
+  float bw[kNK / 2];
+#pragma unroll
+  for (int i = 0; i < kNK / 2; ++i) bw[i] = 0.f;
+  auto load_bw = [&](auto pass) {
+    constexpr int kCols = pass_cols(kKw, kNK, decltype(pass)::value);
+#pragma unroll
+    for (int i = 0; i < kNK / 8; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int R = half ? R_hi : R_lo;
+        float2 v = make_float2(0.f, 0.f);
+        if (live(8 * i, kCols) && R < p.S) {
+          v = *reinterpret_cast<const float2*>(
+              p.bias_w + (head_row + R) * kKw +
+              decltype(pass)::value * kNK + 8 * i + 2 * c);
+          v = make_float2(k6b::term(v.x), k6b::term(v.y));
+        }
+        bw[4 * i + 2 * half] = v.x;
+        bw[4 * i + 2 * half + 1] = v.y;
+      }
+    }
+  };
+  if constexpr (kBias) {
+    // bias_h terms of this warpgroup's 64 rows, as [grid row][row]
+    for (int i = t; i < 64 * p.kh; i += 128) {
+      const int r = wg * 64 + i / p.kh, kr = i % p.kh;
+      const int R = row0 + r;
+      bh_s[kr * kFwdBiasLd + r] =
+          R < p.S ? k6b::term(p.bias_h[(head_row + R) * p.kh + kr]) : 0.f;
+    }
+    load_bw(Pass<0>{});
+  }
+  // Q^ once, in the A fragments: bf16(q * scale_log2)
+  mbar_wait(&qbar, 0);
+  uint32_t qa[4][4];
+  q_frags(qa, base + wg * kTile, warp, g, c);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const __nv_bfloat162 x =
+          *reinterpret_cast<const __nv_bfloat162*>(&qa[kk][f]);
+      qa[kk][f] = pack_bf16(__fmul_rn(__low2float(x), p.scale_log2),
+                            __fmul_rn(__high2float(x), p.scale_log2));
+    }
+  if constexpr (kBias) bar_sync(1 + wg, 128);
+
+  float o[32], s[kNK / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  uint32_t pa[kNK / 16][4];
+  // the running max (exact: every score of the rows so far), the row sums
+  // of this thread's columns, the last tile's rescale factors
+  float m_lo = k6b::kPastS, m_hi = k6b::kPastS, l_lo = 0.f, l_hi = 0.f;
+  float a_lo = 1.f, a_hi = 1.f;
+  // tile j's scores -> P in s (bias, masks, online softmax); tile j is
+  // pass `pass` over grid row j - pass * n_rows
+  auto probs = [&](int j, auto pass) {
+    constexpr int kU = decltype(pass)::value;
+    constexpr int kCols = pass_cols(kKw, kNK, kU);
+    const int r = j - kU * n_rows, key0 = r * kKw + kU * kNK;
+    if (ks.none) {
+#pragma unroll
+      for (int i = 0; i < kNK / 2; ++i) s[i] = k6b::kNegInf;
+    } else if (add) {
+      const float th_lo = bh_s[r * kFwdBiasLd + r_lo];
+      const float th_hi = bh_s[r * kFwdBiasLd + r_hi];
+#pragma unroll
+      for (int i = 0; i < kNK / 2; ++i)
+        if ((i / 4) * 8 < kCols)
+          s[i] = __fadd_rn(s[i], __fadd_rn((i & 2) ? th_hi : th_lo, bw[i]));
+    }
+    // the next pass's or grid row's columns, and keys at or past the
+    // visited count (kv_len, S) on the tiles that reach it: P = 0
+#pragma unroll
+    for (int i = 0; i < kNK / 2; ++i)
+      if (!live((i / 4) * 8, kCols)) s[i] = k6b::kPastS;
+    if (key0 + kCols > ks.n_keys) {
+#pragma unroll
+      for (int i = 0; i < kNK / 2; ++i)
+        if (key0 + (i / 4) * 8 + 2 * c + (i & 1) >= ks.n_keys)
+          s[i] = k6b::kPastS;
+    }
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int i = 0; i < kNK / 8; ++i) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    // the 4 lanes of a group share a row
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    a_lo = fast_exp2(m_lo - mx_lo);
+    a_hi = fast_exp2(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= a_lo;
+    l_hi *= a_hi;
+#pragma unroll
+    for (int i = 0; i < kNK / 8; ++i) {
+      s[4 * i] = fast_exp2(s[4 * i] - m_lo);
+      s[4 * i + 1] = fast_exp2(s[4 * i + 1] - m_lo);
+      s[4 * i + 2] = fast_exp2(s[4 * i + 2] - m_hi);
+      s[4 * i + 3] = fast_exp2(s[4 * i + 3] - m_hi);
+      l_lo += s[4 * i] + s[4 * i + 1];
+      l_hi += s[4 * i + 2] + s[4 * i + 3];
+    }
+  };
+  // O (the tiles before this one) times this tile's factors, where some
+  // row's max moved (a factor of 1 changes nothing)
+  auto rescale = [&] {
+    if (__any_sync(0xffffffffu, a_lo < 1.f || a_hi < 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[4 * i] *= a_lo;
+        o[4 * i + 1] *= a_lo;
+        o[4 * i + 2] *= a_hi;
+        o[4 * i + 3] *= a_hi;
+      }
+    }
+  };
+  // ping-pong: a warpgroup issues its products after the one before it
+  // (named barriers 1 .. kFwdConsumers serve the set-up above)
+  const int my_bar = 1 + kFwdConsumers + wg;
+  const int next_bar = 1 + kFwdConsumers + (wg + 1) % kFwdConsumers;
+  auto wait_turn = [&] { bar_sync(my_bar, 256); };
+  auto end_turn = [&] { bar_arrive(next_bar, 256); };
+  auto k_of = [&](int j) { return ring + 2 * (j % kFwdStages) * kKTile; };
+  // software pipeline: the scores of tile j are issued with O += P V of
+  // tile j-1, and tile j's softmax runs while that is on the tensor cores
+  auto step = [&](int j, auto pass) {
+    const uint32_t cur = k_of(j);
+    mbar_wait(&full[j % kFwdStages], (j / kFwdStages) & 1);
+    wait_turn();
+    wgmma_fence();
+    qk_tile<kNK>(s, qa, cur);
+    wgmma_commit();
+    pv_tile<kNK>(o, pa, k_of(j - 1) + kKTile);
+    wgmma_commit();
+    end_turn();
+    wgmma_wait<1>();
+    fence_regs(s);
+    probs(j, pass);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&empty[(j - 1) % kFwdStages]);
+    rescale();
+    pack_probs<kNK>(s, pa);
+  };
+  if (wg == kFwdConsumers - 1) end_turn();
+  mbar_wait(&full[0], 0);
+  wait_turn();
+  wgmma_fence();
+  qk_tile<kNK>(s, qa, ring);
+  wgmma_commit();
+  end_turn();
+  wgmma_wait<0>();
+  fence_regs(s);
+  probs(0, Pass<0>{});
+  pack_probs<kNK>(s, pa);
+  for (int j = 1; j < n_rows; ++j) step(j, Pass<0>{});
+  // each later pass: its bias_w terms in, between two loops over one step
+  for_passes<1, kPasses>([&](auto pass) {
+    constexpr int kU = decltype(pass)::value;
+    load_bw(pass);
+    for (int j = kU * n_rows; j < (kU + 1) * n_rows; ++j) step(j, pass);
+  });
+  wait_turn();
+  wgmma_fence();
+  pv_tile<kNK>(o, pa, k_of(n_tiles - 1) + kKTile);
+  wgmma_commit();
+  // every sync is matched: the last warpgroup's first arrive stands in for
+  // its final one
+  if (wg != kFwdConsumers - 1) end_turn();
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pa);
+  mbar_arrive(&empty[(n_tiles - 1) % kFwdStages]);
+
+  // lse = m + log2 l, O / l; rows past S read TMA's zeros and are not
+  // written
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float sl_lo = l_lo > 0.f ? l_lo : 1.f, sl_hi = l_hi > 0.f ? l_hi : 1.f;
+  if (c == 0) {
+    if (R_lo < p.S) p.lse_out[head_row + R_lo] = m_lo + log2f(sl_lo);
+    if (R_hi < p.S) p.lse_out[head_row + R_hi] = m_hi + log2f(sl_hi);
+  }
+  bf16* out = p.out + head_row * 64;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int d = 8 * i + 2 * c;
+    if (R_lo < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)R_lo * 64 + d) =
+          __floats2bfloat162_rn(o[4 * i] / sl_lo, o[4 * i + 1] / sl_lo);
+    if (R_hi < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)R_hi * 64 + d) =
+          __floats2bfloat162_rn(o[4 * i + 2] / sl_hi, o[4 * i + 3] / sl_hi);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -797,17 +1114,18 @@ inline bool qkv_maps(CUtensorMap (&m)[4], const void* q, const void* k,
          tensor_map_3d(&m[3], dout, 64, S, heads, 64);
 }
 
-// One kernel over (blocks, H, B) blocks of kThreads threads; the CUDA
-// error of the attribute call or of the launch (0 on success). The C
-// entries (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) each
-// instantiate their own kernel.
-template <typename Kernel, typename... Maps>
+// One kernel over (blocks, H, B) blocks of Threads threads (the
+// backward's kThreads, the forward's kFwdThreads); the CUDA error of the
+// attribute call or of the launch (0 on success). The C entries
+// (flash_attention_fwd.cu, flash_attention_bwd_dq.cu,
+// flash_attention_bwd_dkv.cu) each instantiate their own kernel.
+template <int Threads = kThreads, typename Kernel, typename... Maps>
 int launch(Kernel kern, size_t smem, int blocks, int B, const Params& p,
            cudaStream_t stream, const Maps&... maps) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(blocks, p.H, B), kThreads, smem, stream>>>(maps..., p);
+  kern<<<dim3(blocks, p.H, B), Threads, smem, stream>>>(maps..., p);
   return (int)cudaGetLastError();
 }
 

@@ -29,14 +29,14 @@ Kw)``, as in ``ops/attention.py``):
   (``csrc/flash_attention_bwd_dq.cu``) and dk/dv
   (``csrc/flash_attention_bwd_dkv.cu``), any key-grid width. fp32 calls
   run the register-tiled CUDA-core bodies (``csrc/f32_tiled_forward.cuh``,
-  ``csrc/flash_trainable_core.cuh``), bf16 calls the mma.sync bodies of
-  ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias gradients),
-  except the backward's calls with no bias or a key grid whose width is a
-  multiple of 4 from 16 to 128 (SAM @576 to @1536: Kw 36 to 96) of at
-  most 128 rows, which run the TMA + wgmma bodies of
-  ``csrc/flash_trainable_hopper.cuh``; :func:`flash_attention_route` says
-  which body the forward runs, :func:`flash_attention_bwd_route` the
-  backward.
+  ``csrc/flash_trainable_core.cuh``), bf16 calls with no bias or a key
+  grid whose width is a multiple of 4 from 16 to 128 (SAM @576 to @1536:
+  Kw 36 to 96) of at most 128 rows the TMA + wgmma bodies of
+  ``csrc/flash_trainable_hopper.cuh``, and other bf16 calls the mma.sync
+  bodies of ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias
+  gradients); :func:`flash_attention_route` says which body the forward
+  runs, :func:`flash_attention_bwd_route` the backward (the same
+  choice).
 
 The backward formulas, with ``P`` the softmax of the scores and ``O`` the
 forward's output, natural units::
@@ -51,11 +51,11 @@ formulas in fp32 (K6's with the JAX kernels' bf16 rounding points on bf16
 operands); the wrappers take it for CPU tensors only, and for CUDA tensors
 launch their kernel or raise. K4 and K5 build bf16 only, K6 fp32 and
 bf16, all of them head dim 64 only. Launches are counted in
-``ops/_kernels.py::LAUNCHES``, K6's bf16 builds under their own names
-(``flash_attention_fwd_bf16`` and so on), and the Hopper bodies of its
-bf16 backward under theirs (``flash_attention_bwd_dq_hopper``,
-``flash_attention_bwd_dkv_hopper``): the bf16 backward entries report the
-body each launch ran.
+``ops/_kernels.py::LAUNCHES``, K6's bf16 mma.sync bodies under their own
+names (``flash_attention_fwd_bf16`` and so on), and its Hopper bodies under
+theirs (``flash_attention_fwd_hopper``, ``flash_attention_bwd_dq_hopper``,
+``flash_attention_bwd_dkv_hopper``): the bf16 entries report the body each
+launch ran.
 """
 
 from __future__ import annotations
@@ -102,8 +102,8 @@ register_launches("window_attention_bwd", "global_attention_fwd_lse",
                   *(f"flash_attention_{k}{suffix}"
                     for suffix in ("", "_bf16")
                     for k in ("fwd", "bwd_dq", "bwd_dkv")),
-                  "flash_attention_bwd_dq_hopper",
-                  "flash_attention_bwd_dkv_hopper")
+                  *(f"flash_attention_{k}_hopper"
+                    for k in ("fwd", "bwd_dq", "bwd_dkv")))
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
@@ -111,8 +111,8 @@ _LOG2E = math.log2(math.e)
 # one grid row, and a 64-key tile holds whole grid rows or half of one (Kw
 # 128, SAM's global grid at 2048 px, which the Hopper bodies take)
 _K5_BIAS_WIDTHS = (8, 16, 32, 64, 128)
-# K6's builds: fp32 (register-tiled CUDA-core bodies) and bf16 (mma.sync;
-# the backward's Hopper bodies)
+# K6's builds: fp32 (register-tiled CUDA-core bodies) and bf16 (mma.sync
+# or Hopper bodies)
 _K6_DTYPES = (torch.float32, torch.bfloat16)
 # the codes of vdr_flash_attention_route (csrc/flash_attention_fwd.cu) and
 # vdr_flash_attention_bwd_route (csrc/flash_attention_bwd_dq.cu), and the
@@ -571,23 +571,23 @@ def _check_flash(q, k, v, bias_h, bias_w, kv_len):
 def _k6_entry(source, q, d, bias_h, bias_w, *tensors, fp32=(), args):
     """(lib, fn): the C entry of a K6 kernel for q's dtype (``vdr_<source>``
     or ``vdr_<source>_bf16``) after the launch checks (k, v and dO in q's
-    dtype, the bias factors and residuals fp32). The backward's bf16
-    entries take one pointer more, where they write the code of the body
-    they launched (:func:`_k6_bwd_launch`)."""
+    dtype, the bias factors and residuals fp32). The bf16 entries take one
+    pointer more, where they write the code of the body they launched
+    (:func:`_k6_launch`)."""
     _check_bwd_cuda(q, d, *tensors, fp32=(bias_h, bias_w, *fp32),
                     dtype=_K6_DTYPES)
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and source != "flash_attention_fwd":
+    if bf16:
         args = args + [_P]
     return _load(source, args,
                  entry=f"vdr_{source}" + ("_bf16" if bf16 else ""))
 
 
-def _k6_bwd_launch(lib, fn, source, q, *c_args):
-    """Launch a K6 backward entry and count the launch under the body that
-    ran: ``<source>`` for fp32 (the tiled bodies), and in bf16 as the entry
-    reports through its last argument, ``<source>_bf16`` for the mma.sync
-    bodies or ``<source>_hopper`` for the Hopper ones."""
+def _k6_launch(lib, fn, source, q, *c_args):
+    """Launch a K6 entry (forward, dq or dkv) and count the launch under
+    the body that ran: ``<source>`` for fp32 (the tiled bodies), and in
+    bf16 as the entry reports through its last argument, ``<source>_bf16``
+    for the mma.sync bodies or ``<source>_hopper`` for the Hopper ones."""
     body = ctypes.c_int(0)
     extra = (ctypes.byref(body),) if q.dtype == torch.bfloat16 else ()
     _raise_on(fn(*c_args, *extra), lib, source)
@@ -618,7 +618,8 @@ def flash_attention_fwd(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
                         scale):
     """K6 forward wrapper: (out, lse), lse (B, H, S) fp32 in log2 units.
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/flash_attention_fwd.cu`` (its fp32 or bf16 build)."""
+    ``csrc/flash_attention_fwd.cu`` (its fp32 build, or in bf16 its Hopper
+    or mma.sync body, as :func:`flash_attention_route` says)."""
     kh, kw = _check_flash(q, k, v, bias_h, bias_w, kv_len)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, bias_h, bias_w, kv_len,
@@ -628,12 +629,9 @@ def flash_attention_fwd(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,
                         args=[_P] * 8 + [_I] * 6 + [_F, _P])
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, device=q.device, dtype=torch.float32)
-    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias_h), _ptr(bias_w),
-            _ptr(_kv_len_i32(kv_len, q)), _ptr(out), _ptr(lse),
-            b, h, s, d, kh, kw, scale, _stream(q))
-    _raise_on(rc, lib, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"
-             + ("_bf16" if q.dtype == torch.bfloat16 else "")] += 1
+    _k6_launch(lib, fn, "flash_attention_fwd", q, _ptr(q), _ptr(k), _ptr(v),
+               _ptr(bias_h), _ptr(bias_w), _ptr(_kv_len_i32(kv_len, q)),
+               _ptr(out), _ptr(lse), b, h, s, d, kh, kw, scale, _stream(q))
     return out, lse
 
 
@@ -653,11 +651,11 @@ def flash_attention_bwd_dq(q, k, v, bias_h, bias_w, kv_len, dout, lse, delta,
     dq = torch.empty_like(q)
     dbh = torch.empty_like(bias_h) if bias_h is not None else None
     dbw = torch.empty_like(bias_w) if bias_w is not None else None
-    _k6_bwd_launch(lib, fn, "flash_attention_bwd_dq", q, _ptr(q), _ptr(k),
-                   _ptr(v), _ptr(bias_h), _ptr(bias_w),
-                   _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse),
-                   _ptr(delta), _ptr(dq), _ptr(dbh), _ptr(dbw), b, h, s, d,
-                   kh, kw, scale, _stream(q))
+    _k6_launch(lib, fn, "flash_attention_bwd_dq", q, _ptr(q), _ptr(k),
+               _ptr(v), _ptr(bias_h), _ptr(bias_w),
+               _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse),
+               _ptr(delta), _ptr(dq), _ptr(dbh), _ptr(dbw), b, h, s, d, kh,
+               kw, scale, _stream(q))
     return dq, dbh, dbw
 
 
@@ -675,11 +673,11 @@ def flash_attention_bwd_dkv(q, k, v, bias_h, bias_w, kv_len, dout, lse,
                         v, dout, fp32=(lse, delta),
                         args=[_P] * 11 + [_I] * 6 + [_F, _P])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _k6_bwd_launch(lib, fn, "flash_attention_bwd_dkv", q, _ptr(q), _ptr(k),
-                   _ptr(v), _ptr(bias_h), _ptr(bias_w),
-                   _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse),
-                   _ptr(delta), _ptr(dk), _ptr(dv), b, h, s, d, kh, kw, scale,
-                   _stream(q))
+    _k6_launch(lib, fn, "flash_attention_bwd_dkv", q, _ptr(q), _ptr(k),
+               _ptr(v), _ptr(bias_h), _ptr(bias_w),
+               _ptr(_kv_len_i32(kv_len, q)), _ptr(dout), _ptr(lse),
+               _ptr(delta), _ptr(dk), _ptr(dv), b, h, s, d, kh, kw, scale,
+               _stream(q))
     return dk, dv
 
 
@@ -687,11 +685,13 @@ def flash_attention_route(q, k, v, bias_h=None, bias_w=None,
                           kv_len=None) -> str:
     """Which body the K6 forward runs for these operands: ``"plain"`` on
     the CPU; on the card, as ``csrc/flash_attention_fwd.cu``'s C entry
-    chooses, ``"tiled"`` (fp32: the register-tiled CUDA-core body) or
-    ``"mma"`` (bf16: the mma.sync body). Raises for a call the kernels
-    refuse (a head dim other than 64; in bf16, a bias grid of more than 320
-    terms Kh + Kw). :func:`flash_attention_bwd_route` answers for the
-    backward."""
+    chooses, ``"tiled"`` (fp32: the register-tiled CUDA-core body),
+    ``"hopper"`` (bf16 with no bias or a key grid whose width is a multiple
+    of 4 from 16 to 128, of at most 128 rows: the TMA + wgmma body) or
+    ``"mma"`` (other bf16 grids: the mma.sync body). Raises for a call the
+    kernels refuse (a head dim other than 64; in bf16, a bias grid of more
+    than 320 terms Kh + Kw). :func:`flash_attention_bwd_route` answers for
+    the backward, with the same choice in bf16."""
     _check_flash(q, k, v, bias_h, bias_w, kv_len)
     if q.device.type == "cpu":
         return "plain"

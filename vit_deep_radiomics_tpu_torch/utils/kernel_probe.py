@@ -25,6 +25,7 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6fwd
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6hdkv
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6hdq
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k6hfwd
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2f32
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3f32
@@ -63,7 +64,10 @@ removed; the K6 backward: one tile buffer instead of two, or 64-column
 tiles, a 4 x 8 score micro-tile; the K6 bf16 backward's Hopper bodies
 (``k6hdq``, ``k6hdkv``): the ring depth, exp2f instead of ex2.approx.ftz,
 dq without the warpgroups' turns or the bias sums, dkv without the bias
-add or the bias_w terms' conversion; the register-tiled fp32 forward of K1,
+add or the bias_w terms' conversion; the K6 bf16 forward's Hopper body
+(``k6hfwd``): the ring depth, three consumer warpgroups, dq's two 32-key
+passes at Kw 60 and 64, the bias add or the PV product removed; the
+register-tiled fp32 forward of K1,
 K2, K3 and K6 (``csrc/f32_tiled_forward.cuh``, ``k1f32``, ``k2f32``,
 ``k3f32`` and ``k6fwd``): 64-key tiles, which make the score micro-tile 4 x
 8, two tile buffers, P in a tile of its own, all of K3's grid columns
@@ -92,8 +96,9 @@ its plain version (two heads a call); K6: the
 (50, 12, 196, 64), Kh = Kw = 14, fp32 (the forward also DINOv2's (2, 12,
 1536, 64) with 1370 valid keys); the K6 bf16 Hopper bodies: SAM @768's (2,
 12, 2304, 64), Kh = Kw = 48, @640's (2, 12, 1600, 64), Kw 40, @896's (2,
-12, 3136, 64), Kw 56, and DINOv2's kv_len shape, beside the whole bf16
-SDPA backward; K1 fp32: q (100, 196, 768), Kh = Kw =
+12, 3136, 64), Kw 56, @576's, @832's and @960's and DINOv2's kv_len
+shape, beside the whole bf16 SDPA backward (the forward's beside SDPA's
+forward); K1 fp32: q (100, 196, 768), Kh = Kw =
 14; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
 K3 fp32: SAM @768's q (4, 12, 2304, 64), k/v 3072 rows, Kh 48, Kw 64,
 ``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys; K7:
@@ -145,17 +150,22 @@ its global layers on K6 in bf16: step ms, launches, then wall ms, device
 ms, idle share and the top device costs from ``trace_runs``), the three K6
 kernels' ms in bf16 and the whole bf16 SDPA backward's at ``chip_smoke.py``'s
 ``K6_BF16_SHAPES`` (its global layers' shape (2, 12, 2304, 64), Kh = Kw =
-48, and DINOv2's kv_len shape (2, 12, 1536, 64), 1370 valid) and SHA-256s
-of the forward's outputs (out, lse), which must not differ between the
-trees, and of the backward's (dq, both bias gradients, dk, dv), which
-change where the change gives the backward another body that sums in
-another order; with ``--path finetune-576``, ``finetune-640``,
+48, and DINOv2's kv_len shape (2, 12, 1536, 64), 1370 valid), SDPA's
+forward and SHA-256s of the forward's outputs (out, lse) and of the
+backward's (dq, both bias gradients, dk, dv): a hash may differ between
+the trees only where a tree's route gives the forward or the backward
+another body (its sums run in another order), and the backward's then
+also where only the forward's body changed (it is fed that forward's lse
+and D); what parent and change are held to there is each tree's phase 24
+(launches, each kernel against its plain version) and the times; with
+``--path finetune-576``, ``finetune-640``,
 ``finetune-896`` or ``finetune-960`` the same for SAM ViT-B/16 `fast`
 fine-tuning at that size (B=2, 5 steps held to the launches of the
-backward body each tree's route names at its 36 x 36, 40 x 40, 56 x 56 or
+bodies each tree's routes name at its 36 x 36, 40 x 40, 56 x 56 or
 60 x 60 global grid, traced steps), then the three K6 bf16 kernels' ms at
 that grid (``finetune-960``: also at @704's and @832's, 44 x 44 and 52 x
-52) beside the whole bf16 SDPA backward's and SHA-256s of their outputs;
+52) beside the bf16 SDPA forward's and whole backward's and SHA-256s of
+their outputs;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
 a one-patient extraction of each, and ``chip_smoke.py``'s kernel phases 16
@@ -191,6 +201,7 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k6dq": "flash_attention_bwd_dq.cu",
            "k6hdkv": "flash_attention_bwd_dkv.cu",
            "k6hdq": "flash_attention_bwd_dq.cu",
+           "k6hfwd": "flash_attention_fwd.cu",
            "k5dkv": "global_attention_bwd_dkv.cu",
            "k5dq": "global_attention_bwd_dq.cu",
            "k2f32": "fused_global_attention.cu",
@@ -207,10 +218,13 @@ HEADERS = {"k2": ("global_fwd_hopper.cuh",),
            "k6fwd": ("f32_tiled_forward.cuh",),
            "k6hdkv": ("flash_trainable_hopper.cuh", "attention_bwd_core.cuh",
                       "flash_trainable_bf16.cuh"),
-           "k6hdq": ("flash_trainable_hopper.cuh", "flash_trainable_bf16.cuh")}
+           "k6hdq": ("flash_trainable_hopper.cuh", "flash_trainable_bf16.cuh"),
+           "k6hfwd": ("flash_trainable_hopper.cuh",
+                      "flash_trainable_bf16.cuh")}
 # entry points other than vdr_<source>: K6's bf16 builds
 ENTRIES = {"k6hdkv": "vdr_flash_attention_bwd_dkv_bf16",
-           "k6hdq": "vdr_flash_attention_bwd_dq_bf16"}
+           "k6hdq": "vdr_flash_attention_bwd_dq_bf16",
+           "k6hfwd": "vdr_flash_attention_fwd_bf16"}
 # the register-tiled fp32 forward (f32_tiled_forward.cuh) of K2 and K3
 _F32_TILED = {
     "as_built": ({}, ()),   # one tile buffer, P in the tile's K buffer
@@ -404,6 +418,24 @@ VARIANTS = {
             "dq_scores<kNK>(s, dp, q_addr, do_addr, ring, ring + kKTile);",
             "dq_scores<kNK>(s, dp, q_addr, do_addr, cur, cur + kKTile);")),
     },
+    # K6's bf16 forward on its Hopper body: the ring depth, the consumer
+    # warpgroups, dq's tiling (two 32-key passes at Kw 60 and 64, where the
+    # forward takes one of 64), the bias add or the PV product removed
+    "k6hfwd": {
+        "as_built": ({}, ()),
+        "stages_4": ({"kHopperFwdStages": 4}, ()),
+        "stages_8": ({"kHopperFwdStages": 8}, ()),
+        "consumers_3": ({"kHopperFwdConsumers": 3}, ()),
+        "dq_tiles": ({"kHopperFwdOnePass": 56}, ()),
+        "no_bias": ({}, ((
+            "} else if (add) {\n      const float th_lo = bh_s[r * "
+            "kFwdBiasLd + r_lo];",
+            "} else if (false) {\n      const float th_lo = bh_s[r * "
+            "kFwdBiasLd + r_lo];"),)),
+        "no_products": ({}, ("pv_tile<kNK>(o, pa, k_of(j - 1) + kKTile);",
+                             "pv_tile<kNK>(o, pa, k_of(n_tiles - 1) + "
+                             "kKTile);")),
+    },
     "k6hdkv": {
         "as_built": ({}, ()),
         "stages_3": ({"kHopperDkvMaxStages": 3}, ()),
@@ -551,6 +583,7 @@ CALLS = {
     # writes the body it ran, null)
     "k6hdkv": ([_P] * 11 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
     "k6hdq": ([_P] * 12 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
+    "k6hfwd": ([_P] * 8 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
     "k5fwd": ([_P] * 7 + [_I] * 6 + [_F, _P], _K5_SHAPES, None),
     "k5dkv": ([_P] * 9 + [_I] * 6 + [_F, _P], _K5_BWD_SHAPES, None),
     "k5dq": ([_P] * 11 + [_I] * 6 + [_F, _P], _K5_BWD_SHAPES, None),
@@ -752,9 +785,10 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
     """The K6 forward's or backward's variants (per-head (B, H, S, D)):
     fp32 (k6fwd, k6dq, k6dkv) at the `parity` path's shapes, ms and share of
     the fp32 CUDA-core peak (67 TFLOP/s, H100 SXM) on the keys scored; the
-    bf16 backward's Hopper bodies (k6hdq, k6hdkv) at SAM @768's, @640's,
-    @896's, @576's, @832's and @960's global and DINOv2's kv_len shapes, ms and share of the bf16 tensor-core peak (989
-    TFLOP/s) beside the whole bf16 SDPA backward's ms. Each with its
+    bf16 Hopper bodies (k6hfwd, k6hdq, k6hdkv) at SAM @768's, @640's,
+    @896's, @576's, @832's and @960's global and DINOv2's kv_len shapes,
+    ms and share of the bf16 tensor-core peak (989 TFLOP/s) beside the
+    bf16 SDPA forward's (k6hfwd) or whole backward's ms. Each with its
     largest gap to the plain version."""
     import torch
 
@@ -826,8 +860,18 @@ def _k6_variants(kernel: str, out_dir: Path) -> None:
                 mask = torch.zeros(b, heads, s, s, device="cuda",
                                    dtype=dt).masked_fill(key >= n_valid,
                                                          float("-inf"))
-            lib = _sdpa_bwd_ms(torch, q, k, v, mask, scale, dout, bool(kh))
-            print(f"  sdpa backward: ms {lib:.4f}")
+            if which == "k6fwd":
+                import torch.nn.functional as F
+                from torch.nn.attention import SDPBackend, sdpa_kernel
+
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    lib = _ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=scale), 10)
+                print(f"  sdpa forward: ms {lib:.4f}")
+            else:
+                lib = _sdpa_bwd_ms(torch, q, k, v, mask, scale, dout,
+                                   bool(kh))
+                print(f"  sdpa backward: ms {lib:.4f}")
             del mask
         del q, k, v, dout, bh, bw, kl, args, ref
         torch.cuda.empty_cache()
@@ -1743,10 +1787,11 @@ for tag, shape in {"kw64": (4, 4096, 64, 64, None),
 # share), then at each of chip_smoke.py's K6_BF16_SHAPES (its phase 10
 # inputs) the three K6 kernels' ms in bf16, the whole bf16 SDPA backward's
 # ms (chip_smoke._sdpa_ms: the dense bias or the padding mask as a
-# trainable attn_mask) and two SHA-256s: of the forward's outputs (out,
-# lse), which must not differ between the trees, and of the backward's (dq,
-# both bias gradients, dk, dv), which differ where the backward's body
-# changed (its sums run in another order)
+# trainable attn_mask), SDPA's forward, and two SHA-256s: of the
+# forward's outputs (out, lse) and of the backward's (dq, both bias
+# gradients, dk, dv); each may differ between the trees only where a
+# tree's route gives the forward or the backward another body (its sums
+# run in another order; the backward is fed the forward's lse and D)
 _PAIR_FINETUNE768_CHILD = r'''
 import hashlib, sys
 sys.path.insert(0, ".")
@@ -1795,8 +1840,10 @@ for tag, shape in cs.K6_BF16_SHAPES.items():
             key >= shape[4], float("-inf"))
     sdpa = cs._sdpa_ms(torch, q, k, v, mask, 0.125, dout,
                        mask_grad=bool(kh))[0]
-    print(f"k6 bf16 [{tag}]: fwd ms {fwd:.4f}, dq ms {dq:.4f}, dkv ms "
-          f"{dkv:.4f}, dq + dkv ms {dq + dkv:.4f}, sdpa backward ms "
+    sdpa_fwd = cs._sdpa_ms(torch, q, k, v, mask, 0.125)[0]
+    print(f"k6 bf16 [{tag}, forward {G.flash_attention_route(*args)}]: fwd "
+          f"ms {fwd:.4f} (sdpa forward ms {sdpa_fwd:.4f}), dq ms {dq:.4f}, "
+          f"dkv ms {dkv:.4f}, dq + dkv ms {dq + dkv:.4f}, sdpa backward ms "
           f"{sdpa:.4f}; sha256 forward {sha(out, lse)} backward "
           f"{sha(*grads)}", flush=True)
     del args, dout, out, lse, rest, grads, mask, q, k, v, bh, bw, kl
@@ -1805,14 +1852,14 @@ for tag, shape in cs.K6_BF16_SHAPES.items():
 
 # SAM ViT-B/16 `fast` fine-tuning at @SIZE@ px, B=2 (``--path finetune-576``,
 # ``finetune-640``, ``finetune-896``, ``finetune-960``): 5 steps through
-# chip_smoke.py's finetune_phase, their launches held to K1 and K4 8, the
-# K6 bf16 forward 4 and dq and dkv 4 under the body the tree's route names
-# at the global layers' grid, then traced steps (wall, device ms, idle
+# chip_smoke.py's finetune_phase, their launches held to K1 and K4 8 and
+# the K6 bf16 forward, dq and dkv 4 each under the bodies the tree's routes
+# name at the global layers' grid, then traced steps (wall, device ms, idle
 # share, top device costs); then, at the global grid of each size of
-# @TIME_SIZES@ (the step's size last), the backward's body, the three K6
-# kernels' ms in bf16 (B=2, 12 heads, inputs from chip_smoke.k6_inputs),
-# the whole bf16 SDPA backward's, and SHA-256s of the forward's and the
-# backward's outputs
+# @TIME_SIZES@ (the step's size last), the forward's and the backward's
+# bodies, the three K6 kernels' ms in bf16 (B=2, 12 heads, inputs from
+# chip_smoke.k6_inputs), the bf16 SDPA forward's and whole backward's, and
+# SHA-256s of the forward's and the backward's outputs
 _PAIR_FINETUNE_SIZE_CHILD = r'''
 import dataclasses, hashlib, sys
 sys.path.insert(0, ".")
@@ -1831,13 +1878,16 @@ shape = (2, grid * grid, grid, grid, None)
 g = torch.Generator(device="cuda").manual_seed(1)
 args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
 body = G.flash_attention_bwd_route(*args)
+fwd_body = G.flash_attention_route(*args)
 del args, dout
 suffix = "_hopper" if body == "hopper" else "_bf16"
+fwd_suffix = "_hopper" if fwd_body == "hopper" else "_bf16"
 per_step = {"fused_window_attention": 8, "window_attention_bwd": 8,
-            "flash_attention_fwd_bf16": 4,
+            "flash_attention_fwd" + fwd_suffix: 4,
             "flash_attention_bwd_dq" + suffix: 4,
             "flash_attention_bwd_dkv" + suffix: 4}
-print(f"k6 bf16 [@{size}]: backward body {body}", flush=True)
+print(f"k6 bf16 [@{size}]: forward body {fwd_body}, backward body {body}",
+      flush=True)
 cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=size)
 counts, summary = cs.finetune_phase(torch, A, ft, per_step=per_step,
                                     backbone_cfg=cfg, trace=True)
@@ -1859,6 +1909,7 @@ for at in @TIME_SIZES@:
     g = torch.Generator(device="cuda").manual_seed(1)
     args, dout = cs.k6_inputs(torch, g, torch.bfloat16, *shape)
     body = G.flash_attention_bwd_route(*args)
+    fwd_body = G.flash_attention_route(*args)
     out, lse = G.flash_attention_fwd(*args, scale=0.125)
     rest = (dout, lse, G.flash_attention_delta(out, dout))
     grads = (*G.flash_attention_bwd_dq(*args, *rest, scale=0.125),
@@ -1873,10 +1924,12 @@ for at in @TIME_SIZES@:
         torch.bfloat16)
     sdpa = cs._sdpa_ms(torch, q, k, v, mask, 0.125, dout,
                        mask_grad=True)[0]
-    print(f"k6 bf16 [@{at} global {shape}, backward {body}]: fwd ms "
-          f"{fwd:.4f}, dq ms {dq:.4f}, dkv ms {dkv:.4f}, dq + dkv ms "
-          f"{dq + dkv:.4f}, sdpa backward ms {sdpa:.4f}; sha256 forward "
-          f"{sha(out, lse)} backward {sha(*grads)}", flush=True)
+    sdpa_fwd = cs._sdpa_ms(torch, q, k, v, mask, 0.125)[0]
+    print(f"k6 bf16 [@{at} global {shape}, forward {fwd_body}, backward "
+          f"{body}]: fwd ms {fwd:.4f} (sdpa forward ms {sdpa_fwd:.4f}), dq "
+          f"ms {dq:.4f}, dkv ms {dkv:.4f}, dq + dkv ms {dq + dkv:.4f}, sdpa "
+          f"backward ms {sdpa:.4f}; sha256 forward {sha(out, lse)} backward "
+          f"{sha(*grads)}", flush=True)
     del args, dout, out, lse, rest, grads, q, k, v, bh, bw, kl, mask
     torch.cuda.empty_cache()
 '''
