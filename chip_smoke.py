@@ -300,13 +300,18 @@ NO_SPILL = ("window_attention_bwd", "global_attention_bwd_dq",
 # its kernels (with and without bias, *tiled_kernel*) must show no spill
 TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
                  "flash_attention", "flash_attention_fwd")
+# K3's window mode on K1's whole-window body (*window_kernel*): one
+# instance per N of keys an item loads
+K3_WINDOW_INSTANCES = 4
 # Sources with Hopper kernels (*hopper_kernel*, this many) that must show
-# no spill and no wgmma serialisation (ptxas's C75xx lines): the K5 forward
+# no spill and no wgmma serialisation (ptxas's C75xx lines): K1 (the
+# whole-window body at N 64, 208 and 256 keys), the K5 forward
 # (K2's body with the lse store: no bias, Kw 64, and Kw 128 visiting the
 # even key tiles first), the K5 dq and dkv (no bias, Kw 64, Kw 128), K7
 # (the C 768 body and the C 1536 cluster body), K8 and K6's bf16 forward,
 # dq and dkv (no bias, and one instance per key-grid width 16, 20, ... 128)
-HOPPER_SOURCES = {"global_attention_fwd_lse": 3, "fused_ln_mlp_residual": 2,
+HOPPER_SOURCES = {"fused_window_attention": 3,
+                  "global_attention_fwd_lse": 3, "fused_ln_mlp_residual": 2,
                   "int8_matmul": 1, "global_attention_bwd_dq": 3,
                   "global_attention_bwd_dkv": 3, "flash_attention_fwd": 30,
                   "flash_attention_bwd_dq": 30, "flash_attention_bwd_dkv": 30}
@@ -2091,15 +2096,20 @@ def _k3_dense(torch, q, k, v, bh, bw, kl, grid, win):
 def k3_phase(torch, A, peaks):
     """Phase 15: K3 at its paths' shapes against its plain version; kernel,
     plain, SDPA (the dense bias with K3's masked keys at -inf as
-    ``attn_mask``) times and the bound, which counts only the valid keys
-    and the query rows the path keeps. The row is SAM @768's global shape
+    ``attn_mask``) times and the bound. The bound's operations count only
+    the valid keys and the query rows the path keeps; its bytes q and the
+    output whole (every query row is computed and stored, a window's
+    padding rows too), K and V at the valid keys only, and of each bias
+    row the terms that reach a valid key. The row is SAM @768's global shape
     in bf16, the main path's: the 2304 query rows ``WindowedAttention.
     _flash`` passes against the 48 x 64 padded key grid; ``fp32`` and
     ``by_shape`` hold the others, among them the same call with the queries
     padded to 3072 as JAX pads them (``sam768_padded``, the bound the same).
     The bodies: the Hopper kernel for bf16 at @768 and in ``kv_len`` mode
     (no bias: 64-key tiles up to kv_len), the register-tiled forward for
-    fp32, the loops for the ``window`` shape. That shape checks the
+    fp32 outside window mode; the ``window`` shape (100 windows of 16 x 16
+    tokens, 14 x 14 valid) takes K1's whole-window body in bf16
+    (``hopper_window``) and the loops in fp32. That shape checks the
     ``window_tokens`` mode, which only ``WindowedAttention``'s
     ``window_group`` > 1 reaches (JAX's default is 1, and no entry point
     of either package sets it), so no path of the port runs it."""
@@ -2114,9 +2124,10 @@ def k3_phase(torch, A, peaks):
                                 (bf16,)),
               "kv_len": (4, 1370, 1536, 0, 0, None, 1370, None, (bf16,)),
               "window": (25, 1024, 1024, 16, 16, (14, 14), None, 256,
-                         (bf16,))}
+                         (bf16, fp32))}
+    # bf16; fp32 takes the tiled body outside window mode, the loops in it
     bodies = {"sam768_global": "hopper", "sam768_padded": "hopper",
-              "kv_len": "hopper", "window": "loops"}
+              "kv_len": "hopper", "window": "hopper_window"}
     rows = {}
     for shape, (b, sq, sk, kh, kw, grid, kv_len, win,
                 dtypes) in shapes.items():
@@ -2150,7 +2161,8 @@ def k3_phase(torch, A, peaks):
                                                scale=scale)
 
             body = A.flash_attention_route(q, k, v, bh, bw, kl, **opts)
-            want = "tiled" if dtype == fp32 else bodies[shape]
+            want = bodies[shape] if dtype == bf16 else \
+                "loops" if win else "tiled"
             log(f"kernel flash_attention [{shape}, {dname}]: body {body}")
             if body != want:
                 raise AssertionError(f"flash_attention {shape} {dname} takes "
@@ -2164,13 +2176,20 @@ def k3_phase(torch, A, peaks):
                                                    kl, grid, win)
             lib = _sdpa_ms(torch, qh, kh_, vh, mask, scale)
             del qh, kh_, vh, mask
+            # the bytes: K and V at the n_valid keys of each window (or
+            # sequence), the bias terms of the kv_grid's rows and columns
+            segs = b * heads * (sk // (win or sk))
+            terms = (min(grid[0], kh) + min(grid[1], kw) if grid
+                     else kh + kw)
+            nbytes = (_nbytes(q, kl, out) + (2 * segs * n_valid * d
+                      + b * heads * sq * terms) * q.element_size())
             # the query rows the path keeps: as many as the valid keys of
             # a row (or of a window)
             rows[shape, dname] = _record(
                 tag, "flash_attention.cu",
                 "vit_deep_radiomics_tpu/ops/attention.py:87", dname, err,
                 cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2), lib,
-                _nbytes(q, k, v, bh, bw, kl, out),
+                nbytes,
                 4.0 * b * heads * (sq // (win or sq)) * n_valid * n_valid * d,
                 peaks)
             rows[shape, dname]["body"] = body
@@ -2179,7 +2198,7 @@ def k3_phase(torch, A, peaks):
     rec = dict(rows["sam768_global", "bfloat16"], name="flash_attention")
     rec["fp32"] = _sub(rows["sam768_global", "float32"])
     rec["fp32_body"] = rows["sam768_global", "float32"]["body"]
-    rec["by_shape"] = {f"{shape} {dname}": _sub(r)
+    rec["by_shape"] = {f"{shape} {dname}": dict(_sub(r), body=r["body"])
                        for (shape, dname), r in rows.items()}
     return rec
 
@@ -3883,6 +3902,20 @@ def main() -> int:
             r["spill"] for r in hopper.values())):
         raise AssertionError(f"flash_attention: the Hopper kernels {hopper} "
                              "spill or are missing")
+    # K3's window mode on K1's whole-window body: its instances (N 64, 208,
+    # 224 and 256 keys) must show no spill and no wgmma serialisation
+    blog = build_logs["flash_attention"]
+    windowed = {f: r for f, r in cuda_build.ptxas_functions(blog).items()
+                if "window_kernel" in f}
+    serial = [ln.strip() for ln in blog.splitlines() if "C75" in ln]
+    log("ptxas flash_attention (whole-window body): " + " | ".join(
+        f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
+        for f, r in windowed.items()) + f"; C75xx lines: {len(serial)}")
+    if blog and (len(windowed) != K3_WINDOW_INSTANCES or serial or any(
+            r["spill"] for r in windowed.values())):
+        raise AssertionError(f"flash_attention: the whole-window kernels "
+                             f"{windowed} spill, are missing or are "
+                             f"serialised: {serial}")
     for src, n_hopper in HOPPER_SOURCES.items():
         blog = build_logs[src]
         hopper = {f: r for f, r in cuda_build.ptxas_functions(blog).items()

@@ -68,9 +68,11 @@ WINDOW_CASES = {
     "sam_14x14": ((14, 14), 3, True, "hopper"),   # 196 tokens, 4 row tiles
     "grid_8x8": ((8, 8), 2, True, "hopper"),      # 64 tokens, one tile
     "grid_10x10": ((10, 10), 2, True, "hopper"),  # 100 tokens, 208 keys
-    "grid_16x16": ((16, 16), 2, True, "hopper"),  # 256: one buffer
+    "grid_16x16": ((16, 16), 2, True, "hopper"),  # 256: bias rows unstaged
     "sam_no_bias": ((14, 14), 3, False, "hopper"),
     "over_256": ((17, 17), 2, True, "loops"),     # 289 tokens
+    "terms_47": ((3, 44), 2, True, "hopper"),     # Kh + Kw = 47: 3 steps
+    "terms_48": ((4, 44), 2, True, "loops"),      # 48 terms: past them
 }
 
 
@@ -79,9 +81,10 @@ def test_window_kernel_routes_match_plain(gen, case):
     """bf16 K1 at the window shapes of its routes: the Hopper kernel at
     each of its key widths (TMA boxes of exactly one window, so a batch
     row's next window is never read or written; keys padded to 64, 208
-    or 256 and masked; 256-token windows leave room for one buffered
-    item) and, for a window of more than 256 tokens, the mma.sync
-    loop."""
+    or 256 and masked; 256-token windows keep two buffered items with the
+    bias rows read from device memory) and at the most bias terms its
+    three bias steps take, and for a window of more than 256 tokens or
+    more terms the mma.sync loop."""
     (kh, kw), n_win, biased, route = WINDOW_CASES[case]
     b, heads, d, dt = 2, 2, 64, torch.bfloat16
     win = kh * kw
@@ -1589,22 +1592,35 @@ def test_flash_hopper_matches_plain(gen, case):
 
 @pytest.mark.parametrize("case,route", [
     ("bias_kv_len", "loops"), ("kw_32", "loops"), ("cols_20", "loops"),
-    ("window", "loops"), ("d_128", "loops"), ("fp32", "tiled")])
+    ("window", "hopper_window"), ("window_fp32", "loops"),
+    ("window_d_32", "loops"), ("window_d_128", "loops"),
+    ("window_scale_0.1", "loops"), ("window_terms_48", "loops"),
+    ("d_128", "loops"), ("fp32", "tiled")])
 def test_flash_hopper_route_refuses(gen, case, route):
     """The calls the Hopper body does not take keep their earlier bodies: a
     bias with kv_len, key-grid rows of 32 keys, 20 valid columns (a
-    32-key tile), window mode, D 128, fp32."""
+    32-key tile), D 128, fp32. Window mode takes the whole-window body in
+    bf16 at D 64 and keeps the loops in fp32, at D 32 and 128, at a scale
+    whose inverse is not a power of two and with Kh + Kw = 48 bias terms
+    (2 x 46 windows; the body takes at most 47)."""
     b, heads, sq, d, kh, kw = 1, 2, 64, 64, 4, 64
-    dt = torch.float32 if case == "fp32" else torch.bfloat16
+    dt = torch.float32 if case in ("fp32", "window_fp32") else torch.bfloat16
     if case == "kw_32":
         kw = 32
-    if case == "d_128":
+    if case in ("d_128", "window_d_128"):
         d = 128
+    if case == "window_d_32":
+        d = 32
     opts, kl = dict(kv_grid=(4, 20) if case == "cols_20" else None), None
-    if case == "window":
+    if case.startswith("window"):
         sq, kh, kw = 128, 8, 8
         opts = dict(kv_grid=(7, 6), window_tokens=64)
-    sk = sq if case == "window" else kh * kw
+        if case == "window_scale_0.1":
+            opts["scale"] = 0.1
+        if case == "window_terms_48":
+            sq, kh, kw = 184, 2, 46
+            opts = dict(kv_grid=(2, 40), window_tokens=92)
+    sk = sq if case.startswith("window") else kh * kw
     if case == "bias_kv_len":
         kl = torch.tensor([100], device="cuda")
     q = _rand(gen, b, heads, sq, d, dtype=dt)
@@ -1612,6 +1628,48 @@ def test_flash_hopper_route_refuses(gen, case, route):
     bh = _rand(gen, b, heads, sq, kh, dtype=dt)
     bw = _rand(gen, b, heads, sq, kw, dtype=dt)
     assert A.flash_attention_route(q, k, k, bh, bw, kl, **opts) == route
+
+
+# K3's window mode in bf16 at D 64 on K1's whole-window body: name -> (B,
+# H, windows a batch row, Kh, Kw, kv_grid). 256-token windows with 14 x 14
+# of 16 x 16 valid (SAM's grouped layout: 224 key rows loaded), whole, and
+# 10 x 13 valid; 64-token windows with 7 x 6 of 8 x 8 valid; unpadded
+# 196-token windows with kv_grid (14, 14); an odd count of windows (141
+# items: more than a block a streaming multiprocessor, some blocks take
+# two).
+K3_WINDOW_CASES = {"sam_16x16_14x14": (3, 12, 4, 16, 16, (14, 14)),
+                   "whole_16x16": (2, 3, 3, 16, 16, (16, 16)),
+                   "grid_10x13": (2, 3, 3, 16, 16, (10, 13)),
+                   "win_8x8_7x6": (2, 3, 6, 8, 8, (7, 6)),
+                   "unpadded_14x14": (2, 3, 3, 14, 14, (14, 14)),
+                   "odd_windows": (1, 3, 47, 16, 16, (14, 14))}
+
+
+@pytest.mark.parametrize("case", sorted(K3_WINDOW_CASES))
+def test_flash_window_hopper_matches_plain(gen, case):
+    """bf16 K3 calls at D 64 in window mode take the whole-window body and
+    hold to the plain version by the rule of the other K3 tests, every
+    query row of a window (its padding rows too); two runs give the same
+    bits."""
+    b, heads, nwin, kh, kw, grid = K3_WINDOW_CASES[case]
+    dt, d, win = torch.bfloat16, 64, kh * kw
+    s = nwin * win
+    q, k, v = (_rand(gen, b, heads, s, d, dtype=dt) for _ in range(3))
+    bh = _rand(gen, b, heads, s, kh, dtype=dt, scale=0.3)
+    bw = _rand(gen, b, heads, s, kw, dtype=dt, scale=0.3)
+    kw_ = dict(kv_grid=grid, window_tokens=win, block_q=s, block_k=s)
+    assert A.flash_attention_route(q, k, v, bh, bw, **kw_) == "hopper_window"
+    A.reset_launch_counts()
+    got = A.flash_attention(q, k, v, bh, bw, **kw_)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_attention"] == 1
+    want = A.flash_attention_plain(q, k, v, bh, bw, kv_grid=grid,
+                                   window_tokens=win, scale=d ** -0.5)
+    gap = ((got.float() - want.float()).abs()
+           - RTOL[dt] * want.float().abs()).max().item()
+    print(f"K3 window hopper {case}: gap {gap:.3e}")
+    assert torch.isfinite(got.float()).all() and gap <= K3_ATOL[dt], gap
+    assert torch.equal(got, A.flash_attention(q, k, v, bh, bw, **kw_))
 
 
 # The register-tiled fp32 forward (csrc/f32_tiled_forward.cuh) that K2's

@@ -37,6 +37,9 @@ CASES = {
     "bias": (2, 2, 64, 64, 8, 8, None, None, None, 32, 32),
     "bias_kv_grid": (2, 2, 48, 64, 8, 8, (6, 5), None, None, 16, 32),
     "window_tokens": (2, 2, 64, 64, 4, 4, (3, 3), 16, None, 32, 32),
+    # SAM's grouped layout (WindowedAttention's window_group > 1): two
+    # 16 x 16 windows with 14 x 14 valid
+    "window_sam": (1, 2, 512, 512, 16, 16, (14, 14), 256, None, 512, 512),
     "kv_len": (2, 2, 64, 64, 0, 0, None, None, (0, 37), 32, 32),
 }
 

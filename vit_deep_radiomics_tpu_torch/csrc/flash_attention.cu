@@ -50,9 +50,23 @@
 //    register-tiled CUDA-core forward of f32_tiled_forward.cuh (64 query
 //    rows a block, K/V tiles by cp.async, 4 x 4 score and 4 x 8 output
 //    micro-tiles a thread).
-//  * The rest (window mode, D 32/128, other key grids, a bias with kv_len)
-//    keeps the first loops: keys stream through shared memory in 64-key
-//    tiles, zero-filled past the end; the block's bias rows are staged
+//  * bf16 at D = 64 in window mode (windows of at most 256 tokens, at most
+//    47 bias terms: Kh + Kw <= 47, 1/scale a power of two) takes K1's
+//    whole-window body (window_hopper.cuh) over the head-major layout: one
+//    (batch, window, head) an item, done whole by a persistent block; TMA
+//    boxes of the window's `window_tokens` query rows and of its first
+//    kh_valid key-grid rows (2-D maps of the (B*H*S, 64) views, the item at
+//    row (b*H + h)*S + w*window_tokens); one wgmma for the scores and one for
+//    the bias against the expand matrix E, whose mask term carries -1e30
+//    outside the kv_grid sub-grid; a one-pass softmax; every query row of
+//    the window, its padding rows too, stored by TMA. Memory bounds it: at
+//    100 windows of 16 x 16 tokens (14 x 14 valid) and 12 heads the
+//    function needs about 156 MB (q and the output whole, K and V at the
+//    valid keys, the bias terms of valid keys: 0.047 ms) for 11.8 GFLOP of
+//    valid work (0.012 ms).
+//  * The rest (fp32 window mode, D 32/128, other key grids, a bias with
+//    kv_len) keeps the first loops: keys stream through shared memory in
+//    64-key tiles, zero-filled past the end; the block's bias rows are staged
 //    once, transposed and times log2(e); a per-tile table gives each key
 //    its bias terms and its mask state. Key tiles past kv_len or past the
 //    valid rows of the key grid are skipped when every row keeps a valid
@@ -67,6 +81,7 @@
 #include "f32_tiled_forward.cuh"
 #include "flash_attention_core.cuh"
 #include "hopper_flash.cuh"
+#include "window_hopper.cuh"
 
 namespace {
 using namespace vdr::sm90;
@@ -769,6 +784,80 @@ int launch_hopper(const FlashParams& fp, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, D = 64, window mode: K1's whole-window body (window_hopper.cuh,
+// head-major)
+// ---------------------------------------------------------------------------
+
+// 1: an item loads only its window's first kh_valid key-grid rows (224 of
+// 256 keys at SAM's 16 x 16 windows with 14 x 14 valid: the keys past
+// them weigh exact zeros, every row keeping a valid key); 0: every key of
+// the window
+constexpr int kWinCutRows = 1;
+
+template <int N>
+__global__ void __launch_bounds__(win::kThreads, 1)
+    k3_window_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tout,
+                     const win::WinParams p) {
+  win::window_body<N, true>(&tq, &tk, &tv, &tout, p);
+}
+
+// Whether the whole-window body takes a call, its parameters, N and shared
+// memory: window mode with the bias (the wrapper requires it and kv_grid)
+// and no kv_len, bf16, D 64, windows of at most 256 tokens, kh + kw + 1 <=
+// 16 * win::kBiasSteps terms, 1/scale a power of two (window_hopper.cuh's
+// plan).
+bool window_plan(int B, int H, int Sq, int Sk, int D, int window, int dtype,
+                 bool biased, bool kv_len, int kh, int kw, int kh_valid,
+                 int kw_valid, float scale, win::WinParams* wp, int* n,
+                 size_t* smem) {
+  if (!window || !biased || kv_len || Sq != Sk || kh < 1 || kw < 1 ||
+      kh * kw != window)
+    return false;
+  // a kv_grid past the grid masks nothing there
+  kh_valid = kh_valid ? min(kh_valid, kh) : kh;
+  kw_valid = kw_valid ? min(kw_valid, kw) : kw;
+  if (kh_valid < 1 || kw_valid < 1) return false;
+  const int keys = kWinCutRows ? kh_valid * kw : window;
+  *n = keys > 208 && keys <= 224 ? 224 : win::hopper_width(keys);
+  if (!win::hopper_plan(B, Sq, H, D, window, keys, *n, kh, kw, true, scale,
+                        dtype, wp, smem))
+    return false;
+  wp->kh_valid = kh_valid;
+  wp->kw_valid = kw_valid;
+  return true;
+}
+
+int launch_window(const FlashParams& fp, win::WinParams p, int n,
+                  size_t smem, cudaStream_t stream) {
+  p.bias_h = static_cast<const __nv_bfloat16*>(fp.bias_h);
+  p.bias_w = static_cast<const __nv_bfloat16*>(fp.bias_w);
+  CUtensorMap tq, tk, tv, tout;
+  const int rows = fp.B * fp.H * fp.Sq;
+  if (!win::tensor_map_2d(&tq, fp.q, win::kD, rows, fp.window) ||
+      !win::tensor_map_2d(&tk, fp.k, win::kD, rows, p.keys) ||
+      !win::tensor_map_2d(&tv, fp.v, win::kD, rows, p.keys) ||
+      !win::tensor_map_2d(&tout, fp.out, win::kD, rows, fp.window))
+    return kErrTensorMap;
+  switch (n) {
+    case 64:
+      return win::launch(k3_window_kernel<64>, p.n_items, smem, stream, tq,
+                         tk, tv, tout, p);
+    case 208:
+      return win::launch(k3_window_kernel<208>, p.n_items, smem, stream, tq,
+                         tk, tv, tout, p);
+    case 224:
+      return win::launch(k3_window_kernel<224>, p.n_items, smem, stream, tq,
+                         tk, tv, tout, p);
+    default:
+      return win::launch(k3_window_kernel<256>, p.n_items, smem, stream, tq,
+                         tk, tv, tout, p);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32, D = 64, outside window mode: the register-tiled forward
 // ---------------------------------------------------------------------------
 
@@ -815,11 +904,19 @@ const char* vdr_error_string(int err) {
 }
 
 // The body a call with these arguments runs: 0 the loops above, 1 the
-// Hopper kernel, 2 the register-tiled fp32 forward.
+// Hopper kernel, 2 the register-tiled fp32 forward, 3 the whole-window body
+// (window mode).
 int vdr_flash_attention_route(int D, int window, int dtype, int biased,
                               int kv_len, int kh, int kw, int kh_valid,
-                              int kw_valid) {
+                              int kw_valid, float scale) {
   if (tiled_takes(D, window, dtype)) return 2;
+  win::WinParams wp;
+  int n = 0;
+  size_t smem = 0;
+  if (window_plan(1, 1, window, window, D, window, dtype, biased != 0,
+                  kv_len != 0, kh, kw, kh_valid, kw_valid, scale, &wp, &n,
+                  &smem))
+    return 3;
   return hopper_keys(D, window, dtype, biased != 0, kv_len != 0, kh, kw,
                      kh_valid, kw_valid)
              ? 1
@@ -844,6 +941,13 @@ int vdr_flash_attention(const void* q, const void* k, const void* v,
   if (tiled_takes(D, window, dtype))
     return bias_h != nullptr ? launch_tiled<true>(p, s)
                              : launch_tiled<false>(p, s);
+  win::WinParams wp;
+  int n = 0;
+  size_t smem = 0;
+  if (window_plan(B, H, Sq, Sk, D, window, dtype, bias_h != nullptr,
+                  kv_len != nullptr, kh, kw, kh_valid, kw_valid, scale, &wp,
+                  &n, &smem))
+    return launch_window(p, wp, n, smem, s);
   switch (hopper_keys(D, window, dtype, bias_h != nullptr, kv_len != nullptr,
                       kh, kw, kh_valid, kw_valid)) {
     case 48: return launch_hopper<48, true>(p, s);

@@ -178,6 +178,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 #define VDR_D64(d) VDR_F32(d, 0), VDR_F32(d, 32)
 #define VDR_D52(d) VDR_F32(d, 0), VDR_F8(d, 32), VDR_F8(d, 40), VDR_F4(d, 48)
 #define VDR_D104(d) VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F8(d, 96)
+#define VDR_D112(d)                                               \
+  VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F8(d, 96), \
+      VDR_F8(d, 104)
 #define VDR_D128(d) VDR_F32(d, 0), VDR_F32(d, 32), VDR_F32(d, 64), VDR_F32(d, 96)
 #define VDR_R8_0 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define VDR_R8_1 "%8, %9, %10, %11, %12, %13, %14, %15"
@@ -209,6 +212,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
   "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4    \
   ", " VDR_R8_5 ", " VDR_R8_6 ", " VDR_R8_7 ", " VDR_R8_8 ", " VDR_R8_9 \
   ", " VDR_R8_10 ", " VDR_R8_11 ", " VDR_R8_12 "}"
+#define VDR_R112                                                          \
+  "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4   \
+  ", " VDR_R8_5 ", " VDR_R8_6 ", " VDR_R8_7 ", " VDR_R8_8 ", " VDR_R8_9 \
+  ", " VDR_R8_10 ", " VDR_R8_11 ", " VDR_R8_12 ", " VDR_R8_13 "}"
 #define VDR_R128                                                          \
   "{" VDR_R8_0 ", " VDR_R8_1 ", " VDR_R8_2 ", " VDR_R8_3 ", " VDR_R8_4   \
   ", " VDR_R8_5 ", " VDR_R8_6 ", " VDR_R8_7 ", " VDR_R8_8 ", " VDR_R8_9 \
@@ -217,9 +224,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
 
 // Wgmma<N>: D(64xN, fp32) (+)= A(64x16) * B(16xN), bf16 in, for the widths
 // the kernels use (K2 and the K5 backward: 64; K3: 48 and 64 for its
-// scores, 64 for PV; K1: 64 for PV, 208 and 256 for its scores; K4: 64 and
-// 208 for its scores, 64 and 104 for dP's key chunks, 16 and 64 for phase
-// B's query chunks; K7: 64 for the first product's hidden columns, 128
+// scores, 64 for PV; K1: 64 for PV, 208 and 256 for its scores, K3's
+// window mode also 224 (the first 14 grid rows of a 16 x 16 window); K4:
+// 64 and 208 for its scores, 64 and 104 for dP's key chunks, 16 and 64 for
+// phase B's query chunks; K7: 64 for the first product's hidden columns, 128
 // for the second's output columns; the K6 bf16 dq: 16, 32, 48 and 64 for
 // its key tiles).
 // ss reads A and B from shared memory, both K-major; rs takes A from
@@ -268,6 +276,8 @@ VDR_WGMMA(104, VDR_R52, VDR_D52, "%52", "%53", "%54", "%55", "%56", "%57",
           "%58")
 VDR_WGMMA(208, VDR_R104, VDR_D104, "%104", "%105", "%106", "%107", "%108",
           "%109", "%110")
+VDR_WGMMA(224, VDR_R112, VDR_D112, "%112", "%113", "%114", "%115", "%116",
+          "%117", "%118")
 VDR_WGMMA(256, VDR_R128, VDR_D128, "%128", "%129", "%130", "%131", "%132",
           "%133", "%134")
 

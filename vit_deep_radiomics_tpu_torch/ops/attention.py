@@ -256,7 +256,8 @@ def fused_window_attention_route(q, kv, bias_h=None, bias_w=None, *,
     ``"plain"`` on the CPU; on the card, as ``csrc/fused_window_attention.cu``
     chooses, ``"tiled"`` (fp32: the register-tiled forward of
     ``f32_tiled_forward.cuh``), ``"hopper"`` (the TMA + wgmma kernel: bf16,
-    windows of at most 256 tokens) or ``"loops"`` (bf16 otherwise: the
+    windows of at most 256 tokens, Kh + Kw at most 47, 1/scale a power of
+    two) or ``"loops"`` (bf16 otherwise: the
     mma.sync loop of ``flash_attention_core.cuh``)."""
     d, kh, kw = _check_layout(q, kv, bias_h, bias_w, None, num_heads,
                               window_tokens)
@@ -434,29 +435,33 @@ def flash_attention_plain(q, k, v, bias_h=None, bias_w=None, kv_len=None,
 
 
 def flash_attention_route(q, k, v, bias_h=None, bias_w=None, kv_len=None,
-                          *, kv_grid=None, window_tokens=None, block_q=512,
-                          block_k=512) -> str:
+                          *, kv_grid=None, window_tokens=None, scale=None,
+                          block_q=512, block_k=512) -> str:
     """Which body :func:`flash_attention` runs for these operands:
     ``"plain"`` on the CPU; on the card, as ``csrc/flash_attention.cu``
     chooses, ``"tiled"`` (fp32 at D 64 outside window mode: the
     register-tiled forward of ``f32_tiled_forward.cuh``), ``"hopper"``
     (bf16 at D 64 outside window mode with no bias, or a bias on key-grid
     rows of 64 keys whose valid columns round up to 48 or 64 and no
-    ``kv_len``: the TMA + wgmma kernel) or ``"loops"`` (the loops of
+    ``kv_len``: the TMA + wgmma kernel), ``"hopper_window"`` (bf16 at D 64
+    in window mode, windows of at most 256 tokens, Kh + Kw at most 47 and
+    1/scale a power of two: K1's whole-window body of
+    ``window_hopper.cuh``) or ``"loops"`` (the loops of
     ``flash_attention.cu``)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     d, kh, kw = _check_flash_layout(q, k, v, bias_h, bias_w, kv_len,
                                     kv_grid, window_tokens, block_q, block_k)
     if q.device.type == "cpu":
         return "plain"
     _check_cuda(q, d, k, v, bias_h, bias_w, builds=_K3_HEAD_DIMS,
                 source="csrc/flash_attention.cu")
-    _, fn = _load("flash_attention", [_I] * 9,
+    _, fn = _load("flash_attention", [_I] * 9 + [_F],
                   entry="vdr_flash_attention_route")
     kh_valid, kw_valid = kv_grid if kv_grid is not None else (0, 0)
-    return ("loops", "hopper", "tiled")[
+    return ("loops", "hopper", "tiled", "hopper_window")[
         fn(d, window_tokens or 0, _DTYPE_CODES[q.dtype],
            int(bias_h is not None), int(kv_len is not None), kh, kw,
-           kh_valid, kw_valid)]
+           kh_valid, kw_valid, scale)]
 
 
 def flash_attention(q, k, v, bias_h=None, bias_w=None, kv_len=None, *,

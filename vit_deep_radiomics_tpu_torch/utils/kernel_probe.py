@@ -16,6 +16,7 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k1
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k2
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k3win
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k4
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5fwd
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe variants k5dkv
@@ -47,10 +48,11 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe sass [--source flash_attention_bwd_dq] PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path dinov2 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path k1 PARENT CHANGE
 
 ``variants`` builds copies of one kernel's source with one constant or one
 step changed (K1: the number of buffered work items or of consumer
-warpgroups; K2: the ring depth or the consumer warpgroups; K3 bf16: 64-key
+warpgroups, four bias steps of E instead of three; K2: the ring depth or the consumer warpgroups; K3 bf16: 64-key
 tiles with the masked columns in bias_w instead of 48-key boxes, two
 consumer warpgroups, the ring depth; K4: one
 warpgroup, the bias rows read from device memory instead of staged by
@@ -84,10 +86,13 @@ read once per 64 rows), two ring slots, and the loops' 32-row instance
 ring depth: timing ablations
 whose output is wrong by design where a step is removed),
 calls each through ``ctypes`` at its path's shapes (K1: q (100, 196, 768),
-Kh = Kw = 14; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
+Kh = Kw = 14, and 16 x 16 windows, q (100, 256, 768), each variant's
+output also as a SHA-256; K2: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len
 shape, 4 x 1536 with 1370 valid; K3 bf16: SAM @768's q (4, 12, 2304, 64)
 and JAX's padded (4, 12, 3072, 64) against k/v (4, 12, 3072, 64), Kh 48,
-Kw 64, ``kv_grid`` (48, 48); K4: q (50, 196, 768), Kh = Kw = 14; K5:
+Kw 64, ``kv_grid`` (48, 48); K3's window mode in bf16 (``k3win``): q (25,
+12, 1024, 64), 100 windows of 16 x 16 tokens with 14 x 14 valid, beside
+SDPA on one batch entry a window; K4: q (50, 196, 768), Kh = Kw = 14; K5:
 q (2, 4096, 768), Kh = Kw = 64, and the kv_len shape at B=2, bf16, both
 also q (1, 4096, 768) on a key grid of 32 x 128 and the forward q (1,
 16384, 768) on 128 x 128 (SAM @2048's), the forward's out and lse held to
@@ -173,7 +178,10 @@ and 17 (K7 and K8); with ``--path dinov2`` ``chip_smoke.py``'s phase 16
 (K7, ViT-g/14's rows among them) and its phase 19 for ViT-g/14 ``full``
 @518 with ``VDR_FUSED_MLP=1`` alone (the B=4 forward's host ms, device
 ms, idle share and top device costs, the batch-1 checks and a one-patient
-extraction's img/s).
+extraction's img/s); with ``--path k1`` K1 in bf16 through its wrapper at
+SAM's 14 x 14 windows and at 16 x 16 windows (100 windows, 12 heads, one
+a batch row): its route, ms and a SHA-256 of its output, which must not
+differ between the trees.
 Nothing is built or run at import.
 """
 
@@ -181,6 +189,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import difflib
+import hashlib
 import re
 import shutil
 import subprocess
@@ -193,6 +203,7 @@ __all__ = ["SOURCES", "HEADERS", "VARIANTS", "CALLS", "variant_source",
 SOURCES = {"k1": "fused_window_attention.cu",
            "k1f32": "fused_window_attention.cu",
            "k3": "flash_attention.cu",
+           "k3win": "flash_attention.cu",
            "k2": "fused_global_attention.cu",
            "k4": "window_attention_bwd.cu",
            "k6fwd": "flash_attention_fwd.cu",
@@ -210,7 +221,9 @@ SOURCES = {"k1": "fused_window_attention.cu",
            "k7wide": "fused_ln_mlp_residual.cu",
            "k8": "int8_matmul.cu"}
 # headers a variant of the kernel may change (copied beside its source)
-HEADERS = {"k2": ("global_fwd_hopper.cuh",),
+HEADERS = {"k1": ("window_hopper.cuh",),
+           "k3win": ("window_hopper.cuh",),
+           "k2": ("global_fwd_hopper.cuh",),
            "k5fwd": ("global_fwd_hopper.cuh",),
            "k1f32": ("f32_tiled_forward.cuh",),
            "k2f32": ("f32_tiled_forward.cuh",),
@@ -297,14 +310,18 @@ VARIANTS = {
         "stages_3": ({"kStages": 3}, ()),
         "stages_4": ({"kStages": 4}, ()),
     },
+    # K1's Hopper body (bf16): one buffered item (at 16 x 16 windows with
+    # the bias rows staged), one consumer warpgroup, four bias steps of E
+    # instead of three, the softmax or the products removed
     "k1": {
         "as_built": ({}, ()),
         "buffers_1": ({"kBuffers": 1}, ()),
+        "bias_steps_4": ({"kBiasSteps": 4}, ()),
         "consumers_1": ({"kConsumers": 1}, ()),
         "no_softmax": ({}, ("softmax_rows<N>(s, pa, p.scale_log2, l_lo, "
                             "l_hi);",)),
         "no_products": ({}, (
-            "qk_products<N>(s, ba, nb, q_addr, k_addr, e_addr);",
+            "qk_products<N>(s, frag, q_addr, k_addr, e_addr);",
             "pv_products<N>(o, pa, v_addr);")),
     },
     "k2": {
@@ -333,6 +350,25 @@ VARIANTS = {
             "qk_tile<NK>(s, qa, k_addr + cur * kKTile);",
             "pv_tile<NK>(o, pa, v_addr + prev * kKTile);",
             "pv_tile<NK>(o, pa, v_addr + last * kKTile);")),
+    },
+    # K3's window mode on K1's whole-window body (bf16): every key of the
+    # window in N (256, not 224 at SAM's 16 x 16 windows with 14 x 14
+    # valid), one buffered item (the bias rows staged) instead of two (the
+    # bias rows read from device memory), four bias steps of E instead of
+    # three, the bias wgmma or the softmax removed, and the loops that took
+    # window mode before
+    "k3win": {
+        "as_built": ({}, ()),
+        "keys_256": ({"kWinCutRows": 0}, ()),
+        "buffers_1": ({"kBuffers": 1}, ()),
+        "bias_steps_4": ({"kBiasSteps": 4}, ()),
+        "no_bias": ({}, ((
+            "    Wgmma<N>::template rs<0>(s, a[0], de + 2 * kb, 1);",
+            "    ;"),)),
+        "no_softmax": ({}, ("softmax_rows<N>(s, pa, p.scale_log2, l_lo, "
+                            "l_hi);",)),
+        "loops": ({}, (("    return launch_window(p, wp, n, smem, s);",
+                        "    ;"),)),
     },
     "k6dkv": {
         "as_built": ({}, ()),
@@ -569,8 +605,9 @@ _K6H_SHAPES = ((2, 2304, 48, 48, None), (2, 1600, 40, 40, None),
                (2, 1296, 36, 36, None), (2, 2704, 52, 52, None),
                (2, 3600, 60, 60, None))
 CALLS = {
-    "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
-           _k1_call),
+    # K1 one window a batch row: SAM's 14 x 14 windows and 16 x 16 ones
+    "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P],
+           ((100, 196, 14, 14, None), (100, 256, 16, 16, None)), _k1_call),
     "k2": ([_P] * 6 + [_I] * 6 + [_F, _I, _P],
            ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), _k2_call),
     "k4": ([_P] * 10 + [_I] * 7 + [_F, _P], ((50, 196, 14, 14, None),), None),
@@ -592,6 +629,11 @@ CALLS = {
     # query rows the path passes and the 3072 JAX pads them to
     "k3": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
            ((4, 2304, 48, 64, None), (4, 3072, 48, 64, None)), None),
+    # K3's window mode: (B, S, Kh, Kw, kv_len, kv_grid, window_tokens),
+    # chip_smoke phase 15's `window` shape (100 windows of 16 x 16, 14 x 14
+    # valid)
+    "k3win": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
+              ((25, 1024, 16, 16, None, (14, 14), 256),), None),
     # fp32: (B, S, Kh, Kw, kv_len); K1 one window a batch row
     "k1f32": ([_P] * 5 + [_I] * 7 + [_F, _I, _P], ((100, 196, 14, 14, None),),
               None),
@@ -747,7 +789,10 @@ def _variants(kernel: str, out_dir: Path) -> None:
             run()
             torch.cuda.synchronize()
             gap = ((out.float() - ref).abs() - 2 ** -7 * ref.abs()).max()
-            print(f"  {name}: gap {gap.item():.3e} ms {_ms(torch, run):.4f}")
+            sha = hashlib.sha256(out.view(torch.int16).cpu().numpy()
+                                 .tobytes()).hexdigest()[:16]
+            print(f"  {name}: gap {gap.item():.3e} ms {_ms(torch, run):.4f}"
+                  f" sha256 {sha}")
         heads_of = [t.reshape(b, s, heads, d).transpose(1, 2)
                     for t in (q, kv[..., :c], kv[..., c:])]
         if kh:
@@ -1210,12 +1255,15 @@ def _k4_variants(kernel: str, out_dir: Path) -> None:
 def _forward_variants(kernel: str, out_dir: Path) -> None:
     """The variants of the fp32 forward (K1 and K2: the port's (B, S, H·D)
     layouts, K1 one window a batch row; K3: head-major (B, H, S, D)) at the
-    `parity` paths' shapes, and of K3's bf16 Hopper body at SAM @768's: gap
-    to the plain version (bf16: beyond one step, 2^-7·|ref|), ms beside
-    SDPA's in the same dtype (the dense bias, or -inf at every masked key,
-    as ``attn_mask``), share of the fp32 CUDA-core peak (67 TFLOP/s) or of
-    the bf16 tensor-core peak (989 TFLOP/s, H100 SXM) on the work the call
-    is handed."""
+    `parity` paths' shapes, of K3's bf16 Hopper body at SAM @768's and of
+    its window mode (``k3win``) at chip_smoke.py phase 15's: gap to the
+    plain version (bf16: beyond one step, 2^-7·|ref|), ms beside SDPA's in
+    the same dtype (the dense bias, or -inf at every masked key, as
+    ``attn_mask``; window mode one batch entry a window), share of the fp32
+    CUDA-core peak (67 TFLOP/s) or of the bf16 tensor-core peak (989
+    TFLOP/s, H100 SXM) on the work the call is handed, and the bound on the
+    bytes the function must move (q and the output whole, K and V at the
+    valid keys, the bias terms that reach a valid key; 3.35 TB/s)."""
     import torch
     import torch.nn.functional as F
 
@@ -1225,7 +1273,7 @@ def _forward_variants(kernel: str, out_dir: Path) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     heads, d = 12, 64
     c, scale = heads * d, d ** -0.5
-    bf16 = kernel == "k3"
+    bf16 = kernel in ("k3", "k3win")
     dtype = torch.bfloat16 if bf16 else torch.float32
     peak, rtol = (989e12, 2 ** -7) if bf16 else (67e12, 0.0)
 
@@ -1236,14 +1284,17 @@ def _forward_variants(kernel: str, out_dir: Path) -> None:
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
-    for b, s, kh, kw, n_valid in CALLS[kernel][1]:
-        bh = bw = kl = grid = None
+    for b, s, kh, kw, n_valid, *window in CALLS[kernel][1]:
+        # K3's window mode: its kv_grid and the tokens of a window
+        grid, win = window or (None, 0)
+        bh = bw = kl = None
         if kh:
             bh, bw = rand(b, heads, s, kh, s=0.3), rand(b, heads, s, kw, s=0.3)
-            grid = (kh, kh) if kernel.startswith("k3") else None
+            if kernel.startswith("k3") and not win:
+                grid = (kh, kh)
         else:
             kl = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
-        sk = kh * kw if kh else s
+        sk = kh * kw if kh and not win else s
         if kernel in ("k1f32", "k2f32"):
             q, kv = rand(b, s, c), rand(b, s, 2 * c)
             views = [t.reshape(b, s, heads, d).transpose(1, 2)
@@ -1265,23 +1316,41 @@ def _forward_variants(kernel: str, out_dir: Path) -> None:
         else:
             q, k, v = (rand(b, heads, n, d) for n in (s, sk, sk))
             ref = A.flash_attention_plain(q, k, v, bh, bw, kl, kv_grid=grid,
+                                          window_tokens=win or None,
                                           scale=scale)
             views = [q, k, v]
 
             def c_args(out):
                 return (*map(ptr, (q, k, v, bh, bw, kl, out)), b, heads, s,
-                        sk, d, kh, kw, *(grid or (0, 0)), 0, scale)
-        key = torch.arange(sk, device="cuda")
-        valid = key < (n_valid or sk)
+                        sk, d, kh, kw, *(grid or (0, 0)), win, scale)
+        # SDPA's batch entries and keys: one a window in window mode
+        n_seg, seg = (s // win, win) if win else (1, sk)
+        bias = (bh, bw)
+        if win:
+            def split(t):
+                return t.reshape(b, heads, n_seg, win, t.shape[-1]) \
+                    .transpose(1, 2).reshape(b * n_seg, heads, win,
+                                             t.shape[-1]).contiguous()
+
+            views, bias = list(map(split, views)), tuple(map(split, bias))
+        key = torch.arange(seg, device="cuda")
+        valid = key < (n_valid or seg)
         if grid:
             valid &= (key // kw < grid[0]) & (key % kw < grid[1])
-        mask = torch.zeros(b, heads, s, sk, device="cuda", dtype=dtype)
+        mask = torch.zeros(b * n_seg, heads, s // n_seg, seg, device="cuda",
+                           dtype=dtype)
         if kh:
-            mask = (bh[..., :, None] + bw[..., None, :]).reshape(mask.shape)
+            mask = (bias[0][..., :, None] + bias[1][..., None, :]).reshape(
+                mask.shape)
         mask = mask.masked_fill(~valid, float("-inf"))
-        flops = 4.0 * b * heads * s * sk * d
+        flops = 4.0 * b * heads * s * seg * d
+        terms = (min(grid[0], kh) + min(grid[1], kw) if grid else kh + kw)
+        nbytes = dtype.itemsize * b * heads * (
+            2 * s * d + 2 * n_seg * int(valid.sum()) * d + s * terms)
         print(f"{kernel} shape ({b}, {heads}, {s}, {d}), Kh {kh}, Kw {kw}, "
-              f"kv_len {n_valid}, kv_grid {grid}:")
+              f"kv_len {n_valid}, kv_grid {grid}, windows of {win or None}: "
+              f"bytes bound {nbytes / 3.35e12 * 1e3:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB)")
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ref_f = ref.float()
         for name, fn in fns.items():
@@ -1304,7 +1373,7 @@ def _forward_variants(kernel: str, out_dir: Path) -> None:
         lib = _ms(torch, lambda: F.scaled_dot_product_attention(
             *views, attn_mask=mask, scale=scale), 5)
         print(f"  sdpa: ms {lib:.4f}")
-        del q, ref, views, mask, bh, bw, kl
+        del q, ref, views, mask, bh, bw, bias, kl
         torch.cuda.empty_cache()
 
 
@@ -2041,6 +2110,48 @@ cs.DINO_PATHS = {k: v for k, v in cs.DINO_PATHS.items()
 cs.dinov2_extraction_phase(torch, A, vit, precision, tex, syn)
 '''
 
+# K1 in bf16 through its wrapper, one window a batch row, at SAM's 14 x 14
+# windows and at 16 x 16 windows: route, ms (mean of 3 x 50 calls on CUDA
+# events, after a warm-up) and a SHA-256 of the output
+_PAIR_K1_CHILD = r'''
+import hashlib, sys
+sys.path.insert(0, ".")
+import torch
+from vit_deep_radiomics_tpu_torch.ops import attention as A
+from vit_deep_radiomics_tpu_torch.utils import cuda_build
+cuda_build.build_all(("fused_window_attention",))
+g = torch.Generator(device="cuda").manual_seed(3)
+
+
+def rand(*shape, s=1.0):
+    return (torch.randn(*shape, generator=g, device="cuda") * s).to(
+        torch.bfloat16)
+
+
+for side in (14, 16):
+    b, s = 100, side * side
+    q, kv = rand(b, s, 768), rand(b, s, 1536)
+    bh, bw = rand(b, 12, s, side, s=0.3), rand(b, 12, s, side, s=0.3)
+    opts = dict(num_heads=12, window_tokens=s, scale=0.125)
+    route = A.fused_window_attention_route(q, kv, bh, bw, **opts)
+    out = A.fused_window_attention(q, kv, bh, bw, **opts)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(50):
+            A.fused_window_attention(q, kv, bh, bw, **opts)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 50)
+    sha = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes())
+    print(f"kernel K1 [{side} x {side} windows]: route {route}, ms "
+          f"{sum(times) / 3:.4f} ({', '.join(f'{x:.4f}' for x in times)}), "
+          f"sha256 {sha.hexdigest()[:16]}", flush=True)
+'''
+
 _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
              "fast-2048": _PAIR_FAST2048_CHILD,
@@ -2050,7 +2161,8 @@ _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "finetune-896": _finetune_child(896),
              "finetune-960": _finetune_child(960, (704, 832, 960)),
              "parity-forward": _PAIR_PARITY_FORWARD_CHILD,
-             "frozen": _PAIR_FROZEN_CHILD, "dinov2": _PAIR_DINOV2_CHILD}
+             "frozen": _PAIR_FROZEN_CHILD, "dinov2": _PAIR_DINOV2_CHILD,
+             "k1": _PAIR_K1_CHILD}
 
 
 def _pair(parent: Path, change: Path, path: str = "extraction") -> None:
@@ -2083,6 +2195,15 @@ for n in names:
 '''
 
 
+def _kernel_key(name: str) -> str:
+    """A kernel's mangled name without what may differ between two trees
+    that build the same code: the hash nvcc gives an unnamed namespace and
+    the parameter list (a parameter struct that moved to another
+    namespace)."""
+    name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_ZN", name)
+    return name.split("EEv", 1)[0]
+
+
 def _sass_functions(so: Path) -> dict:
     """{kernel: its SASS text} of one built library (``cuobjdump -sass``):
     the lines between a kernel's ``Function :`` line and the row of dots
@@ -2094,7 +2215,7 @@ def _sass_functions(so: Path) -> dict:
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1)
+            name = _kernel_key(m.group(1))
             funcs[name] = []
         elif line.strip().startswith(".."):
             name = None
@@ -2123,6 +2244,15 @@ def _sass(parent: Path, change: Path, names, match: str) -> None:
               f"another, {len(only)} in one tree only")
         for k in other + only:
             print(f"  {'another' if k in other else 'one tree'}: {k}")
+            if k in other:
+                a_, b_ = fa[k].splitlines(), fb[k].splitlines()
+                diff = [ln for ln in difflib.unified_diff(a_, b_, n=0,
+                                                          lineterm="")
+                        if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+                print(f"    {len(a_)} / {len(b_)} lines, {len(diff)} "
+                      "differ; the first:")
+                for ln in diff[:8]:
+                    print(f"    {ln[:150]}")
 
 
 def main(argv=None) -> int:
@@ -2168,7 +2298,7 @@ def main(argv=None) -> int:
             _k6_variants(args.kernel, args.out)
         elif args.kernel.startswith("k5"):
             _k5_variants(args.kernel, args.out)
-        elif args.kernel.endswith("f32") or args.kernel == "k3":
+        elif args.kernel.endswith("f32") or args.kernel.startswith("k3"):
             _forward_variants(args.kernel, args.out)
         else:
             _variants(args.kernel, args.out)
