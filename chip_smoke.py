@@ -12,13 +12,16 @@ Phases (each one fails the run with a non-zero exit):
    csrc`` for ``sm_90a``, one process per source, in parallel; the ptxas
    report of K4 and the K5 backward (TMA + wgmma), the register-tiled K6
    backward kernels and the register-tiled fp32 forward's kernels in K1's,
-   K2's, K3's and the K6 forward's sources, K3's Hopper kernel and the
-   Hopper kernels of the K5 forward and backward, K7 (its C 768 body and
-   its C 1536 cluster body), K8 and K6's bf16 forward, dq and dkv (30
-   instances each), and K7's C 1536 loop instance (registers, spills),
+   K2's, K3's (its window mode's too) and the K6 forward's sources, K3's
+   Hopper kernel and the Hopper kernels of the K5 forward and backward, K7
+   (its C 768 body and its C 1536 cluster body), K8 and K6's bf16
+   forward, dq and dkv (30 instances each), and K7's C 1536 loop instance
+   (registers, spills),
    which must show no spill (the Hopper kernels also no ``C75xx`` wgmma
    serialisation line), and the K6 bf16 forward's mma.sync kernel and
-   K7's fp32 C 1536 loop instance no spill;
+   K7's fp32 C 1536 loop instance no spill; K3's loops must be built for
+   fp32 at D 32 and 128 only (the tiled body takes fp32 at 64) and bf16 at
+   32, 64 and 128;
 3. kernels: K1 (window) and K2 (global) fused attention at the shapes of
    the extraction path (SAM ViT-B/16 @1024, slice batch 4), fp32 and
    bf16, held against their plain PyTorch versions (both C entries are
@@ -97,10 +100,12 @@ Phases (each one fails the run with a non-zero exit):
     pads them, the ``kv_len`` mode at q (4, 12, 1370, 64), k/v 1536 rows
     with 1370 valid keys, and the ``window_tokens`` mode (the 100 windows
     of batch 4 @1024 padded to 16x16, 4 per row: q (25, 12, 1024, 64),
-    ``kv_grid`` (14, 14)); each against its plain version, with plain,
-    SDPA and bound times, and the body its C entry takes (the Hopper
-    kernel in bf16 but in window mode, the register-tiled forward in
-    fp32);
+    ``kv_grid`` (14, 14)), and the @768 global shape at the same width in
+    heads of 32 and of 128 (24 x 32, 6 x 128), both dtypes; each against
+    its plain version, with plain, SDPA and bound times, and the body its C
+    entry takes (at D 64 the Hopper kernel in bf16, K1's whole-window body
+    in bf16 window mode, the register-tiled forward in fp32, window mode
+    too; the loops at D 32 and 128);
 16. K7, the fused LayerNorm -> MLP -> residual, at the SAM forward's rows
     (16384 x 768, hidden 3072, bf16), DINOv2 ViT-B/14's (4 x 1370, with
     layerscale) and DINOv2 ViT-g/14's (4 x 1370 and 1 x 1370 rows of 1536,
@@ -244,6 +249,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -296,10 +302,15 @@ K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 NO_SPILL = ("window_attention_bwd", "global_attention_bwd_dq",
             "global_attention_bwd_dkv", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
-# Sources that carry the register-tiled fp32 forward (f32_tiled_forward.cuh):
-# its kernels (with and without bias, *tiled_kernel*) must show no spill
-TILED_SOURCES = ("fused_window_attention", "fused_global_attention",
-                 "flash_attention", "flash_attention_fwd")
+# Sources that carry the register-tiled fp32 forward (f32_tiled_forward.cuh)
+# and its instances (*tiled_kernel*: with and without bias; K3 also its
+# window mode's), which must show no spill
+TILED_SOURCES = {"fused_window_attention": 2, "fused_global_attention": 2,
+                 "flash_attention": 3, "flash_attention_fwd": 2}
+# K3's loops (*flash_f32_kernel*, *flash_bf16_kernel*): fp32 at D 32 and
+# 128 (the tiled body takes every fp32 call at D 64), bf16 at 32, 64, 128
+K3_LOOP_INSTANCES = {"flash_f32_kernel": (32, 128),
+                     "flash_bf16_kernel": (32, 64, 128)}
 # K3's window mode on K1's whole-window body (*window_kernel*): one
 # instance per N of keys an item loads
 K3_WINDOW_INSTANCES = 4
@@ -2107,30 +2118,41 @@ def k3_phase(torch, A, peaks):
     padded to 3072 as JAX pads them (``sam768_padded``, the bound the same).
     The bodies: the Hopper kernel for bf16 at @768 and in ``kv_len`` mode
     (no bias: 64-key tiles up to kv_len), the register-tiled forward for
-    fp32 outside window mode; the ``window`` shape (100 windows of 16 x 16
-    tokens, 14 x 14 valid) takes K1's whole-window body in bf16
-    (``hopper_window``) and the loops in fp32. That shape checks the
-    ``window_tokens`` mode, which only ``WindowedAttention``'s
+    fp32 at D 64 (in window mode one (batch, window, head) a problem); the
+    ``window`` shape (100 windows of 16 x 16 tokens, 14 x 14 valid) takes
+    K1's whole-window body in bf16 (``hopper_window``). That shape checks
+    the ``window_tokens`` mode, which only ``WindowedAttention``'s
     ``window_group`` > 1 reaches (JAX's default is 1, and no entry point
-    of either package sets it), so no path of the port runs it."""
+    of either package sets it), so no path of the port runs it. The @768
+    global shape at the same width in 24 heads of 32 and in 6 heads of 128
+    (``sam768_d32``, ``sam768_d128``) times K3's other head dims, which
+    keep the loops in both dtypes; no model of the repo has them."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    heads, d = 12, 64
-    scale = d ** -0.5
     bf16, fp32 = torch.bfloat16, torch.float32
-    # B, Sq, Sk, Kh, Kw, kv_grid, kv_len, window_tokens, dtypes
-    shapes = {"sam768_global": (4, 2304, 3072, 48, 64, (48, 48), None, None,
-                                (bf16, fp32)),
-              "sam768_padded": (4, 3072, 3072, 48, 64, (48, 48), None, None,
-                                (bf16,)),
-              "kv_len": (4, 1370, 1536, 0, 0, None, 1370, None, (bf16,)),
-              "window": (25, 1024, 1024, 16, 16, (14, 14), None, 256,
-                         (bf16, fp32))}
-    # bf16; fp32 takes the tiled body outside window mode, the loops in it
-    bodies = {"sam768_global": "hopper", "sam768_padded": "hopper",
-              "kv_len": "hopper", "window": "hopper_window"}
+    # B, heads, D, Sq, Sk, Kh, Kw, kv_grid, kv_len, window_tokens, dtypes
+    shapes = {"sam768_global": (4, 12, 64, 2304, 3072, 48, 64, (48, 48),
+                                None, None, (bf16, fp32)),
+              "sam768_padded": (4, 12, 64, 3072, 3072, 48, 64, (48, 48),
+                                None, None, (bf16,)),
+              "kv_len": (4, 12, 64, 1370, 1536, 0, 0, None, 1370, None,
+                         (bf16,)),
+              "window": (25, 12, 64, 1024, 1024, 16, 16, (14, 14), None, 256,
+                         (bf16, fp32)),
+              "sam768_d32": (4, 24, 32, 2304, 3072, 48, 64, (48, 48), None,
+                             None, (bf16, fp32)),
+              "sam768_d128": (4, 6, 128, 2304, 3072, 48, 64, (48, 48), None,
+                              None, (bf16, fp32))}
+    # shape -> (bf16 body, fp32 body)
+    bodies = {"sam768_global": ("hopper", "tiled"),
+              "sam768_padded": ("hopper", None),
+              "kv_len": ("hopper", None),
+              "window": ("hopper_window", "tiled"),
+              "sam768_d32": ("loops", "loops"),
+              "sam768_d128": ("loops", "loops")}
     rows = {}
-    for shape, (b, sq, sk, kh, kw, grid, kv_len, win,
+    for shape, (b, heads, d, sq, sk, kh, kw, grid, kv_len, win,
                 dtypes) in shapes.items():
+        scale = d ** -0.5
         for dtype in dtypes:
             dname = str(dtype).split(".")[1]
 
@@ -2161,8 +2183,7 @@ def k3_phase(torch, A, peaks):
                                                scale=scale)
 
             body = A.flash_attention_route(q, k, v, bh, bw, kl, **opts)
-            want = bodies[shape] if dtype == bf16 else \
-                "loops" if win else "tiled"
+            want = bodies[shape][dtype == fp32]
             log(f"kernel flash_attention [{shape}, {dname}]: body {body}")
             if body != want:
                 raise AssertionError(f"flash_attention {shape} {dname} takes "
@@ -3880,17 +3901,29 @@ def main() -> int:
         log(f"ptxas {src}: {' | '.join(notes) or 'built earlier, no log'}")
         if cuda_build.spill_bytes(build_logs[src]):
             raise AssertionError(f"{src} spills registers")
-    for src in TILED_SOURCES:
+    for src, n_tiled in TILED_SOURCES.items():
         funcs = cuda_build.ptxas_functions(build_logs[src])
         tiled = {f: r for f, r in funcs.items() if "tiled_kernel" in f}
         log(f"ptxas {src} (tiled fp32 forward): " + " | ".join(
             f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
             for f, r in tiled.items()) + f"; the whole source "
             f"{cuda_build.spill_bytes(build_logs[src])} bytes spill")
-        if build_logs[src] and (len(tiled) != 2 or any(
+        if build_logs[src] and (len(tiled) != n_tiled or any(
                 r["spill"] for r in tiled.values())):
             raise AssertionError(f"{src}: the tiled fp32 forward's kernels "
                                  f"{tiled} spill or are missing")
+    # K3's loops: the head dims each dtype keeps (mangled: ILi<D>E)
+    funcs = cuda_build.ptxas_functions(build_logs["flash_attention"])
+    for kern, dims in K3_LOOP_INSTANCES.items():
+        found = {f: r for f, r in funcs.items() if kern in f}
+        log(f"ptxas flash_attention ({kern}): " + " | ".join(
+            f"{f}: {r['registers']} registers, {r['spill']} bytes spill"
+            for f, r in found.items()))
+        built = sorted(int(m.group(1)) for f in found
+                       for m in [re.search(r"ILi(\d+)E", f)] if m)
+        if build_logs["flash_attention"] and built != list(dims):
+            raise AssertionError(f"flash_attention: {kern} built for D "
+                                 f"{built}, not {list(dims)}")
     # K3's Hopper kernel: its three instances (48-key tiles with the bias,
     # 64-key tiles with and without) must show no spill
     hopper = {f: r for f, r in cuda_build.ptxas_functions(

@@ -1592,7 +1592,8 @@ def test_flash_hopper_matches_plain(gen, case):
 
 @pytest.mark.parametrize("case,route", [
     ("bias_kv_len", "loops"), ("kw_32", "loops"), ("cols_20", "loops"),
-    ("window", "hopper_window"), ("window_fp32", "loops"),
+    ("window", "hopper_window"), ("window_fp32", "tiled"),
+    ("window_fp32_d_32", "loops"), ("window_fp32_d_128", "loops"),
     ("window_d_32", "loops"), ("window_d_128", "loops"),
     ("window_scale_0.1", "loops"), ("window_terms_48", "loops"),
     ("d_128", "loops"), ("fp32", "tiled")])
@@ -1600,16 +1601,18 @@ def test_flash_hopper_route_refuses(gen, case, route):
     """The calls the Hopper body does not take keep their earlier bodies: a
     bias with kv_len, key-grid rows of 32 keys, 20 valid columns (a
     32-key tile), D 128, fp32. Window mode takes the whole-window body in
-    bf16 at D 64 and keeps the loops in fp32, at D 32 and 128, at a scale
-    whose inverse is not a power of two and with Kh + Kw = 48 bias terms
-    (2 x 46 windows; the body takes at most 47)."""
+    bf16 at D 64 and the tiled body in fp32 at D 64, and keeps the loops
+    in both dtypes at D 32 and 128, in bf16 at a scale whose inverse is not
+    a power of two and with Kh + Kw = 48 bias terms (2 x 46 windows; the
+    body takes at most 47)."""
     b, heads, sq, d, kh, kw = 1, 2, 64, 64, 4, 64
-    dt = torch.float32 if case in ("fp32", "window_fp32") else torch.bfloat16
+    dt = torch.float32 if case in ("fp32", "window_fp32", "window_fp32_d_32",
+                                   "window_fp32_d_128") else torch.bfloat16
     if case == "kw_32":
         kw = 32
-    if case in ("d_128", "window_d_128"):
+    if case.endswith("d_128"):
         d = 128
-    if case == "window_d_32":
+    if case.endswith("d_32"):
         d = 32
     opts, kl = dict(kv_grid=(4, 20) if case == "cols_20" else None), None
     if case.startswith("window"):
@@ -1716,21 +1719,34 @@ def test_global_tiled_f32_matches_plain(gen, case):
     assert torch.isfinite(got).all() and gap <= 2e-5, gap
 
 
-# K3's fp32 calls at D 64 outside window mode: name -> (B, Sq, Kh, Kw,
-# kv_grid, kv_len). A padded grid whose valid columns stop short of Kw
+# K3's fp32 calls at D 64: name -> (B, Sq, Kh, Kw, kv_grid, kv_len,
+# window_tokens). A padded grid whose valid columns stop short of Kw
 # (@768's 48 of 64, and 13 of 20 across tiles), Sq != Sk, kv_len with a
 # row that has no valid key (it averages V over the Sk keys), and kv_grid
-# with kv_len (29 ends in a grid row's masked columns).
-K3_TILED_CASES = {"grid_3x64_48": (2, 192, 3, 64, (3, 48), None),
-                  "grid_sq100": (1, 100, 3, 64, (2, 48), None),
-                  "grid_5x20_13": (2, 70, 5, 20, (4, 13), None),
-                  "kv_len_zero_row": (3, 150, 0, 192, None, (0, 77, 192)),
-                  "grid_kv_len": (2, 48, 6, 8, (4, 6), (0, 29))}
+# with kv_len (29 ends in a grid row's masked columns); in window mode
+# 16 x 16 windows with 14 x 14 valid (SAM's grouped layout) and whole, 8 x
+# 8 windows with 7 x 6 valid, unpadded 14 x 14 windows (196 rows: a ragged
+# last 64-row block) and an odd count of them.
+K3_TILED_CASES = {"grid_3x64_48": (2, 192, 3, 64, (3, 48), None, None),
+                  "grid_sq100": (1, 100, 3, 64, (2, 48), None, None),
+                  "grid_5x20_13": (2, 70, 5, 20, (4, 13), None, None),
+                  "kv_len_zero_row": (3, 150, 0, 192, None, (0, 77, 192),
+                                      None),
+                  "grid_kv_len": (2, 48, 6, 8, (4, 6), (0, 29), None),
+                  "window_16x16_14x14": (2, 512, 16, 16, (14, 14), None,
+                                         256),
+                  "window_16x16_whole": (1, 768, 16, 16, (16, 16), None,
+                                         256),
+                  "window_8x8_7x6": (2, 192, 8, 8, (7, 6), None, 64),
+                  "window_14x14": (1, 392, 14, 14, (14, 14), None, 196),
+                  "window_14x14_odd": (2, 588, 14, 14, (13, 12), None, 196)}
 
 
 def _k3_tiled_inputs(gen, case, heads=3, d=64):
-    b, sq, kh, kw, grid, kv_len = K3_TILED_CASES[case]
-    sk = kh * kw if kh else kw
+    """The operands and the wrapper's keywords (window mode: JAX's blocks
+    one a call, as they must divide by the window)."""
+    b, sq, kh, kw, grid, kv_len, win = K3_TILED_CASES[case]
+    sk = sq if win else kh * kw if kh else kw
     dt = torch.float32
     q = _rand(gen, b, heads, sq, d, dtype=dt)
     k = _rand(gen, b, heads, sk, d, dtype=dt)
@@ -1741,27 +1757,29 @@ def _k3_tiled_inputs(gen, case, heads=3, d=64):
         bw = _rand(gen, b, heads, sq, kw, dtype=dt, scale=0.5)
     if kv_len:
         kl = torch.tensor(kv_len, device="cuda")
+    if win:
+        return (q, k, v, bh, bw, kl), dict(kv_grid=grid, window_tokens=win,
+                                           block_q=sq, block_k=sq)
     return (q, k, v, bh, bw, kl), dict(kv_grid=grid)
 
 
 @pytest.mark.parametrize("case", sorted(K3_TILED_CASES))
 def test_flash_tiled_f32_matches_plain(gen, case):
-    """K3's fp32 calls at D 64 outside window mode take the tiled body and
-    hold to the plain version at 2e-5; window mode keeps the loops."""
+    """K3's fp32 calls at D 64 take the tiled body (in window mode one
+    (batch, window, head) a problem) and hold to the plain version at
+    2e-5, every query row of a window stored."""
     args, kwargs = _k3_tiled_inputs(gen, case)
     assert A.flash_attention_route(*args, **kwargs) == "tiled"
     A.reset_launch_counts()
     got = A.flash_attention(*args, **kwargs)
     torch.cuda.synchronize()
     assert A.LAUNCHES["flash_attention"] == 1
-    want = A.flash_attention_plain(*args, scale=0.125, **kwargs)
+    want = A.flash_attention_plain(
+        *args, scale=0.125, kv_grid=kwargs["kv_grid"],
+        window_tokens=kwargs.get("window_tokens"))
     gap = (got - want).abs().max().item()
     print(f"K3 tiled {case}: {gap:.3e}")
     assert torch.isfinite(got).all() and gap <= 2e-5, gap
-    q = _rand(gen, 1, 3, 128, 64, dtype=torch.float32)
-    bh = _rand(gen, 1, 3, 128, 8, dtype=torch.float32)
-    assert A.flash_attention_route(q, q, q, bh, bh, kv_grid=(7, 6),
-                                   window_tokens=64) == "loops"
 
 
 # K1's fp32 calls on the tiled body: (B, windows a batch row, Kh, Kw, bias):
@@ -1806,28 +1824,33 @@ def test_tiled_f32_forward_is_deterministic(gen):
     args, kwargs = _k2_tiled_inputs(gen, "s200_kw20")
     assert torch.equal(A.fused_global_attention(*args, **kwargs),
                        A.fused_global_attention(*args, **kwargs))
-    args, kwargs = _k3_tiled_inputs(gen, "grid_3x64_48")
-    assert torch.equal(A.flash_attention(*args, **kwargs),
-                       A.flash_attention(*args, **kwargs))
+    for case in ("grid_3x64_48", "window_14x14_odd"):
+        args, kwargs = _k3_tiled_inputs(gen, case)
+        assert torch.equal(A.flash_attention(*args, **kwargs),
+                           A.flash_attention(*args, **kwargs))
 
 
 def test_tiled_f32_forward_builds_without_spill(gen, tmp_path, monkeypatch):
-    """The tiled body's kernels (both instances, with and without bias, in
-    each of the four sources that carry it) fit their registers: ptxas
-    (-Xptxas -v, the build's flags) reports no spill bytes for them."""
+    """The tiled body's kernels (with and without bias in each of the four
+    sources that carry it, and K3's window-mode instance) fit their
+    registers: ptxas (-Xptxas -v, the build's flags) reports no spill bytes
+    for them. K3's loops keep no fp32 instance at D 64."""
     from vit_deep_radiomics_tpu_torch.utils import cuda_build as cb
 
     monkeypatch.setattr(cb, "BUILD_DIR", tmp_path)
-    names = ("fused_window_attention", "fused_global_attention",
-             "flash_attention", "flash_attention_fwd")
-    logs = cb.build_all(names)
-    for name in names:
+    instances = {"fused_window_attention": 2, "fused_global_attention": 2,
+                 "flash_attention": 3, "flash_attention_fwd": 2}
+    logs = cb.build_all(tuple(instances))
+    for name, n in instances.items():
         tiled = {f: r for f, r in cb.ptxas_functions(logs[name]).items()
                  if "tiled_kernel" in f}
         print(name, tiled)
-        assert len(tiled) == 2 and all(
+        assert len(tiled) == n and all(
             r["spill"] == 0 and r["registers"] > 0 for r in tiled.values()), \
             logs[name]
+    loops = [f for f in cb.ptxas_functions(logs["flash_attention"])
+             if "flash_f32_kernel" in f]
+    assert len(loops) == 2 and not any("ILi64E" in f for f in loops), loops
 
 
 # K7 (fused LayerNorm -> MLP -> residual): bf16 within one bf16 step

@@ -9,9 +9,10 @@ runtime: a block runs as 128 ``std::thread``s, ``__syncthreads`` is a
 barriers, and cp.async is a synchronous copy. That checks the body's
 indexing, its masks and its callers' problem builders (``k1_problem``,
 ``k2_problem``, ``k3_problem``, ``k6_problem`` with K6's split score chains
-and its lse store) at the tile shape and buffer count the four sources ship
-with,
-without the card. The card's own checks are in
+and its lse store; K3 also in window mode, on the grid of
+``window_block``s) at the tile shape and buffer count the four sources ship
+with, without the card; one window-mode case also against JAX's kernel in
+interpret mode. The card's own checks are in
 ``tests/test_torch_cuda_kernels.py``.
 """
 
@@ -77,9 +78,11 @@ thread_local BlockSync* tl_block;
 #include "f32_tiled_forward.cuh"
 using namespace vdr::tiled;
 
+// block (x, y, z) runs the problem make(z, y, w) from row row0, (w, row0)
+// = window_block(x, win): x the 64-row block outside window mode
 template <bool kSplit = false, class Make>
 static void run_grid(int gx, int gy, int gz, int kh, int kw, bool bias,
-                     Make make) {
+                     Make make, int win = 0) {
   const size_t nf = smem_floats<COLS, STAGES, PINK>(kh, kw);
   for (int z = 0; z < gz; ++z)
     for (int y = 0; y < gy; ++y)
@@ -93,13 +96,14 @@ static void run_grid(int gx, int gy, int gz, int kh, int kw, bool bias,
             blockIdx = {(unsigned)x, (unsigned)y, (unsigned)z};
             blockDim = {NT, 1, 1};
             tl_block = &bs;
-            const Problem p = make(z, y);
+            const Block blk = window_block(x, win);
+            const Problem p = make(z, y, blk.w);
             if (bias)
               forward<COLS, STAGES, PINK, true, kSplit, kSplit>(
-                  p, x * ROWS, smem.data());
+                  p, blk.row0, smem.data());
             else
               forward<COLS, STAGES, PINK, false, kSplit, kSplit>(
-                  p, x * ROWS, smem.data());
+                  p, blk.row0, smem.data());
           });
         for (auto& t : th) t.join();
       }
@@ -110,7 +114,7 @@ void run_k1(const float* q, const float* kv, const float* bh,
             const float* bw, float* out, int B, int S, int H, int T, int kh,
             int kw, float scale_log2) {
   run_grid((T + ROWS - 1) / ROWS, (S / T) * H, B, bh ? kh : 0, bh ? kw : 0,
-           bh != nullptr, [&](int b, int y) {
+           bh != nullptr, [&](int b, int y, int) {
              return k1_problem(q, kv, bh, bw, out, S, H, T, kh, kw,
                                scale_log2, b, y / H, y % H);
            });
@@ -119,26 +123,30 @@ void run_k2(const float* q, const float* kv, const float* bh,
             const float* bw, const int* kv_len, float* out, int B, int S,
             int H, int kh, int kw, float scale_log2) {
   run_grid((S + ROWS - 1) / ROWS, H, B, bh ? kh : 0, bh ? kw : 0,
-           bh != nullptr, [&](int b, int h) {
+           bh != nullptr, [&](int b, int h, int) {
              return k2_problem(q, kv, bh, bw, kv_len, out, S, H, kh, kw,
                                scale_log2, b, h);
            });
 }
+// win > 0: window mode, flash_attention.cu's grid (Sq / win windows of
+// ceil(win / ROWS) blocks)
 void run_k3(const float* q, const float* k, const float* v, const float* bh,
             const float* bw, const int* kv_len, float* out, int B, int H,
-            int Sq, int Sk, int kh, int kw, int khv, int kwv,
+            int Sq, int Sk, int kh, int kw, int khv, int kwv, int win,
             float scale_log2) {
-  run_grid((Sq + ROWS - 1) / ROWS, H, B, bh ? kh : 0, bh ? kw : 0,
-           bh != nullptr, [&](int b, int h) {
+  const int gx = win ? Sq / win * ((win + ROWS - 1) / ROWS)
+                     : (Sq + ROWS - 1) / ROWS;
+  run_grid(gx, H, B, bh ? kh : 0, bh ? kw : 0, bh != nullptr,
+           [&](int b, int h, int w) {
              return k3_problem(q, k, v, bh, bw, kv_len, out, H, Sq, Sk, kh,
-                               kw, khv, kwv, SKIP, scale_log2, b, h);
-           });
+                               kw, khv, kwv, SKIP, scale_log2, b, h, win, w);
+           }, win);
 }
 void run_k6(const float* q, const float* k, const float* v, const float* bh,
             const float* bw, const int* kv_len, float* out, float* lse,
             int B, int H, int S, int kh, int kw, float scale_log2) {
   run_grid<true>((S + ROWS - 1) / ROWS, H, B, bh ? kh : 0, bh ? kw : 0,
-                 bh != nullptr, [&](int b, int h) {
+                 bh != nullptr, [&](int b, int h, int) {
                    return k6_problem(q, k, v, bh, bw, kv_len, out, lse, H,
                                      S, kh, kw, scale_log2, b, h);
                  });
@@ -221,7 +229,7 @@ def shim(tmp_path_factory):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.run_k1.argtypes = [P] * 5 + [I] * 6 + [F]
         lib.run_k2.argtypes = [P] * 6 + [I] * 5 + [F]
-        lib.run_k3.argtypes = [P] * 7 + [I] * 8 + [F]
+        lib.run_k3.argtypes = [P] * 7 + [I] * 9 + [F]
         lib.run_k6.argtypes = [P] * 8 + [I] * 5 + [F]
         lib.run_k1.restype = lib.run_k2.restype = None
         lib.run_k3.restype = lib.run_k6.restype = None
@@ -298,37 +306,81 @@ def test_k2_tiled_body_matches_plain(shim, rng, case):
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
 
 
-# K3: (B, Sq, Kh, Kw, kv_grid, kv_len): padded grids whose valid columns
-# stop short of Kw (48 of 64; 13 of 20, across tiles), Sq != Sk, kv_len
-# with a row that has no valid key, kv_grid and kv_len together (kv_len 20
-# ends inside a grid row's valid columns, 29 inside its masked ones)
-K3_CASES = {"grid_3x64_48": (1, 192, 3, 64, (3, 48), None),
-            "grid_sq100": (1, 100, 3, 64, (2, 48), None),
-            "grid_5x20_13": (2, 70, 5, 20, (4, 13), None),
-            "bias_5x20": (1, 64, 5, 20, None, None),
-            "kv_len_zero_row": (2, 40, 0, 130, None, (0, 3)),
-            "grid_kv_len": (2, 48, 6, 8, (4, 6), (0, 20)),
-            "grid_kv_len_masked_end": (2, 48, 6, 8, (4, 6), (29, 7))}
+# K3: (B, Sq, Kh, Kw, kv_grid, kv_len, window_tokens): padded grids whose
+# valid columns stop short of Kw (48 of 64; 13 of 20, across tiles), Sq !=
+# Sk, kv_len with a row that has no valid key, kv_grid and kv_len together
+# (kv_len 20 ends inside a grid row's valid columns, 29 inside its masked
+# ones), a kv_grid wider and taller than the grid (nothing masked); window
+# mode: two 16 x 16 windows with 14 x 14 valid (SAM's grouped layout: 196
+# keys visited of 256), 8 x 8 windows with 7 x 6 valid, unpadded 14 x 14
+# windows (196 rows: a ragged last 64-row block) and an odd count of them
+K3_CASES = {"grid_3x64_48": (1, 192, 3, 64, (3, 48), None, None),
+            "grid_sq100": (1, 100, 3, 64, (2, 48), None, None),
+            "grid_5x20_13": (2, 70, 5, 20, (4, 13), None, None),
+            "bias_5x20": (1, 64, 5, 20, None, None, None),
+            "kv_len_zero_row": (2, 40, 0, 130, None, (0, 3), None),
+            "grid_kv_len": (2, 48, 6, 8, (4, 6), (0, 20), None),
+            "grid_kv_len_masked_end": (2, 48, 6, 8, (4, 6), (29, 7), None),
+            "grid_wider_than_keys": (1, 48, 6, 8, (9, 11), None, None),
+            "window_16x16_14x14": (1, 512, 16, 16, (14, 14), None, 256),
+            "window_8x8_7x6": (2, 192, 8, 8, (7, 6), None, 64),
+            "window_14x14": (1, 392, 14, 14, (14, 14), None, 196),
+            "window_14x14_odd": (2, 588, 14, 14, (13, 12), None, 196),
+            "window_8x8_wide_grid": (1, 128, 8, 8, (9, 10), None, 64)}
 
 
-@pytest.mark.parametrize("build", ["k3", "k3_other"])
-@pytest.mark.parametrize("case", sorted(K3_CASES))
-def test_k3_tiled_body_matches_plain(shim, rng, case, build):
-    b, sq, kh, kw, grid, kv_len = K3_CASES[case]
-    sk = kh * kw if kh else kw
+def _k3_inputs(rng, b, sq, kh, kw, kv_len, win):
+    sk = sq if win else kh * kw if kh else kw
     q, k, v = _t(rng, b, HEADS, sq, D), _t(rng, b, HEADS, sk, D), \
         _t(rng, b, HEADS, sk, D)
     bh = _t(rng, b, HEADS, sq, kh, scale=0.5) if kh else None
     bw = _t(rng, b, HEADS, sq, kw, scale=0.5) if kh else None
     kl = torch.tensor(kv_len, dtype=torch.int32) if kv_len else None
+    return q, k, v, bh, bw, kl
+
+
+def _run_k3(lib, q, k, v, bh, bw, kl, grid, win):
+    b, _, sq, _ = q.shape
+    kh, kw = (bh.shape[-1], bw.shape[-1]) if bh is not None else (0, 0)
     out = torch.full_like(q, float("nan"))
     khv, kwv = grid or (0, 0)
-    shim[build].run_k3(_ptr(q), _ptr(k), _ptr(v), _ptr(bh), _ptr(bw),
-                      _ptr(kl), _ptr(out), b, HEADS, sq, sk, kh,
-                      kw if kh else 0, khv, kwv, D ** -0.5 * LOG2E)
-    want = A.flash_attention_plain(q, k, v, bh, bw, kl, kv_grid=grid,
+    lib.run_k3(_ptr(q), _ptr(k), _ptr(v), _ptr(bh), _ptr(bw), _ptr(kl),
+               _ptr(out), b, HEADS, sq, k.shape[2], kh, kw, khv, kwv,
+               win or 0, D ** -0.5 * LOG2E)
+    return out
+
+
+@pytest.mark.parametrize("build", ["k3", "k3_other"])
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_tiled_body_matches_plain(shim, rng, case, build):
+    """K3's fp32 calls on the tiled body (``k3_problem``; in window mode one
+    (batch, window, head) a problem on flash_attention.cu's grid of
+    ``window_block``s) against ``flash_attention_plain``, 2e-5: the fp32
+    sums' order alone, every query row of a window stored."""
+    b, sq, kh, kw, grid, kv_len, win = K3_CASES[case]
+    args = _k3_inputs(rng, b, sq, kh, kw, kv_len, win)
+    out = _run_k3(shim[build], *args, grid, win)
+    want = A.flash_attention_plain(*args, kv_grid=grid, window_tokens=win,
                                    scale=D ** -0.5)
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
+
+
+def test_k3_tiled_window_matches_jax(shim, rng):
+    """Window mode on the tiled body (two 8 x 8 windows with 7 x 6 valid, two
+    heads, fp32) against JAX's ``flash_attention`` in interpret mode with
+    ``window_tokens``, 2e-5."""
+    import jax.numpy as jnp
+
+    from vit_deep_radiomics_tpu.ops.attention import flash_attention
+
+    grid, win = (7, 6), 64
+    args = _k3_inputs(rng, 1, 2 * win, 8, 8, None, win)
+    out = _run_k3(shim["k3"], *args, grid, win)
+    want = flash_attention(*(jnp.asarray(t.numpy()) for t in args[:5]),
+                           kv_grid=grid, window_tokens=win, block_q=win,
+                           block_k=win, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want, np.float32),
+                               atol=2e-5, rtol=0)
 
 
 # K6: (B, S, Kh, Kw, kv_len): SAM's 14 x 14 windows (rows ragged at 196 =

@@ -1,8 +1,8 @@
 // The register-tiled fp32 attention forward shared by K1
 // (fused_window_attention.cu), K2 (fused_global_attention.cu), K3
 // (flash_attention.cu) and the K6 forward (flash_attention_fwd.cu): the
-// body of their `parity` calls at D = 64 (K3 outside window mode; K6
-// always, with its log2 lse residual).
+// body of their `parity` calls at D = 64 (K3 in window mode too, one
+// (batch, window, head) a problem; K6 always, with its log2 lse residual).
 //
 // Computes, for one (batch, head) and its query rows i,
 //     out_i = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp2(s_ij - m_i)
@@ -193,33 +193,44 @@ __host__ __device__ inline Problem k1_problem(
 }
 
 // K3 (head-major q (B, H, Sq, D), k/v (B, H, Sk, D), out like q; bias
-// (B, H, Sq, kh|kw)), outside window mode: keys at or past kv_len and keys
-// outside the (kh_valid, kw_valid) sub-grid score -1e30; when every row
-// keeps a valid key (kv_len >= 1; the wrapper refuses an empty kv_grid)
-// the keys past kv_len and past the grid's valid rows are not visited, nor,
-// with skip_cols, the columns past kw_valid (their weights are exact zeros
-// too: SAM @768's 48 x 48 grid padded to 48 x 64 visits 2304 keys, not
-// 3072); keys past the range score -inf.
+// (B, H, Sq, kh|kw)): keys at or past kv_len and keys outside the
+// (kh_valid, kw_valid) sub-grid score -1e30; when every row keeps a valid
+// key (kv_len >= 1; the wrapper refuses an empty kv_grid) the keys past
+// kv_len and past the grid's valid rows are not visited, nor, with
+// skip_cols, the columns past kw_valid (their weights are exact zeros too:
+// SAM @768's 48 x 48 grid padded to 48 x 64 visits 2304 keys, not 3072);
+// keys past the range score -inf. In window mode (win > 0 tokens a window,
+// Sq == Sk, no kv_len, kh * kw == win) the problem is window w of the
+// (batch, head): its win query rows and its own win keys, the bias rows of
+// those queries (SAM's 16 x 16 windows with 14 x 14 valid visit 196 keys
+// of 256).
 __host__ __device__ inline Problem k3_problem(
     const float* q, const float* k, const float* v, const float* bias_h,
     const float* bias_w, const int* kv_len, float* out, int H, int Sq,
     int Sk, int kh, int kw, int kh_valid, int kw_valid, bool skip_cols,
-    float scale_log2, int b, int h) {
+    float scale_log2, int b, int h, int win = 0, int w = 0) {
   const long long head = (long long)b * H + h;
+  // the first query row and key of the problem, rows of the (B*H*S, D)
+  // views
+  const long long row = head * Sq + (long long)w * win;
+  const long long key0 = head * Sk + (long long)w * win;
+  if (win) Sq = Sk = win;
   Problem p;
-  p.q = q + head * Sq * D;
-  p.k = k + head * Sk * D;
-  p.v = v + head * Sk * D;
-  p.out = out + head * Sq * D;
+  p.q = q + row * D;
+  p.k = k + key0 * D;
+  p.v = v + key0 * D;
+  p.out = out + row * D;
   p.lse = nullptr;
-  p.bias_h = bias_h != nullptr ? bias_h + head * Sq * kh : nullptr;
-  p.bias_w = bias_h != nullptr ? bias_w + head * Sq * kw : nullptr;
+  p.bias_h = bias_h != nullptr ? bias_h + row * kh : nullptr;
+  p.bias_w = bias_h != nullptr ? bias_w + row * kw : nullptr;
   p.ldq = p.ldkv = p.ldo = D;
   p.n_rows = Sq;
   p.kh = bias_h != nullptr ? kh : 0;
   p.kw = p.gw = bias_h != nullptr ? kw : 1;
+  // a kv_grid wider than the grid masks no column (and a row visits no
+  // more than its kw columns)
   p.kh_valid = kh_valid;
-  p.kw_valid = kw_valid;
+  p.kw_valid = kw_valid < kw ? kw_valid : kw;
   const int kvl = kv_len != nullptr ? kv_len[b] : Sk;
   p.n_valid = kvl < 0 ? 0 : (kvl < Sk ? kvl : Sk);
   p.n_visit = Sk;
@@ -230,14 +241,27 @@ __host__ __device__ inline Problem k3_problem(
       // the valid cells of the keys below n_visit: whole grid rows, then
       // the start of one more
       const int rows = p.n_visit / kw, rest = p.n_visit - rows * kw;
-      p.gw = kw_valid;
-      p.n_visit = rows * kw_valid + (rest < kw_valid ? rest : kw_valid);
+      p.gw = p.kw_valid;
+      p.n_visit = rows * p.kw_valid + (rest < p.kw_valid ? rest : p.kw_valid);
     }
   }
   p.masked = -1e30f;
   p.absent = -INFINITY;
   p.scale_log2 = scale_log2;
   return p;
+}
+
+// The window and the first row of block x of a window-mode launch: block x
+// is the 64-row block x % n of window x / n, n = ceil(win / ROWS) blocks a
+// window (a ragged last block of a window is bounded by its n_rows); win
+// 0: one window of every row.
+struct Block {
+  int w, row0;
+};
+__host__ __device__ inline Block window_block(int x, int win) {
+  if (win == 0) return {0, x * ROWS};
+  const int n = (win + ROWS - 1) / ROWS;
+  return {x / n, (x % n) * ROWS};
 }
 
 // K6 (head-major q, k, v, out (B, H, S, D); bias (B, H, S, kh|kw); lse

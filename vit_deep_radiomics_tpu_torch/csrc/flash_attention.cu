@@ -46,10 +46,15 @@
 //    staged once. The softmax is online in log2 units with the max kept
 //    (moved lazily, by more than 2^8) and the l > 0 guard. Without a bias
 //    64-key tiles run to kv_len (all of Sk when a row has no valid key).
-//  * fp32 at D = 64 outside window mode (the `parity` @768 path) takes the
-//    register-tiled CUDA-core forward of f32_tiled_forward.cuh (64 query
-//    rows a block, K/V tiles by cp.async, 4 x 4 score and 4 x 8 output
-//    micro-tiles a thread).
+//  * fp32 at D = 64 (the `parity` @768 path) takes the register-tiled
+//    CUDA-core forward of f32_tiled_forward.cuh (64 query rows a block, K/V
+//    tiles by cp.async, 4 x 4 score and 4 x 8 output micro-tiles a thread).
+//    In window mode one (batch, window, head) is a problem: blocks of 64
+//    rows of one window over that window's keys, only the kv_grid's valid
+//    cells visited (196 of 256 keys at SAM's 16 x 16 windows with 14 x 14
+//    valid). Operations bound it there: at 100 windows of 16 x 16 tokens
+//    and 12 heads, 11.8 GFLOP of valid work at 67 TFLOP/s fp32 (0.176 ms)
+//    against about 0.09 ms of traffic.
 //  * bf16 at D = 64 in window mode (windows of at most 256 tokens, at most
 //    47 bias terms: Kh + Kw <= 47, 1/scale a power of two) takes K1's
 //    whole-window body (window_hopper.cuh) over the head-major layout: one
@@ -64,7 +69,7 @@
 //    function needs about 156 MB (q and the output whole, K and V at the
 //    valid keys, the bias terms of valid keys: 0.047 ms) for 11.8 GFLOP of
 //    valid work (0.012 ms).
-//  * The rest (fp32 window mode, D 32/128, other key grids, a bias with
+//  * The rest (D 32/128, bf16 at other key grids or with a bias and
 //    kv_len) keeps the first loops: keys stream through shared memory in
 //    64-key tiles, zero-filled past the end; the block's bias rows are staged
 //    once, transposed and times log2(e); a per-tile table gives each key
@@ -73,7 +78,8 @@
 //    key (their weights are exact zeros). bf16 runs QK^T and PV on
 //    mma.sync.m16n8k16 (one warp per 16 query rows, 128-row blocks), fp32
 //    on the CUDA cores one thread per row (two for D = 128). The head dim
-//    is a template parameter, built for D = 32, 64 and 128.
+//    is a template parameter, built for D = 32, 64 and 128 (fp32 for 32 and
+//    128 only: the tiled body takes every fp32 call at 64).
 // vdr_flash_attention_route reports the body.
 
 #include <limits>
@@ -102,6 +108,9 @@ constexpr int kF32Stages = 1;
 constexpr int kF32PInK = 1;
 // 1: with kv_grid, visit only each grid row's valid columns
 constexpr int kF32SkipCols = 1;
+// 1: fp32 window mode at D 64 takes the tiled body; 0: the loops (whose fp32
+// instance at D 64 is built only then)
+constexpr int kF32WindowTiled = 1;
 // a key outside the block's range: weight exactly 0, even in a row whose
 // every key is masked
 constexpr float kAbsent = -std::numeric_limits<float>::infinity();
@@ -504,6 +513,8 @@ int launch(const FlashParams& p, int dtype, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     grid = dim3((p.Sq + kRowsBf16 - 1) / kRowsBf16, p.H, p.B);
     flash_bf16_kernel<D><<<grid, kRowsBf16 * 2, smem, stream>>>(p);
+  } else if constexpr (D == vdr::tiled::D && kF32WindowTiled) {
+    return -1;   // the tiled body takes every fp32 call at D 64
   } else {
     const size_t smem = (size_t)2 * kBlockK * D * 4 + keys +
                         bias_bytes * vdr::bias_stride<kRowsF32>();
@@ -858,11 +869,15 @@ int launch_window(const FlashParams& fp, win::WinParams p, int n,
 }
 
 // ---------------------------------------------------------------------------
-// fp32, D = 64, outside window mode: the register-tiled forward
+// fp32, D = 64: the register-tiled forward
 // ---------------------------------------------------------------------------
 
-bool tiled_takes(int D, int window, int dtype) {
-  return dtype == 0 && D == vdr::tiled::D && window == 0;
+// Whether the tiled body takes a call: fp32 at D 64, and in window mode with
+// the bias and no kv_len (the wrapper requires the one and refuses the
+// other there).
+bool tiled_takes(int D, int window, int dtype, bool biased, bool kv_len) {
+  return dtype == 0 && D == vdr::tiled::D &&
+         (window == 0 || (kF32WindowTiled && biased && !kv_len));
 }
 
 template <bool kBias>
@@ -879,19 +894,48 @@ __global__ void __launch_bounds__(vdr::tiled::NT, 2)
       pr, blockIdx.x * vdr::tiled::ROWS, smem_k3_tiled);
 }
 
-template <bool kBias>
-int launch_tiled(const FlashParams& p, cudaStream_t stream) {
+// Window mode: block x is a 64-row block of one window (window_block), y
+// the head, z the batch row.
+__global__ void __launch_bounds__(vdr::tiled::NT, 2)
+    k3_win_tiled_kernel(const FlashParams p) {
+  extern __shared__ __align__(16) float smem_k3_win[];
+  const vdr::tiled::Block blk = vdr::tiled::window_block(blockIdx.x, p.window);
+  const vdr::tiled::Problem pr = vdr::tiled::k3_problem(
+      static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+      static_cast<const float*>(p.v), static_cast<const float*>(p.bias_h),
+      static_cast<const float*>(p.bias_w), nullptr,
+      static_cast<float*>(p.out), p.H, p.Sq, p.Sk, p.kh, p.kw, p.kh_valid,
+      p.kw_valid, kF32SkipCols != 0, p.scale_log2, blockIdx.z, blockIdx.y,
+      p.window, blk.w);
+  vdr::tiled::forward<kF32Cols, kF32Stages, kF32PInK != 0, true>(
+      pr, blk.row0, smem_k3_win);
+}
+
+template <typename Kernel>
+int launch_tiled(Kernel kern, bool biased, dim3 grid, const FlashParams& p,
+                 cudaStream_t stream) {
   const size_t smem =
       sizeof(float) *
       vdr::tiled::smem_floats<kF32Cols, kF32Stages, kF32PInK != 0>(
-          kBias ? p.kh : 0, kBias ? p.kw : 0);
-  auto kern = k3_tiled_kernel<kBias>;
+          biased ? p.kh : 0, biased ? p.kw : 0);
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.Sq + vdr::tiled::ROWS - 1) / vdr::tiled::ROWS, p.H, p.B);
   kern<<<grid, vdr::tiled::NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+int launch_tiled(const FlashParams& p, cudaStream_t stream) {
+  constexpr int R = vdr::tiled::ROWS;
+  if (p.window)
+    return launch_tiled(k3_win_tiled_kernel, true,
+                        dim3(p.Sq / p.window * ((p.window + R - 1) / R), p.H,
+                             p.B),
+                        p, stream);
+  const dim3 grid((p.Sq + R - 1) / R, p.H, p.B);
+  return p.bias_h != nullptr
+             ? launch_tiled(k3_tiled_kernel<true>, true, grid, p, stream)
+             : launch_tiled(k3_tiled_kernel<false>, false, grid, p, stream);
 }
 
 }  // namespace
@@ -909,7 +953,7 @@ const char* vdr_error_string(int err) {
 int vdr_flash_attention_route(int D, int window, int dtype, int biased,
                               int kv_len, int kh, int kw, int kh_valid,
                               int kw_valid, float scale) {
-  if (tiled_takes(D, window, dtype)) return 2;
+  if (tiled_takes(D, window, dtype, biased != 0, kv_len != 0)) return 2;
   win::WinParams wp;
   int n = 0;
   size_t smem = 0;
@@ -938,9 +982,8 @@ int vdr_flash_attention(const void* q, const void* k, const void* v,
                       out, B, H,        Sq,       Sk,     kh,
                       kw, kh_valid, kw_valid, window, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tiled_takes(D, window, dtype))
-    return bias_h != nullptr ? launch_tiled<true>(p, s)
-                             : launch_tiled<false>(p, s);
+  if (tiled_takes(D, window, dtype, bias_h != nullptr, kv_len != nullptr))
+    return launch_tiled(p, s);
   win::WinParams wp;
   int n = 0;
   size_t smem = 0;

@@ -439,7 +439,7 @@ def flash_attention_route(q, k, v, bias_h=None, bias_w=None, kv_len=None,
                           block_q=512, block_k=512) -> str:
     """Which body :func:`flash_attention` runs for these operands:
     ``"plain"`` on the CPU; on the card, as ``csrc/flash_attention.cu``
-    chooses, ``"tiled"`` (fp32 at D 64 outside window mode: the
+    chooses, ``"tiled"`` (fp32 at D 64, window mode too: the
     register-tiled forward of ``f32_tiled_forward.cuh``), ``"hopper"``
     (bf16 at D 64 outside window mode with no bias, or a bias on key-grid
     rows of 64 keys whose valid columns round up to 48 or 64 and no

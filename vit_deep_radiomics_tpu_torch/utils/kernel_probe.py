@@ -73,8 +73,8 @@ register-tiled fp32 forward of K1,
 K2, K3 and K6 (``csrc/f32_tiled_forward.cuh``, ``k1f32``, ``k2f32``,
 ``k3f32`` and ``k6fwd``): 64-key tiles, which make the score micro-tile 4 x
 8, two tile buffers, P in a tile of its own, all of K3's grid columns
-visited, K1's ragged fourth row block of a window not launched, the bias
-step removed;
+(and window keys) visited, K3's window mode on the loops, K1's ragged
+fourth row block of a window not launched, the bias step removed;
 for all the softmax (K5 and K6: the exp2/dS step) or the products
 removed, and for K5, K6 and the fp32 forward the score (and dP)
 products removed; K7's Hopper body: two ring slots a warpgroup, the
@@ -106,7 +106,9 @@ shape, beside the whole bf16 SDPA backward (the forward's beside SDPA's
 forward); K1 fp32: q (100, 196, 768), Kh = Kw =
 14; K2 fp32: q (4, 4096, 768), Kh = Kw = 64, and DINOv2's kv_len shape;
 K3 fp32: SAM @768's q (4, 12, 2304, 64), k/v 3072 rows, Kh 48, Kw 64,
-``kv_grid`` (48, 48), and (4, 12, 1536, 64) with 1370 valid keys; K7:
+``kv_grid`` (48, 48), (4, 12, 1536, 64) with 1370 valid keys, and the
+``k3win`` window shape (its ``loops`` variant: window mode on the loops
+that took it before the tiled body); K7:
 SAM's 16384 rows and DINOv2's 4 x 1370 with a layerscale, C 768, hidden
 3072, bf16; ``k7wide``: ViT-g/14's 4 x 1370 with a layerscale, C 1536,
 hidden 6144, bf16; K8: an `int8` forward's ten shapes, with the sum over its 60
@@ -137,9 +139,11 @@ step of each (``utils/profiling.py``), then its kernel phases
 10 (K6; `parity`), `fast` also K2 bf16 at phase 3's shapes (ms and a
 SHA-256 of its output bits, which must not differ between the trees); with ``--path
 parity-forward`` 5 `parity` SAM ViT-B/16 forwards at B=4 @1024 (K2 fp32)
-and @768 (K3 fp32) on the host clock, each after a warm-up, and their
+and @768 (K3 fp32) on the host clock, each after a warm-up, with a SHA-256
+of each forward's output, and their
 device ms (``utils/profiling.py``), then K2 and K3
-in fp32 at their path shapes and at DINOv2's kv_len shape, and
+in fp32 at DINOv2's kv_len shape, K3 in fp32 at the @768 path's shape (ms
+and a SHA-256 of its output), and
 ``chip_smoke.py``'s kernel phases 3 and 15; with ``--path fast-768`` the
 `fast` SAM @768 forward at B=4 (host and device ms, ``utils/profiling.py``)
 and a one-patient @768 extraction as ``chip_smoke.py``'s phase 18 runs it;
@@ -560,9 +564,12 @@ VARIANTS = {
                   "(p.seg + vdr::tiled::ROWS - 1) / vdr::tiled::ROWS,",
                   "p.seg / vdr::tiled::ROWS,"),))},
     "k2f32": _F32_TILED,
-    # K3 also: every column of a padded key grid visited (the masked ones
-    # scored at -1e30) instead of the valid ones alone
-    "k3f32": {**_F32_TILED, "all_cols": ({"kF32SkipCols": 0}, ())},
+    # K3 also: every column of a padded key grid (and of a window) visited,
+    # the masked ones scored at -1e30, instead of the valid ones alone; and
+    # window mode on the loops that took it before (the global shapes stay
+    # on the tiled body there)
+    "k3f32": {**_F32_TILED, "all_cols": ({"kF32SkipCols": 0}, ()),
+              "loops": ({"kF32WindowTiled": 0}, ())},
 }
 
 
@@ -640,7 +647,8 @@ CALLS = {
     "k2f32": ([_P] * 6 + [_I] * 6 + [_F, _I, _P],
               ((4, 4096, 64, 64, None), (4, 1536, 0, 0, 1370)), None),
     "k3f32": ([_P] * 7 + [_I] * 10 + [_F, _I, _P],
-              ((4, 2304, 48, 64, None), (4, 1536, 0, 0, 1370)), None),
+              ((4, 2304, 48, 64, None), (4, 1536, 0, 0, 1370),
+               (25, 1024, 16, 16, None, (14, 14), 256)), None),
     # K7 (rows, with a layerscale): SAM's 4 x 4096 rows, DINOv2's 4 x 1370
     "k7": ([_P] * 10 + [_I] * 3 + [_F, _I, _P],
            ((16384, False), (5480, True)), None),
@@ -1633,7 +1641,7 @@ for tag, (b, s, kh, nv) in {"sam": (4, 4096, 64, None),
 '''
 
 _PAIR_PARITY_FORWARD_CHILD = r'''
-import dataclasses, sys, time
+import dataclasses, hashlib, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
@@ -1647,10 +1655,11 @@ for size in (1024, 768):
     cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=size)
     m = vit.ViTDense(cfg, policy=precision.PARITY).init_random(0)
     m = m.cuda().eval()
-    x = torch.rand(4, size, size, 3, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(size)
+    x = torch.rand(4, size, size, 3, generator=g, device="cuda")
     with torch.no_grad():
-        for _ in range(2):
-            m(x)
+        out = m(x)
+        m(x)
         torch.cuda.synchronize()
         A.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1659,9 +1668,11 @@ for size in (1024, 768):
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / 5
     n = {k: v // 5 for k, v in A.LAUNCHES.items() if v}
+    sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
     print(f"forward parity @{size} B=4, mean of 5: {dt * 1e3:.3f} ms = "
-          f"{4 / dt:.2f} img/s; launches per forward {n}", flush=True)
-    del m, x
+          f"{4 / dt:.2f} img/s; launches per forward {n}; output sha256 "
+          f"{sha}", flush=True)
+    del m, x, out
     torch.cuda.empty_cache()
     r = profiling.profile_forward(4, "parity", steps=3, rows=6,
                                   image_size=size)
@@ -1682,7 +1693,21 @@ q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda")
            for _ in range(3))
 ms = cs.cuda_ms(torch, lambda: A.flash_attention(q, k, v, None, None, kl), 10)
 print(f"kernel flash_attention fp32 [kv_len]: ms {ms:.4f}")
-del q, kv, k, v
+# K3 fp32 at the @768 path's shape: 2304 query rows, the 48 x 48 grid
+# padded to 48 x 64 keys
+q = torch.randn(b, h, 2304, d, generator=g, device="cuda")
+k, v = (torch.randn(b, h, 3072, d, generator=g, device="cuda")
+        for _ in range(2))
+bh, bw = (0.3 * torch.randn(b, h, 2304, n, generator=g, device="cuda")
+          for n in (48, 64))
+def k3():
+    return A.flash_attention(q, k, v, bh, bw, kv_grid=(48, 48),
+                             block_q=2304, block_k=3072)
+sha = hashlib.sha256(k3().cpu().numpy().tobytes()).hexdigest()[:16]
+ms = cs.cuda_ms(torch, k3, 10)
+print(f"kernel flash_attention fp32 [sam768_global]: ms {ms:.4f} sha256 "
+      f"{sha}")
+del q, kv, k, v, bh, bw
 torch.cuda.empty_cache()
 peaks = cs.peaks_for(torch.cuda.get_device_name(0))[1]
 recs = cs.kernel_phase(torch, A, peaks)
