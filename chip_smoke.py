@@ -15,8 +15,8 @@ Phases (each one fails the run with a non-zero exit):
    K2's, K3's (its window mode's too) and the K6 forward's sources, K3's
    Hopper kernel and the Hopper kernels of the K5 forward and backward, K7
    (its C 768 body and its C 1536 cluster body), K8 and K6's bf16
-   forward, dq and dkv (30 instances each), and K7's C 1536 loop instance
-   (registers, spills),
+   forward (30 instances), dq and dkv (58 each), with each source's nvcc
+   seconds, and K7's C 1536 loop instance (registers, spills),
    which must show no spill (the Hopper kernels also no ``C75xx`` wgmma
    serialisation line), and the K6 bf16 forward's mma.sync kernel and
    K7's fp32 C 1536 loop instance no spill; K3's loops must be built for
@@ -74,10 +74,13 @@ Phases (each one fails the run with a non-zero exit):
     Kw = 48), 640 px (2 x 12 x 1600, Kh = Kw = 40), 896 px (2 x 12 x
     3136, Kh = Kw = 56) and 576 px (2 x 12 x 1296, Kh = Kw = 36: a width of
     4 mod 8) and DINOv2's kv_len shape, where all three take their Hopper
-    bodies (TMA + wgmma), and at SAM @544's global shape (2 x 12 x 1156,
-    Kh = Kw = 34) and SAM's 14 x 14 windows (50 x 12 x 196), where all
-    three take the mma.sync bodies; the library bf16 SDPA (forward, or the
-    whole backward) with a bf16 ``attn_mask`` at every shape;
+    bodies (TMA + wgmma), at SAM @544's global shape (2 x 12 x 1156, Kh =
+    Kw = 34: a width of 2 mod 4), where dq and dkv take their Hopper bodies
+    and the forward its mma.sync one, and at SAM @592's global shape (2 x
+    12 x 1369, Kh = Kw = 37) and SAM's 14 x 14 windows (50 x 12 x 196),
+    where all three take the mma.sync bodies; the library bf16 SDPA
+    (forward, or the whole backward) with a bf16 ``attn_mask`` at every
+    shape;
 11. kv_len kernels: K2 and the three K5 kernels in kv_len mode at DINOv2
     ViT-B/14 @518's padded shape (1536 tokens, 1370 valid, bf16), each at
     its path's batch: K2 at the inference forward's 4, K5 at fine-tuning's
@@ -234,10 +237,13 @@ Phases (each one fails the run with a non-zero exit):
     memory);
 27. the same at 576 px (a 36 x 36 grid: the Hopper bodies at Kw 36, a
     width of 4 mod 8), 5 steps and 3 traced ones;
-28. the same at 544 px, 5 steps: the main path of the K6 bf16 mma.sync
-    bodies (the 34 x 34 grid's Kw 34, not a multiple of 4, fits no Hopper
-    body), the mma.sync forward, dq and dkv 4 a step and the Hopper ones
-    0.
+28. the same at 544 px, 5 steps and 3 traced ones (device ms, idle
+    share): the 34 x 34 grid's Kw 34 (2 mod 4) takes the Hopper dq and dkv
+    (key-major dkv terms, the bias_w rows by bulk copy) and the mma.sync
+    forward, 4 a step each;
+29. the same at 592 px, 5 steps: the main path of the K6 bf16 mma.sync
+    bodies (the 37 x 37 grid's odd Kw fits no Hopper body), the mma.sync
+    forward, dq and dkv 4 a step and the Hopper ones 0.
 
 Every phase runs at full width and depth. The line before the last is the
 kernels' JSON record, and the last line is ``{"ok": true, "device":
@@ -319,13 +325,14 @@ K3_WINDOW_INSTANCES = 4
 # whole-window body at N 64, 208 and 256 keys), the K5 forward
 # (K2's body with the lse store: no bias, Kw 64, and Kw 128 visiting the
 # even key tiles first), the K5 dq and dkv (no bias, Kw 64, Kw 128), K7
-# (the C 768 body and the C 1536 cluster body), K8 and K6's bf16 forward,
-# dq and dkv (no bias, and one instance per key-grid width 16, 20, ... 128)
+# (the C 768 body and the C 1536 cluster body), K8 and K6's bf16 forward
+# (no bias, and one instance per key-grid width 16, 20, ... 128), dq and
+# dkv (no bias, and one per width 16, 18, ... 128)
 HOPPER_SOURCES = {"fused_window_attention": 3,
                   "global_attention_fwd_lse": 3, "fused_ln_mlp_residual": 2,
                   "int8_matmul": 1, "global_attention_bwd_dq": 3,
                   "global_attention_bwd_dkv": 3, "flash_attention_fwd": 30,
-                  "flash_attention_bwd_dq": 30, "flash_attention_bwd_dkv": 30}
+                  "flash_attention_bwd_dq": 58, "flash_attention_bwd_dkv": 58}
 # The body each kernel's C entry takes at its path's shapes: K1 and K2 by
 # dtype at the extraction path's, the K5 forward at SAM's global layers
 # (Kw 64) and DINOv2's kv_len layers
@@ -368,7 +375,9 @@ K6_ATOL = {"flash_attention_fwd": 2.5e-6, "lse": 1e-5,
 # 0.239, 0.148 (the mma.sync backward's, and the Hopper backward's again
 # to these digits); 14 x 14 windows 0.189, 0.215, 0.405, 0.436, 0.235,
 # 0.150; @544 (the mma.sync backward) 0.284, 0.160, 0.228, 0.281, 0.126,
-# 0.198.
+# 0.198 (the Hopper dq and dkv with the mma.sync forward again to these
+# digits: its limits stay); @592 (the mma.sync bodies) 0.271, 0.090,
+# 0.149, 0.146, 0.090, 0.285.
 # They follow no law in the number of keys summed (196 to 3136; dq's
 # largest gap is @576's, dk's the windows'). The fp32 lse: 1.9e-6.
 K6_BF16_STEPS = {
@@ -383,19 +392,22 @@ K6_BF16_STEPS = {
                       "dbias_w": 1.0, "dk": 0.36, "dv": 0.23},
     "sam544_global": {"out": 0.43, "dq": 0.25, "dbias_h": 0.35,
                       "dbias_w": 0.43, "dk": 0.19, "dv": 0.30},
+    "sam592_global": {"out": 0.41, "dq": 0.14, "dbias_h": 0.23,
+                      "dbias_w": 0.22, "dk": 0.14, "dv": 0.43},
     "window": {"out": 0.29, "dq": 0.33, "dbias_h": 0.61, "dbias_w": 0.66,
                "dk": 0.36, "dv": 0.23}}
 K6_BF16_LSE_ATOL = 3e-6
 # K6 in bf16 at its paths' shapes: SAM ViT-B/16 @768's global layers under
 # `fast` (B=2, a 48 x 48 grid, Kh = Kw = 48), DINOv2 ViT-B/14 @518's kv_len
 # shape, SAM @640's (a 40 x 40 grid), @896's (56 x 56) and @576's (36 x
-# 36: a width of 4 mod 8) global layers, SAM @544's (34 x 34: the main
-# path of the mma.sync bodies, whose Kw 34 no Hopper body takes), and
-# SAM's 14 x 14 windows (50 windows, which no bf16 path gives K6: a second
-# check of the mma.sync bodies); at each the forward takes the body of
-# K6_BF16_FWD_BODY and the backward that of K6_BF16_BWD_BODY (one
-# predicate: the same body; rows and counters `<kernel>_hopper` or
-# `<kernel>_bf16`). A row's numbers are those of its main path's shape,
+# 36: a width of 4 mod 8) global layers, SAM @544's (34 x 34: a width of 2
+# mod 4, which the Hopper dq and dkv take and the forward's Hopper body
+# does not), SAM @592's (37 x 37: the main path of the mma.sync bodies,
+# whose odd Kw no Hopper body takes), and SAM's 14 x 14 windows (50
+# windows, which no bf16 path gives K6: a second check of the mma.sync
+# bodies); at each the forward takes the body of K6_BF16_FWD_BODY and the
+# backward that of K6_BF16_BWD_BODY (rows and counters `<kernel>_hopper`
+# or `<kernel>_bf16`). A row's numbers are those of its main path's shape,
 # K6_BF16_MAIN_SHAPE.
 K6_BF16_SHAPES = {"sam768_global": (2, 2304, 48, 48, None),
                   "dinov2": (2, 1536, 0, 0, 1370),
@@ -403,18 +415,19 @@ K6_BF16_SHAPES = {"sam768_global": (2, 2304, 48, 48, None),
                   "sam896_global": (2, 3136, 56, 56, None),
                   "sam576_global": (2, 1296, 36, 36, None),
                   "sam544_global": (2, 1156, 34, 34, None),
+                  "sam592_global": (2, 1369, 37, 37, None),
                   "window": (50, 196, 14, 14, None)}
 K6_BF16_BWD_BODY = {"sam768_global": "hopper", "dinov2": "hopper",
                     "sam640_global": "hopper", "sam896_global": "hopper",
-                    "sam576_global": "hopper", "sam544_global": "mma",
-                    "window": "mma"}
-K6_BF16_FWD_BODY = K6_BF16_BWD_BODY
+                    "sam576_global": "hopper", "sam544_global": "hopper",
+                    "sam592_global": "mma", "window": "mma"}
+K6_BF16_FWD_BODY = dict(K6_BF16_BWD_BODY, sam544_global="mma")
 K6_BF16_MAIN_SHAPE = {"flash_attention_fwd_hopper": "sam768_global",
                       "flash_attention_fwd_bf16": "sam544_global",
                       "flash_attention_bwd_dq_hopper": "sam768_global",
                       "flash_attention_bwd_dkv_hopper": "sam768_global",
-                      "flash_attention_bwd_dq_bf16": "sam544_global",
-                      "flash_attention_bwd_dkv_bf16": "sam544_global"}
+                      "flash_attention_bwd_dq_bf16": "sam592_global",
+                      "flash_attention_bwd_dkv_bf16": "sam592_global"}
 # Phase 24, SAM ViT-B/16 `fast` fine-tuning at 768 px, B=2: launches per
 # step (8 windowed layers of 14 x 14 windows over the 48 x 48 grid padded
 # to 56: K1 and K4; 4 global layers of 2304 tokens, which no fused kernel
@@ -439,10 +452,20 @@ FAST896_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
 SAM576 = 576
 FAST576_STEP_LAUNCHES = FAST768_STEP_LAUNCHES
 # Phase 28, the same at 544 px: the 34 x 34 grid (windows over it padded to
-# 42), whose Kw 34 (not a multiple of 4) no Hopper body takes, so the
-# forward, dq and dkv run and count under the mma.sync bodies
+# 42), whose Kw 34 (2 mod 4) the Hopper dq and dkv take (key-major dkv
+# terms, the bias_w rows by bulk copy) and the forward's Hopper body does
+# not: the forward runs and counts under the mma.sync body
 SAM544 = 544
 FAST544_STEP_LAUNCHES = {"fused_window_attention": 8,
+                         "window_attention_bwd": 8,
+                         "flash_attention_fwd_bf16": 4,
+                         "flash_attention_bwd_dq_hopper": 4,
+                         "flash_attention_bwd_dkv_hopper": 4}
+# Phase 29, the same at 592 px: the 37 x 37 grid (windows over it padded to
+# 42), whose odd Kw no Hopper body takes, so the forward, dq and dkv run
+# and count under the mma.sync bodies (their main path)
+SAM592 = 592
+FAST592_STEP_LAUNCHES = {"fused_window_attention": 8,
                          "window_attention_bwd": 8,
                          "flash_attention_fwd_bf16": 4,
                          "flash_attention_bwd_dq_bf16": 4,
@@ -1884,13 +1907,26 @@ def sam576_phase(torch, A, ft, vit):
 
 
 def sam544_phase(torch, A, ft, vit):
-    """Phase 28: SAM ViT-B/16 ``fast`` fine-tuning at 544 px, batch 2, the
-    main path of the K6 bf16 mma.sync bodies: its global layers'
-    34 x 34 grid fits no fused kernel and no Hopper body (Kw 34 is not a
-    multiple of 4). ``FT_STEPS`` steps whose launches are held to
-    ``FAST544_STEP_LAUNCHES``. Returns the launches."""
+    """Phase 28: SAM ViT-B/16 ``fast`` fine-tuning at 544 px, batch 2: its
+    global layers' 34 x 34 grid fits no fused kernel; Kw 34 (2 mod 4) takes
+    the Hopper dq and dkv (key-major dkv terms) and the forward's mma.sync
+    body. ``FT_STEPS`` steps whose launches are held to
+    ``FAST544_STEP_LAUNCHES``, then traced steps. Returns (launches, the
+    steps' summary)."""
     cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM544)
     return finetune_phase(torch, A, ft, per_step=FAST544_STEP_LAUNCHES,
+                          backbone_cfg=cfg, trace=True)
+
+
+def sam592_phase(torch, A, ft, vit):
+    """Phase 29: SAM ViT-B/16 ``fast`` fine-tuning at 592 px, batch 2, the
+    main path of the K6 bf16 mma.sync bodies: its global layers' 37 x 37
+    grid fits no fused kernel and no Hopper body (an odd Kw), its windowed
+    layers K1 and K4 over the grid padded to 42. ``FT_STEPS`` steps whose
+    launches are held to ``FAST592_STEP_LAUNCHES``. Returns the
+    launches."""
+    cfg = dataclasses.replace(vit.SAM_VIT_B, image_size=SAM592)
+    return finetune_phase(torch, A, ft, per_step=FAST592_STEP_LAUNCHES,
                           backbone_cfg=cfg)
 
 
@@ -4102,21 +4138,31 @@ def main() -> int:
     sam576_counts, sam576 = sam576_phase(torch, A, ft, vit)  # phase 27
     log("fine-tune SAM @576 fast: " + json.dumps(sam576))
     torch.cuda.empty_cache()
-    sam544_counts = sam544_phase(torch, A, ft, vit)            # phase 28
+    sam544_counts, sam544 = sam544_phase(torch, A, ft, vit)  # phase 28
+    log("fine-tune SAM @544 fast: " + json.dumps(sam544))
+    torch.cuda.empty_cache()
+    sam592_counts = sam592_phase(torch, A, ft, vit)            # phase 29
     # K6 in bf16: the @768 `fast` steps are the main path of the Hopper
-    # bodies (also @640, @896 and @576), the @544 ones of the mma.sync
-    # bodies
+    # bodies (also @640, @896, @576 and, dq and dkv, @544), the @544 ones
+    # of the mma.sync forward (also @592), the @592 ones of the mma.sync
+    # dq and dkv
     for kname, rec in k6_bf16_records.items():
-        at544 = kname.endswith("_bf16")
-        rec["launches"] = (sam544_counts if at544 else sam768_counts)[kname]
-        if not at544:
+        if kname == "flash_attention_fwd_bf16":
+            rec["launches"] = sam544_counts[kname]
+            rec["launches_sam592_fast"] = sam592_counts[kname]
+        elif kname.endswith("_bf16"):
+            rec["launches"] = sam592_counts[kname]
+        else:
+            rec["launches"] = sam768_counts[kname]
             rec["fast768_step"] = sam768
             rec["launches_sam640_fast"] = sam640_counts[kname]
             rec["launches_sam896_fast"] = sam896_counts[kname]
             rec["launches_sam576_fast"] = sam576_counts[kname]
+            rec["launches_sam544_fast"] = sam544_counts[kname]
             rec["fast640_step"] = sam640
             rec["fast896_step"] = sam896
             rec["fast576_step"] = sam576
+            rec["fast544_step"] = sam544
     records.update(k6_bf16_records)
     log(card_line())
     log(json.dumps({"kernels": list(records.values())}))

@@ -253,6 +253,9 @@ int passes(int kw) { return hopper_dq_passes(kw); }
 int hrows(int kw) { return hopper_dkv_hrows(kw); }
 int term_ld(int kw) { return hopper_term_ld(kw); }
 int term_period(int kw) { return hopper_term_period(kw); }
+int term_key_major(int kw) { return hopper_term_key_major(kw); }
+int term_bytes(int kw) { return hopper_term_bytes(kw); }
+int stage_bytes(int kw) { return hopper_stage_bytes(kw); }
 int stages(int kw) { return hopper_dkv_stages(kw); }
 long long dkv_smem(int kw) { return (long long)hopper_dkv_smem(kw); }
 long long dq_smem(int kw, int kh) { return (long long)hopper_dq_smem(kw, kh); }
@@ -294,11 +297,13 @@ def build(out_dir: Path, kind: str = "bodies") -> ctypes.CDLL:
     else:
         for name in ("route", "fwd", "tile", "passes", "fwd_tile",
                      "fwd_passes", "hrows", "term_ld", "term_period",
+                     "term_key_major", "term_bytes", "stage_bytes",
                      "stages"):
             getattr(lib, name).restype = I
         lib.route.argtypes = lib.fwd.argtypes = [I] * 3
         for name in ("tile", "passes", "fwd_tile", "fwd_passes", "hrows",
-                     "term_ld", "term_period", "stages", "dkv_smem"):
+                     "term_ld", "term_period", "term_key_major",
+                     "term_bytes", "stage_bytes", "stages", "dkv_smem"):
             getattr(lib, name).argtypes = [I]
         lib.dkv_smem.restype = ctypes.c_longlong
         for name in ("dq_smem", "fwd_smem"):

@@ -1169,12 +1169,15 @@ def _k6_bf16_steps():
     steps of the output's largest |value|, the fp32 lse absolutely. Phase
     10 holds each of its shapes to limits set from that shape's readings;
     the widths here have none of their own, so each output takes the
-    loosest of phase 10's limits."""
+    loosest of phase 10's limits at the shapes where the Hopper backward
+    runs (not those of the mma.sync bodies' own shapes)."""
     import chip_smoke as cs
 
     names = {"dbias_h": "dbh", "dbias_w": "dbw"}
     steps = {"lse": None}
-    for by_output in cs.K6_BF16_STEPS.values():
+    for shape, by_output in cs.K6_BF16_STEPS.items():
+        if cs.K6_BF16_BWD_BODY[shape] != "hopper":
+            continue
         for name, x in by_output.items():
             name = names.get(name, name)
             steps[name] = max(steps.get(name, 0.0), x)
@@ -1182,12 +1185,14 @@ def _k6_bf16_steps():
 
 
 def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len, steps=None):
-    """K6 in bf16 at one shape: the forward and the backward (the body
-    their routes name, one choice for all three, each counted under that
-    body's name) against the plain versions, the backward fed the kernel
+    """K6 in bf16 at one shape: the forward and the backward (the bodies
+    their routes name, one choice for dq and dkv, each launch counted under
+    its body's name) against the plain versions, the backward fed the kernel
     forward's lse and delta: K6_BF16_ATOL, or with ``steps``
     (``_k6_bf16_steps()``) that many bf16 steps of each output's largest
-    |value|. Returns the body."""
+    |value|. The forward's body is the backward's, but at Kw 2 mod 4, where
+    the backward's Hopper bodies take the lse of the forward's mma.sync
+    one. Returns the backward's body."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
     *args, dout = _k6_inputs(gen, b, heads, s, kh, kw, kv_len)
@@ -1195,7 +1200,8 @@ def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len, steps=None):
     scale = 64 ** -0.5
     body = G.flash_attention_bwd_route(*args)
     assert body == G.flash_attention_bwd_route(*args, kernel="dkv")
-    assert G.flash_attention_route(*args) == body
+    fwd_body = G.flash_attention_route(*args)
+    assert fwd_body == ("mma" if body == "hopper" and kw % 4 == 2 else body)
     A.reset_launch_counts()
     out, lse = G.flash_attention_fwd(*args, scale=scale)
     rest = (dout, lse, G.flash_attention_delta(out, dout))
@@ -1204,8 +1210,10 @@ def _k6_bf16_check(gen, b, heads, s, kh, kw, kv_len, steps=None):
     torch.cuda.synchronize()
     # counted under the names of the bodies that ran, the Hopper or
     # mma.sync ones; none under the fp32 builds' names
-    suffix = "_hopper" if body == "hopper" else "_bf16"
-    names = (f"flash_attention_fwd{suffix}", f"flash_attention_bwd_dq{suffix}",
+    suffix, fwd_suffix = ("_hopper" if b_ == "hopper" else "_bf16"
+                          for b_ in (body, fwd_body))
+    names = (f"flash_attention_fwd{fwd_suffix}",
+             f"flash_attention_bwd_dq{suffix}",
              f"flash_attention_bwd_dkv{suffix}")
     assert {n: c for n, c in A.LAUNCHES.items() if c} == \
         dict.fromkeys(names, 1)
@@ -1312,20 +1320,35 @@ def test_flash_trainable_bf16_hopper_bodies_match_plain(gen, s, kh, kv_len):
                                   # third), 2 dkv stages
     (2, 1296, 36, 36, [700, 1296]),   # kv_len inside a grid row
     (2, 1936, 44, 44, [0, 1936]),     # a kv_len 0 row
+    # widths 2 mod 4 (the backward alone; the forward takes its mma.sync
+    # body): dkv's key-major terms and bulk-copied bias_w rows
+    (1, 324, 18, 18, None),       # 32-key tiles over 18 keys
+    (2, 1156, 34, 34, None),      # SAM @544: a last dq and dkv block of 4
+                                  # rows, a last bulk copy of 4 rows
+    (1, 580, 10, 58, None),       # two 32-key passes (26 live in the
+                                  # second), 3 dkv stages
+    (1, 980, 10, 98, None),       # three 48-key passes (2 live in the
+                                  # third)
+    (1, 1260, 10, 126, None),     # three 48-key passes, 2 dkv stages
+    (2, 1156, 34, 34, [700, 1156]),   # kv_len inside a grid row
+    (2, 1156, 34, 34, [0, 1156]),     # a kv_len 0 row
 ], ids=["sam640", "sam896", "kw72", "kw16", "kw24", "kw32", "kw64", "kw80",
         "kw88", "kw96", "kw104", "kw112", "kw120", "kw128", "kw40_kh128",
         "sam640_kv_len", "kw72_kv_len", "sam896_kv_len_zero_row", "kw20",
         "sam576", "sam704", "sam832", "sam960", "kw124", "sam576_kv_len",
-        "sam704_kv_len_zero_row"])
+        "sam704_kv_len_zero_row", "kw18", "sam544", "kw58", "kw98", "kw126",
+        "sam544_kv_len", "sam544_kv_len_zero_row"])
 def test_flash_trainable_bf16_hopper_bodies_at_every_grid_width(
         gen, b, s, kh, kw, kv_len):
     """The Hopper bodies at key-grid widths other than 48 (multiples of 8
     from 16 to 128, and of 4: Kw 20, SAM @576-@960's 36, 44, 52, 60, and
-    124): dq in one to three passes a grid row of 16-, 32-, 48- or 64-key
+    124; in the backward also 2 mod 4: Kw 18, SAM @544's 34, 58, 98 and
+    126): dq in one to three passes a grid row of 16-, 32-, 48- or 64-key
     tiles (``hopper_dq_passes``, ``hopper_dq_tile``), masking the next
     row's keys in a tile wider than the row's share (per column pair where
     a pass ends inside an 8-column chunk); dkv with the grid rows, the
-    bias_w term layout and ring depth of each width;
+    bias_w term layout (key-major at Kw 2 mod 4, the fp32 rows by bulk
+    copy) and ring depth of each width;
     S not a multiple of 128 (the last block half idle), kv_len with a bias,
     against the plain versions at two heads, by phase 10's rule."""
     assert _k6_bf16_check(gen, b, 2, s, kh, kw, kv_len,
@@ -1378,20 +1401,23 @@ def test_flash_trainable_bf16_hopper_forward_matches_plain(gen, b, s, kh, kw,
 def test_flash_trainable_bf16_route_and_determinism(gen):
     """fp32 calls take the tiled bodies; bf16 calls the Hopper bodies at
     Kw 48, 72 (two passes a grid row) and 36 (4 mod 8: the doubled dkv
-    terms, the pair masks) and the mma.sync ones at Kw 14; a bf16 bias
-    grid of more than 320 terms is refused by the C entry;
-    two bf16 runs give the same bits on either body (no atomics)."""
+    terms, the pair masks), the Hopper backward and the mma.sync forward
+    at SAM @544's Kw 34 (2 mod 4: the key-major dkv terms) and the mma.sync
+    ones at Kw 14; a bf16 bias grid of more than 320 terms is refused by
+    the C entry; two bf16 runs give the same bits on either body (no
+    atomics)."""
     from vit_deep_radiomics_tpu_torch.ops import attention_grad as G
 
-    for shape, body in (((2, 3, 192, 4, 48), "hopper"),
-                        ((1, 2, 1440, 20, 72), "hopper"),
-                        ((1, 2, 1296, 36, 36), "hopper"),
-                        ((2, 3, 196, 14, 14), "mma")):
+    for shape, body, fwd_body in (((2, 3, 192, 4, 48), "hopper", "hopper"),
+                                  ((1, 2, 1440, 20, 72), "hopper", "hopper"),
+                                  ((1, 2, 1296, 36, 36), "hopper", "hopper"),
+                                  ((2, 2, 1156, 34, 34), "hopper", "mma"),
+                                  ((2, 3, 196, 14, 14), "mma", "mma")):
         *args, dout = _k6_inputs(gen, *shape)
         assert G.flash_attention_route(*args) == "tiled"
         assert G.flash_attention_bwd_route(*args) == "tiled"
         args, dout = _k6_bf16(args, dout)
-        assert G.flash_attention_route(*args) == body
+        assert G.flash_attention_route(*args) == fwd_body
         for kernel in ("dq", "dkv"):
             assert G.flash_attention_bwd_route(*args, kernel=kernel) == body
         runs = [_k6_run(G.flash_attention_fwd, G.flash_attention_bwd_dq,

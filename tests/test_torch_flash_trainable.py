@@ -17,7 +17,7 @@ bf16: the same three cases, a key grid 48 keys wide (SAM's global grid
 at 768 px) over several JAX key tiles (S 192 = 4 x 48, blocks of 96), a
 12 x 20 grid (a width of 4 mod 8, as SAM's at 576-960 px) over three key
 tiles (blocks of 80), and SAM's global grids at 640 px (40 x 40) and 896 px (56 x 56) at two heads
-(blocks of eight grid rows), q, k and v rounded to bf16 on both sides, the bias fp32 as the fine-tuning path
+(blocks of eight grid rows) and at 544 px (34 x 34, blocks of 17 grid rows), q, k and v rounded to bf16 on both sides, the bias fp32 as the fine-tuning path
 gives it. The port's plain versions round where the JAX kernels' source
 does (Q^, the bias terms, P before P·V, dS before each product and the
 bias sums, P before dV). By default XLA on the CPU drops an fp32 → bf16 →
@@ -88,12 +88,17 @@ CASES = {
 # one 20 keys wide (4 mod 8, as SAM's grids at 576, 704, 832 and 960 px)
 # over three key tiles of four grid rows, and SAM ViT-B/16's global grids
 # at 640 px (40 x 40) and 896 px (56 x 56) at two heads, over five and
-# seven JAX key tiles of eight grid rows
+# seven JAX key tiles of eight grid rows, and at 544 px (34 x 34: a width
+# of 2 mod 4, whose backward takes the Hopper bodies on the card and whose
+# forward the mma.sync one) over two key tiles of 17 grid rows. A case's
+# seed is its place in the sorted names, so a new name sorts after the
+# others
 BF16_CASES = dict(CASES, kw48_four_key_tiles=(1, 2, 192, 4, 48, None, 96,
                                               96),
                   kw20_three_key_tiles=(1, 2, 240, 12, 20, None, 80, 80),
                   sam640_grid=(1, 2, 1600, 40, 40, None, 320, 320),
-                  sam896_grid=(1, 2, 3136, 56, 56, None, 448, 448))
+                  sam896_grid=(1, 2, 3136, 56, 56, None, 448, 448),
+                  sam_544_grid=(1, 2, 1156, 34, 34, None, 578, 578))
 BF16_TOL = 0.01
 ONE_TILE_MEAN_TOL = 1e-4
 LSE_BF16_TOL = 2e-6

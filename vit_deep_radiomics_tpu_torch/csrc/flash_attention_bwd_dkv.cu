@@ -242,14 +242,14 @@ int dkv_hopper_at(const vdr::k6h::Params& p, const CUtensorMap (&m)[4],
                    m[2], m[3], tbw);
 }
 
-// the instance of width p.kw among kKw, kKw + 4, ... kHopperMaxKw
+// the instance of width p.kw among kKw, kKw + 2, ... kHopperMaxKw
 template <int kKw>
 int dkv_hopper_kw(const vdr::k6h::Params& p, const CUtensorMap (&m)[4],
                   const CUtensorMap& tbw, int B, cudaStream_t stream) {
   if constexpr (kKw > vdr::k6b::kHopperMaxKw) {
     return vdr::k6b::kErrTerms;
   } else {
-    constexpr int kNext = kKw + vdr::k6b::kHopperKwStep;
+    constexpr int kNext = kKw + vdr::k6b::kHopperBwdKwStep;
     return p.kw == kKw ? dkv_hopper_at<true, kKw>(p, m, tbw, B, stream)
                        : dkv_hopper_kw<kNext>(p, m, tbw, B, stream);
   }
@@ -261,12 +261,16 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
   CUtensorMap m[4], tbw;
   if (!h::qkv_maps(m, q, k, v, dout, p.S, B * p.H, 64))
     return h::kErrTensorMap;
-  const bool bias = p.bias_h != nullptr;
-  if (bias && !h::bias_map(&tbw, p.bias_w, p.S, B * p.H, p.kw))
-    return h::kErrTensorMap;
-  if (!bias) {
-    tbw = m[3];   // never read
+  tbw = m[3];   // never read without a bias, or at Kw 2 mod 4
+  if (p.bias_h == nullptr)
     return dkv_hopper_at<false, 0>(p, m, tbw, B, stream);
+  if (p.kw % 4 == 0) {
+    if (!h::bias_map(&tbw, p.bias_w, p.S, B * p.H, p.kw))
+      return h::kErrTensorMap;
+  } else if (reinterpret_cast<uintptr_t>(p.bias_w) % 16 != 0) {
+    // the bias_w rows come by bulk copy, which needs both ends 16-byte
+    // aligned (the offsets are, at every even Kw)
+    return h::kErrAlign;
   }
   return dkv_hopper_kw<16>(p, m, tbw, B, stream);
 }
@@ -321,7 +325,9 @@ int vdr_flash_attention_bwd_dkv(const float* q, const float* k,
 // of the body launched is written to *body unless it is null. Returns 0 on
 // success, a cudaError_t after a failed attribute call or launch, -1 for a
 // head dim other than 64, -2 for a bias grid of more than
-// vdr::k6b::kMaxTerms terms, or -3 when a TMA descriptor cannot be made.
+// vdr::k6b::kMaxTerms terms, -3 when a TMA descriptor cannot be made, or
+// -4 for a bias_w not 16-byte aligned at Kw 2 mod 4 (the Hopper body's
+// bulk copy).
 int vdr_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
                                      const void* v, const float* bias_h,
                                      const float* bias_w, const int* kv_len,

@@ -106,7 +106,7 @@ int fwd_hopper_kw(const vdr::k6h::Params& p, const CUtensorMap (&m)[3],
   if constexpr (kKw > vdr::k6b::kHopperMaxKw) {
     return vdr::k6b::kErrTerms;
   } else {
-    constexpr int kNext = kKw + vdr::k6b::kHopperKwStep;
+    constexpr int kNext = kKw + vdr::k6b::kHopperFwdKwStep;
     return p.kw == kKw ? fwd_hopper_at<true, kKw>(p, m, B, stream)
                        : fwd_hopper_kw<kNext>(p, m, B, stream);
   }

@@ -41,10 +41,10 @@
 // bodies also run on the CPU under a g++ stand-in for those
 // (tests/test_torch_k6_bf16_shim.py), as do bwd_route and fwd_route, the
 // choice between the bodies here and the TMA + wgmma bodies
-// (flash_trainable_hopper.cuh: no bias, or a key grid whose width is a
-// multiple of 4 from 16 to 128, every SAM ViT-B/16 global grid that
-// fast fine-tuning hands to K6 from 576 px up), with the Hopper bodies'
-// tiling.
+// (flash_trainable_hopper.cuh: no bias, or a key grid of an even width from
+// 16 to 128 for dq and dkv, a multiple of 4 for the forward: every SAM
+// ViT-B/16 global grid that fast fine-tuning hands to K6 from 544 px up,
+// the forward's from 576 px), with the Hopper bodies' tiling.
 #pragma once
 
 #include "flash_attention_core.cuh"
@@ -99,26 +99,32 @@ __host__ __device__ inline bool takes(bool has_bias, int kh, int kw) {
 
 // The body the bf16 backward (dq and dkv alike) runs for a call:
 // kRouteHopper, the TMA + wgmma bodies of flash_trainable_hopper.cuh (no
-// bias, or a key grid whose width is a multiple of 4 from 16 to
-// kHopperMaxKw keys, so that a row of fp32 bias_w is whole 16-byte units
-// as TMA needs, and of at most kHopperMaxKh rows, whose bias_h terms dq
-// stages in one table), else kRouteMma, the mma.sync bodies below, or
-// kErrTerms for a grid they refuse too. The forward takes the same
-// choice (fwd_route) between its Hopper body and its mma.sync one.
+// bias, or a key grid of an even width from 16 to kHopperMaxKw keys, so
+// that a row of fp32 bias_w is whole 8-byte pairs, and of at most
+// kHopperMaxKh rows, whose bias_h terms dq stages in one table), else
+// kRouteMma, the mma.sync bodies below, or kErrTerms for a grid they
+// refuse too. The forward (fwd_route) takes its Hopper body at the widths
+// that are a multiple of 4 alone (its instances), and its mma.sync body at
+// the others, Kw 2 mod 4 among them.
 constexpr int kRouteMma = 1, kRouteHopper = 2;
 constexpr int kHopperMaxKw = 128;
 constexpr int kHopperMaxKh = 128;
-constexpr int kHopperKwStep = 4;   // the widths built: 16, 20, ... 128
-__host__ __device__ constexpr bool hopper_kw(int kw) {
-  return kw % kHopperKwStep == 0 && kw >= 16 && kw <= kHopperMaxKw;
+constexpr int kHopperBwdKwStep = 2;   // dq and dkv built at 16, 18, ... 128
+constexpr int kHopperFwdKwStep = 4;   // the forward at 16, 20, ... 128
+__host__ __device__ constexpr bool hopper_kw(int kw, int step) {
+  return kw % step == 0 && kw >= 16 && kw <= kHopperMaxKw;
 }
-__host__ __device__ inline int bwd_route(bool has_bias, int kh, int kw) {
-  if (!has_bias || (hopper_kw(kw) && kh <= kHopperMaxKh))
+__host__ __device__ inline int route(bool has_bias, int kh, int kw,
+                                     int step) {
+  if (!has_bias || (hopper_kw(kw, step) && kh <= kHopperMaxKh))
     return kRouteHopper;
   return takes(has_bias, kh, kw) ? kRouteMma : kErrTerms;
 }
+__host__ __device__ inline int bwd_route(bool has_bias, int kh, int kw) {
+  return route(has_bias, kh, kw, kHopperBwdKwStep);
+}
 __host__ __device__ inline int fwd_route(bool has_bias, int kh, int kw) {
-  return bwd_route(has_bias, kh, kw);
+  return route(has_bias, kh, kw, kHopperFwdKwStep);
 }
 
 // The Hopper bodies' tiling of a key grid kw wide (with a bias; here so
@@ -126,14 +132,16 @@ __host__ __device__ inline int fwd_route(bool has_bias, int kh, int kw) {
 // dq takes each grid row in hopper_dq_passes(kw) passes, pass u a key
 // tile of hopper_dq_tile(kw) keys (a k16 step multiple) from grid column
 // u * tile; the tile's columns past the row's end are masked (per column
-// pair: at Kw 4 mod 8 a pass can end inside an 8-column chunk). A pass of
+// pair: where Kw is not a multiple of 8 a pass can end inside an 8-column
+// chunk, on a column pair since Kw is even). A pass of
 // 64 live columns spilled its scores, dP, bias_w terms and dbias_w sums
 // (132-236 bytes), and a first pass with masked columns before a second
 // one serialized the wgmma pipeline (ptxas C7511), so one pass up to Kw 56
 // (16, 32, 48 or 64 keys: Kw 56 has 56 live in 64), else ceil(Kw / 48)
-// passes of at most 48 keys, every pass but the last whole: Kw 64 two of
-// 32, Kw 60 two of 32 (28 live in the second), Kw 68-96 two of 48, Kw
-// 100-128 three of 48. Calls with no bias take 48 consecutive keys a tile.
+// passes of at most 48 keys, every pass but the last whole: Kw 58-64 two
+// of 32 (26 live in the second at 58, 28 at 60), Kw 66-96 two of 48, Kw
+// 98-128 three of 48 (2 live in the third at 98). Calls with no bias take
+// 48 consecutive keys a tile.
 constexpr int kHopperNoBiasTile = 48;
 __host__ __device__ constexpr int hopper_dq_passes(int kw) {
   return kw <= 56 ? 1 : (kw + 47) / 48;
@@ -153,15 +161,39 @@ __host__ __device__ constexpr int hopper_dq_tile(int kw) {
 // the row holds the Kw terms twice (2 Kw columns: Kw / 4 chunks, odd) and
 // a block starts at column key % (2 Kw), a multiple of 8: in even grid rows
 // the first copy's column (a block at Kw - 4 reads on into the second
-// copy's 0-3), in odd ones the second copy's.
+// copy's 0-3), in odd ones the second copy's. At Kw 2 mod 4 a block
+// starting at key % Kw is only 4-byte aligned, and doubled rows would not
+// help: there the terms are key-major (hopper_term_key_major), [grid
+// column][query], Kw rows of the tile's 64 queries kHopperKeyMajorLd bf16
+// apart (9 chunks), staged once; a warp reads its 8-key block's rows (key %
+// Kw each, so a block that wraps a grid row costs nothing) with a plain
+// ldmatrix. kHopperTermsKeyMajor 0 (a probe variant) stages the row-major
+// terms four times instead (4 Kw columns: Kw / 2 chunks, odd; a block
+// starts at column key % (4 Kw), a multiple of 8).
+constexpr int kHopperTermsKeyMajor = 1;
+constexpr int kHopperKeyMajorLd = 64 + 8;
 __host__ __device__ constexpr int hopper_dkv_hrows(int kw) {
   return 127 / kw + 2;
 }
-__host__ __device__ constexpr int hopper_term_ld(int kw) {
-  return kw % 8 ? 2 * kw : (kw / 8) % 2 ? kw : kw + 8;
+__host__ __device__ constexpr bool hopper_term_key_major(int kw) {
+  return kw % 4 == 2 && kHopperTermsKeyMajor != 0;
 }
+__host__ __device__ constexpr int hopper_term_ld(int kw) {
+  return hopper_term_key_major(kw) ? kHopperKeyMajorLd
+         : kw % 4   ? 4 * kw
+         : kw % 8   ? 2 * kw
+         : (kw / 8) % 2 ? kw
+                        : kw + 8;
+}
+// the row-major terms' period (key-major: a key's row is key % Kw)
 __host__ __device__ constexpr int hopper_term_period(int kw) {
-  return kw % 8 ? 2 * kw : kw;
+  return hopper_term_key_major(kw) ? kw
+         : kw % 4                 ? 4 * kw
+         : kw % 8                 ? 2 * kw
+                                  : kw;
+}
+__host__ __device__ constexpr int hopper_term_bytes(int kw) {
+  return (hopper_term_key_major(kw) ? kw : 64) * hopper_term_ld(kw) * 2;
 }
 // dkv's stage (kw 0: no bias): raw q, dO and Q^ (three 8 KB tiles), then
 // with a bias the tile's fp32 bias_w rows, their bf16 terms, and fp32 lse,
@@ -169,7 +201,8 @@ __host__ __device__ constexpr int hopper_term_period(int kw) {
 // the stages are as many as fit beside the K and V tiles, at most
 // kHopperDkvMaxStages and at least 2 (Kw 0 mod 8: 4 up to 56, 3 up to 96, 2
 // beyond; Kw 4 mod 8, whose doubled terms cost 128 Kw bytes more a stage:
-// 4 up to 44, 3 up to 76, 2 beyond).
+// 4 up to 44, 3 up to 76, 2 beyond; Kw 2 mod 4, key-major: 4 up to 54, 3
+// up to 98, 2 beyond; staged four times: 4 up to 26, 3 up to 50).
 constexpr int kHopperDkvMaxStages = 4;
 constexpr int kHopperTile = 64 * 64 * 2;
 constexpr int kHopperSmemMax = 232448 - 256;   // 227 KB less the barriers
@@ -177,8 +210,7 @@ __host__ __device__ constexpr int hopper_term_off(int kw) {
   return 3 * kHopperTile + 64 * kw * 4;
 }
 __host__ __device__ constexpr int hopper_small_off(int kw) {
-  return kw ? hopper_term_off(kw) + 64 * hopper_term_ld(kw) * 2
-            : 3 * kHopperTile;
+  return kw ? hopper_term_off(kw) + hopper_term_bytes(kw) : 3 * kHopperTile;
 }
 __host__ __device__ constexpr int hopper_stage_bytes(int kw) {
   return (hopper_small_off(kw) + (2 + (kw ? hopper_dkv_hrows(kw) : 0)) *

@@ -81,6 +81,9 @@ inline const char* error_string(int err) {
   if (err == -1) return "head dim has no kernel build (D=64 only)";
   if (err == -2) return "bias grid of more than 320 terms (Kh + Kw) in bf16";
   if (err == -3) return "cuTensorMapEncodeTiled failed";
+  if (err == -4)
+    return "bias_w not 16-byte aligned (the bf16 K6 dkv's bulk copy at Kw 2 "
+           "mod 4)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

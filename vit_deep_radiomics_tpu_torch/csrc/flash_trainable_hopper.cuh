@@ -3,13 +3,17 @@
 // flash_attention_bwd_dq.cu) and dk/dv (flash_attention_bwd_dkv.cu) for
 // per-head bf16 q, k, v (B, H, S, D),
 // D = 64, with no bias or a decomposed fp32 bias on a key grid of Kh <= 128
-// rows whose width Kw is a multiple of 4 from 16 to 128 (SAM ViT-B/16's
-// global layers under fast fine-tuning: Kw 36, 40, 44, 48, 52, 56 and 60 at
-// 576, 640, ... 960 px, 72, 80 and 96 at 1152, 1280 and 1536), kv_len or
-// not.
-// k6b::bwd_route and k6b::fwd_route (flash_trainable_bf16.cuh, one
-// predicate) say which calls they take, and the k6b::hopper_* functions
-// there give their tiling; the others keep the mma.sync bodies there.
+// rows whose width Kw is even from 16 to 128 for dq and dkv, a multiple of
+// 4 for the forward (SAM ViT-B/16's global layers under fast fine-tuning:
+// Kw 34, 36, 38, ... 60 at 544, 576, 608, ... 960 px, 72, 80 and 96 at
+// 1152, 1280 and 1536), kv_len or not.
+// k6b::bwd_route and k6b::fwd_route (flash_trainable_bf16.cuh) say which
+// calls they take, and the k6b::hopper_* functions there give their
+// tiling; the others keep the mma.sync bodies there. The forward keeps
+// its mma.sync body at Kw 2 mod 4 (SAM @544's 34 among them), whose lse,
+// from mma.sync sums, the Hopper dq and dkv take as their residual: their
+// wgmma sums of the same scores may differ from those in the last fp32
+// bits, as two runs of fp32 sums in another order do.
 //
 // Replaces: vit_deep_radiomics_tpu/ops/attention_grad.py::_fwd_kernel,
 // ::_bwd_dq_kernel and ::_bwd_dkv_kernel (flash_attention_trainable's
@@ -43,25 +47,29 @@
 // The instance is built for the grid's width, so the columns a tile holds
 // past the row (Kw 40 in 48 keys: the next grid row's first keys, or TMA's
 // zeros past S) are masked to P = 0 at compile time and add nothing to dQ
-// += dS K; where a pass ends inside an 8-column chunk (Kw 4 mod 8) the
-// lanes of that chunk mask by their column pair. dS rounded in its fp32 registers is the register A operand of
+// += dS K; where a pass ends inside an 8-column chunk (Kw not a multiple
+// of 8) the lanes of that chunk mask by their column pair. dS rounded in its fp32 registers is the register A operand of
 // that product; dQ of tile j-1 is issued with the scores of tile j, and
 // the warpgroups issue in turn.
 //
 // dkv, key-major: two consumer warpgroups own 64 keys each (wgmma M = 64),
 // whose K and V tiles arrive once; per 64-query tile one producer warp
-// brings q, dO and the tile's fp32 bias_w rows by TMA and writes lse, D
-// and the bias_h terms of the grid rows the block's 128 keys span
-// (k6b::hopper_dkv_hrows) by plain loads; the instance is built for the
-// grid's width, so its stage layout and ring depth (4 stages up to Kw 56,
-// 3 up to 96, 2 beyond: as many as fit) are constants. The consumers form
+// brings q, dO and the tile's fp32 bias_w rows by TMA (at Kw 2 mod 4,
+// whose rows are not whole 16-byte units, the rows by one bulk copy) and
+// writes lse, D and the bias_h terms of the grid rows the block's 128 keys
+// span (k6b::hopper_dkv_hrows) by plain loads; the instance is built for
+// the grid's width, so its stage layout and ring depth (4 stages up to Kw
+// 56, 3 up to 96, 2 beyond: as many as fit) are constants. The consumers
+// form
 // Q^ and the bf16 bias_w terms (exact: t(x) is a bf16 value) once per tile
 // for the whole block, half each, one tile ahead of their use where the
 // ring has three stages or more; ldmatrix.trans reads a key's terms for the
 // two queries a thread holds in one register, at the 16-byte chunk of the
 // block's first key (k6b::hopper_term_ld: at Kw 4 mod 8 each query's terms
 // are staged twice over, so that a block that wraps a grid row, or starts
-// at 4 mod 8, reads 8 consecutive terms at an aligned column). P^T and
+// at 4 mod 8, reads 8 consecutive terms at an aligned column; at Kw 2 mod 4
+// the terms are key-major and a plain ldmatrix reads each key's row). P^T
+// and
 // dS^T, rounded in registers,
 // are the A operands of dV += P^T dO and dK += dS^T q (the raw q; dk is
 // scaled at the end), issued with the next tile's scores.
@@ -102,6 +110,7 @@ constexpr int kConsumers = 2;         // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kConsumerRegs = k5h::consumer_regs(kConsumers);
 constexpr int kErrTensorMap = -3;
+constexpr int kErrAlign = -4;   // bias_w not 16-byte aligned (Kw 2 mod 4)
 
 // dq
 constexpr int kDqStages = k6b::kHopperDqStages;   // K/V ring depth
@@ -200,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kPasses = kBias ? k6b::hopper_dq_passes(kKw) : 1;
   constexpr int kNK = kBias ? k6b::hopper_dq_tile(kKw) : kKw;
   constexpr int kKTile = kNK * 64 * 2;   // a K or V tile
-  static_assert(kNK % 16 == 0 && kKw % 4 == 0, "k16 tiles, 4-key pairs");
+  static_assert(kNK % 16 == 0 && kKw % 2 == 0, "k16 tiles, 2-key pairs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kDqStages], empty[kDqStages], qbar;
   // the swizzled tiles need 1024-byte alignment in the shared window
@@ -272,9 +281,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // pass) and dbias_w sums, the same columns in every tile of a pass; a
   // tile's columns past the pass's kCols (the next pass's or the next grid
   // row's keys) are known at compile time: 8-column chunks at or past
-  // kCols, and with kCols 4 mod 8 the upper half of the chunk it ends in,
-  // lanes c = 2, 3 (live(8i, kCols) for the pair 8i + 2c, 8i + 2c + 1);
-  // at Kw 0 mod 8 every pass ends on a chunk
+  // kCols, and where kCols ends inside a chunk (on a column pair, kCols
+  // even) the lanes past it, c >= (kCols mod 8) / 2 (live(8i, kCols) for
+  // the pair 8i + 2c, 8i + 2c + 1); at Kw 0 mod 8 every pass ends on a
+  // chunk
   auto live = [&](int chunk0, int cols) {
     if constexpr (kKw % 8 == 0)
       return chunk0 < cols;
@@ -499,6 +509,28 @@ __global__ void __launch_bounds__(kThreads, 1)
 // col_lo/col_hi of the warp's two 8-key blocks (k6b::hopper_term_ld: the
 // chunk holds the block's 8 keys' terms, also where the block wraps a grid
 // row). The sum is the forward's: s + (th + tw).
+// The terms of query blocks 2n and 2n + 1 (r[2u + half]: query block 2n +
+// u, key block half, as ldmatrix gives them) added with bias_h's.
+__device__ __forceinline__ void add_terms(float (&s)[32], const float* th,
+                                          const uint32_t (&r)[4], int n,
+                                          int hr_lo, int hr_hi, int c) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = 2 * n + u;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 hv = *reinterpret_cast<const float2*>(
+          th + (half ? hr_hi : hr_lo) * 64 + 8 * i + 2 * c);
+      const __nv_bfloat162 w =
+          *reinterpret_cast<const __nv_bfloat162*>(&r[2 * u + half]);
+      float& s0 = s[4 * i + 2 * half];
+      float& s1 = s[4 * i + 2 * half + 1];
+      s0 = __fadd_rn(s0, __fadd_rn(hv.x, __low2float(w)));
+      s1 = __fadd_rn(s1, __fadd_rn(hv.y, __high2float(w)));
+    }
+  }
+}
+
 template <int kLd>
 __device__ __forceinline__ void add_bias(float (&s)[32], const float* th,
                                          uint32_t tw, int hr_lo, int hr_hi,
@@ -512,21 +544,34 @@ __device__ __forceinline__ void add_bias(float (&s)[32], const float* th,
     const int qr = 8 * (2 * n + (m >> 1)) + rr;
     uint32_t r[4];
     k5h::ldmatrix_x4_trans(r, tw + (qr * kLd + col) * 2);
+    add_terms(s, th, r, n, hr_lo, hr_hi, c);
+  }
+}
+
+// Four 8 x 8 bf16 matrices: lane 8m + r gives the address of row r of
+// matrix m; register m holds (row g, col 2c), (row g, col 2c + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The same from key-major terms (Kw 2 mod 4: [grid column][query]): a
+// plain ldmatrix, whose matrix rows are keys, columns queries. tw_lane is
+// the table's address plus this lane's row, its key's grid column, and
+// its matrix's query block (fixed for the block: dkv_hopper_kernel);
+// query blocks 2n and 2n + 1 lie 32 n bytes on.
+__device__ __forceinline__ void add_bias_key_major(float (&s)[32],
+                                                   const float* th,
+                                                   uint32_t tw_lane,
+                                                   int hr_lo, int hr_hi,
+                                                   int c) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = 2 * n + u;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float2 hv = *reinterpret_cast<const float2*>(
-            th + (half ? hr_hi : hr_lo) * 64 + 8 * i + 2 * c);
-        const __nv_bfloat162 w =
-            *reinterpret_cast<const __nv_bfloat162*>(&r[2 * u + half]);
-        float& s0 = s[4 * i + 2 * half];
-        float& s1 = s[4 * i + 2 * half + 1];
-        s0 = __fadd_rn(s0, __fadd_rn(hv.x, __low2float(w)));
-        s1 = __fadd_rn(s1, __fadd_rn(hv.y, __high2float(w)));
-      }
-    }
+  for (int n = 0; n < 4; ++n) {
+    uint32_t r[4];
+    ldmatrix_x4(r, tw_lane + 32 * n);
+    add_terms(s, th, r, n, hr_lo, hr_hi, c);
   }
 }
 
@@ -549,11 +594,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kTermLd = kBias ? k6b::hopper_term_ld(kKw) : 0;
   constexpr int kHRows = kBias ? k6b::hopper_dkv_hrows(kKw) : 0;
   // a block's first term column is its first key mod kPeriod (Kw, or 2 Kw
-  // where the terms are staged twice)
+  // where the terms are staged twice); at Kw 2 mod 4 the terms are
+  // key-major (or, a probe variant, staged four times: kPeriod 4 Kw) and
+  // the tile's fp32 rows come by bulk copy (k6b::hopper_term_*)
   constexpr int kPeriod = kBias ? k6b::hopper_term_period(kKw) : 1;
   constexpr bool kTwice = kBias && kPeriod != kKw;
+  constexpr bool kKeyMajor = kBias && k6b::hopper_term_key_major(kKw);
+  constexpr bool kBulkRows = kBias && kKw % 4 != 0;
   static_assert(!kBias || (kTermLd % 8 == 0 && (kTermLd / 8) % 2 == 1 &&
-                           kTermLd >= kPeriod),
+                           (kKeyMajor || kTermLd >= kPeriod)),
                 "16-byte rows an odd number of chunks apart");
   static_assert(kStages >= 2, "a stage in use and one being filled");
   static_assert(kBias == (kKw > 0), "a grid width with a bias alone");
@@ -632,7 +681,18 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      if (lane == 0) {
+      if (lane == 0 && kBulkRows) {
+        // the tile's rows in one bulk copy (both ends 16-byte aligned at
+        // every even Kw), which counts the bytes it copies: rows past S
+        // none, and their stale words are never read (make_qhat)
+        const uint32_t sa = smem_u32(sp);
+        const int rows = min(64, p.S - q0);
+        mbar_expect_tx(&full[st], 2 * kTile + rows * kKw * 4);
+        tma_load(sa, &tq, &full[st], 0, q0, head);
+        tma_load(sa + kTile, &tdo, &full[st], 0, q0, head);
+        bulk_load(sa + kRawOff, p.bias_w + (head_row + q0) * kKw,
+                  rows * kKw * 4, &full[st]);
+      } else if (lane == 0) {
         const uint32_t sa = smem_u32(sp);
         mbar_expect_tx(&full[st], 2 * kTile + 64 * kKw * 4);
         tma_load(sa, &tq, &full[st], 0, q0, head);
@@ -660,6 +720,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hr_hi = kBias ? key_hi / kKw - kr0 : 0;
   const int col_lo = kBias ? wkey % kPeriod : 0;
   const int col_hi = kBias ? (wkey + 8) % kPeriod : 0;
+  // key-major: the term row of this lane's ldmatrix row (key block
+  // (lane / 8) % 2 of the warp) and the query block of its matrix
+  const int term_key = wkey + 8 * ((lane >> 3) & 1) + (lane & 7);
+  const uint32_t term_lane =
+      kKeyMajor ? ((term_key % (kKw ? kKw : 1)) * kTermLd + 8 * (lane >> 4)) *
+                      2
+                : 0;
   const uint32_t k_tile = kv_addr + 2 * wg * kTile, v_tile = k_tile + kTile;
   auto stage = [&](int j) { return stages + (j % kStages) * kStageBytes; };
   auto stage_at = [&](int j) { return smem_u32(stage(j)); };
@@ -671,7 +738,41 @@ __global__ void __launch_bounds__(kThreads, 1)
     unsigned char* st = stage(j);
     k5h::scale_tile(st + 2 * kTile, st, p.scale_log2, threadIdx.x,
                     kConsumers * 128);
-    if constexpr (kBias) {
+    if constexpr (kKeyMajor) {
+      // [grid column][query]: a pair of queries and of columns an item;
+      // queries past S (the bulk copy's stale rows) take 0: a NaN there
+      // would reach P through exp2(s - lse)
+      const float2* raw = reinterpret_cast<const float2*>(st + kRawOff);
+      const int rows = p.S - 64 * j;
+      for (int i = threadIdx.x; i < 16 * kKw; i += kConsumers * 128) {
+        const int qp = i % 32, cp = i / 32;
+        float2 a = make_float2(0.f, 0.f), b = a;
+        if (2 * qp < rows) {
+          a = raw[qp * kKw + cp];             // query 2 qp
+          b = raw[qp * kKw + kKw / 2 + cp];   // query 2 qp + 1
+        }
+        unsigned char* w = st + kTermOff + (2 * cp * kTermLd + 2 * qp) * 2;
+        *reinterpret_cast<uint32_t*>(w) =
+            pack_bf16(__fmul_rn(a.x, kLog2e), __fmul_rn(b.x, kLog2e));
+        *reinterpret_cast<uint32_t*>(w + kTermLd * 2) =
+            pack_bf16(__fmul_rn(a.y, kLog2e), __fmul_rn(b.y, kLog2e));
+      }
+    } else if constexpr (kBulkRows) {
+      // [query][4 Kw]: a column pair an item, written four times (queries
+      // past S: 0)
+      const float2* raw = reinterpret_cast<const float2*>(st + kRawOff);
+      const int rows = p.S - 64 * j;
+      for (int k = threadIdx.x; k < 32 * kKw; k += kConsumers * 128) {
+        const int q = k / (kKw / 2), col = (k % (kKw / 2)) * 2;
+        const float2 v = q < rows ? raw[k] : make_float2(0.f, 0.f);
+        const uint32_t w =
+            pack_bf16(__fmul_rn(v.x, kLog2e), __fmul_rn(v.y, kLog2e));
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<uint32_t*>(
+              st + kTermOff + (q * kTermLd + u * kKw + col) * 2) = w;
+      }
+    } else if constexpr (kBias) {
       const float4* raw = reinterpret_cast<const float4*>(st + kRawOff);
       for (int k = threadIdx.x; k < 16 * kKw; k += kConsumers * 128) {
         const int q = k / (kKw / 4), col = (k % (kKw / 4)) * 4;
@@ -701,7 +802,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = k6b::kNegInf;
     }
-    if (add)
+    if (add && kKeyMajor)
+      add_bias_key_major(s, sm + 128, stage_at(j) + kTermOff + term_lane,
+                         hr_lo, hr_hi, c);
+    else if (add)
       add_bias<kTermLd>(s, sm + 128, stage_at(j) + kTermOff, hr_lo, hr_hi,
                         col_lo, col_hi, lane, c);
     k5h::probs_ds(s, dp, sm, sm + 64, c, ragged, lo_ok, hi_ok);
@@ -1084,8 +1188,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
 // 3-D map (kw columns, S rows, B·H heads) of the fp32 bias_w, boxes of
 // the 64 rows of a query tile, no swizzle (rows of kw * 4 bytes, a multiple
-// of 16 for every width the Hopper bodies take); rows past S read as
-// zeros.
+// of 16 at Kw 0 mod 4; dkv takes the rows by bulk copy at Kw 2 mod 4);
+// rows past S read as zeros.
 inline bool bias_map(CUtensorMap* map, const float* ptr, int S, int heads,
                      int kw) {
   const EncodeTiled enc = encoder();

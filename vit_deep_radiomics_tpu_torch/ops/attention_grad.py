@@ -30,13 +30,15 @@ Kw)``, as in ``ops/attention.py``):
   (``csrc/flash_attention_bwd_dkv.cu``), any key-grid width. fp32 calls
   run the register-tiled CUDA-core bodies (``csrc/f32_tiled_forward.cuh``,
   ``csrc/flash_trainable_core.cuh``), bf16 calls with no bias or a key
-  grid whose width is a multiple of 4 from 16 to 128 (SAM @576 to @1536:
-  Kw 36 to 96) of at most 128 rows the TMA + wgmma bodies of
-  ``csrc/flash_trainable_hopper.cuh``, and other bf16 calls the mma.sync
-  bodies of ``csrc/flash_trainable_bf16.cuh`` (fp32 bias, lse and bias
-  gradients); :func:`flash_attention_route` says which body the forward
-  runs, :func:`flash_attention_bwd_route` the backward (the same
-  choice).
+  grid of at most 128 rows whose width is even from 16 to 128 (SAM @544 to
+  @1536: Kw 34 to 96) the TMA + wgmma bodies of
+  ``csrc/flash_trainable_hopper.cuh`` in the backward, and in the forward
+  where the width is also a multiple of 4 (SAM @576 up), and other bf16
+  calls the mma.sync bodies of ``csrc/flash_trainable_bf16.cuh`` (fp32
+  bias, lse and bias gradients); :func:`flash_attention_route` says which
+  body the forward runs, :func:`flash_attention_bwd_route` the backward
+  (one choice for dq and dkv; the forward's at Kw 2 mod 4 is the mma.sync
+  body, the backward's the Hopper ones).
 
 The backward formulas, with ``P`` the softmax of the scores and ``O`` the
 forward's output, natural units::
@@ -688,10 +690,11 @@ def flash_attention_route(q, k, v, bias_h=None, bias_w=None,
     chooses, ``"tiled"`` (fp32: the register-tiled CUDA-core body),
     ``"hopper"`` (bf16 with no bias or a key grid whose width is a multiple
     of 4 from 16 to 128, of at most 128 rows: the TMA + wgmma body) or
-    ``"mma"`` (other bf16 grids: the mma.sync body). Raises for a call the
-    kernels refuse (a head dim other than 64; in bf16, a bias grid of more
-    than 320 terms Kh + Kw). :func:`flash_attention_bwd_route` answers for
-    the backward, with the same choice in bf16."""
+    ``"mma"`` (other bf16 grids, Kw 2 mod 4 among them: the mma.sync body).
+    Raises for a call the kernels refuse (a head dim other than 64; in
+    bf16, a bias grid of more than 320 terms Kh + Kw).
+    :func:`flash_attention_bwd_route` answers for the backward, whose
+    Hopper bodies take the even widths too."""
     _check_flash(q, k, v, bias_h, bias_w, kv_len)
     if q.device.type == "cpu":
         return "plain"
@@ -706,9 +709,10 @@ def flash_attention_bwd_route(q, k, v, bias_h=None, bias_w=None,
     ``"dkv"``) runs for these operands: ``"plain"`` on the CPU; on the card,
     as the dq source's route entry chooses (one choice for both),
     ``"tiled"`` (fp32), ``"hopper"`` (bf16 with no bias or a key grid
-    whose width is a multiple of 4 from 16 to 128, of at most 128 rows:
-    the TMA + wgmma bodies) or ``"mma"`` (other bf16 grids: the mma.sync
-    bodies). Raises where :func:`flash_attention_route` does."""
+    whose width is even from 16 to 128, of at most 128 rows: the TMA +
+    wgmma bodies) or ``"mma"`` (other bf16 grids, odd widths and widths
+    under 16: the mma.sync bodies). Raises where
+    :func:`flash_attention_route` does."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
     _check_flash(q, k, v, bias_h, bias_w, kv_len)

@@ -42,10 +42,11 @@ Two measurements that ``chip_smoke.py`` does not make::
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-768 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-640 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-896 PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-544 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-576 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path finetune-960 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe gaps [--seeds 10] [--shape sam544_global]
-    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe sass [--source flash_attention_bwd_dq] PARENT CHANGE
+    python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe sass [--source flash_attention_bwd_dq] [--match hopper_kernel] PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path frozen PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path dinov2 PARENT CHANGE
     python -m vit_deep_radiomics_tpu_torch.utils.kernel_probe pair --path k1 PARENT CHANGE
@@ -66,7 +67,9 @@ removed; the K6 backward: one tile buffer instead of two, or 64-column
 tiles, a 4 x 8 score micro-tile; the K6 bf16 backward's Hopper bodies
 (``k6hdq``, ``k6hdkv``): the ring depth, exp2f instead of ex2.approx.ftz,
 dq without the warpgroups' turns or the bias sums, dkv without the bias
-add or the bias_w terms' conversion; the K6 bf16 forward's Hopper body
+add or the bias_w terms' conversion, and dkv's terms at Kw 2 mod 4 staged
+row-major four times instead of key-major (``terms_4x``; also at SAM
+@544's and @592's global shapes); the K6 bf16 forward's Hopper body
 (``k6hfwd``): the ring depth, three consumer warpgroups, dq's two 32-key
 passes at Kw 60 and 64, the bias add or the PV product removed; the
 register-tiled fp32 forward of K1,
@@ -124,9 +127,11 @@ rounding points (``k6_oracle_gaps``) over seeds at every bf16 shape of
 ``chip_smoke.py``'s phase 10, for the backward body the tree's route
 takes there, beside the plain versions' distance; one JSON line a shape
 and seed (``tests/k6_bf16_shim.py`` reads the same on the CPU).
-``sass`` builds kernel sources (default: the K6 backward's two) in two
-checkouts and says, kernel by kernel (``--match``, default the Hopper
-bodies), whether ``cuobjdump -sass`` lists the same code in both.
+``sass`` builds kernel sources (default: the K6 forward's and backward's
+three) in two checkouts and says, kernel by kernel (``--match``, default
+the Hopper bodies), whether ``cuobjdump -sass`` lists the same code in
+both, and which kernels one tree alone builds; it prints names and the
+first differing lines only, never whole listings.
 ``pair`` runs two checkouts in turns (parent, change,
 change, parent), each in a fresh process: with ``--path extraction`` (the
 default) 10 `fast` SAM ViT-B/16 @1024 forwards at B=4 on the host clock,
@@ -167,13 +172,14 @@ another body (its sums run in another order), and the backward's then
 also where only the forward's body changed (it is fed that forward's lse
 and D); what parent and change are held to there is each tree's phase 24
 (launches, each kernel against its plain version) and the times; with
-``--path finetune-576``, ``finetune-640``,
+``--path finetune-544``, ``finetune-576``, ``finetune-640``,
 ``finetune-896`` or ``finetune-960`` the same for SAM ViT-B/16 `fast`
 fine-tuning at that size (B=2, 5 steps held to the launches of the
-bodies each tree's routes name at its 36 x 36, 40 x 40, 56 x 56 or
-60 x 60 global grid, traced steps), then the three K6 bf16 kernels' ms at
-that grid (``finetune-960``: also at @704's and @832's, 44 x 44 and 52 x
-52) beside the bf16 SDPA forward's and whole backward's and SHA-256s of
+bodies each tree's routes name at its 34 x 34, 36 x 36, 40 x 40, 56 x 56
+or 60 x 60 global grid, traced steps), then the three K6 bf16 kernels' ms
+at that grid (``finetune-960``: also at @704's and @832's, 44 x 44 and 52
+x 52; ``finetune-544``: also at @592's 37 x 37, the mma.sync bodies' main
+path) beside the bf16 SDPA forward's and whole backward's and SHA-256s of
 their outputs;
 with ``--path frozen`` the `fast`, `int8` (K8) and ``VDR_FUSED_MLP=1`` (K7)
 SAM @1024 forwards at B=4 (host ms, device ms from ``utils/profiling.py``),
@@ -476,13 +482,21 @@ VARIANTS = {
                              "pv_tile<kNK>(o, pa, k_of(n_tiles - 1) + "
                              "kKTile);")),
     },
+    # dkv: also, at Kw 2 mod 4, the bias_w terms staged row-major four
+    # times instead of key-major
     "k6hdkv": {
         "as_built": ({}, ()),
         "stages_3": ({"kHopperDkvMaxStages": 3}, ()),
+        "terms_4x": ({"kHopperTermsKeyMajor": 0}, ()),
         "no_bias": ({}, ("add_bias<kTermLd>(s, sm + 128, stage_at(j) + "
                          "kTermOff, hr_lo, hr_hi,\n                        "
-                         "col_lo, col_hi, lane, c);",)),
-        "no_terms": ({}, (("k < 16 * kKw;", "k < 0;"),)),
+                         "col_lo, col_hi, lane, c);",
+                         "add_bias_key_major(s, sm + 128, stage_at(j) + "
+                         "kTermOff + term_lane,\n                         "
+                         "hr_lo, hr_hi, c);")),
+        "no_terms": ({}, (("k < 16 * kKw;", "k < 0;"),
+                          ("i < 16 * kKw;", "i < 0;"),
+                          ("k < 32 * kKw;", "k < 0;"))),
         "exp2f": ({}, (("sm90::fast_exp2(s[4 * i + e] - ((e & 1) ? l.y : "
                         "l.x))", "exp2f(s[4 * i + e] - ((e & 1) ? l.y : "
                         "l.x))"),)),
@@ -610,7 +624,8 @@ _K5_BWD_SHAPES = _K5_SHAPES[:3]
 _K6H_SHAPES = ((2, 2304, 48, 48, None), (2, 1600, 40, 40, None),
                (2, 3136, 56, 56, None), (2, 1536, 0, 0, 1370),
                (2, 1296, 36, 36, None), (2, 2704, 52, 52, None),
-               (2, 3600, 60, 60, None))
+               (2, 3600, 60, 60, None), (2, 1156, 34, 34, None),
+               (2, 1369, 37, 37, None))
 CALLS = {
     # K1 one window a batch row: SAM's 14 x 14 windows and 16 x 16 ones
     "k1": ([_P] * 5 + [_I] * 7 + [_F, _I, _P],
@@ -622,9 +637,11 @@ CALLS = {
               (*_K6_SHAPES, (2, 1536, 0, 0, 1370)), None),
     "k6dkv": ([_P] * 11 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
     "k6dq": ([_P] * 12 + [_I] * 6 + [_F, _P], _K6_SHAPES, None),
-    # K6's bf16 backward: SAM @768's global layers and DINOv2's kv_len
-    # shape, both on the Hopper bodies (the last pointer, where the entry
-    # writes the body it ran, null)
+    # K6's bf16 backward and forward: SAM's global layers at 768, 640,
+    # 896, 576, 832, 960, 544 and 592 px and DINOv2's kv_len shape (the
+    # last pointer, where the entry writes the body it ran, null; @544 the
+    # forward, @592 all three on the mma.sync bodies, which no variant
+    # changes)
     "k6hdkv": ([_P] * 11 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
     "k6hdq": ([_P] * 12 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
     "k6hfwd": ([_P] * 8 + [_I] * 6 + [_F, _P, _P], _K6H_SHAPES, None),
@@ -2181,6 +2198,7 @@ _CHILDREN = {"extraction": _PAIR_CHILD, "parity": _PAIR_PARITY_CHILD,
              "fast": _PAIR_FAST_CHILD, "fast-768": _PAIR_FAST768_CHILD,
              "fast-2048": _PAIR_FAST2048_CHILD,
              "finetune-768": _PAIR_FINETUNE768_CHILD,
+             "finetune-544": _finetune_child(544, (592, 544)),
              "finetune-576": _finetune_child(576),
              "finetune-640": _finetune_child(640),
              "finetune-896": _finetune_child(896),
@@ -2331,7 +2349,8 @@ def main(argv=None) -> int:
         _k6_gaps(args.seeds, args.shapes)
     elif args.cmd == "sass":
         _sass(args.parent.resolve(), args.change.resolve(),
-              args.sources or ["flash_attention_bwd_dq",
+              args.sources or ["flash_attention_fwd",
+                               "flash_attention_bwd_dq",
                                "flash_attention_bwd_dkv"], args.match)
     else:
         _pair(args.parent.resolve(), args.change.resolve(), args.path)
